@@ -3,11 +3,12 @@
 Preserves every hyperparameter of the reference CLI with identical defaults
 (reference: main.py:15-66), expressed as a frozen dataclass instead of an
 argparse namespace with derived fields stuffed onto it (main.py:69-89).
-The fields are those of ``c2dsr_tpu/config.py`` so one set of keyword
-arguments configures both packages; the TPU-only knobs (``kernel_backend``,
-``train_prng``, ``pallas_interpret``, ``batch_sparse_gnn``, the mesh and
-profiler fields) are carried but not read by the port.  The port picks a
-kernel by the device of the tensor it is given (``ops/backend.py``).
+The fields are the reference's hyperparameters and those build knobs of
+``c2dsr_tpu/config.py`` that the port reads, under the same names, so one
+set of keyword arguments configures both packages.  The JAX package's
+TPU-only knobs (kernel backend, mesh, PRNG, profiler) have no counterpart:
+the port picks a kernel by the device of the tensor it is given
+(``ops/backend.py``).
 
 Derived fields (item counts, pad index) live in :class:`DataSpec`, produced by
 the data layer, so the model/config split is explicit instead of implicit.
@@ -16,7 +17,6 @@ the data layer, so the model/config split is explicit instead of implicit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 MAPPING_DATASET = {
     "fk": "Food-Kitchen",
@@ -87,54 +87,14 @@ class Config:
     # Streaming dtype of the classifier weight at its use sites (CE loss and
     # ranking).  "auto" -> float32 in the port.
     classifier_dtype: str = "auto"
-    # Kernel backend: "xla" (portable) or "pallas" (TPU fused kernels).
-    kernel_backend: str = "auto"    # auto -> pallas on TPU, xla elsewhere
-    # Batch-sparse graph propagation in the TRAIN step (Pallas path): mask
-    # SpMM edges outside the batch's neighborhood — the step reads only
-    # batch rows of the propagated tables and their cotangent is zero
-    # elsewhere, so every consumed value and every gradient is exactly the
-    # dense computation's (ops/spmm_pallas.make_blocked_spmm_flagged).
-    # Eval/convolve-for-ranking always runs dense.  Default OFF: measured
-    # SLOWER at FK scale on v5e (22.1 vs 17.0 ms/step) — the XLA row-marker
-    # scatters and the masked gather's unchanged transaction count eat the
-    # saved bytes; the switch exists for larger/denser graphs where the
-    # batch neighborhood is a smaller fraction of nnz.
-    batch_sparse_gnn: bool = False
-    # Train-step dropout PRNG implementation ("auto" | "rbg" |
-    # "threefry2x32"); see resolved_train_prng.
-    train_prng: str = "auto"
-    # Off-TPU, run shard-local Pallas kernels through the interpreter instead
-    # of falling back to XLA (fake-pod dryrun/tests of the sharded fast path).
-    pallas_interpret: bool = False
-    # Mesh shape: data-parallel x model-parallel.  (1, 1) = single chip.
-    mesh_data: int = 1
-    mesh_model: int = 1
-    # Sharded-table tower-lookup strategy (mesh_model > 1 only):
-    # "psum" = owner-masked gather + psum (optimal when every model shard
-    # needs every id); "a2a" = bucket-by-owner all-to-all exchange with the
-    # id set sharded over the whole mesh (each device gathers only 1/M of
-    # the rows) + an all_gather back.  Both are exact; see parallel/embed.py.
-    lookup_mode: str = "psum"
     # Eval protocol: "sampled" = 999 negatives (reference default),
     # "full" = full-itemset ranking (the headline mode of this framework).
     eval_mode: str = "sampled"
     # Embedding-table rows and classifier output dims are padded up to this
-    # multiple: keeps the last dims tileable on the MXU and makes row/vocab
-    # sharding divisible by the model mesh axis.  Padded rows are never
-    # indexed; padded logit columns are masked to -inf in loss and ranking.
-    # Default 2048 = the fused-CE kernel's forward vocab block: classifiers
-    # are then kernel-ready at rest, with no per-step pad copies (profiled
-    # ~0.9ms/step at FK scale), and the forward runs its fastest measured
-    # block shape (bv=2048, see ops/fused_ce._pick_blocks).  Must be
-    # >= lcm(8, mesh_model).
+    # multiple (the JAX package's default, so one set of keyword arguments
+    # gives both packages the same shapes).  Padded rows are never indexed;
+    # padded logit columns are masked to -inf in ranking.
     vocab_pad_multiple: int = 2048
-    # Resume from the --ckpt directory if a checkpoint exists there
-    # (params + opt state + step + best-validation bookkeeping).
-    resume: bool = False
-    # Write a jax.profiler trace of the first training epoch here.
-    profile_dir: Optional[str] = None
-    # Debug mode: enable jax_debug_nans and fail fast on non-finite losses.
-    debug_nans: bool = False
 
     # --- Reference bug-parity switches (SURVEY.md section 2 quirks) --------
     # Quirk 1: reference inverts the key-padding mask (encoders.py:33): real

@@ -18,6 +18,10 @@
 // beside them, so each matmul streams 32x64 weight tiles from L2 (a tower's
 // weights sit there across all blocks) through shared memory; each thread
 // accumulates a 4x4 output tile in registers.  Matmuls are FFMA in f32.
+// The weights are read where they lie, and in a serving loop other work
+// evicts them from L2 between launches: so at its start the grid asks L2 for
+// every weight line of the tower at once, and the first blocks' pass over
+// the 32x64 tiles does not wait on DRAM once per tile.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -35,6 +39,15 @@ struct Layer {
   const float *w_qkv, *b_qkv, *w_out, *b_out, *w_ff1, *b_ff1, *w_ff2, *b_ff2;
   const float *ln1_s, *ln1_b, *ln2_s, *ln2_b;
 };
+
+// Issues an L2 prefetch for each 128-byte line of p[0, n), spread over all
+// threads of the grid.
+__device__ __forceinline__ void prefetch_l2(const float* p, size_t n) {
+  const size_t lines = (n + 31) / 32;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < lines;
+       i += (size_t)gridDim.x * kThreads)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i * 32));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -165,6 +178,11 @@ encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int d4 = d / 4;
+
+  prefetch_l2(l0.w_qkv, n_layers * s_qkv);
+  prefetch_l2(l0.w_out, n_layers * s_dd);
+  prefetch_l2(l0.w_ff1, n_layers * s_dd);
+  prefetch_l2(l0.w_ff2, n_layers * s_dd);
 
   // load the block's rows; zero the pad rows of X and T
   const float* xb = x + (size_t)seq0 * L * d;

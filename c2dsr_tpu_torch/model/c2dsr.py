@@ -24,9 +24,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from c2dsr_tpu_torch.config import Config, DataSpec
-from c2dsr_tpu_torch.ops import backend
-from c2dsr_tpu_torch.ops import encoder as enc
-from c2dsr_tpu_torch.ops import spmm
+from c2dsr_tpu_torch.ops import backend, spmm
 
 
 class Graphs(NamedTuple):
@@ -95,19 +93,12 @@ def _tower(seq, pos, hi, raw_table, attn_params, cfg: Config, spec: DataSpec,
            pops=None) -> torch.Tensor:
     """(propagated + raw) lookup x sqrt(d) -> attention tower."""
     h = _tower_pre(seq, hi, raw_table, cfg, spec, pops)
-    if not h.is_cuda:
-        return enc.encode_sequence(
-            seq, h, pos, attn_params, idx_pad=spec.idx_pad,
-            n_head=cfg.n_head, norm_first=cfg.norm_first,
-            invert_padding_mask=cfg.bug_inverted_padding_mask).float()
-    if cfg.norm_first:
-        raise NotImplementedError(
-            "the fused encoder kernel is post-norm; norm_first has no CUDA "
-            "kernel yet")
+    # the positional add stays outside the fused kernel, as in JAX
     x = (h + attn_params["pos_emb"][pos]).contiguous()
     return backend.encode_layers(
         x, seq, attn_params, idx_pad=spec.idx_pad, n_head=cfg.n_head,
-        invert_padding_mask=cfg.bug_inverted_padding_mask)
+        norm_first=cfg.norm_first,
+        invert_padding_mask=cfg.bug_inverted_padding_mask).float()
 
 
 def forward(params: Dict[str, Any], hi: Propagated, seq_share, seq_a, seq_b,

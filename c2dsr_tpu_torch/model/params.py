@@ -17,7 +17,11 @@ defaults for nn.Embedding / nn.Linear / nn.MultiheadAttention):
 
 Parameters are plain nested dicts of tensors in the JAX layout (``x @ w``
 with w [d_in, d_out]), so ``params_from_numpy`` takes a JAX initialisation
-converted to numpy and both packages run from the same numbers.
+converted to numpy and both packages run from the same numbers.  One
+difference: the JAX tree keeps a tower's layers as a list of dicts, the
+port keeps each layer weight stacked over layers (``layers["w_qkv"]`` is
+[n_attn, d, 3d]), so the fused encoder kernel reads a tower's weights in
+place.  ``params_to_numpy`` gives the JAX tree back.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ def init_encoder_params(g: torch.Generator, cfg: Config, len_max: int
             "ln2_scale": torch.ones((d,), device=g.device),
             "ln2_bias": _zeros((d,), g),
         })
-    return {"pos_emb": pos_emb, "layers": layers,
+    return {"pos_emb": pos_emb, "layers": _stack(layers),
             "lnf_scale": torch.ones((d,), device=g.device),
             "lnf_bias": _zeros((d,), g)}
 
@@ -127,16 +131,34 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _stack(layers):
+    """A tower's layers, a list of dicts, as one dict of [n_layers, ...]
+    tensors."""
+    return {k: torch.stack([layer[k] for layer in layers]) for k in layers[0]}
+
+
+def _restack(tree, fn):
+    """``tree`` with ``fn`` applied to the value of every "layers" key."""
+    if isinstance(tree, dict):
+        return {k: fn(v) if k == "layers" else _restack(v, fn)
+                for k, v in tree.items()}
+    return tree
+
+
 def params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
     """A parameter tree of numpy arrays (nested dicts and lists, as
     ``jax.tree.map(np.asarray, params)`` gives for the JAX package's params)
-    -> the port's tensors on ``device``, values unchanged."""
+    -> the port's tensors on ``device``, values unchanged, each tower's
+    layers stacked."""
     device = backend.resolve_device(device)
-    return _map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(device),
-                tree)
+    tensors = _map(lambda a: torch.from_numpy(np.array(a, copy=True)), tree)
+    return _map(lambda t: t.to(device), _restack(tensors, _stack))
 
 
 def params_to_numpy(params) -> Dict[str, Any]:
-    """The inverse of :func:`params_from_numpy`."""
-    return _map(lambda t: t.detach().cpu().numpy(), params)
+    """The inverse of :func:`params_from_numpy`: the JAX package's tree."""
+    def unstack(layers):
+        n = next(iter(layers.values())).shape[0]
+        return [{k: v[i] for k, v in layers.items()} for i in range(n)]
+    return _map(lambda t: t.detach().cpu().numpy(), _restack(params, unstack))
 

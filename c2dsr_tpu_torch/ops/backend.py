@@ -43,14 +43,19 @@ def spmm(graph, h: torch.Tensor) -> torch.Tensor:
 
 
 def encode_layers(x: torch.Tensor, seq: torch.Tensor, params, *,
-                  idx_pad: int, n_head: int, invert_padding_mask: bool
-                  ) -> torch.Tensor:
-    """Post-norm layers + final LN (input already position-added):
-    the fused encoder kernel for a CUDA tensor, else the plain version."""
+                  idx_pad: int, n_head: int, norm_first: bool,
+                  invert_padding_mask: bool) -> torch.Tensor:
+    """The layers + final LN (input already position-added): the fused
+    encoder kernel for a CUDA tensor, else the plain version.  The kernel is
+    post-norm only, so ``norm_first`` on a CUDA tensor raises."""
     if x.is_cuda:
+        if norm_first:
+            raise NotImplementedError(
+                "the fused encoder kernel is post-norm; norm_first has no "
+                "CUDA kernel yet")
         return encoder_cuda.encoder_fwd(
             x, seq, params, idx_pad=idx_pad, n_head=n_head,
             invert_padding_mask=invert_padding_mask)
     return enc.encode_layers(x, seq, params, idx_pad=idx_pad, n_head=n_head,
-                             norm_first=False,
+                             norm_first=norm_first,
                              invert_padding_mask=invert_padding_mask)

@@ -16,7 +16,8 @@ reference's inverted key-padding mask (SURVEY.md quirk 1).
 
 This is the plain version of the fused encoder kernel (``ops/encoder_cuda``);
 CPU tensors take it, and the tests and ``chip_smoke.py`` hold the kernel
-against it.  Parameters use the JAX layout: ``x @ w`` with w [d_in, d_out].
+against it.  Parameters use the JAX layout, ``x @ w`` with w [d_in, d_out],
+with each layer weight stacked over layers (``model/params.py``).
 """
 
 from __future__ import annotations
@@ -95,11 +96,13 @@ def encode_layers(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                   *, idx_pad: int, n_head: int, norm_first: bool,
                   invert_padding_mask: bool) -> torch.Tensor:
     """The layers and the final LayerNorm, on an input that already holds
-    the positional embedding: what the fused kernel computes (post-norm)."""
+    the positional embedding: what the fused kernel computes (post-norm).
+    ``params["layers"]`` holds each layer weight stacked over layers."""
     bias = attention_mask_bias(seq, idx_pad, invert_padding_mask)
-    for layer in params["layers"]:
-        x = encoder_layer(x, layer, n_head=n_head, mask_bias=bias,
-                          norm_first=norm_first)
+    layers = params["layers"]
+    for i in range(layers["w_qkv"].shape[0]):
+        x = encoder_layer(x, {k: v[i] for k, v in layers.items()},
+                          n_head=n_head, mask_bias=bias, norm_first=norm_first)
     return layer_norm(x, params["lnf_scale"], params["lnf_bias"])
 
 

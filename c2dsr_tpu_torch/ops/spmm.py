@@ -25,12 +25,17 @@ class CsrDevice(NamedTuple):
     rows: torch.Tensor     # int32 [nnz]
     cols: torch.Tensor     # int32 [nnz]
     vals: torch.Tensor     # float32 [nnz]
-    heavy_rows: torch.Tensor   # int32: rows the kernel gives a block each
+    heavy_rows: torch.Tensor   # int32: the rows with more than heavy_deg edges
+    heavy_deg: int         # the kernel gives each of those rows a block
     n: int                 # graph dim; tables may carry extra (edge-free) rows
 
 
-def device_graph(g, device="cuda") -> CsrDevice:
-    """Upload a host CooGraph (graph/build.py) as CSR on ``device``."""
+def device_graph(g, device="cuda", heavy_deg: int = spmm_cuda.HEAVY_DEG
+                 ) -> CsrDevice:
+    """Upload a host CooGraph (graph/build.py) as CSR on ``device``.  Rows
+    with more than ``heavy_deg`` edges are listed for the kernel's block
+    path; the kernel reads the threshold from the graph, so both paths
+    split the rows at the same degree."""
     device = backend.resolve_device(device)
     rows = np.asarray(g.rows, np.int64)
     if rows.size and np.any(np.diff(rows) < 0):
@@ -41,10 +46,11 @@ def device_graph(g, device="cuda") -> CsrDevice:
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    heavy = np.flatnonzero(counts > spmm_cuda.HEAVY_DEG)
+    heavy = np.flatnonzero(counts > heavy_deg)
     return CsrDevice(rowptr=put(rowptr, np.int32), rows=put(rows, np.int32),
                      cols=put(g.cols, np.int32), vals=put(g.vals, np.float32),
-                     heavy_rows=put(heavy, np.int32), n=int(g.n))
+                     heavy_rows=put(heavy, np.int32), heavy_deg=int(heavy_deg),
+                     n=int(g.n))
 
 
 def spmm_reference(graph: CsrDevice, h: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,10 @@ FLOPs) is negligible.  Design: a warp accumulates a row's edges in CSR
 order, each lane owning 4 contiguous features (one 16-byte gather per edge,
 8 gathers in flight), and stores once: no [nnz, d] intermediate, no
 atomics, a deterministic result.  Degrees are Zipf-skewed (the FK graph's
-largest row has 5,445 edges), so a row with more than ``HEAVY_DEG`` edges
-gets a whole block whose 32 warps sum 32 contiguous segments, added in
-order; ``device_graph`` lists those rows once per graph.
+largest row has 5,445 edges), so a row with more than ``graph.heavy_deg``
+edges (``HEAVY_DEG`` by default) gets a whole block whose 32 warps sum 32
+contiguous segments, added in order; ``device_graph`` lists those rows once
+per graph, and the threshold travels with the list.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 
 from c2dsr_tpu_torch.kernels import build
 
-# rows with more edges than this get a block each (see csrc/spmm.cu)
+# default of device_graph's heavy_deg: rows with more edges than this get
+# a block each (see csrc/spmm.cu)
 HEAVY_DEG = 128
 _SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -58,7 +60,7 @@ def spmm_csr(graph, h: torch.Tensor) -> torch.Tensor:
     err = _fn()(graph.rowptr.data_ptr(), graph.cols.data_ptr(),
                 graph.vals.data_ptr(), graph.heavy_rows.data_ptr(),
                 h.data_ptr(), out.data_ptr(), graph.heavy_rows.numel(),
-                HEAVY_DEG, graph.n, n_rows, d,
+                graph.heavy_deg, graph.n, n_rows, d,
                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr launch failed: CUDA error {err}")

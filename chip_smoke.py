@@ -38,6 +38,7 @@ N_EVAL_USERS = 8192
 SPMM_TOL = 1e-5          # max abs error relative to max |out|: f32 sums in another order
 ENCODER_TOL = 1e-4       # abs, on LayerNorm outputs of order 1
 TIE_TOL = 1e-5           # a candidate this close to the gt score is a near-tie
+WARM_ROUNDS = 10         # rounds of (plain, kernel, kernel, plain) warm runs
 
 
 class SmokeFailure(Exception):
@@ -181,7 +182,8 @@ def _torch_tower(p, d, n_head, n_layers):
     tower = nn.TransformerEncoder(layer, n_layers, nn.LayerNorm(d, eps=1e-8),
                                   enable_nested_tensor=False)
     with torch.no_grad():
-        for tl, lp in zip(tower.layers, p["layers"]):
+        for i, tl in enumerate(tower.layers):
+            lp = {k: v[i] for k, v in p["layers"].items()}
             tl.self_attn.in_proj_weight.copy_(lp["w_qkv"].T)
             tl.self_attn.in_proj_bias.copy_(lp["b_qkv"])
             tl.self_attn.out_proj.weight.copy_(lp["w_out"].T)
@@ -386,23 +388,37 @@ def phase_main(spec, graphs_host):
             f"{score[1]:.4f} hr5_b {score[7]:.4f}")
     log(f"main path convolve: {t_conv * 1e3:.2f} ms (first run)")
 
-    # warm timings, in turns on the same card: plain, kernel, kernel, plain
+    # warm timings in turns on the same card, (plain, kernel, kernel, plain)
+    # repeated, so drift falls on both alike; the gap between the two counts
+    # as resolved only beyond 3 standard errors of the difference of means
     runs = {"kernel": [], "plain": []}
     ranks_plain = None
-    for which in ("plain", "kernel", "kernel", "plain"):
+    for which in ("plain", "kernel", "kernel", "plain") * WARM_ROUNDS:
         ctx = plain_versions() if which == "plain" else contextlib.nullcontext()
         with ctx:
             _, r, t_c, s_m = run_all()
         if which == "plain" and ranks_plain is None:
             ranks_plain = r
         runs[which].append((t_c, s_m))
+    stats = {}
     for which, rs in runs.items():
-        conv_ms = np.mean([t for t, _ in rs]) * 1e3
-        rates = {m: n_ex / np.mean([s_m[m] for _, s_m in rs])
-                 for m in ("sampled", "full")}
-        log(f"main path warm ({which}): convolve {conv_ms:.3f} ms, sampled "
-            f"{rates['sampled']:.1f} eval examples/s, full "
-            f"{rates['full']:.1f} eval examples/s")
+        conv_ms = np.array([t for t, _ in rs]) * 1e3
+        log(f"main path warm ({which}, {len(rs)} runs): convolve mean "
+            f"{conv_ms.mean():.3f} ms sd {conv_ms.std(ddof=1):.3f}")
+        for m in ("sampled", "full"):
+            rate = n_ex / np.array([s_m[m] for _, s_m in rs])
+            stats[which, m] = rate
+            log(f"main path warm ({which}) {m}: eval examples/s mean "
+                f"{rate.mean():.1f} sd {rate.std(ddof=1):.1f} min "
+                f"{rate.min():.1f} max {rate.max():.1f}; runs "
+                f"{[round(float(v)) for v in rate]}")
+    for m in ("sampled", "full"):
+        k, p = stats["kernel", m], stats["plain", m]
+        diff = k.mean() - p.mean()
+        se = math.sqrt(k.var(ddof=1) / len(k) + p.var(ddof=1) / len(p))
+        log(f"main path warm {m}: kernel - plain {diff:.1f} eval examples/s "
+            f"({diff / p.mean():+.2%}), standard error {se:.1f}: "
+            f"{'resolved' if abs(diff) > 3 * se else 'unresolved'}")
     profile_main_path(run_all)
 
     for mode in ("sampled", "full"):

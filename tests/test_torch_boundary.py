@@ -125,3 +125,14 @@ def test_config_resolves_auto_to_f32_without_jax():
     assert cfg.resolved_classifier_dtype() == "float32"
     assert Config(compute_dtype="bfloat16").resolved_compute_dtype() == \
         "bfloat16"
+
+
+def test_config_refuses_tpu_only_knobs():
+    """The JAX package's TPU-only settings have no counterpart in the port:
+    setting one is an error, not a silent no-op."""
+    from c2dsr_tpu_torch.config import Config
+    for name in ("kernel_backend", "batch_sparse_gnn", "train_prng",
+                 "pallas_interpret", "mesh_data", "mesh_model", "lookup_mode",
+                 "resume", "profile_dir", "debug_nans"):
+        with pytest.raises(TypeError):
+            Config(**{name: None})

@@ -2,7 +2,8 @@
 
 These run only where there is an NVIDIA card and nvcc; elsewhere every test
 skips with its reason (the ``cuda`` fixture decides, at run time).
-On the card:  python -m pytest tests/test_torch_cuda.py -q
+On the card:  python -m pytest --noconftest tests/test_torch_cuda.py -q
+(``tests/conftest.py`` sets up JAX, which these tests do not use.)
 Shapes are small and chosen to reach the kernels' edges: odd batch sizes, a
 partial last block, feature widths that are not multiples of 128, rows
 heavy enough to take the SpMM's block path, tables with extra pad rows.
@@ -38,10 +39,9 @@ def _graph():
 
 @pytest.mark.parametrize("d", [4, 12, 128, 160, 256])
 @pytest.mark.parametrize("heavy_deg", [8, 128])
-def test_spmm_kernel_matches_plain(cuda, monkeypatch, d, heavy_deg):
-    monkeypatch.setattr(spmm_cuda, "HEAVY_DEG", heavy_deg)
+def test_spmm_kernel_matches_plain(cuda, d, heavy_deg):
     share, _ = _graph()
-    g = spmm.device_graph(share, cuda)
+    g = spmm.device_graph(share, cuda, heavy_deg=heavy_deg)
     assert g.heavy_rows.numel() > 0
     h = torch.randn(share.n + 9, d, device=cuda)
     out = spmm_cuda.spmm_csr(g, h)
@@ -101,6 +101,22 @@ def test_encoder_kernel_refuses_unsupported_shapes(cuda):
     with pytest.raises(ValueError, match="does not take"):
         encoder_cuda.encoder_fwd(x, seq, p, idx_pad=1, n_head=1,
                                  invert_padding_mask=False)
+
+
+def test_encoder_kernel_refuses_unstacked_weights(cuda):
+    p = params_mod.init_encoder_params(torch.Generator().manual_seed(0),
+                                       Config(d_latent=64, n_attn=2), 15)
+    p = params_mod.params_from_numpy(params_mod.params_to_numpy(p), cuda)
+    x = torch.randn(4, 15, 64, device=cuda)
+    seq = torch.zeros(4, 15, dtype=torch.long, device=cuda)
+    kw = dict(idx_pad=1, n_head=1, invert_padding_mask=False)
+    one = dict(p, layers={k: v[0] for k, v in p["layers"].items()})
+    with pytest.raises(ValueError, match="w_qkv"):
+        encoder_cuda.encoder_fwd(x, seq, one, **kw)
+    strided = dict(p, layers=dict(p["layers"],
+                                  w_out=p["layers"]["w_out"].transpose(1, 2)))
+    with pytest.raises(ValueError, match="w_out"):
+        encoder_cuda.encoder_fwd(x, seq, strided, **kw)
 
 
 def test_norm_first_has_no_kernel_yet(cuda):

@@ -130,8 +130,26 @@ def test_backend_encode_layers_is_plain_on_cpu():
     seq_t = torch.from_numpy(seq).long()
     x = torch.from_numpy(h) + p["pos_emb"][torch.from_numpy(pos).long()]
     got = backend.encode_layers(x, seq_t, p, idx_pad=PAD, n_head=1,
-                                invert_padding_mask=False)
+                                norm_first=False, invert_padding_mask=False)
     want = enc.encode_layers(x, seq_t, p, idx_pad=PAD, n_head=1,
                              norm_first=False,
                              invert_padding_mask=False)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("invert", [False, True])
+def test_backend_encode_layers_pre_norm_on_cpu(invert):
+    """The pre-norm branch has no kernel; on a CPU tensor the backend runs
+    the plain version with it, the same function JAX's encoder computes."""
+    p = _params(2, 2, 15, seed=6)
+    seq, pos, h = _inputs(16, 15, seed=6)
+    tp = params_mod.params_from_numpy(p, device="cpu")
+    x = torch.from_numpy(h) + tp["pos_emb"][torch.from_numpy(pos).long()]
+    got = backend.encode_layers(x, torch.from_numpy(seq).long(), tp,
+                                idx_pad=PAD, n_head=2, norm_first=True,
+                                invert_padding_mask=invert).numpy()
+    want = np.asarray(jenc.encode_sequence(
+        jnp.asarray(seq), jnp.asarray(h), jnp.asarray(pos), p, idx_pad=PAD,
+        n_head=2, dropout=0.0, rng=None, norm_first=True,
+        invert_padding_mask=invert))
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)

@@ -51,14 +51,19 @@ def test_numpy_round_trip_is_exact(jax_tree):
     for k in want:
         assert back[k].dtype == np.float32, k
         np.testing.assert_array_equal(back[k], want[k], err_msg=k)
-    assert isinstance(port["attn_a"]["layers"][1]["w_qkv"], torch.Tensor)
+    # each layer weight stacked over the tower's layers
+    assert port["attn_a"]["layers"]["w_qkv"].shape == (2, 32, 96)
+    np.testing.assert_array_equal(port["attn_a"]["layers"]["w_qkv"][1].numpy(),
+                                  jax_tree["attn_a"]["layers"][1]["w_qkv"])
 
 
 def test_init_names_and_shapes_match_jax(jax_tree, port_params):
     want = {k: v.shape for k, v in _flat(jax_tree).items()}
-    got = {k: tuple(v.shape) for k, v in _flat(port_params).items()}
+    got = {k: v.shape for k, v in _flat(
+        params_mod.params_to_numpy(port_params)).items()}
     assert got == want
     assert all(v.dtype == torch.float32 for v in _flat(port_params).values())
+    assert port_params["attn_b"]["layers"]["w_ff1"].shape == (2, 32, 32)
 
 
 def test_init_padding_is_zero(port_params):
@@ -92,9 +97,8 @@ def test_init_distributions_match_jax_bounds(jax_tree, port_params):
         "D_b_w": math.sqrt(6.0 / (d * d + d)),
     }
     jflat = _flat(jax_tree)
-    for key, t in _flat(port_params).items():
+    for key, got in _flat(params_mod.params_to_numpy(port_params)).items():
         leaf = key.rsplit("/", 1)[-1]
-        got = t.numpy()
         ref = jflat[key]
         if leaf in bounds:
             b = bounds[leaf]

@@ -44,10 +44,9 @@ def test_port_graph_build_matches_jax(graphs):
         np.testing.assert_array_equal(g.vals, jg.vals)
 
 
-def test_device_graph_csr_layout(graphs, monkeypatch):
+def test_device_graph_csr_layout(graphs):
     (share, _), _ = graphs
-    monkeypatch.setattr(spmm_cuda, "HEAVY_DEG", 3)
-    g = spmm.device_graph(share, "cpu")
+    g = spmm.device_graph(share, "cpu", heavy_deg=3)
     rowptr = g.rowptr.numpy()
     assert rowptr[0] == 0 and rowptr[-1] == share.nnz
     assert len(rowptr) == share.n + 1
@@ -55,6 +54,8 @@ def test_device_graph_csr_layout(graphs, monkeypatch):
     np.testing.assert_array_equal(deg, np.bincount(share.rows,
                                                    minlength=share.n))
     np.testing.assert_array_equal(g.heavy_rows.numpy(), np.flatnonzero(deg > 3))
+    assert g.heavy_deg == 3
+    assert spmm.device_graph(share, "cpu").heavy_deg == spmm_cuda.HEAVY_DEG
     assert g.rowptr.dtype == g.cols.dtype == torch.int32
 
 
