@@ -1,4 +1,5 @@
-// Fused forward of one causal self-attention tower in eval (no dropout), f32.
+// Fused forward of one causal self-attention tower, f32, in eval or with
+// training dropout.
 //
 // Replaces the fused encoder forward Pallas kernel
 // (c2dsr_tpu/ops/encoder_pallas.py, _fused_fwd_impl / _fwd_kernel /
@@ -9,6 +10,12 @@
 //   over the L positions, as in c2dsr_tpu/ops/encoder.py); out-proj;
 //   X = LN1(X + attn); F = relu(X·W1 + b1); X = LN2(X + F·W2 + b2);
 //   then out = LNf(X).  LN statistics in f32, eps 1e-8.
+// In training, dropout applies at the five sites of c2dsr_tpu/ops/encoder.py
+// (the input, the attention probabilities, the out-projection, the FFN ReLU
+// output and the FFN output), each mask drawn from the counter-based hash of
+// dropout.cuh keyed by (seed, site, tower, layer) and the element's index in
+// the site's tensor, so ops/encoder.py draws the same masks.  At dropout 0
+// the kernel takes none of those branches.
 //
 // Bound on an H100 by operations (12·N·d² + 4·N·L·d FLOPs for N = B·L rows
 // per layer, against the card's FP32 non-tensor-core peak); the bytes are
@@ -23,136 +30,12 @@
 // every weight line of the tower at once, and the first blocks' pass over
 // the 32x64 tiles does not wait on DRAM once per tile.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "encoder_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace tower;
 constexpr int kRows = 64;       // rows (positions) held by one block
-constexpr int kTileK = 32;
-constexpr int kTileM = 64;
-constexpr float kNeg = -1e9f;
-constexpr float kLnEps = 1e-8f;
-
-struct Layer {
-  const float *w_qkv, *b_qkv, *w_out, *b_out, *w_ff1, *b_ff1, *w_ff2, *b_ff2;
-  const float *ln1_s, *ln1_b, *ln2_s, *ln2_b;
-};
-
-// Issues an L2 prefetch for each 128-byte line of p[0, n), spread over all
-// threads of the grid.
-__device__ __forceinline__ void prefetch_l2(const float* p, size_t n) {
-  const size_t lines = (n + 31) / 32;
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < lines;
-       i += (size_t)gridDim.x * kThreads)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i * 32));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// C[r, m] = act(sum_k A[r, k] W[k, m] + b[m]) for all kRows rows.
-// A, C in shared memory (row strides lda, ldc); W [K, M] row-major in global
-// memory.  K % 32 == 0, M % 64 == 0.  Thread (ty, tx) owns rows ty*4..+3 and
-// columns m0 + tx*4..+3 of each 64-column chunk.
-__device__ void gemm(const float* A, int lda, const float* __restrict__ W,
-                     const float* __restrict__ bias, int K, int M, float* C,
-                     int ldc, bool relu, float* wt) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  for (int m0 = 0; m0 < M; m0 += kTileM) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kTileK) {
-      __syncthreads();  // the previous tile is no longer read
-      for (int v = tid; v < kTileK * kTileM / 4; v += kThreads) {
-        const int r = v / (kTileM / 4);
-        const int c4 = v % (kTileM / 4);
-        reinterpret_cast<float4*>(wt)[v] = __ldg(
-            reinterpret_cast<const float4*>(W + (size_t)(k0 + r) * M + m0) +
-            c4);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kTileK; ++kk) {
-        const float4 w = reinterpret_cast<const float4*>(wt + kk * kTileM)[tx];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = A[(ty * 4 + i) * lda + k0 + kk];
-          acc[i][0] = fmaf(a, w.x, acc[i][0]);
-          acc[i][1] = fmaf(a, w.y, acc[i][1]);
-          acc[i][2] = fmaf(a, w.z, acc[i][2]);
-          acc[i][3] = fmaf(a, w.w, acc[i][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + tx * 4 + j;
-      const float b = bias[m];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float v = acc[i][j] + b;
-        if (relu) v = fmaxf(v, 0.f);
-        C[(ty * 4 + i) * ldc + m] = v;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// X[r] = LN(X[r] + Y[r]) (or LN(X[r]) when Y is null) for r < n_rows, one
-// warp per row; written to dst (row stride ldd), which may be X itself.
-template <int NV>
-__device__ void layer_norm_rows(const float* X, int ldx, const float* Y,
-                                int ldy, const float* __restrict__ g,
-                                const float* __restrict__ b, float* dst,
-                                int ldd, int n_rows, int d) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int r = warp; r < n_rows; r += kThreads / 32) {
-    float v[NV];
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < NV; ++t) {
-      const int c = lane + 32 * t;
-      v[t] = 0.f;
-      if (c < d) {
-        v[t] = X[r * ldx + c] + (Y ? Y[r * ldy + c] : 0.f);
-        s += v[t];
-      }
-    }
-    const float mean = warp_sum(s) / d;
-    float q = 0.f;
-#pragma unroll
-    for (int t = 0; t < NV; ++t) {
-      const int c = lane + 32 * t;
-      if (c < d) q += (v[t] - mean) * (v[t] - mean);
-    }
-    const float rstd = rsqrtf(warp_sum(q) / d + kLnEps);
-#pragma unroll
-    for (int t = 0; t < NV; ++t) {
-      const int c = lane + 32 * t;
-      if (c < d) dst[r * ldd + c] = (v[t] - mean) * rstd * g[c] + b[c];
-    }
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
@@ -160,7 +43,8 @@ encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
                    size_t s_qkv, size_t s_dd, int n_layers,
                    const float* __restrict__ lnf_s,
                    const float* __restrict__ lnf_b, float* __restrict__ out,
-                   int B, int L, int d, int n_head, int idx_pad, int invert) {
+                   int B, int L, int d, int n_head, int idx_pad, int invert,
+                   drop::Dropout dr) {
   extern __shared__ float4 smem4[];
   float* wt = reinterpret_cast<float*>(smem4);
   const int ldx = d + 4;
@@ -191,6 +75,14 @@ encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
     const int c4 = v % d4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < R) val = __ldg(reinterpret_cast<const float4*>(xb) + v);
+    if (dr.on && r < R) {
+      const uint32_t k = dr.key(drop::kInput, 0);
+      const uint32_t i0 = static_cast<uint32_t>((seq0 * L + r) * d + c4 * 4);
+      val.x = dr.apply(val.x, k, i0);
+      val.y = dr.apply(val.y, k, i0 + 1);
+      val.z = dr.apply(val.z, k, i0 + 2);
+      val.w = dr.apply(val.w, k, i0 + 3);
+    }
     reinterpret_cast<float4*>(X + r * ldx)[c4] = val;
     reinterpret_cast<float4*>(T + r * ldx)[c4] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -208,7 +100,8 @@ encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
     const size_t ow = li * s_dd;
     const size_t ob = (size_t)li * d;
 
-    gemm(X, ldx, w_qkv, b_qkv, d, 3 * d, Q, ldq, false, wt);
+    gemm<4>(X, ldx, w_qkv, b_qkv, d, 3 * d, Q, ldq, false, wt);
+    const uint32_t k_probs = dr.key(drop::kProbs, li);
 
     // attention: one warp per (head, query row); lane j holds key j
     for (int q = warp; q < n_head * R; q += kThreads / 32) {
@@ -228,7 +121,11 @@ encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
       }
       const float mx = warp_max(logit);
       const float e = lane < L ? expf(logit - mx) : 0.f;
-      const float p = e / warp_sum(e);
+      float p = e / warp_sum(e);
+      if (dr.on)
+        p = dr.apply(p, k_probs, static_cast<uint32_t>(
+                                     (((seq0 + s) * n_head + h) * L + i) * L +
+                                     lane));
       for (int c0 = 0; c0 < dh; c0 += 32) {
         const int c = c0 + lane;
         float acc = 0.f;
@@ -241,13 +138,16 @@ encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
     }
     __syncthreads();
 
-    gemm(T, ldx, l0.w_out + ow, l0.b_out + ob, d, d, Q, ldq, false, wt);
+    gemm<4>(T, ldx, l0.w_out + ow, l0.b_out + ob, d, d, Q, ldq, false, wt);
+    if (dr.on) drop_rows(Q, ldq, R, d, seq0 * L, dr, dr.key(drop::kAttnOut, li));
     if (d <= 64)
       layer_norm_rows<2>(X, ldx, Q, ldq, l0.ln1_s + ob, l0.ln1_b + ob, X, ldx, R, d);
     else
       layer_norm_rows<4>(X, ldx, Q, ldq, l0.ln1_s + ob, l0.ln1_b + ob, X, ldx, R, d);
-    gemm(X, ldx, l0.w_ff1 + ow, l0.b_ff1 + ob, d, d, T, ldx, true, wt);
-    gemm(T, ldx, l0.w_ff2 + ow, l0.b_ff2 + ob, d, d, Q, ldq, false, wt);
+    gemm<4>(X, ldx, l0.w_ff1 + ow, l0.b_ff1 + ob, d, d, T, ldx, true, wt);
+    if (dr.on) drop_rows(T, ldx, R, d, seq0 * L, dr, dr.key(drop::kFfnRelu, li));
+    gemm<4>(T, ldx, l0.w_ff2 + ow, l0.b_ff2 + ob, d, d, Q, ldq, false, wt);
+    if (dr.on) drop_rows(Q, ldq, R, d, seq0 * L, dr, dr.key(drop::kFfnOut, li));
     if (d <= 64)
       layer_norm_rows<2>(X, ldx, Q, ldq, l0.ln2_s + ob, l0.ln2_b + ob, X, ldx, R, d);
     else
@@ -272,6 +172,8 @@ extern "C" int encoder_fwd_smem_bytes(int d) {
 // Weights are stacked over layers: w_qkv [NL, d, 3d], b_qkv [NL, 3d],
 // w_out/w_ff1/w_ff2 [NL, d, d], biases and LN params [NL, d]; lnf [d].
 // Requires d % 64 == 0, d <= 128, d % n_head == 0, 1 <= L <= 32.
+// Dropout: drop_on 0 is eval; else kept values are divided by drop_div
+// (f32(1 - p)) where the hash bits reach drop_thr (ops/dropout.threshold).
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int encoder_fwd_f32(
     const float* x, const int* seq, const float* w_qkv, const float* b_qkv,
@@ -280,6 +182,7 @@ extern "C" int encoder_fwd_f32(
     const float* ln1_s, const float* ln1_b, const float* ln2_s,
     const float* ln2_b, const float* lnf_s, const float* lnf_b, float* out,
     int B, int L, int d, int n_head, int n_layers, int idx_pad, int invert,
+    int drop_on, unsigned drop_thr, float drop_div, unsigned seed, int tower_id,
     void* stream) {
   const int smem = encoder_fwd_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
@@ -292,6 +195,26 @@ extern "C" int encoder_fwd_f32(
   encoder_fwd_kernel<<<blocks, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       x, seq, l0, (size_t)d * 3 * d, (size_t)d * d, n_layers, lnf_s,
-      lnf_b, out, B, L, d, n_head, idx_pad, invert);
+      lnf_b, out, B, L, d, n_head, idx_pad, invert,
+      drop::Dropout{drop_on, drop_thr, drop_div, seed, tower_id});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dropout hash's bits of elements 0..n-1 of one stream, for checking the
+// kernels' masks against ops/dropout.bits_reference.
+__global__ void dropout_bits_kernel(drop::Dropout dr, int site, int layer,
+                                    int n, unsigned* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    out[i] = drop::mix32((static_cast<uint32_t>(i) * drop::kGolden) ^
+                         dr.key(site, layer));
+}
+
+extern "C" int dropout_bits_u32(unsigned seed, int site, int tower_id,
+                                int layer, int n, unsigned* out,
+                                void* stream) {
+  dropout_bits_kernel<<<(n + 255) / 256, 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      drop::Dropout{1, 0u, 1.f, seed, tower_id}, site, layer, n, out);
   return static_cast<int>(cudaGetLastError());
 }

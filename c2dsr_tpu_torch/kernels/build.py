@@ -37,8 +37,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> str:
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the source, the headers of
+    ``csrc`` (any source may include them) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(SRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 

@@ -7,9 +7,12 @@ Mirrors models/C2DSR.py:59-85 and ``c2dsr_tpu/model/c2dsr.py``:
   * ``forward`` — (propagated + raw) embedding lookup x sqrt(d) into three
     causal self-attention towers.
   * ``forward_share`` — shared tower only.
+  * ``forward_joint`` — every tower pass of one training step: the shared
+    tower on the stacked positive + two corrupted sequences, then the A and
+    B towers.
 
-Eval only so far (no dropout): the training passes come with the training
-slice of the port.
+Training mode is asked for explicitly: ``convolve_graph`` takes a dropout
+``generator`` and ``forward_joint`` a dropout ``seed``; None is eval.
 
 Pad-row semantics: torch's ``padding_idx`` freezes the pad row at zero
 (C2DSR.py:20).  Here, as in the JAX package, the pad row is masked at the
@@ -54,15 +57,22 @@ def _local_ops(cfg: Config):
 
 
 def convolve_graph(params: Dict[str, Any], graphs: Graphs, cfg: Config,
-                   spec: DataSpec, pops=None) -> Propagated:
-    """Propagate all three tables through their GCNs (C2DSR.py:59-62)."""
+                   spec: DataSpec, pops=None,
+                   generator: Optional[torch.Generator] = None) -> Propagated:
+    """Propagate all three tables through their GCNs (C2DSR.py:59-62).
+
+    generator=None -> eval (no dropout); else train-mode dropout drawn from
+    it (a generator on the tables' device).  Differentiable in params."""
     pops = pops or _local_ops(cfg)
     e_share, e_a, e_b = embedding_tables(params, cfg, spec)
-    hi_share = pops.spmm_propagate(graphs.share, e_share, cfg.n_gnn)
+    hi_share = pops.spmm_propagate(graphs.share, e_share, cfg.n_gnn,
+                                   cfg.dropout_gnn, generator)
     # A and B propagate through the SAME adjacency (C2DSR.py:61-62): one pass
-    # over the feature-concatenated table serves both.
+    # over the feature-concatenated table serves both; dropout stays iid per
+    # element, as two independent passes would draw it.
     e_ab = torch.cat([e_a, e_b], dim=1)
-    hi_ab = pops.spmm_propagate(graphs.specific, e_ab, cfg.n_gnn)
+    hi_ab = pops.spmm_propagate(graphs.specific, e_ab, cfg.n_gnn,
+                                cfg.dropout_gnn, generator)
     hi_a, hi_b = hi_ab.split(e_a.shape[1], dim=1)
     return Propagated(share=hi_share, a=hi_a, b=hi_b)
 
@@ -89,16 +99,26 @@ def _tower_pre(seq, hi, raw_table, cfg: Config, spec: DataSpec,
     return (h * (cfg.d_latent ** 0.5)).to(dtype)
 
 
-def _tower(seq, pos, hi, raw_table, attn_params, cfg: Config, spec: DataSpec,
-           pops=None) -> torch.Tensor:
-    """(propagated + raw) lookup x sqrt(d) -> attention tower."""
-    h = _tower_pre(seq, hi, raw_table, cfg, spec, pops)
+def _encode(h, seq, pos, attn_params, cfg: Config, spec: DataSpec,
+            seed: Optional[int], tower: int, pops=None) -> torch.Tensor:
+    """Positional add, then the tower (ops/backend.encode_layers); dropout
+    keyed by (seed, tower) when seed is not None."""
+    pops = pops or _local_ops(cfg)
     # the positional add stays outside the fused kernel, as in JAX
-    x = (h + attn_params["pos_emb"][pos]).contiguous()
+    x = (h + pops.lookup(attn_params["pos_emb"], pos)).contiguous()
     return backend.encode_layers(
         x, seq, attn_params, idx_pad=spec.idx_pad, n_head=cfg.n_head,
         norm_first=cfg.norm_first,
-        invert_padding_mask=cfg.bug_inverted_padding_mask).float()
+        invert_padding_mask=cfg.bug_inverted_padding_mask,
+        dropout=0.0 if seed is None else cfg.dropout_attn,
+        seed=seed or 0, tower=tower).float()
+
+
+def _tower(seq, pos, hi, raw_table, attn_params, cfg: Config, spec: DataSpec,
+           pops=None) -> torch.Tensor:
+    """(propagated + raw) lookup x sqrt(d) -> attention tower, in eval."""
+    h = _tower_pre(seq, hi, raw_table, cfg, spec, pops)
+    return _encode(h, seq, pos, attn_params, cfg, spec, None, 0, pops)
 
 
 def forward(params: Dict[str, Any], hi: Propagated, seq_share, seq_a, seq_b,
@@ -119,6 +139,28 @@ def forward_share(params: Dict[str, Any], hi: Propagated, seq, pos,
     e_share, _, _ = embedding_tables(params, cfg, spec)
     return _tower(seq, pos, hi.share, e_share, params["attn_share"],
                   cfg, spec, pops)
+
+
+def forward_joint(params: Dict[str, Any], hi: Propagated, seq_share3, pos3,
+                  seq_a, seq_b, pos_a, pos_b, cfg: Config, spec: DataSpec,
+                  seed: Optional[int] = None, pops=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every tower pass of one training step (c2dsr_tpu model/c2dsr.py
+    forward_joint): the shared tower on ``seq_share3`` [3B, L] (positive
+    plus two corrupted sequences, stacked by the caller), then the A and B
+    towers.  Three tower calls, keyed 0, 1, 2 so that their dropout masks
+    are independent; seed=None is eval.
+    Returns (h_share3 [3B, L, d], hx [B, L, d], hy [B, L, d])."""
+    e_share, e_a, e_b = embedding_tables(params, cfg, spec)
+    h_s3 = _tower_pre(seq_share3, hi.share, e_share, cfg, spec, pops)
+    h_a = _tower_pre(seq_a, hi.a, e_a, cfg, spec, pops)
+    h_b = _tower_pre(seq_b, hi.b, e_b, cfg, spec, pops)
+    return (_encode(h_s3, seq_share3, pos3, params["attn_share"], cfg, spec,
+                    seed, 0, pops),
+            _encode(h_a, seq_a, pos_a, params["attn_a"], cfg, spec, seed, 1,
+                    pops),
+            _encode(h_b, seq_b, pos_b, params["attn_b"], cfg, spec, seed, 2,
+                    pops))
 
 
 def classify_a(params, h):

@@ -5,8 +5,12 @@ Functionally equivalent to the reference's ``SelfAttention`` wrapper around
 ``c2dsr_tpu/ops/encoder.py`` in eval: learned positional embedding (index
 0 = pad slot), then ``n_attn`` post-norm (or pre-norm) transformer layers
 with d_ff = d_latent, ReLU, LayerNorm eps=1e-8, and a final LayerNorm, under
-a causal mask plus a key-padding mask.  Dropout comes with the training
-slice of the port.
+a causal mask plus a key-padding mask.  In training, dropout at rate ``p``
+applies at the five sites of the JAX encoder: the input after the
+positional add, the attention probabilities, the out-projection, the FFN
+ReLU output and the FFN output.  Masks come from the counter-based hash of
+``ops/dropout.py``, keyed by (seed, site, tower, layer), so the fused
+kernels draw the same ones.
 
 Masks are an ADDED finite -1e9 bias, never ``-inf`` or ``masked_fill``: a
 query row whose keys are all masked then has logits that all round to
@@ -23,10 +27,14 @@ with each layer weight stacked over layers (``model/params.py``).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 
+from c2dsr_tpu_torch.ops import dropout as drop
+
+_NAMES = ("w_qkv", "b_qkv", "w_out", "b_out", "w_ff1", "b_ff1", "w_ff2",
+          "b_ff2", "ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
 LN_EPS = 1e-8          # layer_norm_eps of the reference (encoders.py:25-27)
 NEG_INF = -1e9         # finite mask value: keeps softmax NaN-free on all-pad rows
 
@@ -42,8 +50,10 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def multi_head_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                         n_head: int, mask_bias: torch.Tensor) -> torch.Tensor:
-    """Self-attention with additive mask bias [B, 1, L, L]."""
+                         n_head: int, mask_bias: torch.Tensor,
+                         drop_probs=lambda t: t) -> torch.Tensor:
+    """Self-attention with additive mask bias [B, 1, L, L]; ``drop_probs``
+    applies dropout to the probabilities [B, H, L, L]."""
     B, L, d = x.shape
     dh = d // n_head
     qkv = x @ p["w_qkv"] + p["b_qkv"]                     # [B, L, 3d]
@@ -54,24 +64,32 @@ def multi_head_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
     q, k, v = heads(q), heads(k), heads(v)
     logits = (q @ k.transpose(-1, -2)) / math.sqrt(dh) + mask_bias
-    attn = torch.softmax(logits, dim=-1)
+    attn = drop_probs(torch.softmax(logits, dim=-1))
     out = (attn @ v).transpose(1, 2).reshape(B, L, d)
     return out @ p["w_out"] + p["b_out"]
 
 
 def encoder_layer(x: torch.Tensor, p: Dict[str, Any], *, n_head: int,
-                  mask_bias: torch.Tensor, norm_first: bool) -> torch.Tensor:
-    """One transformer encoder layer, post-norm by default (torch semantics)."""
+                  mask_bias: torch.Tensor, norm_first: bool,
+                  dropout: float = 0.0, seed: int = 0, tower: int = 0,
+                  layer: int = 0) -> torch.Tensor:
+    """One transformer encoder layer, post-norm by default (torch semantics).
+    Dropout sites as ``c2dsr_tpu/ops/encoder.py`` has them."""
+    def dr(site):
+        return lambda t: drop.apply(t, dropout, seed, site, tower, layer)
+
     if norm_first:
         h = layer_norm(x, p["ln1_scale"], p["ln1_bias"])
-        x = x + multi_head_attention(h, p, n_head, mask_bias)
+        x = x + dr(drop.SITE_ATTN_OUT)(multi_head_attention(
+            h, p, n_head, mask_bias, dr(drop.SITE_PROBS)))
         h = layer_norm(x, p["ln2_scale"], p["ln2_bias"])
-        ff = torch.relu(h @ p["w_ff1"] + p["b_ff1"])
-        return x + ff @ p["w_ff2"] + p["b_ff2"]
-    x = layer_norm(x + multi_head_attention(x, p, n_head, mask_bias),
-                   p["ln1_scale"], p["ln1_bias"])
-    ff = torch.relu(x @ p["w_ff1"] + p["b_ff1"])
-    x = x + ff @ p["w_ff2"] + p["b_ff2"]
+        ff = dr(drop.SITE_FFN_RELU)(torch.relu(h @ p["w_ff1"] + p["b_ff1"]))
+        return x + dr(drop.SITE_FFN_OUT)(ff @ p["w_ff2"] + p["b_ff2"])
+    x = layer_norm(x + dr(drop.SITE_ATTN_OUT)(multi_head_attention(
+        x, p, n_head, mask_bias, dr(drop.SITE_PROBS))),
+        p["ln1_scale"], p["ln1_bias"])
+    ff = dr(drop.SITE_FFN_RELU)(torch.relu(x @ p["w_ff1"] + p["b_ff1"]))
+    x = x + dr(drop.SITE_FFN_OUT)(ff @ p["w_ff2"] + p["b_ff2"])
     return layer_norm(x, p["ln2_scale"], p["ln2_bias"])
 
 
@@ -94,26 +112,73 @@ def attention_mask_bias(seq: torch.Tensor, idx_pad: int,
 
 def encode_layers(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                   *, idx_pad: int, n_head: int, norm_first: bool,
-                  invert_padding_mask: bool) -> torch.Tensor:
-    """The layers and the final LayerNorm, on an input that already holds
-    the positional embedding: what the fused kernel computes (post-norm).
-    ``params["layers"]`` holds each layer weight stacked over layers."""
+                  invert_padding_mask: bool, dropout: float = 0.0,
+                  seed: int = 0, tower: int = 0) -> torch.Tensor:
+    """Input dropout, the layers and the final LayerNorm, on an input that
+    already holds the positional embedding: what the fused kernel computes
+    (post-norm).  ``params["layers"]`` holds each layer weight stacked over
+    layers.  ``tower`` keys the masks of one tower call apart from the
+    others of the same step."""
+    x = drop.apply(x, dropout, seed, drop.SITE_INPUT, tower, 0)
     bias = attention_mask_bias(seq, idx_pad, invert_padding_mask)
     layers = params["layers"]
     for i in range(layers["w_qkv"].shape[0]):
         x = encoder_layer(x, {k: v[i] for k, v in layers.items()},
-                          n_head=n_head, mask_bias=bias, norm_first=norm_first)
+                          n_head=n_head, mask_bias=bias, norm_first=norm_first,
+                          dropout=dropout, seed=seed, tower=tower, layer=i)
     return layer_norm(x, params["lnf_scale"], params["lnf_bias"])
 
 
 def encode_sequence(seq: torch.Tensor, h_in: torch.Tensor, pos: torch.Tensor,
                     params: Dict[str, Any], *, idx_pad: int, n_head: int,
-                    norm_first: bool, invert_padding_mask: bool
+                    norm_first: bool, invert_padding_mask: bool,
+                    dropout: float = 0.0, seed: int = 0, tower: int = 0
                     ) -> torch.Tensor:
-    """Full tower: pos-embed add + n layers + final LayerNorm.
+    """Full tower: pos-embed add + input dropout + n layers + final LN.
 
     seq, pos: [B, L] int; h_in: [B, L, d] (embedding already scaled by
     sqrt(d) upstream, models/C2DSR.py:69-71)."""
     return encode_layers(h_in + params["pos_emb"][pos], seq, params,
                          idx_pad=idx_pad, n_head=n_head, norm_first=norm_first,
-                         invert_padding_mask=invert_padding_mask)
+                         invert_padding_mask=invert_padding_mask,
+                         dropout=dropout, seed=seed, tower=tower)
+
+
+def tower_weights(params: Dict[str, Any]) -> List[torch.Tensor]:
+    """A tower's weights in the fused kernels' argument order: each layer
+    weight, stacked over layers at rest (``model/params.py``), then the final
+    LN's scale and bias.  No copy: the kernels read them where they lie."""
+    layers = params["layers"]
+    return ([layers[name] for name in _NAMES]
+            + [params["lnf_scale"], params["lnf_bias"]])
+
+
+def tower_params(weights) -> Dict[str, Any]:
+    """The inverse of :func:`tower_weights`."""
+    return {"layers": dict(zip(_NAMES, weights[:len(_NAMES)])),
+            "lnf_scale": weights[-2], "lnf_bias": weights[-1]}
+
+
+def encoder_fwd_plain(x: torch.Tensor, seq: torch.Tensor,
+                      params: Dict[str, Any], *, idx_pad: int, n_head: int,
+                      invert_padding_mask: bool, dropout: float = 0.0,
+                      seed: int = 0, tower: int = 0) -> torch.Tensor:
+    """The plain version of ``encoder_cuda.encoder_fwd`` (post-norm)."""
+    return encode_layers(x, seq, params, idx_pad=idx_pad, n_head=n_head,
+                         norm_first=False,
+                         invert_padding_mask=invert_padding_mask,
+                         dropout=dropout, seed=seed, tower=tower)
+
+
+def encoder_bwd_plain(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
+                      params: Dict[str, Any], **kw
+                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The plain version of ``encoder_cuda.encoder_bwd``: autograd through
+    :func:`encoder_fwd_plain`, the same masks regenerated from the seed.
+    Returns (dx, the gradients of ``tower_weights(params)``)."""
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_(True)
+        ws = [w.detach().requires_grad_(True) for w in tower_weights(params)]
+        out = encoder_fwd_plain(xs, seq, tower_params(ws), **kw)
+        grads = torch.autograd.grad(out, [xs] + ws, gout)
+    return grads[0], list(grads[1:])

@@ -1,102 +1,119 @@
-"""Wrapper of the fused encoder forward kernel (``csrc/encoder.cu``).
+"""Wrappers of the fused encoder kernels: the tower forward
+(``csrc/encoder.cu``) and its backward (``csrc/encoder_bwd.cu``), tied
+together by the autograd Function behind :func:`encode`.
 
-Replaces the fused encoder forward Pallas kernel of the JAX package
-(``c2dsr_tpu/ops/encoder_pallas.py`` ``_fused_fwd_impl`` / ``_fwd_kernel``),
-in eval: no dropout, one tower per call.  The kernel runs every post-norm
-layer and the final LayerNorm; the positional add stays outside, as in JAX
-(``encoder_pallas.py:582``).
+The forward replaces the fused encoder forward Pallas kernel of the JAX
+package (``c2dsr_tpu/ops/encoder_pallas.py`` ``_fused_fwd_impl`` /
+``_fwd_kernel``), the backward its ``_fused_bwd`` / ``_bwd_kernel``.  One
+tower per call: ``forward_joint``'s shared tower on the stacked [3B, L]
+sequences and the A and B towers are three calls, each keyed by its own
+``tower`` index so that their dropout masks are independent.  The kernels
+run every post-norm layer and the final LayerNorm; the positional add stays
+outside, as in JAX (``encoder_pallas.py:582``).
 
-What bounds it on an H100: operations.  Per layer it does 12·N·d² + 4·N·L·d
-FLOPs (N = B·L rows) in f32 FFMA, against the card's FP32 non-tensor-core
-peak, and it moves only one read of the input and one write of the output.
-Design: one block keeps 64 / L whole sequences in shared memory for the
-whole tower, so no activation touches device memory; the weights (393 KB a
-layer at d = 128, more than a block's shared memory) stream through shared
-memory in 32x64 tiles from L2, where a tower's weights stay for all blocks.
-The weights are read in place (stacked over layers at rest, no per-launch
-copy); the grid prefetches them into L2 at its start, since in the serving
-loop other work evicts them between launches.
+What bounds them on an H100: operations.  Per layer the forward does
+12·N·d² + 4·N·L·d FLOPs (N = B·L rows) in f32 FFMA and moves one read of
+the input and one write of the output; the backward does twice that plus a
+recomputed forward.  Forward design: one block keeps 64 / L whole sequences
+in shared memory for the whole tower; the weights (393 KB a layer at
+d = 128) stream through shared memory in 32x64 tiles from L2, read in place
+(stacked over layers at rest) and prefetched into L2 at the grid's start.
+Backward design: a fixed grid of one block per SM, each walking a range of
+32-row tiles, recomputing their forward into a per-block workspace slice and
+accumulating its own weight-gradient partial; a second kernel sums the
+partials in block order (``csrc/encoder_bwd.cu`` states the budget).
 
-Unlike the Pallas kernel, which pads L to a multiple of 16 and averages an
-all-masked query row over the padded length, this kernel works on the L
-real positions, so such a row is the uniform average over L positions, as
-``ops/encoder.py`` in both packages gives it.
+Dropout (training) draws every mask from the counter-based hash of
+``ops/dropout.py``; the backward regenerates the forward's masks from the
+same (seed, tower).  Unlike the Pallas kernel, which pads L to a multiple
+of 16 and averages an all-masked query row over the padded length, these
+kernels work on the L real positions, so such a row is the uniform average
+over L positions, as ``ops/encoder.py`` in both packages gives it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from c2dsr_tpu_torch.kernels import build
+from c2dsr_tpu_torch.ops import dropout as drop
+from c2dsr_tpu_torch.ops.encoder import _NAMES, tower_params, tower_weights
 
-_NAMES = ("w_qkv", "b_qkv", "w_out", "b_out", "w_ff1", "b_ff1", "w_ff2",
-          "b_ff2", "ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
-_SIG = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_DROP_SIG = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
+             ctypes.c_int]
+_FWD_SIG = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + _DROP_SIG
+            + [ctypes.c_void_p])
+_BWD_SIG = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + _DROP_SIG
+            + [ctypes.c_void_p])
 
 
-def _fn():
-    f = build.library("encoder").encoder_fwd_f32
-    f.argtypes = _SIG
-    f.restype = ctypes.c_int
+def _fn(stem: str, name: str, argtypes, restype=ctypes.c_int):
+    f = getattr(build.library(stem), name)
+    f.argtypes = argtypes
+    f.restype = restype
     return f
 
 
 def supported(d: int, n_head: int, length: int) -> bool:
-    """Shapes the kernel takes: d in {64, 128}, head dim a multiple of 8,
+    """Shapes the kernels take: d in {64, 128}, head dim a multiple of 8,
     1 <= L <= 32 (FK/MB L = 15, EE L = 30)."""
     return (d % 64 == 0 and d <= 128 and d % n_head == 0
             and (d // n_head) % 8 == 0 and 1 <= length <= 32)
 
 
-def tower_weights(params: Dict[str, Any]):
-    """The tower's weights in the kernel's argument order: each layer weight,
-    stacked over layers at rest (``model/params.py``), then the final LN's
-    scale and bias.  No copy: the kernel reads them where they lie."""
-    layers = params["layers"]
-    return ([layers[name] for name in _NAMES]
-            + [params["lnf_scale"], params["lnf_bias"]])
+def _drop_args(dropout: float, seed: int, tower: int):
+    on = dropout > 0.0
+    return (int(on), drop.threshold(dropout) if on else 0,
+            float(1.0 - dropout), int(seed) & drop.M32, int(tower))
 
 
-def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
-                *, idx_pad: int, n_head: int, invert_padding_mask: bool
-                ) -> torch.Tensor:
-    """Layers + final LN of one tower by the CUDA kernel, in eval.
-
-    x: [B, L, d] f32 CUDA (positional embedding already added); seq: [B, L]
-    int (pad = idx_pad).  Returns [B, L, d] f32."""
+def _check(x: torch.Tensor, seq: torch.Tensor, weights, n_head: int,
+           name: str) -> Tuple[int, int, int, int, torch.Tensor]:
     if not x.is_cuda:
-        raise ValueError("encoder_fwd takes CUDA tensors only")
+        raise ValueError(f"{name} takes CUDA tensors only")
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"encoder_fwd takes contiguous f32 [B, L, d], got "
+        raise ValueError(f"{name} takes contiguous f32 [B, L, d], got "
                          f"{x.dtype} {tuple(x.shape)}")
     B, L, d = x.shape
     if not supported(d, n_head, L):
-        raise ValueError(f"encoder_fwd does not take d={d}, n_head={n_head},"
-                         f" L={L}")
+        raise ValueError(f"{name} does not take d={d}, n_head={n_head}, L={L}")
+    if max(B * L * d, B * n_head * L * L) >= 2 ** 31:
+        raise ValueError(f"{name}: a tower call must hold < 2^31 elements")
     if tuple(seq.shape) != (B, L) or seq.device != x.device:
         raise ValueError("seq must be [B, L] on x's device")
-    seq = seq.to(torch.int32).contiguous()
-    weights = tower_weights(params)
     n_layers = weights[0].shape[0]
     per_layer = {"w_qkv": (d, 3 * d), "b_qkv": (3 * d,), "w_out": (d, d),
                  "w_ff1": (d, d), "w_ff2": (d, d)}
-    for name, w in zip(_NAMES + ("lnf_scale", "lnf_bias"), weights):
-        want = ((n_layers,) + per_layer.get(name, (d,)) if name in _NAMES
+    for wname, w in zip(_NAMES + ("lnf_scale", "lnf_bias"), weights):
+        want = ((n_layers,) + per_layer.get(wname, (d,)) if wname in _NAMES
                 else (d,))
         if (w.dtype != torch.float32 or w.device != x.device
                 or not w.is_contiguous() or tuple(w.shape) != want):
-            raise ValueError(f"encoder weight {name} must be contiguous f32 "
+            raise ValueError(f"encoder weight {wname} must be contiguous f32 "
                              f"{want} on x's device, got {w.dtype} "
                              f"{tuple(w.shape)}")
+    return B, L, d, n_layers, seq.to(torch.int32).contiguous()
+
+
+def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
+                *, idx_pad: int, n_head: int, invert_padding_mask: bool,
+                dropout: float = 0.0, seed: int = 0, tower: int = 0
+                ) -> torch.Tensor:
+    """Input dropout, layers and final LN of one tower by the CUDA kernel.
+
+    x: [B, L, d] f32 CUDA (positional embedding already added); seq: [B, L]
+    int (pad = idx_pad).  Returns [B, L, d] f32."""
+    weights = tower_weights(params)
+    B, L, d, n_layers, seq32 = _check(x, seq, weights, n_head, "encoder_fwd")
     out = torch.empty_like(x)
-    err = _fn()(x.data_ptr(), seq.data_ptr(),
-                *[w.data_ptr() for w in weights], out.data_ptr(),
-                B, L, d, n_head, n_layers, int(idx_pad),
-                int(bool(invert_padding_mask)),
-                torch.cuda.current_stream().cuda_stream)
+    err = _fn("encoder", "encoder_fwd_f32", _FWD_SIG)(
+        x.data_ptr(), seq32.data_ptr(), *[w.data_ptr() for w in weights],
+        out.data_ptr(), B, L, d, n_head, n_layers, int(idx_pad),
+        int(bool(invert_padding_mask)), *_drop_args(dropout, seed, tower),
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_fwd launch failed: CUDA error {err}")
     encoder_fwd.launches += 1
@@ -104,3 +121,90 @@ def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
 
 
 encoder_fwd.launches = 0
+
+
+def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
+                params: Dict[str, Any], *, idx_pad: int, n_head: int,
+                invert_padding_mask: bool, dropout: float = 0.0,
+                seed: int = 0, tower: int = 0
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Backward of :func:`encoder_fwd` by the CUDA kernel, from the same
+    input and dropout arguments: (dx, the gradients of ``tower_weights``)."""
+    weights = tower_weights(params)
+    B, L, d, n_layers, seq32 = _check(x, seq, weights, n_head, "encoder_bwd")
+    if (gout.shape != x.shape or gout.dtype != torch.float32
+            or gout.device != x.device):
+        raise ValueError("gout must be f32 of x's shape on x's device")
+    gout = gout.contiguous()
+    grid = _fn("encoder_bwd", "encoder_bwd_grid", [ctypes.c_int] * 2)(B, L)
+    ws = torch.empty(_fn("encoder_bwd", "encoder_bwd_workspace_floats",
+                         [ctypes.c_int] * 5, ctypes.c_longlong)(
+        d, n_head, L, n_layers, grid), dtype=torch.float32, device=x.device)
+    flat = torch.empty(_fn("encoder_bwd", "encoder_bwd_grad_floats",
+                           [ctypes.c_int] * 2, ctypes.c_longlong)(d, n_layers),
+                       dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    err = _fn("encoder_bwd", "encoder_bwd_f32", _BWD_SIG)(
+        x.data_ptr(), seq32.data_ptr(), gout.data_ptr(),
+        *[w.data_ptr() for w in weights], dx.data_ptr(), flat.data_ptr(),
+        ws.data_ptr(), grid, B, L, d, n_head, n_layers, int(idx_pad),
+        int(bool(invert_padding_mask)), *_drop_args(dropout, seed, tower),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"encoder_bwd launch failed: CUDA error {err}")
+    encoder_bwd.launches += 1
+    grads, at = [], 0
+    for w in weights:
+        grads.append(flat[at:at + w.numel()].view(w.shape))
+        at += w.numel()
+    return dx, grads
+
+
+encoder_bwd.launches = 0
+
+
+def dropout_bits(seed: int, site: int, tower: int, layer: int, n: int
+                 ) -> torch.Tensor:
+    """The kernels' dropout hash bits of elements 0..n-1 of one stream, as
+    int64 on the card (a check against ``ops/dropout.bits_reference``)."""
+    out = torch.empty(n, dtype=torch.int32, device="cuda")
+    err = _fn("encoder", "dropout_bits_u32",
+              [ctypes.c_uint] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)(
+        int(seed) & drop.M32, site, tower, layer, n, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dropout_bits launch failed: CUDA error {err}")
+    return out.to(torch.int64) & drop.M32
+
+
+class _Tower(torch.autograd.Function):
+    """One tower call: forward by ``encoder_fwd``, backward by
+    ``encoder_bwd`` (both looked up at call time)."""
+
+    @staticmethod
+    def forward(ctx, x, seq, kw, *weights):
+        ctx.save_for_backward(x, seq, *weights)
+        ctx.kw = kw
+        return encoder_fwd(x, seq, tower_params(weights), **kw)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, seq, *weights = ctx.saved_tensors
+        dx, grads = encoder_bwd(x, seq, gout, tower_params(weights), **ctx.kw)
+        return (dx, None, None, *grads)
+
+
+def encode(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any], *,
+           idx_pad: int, n_head: int, invert_padding_mask: bool,
+           dropout: float = 0.0, seed: int = 0, tower: int = 0
+           ) -> torch.Tensor:
+    """:func:`encoder_fwd` with its kernel backward: differentiable in x and
+    in every tower weight."""
+    kw = dict(idx_pad=idx_pad, n_head=n_head,
+              invert_padding_mask=invert_padding_mask, dropout=dropout,
+              seed=seed, tower=tower)
+    weights = tower_weights(params)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in [x] + weights)):
+        return encoder_fwd(x.contiguous(), seq, params, **kw)
+    return _Tower.apply(x.contiguous(), seq, kw, *weights)

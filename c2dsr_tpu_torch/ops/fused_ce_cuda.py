@@ -1,0 +1,121 @@
+"""Wrappers of the fused CE kernels (``csrc/ce.cu``): K4 :func:`ce_fwd` and
+K5 :func:`ce_bwd` (a dh kernel and a dW/db kernel).
+
+Replace the fused linear + softmax CE Pallas kernels of the JAX package
+(``c2dsr_tpu/ops/fused_ce.py``: ``_fwd_kernel`` for the forward;
+``_bwd_merged_kernel``, ``_bwd_dh_kernel`` and ``_bwd_dw_kernel`` for the
+backward, whose split the TPU needed only when dh outgrew VMEM).
+
+What bounds them on an H100: operations.  The forward does 2·N·V·d FLOPs
+in f32 FFMA, the backward 4·N·V·d (dh and dW) plus the recomputed logits;
+the bytes are h and W once and a few floats a row.  Design: no logit ever
+reaches device memory.  The forward and the dh kernel give a block 64 rows
+of h and one of a few vocab splits, swept in 64-column tiles of W with a
+running (max, sum-exp) per row; a small kernel merges the splits in order.
+The dW/db kernel gives a block 64 columns of W and sweeps the rows.  Each
+output element is written once, with no atomics, for any N.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from c2dsr_tpu_torch.kernels import build
+
+
+def _fn(name: str, n_ptr: int):
+    f = getattr(build.library("ce"), name)
+    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    return f
+
+
+def _splits(N: int, V: int) -> int:
+    """Vocab splits of the row-tiled kernels (``ce_splits`` in ce.cu)."""
+    f = build.library("ce").ce_splits
+    f.argtypes = [ctypes.c_int, ctypes.c_int]
+    f.restype = ctypes.c_int
+    return f(N, V)
+
+
+def _check(name: str, h, w, rows, targets) -> Tuple[int, int, int]:
+    if not h.is_cuda:
+        raise ValueError(f"{name} takes CUDA tensors only")
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[0]:
+        raise ValueError(f"{name} takes h [N, d] and w [d, V], got "
+                         f"{tuple(h.shape)} and {tuple(w.shape)}")
+    N, d = h.shape
+    V = w.shape[1]
+    if d % 16 or d > 128 or V % 4 or V == 0 or N == 0:
+        raise ValueError(f"{name} needs d % 16 == 0, d <= 128, V % 4 == 0; "
+                         f"got N={N} d={d} V={V}")
+    for t, shape in rows:
+        if (t.dtype != torch.float32 or t.device != h.device
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"{name}: every float input must be contiguous "
+                             f"f32 of shape {shape} on h's device")
+    if tuple(targets.shape) != (N,) or targets.device != h.device:
+        raise ValueError(f"{name}: targets must be [N] on h's device")
+    return N, d, V
+
+
+def ce_fwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
+           pad: torch.Tensor, targets: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lse, target logit) per row of softmax over [h·w + b_masked | pad],
+    by K4.  h [N, d], w [d, V], b_masked [V], pad [N] f32; targets [N] int
+    (a target >= V gives a target logit of 0)."""
+    N, d, V = _check("ce_fwd", h, w, [(h, tuple(h.shape)), (w, tuple(w.shape)),
+                                      (b_masked, (w.shape[1],)),
+                                      (pad, (h.shape[0],))], targets)
+    tgt = targets.to(torch.int32).contiguous()
+    lse = torch.empty(N, dtype=torch.float32, device=h.device)
+    tlog = torch.empty_like(lse)
+    splits = _splits(N, V)
+    ws = torch.empty(3 * splits * N, dtype=torch.float32, device=h.device)
+    err = _fn("ce_fwd_f32", 8)(h.data_ptr(), w.data_ptr(), b_masked.data_ptr(),
+                               pad.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
+                               tlog.data_ptr(), ws.data_ptr(), splits, N, d, V,
+                               torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ce_fwd launch failed: CUDA error {err}")
+    ce_fwd.launches += 1
+    return lse, tlog
+
+
+ce_fwd.launches = 0
+
+
+def ce_bwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
+           lse: torch.Tensor, dlse: torch.Tensor, dt: torch.Tensor,
+           targets: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dh, dw, db) of :func:`ce_fwd` given the gradients dlse, dt of its
+    two outputs, by K5 (its dh kernel, then its dW/db kernel)."""
+    n = (h.shape[0],)
+    N, d, V = _check("ce_bwd", h, w, [(h, tuple(h.shape)), (w, tuple(w.shape)),
+                                      (b_masked, (w.shape[1],)), (lse, n),
+                                      (dlse, n), (dt, n)], targets)
+    tgt = targets.to(torch.int32).contiguous()
+    dh = torch.empty_like(h)
+    dw = torch.empty_like(w)
+    db = torch.empty_like(b_masked)
+    splits = _splits(N, V)
+    ws = torch.empty(splits * N * d, dtype=torch.float32, device=h.device)
+    err = _fn("ce_bwd_f32", 11)(h.data_ptr(), w.data_ptr(),
+                                b_masked.data_ptr(), lse.data_ptr(),
+                                dlse.data_ptr(), dt.data_ptr(), tgt.data_ptr(),
+                                dh.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                                ws.data_ptr(), splits, N, d, V,
+                                torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ce_bwd launch failed: CUDA error {err}")
+    ce_bwd.launches += 1
+    return dh, dw, db
+
+
+ce_bwd.launches = 0

@@ -1,10 +1,15 @@
-"""Wrapper of the CSR SpMM kernel (``csrc/spmm.cu``): ``out = A @ h``.
+"""Wrapper of the CSR SpMM kernel (``csrc/spmm.cu``): ``out = A @ h``, and
+the hop's autograd Function, whose backward is the same kernel over the
+CSR of Aᵀ (``graph.t``).
 
 Replaces the blocked SpMM Pallas kernel of the JAX package
 (``c2dsr_tpu/ops/spmm_pallas.py`` ``blocked_spmm_impl`` / ``_kernel``).
 That kernel gathered ``h[cols]·vals`` into an [nnz, d] buffer in XLA and
 reduced 128-edge chunks into 256-row blocks with a one-hot MXU matmul; both
 the chunking and the one-hot reduce are devices of the TPU's matrix unit.
+Its backward (``make_blocked_spmm``'s vjp, ``spmm_pallas.py:224-225``) ran
+the same kernel over a prepared transpose; here :func:`hop` does the same
+with the transpose CSR that ``ops/spmm.device_graph`` packs.
 
 What bounds it on an H100: bytes.  A hop reads each referenced table row
 (d·4 bytes) and writes each output row once; the arithmetic (2·nnz·d
@@ -69,3 +74,28 @@ def spmm_csr(graph, h: torch.Tensor) -> torch.Tensor:
 
 
 spmm_csr.launches = 0
+
+
+class _Hop(torch.autograd.Function):
+    """``A @ h`` by :func:`spmm_csr`; its backward ``Aᵀ @ g`` by the same
+    kernel over ``graph.t``.  Rows of the table past ``graph.n`` have no
+    edge in Aᵀ either, so their gradient is zero."""
+
+    @staticmethod
+    def forward(ctx, h, graph):
+        ctx.graph = graph
+        return spmm_csr(graph, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        return spmm_csr(ctx.graph.t, g.contiguous()), None
+
+
+def hop(graph, h: torch.Tensor) -> torch.Tensor:
+    """One differentiable hop ``A @ h`` on a CUDA tensor."""
+    if not (torch.is_grad_enabled() and h.requires_grad):
+        return spmm_csr(graph, h)
+    if graph.t is None:
+        raise ValueError("the graph carries no transpose (device_graph "
+                         "packs it)")
+    return _Hop.apply(h, graph)

@@ -7,16 +7,25 @@ Needs one CUDA card, ``nvcc`` and the ``c2dsr_tpu_torch`` package beside
 this file; it builds the CUDA kernels from ``c2dsr_tpu_torch/csrc`` itself.
 Phases (any failure exits non-zero without the final line):
 
-1. setup: build the kernels, print the build time and the card.
+1. setup: build the kernels, print the build time and the card; the CUDA
+   dropout hash must equal ops/dropout.bits_reference.
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   at the main path's shapes, and time kernel, plain version and one
-   PyTorch library call (a yardstick the port never calls).
-3. main path: the ranking (serving) path at Food-Kitchen geometry with the
+   at the main paths' shapes, and time kernel, plain version and one
+   PyTorch library call (a yardstick the port never calls): the SpMM over A
+   and over Aᵀ, the encoder forward in eval and in train mode and its
+   backward (at dropout 0 and 0.2), the CE forward and backward.
+3. serving path: the ranking path at Food-Kitchen geometry with the
    default Config and random seeded weights: convolve once, then rank the
-   eval split in sampled and in full mode.  Every kernel must launch there;
-   the ranks must equal those of the same run with the plain versions,
-   except at counted near-ties, and every metric must be finite.
-4. summary: one JSON line of kernel numbers, the card's name and power
+   eval split in sampled and in full mode.  Every serving kernel must
+   launch there; the ranks must equal those of the same run with the plain
+   versions, except at counted near-ties, and every metric must be finite.
+4. training path: train_step at Food-Kitchen geometry with the default
+   Config (batch 512, dropout 0.2) on the synthetic train split: the loss
+   must stay finite and fall, every kernel must launch its expected count a
+   step, and one step at dropout 0 must give the plain versions' loss and
+   gradients; then train examples/s in turns with the plain versions, and
+   one profiled step.
+5. summary: one JSON line of kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -39,6 +48,12 @@ SPMM_TOL = 1e-5          # max abs error relative to max |out|: f32 sums in anot
 ENCODER_TOL = 1e-4       # abs, on LayerNorm outputs of order 1
 TIE_TOL = 1e-5           # a candidate this close to the gt score is a near-tie
 WARM_ROUNDS = 10         # rounds of (plain, kernel, kernel, plain) warm runs
+GRAD_TOL = 1e-4          # max abs err over max |plain|, per gradient tensor:
+                         # f32 sums over thousands of rows in another order
+CE_TOL = 1e-5            # lse / target logit, relative to max |plain|
+TRAIN_STEPS = 30         # train steps whose launches and losses are checked
+TRAIN_ROUNDS = 5         # rounds of (plain, kernel, kernel, plain) train runs
+TRAIN_RUN_STEPS = 4      # steps per timed train run
 
 
 class SmokeFailure(Exception):
@@ -98,23 +113,44 @@ def plain_versions():
     """Route CUDA tensors through the plain PyTorch versions instead of the
     kernels, for the comparison run of the main path."""
     from c2dsr_tpu_torch.ops import encoder as enc
-    from c2dsr_tpu_torch.ops import encoder_cuda, spmm, spmm_cuda
-
-    def encoder_plain(x, seq, params, *, idx_pad, n_head, invert_padding_mask):
-        return enc.encode_layers(x, seq, params, idx_pad=idx_pad,
-                                 n_head=n_head, norm_first=False,
-                                 invert_padding_mask=invert_padding_mask)
-
-    saved = spmm_cuda.spmm_csr, encoder_cuda.encoder_fwd
-    spmm_cuda.spmm_csr, encoder_cuda.encoder_fwd = (spmm.spmm_reference,
-                                                    encoder_plain)
+    from c2dsr_tpu_torch.ops import (encoder_cuda, fused_ce, fused_ce_cuda,
+                                     spmm, spmm_cuda)
+    swaps = [(spmm_cuda, "spmm_csr", spmm.spmm_reference),
+             (encoder_cuda, "encoder_fwd", enc.encoder_fwd_plain),
+             (encoder_cuda, "encoder_bwd", enc.encoder_bwd_plain),
+             (fused_ce_cuda, "ce_fwd", fused_ce.ce_fwd_plain),
+             (fused_ce_cuda, "ce_bwd", fused_ce.ce_bwd_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        spmm_cuda.spmm_csr, encoder_cuda.encoder_fwd = saved
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
-def phase_spmm(graphs, timer, peak_flops, peak_bw):
+def kernel_wrappers():
+    """{name: wrapper} of every kernel the main paths launch."""
+    from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce_cuda, spmm_cuda
+    return {"spmm_csr": spmm_cuda.spmm_csr,
+            "encoder_fwd": encoder_cuda.encoder_fwd,
+            "encoder_bwd": encoder_cuda.encoder_bwd,
+            "ce_fwd": fused_ce_cuda.ce_fwd, "ce_bwd": fused_ce_cuda.ce_bwd}
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def phase_spmm(graphs, timer, peak_flops, peak_bw, transpose=False):
+    """K1 over A (a hop's forward) or over Aᵀ (its backward, on a table
+    gradient), for one hop over each graph."""
     from c2dsr_tpu_torch.ops import spmm, spmm_cuda
     gen = torch.Generator(device="cuda").manual_seed(1)
     n_rows = 65536                     # the padded table (vocab_pad_multiple)
@@ -122,6 +158,8 @@ def phase_spmm(graphs, timer, peak_flops, peak_bw):
            "max_abs_err": 0.0}
     for name, g, d in (("share", graphs.share, 128),
                        ("specific_ab", graphs.specific, 256)):
+        if transpose:
+            g, name = g.t, name + " transpose"
         h = torch.randn((n_rows, d), generator=gen, device="cuda")
         h[g.n:] = 0.0
         out = spmm_cuda.spmm_csr(g, h)
@@ -172,11 +210,12 @@ def _encoder_inputs(B, L, d, pad, seed):
             torch.from_numpy(seq.astype(np.int64)).cuda())
 
 
-def _torch_tower(p, d, n_head, n_layers):
-    """nn.TransformerEncoder with the port's weights: the library yardstick."""
+def _torch_tower(p, d, n_head, n_layers, dropout=0.0):
+    """nn.TransformerEncoder with the port's weights: the library yardstick
+    (in train mode when dropout > 0)."""
     import torch.nn as nn
     layer = nn.TransformerEncoderLayer(
-        d_model=d, nhead=n_head, dim_feedforward=d, dropout=0.0,
+        d_model=d, nhead=n_head, dim_feedforward=d, dropout=dropout,
         activation="relu", layer_norm_eps=1e-8, batch_first=True,
         norm_first=False)
     tower = nn.TransformerEncoder(layer, n_layers, nn.LayerNorm(d, eps=1e-8),
@@ -198,7 +237,7 @@ def _torch_tower(p, d, n_head, n_layers):
             tl.norm2.bias.copy_(lp["ln2_bias"])
         tower.norm.weight.copy_(p["lnf_scale"])
         tower.norm.bias.copy_(p["lnf_bias"])
-    return tower.cuda().eval()
+    return tower.cuda().train(dropout > 0)
 
 
 def phase_encoder(timer, peak_flops, peak_bw):
@@ -293,10 +332,10 @@ def near_ties(params, hi, data, cfg, spec, mode):
     return out
 
 
-def profile_main_path(run_all):
-    """Where the main path's time goes: one warm run (convolve, sampled and
-    full rank) under torch.profiler; device time by kernel, and the device's
-    idle share of the run's wall time."""
+def profile_main_path(run_all, label="profile"):
+    """Where a main path's time goes: one warm run under torch.profiler;
+    device time by kernel, and the device's idle share of the run's wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -313,12 +352,12 @@ def profile_main_path(run_all):
             rows.append((dev_us, ev.count, ev.key))
     busy_us = sum(r[0] for r in rows)
     if busy_us == 0:
-        log("profile: the profiler saw no device time (not measured)")
+        log(f"{label}: the profiler saw no device time (not measured)")
         return
-    log(f"profile: wall {wall_us / 1e3:.3f} ms, device busy "
+    log(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}")
-    for dev_us, count, key in sorted(rows, reverse=True)[:12]:
-        log(f"profile:   {dev_us / 1e3:9.3f} ms {dev_us / busy_us:6.1%} "
+    for dev_us, count, key in sorted(rows, reverse=True)[:14]:
+        log(f"{label}:   {dev_us / 1e3:9.3f} ms {dev_us / busy_us:6.1%} "
             f"x{count:<5d} {key[:90]}")
 
 
@@ -329,7 +368,7 @@ def phase_main(spec, graphs_host):
     from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.model import c2dsr
     from c2dsr_tpu_torch.model import params as params_mod
-    from c2dsr_tpu_torch.ops import encoder_cuda, spmm, spmm_cuda
+    from c2dsr_tpu_torch.ops import spmm
 
     cfg = Config()
     eval_seqs = synthetic.generate_sequences(spec, N_EVAL_USERS, seed=1)
@@ -361,12 +400,10 @@ def phase_main(spec, graphs_host):
             secs[mode] = time.perf_counter() - t0
         return hi, ranks, t_conv, secs
 
-    spmm_cuda.spmm_csr.launches = 0
-    encoder_cuda.encoder_fwd.launches = 0
+    reset_launches()
     hi, ranks, t_conv, secs = run_all()
-    launches = {"spmm_csr": spmm_cuda.spmm_csr.launches,
-                "encoder_fwd": encoder_cuda.encoder_fwd.launches}
-    log(f"main path: {n_ex} eval examples, {steps} rank steps per mode, "
+    launches = read_launches()
+    log(f"serving path: {n_ex} eval examples, {steps} rank steps per mode, "
         f"launches {launches}")
     check(launches["spmm_csr"] == 2 * cfg.n_gnn,
           f"spmm_csr launched {launches['spmm_csr']} times, want "
@@ -446,6 +483,355 @@ def phase_main(spec, graphs_host):
     return launches
 
 
+def phase_hash():
+    """The kernels' dropout hash against the plain-integer reference (the
+    values tests/test_torch_dropout.py holds the torch hash against)."""
+    from c2dsr_tpu_torch.ops import dropout as drop
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    for seed, site, tower, layer in ((0, 0, 0, 0), (12345, 1, 2, 0),
+                                     (2 ** 31 - 1, 4, 1, 3)):
+        got = encoder_cuda.dropout_bits(seed, site, tower, layer, 512)
+        want = [drop.bits_reference(seed, site, tower, layer, i)
+                for i in range(512)]
+        check(got.cpu().tolist() == want,
+              f"dropout hash differs from the reference at seed {seed}")
+    log("dropout hash: CUDA bits equal ops/dropout.bits_reference "
+        "(3 streams x 512 elements)")
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def phase_encoder_train(timer, peak_flops, peak_bw):
+    """K2 in train mode and K3 at the three tower segments of a train step
+    (shared 3B, A B, B B at B = 512), dropout 0 and 0.2, against the plain
+    tower and its autograd; timed at 0.2 and summed over the segments."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    d, L, pad, B = 128, LEN_MAX, 64093, 512
+    cfg = Config()
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    fwd = dict.fromkeys(keys, 0.0)
+    bwd = dict.fromkeys(keys, 0.0)
+    fwd["max_abs_err"] = bwd["max_abs_err"] = bwd["max_rel_err"] = 0.0
+    causal = torch.triu(torch.ones(L, L, dtype=torch.bool, device="cuda"), 1)
+    for tower_id, n_seq in ((0, 3 * B), (1, B), (2, B)):
+        p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
+            torch.Generator().manual_seed(10 + tower_id), cfg, L))
+        x, seq = _encoder_inputs(n_seq, L, d, pad, seed=20 + tower_id)
+        gout = torch.randn(x.shape, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(3))
+        for dropout in (0.0, 0.2):
+            kw = dict(idx_pad=pad, n_head=1, invert_padding_mask=False,
+                      dropout=dropout, seed=1234, tower=tower_id)
+            with torch.no_grad():
+                out = encoder_cuda.encoder_fwd(x, seq, p, **kw)
+                ref = enc.encoder_fwd_plain(x, seq, p, **kw)
+            dx, grads = encoder_cuda.encoder_bwd(x, seq, gout, p, **kw)
+            rdx, rgrads = enc.encoder_bwd_plain(x, seq, gout, p, **kw)
+            torch.cuda.synchronize()
+            err_f = float((out - ref).abs().max())
+            check(bool(torch.isfinite(out).all() and torch.isfinite(dx).all()),
+                  f"encoder train tower {tower_id}: non-finite")
+            check(err_f <= ENCODER_TOL, f"encoder_fwd train tower {tower_id} "
+                  f"p={dropout}: max abs err {err_f} > {ENCODER_TOL}")
+            rels = {"dx": _rel(dx, rdx)}
+            abs_err = float((dx - rdx).abs().max())
+            for name, g, r in zip(enc._NAMES + ("lnf_scale", "lnf_bias"),
+                                  grads, rgrads):
+                rels[name] = _rel(g, r)
+                abs_err = max(abs_err, float((g - r).abs().max()))
+            worst = max(rels, key=rels.get)
+            log(f"encoder train tower {tower_id} B={n_seq} p={dropout}: "
+                f"fwd max abs err {err_f:.3e}; bwd max abs err {abs_err:.3e},"
+                f" worst relative {rels[worst]:.3e} ({worst})")
+            check(rels[worst] <= GRAD_TOL, f"encoder_bwd tower {tower_id} "
+                  f"p={dropout}: {worst} relative err {rels[worst]} > "
+                  f"{GRAD_TOL}")
+            fwd["max_abs_err"] = max(fwd["max_abs_err"], err_f)
+            bwd["max_abs_err"] = max(bwd["max_abs_err"], abs_err)
+            bwd["max_rel_err"] = max(bwd["max_rel_err"], rels[worst])
+        # times at the training rate, dropout 0.2
+        tower = _torch_tower(p, d, 1, 1, dropout=kw["dropout"])
+        kpm = seq == pad
+        xg = x.clone().requires_grad_(True)
+        lib_params = [xg] + list(tower.parameters())
+        with torch.no_grad():
+            f_ms = timer(lambda: encoder_cuda.encoder_fwd(x, seq, p, **kw))
+            f_plain = timer(lambda: enc.encoder_fwd_plain(x, seq, p, **kw))
+            f_lib = timer(lambda: tower(x, mask=causal,
+                                        src_key_padding_mask=kpm))
+        b_ms = timer(lambda: encoder_cuda.encoder_bwd(x, seq, gout, p, **kw))
+        b_plain = timer(lambda: enc.encoder_bwd_plain(x, seq, gout, p, **kw))
+        b_lib = timer(lambda: torch.autograd.grad(
+            tower(xg, mask=causal, src_key_padding_mask=kpm), lib_params,
+            gout))
+        N = n_seq * L
+        w_bytes = 4 * (6 * d * d + 10 * d + 2 * d)
+        f_flops = 12 * N * d * d + 4 * N * L * d
+        b_flops = 24 * N * d * d + 8 * N * L * d      # recompute-free
+        f_bytes = 8 * N * d + 4 * N + w_bytes
+        b_bytes = 12 * N * d + 4 * N + 2 * w_bytes
+        f_bound = max(f_flops / peak_flops, f_bytes / peak_bw) * 1e3
+        b_bound = max(b_flops / peak_flops, b_bytes / peak_bw) * 1e3
+        fwd["bound_by"] = ("operations" if f_flops / peak_flops
+                           >= f_bytes / peak_bw else "bytes")
+        bwd["bound_by"] = ("operations" if b_flops / peak_flops
+                           >= b_bytes / peak_bw else "bytes")
+        log(f"encoder train tower {tower_id} B={n_seq}: fwd kernel {f_ms:.4f} "
+            f"ms plain {f_plain:.4f} library {f_lib:.4f} bound {f_bound:.4f};"
+            f" bwd kernel {b_ms:.4f} ms plain {b_plain:.4f} library "
+            f"{b_lib:.4f} (forward + backward) bound {b_bound:.4f} "
+            f"({b_flops / b_ms / 1e9:.2f} TFLOP/s)")
+        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_bound)),
+                          (bwd, (b_ms, b_plain, b_lib, b_bound))):
+            for k, v in zip(keys, vals):
+                acc[k] += v
+    return fwd, bwd
+
+
+def kernel_times(fn, calls: int = 3):
+    """{kernel name: device ms of one launch} for a fn that launches each of
+    its kernels once, under torch.profiler: the mean over the launches the
+    profiler recorded in ``calls`` calls.  The profiler may miss the first
+    kernels of its window, so one profiled call is not enough."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            name = ev.key.split("::")[-1].split("(")[0]
+            total[name] = total.get(name, 0.0) + us / 1e3
+            count[name] = count.get(name, 0) + ev.count
+    return {name: total[name] / count[name] for name in total}
+
+
+def phase_ce(timer, peak_flops, peak_bw):
+    """K4 and K5 at a train step's shapes (N = 512 x 2 x len_rec rows, d 128,
+    V 30,720 and 36,864), against their plain versions; summed over both
+    domains."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    N, d = 512 * 2 * 10, 128
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    fwd = dict.fromkeys(keys, 0.0)
+    bwd = dict.fromkeys(keys, 0.0)
+    fwd["max_abs_err"] = bwd["max_abs_err"] = bwd["max_rel_err"] = 0.0
+    for dom, V, n_real in (("A", 30720, N_ITEM_A), ("B", 36864, N_ITEM_B)):
+        rng = np.random.default_rng(V)
+
+        def put(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+        h = put(rng.normal(size=(N, d)))
+        w_np = rng.normal(size=(d, V)) * 0.05
+        w_np[:, n_real:] = 0.0
+        w = put(w_np)
+        bm = fused_ce.mask_bias(put(rng.normal(size=V) * 0.1), n_real)
+        pad_l = put(rng.normal(size=N))
+        tgt_np = rng.integers(0, n_real, size=N)
+        tgt_np[::5] = n_real                             # ignored rows
+        tgt = torch.from_numpy(tgt_np).cuda()
+        real = tgt != n_real
+        dlse = put(rng.normal(size=N) / N) * real
+        dt = put(rng.normal(size=N) / N) * real
+        with torch.no_grad():
+            lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+            rlse, rtlog = fused_ce.ce_fwd_plain(h, w, bm, pad_l, tgt)
+            got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+            want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt)
+        torch.cuda.synchronize()
+        e_lse = _rel(lse, rlse)
+        e_t = _rel(tlog[real], rtlog[real])
+        rels = {n: _rel(g, r) for n, g, r in zip(("dh", "dw", "db"), got,
+                                                 want)}
+        log(f"ce {dom}: N={N} d={d} V={V}: lse rel err {e_lse:.3e}, target "
+            f"logit rel err {e_t:.3e}; backward rel err {rels}")
+        check(max(e_lse, e_t) <= CE_TOL, f"ce_fwd {dom}: rel err "
+              f"{max(e_lse, e_t)} > {CE_TOL}")
+        check(max(rels.values()) <= GRAD_TOL, f"ce_bwd {dom}: rel err "
+              f"{rels} > {GRAD_TOL}")
+        check(bool((got[2][n_real:] == 0).all()), f"ce_bwd {dom}: db on "
+              "padded columns not zero")
+        fwd["max_abs_err"] = max(fwd["max_abs_err"],
+                                 float((lse - rlse).abs().max()))
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], max(
+            float((g - r).abs().max()) for g, r in zip(got, want)))
+        bwd["max_rel_err"] = max(bwd["max_rel_err"], max(rels.values()))
+        hg, wg, bg = (t.detach().clone().requires_grad_(True)
+                      for t in (h, w, bm))
+        with torch.no_grad():
+            f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt))
+            f_plain = timer(lambda: fused_ce.ce_fwd_plain(h, w, bm, pad_l,
+                                                          tgt))
+            f_lib = timer(lambda: torch.logsumexp(
+                torch.cat([h @ w + bm, pad_l[:, None]], 1), 1))
+            b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
+                                                      tgt))
+            b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, w, bm, lse, dlse,
+                                                          dt, tgt))
+        sub = kernel_times(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse,
+                                                        dt, tgt))
+        log(f"ce {dom}: bwd device time by kernel (a launch's mean over 3 "
+            "profiled calls): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in sub.items()))
+        # summed over both domains; None where the profiler saw no launch
+        by_kernel = bwd.setdefault("kernels_ms", {})
+        for k in ("ce_dh_kernel", "ce_dh_merge_kernel", "ce_dw_kernel"):
+            before = by_kernel.get(k, 0.0)
+            by_kernel[k] = (None if before is None or k not in sub
+                            else before + sub[k])
+        lib_out = torch.logsumexp(torch.cat([hg @ wg + bg, pad_l[:, None]],
+                                            1), 1)
+        b_lib = timer(lambda: torch.autograd.grad(lib_out, [hg, wg, bg], dlse,
+                                                  retain_graph=True))
+        del lib_out
+        io = 4 * (N * d + d * V + V + 3 * N)
+        f_bound = max(2 * N * V * d / peak_flops, (io + 8 * N) / peak_bw) * 1e3
+        b_bound = max(4 * N * V * d / peak_flops,
+                      (2 * io + 4 * N * d) / peak_bw) * 1e3
+        log(f"ce {dom}: fwd kernel {f_ms:.4f} ms plain {f_plain:.4f} library "
+            f"{f_lib:.4f} bound {f_bound:.4f} "
+            f"({2 * N * V * d / f_ms / 1e9:.2f} TFLOP/s); bwd kernel "
+            f"{b_ms:.4f} ms plain {b_plain:.4f} library {b_lib:.4f} bound "
+            f"{b_bound:.4f} (bound counts 4·N·V·d FLOPs, "
+            f"{4 * N * V * d / b_ms / 1e9:.2f} TFLOP/s)")
+        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_bound)),
+                          (bwd, (b_ms, b_plain, b_lib, b_bound))):
+            for k, v in zip(keys, vals):
+                acc[k] += v
+    fwd["bound_by"] = bwd["bound_by"] = "operations"
+    return fwd, bwd
+
+
+def phase_train(spec, seqs, graphs):
+    """The training path at FK geometry, default Config."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.data import preprocess
+    from c2dsr_tpu_torch.data.pipeline import BatchIterator
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+
+    cfg = Config()
+    t0 = time.perf_counter()
+    train = preprocess.preprocess_train(seqs, spec, seed=1)
+    it = BatchIterator(train, cfg.batch_size, shuffle=True, seed=0,
+                       drop_last=True)
+    log(f"train path: {train['seq_share'].shape[0]} train examples from "
+        f"{len(seqs)} users, {len(it)} full batches of {cfg.batch_size} an "
+        f"epoch (split built in {time.perf_counter() - t0:.1f} s)")
+
+    def batches():
+        while True:
+            yield from it.epoch()
+
+    feed = batches()
+    params = params_mod.init_params(cfg, spec,
+                                    torch.Generator().manual_seed(0), "cuda")
+    opt = optim.make_optimizer(cfg, steps_per_epoch=len(it))
+    state = step_mod.init_state(params, opt)
+    leaves = state.opt_state.leaves
+    fn = step_mod.make_train_step(cfg, spec, graphs, opt,
+                                  torch.Generator().manual_seed(cfg.seed),
+                                  "cuda")
+
+    # one step at dropout 0 through the kernels and through the plain
+    # versions: the same loss and gradients
+    cfg0 = cfg.with_(dropout_gnn=0.0, dropout_attn=0.0)
+    b0 = ranker.to_device(next(feed), "cuda")
+
+    def grads_of(ctx):
+        for t in leaves:
+            t.grad = None
+        with ctx:
+            loss, _ = step_mod.loss_fn(params, graphs, b0, None, cfg0, spec)
+            loss.backward()
+        return float(loss), [t.grad.clone() for t in leaves]
+
+    loss_k, g_k = grads_of(contextlib.nullcontext())
+    loss_p, g_p = grads_of(plain_versions())
+    for t in leaves:
+        t.grad = None
+    rel = [_rel(a, b) if float(b.abs().max()) > 0 else float(a.abs().max())
+           for a, b in zip(g_k, g_p)]
+    log(f"train path dropout 0: loss {loss_k:.6f} (kernels) {loss_p:.6f} "
+        f"(plain); worst gradient relative err {max(rel):.3e} over "
+        f"{len(rel)} tensors")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+          f"train loss {loss_k} (kernels) != {loss_p} (plain)")
+    check(max(rel) <= GRAD_TOL, f"train gradients: relative err {max(rel)}")
+
+    # TRAIN_STEPS steps through the kernels: launches and the loss
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, aux = fn(state, next(feed))
+        losses.append(aux["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [float(v) for v in losses]
+    per_step = {"spmm_csr": 4 * cfg.n_gnn, "encoder_fwd": 3,
+                "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2}
+    log(f"train path: {TRAIN_STEPS} steps (first, cold) in {secs:.3f} s, "
+        f"{TRAIN_STEPS * cfg.batch_size / secs:.1f} train examples/s; "
+        f"launches {launches}")
+    log(f"train path losses: {[round(v, 4) for v in losses]}")
+    for name, n in per_step.items():
+        check(launches[name] == n * TRAIN_STEPS,
+              f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
+              f"steps, want {n} a step")
+    check(all(math.isfinite(v) for v in losses), "train loss not finite")
+    check(np.mean(losses[-5:]) < losses[0],
+          f"train loss did not fall: {losses[0]} -> {losses[-5:]}")
+
+    # warm train examples/s in turns, (plain, kernel, kernel, plain)
+    runs = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain") * TRAIN_ROUNDS:
+        ctx = plain_versions() if which == "plain" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_RUN_STEPS):
+                state, aux = fn(state, next(feed))
+            torch.cuda.synchronize()
+        rate = TRAIN_RUN_STEPS * cfg.batch_size / (time.perf_counter() - t0)
+        check(math.isfinite(float(aux["loss"])), "train loss not finite")
+        runs[which].append(rate)
+    k, p = np.array(runs["kernel"]), np.array(runs["plain"])
+    for which, r in (("kernel", k), ("plain", p)):
+        log(f"train path warm ({which}, {len(r)} runs of {TRAIN_RUN_STEPS} "
+            f"steps): train examples/s mean {r.mean():.1f} sd "
+            f"{r.std(ddof=1):.1f}; runs {[round(float(v)) for v in r]}")
+    diff = k.mean() - p.mean()
+    se = math.sqrt(k.var(ddof=1) / len(k) + p.var(ddof=1) / len(p))
+    log(f"train path warm: kernel - plain {diff:.1f} train examples/s "
+        f"({diff / p.mean():+.2%}), standard error {se:.1f}: "
+        f"{'resolved' if abs(diff) > 3 * se else 'unresolved'}")
+
+    batch = next(feed)
+
+    def one_step():
+        fn(state, batch)
+        torch.cuda.synchronize()
+
+    profile_main_path(one_step, label="train profile")
+    return launches, float(k.mean())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -482,30 +868,71 @@ def main() -> int:
     from c2dsr_tpu_torch.model import c2dsr
     graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cuda"),
                           spmm.device_graph(graphs_host[1], "cuda"))
+    phase_hash()
     timer = Timer()
     with torch.inference_mode():
         k1 = phase_spmm(graphs, timer, peak_flops, peak_bw)
+        k1t = phase_spmm(graphs, timer, peak_flops, peak_bw, transpose=True)
     k2 = phase_encoder(timer, peak_flops, peak_bw)
-    launches = phase_main(spec, graphs_host)
+    k2t, k3 = phase_encoder_train(timer, peak_flops, peak_bw)
+    k4, k5 = phase_ce(timer, peak_flops, peak_bw)
+    del timer
+    torch.cuda.empty_cache()
+    serving = phase_main(spec, graphs_host)
+    training, train_rate = phase_train(spec, seqs, graphs)
+    check(all(training[n] > 0 for n in training),
+          f"a kernel never launched on the training path: {training}")
 
+    def counts(name):
+        return {"launches": serving[name] + training[name],
+                "launches_by_path": {"serving": serving[name],
+                                     "training": training[name]}}
+
+    step_hops = {k: k1[k] + k1t[k] for k in ("ms", "plain_ms", "library_ms",
+                                               "bound_ms")}
     kernels = [
         {"name": "spmm_csr", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/spmm.cu",
          "replaces": "c2dsr_tpu/ops/spmm_pallas.py:175",
-         "launches": launches["spmm_csr"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": "bytes",
-         "library_ms": k1["library_ms"],
-         "note": "one hop over the share table (d 128) plus one over A|B (d 256)"},
+         **counts("spmm_csr"),
+         "max_abs_err": max(k1["max_abs_err"], k1t["max_abs_err"]),
+         **step_hops, "bound_by": "bytes",
+         "forward": k1, "transpose": k1t,
+         "note": "the four hops of a train step: over A and over its "
+                 "transpose (the hop's backward, spmm_pallas.py:224-225), "
+                 "each over the share table (d 128) and A|B (d 256)"},
         {"name": "encoder_fwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/encoder.cu",
          "replaces": "c2dsr_tpu/ops/encoder_pallas.py:444",
-         "launches": launches["encoder_fwd"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
-         "note": "one tower: B 2048, L 15, d 128, one layer, one head"},
+         **counts("encoder_fwd"),
+         "max_abs_err": max(k2["max_abs_err"], k2t["max_abs_err"]),
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"], "train": k2t,
+         "note": "eval: one tower at B 2048, L 15, d 128; train: the three "
+                 "towers of a step (B 1536, 512, 512) at dropout 0.2"},
+        {"name": "encoder_bwd", "route": "cuda",
+         "source": "c2dsr_tpu_torch/csrc/encoder_bwd.cu",
+         "replaces": "c2dsr_tpu/ops/encoder_pallas.py:477",
+         **counts("encoder_bwd"), **k3,
+         "note": "the three towers of a step (B 1536, 512, 512), L 15, "
+                 "d 128, dropout 0.2; library: nn.TransformerEncoder "
+                 "forward + backward in train mode"},
+        {"name": "ce_fwd", "route": "cuda",
+         "source": "c2dsr_tpu_torch/csrc/ce.cu",
+         "replaces": "c2dsr_tpu/ops/fused_ce.py:263",
+         **counts("ce_fwd"), **k4,
+         "note": "both domains of a step: N 10240, d 128, V 30720 + 36864"},
+        {"name": "ce_bwd", "route": "cuda",
+         "source": "c2dsr_tpu_torch/csrc/ce.cu",
+         "replaces": "c2dsr_tpu/ops/fused_ce.py:308",
+         **counts("ce_bwd"), **k5,
+         "note": "dh and dW/db kernels, both domains of a step; also "
+                 "replaces fused_ce.py:339 and :360; bound counts "
+                 "4*N*V*d FLOPs"},
     ]
+    log(f"train path: {train_rate:.1f} train examples/s (warm mean, "
+        f"kernels)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

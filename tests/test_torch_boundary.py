@@ -38,7 +38,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for sub in ("c2dsr_tpu_torch.evaluate.ranker", "c2dsr_tpu_torch.ops.spmm_cuda",
-                "c2dsr_tpu_torch.ops.encoder_cuda", "c2dsr_tpu_torch.kernels.build"):
+                "c2dsr_tpu_torch.ops.encoder_cuda", "c2dsr_tpu_torch.kernels.build",
+                "c2dsr_tpu_torch.train.step", "c2dsr_tpu_torch.train.optim",
+                "c2dsr_tpu_torch.ops.fused_ce", "c2dsr_tpu_torch.ops.fused_ce_cuda",
+                "c2dsr_tpu_torch.ops.dropout", "c2dsr_tpu_torch.ops.losses",
+                "c2dsr_tpu_torch.data.pipeline"):
         assert sub in res["modules"]
 
 
@@ -80,9 +84,14 @@ def test_entry_points_raise_without_cuda(no_cuda):
                           spmm.device_graph(specific, "cpu"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ranker.make_eval_fns(cfg, spec, graphs)
+    from c2dsr_tpu_torch.train import optim, step
+    opt = optim.make_optimizer(cfg, steps_per_epoch=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        step.make_train_step(cfg, spec, graphs, opt, torch.Generator())
     # asked for the CPU, every entry point runs
     ranker.make_eval_fns(cfg, spec, graphs, device="cpu")
     params_mod.init_params(cfg, spec, torch.Generator().manual_seed(0), "cpu")
+    step.make_train_step(cfg, spec, graphs, opt, torch.Generator(), "cpu")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -136,3 +145,33 @@ def test_config_refuses_tpu_only_knobs():
                  "resume", "profile_dir", "debug_nans"):
         with pytest.raises(TypeError):
             Config(**{name: None})
+
+
+def test_training_kernel_wrappers_refuse_cpu_tensors():
+    """The wrappers of the training slice's kernels launch on CUDA tensors
+    or raise, and count no launch when they raise."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce_cuda, spmm, spmm_cuda
+    _, _, share, _ = _tiny()
+    g = spmm.device_graph(share, "cpu")
+    h = torch.randn(g.n, 8, requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        spmm_cuda.hop(g, h)
+    p = params_mod.init_encoder_params(torch.Generator().manual_seed(0),
+                                       Config(d_latent=64), 8)
+    x = torch.randn(2, 8, 64)
+    seq = torch.zeros(2, 8, dtype=torch.long)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        encoder_cuda.encoder_bwd(x, seq, x, p, idx_pad=5, n_head=1,
+                                 invert_padding_mask=False, dropout=0.2)
+    hh, w = torch.randn(4, 64), torch.randn(64, 8)
+    b, v = torch.zeros(8), torch.zeros(4)
+    t = torch.zeros(4, dtype=torch.long)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fused_ce_cuda.ce_fwd(hh, w, b, v, t)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fused_ce_cuda.ce_bwd(hh, w, b, v, v, v, t)
+    for fn in (encoder_cuda.encoder_bwd, fused_ce_cuda.ce_fwd,
+               fused_ce_cuda.ce_bwd, spmm_cuda.spmm_csr):
+        assert fn.launches == 0
