@@ -5,9 +5,11 @@ neither it nor JAX, and keeps its own copies of the numpy-only layers
 (config, data, graph, metrics).  Every Pallas kernel of the JAX package that
 the ported path runs is a hand-written CUDA kernel here (``csrc/``, built by
 ``kernels/build.py``), with a plain PyTorch version beside it that CPU
-tensors take.  Ported so far: the ranking (serving) path, ``evaluate/``,
-and the training step, ``train/`` (forward, backward and the optimizer
-step; the epoch loop, CLI and checkpoints come next).
+tensors take.  Ported so far: the ranking (serving) path, ``evaluate/``;
+the training step, ``train/step.py`` (forward, backward and the optimizer
+step, with the batch-sparse propagation of ``batch_sparse_gnn``); and the
+experiment entry point: ``train/loop.Experiment``, ``cli.py``
+(``python -m c2dsr_tpu_torch.cli``), ``checkpoint.py`` and ``noter.py``.
 """
 
 __version__ = "0.1.0"

@@ -6,9 +6,9 @@ argparse namespace with derived fields stuffed onto it (main.py:69-89).
 The fields are the reference's hyperparameters and those build knobs of
 ``c2dsr_tpu/config.py`` that the port reads, under the same names, so one
 set of keyword arguments configures both packages.  The JAX package's
-TPU-only knobs (kernel backend, mesh, PRNG, profiler) have no counterpart:
-the port picks a kernel by the device of the tensor it is given
-(``ops/backend.py``).
+TPU-only knobs (kernel backend, mesh, PRNG, Pallas interpreter) have no
+counterpart: the port picks a kernel by the device of the tensor it is
+given (``ops/backend.py``).
 
 Derived fields (item counts, pad index) live in :class:`DataSpec`, produced by
 the data layer, so the model/config split is explicit instead of implicit.
@@ -17,6 +17,7 @@ the data layer, so the model/config split is explicit instead of implicit.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 MAPPING_DATASET = {
     "fk": "Food-Kitchen",
@@ -95,6 +96,22 @@ class Config:
     # gives both packages the same shapes).  Padded rows are never indexed;
     # padded logit columns are masked to -inf in ranking.
     vocab_pad_multiple: int = 2048
+    # Batch-sparse graph propagation in the TRAIN step: the last hop of each
+    # propagation is computed only for the table rows the step reads (the
+    # batch's lookup ids), by the flagged SpMM kernel (K6) on the card.  The
+    # step reads only those rows and their gradient is zero elsewhere, so
+    # every consumed value and every gradient is the dense computation's
+    # (c2dsr_tpu/ops/spmm_pallas.make_blocked_spmm_flagged).  Eval always
+    # runs dense.  Default off, as in the JAX package.
+    batch_sparse_gnn: bool = False
+    # Resume from the --ckpt directory if a checkpoint exists there
+    # (params + optimizer state + step + best-validation bookkeeping).
+    resume: bool = False
+    # Write a torch.profiler trace of the first training epoch here.
+    profile_dir: Optional[str] = None
+    # Debug mode: autograd anomaly detection, and fail fast on a non-finite
+    # epoch loss.
+    debug_nans: bool = False
 
     # --- Reference bug-parity switches (SURVEY.md section 2 quirks) --------
     # Quirk 1: reference inverts the key-padding mask (encoders.py:33): real

@@ -28,6 +28,7 @@ from typing import List, Tuple
 import numpy as np
 
 from c2dsr_tpu_torch.config import DataSpec
+from c2dsr_tpu_torch.data import raw as raw_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,3 +105,10 @@ def build_graphs(sequences: List[List[int]], spec: DataSpec
         np.asarray(spec_edges, dtype=np.int64).reshape(-1, 2), n)
     return share, specific
 
+
+def build_graphs_from_file(path: str, spec: DataSpec
+                           ) -> Tuple[CooGraph, CooGraph]:
+    """Like :func:`build_graphs`, reading the raw TSV of a split directly
+    (``c2dsr_tpu/graph/build.py:109``).  The JAX package's C++ parser is not
+    ported yet, so this runs the Python parser (``data/raw.py``)."""
+    return build_graphs(raw_mod.parse_interactions(path), spec)

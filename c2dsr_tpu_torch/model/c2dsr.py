@@ -58,21 +58,27 @@ def _local_ops(cfg: Config):
 
 def convolve_graph(params: Dict[str, Any], graphs: Graphs, cfg: Config,
                    spec: DataSpec, pops=None,
-                   generator: Optional[torch.Generator] = None) -> Propagated:
+                   generator: Optional[torch.Generator] = None,
+                   out_flags: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                   = None) -> Propagated:
     """Propagate all three tables through their GCNs (C2DSR.py:59-62).
 
     generator=None -> eval (no dropout); else train-mode dropout drawn from
-    it (a generator on the tables' device).  Differentiable in params."""
+    it (a generator on the tables' device).  Differentiable in params.
+    out_flags: optional (flag_share, flag_ab) uint8 row markers of the rows
+    the caller will read (batch-sparse training propagation,
+    ops/spmm.gcn_propagate); None -> dense (eval, full-table consumers)."""
     pops = pops or _local_ops(cfg)
     e_share, e_a, e_b = embedding_tables(params, cfg, spec)
+    f_share, f_ab = out_flags if out_flags is not None else (None, None)
     hi_share = pops.spmm_propagate(graphs.share, e_share, cfg.n_gnn,
-                                   cfg.dropout_gnn, generator)
+                                   cfg.dropout_gnn, generator, f_share)
     # A and B propagate through the SAME adjacency (C2DSR.py:61-62): one pass
     # over the feature-concatenated table serves both; dropout stays iid per
     # element, as two independent passes would draw it.
     e_ab = torch.cat([e_a, e_b], dim=1)
     hi_ab = pops.spmm_propagate(graphs.specific, e_ab, cfg.n_gnn,
-                                cfg.dropout_gnn, generator)
+                                cfg.dropout_gnn, generator, f_ab)
     hi_a, hi_b = hi_ab.split(e_a.shape[1], dim=1)
     return Propagated(share=hi_share, a=hi_a, b=hi_b)
 

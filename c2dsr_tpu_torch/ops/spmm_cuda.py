@@ -1,6 +1,7 @@
-"""Wrapper of the CSR SpMM kernel (``csrc/spmm.cu``): ``out = A @ h``, and
-the hop's autograd Function, whose backward is the same kernel over the
-CSR of Aᵀ (``graph.t``).
+"""Wrappers of the CSR SpMM kernels (``csrc/spmm.cu``): the dense hop
+``out = A @ h`` (K1) and the batch-sparse hop (K6), each with the hop's
+autograd Function, whose backward is the same kernel over the CSR of Aᵀ
+(``graph.t``).
 
 Replaces the blocked SpMM Pallas kernel of the JAX package
 (``c2dsr_tpu/ops/spmm_pallas.py`` ``blocked_spmm_impl`` / ``_kernel``).
@@ -9,9 +10,12 @@ reduced 128-edge chunks into 256-row blocks with a one-hot MXU matmul; both
 the chunking and the one-hot reduce are devices of the TPU's matrix unit.
 Its backward (``make_blocked_spmm``'s vjp, ``spmm_pallas.py:224-225``) ran
 the same kernel over a prepared transpose; here :func:`hop` does the same
-with the transpose CSR that ``ops/spmm.device_graph`` packs.
+with the transpose CSR that ``ops/spmm.device_graph`` packs.  The flagged
+variant (``make_blocked_spmm_flagged``, ``spmm_pallas.py:231-264``) masked
+edges by a row flag, by the output row in the forward and by the gathered
+row in the backward; :func:`flagged_hop` does that with K6.
 
-What bounds it on an H100: bytes.  A hop reads each referenced table row
+What bounds them on an H100: bytes.  A hop reads each referenced table row
 (d·4 bytes) and writes each output row once; the arithmetic (2·nnz·d
 FLOPs) is negligible.  Design: a warp accumulates a row's edges in CSR
 order, each lane owning 4 contiguous features (one 16-byte gather per edge,
@@ -20,7 +24,11 @@ atomics, a deterministic result.  Degrees are Zipf-skewed (the FK graph's
 largest row has 5,445 edges), so a row with more than ``graph.heavy_deg``
 edges (``HEAVY_DEG`` by default) gets a whole block whose 32 warps sum 32
 contiguous segments, added in order; ``device_graph`` lists those rows once
-per graph, and the threshold travels with the list.
+per graph, and the threshold travels with the list.  K6 is the same kernel
+instantiated per mode: "dest" writes an unflagged output row as zeros with
+no gathers; "src" keeps a 32-edge window's flagged edges by a ballot and
+gathers only those.  The bytes it saves are the gathers of the edges it
+drops.
 """
 
 from __future__ import annotations
@@ -35,38 +43,46 @@ from c2dsr_tpu_torch.kernels import build
 # a block each (see csrc/spmm.cu)
 HEAVY_DEG = 128
 _SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FLAGGED_SIG = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_MODES = {"dest": 1, "src": 2}     # csrc/spmm.cu kDest, kSrc
 
 
-def _fn():
-    f = build.library("spmm").spmm_csr_f32
-    f.argtypes = _SIG
+def _fn(name: str, argtypes):
+    f = getattr(build.library("spmm"), name)
+    f.argtypes = argtypes
     f.restype = ctypes.c_int
     return f
 
 
-def spmm_csr(graph, h: torch.Tensor) -> torch.Tensor:
-    """``adj @ h`` by the CUDA kernel.  h: [n_rows >= graph.n, d] f32 CUDA,
-    contiguous, d % 4 == 0.  Rows past ``graph.n`` come out zero."""
+def _check(graph, h: torch.Tensor, name: str):
     if not h.is_cuda:
-        raise ValueError("spmm_csr takes CUDA tensors only")
+        raise ValueError(f"{name} takes CUDA tensors only")
     if h.dtype != torch.float32 or h.dim() != 2:
-        raise ValueError(f"spmm_csr takes f32 [n, d], got {h.dtype} "
+        raise ValueError(f"{name} takes f32 [n, d], got {h.dtype} "
                          f"{tuple(h.shape)}")
     n_rows, d = h.shape
     if d % 4 or d == 0:
-        raise ValueError(f"spmm_csr needs d % 4 == 0, got d={d}")
+        raise ValueError(f"{name} needs d % 4 == 0, got d={d}")
     if n_rows < graph.n:
         raise ValueError(f"table has {n_rows} rows < graph dim {graph.n}")
     for t in (h, graph.rowptr, graph.cols, graph.vals, graph.heavy_rows):
         if t.device != h.device or not t.is_contiguous():
             raise ValueError("h and the graph arrays must be contiguous on "
                              "one device")
+    return n_rows, d
+
+
+def spmm_csr(graph, h: torch.Tensor) -> torch.Tensor:
+    """``adj @ h`` by the CUDA kernel.  h: [n_rows >= graph.n, d] f32 CUDA,
+    contiguous, d % 4 == 0.  Rows past ``graph.n`` come out zero."""
+    n_rows, d = _check(graph, h, "spmm_csr")
     out = torch.empty_like(h)
-    err = _fn()(graph.rowptr.data_ptr(), graph.cols.data_ptr(),
-                graph.vals.data_ptr(), graph.heavy_rows.data_ptr(),
-                h.data_ptr(), out.data_ptr(), graph.heavy_rows.numel(),
-                graph.heavy_deg, graph.n, n_rows, d,
-                torch.cuda.current_stream().cuda_stream)
+    err = _fn("spmm_csr_f32", _SIG)(
+        graph.rowptr.data_ptr(), graph.cols.data_ptr(),
+        graph.vals.data_ptr(), graph.heavy_rows.data_ptr(),
+        h.data_ptr(), out.data_ptr(), graph.heavy_rows.numel(),
+        graph.heavy_deg, graph.n, n_rows, d,
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr launch failed: CUDA error {err}")
     spmm_csr.launches += 1
@@ -74,6 +90,38 @@ def spmm_csr(graph, h: torch.Tensor) -> torch.Tensor:
 
 
 spmm_csr.launches = 0
+
+
+def spmm_csr_flagged(graph, h: torch.Tensor, flag: torch.Tensor,
+                     flag_on: str) -> torch.Tensor:
+    """The batch-sparse hop by the CUDA kernel (K6).  h as for
+    :func:`spmm_csr`; flag: uint8 [n_rows] 0/1, one entry per table row.
+
+    flag_on="dest": rows of ``adj @ h`` where the flag is set, zeros
+    elsewhere.  flag_on="src": ``adj @ h`` over the edges whose gathered row
+    is flagged, which is ``adj @ h`` itself where h is zero off the flags."""
+    n_rows, d = _check(graph, h, "spmm_csr_flagged")
+    if flag_on not in _MODES:
+        raise ValueError(f"flag_on must be 'dest' or 'src', got {flag_on!r}")
+    if (flag.dtype != torch.uint8 or tuple(flag.shape) != (n_rows,)
+            or flag.device != h.device or not flag.is_contiguous()):
+        raise ValueError(f"flag must be contiguous uint8 [{n_rows}] on h's "
+                         f"device, got {flag.dtype} {tuple(flag.shape)}")
+    out = torch.empty_like(h)
+    err = _fn("spmm_csr_flagged_f32", _FLAGGED_SIG)(
+        graph.rowptr.data_ptr(), graph.cols.data_ptr(),
+        graph.vals.data_ptr(), graph.heavy_rows.data_ptr(),
+        flag.data_ptr(), h.data_ptr(), out.data_ptr(),
+        graph.heavy_rows.numel(), graph.heavy_deg, graph.n, n_rows, d,
+        _MODES[flag_on], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spmm_csr_flagged launch failed: CUDA error "
+                           f"{err}")
+    spmm_csr_flagged.launches += 1
+    return out
+
+
+spmm_csr_flagged.launches = 0
 
 
 class _Hop(torch.autograd.Function):
@@ -91,11 +139,44 @@ class _Hop(torch.autograd.Function):
         return spmm_csr(ctx.graph.t, g.contiguous()), None
 
 
+class _FlaggedHop(torch.autograd.Function):
+    """The batch-sparse hop: forward K6 over A with ``flag_on="dest"``,
+    backward K6 over ``graph.t`` with ``flag_on="src"``.  The incoming
+    gradient is zero on the unflagged rows, which the forward wrote as
+    zeros and nothing reads, so the backward's masked edges would add
+    zeros: the gradient is the dense one.  The flag gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, flag, graph):
+        ctx.graph = graph
+        ctx.save_for_backward(flag)
+        return spmm_csr_flagged(graph, h, flag, "dest")
+
+    @staticmethod
+    def backward(ctx, g):
+        (flag,) = ctx.saved_tensors
+        return (spmm_csr_flagged(ctx.graph.t, g.contiguous(), flag, "src"),
+                None, None)
+
+
+def _check_transpose(graph) -> None:
+    if graph.t is None:
+        raise ValueError("the graph carries no transpose (device_graph "
+                         "packs it)")
+
+
 def hop(graph, h: torch.Tensor) -> torch.Tensor:
     """One differentiable hop ``A @ h`` on a CUDA tensor."""
     if not (torch.is_grad_enabled() and h.requires_grad):
         return spmm_csr(graph, h)
-    if graph.t is None:
-        raise ValueError("the graph carries no transpose (device_graph "
-                         "packs it)")
+    _check_transpose(graph)
     return _Hop.apply(h, graph)
+
+
+def flagged_hop(graph, h: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
+    """One differentiable batch-sparse hop on a CUDA tensor: ``A @ h`` on
+    the flagged rows, zeros elsewhere (see :func:`spmm_csr_flagged`)."""
+    if not (torch.is_grad_enabled() and h.requires_grad):
+        return spmm_csr_flagged(graph, h, flag, "dest")
+    _check_transpose(graph)
+    return _FlaggedHop.apply(h, flag, graph)

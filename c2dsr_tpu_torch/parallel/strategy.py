@@ -33,8 +33,9 @@ class LocalOps:
 
     def spmm_propagate(self, graph: spmm_mod.CsrDevice, h: torch.Tensor,
                        n_layers: int, dropout: float = 0.0,
-                       generator=None) -> torch.Tensor:
-        return spmm_mod.gcn_propagate(graph, h, n_layers, dropout, generator)
+                       generator=None, out_flag=None) -> torch.Tensor:
+        return spmm_mod.gcn_propagate(graph, h, n_layers, dropout, generator,
+                                      out_flag)
 
     def ce_rows(self, h, w, b, pad_logit, targets, n_real: int
                 ) -> torch.Tensor:

@@ -17,8 +17,10 @@ The counterpart of ``c2dsr_tpu/train/step.py:36-197``.  Loss structure
 The graph propagation runs inside the step, with dropout, as in
 trainer.py:48.  On the card every kernel of the path runs forward and
 backward: the CSR SpMM (over A and Aᵀ), the fused tower (forward and
-backward, dropout in the kernels) and the fused CE (K4, K5).  On the CPU
-the same code runs their plain versions under autograd.
+backward, dropout in the kernels) and the fused CE (K4, K5).  With
+``batch_sparse_gnn`` the last hop of each propagation is the batch-sparse
+SpMM (K6), flagged by the rows the step looks up (:func:`row_flags`).  On
+the CPU the same code runs their plain versions under autograd.
 
 Dropout comes from one seed a step, drawn from the caller's CPU
 ``torch.Generator``: the GNN's masks from a device generator seeded with it,
@@ -66,6 +68,23 @@ def _pool_mask(gt_mask: torch.Tensor) -> torch.Tensor:
     return m / torch.clamp(m.sum(dim=-1, keepdim=True), min=1.0)
 
 
+def row_flags(seq_share3: torch.Tensor, seq_a: torch.Tensor,
+              seq_b: torch.Tensor, n_rows: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(flag_share, flag_ab): uint8 [n_rows] markers of the table rows that
+    ``forward_joint`` looks up from these id arrays: ``seq_share3`` (the
+    positive and the two corrupted sequences) in the shared table,
+    ``seq_a`` and ``seq_b`` in the A|B table.  The pad id is marked as any
+    other.  Built on the ids' device with no host sync."""
+    def flag(*id_arrays):
+        f = torch.zeros(n_rows, dtype=torch.uint8,
+                        device=id_arrays[0].device)
+        for ids in id_arrays:
+            f.index_fill_(0, ids.reshape(-1), 1)
+        return f
+    return flag(seq_share3), flag(seq_a, seq_b)
+
+
 def loss_fn(params, graphs: c2dsr.Graphs, batch: Dict[str, torch.Tensor],
             seed: Optional[int], cfg: Config, spec: DataSpec, pops=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -82,7 +101,21 @@ def loss_fn(params, graphs: c2dsr.Graphs, batch: Dict[str, torch.Tensor],
     pos3 = torch.cat([batch["pos"]] * 3, dim=0)
     gen = (None if seed is None
            else torch.Generator(device=device).manual_seed(seed))
-    hi = c2dsr.convolve_graph(params, graphs, cfg, spec, pops, generator=gen)
+    # batch-sparse propagation (cfg.batch_sparse_gnn): mark the table rows
+    # this step will read.  INVARIANT: the propagated tables hi are consumed
+    # ONLY by c2dsr.forward_joint's lookups, so the flags are derived from
+    # the SAME arrays passed to forward_joint below (seq_share3 for the
+    # shared table; seq_share_a/_b for the specific table) — any new read of
+    # hi must extend this flag set or it will consume unpropagated rows.
+    # Marked-row values and ALL gradients are exactly the dense
+    # computation's; unmarked propagated rows are never read.
+    out_flags = None
+    if cfg.batch_sparse_gnn:
+        out_flags = row_flags(seq_share3, batch["seq_share_a"],
+                              batch["seq_share_b"],
+                              params["embed_share"].shape[0])
+    hi = c2dsr.convolve_graph(params, graphs, cfg, spec, pops, generator=gen,
+                              out_flags=out_flags)
     h_share3, hx, hy = c2dsr.forward_joint(
         params, hi, seq_share3, pos3, batch["seq_share_a"],
         batch["seq_share_b"], batch["pos_a"], batch["pos_b"], cfg, spec,

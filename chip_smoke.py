@@ -25,8 +25,21 @@ Phases (any failure exits non-zero without the final line):
    step, and one step at dropout 0 must give the plain versions' loss and
    gradients; then train examples/s in turns with the plain versions, and
    one profiled step.
-5. summary: one JSON line of kernel numbers, the card's name and power
+5. experiment path: ``train.loop.Experiment`` at Food-Kitchen geometry
+   with ``Config(batch_sparse_gnn=True, n_epoch=2)``, checkpointing to a
+   temporary directory: finite losses and metrics, the batch-sparse SpMM
+   (K6) on every hop of every step and the dense one (K1) in every eval
+   convolve, the checkpoint written and a resumed run finished; one step
+   at dropout 0 with the flags on and off gives the same loss and
+   gradients; warm train examples/s with the flags on and off, in turns.
+6. CLI: ``python -m c2dsr_tpu_torch.cli --synthetic 2000 --n_epoch 1`` in a
+   temporary directory exits 0 and prints the final result table.
+7. summary: one JSON line of kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
+
+The kernel phase also holds K6 against its plain version and against K1
+over A and Aᵀ, with the row flags of one real training batch, and records
+the share of each graph's edges that such a batch keeps.
 """
 
 from __future__ import annotations
@@ -34,8 +47,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,6 +69,8 @@ CE_TOL = 1e-5            # lse / target logit, relative to max |plain|
 TRAIN_STEPS = 30         # train steps whose launches and losses are checked
 TRAIN_ROUNDS = 5         # rounds of (plain, kernel, kernel, plain) train runs
 TRAIN_RUN_STEPS = 4      # steps per timed train run
+CLI_USERS = 2000         # synthetic users of the CLI phase
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 class SmokeFailure(Exception):
@@ -116,6 +133,7 @@ def plain_versions():
     from c2dsr_tpu_torch.ops import (encoder_cuda, fused_ce, fused_ce_cuda,
                                      spmm, spmm_cuda)
     swaps = [(spmm_cuda, "spmm_csr", spmm.spmm_reference),
+             (spmm_cuda, "spmm_csr_flagged", spmm.spmm_reference_flagged),
              (encoder_cuda, "encoder_fwd", enc.encoder_fwd_plain),
              (encoder_cuda, "encoder_bwd", enc.encoder_bwd_plain),
              (fused_ce_cuda, "ce_fwd", fused_ce.ce_fwd_plain),
@@ -134,6 +152,7 @@ def kernel_wrappers():
     """{name: wrapper} of every kernel the main paths launch."""
     from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce_cuda, spmm_cuda
     return {"spmm_csr": spmm_cuda.spmm_csr,
+            "spmm_csr_flagged": spmm_cuda.spmm_csr_flagged,
             "encoder_fwd": encoder_cuda.encoder_fwd,
             "encoder_bwd": encoder_cuda.encoder_bwd,
             "ce_fwd": fused_ce_cuda.ce_fwd, "ce_bwd": fused_ce_cuda.ce_bwd}
@@ -361,20 +380,15 @@ def profile_main_path(run_all, label="profile"):
             f"x{count:<5d} {key[:90]}")
 
 
-def phase_main(spec, graphs_host):
+def phase_main(spec, graphs_host, data):
     from c2dsr_tpu_torch import metrics
     from c2dsr_tpu_torch.config import Config
-    from c2dsr_tpu_torch.data import preprocess, synthetic
     from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.model import c2dsr
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import spmm
 
     cfg = Config()
-    eval_seqs = synthetic.generate_sequences(spec, N_EVAL_USERS, seed=1)
-    data = preprocess.preprocess_evaluate(eval_seqs, spec,
-                                          n_neg_sample=cfg.n_neg_sample,
-                                          seed=2)
     n_ex = int(data["gt_last"].shape[0])
     groups = ranker.partition_by_domain(data)
     steps = sum(-(-int(groups[dm]["gt_last"].shape[0]) // cfg.batch_size_eval)
@@ -713,10 +727,9 @@ def phase_ce(timer, peak_flops, peak_bw):
     return fwd, bwd
 
 
-def phase_train(spec, seqs, graphs):
+def phase_train(spec, train, graphs):
     """The training path at FK geometry, default Config."""
     from c2dsr_tpu_torch.config import Config
-    from c2dsr_tpu_torch.data import preprocess
     from c2dsr_tpu_torch.data.pipeline import BatchIterator
     from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.model import params as params_mod
@@ -724,13 +737,10 @@ def phase_train(spec, seqs, graphs):
     from c2dsr_tpu_torch.train import step as step_mod
 
     cfg = Config()
-    t0 = time.perf_counter()
-    train = preprocess.preprocess_train(seqs, spec, seed=1)
     it = BatchIterator(train, cfg.batch_size, shuffle=True, seed=0,
                        drop_last=True)
-    log(f"train path: {train['seq_share'].shape[0]} train examples from "
-        f"{len(seqs)} users, {len(it)} full batches of {cfg.batch_size} an "
-        f"epoch (split built in {time.perf_counter() - t0:.1f} s)")
+    log(f"train path: {train['seq_share'].shape[0]} train examples, "
+        f"{len(it)} full batches of {cfg.batch_size} an epoch")
 
     def batches():
         while True:
@@ -784,8 +794,8 @@ def phase_train(spec, seqs, graphs):
     secs = time.perf_counter() - t0
     launches = read_launches()
     losses = [float(v) for v in losses]
-    per_step = {"spmm_csr": 4 * cfg.n_gnn, "encoder_fwd": 3,
-                "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2}
+    per_step = {"spmm_csr": 4 * cfg.n_gnn, "spmm_csr_flagged": 0,
+                "encoder_fwd": 3, "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2}
     log(f"train path: {TRAIN_STEPS} steps (first, cold) in {secs:.3f} s, "
         f"{TRAIN_STEPS * cfg.batch_size / secs:.1f} train examples/s; "
         f"launches {launches}")
@@ -832,13 +842,299 @@ def phase_train(spec, seqs, graphs):
     return launches, float(k.mean())
 
 
+def _flagged_batch(train, batch_size):
+    """One real training batch on the card and its row flags over the
+    padded tables (``train/step.row_flags``, as ``loss_fn`` builds them)."""
+    from c2dsr_tpu_torch.data.pipeline import BatchIterator
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.train import step as step_mod
+    it = BatchIterator(train, batch_size, shuffle=True, seed=0,
+                       drop_last=True)
+    b = ranker.to_device(next(iter(it.epoch())), "cuda")
+    seq3 = torch.cat([b["seq_share"], b["seq_share_neg_a"],
+                      b["seq_share_neg_b"]], dim=0)
+    return b, step_mod.row_flags(seq3, b["seq_share_a"], b["seq_share_b"],
+                                 65536)
+
+
+def phase_spmm_flagged(graphs, train, timer, peak_flops, peak_bw):
+    """K6, the batch-sparse hop, with the flags of one FK training batch:
+    over A in dest mode (a hop's forward) and over Aᵀ in src mode (its
+    backward, on a gradient that is zero off the flags), over each graph,
+    against its plain version and against K1.  Times kernel, plain version
+    and dense ``torch.sparse.mm`` (no single PyTorch call computes the
+    flagged hop: the dense product does more work)."""
+    from c2dsr_tpu_torch.ops import spmm, spmm_cuda
+    _, (f_share, f_ab) = _flagged_batch(train, 512)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n_rows = 65536
+    res = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "kept_edge_share": {}, "by_hop": {}}
+    for name, g, d, flag in (("share", graphs.share, 128, f_share),
+                             ("specific_ab", graphs.specific, 256, f_ab)):
+        sel = flag.bool()
+        for mode, graph in (("dest", g), ("src", g.t)):
+            x = torch.randn((n_rows, d), generator=gen, device="cuda")
+            x[g.n:] = 0.0
+            if mode == "src":
+                x = x * flag[:, None]          # the gradient of read rows
+            out = spmm_cuda.spmm_csr_flagged(graph, x, flag, mode)
+            ref = spmm.spmm_reference_flagged(graph, x, flag, mode)
+            dense = spmm_cuda.spmm_csr(graph, x)
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            err = float((out - ref).abs().max())
+            tag = f"spmm_flagged {name} {mode}"
+            check(bool(torch.isfinite(out).all()), f"{tag}: non-finite")
+            check(err <= SPMM_TOL * scale,
+                  f"{tag}: max abs err {err} > {SPMM_TOL} x {scale}")
+            if mode == "dest":
+                check(bool((out[~sel] == 0).all()),
+                      f"{tag}: unflagged rows not zero")
+                same = torch.equal(out[sel], dense[sel])
+                check(same, f"{tag}: flagged rows differ from K1's")
+                probe = graph.rows.long()        # edges kept by out row
+            else:
+                same = torch.equal(out, dense)
+                err_k1 = float((out - dense).abs().max())
+                check(err_k1 <= SPMM_TOL * scale,
+                      f"{tag}: differs from K1 over the transpose by "
+                      f"{err_k1}")
+                probe = graph.cols.long()        # edges kept by src row
+            keep = flag[probe].bool()
+            nnz = int(graph.cols.numel())
+            n_kept = int(keep.sum())
+            used = int(torch.unique(graph.cols[keep]).numel())
+            rowptr = torch.cat([graph.rowptr,
+                                graph.rowptr[-1:].expand(n_rows - g.n)])
+            csr = torch.sparse_csr_tensor(rowptr.long(), graph.cols.long(),
+                                          graph.vals, size=(n_rows, n_rows),
+                                          check_invariants=False)
+            ms = timer(lambda: spmm_cuda.spmm_csr_flagged(graph, x, flag,
+                                                          mode))
+            plain_ms = timer(lambda: spmm.spmm_reference_flagged(
+                graph, x, flag, mode))
+            library_ms = timer(lambda: torch.sparse.mm(csr, x))
+            # each input read once, each output written once: the row
+            # pointers and the flag byte of every row; in dest mode the id
+            # and weight of each kept edge, in src mode of every edge (and
+            # its flag byte); each gathered row once; every output row
+            edge_bytes = 8 * n_kept if mode == "dest" else 9 * nnz
+            nbytes = ((g.n + 1) * 4 + n_rows + edge_bytes + used * d * 4
+                      + n_rows * d * 4)
+            bound_ms = max(nbytes / peak_bw,
+                           2 * n_kept * d / peak_flops) * 1e3
+            share = n_kept / max(nnz, 1)
+            log(f"{tag}: d={d} nnz={nnz} kept={n_kept} ({share:.4f}) "
+                f"gathered rows={used} err={err:.3e} (scale {scale:.3f}) "
+                f"bitwise K1={same} kernel {ms:.4f} ms plain {plain_ms:.4f} "
+                f"ms library (dense) {library_ms:.4f} ms bound "
+                f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+            res["kept_edge_share"][f"{name} {mode}"] = share
+            res["by_hop"][f"{name} {mode}"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "max_abs_err": err}
+            res["ms"] += ms
+            res["plain_ms"] += plain_ms
+            res["library_ms"] += library_ms
+            res["bound_ms"] += bound_ms
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+    return res
+
+
+def _warm_rates(fns, feed, batch_size):
+    """Warm train examples/s of each of two step functions, run in turns
+    (a, b, b, a) TRAIN_ROUNDS times, TRAIN_RUN_STEPS steps a run; both
+    update the same state in place.  Returns {name: rates}."""
+    (na, fa), (nb, fb) = fns
+    runs = {na: [], nb: []}
+    for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)) * TRAIN_ROUNDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_RUN_STEPS):
+            aux = fn(next(feed))
+        torch.cuda.synchronize()
+        check(math.isfinite(float(aux["loss"])), "train loss not finite")
+        runs[name].append(TRAIN_RUN_STEPS * batch_size
+                          / (time.perf_counter() - t0))
+    return {k: np.array(v) for k, v in runs.items()}
+
+
+def phase_experiment(spec, train, data, graphs, name):
+    """The experiment entry point at FK geometry with the batch-sparse
+    propagation: two epochs of ``Experiment.run`` with save-on-best, a
+    resumed third, the flags-on/off equality and the warm step rates."""
+    from c2dsr_tpu_torch import checkpoint as ckpt_mod
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.data.pipeline import BatchIterator
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.train import step as step_mod
+    from c2dsr_tpu_torch.train.loop import Experiment
+
+    cfg = Config(batch_sparse_gnn=True, n_epoch=2)
+    half = data["gt_last"].shape[0] // 2
+    val = {k: v[:half] for k, v in data.items()}
+    test = {k: v[half:] for k, v in data.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        exp = Experiment(cfg, spec, graphs, train, val, test, ckpt_path=ckpt,
+                         device="cuda")
+        losses, convolves = [], [0]
+        train_epoch, convolve_eval = exp.run_train_epoch, exp.convolve_eval
+
+        def train_and_record():
+            losses.append(train_epoch())
+            return losses[-1]
+
+        def convolve_and_count(params):
+            convolves[0] += 1
+            return convolve_eval(params)
+
+        exp.run_train_epoch = train_and_record
+        exp.convolve_eval = convolve_and_count
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exp.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        steps = cfg.n_epoch * len(exp.train_iter)
+        log(f"experiment path: {exp.n_tr} train examples, {len(val['gt_last'])}"
+            f" val and {len(test['gt_last'])} test examples; {cfg.n_epoch} "
+            f"epochs ({steps} steps, {convolves[0]} eval convolves) in "
+            f"{secs:.3f} s; losses {[[round(v, 4) for v in l] for l in losses]}"
+            f"; best epoch improvement {out['imp_val_best']:.4f}; launches "
+            f"{launches}")
+        check(out["epoch"] == cfg.n_epoch, f"experiment ended at {out}")
+        check(all(math.isfinite(v) for l in losses for v in l),
+              f"experiment loss not finite: {losses}")
+        check(all(math.isfinite(v) for v in [out["imp_val_best"]]
+                  + list(out["res_test"])), f"experiment metric: {out}")
+        want = {"spmm_csr_flagged": 4 * steps,
+                "spmm_csr": 4 * (cfg.n_gnn - 1) * steps
+                + 2 * cfg.n_gnn * convolves[0],
+                "encoder_bwd": 3 * steps, "ce_fwd": 2 * steps,
+                "ce_bwd": 2 * steps}
+        for k, n in want.items():
+            check(launches[k] == n, f"experiment: {k} launched "
+                  f"{launches[k]} times, want {n}")
+        check(launches["encoder_fwd"] > 3 * steps, "experiment: eval towers")
+
+        meta = ckpt_mod.load_meta(ckpt)
+        check(ckpt_mod.exists(ckpt) and meta.get("epoch") in (1, 2),
+              f"experiment: no checkpoint ({meta})")
+        exp2 = Experiment(cfg.with_(n_epoch=3, resume=True), spec, graphs,
+                          train, val, test, ckpt_path=ckpt, device="cuda")
+        check(exp2._start_epoch == meta["epoch"]
+              and exp2.state.step == meta["epoch"] * len(exp.train_iter),
+              f"resume: epoch {exp2._start_epoch} step {exp2.state.step}, "
+              f"meta {meta}")
+        t0 = time.perf_counter()
+        out2 = exp2.run()
+        torch.cuda.synchronize()
+        secs2 = time.perf_counter() - t0
+        check(out2["epoch"] == 3 and out2["imp_val_best"]
+              >= meta["imp_val_best"], f"resumed run: {out2}")
+        log(f"experiment resume: from epoch {meta['epoch']} (state "
+            f"{meta['state_dir']}) to {out2['epoch']} in {secs2:.3f} s, best "
+            f"improvement {out2['imp_val_best']:.4f}")
+        del exp2
+
+    # one step at dropout 0 with the flags on and off
+    cfg0 = cfg.with_(dropout_gnn=0.0, dropout_attn=0.0)
+    b0, _ = _flagged_batch(train, cfg.batch_size)
+    leaves = exp.state.opt_state.leaves
+
+    def grads_of(sparse):
+        for t in leaves:
+            t.grad = None
+        loss, _ = step_mod.loss_fn(exp.state.params, graphs, b0, None,
+                                   cfg0.with_(batch_sparse_gnn=sparse), spec)
+        loss.backward()
+        return float(loss.detach()), [t.grad.clone() for t in leaves]
+
+    loss_on, g_on = grads_of(True)
+    loss_off, g_off = grads_of(False)
+    for t in leaves:
+        t.grad = None
+    rel = [_rel(a, b) if float(b.abs().max()) > 0 else float(a.abs().max())
+           for a, b in zip(g_on, g_off)]
+    log(f"experiment dropout 0: loss {loss_on:.6f} (flags on) {loss_off:.6f}"
+        f" (off); worst gradient relative err {max(rel):.3e}")
+    check(abs(loss_on - loss_off) <= 1e-5 * abs(loss_off),
+          f"batch-sparse loss {loss_on} != dense {loss_off}")
+    check(max(rel) <= GRAD_TOL, f"batch-sparse gradients: {max(rel)}")
+
+    # warm train examples/s, flags on and off in turns (logged, not claimed)
+    it = BatchIterator(train, cfg.batch_size, shuffle=True, seed=1,
+                       drop_last=True)
+
+    def batches():
+        while True:
+            yield from it.epoch()
+
+    feed = batches()
+    dense = step_mod.make_train_step(
+        cfg.with_(batch_sparse_gnn=False), spec, graphs, exp.optimizer,
+        torch.Generator().manual_seed(9), "cuda")
+
+    def on(batch):
+        exp.state, aux = exp.train_step(exp.state, batch)
+        return aux
+
+    def off(batch):
+        exp.state, aux = dense(exp.state, batch)
+        return aux
+
+    rates = _warm_rates((("dense", off), ("batch_sparse", on)), feed,
+                        cfg.batch_size)
+    for k, r in rates.items():
+        log(f"experiment warm ({k}, {len(r)} runs of {TRAIN_RUN_STEPS} "
+            f"steps): train examples/s mean {r.mean():.1f} sd "
+            f"{r.std(ddof=1):.1f}; runs {[round(float(v)) for v in r]}")
+    k, p = rates["batch_sparse"], rates["dense"]
+    diff = k.mean() - p.mean()
+    se = math.sqrt(k.var(ddof=1) / len(k) + p.var(ddof=1) / len(p))
+    log(f"experiment warm: batch_sparse - dense {diff:.1f} train examples/s "
+        f"({diff / p.mean():+.2%}), standard error {se:.1f}: "
+        f"{'resolved' if abs(diff) > 3 * se else 'unresolved'} (on {name})")
+    return launches, {"batch_sparse": float(k.mean()),
+                      "dense": float(p.mean())}
+
+
+def phase_cli():
+    """``python -m c2dsr_tpu_torch.cli`` on the card in a temporary working
+    directory: exit 0 and the final result table."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [REPO_DIR] + [p for p in [env.get("PYTHONPATH")] if p])
+        cmd = [sys.executable, "-m", "c2dsr_tpu_torch.cli", "--synthetic",
+               str(CLI_USERS), "--n_epoch", "1", "--ckpt",
+               os.path.join(tmp, "ckpt")]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        check(run.returncode == 0, f"cli exited {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        check("[ Test result ]" in run.stdout,
+              "cli printed no final result table")
+        check(os.path.isfile(os.path.join(tmp, "ckpt", "meta.json")),
+              "cli wrote no checkpoint")
+        table = run.stdout[run.stdout.rindex("[ Test result ]"):]
+        log(f"cli: {' '.join(cmd[1:])} exited 0 in {secs:.1f} s; test "
+            f"result {table.splitlines()[2].strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
         from c2dsr_tpu_torch.config import DataSpec
-        from c2dsr_tpu_torch.data import synthetic
+        from c2dsr_tpu_torch.data import preprocess, synthetic
         from c2dsr_tpu_torch.graph import build as graph_build
         from c2dsr_tpu_torch.kernels import build
         from c2dsr_tpu_torch.ops import backend, spmm
@@ -864,6 +1160,14 @@ def main() -> int:
     graphs_host = graph_build.build_graphs(seqs, spec)
     log(f"setup: FK graphs nnz share {graphs_host[0].nnz} specific "
         f"{graphs_host[1].nnz} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train = preprocess.preprocess_train(seqs, spec, seed=1)
+    eval_data = preprocess.preprocess_evaluate(
+        synthetic.generate_sequences(spec, N_EVAL_USERS, seed=1), spec,
+        n_neg_sample=999, seed=2)
+    log(f"setup: {train['seq_share'].shape[0]} train examples from "
+        f"{len(seqs)} users, {eval_data['gt_last'].shape[0]} eval examples "
+        f"from {N_EVAL_USERS} users in {time.perf_counter() - t0:.1f} s")
 
     from c2dsr_tpu_torch.model import c2dsr
     graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cuda"),
@@ -873,20 +1177,38 @@ def main() -> int:
     with torch.inference_mode():
         k1 = phase_spmm(graphs, timer, peak_flops, peak_bw)
         k1t = phase_spmm(graphs, timer, peak_flops, peak_bw, transpose=True)
+        k6 = phase_spmm_flagged(graphs, train, timer, peak_flops, peak_bw)
     k2 = phase_encoder(timer, peak_flops, peak_bw)
     k2t, k3 = phase_encoder_train(timer, peak_flops, peak_bw)
     k4, k5 = phase_ce(timer, peak_flops, peak_bw)
     del timer
     torch.cuda.empty_cache()
-    serving = phase_main(spec, graphs_host)
-    training, train_rate = phase_train(spec, seqs, graphs)
-    check(all(training[n] > 0 for n in training),
-          f"a kernel never launched on the training path: {training}")
+    t0 = time.perf_counter()
+    serving = phase_main(spec, graphs_host, eval_data)
+    log(f"phase serving: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    training, train_rate = phase_train(spec, train, graphs)
+    log(f"phase training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    experiment, exp_rates = phase_experiment(spec, train, eval_data, graphs,
+                                             card)
+    log(f"phase experiment: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_cli()
+    log(f"phase cli: {time.perf_counter() - t0:.1f} s")
+    paths = {"serving": serving, "training": training,
+             "experiment": experiment}
+    for path, kernels_of_path in (
+            ("serving", ("spmm_csr", "encoder_fwd")),
+            ("training", ("spmm_csr", "encoder_fwd", "encoder_bwd", "ce_fwd",
+                          "ce_bwd")),
+            ("experiment", tuple(kernel_wrappers()))):
+        check(all(paths[path][n] > 0 for n in kernels_of_path),
+              f"a kernel never launched on the {path} path: {paths[path]}")
 
     def counts(name):
-        return {"launches": serving[name] + training[name],
-                "launches_by_path": {"serving": serving[name],
-                                     "training": training[name]}}
+        return {"launches": sum(p[name] for p in paths.values()),
+                "launches_by_path": {k: p[name] for k, p in paths.items()}}
 
     step_hops = {k: k1[k] + k1t[k] for k in ("ms", "plain_ms", "library_ms",
                                                "bound_ms")}
@@ -901,6 +1223,18 @@ def main() -> int:
          "note": "the four hops of a train step: over A and over its "
                  "transpose (the hop's backward, spmm_pallas.py:224-225), "
                  "each over the share table (d 128) and A|B (d 256)"},
+        {"name": "spmm_csr_flagged", "route": "cuda",
+         "source": "c2dsr_tpu_torch/csrc/spmm.cu",
+         "replaces": "c2dsr_tpu/ops/spmm_pallas.py:231-264 via :175",
+         **counts("spmm_csr_flagged"),
+         **{k: k6[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                               "bound_ms")},
+         "bound_by": "bytes", "kept_edge_share": k6["kept_edge_share"],
+         "by_hop": k6["by_hop"],
+         "note": "K6: the four hops of a batch-sparse train step with one "
+                 "FK batch's flags: dest over A, src over its transpose, "
+                 "share (d 128) and A|B (d 256); library: dense "
+                 "torch.sparse.mm, which does more work"},
         {"name": "encoder_fwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/encoder.cu",
          "replaces": "c2dsr_tpu/ops/encoder_pallas.py:444",
@@ -932,7 +1266,8 @@ def main() -> int:
                  "4*N*V*d FLOPs"},
     ]
     log(f"train path: {train_rate:.1f} train examples/s (warm mean, "
-        f"kernels)")
+        f"kernels); experiment path: {exp_rates['batch_sparse']:.1f} "
+        f"batch-sparse, {exp_rates['dense']:.1f} dense")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -120,16 +120,29 @@ def test_encoder_kernel_refuses_unstacked_weights(cuda):
 
 
 def test_norm_first_has_no_kernel_yet(cuda):
+    """A norm_first tower has no fused kernel, as the JAX package's Pallas
+    encoder takes post-norm only: on CUDA tensors it runs the plain tower,
+    launches no encoder kernel and equals the CPU run, forward and
+    backward."""
     cfg = Config(d_latent=64, norm_first=True, vocab_pad_multiple=64)
-    params = params_mod.init_params(cfg, SPEC, torch.Generator().manual_seed(0),
-                                    cuda)
-    share, specific = _graph()
-    graphs = c2dsr.Graphs(spmm.device_graph(share, cuda),
-                          spmm.device_graph(specific, cuda))
-    hi = c2dsr.convolve_graph(params, graphs, cfg, SPEC)
-    seq = torch.full((2, 15), SPEC.idx_pad, device=cuda)
-    with pytest.raises(NotImplementedError):
-        c2dsr.forward_share(params, hi, seq, torch.zeros_like(seq), cfg, SPEC)
+    init = params_mod.params_to_numpy(params_mod.init_params(
+        cfg, SPEC, torch.Generator().manual_seed(0), "cpu"))
+    seq = _inputs(6, 15, 64, SPEC.idx_pad, 3, "cpu")[1]
+    w = torch.randn(6, 15, 64, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        params = params_mod.params_from_numpy(init, dev)
+        x = params["embed_share"][seq.to(dev) % SPEC.n_item].detach()
+        x.requires_grad_(True)
+        before = encoder_cuda.encoder_fwd.launches
+        h = c2dsr._encode(x, seq.to(dev), torch.zeros_like(seq).to(dev),
+                          params["attn_share"], cfg, SPEC, seed=11, tower=0)
+        assert encoder_cuda.encoder_fwd.launches == before
+        (dx,) = torch.autograd.grad((h * w.to(dev)).sum(), x)
+        out[str(dev)] = (h.detach().cpu(), dx.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-4)
+    assert _rel_err(out["cuda"][1], out["cpu"][1]) <= 1e-4
 
 
 @pytest.mark.parametrize("mode", ["sampled", "full"])
@@ -354,5 +367,122 @@ def test_train_steps_on_card_match_cpu(cuda):
             batch = {k: v[i * 32:(i + 1) * 32] for k, v in train.items()}
             state, aux = fn(state, batch)
             out.append(float(aux["loss"]))
+        losses[str(dev)] = out
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ---- experiment slice: K6, the batch-sparse SpMM ----
+
+def _flag(n_rows, cuda, seed, share=0.3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.rand(n_rows, generator=g, device=cuda) < share).to(
+        torch.uint8)
+
+
+@pytest.mark.parametrize("d", [4, 128, 256])
+@pytest.mark.parametrize("heavy_deg", [8, 128])
+def test_spmm_flagged_kernel_matches_plain(cuda, d, heavy_deg):
+    """K6 in dest mode (over A) and in src mode (over Aᵀ, on a gradient
+    that is zero off the flags) against their plain versions and against
+    K1: flagged dest rows bitwise K1's, unflagged ones zero."""
+    share, _ = _graph()
+    g = spmm.device_graph(share, cuda, heavy_deg=heavy_deg)
+    n_rows = share.n + 9
+    flag = _flag(n_rows, cuda, d + heavy_deg)
+    heavy = g.heavy_rows.long()               # heavy rows of both kinds
+    flag[heavy[::2]] = 0
+    flag[heavy[1::2]] = 1
+    sel = flag.bool()
+    h = torch.randn(n_rows, d, device=cuda)
+    out = spmm_cuda.spmm_csr_flagged(g, h, flag, "dest")
+    ref = spmm.spmm_reference_flagged(g, h, flag, "dest")
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= 1e-5
+    assert (out[~sel] == 0).all()
+    assert torch.equal(out[sel], spmm_cuda.spmm_csr(g, h)[sel])
+    gin = torch.randn(n_rows, d, device=cuda) * flag[:, None]
+    out = spmm_cuda.spmm_csr_flagged(g.t, gin, flag, "src")
+    ref = spmm.spmm_reference_flagged(g.t, gin, flag, "src")
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= 1e-5
+    assert torch.equal(out, spmm_cuda.spmm_csr(g.t, gin))
+    assert torch.equal(out, spmm_cuda.spmm_csr_flagged(g.t, gin, flag,
+                                                       "src"))
+    assert (out[share.n:] == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["dest", "src"])
+def test_spmm_flagged_kernel_with_every_flag_is_k1(cuda, mode):
+    """With every row flagged K6 keeps every edge in CSR order: bitwise
+    the dense kernel (K1), over A and over Aᵀ."""
+    share, _ = _graph()
+    g = spmm.device_graph(share, cuda, heavy_deg=8)
+    for graph in (g, g.t):
+        h = torch.randn(share.n + 5, 128, device=cuda)
+        ones = torch.ones(share.n + 5, dtype=torch.uint8, device=cuda)
+        assert torch.equal(spmm_cuda.spmm_csr_flagged(graph, h, ones, mode),
+                           spmm_cuda.spmm_csr(graph, h))
+
+
+def test_spmm_flagged_kernel_refuses_bad_flag(cuda):
+    share, _ = _graph()
+    g = spmm.device_graph(share, cuda)
+    h = torch.randn(share.n, 8, device=cuda)
+    with pytest.raises(ValueError, match="flag must be"):
+        spmm_cuda.spmm_csr_flagged(g, h, torch.ones(share.n, device=cuda),
+                                   "dest")
+    with pytest.raises(ValueError, match="flag_on"):
+        spmm_cuda.spmm_csr_flagged(
+            g, h, torch.ones(share.n, dtype=torch.uint8, device=cuda), "row")
+
+
+def test_flagged_hop_routes_k6_both_ways(cuda):
+    """The flagged hop's autograd: K6 dest forward, K6 src backward, against
+    autograd through the plain version on a loss that reads flagged rows."""
+    share, _ = _graph()
+    g = spmm.device_graph(share, cuda, heavy_deg=8)
+    n_rows = share.n + 9
+    flag = _flag(n_rows, cuda, 5)
+    h = torch.randn(n_rows, 128, device=cuda, requires_grad=True)
+    w = torch.randn(n_rows, 128, device=cuda) * flag[:, None]
+    before = spmm_cuda.spmm_csr_flagged.launches
+    (dh,) = torch.autograd.grad((spmm_cuda.flagged_hop(g, h, flag) * w).sum(),
+                                h)
+    assert spmm_cuda.spmm_csr_flagged.launches == before + 2
+    (ref,) = torch.autograd.grad(
+        (spmm.spmm_reference_flagged(g, h, flag) * w).sum(), h)
+    assert _rel_err(dh, ref) <= 1e-5
+
+
+def test_batch_sparse_train_steps_on_card_match_cpu(cuda):
+    """Three batch-sparse train steps on the card (K6 on every hop of a
+    step) against the CPU, from the same params and batches; and each
+    step launches K6 four times and K1 never."""
+    from c2dsr_tpu_torch.train import optim, step
+    cfg = Config(d_latent=64, batch_size=32, len_rec=5, dropout_gnn=0.0,
+                 vocab_pad_multiple=64, batch_sparse_gnn=True)
+    share, specific = _graph()
+    train = preprocess.preprocess_train(
+        synthetic.generate_sequences(SPEC, 400, seed=3), SPEC, seed=1)
+    init = params_mod.params_to_numpy(params_mod.init_params(
+        cfg, SPEC, torch.Generator().manual_seed(0), "cpu"))
+    losses = {}
+    for dev in ("cpu", cuda):
+        params = params_mod.params_from_numpy(init, dev)
+        graphs = c2dsr.Graphs(spmm.device_graph(share, dev),
+                              spmm.device_graph(specific, dev))
+        opt = optim.make_optimizer(cfg, steps_per_epoch=2)
+        state = step.init_state(params, opt)
+        fn = step.make_train_step(cfg, SPEC, graphs, opt,
+                                  torch.Generator().manual_seed(5), dev)
+        k1, k6 = spmm_cuda.spmm_csr.launches, spmm_cuda.spmm_csr_flagged.launches
+        out = []
+        for i in range(3):
+            batch = {k: v[i * 32:(i + 1) * 32] for k, v in train.items()}
+            state, aux = fn(state, batch)
+            out.append(float(aux["loss"]))
+        if dev != "cpu":
+            assert spmm_cuda.spmm_csr.launches == k1
+            assert spmm_cuda.spmm_csr_flagged.launches == k6 + 12
         losses[str(dev)] = out
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
