@@ -4,7 +4,8 @@
 // Replaces the fused encoder forward Pallas kernel
 // (c2dsr_tpu/ops/encoder_pallas.py, _fused_fwd_impl / _fwd_kernel /
 // _forward_core).  One block runs every post-norm layer and the final
-// LayerNorm for S = 64 / L whole sequences (R = S·L <= 64 rows):
+// LayerNorm for S = kRows / L whole sequences (R = S·L <= kRows rows;
+// kRows = 64 up to d 128, 32 up to d 256, so that the block's buffers fit):
 //   per layer: QKV = X·Wqkv + b; per head, causal + key-pad softmax with an
 //   ADDED finite -1e9 bias (all-masked rows come out as the uniform average
 //   over the L positions, as in c2dsr_tpu/ops/encoder.py); out-proj;
@@ -21,8 +22,9 @@
 // per layer, against the card's FP32 non-tensor-core peak); the bytes are
 // one read of the input and one write of the output.  The activations of a
 // block never leave shared memory (X, a scratch T and QKV: 5·d floats per
-// row, 175 KB at d = 128).  A layer's weights (393 KB at d = 128) do not fit
-// beside them, so each matmul streams 32x64 weight tiles from L2 (a tower's
+// row, 175 KB at d = 128 and 64 rows, 173 KB at d = 256 and 32 rows).  A
+// layer's weights (393 KB at d = 128) do not fit beside them, so each
+// matmul streams 32x64 weight tiles from L2 (a tower's
 // weights sit there across all blocks) through shared memory; each thread
 // accumulates a 4x4 output tile in registers.  Matmuls are FFMA in f32.
 // The weights are read where they lie, and in a serving loop other work
@@ -35,8 +37,11 @@
 namespace {
 
 using namespace tower;
-constexpr int kRows = 64;       // rows (positions) held by one block
 
+// Rows (positions) held by one block at width d.
+__host__ __device__ constexpr int fwd_rows(int d) { return d <= 128 ? 64 : 32; }
+
+template <int kRows>
 __global__ void __launch_bounds__(kThreads, 1)
 encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
                    Layer l0,
@@ -100,7 +105,7 @@ encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
     const size_t ow = li * s_dd;
     const size_t ob = (size_t)li * d;
 
-    gemm<4>(X, ldx, w_qkv, b_qkv, d, 3 * d, Q, ldq, false, wt);
+    gemm<kRows / 16>(X, ldx, w_qkv, b_qkv, d, 3 * d, Q, ldq, false, wt);
     const uint32_t k_probs = dr.key(drop::kProbs, li);
 
     // attention: one warp per (head, query row); lane j holds key j
@@ -138,40 +143,36 @@ encoder_fwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
     }
     __syncthreads();
 
-    gemm<4>(T, ldx, l0.w_out + ow, l0.b_out + ob, d, d, Q, ldq, false, wt);
+    gemm<kRows / 16>(T, ldx, l0.w_out + ow, l0.b_out + ob, d, d, Q, ldq,
+                     false, wt);
     if (dr.on) drop_rows(Q, ldq, R, d, seq0 * L, dr, dr.key(drop::kAttnOut, li));
-    if (d <= 64)
-      layer_norm_rows<2>(X, ldx, Q, ldq, l0.ln1_s + ob, l0.ln1_b + ob, X, ldx, R, d);
-    else
-      layer_norm_rows<4>(X, ldx, Q, ldq, l0.ln1_s + ob, l0.ln1_b + ob, X, ldx, R, d);
-    gemm<4>(X, ldx, l0.w_ff1 + ow, l0.b_ff1 + ob, d, d, T, ldx, true, wt);
+    layer_norm_d(X, ldx, Q, ldq, l0.ln1_s + ob, l0.ln1_b + ob, X, ldx, R, d);
+    gemm<kRows / 16>(X, ldx, l0.w_ff1 + ow, l0.b_ff1 + ob, d, d, T, ldx, true,
+                     wt);
     if (dr.on) drop_rows(T, ldx, R, d, seq0 * L, dr, dr.key(drop::kFfnRelu, li));
-    gemm<4>(T, ldx, l0.w_ff2 + ow, l0.b_ff2 + ob, d, d, Q, ldq, false, wt);
+    gemm<kRows / 16>(T, ldx, l0.w_ff2 + ow, l0.b_ff2 + ob, d, d, Q, ldq,
+                     false, wt);
     if (dr.on) drop_rows(Q, ldq, R, d, seq0 * L, dr, dr.key(drop::kFfnOut, li));
-    if (d <= 64)
-      layer_norm_rows<2>(X, ldx, Q, ldq, l0.ln2_s + ob, l0.ln2_b + ob, X, ldx, R, d);
-    else
-      layer_norm_rows<4>(X, ldx, Q, ldq, l0.ln2_s + ob, l0.ln2_b + ob, X, ldx, R, d);
+    layer_norm_d(X, ldx, Q, ldq, l0.ln2_s + ob, l0.ln2_b + ob, X, ldx, R, d);
   }
   float* ob = out + (size_t)seq0 * L * d;
-  if (d <= 64)
-    layer_norm_rows<2>(X, ldx, nullptr, 0, lnf_s, lnf_b, ob, d, R, d);
-  else
-    layer_norm_rows<4>(X, ldx, nullptr, 0, lnf_s, lnf_b, ob, d, R, d);
+  layer_norm_d(X, ldx, nullptr, 0, lnf_s, lnf_b, ob, d, R, d);
 }
 
 }  // namespace
 
 // Shared memory the kernel needs for feature width d, in bytes.
 extern "C" int encoder_fwd_smem_bytes(int d) {
+  const int rows = fwd_rows(d);
   return static_cast<int>(sizeof(float)) *
-         (kTileK * kTileM + 2 * kRows * (d + 4) + kRows * (3 * d + 1)) +
-         static_cast<int>(sizeof(int)) * kRows;
+         (kTileK * kTileM + 2 * rows * (d + 4) + rows * (3 * d + 1)) +
+         static_cast<int>(sizeof(int)) * rows;
 }
 
 // Weights are stacked over layers: w_qkv [NL, d, 3d], b_qkv [NL, 3d],
 // w_out/w_ff1/w_ff2 [NL, d, d], biases and LN params [NL, d]; lnf [d].
-// Requires d % 64 == 0, d <= 128, d % n_head == 0, 1 <= L <= 32.
+// Requires d % 32 == 0, 32 <= d <= 256, d % n_head == 0, 1 <= L <= 32
+// (L <= 16 for d > 128: encoder_cuda.supported).
 // Dropout: drop_on 0 is eval; else kept values are divided by drop_div
 // (f32(1 - p)) where the hash bits reach drop_thr (ops/dropout.threshold).
 // Returns cudaGetLastError() after the launch (0 = launched).
@@ -185,15 +186,16 @@ extern "C" int encoder_fwd_f32(
     int drop_on, unsigned drop_thr, float drop_div, unsigned seed, int tower_id,
     void* stream) {
   const int smem = encoder_fwd_smem_bytes(d);
+  const int rows = fwd_rows(d);
+  auto kernel = rows == 64 ? encoder_fwd_kernel<64> : encoder_fwd_kernel<32>;
   cudaError_t err = cudaFuncSetAttribute(
-      encoder_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
            ln1_s, ln1_b, ln2_s, ln2_b};
-  const int S = kRows / L;
+  const int S = rows / L;
   const int blocks = (B + S - 1) / S;
-  encoder_fwd_kernel<<<blocks, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, seq, l0, (size_t)d * 3 * d, (size_t)d * d, n_layers, lnf_s,
       lnf_b, out, B, L, d, n_head, idx_pad, invert,
       drop::Dropout{drop_on, drop_thr, drop_div, seed, tower_id});

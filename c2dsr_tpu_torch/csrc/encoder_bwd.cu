@@ -19,11 +19,12 @@
 // Shared memory.  The backward needs, besides the QKV rows, each layer's
 // saved activations (x_in, qkv, p, o, xhat1, y1, f_pre, xhat2 and the two
 // 1/std): about 10·d floats a row, which with the working buffers would
-// overflow a block's 227 KB at 64 rows.  So a block holds kRowsB = 32 rows
-// (32 / L whole sequences) in six buffers (X, T, G, H of d + 4 floats a row,
-// Q and D of 3·d + 1; 174 KB at d = 128) and keeps the saved activations of
-// its current rows in a per-block slice of a global workspace, where they
-// stay in L2 between the forward recompute and the reverse walk.
+// overflow a block's 227 KB at 64 rows.  So a block holds kRowsB rows
+// (kRowsB / L whole sequences; 32 rows up to d 128, 16 up to d 256) in six
+// buffers (X, T, G, H of d + 4 floats a row, Q and D of 3·d + 1; 174 KB at
+// d = 128, 173 KB at d = 256) and keeps the saved activations of its
+// current rows in a per-block slice of a global workspace, where they stay
+// in L2 between the forward recompute and the reverse walk.
 //
 // Weight gradients.  The TPU accumulated them over its sequential grid in a
 // resident output block; blocks on the card run in parallel.  Here the grid
@@ -38,8 +39,9 @@
 namespace {
 
 using namespace tower;
-constexpr int kRowsB = 32;   // rows held by one block
-constexpr int kRpt = kRowsB / 16;
+
+// Rows held by one block at width d.
+__host__ __device__ constexpr int bwd_rows(int d) { return d <= 128 ? 32 : 16; }
 
 // Offsets (in floats) of each gradient in the flat gradient buffer: the
 // stacked layer weights in the order of the kernel arguments, then lnf.
@@ -69,36 +71,39 @@ __host__ __device__ inline GradOff grad_offsets(int d, int nl) {
   return o;
 }
 
-// Offsets (in floats) of one layer's saved activations in a block's slice;
-// rows are dense (stride d, or 3·d for qkv), p is [head][row][key].  The
-// slice is written and read again within one launch, so no pointer into it
-// is __restrict__: the read-only cache path would not see the new values.
+// Offsets (in floats) of one layer's saved activations in a block's slice
+// of `rows` rows; rows are dense (stride d, or 3·d for qkv), p is
+// [head][row][key].  The slice is written and read again within one launch,
+// so no pointer into it is __restrict__: the read-only cache path would not
+// see the new values.
 struct SaveOff {
   size_t x_in, qkv, p, o, xhat1, y1, f_pre, xhat2, r1, r2, layer;
 };
 
-__host__ __device__ inline SaveOff save_offsets(int d, int n_head, int L) {
-  const size_t rd = (size_t)kRowsB * d;
+__host__ __device__ inline SaveOff save_offsets(int d, int n_head, int L,
+                                                int rows) {
+  const size_t rd = (size_t)rows * d;
   SaveOff s;
   s.x_in = 0;
   s.qkv = rd;
   s.p = 4 * rd;
-  s.o = s.p + (size_t)n_head * kRowsB * L;
+  s.o = s.p + (size_t)n_head * rows * L;
   s.xhat1 = s.o + rd;
   s.y1 = s.xhat1 + rd;
   s.f_pre = s.y1 + rd;
   s.xhat2 = s.f_pre + rd;
   s.r1 = s.xhat2 + rd;
-  s.r2 = s.r1 + kRowsB;
-  s.layer = s.r2 + kRowsB;
+  s.r2 = s.r1 + rows;
+  s.layer = s.r2 + rows;
   return s;
 }
 
 // A block's saved slice: n_layers layers, then xhat and 1/std of the final LN.
 __host__ __device__ inline size_t save_floats(int d, int n_head, int L,
                                               int n_layers) {
-  return (size_t)n_layers * save_offsets(d, n_head, L).layer +
-         (size_t)kRowsB * d + kRowsB;
+  const int rows = bwd_rows(d);
+  return (size_t)n_layers * save_offsets(d, n_head, L, rows).layer +
+         (size_t)rows * d + rows;
 }
 
 __device__ __forceinline__ void put(float* dst, float v, bool first) {
@@ -210,7 +215,7 @@ __device__ void store_rows(float* dst, const float* src, int lds, int R,
   __syncthreads();
 }
 
-template <int NV>
+template <int NV, int kRowsB>
 __global__ void __launch_bounds__(kThreads, 1)
 encoder_bwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
                    const float* __restrict__ gout, Layer l0, size_t s_qkv,
@@ -219,6 +224,7 @@ encoder_bwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
                    float* saved_all, float* part_all,
                    int B, int L, int d, int n_head, int idx_pad, int invert,
                    drop::Dropout dr) {
+  constexpr int kRpt = kRowsB / 16;
   extern __shared__ float4 smem4[];
   float* wt = reinterpret_cast<float*>(smem4);
   const int ldx = d + 4;
@@ -240,7 +246,7 @@ encoder_bwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
   const int warp = tid >> 5;
   const int dh = d / n_head;
   const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
-  const SaveOff so = save_offsets(d, n_head, L);
+  const SaveOff so = save_offsets(d, n_head, L, kRowsB);
   const GradOff go = grad_offsets(d, n_layers);
   float* saved = saved_all + (size_t)blockIdx.x * save_floats(d, n_head, L,
                                                                n_layers);
@@ -410,9 +416,11 @@ encoder_bwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
       gemm_nt<kRpt>(T, ldx, l0.w_out + ow, d, d, H, ldx, false, wt);  // d_o
       load_rows(Q, ldq, sv + so.qkv, R, 3 * d);
 
-      // attention backward, head by head; T holds ds and the dropped probs
-      float* DS = T;
-      float* PD = T + kRowsB * L;
+      // attention backward, head by head; X and T (contiguous, free until
+      // x_in is reloaded below) hold ds and the dropped probs, 2·kRowsB·L
+      // floats, which T alone would not hold for L > (d + 4) / 2
+      float* DS = X;
+      float* PD = X + kRowsB * L;
       const uint32_t k_probs = dr.key(drop::kProbs, li);
       for (int h = 0; h < n_head; ++h) {
         // per query row r = (s, i): ds over keys j, and dq
@@ -511,21 +519,21 @@ __global__ void sum_partials_kernel(const float* __restrict__ part,
 }
 
 int smem_bytes(int d) {
+  const int rows = bwd_rows(d);
   return static_cast<int>(sizeof(float)) *
-             (kTileK * kTileM + 4 * kRowsB * (d + 4) +
-              2 * kRowsB * (3 * d + 1)) +
-         static_cast<int>(sizeof(int)) * kRowsB;
+             (kTileK * kTileM + 4 * rows * (d + 4) + 2 * rows * (3 * d + 1)) +
+         static_cast<int>(sizeof(int)) * rows;
 }
 
 }  // namespace
 
-// The backward's grid for B sequences of length L: one block per SM, or one
-// per row tile when there are fewer tiles.
-extern "C" int encoder_bwd_grid(int B, int L) {
+// The backward's grid for B sequences of length L at width d: one block per
+// SM, or one per row tile when there are fewer tiles.
+extern "C" int encoder_bwd_grid(int B, int L, int d) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int S = kRowsB / L;
+  const int S = bwd_rows(d) / L;
   const int tiles = (B + S - 1) / S;
   return tiles < sms ? tiles : sms;
 }
@@ -560,7 +568,9 @@ extern "C" int encoder_bwd_f32(
     int drop_on, unsigned drop_thr, float drop_div, unsigned seed,
     int tower_id, void* stream) {
   const int smem = smem_bytes(d);
-  auto kernel = d <= 64 ? encoder_bwd_kernel<2> : encoder_bwd_kernel<4>;
+  auto kernel = d <= 64    ? encoder_bwd_kernel<2, bwd_rows(64)>
+                : d <= 128 ? encoder_bwd_kernel<4, bwd_rows(128)>
+                           : encoder_bwd_kernel<8, bwd_rows(256)>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

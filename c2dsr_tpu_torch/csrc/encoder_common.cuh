@@ -45,9 +45,10 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // C[r, m] = act(sum_k A[r, k] W[k, m] + b[m]) for the 16·RPT rows of a block.
 // A, C in shared memory (row strides lda, ldc); W [K, M] row-major in global
-// memory.  K % 32 == 0, M % 64 == 0.  Thread (ty, tx) owns rows
-// ty*RPT..+RPT-1 and columns m0 + tx*4..+3 of each 64-column chunk.  The sum
-// over k runs in order, one FMA a step.
+// memory.  K % 32 == 0, M % 32 == 0.  Thread (ty, tx) owns rows
+// ty*RPT..+RPT-1 and columns m0 + tx*4..+3 of each 64-column chunk; when
+// M % 64 == 32 the last chunk's right half is zero in the tile and not
+// written.  The sum over k runs in order, one FMA a step.
 template <int RPT>
 __device__ void gemm(const float* A, int lda, const float* __restrict__ W,
                      const float* __restrict__ bias, int K, int M, float* C,
@@ -66,9 +67,11 @@ __device__ void gemm(const float* A, int lda, const float* __restrict__ W,
       for (int v = tid; v < kTileK * kTileM / 4; v += kThreads) {
         const int r = v / (kTileM / 4);
         const int c4 = v % (kTileM / 4);
-        reinterpret_cast<float4*>(wt)[v] = __ldg(
-            reinterpret_cast<const float4*>(W + (size_t)(k0 + r) * M + m0) +
-            c4);
+        float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (m0 + c4 * 4 < M)
+          w4 = __ldg(reinterpret_cast<const float4*>(
+                         W + (size_t)(k0 + r) * M + m0) + c4);
+        reinterpret_cast<float4*>(wt)[v] = w4;
       }
       __syncthreads();
 #pragma unroll 8
@@ -84,15 +87,17 @@ __device__ void gemm(const float* A, int lda, const float* __restrict__ W,
         }
       }
     }
+    if (m0 + tx * 4 < M) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + tx * 4 + j;
-      const float b = bias[m];
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + tx * 4 + j;
+        const float b = bias[m];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        float v = acc[i][j] + b;
-        if (relu) v = fmaxf(v, 0.f);
-        C[(ty * RPT + i) * ldc + m] = v;
+        for (int i = 0; i < RPT; ++i) {
+          float v = acc[i][j] + b;
+          if (relu) v = fmaxf(v, 0.f);
+          C[(ty * RPT + i) * ldc + m] = v;
+        }
       }
     }
   }
@@ -100,8 +105,9 @@ __device__ void gemm(const float* A, int lda, const float* __restrict__ W,
 }
 
 // C[r, k] (+)= sum_m A[r, m] W[k, m]: the product with W's transpose, for the
-// backward.  W [K, M] row-major in global memory, K % 64 == 0, M % 32 == 0;
-// a 64x32 tile of W is staged transposed in shared memory.
+// backward.  W [K, M] row-major in global memory, K % 32 == 0, M % 32 == 0;
+// a 64x32 tile of W is staged transposed in shared memory (its rows past K
+// zero when K % 64 == 32, and their columns of C not written).
 template <int RPT>
 __device__ void gemm_nt(const float* A, int lda, const float* __restrict__ W,
                         int K, int M, float* C, int ldc, bool accumulate,
@@ -120,8 +126,10 @@ __device__ void gemm_nt(const float* A, int lda, const float* __restrict__ W,
       for (int v = tid; v < kTileM * kTileK / 4; v += kThreads) {
         const int kk = v / (kTileK / 4);
         const int m4 = v % (kTileK / 4);
-        const float4 w = __ldg(reinterpret_cast<const float4*>(
-                                   W + (size_t)(k0 + kk) * M + m0) + m4);
+        float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + kk < K)
+          w = __ldg(reinterpret_cast<const float4*>(
+                        W + (size_t)(k0 + kk) * M + m0) + m4);
         wt[(m4 * 4 + 0) * kTileM + kk] = w.x;
         wt[(m4 * 4 + 1) * kTileM + kk] = w.y;
         wt[(m4 * 4 + 2) * kTileM + kk] = w.z;
@@ -141,13 +149,15 @@ __device__ void gemm_nt(const float* A, int lda, const float* __restrict__ W,
         }
       }
     }
+    if (k0 + tx * 4 < K) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float* c = C + (ty * RPT + i) * ldc + k0 + tx * 4 + j;
-        *c = accumulate ? *c + acc[i][j] : acc[i][j];
-      }
+        for (int j = 0; j < 4; ++j) {
+          float* c = C + (ty * RPT + i) * ldc + k0 + tx * 4 + j;
+          *c = accumulate ? *c + acc[i][j] : acc[i][j];
+        }
+    }
   }
   __syncthreads();
 }
@@ -197,6 +207,24 @@ __device__ void layer_norm_rows(const float* X, int ldx, const float* Y,
     if (rstd_out && lane == 0) rstd_out[r] = rstd;
   }
   __syncthreads();
+}
+
+// layer_norm_rows with the register width NV = ceil(d / 32) rounded up to
+// 2, 4 or 8 (d <= 256).
+__device__ __forceinline__ void layer_norm_d(
+    const float* X, int ldx, const float* Y, int ldy,
+    const float* __restrict__ g, const float* __restrict__ b, float* dst,
+    int ldd, int n_rows, int d, float* xhat = nullptr,
+    float* rstd_out = nullptr) {
+  if (d <= 64)
+    layer_norm_rows<2>(X, ldx, Y, ldy, g, b, dst, ldd, n_rows, d, xhat,
+                       rstd_out);
+  else if (d <= 128)
+    layer_norm_rows<4>(X, ldx, Y, ldy, g, b, dst, ldd, n_rows, d, xhat,
+                       rstd_out);
+  else
+    layer_norm_rows<8>(X, ldx, Y, ldy, g, b, dst, ldd, n_rows, d, xhat,
+                       rstd_out);
 }
 
 // A[r, c] = dropout(A[r, c]) for r < n_rows, c < d; element index

@@ -15,13 +15,14 @@ What bounds them on an H100: operations.  Per layer the forward does
 12·N·d² + 4·N·L·d FLOPs (N = B·L rows) in f32 FFMA and moves one read of
 the input and one write of the output; the backward does twice that plus a
 recomputed forward.  Forward design: one block keeps 64 / L whole sequences
-in shared memory for the whole tower; the weights (393 KB a layer at
-d = 128) stream through shared memory in 32x64 tiles from L2, read in place
-(stacked over layers at rest) and prefetched into L2 at the grid's start.
-Backward design: a fixed grid of one block per SM, each walking a range of
-32-row tiles, recomputing their forward into a per-block workspace slice and
-accumulating its own weight-gradient partial; a second kernel sums the
-partials in block order (``csrc/encoder_bwd.cu`` states the budget).
+(32 / L above d 128) in shared memory for the whole tower; the weights (393
+KB a layer at d = 128) stream through shared memory in 32x64 tiles from L2,
+read in place (stacked over layers at rest) and prefetched into L2 at the
+grid's start.  Backward design: a fixed grid of one block per SM, each
+walking a range of 32-row tiles (16-row above d 128), recomputing their
+forward into a per-block workspace slice and accumulating its own
+weight-gradient partial; a second kernel sums the partials in block order
+(``csrc/encoder_bwd.cu`` states the budget).
 
 Dropout (training) draws every mask from the counter-based hash of
 ``ops/dropout.py``; the backward regenerates the forward's masks from the
@@ -58,10 +59,13 @@ def _fn(stem: str, name: str, argtypes, restype=ctypes.c_int):
 
 
 def supported(d: int, n_head: int, length: int) -> bool:
-    """Shapes the kernels take: d in {64, 128}, head dim a multiple of 8,
-    1 <= L <= 32 (FK/MB L = 15, EE L = 30)."""
-    return (d % 64 == 0 and d <= 128 and d % n_head == 0
-            and (d // n_head) % 8 == 0 and 1 <= length <= 32)
+    """Shapes both kernels take: d a multiple of 32 from 32 to 256, head dim
+    a multiple of 8, and 1 <= L <= 32 up to d 128 (FK/MB L = 15, EE L = 30),
+    1 <= L <= 16 above it (a block holds 64 or 32 rows in the forward, 32 or
+    16 in the backward, whole sequences each)."""
+    max_len = 32 if d <= 128 else 16
+    return (d % 32 == 0 and 32 <= d <= 256 and d % n_head == 0
+            and (d // n_head) % 8 == 0 and 1 <= length <= max_len)
 
 
 def _drop_args(dropout: float, seed: int, tower: int):
@@ -136,7 +140,7 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
             or gout.device != x.device):
         raise ValueError("gout must be f32 of x's shape on x's device")
     gout = gout.contiguous()
-    grid = _fn("encoder_bwd", "encoder_bwd_grid", [ctypes.c_int] * 2)(B, L)
+    grid = _fn("encoder_bwd", "encoder_bwd_grid", [ctypes.c_int] * 3)(B, L, d)
     ws = torch.empty(_fn("encoder_bwd", "encoder_bwd_workspace_floats",
                          [ctypes.c_int] * 5, ctypes.c_longlong)(
         d, n_head, L, n_layers, grid), dtype=torch.float32, device=x.device)

@@ -7,13 +7,18 @@ Replace the fused linear + softmax CE Pallas kernels of the JAX package
 backward, whose split the TPU needed only when dh outgrew VMEM).
 
 What bounds them on an H100: operations.  The forward does 2·N·V·d FLOPs
-in f32 FFMA, the backward 4·N·V·d (dh and dW) plus the recomputed logits;
-the bytes are h and W once and a few floats a row.  Design: no logit ever
-reaches device memory.  The forward and the dh kernel give a block 64 rows
-of h and one of a few vocab splits, swept in 64-column tiles of W with a
-running (max, sum-exp) per row; a small kernel merges the splits in order.
-The dW/db kernel gives a block 64 columns of W and sweeps the rows.  Each
-output element is written once, with no atomics, for any N.
+in f32 FFMA: a block holds 64 rows of h and sweeps one of a few vocab
+splits in 64-column tiles of W with a running (max, sum-exp) per row; a
+small kernel merges the splits in order.  The backward does 4·N·V·d (dh
+and dW) plus the logits, recomputed by each of its two kernels, on the
+tensor cores at f32 accuracy (3xTF32: each operand split into a TF32 part
+and its remainder, three products a step).  Both kernels are one template
+over (resident, streamed) operands, h and Wᵀ for dh, Wᵀ and h for dW; the
+streamed operand is split once by a pre-pass and its tiles arrive through
+a ``cp.async`` ring; the vocab or row splits of the grid are summed in
+order by a small kernel.  No logit reaches device memory, and
+each output element is written once, with no atomics, for any N: the
+results are bitwise repeatable.  Shapes: d % 16 == 0, d <= 256, V % 4 == 0.
 """
 
 from __future__ import annotations
@@ -26,9 +31,9 @@ import torch
 from c2dsr_tpu_torch.kernels import build
 
 
-def _fn(name: str, n_ptr: int):
+def _fn(name: str, n_ptr: int, n_int: int = 4):
     f = getattr(build.library("ce"), name)
-    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                   + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
@@ -50,8 +55,8 @@ def _check(name: str, h, w, rows, targets) -> Tuple[int, int, int]:
                          f"{tuple(h.shape)} and {tuple(w.shape)}")
     N, d = h.shape
     V = w.shape[1]
-    if d % 16 or d > 128 or V % 4 or V == 0 or N == 0:
-        raise ValueError(f"{name} needs d % 16 == 0, d <= 128, V % 4 == 0; "
+    if d % 16 or d > 256 or V % 4 or V == 0 or N == 0:
+        raise ValueError(f"{name} needs d % 16 == 0, d <= 256, V % 4 == 0; "
                          f"got N={N} d={d} V={V}")
     for t, shape in rows:
         if (t.dtype != torch.float32 or t.device != h.device
@@ -90,6 +95,25 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
 ce_fwd.launches = 0
 
 
+def _bwd_plan(N: int, d: int, V: int) -> Tuple[int, int]:
+    """(vocab splits of the dh kernel, row splits of the dW/db kernel)
+    (``ce_bwd_plan`` in ce.cu)."""
+    f = build.library("ce").ce_bwd_plan
+    f.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    err = f(N, d, V, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"ce_bwd plan failed: CUDA error {err}")
+    return out[0], out[1]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels' 16-byte asynchronous copies need that)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ce_bwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
            lse: torch.Tensor, dlse: torch.Tensor, dt: torch.Tensor,
            targets: torch.Tensor
@@ -100,18 +124,21 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
     N, d, V = _check("ce_bwd", h, w, [(h, tuple(h.shape)), (w, tuple(w.shape)),
                                       (b_masked, (w.shape[1],)), (lse, n),
                                       (dlse, n), (dt, n)], targets)
+    h = _aligned(h)
     tgt = targets.to(torch.int32).contiguous()
     dh = torch.empty_like(h)
     dw = torch.empty_like(w)
     db = torch.empty_like(b_masked)
-    splits = _splits(N, V)
-    ws = torch.empty(splits * N * d, dtype=torch.float32, device=h.device)
-    err = _fn("ce_bwd_f32", 11)(h.data_ptr(), w.data_ptr(),
-                                b_masked.data_ptr(), lse.data_ptr(),
-                                dlse.data_ptr(), dt.data_ptr(), tgt.data_ptr(),
-                                dh.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                                ws.data_ptr(), splits, N, d, V,
-                                torch.cuda.current_stream().cuda_stream)
+    split_h, split_w = _bwd_plan(N, d, V)
+    # Wᵀ and its TF32 split, h's split, then each pass's partials
+    floats = (3 * V * d + 2 * N * d + (split_h * N * d if split_h > 1 else 0)
+              + (split_w * (d + 1) * V if split_w > 1 else 0))
+    ws = torch.empty(floats, dtype=torch.float32, device=h.device)
+    err = _fn("ce_bwd_f32", 11, 5)(
+        h.data_ptr(), w.data_ptr(), b_masked.data_ptr(), lse.data_ptr(),
+        dlse.data_ptr(), dt.data_ptr(), tgt.data_ptr(), dh.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), ws.data_ptr(), split_h, split_w, N, d, V,
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ce_bwd launch failed: CUDA error {err}")
     ce_bwd.launches += 1

@@ -13,7 +13,11 @@ Phases (any failure exits non-zero without the final line):
    at the main paths' shapes, and time kernel, plain version and one
    PyTorch library call (a yardstick the port never calls): the SpMM over A
    and over Aᵀ, the encoder forward in eval and in train mode and its
-   backward (at dropout 0 and 0.2), the CE forward and backward.
+   backward (at dropout 0 and 0.2), the CE forward and backward (K5 also
+   bitwise against a second launch, its dh and dW kernels timed apart,
+   with the FP32 FFMA and the 3xTF32 tensor-core bounds).  Then the wider
+   shapes: K2 and K3 at d 32, 96, 160 and 256 (L up to 30, 16 above d
+   128), K4 and K5 at d 256.
 3. serving path: the ranking path at Food-Kitchen geometry with the
    default Config and random seeded weights: convolve once, then rank the
    eval split in sampled and in full mode.  Every serving kernel must
@@ -24,7 +28,8 @@ Phases (any failure exits non-zero without the final line):
    must stay finite and fall, every kernel must launch its expected count a
    step, and one step at dropout 0 must give the plain versions' loss and
    gradients; then train examples/s in turns with the plain versions, and
-   one profiled step.
+   one profiled step.  Then three steps with ``d_latent=256`` at dropout
+   0, each first held against the plain versions (loss and gradients).
 5. experiment path: ``train.loop.Experiment`` at Food-Kitchen geometry
    with ``Config(batch_sparse_gnn=True, n_epoch=2)``, checkpointing to a
    temporary directory: finite losses and metrics, the batch-sparse SpMM
@@ -66,6 +71,8 @@ WARM_ROUNDS = 10         # rounds of (plain, kernel, kernel, plain) warm runs
 GRAD_TOL = 1e-4          # max abs err over max |plain|, per gradient tensor:
                          # f32 sums over thousands of rows in another order
 CE_TOL = 1e-5            # lse / target logit, relative to max |plain|
+CE_BWD_TOL = 2e-5        # K5's dh, dW, db, relative to max |plain|: 3xTF32
+                         # products are f32-accurate (one-pass TF32: ~1e-3)
 TRAIN_STEPS = 30         # train steps whose launches and losses are checked
 TRAIN_ROUNDS = 5         # rounds of (plain, kernel, kernel, plain) train runs
 TRAIN_RUN_STEPS = 4      # steps per timed train run
@@ -100,6 +107,20 @@ def peaks(name: str):
     if "NVL" in name:
         return 60e12, 3.9e12
     return 67e12, 3.35e12            # H100 SXM
+
+
+def tf32_peak(name: str) -> float:
+    """Dense TF32 tensor-core FLOP/s from NVIDIA's data sheets.  A 3xTF32
+    product (K5's f32-accurate scheme) costs three of them."""
+    if "PCIe" in name:
+        return 378e12
+    return 495e12                    # H100 SXM
+
+
+def tc_bound_ms(flops: float, nbytes: float, name: str, peak_bw: float):
+    """Least time on the tensor cores for `flops` of f32-accurate work done
+    as 3xTF32, or for the bytes, whichever is larger."""
+    return max(3 * flops / tf32_peak(name), nbytes / peak_bw) * 1e3
 
 
 class Timer:
@@ -259,7 +280,7 @@ def _torch_tower(p, d, n_head, n_layers, dropout=0.0):
     return tower.cuda().train(dropout > 0)
 
 
-def phase_encoder(timer, peak_flops, peak_bw):
+def phase_encoder(timer, peak_flops, peak_bw, gpu):
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
@@ -312,11 +333,14 @@ def phase_encoder(timer, peak_flops, peak_bw):
     flops = n_layers * (12 * N * d * d + 4 * N * L * d)
     nbytes = 4 * (2 * N * d + N + n_layers * (6 * d * d + 10 * d) + 2 * d)
     bound_ms = max(flops / peak_flops, nbytes / peak_bw) * 1e3
+    bound_tc = tc_bound_ms(flops, nbytes, gpu, peak_bw)
     log(f"encoder B={B} L={L} d={d}: kernel {ms:.4f} ms plain {plain_ms:.4f} "
-        f"ms library {library_ms:.4f} ms bound {bound_ms:.4f} ms "
-        f"({flops / 1e9:.3f} GFLOP, {flops / ms / 1e9:.2f} TFLOP/s)")
+        f"ms library {library_ms:.4f} ms bound {bound_ms:.4f} ms (3xTF32 "
+        f"tensor cores {bound_tc:.4f}) ({flops / 1e9:.3f} GFLOP, "
+        f"{flops / ms / 1e9:.2f} TFLOP/s)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "max_abs_err": worst,
+            "bound_ms": bound_ms, "bound_tc_ms": bound_tc,
+            "max_abs_err": worst,
             "bound_by": "operations" if flops / peak_flops > nbytes / peak_bw
             else "bytes"}
 
@@ -517,7 +541,7 @@ def _rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-def phase_encoder_train(timer, peak_flops, peak_bw):
+def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
     """K2 in train mode and K3 at the three tower segments of a train step
     (shared 3B, A B, B B at B = 512), dropout 0 and 0.2, against the plain
     tower and its autograd; timed at 0.2 and summed over the segments."""
@@ -527,7 +551,7 @@ def phase_encoder_train(timer, peak_flops, peak_bw):
     from c2dsr_tpu_torch.ops import encoder_cuda
     d, L, pad, B = 128, LEN_MAX, 64093, 512
     cfg = Config()
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms")
     fwd = dict.fromkeys(keys, 0.0)
     bwd = dict.fromkeys(keys, 0.0)
     fwd["max_abs_err"] = bwd["max_abs_err"] = bwd["max_rel_err"] = 0.0
@@ -591,6 +615,8 @@ def phase_encoder_train(timer, peak_flops, peak_bw):
         b_bytes = 12 * N * d + 4 * N + 2 * w_bytes
         f_bound = max(f_flops / peak_flops, f_bytes / peak_bw) * 1e3
         b_bound = max(b_flops / peak_flops, b_bytes / peak_bw) * 1e3
+        f_tc = tc_bound_ms(f_flops, f_bytes, gpu, peak_bw)
+        b_tc = tc_bound_ms(b_flops, b_bytes, gpu, peak_bw)
         fwd["bound_by"] = ("operations" if f_flops / peak_flops
                            >= f_bytes / peak_bw else "bytes")
         bwd["bound_by"] = ("operations" if b_flops / peak_flops
@@ -599,19 +625,21 @@ def phase_encoder_train(timer, peak_flops, peak_bw):
             f"ms plain {f_plain:.4f} library {f_lib:.4f} bound {f_bound:.4f};"
             f" bwd kernel {b_ms:.4f} ms plain {b_plain:.4f} library "
             f"{b_lib:.4f} (forward + backward) bound {b_bound:.4f} "
-            f"({b_flops / b_ms / 1e9:.2f} TFLOP/s)")
-        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_bound)),
-                          (bwd, (b_ms, b_plain, b_lib, b_bound))):
+            f"({b_flops / b_ms / 1e9:.2f} TFLOP/s); 3xTF32 tensor-core "
+            f"bounds fwd {f_tc:.4f} bwd {b_tc:.4f}")
+        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_bound, f_tc)),
+                          (bwd, (b_ms, b_plain, b_lib, b_bound, b_tc))):
             for k, v in zip(keys, vals):
                 acc[k] += v
     return fwd, bwd
 
 
 def kernel_times(fn, calls: int = 3):
-    """{kernel name: device ms of one launch} for a fn that launches each of
-    its kernels once, under torch.profiler: the mean over the launches the
-    profiler recorded in ``calls`` calls.  The profiler may miss the first
-    kernels of its window, so one profiled call is not enough."""
+    """{kernel name: device ms a call} for a fn that launches the same
+    kernels each call, under torch.profiler: the total over ``calls`` calls
+    over ``calls``.  The profiler may miss the first kernels of its window,
+    so one profiled call is not enough.  Names drop the argument list and
+    the anonymous namespace, and keep template arguments."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -619,63 +647,88 @@ def kernel_times(fn, calls: int = 3):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total, count = {}, {}
+    total = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            name = ev.key.split("::")[-1].split("(")[0]
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ")
             total[name] = total.get(name, 0.0) + us / 1e3
-            count[name] = count.get(name, 0) + ev.count
-    return {name: total[name] / count[name] for name in total}
+    return {name: ms / calls for name, ms in total.items()}
 
 
-def phase_ce(timer, peak_flops, peak_bw):
+def _ce_inputs(N, d, V, n_real, seed):
+    """One domain's CE inputs at FK scales: h ~ N(0, 1), W ~ 0.05 N(0, 1)
+    (zero on the padded vocab tail), every 5th row ignored (target n_real),
+    dlse and dt ~ N(0, 1) / N on the other rows."""
+    rng = np.random.default_rng(seed)
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    from c2dsr_tpu_torch.ops import fused_ce
+    h = put(rng.normal(size=(N, d)))
+    w_np = rng.normal(size=(d, V)) * 0.05
+    w_np[:, n_real:] = 0.0
+    w = put(w_np)
+    bm = fused_ce.mask_bias(put(rng.normal(size=V) * 0.1), n_real)
+    pad_l = put(rng.normal(size=N))
+    tgt_np = rng.integers(0, n_real, size=N)
+    tgt_np[::5] = n_real                                 # ignored rows
+    tgt = torch.from_numpy(tgt_np).cuda()
+    real = tgt != n_real
+    dlse = put(rng.normal(size=N) / N) * real
+    dt = put(rng.normal(size=N) / N) * real
+    return h, w, bm, pad_l, tgt, real, dlse, dt
+
+
+def _check_ce_bwd(tag, got, want, again, n_real):
+    """K5 against its plain version (CE_BWD_TOL) and against a second
+    launch (bitwise); returns {dh, dw, db: relative error}."""
+    rels = {n: _rel(g, r) for n, g, r in zip(("dh", "dw", "db"), got, want)}
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"ce_bwd {tag}: non-finite")
+    check(max(rels.values()) <= CE_BWD_TOL, f"ce_bwd {tag}: rel err {rels} "
+          f"> {CE_BWD_TOL}")
+    check(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
+          f"ce_bwd {tag}: two launches differ")
+    check(bool((got[2][n_real:] == 0).all()), f"ce_bwd {tag}: db on "
+          "padded columns not zero")
+    return rels
+
+
+def phase_ce(timer, peak_flops, peak_bw, gpu):
     """K4 and K5 at a train step's shapes (N = 512 x 2 x len_rec rows, d 128,
     V 30,720 and 36,864), against their plain versions; summed over both
-    domains."""
+    domains.  K5 also against a second launch (bitwise), its dh and dW
+    kernels timed apart under the profiler, with the FP32 FFMA bound and
+    the 3xTF32 tensor-core bound."""
     from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
     N, d = 512 * 2 * 10, 128
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    fwd = dict.fromkeys(keys, 0.0)
-    bwd = dict.fromkeys(keys, 0.0)
+    fwd = dict.fromkeys(keys + ("bound_tc_ms",), 0.0)
+    bwd = dict.fromkeys(keys + ("bound_ffma_ms",), 0.0)
     fwd["max_abs_err"] = bwd["max_abs_err"] = bwd["max_rel_err"] = 0.0
+    by_kernel = bwd["kernels_ms"] = {}
     for dom, V, n_real in (("A", 30720, N_ITEM_A), ("B", 36864, N_ITEM_B)):
-        rng = np.random.default_rng(V)
-
-        def put(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).cuda()
-
-        h = put(rng.normal(size=(N, d)))
-        w_np = rng.normal(size=(d, V)) * 0.05
-        w_np[:, n_real:] = 0.0
-        w = put(w_np)
-        bm = fused_ce.mask_bias(put(rng.normal(size=V) * 0.1), n_real)
-        pad_l = put(rng.normal(size=N))
-        tgt_np = rng.integers(0, n_real, size=N)
-        tgt_np[::5] = n_real                             # ignored rows
-        tgt = torch.from_numpy(tgt_np).cuda()
-        real = tgt != n_real
-        dlse = put(rng.normal(size=N) / N) * real
-        dt = put(rng.normal(size=N) / N) * real
+        h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, V)
         with torch.no_grad():
             lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
             rlse, rtlog = fused_ce.ce_fwd_plain(h, w, bm, pad_l, tgt)
             got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
             want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt)
+            again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
         torch.cuda.synchronize()
         e_lse = _rel(lse, rlse)
         e_t = _rel(tlog[real], rtlog[real])
-        rels = {n: _rel(g, r) for n, g, r in zip(("dh", "dw", "db"), got,
-                                                 want)}
-        log(f"ce {dom}: N={N} d={d} V={V}: lse rel err {e_lse:.3e}, target "
-            f"logit rel err {e_t:.3e}; backward rel err {rels}")
         check(max(e_lse, e_t) <= CE_TOL, f"ce_fwd {dom}: rel err "
               f"{max(e_lse, e_t)} > {CE_TOL}")
-        check(max(rels.values()) <= GRAD_TOL, f"ce_bwd {dom}: rel err "
-              f"{rels} > {GRAD_TOL}")
-        check(bool((got[2][n_real:] == 0).all()), f"ce_bwd {dom}: db on "
-              "padded columns not zero")
+        rels = _check_ce_bwd(dom, got, want, again, n_real)
+        log(f"ce {dom}: N={N} d={d} V={V}: lse rel err {e_lse:.3e}, target "
+            f"logit rel err {e_t:.3e}; backward rel err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+            + "; two backward launches bitwise equal")
         fwd["max_abs_err"] = max(fwd["max_abs_err"],
                                  float((lse - rlse).abs().max()))
         bwd["max_abs_err"] = max(bwd["max_abs_err"], max(
@@ -695,15 +748,26 @@ def phase_ce(timer, peak_flops, peak_bw):
                                                           dt, tgt))
         sub = kernel_times(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse,
                                                         dt, tgt))
-        log(f"ce {dom}: bwd device time by kernel (a launch's mean over 3 "
-            "profiled calls): "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in sub.items()))
-        # summed over both domains; None where the profiler saw no launch
-        by_kernel = bwd.setdefault("kernels_ms", {})
-        for k in ("ce_dh_kernel", "ce_dh_merge_kernel", "ce_dw_kernel"):
-            before = by_kernel.get(k, 0.0)
-            by_kernel[k] = (None if before is None or k not in sub
-                            else before + sub[k])
+        # K5's parts, device ms a call: dh kernel, dW/db kernel, the
+        # pre-pass (Wᵀ and the TF32 splits of Wᵀ and h), the split merges
+        parts = {"dh": sum(v for k, v in sub.items()
+                           if "ce_bwd_kernel" in k and "true>" in k),
+                 "dw": sum(v for k, v in sub.items()
+                           if "ce_bwd_kernel" in k and "false>" in k),
+                 "prepass": sub.get("transpose_split_kernel", 0.0)
+                 + sub.get("split_kernel", 0.0),
+                 "merge": sub.get("ce_merge_kernel", 0.0)}
+        flops = 4 * N * V * d               # f32-accurate work of each kernel
+        log(f"ce {dom}: bwd device time a call under the profiler: dh "
+            f"kernel {parts['dh']:.4f} ms ({flops / parts['dh'] / 1e9:.2f} "
+            f"TFLOP/s), dW/db kernel {parts['dw']:.4f} ms ("
+            f"{flops / parts['dw'] / 1e9:.2f} TFLOP/s), pre-pass "
+            f"{parts['prepass']:.4f} ms, merges {parts['merge']:.4f} ms "
+            "(TFLOP/s count each kernel's 4·N·V·d: its logits and its "
+            "product); all: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in sub.items()))
+        for k, v in parts.items():
+            by_kernel[k] = by_kernel.get(k, 0.0) + v
         lib_out = torch.logsumexp(torch.cat([hg @ wg + bg, pad_l[:, None]],
                                             1), 1)
         b_lib = timer(lambda: torch.autograd.grad(lib_out, [hg, wg, bg], dlse,
@@ -711,20 +775,226 @@ def phase_ce(timer, peak_flops, peak_bw):
         del lib_out
         io = 4 * (N * d + d * V + V + 3 * N)
         f_bound = max(2 * N * V * d / peak_flops, (io + 8 * N) / peak_bw) * 1e3
-        b_bound = max(4 * N * V * d / peak_flops,
-                      (2 * io + 4 * N * d) / peak_bw) * 1e3
+        f_tc = tc_bound_ms(2 * N * V * d, io + 8 * N, gpu, peak_bw)
+        b_bytes = 2 * io + 4 * N * d
+        b_ffma = max(4 * N * V * d / peak_flops, b_bytes / peak_bw) * 1e3
+        b_tc = tc_bound_ms(4 * N * V * d, b_bytes, gpu, peak_bw)
         log(f"ce {dom}: fwd kernel {f_ms:.4f} ms plain {f_plain:.4f} library "
-            f"{f_lib:.4f} bound {f_bound:.4f} "
-            f"({2 * N * V * d / f_ms / 1e9:.2f} TFLOP/s); bwd kernel "
-            f"{b_ms:.4f} ms plain {b_plain:.4f} library {b_lib:.4f} bound "
-            f"{b_bound:.4f} (bound counts 4·N·V·d FLOPs, "
-            f"{4 * N * V * d / b_ms / 1e9:.2f} TFLOP/s)")
-        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_bound)),
-                          (bwd, (b_ms, b_plain, b_lib, b_bound))):
-            for k, v in zip(keys, vals):
+            f"{f_lib:.4f} bound {f_bound:.4f} (3xTF32 tensor cores "
+            f"{f_tc:.4f}) ({2 * N * V * d / f_ms / 1e9:.2f} TFLOP/s); bwd "
+            f"kernel {b_ms:.4f} ms plain {b_plain:.4f} library {b_lib:.4f} "
+            f"bound 3xTF32 tensor cores {b_tc:.4f}, FP32 FFMA {b_ffma:.4f} "
+            f"(bounds count 4·N·V·d FLOPs; "
+            f"{4 * N * V * d / b_ms / 1e9:.2f} TFLOP/s of them)")
+        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_bound, f_tc)),
+                          (bwd, (b_ms, b_plain, b_lib, b_tc, b_ffma))):
+            for k, v in zip(keys + (("bound_tc_ms",) if acc is fwd
+                                    else ("bound_ffma_ms",)), vals):
                 acc[k] += v
     fwd["bound_by"] = bwd["bound_by"] = "operations"
+    log(f"ce both domains: bwd kernel {bwd['ms']:.4f} ms (dh "
+        f"{by_kernel['dh']:.4f} + dW {by_kernel['dw']:.4f} + pre-pass "
+        f"{by_kernel['prepass']:.4f} + merges {by_kernel['merge']:.4f}, "
+        f"profiled) against library {bwd['library_ms']:.4f} ms; bounds "
+        f"3xTF32 {bwd['bound_ms']:.4f}, FFMA {bwd['bound_ffma_ms']:.4f}")
     return fwd, bwd
+
+
+# tower shapes beyond d 64 and 128 that K2 and K3 take: (d, n_head, L)
+WIDE_TOWERS = ((96, 2, 30), (32, 1, 30), (256, 4, 15), (160, 2, 16))
+
+
+def phase_shapes():
+    """K2 (eval, both mask polarities, and train) and K3 at WIDE_TOWERS,
+    dropout 0 and 0.2, two layers, and K4/K5 at d 256 (FK's rows and
+    domain A's vocab), against their plain versions; K5 also bitwise
+    against a second launch.  Returns the worst errors."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce, fused_ce_cuda
+    pad, B = 64093, 256
+    worst = {"encoder_fwd": 0.0, "encoder_bwd": 0.0}
+    for d, n_head, L in WIDE_TOWERS:
+        cfg = Config(d_latent=d, n_head=n_head, n_attn=2)
+        p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
+            torch.Generator().manual_seed(d), cfg, L))
+        x, seq = _encoder_inputs(B, L, d, pad, seed=d)
+        gout = torch.randn(x.shape, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(d))
+        tag = f"d={d} n_head={n_head} L={L}"
+        with torch.no_grad():
+            kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=True)
+            err_i = float((encoder_cuda.encoder_fwd(x, seq, p, **kw)
+                           - enc.encode_layers(x, seq, p, norm_first=False,
+                                               **kw)).abs().max())
+        check(err_i <= ENCODER_TOL, f"encoder {tag} inverted: max abs err "
+              f"{err_i} > {ENCODER_TOL}")
+        for dropout in (0.0, 0.2):
+            kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=False,
+                      dropout=dropout, seed=5, tower=1)
+            with torch.no_grad():
+                out = encoder_cuda.encoder_fwd(x, seq, p, **kw)
+                ref = enc.encoder_fwd_plain(x, seq, p, **kw)
+            dx, grads = encoder_cuda.encoder_bwd(x, seq, gout, p, **kw)
+            rdx, rgrads = enc.encoder_bwd_plain(x, seq, gout, p, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all() and torch.isfinite(dx).all()),
+                  f"encoder {tag}: non-finite")
+            err_f = float((out - ref).abs().max())
+            rels = {"dx": _rel(dx, rdx)}
+            for wname, g, r in zip(enc._NAMES + ("lnf_scale", "lnf_bias"),
+                                   grads, rgrads):
+                rels[wname] = _rel(g, r)
+            bad = max(rels, key=rels.get)
+            log(f"shapes: encoder {tag} p={dropout}: fwd max abs err "
+                f"{max(err_f, err_i):.3e}; bwd worst relative "
+                f"{rels[bad]:.3e} ({bad})")
+            check(err_f <= ENCODER_TOL, f"encoder_fwd {tag} p={dropout}: max "
+                  f"abs err {err_f} > {ENCODER_TOL}")
+            check(rels[bad] <= GRAD_TOL, f"encoder_bwd {tag} p={dropout}: "
+                  f"{bad} relative err {rels[bad]} > {GRAD_TOL}")
+            worst["encoder_fwd"] = max(worst["encoder_fwd"], err_f, err_i)
+            worst["encoder_bwd"] = max(worst["encoder_bwd"], rels[bad])
+    N, d, V, n_real = 512 * 2 * 10, 256, 30720, N_ITEM_A
+    h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, 256)
+    with torch.no_grad():
+        lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+        rlse, rtlog = fused_ce.ce_fwd_plain(h, w, bm, pad_l, tgt)
+        got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+        want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt)
+        again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+    torch.cuda.synchronize()
+    e_f = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
+    check(e_f <= CE_TOL, f"ce_fwd d=256: rel err {e_f} > {CE_TOL}")
+    rels = _check_ce_bwd("d=256", got, want, again, n_real)
+    log(f"shapes: ce N={N} d={d} V={V}: fwd rel err {e_f:.3e}; bwd rel err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+        + "; two backward launches bitwise equal")
+    worst["ce_fwd"], worst["ce_bwd"] = e_f, max(rels.values())
+    return worst
+
+
+def leaf_names(params, prefix=""):
+    """Names of ``train/step.param_leaves(params)``, in its order."""
+    if isinstance(params, dict):
+        return [n for k in sorted(params)
+                for n in leaf_names(params[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def _loss_grads(params, leaves, graphs, batch, cfg, spec, ctx):
+    """(loss, gradient of every leaf) of one batch without dropout."""
+    from c2dsr_tpu_torch.train import step as step_mod
+    for t in leaves:
+        t.grad = None
+    with ctx:
+        loss, _ = step_mod.loss_fn(params, graphs, batch, None, cfg, spec)
+        loss.backward()
+    out = float(loss), [t.grad.clone() for t in leaves]
+    for t in leaves:
+        t.grad = None
+    return out
+
+
+def _fro(got, want):
+    """Per tensor, ||got - want|| / ||want|| (Frobenius; want on any
+    device); the largest over the tensors, and that tensor's index."""
+    errs = [float((a - b.to(a.device)).norm())
+            / max(float(b.norm()), 1e-30) for a, b in zip(got, want)]
+    return max(errs), int(np.argmax(errs))
+
+
+def phase_train_wide(spec, train, graphs, graphs_host):
+    """The training step at FK geometry with d_latent 256, dropout 0: the
+    towers in their 32- and 16-row tiles, K4 and K5 at d 256, K1 at d 256
+    and 512.  Three steps; before each, the loss and every gradient from
+    the step's params through the kernels, through the plain versions on
+    the card and through the plain versions on the CPU; every kernel
+    launches its count a step.
+
+    The loss must agree to 1e-5.  The gradients are held by the relative
+    Frobenius error of each tensor, to the larger of GRAD_TOL and three
+    times the plain versions' own disagreement between card and CPU at that
+    step (the two errors are draws of the same f32 disagreement):
+    at this width single gradient elements jump between any two f32 runs
+    (an input of a ReLU at zero, an all-masked attention row's -1e9
+    rounding), so the train phase's max-abs metric moves by a factor of a
+    few from one run of the same code to the next: it is logged, not
+    gated."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.data.pipeline import BatchIterator
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import c2dsr
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import spmm
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+
+    cfg = Config(d_latent=256, dropout_gnn=0.0, dropout_attn=0.0)
+    it = BatchIterator(train, cfg.batch_size, shuffle=True, seed=2,
+                       drop_last=True)
+    feed = it.epoch()
+    params = params_mod.init_params(cfg, spec,
+                                    torch.Generator().manual_seed(3), "cuda")
+    opt = optim.make_optimizer(cfg, steps_per_epoch=len(it))
+    state = step_mod.init_state(params, opt)
+    fn = step_mod.make_train_step(cfg, spec, graphs, opt,
+                                  torch.Generator().manual_seed(cfg.seed),
+                                  "cuda")
+    cpu_graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cpu"),
+                              spmm.device_graph(graphs_host[1], "cpu"))
+    steps = 3
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+    losses = []
+    names = leaf_names(state.params)
+    for i in range(steps):
+        batch = next(feed)
+        b = ranker.to_device(batch, "cuda")
+        leaves = state.opt_state.leaves
+        loss_k, g_k = _loss_grads(state.params, leaves, graphs, b, cfg, spec,
+                                  contextlib.nullcontext())
+        loss_p, g_p = _loss_grads(state.params, leaves, graphs, b, cfg, spec,
+                                  plain_versions())
+        cpu = params_mod.params_from_numpy(
+            params_mod.params_to_numpy(state.params), "cpu")
+        cpu_leaves = step_mod.param_leaves(cpu)
+        for t in cpu_leaves:
+            t.requires_grad_(True)
+        loss_c, g_c = _loss_grads(cpu, cpu_leaves, cpu_graphs,
+                                  ranker.to_device(batch, "cpu"), cfg, spec,
+                                  contextlib.nullcontext())
+        noise, wn = _fro(g_p, g_c)
+        err, we = _fro(g_k, g_p)
+        tol = max(GRAD_TOL, 3 * noise)
+        rel = [_rel(a, c) if float(c.abs().max()) > 0
+               else float(a.abs().max()) for a, c in zip(g_k, g_p)]
+        wm = int(np.argmax(rel))
+        log(f"train d_latent 256 step {i}: loss {loss_k:.6f} (kernels) "
+            f"{loss_p:.6f} (plain) {loss_c:.6f} (plain, CPU); gradients, "
+            f"worst relative Frobenius err kernels against plain "
+            f"{err:.3e} ({names[we]}), plain card against CPU {noise:.3e} "
+            f"({names[wn]}), tolerance {tol:.3e}; max-abs relative "
+            f"{rel[wm]:.3e} ({names[wm]}), logged")
+        check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+              f"train d 256 step {i}: loss {loss_k} (kernels) != {loss_p}")
+        check(err <= tol, f"train d 256 step {i}: gradients relative "
+              f"Frobenius err {err} > {tol}")
+        reset_launches()
+        state, aux = fn(state, batch)
+        torch.cuda.synchronize()
+        losses.append(float(aux["loss"]))
+        for k, v in read_launches().items():
+            launches[k] += v
+    per_step = {"spmm_csr": 4 * cfg.n_gnn, "spmm_csr_flagged": 0,
+                "encoder_fwd": 3, "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2}
+    log(f"train d_latent 256: {steps} steps, losses "
+        f"{[round(v, 4) for v in losses]}, launches {launches}")
+    check(all(math.isfinite(v) for v in losses), "train d 256: loss")
+    for k, n in per_step.items():
+        check(launches[k] == n * steps, f"train d 256: {k} launched "
+              f"{launches[k]} times in {steps} steps, want {n} a step")
+    return launches
 
 
 def phase_train(spec, train, graphs):
@@ -776,8 +1046,9 @@ def phase_train(spec, train, graphs):
     rel = [_rel(a, b) if float(b.abs().max()) > 0 else float(a.abs().max())
            for a, b in zip(g_k, g_p)]
     log(f"train path dropout 0: loss {loss_k:.6f} (kernels) {loss_p:.6f} "
-        f"(plain); worst gradient relative err {max(rel):.3e} over "
-        f"{len(rel)} tensors")
+        f"(plain); worst gradient relative err {max(rel):.3e} ("
+        f"{leaf_names(params)[int(np.argmax(rel))]}) over {len(rel)} "
+        "tensors")
     check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
           f"train loss {loss_k} (kernels) != {loss_p} (plain)")
     check(max(rel) <= GRAD_TOL, f"train gradients: relative err {max(rel)}")
@@ -1178,9 +1449,12 @@ def main() -> int:
         k1 = phase_spmm(graphs, timer, peak_flops, peak_bw)
         k1t = phase_spmm(graphs, timer, peak_flops, peak_bw, transpose=True)
         k6 = phase_spmm_flagged(graphs, train, timer, peak_flops, peak_bw)
-    k2 = phase_encoder(timer, peak_flops, peak_bw)
-    k2t, k3 = phase_encoder_train(timer, peak_flops, peak_bw)
-    k4, k5 = phase_ce(timer, peak_flops, peak_bw)
+    k2 = phase_encoder(timer, peak_flops, peak_bw, name)
+    k2t, k3 = phase_encoder_train(timer, peak_flops, peak_bw, name)
+    k4, k5 = phase_ce(timer, peak_flops, peak_bw, name)
+    t0 = time.perf_counter()
+    wide = phase_shapes()
+    log(f"phase shapes: {time.perf_counter() - t0:.1f} s")
     del timer
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1190,6 +1464,9 @@ def main() -> int:
     training, train_rate = phase_train(spec, train, graphs)
     log(f"phase training: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    training_wide = phase_train_wide(spec, train, graphs, graphs_host)
+    log(f"phase training d_latent 256: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     experiment, exp_rates = phase_experiment(spec, train, eval_data, graphs,
                                              card)
     log(f"phase experiment: {time.perf_counter() - t0:.1f} s")
@@ -1197,11 +1474,12 @@ def main() -> int:
     phase_cli()
     log(f"phase cli: {time.perf_counter() - t0:.1f} s")
     paths = {"serving": serving, "training": training,
-             "experiment": experiment}
+             "training_d256": training_wide, "experiment": experiment}
+    step_kernels = ("spmm_csr", "encoder_fwd", "encoder_bwd", "ce_fwd",
+                    "ce_bwd")
     for path, kernels_of_path in (
             ("serving", ("spmm_csr", "encoder_fwd")),
-            ("training", ("spmm_csr", "encoder_fwd", "encoder_bwd", "ce_fwd",
-                          "ce_bwd")),
+            ("training", step_kernels), ("training_d256", step_kernels),
             ("experiment", tuple(kernel_wrappers()))):
         check(all(paths[path][n] > 0 for n in kernels_of_path),
               f"a kernel never launched on the {path} path: {paths[path]}")
@@ -1242,28 +1520,37 @@ def main() -> int:
          "max_abs_err": max(k2["max_abs_err"], k2t["max_abs_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "bound_tc_ms": k2["bound_tc_ms"],
          "library_ms": k2["library_ms"], "train": k2t,
+         "wide_shapes_max_abs_err": wide["encoder_fwd"],
          "note": "eval: one tower at B 2048, L 15, d 128; train: the three "
-                 "towers of a step (B 1536, 512, 512) at dropout 0.2"},
+                 "towers of a step (B 1536, 512, 512) at dropout 0.2; "
+                 "bound_ms FP32 FFMA, bound_tc_ms 3xTF32 tensor cores"},
         {"name": "encoder_bwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/encoder_bwd.cu",
          "replaces": "c2dsr_tpu/ops/encoder_pallas.py:477",
          **counts("encoder_bwd"), **k3,
+         "wide_shapes_max_rel_err": wide["encoder_bwd"],
          "note": "the three towers of a step (B 1536, 512, 512), L 15, "
                  "d 128, dropout 0.2; library: nn.TransformerEncoder "
-                 "forward + backward in train mode"},
+                 "forward + backward in train mode; bound_ms FP32 FFMA, "
+                 "bound_tc_ms 3xTF32 tensor cores"},
         {"name": "ce_fwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/ce.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:263",
-         **counts("ce_fwd"), **k4,
-         "note": "both domains of a step: N 10240, d 128, V 30720 + 36864"},
+         **counts("ce_fwd"), **k4, "d256_max_rel_err": wide["ce_fwd"],
+         "note": "both domains of a step: N 10240, d 128, V 30720 + 36864; "
+                 "bound_ms FP32 FFMA, bound_tc_ms 3xTF32 tensor cores"},
         {"name": "ce_bwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/ce.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:308",
-         **counts("ce_bwd"), **k5,
-         "note": "dh and dW/db kernels, both domains of a step; also "
-                 "replaces fused_ce.py:339 and :360; bound counts "
-                 "4*N*V*d FLOPs"},
+         **counts("ce_bwd"), **k5, "d256_max_rel_err": wide["ce_bwd"],
+         "note": "dh and dW/db kernels (3xTF32 on the tensor cores), both "
+                 "domains of a step; also replaces fused_ce.py:339 and "
+                 ":360; bound_ms is the 3xTF32 tensor-core bound "
+                 "(3*4*N*V*d TF32 FLOPs at 495 TFLOP/s), bound_ffma_ms "
+                 "the FP32 FFMA one (4*N*V*d at 67); kernels_ms the "
+                 "profiled split"},
     ]
     log(f"train path: {train_rate:.1f} train examples/s (warm mean, "
         f"kernels); experiment path: {exp_rates['batch_sparse']:.1f} "

@@ -72,10 +72,17 @@ def _inputs(B, L, d, pad, seed, device):
             torch.from_numpy(seq).to(device))
 
 
+# the tower widths users set beyond 64 and 128: d % 64 == 32 (a ragged half
+# chunk in the GEMMs), EE's L 30 at small d, and d above 128 (half the rows)
+WIDE_TOWERS = [(96, 2, 30, 1, 7), (32, 1, 30, 2, 9), (256, 4, 15, 1, 5),
+               (160, 2, 16, 2, 6)]
+
+
 @pytest.mark.parametrize("invert", [False, True])
 @pytest.mark.parametrize("d,n_head,L,n_layers,B", [
     (128, 1, 15, 1, 37), (128, 2, 30, 2, 33), (64, 2, 15, 3, 5),
-    (64, 1, 32, 1, 3), (128, 1, 1, 1, 70), (128, 16, 7, 1, 19)])
+    (64, 1, 32, 1, 3), (128, 1, 1, 1, 70), (128, 16, 7, 1, 19)]
+    + WIDE_TOWERS)
 def test_encoder_kernel_matches_plain(cuda, invert, d, n_head, L, n_layers,
                                       B):
     cfg = Config(d_latent=d, n_head=n_head, n_attn=n_layers)
@@ -93,14 +100,21 @@ def test_encoder_kernel_matches_plain(cuda, invert, d, n_head, L, n_layers,
 
 
 def test_encoder_kernel_refuses_unsupported_shapes(cuda):
-    p = params_mod.init_encoder_params(torch.Generator().manual_seed(0),
-                                       Config(d_latent=32), 15)
-    p = params_mod.params_from_numpy(params_mod.params_to_numpy(p), cuda)
-    x = torch.randn(4, 15, 32, device=cuda)
-    seq = torch.zeros(4, 15, dtype=torch.long, device=cuda)
-    with pytest.raises(ValueError, match="does not take"):
-        encoder_cuda.encoder_fwd(x, seq, p, idx_pad=1, n_head=1,
-                                 invert_padding_mask=False)
+    """Shapes still refused, before any launch: d not a multiple of 32, and
+    L above 16 at d above 128; the error names the shape."""
+    for d, L in ((40, 15), (256, 30)):
+        p = params_mod.init_encoder_params(torch.Generator().manual_seed(0),
+                                           Config(d_latent=d), L)
+        p = params_mod.params_from_numpy(params_mod.params_to_numpy(p), cuda)
+        x = torch.randn(4, L, d, device=cuda)
+        seq = torch.zeros(4, L, dtype=torch.long, device=cuda)
+        with pytest.raises(ValueError, match=f"does not take d={d}, "
+                                             f"n_head=1, L={L}"):
+            encoder_cuda.encoder_fwd(x, seq, p, idx_pad=1, n_head=1,
+                                     invert_padding_mask=False)
+        with pytest.raises(ValueError, match="does not take"):
+            encoder_cuda.encoder_bwd(x, seq, x, p, idx_pad=1, n_head=1,
+                                     invert_padding_mask=False)
 
 
 def test_encoder_kernel_refuses_unstacked_weights(cuda):
@@ -222,7 +236,7 @@ def _tower_case(cuda, d, n_head, L, n_layers, B, seed=0):
 @pytest.mark.parametrize("invert", [False, True])
 @pytest.mark.parametrize("d,n_head,L,n_layers,B", [
     (128, 1, 15, 1, 37), (128, 2, 30, 2, 5), (64, 2, 15, 2, 9),
-    (128, 16, 7, 1, 11)])
+    (128, 16, 7, 1, 11)] + WIDE_TOWERS)
 def test_encoder_train_kernels_match_plain(cuda, dropout, invert, d, n_head,
                                            L, n_layers, B):
     """K2 in train mode and K3 against the plain tower and its autograd."""
@@ -283,7 +297,7 @@ def _ce_case(cuda, N, d, V, n_real, seed):
 
 @pytest.mark.parametrize("N,d,V,n_real", [
     (640, 128, 1024, 1000), (333, 64, 196, 196), (100, 128, 4100, 4095),
-    (64, 32, 52, 52)])
+    (64, 32, 52, 52), (300, 256, 1028, 1000)])
 def test_ce_kernels_match_plain(cuda, N, d, V, n_real):
     """K4 and K5 against their plain versions: ignored rows, a padded vocab
     tail, the ignore index equal to V, ragged row and column tiles."""
@@ -313,11 +327,68 @@ def test_ce_kernels_refuse_bad_shapes(cuda):
         fused_ce_cuda.ce_fwd(h, torch.randn(64, 6, device=cuda),
                              torch.zeros(6, device=cuda),
                              torch.zeros(8, device=cuda), t)
-    with pytest.raises(ValueError, match="d % 16"):
-        fused_ce_cuda.ce_fwd(torch.randn(8, 40, device=cuda),
-                             torch.randn(40, 8, device=cuda),
-                             torch.zeros(8, device=cuda),
-                             torch.zeros(8, device=cuda), t)
+    for d in (40, 272):
+        h, w = torch.randn(8, d, device=cuda), torch.randn(d, 8, device=cuda)
+        z8 = torch.zeros(8, device=cuda)
+        with pytest.raises(ValueError, match="d % 16 == 0, d <= 256"):
+            fused_ce_cuda.ce_fwd(h, w, z8, z8, t)
+        with pytest.raises(ValueError, match=f"d={d}"):
+            fused_ce_cuda.ce_bwd(h, w, z8, z8, z8, z8, t)
+
+
+@pytest.mark.parametrize("N,d,V,n_real", [
+    (333, 32, 196, 196), (640, 64, 1028, 1000), (1000, 128, 4100, 4095),
+    (257, 256, 2052, 2000), (64, 16, 8, 8)])
+def test_ce_bwd_kernel_matches_plain_to_f32(cuda, N, d, V, n_real):
+    """K5 on the tensor cores (3xTF32) against its plain version to 2e-5
+    relative, at FK's scales (|h| ~ 1, |W| ~ 0.05, dlse and dt ~ 1/N): ragged
+    N and V, ignored rows, the ignore index equal to V (196), a padded
+    vocab tail; and two launches bitwise equal."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    rng = np.random.default_rng(N + d)
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    h = put(rng.normal(size=(N, d)))
+    w_np = rng.normal(size=(d, V)) * 0.05
+    w_np[:, n_real:] = 0.0
+    w = put(w_np)
+    bm = fused_ce.mask_bias(put(rng.normal(size=V) * 0.1), n_real)
+    tgt = rng.integers(0, n_real, size=N)
+    tgt[::5] = n_real                                  # ignored rows
+    tgt = torch.from_numpy(tgt).to(cuda)
+    real = (tgt != n_real).float()
+    lse, _ = fused_ce_cuda.ce_fwd(h, w, bm, put(rng.normal(size=N)), tgt)
+    dlse = put(rng.normal(size=N) / N) * real
+    dt = put(rng.normal(size=N) / N) * real
+    got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+    want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt)
+    again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+    torch.cuda.synchronize()
+    for name, g, r, g2 in zip(("dh", "dw", "db"), got, want, again):
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, r) <= 2e-5, (name, _rel_err(g, r))
+        assert torch.equal(g, g2), name                # deterministic
+    assert (got[1][:, n_real:] == 0).all() and (got[2][n_real:] == 0).all()
+
+
+def test_ce_bwd_kernel_takes_unaligned_inputs(cuda):
+    """Views whose data start off a 16-byte boundary (the kernel's copies
+    need one) give the same result as aligned copies."""
+    from c2dsr_tpu_torch.ops import fused_ce_cuda
+    h, w, bm, pad, tgt = _ce_case(cuda, 129, 64, 300, 290, seed=9)
+    lse, _ = fused_ce_cuda.ce_fwd(h, w, bm, pad, tgt)
+    g = torch.randn(3 * 129 + 1, device=cuda)
+    dlse, dt = g[1:130], g[130:259]
+    hv = torch.cat([torch.zeros(1, device=cuda), h.reshape(-1)])[1:]
+    hv = hv.view(129, 64)
+    assert hv.data_ptr() % 16 != 0
+    got = fused_ce_cuda.ce_bwd(hv, w, bm, lse, dlse, dt, tgt)
+    want = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse.clone(), dt.clone(), tgt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_ce_function_routes_both_kernels(cuda):
@@ -369,6 +440,44 @@ def test_train_steps_on_card_match_cpu(cuda):
             out.append(float(aux["loss"]))
         losses[str(dev)] = out
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_wide_train_step_on_card_matches_cpu(cuda):
+    """One train step's loss and every gradient at d 256 (the towers' 32-
+    and 16-row tiles, K4 and K5 at their widest) on the card against the
+    CPU, from the same params and batch, dropout 0.  One step, not three:
+    at this width AdamW's first steps follow the sign of gradients that
+    are zero but for rounding, so two devices' third losses part by about
+    1e-3 with or without the kernels."""
+    from c2dsr_tpu_torch.train import step
+    cfg = Config(d_latent=256, batch_size=32, len_rec=5, dropout_gnn=0.0,
+                 dropout_attn=0.0, vocab_pad_multiple=64)
+    share, specific = _graph()
+    train = preprocess.preprocess_train(
+        synthetic.generate_sequences(SPEC, 400, seed=3), SPEC, seed=1)
+    init = params_mod.params_to_numpy(params_mod.init_params(
+        cfg, SPEC, torch.Generator().manual_seed(0), "cpu"))
+    batch = {k: v[:32] for k, v in train.items()}
+    out = {}
+    for dev in ("cpu", cuda):
+        params = params_mod.params_from_numpy(init, dev)
+        leaves = step.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        graphs = c2dsr.Graphs(spmm.device_graph(share, dev),
+                              spmm.device_graph(specific, dev))
+        launches = encoder_cuda.encoder_bwd.launches
+        loss, _ = step.loss_fn(params, graphs, ranker.to_device(batch, dev),
+                               None, cfg, SPEC)
+        loss.backward()
+        if dev != "cpu":
+            assert encoder_cuda.encoder_bwd.launches == launches + 3
+        out[str(dev)] = (float(loss), [t.grad.cpu() for t in leaves])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert _rel_err(a, b) <= 1e-4 if float(b.abs().max()) > 0 else \
+            float(a.abs().max()) == 0
 
 
 # ---- experiment slice: K6, the batch-sparse SpMM ----
