@@ -19,7 +19,7 @@ import os
 from os.path import join
 
 _DISTRIBUTED = ("the port runs one process on one device; `parallel/` on "
-                "torch.distributed is ROADMAP.md §A item 1")
+                "torch.distributed is ROADMAP.md §A item 2")
 
 
 def build_parser() -> argparse.ArgumentParser:

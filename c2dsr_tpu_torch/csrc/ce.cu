@@ -6,34 +6,35 @@
 // _bwd_dw_kernel (backward, K5).  None of them writes a logit to device
 // memory: each recomputes its tile of h·W + b on chip.
 //
-// K4, the forward: bound on an H100 by operations (2·N·V·d FLOPs in f32
-// FFMA; the bytes, h and W once and a few floats a row, are small beside
-// them).  A block holds 64 rows of h in shared memory and sweeps one split
-// of V in 64-column tiles of W (staged in shared memory); the splits
-// (ce_splits: about 8 waves of blocks, since N / 64 row tiles alone leave
-// most SMs with one block) are merged per row by a second small kernel, in
-// split order.  Each thread keeps a 4x4 logit tile in registers and, for its
-// 4 rows, a running (max, sum-exp) merged over the 16 threads of a row group
-// by shuffles.  The target logit is picked where the column matches; the
-// pad-class logit is folded in at the merge, as in _fwd_kernel at its last
-// vocab block.  The TPU's vocab padding and _pick_blocks stripes do not
-// carry over: V is taken as stored (V % 4 == 0) and the ragged last tile is
-// masked.  A target >= V (an ignored row whose ignore index n_real equals V)
-// matches no column: its target logit is 0, and the caller masks it.
+// Both are bound on an H100 by operations, and both run them on the tensor
+// cores at f32 accuracy (3xTF32, tc.cuh): the ceiling is 495 / 3 = 165
+// TFLOP/s of f32-accurate work against 67 for FFMA.
+//
+// K4, the forward: 2·N·V·d FLOPs for the logits (the bytes, h and W once
+// and a few floats a row, are small beside them).  It is K5's dh kernel
+// without the second product: X = h stays resident in shared memory, Y = Wᵀ
+// (split into its TF32 part and remainder once, by the pre-pass) streams
+// through the cp.async ring, and a warp computes its logit tile S =
+// X_w·Y_tileᵀ + b in the C layout.  Per fragment row a thread keeps a
+// running (max, sum-exp), in log2 units, over the columns it holds; the four
+// threads of a quad hold a row's columns and merge their pairs with two
+// shuffles at the end.  The target logit is picked where the column
+// matches; a target >= V (an ignored row whose ignore index n_real equals V)
+// matches none and gives 0, which the caller masks.  The vocab is split over
+// blocks in whole waves (ce_fwd_plan), and ce_fwd_merge_kernel merges the
+// splits in split order and folds in the pad-class logit, as _fwd_kernel
+// does at its last vocab block: no atomics, and two launches on the same
+// inputs give bitwise-equal results.  The TPU's vocab padding and
+// _pick_blocks stripes do not carry over: V is taken as stored (V % 4 == 0)
+// and the ragged last tile is masked.  K4 runs its own pre-pass (Wᵀ's split,
+// 2·V·d floats) instead of handing it to K5 through the autograd Function:
+// the two calls stay independent at the cost of one more transpose of W (a
+// few hundredths of a millisecond at FK shapes).
 //
 // K5, the backward: dlogits = dlse·softmax + dt·onehot(target), then
-// dh = dlogits·Wᵀ, dW = hᵀ·dlogits, db = colsum(dlogits).  Bound by
-// operations: 4·N·V·d FLOPs for the two products, plus 2·N·V·d for the
-// logits, which each of its two kernels recomputes (8·N·V·d in all).
-// * Tensor cores at f32 accuracy (3xTF32, CUTLASS's "fast accurate f32"):
-//   each f32 operand x is split into big = tf32_rna(x) and small = x - big,
-//   and a product is big·big + big·small + small·big, accumulated in f32 by
-//   the tensor cores.  small·small (2^-22 relative) is dropped, and the
-//   hardware reads small to 10 mantissa bits (2^-21 relative of x), so a
-//   term is within a few f32 roundings of the exact one: tests/
-//   test_torch_tf32.py emulates this against float64 (within 1e-5 relative
-//   where one-pass TF32, 2^-11 a term, is not).  The tensor-core ceiling is
-//   495 / 3 = 165 TFLOP/s of f32-accurate work against 67 for FFMA.
+// dh = dlogits·Wᵀ, dW = hᵀ·dlogits, db = colsum(dlogits).  4·N·V·d FLOPs
+// for the two products, plus 2·N·V·d for the logits, which each of its two
+// kernels recomputes (8·N·V·d in all).
 // * The MMA is mma.sync.m16n8k8 TF32 (warp-level), not wgmma: a warp's
 //   logit accumulator (C layout) becomes the A operand of the next product
 //   in registers, by permuting k within each group of 8 (C holds columns
@@ -59,9 +60,10 @@
 //   and product (the splits were the largest share of the instructions),
 //   and X and dlogits are split as they are read, in two integer
 //   operations and a subtraction.  The width is a compile-time DT (64,
-//   128 or 256; columns past d are zero), so the unrolled loops carry no
-//   branch, and shared rows are padded to DT + 4 floats, so every fragment
-//   load is free of bank conflicts.
+//   128 or 256; columns past d are zero, so any d % 4 == 0 up to DT
+//   works), so the unrolled loops carry no branch, and shared rows are
+//   padded to DT + 4 floats, so every fragment load is free of bank
+//   conflicts.
 // * Copy ring: Y tiles, big and small parts (and, per tile, the bias or
 //   the per-row lse, dlse, dt, target) arrive by cp.async in a ring of 2
 //   stages (3 at d <= 64), so the next tile loads while this one is
@@ -77,284 +79,37 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "tc.cuh"
+
 namespace {
 
+using namespace tc;
+
 constexpr int kThreads = 256;
-constexpr int kBN = 64;           // rows per tile
-constexpr int kBV = 64;           // vocab columns per tile
-constexpr int kLdw = kBV + 4;     // W tile row stride (float4-aligned)
-
-__device__ __forceinline__ float group16_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float group16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// hs[r, k] = h[row0 + r, k] for r < kBN (zero past N); row stride d + 4.
-__device__ void load_h(float* hs, const float* __restrict__ h, int row0,
-                       int N, int d) {
-  const int d4 = d / 4;
-  for (int v = threadIdx.x; v < kBN * d4; v += kThreads) {
-    const int r = v / d4;
-    const int c4 = v % d4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < N)
-      val = __ldg(reinterpret_cast<const float4*>(h + (size_t)(row0 + r) * d) +
-                  c4);
-    *reinterpret_cast<float4*>(hs + r * (d + 4) + c4 * 4) = val;
-  }
-}
-
-// ws[k, c] = W[k, v0 + c] for c < kBV (zero past V).
-__device__ void load_w(float* ws, const float* __restrict__ w, int v0, int V,
-                       int d) {
-  for (int v = threadIdx.x; v < d * (kBV / 4); v += kThreads) {
-    const int k = v / (kBV / 4);
-    const int c4 = v % (kBV / 4);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (v0 + c4 * 4 < V)
-      val = __ldg(reinterpret_cast<const float4*>(w + (size_t)k * V + v0) + c4);
-    *reinterpret_cast<float4*>(ws + k * kLdw + c4 * 4) = val;
-  }
-}
-
-// Component i of v (i a compile-time constant after unrolling).
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// acc[i][j] = logit of row ty*4+i, column v0 + tx*4+j: h·W + b, or -inf past
-// V.  The sum over k runs in order; h is read 4 k-steps at a time as float4,
-// so a warp's k-step costs 3 shared-memory wavefronts for 16 FMAs a thread.
-__device__ __forceinline__ void logit_tile(const float* hs, const float* ws,
-                                           const float* __restrict__ b,
-                                           int v0, int V, int d,
-                                           float acc[4][4]) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < d; k += 4) {
-    float4 a4[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a4[i] = *reinterpret_cast<const float4*>(hs + (ty * 4 + i) * (d + 4) + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 w4 =
-          *reinterpret_cast<const float4*>(ws + (k + kk) * kLdw + tx * 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = comp(a4[i], kk);
-        acc[i][0] = fmaf(a, w4.x, acc[i][0]);
-        acc[i][1] = fmaf(a, w4.y, acc[i][1]);
-        acc[i][2] = fmaf(a, w4.z, acc[i][2]);
-        acc[i][3] = fmaf(a, w4.w, acc[i][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = v0 + tx * 4 + j;
-    const float bj = col < V ? b[col] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      acc[i][j] = col < V ? acc[i][j] + bj : -CUDART_INF_F;
-  }
-}
-
-// The vocab range [v_begin, v_end) of split blockIdx.y: whole 64-column
-// tiles, the splits as even as the tile count allows.
-__device__ __forceinline__ void split_range(int V, int& v_begin, int& v_end) {
-  const int tiles = (V + kBV - 1) / kBV;
-  const int per = (tiles + gridDim.y - 1) / gridDim.y;
-  v_begin = min(V, blockIdx.y * per * kBV);
-  v_end = min(V, (blockIdx.y + 1) * per * kBV);
-}
-
-// Per row and split: the running max, sum-exp and target logit over the
-// split's columns, into part [3][splits][N].
-__global__ void __launch_bounds__(kThreads)
-ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
-              const float* __restrict__ b, const int* __restrict__ tgt,
-              float* __restrict__ part, int N, int d, int V) {
-  extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);
-  float* ws = hs + kBN * (d + 4);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.x * kBN;
-  load_h(hs, h, row0, N, d);
-  float m[4], s[4], t[4];
-  int tg[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    m[i] = -CUDART_INF_F;
-    s[i] = 0.f;
-    t[i] = 0.f;
-    tg[i] = row < N ? tgt[row] : -1;
-  }
-  int v_begin, v_end;
-  split_range(V, v_begin, v_end);
-  for (int v0 = v_begin; v0 < v_end; v0 += kBV) {
-    __syncthreads();
-    load_w(ws, w, v0, V, d);
-    __syncthreads();
-    float acc[4][4];
-    logit_tile(hs, ws, b, v0, V, d, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mx = fmaxf(mx, acc[i][j]);
-        const int col = v0 + tx * 4 + j;
-        if (col < V && col == tg[i]) t[i] = acc[i][j];
-      }
-      const float m_new = fmaxf(m[i], group16_max(mx));
-      float e = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) e += expf(acc[i][j] - m_new);
-      s[i] = s[i] * expf(m[i] - m_new) + group16_sum(e);
-      m[i] = m_new;
-    }
-  }
-  const size_t at = (size_t)blockIdx.y * N;
-  const size_t plane = (size_t)gridDim.y * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    const float tl = group16_sum(t[i]);
-    if (tx == 0 && row < N) {
-      part[at + row] = m[i];
-      part[plane + at + row] = s[i];
-      part[2 * plane + at + row] = tl;
-    }
-  }
-}
-
-// Merges the splits' partials in split order, folds in the pad-class logit
-// (as _fwd_kernel does at its last vocab block) and writes lse and tlog.
-__global__ void ce_fwd_merge_kernel(const float* __restrict__ part,
-                                    const float* __restrict__ pad,
-                                    int splits, int N,
-                                    float* __restrict__ lse,
-                                    float* __restrict__ tlog) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  const size_t plane = (size_t)splits * N;
-  float m = -CUDART_INF_F;
-  for (int k = 0; k < splits; ++k) m = fmaxf(m, part[(size_t)k * N + row]);
-  float s = 0.f, t = 0.f;
-  for (int k = 0; k < splits; ++k) {
-    const float mk = part[(size_t)k * N + row];
-    if (mk > -CUDART_INF_F) s += part[plane + (size_t)k * N + row] * expf(mk - m);
-    t += part[2 * plane + (size_t)k * N + row];
-  }
-  const float p = pad[row];
-  const float m_fin = fmaxf(m, p);
-  const float s_fin = s * expf(m - m_fin) + expf(p - m_fin);
-  lse[row] = m_fin + logf(s_fin);
-  tlog[row] = t;
-}
-
-int tile_smem(int d) {
-  return static_cast<int>(sizeof(float)) * (kBN * (d + 4) + d * kLdw);
-}
-
-// ---------------------------------------------------------------- K5 ----
+constexpr int kWarps = kThreads / 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Tile shapes by the width DT an instantiation computes at: d <= DT, the
 // columns past d zero in shared memory, so that every loop over the width
 // has a compile-time trip count and no branch.  A warp holds kMt m-tiles
 // of 16 X rows, so that each B fragment it reads feeds 3·kMt MMAs; a stage
-// holds the big and the small part of a Y tile.
-constexpr int kWarps = kThreads / 32;
+// holds the big and the small part of a Y tile and 4·kBy floats of
+// per-entity values.  K4 and K5 share it.
 template <int DT>
 struct BwdCfg {
   static constexpr int kMt = DT <= 128 ? 2 : 1;      // m-tiles a warp
   static constexpr int kBx = 16 * kMt * kWarps;      // resident entities
   static constexpr int kBy = DT <= 128 ? 32 : 16;    // streamed entities
   static constexpr int kStages = DT <= 64 ? 3 : 2;   // cp.async ring depth
+  static constexpr int kStage = 2 * kBy * (DT + 4) + 4 * kBy;  // floats
 };
 
-// What a backward pass reads and where it writes.  Rows are the N rows of
-// h, columns the V vocab entries; X is the resident operand, Y the
-// streamed one, split once into its TF32 part and remainder by a pre-pass
-// (kRowsX: X = h, Y = Wᵀ; else X = Wᵀ, Y = h).
-struct BwdArgs {
-  const float* x;
-  const float* y_big;
-  const float* y_small;
-  const float* b;       // [V] masked bias
-  const float* lse;     // [N]
-  const float* dlse;    // [N]
-  const float* dt;      // [N]
-  const int* tgt;       // [N]
-  float* out;           // partial (x, k) at out + split·out_split + x·sx + k·sk
-  float* db;            // dW pass: db partial at db + split·V + x
-  size_t out_split;
-  int sx, sk;
-  int n_x, n_y, d, V;
-};
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x = big + small: big rounded to TF32 to nearest, ties away from zero (the
-// rounding of cvt.rna.tf32.f32 for finite x, in two integer operations: the
-// magnitude's bits plus half a unit of the 13 dropped bits, then cleared),
-// small the f32 remainder, whose low bits the tensor core ignores.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// 2^x, flushing results below f32's normal range to zero.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// c += a·b on the tensor cores, m16n8k8, TF32 in, f32 accumulate.
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+template <int DT>
+constexpr int tile_smem() {
+  return static_cast<int>(sizeof(float)) *
+         (BwdCfg<DT>::kBx * (DT + 4) +
+          BwdCfg<DT>::kStages * BwdCfg<DT>::kStage);
 }
 
 // rows [e0, e0 + kN) of src [n_src, d] into dst (row stride DT + 4, DT
@@ -378,6 +133,252 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                ok ? from + (size_t)i * kStep * d : src, ok);
   }
 }
+
+// S = X_w · Y_tileᵀ, [16·kMt x 8·kNy], k over the width, in 3xTF32.  xw is
+// this thread's first A element of the warp's X rows in shared memory
+// (split as it is read), yb and ys the big and small parts of the Y tile
+// (row stride DT + 4).  MMAs are issued term-major (all small·big of a
+// k-step, then big·small, then big·big), so that two products into one
+// accumulator are at least 8 MMAs apart.  Element i of n-tile j of m-tile
+// m is X row 16·m + 8·(i >> 1) + g, Y row 8·j + 2·t + (i & 1).
+template <int DT, int kMt, int kNy>
+__device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
+                                           const float* xw, const float* yb,
+                                           const float* ys, int g, int t) {
+  constexpr int ld = DT + 4;
+  constexpr int kNd = DT / 8;
+#pragma unroll
+  for (int m = 0; m < kMt; ++m)
+#pragma unroll
+    for (int j = 0; j < kNy; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[m][j][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kNd; ++ks) {
+    uint32_t ab[kMt][4], as[kMt][4], bb[kNy][2], bs[kNy][2];
+#pragma unroll
+    for (int m = 0; m < kMt; ++m) {
+      const float* xk = xw + 16 * m * ld + ks * 8;
+      split_tf32(xk[0], ab[m][0], as[m][0]);
+      split_tf32(xk[8 * ld], ab[m][1], as[m][1]);
+      split_tf32(xk[4], ab[m][2], as[m][2]);
+      split_tf32(xk[8 * ld + 4], ab[m][3], as[m][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNy; ++j) {
+      const int at = (j * 8 + g) * ld + ks * 8 + t;
+      bb[j][0] = __float_as_uint(yb[at]);
+      bb[j][1] = __float_as_uint(yb[at + 4]);
+      bs[j][0] = __float_as_uint(ys[at]);
+      bs[j][1] = __float_as_uint(ys[at + 4]);
+    }
+#pragma unroll
+    for (int m = 0; m < kMt; ++m)
+#pragma unroll
+      for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], as[m], bb[j]);
+#pragma unroll
+    for (int m = 0; m < kMt; ++m)
+#pragma unroll
+      for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], ab[m], bs[j]);
+#pragma unroll
+    for (int m = 0; m < kMt; ++m)
+#pragma unroll
+      for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], ab[m], bb[j]);
+  }
+}
+
+// ---------------------------------------------------------------- K4 ----
+
+// What the forward reads and where it writes.
+struct FwdArgs {
+  const float* x;        // h [N, d]
+  const float* y_big;    // Wᵀ [V, d], TF32 part
+  const float* y_small;  // and remainder
+  const float* b;        // [V] masked bias
+  const int* tgt;        // [N]
+  float* part;           // [3][splits][N]: max (log2 units), sum, target
+  int n_x, d, V;
+};
+
+// Per row and split of the vocab: the running max and sum of exp over the
+// split's columns, in log2 units, and the target logit.
+template <int DT>
+__global__ void __launch_bounds__(kThreads, 1)
+ce_fwd_kernel(const FwdArgs a) {
+  constexpr int kMt = BwdCfg<DT>::kMt;
+  constexpr int kBx = BwdCfg<DT>::kBx;
+  constexpr int kBy = BwdCfg<DT>::kBy;
+  constexpr int kStages = BwdCfg<DT>::kStages;
+  constexpr int kStage = BwdCfg<DT>::kStage;
+  constexpr int kNy = kBy / 8;
+  constexpr int ld = DT + 4;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* ring = xs + kBx * ld;         // stage: big [kBy][ld], small, bias
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int x0 = blockIdx.x * kBx;
+  const int y_tiles = (a.V + kBy - 1) / kBy;
+  const int per = (y_tiles + gridDim.y - 1) / gridDim.y;
+  const int t_begin = min(y_tiles, (int)blockIdx.y * per);
+  const int n_tiles = min(y_tiles, t_begin + per) - t_begin;
+
+  // this thread's fragment rows xa + 16·m + 8·r: target, running max (a
+  // finite floor, so that a row with no column yet rescales by 2^0 · 0),
+  // running sum, target logit
+  const int xa = x0 + warp * 16 * kMt + g;
+  int xtg[kMt][2];
+  float rm[kMt][2], rs[kMt][2], tl[kMt][2];
+#pragma unroll
+  for (int m = 0; m < kMt; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int x = xa + 16 * m + 8 * r;
+      xtg[m][r] = x < a.n_x ? a.tgt[x] : -1;
+      rm[m][r] = -1e30f;
+      rs[m][r] = tl[m][r] = 0.f;
+    }
+
+  auto stage = [&](int slot, int tile) {
+    float* st = ring + slot * kStage;
+    const int y0 = tile * kBy;
+    stage_rows<DT, kBy>(st, a.y_big, y0, a.V, a.d);
+    stage_rows<DT, kBy>(st + kBy * ld, a.y_small, y0, a.V, a.d);
+    for (int e = threadIdx.x; e < kBy; e += kThreads) {
+      const bool ok = y0 + e < a.V;
+      cp_async4(st + 2 * kBy * ld + e, ok ? a.b + y0 + e : a.b, ok);
+    }
+  };
+  stage_rows<DT, kBx>(xs, a.x, x0, a.n_x, a.d);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) stage(s, t_begin + s);
+    cp_async_commit();
+  }
+  const float* xw = xs + (warp * 16 * kMt + g) * ld + t;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < n_tiles)
+      stage((it + kStages - 1) % kStages, t_begin + it + kStages - 1);
+    cp_async_commit();
+    const float* yb = ring + (it % kStages) * kStage;
+    const float* ys = yb + kBy * ld;
+    const float* bias = ys + kBy * ld;
+    const int y0 = (t_begin + it) * kBy;
+
+    float s[kMt][kNy][4];
+    logit_tile<DT, kMt, kNy>(s, xw, yb, ys, g, t);
+#pragma unroll
+    for (int m = 0; m < kMt; ++m) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float lm = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < kNy; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = j * 8 + 2 * t + c;
+            const int y = y0 + e;
+            const float v = s[m][j][2 * r + c] + bias[e];
+            if (y < a.V && y == xtg[m][r]) tl[m][r] = v;
+            const float v2 = y < a.V ? v * kLog2e : -CUDART_INF_F;
+            s[m][j][2 * r + c] = v2;
+            lm = fmaxf(lm, v2);
+          }
+        }
+        const float mn = fmaxf(rm[m][r], lm);
+        float acc = rs[m][r] * exp2_approx(rm[m][r] - mn);
+#pragma unroll
+        for (int j = 0; j < kNy; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            acc += exp2_approx(s[m][j][2 * r + c] - mn);
+        rs[m][r] = acc;
+        rm[m][r] = mn;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // a row's four threads merge their (max, sum) pairs and target logits;
+  // partners compute the same sums in the other order, so they agree
+  const size_t plane = (size_t)gridDim.y * a.n_x;
+  float* part = a.part + (size_t)blockIdx.y * a.n_x;
+#pragma unroll
+  for (int m = 0; m < kMt; ++m) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = rm[m][r], sm = rs[m][r], tv = tl[m][r];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, mx, o);
+        const float os = __shfl_xor_sync(0xffffffffu, sm, o);
+        tv += __shfl_xor_sync(0xffffffffu, tv, o);
+        const float mn = fmaxf(mx, om);
+        sm = sm * exp2_approx(mx - mn) + os * exp2_approx(om - mn);
+        mx = mn;
+      }
+      const int x = xa + 16 * m + 8 * r;
+      if (t == 0 && x < a.n_x) {
+        part[x] = mx;
+        part[plane + x] = sm;
+        part[2 * plane + x] = tv;
+      }
+    }
+  }
+}
+
+// Merges the splits' partials in split order, folds in the pad-class logit
+// (as _fwd_kernel does at its last vocab block) and writes lse and tlog.
+__global__ void ce_fwd_merge_kernel(const float* __restrict__ part,
+                                    const float* __restrict__ pad,
+                                    int splits, int N,
+                                    float* __restrict__ lse,
+                                    float* __restrict__ tlog) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N) return;
+  const size_t plane = (size_t)splits * N;
+  float m = -CUDART_INF_F;
+  for (int k = 0; k < splits; ++k) m = fmaxf(m, part[(size_t)k * N + row]);
+  float s = 0.f, t = 0.f;
+  for (int k = 0; k < splits; ++k) {
+    s += part[plane + (size_t)k * N + row] *
+         exp2f(part[(size_t)k * N + row] - m);
+    t += part[2 * plane + (size_t)k * N + row];
+  }
+  const float p = pad[row] * kLog2e;
+  const float m_fin = fmaxf(m, p);
+  const float s_fin = s * exp2f(m - m_fin) + exp2f(p - m_fin);
+  lse[row] = (m_fin + log2f(s_fin)) * kLn2;
+  tlog[row] = t;
+}
+
+// ---------------------------------------------------------------- K5 ----
+
+// What a backward pass reads and where it writes.  Rows are the N rows of
+// h, columns the V vocab entries; X is the resident operand, Y the
+// streamed one, split once into its TF32 part and remainder by a pre-pass
+// (kRowsX: X = h, Y = Wᵀ; else X = Wᵀ, Y = h).
+struct BwdArgs {
+  const float* x;
+  const float* y_big;
+  const float* y_small;
+  const float* b;       // [V] masked bias
+  const float* lse;     // [N]
+  const float* dlse;    // [N]
+  const float* dt;      // [N]
+  const int* tgt;       // [N]
+  float* out;           // partial (x, k) at out + split·out_split + x·sx + k·sk
+  float* db;            // dW pass: db partial at db + split·V + x
+  size_t out_split;
+  int sx, sk;
+  int n_x, n_y, d, V;
+};
 
 // The per-entity values of Y tile y0 (info [4][kBy]): the bias of its
 // vocab entries (dh pass), or lse, dlse, dt and the target of its rows.
@@ -403,9 +404,7 @@ __device__ __forceinline__ void stage_info(float* info, const BwdArgs& a,
 }
 
 // One backward pass (the dh kernel for kRowsX, else the dW/db kernel) over
-// X tile blockIdx.x and the Y tiles of split blockIdx.y.  MMAs are issued
-// term-major (all small·big of a step, then big·small, then big·big), so
-// that two products into one accumulator are at least 8 MMAs apart.
+// X tile blockIdx.x and the Y tiles of split blockIdx.y.
 template <int DT, bool kRowsX>
 __global__ void __launch_bounds__(kThreads, 1)
 ce_bwd_kernel(const BwdArgs a) {
@@ -413,12 +412,11 @@ ce_bwd_kernel(const BwdArgs a) {
   constexpr int kBx = BwdCfg<DT>::kBx;
   constexpr int kBy = BwdCfg<DT>::kBy;
   constexpr int kStages = BwdCfg<DT>::kStages;
+  constexpr int kStage = BwdCfg<DT>::kStage;
   constexpr int kNy = kBy / 8;         // n-tiles of S, k-steps of the output
   constexpr int kNd = DT / 8;          // k-steps of S, n-tiles of the output
   constexpr int kNb = 4;               // output n-tiles a batch of B loads
   constexpr int ld = DT + 4;
-  constexpr int kStage = 2 * kBy * ld + 4 * kBy;   // floats a stage
-  constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ float4 smem4[];
   const int d = a.d;
   float* xs = reinterpret_cast<float*>(smem4);
@@ -497,46 +495,8 @@ ce_bwd_kernel(const BwdArgs a) {
     const float* inf = ys + kBy * ld;
     const int y0 = (t_begin + it) * kBy;
 
-    // S = X_w · Y_tileᵀ: [16·kMt x kBy], k over the width
     float s[kMt][kNy][4];
-#pragma unroll
-    for (int m = 0; m < kMt; ++m)
-#pragma unroll
-      for (int j = 0; j < kNy; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[m][j][i] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kNd; ++ks) {
-      uint32_t ab[kMt][4], as[kMt][4], bb[kNy][2], bs[kNy][2];
-#pragma unroll
-      for (int m = 0; m < kMt; ++m) {
-        const float* xk = xw + 16 * m * ld + ks * 8;
-        split_tf32(xk[0], ab[m][0], as[m][0]);
-        split_tf32(xk[8 * ld], ab[m][1], as[m][1]);
-        split_tf32(xk[4], ab[m][2], as[m][2]);
-        split_tf32(xk[8 * ld + 4], ab[m][3], as[m][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < kNy; ++j) {
-        const int at = (j * 8 + g) * ld + ks * 8 + t;
-        bb[j][0] = __float_as_uint(yb[at]);
-        bb[j][1] = __float_as_uint(yb[at + 4]);
-        bs[j][0] = __float_as_uint(ys[at]);
-        bs[j][1] = __float_as_uint(ys[at + 4]);
-      }
-#pragma unroll
-      for (int m = 0; m < kMt; ++m)
-#pragma unroll
-        for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], as[m], bb[j]);
-#pragma unroll
-      for (int m = 0; m < kMt; ++m)
-#pragma unroll
-        for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], ab[m], bs[j]);
-#pragma unroll
-      for (int m = 0; m < kMt; ++m)
-#pragma unroll
-        for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], ab[m], bb[j]);
-    }
+    logit_tile<DT, kMt, kNy>(s, xw, yb, ys, g, t);
 
     // dlogits in place: element i of n-tile j of m-tile m is X entity
     // xa + 16·m + 8·(i >> 1), Y entity y0 + 8·j + 2·t + (i & 1)
@@ -642,15 +602,8 @@ ce_bwd_kernel(const BwdArgs a) {
   }
 }
 
-template <int DT>
-constexpr int bwd_smem() {
-  return static_cast<int>(sizeof(float)) *
-         (BwdCfg<DT>::kBx * (DT + 4) +
-          BwdCfg<DT>::kStages * BwdCfg<DT>::kBy * (2 * (DT + 4) + 4));
-}
-
 // wt[v, k] = w[k, v]: W [d, V] into Wᵀ [V, d], through 32x32 shared tiles,
-// and Wᵀ's TF32 split into wt_big and wt_small.
+// and Wᵀ's TF32 split into wt_big and wt_small (wt null: the split only).
 __global__ void transpose_split_kernel(const float* __restrict__ w,
                                        float* __restrict__ wt,
                                        float* __restrict__ wt_big,
@@ -671,7 +624,7 @@ __global__ void transpose_split_kernel(const float* __restrict__ w,
       uint32_t big, small;
       split_tf32(x, big, small);
       const size_t i = (size_t)v * d + k;
-      wt[i] = x;
+      if (wt) wt[i] = x;
       wt_big[i] = __uint_as_float(big);
       wt_small[i] = __uint_as_float(small);
     }
@@ -743,29 +696,41 @@ int best_splits(int x_tiles, int y_tiles, int slots, double tile_us,
 template <int DT>
 cudaError_t prepare() {
   cudaError_t err = cudaFuncSetAttribute(
-      ce_bwd_kernel<DT, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bwd_smem<DT>());
+      ce_fwd_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile_smem<DT>());
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ce_bwd_kernel<DT, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tile_smem<DT>());
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(ce_bwd_kernel<DT, false>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bwd_smem<DT>());
+                              tile_smem<DT>());
 }
 
+// The vocab splits of K4 (splits[0]), or of K5's dh kernel (splits[0]) and
+// the row splits of its dW/db kernel (splits[1]).
 template <int DT>
-int plan(int N, int d, int V, int* splits) {
+int plan(int N, int d, int V, bool forward, int* splits) {
   cudaError_t err = prepare<DT>();
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ce_bwd_kernel<DT, true>, kThreads, bwd_smem<DT>());
+      &per_sm, ce_bwd_kernel<DT, true>, kThreads, tile_smem<DT>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slots = sms * (per_sm < 1 ? 1 : per_sm);
   constexpr int kBx = BwdCfg<DT>::kBx;
   constexpr int kBy = BwdCfg<DT>::kBy;
-  // a tile's MMA work at an assumed 2 TFLOP/s of TF32 per SM
-  const double tile_us = 12.0 * kBx * kBy * DT / 2e6;
+  // a tile's MMA work at an assumed 2 TFLOP/s of TF32 per SM: one product
+  // (three TF32 terms) in K4, two in K5
+  const double tile_us = (forward ? 6.0 : 12.0) * kBx * kBy * DT / 2e6;
+  if (forward) {
+    splits[0] = best_splits((N + kBx - 1) / kBx, (V + kBy - 1) / kBy, slots,
+                            tile_us, 12.0 * N);
+    return 0;
+  }
   splits[0] = best_splits((N + kBx - 1) / kBx, (V + kBy - 1) / kBy, slots,
                           tile_us, 4.0 * N * d);
   splits[1] = best_splits((V + kBx - 1) / kBx, (N + kBy - 1) / kBy, slots,
@@ -773,14 +738,31 @@ int plan(int N, int d, int V, int* splits) {
   return 0;
 }
 
+int plan_d(int N, int d, int V, bool forward, int* splits) {
+  return d <= 64    ? plan<64>(N, d, V, forward, splits)
+         : d <= 128 ? plan<128>(N, d, V, forward, splits)
+                    : plan<256>(N, d, V, forward, splits);
+}
+
+cudaError_t prepare_d(int d) {
+  return d <= 64 ? prepare<64>() : d <= 128 ? prepare<128>() : prepare<256>();
+}
+
+template <int DT>
+cudaError_t launch_fwd(const FwdArgs& a, int splits, cudaStream_t s) {
+  const dim3 grid((a.n_x + BwdCfg<DT>::kBx - 1) / BwdCfg<DT>::kBx, splits);
+  ce_fwd_kernel<DT><<<grid, kThreads, tile_smem<DT>(), s>>>(a);
+  return cudaGetLastError();
+}
+
 template <int DT>
 cudaError_t launch_bwd(const BwdArgs& a, int splits, cudaStream_t s,
                        bool rows_x) {
   const dim3 grid((a.n_x + BwdCfg<DT>::kBx - 1) / BwdCfg<DT>::kBx, splits);
   if (rows_x)
-    ce_bwd_kernel<DT, true><<<grid, kThreads, bwd_smem<DT>(), s>>>(a);
+    ce_bwd_kernel<DT, true><<<grid, kThreads, tile_smem<DT>(), s>>>(a);
   else
-    ce_bwd_kernel<DT, false><<<grid, kThreads, bwd_smem<DT>(), s>>>(a);
+    ce_bwd_kernel<DT, false><<<grid, kThreads, tile_smem<DT>(), s>>>(a);
   return cudaGetLastError();
 }
 
@@ -804,39 +786,46 @@ cudaError_t merge(const float* part, int splits, size_t n, float* dst,
   return cudaGetLastError();
 }
 
+cudaError_t transpose_split(const float* w, float* wt, float* wt_big,
+                            float* wt_small, int d, int V, cudaStream_t s) {
+  transpose_split_kernel<<<dim3((V + 31) / 32, (d + 31) / 32), dim3(32, 8), 0,
+                           s>>>(w, wt, wt_big, wt_small, d, V);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The number of vocab splits for N rows and V columns: enough blocks for
-// about 8 waves of one block per SM, at most one 64-column tile a split.
-extern "C" int ce_splits(int N, int V) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int row_tiles = (N + kBN - 1) / kBN;
-  const int v_tiles = (V + kBV - 1) / kBV;
-  const int want = (8 * sms + row_tiles - 1) / row_tiles;
-  return want < 1 ? 1 : (want > v_tiles ? v_tiles : want);
+// The forward's vocab splits for N rows, width d and V columns (splits[0]).
+// Returns a CUDA error code (0 = planned).
+extern "C" int ce_fwd_plan(int N, int d, int V, int* splits) {
+  return plan_d(N, d, V, true, splits);
 }
 
 // h [N, d], w [d, V] row-major, b [V] (-1e9 on padded columns), pad [N],
-// tgt [N] -> lse [N], tlog [N]; workspace of 3 · splits · N floats.
-// d % 16 == 0, d <= 256, V % 4 == 0.  Returns cudaGetLastError() after the
+// tgt [N] -> lse [N], tlog [N].  workspace: Wᵀ's TF32 split (2·V·d floats),
+// then the splits' partials (3 · splits · N).  All pointers 16-byte aligned;
+// d % 4 == 0, d <= 256, V % 4 == 0.  Returns cudaGetLastError() after the
 // launches (0 = launched).
 extern "C" int ce_fwd_f32(const float* h, const float* w, const float* b,
                           const float* pad, const int* tgt, float* lse,
                           float* tlog, float* workspace, int splits, int N,
                           int d, int V, void* stream) {
-  const int smem = tile_smem(d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = prepare_d(d);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ce_fwd_kernel<<<dim3((N + kBN - 1) / kBN, splits), kThreads, smem, s>>>(
-      h, w, b, tgt, workspace, N, d, V);
-  err = cudaGetLastError();
+  const size_t vd = (size_t)V * d;
+  float* wt_big = workspace;
+  float* wt_small = wt_big + vd;
+  float* part = wt_small + vd;
+  err = transpose_split(w, nullptr, wt_big, wt_small, d, V, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ce_fwd_merge_kernel<<<(N + 255) / 256, 256, 0, s>>>(workspace, pad, splits,
-                                                      N, lse, tlog);
+  const FwdArgs a{h, wt_big, wt_small, b, tgt, part, N, d, V};
+  err = d <= 64    ? launch_fwd<64>(a, splits, s)
+        : d <= 128 ? launch_fwd<128>(a, splits, s)
+                   : launch_fwd<256>(a, splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ce_fwd_merge_kernel<<<(N + 255) / 256, 256, 0, s>>>(part, pad, splits, N,
+                                                      lse, tlog);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -844,9 +833,7 @@ extern "C" int ce_fwd_f32(const float* h, const float* w, const float* b,
 // of V for the dh kernel, splits[1] of N for the dW/db kernel.  Returns a
 // CUDA error code (0 = planned).
 extern "C" int ce_bwd_plan(int N, int d, int V, int* splits) {
-  return d <= 64    ? plan<64>(N, d, V, splits)
-         : d <= 128 ? plan<128>(N, d, V, splits)
-                    : plan<256>(N, d, V, splits);
+  return plan_d(N, d, V, false, splits);
 }
 
 // The backward from the forward's inputs, its lse and the gradients dlse,
@@ -854,7 +841,7 @@ extern "C" int ce_bwd_plan(int N, int d, int V, int* splits) {
 // TF32 split (3·V·d floats), h's split (2·N·d), then, where a pass has more
 // than one split, its partials: splits[0]·N·d floats for dh,
 // splits[1]·(d + 1)·V for dW and db.  All pointers 16-byte aligned;
-// d % 16 == 0, d <= 256, V % 4 == 0.  Returns cudaGetLastError() after the
+// d % 4 == 0, d <= 256, V % 4 == 0.  Returns cudaGetLastError() after the
 // launches (0 = launched).
 extern "C" int ce_bwd_f32(const float* h, const float* w, const float* b,
                           const float* lse, const float* dlse,
@@ -862,9 +849,7 @@ extern "C" int ce_bwd_f32(const float* h, const float* w, const float* b,
                           float* dw, float* db, float* workspace, int split_h,
                           int split_w, int N, int d, int V, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = d <= 64    ? prepare<64>()
-                    : d <= 128 ? prepare<128>()
-                               : prepare<256>();
+  cudaError_t err = prepare_d(d);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t vd = (size_t)V * d, nd = (size_t)N * d;
   float* wt = workspace;
@@ -876,9 +861,7 @@ extern "C" int ce_bwd_f32(const float* h, const float* w, const float* b,
   float* part_w = part_h + (split_h > 1 ? (size_t)split_h * nd : 0);
   float* part_b = part_w + (size_t)split_w * vd;
 
-  transpose_split_kernel<<<dim3((V + 31) / 32, (d + 31) / 32), dim3(32, 8), 0,
-                           s>>>(w, wt, wt_big, wt_small, d, V);
-  err = cudaGetLastError();
+  err = transpose_split(w, wt, wt_big, wt_small, d, V, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   split_kernel<<<stride_blocks(nd / 4), 256, 0, s>>>(h, nd, h_big, h_small);
   err = cudaGetLastError();

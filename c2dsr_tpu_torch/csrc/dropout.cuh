@@ -1,8 +1,9 @@
 // Counter-based dropout keep decision shared by the encoder kernels
-// (encoder.cu, encoder_bwd.cu).  The same function in integer tensor ops is
-// c2dsr_tpu_torch/ops/dropout.py, which documents it: a kernel and its plain
-// version draw bit-identical masks, and a backward regenerates its
-// forward's masks from the seed alone, with no mask in device memory.
+// (encoder.cu, encoder_bwd.cu, whose host code computes the keys too).  The
+// same function in integer tensor ops is c2dsr_tpu_torch/ops/dropout.py,
+// which documents it: a kernel and its plain version draw bit-identical
+// masks, and a backward regenerates its forward's masks from the seed
+// alone, with no mask in device memory.
 #pragma once
 
 #include <cstdint>
@@ -32,7 +33,8 @@ struct Dropout {
   uint32_t seed;
   int tower;
 
-  __device__ __forceinline__ uint32_t key(int site, int layer) const {
+  __host__ __device__ __forceinline__ uint32_t key(int site,
+                                                   int layer) const {
     return mix32(seed ^ mix32(static_cast<uint32_t>(site + 8 * layer +
                                                     1024 * tower) + kGolden));
   }

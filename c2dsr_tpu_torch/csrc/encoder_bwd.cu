@@ -2,46 +2,58 @@
 // gradient of every layer weight and of the final LayerNorm.
 //
 // Replaces the fused encoder backward Pallas kernel
-// (c2dsr_tpu/ops/encoder_pallas.py, _fused_bwd / _bwd_kernel).  Like it, a
-// block re-runs the forward of its rows (activations are cheaper to
-// recompute than to keep from the forward launch), regenerates the forward's
-// dropout masks from the seed (dropout.cuh: the same hash as encoder.cu), and
-// walks the layers in reverse: final LN, LN2, FFN, LN1, out-projection, the
-// per-head softmax through the pre-dropout probabilities, QKV.  An
-// all-masked query row is the uniform average over the L real positions in
-// the forward (as ops/encoder.py and encoder.cu have it); the softmax
-// backward follows those probabilities, so such rows carry gradient.
+// (c2dsr_tpu/ops/encoder_pallas.py, _fused_bwd / _bwd_kernel).  It walks
+// the layers in reverse: final LN, LN2, FFN, LN1, out-projection, the
+// per-head softmax through the pre-dropout probabilities, QKV; it
+// regenerates the forward's dropout masks from the seed (dropout.cuh: the
+// same hash as encoder.cu).  An all-masked query row is the uniform average
+// over the L real positions in the forward (as ops/encoder.py and
+// encoder.cu have it); the softmax backward follows those probabilities,
+// so such rows carry gradient.
 //
-// Bound on an H100 by operations: the backward proper does 24·N·d² + 8·N·L·d
-// FLOPs per layer (N = B·L rows), the recomputed forward 12·N·d² + 4·N·L·d
-// more, all in f32 FFMA.
+// Where the Pallas kernel re-runs the forward, this one reads the
+// activations that the training forward (encoder.cu) saved for all N = B·L
+// rows of the call (saved_layout, about 11·d floats a row), so it
+// differentiates the very forward whose output the loss saw.  A recompute
+// in another arithmetic (3xTF32 here, FFMA there) moved ReLU masks and the
+// -1e9 rounding of all-masked rows, and with them whole gradient rows: at
+// d 256 it put the step's gradients 1e-3 off the plain versions' where
+// their own card-against-CPU noise is 1e-4.
 //
-// Shared memory.  The backward needs, besides the QKV rows, each layer's
-// saved activations (x_in, qkv, p, o, xhat1, y1, f_pre, xhat2 and the two
-// 1/std): about 10·d floats a row, which with the working buffers would
-// overflow a block's 227 KB at 64 rows.  So a block holds kRowsB rows
-// (kRowsB / L whole sequences; 32 rows up to d 128, 16 up to d 256) in six
-// buffers (X, T, G, H of d + 4 floats a row, Q and D of 3·d + 1; 174 KB at
-// d = 128, 173 KB at d = 256) and keeps the saved activations of its
-// current rows in a per-block slice of a global workspace, where they stay
-// in L2 between the forward recompute and the reverse walk.
-//
-// Weight gradients.  The TPU accumulated them over its sequential grid in a
-// resident output block; blocks on the card run in parallel.  Here the grid
-// is fixed at one block per SM (or fewer, when the tower has fewer row
-// tiles); block b walks a contiguous range of row tiles and accumulates its
-// own gradient partial in a workspace slice (written on its first tile,
-// added to after).  A second kernel sums the partials in block order.  No
-// atomics: the result is deterministic.
+// Bound on an H100 by operations: 24·N·d² + 8·N·L·d FLOPs per layer.  The
+// walk is a sequence of kernels over all N rows, each gradient written once
+// and read once through L2 and device memory (about 12·d floats a row of
+// working buffers):
+// * Every product with a weight (dX = dY·Wᵀ and dW = Xᵀ·dY) runs on the
+//   tensor cores at f32 accuracy (3xTF32 on mma.sync.m16n8k8, tc.cuh).
+//   tc_gemm_kernel takes 64 rows a block, 16 a warp, so every weight tile
+//   it stages feeds 64 rows; weight and activation tiles of 32 k-steps
+//   arrive through a 3-stage cp.async ring.  Its epilogue folds in what
+//   follows the product: the regenerated dropout, ReLU's mask, a residual
+//   add.
+// * LayerNorm backward (ln_bwd_kernel): one warp a row.
+// * Attention backward (attn_bwd_kernel): one block per whole sequence,
+//   its q, k, v and do rows in shared memory, one warp per query or key row
+//   and one lane per key (L <= 32), in FFMA.  Only this kernel is tied to
+//   sequences; the GEMMs are not, so L is not capped by a row tile.
+// * Weight gradients (wgrad_kernel): reductions over all N rows of the
+//   call, split into row ranges (a multiple of 32 rows each) that fill the
+//   SMs in whole waves; each (output tile, split) block writes its partial
+//   once, the bias sums beside it and the LayerNorm scale and bias sums as
+//   jobs of their own, and sum_partials_kernel adds the partials in split
+//   order.  No atomics and no read-modify-write of a partial: two launches
+//   on the same inputs give bitwise-equal results.
+// A tower call of one layer launches 10 kernels; each further layer adds 8.
+
+#include <vector>
 
 #include "encoder_common.cuh"
+#include "tc.cuh"
 
 namespace {
 
 using namespace tower;
-
-// Rows held by one block at width d.
-__host__ __device__ constexpr int bwd_rows(int d) { return d <= 128 ? 32 : 16; }
+using namespace tc;
 
 // Offsets (in floats) of each gradient in the flat gradient buffer: the
 // stacked layer weights in the order of the kernel arguments, then lnf.
@@ -50,7 +62,7 @@ struct GradOff {
   size_t ln1_s, ln1_b, ln2_s, ln2_b, lnf_s, lnf_b, total;
 };
 
-__host__ __device__ inline GradOff grad_offsets(int d, int nl) {
+GradOff grad_offsets(int d, int nl) {
   GradOff o;
   size_t at = 0;
   o.w_qkv = at; at += (size_t)nl * d * 3 * d;
@@ -71,442 +83,459 @@ __host__ __device__ inline GradOff grad_offsets(int d, int nl) {
   return o;
 }
 
-// Offsets (in floats) of one layer's saved activations in a block's slice
-// of `rows` rows; rows are dense (stride d, or 3·d for qkv), p is
-// [head][row][key].  The slice is written and read again within one launch,
-// so no pointer into it is __restrict__: the read-only cache path would not
-// see the new values.
-struct SaveOff {
-  size_t x_in, qkv, p, o, xhat1, y1, f_pre, xhat2, r1, r2, layer;
+// ------------------------------------------------------------ the GEMM ----
+
+constexpr int kGemmThreads = 128;  // 4 warps
+constexpr int kGemmRows = 64;      // rows a block, 16 a warp
+constexpr int kKc = 32;            // k a stage
+constexpr int kGemmStages = 3;
+constexpr int kLds = kKc + 4;      // tile row stride: fragment loads free of
+                                   // bank conflicts
+// C = A·Wᵀ with W [M, K] row-major, NT = 64, 128 or 256 output columns a
+// block (the narrowest that holds d).
+template <int NT>
+struct GemmCfg {
+  static constexpr int kStage = (kGemmRows + NT) * kLds;
+  static constexpr int kSmem = 4 * kGemmStages * kStage;
 };
 
-__host__ __device__ inline SaveOff save_offsets(int d, int n_head, int L,
-                                                int rows) {
-  const size_t rd = (size_t)rows * d;
-  SaveOff s;
-  s.x_in = 0;
-  s.qkv = rd;
-  s.p = 4 * rd;
-  s.o = s.p + (size_t)n_head * rows * L;
-  s.xhat1 = s.o + rd;
-  s.y1 = s.xhat1 + rd;
-  s.f_pre = s.y1 + rd;
-  s.xhat2 = s.f_pre + rd;
-  s.r1 = s.xhat2 + rd;
-  s.r2 = s.r1 + rows;
-  s.layer = s.r2 + rows;
-  return s;
-}
+// What follows the product, per output element (row r, column c; element
+// index r·M + c, which is also the dropout index of a [B, L, d] site):
+enum Epi : int {
+  kStore = 0,  // c = acc
+  kDrelu = 1,  // c = drop(acc) where aux > 0, else 0 (ReLU's mask)
+  kRes = 2,    // c = drop(acc + res)
+};
 
-// A block's saved slice: n_layers layers, then xhat and 1/std of the final LN.
-__host__ __device__ inline size_t save_floats(int d, int n_head, int L,
-                                              int n_layers) {
-  const int rows = bwd_rows(d);
-  return (size_t)n_layers * save_offsets(d, n_head, L, rows).layer +
-         (size_t)rows * d + rows;
-}
+struct GemmArgs {
+  const float* a;       // A [n, k] row-major
+  const float* w;       // W [m, k] row-major
+  float* c;             // [n, m]
+  int n, k, m, epi;
+  const float* res;     // [n, m]
+  const float* aux;     // [n, m]
+  drop::Dropout dr;     // dropout where dr.on
+  uint32_t key;
+};
 
-__device__ __forceinline__ void put(float* dst, float v, bool first) {
-  *dst = first ? v : *dst + v;
-}
-
-// dst[k, m] (+)= sum_{r < R} A[r, k] B[r, m]: a weight gradient into the
-// block's partial (global, row-major [K, M]).  K, M multiples of 4.
-__device__ void gemm_tn_acc(const float* A, int lda, const float* B, int ldb,
-                            int R, int K, int M, float* dst, bool first) {
-  const int m4n = M / 4;
-  for (int t = threadIdx.x; t < (K / 4) * m4n; t += kThreads) {
-    const int k0 = (t / m4n) * 4;
-    const int m0 = (t % m4n) * 4;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int r = 0; r < R; ++r) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = A[r * lda + k0 + i];
-        b[i] = B[r * ldb + m0 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        put(dst + (size_t)(k0 + i) * M + m0 + j, acc[i][j], first);
-  }
-}
-
-// dst[c] (+)= sum_{r < R} B[r, c]: a bias gradient into the partial.
-__device__ void colsum_acc(const float* B, int ldb, int R, int M, float* dst,
-                           bool first) {
-  for (int c = threadIdx.x; c < M; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s += B[r * ldb + c];
-    put(dst + c, s, first);
-  }
-}
-
-// LayerNorm backward, in place on G (row stride ldg) for r < R, with the
-// saved xhat (stride d) and 1/std: the scale and bias gradients go into the
-// partial, then G = rstd · (g·s - mean(g·s) - xhat · mean(g·s·xhat)).
-template <int NV>
-__device__ void ln_bwd(float* G, int ldg, const float* xhat,
-                       const float* rstd,
-                       const float* __restrict__ scale, int R, int d,
-                       float* d_scale, float* d_bias, bool first) {
-  for (int c = threadIdx.x; c < d; c += kThreads) {
-    float ss = 0.f, sb = 0.f;
-    for (int r = 0; r < R; ++r) {
-      const float g = G[r * ldg + c];
-      ss = fmaf(g, xhat[r * d + c], ss);
-      sb += g;
-    }
-    put(d_scale + c, ss, first);
-    put(d_bias + c, sb, first);
-  }
-  __syncthreads();
+template <int NT>
+__global__ void __launch_bounds__(kGemmThreads)
+tc_gemm_kernel(const GemmArgs g) {
+  using Cfg = GemmCfg<NT>;
+  constexpr int kNj = NT / 8;          // n-tiles a warp
+  constexpr int kNb = NT == 256 ? 4 : 8;  // n-tiles a batch of B loads (4
+                                          // at 256: registers)
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int r = warp; r < R; r += kThreads / 32) {
-    float gs[NV], xh[NV];
-    float m1 = 0.f, m2 = 0.f;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int row0 = blockIdx.x * kGemmRows;
+  const int n0 = blockIdx.y * NT;
+  const int n_chunks = (g.k + kKc - 1) / kKc;
+
+  // a stage: A rows [64][kLds], then W rows [NT][kLds], each 32 k-steps
+  auto stage = [&](int slot, int chunk) {
+    float* as = smem + slot * Cfg::kStage;
+    float* bs = as + kGemmRows * kLds;
+    const int k0 = chunk * kKc;
+    for (int v = threadIdx.x; v < (kGemmRows + NT) * (kKc / 4);
+         v += kGemmThreads) {
+      const int r = v >> 3, c4 = v & 7;
+      const bool is_a = r < kGemmRows;
+      const int row = is_a ? row0 + r : n0 + r - kGemmRows;
+      const float* src = is_a ? g.a : g.w;
+      const bool ok = row < (is_a ? g.n : g.m) && k0 + c4 * 4 < g.k;
+      cp_async16(as + r * kLds + c4 * 4,
+                 ok ? src + (size_t)row * g.k + k0 + c4 * 4 : src, ok);
+    }
+  };
 #pragma unroll
-    for (int t = 0; t < NV; ++t) {
-      const int c = lane + 32 * t;
-      gs[t] = xh[t] = 0.f;
-      if (c < d) {
-        gs[t] = G[r * ldg + c] * scale[c];
-        xh[t] = xhat[r * d + c];
-        m1 += gs[t];
-        m2 += gs[t] * xh[t];
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < n_chunks) stage(s, s);
+    cp_async_commit();
+  }
+
+  float acc[kNj][4];
+#pragma unroll
+  for (int j = 0; j < kNj; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  for (int it = 0; it < n_chunks; ++it) {
+    cp_async_wait<kGemmStages - 2>();
+    __syncthreads();
+    if (it + kGemmStages - 1 < n_chunks)
+      stage((it + kGemmStages - 1) % kGemmStages, it + kGemmStages - 1);
+    cp_async_commit();
+    const float* as = smem + (it % kGemmStages) * Cfg::kStage;
+    const float* bs = as + kGemmRows * kLds;
+#pragma unroll
+    for (int ks = 0; ks < kKc / 8; ++ks) {
+      uint32_t ab[4], am[4];
+      const float* ap = as + (warp * 16 + gq) * kLds + ks * 8 + tq;
+      split_tf32(ap[0], ab[0], am[0]);
+      split_tf32(ap[8 * kLds], ab[1], am[1]);
+      split_tf32(ap[4], ab[2], am[2]);
+      split_tf32(ap[8 * kLds + 4], ab[3], am[3]);
+#pragma unroll
+      for (int j0 = 0; j0 < kNj; j0 += kNb) {
+        uint32_t bb[kNb][2], bm[kNb][2];
+#pragma unroll
+        for (int j = 0; j < kNb; ++j) {
+          const float* bp = bs + ((j0 + j) * 8 + gq) * kLds + ks * 8 + tq;
+          split_tf32(bp[0], bb[j][0], bm[j][0]);
+          split_tf32(bp[4], bb[j][1], bm[j][1]);
+        }
+        // term-major: two products into one accumulator kNb MMAs apart
+#pragma unroll
+        for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], am, bb[j]);
+#pragma unroll
+        for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], ab, bm[j]);
+#pragma unroll
+        for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], ab, bb[j]);
       }
     }
-    m1 = warp_sum(m1) / d;
-    m2 = warp_sum(m2) / d;
-    const float rs = rstd[r];
+  }
+  cp_async_wait<0>();
+
+  // elements 2h and 2h + 1 of n-tile j: row r_lo + 8·h, columns n0 + 8·j
+  // + 2·tq and the next, as one float2 (m % 8 == 0: both or neither in
+  // range)
+  const int r_lo = row0 + warp * 16 + gq;
 #pragma unroll
-    for (int t = 0; t < NV; ++t) {
-      const int c = lane + 32 * t;
-      if (c < d) G[r * ldg + c] = rs * (gs[t] - m1 - xh[t] * m2);
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    if (row >= g.n) continue;
+    const size_t base = (size_t)row * g.m;
+#pragma unroll
+    for (int j = 0; j < kNj; ++j) {
+      const int col = n0 + j * 8 + 2 * tq;
+      if (col >= g.m) continue;
+      const size_t idx = base + col;
+      const uint32_t di = static_cast<uint32_t>(idx);
+      float2 v = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      if (g.epi == kRes) {
+        const float2 r = *reinterpret_cast<const float2*>(g.res + idx);
+        v.x += r.x;
+        v.y += r.y;
+      }
+      if (g.epi != kStore && g.dr.on) {
+        v.x = g.dr.apply(v.x, g.key, di);
+        v.y = g.dr.apply(v.y, g.key, di + 1);
+      }
+      if (g.epi == kDrelu) {
+        const float2 f = *reinterpret_cast<const float2*>(g.aux + idx);
+        if (!(f.x > 0.f)) v.x = 0.f;
+        if (!(f.y > 0.f)) v.y = 0.f;
+      }
+      *reinterpret_cast<float2*>(g.c + idx) = v;
     }
   }
-  __syncthreads();
 }
 
-// dst[r, c] = src[r, c] for r < R, c < n (src in global memory, stride n).
-__device__ void load_rows(float* dst, int ldd, const float* src, int R,
-                          int n) {
-  for (int v = threadIdx.x; v < R * n; v += kThreads)
-    dst[(v / n) * ldd + v % n] = src[v];
-  __syncthreads();
-}
+// ------------------------------------------------------- the attention ----
 
-__device__ void store_rows(float* dst, const float* src, int lds, int R,
-                           int n) {
-  for (int v = threadIdx.x; v < R * n; v += kThreads)
-    dst[v] = src[(v / n) * lds + v % n];
-  __syncthreads();
-}
-
-template <int NV, int kRowsB>
-__global__ void __launch_bounds__(kThreads, 1)
-encoder_bwd_kernel(const float* __restrict__ x, const int* __restrict__ seq,
-                   const float* __restrict__ gout, Layer l0, size_t s_qkv,
-                   size_t s_dd, int n_layers, const float* __restrict__ lnf_s,
-                   const float* __restrict__ lnf_b, float* __restrict__ dx,
-                   float* saved_all, float* part_all,
-                   int B, int L, int d, int n_head, int idx_pad, int invert,
-                   drop::Dropout dr) {
-  constexpr int kRpt = kRowsB / 16;
+// Per sequence blockIdx.x: dqkv [N, 3d] from the saved qkv and p and the
+// gradient do of the attention output: dpd = do·vᵀ, dp = drop(dpd),
+// ds = p·(dp - Σ dp·p), dq = ds·k / sqrt(dh), dk = dsᵀ·q / sqrt(dh),
+// dv = drop(p)ᵀ·do.
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
+                const float* __restrict__ d_o, float* __restrict__ dqkv,
+                int N, int L, int d, int n_head, drop::Dropout dr,
+                uint32_t key) {
   extern __shared__ float4 smem4[];
-  float* wt = reinterpret_cast<float*>(smem4);
-  const int ldx = d + 4;
+  float* Q = reinterpret_cast<float*>(smem4);
   const int ldq = 3 * d + 1;
-  float* X = wt + kTileK * kTileM;
-  float* T = X + kRowsB * ldx;
-  float* G = T + kRowsB * ldx;
-  float* H = G + kRowsB * ldx;
-  float* Q = H + kRowsB * ldx;
-  float* D = Q + kRowsB * ldq;
-  int* key_ok = reinterpret_cast<int*>(D + kRowsB * ldq);
-
-  const int S = kRowsB / L;
-  const int n_tiles = (B + S - 1) / S;
-  const int t_begin = (int)((long long)n_tiles * blockIdx.x / gridDim.x);
-  const int t_end = (int)((long long)n_tiles * (blockIdx.x + 1) / gridDim.x);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  float* H = Q + L * ldq;            // do rows, stride d
+  float* DS = H + L * d;             // ds [query][key] of one head
+  float* PD = DS + L * L;            // drop(p), the same layout
+  const int b = blockIdx.x;
+  const int row0 = b * L;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int v = threadIdx.x; v < L * 3 * d; v += kThreads)
+    Q[(v / (3 * d)) * ldq + v % (3 * d)] = qkv[(size_t)row0 * 3 * d + v];
+  for (int v = threadIdx.x; v < L * d; v += kThreads)
+    H[v] = d_o[(size_t)row0 * d + v];
+  __syncthreads();
   const int dh = d / n_head;
   const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
-  const SaveOff so = save_offsets(d, n_head, L, kRowsB);
-  const GradOff go = grad_offsets(d, n_layers);
-  float* saved = saved_all + (size_t)blockIdx.x * save_floats(d, n_head, L,
-                                                               n_layers);
-  float* part = part_all + (size_t)blockIdx.x * go.total;
-  float* xhat_f = saved + (size_t)n_layers * so.layer;
-  float* rstd_f = xhat_f + (size_t)kRowsB * d;
-
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const bool first = tile == t_begin;
-    const int seq0 = tile * S;
-    const int R = min(S, B - seq0) * L;
-    const int row0 = seq0 * L;
-
-    // ---- forward recompute, saving what the backward reads ----
-    for (int v = tid; v < kRowsB * d; v += kThreads) {
-      const int r = v / d;
-      const int c = v % d;
-      float val = 0.f;
-      if (r < R) {
-        val = x[(size_t)row0 * d + v];
-        if (dr.on)
-          val = dr.apply(val, dr.key(drop::kInput, 0),
-                         static_cast<uint32_t>(row0 * d + v));
+  for (int h = 0; h < n_head; ++h) {
+    // per query row i: ds over keys j (lane), and dq
+    for (int i = warp; i < L; i += kThreads / 32) {
+      float p = 0.f, dp = 0.f, pd = 0.f;
+      if (lane < L) {
+        p = p_in[((size_t)h * N + row0 + i) * L + lane];
+        float dot = 0.f;
+        for (int c = 0; c < dh; ++c)
+          dot = fmaf(H[i * d + h * dh + c], Q[lane * ldq + 2 * d + h * dh + c],
+                     dot);
+        dp = dot;
+        pd = p;
+        if (dr.on) {
+          const uint32_t idx = static_cast<uint32_t>(
+              ((b * n_head + h) * L + i) * L + lane);
+          dp = dr.apply(dot, key, idx);
+          pd = dr.apply(p, key, idx);
+        }
       }
-      X[r * ldx + c] = val;
-      T[r * ldx + c] = 0.f;
-    }
-    for (int r = tid; r < kRowsB; r += kThreads) {
-      const bool real = r < R && seq[(size_t)row0 + r] != idx_pad;
-      key_ok[r] = invert ? !real : real;
+      const float dot_pp = warp_sum(dp * p);
+      const float ds = p * (dp - dot_pp);
+      if (lane < L) {
+        DS[i * L + lane] = ds;
+        PD[i * L + lane] = pd;
+      }
+      for (int c0 = 0; c0 < dh; c0 += 32) {
+        const int c = c0 + lane;
+        float acc = 0.f;
+        for (int j = 0; j < L; ++j) {
+          const float dsj = __shfl_sync(0xffffffffu, ds, j);
+          if (c < dh) acc = fmaf(dsj, Q[j * ldq + d + h * dh + c], acc);
+        }
+        if (c < dh)
+          dqkv[(size_t)(row0 + i) * 3 * d + h * dh + c] = acc * inv_sqrt_dh;
+      }
     }
     __syncthreads();
-
-    for (int li = 0; li < n_layers; ++li) {
-      float* sv = saved + (size_t)li * so.layer;
-      const size_t ow = li * s_dd;
-      const size_t ob = (size_t)li * d;
-      store_rows(sv + so.x_in, X, ldx, R, d);
-      gemm<kRpt>(X, ldx, l0.w_qkv + li * s_qkv, l0.b_qkv + li * 3 * d, d,
-                 3 * d, Q, ldq, false, wt);
-      store_rows(sv + so.qkv, Q, ldq, R, 3 * d);
-      const uint32_t k_probs = dr.key(drop::kProbs, li);
-      for (int q = warp; q < n_head * R; q += kThreads / 32) {
-        const int h = q / R;
-        const int r = q % R;
-        const int s = r / L;
-        const int i = r % L;
-        const int rk = s * L + lane;
-        float logit = -CUDART_INF_F;
-        if (lane < L) {
-          const float* qp = Q + r * ldq + h * dh;
-          const float* kp = Q + rk * ldq + d + h * dh;
-          float dot = 0.f;
-          for (int c = 0; c < dh; ++c) dot = fmaf(qp[c], kp[c], dot);
-          const bool ok = lane <= i && key_ok[rk];
-          logit = dot * inv_sqrt_dh + (ok ? 0.f : kNeg);
-        }
-        const float mx = warp_max(logit);
-        const float e = lane < L ? expf(logit - mx) : 0.f;
-        float p = e / warp_sum(e);
-        if (lane < L) sv[so.p + ((size_t)h * kRowsB + r) * L + lane] = p;
-        if (dr.on)
-          p = dr.apply(p, k_probs, static_cast<uint32_t>(
-                                       (((seq0 + s) * n_head + h) * L + i) *
-                                           L + lane));
-        for (int c0 = 0; c0 < dh; c0 += 32) {
-          const int c = c0 + lane;
-          float acc = 0.f;
-          for (int j = 0; j < L; ++j) {
-            const float pj = __shfl_sync(0xffffffffu, p, j);
-            if (c < dh)
-              acc = fmaf(pj, Q[(s * L + j) * ldq + 2 * d + h * dh + c], acc);
-          }
-          if (c < dh) T[r * ldx + h * dh + c] = acc;
-        }
-      }
-      __syncthreads();
-      store_rows(sv + so.o, T, ldx, R, d);
-      gemm<kRpt>(T, ldx, l0.w_out + ow, l0.b_out + ob, d, d, Q, ldq, false,
-                 wt);
-      if (dr.on) drop_rows(Q, ldq, R, d, row0, dr, dr.key(drop::kAttnOut, li));
-      layer_norm_rows<NV>(X, ldx, Q, ldq, l0.ln1_s + ob, l0.ln1_b + ob, X, ldx, R, d,
-                 sv + so.xhat1, sv + so.r1);
-      store_rows(sv + so.y1, X, ldx, R, d);
-      gemm<kRpt>(X, ldx, l0.w_ff1 + ow, l0.b_ff1 + ob, d, d, T, ldx, false,
-                 wt);
-      store_rows(sv + so.f_pre, T, ldx, R, d);
-      {
-        const uint32_t k = dr.key(drop::kFfnRelu, li);
-        for (int v = tid; v < R * d; v += kThreads) {
-          float* t = T + (v / d) * ldx + v % d;
-          const float f = fmaxf(*t, 0.f);
-          *t = dr.on ? dr.apply(f, k, static_cast<uint32_t>(row0 * d + v)) : f;
-        }
-        __syncthreads();
-      }
-      gemm<kRpt>(T, ldx, l0.w_ff2 + ow, l0.b_ff2 + ob, d, d, Q, ldq, false,
-                 wt);
-      if (dr.on) drop_rows(Q, ldq, R, d, row0, dr, dr.key(drop::kFfnOut, li));
-      layer_norm_rows<NV>(X, ldx, Q, ldq, l0.ln2_s + ob, l0.ln2_b + ob, X, ldx, R, d,
-                 sv + so.xhat2, sv + so.r2);
-    }
-    // final LN statistics (its output is not needed)
-    layer_norm_rows<NV>(X, ldx, nullptr, 0, lnf_s, lnf_b, T, ldx, R, d, xhat_f, rstd_f);
-
-    // ---- backward ----
-    load_rows(G, ldx, gout + (size_t)row0 * d, R, d);
-    ln_bwd<NV>(G, ldx, xhat_f, rstd_f, lnf_s, R, d, part + go.lnf_s,
-               part + go.lnf_b, first);
-
-    for (int li = n_layers - 1; li >= 0; --li) {
-      const float* sv = saved + (size_t)li * so.layer;
-      const size_t ow = li * s_dd;
-      const size_t ob = (size_t)li * d;
-      // LN2: z2 = y1 + drop(f_d W2 + b2)
-      ln_bwd<NV>(G, ldx, sv + so.xhat2, sv + so.r2, l0.ln2_s + ob, R, d,
-                 part + go.ln2_s + ob, part + go.ln2_b + ob, first);
-      {
-        const uint32_t kg = dr.key(drop::kFfnOut, li);
-        const uint32_t kf = dr.key(drop::kFfnRelu, li);
-        for (int v = tid; v < R * d; v += kThreads) {
-          const int r = v / d;
-          const int c = v % d;
-          const uint32_t idx = static_cast<uint32_t>(row0 * d + v);
-          const float g = G[r * ldx + c];
-          T[r * ldx + c] = dr.on ? dr.apply(g, kg, idx) : g;
-          const float f = fmaxf(sv[so.f_pre + v], 0.f);
-          X[r * ldx + c] = dr.on ? dr.apply(f, kf, idx) : f;
-        }
-        __syncthreads();
-      }
-      gemm_tn_acc(X, ldx, T, ldx, R, d, d, part + go.w_ff2 + li * s_dd, first);
-      colsum_acc(T, ldx, R, d, part + go.b_ff2 + ob, first);
-      gemm_nt<kRpt>(T, ldx, l0.w_ff2 + ow, d, d, H, ldx, false, wt);
-      {
-        const uint32_t kf = dr.key(drop::kFfnRelu, li);
-        for (int v = tid; v < R * d; v += kThreads) {
-          const int r = v / d;
-          const int c = v % d;
-          float g = H[r * ldx + c];
-          if (dr.on) g = dr.apply(g, kf, static_cast<uint32_t>(row0 * d + v));
-          H[r * ldx + c] = sv[so.f_pre + v] > 0.f ? g : 0.f;
-          X[r * ldx + c] = sv[so.y1 + v];
-        }
-        __syncthreads();
-      }
-      gemm_tn_acc(X, ldx, H, ldx, R, d, d, part + go.w_ff1 + li * s_dd, first);
-      colsum_acc(H, ldx, R, d, part + go.b_ff1 + ob, first);
-      gemm_nt<kRpt>(H, ldx, l0.w_ff1 + ow, d, d, G, ldx, true, wt);
-      // LN1: z1 = x_in + drop(o W_out + b_out)
-      ln_bwd<NV>(G, ldx, sv + so.xhat1, sv + so.r1, l0.ln1_s + ob, R, d,
-                 part + go.ln1_s + ob, part + go.ln1_b + ob, first);
-      {
-        const uint32_t ka = dr.key(drop::kAttnOut, li);
-        for (int v = tid; v < R * d; v += kThreads) {
-          const int r = v / d;
-          const int c = v % d;
-          const float g = G[r * ldx + c];
-          T[r * ldx + c] =
-              dr.on ? dr.apply(g, ka, static_cast<uint32_t>(row0 * d + v)) : g;
-          X[r * ldx + c] = sv[so.o + v];
-        }
-        __syncthreads();
-      }
-      gemm_tn_acc(X, ldx, T, ldx, R, d, d, part + go.w_out + li * s_dd, first);
-      colsum_acc(T, ldx, R, d, part + go.b_out + ob, first);
-      gemm_nt<kRpt>(T, ldx, l0.w_out + ow, d, d, H, ldx, false, wt);  // d_o
-      load_rows(Q, ldq, sv + so.qkv, R, 3 * d);
-
-      // attention backward, head by head; X and T (contiguous, free until
-      // x_in is reloaded below) hold ds and the dropped probs, 2·kRowsB·L
-      // floats, which T alone would not hold for L > (d + 4) / 2
-      float* DS = X;
-      float* PD = X + kRowsB * L;
-      const uint32_t k_probs = dr.key(drop::kProbs, li);
-      for (int h = 0; h < n_head; ++h) {
-        // per query row r = (s, i): ds over keys j, and dq
-        for (int r = warp; r < R; r += kThreads / 32) {
-          const int s = r / L;
-          const int i = r % L;
-          const int rk = s * L + lane;
-          float p = 0.f, dp = 0.f, pd = 0.f;
-          if (lane < L) {
-            p = sv[so.p + ((size_t)h * kRowsB + r) * L + lane];
-            float dot = 0.f;
-            for (int c = 0; c < dh; ++c)
-              dot = fmaf(H[r * ldx + h * dh + c],
-                         Q[rk * ldq + 2 * d + h * dh + c], dot);
-            dp = dot;
-            pd = p;
-            if (dr.on) {
-              const uint32_t idx = static_cast<uint32_t>(
-                  (((seq0 + s) * n_head + h) * L + i) * L + lane);
-              dp = dr.apply(dot, k_probs, idx);
-              pd = dr.apply(p, k_probs, idx);
-            }
-          }
-          const float dot_pp = warp_sum(dp * p);
-          const float ds = p * (dp - dot_pp);
-          if (lane < L) {
-            DS[r * L + lane] = ds;
-            PD[r * L + lane] = pd;
-          }
-          for (int c0 = 0; c0 < dh; c0 += 32) {
-            const int c = c0 + lane;
-            float acc = 0.f;
-            for (int j = 0; j < L; ++j) {
-              const float dsj = __shfl_sync(0xffffffffu, ds, j);
-              if (c < dh)
-                acc = fmaf(dsj, Q[(s * L + j) * ldq + d + h * dh + c], acc);
-            }
-            if (c < dh) D[r * ldq + h * dh + c] = acc * inv_sqrt_dh;
+    // per key row j: dk and dv over queries i (lane)
+    for (int j = warp; j < L; j += kThreads / 32) {
+      const float ds = lane < L ? DS[lane * L + j] : 0.f;
+      const float pd = lane < L ? PD[lane * L + j] : 0.f;
+      for (int c0 = 0; c0 < dh; c0 += 32) {
+        const int c = c0 + lane;
+        float ak = 0.f, av = 0.f;
+        for (int i = 0; i < L; ++i) {
+          const float dsi = __shfl_sync(0xffffffffu, ds, i);
+          const float pdi = __shfl_sync(0xffffffffu, pd, i);
+          if (c < dh) {
+            ak = fmaf(dsi, Q[i * ldq + h * dh + c], ak);
+            av = fmaf(pdi, H[i * d + h * dh + c], av);
           }
         }
-        __syncthreads();
-        // per key row r = (s, j): dk and dv
-        for (int r = warp; r < R; r += kThreads / 32) {
-          const int s = r / L;
-          const int j = r % L;
-          const int ri = s * L + lane;
-          const float ds = lane < L ? DS[ri * L + j] : 0.f;
-          const float pd = lane < L ? PD[ri * L + j] : 0.f;
-          for (int c0 = 0; c0 < dh; c0 += 32) {
-            const int c = c0 + lane;
-            float ak = 0.f, av = 0.f;
-            for (int i = 0; i < L; ++i) {
-              const float dsi = __shfl_sync(0xffffffffu, ds, i);
-              const float pdi = __shfl_sync(0xffffffffu, pd, i);
-              if (c < dh) {
-                ak = fmaf(dsi, Q[(s * L + i) * ldq + h * dh + c], ak);
-                av = fmaf(pdi, H[(s * L + i) * ldx + h * dh + c], av);
-              }
-            }
-            if (c < dh) {
-              D[r * ldq + d + h * dh + c] = ak * inv_sqrt_dh;
-              D[r * ldq + 2 * d + h * dh + c] = av;
-            }
-          }
+        if (c < dh) {
+          float* dst = dqkv + (size_t)(row0 + j) * 3 * d + h * dh + c;
+          dst[d] = ak * inv_sqrt_dh;
+          dst[2 * d] = av;
         }
-        __syncthreads();
       }
-      load_rows(X, ldx, sv + so.x_in, R, d);
-      gemm_tn_acc(X, ldx, D, ldq, R, d, 3 * d, part + go.w_qkv + li * s_qkv,
-                  first);
-      colsum_acc(D, ldq, R, 3 * d, part + go.b_qkv + (size_t)li * 3 * d,
-                 first);
-      gemm_nt<kRpt>(D, ldq, l0.w_qkv + li * s_qkv, d, 3 * d, G, ldx, true, wt);
-    }
-    // input dropout, then dx
-    const uint32_t k_in = dr.key(drop::kInput, 0);
-    for (int v = tid; v < R * d; v += kThreads) {
-      const float g = G[(v / d) * ldx + v % d];
-      dx[(size_t)row0 * d + v] =
-          dr.on ? dr.apply(g, k_in, static_cast<uint32_t>(row0 * d + v)) : g;
     }
     __syncthreads();
   }
 }
 
-// grads[i] = sum over blocks b (in order) of part[b][i].
+// ----------------------------------------------------- the row kernels ----
+
+// LayerNorm backward, one warp per row: dz = rstd·(g·s - mean(g·s) -
+// xhat·mean(g·s·xhat)); dzd = drop(dz) where dzd is not null.
+template <int NV>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_kernel(const float* __restrict__ gin, const float* __restrict__ xhat,
+              const float* __restrict__ rstd,
+              const float* __restrict__ scale, float* __restrict__ dz,
+              float* __restrict__ dzd, int n, int d, drop::Dropout dr,
+              uint32_t key) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (r >= n) return;
+  const size_t at = (size_t)r * d;
+  float gs[NV], xh[NV];
+  float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+  for (int t = 0; t < NV; ++t) {
+    const int c = lane + 32 * t;
+    gs[t] = xh[t] = 0.f;
+    if (c < d) {
+      gs[t] = gin[at + c] * scale[c];
+      xh[t] = xhat[at + c];
+      m1 += gs[t];
+      m2 += gs[t] * xh[t];
+    }
+  }
+  m1 = warp_sum(m1) / d;
+  m2 = warp_sum(m2) / d;
+  const float rs = rstd[r];
+#pragma unroll
+  for (int t = 0; t < NV; ++t) {
+    const int c = lane + 32 * t;
+    if (c < d) {
+      const float v = rs * (gs[t] - m1 - xh[t] * m2);
+      dz[at + c] = v;
+      if (dzd)
+        dzd[at + c] = dr.apply(v, key, static_cast<uint32_t>(at + c));
+    }
+  }
+}
+
+// ------------------------------------------------ the weight gradients ----
+
+constexpr int kWgThreads = 128;    // 4 warps
+constexpr int kWgK = 64;           // rows of dW a tile, 16 a warp
+constexpr int kWgM = 128;          // columns of dW a tile
+constexpr int kWgRows = 32;        // rows of the call a stage
+constexpr int kWgStages = 3;
+constexpr int kLdx = kWgK + 8;     // strides: fragment loads free of bank
+constexpr int kLdy = kWgM + 8;     // conflicts
+constexpr int kWgStage = kWgRows * (kLdx + kLdy);
+constexpr int kWgSmem = 4 * kWgStages * kWgStage;
+
+// One layer's weight-gradient jobs: product p (qkv, out, ff1, ff2) is
+// dW = x[p]ᵀ·y[p] ([d, mw[p]]) with its bias colsum(y[p]), in tiles of
+// kWgK x kWgM; then n_ln LayerNorm jobs, colsum(lg·lx) and colsum(lg).
+// Outputs are offsets into a split's partial of the flat gradient buffer.
+struct WgArgs {
+  const float* x[4];
+  const float* y[4];
+  int mw[4];
+  size_t off_w[4], off_b[4];
+  const float* lg[3];
+  const float* lx[3];
+  size_t off_ls[3], off_lb[3];
+  int n_ln;
+  float* part;          // [splits][total]
+  size_t total;
+  int n, d, per;        // rows, width, rows a split (a multiple of kWgRows)
+};
+
+int wg_tiles(const int* mw, int d) {
+  const int tk = (d + kWgK - 1) / kWgK;
+  int n = 0;
+  for (int p = 0; p < 4; ++p) n += tk * ((mw[p] + kWgM - 1) / kWgM);
+  return n;
+}
+
+__global__ void __launch_bounds__(kWgThreads)
+wgrad_kernel(const WgArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int r_begin = blockIdx.y * a.per;
+  const int r_end = min(a.n, r_begin + a.per);
+  float* part = a.part + (size_t)blockIdx.y * a.total;
+  const int tk = (a.d + kWgK - 1) / kWgK;
+  int job = blockIdx.x;
+  int p = 0;
+  for (; p < 4; ++p) {
+    const int tiles = tk * ((a.mw[p] + kWgM - 1) / kWgM);
+    if (job < tiles) break;
+    job -= tiles;
+  }
+  if (p == 4) {  // a LayerNorm job
+    const float* G = a.lg[job];
+    const float* X = a.lx[job];
+    for (int c = threadIdx.x; c < a.d; c += kWgThreads) {
+      float ss = 0.f, sb = 0.f;
+#pragma unroll 4
+      for (int r = r_begin; r < r_end; ++r) {
+        const float gv = G[(size_t)r * a.d + c];
+        ss = fmaf(gv, X[(size_t)r * a.d + c], ss);
+        sb += gv;
+      }
+      part[a.off_ls[job] + c] = ss;
+      part[a.off_lb[job] + c] = sb;
+    }
+    return;
+  }
+  const int M = a.mw[p];
+  const int tm = (M + kWgM - 1) / kWgM;
+  const int k0 = (job / tm) * kWgK;
+  const int m0 = (job % tm) * kWgM;
+  const float* X = a.x[p];
+  const float* Y = a.y[p];
+  const bool with_bias = k0 == 0;
+  const int n_chunks = r_end > r_begin ? (r_end - r_begin + kWgRows - 1) /
+                                             kWgRows : 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+
+  auto stage = [&](int slot, int chunk) {
+    float* xs = smem + slot * kWgStage;
+    float* ys = xs + kWgRows * kLdx;
+    const int r0 = r_begin + chunk * kWgRows;
+    for (int v = threadIdx.x; v < kWgRows * (kWgK / 4); v += kWgThreads) {
+      const int r = v / (kWgK / 4), c4 = v % (kWgK / 4);
+      const bool ok = r0 + r < r_end && k0 + c4 * 4 < a.d;
+      cp_async16(xs + r * kLdx + c4 * 4,
+                 ok ? X + (size_t)(r0 + r) * a.d + k0 + c4 * 4 : X, ok);
+    }
+    for (int v = threadIdx.x; v < kWgRows * (kWgM / 4); v += kWgThreads) {
+      const int r = v / (kWgM / 4), c4 = v % (kWgM / 4);
+      const bool ok = r0 + r < r_end && m0 + c4 * 4 < M;
+      cp_async16(ys + r * kLdy + c4 * 4,
+                 ok ? Y + (size_t)(r0 + r) * M + m0 + c4 * 4 : Y, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < n_chunks) stage(s, s);
+    cp_async_commit();
+  }
+  constexpr int kNj = kWgM / 8;
+  float acc[kNj][4];
+#pragma unroll
+  for (int j = 0; j < kNj; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  float bsum = 0.f;
+
+  for (int it = 0; it < n_chunks; ++it) {
+    cp_async_wait<kWgStages - 2>();
+    __syncthreads();
+    if (it + kWgStages - 1 < n_chunks)
+      stage((it + kWgStages - 1) % kWgStages, it + kWgStages - 1);
+    cp_async_commit();
+    const float* xs = smem + (it % kWgStages) * kWgStage;
+    const float* ys = xs + kWgRows * kLdx;
+    if (with_bias) {
+#pragma unroll 8
+      for (int r = 0; r < kWgRows; ++r) bsum += ys[r * kLdy + threadIdx.x];
+    }
+#pragma unroll
+    for (int ks = 0; ks < kWgRows / 8; ++ks) {
+      // A (16 rows of dW x 8 call rows) = Xᵀ: A[g][t] = X[t][g]
+      uint32_t ab[4], am[4];
+      const float* xp = xs + (ks * 8 + tq) * kLdx + warp * 16 + gq;
+      split_tf32(xp[0], ab[0], am[0]);
+      split_tf32(xp[8], ab[1], am[1]);
+      split_tf32(xp[4 * kLdx], ab[2], am[2]);
+      split_tf32(xp[4 * kLdx + 8], ab[3], am[3]);
+#pragma unroll
+      for (int j0 = 0; j0 < kNj; j0 += 8) {
+        uint32_t bb[8][2], bm[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float* yp = ys + (ks * 8 + tq) * kLdy + (j0 + j) * 8 + gq;
+          split_tf32(yp[0], bb[j][0], bm[j][0]);
+          split_tf32(yp[4 * kLdy], bb[j][1], bm[j][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_tf32(acc[j0 + j], am, bb[j]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_tf32(acc[j0 + j], ab, bm[j]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_tf32(acc[j0 + j], ab, bb[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int j = 0; j < kNj; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kk = k0 + warp * 16 + gq + 8 * (i >> 1);
+      const int m = m0 + j * 8 + 2 * tq + (i & 1);
+      if (kk < a.d && m < M) part[a.off_w[p] + (size_t)kk * M + m] = acc[j][i];
+    }
+  }
+  if (with_bias && m0 + (int)threadIdx.x < M)
+    part[a.off_b[p] + m0 + threadIdx.x] = bsum;
+}
+
+// grads[i] = sum over splits s (in order) of part[s][i].
 __global__ void sum_partials_kernel(const float* __restrict__ part,
                                     int n_parts, size_t total,
                                     float* __restrict__ grads) {
@@ -518,32 +547,233 @@ __global__ void sum_partials_kernel(const float* __restrict__ part,
   }
 }
 
-int smem_bytes(int d) {
-  const int rows = bwd_rows(d);
-  return static_cast<int>(sizeof(float)) *
-             (kTileK * kTileM + 4 * rows * (d + 4) + 2 * rows * (3 * d + 1)) +
-         static_cast<int>(sizeof(int)) * rows;
+// ------------------------------------------------------------ the host ----
+
+#define TRY(x)                                   \
+  do {                                           \
+    const cudaError_t e_ = (x);                  \
+    if (e_ != cudaSuccess) return e_;            \
+  } while (0)
+
+// The output tile width of the GEMMs: the narrowest of 64, 128, 256 >= d.
+int width_tile(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
+// The most dynamic shared memory attn_bwd_kernel takes (L 32, d 256).
+constexpr int kAttnSmemMax = (32 * (3 * 256 + 1) + 32 * 256 + 2 * 32 * 32) * 4;
+
+// Lets each kernel take its dynamic shared memory; once per device.
+cudaError_t prepare() {
+  static bool done[64] = {};
+  int dev = 0;
+  TRY(cudaGetDevice(&dev));
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<64>, a, GemmCfg<64>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<128>, a, GemmCfg<128>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<256>, a, GemmCfg<256>::kSmem));
+  TRY(cudaFuncSetAttribute(attn_bwd_kernel, a, kAttnSmemMax));
+  TRY(cudaFuncSetAttribute(wgrad_kernel, a, kWgSmem));
+  if (dev < 64) done[dev] = true;
+  return cudaSuccess;
+}
+
+template <int NT>
+cudaError_t gemm_t(const GemmArgs& g, cudaStream_t s) {
+  const dim3 grid((g.n + kGemmRows - 1) / kGemmRows, (g.m + NT - 1) / NT);
+  tc_gemm_kernel<NT><<<grid, kGemmThreads, GemmCfg<NT>::kSmem, s>>>(g);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gemm(const GemmArgs& g, int nt, cudaStream_t s) {
+  return nt == 64 ? gemm_t<64>(g, s) : nt == 128 ? gemm_t<128>(g, s)
+                                                 : gemm_t<256>(g, s);
+}
+
+cudaError_t ln_bwd(const float* gin, const float* xhat, const float* rstd,
+                   const float* scale, float* dz, float* dzd, int n, int d,
+                   drop::Dropout dr, uint32_t key, cudaStream_t s) {
+  const int blocks = (n + kThreads / 32 - 1) / (kThreads / 32);
+  if (d <= 64)
+    ln_bwd_kernel<2><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
+                                                 dzd, n, d, dr, key);
+  else if (d <= 128)
+    ln_bwd_kernel<4><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
+                                                 dzd, n, d, dr, key);
+  else
+    ln_bwd_kernel<8><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
+                                                 dzd, n, d, dr, key);
+  return cudaGetLastError();
+}
+
+// The working buffers of the backward walk (reused by every layer) and the
+// partials of the weight gradients, carved from the workspace (a null base
+// only counts).
+struct Temps {
+  float *ga, *gb, *dz2, *dg2, *df, *dy1, *dz1, *da, *d_o, *dqkv, *part;
+};
+
+Temps take_temps(float* base, size_t N, int d, size_t part_floats,
+                 size_t* total) {
+  size_t at = 0;
+  auto at_ = [&](size_t n) {
+    const size_t o = take(at, n);
+    return base ? base + o : nullptr;
+  };
+  Temps t;
+  t.ga = at_(N * d);
+  t.gb = at_(N * d);
+  t.dz2 = at_(N * d);
+  t.dg2 = at_(N * d);
+  t.df = at_(N * d);
+  t.dy1 = at_(N * d);
+  t.dz1 = at_(N * d);
+  t.da = at_(N * d);
+  t.d_o = at_(N * d);
+  t.dqkv = at_(3 * N * d);
+  t.part = at_(part_floats);
+  if (total) *total = at;
+  return t;
+}
+
+// The weight gradients' row splits: as many as fit, with one layer's jobs
+// (the LayerNorm ones included), in one wave of two blocks per SM, each
+// split at least 4·kWgRows rows.
+int wg_splits(int N, int d) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int mw[4] = {3 * d, d, d, d};
+  const int jobs = wg_tiles(mw, d) + 3;
+  int splits = 2 * sms / jobs;
+  const int max_splits = (N + 4 * kWgRows - 1) / (4 * kWgRows);
+  splits = splits > max_splits ? max_splits : splits;
+  return splits < 1 ? 1 : splits;
+}
+
+size_t workspace_floats(int B, int L, int d, int n_layers, int splits) {
+  size_t total = 0;
+  take_temps(nullptr, (size_t)B * L, d,
+             (size_t)splits * grad_offsets(d, n_layers).total, &total);
+  return total;
+}
+
+cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
+                    const float* lnf_s, float* dx, float* grads,
+                    float* workspace, int splits, int B, int L, int d,
+                    int n_head, int n_layers, drop::Dropout dr,
+                    cudaStream_t s) {
+  const size_t N = (size_t)B * L;
+  const int n = static_cast<int>(N);
+  const GradOff go = grad_offsets(d, n_layers);
+  const SavedLayout so = saved_layout(N, d, n_head, L, n_layers);
+  const Temps t = take_temps(workspace, N, d, (size_t)splits * go.total,
+                             nullptr);
+  const int nt = width_tile(d);
+  drop::Dropout off = dr;
+  off.on = 0;
+  const size_t s_qkv = (size_t)d * 3 * d, s_dd = (size_t)d * d;
+  const int att_smem = (L * (3 * d + 1) + L * d + 2 * L * L) * 4;
+  TRY(prepare());
+  auto layer = [&](int li, size_t off_in_layer) {
+    return saved + so.layers + li * so.per_layer + off_in_layer;
+  };
+
+  float* gcur = t.ga;
+  float* gnext = t.gb;
+  TRY(ln_bwd(gout, saved + so.xhat_f, saved + so.rstd_f, lnf_s, gcur,
+             nullptr, n, d, off, 0, s));
+  for (int li = n_layers - 1; li >= 0; --li) {
+    const float* xin = li ? layer(li - 1, so.l.xnext) : saved + so.xin0;
+    // LN2: z2 = y1 + drop(fd·W2 + b2)
+    float* dg2 = dr.on ? t.dg2 : t.dz2;
+    TRY(ln_bwd(gcur, layer(li, so.l.xhat2), layer(li, so.l.rstd2),
+               l0.ln2_s + li * d, t.dz2, dr.on ? t.dg2 : nullptr, n, d, dr,
+               dr.key(drop::kFfnOut, li), s));
+    GemmArgs g5{};
+    g5.a = dg2; g5.w = l0.w_ff2 + li * s_dd; g5.c = t.df; g5.n = n; g5.k = d;
+    g5.m = d; g5.epi = kDrelu; g5.aux = layer(li, so.l.fr);
+    g5.dr = dr; g5.key = dr.key(drop::kFfnRelu, li);
+    TRY(launch_gemm(g5, nt, s));
+    GemmArgs g6{};
+    g6.a = t.df; g6.w = l0.w_ff1 + li * s_dd; g6.c = t.dy1; g6.n = n;
+    g6.k = d; g6.m = d; g6.epi = kRes; g6.res = t.dz2; g6.dr = off;
+    TRY(launch_gemm(g6, nt, s));
+    // LN1: z1 = x_in + drop(o·W_out + b_out)
+    float* da = dr.on ? t.da : t.dz1;
+    TRY(ln_bwd(t.dy1, layer(li, so.l.xhat1), layer(li, so.l.rstd1),
+               l0.ln1_s + li * d, t.dz1, dr.on ? t.da : nullptr, n, d, dr,
+               dr.key(drop::kAttnOut, li), s));
+    GemmArgs g7{};
+    g7.a = da; g7.w = l0.w_out + li * s_dd; g7.c = t.d_o; g7.n = n; g7.k = d;
+    g7.m = d; g7.epi = kStore; g7.dr = off;
+    TRY(launch_gemm(g7, nt, s));
+    attn_bwd_kernel<<<B, kThreads, att_smem, s>>>(
+        layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, n, L, d,
+        n_head, dr, dr.key(drop::kProbs, li));
+    TRY(cudaGetLastError());
+    // dx of the layer: dz1 + dqkv·Wqkvᵀ, through the input dropout below
+    // the first layer
+    GemmArgs g8{};
+    g8.a = t.dqkv; g8.w = l0.w_qkv + li * s_qkv; g8.c = li ? gnext : dx;
+    g8.n = n; g8.k = 3 * d; g8.m = d; g8.epi = kRes; g8.res = t.dz1;
+    g8.dr = li ? off : dr; g8.key = dr.key(drop::kInput, 0);
+    TRY(launch_gemm(g8, nt, s));
+
+    WgArgs w{};
+    const float* xs[4] = {xin, layer(li, so.l.o), layer(li, so.l.y1),
+                          layer(li, so.l.fd)};
+    const float* ys[4] = {t.dqkv, da, t.df, dg2};
+    const size_t ow[4] = {go.w_qkv + li * s_qkv, go.w_out + li * s_dd,
+                          go.w_ff1 + li * s_dd, go.w_ff2 + li * s_dd};
+    const size_t ob[4] = {go.b_qkv + (size_t)li * 3 * d,
+                          go.b_out + (size_t)li * d, go.b_ff1 + (size_t)li * d,
+                          go.b_ff2 + (size_t)li * d};
+    for (int p = 0; p < 4; ++p) {
+      w.x[p] = xs[p];
+      w.y[p] = ys[p];
+      w.mw[p] = p == 0 ? 3 * d : d;
+      w.off_w[p] = ow[p];
+      w.off_b[p] = ob[p];
+    }
+    w.lg[0] = t.dy1; w.lx[0] = layer(li, so.l.xhat1);
+    w.off_ls[0] = go.ln1_s + (size_t)li * d;
+    w.off_lb[0] = go.ln1_b + (size_t)li * d;
+    w.lg[1] = gcur; w.lx[1] = layer(li, so.l.xhat2);
+    w.off_ls[1] = go.ln2_s + (size_t)li * d;
+    w.off_lb[1] = go.ln2_b + (size_t)li * d;
+    w.n_ln = 2;
+    if (li == n_layers - 1) {
+      w.lg[2] = gout; w.lx[2] = saved + so.xhat_f;
+      w.off_ls[2] = go.lnf_s; w.off_lb[2] = go.lnf_b;
+      w.n_ln = 3;
+    }
+    w.part = t.part; w.total = go.total; w.n = n; w.d = d;
+    const int per0 = (n + splits - 1) / splits;
+    w.per = (per0 + kWgRows - 1) / kWgRows * kWgRows;
+    wgrad_kernel<<<dim3(wg_tiles(w.mw, d) + w.n_ln, splits), kWgThreads,
+                   kWgSmem, s>>>(w);
+    TRY(cudaGetLastError());
+    float* tmp = gcur;
+    gcur = gnext;
+    gnext = tmp;
+  }
+  sum_partials_kernel<<<(int)((go.total + 255) / 256), 256, 0, s>>>(
+      t.part, splits, go.total, grads);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The backward's grid for B sequences of length L at width d: one block per
-// SM, or one per row tile when there are fewer tiles.
+// The weight gradients' row splits for B sequences of length L at width d.
 extern "C" int encoder_bwd_grid(int B, int L, int d) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int S = bwd_rows(d) / L;
-  const int tiles = (B + S - 1) / S;
-  return tiles < sms ? tiles : sms;
+  return wg_splits(B * L, d);
 }
 
-// Floats of the workspace the backward needs: per block, the saved
-// activations of its rows and its gradient partial.
-extern "C" long long encoder_bwd_workspace_floats(int d, int n_head, int L,
+// Floats of the workspace the backward needs: its working buffers for all
+// B·L rows and the weight-gradient partials of `grid` row splits.
+extern "C" long long encoder_bwd_workspace_floats(int B, int L, int d,
                                                   int n_layers, int grid) {
-  return (long long)grid * (save_floats(d, n_head, L, n_layers) +
-                            grad_offsets(d, n_layers).total);
+  return (long long)workspace_floats(B, L, d, n_layers, grid);
 }
 
 // Floats of the flat gradient buffer (grad_offsets: the stacked layer
@@ -552,41 +782,27 @@ extern "C" long long encoder_bwd_grad_floats(int d, int n_layers) {
   return (long long)grad_offsets(d, n_layers).total;
 }
 
-// Same weights, shapes and requirements as encoder_fwd_f32; gout the
-// gradient of the tower's output, dx [B, L, d] out, grads the flat buffer,
-// workspace of encoder_bwd_workspace_floats for `grid` blocks.  The dropout
-// arguments must be those of the forward launch.  Returns
+// The backward of the training forward encoder_fwd_f32 that wrote `saved`
+// (encoder_saved_floats, with the same weights, shapes and dropout
+// arguments): gout the gradient of the tower's output, dx [B, L, d] out,
+// grads the flat buffer, workspace of encoder_bwd_workspace_floats for
+// `grid` row splits (all pointers 16-byte aligned).  Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int encoder_bwd_f32(
-    const float* x, const int* seq, const float* gout, const float* w_qkv,
+    const float* saved, const float* gout, const float* w_qkv,
     const float* b_qkv, const float* w_out, const float* b_out,
     const float* w_ff1, const float* b_ff1, const float* w_ff2,
     const float* b_ff2, const float* ln1_s, const float* ln1_b,
     const float* ln2_s, const float* ln2_b, const float* lnf_s,
     const float* lnf_b, float* dx, float* grads, float* workspace, int grid,
-    int B, int L, int d, int n_head, int n_layers, int idx_pad, int invert,
-    int drop_on, unsigned drop_thr, float drop_div, unsigned seed,
-    int tower_id, void* stream) {
-  const int smem = smem_bytes(d);
-  auto kernel = d <= 64    ? encoder_bwd_kernel<2, bwd_rows(64)>
-                : d <= 128 ? encoder_bwd_kernel<4, bwd_rows(128)>
-                           : encoder_bwd_kernel<8, bwd_rows(256)>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
-           ln1_s, ln1_b, ln2_s, ln2_b};
-  const size_t saved = (size_t)grid * save_floats(d, n_head, L, n_layers);
-  float* part = workspace + saved;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<grid, kThreads, smem, s>>>(
-      x, seq, gout, l0, (size_t)d * 3 * d, (size_t)d * d, n_layers, lnf_s,
-      lnf_b, dx, workspace, part, B, L, d, n_head, idx_pad, invert,
-      drop::Dropout{drop_on, drop_thr, drop_div, seed, tower_id});
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t total = grad_offsets(d, n_layers).total;
-  sum_partials_kernel<<<(int)((total + 255) / 256), 256, 0, s>>>(
-      part, grid, total, grads);
-  return static_cast<int>(cudaGetLastError());
+    int B, int L, int d, int n_head, int n_layers, int drop_on,
+    unsigned drop_thr, float drop_div, unsigned seed, int tower_id,
+    void* stream) {
+  (void)lnf_b;
+  const Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
+                 ln1_s, ln1_b, ln2_s, ln2_b};
+  return static_cast<int>(run_bwd(
+      saved, gout, l0, lnf_s, dx, grads, workspace, grid, B, L, d, n_head,
+      n_layers, drop::Dropout{drop_on, drop_thr, drop_div, seed, tower_id},
+      static_cast<cudaStream_t>(stream)));
 }

@@ -1,6 +1,7 @@
-// Building blocks of the fused tower kernels (encoder.cu forward,
-// encoder_bwd.cu backward): a block of kThreads threads holds a tile of
-// rows in shared memory and streams weights from L2 in 32x64 tiles.
+// Building blocks of the fused tower forward (encoder.cu): a block of
+// kThreads threads holds a tile of rows in shared memory and streams
+// weights from L2 in 32x64 tiles.  The saved-activation layout, kNeg and
+// kLnEps are shared with the backward (encoder_bwd.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +21,67 @@ struct Layer {
   const float *w_qkv, *b_qkv, *w_out, *b_out, *w_ff1, *b_ff1, *w_ff2, *b_ff2;
   const float *ln1_s, *ln1_b, *ln2_s, *ln2_b;
 };
+
+// What the forward saves for the backward in training (encoder.cu writes
+// it, encoder_bwd.cu reads it): every layer's activations for all N = B·L
+// rows of the tower call, dense (row stride d, or 3·d for qkv; p is
+// [head][row][key]).  Offsets in floats, each buffer on 256 bytes.
+struct SavedLayer {
+  size_t qkv, p, o, y1, xhat1, rstd1, fr, fd, xnext, xhat2, rstd2;
+};
+
+struct SavedLayout {
+  size_t xin0;        // the first layer's input, after the input dropout
+  size_t layers;      // layer li at layers + li·per_layer + SavedLayer
+  size_t per_layer;
+  SavedLayer l;       // qkv; pre-dropout probabilities p; attention out o;
+                      // LN1 out y1, xhat1, 1/std; relu(f) before and after
+                      // dropout; LN2 out, xhat2, 1/std
+  size_t xhat_f, rstd_f, total;   // the final LN's xhat and 1/std
+};
+
+// The offset of a buffer of n floats at `at`, which moves past it.
+__host__ __device__ inline size_t take(size_t& at, size_t n) {
+  const size_t o = at;
+  at += (n + 63) & ~size_t(63);
+  return o;
+}
+
+__host__ __device__ inline SavedLayout saved_layout(size_t N, int d,
+                                                   int n_head, int L,
+                                                   int n_layers) {
+  SavedLayout s;
+  size_t at = 0;
+  s.xin0 = take(at, N * d);
+  s.layers = at;
+  at = 0;
+  s.l.qkv = take(at, 3 * N * d);
+  s.l.p = take(at, (size_t)n_head * N * L);
+  s.l.o = take(at, N * d);
+  s.l.y1 = take(at, N * d);
+  s.l.xhat1 = take(at, N * d);
+  s.l.rstd1 = take(at, N);
+  s.l.fr = take(at, N * d);
+  s.l.fd = take(at, N * d);
+  s.l.xnext = take(at, N * d);
+  s.l.xhat2 = take(at, N * d);
+  s.l.rstd2 = take(at, N);
+  s.per_layer = at;
+  at = s.layers + (size_t)n_layers * s.per_layer;
+  s.xhat_f = take(at, N * d);
+  s.rstd_f = take(at, N);
+  s.total = at;
+  return s;
+}
+
+// dst[r·n + c] = src[r·lds + c] for r < R, c < n: a block's rows of a
+// shared buffer into the saved activations.  No barrier: a thread reads
+// the elements that drop_rows and the element loops give it.
+__device__ __forceinline__ void save_rows(float* dst, const float* src,
+                                          int lds, int R, int n) {
+  for (int v = threadIdx.x; v < R * n; v += kThreads)
+    dst[v] = src[(v / n) * lds + v % n];
+}
 
 // Issues an L2 prefetch for each 128-byte line of p[0, n), spread over all
 // threads of the grid.
@@ -45,10 +107,13 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // C[r, m] = act(sum_k A[r, k] W[k, m] + b[m]) for the 16·RPT rows of a block.
 // A, C in shared memory (row strides lda, ldc); W [K, M] row-major in global
-// memory.  K % 32 == 0, M % 32 == 0.  Thread (ty, tx) owns rows
-// ty*RPT..+RPT-1 and columns m0 + tx*4..+3 of each 64-column chunk; when
-// M % 64 == 32 the last chunk's right half is zero in the tile and not
-// written.  The sum over k runs in order, one FMA a step.
+// memory.  K % 8 == 0, M % 8 == 0.  Thread (ty, tx) owns rows
+// ty*RPT..+RPT-1 and columns m0 + tx*4..+3 of each 64-column chunk; the
+// last chunk's columns past M are zero in the tile and not written.  A
+// ragged last k chunk (K % 32 != 0) has zero weight rows past K, so the A
+// values read there (up to 28 floats past a row's K: its padding and the
+// next row's, all finite, since the buffers are zeroed at the start) add
+// nothing.  The sum over k runs in order, one FMA a step.
 template <int RPT>
 __device__ void gemm(const float* A, int lda, const float* __restrict__ W,
                      const float* __restrict__ bias, int K, int M, float* C,
@@ -68,7 +133,7 @@ __device__ void gemm(const float* A, int lda, const float* __restrict__ W,
         const int r = v / (kTileM / 4);
         const int c4 = v % (kTileM / 4);
         float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (m0 + c4 * 4 < M)
+        if (k0 + r < K && m0 + c4 * 4 < M)
           w4 = __ldg(reinterpret_cast<const float4*>(
                          W + (size_t)(k0 + r) * M + m0) + c4);
         reinterpret_cast<float4*>(wt)[v] = w4;
@@ -99,64 +164,6 @@ __device__ void gemm(const float* A, int lda, const float* __restrict__ W,
           C[(ty * RPT + i) * ldc + m] = v;
         }
       }
-    }
-  }
-  __syncthreads();
-}
-
-// C[r, k] (+)= sum_m A[r, m] W[k, m]: the product with W's transpose, for the
-// backward.  W [K, M] row-major in global memory, K % 32 == 0, M % 32 == 0;
-// a 64x32 tile of W is staged transposed in shared memory (its rows past K
-// zero when K % 64 == 32, and their columns of C not written).
-template <int RPT>
-__device__ void gemm_nt(const float* A, int lda, const float* __restrict__ W,
-                        int K, int M, float* C, int ldc, bool accumulate,
-                        float* wt) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  for (int k0 = 0; k0 < K; k0 += kTileM) {
-    float acc[RPT][4];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int m0 = 0; m0 < M; m0 += kTileK) {
-      __syncthreads();
-      for (int v = tid; v < kTileM * kTileK / 4; v += kThreads) {
-        const int kk = v / (kTileK / 4);
-        const int m4 = v % (kTileK / 4);
-        float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k0 + kk < K)
-          w = __ldg(reinterpret_cast<const float4*>(
-                        W + (size_t)(k0 + kk) * M + m0) + m4);
-        wt[(m4 * 4 + 0) * kTileM + kk] = w.x;
-        wt[(m4 * 4 + 1) * kTileM + kk] = w.y;
-        wt[(m4 * 4 + 2) * kTileM + kk] = w.z;
-        wt[(m4 * 4 + 3) * kTileM + kk] = w.w;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int mm = 0; mm < kTileK; ++mm) {
-        const float4 w = reinterpret_cast<const float4*>(wt + mm * kTileM)[tx];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float a = A[(ty * RPT + i) * lda + m0 + mm];
-          acc[i][0] = fmaf(a, w.x, acc[i][0]);
-          acc[i][1] = fmaf(a, w.y, acc[i][1]);
-          acc[i][2] = fmaf(a, w.z, acc[i][2]);
-          acc[i][3] = fmaf(a, w.w, acc[i][3]);
-        }
-      }
-    }
-    if (k0 + tx * 4 < K) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float* c = C + (ty * RPT + i) * ldc + k0 + tx * 4 + j;
-          *c = accumulate ? *c + acc[i][j] : acc[i][j];
-        }
     }
   }
   __syncthreads();

@@ -2,6 +2,8 @@
 """Quickest proof that the PyTorch port starts and is right on an NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare OTHER   # train rate against OTHER/'s
+                                            # c2dsr_tpu_torch, in turns
 
 Needs one CUDA card, ``nvcc`` and the ``c2dsr_tpu_torch`` package beside
 this file; it builds the CUDA kernels from ``c2dsr_tpu_torch/csrc`` itself.
@@ -12,12 +14,15 @@ Phases (any failure exits non-zero without the final line):
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the main paths' shapes, and time kernel, plain version and one
    PyTorch library call (a yardstick the port never calls): the SpMM over A
-   and over Aᵀ, the encoder forward in eval and in train mode and its
-   backward (at dropout 0 and 0.2), the CE forward and backward (K5 also
-   bitwise against a second launch, its dh and dW kernels timed apart,
-   with the FP32 FFMA and the 3xTF32 tensor-core bounds).  Then the wider
-   shapes: K2 and K3 at d 32, 96, 160 and 256 (L up to 30, 16 above d
-   128), K4 and K5 at d 256.
+   and over Aᵀ, the encoder forward in eval and in train mode (saving the
+   activations the backward reads) and its backward (at dropout 0 and 0.2;
+   K3 against the plain version at K2's ReLU branches, and bitwise against
+   a second launch, with its kernel launches a tower call and its backward
+   and weight-gradient parts profiled), the CE forward and backward (both
+   also bitwise against a second launch, their kernels timed apart, with
+   the FP32 FFMA and the 3xTF32 tensor-core bounds).  Then the wider
+   shapes: K2 and K3 at d 32, 40, 96, 160 and 256 (L up to 30 at every
+   width), K4 and K5 at d 256 and 40.
 3. serving path: the ranking path at Food-Kitchen geometry with the
    default Config and random seeded weights: convolve once, then rank the
    eval split in sampled and in full mode.  Every serving kernel must
@@ -27,9 +32,11 @@ Phases (any failure exits non-zero without the final line):
    Config (batch 512, dropout 0.2) on the synthetic train split: the loss
    must stay finite and fall, every kernel must launch its expected count a
    step, and one step at dropout 0 must give the plain versions' loss and
-   gradients; then train examples/s in turns with the plain versions, and
-   one profiled step.  Then three steps with ``d_latent=256`` at dropout
-   0, each first held against the plain versions (loss and gradients).
+   gradients (the plain versions taken at K2's ReLU branches, relu_at;
+   the comparison at their own branches is logged); then train examples/s
+   in turns with the plain versions, and one profiled step.  Then three
+   steps with ``d_latent=256`` at dropout 0, the third at ``len_max=30``,
+   each first held against the plain versions (loss and gradients).
 5. experiment path: ``train.loop.Experiment`` at Food-Kitchen geometry
    with ``Config(batch_sparse_gnn=True, n_epoch=2)``, checkpointing to a
    temporary directory: finite losses and metrics, the batch-sparse SpMM
@@ -37,8 +44,9 @@ Phases (any failure exits non-zero without the final line):
    convolve, the checkpoint written and a resumed run finished; one step
    at dropout 0 with the flags on and off gives the same loss and
    gradients; warm train examples/s with the flags on and off, in turns.
-6. CLI: ``python -m c2dsr_tpu_torch.cli --synthetic 2000 --n_epoch 1`` in a
-   temporary directory exits 0 and prints the final result table.
+6. CLI: ``python -m c2dsr_tpu_torch.cli --synthetic 2000 --n_epoch 1``,
+   and again with ``--d_latent 40``, each in a temporary directory, exits
+   0 and prints the final result table.
 7. summary: one JSON line of kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -146,6 +154,12 @@ class Timer:
         return float(np.median(times))
 
 
+def _ignore_saved(fn):
+    """A plain tower version called as its kernel wrapper is: the kernels'
+    saved-activation buffer is passed and ignored."""
+    return lambda *args, saved=None, **kw: fn(*args, **kw)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route CUDA tensors through the plain PyTorch versions instead of the
@@ -155,8 +169,10 @@ def plain_versions():
                                      spmm, spmm_cuda)
     swaps = [(spmm_cuda, "spmm_csr", spmm.spmm_reference),
              (spmm_cuda, "spmm_csr_flagged", spmm.spmm_reference_flagged),
-             (encoder_cuda, "encoder_fwd", enc.encoder_fwd_plain),
-             (encoder_cuda, "encoder_bwd", enc.encoder_bwd_plain),
+             (encoder_cuda, "encoder_fwd",
+              _ignore_saved(enc.encoder_fwd_plain)),
+             (encoder_cuda, "encoder_bwd",
+              _ignore_saved(enc.encoder_bwd_plain)),
              (fused_ce_cuda, "ce_fwd", fused_ce.ce_fwd_plain),
              (fused_ce_cuda, "ce_bwd", fused_ce.ce_bwd_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
@@ -167,6 +183,91 @@ def plain_versions():
     finally:
         for (mod, name, _), fn in zip(swaps, saved):
             setattr(mod, name, fn)
+
+
+def relu_masks(saved, shape, n_head, n_layers, tower):
+    """{(tower, layer): K2's ReLU mask} from a saved-activation buffer."""
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    views = encoder_cuda.saved_views(saved, shape, n_head, n_layers)
+    return {(tower, li): (lv["fr"] > 0).float()
+            for li, lv in enumerate(views["layers"])}
+
+
+@contextlib.contextmanager
+def recording_relu_masks(store):
+    """The kernels as they are, with K2's ReLU masks of every training tower
+    call recorded into ``store`` by (tower, layer)."""
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    fwd = encoder_cuda.encoder_fwd
+
+    def recording(x, seq, params, *, saved=None, **kw):
+        out = fwd(x, seq, params, saved=saved, **kw)
+        if saved is not None:
+            store.update(relu_masks(saved, x.shape, kw["n_head"],
+                                    params["layers"]["w_qkv"].shape[0],
+                                    kw["tower"]))
+        return out
+
+    # the wrapper counts its launches on the module's name: carry the count
+    recording.launches = fwd.launches
+    encoder_cuda.encoder_fwd = recording
+    try:
+        yield
+    finally:
+        fwd.launches = recording.launches
+        encoder_cuda.encoder_fwd = fwd
+
+
+@contextlib.contextmanager
+def relu_at(masks):
+    """The plain tower's ReLU taken at the kernel forward's branches: each
+    layer multiplies by K2's mask for its (tower, layer) instead.  Where a
+    ReLU input sits at zero, K2 (FFMA) and the plain forward (cuBLAS) can
+    round it to opposite signs; the forwards then agree to rounding but the
+    gradients differ by a whole row through that unit (one in 3.9 million
+    at d 256, L 30).  The kernels differentiate K2's forward, so they are
+    held against the plain versions at its branches; the comparison at the
+    plain forward's own branches is logged beside."""
+    from c2dsr_tpu_torch.ops import encoder as enc
+    layer_fn, relu = enc.encoder_layer, torch.relu
+    current = {}
+
+    def layer(x, p, *, tower=0, layer=0, **kw):
+        current["mask"] = masks[(tower, layer)]
+        return layer_fn(x, p, tower=tower, layer=layer, **kw)
+
+    enc.encoder_layer = layer
+    torch.relu = lambda t: t * current["mask"]
+    try:
+        yield
+    finally:
+        enc.encoder_layer, torch.relu = layer_fn, relu
+
+
+def _k3_against_plain(x, seq, gout, p, acts, n_head, n_layers, kw, got):
+    """K3's (dx, grads) ``got`` against encoder_bwd_plain: ({tensor: max
+    abs error over max |plain|} at K2's ReLU branches, the same against the
+    plain forward's own branches, the max abs error of the former)."""
+    from c2dsr_tpu_torch.ops import encoder as enc
+    with relu_at(relu_masks(acts, x.shape, n_head, n_layers, kw["tower"])):
+        matched = enc.encoder_bwd_plain(x, seq, gout, p, **kw)
+    own = enc.encoder_bwd_plain(x, seq, gout, p, **kw)
+    names = ("dx",) + enc._NAMES + ("lnf_scale", "lnf_bias")
+    rels, rels_own, abs_err = {}, {}, 0.0
+    for name, g, m, o in zip(names, [got[0]] + list(got[1]),
+                             [matched[0]] + list(matched[1]),
+                             [own[0]] + list(own[1])):
+        rels[name] = _rel(g, m)
+        rels_own[name] = _rel(g, o)
+        abs_err = max(abs_err, float((g - m).abs().max()))
+    return rels, rels_own, abs_err
+
+
+@contextlib.contextmanager
+def plain_versions_at(masks):
+    """plain_versions() at the kernel forward's ReLU branches (relu_at)."""
+    with plain_versions(), relu_at(masks):
+        yield
 
 
 def kernel_wrappers():
@@ -375,10 +476,31 @@ def near_ties(params, hi, data, cfg, spec, mode):
     return out
 
 
+# the CUDA kernels of each wrapper, by name (first match wins): K3 is a
+# sequence of kernels, and K4 and K5 share the transpose pre-pass
+KERNEL_FAMILIES = (
+    ("K1/K6 spmm", ("spmm",)),
+    ("K2 encoder_fwd", ("encoder_fwd_kernel",)),
+    ("K3 encoder_bwd", ("tc_gemm_kernel", "attn_bwd_kernel",
+                        "ln_bwd_kernel", "wgrad_kernel",
+                        "sum_partials_kernel")),
+    ("K4/K5 pre-pass", ("transpose_split_kernel",)),
+    ("K4 ce_fwd", ("ce_fwd_kernel", "ce_fwd_merge_kernel")),
+    ("K5 ce_bwd", ("ce_bwd_kernel", "ce_merge_kernel", "split_kernel")),
+)
+
+
+def kernel_family(name: str):
+    for family, parts in KERNEL_FAMILIES:
+        if any(part in name for part in parts):
+            return family
+    return None
+
+
 def profile_main_path(run_all, label="profile"):
     """Where a main path's time goes: one warm run under torch.profiler;
-    device time by kernel, and the device's idle share of the run's wall
-    time."""
+    device time by kernel and by kernel family (KERNEL_FAMILIES), and the
+    device's idle share of the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -402,6 +524,15 @@ def profile_main_path(run_all, label="profile"):
     for dev_us, count, key in sorted(rows, reverse=True)[:14]:
         log(f"{label}:   {dev_us / 1e3:9.3f} ms {dev_us / busy_us:6.1%} "
             f"x{count:<5d} {key[:90]}")
+    fam = {}
+    for dev_us, count, key in rows:
+        f = kernel_family(key)
+        if f:
+            us, n = fam.get(f, (0.0, 0))
+            fam[f] = (us + dev_us, n + count)
+    log(f"{label}: by kernel: " + "; ".join(
+        f"{f} {us / 1e3:.3f} ms ({us / busy_us:.1%}, {n} launches)"
+        for f, (us, n) in sorted(fam.items(), key=lambda kv: -kv[1][0])))
 
 
 def phase_main(spec, graphs_host, data):
@@ -541,20 +672,38 @@ def _rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def _k3_parts(times):
+    """K3's profiled device ms a call, by part: the backward walk
+    (LayerNorm backward, the GEMMs, attention backward) and the weight
+    gradients (the row-split kernel and the ordered merge)."""
+    out = {"backward": 0.0, "weight_grads": 0.0}
+    for name, ms in times.items():
+        part = ("weight_grads" if "wgrad" in name or "sum_partials" in name
+                else "backward")
+        out[part] += ms
+    return out
+
+
 def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
     """K2 in train mode and K3 at the three tower segments of a train step
     (shared 3B, A B, B B at B = 512), dropout 0 and 0.2, against the plain
-    tower and its autograd; timed at 0.2 and summed over the segments."""
+    tower and its autograd, K3 also against a second launch (bitwise);
+    timed at 0.2 and summed over the segments.  K2's ``bound_ms`` is the
+    FP32 FFMA bound (its design), K3's the 3xTF32 tensor-core one, each with
+    the other beside it."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
     from c2dsr_tpu_torch.ops import encoder_cuda
     d, L, pad, B = 128, LEN_MAX, 64093, 512
     cfg = Config()
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms")
-    fwd = dict.fromkeys(keys, 0.0)
-    bwd = dict.fromkeys(keys, 0.0)
+    f_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms")
+    b_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ffma_ms")
+    fwd = dict.fromkeys(f_keys, 0.0)
+    bwd = dict.fromkeys(b_keys, 0.0)
     fwd["max_abs_err"] = bwd["max_abs_err"] = bwd["max_rel_err"] = 0.0
+    parts = bwd["kernels_ms"] = {}
+    launches = bwd["launches_per_call"] = {}
     causal = torch.triu(torch.ones(L, L, dtype=torch.bool, device="cuda"), 1)
     for tower_id, n_seq in ((0, 3 * B), (1, B), (2, B)):
         p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
@@ -565,27 +714,35 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
         for dropout in (0.0, 0.2):
             kw = dict(idx_pad=pad, n_head=1, invert_padding_mask=False,
                       dropout=dropout, seed=1234, tower=tower_id)
+            acts = encoder_cuda.saved_buffer(x, 1, 1)
             with torch.no_grad():
-                out = encoder_cuda.encoder_fwd(x, seq, p, **kw)
+                out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw)
                 ref = enc.encoder_fwd_plain(x, seq, p, **kw)
-            dx, grads = encoder_cuda.encoder_bwd(x, seq, gout, p, **kw)
-            rdx, rgrads = enc.encoder_bwd_plain(x, seq, gout, p, **kw)
+            dx, grads = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts,
+                                                 **kw)
+            dx2, grads2 = encoder_cuda.encoder_bwd(x, seq, gout, p,
+                                                   saved=acts, **kw)
+            rels, rels_own, abs_err = _k3_against_plain(
+                x, seq, gout, p, acts, 1, 1, kw, (dx, grads))
             torch.cuda.synchronize()
             err_f = float((out - ref).abs().max())
             check(bool(torch.isfinite(out).all() and torch.isfinite(dx).all()),
                   f"encoder train tower {tower_id}: non-finite")
             check(err_f <= ENCODER_TOL, f"encoder_fwd train tower {tower_id} "
                   f"p={dropout}: max abs err {err_f} > {ENCODER_TOL}")
-            rels = {"dx": _rel(dx, rdx)}
-            abs_err = float((dx - rdx).abs().max())
-            for name, g, r in zip(enc._NAMES + ("lnf_scale", "lnf_bias"),
-                                  grads, rgrads):
-                rels[name] = _rel(g, r)
-                abs_err = max(abs_err, float((g - r).abs().max()))
+            check(torch.equal(dx, dx2) and all(
+                torch.equal(g, g2) for g, g2 in zip(grads, grads2)),
+                f"encoder_bwd tower {tower_id} p={dropout}: two launches "
+                "differ")
             worst = max(rels, key=rels.get)
+            worst_own = max(rels_own, key=rels_own.get)
             log(f"encoder train tower {tower_id} B={n_seq} p={dropout}: "
                 f"fwd max abs err {err_f:.3e}; bwd max abs err {abs_err:.3e},"
-                f" worst relative {rels[worst]:.3e} ({worst})")
+                f" worst relative {rels[worst]:.3e} ({worst}) at K2's ReLU "
+                f"branches, {rels_own[worst_own]:.3e} ({worst_own}) at the "
+                "plain forward's; two backward launches bitwise equal")
+            bwd["max_rel_err_own_branches"] = max(
+                bwd.get("max_rel_err_own_branches", 0.0), rels_own[worst_own])
             check(rels[worst] <= GRAD_TOL, f"encoder_bwd tower {tower_id} "
                   f"p={dropout}: {worst} relative err {rels[worst]} > "
                   f"{GRAD_TOL}")
@@ -597,20 +754,34 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
         kpm = seq == pad
         xg = x.clone().requires_grad_(True)
         lib_params = [xg] + list(tower.parameters())
+        # K2 as a train step runs it, saving the activations K3 reads
         with torch.no_grad():
-            f_ms = timer(lambda: encoder_cuda.encoder_fwd(x, seq, p, **kw))
+            f_ms = timer(lambda: encoder_cuda.encoder_fwd(x, seq, p,
+                                                          saved=acts, **kw))
+            f_nosave = timer(lambda: encoder_cuda.encoder_fwd(x, seq, p,
+                                                              **kw))
             f_plain = timer(lambda: enc.encoder_fwd_plain(x, seq, p, **kw))
             f_lib = timer(lambda: tower(x, mask=causal,
                                         src_key_padding_mask=kpm))
-        b_ms = timer(lambda: encoder_cuda.encoder_bwd(x, seq, gout, p, **kw))
+        b_ms = timer(lambda: encoder_cuda.encoder_bwd(x, seq, gout, p,
+                                                      saved=acts, **kw))
         b_plain = timer(lambda: enc.encoder_bwd_plain(x, seq, gout, p, **kw))
         b_lib = timer(lambda: torch.autograd.grad(
             tower(xg, mask=causal, src_key_padding_mask=kpm), lib_params,
             gout))
+        times, counts = kernel_times(
+            lambda: encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts,
+                                             **kw))
+        fwd["ms_without_saving"] = fwd.get("ms_without_saving", 0.0) + f_nosave
+        n_launch = int(round(sum(counts.values())))
+        launches[f"tower {tower_id}"] = n_launch
+        k3 = _k3_parts(times)
+        for k, v in k3.items():
+            parts[k] = parts.get(k, 0.0) + v
         N = n_seq * L
         w_bytes = 4 * (6 * d * d + 10 * d + 2 * d)
         f_flops = 12 * N * d * d + 4 * N * L * d
-        b_flops = 24 * N * d * d + 8 * N * L * d      # recompute-free
+        b_flops = 24 * N * d * d + 8 * N * L * d
         f_bytes = 8 * N * d + 4 * N + w_bytes
         b_bytes = 12 * N * d + 4 * N + 2 * w_bytes
         f_bound = max(f_flops / peak_flops, f_bytes / peak_bw) * 1e3
@@ -619,27 +790,34 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
         b_tc = tc_bound_ms(b_flops, b_bytes, gpu, peak_bw)
         fwd["bound_by"] = ("operations" if f_flops / peak_flops
                            >= f_bytes / peak_bw else "bytes")
-        bwd["bound_by"] = ("operations" if b_flops / peak_flops
+        bwd["bound_by"] = ("operations" if 3 * b_flops / tf32_peak(gpu)
                            >= b_bytes / peak_bw else "bytes")
         log(f"encoder train tower {tower_id} B={n_seq}: fwd kernel {f_ms:.4f} "
-            f"ms plain {f_plain:.4f} library {f_lib:.4f} bound {f_bound:.4f};"
-            f" bwd kernel {b_ms:.4f} ms plain {b_plain:.4f} library "
-            f"{b_lib:.4f} (forward + backward) bound {b_bound:.4f} "
-            f"({b_flops / b_ms / 1e9:.2f} TFLOP/s); 3xTF32 tensor-core "
-            f"bounds fwd {f_tc:.4f} bwd {b_tc:.4f}")
-        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_bound, f_tc)),
-                          (bwd, (b_ms, b_plain, b_lib, b_bound, b_tc))):
+            f"ms saving the activations ({f_nosave:.4f} without) plain "
+            f"{f_plain:.4f} library {f_lib:.4f} bound FFMA {f_bound:.4f} "
+            f"(3xTF32 {f_tc:.4f}); bwd kernel {b_ms:.4f} ms "
+            f"plain {b_plain:.4f} library {b_lib:.4f} (forward + backward) "
+            f"bound 3xTF32 tensor cores {b_tc:.4f}, FP32 FFMA {b_bound:.4f} "
+            f"({b_flops / b_ms / 1e9:.2f} TFLOP/s); {n_launch} kernel "
+            "launches a tower call; profiled device ms a call: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in k3.items())
+            + "; all: " + ", ".join(f"{k} {v:.4f} x{counts[k]:g}"
+                                    for k, v in sorted(times.items())))
+        for acc, keys, vals in (
+                (fwd, f_keys, (f_ms, f_plain, f_lib, f_bound, f_tc)),
+                (bwd, b_keys, (b_ms, b_plain, b_lib, b_tc, b_bound))):
             for k, v in zip(keys, vals):
                 acc[k] += v
     return fwd, bwd
 
 
 def kernel_times(fn, calls: int = 3):
-    """{kernel name: device ms a call} for a fn that launches the same
-    kernels each call, under torch.profiler: the total over ``calls`` calls
-    over ``calls``.  The profiler may miss the first kernels of its window,
-    so one profiled call is not enough.  Names drop the argument list and
-    the anonymous namespace, and keep template arguments."""
+    """({kernel name: device ms a call}, {kernel name: launches a call}) for
+    a fn that launches the same kernels each call, under torch.profiler:
+    the totals over ``calls`` calls over ``calls``.  The profiler may miss
+    the first kernels of its window, so one profiled call is not enough.
+    Names drop the argument list and the anonymous namespace, and keep
+    template arguments."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -647,7 +825,7 @@ def kernel_times(fn, calls: int = 3):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = {}
+    total, count = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
@@ -655,7 +833,9 @@ def kernel_times(fn, calls: int = 3):
             name = ev.key.replace("(anonymous namespace)::", "")
             name = name.split("(")[0].removeprefix("void ")
             total[name] = total.get(name, 0.0) + us / 1e3
-    return {name: ms / calls for name, ms in total.items()}
+            count[name] = count.get(name, 0) + ev.count
+    return ({name: ms / calls for name, ms in total.items()},
+            {name: n / calls for name, n in count.items()})
 
 
 def _ce_inputs(N, d, V, n_real, seed):
@@ -701,21 +881,24 @@ def _check_ce_bwd(tag, got, want, again, n_real):
 def phase_ce(timer, peak_flops, peak_bw, gpu):
     """K4 and K5 at a train step's shapes (N = 512 x 2 x len_rec rows, d 128,
     V 30,720 and 36,864), against their plain versions; summed over both
-    domains.  K5 also against a second launch (bitwise), its dh and dW
-    kernels timed apart under the profiler, with the FP32 FFMA bound and
-    the 3xTF32 tensor-core bound."""
+    domains.  Both also against a second launch (bitwise), their kernels
+    timed apart under the profiler, with the 3xTF32 tensor-core bound
+    (``bound_ms``) and the FP32 FFMA bound (``bound_ffma_ms``)."""
     from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
     N, d = 512 * 2 * 10, 128
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    fwd = dict.fromkeys(keys + ("bound_tc_ms",), 0.0)
-    bwd = dict.fromkeys(keys + ("bound_ffma_ms",), 0.0)
-    fwd["max_abs_err"] = bwd["max_abs_err"] = bwd["max_rel_err"] = 0.0
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ffma_ms")
+    fwd = dict.fromkeys(keys, 0.0)
+    bwd = dict.fromkeys(keys, 0.0)
+    fwd["max_abs_err"] = fwd["max_rel_err"] = 0.0
+    bwd["max_abs_err"] = bwd["max_rel_err"] = 0.0
+    f_kernel = fwd["kernels_ms"] = {}
     by_kernel = bwd["kernels_ms"] = {}
     for dom, V, n_real in (("A", 30720, N_ITEM_A), ("B", 36864, N_ITEM_B)):
         h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, V)
         with torch.no_grad():
             lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
             rlse, rtlog = fused_ce.ce_fwd_plain(h, w, bm, pad_l, tgt)
+            lse2, tlog2 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
             got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
             want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt)
             again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
@@ -724,13 +907,17 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
         e_t = _rel(tlog[real], rtlog[real])
         check(max(e_lse, e_t) <= CE_TOL, f"ce_fwd {dom}: rel err "
               f"{max(e_lse, e_t)} > {CE_TOL}")
+        check(torch.equal(lse, lse2) and torch.equal(tlog, tlog2),
+              f"ce_fwd {dom}: two launches differ")
         rels = _check_ce_bwd(dom, got, want, again, n_real)
         log(f"ce {dom}: N={N} d={d} V={V}: lse rel err {e_lse:.3e}, target "
-            f"logit rel err {e_t:.3e}; backward rel err "
+            f"logit rel err {e_t:.3e}, two forward launches bitwise equal; "
+            "backward rel err "
             + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
             + "; two backward launches bitwise equal")
         fwd["max_abs_err"] = max(fwd["max_abs_err"],
                                  float((lse - rlse).abs().max()))
+        fwd["max_rel_err"] = max(fwd["max_rel_err"], e_lse, e_t)
         bwd["max_abs_err"] = max(bwd["max_abs_err"], max(
             float((g - r).abs().max()) for g, r in zip(got, want)))
         bwd["max_rel_err"] = max(bwd["max_rel_err"], max(rels.values()))
@@ -746,8 +933,24 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
                                                       tgt))
             b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, w, bm, lse, dlse,
                                                           dt, tgt))
+        # K4's parts, device ms a call: its kernel, the pre-pass (Wᵀ's
+        # TF32 split) and the split merge
+        sub = kernel_times(lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l,
+                                                        tgt))[0]
+        f_parts = {"kernel": sum(v for k, v in sub.items()
+                                 if "ce_fwd_kernel" in k),
+                   "prepass": sub.get("transpose_split_kernel", 0.0),
+                   "merge": sub.get("ce_fwd_merge_kernel", 0.0)}
+        f_flops = 2 * N * V * d
+        log(f"ce {dom}: fwd device time a call under the profiler: kernel "
+            f"{f_parts['kernel']:.4f} ms "
+            f"({f_flops / f_parts['kernel'] / 1e9:.2f} TFLOP/s of "
+            "f32-accurate work, 3x that in TF32), pre-pass "
+            f"{f_parts['prepass']:.4f} ms, merge {f_parts['merge']:.4f} ms")
+        for k, v in f_parts.items():
+            f_kernel[k] = f_kernel.get(k, 0.0) + v
         sub = kernel_times(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse,
-                                                        dt, tgt))
+                                                        dt, tgt))[0]
         # K5's parts, device ms a call: dh kernel, dW/db kernel, the
         # pre-pass (Wᵀ and the TF32 splits of Wᵀ and h), the split merges
         parts = {"dh": sum(v for k, v in sub.items()
@@ -774,24 +977,28 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
                                                   retain_graph=True))
         del lib_out
         io = 4 * (N * d + d * V + V + 3 * N)
-        f_bound = max(2 * N * V * d / peak_flops, (io + 8 * N) / peak_bw) * 1e3
-        f_tc = tc_bound_ms(2 * N * V * d, io + 8 * N, gpu, peak_bw)
+        f_ffma = max(f_flops / peak_flops, (io + 8 * N) / peak_bw) * 1e3
+        f_tc = tc_bound_ms(f_flops, io + 8 * N, gpu, peak_bw)
         b_bytes = 2 * io + 4 * N * d
         b_ffma = max(4 * N * V * d / peak_flops, b_bytes / peak_bw) * 1e3
         b_tc = tc_bound_ms(4 * N * V * d, b_bytes, gpu, peak_bw)
         log(f"ce {dom}: fwd kernel {f_ms:.4f} ms plain {f_plain:.4f} library "
-            f"{f_lib:.4f} bound {f_bound:.4f} (3xTF32 tensor cores "
-            f"{f_tc:.4f}) ({2 * N * V * d / f_ms / 1e9:.2f} TFLOP/s); bwd "
+            f"{f_lib:.4f} bound 3xTF32 tensor cores {f_tc:.4f}, FP32 FFMA "
+            f"{f_ffma:.4f} ({f_flops / f_ms / 1e9:.2f} TFLOP/s); bwd "
             f"kernel {b_ms:.4f} ms plain {b_plain:.4f} library {b_lib:.4f} "
             f"bound 3xTF32 tensor cores {b_tc:.4f}, FP32 FFMA {b_ffma:.4f} "
             f"(bounds count 4·N·V·d FLOPs; "
             f"{4 * N * V * d / b_ms / 1e9:.2f} TFLOP/s of them)")
-        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_bound, f_tc)),
+        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_tc, f_ffma)),
                           (bwd, (b_ms, b_plain, b_lib, b_tc, b_ffma))):
-            for k, v in zip(keys + (("bound_tc_ms",) if acc is fwd
-                                    else ("bound_ffma_ms",)), vals):
+            for k, v in zip(keys, vals):
                 acc[k] += v
     fwd["bound_by"] = bwd["bound_by"] = "operations"
+    log(f"ce both domains: fwd kernel {fwd['ms']:.4f} ms (kernel "
+        f"{f_kernel['kernel']:.4f} + pre-pass {f_kernel['prepass']:.4f} + "
+        f"merge {f_kernel['merge']:.4f}, profiled) against library "
+        f"{fwd['library_ms']:.4f} ms; bounds 3xTF32 {fwd['bound_ms']:.4f}, "
+        f"FFMA {fwd['bound_ffma_ms']:.4f}")
     log(f"ce both domains: bwd kernel {bwd['ms']:.4f} ms (dh "
         f"{by_kernel['dh']:.4f} + dW {by_kernel['dw']:.4f} + pre-pass "
         f"{by_kernel['prepass']:.4f} + merges {by_kernel['merge']:.4f}, "
@@ -801,14 +1008,15 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
 
 
 # tower shapes beyond d 64 and 128 that K2 and K3 take: (d, n_head, L)
-WIDE_TOWERS = ((96, 2, 30), (32, 1, 30), (256, 4, 15), (160, 2, 16))
+WIDE_TOWERS = ((96, 2, 30), (32, 1, 30), (256, 4, 15), (160, 2, 16),
+               (40, 1, 30), (256, 4, 30))
 
 
 def phase_shapes():
     """K2 (eval, both mask polarities, and train) and K3 at WIDE_TOWERS,
-    dropout 0 and 0.2, two layers, and K4/K5 at d 256 (FK's rows and
-    domain A's vocab), against their plain versions; K5 also bitwise
-    against a second launch.  Returns the worst errors."""
+    dropout 0 and 0.2, two layers, and K4/K5 at d 256 and 40 (FK's rows and
+    domain A's vocab), against their plain versions; K3, K4 and K5 also
+    bitwise against a second launch.  Returns the worst errors."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
@@ -833,45 +1041,57 @@ def phase_shapes():
         for dropout in (0.0, 0.2):
             kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=False,
                       dropout=dropout, seed=5, tower=1)
+            acts = encoder_cuda.saved_buffer(x, n_head, 2)
             with torch.no_grad():
-                out = encoder_cuda.encoder_fwd(x, seq, p, **kw)
+                out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw)
                 ref = enc.encoder_fwd_plain(x, seq, p, **kw)
-            dx, grads = encoder_cuda.encoder_bwd(x, seq, gout, p, **kw)
-            rdx, rgrads = enc.encoder_bwd_plain(x, seq, gout, p, **kw)
+            dx, grads = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts,
+                                                 **kw)
+            dx2, grads2 = encoder_cuda.encoder_bwd(x, seq, gout, p,
+                                                   saved=acts, **kw)
+            rels, rels_own, _ = _k3_against_plain(
+                x, seq, gout, p, acts, n_head, 2, kw, (dx, grads))
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all() and torch.isfinite(dx).all()),
                   f"encoder {tag}: non-finite")
+            check(torch.equal(dx, dx2) and all(
+                torch.equal(g, g2) for g, g2 in zip(grads, grads2)),
+                f"encoder_bwd {tag} p={dropout}: two launches differ")
             err_f = float((out - ref).abs().max())
-            rels = {"dx": _rel(dx, rdx)}
-            for wname, g, r in zip(enc._NAMES + ("lnf_scale", "lnf_bias"),
-                                   grads, rgrads):
-                rels[wname] = _rel(g, r)
             bad = max(rels, key=rels.get)
+            own = max(rels_own, key=rels_own.get)
             log(f"shapes: encoder {tag} p={dropout}: fwd max abs err "
                 f"{max(err_f, err_i):.3e}; bwd worst relative "
-                f"{rels[bad]:.3e} ({bad})")
+                f"{rels[bad]:.3e} ({bad}) at K2's ReLU branches, "
+                f"{rels_own[own]:.3e} ({own}) at the plain forward's")
             check(err_f <= ENCODER_TOL, f"encoder_fwd {tag} p={dropout}: max "
                   f"abs err {err_f} > {ENCODER_TOL}")
             check(rels[bad] <= GRAD_TOL, f"encoder_bwd {tag} p={dropout}: "
                   f"{bad} relative err {rels[bad]} > {GRAD_TOL}")
             worst["encoder_fwd"] = max(worst["encoder_fwd"], err_f, err_i)
             worst["encoder_bwd"] = max(worst["encoder_bwd"], rels[bad])
-    N, d, V, n_real = 512 * 2 * 10, 256, 30720, N_ITEM_A
-    h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, 256)
-    with torch.no_grad():
-        lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
-        rlse, rtlog = fused_ce.ce_fwd_plain(h, w, bm, pad_l, tgt)
-        got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
-        want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt)
-        again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
-    torch.cuda.synchronize()
-    e_f = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
-    check(e_f <= CE_TOL, f"ce_fwd d=256: rel err {e_f} > {CE_TOL}")
-    rels = _check_ce_bwd("d=256", got, want, again, n_real)
-    log(f"shapes: ce N={N} d={d} V={V}: fwd rel err {e_f:.3e}; bwd rel err "
-        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-        + "; two backward launches bitwise equal")
-    worst["ce_fwd"], worst["ce_bwd"] = e_f, max(rels.values())
+    worst["ce_fwd"] = worst["ce_bwd"] = 0.0
+    N, V, n_real = 512 * 2 * 10, 30720, N_ITEM_A
+    for d in (256, 40):
+        h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, d)
+        with torch.no_grad():
+            lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+            rlse, rtlog = fused_ce.ce_fwd_plain(h, w, bm, pad_l, tgt)
+            lse2, tlog2 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+            got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+            want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt)
+            again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+        torch.cuda.synchronize()
+        e_f = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
+        check(e_f <= CE_TOL, f"ce_fwd d={d}: rel err {e_f} > {CE_TOL}")
+        check(torch.equal(lse, lse2) and torch.equal(tlog, tlog2),
+              f"ce_fwd d={d}: two launches differ")
+        rels = _check_ce_bwd(f"d={d}", got, want, again, n_real)
+        log(f"shapes: ce N={N} d={d} V={V}: fwd rel err {e_f:.3e}; bwd rel "
+            "err " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+            + "; two launches of each bitwise equal")
+        worst["ce_fwd"] = max(worst["ce_fwd"], e_f)
+        worst["ce_bwd"] = max(worst["ce_bwd"], max(rels.values()))
     return worst
 
 
@@ -907,11 +1127,12 @@ def _fro(got, want):
 
 def phase_train_wide(spec, train, graphs, graphs_host):
     """The training step at FK geometry with d_latent 256, dropout 0: the
-    towers in their 32- and 16-row tiles, K4 and K5 at d 256, K1 at d 256
-    and 512.  Three steps; before each, the loss and every gradient from
-    the step's params through the kernels, through the plain versions on
-    the card and through the plain versions on the CPU; every kernel
-    launches its count a step.
+    towers' widest GEMM tiles, K4 and K5 at d 256, K1 at d 256 and 512.
+    Three steps, the third at EE's sequence length (len_max 30, FK's
+    itemsets and graphs, its own params and batch); before each, the loss
+    and every gradient from the step's params through the kernels, through
+    the plain versions on the card and through the plain versions on the
+    CPU; every kernel launches its count a step.
 
     The loss must agree to 1e-5.  The gradients are held by the relative
     Frobenius error of each tensor, to the larger of GRAD_TOL and three
@@ -922,7 +1143,8 @@ def phase_train_wide(spec, train, graphs, graphs_host):
     rounding), so the train phase's max-abs metric moves by a factor of a
     few from one run of the same code to the next: it is logged, not
     gated."""
-    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.config import Config, DataSpec
+    from c2dsr_tpu_torch.data import preprocess, synthetic
     from c2dsr_tpu_torch.data.pipeline import BatchIterator
     from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.model import c2dsr
@@ -932,60 +1154,74 @@ def phase_train_wide(spec, train, graphs, graphs_host):
     from c2dsr_tpu_torch.train import step as step_mod
 
     cfg = Config(d_latent=256, dropout_gnn=0.0, dropout_attn=0.0)
-    it = BatchIterator(train, cfg.batch_size, shuffle=True, seed=2,
-                       drop_last=True)
-    feed = it.epoch()
-    params = params_mod.init_params(cfg, spec,
-                                    torch.Generator().manual_seed(3), "cuda")
-    opt = optim.make_optimizer(cfg, steps_per_epoch=len(it))
-    state = step_mod.init_state(params, opt)
-    fn = step_mod.make_train_step(cfg, spec, graphs, opt,
-                                  torch.Generator().manual_seed(cfg.seed),
-                                  "cuda")
+    spec30 = DataSpec(n_item_a=spec.n_item_a, n_item_b=spec.n_item_b,
+                      len_max=30)
+    train30 = preprocess.preprocess_train(
+        synthetic.generate_sequences(spec30, 2000, seed=4), spec30, seed=1)
+    runs = []                      # [spec, state, step fn, batches]
+    for sp, tr, seed in ((spec, train, 2), (spec30, train30, 5)):
+        it = BatchIterator(tr, cfg.batch_size, shuffle=True, seed=seed,
+                           drop_last=True)
+        params = params_mod.init_params(cfg, sp,
+                                        torch.Generator().manual_seed(3),
+                                        "cuda")
+        opt = optim.make_optimizer(cfg, steps_per_epoch=len(it))
+        fn = step_mod.make_train_step(cfg, sp, graphs, opt,
+                                      torch.Generator().manual_seed(cfg.seed),
+                                      "cuda")
+        runs.append([sp, step_mod.init_state(params, opt), fn, it.epoch()])
     cpu_graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cpu"),
                               spmm.device_graph(graphs_host[1], "cpu"))
-    steps = 3
+    schedule = (0, 0, 1)           # the third step at len_max 30
     launches = dict.fromkeys(kernel_wrappers(), 0)
     losses = []
-    names = leaf_names(state.params)
-    for i in range(steps):
+    for i, which in enumerate(schedule):
+        sp, state, fn, feed = runs[which]
+        names = leaf_names(state.params)
         batch = next(feed)
         b = ranker.to_device(batch, "cuda")
         leaves = state.opt_state.leaves
-        loss_k, g_k = _loss_grads(state.params, leaves, graphs, b, cfg, spec,
-                                  contextlib.nullcontext())
-        loss_p, g_p = _loss_grads(state.params, leaves, graphs, b, cfg, spec,
-                                  plain_versions())
+        masks = {}
+        loss_k, g_k = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
+                                  recording_relu_masks(masks))
+        loss_p, g_p = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
+                                  plain_versions_at(masks))
+        _, g_o = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
+                             plain_versions())
         cpu = params_mod.params_from_numpy(
             params_mod.params_to_numpy(state.params), "cpu")
         cpu_leaves = step_mod.param_leaves(cpu)
         for t in cpu_leaves:
             t.requires_grad_(True)
         loss_c, g_c = _loss_grads(cpu, cpu_leaves, cpu_graphs,
-                                  ranker.to_device(batch, "cpu"), cfg, spec,
+                                  ranker.to_device(batch, "cpu"), cfg, sp,
                                   contextlib.nullcontext())
-        noise, wn = _fro(g_p, g_c)
+        noise, wn = _fro(g_o, g_c)
         err, we = _fro(g_k, g_p)
+        err_own, wo = _fro(g_k, g_o)
         tol = max(GRAD_TOL, 3 * noise)
         rel = [_rel(a, c) if float(c.abs().max()) > 0
                else float(a.abs().max()) for a, c in zip(g_k, g_p)]
         wm = int(np.argmax(rel))
-        log(f"train d_latent 256 step {i}: loss {loss_k:.6f} (kernels) "
-            f"{loss_p:.6f} (plain) {loss_c:.6f} (plain, CPU); gradients, "
-            f"worst relative Frobenius err kernels against plain "
-            f"{err:.3e} ({names[we]}), plain card against CPU {noise:.3e} "
-            f"({names[wn]}), tolerance {tol:.3e}; max-abs relative "
-            f"{rel[wm]:.3e} ({names[wm]}), logged")
+        log(f"train d_latent 256 step {i} (len_max {sp.len_max}): loss "
+            f"{loss_k:.6f} (kernels) {loss_p:.6f} (plain) {loss_c:.6f} "
+            f"(plain, CPU); gradients, worst relative Frobenius err kernels "
+            f"against plain at K2's ReLU branches {err:.3e} ({names[we]}), "
+            f"at the plain forward's own {err_own:.3e} ({names[wo]}), plain "
+            f"card against CPU {noise:.3e} ({names[wn]}), tolerance "
+            f"{tol:.3e}; max-abs relative {rel[wm]:.3e} ({names[wm]}), "
+            "logged")
         check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
               f"train d 256 step {i}: loss {loss_k} (kernels) != {loss_p}")
         check(err <= tol, f"train d 256 step {i}: gradients relative "
               f"Frobenius err {err} > {tol}")
         reset_launches()
-        state, aux = fn(state, batch)
+        runs[which][1], aux = fn(state, batch)
         torch.cuda.synchronize()
         losses.append(float(aux["loss"]))
         for k, v in read_launches().items():
             launches[k] += v
+    steps = len(schedule)
     per_step = {"spmm_csr": 4 * cfg.n_gnn, "spmm_csr_flagged": 0,
                 "encoder_fwd": 3, "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2}
     log(f"train d_latent 256: {steps} steps, losses "
@@ -1039,16 +1275,23 @@ def phase_train(spec, train, graphs):
             loss.backward()
         return float(loss), [t.grad.clone() for t in leaves]
 
-    loss_k, g_k = grads_of(contextlib.nullcontext())
-    loss_p, g_p = grads_of(plain_versions())
+    def rels(got, want):
+        return [_rel(a, b) if float(b.abs().max()) > 0
+                else float(a.abs().max()) for a, b in zip(got, want)]
+
+    masks = {}
+    loss_k, g_k = grads_of(recording_relu_masks(masks))
+    loss_p, g_p = grads_of(plain_versions_at(masks))
+    _, g_o = grads_of(plain_versions())
     for t in leaves:
         t.grad = None
-    rel = [_rel(a, b) if float(b.abs().max()) > 0 else float(a.abs().max())
-           for a, b in zip(g_k, g_p)]
+    rel, rel_own = rels(g_k, g_p), rels(g_k, g_o)
     log(f"train path dropout 0: loss {loss_k:.6f} (kernels) {loss_p:.6f} "
         f"(plain); worst gradient relative err {max(rel):.3e} ("
         f"{leaf_names(params)[int(np.argmax(rel))]}) over {len(rel)} "
-        "tensors")
+        f"tensors at K2's ReLU branches, {max(rel_own):.3e} ("
+        f"{leaf_names(params)[int(np.argmax(rel_own))]}) at the plain "
+        "forward's own")
     check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
           f"train loss {loss_k} (kernels) != {loss_p} (plain)")
     check(max(rel) <= GRAD_TOL, f"train gradients: relative err {max(rel)}")
@@ -1376,33 +1619,142 @@ def phase_experiment(spec, train, data, graphs, name):
 
 def phase_cli():
     """``python -m c2dsr_tpu_torch.cli`` on the card in a temporary working
-    directory: exit 0 and the final result table."""
-    with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [REPO_DIR] + [p for p in [env.get("PYTHONPATH")] if p])
-        cmd = [sys.executable, "-m", "c2dsr_tpu_torch.cli", "--synthetic",
-               str(CLI_USERS), "--n_epoch", "1", "--ckpt",
-               os.path.join(tmp, "ckpt")]
+    directory, at the default width and at ``--d_latent 40`` (d % 32 == 8,
+    one head: every tower and CE kernel at a ragged width): exit 0, the
+    final result table and a checkpoint."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO_DIR] + [p for p in [env.get("PYTHONPATH")] if p])
+    for extra in ([], ["--d_latent", "40"]):
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, "-m", "c2dsr_tpu_torch.cli", "--synthetic",
+                   str(CLI_USERS), "--n_epoch", "1", "--ckpt",
+                   os.path.join(tmp, "ckpt")] + extra
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                                 text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            check(run.returncode == 0, f"cli {extra} exited "
+                  f"{run.returncode}: {run.stderr[-2000:]}")
+            check("[ Test result ]" in run.stdout,
+                  "cli printed no final result table")
+            check(os.path.isfile(os.path.join(tmp, "ckpt", "meta.json")),
+                  "cli wrote no checkpoint")
+            table = run.stdout[run.stdout.rindex("[ Test result ]"):]
+            log(f"cli: {' '.join(cmd[1:])} exited 0 in {secs:.1f} s; test "
+                f"result {table.splitlines()[2].strip()}")
+
+
+def measure_train_rate() -> dict:
+    """The training step's warm rate of the ``c2dsr_tpu_torch`` first on
+    sys.path, at FK geometry with the default Config: 10 warm-up steps, 8
+    runs of 4 steps (train examples/s each, and the host's ms a step until
+    the last step is enqueued, before the synchronise), then 3 profiled
+    steps (device busy ms, and K2's ms, each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from c2dsr_tpu_torch.config import Config, DataSpec
+    from c2dsr_tpu_torch.data import preprocess, synthetic
+    from c2dsr_tpu_torch.data.pipeline import BatchIterator
+    from c2dsr_tpu_torch.graph import build as graph_build
+    from c2dsr_tpu_torch.kernels import build
+    from c2dsr_tpu_torch.model import c2dsr
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import backend, spmm
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+    backend.resolve_device("cuda")
+    build.build_all()
+    spec = DataSpec(n_item_a=N_ITEM_A, n_item_b=N_ITEM_B, len_max=LEN_MAX)
+    seqs = synthetic.generate_sequences(spec, N_TRAIN_USERS, seed=0)
+    share, specific = graph_build.build_graphs(seqs, spec)
+    graphs = c2dsr.Graphs(spmm.device_graph(share, "cuda"),
+                          spmm.device_graph(specific, "cuda"))
+    cfg = Config()
+    it = BatchIterator(preprocess.preprocess_train(seqs, spec, seed=1),
+                       cfg.batch_size, shuffle=True, seed=0, drop_last=True)
+
+    def batches():
+        while True:
+            yield from it.epoch()
+
+    feed = batches()
+    opt = optim.make_optimizer(cfg, steps_per_epoch=len(it))
+    state = step_mod.init_state(params_mod.init_params(
+        cfg, spec, torch.Generator().manual_seed(0), "cuda"), opt)
+    fn = step_mod.make_train_step(cfg, spec, graphs, opt,
+                                  torch.Generator().manual_seed(cfg.seed),
+                                  "cuda")
+    for _ in range(10):
+        state, aux = fn(state, next(feed))
+    torch.cuda.synchronize()
+    rates, host = [], []
+    for _ in range(8):
         t0 = time.perf_counter()
-        run = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+        for _ in range(TRAIN_RUN_STEPS):
+            state, aux = fn(state, next(feed))
+        host.append((time.perf_counter() - t0) / TRAIN_RUN_STEPS * 1e3)
+        torch.cuda.synchronize()
+        rates.append(TRAIN_RUN_STEPS * cfg.batch_size
+                     / (time.perf_counter() - t0))
+    busy, k2 = [], []
+    for _ in range(3):
+        batch = next(feed)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, aux = fn(state, batch)
+            torch.cuda.synchronize()
+        us = {ev.key: getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0))
+              for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA}
+        busy.append(sum(us.values()) / 1e3)
+        k2.append(sum(v for k, v in us.items()
+                      if "encoder_fwd_kernel" in k) / 1e3)
+    check(math.isfinite(float(aux["loss"])), "train loss not finite")
+    return {"rates": rates, "host_ms": host, "busy_ms": busy, "k2_ms": k2}
+
+
+def compare(other: str) -> int:
+    """This checkout's measure_train_rate against that of ``other`` (a
+    directory holding another version of ``c2dsr_tpu_torch``), each in a
+    process of its own, in turns (other, this, this, other), on one
+    card."""
+    runs = {other: [], REPO_DIR: []}
+    for root in (other, REPO_DIR, REPO_DIR, other):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--train-rate", root], capture_output=True,
                              text=True, timeout=600)
-        secs = time.perf_counter() - t0
-        check(run.returncode == 0, f"cli exited {run.returncode}: "
-              f"{run.stderr[-2000:]}")
-        check("[ Test result ]" in run.stdout,
-              "cli printed no final result table")
-        check(os.path.isfile(os.path.join(tmp, "ckpt", "meta.json")),
-              "cli wrote no checkpoint")
-        table = run.stdout[run.stdout.rindex("[ Test result ]"):]
-        log(f"cli: {' '.join(cmd[1:])} exited 0 in {secs:.1f} s; test "
-            f"result {table.splitlines()[2].strip()}")
+        check(out.returncode == 0,
+              f"train rate of {root}: {out.stderr[-2000:]}")
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        runs[root].append(res)
+        log(f"compare {root}: train examples/s "
+            f"{[round(r, 1) for r in res['rates']]}, host ms a step "
+            f"{[round(h, 2) for h in res['host_ms']]}, busy ms a step "
+            f"{[round(b, 3) for b in res['busy_ms']]}, K2 ms a step "
+            f"{[round(b, 3) for b in res['k2_ms']]}")
+    rates = {k: np.array([r for res in v for r in res["rates"]])
+             for k, v in runs.items()}
+    diff = rates[REPO_DIR].mean() - rates[other].mean()
+    se = math.sqrt(sum(r.var(ddof=1) / len(r) for r in rates.values()))
+    log(f"compare: this {rates[REPO_DIR].mean():.1f} against "
+        f"{rates[other].mean():.1f} train examples/s "
+        f"({diff / rates[other].mean():+.2%}), standard error {se:.1f}: "
+        f"{'resolved' if abs(diff) > 3 * se else 'unresolved'}; card "
+        f"{card_line()}")
+    return 0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--train-rate"]:
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        print(json.dumps(measure_train_rate()), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--compare"]:
+        return compare(os.path.abspath(sys.argv[2]))
     try:
         from c2dsr_tpu_torch.config import DataSpec
         from c2dsr_tpu_torch.data import preprocess, synthetic
@@ -1524,23 +1876,34 @@ def main() -> int:
          "library_ms": k2["library_ms"], "train": k2t,
          "wide_shapes_max_abs_err": wide["encoder_fwd"],
          "note": "eval: one tower at B 2048, L 15, d 128; train: the three "
-                 "towers of a step (B 1536, 512, 512) at dropout 0.2; "
-                 "bound_ms FP32 FFMA, bound_tc_ms 3xTF32 tensor cores"},
+                 "towers of a step (B 1536, 512, 512) at dropout 0.2, "
+                 "saving the activations K3 reads (ms_without_saving "
+                 "beside); bound_ms FP32 FFMA, bound_tc_ms 3xTF32 tensor "
+                 "cores"},
         {"name": "encoder_bwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/encoder_bwd.cu",
          "replaces": "c2dsr_tpu/ops/encoder_pallas.py:477",
          **counts("encoder_bwd"), **k3,
          "wide_shapes_max_rel_err": wide["encoder_bwd"],
          "note": "the three towers of a step (B 1536, 512, 512), L 15, "
-                 "d 128, dropout 0.2; library: nn.TransformerEncoder "
-                 "forward + backward in train mode; bound_ms FP32 FFMA, "
-                 "bound_tc_ms 3xTF32 tensor cores"},
+                 "d 128, dropout 0.2, from the activations K2 saves: "
+                 "tensor-core GEMMs (3xTF32), attention per sequence, "
+                 "weight gradients over row splits summed in order; "
+                 "library: nn.TransformerEncoder forward + backward in "
+                 "train mode; bound_ms the 3xTF32 tensor-core bound "
+                 "(3*(24*N*d^2 + 8*N*L*d) TF32 FLOPs at 495 TFLOP/s), "
+                 "bound_ffma_ms the FP32 FFMA one; launches_per_call the "
+                 "CUDA kernels of one tower call, kernels_ms the profiled "
+                 "split"},
         {"name": "ce_fwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/ce.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:263",
          **counts("ce_fwd"), **k4, "d256_max_rel_err": wide["ce_fwd"],
          "note": "both domains of a step: N 10240, d 128, V 30720 + 36864; "
-                 "bound_ms FP32 FFMA, bound_tc_ms 3xTF32 tensor cores"},
+                 "3xTF32 on the tensor cores; bound_ms the 3xTF32 tensor-core "
+                 "bound (3*2*N*V*d TF32 FLOPs at 495 TFLOP/s), bound_ffma_ms "
+                 "the FP32 FFMA one (2*N*V*d at 67); kernels_ms the "
+                 "profiled split"},
         {"name": "ce_bwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/ce.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:308",

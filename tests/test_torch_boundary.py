@@ -125,13 +125,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     (32, 1, 15, True), (256, 1, 15, True), (128, 32, 15, False),
     (128, 1, 33, False), (32, 1, 30, True), (96, 2, 30, True),
     (96, 4, 15, True), (160, 2, 16, True), (256, 4, 16, True),
-    (224, 28, 15, True), (256, 1, 17, False), (256, 4, 30, False),
-    (160, 1, 30, False), (40, 1, 15, False), (288, 1, 15, False),
-    (64, 3, 15, False), (64, 1, 0, False)])
+    (224, 28, 15, True), (256, 1, 17, True), (256, 4, 30, True),
+    (160, 1, 30, True), (40, 1, 15, True), (288, 1, 15, False),
+    (64, 3, 15, False), (64, 1, 0, False), (40, 1, 30, True),
+    (8, 1, 15, True), (256, 4, 32, True), (256, 4, 33, False),
+    (264, 1, 15, False), (44, 1, 15, False), (40, 2, 15, False)])
 def test_encoder_kernel_shape_contract(d, n_head, length, ok):
-    """encoder_cuda.supported, the one rule both tower kernels take: d a
-    multiple of 32 from 32 to 256, head dim a multiple of 8, L up to 32
-    (up to 16 above d 128)."""
+    """encoder_cuda.supported, the one rule both tower kernels take: every
+    width at which the JAX package runs its fused encoder up to d 256 (d a
+    multiple of 8, head dim a multiple of 8) and L up to 32 at every width;
+    d above 256 is refused."""
     from c2dsr_tpu_torch.ops import encoder_cuda
     assert encoder_cuda.supported(d, n_head, length) is ok
 

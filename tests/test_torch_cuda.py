@@ -73,9 +73,10 @@ def _inputs(B, L, d, pad, seed, device):
 
 
 # the tower widths users set beyond 64 and 128: d % 64 == 32 (a ragged half
-# chunk in the GEMMs), EE's L 30 at small d, and d above 128 (half the rows)
+# chunk in the GEMMs), EE's L 30 at small d, d above 128 (half the forward's
+# rows), d % 32 == 8 with one head (ragged k chunks), and EE's L 30 at d 256
 WIDE_TOWERS = [(96, 2, 30, 1, 7), (32, 1, 30, 2, 9), (256, 4, 15, 1, 5),
-               (160, 2, 16, 2, 6)]
+               (160, 2, 16, 2, 6), (40, 1, 30, 1, 7), (256, 4, 30, 1, 5)]
 
 
 @pytest.mark.parametrize("invert", [False, True])
@@ -100,9 +101,9 @@ def test_encoder_kernel_matches_plain(cuda, invert, d, n_head, L, n_layers,
 
 
 def test_encoder_kernel_refuses_unsupported_shapes(cuda):
-    """Shapes still refused, before any launch: d not a multiple of 32, and
-    L above 16 at d above 128; the error names the shape."""
-    for d, L in ((40, 15), (256, 30)):
+    """Shapes still refused, before any launch: d above 256 and L above 32;
+    the error names the shape."""
+    for d, L in ((264, 15), (64, 33)):
         p = params_mod.init_encoder_params(torch.Generator().manual_seed(0),
                                            Config(d_latent=d), L)
         p = params_mod.params_from_numpy(params_mod.params_to_numpy(p), cuda)
@@ -256,7 +257,72 @@ def test_encoder_train_kernels_match_plain(cuda, dropout, invert, d, n_head,
                           rgrads):
         assert _rel_err(g, r) <= 1e-4, name
     again = encoder_cuda.encoder_bwd(x, seq, gout, p, **kw)
-    assert torch.equal(again[1][0], grads[0])            # deterministic
+    assert torch.equal(again[0], dx)                     # deterministic
+    for g, g2 in zip(grads, again[1]):
+        assert torch.equal(g, g2)
+
+
+def _plain_activations(x, seq, p, n_head, kw):
+    """The plain tower's intermediates, layer by layer, as K2 saves them."""
+    from c2dsr_tpu_torch.ops import dropout as drop
+    B, L, d = x.shape
+    dh = d // n_head
+    args = (kw["dropout"], kw["seed"])
+    h = drop.apply(x, *args, drop.SITE_INPUT, kw["tower"], 0)
+    out = {"xin0": h, "layers": []}
+    bias = enc.attention_mask_bias(seq, kw["idx_pad"], False)
+    for li in range(p["layers"]["w_qkv"].shape[0]):
+        lp = {k: v[li] for k, v in p["layers"].items()}
+
+        def dr(site, t):
+            return drop.apply(t, *args, site, kw["tower"], li)
+
+        qkv = h @ lp["w_qkv"] + lp["b_qkv"]
+        q, k, v = (t.reshape(B, L, n_head, dh).transpose(1, 2)
+                   for t in qkv.split(d, dim=-1))
+        probs = torch.softmax(q @ k.transpose(-1, -2) / dh ** 0.5 + bias, -1)
+        o = (dr(drop.SITE_PROBS, probs) @ v).transpose(1, 2).reshape(B, L, d)
+        y1 = enc.layer_norm(h + dr(drop.SITE_ATTN_OUT, o @ lp["w_out"]
+                                   + lp["b_out"]),
+                            lp["ln1_scale"], lp["ln1_bias"])
+        fr = torch.relu(y1 @ lp["w_ff1"] + lp["b_ff1"])
+        fd = dr(drop.SITE_FFN_RELU, fr)
+        h = enc.layer_norm(y1 + dr(drop.SITE_FFN_OUT, fd @ lp["w_ff2"]
+                                   + lp["b_ff2"]),
+                           lp["ln2_scale"], lp["ln2_bias"])
+        out["layers"].append({"qkv": qkv, "p": probs.transpose(0, 1), "o": o,
+                              "y1": y1, "fr": fr, "fd": fd, "xnext": h})
+    return out
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+@pytest.mark.parametrize("d,n_head,L,n_layers,B", [
+    (64, 2, 15, 2, 9), (40, 1, 30, 1, 7), (256, 4, 30, 1, 3)])
+def test_encoder_saved_activations_match_plain_forward(cuda, dropout, d,
+                                                       n_head, L, n_layers,
+                                                       B):
+    """K2 in training writes what K3 reads: every layer's activations, equal
+    to the plain forward's intermediates (1e-5 of each tensor's largest
+    value), and the LayerNorms' xhat and 1/std consistent with them."""
+    p, x, seq = _tower_case(cuda, d, n_head, L, n_layers, B)
+    kw = dict(idx_pad=999, n_head=n_head, invert_padding_mask=False,
+              dropout=dropout, seed=41, tower=1)
+    acts = encoder_cuda.saved_buffer(x, n_head, n_layers)
+    out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw)
+    views = encoder_cuda.saved_views(acts, x.shape, n_head, n_layers)
+    want = _plain_activations(x, seq, p, n_head, kw)
+    torch.cuda.synchronize()
+    assert _rel_err(views["xin0"], want["xin0"]) <= 1e-6
+    for li, (got, ref) in enumerate(zip(views["layers"], want["layers"])):
+        for name, r in ref.items():
+            assert _rel_err(got[name], r) <= 1e-5, (li, name)
+        lnp = {k: v[li] for k, v in p["layers"].items()}
+        for ln, y in (("1", got["y1"]), ("2", got["xnext"])):
+            rebuilt = (got["xhat" + ln] * lnp[f"ln{ln}_scale"]
+                       + lnp[f"ln{ln}_bias"])
+            assert _rel_err(rebuilt, y) <= 1e-5
+    rebuilt = views["xhat_f"] * p["lnf_scale"] + p["lnf_bias"]
+    assert _rel_err(rebuilt, out) <= 1e-5
 
 
 def test_encoder_function_routes_both_kernels(cuda):
@@ -327,18 +393,60 @@ def test_ce_kernels_refuse_bad_shapes(cuda):
         fused_ce_cuda.ce_fwd(h, torch.randn(64, 6, device=cuda),
                              torch.zeros(6, device=cuda),
                              torch.zeros(8, device=cuda), t)
-    for d in (40, 272):
+    for d in (36, 264):
         h, w = torch.randn(8, d, device=cuda), torch.randn(d, 8, device=cuda)
         z8 = torch.zeros(8, device=cuda)
-        with pytest.raises(ValueError, match="d % 16 == 0, d <= 256"):
+        with pytest.raises(ValueError, match="d % 8 == 0, d <= 256"):
             fused_ce_cuda.ce_fwd(h, w, z8, z8, t)
         with pytest.raises(ValueError, match=f"d={d}"):
             fused_ce_cuda.ce_bwd(h, w, z8, z8, z8, z8, t)
 
 
+def _fk_ce(cuda, N, d, V, n_real, seed):
+    """CE inputs at FK's scales: |h| ~ 1, |W| ~ 0.05 (zero on the padded
+    vocab tail), every 5th row ignored; dlse and dt ~ 1/N on the rest."""
+    from c2dsr_tpu_torch.ops import fused_ce
+    rng = np.random.default_rng(seed)
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    h = put(rng.normal(size=(N, d)))
+    w_np = rng.normal(size=(d, V)) * 0.05
+    w_np[:, n_real:] = 0.0
+    bm = fused_ce.mask_bias(put(rng.normal(size=V) * 0.1), n_real)
+    tgt = rng.integers(0, n_real, size=N)
+    tgt[::5] = n_real                                  # ignored rows
+    tgt = torch.from_numpy(tgt).to(cuda)
+    real = (tgt != n_real).float()
+    return (h, put(w_np), bm, put(rng.normal(size=N)), tgt,
+            put(rng.normal(size=N) / N) * real,
+            put(rng.normal(size=N) / N) * real)
+
+
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+def test_ce_fwd_kernel_matches_plain_to_f32(cuda, d):
+    """K4 on the tensor cores (3xTF32) at every width it takes, against its
+    plain version to 2e-5 relative at FK's scales, with a ragged last
+    vocab tile, ignored rows whose target is V; two launches bitwise
+    equal."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    N, V, n_real = 301, 1028, 1028
+    h, w, bm, pad, tgt, _, _ = _fk_ce(cuda, N, d, V, n_real, seed=d)
+    lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad, tgt)
+    rlse, rtlog = fused_ce.ce_fwd_plain(h, w, bm, pad, tgt)
+    again = fused_ce_cuda.ce_fwd(h, w, bm, pad, tgt)
+    torch.cuda.synchronize()
+    assert _rel_err(lse, rlse) <= 2e-5, _rel_err(lse, rlse)
+    assert _rel_err(tlog, rtlog) <= 2e-5, _rel_err(tlog, rtlog)
+    assert (tlog[tgt == V] == 0).all()
+    assert torch.equal(lse, again[0]) and torch.equal(tlog, again[1])
+
+
 @pytest.mark.parametrize("N,d,V,n_real", [
     (333, 32, 196, 196), (640, 64, 1028, 1000), (1000, 128, 4100, 4095),
-    (257, 256, 2052, 2000), (64, 16, 8, 8)])
+    (257, 256, 2052, 2000), (64, 16, 8, 8), (300, 40, 1028, 1000),
+    (300, 200, 2052, 2000)])
 def test_ce_bwd_kernel_matches_plain_to_f32(cuda, N, d, V, n_real):
     """K5 on the tensor cores (3xTF32) against its plain version to 2e-5
     relative, at FK's scales (|h| ~ 1, |W| ~ 0.05, dlse and dt ~ 1/N): ragged
@@ -443,8 +551,8 @@ def test_train_steps_on_card_match_cpu(cuda):
 
 
 def test_wide_train_step_on_card_matches_cpu(cuda):
-    """One train step's loss and every gradient at d 256 (the towers' 32-
-    and 16-row tiles, K4 and K5 at their widest) on the card against the
+    """One train step's loss and every gradient at d 256 (the towers' widest
+    tiles, K4 and K5 at their widest) on the card against the
     CPU, from the same params and batch, dropout 0.  One step, not three:
     at this width AdamW's first steps follow the sign of gradients that
     are zero but for rounding, so two devices' third losses part by about
@@ -469,6 +577,43 @@ def test_wide_train_step_on_card_matches_cpu(cuda):
         launches = encoder_cuda.encoder_bwd.launches
         loss, _ = step.loss_fn(params, graphs, ranker.to_device(batch, dev),
                                None, cfg, SPEC)
+        loss.backward()
+        if dev != "cpu":
+            assert encoder_cuda.encoder_bwd.launches == launches + 3
+        out[str(dev)] = (float(loss), [t.grad.cpu() for t in leaves])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert _rel_err(a, b) <= 1e-4 if float(b.abs().max()) > 0 else \
+            float(a.abs().max()) == 0
+
+
+def test_ee_train_step_on_card_matches_cpu(cuda):
+    """One train step at EE's geometry (len_max 30) and d 256: the towers'
+    L 30 sequences at their widest, K4 and K5 at d 256, on the card against
+    the CPU (plain versions), from the same params and batch, dropout 0:
+    the loss and every gradient."""
+    from c2dsr_tpu_torch.train import step
+    spec = DataSpec(n_item_a=300, n_item_b=400, len_max=30)
+    cfg = Config(d_latent=256, n_head=4, batch_size=16, len_rec=5,
+                 dropout_gnn=0.0, dropout_attn=0.0, vocab_pad_multiple=64)
+    seqs = synthetic.generate_sequences(spec, 400, seed=3)
+    share, specific = build.build_graphs(seqs, spec)
+    train = preprocess.preprocess_train(seqs, spec, seed=1)
+    init = params_mod.params_to_numpy(params_mod.init_params(
+        cfg, spec, torch.Generator().manual_seed(0), "cpu"))
+    batch = {k: v[:16] for k, v in train.items()}
+    out = {}
+    for dev in ("cpu", cuda):
+        params = params_mod.params_from_numpy(init, dev)
+        leaves = step.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        graphs = c2dsr.Graphs(spmm.device_graph(share, dev),
+                              spmm.device_graph(specific, dev))
+        launches = encoder_cuda.encoder_bwd.launches
+        loss, _ = step.loss_fn(params, graphs, ranker.to_device(batch, dev),
+                               None, cfg, spec)
         loss.backward()
         if dev != "cpu":
             assert encoder_cuda.encoder_bwd.launches == launches + 3

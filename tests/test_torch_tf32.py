@@ -107,3 +107,53 @@ def test_3xtf32_is_f32_accurate_and_one_pass_is_not(product):
     assert e3 <= TOL, e3
     assert e1 > TOL, e1
     assert e1 > 20 * e3
+
+
+def _k4_lse(h, w, b, pad, tgt, split, tile: int = 32, splits: int = 3):
+    """K4's arithmetic: logits by ``split`` (3xTF32 or one-pass) plus the
+    bias; per row and vocab split a running (max, sum-exp) over tiles of
+    ``tile`` columns in f32, the splits merged in order with the pad class
+    folded in; and the target logit."""
+    s = split(h, w) + b
+    V = s.shape[1]
+    per = -(-V // splits)
+    ms, ss = [], []
+    for k in range(splits):
+        m = torch.full((s.shape[0],), -1e30)
+        acc = torch.zeros(s.shape[0])
+        for c0 in range(k * per, min(V, (k + 1) * per), tile):
+            t = s[:, c0:min(c0 + tile, (k + 1) * per, V)]
+            m_new = torch.maximum(m, t.max(dim=1).values)
+            acc = acc * torch.exp(m - m_new) + torch.exp(
+                t - m_new[:, None]).sum(dim=1)
+            m = m_new
+        ms.append(m)
+        ss.append(acc)
+    m = torch.stack(ms).max(dim=0).values
+    acc = sum(a * torch.exp(mk - m) for a, mk in zip(ss, ms))
+    m_fin = torch.maximum(m, pad)
+    lse = m_fin + torch.log(acc * torch.exp(m - m_fin) + torch.exp(pad - m_fin))
+    return lse, s.gather(1, tgt[:, None])[:, 0]
+
+
+def test_k4_tile_3xtf32_lse_is_f32_accurate_and_one_pass_is_not():
+    """K4's forward (logits in 3xTF32, a running max and sum-exp over column
+    tiles, vocab splits merged in order, the pad class folded in) against
+    float64 at FK magnitudes: lse and the target logit within 1e-6 relative
+    to the largest value; one-pass TF32 logits are not."""
+    rng = np.random.default_rng(2)
+    h, w, _ = _fk_case(n_rows=256, d=128, V=2048, seed=3)
+    b = torch.from_numpy((rng.normal(size=2048) * 0.1).astype(np.float32))
+    pad = torch.from_numpy(rng.normal(size=256).astype(np.float32))
+    tgt = torch.from_numpy(rng.integers(0, 2048, size=256))
+    logits = h.double() @ w.double() + b.double()
+    want_lse = torch.logsumexp(torch.cat([logits, pad.double()[:, None]], 1),
+                               dim=1)
+    want_t = logits.gather(1, tgt[:, None])[:, 0]
+    errs = {}
+    for name, fn in (("3xtf32", three_tf32), ("one-pass", one_tf32)):
+        lse, tl = _k4_lse(h, w, b, pad, tgt, fn)
+        errs[name] = max(rel(lse, want_lse), rel(tl, want_t))
+    assert errs["3xtf32"] <= 1e-6, errs
+    assert errs["one-pass"] > 1e-6, errs
+    assert errs["one-pass"] > 20 * errs["3xtf32"], errs
