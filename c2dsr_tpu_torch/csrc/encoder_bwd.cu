@@ -15,9 +15,9 @@
 // activations that the training forward (encoder.cu) saved for all N = B·L
 // rows of the call (saved_layout, about 11·d floats a row), so it
 // differentiates the very forward whose output the loss saw.  A recompute
-// in another arithmetic (3xTF32 here, FFMA there) moved ReLU masks and the
-// -1e9 rounding of all-masked rows, and with them whole gradient rows: at
-// d 256 it put the step's gradients 1e-3 off the plain versions' where
+// in another arithmetic (or another summation order) moves ReLU masks and
+// the -1e9 rounding of all-masked rows, and with them whole gradient rows:
+// at d 256 it put the step's gradients 1e-3 off the plain versions' where
 // their own card-against-CPU noise is 1e-4.
 //
 // Bound on an H100 by operations: 24·N·d² + 8·N·L·d FLOPs per layer.  The
@@ -25,17 +25,20 @@
 // and read once through L2 and device memory (about 12·d floats a row of
 // working buffers):
 // * Every product with a weight (dX = dY·Wᵀ and dW = Xᵀ·dY) runs on the
-//   tensor cores at f32 accuracy (3xTF32 on mma.sync.m16n8k8, tc.cuh).
+//   tensor cores at f32 accuracy (3xTF32 on mma.sync.m16n8k8, tc.cuh's
+//   gemm_tile, which the forward shares; above d 256 the output columns
+//   take two blocks).
 //   tc_gemm_kernel takes 64 rows a block, 16 a warp, so every weight tile
 //   it stages feeds 64 rows; weight and activation tiles of 32 k-steps
-//   arrive through a 3-stage cp.async ring.  Its epilogue folds in what
+//   arrive through a 2-stage cp.async ring.  Its epilogue folds in what
 //   follows the product: the regenerated dropout, ReLU's mask, a residual
 //   add.
 // * LayerNorm backward (ln_bwd_kernel): one warp a row.
-// * Attention backward (attn_bwd_kernel): one block per whole sequence,
-//   its q, k, v and do rows in shared memory, one warp per query or key row
-//   and one lane per key (L <= 32), in FFMA.  Only this kernel is tied to
-//   sequences; the GEMMs are not, so L is not capped by a row tile.
+// * Attention backward (attn_bwd_kernel): up to 8 whole sequences a block
+//   (64 rows), a warp serving one (L <= 64: a lane holds two keys), a head
+//   and 64 of its columns of q, k, v and do in shared memory at a time, in
+//   FFMA.  Only this kernel is tied to sequences; the GEMMs are not, so L
+//   is not capped by a row tile.
 // * Weight gradients (wgrad_kernel): reductions over all N rows of the
 //   call, split into row ranges (a multiple of 32 rows each) that fill the
 //   SMs in whole waves; each (output tile, split) block writes its partial
@@ -85,19 +88,8 @@ GradOff grad_offsets(int d, int nl) {
 
 // ------------------------------------------------------------ the GEMM ----
 
-constexpr int kGemmThreads = 128;  // 4 warps
-constexpr int kGemmRows = 64;      // rows a block, 16 a warp
-constexpr int kKc = 32;            // k a stage
-constexpr int kGemmStages = 3;
-constexpr int kLds = kKc + 4;      // tile row stride: fragment loads free of
-                                   // bank conflicts
-// C = A·Wᵀ with W [M, K] row-major, NT = 64, 128 or 256 output columns a
-// block (the narrowest that holds d).
-template <int NT>
-struct GemmCfg {
-  static constexpr int kStage = (kGemmRows + NT) * kLds;
-  static constexpr int kSmem = 4 * kGemmStages * kStage;
-};
+// C = A·Wᵀ with W [M, K] row-major (tc.cuh's gemm_tile), NT = 64, 128 or
+// 256 output columns a block (the narrowest that holds d).
 
 // What follows the product, per output element (row r, column c; element
 // index r·M + c, which is also the dropout index of a [B, L, d] site):
@@ -121,84 +113,17 @@ struct GemmArgs {
 template <int NT>
 __global__ void __launch_bounds__(kGemmThreads)
 tc_gemm_kernel(const GemmArgs g) {
-  using Cfg = GemmCfg<NT>;
   constexpr int kNj = NT / 8;          // n-tiles a warp
-  constexpr int kNb = NT == 256 ? 4 : 8;  // n-tiles a batch of B loads (4
-                                          // at 256: registers)
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2;
   const int tq = lane & 3;
   const int row0 = blockIdx.x * kGemmRows;
   const int n0 = blockIdx.y * NT;
-  const int n_chunks = (g.k + kKc - 1) / kKc;
-
-  // a stage: A rows [64][kLds], then W rows [NT][kLds], each 32 k-steps
-  auto stage = [&](int slot, int chunk) {
-    float* as = smem + slot * Cfg::kStage;
-    float* bs = as + kGemmRows * kLds;
-    const int k0 = chunk * kKc;
-    for (int v = threadIdx.x; v < (kGemmRows + NT) * (kKc / 4);
-         v += kGemmThreads) {
-      const int r = v >> 3, c4 = v & 7;
-      const bool is_a = r < kGemmRows;
-      const int row = is_a ? row0 + r : n0 + r - kGemmRows;
-      const float* src = is_a ? g.a : g.w;
-      const bool ok = row < (is_a ? g.n : g.m) && k0 + c4 * 4 < g.k;
-      cp_async16(as + r * kLds + c4 * 4,
-                 ok ? src + (size_t)row * g.k + k0 + c4 * 4 : src, ok);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < kGemmStages - 1; ++s) {
-    if (s < n_chunks) stage(s, s);
-    cp_async_commit();
-  }
-
   float acc[kNj][4];
-#pragma unroll
-  for (int j = 0; j < kNj; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  for (int it = 0; it < n_chunks; ++it) {
-    cp_async_wait<kGemmStages - 2>();
-    __syncthreads();
-    if (it + kGemmStages - 1 < n_chunks)
-      stage((it + kGemmStages - 1) % kGemmStages, it + kGemmStages - 1);
-    cp_async_commit();
-    const float* as = smem + (it % kGemmStages) * Cfg::kStage;
-    const float* bs = as + kGemmRows * kLds;
-#pragma unroll
-    for (int ks = 0; ks < kKc / 8; ++ks) {
-      uint32_t ab[4], am[4];
-      const float* ap = as + (warp * 16 + gq) * kLds + ks * 8 + tq;
-      split_tf32(ap[0], ab[0], am[0]);
-      split_tf32(ap[8 * kLds], ab[1], am[1]);
-      split_tf32(ap[4], ab[2], am[2]);
-      split_tf32(ap[8 * kLds + 4], ab[3], am[3]);
-#pragma unroll
-      for (int j0 = 0; j0 < kNj; j0 += kNb) {
-        uint32_t bb[kNb][2], bm[kNb][2];
-#pragma unroll
-        for (int j = 0; j < kNb; ++j) {
-          const float* bp = bs + ((j0 + j) * 8 + gq) * kLds + ks * 8 + tq;
-          split_tf32(bp[0], bb[j][0], bm[j][0]);
-          split_tf32(bp[4], bb[j][1], bm[j][1]);
-        }
-        // term-major: two products into one accumulator kNb MMAs apart
-#pragma unroll
-        for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], am, bb[j]);
-#pragma unroll
-        for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], ab, bm[j]);
-#pragma unroll
-        for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], ab, bb[j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
+  gemm_tile<NT, false>(g.a, g.w, g.n, g.k, g.m, row0, n0,
+                       reinterpret_cast<float*>(smem4), acc);
 
   // elements 2h and 2h + 1 of n-tile j: row r_lo + 8·h, columns n0 + 8·j
   // + 2·tq and the next, as one float2 (m % 8 == 0: both or neither in
@@ -237,92 +162,177 @@ tc_gemm_kernel(const GemmArgs g) {
 
 // ------------------------------------------------------- the attention ----
 
-// Per sequence blockIdx.x: dqkv [N, 3d] from the saved qkv and p and the
-// gradient do of the attention output: dpd = do·vᵀ, dp = drop(dpd),
-// ds = p·(dp - Σ dp·p), dq = ds·k / sqrt(dh), dk = dsᵀ·q / sqrt(dh),
-// dv = drop(p)ᵀ·do.
+// Dynamic shared memory of attn_bwd_kernel at length L, in bytes: for
+// R = attn_seqs(L)·L rows, three chunks of 64 head columns [R][kLdc] and
+// ds and drop(p) of one head ([R][round4(L)] each).
+__host__ __device__ constexpr int attn_bwd_smem(int L) {
+  return 4 * attn_seqs(L) * L * (3 * kLdc + 2 * round4(L));
+}
+
+// Per block, S = attn_seqs(L) sequences (blockIdx.x·S + s), per head:
+// dqkv [N, 3d] from the saved qkv and p and the gradient do of the
+// attention output: dpd = do·vᵀ, dp = drop(dpd), ds = p·(dp - Σ dp·p),
+// dq = ds·k / sqrt(dh), dk = dsᵀ·q / sqrt(dh), dv = drop(p)ᵀ·do.  Warp w
+// serves sequence s = w / (8 / S) and its rows w % (8 / S) + (8 / S)·t.
+// The head's columns pass in chunks of 64: first do and v for dpd (a lane
+// the keys lane and lane + 32, float4 reads), then k, q and do for dq, dk
+// and dv of the warp's rows (a lane a column).
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
                 const float* __restrict__ d_o, float* __restrict__ dqkv,
-                int N, int L, int d, int n_head, drop::Dropout dr,
+                int B, int L, int d, int n_head, drop::Dropout dr,
                 uint32_t key) {
   extern __shared__ float4 smem4[];
-  float* Q = reinterpret_cast<float*>(smem4);
-  const int ldq = 3 * d + 1;
-  float* H = Q + L * ldq;            // do rows, stride d
-  float* DS = H + L * d;             // ds [query][key] of one head
-  float* PD = DS + L * L;            // drop(p), the same layout
-  const int b = blockIdx.x;
-  const int row0 = b * L;
+  const int S = attn_seqs(L);
+  const int R = S * L;
+  const int ldp = round4(L);
+  float* C1 = reinterpret_cast<float*>(smem4);   // [R][kLdc]: v, then k
+  float* C2 = C1 + R * kLdc;                     // [R][kLdc]: do, then q
+  float* C3 = C2 + R * kLdc;                     // [R][kLdc]: do
+  float* DS = C3 + R * kLdc;                     // ds [query][key]
+  float* PD = DS + R * ldp;                      // drop(p), the same layout
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int v = threadIdx.x; v < L * 3 * d; v += kThreads)
-    Q[(v / (3 * d)) * ldq + v % (3 * d)] = qkv[(size_t)row0 * 3 * d + v];
-  for (int v = threadIdx.x; v < L * d; v += kThreads)
-    H[v] = d_o[(size_t)row0 * d + v];
-  __syncthreads();
+  const int wps = 8 / S;                     // warps a sequence
+  const int s = warp / wps;
+  const int b = blockIdx.x * S + s;          // this warp's sequence
+  const bool active = b < B;
+  const int seq0 = blockIdx.x * S;
+  const int R_in = min(S, B - seq0) * L;     // rows of the block in range
+  const size_t grow0 = (size_t)seq0 * L;
+  const size_t N = (size_t)B * L;
   const int dh = d / n_head;
+  const int d3 = 3 * d;
   const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
-  for (int h = 0; h < n_head; ++h) {
-    // per query row i: ds over keys j (lane), and dq
-    for (int i = warp; i < L; i += kThreads / 32) {
-      float p = 0.f, dp = 0.f, pd = 0.f;
-      if (lane < L) {
-        p = p_in[((size_t)h * N + row0 + i) * L + lane];
-        float dot = 0.f;
-        for (int c = 0; c < dh; ++c)
-          dot = fmaf(H[i * d + h * dh + c], Q[lane * ldq + 2 * d + h * dh + c],
-                     dot);
-        dp = dot;
-        pd = p;
-        if (dr.on) {
-          const uint32_t idx = static_cast<uint32_t>(
-              ((b * n_head + h) * L + i) * L + lane);
-          dp = dr.apply(dot, key, idx);
-          pd = dr.apply(p, key, idx);
-        }
-      }
-      const float dot_pp = warp_sum(dp * p);
-      const float ds = p * (dp - dot_pp);
-      if (lane < L) {
-        DS[i * L + lane] = ds;
-        PD[i * L + lane] = pd;
-      }
-      for (int c0 = 0; c0 < dh; c0 += 32) {
-        const int c = c0 + lane;
-        float acc = 0.f;
-        for (int j = 0; j < L; ++j) {
-          const float dsj = __shfl_sync(0xffffffffu, ds, j);
-          if (c < dh) acc = fmaf(dsj, Q[j * ldq + d + h * dh + c], acc);
-        }
-        if (c < dh)
-          dqkv[(size_t)(row0 + i) * 3 * d + h * dh + c] = acc * inv_sqrt_dh;
-      }
+  const int so = s * L;                      // the sequence's first row
+  // rows r < R_in, columns [col, col + 4·cw4) of a [N, ld] buffer into dst
+  auto load = [&](float* dst, const float* src, int ld, int col, int cw4) {
+    for (int v = threadIdx.x; v < R_in * cw4; v += kThreads) {
+      const int r = v / cw4, c = (v % cw4) * 4;
+      *reinterpret_cast<float4*>(dst + r * kLdc + c) =
+          *reinterpret_cast<const float4*>(src + (grow0 + r) * ld + col + c);
     }
-    __syncthreads();
-    // per key row j: dk and dv over queries i (lane)
-    for (int j = warp; j < L; j += kThreads / 32) {
-      const float ds = lane < L ? DS[lane * L + j] : 0.f;
-      const float pd = lane < L ? PD[lane * L + j] : 0.f;
-      for (int c0 = 0; c0 < dh; c0 += 32) {
-        const int c = c0 + lane;
-        float ak = 0.f, av = 0.f;
-        for (int i = 0; i < L; ++i) {
-          const float dsi = __shfl_sync(0xffffffffu, ds, i);
-          const float pdi = __shfl_sync(0xffffffffu, pd, i);
-          if (c < dh) {
-            ak = fmaf(dsi, Q[i * ldq + h * dh + c], ak);
-            av = fmaf(pdi, H[i * d + h * dh + c], av);
+  };
+  for (int h = 0; h < n_head; ++h) {
+    const int hc = h * dh;
+    float acc[8][2], cmp[8][2];          // dpd's sums, compensated
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      acc[t][0] = acc[t][1] = cmp[t][0] = cmp[t][1] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += kCh) {
+      const int cw4 = min(kCh, dh - c0) / 4;
+      __syncthreads();     // the previous chunk's (or head's) readers
+      load(C1, qkv, d3, 2 * d + hc + c0, cw4);
+      load(C2, d_o, d, hc + c0, cw4);
+      __syncthreads();
+      if (!active) continue;
+      for (int c4 = 0; c4 < cw4; ++c4) {
+        const float4 v0 = lane < L
+            ? *reinterpret_cast<const float4*>(C1 + (so + lane) * kLdc + 4 * c4)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 v1 = lane + 32 < L
+            ? *reinterpret_cast<const float4*>(C1 + (so + lane + 32) * kLdc
+                                               + 4 * c4)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int i = warp % wps + wps * t;
+          if (i < L) {
+            const float4 g = *reinterpret_cast<const float4*>(
+                C2 + (so + i) * kLdc + 4 * c4);
+            add_compensated(acc[t][0], cmp[t][0], dot4(g, v0, 0.f));
+            add_compensated(acc[t][1], cmp[t][1], dot4(g, v1, 0.f));
           }
         }
-        if (c < dh) {
-          float* dst = dqkv + (size_t)(row0 + j) * 3 * d + h * dh + c;
-          dst[d] = ak * inv_sqrt_dh;
-          dst[2 * d] = av;
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int i = warp % wps + wps * t;
+        if (i >= L) continue;              // uniform over the warp
+        float p[2], dp[2], pd[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = lane + 32 * u;
+          p[u] = dp[u] = pd[u] = 0.f;
+          if (j < L) {
+            p[u] = p_in[((size_t)h * N + (size_t)b * L + i) * L + j];
+            dp[u] = acc[t][u] + cmp[t][u];
+            pd[u] = p[u];
+            if (dr.on) {
+              const uint32_t idx = static_cast<uint32_t>(
+                  (((size_t)b * n_head + h) * L + i) * L + j);
+              dp[u] = dr.apply(dp[u], key, idx);
+              pd[u] = dr.apply(p[u], key, idx);
+            }
+          }
+        }
+        const float dot_pp = warp_sum(dp[0] * p[0] + dp[1] * p[1]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = lane + 32 * u;
+          if (j < L) {
+            DS[(so + i) * ldp + j] = p[u] * (dp[u] - dot_pp);
+            PD[(so + i) * ldp + j] = pd[u];
+          }
         }
       }
     }
-    __syncthreads();
+    for (int c0 = 0; c0 < dh; c0 += kCh) {
+      const int cw4 = min(kCh, dh - c0) / 4;
+      __syncthreads();     // DS, PD written; the previous chunk's readers
+      load(C1, qkv, d3, d + hc + c0, cw4);
+      load(C2, qkv, d3, hc + c0, cw4);
+      load(C3, d_o, d, hc + c0, cw4);
+      __syncthreads();
+      if (!active) continue;
+      const int cw = cw4 * 4;
+      float aq[8][2], ak[8][2], av[8][2];
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        aq[t][0] = aq[t][1] = ak[t][0] = ak[t][1] = av[t][0] = av[t][1] = 0.f;
+      for (int j = 0; j < L; ++j) {
+        const float* kr = C1 + (so + j) * kLdc;
+        const float* qr = C2 + (so + j) * kLdc;
+        const float* gr = C3 + (so + j) * kLdc;
+        const float k0 = lane < cw ? kr[lane] : 0.f;
+        const float k1 = lane + 32 < cw ? kr[lane + 32] : 0.f;
+        const float q0 = lane < cw ? qr[lane] : 0.f;
+        const float q1 = lane + 32 < cw ? qr[lane + 32] : 0.f;
+        const float g0 = lane < cw ? gr[lane] : 0.f;
+        const float g1 = lane + 32 < cw ? gr[lane + 32] : 0.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int i = warp % wps + wps * t;
+          if (i < L) {
+            const float ds_ij = DS[(so + i) * ldp + j];   // i a query row
+            const float ds_ji = DS[(so + j) * ldp + i];   // i a key row
+            const float pd_ji = PD[(so + j) * ldp + i];
+            aq[t][0] = fmaf(ds_ij, k0, aq[t][0]);
+            aq[t][1] = fmaf(ds_ij, k1, aq[t][1]);
+            ak[t][0] = fmaf(ds_ji, q0, ak[t][0]);
+            ak[t][1] = fmaf(ds_ji, q1, ak[t][1]);
+            av[t][0] = fmaf(pd_ji, g0, av[t][0]);
+            av[t][1] = fmaf(pd_ji, g1, av[t][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int i = warp % wps + wps * t;
+        if (i >= L) continue;
+        float* dst = dqkv + ((size_t)b * L + i) * d3 + hc + c0;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int c = lane + 32 * u;
+          if (c >= cw) continue;
+          dst[c] = aq[t][u] * inv_sqrt_dh;
+          dst[d + c] = ak[t][u] * inv_sqrt_dh;
+          dst[2 * d + c] = av[t][u];
+        }
+      }
+    }
   }
 }
 
@@ -558,8 +568,6 @@ __global__ void sum_partials_kernel(const float* __restrict__ part,
 // The output tile width of the GEMMs: the narrowest of 64, 128, 256 >= d.
 int width_tile(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
 
-// The most dynamic shared memory attn_bwd_kernel takes (L 32, d 256).
-constexpr int kAttnSmemMax = (32 * (3 * 256 + 1) + 32 * 256 + 2 * 32 * 32) * 4;
 
 // Lets each kernel take its dynamic shared memory; once per device.
 cudaError_t prepare() {
@@ -568,10 +576,16 @@ cudaError_t prepare() {
   TRY(cudaGetDevice(&dev));
   if (dev < 64 && done[dev]) return cudaSuccess;
   const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  TRY(cudaFuncSetAttribute(tc_gemm_kernel<64>, a, GemmCfg<64>::kSmem));
-  TRY(cudaFuncSetAttribute(tc_gemm_kernel<128>, a, GemmCfg<128>::kSmem));
-  TRY(cudaFuncSetAttribute(tc_gemm_kernel<256>, a, GemmCfg<256>::kSmem));
-  TRY(cudaFuncSetAttribute(attn_bwd_kernel, a, kAttnSmemMax));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<64>, a,
+                           GemmCfg<64, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<128>, a,
+                           GemmCfg<128, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<256>, a,
+                           GemmCfg<256, false>::kSmem));
+  int most = 0;
+  for (int L = 1; L <= kMaxL; ++L)
+    most = attn_bwd_smem(L) > most ? attn_bwd_smem(L) : most;
+  TRY(cudaFuncSetAttribute(attn_bwd_kernel, a, most));
   TRY(cudaFuncSetAttribute(wgrad_kernel, a, kWgSmem));
   if (dev < 64) done[dev] = true;
   return cudaSuccess;
@@ -580,7 +594,8 @@ cudaError_t prepare() {
 template <int NT>
 cudaError_t gemm_t(const GemmArgs& g, cudaStream_t s) {
   const dim3 grid((g.n + kGemmRows - 1) / kGemmRows, (g.m + NT - 1) / NT);
-  tc_gemm_kernel<NT><<<grid, kGemmThreads, GemmCfg<NT>::kSmem, s>>>(g);
+  tc_gemm_kernel<NT><<<grid, kGemmThreads, GemmCfg<NT, false>::kSmem,
+                       s>>>(g);
   return cudaGetLastError();
 }
 
@@ -599,9 +614,12 @@ cudaError_t ln_bwd(const float* gin, const float* xhat, const float* rstd,
   else if (d <= 128)
     ln_bwd_kernel<4><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
                                                  dzd, n, d, dr, key);
-  else
+  else if (d <= 256)
     ln_bwd_kernel<8><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
                                                  dzd, n, d, dr, key);
+  else
+    ln_bwd_kernel<16><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
+                                                  dzd, n, d, dr, key);
   return cudaGetLastError();
 }
 
@@ -672,7 +690,6 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
   drop::Dropout off = dr;
   off.on = 0;
   const size_t s_qkv = (size_t)d * 3 * d, s_dd = (size_t)d * d;
-  const int att_smem = (L * (3 * d + 1) + L * d + 2 * L * L) * 4;
   TRY(prepare());
   auto layer = [&](int li, size_t off_in_layer) {
     return saved + so.layers + li * so.per_layer + off_in_layer;
@@ -707,8 +724,9 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     g7.a = da; g7.w = l0.w_out + li * s_dd; g7.c = t.d_o; g7.n = n; g7.k = d;
     g7.m = d; g7.epi = kStore; g7.dr = off;
     TRY(launch_gemm(g7, nt, s));
-    attn_bwd_kernel<<<B, kThreads, att_smem, s>>>(
-        layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, n, L, d,
+    attn_bwd_kernel<<<(B + attn_seqs(L) - 1) / attn_seqs(L), kThreads,
+                      attn_bwd_smem(L), s>>>(
+        layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L, d,
         n_head, dr, dr.key(drop::kProbs, li));
     TRY(cudaGetLastError());
     // dx of the layer: dz1 + dqkv·Wqkvᵀ, through the input dropout below

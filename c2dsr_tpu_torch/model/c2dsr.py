@@ -117,7 +117,8 @@ def _encode(h, seq, pos, attn_params, cfg: Config, spec: DataSpec,
         norm_first=cfg.norm_first,
         invert_padding_mask=cfg.bug_inverted_padding_mask,
         dropout=0.0 if seed is None else cfg.dropout_attn,
-        seed=seed or 0, tower=tower).float()
+        seed=seed or 0, tower=tower).to(
+            torch.promote_types(x.dtype, torch.float32))
 
 
 def _tower(seq, pos, hi, raw_table, attn_params, cfg: Config, spec: DataSpec,

@@ -58,6 +58,14 @@ def bits_reference(seed: int, site: int, tower: int, layer: int,
     return mix32(((index * GOLDEN) & M32) ^ key)
 
 
+def step_seed(base: int, step: int) -> int:
+    """The dropout seed of train step ``step`` of a run seeded ``base``: a
+    fixed hash of the pair, below 2^31, so that a run resumed at a step
+    draws what an uninterrupted run draws there (the JAX package's
+    ``fold_in(base_rng, state.step)``)."""
+    return mix32(mix32(base) ^ ((step * GOLDEN) & M32)) & 0x7FFFFFFF
+
+
 def threshold(p: float) -> int:
     """Bits at or above this value keep their element (keep rate 1 - p)."""
     return min(int(p * 2 ** 32), M32)

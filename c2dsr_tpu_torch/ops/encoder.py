@@ -27,7 +27,7 @@ with each layer weight stacked over layers (``model/params.py``).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -37,23 +37,29 @@ _NAMES = ("w_qkv", "b_qkv", "w_out", "b_out", "w_ff1", "b_ff1", "w_ff2",
           "b_ff2", "ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
 LN_EPS = 1e-8          # layer_norm_eps of the reference (encoders.py:25-27)
 NEG_INF = -1e9         # finite mask value: keeps softmax NaN-free on all-pad rows
+# a layer's branches: (ReLU mask, all-masked rows' attention probabilities)
+Branches = Tuple[torch.Tensor, torch.Tensor]
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = LN_EPS) -> torch.Tensor:
-    # statistics in f32 regardless of the input dtype, result back in it
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    out = (x32 - mean) * torch.rsqrt(var + eps) * scale + bias
+    # statistics in f32 or wider whatever the input dtype, result back in it
+    xw = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xw.mean(dim=-1, keepdim=True)
+    var = (xw - mean).square().mean(dim=-1, keepdim=True)
+    out = (xw - mean) * torch.rsqrt(var + eps) * scale + bias
     return out.to(x.dtype)
 
 
 def multi_head_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
                          n_head: int, mask_bias: torch.Tensor,
-                         drop_probs=lambda t: t) -> torch.Tensor:
+                         drop_probs=lambda t: t,
+                         masked_probs: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Self-attention with additive mask bias [B, 1, L, L]; ``drop_probs``
-    applies dropout to the probabilities [B, H, L, L]."""
+    applies dropout to the probabilities [B, H, L, L].  ``masked_probs``
+    [B, H, L, L], if given, are the probabilities of the all-masked rows
+    (the softmax's backward is taken at them)."""
     B, L, d = x.shape
     dh = d // n_head
     qkv = x @ p["w_qkv"] + p["b_qkv"]                     # [B, L, 3d]
@@ -64,6 +70,11 @@ def multi_head_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
     q, k, v = heads(q), heads(k), heads(v)
     logits = (q @ k.transpose(-1, -2)) / math.sqrt(dh) + mask_bias
+    if masked_probs is not None:
+        masked = (logits < 0.5 * NEG_INF).all(-1, keepdim=True)
+        logits = torch.where(masked, logits - logits.detach()
+                             + torch.log(masked_probs.to(logits.dtype)),
+                             logits)
     attn = drop_probs(torch.softmax(logits, dim=-1))
     out = (attn @ v).transpose(1, 2).reshape(B, L, d)
     return out @ p["w_out"] + p["b_out"]
@@ -72,60 +83,90 @@ def multi_head_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
 def encoder_layer(x: torch.Tensor, p: Dict[str, Any], *, n_head: int,
                   mask_bias: torch.Tensor, norm_first: bool,
                   dropout: float = 0.0, seed: int = 0, tower: int = 0,
-                  layer: int = 0) -> torch.Tensor:
+                  layer: int = 0, branches: Optional[Branches] = None
+                  ) -> torch.Tensor:
     """One transformer encoder layer, post-norm by default (torch semantics).
-    Dropout sites as ``c2dsr_tpu/ops/encoder.py`` has them."""
+    Dropout sites as ``c2dsr_tpu/ops/encoder.py`` has them.  ``branches``,
+    if given, is (ReLU mask [B, L, d], all-masked rows' probabilities
+    [B, H, L, L]): the layer is taken at those branches instead of its own
+    (see :func:`encode_layers`)."""
     def dr(site):
         return lambda t: drop.apply(t, dropout, seed, site, tower, layer)
 
+    relu_mask, probs = branches if branches is not None else (None, None)
+
+    def relu(t):
+        return torch.relu(t) if relu_mask is None else t * relu_mask.to(t)
+
+    def mha(h):
+        return multi_head_attention(h, p, n_head, mask_bias,
+                                    dr(drop.SITE_PROBS), probs)
+
     if norm_first:
         h = layer_norm(x, p["ln1_scale"], p["ln1_bias"])
-        x = x + dr(drop.SITE_ATTN_OUT)(multi_head_attention(
-            h, p, n_head, mask_bias, dr(drop.SITE_PROBS)))
+        x = x + dr(drop.SITE_ATTN_OUT)(mha(h))
         h = layer_norm(x, p["ln2_scale"], p["ln2_bias"])
-        ff = dr(drop.SITE_FFN_RELU)(torch.relu(h @ p["w_ff1"] + p["b_ff1"]))
+        ff = dr(drop.SITE_FFN_RELU)(relu(h @ p["w_ff1"] + p["b_ff1"]))
         return x + dr(drop.SITE_FFN_OUT)(ff @ p["w_ff2"] + p["b_ff2"])
-    x = layer_norm(x + dr(drop.SITE_ATTN_OUT)(multi_head_attention(
-        x, p, n_head, mask_bias, dr(drop.SITE_PROBS))),
-        p["ln1_scale"], p["ln1_bias"])
-    ff = dr(drop.SITE_FFN_RELU)(torch.relu(x @ p["w_ff1"] + p["b_ff1"]))
+    x = layer_norm(x + dr(drop.SITE_ATTN_OUT)(mha(x)),
+                   p["ln1_scale"], p["ln1_bias"])
+    ff = dr(drop.SITE_FFN_RELU)(relu(x @ p["w_ff1"] + p["b_ff1"]))
     x = x + dr(drop.SITE_FFN_OUT)(ff @ p["w_ff2"] + p["b_ff2"])
     return layer_norm(x, p["ln2_scale"], p["ln2_bias"])
 
 
 def attention_mask_bias(seq: torch.Tensor, idx_pad: int,
-                        invert_padding_mask: bool) -> torch.Tensor:
+                        invert_padding_mask: bool,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Additive attention bias [B, 1, L, L]: causal + key-padding.
 
     Correct polarity masks *pad* keys; the bug-parity mode masks *real* keys
     (reference encoders.py:33 passes ``seq != idx_pad`` where torch expects
-    True = ignore)."""
+    True = ignore).  For float64 logits the bias is NEG_INF·2^29: its
+    spacing in float64 is 64, as NEG_INF's is in f32, so a masked logit
+    rounds to the steps it takes in f32 and an all-masked row comes out as
+    it does there (the uniform average over the L positions)."""
     B, L = seq.shape
     causal = torch.ones((L, L), dtype=torch.bool, device=seq.device).tril()
     is_real = seq != idx_pad
     key_ok = ~is_real if invert_padding_mask else is_real
     ok = causal[None, :, :] & key_ok[:, None, :]
-    zero = torch.zeros((), dtype=torch.float32, device=seq.device)
-    neg = torch.full((), NEG_INF, dtype=torch.float32, device=seq.device)
+    wide = dtype == torch.float64
+    dtype = torch.float64 if wide else torch.float32
+    zero = torch.zeros((), dtype=dtype, device=seq.device)
+    neg = torch.full((), NEG_INF * 2.0 ** 29 if wide else NEG_INF,
+                     dtype=dtype, device=seq.device)
     return torch.where(ok, zero, neg)[:, None, :, :]
 
 
 def encode_layers(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                   *, idx_pad: int, n_head: int, norm_first: bool,
                   invert_padding_mask: bool, dropout: float = 0.0,
-                  seed: int = 0, tower: int = 0) -> torch.Tensor:
+                  seed: int = 0, tower: int = 0,
+                  branches: Optional[Dict[Tuple[int, int], Branches]] = None
+                  ) -> torch.Tensor:
     """Input dropout, the layers and the final LayerNorm, on an input that
     already holds the positional embedding: what the fused kernel computes
     (post-norm).  ``params["layers"]`` holds each layer weight stacked over
     layers.  ``tower`` keys the masks of one tower call apart from the
-    others of the same step."""
+    others of the same step.
+
+    ``branches`` maps (tower, layer) to the branches another forward took
+    (``encoder_layer``): two f32-correct forwards can round a ReLU input
+    that sits at zero to opposite signs, or an all-masked row's logits
+    (-1e9 + x) to different steps of 64.  The outputs agree to rounding but
+    the gradients then differ by whole rows, so a check of the fused
+    backward, which differentiates its own forward, takes this tower at the
+    fused forward's branches."""
     x = drop.apply(x, dropout, seed, drop.SITE_INPUT, tower, 0)
-    bias = attention_mask_bias(seq, idx_pad, invert_padding_mask)
+    bias = attention_mask_bias(seq, idx_pad, invert_padding_mask, x.dtype)
     layers = params["layers"]
     for i in range(layers["w_qkv"].shape[0]):
         x = encoder_layer(x, {k: v[i] for k, v in layers.items()},
                           n_head=n_head, mask_bias=bias, norm_first=norm_first,
-                          dropout=dropout, seed=seed, tower=tower, layer=i)
+                          dropout=dropout, seed=seed, tower=tower, layer=i,
+                          branches=None if branches is None
+                          else branches[(tower, i)])
     return layer_norm(x, params["lnf_scale"], params["lnf_bias"])
 
 
@@ -162,12 +203,15 @@ def tower_params(weights) -> Dict[str, Any]:
 def encoder_fwd_plain(x: torch.Tensor, seq: torch.Tensor,
                       params: Dict[str, Any], *, idx_pad: int, n_head: int,
                       invert_padding_mask: bool, dropout: float = 0.0,
-                      seed: int = 0, tower: int = 0) -> torch.Tensor:
-    """The plain version of ``encoder_cuda.encoder_fwd`` (post-norm)."""
+                      seed: int = 0, tower: int = 0, branches=None
+                      ) -> torch.Tensor:
+    """The plain version of ``encoder_cuda.encoder_fwd`` (post-norm);
+    ``branches`` as :func:`encode_layers` takes them."""
     return encode_layers(x, seq, params, idx_pad=idx_pad, n_head=n_head,
                          norm_first=False,
                          invert_padding_mask=invert_padding_mask,
-                         dropout=dropout, seed=seed, tower=tower)
+                         dropout=dropout, seed=seed, tower=tower,
+                         branches=branches)
 
 
 def encoder_bwd_plain(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,

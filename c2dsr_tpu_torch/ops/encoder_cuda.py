@@ -13,20 +13,18 @@ outside, as in JAX (``encoder_pallas.py:582``).
 
 What bounds them on an H100: operations.  Per layer the forward does
 12·N·d² + 4·N·L·d FLOPs (N = B·L rows) and moves one read of the input and
-one write of the output; the backward does twice that.  Forward design
-(f32 FFMA): one block keeps 64 / L whole sequences (32 / L above d 128) in
-shared memory for the whole tower; the weights (393 KB a layer at d = 128)
-stream through shared memory in 32x64 tiles from L2, read in place
-(stacked over layers at rest) and prefetched into L2 at the grid's start.
-In training the forward also writes every layer's activations for all N
-rows (about 11·d floats a row) into a buffer that the backward reads: the
-backward differentiates the very forward the loss saw, with no recompute.
-Backward design: a sequence of kernels over all N rows of the call, every
-product with a weight on the tensor cores at f32 accuracy (3xTF32), with
-dropout, ReLU's mask and the residual folded into the GEMMs' epilogues;
-LayerNorm backward a row a warp; attention per whole sequence; the weight
-gradients as reductions over row splits summed in order
-(``csrc/encoder_bwd.cu`` states the budget).
+one write of the output; the backward does twice that.  Both are sequences
+of kernels over all N rows of the call, every product with a weight on the
+tensor cores at f32 accuracy (3xTF32, ``csrc/tc.cuh``): the forward folds
+the bias, ReLU, dropout, residual and (up to d 256) LayerNorm into its
+GEMMs' epilogues, the backward dropout, ReLU's mask and the residual;
+attention runs a block per sequence; LayerNorm (the forward's above d 256,
+the backward's) a row a warp; the weight gradients are reductions over row
+splits summed in order.  The forward writes its intermediates into the
+saved-activation layout: in training the buffer the backward reads, so the
+backward differentiates the very forward the loss saw with no recompute;
+in eval a one-layer workspace of the same layout (``csrc/encoder.cu`` and
+``csrc/encoder_bwd.cu`` state their launch budgets).
 
 Dropout (training) draws every mask from the counter-based hash of
 ``ops/dropout.py``; the backward regenerates the forward's masks from the
@@ -50,7 +48,7 @@ from c2dsr_tpu_torch.ops.encoder import _NAMES, tower_params, tower_weights
 
 _DROP_SIG = (ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
              ctypes.c_int)
-_FWD_SIG = ((ctypes.c_void_p,) * 18 + (ctypes.c_int,) * 7 + _DROP_SIG
+_FWD_SIG = ((ctypes.c_void_p,) * 18 + (ctypes.c_int,) * 8 + _DROP_SIG
             + (ctypes.c_void_p,))
 _BWD_SIG = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 6 + _DROP_SIG
             + (ctypes.c_void_p,))
@@ -66,13 +64,12 @@ def _fn(stem: str, name: str, argtypes, restype=ctypes.c_int):
 
 def supported(d: int, n_head: int, length: int) -> bool:
     """Shapes both kernels take: every width at which the JAX package runs
-    its fused encoder, up to d 256: d a multiple of 8 from 8 to 256, head dim
-    a multiple of 8, and 1 <= L <= 32 (FK/MB L = 15, EE L = 30).  The
-    forward holds 64 rows a block up to d 128 and 32 above, whole sequences
-    each; attention gives each key a lane of a warp in both kernels.
-    d > 256 is refused (ROADMAP §C)."""
-    return (d % 8 == 0 and 8 <= d <= 256 and d % n_head == 0
-            and (d // n_head) % 8 == 0 and 1 <= length <= 32)
+    its fused encoder, up to d 512: d a multiple of 8 from 8 to 512, head dim
+    a multiple of 8, and 1 <= L <= 64 (FK/MB L = 15, EE L = 30).  The
+    attention kernels give a lane two keys of a sequence; nothing else is
+    tied to L.  Wider towers are refused (ROADMAP §C)."""
+    return (d % 8 == 0 and 8 <= d <= 512 and d % n_head == 0
+            and (d // n_head) % 8 == 0 and 1 <= length <= 64)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -96,7 +93,7 @@ def _check(x: torch.Tensor, seq: torch.Tensor, weights, n_head: int,
     B, L, d = x.shape
     if not supported(d, n_head, L):
         raise ValueError(f"{name} does not take d={d}, n_head={n_head}, L={L} "
-                         "(d % 8 == 0 up to 256, head dim % 8 == 0, L <= 32; "
+                         "(d % 8 == 0 up to 512, head dim % 8 == 0, L <= 64; "
                          "ROADMAP §C)")
     if max(B * L * d, B * n_head * L * L) >= 2 ** 31:
         raise ValueError(f"{name}: a tower call must hold < 2^31 elements")
@@ -178,21 +175,29 @@ def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                 *, idx_pad: int, n_head: int, invert_padding_mask: bool,
                 dropout: float = 0.0, seed: int = 0, tower: int = 0,
                 saved: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Input dropout, layers and final LN of one tower by the CUDA kernel.
+    """Input dropout, layers and final LN of one tower by the CUDA kernels.
 
     x: [B, L, d] f32 CUDA (positional embedding already added); seq: [B, L]
     int (pad = idx_pad).  With ``saved`` (from :func:`saved_buffer`) the
-    kernel also writes the activations :func:`encoder_bwd` reads.  Returns
+    kernels also write the activations :func:`encoder_bwd` reads; without
+    it they work in a one-layer workspace of the same layout.  Returns
     [B, L, d] f32."""
     weights = tower_weights(params)
     B, L, d, n_layers = _check(x, seq, weights, n_head, "encoder_fwd")
     seq32 = seq.to(torch.int32).contiguous()
     if saved is not None:
         _check_saved(saved, B, L, d, n_head, n_layers)
+        buf = saved
+    else:
+        buf = torch.empty(_saved_offsets(B, L, d, n_head, 1)[-1],
+                          dtype=torch.float32, device=x.device)
+    # the kernels' 16-byte asynchronous copies read x and the weights
+    x = _aligned(x)
+    weights = [_aligned(w) for w in weights]
     out = torch.empty_like(x)
     err = _fn("encoder", "encoder_fwd_f32", _FWD_SIG)(
         x.data_ptr(), seq32.data_ptr(), *[w.data_ptr() for w in weights],
-        out.data_ptr(), None if saved is None else saved.data_ptr(),
+        out.data_ptr(), buf.data_ptr(), int(saved is not None),
         B, L, d, n_head, n_layers, int(idx_pad),
         int(bool(invert_padding_mask)), *_drop_args(dropout, seed, tower),
         torch.cuda.current_stream().cuda_stream)

@@ -113,6 +113,6 @@ def fused_rec_ce_rows(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     B, R, d = h.shape
     n = B * R
     lse, tlog = fused_ce(h.reshape(n, d), w, mask_bias(b, n_real),
-                         pad_logit.reshape(n).float(), targets.reshape(n))
+                         pad_logit.reshape(n).to(h.dtype), targets.reshape(n))
     mask = (targets != n_real).to(lse.dtype)
     return (lse - tlog).reshape(B, R) * mask

@@ -65,10 +65,9 @@ class Experiment:
         params = params_mod.init_params(
             cfg, spec, torch.Generator().manual_seed(cfg.seed), self.device)
         self.state = step_mod.init_state(params, self.optimizer)
-        # the step stream: each step draws its dropout seed from it
+        # each step's dropout seed follows (cfg.seed + 1, state.step)
         self.train_step = step_mod.make_train_step(
-            cfg, spec, graphs, self.optimizer,
-            torch.Generator().manual_seed(cfg.seed + 1), self.device)
+            cfg, spec, graphs, self.optimizer, self.device)
         self.convolve_eval, self.rank_step = ranker.make_eval_fns(
             cfg, spec, graphs, self.device)
         self._profiled = False

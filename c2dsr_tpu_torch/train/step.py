@@ -22,9 +22,12 @@ backward, dropout in the kernels) and the fused CE (K4, K5).  With
 SpMM (K6), flagged by the rows the step looks up (:func:`row_flags`).  On
 the CPU the same code runs their plain versions under autograd.
 
-Dropout comes from one seed a step, drawn from the caller's CPU
-``torch.Generator``: the GNN's masks from a device generator seeded with it,
-the towers' from the counter-based hash of ``ops/dropout.py``.
+Dropout comes from one seed a step, a fixed hash of (``cfg.seed + 1``,
+``state.step``) (``ops/dropout.step_seed``): the GNN's masks from a device
+generator seeded with it, the towers' from the counter-based hash of
+``ops/dropout.py``.  The step count is in the checkpoint, so a resumed run
+draws what an uninterrupted one draws, as the JAX package's
+``fold_in(base_rng, state.step)`` does.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from c2dsr_tpu_torch.config import Config, DataSpec
 from c2dsr_tpu_torch.evaluate.ranker import to_device
 from c2dsr_tpu_torch.model import c2dsr
 from c2dsr_tpu_torch.ops import backend, losses
+from c2dsr_tpu_torch.ops import dropout as drop
 from c2dsr_tpu_torch.parallel import strategy
 from c2dsr_tpu_torch.train import optim
 
@@ -196,13 +200,12 @@ def loss_fn(params, graphs: c2dsr.Graphs, batch: Dict[str, torch.Tensor],
 
 
 def make_train_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
-                    optimizer: optim.Optimizer, generator: torch.Generator,
-                    device="cuda"):
+                    optimizer: optim.Optimizer, device="cuda"):
     """The train step: ``train_step(state, batch) -> (state, aux)``.
 
-    ``batch`` is a dict of numpy arrays (data/pipeline.BatchIterator);
-    ``generator`` is a CPU ``torch.Generator``, from which each step draws
-    its dropout seed on the host.  The parameters are updated in place;
+    ``batch`` is a dict of numpy arrays (data/pipeline.BatchIterator).  The
+    step's dropout seed is ``ops/dropout.step_seed(cfg.seed + 1,
+    state.step)``, computed on the host.  The parameters are updated in place;
     ``aux`` holds loss, loss_rec, loss_mi and n_examples as device tensors,
     read with no host sync.  Runs on the card unless ``device="cpu"``."""
     device = backend.resolve_device(device)
@@ -210,7 +213,7 @@ def make_train_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         b = to_device(batch, device)
-        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+        seed = drop.step_seed(cfg.seed + 1, state.step)
         optimizer.prepare(state.opt_state)
         loss, aux = loss_fn(state.params, graphs, b, seed, cfg, spec, pops)
         loss.backward()

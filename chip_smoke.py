@@ -2,7 +2,8 @@
 """Quickest proof that the PyTorch port starts and is right on an NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare OTHER   # train rate against OTHER/'s
+    python3 chip_smoke.py --compare OTHER   # train and serving measures
+                                            # against OTHER/'s
                                             # c2dsr_tpu_torch, in turns
 
 Needs one CUDA card, ``nvcc`` and the ``c2dsr_tpu_torch`` package beside
@@ -15,35 +16,44 @@ Phases (any failure exits non-zero without the final line):
    at the main paths' shapes, and time kernel, plain version and one
    PyTorch library call (a yardstick the port never calls): the SpMM over A
    and over Aᵀ, the encoder forward in eval and in train mode (saving the
-   activations the backward reads) and its backward (at dropout 0 and 0.2;
-   K3 against the plain version at K2's ReLU branches, and bitwise against
-   a second launch, with its kernel launches a tower call and its backward
-   and weight-gradient parts profiled), the CE forward and backward (both
-   also bitwise against a second launch, their kernels timed apart, with
-   the FP32 FFMA and the 3xTF32 tensor-core bounds).  Then the wider
-   shapes: K2 and K3 at d 32, 40, 96, 160 and 256 (L up to 30 at every
-   width), K4 and K5 at d 256 and 40.
+   activations the backward reads; its kernel launches a tower call and
+   its GEMM, attention and LayerNorm parts profiled) and its backward (at
+   dropout 0 and 0.2; K3 against the plain version at K2's branches,
+   and bitwise against a second launch, with its kernel launches a tower
+   call and its backward and weight-gradient parts profiled), the CE
+   forward and backward (both also bitwise against a second launch, their
+   kernels timed apart, with the FP32 FFMA and the 3xTF32 tensor-core
+   bounds).  Then the wider shapes: K2 and K3 at d 32, 40, 96, 160, 256
+   and 512 and at L up to 64, K4 and K5 at d 256 and 40.
 3. serving path: the ranking path at Food-Kitchen geometry with the
    default Config and random seeded weights: convolve once, then rank the
    eval split in sampled and in full mode.  Every serving kernel must
    launch there; the ranks must equal those of the same run with the plain
-   versions, except at counted near-ties, and every metric must be finite.
+   versions, except at counted near-ties (a band from the plain versions'
+   own score error against float64, near_ties), and every metric must be
+   finite; the kernels' scores must lie within SCORE_K times the plain
+   versions' error of the float64 ones; a tower perturbed by PERTURB must
+   fail both gates.  Then the same once at ``d_latent=512`` against one
+   plain run.
 4. training path: train_step at Food-Kitchen geometry with the default
    Config (batch 512, dropout 0.2) on the synthetic train split: the loss
    must stay finite and fall, every kernel must launch its expected count a
    step, and one step at dropout 0 must give the plain versions' loss and
-   gradients (the plain versions taken at K2's ReLU branches, relu_at;
+   gradients (the plain versions taken at K2's branches, k2_branches;
    the comparison at their own branches is logged); then train examples/s
-   in turns with the plain versions, and one profiled step.  Then three
-   steps with ``d_latent=256`` at dropout 0, the third at ``len_max=30``,
-   each first held against the plain versions (loss and gradients).
+   in turns with the plain versions, and one profiled step.  Then four
+   steps at dropout 0, three with ``d_latent=256`` (the third at
+   ``len_max=30``) and one at ``len_max=64``, each first held against the
+   plain versions (loss and gradients).
 5. experiment path: ``train.loop.Experiment`` at Food-Kitchen geometry
    with ``Config(batch_sparse_gnn=True, n_epoch=2)``, checkpointing to a
    temporary directory: finite losses and metrics, the batch-sparse SpMM
    (K6) on every hop of every step and the dense one (K1) in every eval
-   convolve, the checkpoint written and a resumed run finished; one step
-   at dropout 0 with the flags on and off gives the same loss and
-   gradients; warm train examples/s with the flags on and off, in turns.
+   convolve, the checkpoint written and a resumed run finished; at dropout
+   0.2 a run resumed from a checkpoint takes the uninterrupted run's next
+   step; one step at dropout 0 with the flags on and off gives the same
+   loss and gradients; warm train examples/s with the flags on and off,
+   in turns.
 6. CLI: ``python -m c2dsr_tpu_torch.cli --synthetic 2000 --n_epoch 1``,
    and again with ``--d_latent 40``, each in a temporary directory, exits
    0 and prints the final result table.
@@ -58,6 +68,7 @@ the share of each graph's edges that such a batch keeps.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import math
 import os
@@ -74,7 +85,17 @@ N_TRAIN_USERS = 34117                            # real FK train-set size
 N_EVAL_USERS = 8192
 SPMM_TOL = 1e-5          # max abs error relative to max |out|: f32 sums in another order
 ENCODER_TOL = 1e-4       # abs, on LayerNorm outputs of order 1
-TIE_TOL = 1e-5           # a candidate this close to the gt score is a near-tie
+ENCODER_REL_TOL = 2e-5   # K2 against its plain version, max abs err over
+                         # max |plain| on query rows that have an allowed
+                         # key: f32-accurate products (3xTF32) and sums in
+                         # another order
+TIE_TOL = 1e-5           # the least near-tie band (near_ties)
+SCORE_K = 2.0            # the kernels' serving scores may lie up to this many
+                         # times as far from a float64 scoring as the plain
+                         # versions' (K2's GEMMs are 3xTF32, its attention
+                         # dots compensated: more accurate than cuBLAS's f32)
+PERTURB = 1e-4           # noise on each tower's final LN bias: a tower this
+                         # wrong must fail the serving gates
 WARM_ROUNDS = 10         # rounds of (plain, kernel, kernel, plain) warm runs
 GRAD_TOL = 1e-4          # max abs err over max |plain|, per gradient tensor:
                          # f32 sums over thousands of rows in another order
@@ -161,18 +182,21 @@ def _ignore_saved(fn):
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(branches=None):
     """Route CUDA tensors through the plain PyTorch versions instead of the
-    kernels, for the comparison run of the main path."""
+    kernels, for the comparison run of the main path; the plain tower taken
+    at ``branches`` (``ops/encoder.encode_layers``) if given."""
     from c2dsr_tpu_torch.ops import encoder as enc
     from c2dsr_tpu_torch.ops import (encoder_cuda, fused_ce, fused_ce_cuda,
                                      spmm, spmm_cuda)
     swaps = [(spmm_cuda, "spmm_csr", spmm.spmm_reference),
              (spmm_cuda, "spmm_csr_flagged", spmm.spmm_reference_flagged),
-             (encoder_cuda, "encoder_fwd",
-              _ignore_saved(enc.encoder_fwd_plain)),
-             (encoder_cuda, "encoder_bwd",
-              _ignore_saved(enc.encoder_bwd_plain)),
+             (encoder_cuda, "encoder_fwd", _ignore_saved(
+                 lambda *a, **kw: enc.encoder_fwd_plain(
+                     *a, branches=branches, **kw))),
+             (encoder_cuda, "encoder_bwd", _ignore_saved(
+                 lambda *a, **kw: enc.encoder_bwd_plain(
+                     *a, branches=branches, **kw))),
              (fused_ce_cuda, "ce_fwd", fused_ce.ce_fwd_plain),
              (fused_ce_cuda, "ce_bwd", fused_ce.ce_bwd_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
@@ -185,72 +209,62 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def relu_masks(saved, shape, n_head, n_layers, tower):
-    """{(tower, layer): K2's ReLU mask} from a saved-activation buffer."""
+def k2_branches(saved, shape, n_head, n_layers, tower):
+    """{(tower, layer): (K2's ReLU mask, K2's attention probabilities
+    [B, H, L, L])} from a saved-activation buffer."""
     from c2dsr_tpu_torch.ops import encoder_cuda
     views = encoder_cuda.saved_views(saved, shape, n_head, n_layers)
-    return {(tower, li): (lv["fr"] > 0).float()
+    return {(tower, li): ((lv["fr"] > 0).float(),
+                          lv["p"].permute(1, 0, 2, 3).clone())
             for li, lv in enumerate(views["layers"])}
 
 
 @contextlib.contextmanager
-def recording_relu_masks(store):
-    """The kernels as they are, with K2's ReLU masks of every training tower
-    call recorded into ``store`` by (tower, layer)."""
+def recording_k2_branches(store, calls=None):
+    """The kernels as they are, with K2's branches (k2_branches) of every
+    training tower call recorded into ``store`` by (tower, layer); with a
+    list ``calls``, each backward call's inputs, K2's saved activations
+    and K3's result appended to it (_tower_accuracy)."""
     from c2dsr_tpu_torch.ops import encoder_cuda
-    fwd = encoder_cuda.encoder_fwd
+    fwd, bwd = encoder_cuda.encoder_fwd, encoder_cuda.encoder_bwd
 
     def recording(x, seq, params, *, saved=None, **kw):
         out = fwd(x, seq, params, saved=saved, **kw)
         if saved is not None:
-            store.update(relu_masks(saved, x.shape, kw["n_head"],
-                                    params["layers"]["w_qkv"].shape[0],
-                                    kw["tower"]))
+            store.update(k2_branches(saved, x.shape, kw["n_head"],
+                                     params["layers"]["w_qkv"].shape[0],
+                                     kw["tower"]))
         return out
 
-    # the wrapper counts its launches on the module's name: carry the count
-    recording.launches = fwd.launches
+    def capturing(x, seq, gout, params, *, saved=None, **kw):
+        got = bwd(x, seq, gout, params, saved=saved, **kw)
+        calls.append({"x": x.detach().clone(), "seq": seq, "p": params,
+                      "gout": gout.detach().clone(), "kw": kw,
+                      "saved": saved.clone(), "got": got})
+        return got
+
+    # the wrappers count their launches on the module's names: carry them
+    recording.launches, capturing.launches = fwd.launches, bwd.launches
     encoder_cuda.encoder_fwd = recording
+    if calls is not None:
+        encoder_cuda.encoder_bwd = capturing
     try:
         yield
     finally:
         fwd.launches = recording.launches
-        encoder_cuda.encoder_fwd = fwd
-
-
-@contextlib.contextmanager
-def relu_at(masks):
-    """The plain tower's ReLU taken at the kernel forward's branches: each
-    layer multiplies by K2's mask for its (tower, layer) instead.  Where a
-    ReLU input sits at zero, K2 (FFMA) and the plain forward (cuBLAS) can
-    round it to opposite signs; the forwards then agree to rounding but the
-    gradients differ by a whole row through that unit (one in 3.9 million
-    at d 256, L 30).  The kernels differentiate K2's forward, so they are
-    held against the plain versions at its branches; the comparison at the
-    plain forward's own branches is logged beside."""
-    from c2dsr_tpu_torch.ops import encoder as enc
-    layer_fn, relu = enc.encoder_layer, torch.relu
-    current = {}
-
-    def layer(x, p, *, tower=0, layer=0, **kw):
-        current["mask"] = masks[(tower, layer)]
-        return layer_fn(x, p, tower=tower, layer=layer, **kw)
-
-    enc.encoder_layer = layer
-    torch.relu = lambda t: t * current["mask"]
-    try:
-        yield
-    finally:
-        enc.encoder_layer, torch.relu = layer_fn, relu
+        if calls is not None:
+            bwd.launches = capturing.launches
+        encoder_cuda.encoder_fwd, encoder_cuda.encoder_bwd = fwd, bwd
 
 
 def _k3_against_plain(x, seq, gout, p, acts, n_head, n_layers, kw, got):
     """K3's (dx, grads) ``got`` against encoder_bwd_plain: ({tensor: max
-    abs error over max |plain|} at K2's ReLU branches, the same against the
+    abs error over max |plain|} at K2's branches, the same against the
     plain forward's own branches, the max abs error of the former)."""
     from c2dsr_tpu_torch.ops import encoder as enc
-    with relu_at(relu_masks(acts, x.shape, n_head, n_layers, kw["tower"])):
-        matched = enc.encoder_bwd_plain(x, seq, gout, p, **kw)
+    matched = enc.encoder_bwd_plain(
+        x, seq, gout, p, branches=k2_branches(acts, x.shape, n_head,
+                                              n_layers, kw["tower"]), **kw)
     own = enc.encoder_bwd_plain(x, seq, gout, p, **kw)
     names = ("dx",) + enc._NAMES + ("lnf_scale", "lnf_bias")
     rels, rels_own, abs_err = {}, {}, 0.0
@@ -261,13 +275,6 @@ def _k3_against_plain(x, seq, gout, p, acts, n_head, n_layers, kw, got):
         rels_own[name] = _rel(g, o)
         abs_err = max(abs_err, float((g - m).abs().max()))
     return rels, rels_own, abs_err
-
-
-@contextlib.contextmanager
-def plain_versions_at(masks):
-    """plain_versions() at the kernel forward's ReLU branches (relu_at)."""
-    with plain_versions(), relu_at(masks):
-        yield
 
 
 def kernel_wrappers():
@@ -351,6 +358,20 @@ def _encoder_inputs(B, L, d, pad, seed):
             torch.from_numpy(seq.astype(np.int64)).cuda())
 
 
+def _fwd_errs(out, ref, seq, pad, invert):
+    """(max abs err over max |ref| on query rows with an allowed key, max
+    abs err on all-masked rows, their count).  An all-masked row's logits
+    are -1e9 + x, rounded to steps of 64, so two summation orders may round
+    one logit apart there: such rows are counted apart."""
+    key_ok = (seq == pad) if invert else (seq != pad)
+    masked = ~(key_ok.long().cumsum(1) > 0)            # [B, L]
+    diff = (out - ref).abs().amax(-1)
+    scale = max(float(ref.abs().max()), 1e-30)
+    live = float(diff[~masked].max()) if bool((~masked).any()) else 0.0
+    dead = float(diff[masked].max()) if bool(masked.any()) else 0.0
+    return live / scale, dead, int(masked.sum())
+
+
 def _torch_tower(p, d, n_head, n_layers, dropout=0.0):
     """nn.TransformerEncoder with the port's weights: the library yardstick
     (in train mode when dropout > 0)."""
@@ -387,7 +408,7 @@ def phase_encoder(timer, peak_flops, peak_bw, gpu):
     from c2dsr_tpu_torch.ops import encoder as enc
     from c2dsr_tpu_torch.ops import encoder_cuda
     B, d, pad = 2048, 128, 64093
-    worst = 0.0
+    worst = worst_rel = 0.0
     for L in (15, 30):
         for n_head in (1, 2):
             for n_layers in (1, 2):
@@ -407,13 +428,18 @@ def phase_encoder(timer, peak_flops, peak_bw, gpu):
                     check(bool(torch.isfinite(out).all()),
                           f"encoder L={L} h={n_head}: non-finite")
                     err = float((out - ref).abs().max())
-                    log(f"encoder L={L} n_head={n_head} n_attn={n_layers} "
-                        f"invert={invert}: max abs err {err:.3e}")
+                    rel, dead, n_dead = _fwd_errs(out, ref, seq, pad, invert)
+                    tag = (f"encoder L={L} n_head={n_head} n_attn={n_layers} "
+                           f"invert={invert}")
+                    log(f"{tag}: max abs err {err:.3e}; relative "
+                        f"{rel:.3e} on rows with an allowed key, abs "
+                        f"{dead:.3e} on {n_dead} all-masked rows")
                     check(err <= ENCODER_TOL,
-                          f"encoder L={L} n_head={n_head} n_attn={n_layers} "
-                          f"invert={invert}: max abs err {err} > "
-                          f"{ENCODER_TOL}")
+                          f"{tag}: max abs err {err} > {ENCODER_TOL}")
+                    check(rel <= ENCODER_REL_TOL, f"{tag}: relative err "
+                          f"{rel} > {ENCODER_REL_TOL}")
                     worst = max(worst, err)
+                    worst_rel = max(worst_rel, rel)
     # time at the main path's shape: L 15, one head, one layer, correct mask
     L, n_head, n_layers = LEN_MAX, 1, 1
     cfg = Config(d_latent=d, n_head=n_head, n_attn=n_layers)
@@ -430,57 +456,112 @@ def phase_encoder(timer, peak_flops, peak_bw, gpu):
                                                    **kw))
         library_ms = timer(lambda: tower(x, mask=causal,
                                          src_key_padding_mask=kpm))
+        times, counts = kernel_times(
+            lambda: encoder_cuda.encoder_fwd(x, seq, p, **kw))
+    parts = _k2_parts(times)
+    n_launch = int(round(sum(counts.values())))
     N = B * L
     flops = n_layers * (12 * N * d * d + 4 * N * L * d)
     nbytes = 4 * (2 * N * d + N + n_layers * (6 * d * d + 10 * d) + 2 * d)
-    bound_ms = max(flops / peak_flops, nbytes / peak_bw) * 1e3
+    bound_ffma = max(flops / peak_flops, nbytes / peak_bw) * 1e3
     bound_tc = tc_bound_ms(flops, nbytes, gpu, peak_bw)
     log(f"encoder B={B} L={L} d={d}: kernel {ms:.4f} ms plain {plain_ms:.4f} "
-        f"ms library {library_ms:.4f} ms bound {bound_ms:.4f} ms (3xTF32 "
-        f"tensor cores {bound_tc:.4f}) ({flops / 1e9:.3f} GFLOP, "
-        f"{flops / ms / 1e9:.2f} TFLOP/s)")
+        f"ms library {library_ms:.4f} ms bound 3xTF32 tensor cores "
+        f"{bound_tc:.4f} ms, FP32 FFMA {bound_ffma:.4f} ms ({flops / 1e9:.3f} "
+        f"GFLOP, {flops / ms / 1e9:.2f} TFLOP/s); {n_launch} kernel launches "
+        "a tower call; profiled device ms a call: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + "; all: " + ", ".join(f"{k} {v:.4f} x{counts[k]:g}"
+                                for k, v in sorted(times.items())))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_tc_ms": bound_tc,
-            "max_abs_err": worst,
-            "bound_by": "operations" if flops / peak_flops > nbytes / peak_bw
-            else "bytes"}
+            "bound_ms": bound_tc, "bound_ffma_ms": bound_ffma,
+            "max_abs_err": worst, "max_rel_err": worst_rel,
+            "launches_per_call": n_launch,
+            "kernels_ms": parts,
+            "bound_by": "operations" if 3 * flops / tf32_peak(gpu)
+            > nbytes / peak_bw else "bytes"}
 
 
-def near_ties(params, hi, data, cfg, spec, mode):
-    """Per domain: for each example, the number of candidates other than
-    the ground truth whose score is within TIE_TOL of the gt score."""
+def convolve_float64(params, graphs, cfg, spec):
+    """The plain propagation in float64 from ``params``: the tables of the
+    exact serving run (near_ties)."""
+    from c2dsr_tpu_torch.model import c2dsr
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.parallel.strategy import LocalOps
+    cfg64 = cfg.with_(compute_dtype="float64")
+    with torch.inference_mode(), plain_versions():
+        return c2dsr.convolve_graph(
+            params_mod._map(lambda t: t.double(), params), graphs, cfg64,
+            spec, LocalOps(cfg=cfg64))
+
+
+def near_ties(params, hi, hi_plain, hi64, data, cfg, spec, mode,
+              params_k=None):
+    """The serving ranks' tie bands, from the plain versions alone.  Per
+    example, e is the largest gap over its candidates between the plain
+    run's f32 scores (from the tables ``hi_plain``) and a float64 run of
+    the plain path from the same params (tables ``hi64``,
+    convolve_float64).  If the kernels' scores lie within SCORE_K·e of the
+    float64 ones, a candidate can change
+    order against the ground truth between the kernels' and the plain run
+    only if its plain score lies within 2·(SCORE_K + 1)·e (at least TIE_TOL)
+    of the gt's.  Returns (per domain, each example's count of such
+    candidates other than the gt; the largest band; the kernels' largest
+    score error against float64, from ``params_k`` (default ``params``) and
+    ``hi``; the plain versions' largest; both over examples not read at an
+    all-masked row)."""
     from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.parallel.strategy import LocalOps
     pops = LocalOps(cfg=cfg)
-    out = {}
+    cfg64 = cfg.with_(compute_dtype="float64")
+    p64 = params_mod._map(lambda t: t.double(), params)
+    out, widest, err_k, err_p = {}, TIE_TOL, 0.0, 0.0
     groups = ranker.partition_by_domain(data)
     with torch.inference_mode():
         for dom in ("a", "b"):
             counts = []
             for chunk, n in ranker._batches(groups[dom], cfg.batch_size_eval):
                 b = ranker.to_device(chunk, "cuda")
-                h = ranker._last_hidden(params, hi, b, cfg, spec, dom, pops)
+                h = ranker._last_hidden(params_k or params, hi, b, cfg, spec,
+                                        dom, pops)
+                with plain_versions():
+                    hp = ranker._last_hidden(params, hi_plain, b, cfg, spec,
+                                             dom, pops)
+                    h64 = ranker._last_hidden(p64, hi64, b, cfg64, spec, dom,
+                                              LocalOps(cfg=cfg64))
                 w, bias, n_real = ((params["cls_a_w"], params["cls_a_b"],
                                     spec.n_item_a) if dom == "a" else
                                    (params["cls_b_w"], params["cls_b_b"],
                                     spec.n_item_b))
-                s = pops._scores(h, w, bias)
-                gt = s.gather(1, b["gt_last"][:, None])
-                if mode == "sampled":
-                    cand = s.gather(1, b["list_neg"])
-                    c = ((cand - gt).abs() <= TIE_TOL).sum(1)
+                if mode == "sampled":      # the gt in column 0
+                    idx = torch.cat([b["gt_last"][:, None], b["list_neg"]], 1)
+                    gt_col = torch.zeros_like(idx[:, :1])
                 else:
-                    c = ((s[:, :n_real] - gt).abs() <= TIE_TOL).sum(1) - 1
+                    idx = torch.arange(n_real, device=h.device).expand(
+                        h.shape[0], n_real)
+                    gt_col = b["gt_last"][:, None]
+                s = pops._scores(h, w, bias).gather(1, idx)
+                sp = pops._scores(hp, w, bias).gather(1, idx)
+                s64 = (h64 @ w.double() + bias.double()).gather(1, idx)
+                e = (sp - s64).abs().amax(1, keepdim=True)
+                band = torch.clamp(2 * (SCORE_K + 1) * e, min=TIE_TOL)
+                c = ((sp - sp.gather(1, gt_col)).abs() <= band).sum(1) - 1
+                widest = max(widest, float(band[:n].max()))
+                # all-masked rows are exempt, as in _rank_differences
+                real = b[f"idx_last_{dom}"][:, None] >= 0
+                err_k = max(err_k, float(((s - s64).abs() * real)[:n].max()))
+                err_p = max(err_p, float((e * real)[:n].max()))
                 counts.append(c[:n].cpu().numpy())
             out[dom] = np.concatenate(counts)
-    return out
+    return out, widest, err_k, err_p
 
 
-# the CUDA kernels of each wrapper, by name (first match wins): K3 is a
-# sequence of kernels, and K4 and K5 share the transpose pre-pass
+# the CUDA kernels of each wrapper, by name (first match wins): K2 and K3
+# are sequences of kernels, and K4 and K5 share the transpose pre-pass
 KERNEL_FAMILIES = (
     ("K1/K6 spmm", ("spmm",)),
-    ("K2 encoder_fwd", ("encoder_fwd_kernel",)),
+    ("K2 encoder_fwd", ("encoder_fwd_",)),
     ("K3 encoder_bwd", ("tc_gemm_kernel", "attn_bwd_kernel",
                         "ln_bwd_kernel", "wgrad_kernel",
                         "sum_partials_kernel")),
@@ -535,7 +616,11 @@ def profile_main_path(run_all, label="profile"):
         for f, (us, n) in sorted(fam.items(), key=lambda kv: -kv[1][0])))
 
 
-def phase_main(spec, graphs_host, data):
+def phase_main(spec, graphs_host, data, cfg=None, label="main path"):
+    """The serving path: convolve once, rank the eval split in sampled and
+    full mode; launches, finite metrics, ranks against the plain versions'
+    run.  At the default Config also warm rates in turns and a profile;
+    with another ``cfg`` one kernel run and one plain run."""
     from c2dsr_tpu_torch import metrics
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.evaluate import ranker
@@ -543,7 +628,8 @@ def phase_main(spec, graphs_host, data):
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import spmm
 
-    cfg = Config()
+    warm = cfg is None
+    cfg = cfg or Config()
     n_ex = int(data["gt_last"].shape[0])
     groups = ranker.partition_by_domain(data)
     steps = sum(-(-int(groups[dm]["gt_last"].shape[0]) // cfg.batch_size_eval)
@@ -572,8 +658,8 @@ def phase_main(spec, graphs_host, data):
     reset_launches()
     hi, ranks, t_conv, secs = run_all()
     launches = read_launches()
-    log(f"serving path: {n_ex} eval examples, {steps} rank steps per mode, "
-        f"launches {launches}")
+    log(f"{label}: d_latent {cfg.d_latent}, {n_ex} eval examples, {steps} "
+        f"rank steps per mode, launches {launches}")
     check(launches["spmm_csr"] == 2 * cfg.n_gnn,
           f"spmm_csr launched {launches['spmm_csr']} times, want "
           f"{2 * cfg.n_gnn}")
@@ -589,10 +675,17 @@ def phase_main(spec, graphs_host, data):
                   f"{mode}: ranks outside [1, {hi_rank}]")
         score = metrics.cal_score(ra, rb, cfg.benchmark)
         check(all(math.isfinite(v) for v in score), f"{mode}: metric not finite")
-        log(f"main path {mode}: {n_ex / secs[mode]:.1f} eval examples/s "
+        log(f"{label} {mode}: {n_ex / secs[mode]:.1f} eval examples/s "
             f"({secs[mode]:.3f} s), improvement {score[0]:.4f}, hr5_a "
             f"{score[1]:.4f} hr5_b {score[7]:.4f}")
-    log(f"main path convolve: {t_conv * 1e3:.2f} ms (first run)")
+    log(f"{label} convolve: {t_conv * 1e3:.2f} ms (first run)")
+    if not warm:
+        with plain_versions():
+            hi_plain, ranks_plain, _, _ = run_all()
+        _check_ranks(params, hi, hi_plain,
+                     convolve_float64(params, graphs, cfg, spec), data, cfg,
+                     spec, groups, ranks, ranks_plain, n_ex, label)
+        return launches
 
     # warm timings in turns on the same card, (plain, kernel, kernel, plain)
     # repeated, so drift falls on both alike; the gap between the two counts
@@ -602,14 +695,14 @@ def phase_main(spec, graphs_host, data):
     for which in ("plain", "kernel", "kernel", "plain") * WARM_ROUNDS:
         ctx = plain_versions() if which == "plain" else contextlib.nullcontext()
         with ctx:
-            _, r, t_c, s_m = run_all()
+            h, r, t_c, s_m = run_all()
         if which == "plain" and ranks_plain is None:
-            ranks_plain = r
+            hi_plain, ranks_plain = h, r
         runs[which].append((t_c, s_m))
     stats = {}
     for which, rs in runs.items():
         conv_ms = np.array([t for t, _ in rs]) * 1e3
-        log(f"main path warm ({which}, {len(rs)} runs): convolve mean "
+        log(f"{label} warm ({which}, {len(rs)} runs): convolve mean "
             f"{conv_ms.mean():.3f} ms sd {conv_ms.std(ddof=1):.3f}")
         for m in ("sampled", "full"):
             rate = n_ex / np.array([s_m[m] for _, s_m in rs])
@@ -626,30 +719,82 @@ def phase_main(spec, graphs_host, data):
             f"({diff / p.mean():+.2%}), standard error {se:.1f}: "
             f"{'resolved' if abs(diff) > 3 * se else 'unresolved'}")
     profile_main_path(run_all)
-
-    for mode in ("sampled", "full"):
-        ties = near_ties(params, hi, data, cfg, spec, mode)
-        n_diff = n_tied = n_masked = n_unexplained = 0
-        for i, dom in enumerate(("a", "b")):
-            rk = np.asarray(ranks[mode][i])
-            rp = np.asarray(ranks_plain[mode][i])
-            diff = rk != rp
-            # A domain tower with no item of its domain is read at an
-            # all-masked row: its logits are all -1e9 + x, rounded to steps
-            # of 64, so two summation orders may round one logit apart.
-            masked = groups[dom][f"idx_last_{dom}"] < 0
-            n_diff += int(diff.sum())
-            n_tied += int((ties[dom] > 0).sum())
-            n_masked += int((diff & masked).sum())
-            n_unexplained += int(((np.abs(rk - rp) > ties[dom])
-                                  & ~masked).sum())
-        log(f"ranks {mode}: {n_diff} of {n_ex} differ from the plain run; "
-            f"{n_tied} examples have a near-tie (|s - s_gt| <= {TIE_TOL}); "
-            f"{n_masked} differences at all-masked rows; "
-            f"{n_unexplained} differences not explained by either")
-        check(n_unexplained == 0,
-              f"{mode}: {n_unexplained} ranks differ beyond near-ties")
+    params_q = _perturbed_towers(params)
+    ranks_q = {mode: ranker.evaluate_split(params_q, hi, data, rank_step,
+                                           cfg, mode)
+               for mode in ("sampled", "full")}
+    _check_ranks(params, hi, hi_plain,
+                 convolve_float64(params, graphs, cfg, spec), data, cfg, spec,
+                 groups, ranks, ranks_plain, n_ex, label,
+                 perturbed=(params_q, ranks_q))
     return launches
+
+
+def _rank_differences(ranks, ranks_plain, ties, groups):
+    """(ranks that differ, of them at all-masked rows, not explained by a
+    near-tie or an all-masked row) over both domains.  A domain tower with
+    no item of its domain is read at an all-masked row: its logits are all
+    -1e9 + x, rounded to steps of 64, so two summation orders may round one
+    logit apart."""
+    n_diff = n_masked = n_unexplained = 0
+    for i, dom in enumerate(("a", "b")):
+        rk, rp = np.asarray(ranks[i]), np.asarray(ranks_plain[i])
+        diff = rk != rp
+        masked = groups[dom][f"idx_last_{dom}"] < 0
+        n_diff += int(diff.sum())
+        n_masked += int((diff & masked).sum())
+        n_unexplained += int(((np.abs(rk - rp) > ties[dom]) & ~masked).sum())
+    return n_diff, n_masked, n_unexplained
+
+
+def _perturbed_towers(params):
+    """``params`` with PERTURB times a seeded normal draw added to each
+    tower's final LayerNorm bias."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = dict(params)
+    for name in ("attn_share", "attn_a", "attn_b"):
+        tower = dict(params[name])
+        tower["lnf_bias"] = tower["lnf_bias"] + PERTURB * torch.randn(
+            tower["lnf_bias"].shape, generator=g, device="cuda")
+        out[name] = tower
+    return out
+
+
+def _check_ranks(params, hi, hi_plain, hi64, data, cfg, spec, groups, ranks,
+                 ranks_plain, n_ex, label, perturbed=None):
+    """The kernels' ranks equal the plain versions' except at near-ties
+    (near_ties) and all-masked rows, both counted, and the kernels' scores
+    lie within SCORE_K times the plain versions' error of the float64 ones.
+    With ``perturbed`` = (params, ranks) of a kernel run with perturbed
+    towers, that run must fail both gates."""
+    for mode in ("sampled", "full"):
+        ties, band, err_k, err_p = near_ties(params, hi, hi_plain, hi64,
+                                             data, cfg, spec, mode)
+        n_diff, n_masked, n_unexplained = _rank_differences(
+            ranks[mode], ranks_plain[mode], ties, groups)
+        n_tied = sum(int((ties[dom] > 0).sum()) for dom in ("a", "b"))
+        log(f"{label} ranks {mode}: {n_diff} of {n_ex} differ from the plain "
+            f"run; {n_tied} examples have a near-tie (plain scores within "
+            f"the example's band, at most {band:.3e}); {n_masked} "
+            f"differences at all-masked rows; {n_unexplained} differences "
+            f"not explained by either; largest score error against float64: "
+            f"kernels {err_k:.3e}, plain {err_p:.3e} (limit {SCORE_K:g}x)")
+        check(err_k <= SCORE_K * err_p,
+              f"{label} {mode}: kernels' scores {err_k} from float64, more "
+              f"than {SCORE_K} x the plain versions' {err_p}")
+        check(n_unexplained == 0,
+              f"{label} {mode}: {n_unexplained} ranks differ beyond near-ties")
+        if perturbed is None:
+            continue
+        _, _, err_q, _ = near_ties(params, hi, hi_plain, hi64, data, cfg,
+                                   spec, mode, params_k=perturbed[0])
+        _, _, n_q = _rank_differences(perturbed[1][mode], ranks_plain[mode],
+                                      ties, groups)
+        log(f"{label} ranks {mode}, towers' final LN bias perturbed by "
+            f"{PERTURB:g}: {n_q} differences not explained, score error "
+            f"against float64 {err_q:.3e}")
+        check(n_q > 0 and err_q > SCORE_K * err_p,
+              f"{label} {mode}: a perturbed tower passes the serving gates")
 
 
 def phase_hash():
@@ -672,6 +817,21 @@ def _rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def _k2_parts(times):
+    """K2's profiled device ms a call, by part: the four GEMMs of a layer
+    (with their epilogues), attention, the LayerNorm kernel (d > 256) and
+    the input kernel (dropout, or the saved copy of the input)."""
+    out = {"gemm": 0.0, "attention": 0.0, "layernorm": 0.0, "input": 0.0}
+    for name, ms in times.items():
+        for part, key in (("gemm", "encoder_fwd_gemm"),
+                          ("attention", "encoder_fwd_attn"),
+                          ("layernorm", "encoder_fwd_ln"),
+                          ("input", "encoder_fwd_input")):
+            if key in name:
+                out[part] += ms
+    return out
+
+
 def _k3_parts(times):
     """K3's profiled device ms a call, by part: the backward walk
     (LayerNorm backward, the GEMMs, attention backward) and the weight
@@ -688,20 +848,22 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
     """K2 in train mode and K3 at the three tower segments of a train step
     (shared 3B, A B, B B at B = 512), dropout 0 and 0.2, against the plain
     tower and its autograd, K3 also against a second launch (bitwise);
-    timed at 0.2 and summed over the segments.  K2's ``bound_ms`` is the
-    FP32 FFMA bound (its design), K3's the 3xTF32 tensor-core one, each with
-    the other beside it."""
+    timed at 0.2 and summed over the segments.  ``bound_ms`` is the 3xTF32
+    tensor-core bound of each, ``bound_ffma_ms`` the FP32 FFMA one; K2's
+    bytes count the activations it saves, an output of the training
+    forward."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
     from c2dsr_tpu_torch.ops import encoder_cuda
     d, L, pad, B = 128, LEN_MAX, 64093, 512
     cfg = Config()
-    f_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms")
-    b_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ffma_ms")
-    fwd = dict.fromkeys(f_keys, 0.0)
-    bwd = dict.fromkeys(b_keys, 0.0)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ffma_ms")
+    fwd = dict.fromkeys(keys, 0.0)
+    bwd = dict.fromkeys(keys, 0.0)
     fwd["max_abs_err"] = bwd["max_abs_err"] = bwd["max_rel_err"] = 0.0
+    f_parts = fwd["kernels_ms"] = {}
+    f_launches = fwd["launches_per_call"] = {}
     parts = bwd["kernels_ms"] = {}
     launches = bwd["launches_per_call"] = {}
     causal = torch.triu(torch.ones(L, L, dtype=torch.bool, device="cuda"), 1)
@@ -769,10 +931,16 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
         b_lib = timer(lambda: torch.autograd.grad(
             tower(xg, mask=causal, src_key_padding_mask=kpm), lib_params,
             gout))
+        with torch.no_grad():
+            f_times, f_counts = kernel_times(
+                lambda: encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw))
         times, counts = kernel_times(
             lambda: encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts,
                                              **kw))
         fwd["ms_without_saving"] = fwd.get("ms_without_saving", 0.0) + f_nosave
+        f_launches[f"tower {tower_id}"] = int(round(sum(f_counts.values())))
+        for k, v in _k2_parts(f_times).items():
+            f_parts[k] = f_parts.get(k, 0.0) + v
         n_launch = int(round(sum(counts.values())))
         launches[f"tower {tower_id}"] = n_launch
         k3 = _k3_parts(times)
@@ -782,20 +950,25 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
         w_bytes = 4 * (6 * d * d + 10 * d + 2 * d)
         f_flops = 12 * N * d * d + 4 * N * L * d
         b_flops = 24 * N * d * d + 8 * N * L * d
-        f_bytes = 8 * N * d + 4 * N + w_bytes
+        f_bytes = 8 * N * d + 4 * N + w_bytes + 4 * acts.numel()
         b_bytes = 12 * N * d + 4 * N + 2 * w_bytes
         f_bound = max(f_flops / peak_flops, f_bytes / peak_bw) * 1e3
         b_bound = max(b_flops / peak_flops, b_bytes / peak_bw) * 1e3
         f_tc = tc_bound_ms(f_flops, f_bytes, gpu, peak_bw)
         b_tc = tc_bound_ms(b_flops, b_bytes, gpu, peak_bw)
-        fwd["bound_by"] = ("operations" if f_flops / peak_flops
+        fwd["bound_by"] = ("operations" if 3 * f_flops / tf32_peak(gpu)
                            >= f_bytes / peak_bw else "bytes")
         bwd["bound_by"] = ("operations" if 3 * b_flops / tf32_peak(gpu)
                            >= b_bytes / peak_bw else "bytes")
         log(f"encoder train tower {tower_id} B={n_seq}: fwd kernel {f_ms:.4f} "
             f"ms saving the activations ({f_nosave:.4f} without) plain "
-            f"{f_plain:.4f} library {f_lib:.4f} bound FFMA {f_bound:.4f} "
-            f"(3xTF32 {f_tc:.4f}); bwd kernel {b_ms:.4f} ms "
+            f"{f_plain:.4f} library {f_lib:.4f} bound 3xTF32 {f_tc:.4f} "
+            f"(FFMA {f_bound:.4f}; bytes with the saved activations "
+            f"{f_bytes / 1e6:.1f} MB), "
+            f"{f_launches[f'tower {tower_id}']} launches a call, parts "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        _k2_parts(f_times).items())
+            + f"; bwd kernel {b_ms:.4f} ms "
             f"plain {b_plain:.4f} library {b_lib:.4f} (forward + backward) "
             f"bound 3xTF32 tensor cores {b_tc:.4f}, FP32 FFMA {b_bound:.4f} "
             f"({b_flops / b_ms / 1e9:.2f} TFLOP/s); {n_launch} kernel "
@@ -803,9 +976,8 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
             + ", ".join(f"{k} {v:.4f}" for k, v in k3.items())
             + "; all: " + ", ".join(f"{k} {v:.4f} x{counts[k]:g}"
                                     for k, v in sorted(times.items())))
-        for acc, keys, vals in (
-                (fwd, f_keys, (f_ms, f_plain, f_lib, f_bound, f_tc)),
-                (bwd, b_keys, (b_ms, b_plain, b_lib, b_tc, b_bound))):
+        for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_tc, f_bound)),
+                          (bwd, (b_ms, b_plain, b_lib, b_tc, b_bound))):
             for k, v in zip(keys, vals):
                 acc[k] += v
     return fwd, bwd
@@ -1007,9 +1179,12 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
     return fwd, bwd
 
 
-# tower shapes beyond d 64 and 128 that K2 and K3 take: (d, n_head, L)
+# tower shapes beyond d 64 and 128 that K2 and K3 take: (d, n_head, L);
+# d 512 (two column tiles, K2's LayerNorm kernel) and L past 32 (two keys a
+# lane in attention) last
 WIDE_TOWERS = ((96, 2, 30), (32, 1, 30), (256, 4, 15), (160, 2, 16),
-               (40, 1, 30), (256, 4, 30))
+               (40, 1, 30), (256, 4, 30), (512, 4, 15), (512, 8, 30),
+               (128, 2, 64), (256, 4, 64), (96, 2, 48))
 
 
 def phase_shapes():
@@ -1022,7 +1197,7 @@ def phase_shapes():
     from c2dsr_tpu_torch.ops import encoder as enc
     from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce, fused_ce_cuda
     pad, B = 64093, 256
-    worst = {"encoder_fwd": 0.0, "encoder_bwd": 0.0}
+    worst = {"encoder_fwd": 0.0, "encoder_fwd_rel": 0.0, "encoder_bwd": 0.0}
     for d, n_head, L in WIDE_TOWERS:
         cfg = Config(d_latent=d, n_head=n_head, n_attn=2)
         p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
@@ -1033,11 +1208,14 @@ def phase_shapes():
         tag = f"d={d} n_head={n_head} L={L}"
         with torch.no_grad():
             kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=True)
-            err_i = float((encoder_cuda.encoder_fwd(x, seq, p, **kw)
-                           - enc.encode_layers(x, seq, p, norm_first=False,
-                                               **kw)).abs().max())
+            out_i = encoder_cuda.encoder_fwd(x, seq, p, **kw)
+            ref_i = enc.encode_layers(x, seq, p, norm_first=False, **kw)
+            err_i = float((out_i - ref_i).abs().max())
+            rel_i = _fwd_errs(out_i, ref_i, seq, pad, True)[0]
         check(err_i <= ENCODER_TOL, f"encoder {tag} inverted: max abs err "
               f"{err_i} > {ENCODER_TOL}")
+        check(rel_i <= ENCODER_REL_TOL, f"encoder {tag} inverted: relative "
+              f"err {rel_i} > {ENCODER_REL_TOL}")
         for dropout in (0.0, 0.2):
             kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=False,
                       dropout=dropout, seed=5, tower=1)
@@ -1045,6 +1223,9 @@ def phase_shapes():
             with torch.no_grad():
                 out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw)
                 ref = enc.encoder_fwd_plain(x, seq, p, **kw)
+                # the eval workspace path: the same arithmetic, bitwise
+                same = torch.equal(out, encoder_cuda.encoder_fwd(x, seq, p,
+                                                                 **kw))
             dx, grads = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts,
                                                  **kw)
             dx2, grads2 = encoder_cuda.encoder_bwd(x, seq, gout, p,
@@ -1054,6 +1235,11 @@ def phase_shapes():
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all() and torch.isfinite(dx).all()),
                   f"encoder {tag}: non-finite")
+            check(same, f"encoder_fwd {tag} p={dropout}: the workspace "
+                  "forward differs from the saving one")
+            rel_f = _fwd_errs(out, ref, seq, pad, False)[0]
+            check(rel_f <= ENCODER_REL_TOL, f"encoder_fwd {tag} p={dropout}: "
+                  f"relative err {rel_f} > {ENCODER_REL_TOL}")
             check(torch.equal(dx, dx2) and all(
                 torch.equal(g, g2) for g, g2 in zip(grads, grads2)),
                 f"encoder_bwd {tag} p={dropout}: two launches differ")
@@ -1061,14 +1247,18 @@ def phase_shapes():
             bad = max(rels, key=rels.get)
             own = max(rels_own, key=rels_own.get)
             log(f"shapes: encoder {tag} p={dropout}: fwd max abs err "
-                f"{max(err_f, err_i):.3e}; bwd worst relative "
-                f"{rels[bad]:.3e} ({bad}) at K2's ReLU branches, "
+                f"{max(err_f, err_i):.3e}, relative {max(rel_f, rel_i):.3e} "
+                "on rows with an allowed key (saving and workspace forwards "
+                "bitwise equal); bwd worst relative "
+                f"{rels[bad]:.3e} ({bad}) at K2's branches, "
                 f"{rels_own[own]:.3e} ({own}) at the plain forward's")
             check(err_f <= ENCODER_TOL, f"encoder_fwd {tag} p={dropout}: max "
                   f"abs err {err_f} > {ENCODER_TOL}")
             check(rels[bad] <= GRAD_TOL, f"encoder_bwd {tag} p={dropout}: "
                   f"{bad} relative err {rels[bad]} > {GRAD_TOL}")
             worst["encoder_fwd"] = max(worst["encoder_fwd"], err_f, err_i)
+            worst["encoder_fwd_rel"] = max(worst["encoder_fwd_rel"], rel_f,
+                                           rel_i)
             worst["encoder_bwd"] = max(worst["encoder_bwd"], rels[bad])
     worst["ce_fwd"] = worst["ce_bwd"] = 0.0
     N, V, n_real = 512 * 2 * 10, 30720, N_ITEM_A
@@ -1125,14 +1315,59 @@ def _fro(got, want):
     return max(errs), int(np.argmax(errs))
 
 
+def _tower_accuracy(calls):
+    """The tower calls of a train step (captured: input, sequence, output
+    gradient, params, K2's saved activations, K3's result) against the
+    plain tower in float64 at K2's branches: {"qkv": {k2, plain}, "dx" and
+    "w_qkv": {k3, plain}} relative Frobenius errors, worst over the calls,
+    for K2's saved q/k/v, K3's gradients and the plain f32 tower's.  A
+    softmax that is partly sharp passes the absolute error of its logits
+    (so of q and k) on to a row's gradient: this is the error the step's
+    gradient gate sees."""
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import encoder_cuda
+
+    def rel(a, r):
+        a = a.to(r.device, r.dtype)
+        return float((a - r).norm()) / max(float(r.norm()), 1e-300)
+
+    out = {"qkv": {"k2": 0.0, "plain": 0.0}, "dx": {"k3": 0.0, "plain": 0.0},
+           "w_qkv": {"k3": 0.0, "plain": 0.0}}
+    for c in calls:
+        x, seq, gout, p, kw = c["x"], c["seq"], c["gout"], c["p"], c["kw"]
+        n_head, n_layers = kw["n_head"], p["layers"]["w_qkv"].shape[0]
+        br = k2_branches(c["saved"], x.shape, n_head, n_layers, kw["tower"])
+        p64 = params_mod._map(lambda t: t.double(), p)
+        w0 = p["layers"]["w_qkv"][0]
+        qkv64 = x.double() @ p64["layers"]["w_qkv"][0] + p64["layers"]["b_qkv"][0]
+        qkv32 = x @ w0 + p["layers"]["b_qkv"][0]
+        qkv_k2 = encoder_cuda.saved_views(c["saved"], x.shape, n_head,
+                                          n_layers)["layers"][0]["qkv"]
+        g64 = enc.encoder_bwd_plain(x.double(), seq, gout.double(), p64,
+                                    branches=br, **kw)
+        g32 = enc.encoder_bwd_plain(x, seq, gout, p, branches=br, **kw)
+        got = c["got"]
+        for key, ours, plain, ref in (
+                ("qkv", qkv_k2, qkv32, qkv64),
+                ("dx", got[0], g32[0], g64[0]),
+                ("w_qkv", got[1][0], g32[1][0], g64[1][0])):
+            mine = "k2" if key == "qkv" else "k3"
+            out[key][mine] = max(out[key][mine], rel(ours, ref))
+            out[key]["plain"] = max(out[key]["plain"], rel(plain, ref))
+    return out
+
+
 def phase_train_wide(spec, train, graphs, graphs_host):
-    """The training step at FK geometry with d_latent 256, dropout 0: the
-    towers' widest GEMM tiles, K4 and K5 at d 256, K1 at d 256 and 512.
-    Three steps, the third at EE's sequence length (len_max 30, FK's
-    itemsets and graphs, its own params and batch); before each, the loss
-    and every gradient from the step's params through the kernels, through
-    the plain versions on the card and through the plain versions on the
-    CPU; every kernel launches its count a step.
+    """The training step at FK's itemsets and graphs beyond the default
+    shapes, dropout 0: with d_latent 256 (the towers' widest fused-LN
+    tiles, K4 and K5 at d 256, K1 at d 256 and 512) at FK's len_max 15 for
+    two steps and at EE's 30 for one, then at d 128 with len_max 64 (the
+    longest sequences the towers take: two keys a lane in attention), each
+    run with its own params and batches.  Before each step, the loss and
+    every gradient from the step's params through the kernels, through the
+    plain versions on the card and through the plain versions on the CPU;
+    every kernel launches its count a step.
 
     The loss must agree to 1e-5.  The gradients are held by the relative
     Frobenius error of each tensor, to the larger of GRAD_TOL and three
@@ -1153,39 +1388,44 @@ def phase_train_wide(spec, train, graphs, graphs_host):
     from c2dsr_tpu_torch.train import optim
     from c2dsr_tpu_torch.train import step as step_mod
 
-    cfg = Config(d_latent=256, dropout_gnn=0.0, dropout_attn=0.0)
-    spec30 = DataSpec(n_item_a=spec.n_item_a, n_item_b=spec.n_item_b,
-                      len_max=30)
-    train30 = preprocess.preprocess_train(
-        synthetic.generate_sequences(spec30, 2000, seed=4), spec30, seed=1)
-    runs = []                      # [spec, state, step fn, batches]
-    for sp, tr, seed in ((spec, train, 2), (spec30, train30, 5)):
+    cfg256 = Config(d_latent=256, dropout_gnn=0.0, dropout_attn=0.0)
+    runs = []                      # [cfg, spec, state, step fn, batches]
+    for cfg, len_max, seed in ((cfg256, LEN_MAX, 2), (cfg256, 30, 5),
+                               (cfg256.with_(d_latent=128), 64, 6)):
+        sp, tr = spec, train
+        if len_max != LEN_MAX:
+            sp = DataSpec(n_item_a=spec.n_item_a, n_item_b=spec.n_item_b,
+                          len_max=len_max)
+            tr = preprocess.preprocess_train(
+                synthetic.generate_sequences(sp, 2000, seed=seed - 1), sp,
+                seed=1)
         it = BatchIterator(tr, cfg.batch_size, shuffle=True, seed=seed,
                            drop_last=True)
         params = params_mod.init_params(cfg, sp,
                                         torch.Generator().manual_seed(3),
                                         "cuda")
         opt = optim.make_optimizer(cfg, steps_per_epoch=len(it))
-        fn = step_mod.make_train_step(cfg, sp, graphs, opt,
-                                      torch.Generator().manual_seed(cfg.seed),
-                                      "cuda")
-        runs.append([sp, step_mod.init_state(params, opt), fn, it.epoch()])
+        fn = step_mod.make_train_step(cfg, sp, graphs, opt, "cuda")
+        runs.append([cfg, sp, step_mod.init_state(params, opt), fn,
+                     it.epoch()])
     cpu_graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cpu"),
                               spmm.device_graph(graphs_host[1], "cpu"))
-    schedule = (0, 0, 1)           # the third step at len_max 30
+    schedule = (0, 0, 1, 2)        # d 256 at len_max 15, 15, 30; d 128 at 64
     launches = dict.fromkeys(kernel_wrappers(), 0)
     losses = []
     for i, which in enumerate(schedule):
-        sp, state, fn, feed = runs[which]
+        cfg, sp, state, fn, feed = runs[which]
         names = leaf_names(state.params)
         batch = next(feed)
         b = ranker.to_device(batch, "cuda")
         leaves = state.opt_state.leaves
-        masks = {}
+        masks, calls = {}, []
         loss_k, g_k = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
-                                  recording_relu_masks(masks))
+                                  recording_k2_branches(masks,
+                                                        calls if i == 0
+                                                        else None))
         loss_p, g_p = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
-                                  plain_versions_at(masks))
+                                  plain_versions(masks))
         _, g_o = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
                              plain_versions())
         cpu = params_mod.params_from_numpy(
@@ -1203,32 +1443,43 @@ def phase_train_wide(spec, train, graphs, graphs_host):
         rel = [_rel(a, c) if float(c.abs().max()) > 0
                else float(a.abs().max()) for a, c in zip(g_k, g_p)]
         wm = int(np.argmax(rel))
-        log(f"train d_latent 256 step {i} (len_max {sp.len_max}): loss "
+        tag = f"train d_latent {cfg.d_latent} step {i} (len_max {sp.len_max})"
+        log(f"{tag}: loss "
             f"{loss_k:.6f} (kernels) {loss_p:.6f} (plain) {loss_c:.6f} "
             f"(plain, CPU); gradients, worst relative Frobenius err kernels "
-            f"against plain at K2's ReLU branches {err:.3e} ({names[we]}), "
+            f"against plain at K2's branches {err:.3e} ({names[we]}), "
             f"at the plain forward's own {err_own:.3e} ({names[wo]}), plain "
             f"card against CPU {noise:.3e} ({names[wn]}), tolerance "
             f"{tol:.3e}; max-abs relative {rel[wm]:.3e} ({names[wm]}), "
-            "logged")
+            f"logged")
+        if calls:
+            accuracy = _tower_accuracy(calls)
+            log(f"{tag}: the step's tower calls against a float64 plain "
+                f"tower at K2's branches, relative Frobenius, worst call: "
+                f"q/k/v K2 {accuracy['qkv']['k2']:.3e} (plain f32 "
+                f"{accuracy['qkv']['plain']:.3e}); dx K3 "
+                f"{accuracy['dx']['k3']:.3e} (plain f32 "
+                f"{accuracy['dx']['plain']:.3e}); w_qkv K3 "
+                f"{accuracy['w_qkv']['k3']:.3e} (plain f32 "
+                f"{accuracy['w_qkv']['plain']:.3e})")
         check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
-              f"train d 256 step {i}: loss {loss_k} (kernels) != {loss_p}")
-        check(err <= tol, f"train d 256 step {i}: gradients relative "
-              f"Frobenius err {err} > {tol}")
+              f"{tag}: loss {loss_k} (kernels) != {loss_p}")
+        check(err <= tol, f"{tag}: gradients relative Frobenius err {err} > "
+              f"{tol}")
         reset_launches()
-        runs[which][1], aux = fn(state, batch)
+        runs[which][2], aux = fn(state, batch)
         torch.cuda.synchronize()
         losses.append(float(aux["loss"]))
         for k, v in read_launches().items():
             launches[k] += v
     steps = len(schedule)
-    per_step = {"spmm_csr": 4 * cfg.n_gnn, "spmm_csr_flagged": 0,
+    per_step = {"spmm_csr": 4 * cfg256.n_gnn, "spmm_csr_flagged": 0,
                 "encoder_fwd": 3, "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2}
-    log(f"train d_latent 256: {steps} steps, losses "
+    log(f"train wide: {steps} steps, losses "
         f"{[round(v, 4) for v in losses]}, launches {launches}")
-    check(all(math.isfinite(v) for v in losses), "train d 256: loss")
+    check(all(math.isfinite(v) for v in losses), "train wide: loss")
     for k, n in per_step.items():
-        check(launches[k] == n * steps, f"train d 256: {k} launched "
+        check(launches[k] == n * steps, f"train wide: {k} launched "
               f"{launches[k]} times in {steps} steps, want {n} a step")
     return launches
 
@@ -1258,9 +1509,7 @@ def phase_train(spec, train, graphs):
     opt = optim.make_optimizer(cfg, steps_per_epoch=len(it))
     state = step_mod.init_state(params, opt)
     leaves = state.opt_state.leaves
-    fn = step_mod.make_train_step(cfg, spec, graphs, opt,
-                                  torch.Generator().manual_seed(cfg.seed),
-                                  "cuda")
+    fn = step_mod.make_train_step(cfg, spec, graphs, opt, "cuda")
 
     # one step at dropout 0 through the kernels and through the plain
     # versions: the same loss and gradients
@@ -1280,8 +1529,8 @@ def phase_train(spec, train, graphs):
                 else float(a.abs().max()) for a, b in zip(got, want)]
 
     masks = {}
-    loss_k, g_k = grads_of(recording_relu_masks(masks))
-    loss_p, g_p = grads_of(plain_versions_at(masks))
+    loss_k, g_k = grads_of(recording_k2_branches(masks))
+    loss_p, g_p = grads_of(plain_versions(masks))
     _, g_o = grads_of(plain_versions())
     for t in leaves:
         t.grad = None
@@ -1289,7 +1538,7 @@ def phase_train(spec, train, graphs):
     log(f"train path dropout 0: loss {loss_k:.6f} (kernels) {loss_p:.6f} "
         f"(plain); worst gradient relative err {max(rel):.3e} ("
         f"{leaf_names(params)[int(np.argmax(rel))]}) over {len(rel)} "
-        f"tensors at K2's ReLU branches, {max(rel_own):.3e} ("
+        f"tensors at K2's branches, {max(rel_own):.3e} ("
         f"{leaf_names(params)[int(np.argmax(rel_own))]}) at the plain "
         "forward's own")
     check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
@@ -1477,11 +1726,14 @@ def _warm_rates(fns, feed, batch_size):
 def phase_experiment(spec, train, data, graphs, name):
     """The experiment entry point at FK geometry with the batch-sparse
     propagation: two epochs of ``Experiment.run`` with save-on-best, a
-    resumed third, the flags-on/off equality and the warm step rates."""
+    resumed third, a resumed next step at dropout 0.2 against the
+    uninterrupted one, the flags-on/off equality and the warm step
+    rates."""
     from c2dsr_tpu_torch import checkpoint as ckpt_mod
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.data.pipeline import BatchIterator
     from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.ops import dropout as drop
     from c2dsr_tpu_torch.train import step as step_mod
     from c2dsr_tpu_torch.train.loop import Experiment
 
@@ -1555,6 +1807,34 @@ def phase_experiment(spec, train, data, graphs, name):
             f"improvement {out2['imp_val_best']:.4f}")
         del exp2
 
+        # at dropout 0.2, a run restored from a checkpoint of this state
+        # takes its next step with the uninterrupted run's dropout: the
+        # same loss; the step-0 seed a replayed stream would draw gives
+        # another
+        path2 = os.path.join(tmp, "ckpt_now")
+        ckpt_mod.save(path2, exp.state, meta={"epoch": cfg.n_epoch},
+                      block=True)
+        exp3 = Experiment(cfg.with_(resume=True), spec, graphs, train, val,
+                          test, ckpt_path=path2, device="cuda")
+        check(exp3.state.step == exp.state.step > 0,
+              f"resume: step {exp3.state.step} != {exp.state.step}")
+        nxt = next(iter(exp.train_iter.epoch()))
+        with torch.no_grad():
+            replayed = float(step_mod.loss_fn(
+                exp3.state.params, graphs, ranker.to_device(nxt, "cuda"),
+                drop.step_seed(cfg.seed + 1, 0), cfg, spec)[0])
+        _, aux1 = exp.train_step(exp.state, nxt)
+        _, aux3 = exp3.train_step(exp3.state, nxt)
+        l1, l3 = float(aux1["loss"]), float(aux3["loss"])
+        log(f"experiment resume at dropout {cfg.dropout_attn}: step "
+            f"{exp.state.step - 1} loss {l1:.7f} uninterrupted, {l3:.7f} "
+            f"resumed (bitwise equal: {l1 == l3}); the step-0 seed gives "
+            f"{replayed:.7f}")
+        check(abs(l1 - l3) <= 1e-6 * abs(l1),
+              f"resumed step loss {l3} != uninterrupted {l1}")
+        check(replayed != l1, "the step-0 seed gives the same loss")
+        del exp3
+
     # one step at dropout 0 with the flags on and off
     cfg0 = cfg.with_(dropout_gnn=0.0, dropout_attn=0.0)
     b0, _ = _flagged_batch(train, cfg.batch_size)
@@ -1590,8 +1870,7 @@ def phase_experiment(spec, train, data, graphs, name):
 
     feed = batches()
     dense = step_mod.make_train_step(
-        cfg.with_(batch_sparse_gnn=False), spec, graphs, exp.optimizer,
-        torch.Generator().manual_seed(9), "cuda")
+        cfg.with_(batch_sparse_gnn=False), spec, graphs, exp.optimizer, "cuda")
 
     def on(batch):
         exp.state, aux = exp.train_step(exp.state, batch)
@@ -1645,22 +1924,42 @@ def phase_cli():
                 f"result {table.splitlines()[2].strip()}")
 
 
-def measure_train_rate() -> dict:
-    """The training step's warm rate of the ``c2dsr_tpu_torch`` first on
-    sys.path, at FK geometry with the default Config: 10 warm-up steps, 8
-    runs of 4 steps (train examples/s each, and the host's ms a step until
-    the last step is enqueued, before the synchronise), then 3 profiled
-    steps (device busy ms, and K2's ms, each)."""
+def _busy_ms(fn, reps: int = 3):
+    """Device busy ms of each of ``reps`` profiled calls of ``fn`` (which
+    synchronises), and the part of it in K2's kernels."""
     from torch.profiler import ProfilerActivity, profile
+    busy, k2 = [], []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+        us = {ev.key: getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0))
+              for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA}
+        busy.append(sum(us.values()) / 1e3)
+        k2.append(sum(v for k, v in us.items() if "encoder_fwd_" in k) / 1e3)
+    return busy, k2
 
+
+def measure_rates() -> dict:
+    """Measures of the ``c2dsr_tpu_torch`` first on sys.path, at FK
+    geometry with the default Config.  The training step: 10 warm-up steps,
+    8 runs of 4 steps (train examples/s each, and the host's ms a step
+    until the last step is enqueued, before the synchronise), then 3
+    profiled steps (device busy ms, and K2's ms, each).  K2 alone at the
+    serving path's tower (B 2048, L 15, d 128, one head, one layer; the
+    median of 20 timed calls, 3 times).  The serving path (convolve, then
+    rank the eval split in sampled and full mode): 3 profiled runs after
+    one warm-up (device busy ms, and K2's ms, each)."""
     from c2dsr_tpu_torch.config import Config, DataSpec
     from c2dsr_tpu_torch.data import preprocess, synthetic
     from c2dsr_tpu_torch.data.pipeline import BatchIterator
+    from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.graph import build as graph_build
     from c2dsr_tpu_torch.kernels import build
     from c2dsr_tpu_torch.model import c2dsr
     from c2dsr_tpu_torch.model import params as params_mod
-    from c2dsr_tpu_torch.ops import backend, spmm
+    from c2dsr_tpu_torch.ops import backend, encoder_cuda, spmm
     from c2dsr_tpu_torch.train import optim
     from c2dsr_tpu_torch.train import step as step_mod
     backend.resolve_device("cuda")
@@ -1682,9 +1981,11 @@ def measure_train_rate() -> dict:
     opt = optim.make_optimizer(cfg, steps_per_epoch=len(it))
     state = step_mod.init_state(params_mod.init_params(
         cfg, spec, torch.Generator().manual_seed(0), "cuda"), opt)
-    fn = step_mod.make_train_step(cfg, spec, graphs, opt,
-                                  torch.Generator().manual_seed(cfg.seed),
-                                  "cuda")
+    # A checkout from before the seed followed state.step takes a CPU
+    # generator: drop this once no compared checkout predates that.
+    gen = ((torch.Generator().manual_seed(cfg.seed),) if "generator" in
+           inspect.signature(step_mod.make_train_step).parameters else ())
+    fn = step_mod.make_train_step(cfg, spec, graphs, opt, *gen, "cuda")
     for _ in range(10):
         state, aux = fn(state, next(feed))
     torch.cuda.synchronize()
@@ -1697,51 +1998,79 @@ def measure_train_rate() -> dict:
         torch.cuda.synchronize()
         rates.append(TRAIN_RUN_STEPS * cfg.batch_size
                      / (time.perf_counter() - t0))
-    busy, k2 = [], []
-    for _ in range(3):
-        batch = next(feed)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            state, aux = fn(state, batch)
-            torch.cuda.synchronize()
-        us = {ev.key: getattr(ev, "self_device_time_total",
-                              getattr(ev, "self_cuda_time_total", 0.0))
-              for ev in prof.key_averages()
-              if ev.device_type == torch.autograd.DeviceType.CUDA}
-        busy.append(sum(us.values()) / 1e3)
-        k2.append(sum(v for k, v in us.items()
-                      if "encoder_fwd_kernel" in k) / 1e3)
+
+    def one_step():
+        fn(state, next(feed))
+        torch.cuda.synchronize()
+
+    busy, k2 = _busy_ms(one_step)
     check(math.isfinite(float(aux["loss"])), "train loss not finite")
-    return {"rates": rates, "host_ms": host, "busy_ms": busy, "k2_ms": k2}
+    del state, opt, fn
+
+    pad = spec.idx_pad
+    p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
+        torch.Generator().manual_seed(7), Config(n_head=1, n_attn=1),
+        LEN_MAX))
+    x, seq = _encoder_inputs(2048, LEN_MAX, cfg.d_latent, pad, seed=7)
+    timer = Timer()
+    with torch.inference_mode():
+        k2_eval = [timer(lambda: encoder_cuda.encoder_fwd(
+            x, seq, p, idx_pad=pad, n_head=1, invert_padding_mask=False))
+            for _ in range(3)]
+    del timer
+
+    data = preprocess.preprocess_evaluate(
+        synthetic.generate_sequences(spec, N_EVAL_USERS, seed=1), spec,
+        n_neg_sample=999, seed=2)
+    params = params_mod.init_params(cfg, spec,
+                                    torch.Generator().manual_seed(0), "cuda")
+    convolve_eval, rank_step = ranker.make_eval_fns(cfg, spec, graphs, "cuda")
+
+    def serve():
+        hi = convolve_eval(params)
+        for mode in ("sampled", "full"):
+            ranker.evaluate_split(params, hi, data, rank_step, cfg, mode)
+        torch.cuda.synchronize()
+
+    serve()
+    serve_busy, serve_k2 = _busy_ms(serve)
+    return {"rates": rates, "host_ms": host, "busy_ms": busy, "k2_ms": k2,
+            "k2_eval_ms": k2_eval, "serve_busy_ms": serve_busy,
+            "serve_k2_ms": serve_k2}
 
 
 def compare(other: str) -> int:
-    """This checkout's measure_train_rate against that of ``other`` (a
-    directory holding another version of ``c2dsr_tpu_torch``), each in a
-    process of its own, in turns (other, this, this, other), on one
-    card."""
+    """This checkout's measure_rates against that of ``other`` (a directory
+    holding another version of ``c2dsr_tpu_torch``), each in a process of
+    its own, in turns (other, this, this, other), on one card.  For each
+    measure, the difference of the means and whether it exceeds 3 standard
+    errors."""
     runs = {other: [], REPO_DIR: []}
     for root in (other, REPO_DIR, REPO_DIR, other):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--train-rate", root], capture_output=True,
+                              "--rates", root], capture_output=True,
                              text=True, timeout=600)
-        check(out.returncode == 0,
-              f"train rate of {root}: {out.stderr[-2000:]}")
+        check(out.returncode == 0, f"rates of {root}: {out.stderr[-2000:]}")
         res = json.loads(out.stdout.strip().splitlines()[-1])
         runs[root].append(res)
-        log(f"compare {root}: train examples/s "
-            f"{[round(r, 1) for r in res['rates']]}, host ms a step "
-            f"{[round(h, 2) for h in res['host_ms']]}, busy ms a step "
-            f"{[round(b, 3) for b in res['busy_ms']]}, K2 ms a step "
-            f"{[round(b, 3) for b in res['k2_ms']]}")
-    rates = {k: np.array([r for res in v for r in res["rates"]])
-             for k, v in runs.items()}
-    diff = rates[REPO_DIR].mean() - rates[other].mean()
-    se = math.sqrt(sum(r.var(ddof=1) / len(r) for r in rates.values()))
-    log(f"compare: this {rates[REPO_DIR].mean():.1f} against "
-        f"{rates[other].mean():.1f} train examples/s "
-        f"({diff / rates[other].mean():+.2%}), standard error {se:.1f}: "
-        f"{'resolved' if abs(diff) > 3 * se else 'unresolved'}; card "
-        f"{card_line()}")
+        log(f"compare {root}: " + "; ".join(
+            f"{k} {[round(v, 4) for v in vs]}" for k, vs in res.items()))
+    for key, unit in (("rates", "train examples/s"),
+                      ("busy_ms", "ms busy a train step"),
+                      ("k2_ms", "ms of K2 a train step"),
+                      ("k2_eval_ms", "ms a K2 serving tower"),
+                      ("serve_busy_ms", "ms busy a serving run"),
+                      ("serve_k2_ms", "ms of K2 a serving run")):
+        vals = {k: np.array([r for res in v for r in res[key]])
+                for k, v in runs.items()}
+        mine, theirs = vals[REPO_DIR], vals[other]
+        diff = mine.mean() - theirs.mean()
+        se = math.sqrt(sum(r.var(ddof=1) / len(r) for r in vals.values()))
+        log(f"compare {key}: this {mine.mean():.4f} against "
+            f"{theirs.mean():.4f} {unit} ({diff / theirs.mean():+.2%}), "
+            f"standard error {se:.4f}: "
+            f"{'resolved' if abs(diff) > 3 * se else 'unresolved'}")
+    log(f"compare: card {card_line()}")
     return 0
 
 
@@ -1749,9 +2078,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--train-rate"]:
+    if sys.argv[1:2] == ["--rates"]:
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
-        print(json.dumps(measure_train_rate()), flush=True)
+        print(json.dumps(measure_rates()), flush=True)
         return 0
     if sys.argv[1:2] == ["--compare"]:
         return compare(os.path.abspath(sys.argv[2]))
@@ -1813,11 +2142,16 @@ def main() -> int:
     serving = phase_main(spec, graphs_host, eval_data)
     log(f"phase serving: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    from c2dsr_tpu_torch.config import Config
+    serving_wide = phase_main(spec, graphs_host, eval_data,
+                              Config(d_latent=512), label="serving d 512")
+    log(f"phase serving d_latent 512: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     training, train_rate = phase_train(spec, train, graphs)
     log(f"phase training: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training_wide = phase_train_wide(spec, train, graphs, graphs_host)
-    log(f"phase training d_latent 256: {time.perf_counter() - t0:.1f} s")
+    log(f"phase training wide: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     experiment, exp_rates = phase_experiment(spec, train, eval_data, graphs,
                                              card)
@@ -1825,13 +2159,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cli()
     log(f"phase cli: {time.perf_counter() - t0:.1f} s")
-    paths = {"serving": serving, "training": training,
-             "training_d256": training_wide, "experiment": experiment}
+    paths = {"serving": serving, "serving_d512": serving_wide,
+             "training": training, "training_wide": training_wide,
+             "experiment": experiment}
     step_kernels = ("spmm_csr", "encoder_fwd", "encoder_bwd", "ce_fwd",
                     "ce_bwd")
     for path, kernels_of_path in (
             ("serving", ("spmm_csr", "encoder_fwd")),
-            ("training", step_kernels), ("training_d256", step_kernels),
+            ("serving_d512", ("spmm_csr", "encoder_fwd")),
+            ("training", step_kernels), ("training_wide", step_kernels),
             ("experiment", tuple(kernel_wrappers()))):
         check(all(paths[path][n] > 0 for n in kernels_of_path),
               f"a kernel never launched on the {path} path: {paths[path]}")
@@ -1870,16 +2206,23 @@ def main() -> int:
          "replaces": "c2dsr_tpu/ops/encoder_pallas.py:444",
          **counts("encoder_fwd"),
          "max_abs_err": max(k2["max_abs_err"], k2t["max_abs_err"]),
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "bound_tc_ms": k2["bound_tc_ms"],
-         "library_ms": k2["library_ms"], "train": k2t,
+         "max_rel_err": k2["max_rel_err"],
+         **{k: k2[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "bound_ffma_ms",
+                               "launches_per_call", "kernels_ms")},
+         "train": k2t,
          "wide_shapes_max_abs_err": wide["encoder_fwd"],
+         "wide_shapes_max_rel_err": wide["encoder_fwd_rel"],
          "note": "eval: one tower at B 2048, L 15, d 128; train: the three "
                  "towers of a step (B 1536, 512, 512) at dropout 0.2, "
                  "saving the activations K3 reads (ms_without_saving "
-                 "beside); bound_ms FP32 FFMA, bound_tc_ms 3xTF32 tensor "
-                 "cores"},
+                 "beside); a sequence of kernels over all rows, 3xTF32 "
+                 "GEMMs on the tensor cores; bound_ms the 3xTF32 "
+                 "tensor-core bound (3*(12*N*d^2 + 4*N*L*d) TF32 FLOPs at "
+                 "495 TFLOP/s, or the bytes; train bytes count the saved "
+                 "activations), bound_ffma_ms the FP32 FFMA one; "
+                 "launches_per_call the CUDA kernels of one tower call, "
+                 "kernels_ms the profiled split"},
         {"name": "encoder_bwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/encoder_bwd.cu",
          "replaces": "c2dsr_tpu/ops/encoder_pallas.py:477",

@@ -89,11 +89,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from c2dsr_tpu_torch.train import optim, step
     opt = optim.make_optimizer(cfg, steps_per_epoch=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        step.make_train_step(cfg, spec, graphs, opt, torch.Generator())
+        step.make_train_step(cfg, spec, graphs, opt)
     # asked for the CPU, every entry point runs
     ranker.make_eval_fns(cfg, spec, graphs, device="cpu")
     params_mod.init_params(cfg, spec, torch.Generator().manual_seed(0), "cpu")
-    step.make_train_step(cfg, spec, graphs, opt, torch.Generator(), "cpu")
+    step.make_train_step(cfg, spec, graphs, opt, "cpu")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -123,18 +123,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("d,n_head,length,ok", [
     (128, 1, 15, True), (128, 2, 30, True), (64, 2, 15, True),
     (32, 1, 15, True), (256, 1, 15, True), (128, 32, 15, False),
-    (128, 1, 33, False), (32, 1, 30, True), (96, 2, 30, True),
+    (128, 1, 33, True), (32, 1, 30, True), (96, 2, 30, True),
     (96, 4, 15, True), (160, 2, 16, True), (256, 4, 16, True),
     (224, 28, 15, True), (256, 1, 17, True), (256, 4, 30, True),
-    (160, 1, 30, True), (40, 1, 15, True), (288, 1, 15, False),
+    (160, 1, 30, True), (40, 1, 15, True), (288, 1, 15, True),
     (64, 3, 15, False), (64, 1, 0, False), (40, 1, 30, True),
-    (8, 1, 15, True), (256, 4, 32, True), (256, 4, 33, False),
-    (264, 1, 15, False), (44, 1, 15, False), (40, 2, 15, False)])
+    (8, 1, 15, True), (256, 4, 32, True), (256, 4, 33, True),
+    (264, 1, 15, True), (44, 1, 15, False), (40, 2, 15, False),
+    (512, 4, 15, True), (512, 8, 30, True), (128, 2, 64, True),
+    (256, 4, 64, True), (96, 2, 48, True), (512, 1, 64, True),
+    (128, 1, 65, False), (512, 4, 65, False), (520, 1, 15, False),
+    (1024, 8, 15, False), (512, 128, 15, False)])
 def test_encoder_kernel_shape_contract(d, n_head, length, ok):
     """encoder_cuda.supported, the one rule both tower kernels take: every
-    width at which the JAX package runs its fused encoder up to d 256 (d a
-    multiple of 8, head dim a multiple of 8) and L up to 32 at every width;
-    d above 256 is refused."""
+    width at which the JAX package runs its fused encoder up to d 512 (d a
+    multiple of 8, head dim a multiple of 8) and L up to 64 at every width;
+    d above 512 and L above 64 are refused."""
     from c2dsr_tpu_torch.ops import encoder_cuda
     assert encoder_cuda.supported(d, n_head, length) is ok
 

@@ -3,7 +3,9 @@
 The same contract as the JAX package's (``tests/test_checkpoint.py``):
   * an exact round-trip of the params, the AdamW moments (``max_exp_avg_sq``
     too), the schedule and the step, and a bitwise-identical next step
-    after a restore (dropout 0, so the step's seed stream plays no part);
+    after a restore, at dropout 0 and at the JAX test's dropout of 0.2: a
+    step's dropout seed follows (``cfg.seed + 1``, ``state.step``), and the
+    step count is in the checkpoint;
   * ``Experiment(resume=True)`` restores the state and the best-validation
     bookkeeping and continues at the next epoch; with ``resume`` off a
     checkpoint is ignored;
@@ -26,8 +28,10 @@ import torch
 from c2dsr_tpu_torch import checkpoint as ckpt_mod
 from c2dsr_tpu_torch.config import Config, DataSpec
 from c2dsr_tpu_torch.data import preprocess, synthetic
+from c2dsr_tpu_torch.evaluate import ranker
 from c2dsr_tpu_torch.graph import build
 from c2dsr_tpu_torch.model import c2dsr
+from c2dsr_tpu_torch.ops import dropout as drop
 from c2dsr_tpu_torch.ops import spmm
 from c2dsr_tpu_torch.train import step
 from c2dsr_tpu_torch.train.loop import Experiment
@@ -37,6 +41,7 @@ SPEC = DataSpec(n_item_a=50, n_item_b=70, len_max=15)
 CFG = Config(d_latent=32, batch_size=32, batch_size_eval=64, len_rec=5,
              n_neg_sample=20, vocab_pad_multiple=64, dropout_gnn=0.0,
              dropout_attn=0.0)
+DROP_CFG = CFG.with_(dropout_gnn=0.2, dropout_attn=0.2)
 
 
 @pytest.fixture(scope="module")
@@ -96,6 +101,55 @@ def test_state_roundtrip_and_identical_next_step(setup, tmp_path):
     s2, aux2 = exp2.train_step(exp2.state, batch)
     assert float(aux1["loss"]) == float(aux2["loss"])
     _state_equal(s1, s2)
+
+
+def test_resumed_step_at_dropout_equals_uninterrupted_step(setup, tmp_path):
+    """tests/test_checkpoint.py:45-69 of the JAX package at its dropout of
+    0.2 (GNN and towers): after a restore the next step draws the
+    uninterrupted run's dropout, so loss and state agree bitwise; the seed
+    of step 0, which a replayed stream would draw, gives another loss."""
+    path = str(tmp_path / "ckpt")
+    exp1 = _exp(setup, DROP_CFG, path)
+    exp1.run_train_epoch()
+    ckpt_mod.save(path, exp1.state, meta={"epoch": 1})
+    exp2 = _exp(setup, DROP_CFG.with_(resume=True), path)
+    _state_equal(exp1.state, exp2.state)
+    assert exp2.state.step == exp1.state.step > 0
+
+    batch = {k: v[:16] for k, v in setup[0].items()}
+    b = ranker.to_device(batch, "cpu")
+    with torch.no_grad():
+        replayed = float(step.loss_fn(
+            exp2.state.params, exp2.graphs, b,
+            drop.step_seed(DROP_CFG.seed + 1, 0), DROP_CFG, SPEC)[0])
+    s1, aux1 = exp1.train_step(exp1.state, batch)
+    s2, aux2 = exp2.train_step(exp2.state, batch)
+    assert float(aux1["loss"]) == float(aux2["loss"])
+    assert float(aux2["loss"]) != replayed
+    _state_equal(s1, s2)
+
+
+def test_consecutive_steps_draw_different_seeds(setup, monkeypatch):
+    """Each step's dropout seed is step_seed(cfg.seed + 1, state.step): two
+    consecutive steps draw different seeds, below 2^31, and the same steps
+    of another run draw the same ones."""
+    seen = []
+    real = step.loss_fn
+
+    def spy(params, graphs, batch, seed, *args, **kw):
+        seen.append(seed)
+        return real(params, graphs, batch, seed, *args, **kw)
+
+    monkeypatch.setattr(step, "loss_fn", spy)
+    batch = {k: v[:16] for k, v in setup[0].items()}
+    for _ in range(2):
+        exp = _exp(setup, DROP_CFG)
+        state = exp.state
+        for _ in range(3):
+            state, _ = exp.train_step(state, batch)
+    want = [drop.step_seed(DROP_CFG.seed + 1, i) for i in range(3)]
+    assert seen == want + want
+    assert len(set(want)) == 3 and all(0 <= s < 2 ** 31 for s in want)
 
 
 def test_resume_flag_off_ignores_checkpoint(setup, tmp_path):

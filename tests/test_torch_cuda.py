@@ -73,10 +73,13 @@ def _inputs(B, L, d, pad, seed, device):
 
 
 # the tower widths users set beyond 64 and 128: d % 64 == 32 (a ragged half
-# chunk in the GEMMs), EE's L 30 at small d, d above 128 (half the forward's
-# rows), d % 32 == 8 with one head (ragged k chunks), and EE's L 30 at d 256
+# chunk in the GEMMs), EE's L 30 at small d, d above 128, d % 32 == 8 with
+# one head (ragged k chunks), EE's L 30 at d 256; d 512 (two column tiles
+# and K2's LayerNorm kernel), and L past 32 (two keys a lane in attention)
 WIDE_TOWERS = [(96, 2, 30, 1, 7), (32, 1, 30, 2, 9), (256, 4, 15, 1, 5),
-               (160, 2, 16, 2, 6), (40, 1, 30, 1, 7), (256, 4, 30, 1, 5)]
+               (160, 2, 16, 2, 6), (40, 1, 30, 1, 7), (256, 4, 30, 1, 5),
+               (512, 4, 15, 1, 5), (512, 8, 30, 2, 3), (128, 2, 64, 1, 5),
+               (256, 4, 64, 1, 3), (96, 2, 48, 2, 4)]
 
 
 @pytest.mark.parametrize("invert", [False, True])
@@ -101,9 +104,9 @@ def test_encoder_kernel_matches_plain(cuda, invert, d, n_head, L, n_layers,
 
 
 def test_encoder_kernel_refuses_unsupported_shapes(cuda):
-    """Shapes still refused, before any launch: d above 256 and L above 32;
+    """Shapes still refused, before any launch: d above 512 and L above 64;
     the error names the shape."""
-    for d, L in ((264, 15), (64, 33)):
+    for d, L in ((520, 15), (64, 65)):
         p = params_mod.init_encoder_params(torch.Generator().manual_seed(0),
                                            Config(d_latent=d), L)
         p = params_mod.params_from_numpy(params_mod.params_to_numpy(p), cuda)
@@ -297,7 +300,8 @@ def _plain_activations(x, seq, p, n_head, kw):
 
 @pytest.mark.parametrize("dropout", [0.0, 0.2])
 @pytest.mark.parametrize("d,n_head,L,n_layers,B", [
-    (64, 2, 15, 2, 9), (40, 1, 30, 1, 7), (256, 4, 30, 1, 3)])
+    (64, 2, 15, 2, 9), (40, 1, 30, 1, 7), (256, 4, 30, 1, 3),
+    (512, 4, 15, 2, 3), (128, 2, 64, 1, 3)])
 def test_encoder_saved_activations_match_plain_forward(cuda, dropout, d,
                                                        n_head, L, n_layers,
                                                        B):
@@ -323,6 +327,25 @@ def test_encoder_saved_activations_match_plain_forward(cuda, dropout, d,
             assert _rel_err(rebuilt, y) <= 1e-5
     rebuilt = views["xhat_f"] * p["lnf_scale"] + p["lnf_bias"]
     assert _rel_err(rebuilt, out) <= 1e-5
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+@pytest.mark.parametrize("d,n_head,L,n_layers,B", [
+    (128, 1, 15, 1, 9), (96, 2, 48, 2, 5), (512, 8, 30, 2, 3)])
+def test_encoder_eval_workspace_matches_saving_forward(cuda, dropout, d,
+                                                       n_head, L, n_layers, B):
+    """K2 without a saved buffer (the one-layer eval workspace) runs the
+    same arithmetic as the training forward that saves every layer: the
+    outputs are bitwise equal, and a second launch repeats them."""
+    p, x, seq = _tower_case(cuda, d, n_head, L, n_layers, B)
+    kw = dict(idx_pad=999, n_head=n_head, invert_padding_mask=False,
+              dropout=dropout, seed=8, tower=0)
+    acts = encoder_cuda.saved_buffer(x, n_head, n_layers)
+    saving = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw)
+    out = encoder_cuda.encoder_fwd(x, seq, p, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, saving)
+    assert torch.equal(out, encoder_cuda.encoder_fwd(x, seq, p, **kw))
 
 
 def test_encoder_function_routes_both_kernels(cuda):
@@ -539,8 +562,7 @@ def test_train_steps_on_card_match_cpu(cuda):
                               spmm.device_graph(specific, dev))
         opt = optim.make_optimizer(cfg, steps_per_epoch=2)
         state = step.init_state(params, opt)
-        fn = step.make_train_step(cfg, SPEC, graphs, opt,
-                                  torch.Generator().manual_seed(5), dev)
+        fn = step.make_train_step(cfg, SPEC, graphs, opt, dev)
         out = []
         for i in range(3):
             batch = {k: v[i * 32:(i + 1) * 32] for k, v in train.items()}
@@ -550,79 +572,77 @@ def test_train_steps_on_card_match_cpu(cuda):
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
-def test_wide_train_step_on_card_matches_cpu(cuda):
-    """One train step's loss and every gradient at d 256 (the towers' widest
-    tiles, K4 and K5 at their widest) on the card against the
-    CPU, from the same params and batch, dropout 0.  One step, not three:
-    at this width AdamW's first steps follow the sign of gradients that
-    are zero but for rounding, so two devices' third losses part by about
-    1e-3 with or without the kernels."""
+def _step_against_float64(cuda, cfg, spec, share, specific, batch):
+    """One train step's loss and every gradient, dropout 0, through the
+    kernels on the card and through the plain versions in float64 on the
+    CPU, from the same f32 params and batch: (loss, grads) of each.  The
+    float64 run computes the same function (``attention_mask_bias`` rounds
+    masked logits as f32 does), so it stands for the exact step."""
     from c2dsr_tpu_torch.train import step
-    cfg = Config(d_latent=256, batch_size=32, len_rec=5, dropout_gnn=0.0,
-                 dropout_attn=0.0, vocab_pad_multiple=64)
-    share, specific = _graph()
-    train = preprocess.preprocess_train(
-        synthetic.generate_sequences(SPEC, 400, seed=3), SPEC, seed=1)
     init = params_mod.params_to_numpy(params_mod.init_params(
-        cfg, SPEC, torch.Generator().manual_seed(0), "cpu"))
-    batch = {k: v[:32] for k, v in train.items()}
+        cfg, spec, torch.Generator().manual_seed(0), "cpu"))
     out = {}
-    for dev in ("cpu", cuda):
-        params = params_mod.params_from_numpy(init, dev)
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        params = params_mod._map(lambda t: t.to(dtype),
+                                 params_mod.params_from_numpy(init, dev))
         leaves = step.param_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
         graphs = c2dsr.Graphs(spmm.device_graph(share, dev),
                               spmm.device_graph(specific, dev))
         launches = encoder_cuda.encoder_bwd.launches
-        loss, _ = step.loss_fn(params, graphs, ranker.to_device(batch, dev),
-                               None, cfg, SPEC)
+        loss, _ = step.loss_fn(
+            params, graphs, ranker.to_device(batch, dev), None,
+            cfg.with_(compute_dtype=str(dtype).split(".")[1]), spec)
         loss.backward()
         if dev != "cpu":
             assert encoder_cuda.encoder_bwd.launches == launches + 3
+        assert all(t.grad.dtype == dtype for t in leaves)
         out[str(dev)] = (float(loss), [t.grad.cpu() for t in leaves])
-    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    return out["cuda"], out["cpu"]
+
+
+def test_wide_train_step_on_card_matches_cpu(cuda):
+    """One train step's loss and every gradient at d 256 (the towers' widest
+    fused-LN tiles, K4 and K5 at their widest) on the card against the
+    plain versions in float64 on the CPU, from the same params and batch,
+    dropout 0.  The reference is float64 because the plain f32 tower is
+    itself about as far from the exact gradients as this test's limit.  One
+    step, not three: at this width AdamW's first steps follow the sign of
+    gradients that are zero but for rounding, so two devices' third losses
+    part by about 1e-3 with or without the kernels."""
+    cfg = Config(d_latent=256, batch_size=32, len_rec=5, dropout_gnn=0.0,
+                 dropout_attn=0.0, vocab_pad_multiple=64)
+    share, specific = _graph()
+    train = preprocess.preprocess_train(
+        synthetic.generate_sequences(SPEC, 400, seed=3), SPEC, seed=1)
+    batch = {k: v[:32] for k, v in train.items()}
+    (lg, gg), (lc, gc) = _step_against_float64(cuda, cfg, SPEC, share,
+                                               specific, batch)
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for a, b in zip(gg, gc):
-        assert _rel_err(a, b) <= 1e-4 if float(b.abs().max()) > 0 else \
-            float(a.abs().max()) == 0
+        assert _rel_err(a.double(), b) <= 1e-4 if float(b.abs().max()) > 0 \
+            else float(a.abs().max()) == 0
 
 
 def test_ee_train_step_on_card_matches_cpu(cuda):
     """One train step at EE's geometry (len_max 30) and d 256: the towers'
     L 30 sequences at their widest, K4 and K5 at d 256, on the card against
-    the CPU (plain versions), from the same params and batch, dropout 0:
-    the loss and every gradient."""
-    from c2dsr_tpu_torch.train import step
+    the plain versions in float64 on the CPU, from the same params and
+    batch, dropout 0: the loss and every gradient."""
     spec = DataSpec(n_item_a=300, n_item_b=400, len_max=30)
     cfg = Config(d_latent=256, n_head=4, batch_size=16, len_rec=5,
                  dropout_gnn=0.0, dropout_attn=0.0, vocab_pad_multiple=64)
     seqs = synthetic.generate_sequences(spec, 400, seed=3)
     share, specific = build.build_graphs(seqs, spec)
     train = preprocess.preprocess_train(seqs, spec, seed=1)
-    init = params_mod.params_to_numpy(params_mod.init_params(
-        cfg, spec, torch.Generator().manual_seed(0), "cpu"))
     batch = {k: v[:16] for k, v in train.items()}
-    out = {}
-    for dev in ("cpu", cuda):
-        params = params_mod.params_from_numpy(init, dev)
-        leaves = step.param_leaves(params)
-        for t in leaves:
-            t.requires_grad_(True)
-        graphs = c2dsr.Graphs(spmm.device_graph(share, dev),
-                              spmm.device_graph(specific, dev))
-        launches = encoder_cuda.encoder_bwd.launches
-        loss, _ = step.loss_fn(params, graphs, ranker.to_device(batch, dev),
-                               None, cfg, spec)
-        loss.backward()
-        if dev != "cpu":
-            assert encoder_cuda.encoder_bwd.launches == launches + 3
-        out[str(dev)] = (float(loss), [t.grad.cpu() for t in leaves])
-    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    (lg, gg), (lc, gc) = _step_against_float64(cuda, cfg, spec, share,
+                                               specific, batch)
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for a, b in zip(gg, gc):
-        assert _rel_err(a, b) <= 1e-4 if float(b.abs().max()) > 0 else \
-            float(a.abs().max()) == 0
+        assert _rel_err(a.double(), b) <= 1e-4 if float(b.abs().max()) > 0 \
+            else float(a.abs().max()) == 0
 
 
 # ---- experiment slice: K6, the batch-sparse SpMM ----
@@ -727,8 +747,7 @@ def test_batch_sparse_train_steps_on_card_match_cpu(cuda):
                               spmm.device_graph(specific, dev))
         opt = optim.make_optimizer(cfg, steps_per_epoch=2)
         state = step.init_state(params, opt)
-        fn = step.make_train_step(cfg, SPEC, graphs, opt,
-                                  torch.Generator().manual_seed(5), dev)
+        fn = step.make_train_step(cfg, SPEC, graphs, opt, dev)
         k1, k6 = spmm_cuda.spmm_csr.launches, spmm_cuda.spmm_csr_flagged.launches
         out = []
         for i in range(3):

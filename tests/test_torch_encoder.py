@@ -95,6 +95,91 @@ def test_all_masked_row_is_uniform_average_over_l():
                                rtol=0, atol=0)
 
 
+def test_float64_mask_bias_rounds_logits_as_f32_does():
+    """In float64 the mask bias is NEG_INF·2^29, whose spacing is 64 as
+    NEG_INF's is in f32: a masked logit rounds to the same step of 64
+    (ties to even included), so an all-masked row is what it is in f32."""
+    seq = torch.full((1, 4), PAD)
+    b32 = enc.attention_mask_bias(seq, PAD, False)
+    b64 = enc.attention_mask_bias(seq, PAD, False, torch.float64)
+    assert b32.dtype == torch.float32 and b64.dtype == torch.float64
+    x = torch.linspace(-400, 400, 64001, dtype=torch.float32)
+    x = torch.cat([x, torch.arange(-416, 417, 32, dtype=torch.float32)])
+    step32 = (x + b32.flatten()[0]) - b32.flatten()[0]
+    step64 = (x.double() + b64.flatten()[0]) - b64.flatten()[0]
+    assert torch.equal(step32.double(), step64)
+    assert set(step32.unique().tolist()) > {-384.0, -64.0, 0.0, 64.0, 384.0}
+
+
+@pytest.mark.parametrize("invert", [False, True])
+def test_plain_tower_in_float64_matches_f32(invert):
+    """The plain tower carries float64 through (the exact reference the
+    card tests hold the kernels against): the same outputs as in f32 on
+    every row, all-masked ones included."""
+    p = _params(2, 2, 15, seed=5)
+    seq, pos, h = _inputs(32, 15, seed=5)
+    tp = params_mod.params_from_numpy(p, device="cpu")
+    args = (torch.from_numpy(seq).long(), torch.from_numpy(h),
+            torch.from_numpy(pos).long())
+    kw = dict(idx_pad=PAD, n_head=2, norm_first=False,
+              invert_padding_mask=invert)
+    got = enc.encode_sequence(args[0], args[1].double(), args[2],
+                              params_mod._map(lambda t: t.double(), tp), **kw)
+    want = enc.encode_sequence(*args, tp, **kw)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
+
+
+def _layer0_branches(x, seq, tp, n_head):
+    """The plain one-layer tower's own branches: its ReLU mask, and its
+    all-masked rows' probabilities (uniform at these small logits)."""
+    B, L, _ = x.shape
+    bias = enc.attention_mask_bias(seq, PAD, False)
+    p0 = {k: v[0] for k, v in tp["layers"].items()}
+    x1 = enc.layer_norm(x + enc.multi_head_attention(x, p0, n_head, bias),
+                        p0["ln1_scale"], p0["ln1_bias"])
+    relu = (x1 @ p0["w_ff1"] + p0["b_ff1"] > 0).float()
+    return relu, torch.full((B, n_head, L, L), 1.0 / L)
+
+
+def test_plain_tower_taken_at_given_branches():
+    """``branches`` takes the tower at another forward's branches: at its
+    own it changes nothing, forward or backward; another ReLU mask or other
+    probabilities on all-masked rows move only the rows they touch."""
+    n_head, L = 2, 15
+    p = _params(1, n_head, L, seed=6)
+    seq, pos, h = _inputs(16, L, seed=6)
+    tp = params_mod.params_from_numpy(p, device="cpu")
+    s, x = torch.from_numpy(seq).long(), torch.from_numpy(h)
+    kw = dict(idx_pad=PAD, n_head=n_head, invert_padding_mask=False)
+    relu, probs = _layer0_branches(x, s, tp, n_head)
+    own = {(0, 0): (relu, probs)}
+    base = enc.encoder_fwd_plain(x, s, tp, **kw)
+    torch.testing.assert_close(enc.encoder_fwd_plain(x, s, tp, branches=own,
+                                                     **kw), base,
+                               rtol=0, atol=1e-6)
+    g = torch.from_numpy(np.random.default_rng(6).normal(
+        size=h.shape).astype(np.float32))
+    for a, b in zip(*[[r[0]] + r[1] for r in (
+            enc.encoder_bwd_plain(x, s, g, tp, branches=own, **kw),
+            enc.encoder_bwd_plain(x, s, g, tp, **kw))]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    flipped = relu.clone()
+    flipped[3, 7, 5] = 1 - flipped[3, 7, 5]
+    out = enc.encoder_fwd_plain(x, s, tp, branches={(0, 0): (flipped, probs)},
+                                **kw)
+    moved = (out != base).any(-1)
+    assert moved[3, 7] and int(moved.sum()) == 1
+    masked = (s == PAD)                          # left pads: no key allowed
+    onehot = torch.zeros_like(probs)
+    onehot[..., 0] = 1.0
+    out = enc.encoder_fwd_plain(x, s, tp, branches={(0, 0): (relu, onehot)},
+                                **kw)
+    moved = (out != base).any(-1)
+    assert moved.any() and torch.equal(moved & ~masked,
+                                       torch.zeros_like(moved))
+
+
 @pytest.fixture
 def _interpret():
     jencp.st_interpret.set(True)

@@ -101,6 +101,38 @@ def test_loss_fn_and_grads_match_jax(setup, valid):
         assert np.abs(g).sum() > 0
 
 
+@pytest.mark.parametrize("valid", [False, True])
+def test_loss_fn_in_float64_matches_jax(setup, valid):
+    """The plain path carries float64 end to end (the card tests hold the
+    kernels against it): float64 params give a float64 loss and float64
+    gradients, within the f32 test's tolerances of the JAX package's."""
+    s = setup
+    batch = _batch(s, valid)
+    (jloss, _), jgrads = jax.value_and_grad(jstep.loss_fn, has_aux=True)(
+        s["jp"], s["jgraphs"], {k: jnp.asarray(v) for k, v in batch.items()},
+        jax.random.PRNGKey(1), s["jcfg"], s["jspec"])
+    params = params_mod._map(
+        lambda t: t.double().requires_grad_(True),
+        params_mod.params_from_numpy(s["np_params"], "cpu"))
+    loss, _ = step.loss_fn(params, s["graphs"],
+                           ranker.to_device(batch, "cpu"), None,
+                           s["cfg"].with_(compute_dtype="float64"),
+                           s["spec"])
+    loss.backward()
+    assert loss.dtype == torch.float64
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    grads = params_mod.params_to_numpy(params_mod._map(lambda t: t.grad,
+                                                       params))
+    for (path, want), got in zip(jax.tree_util.tree_leaves_with_path(jgrads),
+                                 jax.tree.leaves(grads)):
+        assert got.dtype == np.float64
+        want = np.asarray(want)
+        scale = max(float(np.abs(want).max()), 1e-30)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-4 * scale,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
 def test_three_train_steps_match_jax(setup):
     s = setup
     batches = [{k: v[16 * i:16 * (i + 1)] for k, v in s["train"].items()}
@@ -117,8 +149,7 @@ def test_three_train_steps_match_jax(setup):
     params = params_mod.params_from_numpy(s["np_params"], "cpu")
     opt = optim.make_optimizer(s["cfg"], steps_per_epoch=2)
     state = step.init_state(params, opt)
-    fn = step.make_train_step(s["cfg"], s["spec"], s["graphs"], opt,
-                              torch.Generator().manual_seed(0), "cpu")
+    fn = step.make_train_step(s["cfg"], s["spec"], s["graphs"], opt, "cpu")
     losses = []
     for b in batches:
         state, aux = fn(state, b)
@@ -129,8 +160,8 @@ def test_three_train_steps_match_jax(setup):
 
 
 def test_train_step_with_dropout_is_finite_and_seeded(setup):
-    """Dropout on (GNN and towers): two runs from the same generator seed
-    give the same losses; another seed gives other ones."""
+    """Dropout on (GNN and towers): two runs from the same ``cfg.seed`` give
+    the same losses; another seed gives other ones."""
     s = setup
     cfg = s["cfg"].with_(dropout_gnn=0.2, dropout_attn=0.2)
     batch = _batch(s, False)
@@ -139,8 +170,8 @@ def test_train_step_with_dropout_is_finite_and_seeded(setup):
         params = params_mod.params_from_numpy(s["np_params"], "cpu")
         opt = optim.make_optimizer(cfg, steps_per_epoch=10)
         state = step.init_state(params, opt)
-        fn = step.make_train_step(cfg, s["spec"], s["graphs"], opt,
-                                  torch.Generator().manual_seed(seed), "cpu")
+        fn = step.make_train_step(cfg.with_(seed=seed), s["spec"],
+                                  s["graphs"], opt, "cpu")
         out = []
         for _ in range(2):
             state, aux = fn(state, batch)

@@ -3,9 +3,12 @@
 the kernels take beyond d 64 and 128, held against the JAX package.
 
 * (d 96, 2 heads, L 30): d % 64 == 32, EE's length; (d 256, 4 heads, L 15):
-  the widest tower, FK's length; (d 40, 1 head, L 30): d % 32 == 8, a
-  ragged k chunk in the kernels' GEMMs; (d 256, 4 heads, L 30): EE's length
-  at the widest tower.
+  FK's length at d 256; (d 40, 1 head, L 30): d % 32 == 8, a ragged k chunk
+  in the kernels' GEMMs; (d 256, 4 heads, L 30): EE's length at d 256;
+  (d 512, 4 heads, L 15): the widest tower, two column tiles and the
+  LayerNorm kernel in K2; (d 128, 2 heads, L 50) and (d 256, 4 heads,
+  L 64): sequences past 32, where a lane of the attention kernels holds
+  two keys.
 * Against ``c2dsr_tpu.ops.encoder.encode_sequence`` under ``jax.vjp`` on
   every row, all-pad sequences included: 1e-5 relative to each tensor's
   largest value (the same f32 arithmetic in another order).
@@ -28,7 +31,8 @@ from c2dsr_tpu_torch.model import params as params_mod
 from c2dsr_tpu_torch.ops import encoder as enc
 
 PAD = 99
-SHAPES = [(96, 2, 30), (256, 4, 15), (40, 1, 30), (256, 4, 30)]
+SHAPES = [(96, 2, 30), (256, 4, 15), (40, 1, 30), (256, 4, 30),
+          (512, 4, 15), (128, 2, 50), (256, 4, 64)]
 
 
 def _inputs(b, length, d, seed, first_real):
