@@ -1,0 +1,206 @@
+"""``--scaled``: one device's vocab shard of the scaled configuration
+(BASELINE.json config 5: 10M items, d 512), the counterpart of the JAX
+package's ``bench/scaled_bench.py``.
+
+A 10M-row f32 table is 20 GB, more than a device holds beside its
+optimizer state, so a deployment shards the vocab; this measures the
+per-device ops of that regime at one f32 shard, V = 2^19 (W is 1 GiB), with
+B 512 x R 20 CE rows, each op validated on the card first against a
+vocab-chunked plain oracle:
+
+1. the embedding gather (``ops/lookup``: ``index_select``, backward K7) of
+   B 512 x L 15 ids from a 2^20-row table;
+2. the fused CE forward and backward, K4 + K5 at d 512, over the shard
+   (oracle: the plain versions in float64 over row chunks of 500);
+3. full-rank scoring of 256 rows over the shard (``LocalOps.full_rank``;
+   oracle: the ranks of 32 rows counted over vocab chunks).
+
+Also the per-device memory plan of the full configuration, for the H100's
+80 GB.  Not ported: the bf16-at-rest classifier variant (the port has no
+bf16 classifier path) and the projection to 10M items over M devices
+(it waits for ``parallel/``); ROADMAP §A lists both.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from c2dsr_tpu_torch.bench import gates, timing
+
+V_FULL = 10_000_000
+D = 512
+V_SHARD = 1 << 19          # the f32 shard: d·V·4 = 2^30 B
+V_TABLE = 1 << 20          # rows of the gathered table
+B, R, L = 512, 20, 15      # train CE rows, lookup sequence length
+B_RANK = 256               # full-rank rows a call
+HBM_PER_CARD = 80e9        # H100 SXM
+CE_TOL = 1e-5              # lse - tlog rows, over max |oracle|
+GRAD_TOL = 1e-4            # dh, dW, db over max |oracle|: the train step's
+                           # gradient gate (chip_smoke.py GRAD_TOL)
+
+
+def memory_plan() -> list:
+    """Per-device bytes of the full 10M-item configuration by shard count:
+    3 embedding tables and 2 classifiers, with AMSGrad's three f32 moments
+    beside each, in f32 and with bf16 parameters."""
+    rows = []
+    n_tables, n_cls = 3, 2
+    for dtype_bytes, tag in ((4, "f32"), (2, "bf16_params")):
+        params = (n_tables + n_cls) * V_FULL * D * dtype_bytes
+        opt = (n_tables + n_cls) * V_FULL * D * 4 * 3
+        total = params + opt
+        for m in (8, 16, 32, 64):
+            rows.append({"params": tag, "shards": m,
+                         "per_device_gb": total / m / 1e9,
+                         "fits_h100_80gb": bool(total / m
+                                                < HBM_PER_CARD * 0.9)})
+    return rows
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _lookup(timer, rng, peak_bw) -> Dict:
+    from c2dsr_tpu_torch.ops import lookup, segsum_cuda
+    tbl = torch.randn((V_TABLE, D), device="cuda", requires_grad=True)
+    ids = torch.from_numpy(rng.integers(0, V_TABLE, size=(B, L))).cuda()
+    g = torch.randn((B * L, D), device="cuda")
+    with torch.no_grad():
+        got = lookup.lookup(tbl, ids)
+        if not torch.equal(got, tbl[ids]):
+            raise timing.GateFailure("scaled lookup differs from indexing")
+    # K7 against CPU index_add_ over the ids present (renumbered, which
+    # keeps each id's order): bitwise, and zero on every other row
+    grad = segsum_cuda.segsum(ids, g, V_TABLE)
+    uniq, inv = torch.unique(ids.reshape(-1), return_inverse=True)
+    want = segsum_cuda.segsum_plain(inv.cpu(), g.cpu(), uniq.numel())
+    if not (torch.equal(grad[uniq].cpu(), want)
+            and int((grad != 0).any(1).sum()) <= uniq.numel()):
+        raise timing.GateFailure("scaled lookup backward differs")
+    with torch.no_grad():
+        t = timer(lambda: lookup.lookup(tbl, ids))
+
+    def fwd_bwd():
+        out = lookup.lookup(tbl, ids)
+        return torch.autograd.grad(out, tbl, g.view(out.shape))
+
+    t_fb = timer(fwd_bwd, reps=10)
+    n = B * L
+    return {"lookup_ms": t, "lookup_rows_per_s": n / t * 1e3,
+            "lookup_bound_ms": (8.0 * n + 8.0 * n * D) / peak_bw * 1e3,
+            "lookup_fwd_bwd_ms": t_fb,
+            "lookup_fwd_bwd_bound_ms":
+                (16.0 * n + 12.0 * n * D + 4.0 * V_TABLE * D) / peak_bw * 1e3,
+            "validated": True}
+
+
+def _ce(timer, rng, card, peak_flops, peak_bw) -> Dict:
+    from c2dsr_tpu_torch.ops import fused_ce
+    n_real = V_SHARD - 1024
+    w = torch.randn((D, V_SHARD), device="cuda") * 0.02
+    b = torch.zeros(V_SHARD, device="cuda")
+    h = torch.randn((B, R, D), device="cuda")
+    pad = torch.zeros((B, R, 1), device="cuda")
+    tgt = torch.from_numpy(rng.integers(0, n_real, size=(B, R))).cuda()
+    leaves = [h.requires_grad_(True), w.requires_grad_(True),
+              b.requires_grad_(True)]
+
+    def fwd():
+        return fused_ce.fused_rec_ce_rows(h, w, b, pad, tgt, n_real)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd().sum(), leaves)
+
+    rows = fwd().detach()
+    grads = fwd_bwd()
+    # the oracle: the plain versions in float64 over chunks of 25
+    # sequences (500 rows, whose logits take 2 GiB); dW and db summed over
+    # the chunks
+    w64 = w.detach().double().requires_grad_(True)
+    b64 = b.detach().double().requires_grad_(True)
+    want_rows, dh = [], []
+    dw = torch.zeros_like(w64)
+    db = torch.zeros_like(b64)
+    with gates.plain_versions():
+        for s in range(0, B, 25):
+            hc = h[s:s + 25].detach().double().requires_grad_(True)
+            out = fused_ce.fused_rec_ce_rows(hc, w64, b64,
+                                             pad[s:s + hc.shape[0]],
+                                             tgt[s:s + hc.shape[0]], n_real)
+            gh, gw, gb = torch.autograd.grad(out.sum(), [hc, w64, b64])
+            want_rows.append(out.detach())
+            dh.append(gh)
+            dw += gw
+            db += gb
+    e_f = _rel(rows, torch.cat(want_rows))
+    e_b = max(_rel(grads[0], torch.cat(dh)), _rel(grads[1], dw),
+              _rel(grads[2], db))
+    if e_f > CE_TOL or e_b > GRAD_TOL:
+        raise timing.GateFailure(f"scaled CE at d {D}: rows {e_f}, "
+                                 f"gradients {e_b} from the oracle")
+    del dh, dw, db, want_rows, w64, b64
+    with torch.no_grad():
+        t_f = timer(fwd, reps=3, warmup=1)
+    t_fb = timer(fwd_bwd, reps=3, warmup=1)
+    N = B * R
+    flops = 2.0 * N * V_SHARD * D
+    io = 4.0 * (N * D + D * V_SHARD + V_SHARD + 3 * N)
+    return {"v": V_SHARD, "w_dtype": "float32", "rows_rel_err": e_f,
+            "grads_rel_err": e_b, "fwd_ms": t_f, "fwd_bwd_ms": t_fb,
+            "fwd_bound_ms": timing.tc_bound_ms(flops, io, card, peak_bw),
+            "fwd_bwd_bound_ms": timing.tc_bound_ms(3 * flops, 3 * io, card,
+                                                   peak_bw),
+            "fwd_bound_ffma_ms": flops / peak_flops * 1e3,
+            "fwd_bwd_tflops": 3 * flops / t_fb / 1e9, "validated": True}
+
+
+def _full_rank(timer, rng, peak_flops, peak_bw) -> Dict:
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.parallel.strategy import LocalOps
+    pops = LocalOps(cfg=Config(d_latent=D))
+    w = torch.randn((D, V_SHARD), device="cuda") * 0.02
+    b = torch.zeros(V_SHARD, device="cuda")
+    hv = torch.randn((B_RANK, D), device="cuda")
+    gt = torch.from_numpy(rng.integers(0, V_SHARD, size=B_RANK)).cuda()
+    with torch.no_grad():
+        got = pops.full_rank(hv, w, b, gt, V_SHARD)
+        chunks = [hv[:32] @ w[:, s:s + (1 << 17)] + b[s:s + (1 << 17)]
+                  for s in range(0, V_SHARD, 1 << 17)]
+        scores = torch.cat(chunks, 1)
+        want = (scores > scores.gather(1, gt[:32, None])).sum(1) + 1
+    # chunked and whole products may round a near-tie apart, as the JAX
+    # bench allows: a few boundary flips out of 2^19 candidates
+    dev = int((got[:32].long() - want).abs().max())
+    if dev > 8:
+        raise timing.GateFailure(f"scaled full rank: rank delta {dev}")
+    with torch.no_grad():
+        t = timer(lambda: pops.full_rank(hv, w, b, gt, V_SHARD), reps=10)
+    flops = 2.0 * B_RANK * D * V_SHARD
+    nbytes = 4.0 * (D * V_SHARD + V_SHARD + B_RANK * D)
+    return {"full_rank_ms": t, "full_rank_items_per_s": B_RANK * V_SHARD / t
+            * 1e3, "full_rank_max_rank_delta": dev,
+            "full_rank_bound_ms": max(flops / peak_flops,
+                                      nbytes / peak_bw) * 1e3,
+            "full_rank_validated": True}
+
+
+def run(device: str = "cuda") -> Dict:
+    timing.require_cuda(device, "--scaled")
+    card = torch.cuda.get_device_name(0)
+    peak_flops, peak_bw = timing.peaks(card)
+    rng = np.random.default_rng(0)
+    timer = timing.Timer()
+    results = {}
+    results.update(_lookup(timer, rng, peak_bw))
+    torch.cuda.empty_cache()
+    results["fused_ce_f32"] = _ce(timer, rng, card, peak_flops, peak_bw)
+    torch.cuda.empty_cache()
+    results.update(_full_rank(timer, rng, peak_flops, peak_bw))
+    return {"config": {"v_full": V_FULL, "d": D, "v_shard": V_SHARD,
+                       "batch": B, "len_rec": R},
+            "device": timing.card_line(),
+            "measured_per_shard": results, "memory_plan": memory_plan()}

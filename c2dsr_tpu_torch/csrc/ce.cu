@@ -10,6 +10,8 @@
 // cores at f32 accuracy (3xTF32, tc.cuh): the ceiling is 495 / 3 = 165
 // TFLOP/s of f32-accurate work against 67 for FFMA.
 //
+// K4 and the tile machinery both kernels share live in ce_fwd.cuh.
+//
 // K4, the forward: 2·N·V·d FLOPs for the logits (the bytes, h and W once
 // and a few floats a row, are small beside them).  It is K5's dh kernel
 // without the second product: X = h stays resident in shared memory, Y = Wᵀ
@@ -53,14 +55,16 @@
 //   fragment a warp reads from shared memory feeds six MMAs: shared-memory
 //   reads, not the tensor cores, set the pace at one m-tile), and streams
 //   Y in tiles of 32; up to d 256, 128 X rows, 16 a warp, and Y tiles of
-//   16.  A warp computes S = X_w·Y_tileᵀ, turns it into dlogits in
-//   registers, and adds P·Y_tile into its [rows x d] output in registers.
+//   16; up to d 512, 4 warps, 64 X rows and Y tiles of 8, with the output
+//   columns split over two blocks (ce_fwd.cuh, BwdCfg).  A warp computes
+//   S = X_w·Y_tileᵀ, turns it into dlogits in registers, and adds P·Y_tile
+//   into its [rows x d] output in registers.
 //   A pre-pass writes Wᵀ [V, d] and the TF32 split of Wᵀ and of h (about
 //   0.05 ms at FK shapes): each Y element is split once, not once per warp
 //   and product (the splits were the largest share of the instructions),
 //   and X and dlogits are split as they are read, in two integer
 //   operations and a subtraction.  The width is a compile-time DT (64,
-//   128 or 256; columns past d are zero, so any d % 4 == 0 up to DT
+//   128, 256 or 512; columns past d are zero, so any d % 4 == 0 up to DT
 //   works), so the unrolled loops carry no branch, and shared rows are
 //   padded to DT + 4 floats, so every fragment load is free of bank
 //   conflicts.
@@ -79,284 +83,9 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "tc.cuh"
+#include "ce_fwd.cuh"
 
 namespace {
-
-using namespace tc;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// Tile shapes by the width DT an instantiation computes at: d <= DT, the
-// columns past d zero in shared memory, so that every loop over the width
-// has a compile-time trip count and no branch.  A warp holds kMt m-tiles
-// of 16 X rows, so that each B fragment it reads feeds 3·kMt MMAs; a stage
-// holds the big and the small part of a Y tile and 4·kBy floats of
-// per-entity values.  K4 and K5 share it.
-template <int DT>
-struct BwdCfg {
-  static constexpr int kMt = DT <= 128 ? 2 : 1;      // m-tiles a warp
-  static constexpr int kBx = 16 * kMt * kWarps;      // resident entities
-  static constexpr int kBy = DT <= 128 ? 32 : 16;    // streamed entities
-  static constexpr int kStages = DT <= 64 ? 3 : 2;   // cp.async ring depth
-  static constexpr int kStage = 2 * kBy * (DT + 4) + 4 * kBy;  // floats
-};
-
-template <int DT>
-constexpr int tile_smem() {
-  return static_cast<int>(sizeof(float)) *
-         (BwdCfg<DT>::kBx * (DT + 4) +
-          BwdCfg<DT>::kStages * BwdCfg<DT>::kStage);
-}
-
-// rows [e0, e0 + kN) of src [n_src, d] into dst (row stride DT + 4, DT
-// columns), zero past n_src and past d, by 16-byte cp.async; a thread
-// copies the same 16 bytes of every (kThreads / (DT / 4))-th row.
-template <int DT, int kN>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int e0, int n_src, int d) {
-  constexpr int kD4 = DT / 4;
-  constexpr int kStep = kThreads / kD4;             // rows a pass
-  static_assert(kN % kStep == 0, "whole passes");
-  const int e = threadIdx.x / kD4;
-  const int k4 = threadIdx.x % kD4;
-  const bool col_ok = k4 * 4 < d;
-  const float* from = src + (size_t)(e0 + e) * d + k4 * 4;
-  float* to = dst + e * (DT + 4) + k4 * 4;
-#pragma unroll
-  for (int i = 0; i < kN / kStep; ++i) {
-    const bool ok = col_ok && e0 + e + i * kStep < n_src;
-    cp_async16(to + i * kStep * (DT + 4),
-               ok ? from + (size_t)i * kStep * d : src, ok);
-  }
-}
-
-// S = X_w · Y_tileᵀ, [16·kMt x 8·kNy], k over the width, in 3xTF32.  xw is
-// this thread's first A element of the warp's X rows in shared memory
-// (split as it is read), yb and ys the big and small parts of the Y tile
-// (row stride DT + 4).  MMAs are issued term-major (all small·big of a
-// k-step, then big·small, then big·big), so that two products into one
-// accumulator are at least 8 MMAs apart.  Element i of n-tile j of m-tile
-// m is X row 16·m + 8·(i >> 1) + g, Y row 8·j + 2·t + (i & 1).
-template <int DT, int kMt, int kNy>
-__device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
-                                           const float* xw, const float* yb,
-                                           const float* ys, int g, int t) {
-  constexpr int ld = DT + 4;
-  constexpr int kNd = DT / 8;
-#pragma unroll
-  for (int m = 0; m < kMt; ++m)
-#pragma unroll
-    for (int j = 0; j < kNy; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[m][j][i] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < kNd; ++ks) {
-    uint32_t ab[kMt][4], as[kMt][4], bb[kNy][2], bs[kNy][2];
-#pragma unroll
-    for (int m = 0; m < kMt; ++m) {
-      const float* xk = xw + 16 * m * ld + ks * 8;
-      split_tf32(xk[0], ab[m][0], as[m][0]);
-      split_tf32(xk[8 * ld], ab[m][1], as[m][1]);
-      split_tf32(xk[4], ab[m][2], as[m][2]);
-      split_tf32(xk[8 * ld + 4], ab[m][3], as[m][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < kNy; ++j) {
-      const int at = (j * 8 + g) * ld + ks * 8 + t;
-      bb[j][0] = __float_as_uint(yb[at]);
-      bb[j][1] = __float_as_uint(yb[at + 4]);
-      bs[j][0] = __float_as_uint(ys[at]);
-      bs[j][1] = __float_as_uint(ys[at + 4]);
-    }
-#pragma unroll
-    for (int m = 0; m < kMt; ++m)
-#pragma unroll
-      for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], as[m], bb[j]);
-#pragma unroll
-    for (int m = 0; m < kMt; ++m)
-#pragma unroll
-      for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], ab[m], bs[j]);
-#pragma unroll
-    for (int m = 0; m < kMt; ++m)
-#pragma unroll
-      for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], ab[m], bb[j]);
-  }
-}
-
-// ---------------------------------------------------------------- K4 ----
-
-// What the forward reads and where it writes.
-struct FwdArgs {
-  const float* x;        // h [N, d]
-  const float* y_big;    // Wᵀ [V, d], TF32 part
-  const float* y_small;  // and remainder
-  const float* b;        // [V] masked bias
-  const int* tgt;        // [N]
-  float* part;           // [3][splits][N]: max (log2 units), sum, target
-  int n_x, d, V;
-};
-
-// Per row and split of the vocab: the running max and sum of exp over the
-// split's columns, in log2 units, and the target logit.
-template <int DT>
-__global__ void __launch_bounds__(kThreads, 1)
-ce_fwd_kernel(const FwdArgs a) {
-  constexpr int kMt = BwdCfg<DT>::kMt;
-  constexpr int kBx = BwdCfg<DT>::kBx;
-  constexpr int kBy = BwdCfg<DT>::kBy;
-  constexpr int kStages = BwdCfg<DT>::kStages;
-  constexpr int kStage = BwdCfg<DT>::kStage;
-  constexpr int kNy = kBy / 8;
-  constexpr int ld = DT + 4;
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* ring = xs + kBx * ld;         // stage: big [kBy][ld], small, bias
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int x0 = blockIdx.x * kBx;
-  const int y_tiles = (a.V + kBy - 1) / kBy;
-  const int per = (y_tiles + gridDim.y - 1) / gridDim.y;
-  const int t_begin = min(y_tiles, (int)blockIdx.y * per);
-  const int n_tiles = min(y_tiles, t_begin + per) - t_begin;
-
-  // this thread's fragment rows xa + 16·m + 8·r: target, running max (a
-  // finite floor, so that a row with no column yet rescales by 2^0 · 0),
-  // running sum, target logit
-  const int xa = x0 + warp * 16 * kMt + g;
-  int xtg[kMt][2];
-  float rm[kMt][2], rs[kMt][2], tl[kMt][2];
-#pragma unroll
-  for (int m = 0; m < kMt; ++m)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int x = xa + 16 * m + 8 * r;
-      xtg[m][r] = x < a.n_x ? a.tgt[x] : -1;
-      rm[m][r] = -1e30f;
-      rs[m][r] = tl[m][r] = 0.f;
-    }
-
-  auto stage = [&](int slot, int tile) {
-    float* st = ring + slot * kStage;
-    const int y0 = tile * kBy;
-    stage_rows<DT, kBy>(st, a.y_big, y0, a.V, a.d);
-    stage_rows<DT, kBy>(st + kBy * ld, a.y_small, y0, a.V, a.d);
-    for (int e = threadIdx.x; e < kBy; e += kThreads) {
-      const bool ok = y0 + e < a.V;
-      cp_async4(st + 2 * kBy * ld + e, ok ? a.b + y0 + e : a.b, ok);
-    }
-  };
-  stage_rows<DT, kBx>(xs, a.x, x0, a.n_x, a.d);
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_tiles) stage(s, t_begin + s);
-    cp_async_commit();
-  }
-  const float* xw = xs + (warp * 16 * kMt + g) * ld + t;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (it + kStages - 1 < n_tiles)
-      stage((it + kStages - 1) % kStages, t_begin + it + kStages - 1);
-    cp_async_commit();
-    const float* yb = ring + (it % kStages) * kStage;
-    const float* ys = yb + kBy * ld;
-    const float* bias = ys + kBy * ld;
-    const int y0 = (t_begin + it) * kBy;
-
-    float s[kMt][kNy][4];
-    logit_tile<DT, kMt, kNy>(s, xw, yb, ys, g, t);
-#pragma unroll
-    for (int m = 0; m < kMt; ++m) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float lm = -CUDART_INF_F;
-#pragma unroll
-        for (int j = 0; j < kNy; ++j) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = j * 8 + 2 * t + c;
-            const int y = y0 + e;
-            const float v = s[m][j][2 * r + c] + bias[e];
-            if (y < a.V && y == xtg[m][r]) tl[m][r] = v;
-            const float v2 = y < a.V ? v * kLog2e : -CUDART_INF_F;
-            s[m][j][2 * r + c] = v2;
-            lm = fmaxf(lm, v2);
-          }
-        }
-        const float mn = fmaxf(rm[m][r], lm);
-        float acc = rs[m][r] * exp2_approx(rm[m][r] - mn);
-#pragma unroll
-        for (int j = 0; j < kNy; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            acc += exp2_approx(s[m][j][2 * r + c] - mn);
-        rs[m][r] = acc;
-        rm[m][r] = mn;
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // a row's four threads merge their (max, sum) pairs and target logits;
-  // partners compute the same sums in the other order, so they agree
-  const size_t plane = (size_t)gridDim.y * a.n_x;
-  float* part = a.part + (size_t)blockIdx.y * a.n_x;
-#pragma unroll
-  for (int m = 0; m < kMt; ++m) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = rm[m][r], sm = rs[m][r], tv = tl[m][r];
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        const float om = __shfl_xor_sync(0xffffffffu, mx, o);
-        const float os = __shfl_xor_sync(0xffffffffu, sm, o);
-        tv += __shfl_xor_sync(0xffffffffu, tv, o);
-        const float mn = fmaxf(mx, om);
-        sm = sm * exp2_approx(mx - mn) + os * exp2_approx(om - mn);
-        mx = mn;
-      }
-      const int x = xa + 16 * m + 8 * r;
-      if (t == 0 && x < a.n_x) {
-        part[x] = mx;
-        part[plane + x] = sm;
-        part[2 * plane + x] = tv;
-      }
-    }
-  }
-}
-
-// Merges the splits' partials in split order, folds in the pad-class logit
-// (as _fwd_kernel does at its last vocab block) and writes lse and tlog.
-__global__ void ce_fwd_merge_kernel(const float* __restrict__ part,
-                                    const float* __restrict__ pad,
-                                    int splits, int N,
-                                    float* __restrict__ lse,
-                                    float* __restrict__ tlog) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  const size_t plane = (size_t)splits * N;
-  float m = -CUDART_INF_F;
-  for (int k = 0; k < splits; ++k) m = fmaxf(m, part[(size_t)k * N + row]);
-  float s = 0.f, t = 0.f;
-  for (int k = 0; k < splits; ++k) {
-    s += part[plane + (size_t)k * N + row] *
-         exp2f(part[(size_t)k * N + row] - m);
-    t += part[2 * plane + (size_t)k * N + row];
-  }
-  const float p = pad[row] * kLog2e;
-  const float m_fin = fmaxf(m, p);
-  const float s_fin = s * exp2f(m - m_fin) + exp2f(p - m_fin);
-  lse[row] = (m_fin + log2f(s_fin)) * kLn2;
-  tlog[row] = t;
-}
 
 // ---------------------------------------------------------------- K5 ----
 
@@ -382,7 +111,7 @@ struct BwdArgs {
 
 // The per-entity values of Y tile y0 (info [4][kBy]): the bias of its
 // vocab entries (dh pass), or lse, dlse, dt and the target of its rows.
-template <int kBy, bool kRowsX>
+template <int kBy, bool kRowsX, int kThreads>
 __device__ __forceinline__ void stage_info(float* info, const BwdArgs& a,
                                            int y0) {
   if (kRowsX) {
@@ -404,17 +133,19 @@ __device__ __forceinline__ void stage_info(float* info, const BwdArgs& a,
 }
 
 // One backward pass (the dh kernel for kRowsX, else the dW/db kernel) over
-// X tile blockIdx.x and the Y tiles of split blockIdx.y.
+// X tile blockIdx.x, the Y tiles of split blockIdx.y and, at DT 512, the
+// output columns of part blockIdx.z.
 template <int DT, bool kRowsX>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(BwdCfg<DT>::kThreads, 1)
 ce_bwd_kernel(const BwdArgs a) {
+  constexpr int kThreads = BwdCfg<DT>::kThreads;
   constexpr int kMt = BwdCfg<DT>::kMt;
   constexpr int kBx = BwdCfg<DT>::kBx;
   constexpr int kBy = BwdCfg<DT>::kBy;
   constexpr int kStages = BwdCfg<DT>::kStages;
   constexpr int kStage = BwdCfg<DT>::kStage;
   constexpr int kNy = kBy / 8;         // n-tiles of S, k-steps of the output
-  constexpr int kNd = DT / 8;          // k-steps of S, n-tiles of the output
+  constexpr int kNo = BwdCfg<DT>::kCols / 8;  // n-tiles of the output
   constexpr int kNb = 4;               // output n-tiles a batch of B loads
   constexpr int ld = DT + 4;
   extern __shared__ float4 smem4[];
@@ -431,6 +162,9 @@ ce_bwd_kernel(const BwdArgs a) {
   const int per = (y_tiles + gridDim.y - 1) / gridDim.y;
   const int t_begin = min(y_tiles, (int)blockIdx.y * per);
   const int n_tiles = min(y_tiles, t_begin + per) - t_begin;
+  // the first output column of this block's part
+  const int col0 = BwdCfg<DT>::kParts > 1 ? blockIdx.z * BwdCfg<DT>::kCols
+                                          : 0;
 
   // the X entities of this thread's fragment rows, xa + 16·m + 8·r: lse
   // times log2(e), dlse, dt and the target of a row (kRowsX), or the bias
@@ -465,7 +199,7 @@ ce_bwd_kernel(const BwdArgs a) {
     const int y0 = tile * kBy;
     stage_rows<DT, kBy>(st, a.y_big, y0, a.n_y, d);
     stage_rows<DT, kBy>(st + kBy * ld, a.y_small, y0, a.n_y, d);
-    stage_info<kBy, kRowsX>(st + 2 * kBy * ld, a, y0);
+    stage_info<kBy, kRowsX, kThreads>(st + 2 * kBy * ld, a, y0);
   };
   stage_rows<DT, kBx>(xs, a.x, x0, a.n_x, d);
 #pragma unroll
@@ -474,11 +208,11 @@ ce_bwd_kernel(const BwdArgs a) {
     cp_async_commit();
   }
 
-  float o[kMt][kNd][4];
+  float o[kMt][kNo][4];
 #pragma unroll
   for (int m = 0; m < kMt; ++m)
 #pragma unroll
-    for (int n = 0; n < kNd; ++n)
+    for (int n = 0; n < kNo; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[m][n][i] = 0.f;
   float dbs[kMt][2] = {};
@@ -528,7 +262,8 @@ ce_bwd_kernel(const BwdArgs a) {
       }
     }
 
-    // out_w += P · Y_tile: [16·kMt x DT], k over the tile's kBy entities;
+    // out_w += P · Y_tile[:, col0 .. col0 + kCols): [16·kMt x kCols], k
+    // over the tile's kBy entities;
     // the C fragment of S is the A fragment with k permuted (t <-> 2t,
     // t+4 <-> 2t+1), and B is read with the same permutation; kNb n-tiles
     // of B at a time
@@ -542,9 +277,9 @@ ce_bwd_kernel(const BwdArgs a) {
         split_tf32(s[m][j][1], ab[m][2], as[m][2]);
         split_tf32(s[m][j][3], ab[m][3], as[m][3]);
       }
-      const int row = (j * 8 + 2 * t) * ld + g;
+      const int row = (j * 8 + 2 * t) * ld + col0 + g;
 #pragma unroll
-      for (int n0 = 0; n0 < kNd; n0 += kNb) {
+      for (int n0 = 0; n0 < kNo; n0 += kNb) {
         uint32_t bb[kNb][2], bs[kNb][2];
 #pragma unroll
         for (int n = 0; n < kNb; ++n) {
@@ -572,22 +307,22 @@ ce_bwd_kernel(const BwdArgs a) {
   cp_async_wait<0>();
 
   // each output element once: C fragment (X entity xa + 16·m + 8·(i >> 1),
-  // column 8·n + 2·t + (i & 1))
+  // column col0 + 8·n + 2·t + (i & 1))
   float* out = a.out + (size_t)blockIdx.y * a.out_split;
 #pragma unroll
   for (int m = 0; m < kMt; ++m) {
 #pragma unroll
-    for (int n = 0; n < kNd; ++n) {
+    for (int n = 0; n < kNo; ++n) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int x = xa + 16 * m + 8 * (i >> 1);
-        const int k = n * 8 + 2 * t + (i & 1);
+        const int k = col0 + n * 8 + 2 * t + (i & 1);
         if (x < a.n_x && k < d)
           out[(size_t)x * a.sx + (size_t)k * a.sk] = o[m][n][i];
       }
     }
   }
-  if (!kRowsX) {
+  if (!kRowsX && blockIdx.z == 0) {     // every part has the same db
 #pragma unroll
     for (int m = 0; m < kMt; ++m) {
 #pragma unroll
@@ -598,35 +333,6 @@ ce_bwd_kernel(const BwdArgs a) {
         const int x = xa + 16 * m + 8 * r;
         if (t == 0 && x < a.n_x) a.db[(size_t)blockIdx.y * a.V + x] = v;
       }
-    }
-  }
-}
-
-// wt[v, k] = w[k, v]: W [d, V] into Wᵀ [V, d], through 32x32 shared tiles,
-// and Wᵀ's TF32 split into wt_big and wt_small (wt null: the split only).
-__global__ void transpose_split_kernel(const float* __restrict__ w,
-                                       float* __restrict__ wt,
-                                       float* __restrict__ wt_big,
-                                       float* __restrict__ wt_small, int d,
-                                       int V) {
-  __shared__ float tile[32][33];
-  const int v0 = blockIdx.x * 32;
-  const int k0 = blockIdx.y * 32;
-  for (int r = threadIdx.y; r < 32; r += blockDim.y) {
-    const int k = k0 + r, v = v0 + threadIdx.x;
-    if (k < d && v < V) tile[r][threadIdx.x] = w[(size_t)k * V + v];
-  }
-  __syncthreads();
-  for (int r = threadIdx.y; r < 32; r += blockDim.y) {
-    const int v = v0 + r, k = k0 + threadIdx.x;
-    if (k < d && v < V) {
-      const float x = tile[threadIdx.x][r];
-      uint32_t big, small;
-      split_tf32(x, big, small);
-      const size_t i = (size_t)v * d + k;
-      if (wt) wt[i] = x;
-      wt_big[i] = __uint_as_float(big);
-      wt_small[i] = __uint_as_float(small);
     }
   }
 }
@@ -718,47 +424,58 @@ int plan(int N, int d, int V, bool forward, int* splits) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ce_bwd_kernel<DT, true>, kThreads, tile_smem<DT>());
+      &per_sm, ce_bwd_kernel<DT, true>, BwdCfg<DT>::kThreads,
+      tile_smem<DT>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slots = sms * (per_sm < 1 ? 1 : per_sm);
   constexpr int kBx = BwdCfg<DT>::kBx;
   constexpr int kBy = BwdCfg<DT>::kBy;
+  constexpr int kParts = BwdCfg<DT>::kParts;
   // a tile's MMA work at an assumed 2 TFLOP/s of TF32 per SM: one product
-  // (three TF32 terms) in K4, two in K5
-  const double tile_us = (forward ? 6.0 : 12.0) * kBx * kBy * DT / 2e6;
+  // (three TF32 terms) in K4; in K5 the logits and a part's share of the
+  // second product
+  const double tile_us =
+      (forward ? 6.0 * DT : 6.0 * (DT + BwdCfg<DT>::kCols)) * kBx * kBy /
+      2e6;
   if (forward) {
     splits[0] = best_splits((N + kBx - 1) / kBx, (V + kBy - 1) / kBy, slots,
                             tile_us, 12.0 * N);
     return 0;
   }
-  splits[0] = best_splits((N + kBx - 1) / kBx, (V + kBy - 1) / kBy, slots,
-                          tile_us, 4.0 * N * d);
-  splits[1] = best_splits((V + kBx - 1) / kBx, (N + kBy - 1) / kBy, slots,
-                          tile_us, 4.0 * (d + 1) * V);
+  splits[0] = best_splits(kParts * ((N + kBx - 1) / kBx), (V + kBy - 1) / kBy,
+                          slots, tile_us, 4.0 * N * d);
+  splits[1] = best_splits(kParts * ((V + kBx - 1) / kBx), (N + kBy - 1) / kBy,
+                          slots, tile_us, 4.0 * (d + 1) * V);
   return 0;
 }
 
 int plan_d(int N, int d, int V, bool forward, int* splits) {
   return d <= 64    ? plan<64>(N, d, V, forward, splits)
          : d <= 128 ? plan<128>(N, d, V, forward, splits)
-                    : plan<256>(N, d, V, forward, splits);
+         : d <= 256 ? plan<256>(N, d, V, forward, splits)
+                    : plan<512>(N, d, V, forward, splits);
 }
 
 cudaError_t prepare_d(int d) {
-  return d <= 64 ? prepare<64>() : d <= 128 ? prepare<128>() : prepare<256>();
+  return d <= 64    ? prepare<64>()
+         : d <= 128 ? prepare<128>()
+         : d <= 256 ? prepare<256>()
+                    : prepare<512>();
 }
 
 template <int DT>
 cudaError_t launch_fwd(const FwdArgs& a, int splits, cudaStream_t s) {
   const dim3 grid((a.n_x + BwdCfg<DT>::kBx - 1) / BwdCfg<DT>::kBx, splits);
-  ce_fwd_kernel<DT><<<grid, kThreads, tile_smem<DT>(), s>>>(a);
+  ce_fwd_kernel<DT><<<grid, BwdCfg<DT>::kThreads, tile_smem<DT>(), s>>>(a);
   return cudaGetLastError();
 }
 
 template <int DT>
 cudaError_t launch_bwd(const BwdArgs& a, int splits, cudaStream_t s,
                        bool rows_x) {
-  const dim3 grid((a.n_x + BwdCfg<DT>::kBx - 1) / BwdCfg<DT>::kBx, splits);
+  const dim3 grid((a.n_x + BwdCfg<DT>::kBx - 1) / BwdCfg<DT>::kBx, splits,
+                  BwdCfg<DT>::kParts);
+  constexpr int kThreads = BwdCfg<DT>::kThreads;
   if (rows_x)
     ce_bwd_kernel<DT, true><<<grid, kThreads, tile_smem<DT>(), s>>>(a);
   else
@@ -771,7 +488,8 @@ cudaError_t launch_bwd_d(const BwdArgs& a, int splits, cudaStream_t s,
                          bool rows_x) {
   return a.d <= 64    ? launch_bwd<64>(a, splits, s, rows_x)
          : a.d <= 128 ? launch_bwd<128>(a, splits, s, rows_x)
-                      : launch_bwd<256>(a, splits, s, rows_x);
+         : a.d <= 256 ? launch_bwd<256>(a, splits, s, rows_x)
+                      : launch_bwd<512>(a, splits, s, rows_x);
 }
 
 // Blocks of 256 threads for a grid-stride loop over n4 items.
@@ -804,7 +522,7 @@ extern "C" int ce_fwd_plan(int N, int d, int V, int* splits) {
 // h [N, d], w [d, V] row-major, b [V] (-1e9 on padded columns), pad [N],
 // tgt [N] -> lse [N], tlog [N].  workspace: Wᵀ's TF32 split (2·V·d floats),
 // then the splits' partials (3 · splits · N).  All pointers 16-byte aligned;
-// d % 4 == 0, d <= 256, V % 4 == 0.  Returns cudaGetLastError() after the
+// d % 4 == 0, d <= 512, V % 4 == 0.  Returns cudaGetLastError() after the
 // launches (0 = launched).
 extern "C" int ce_fwd_f32(const float* h, const float* w, const float* b,
                           const float* pad, const int* tgt, float* lse,
@@ -822,7 +540,8 @@ extern "C" int ce_fwd_f32(const float* h, const float* w, const float* b,
   const FwdArgs a{h, wt_big, wt_small, b, tgt, part, N, d, V};
   err = d <= 64    ? launch_fwd<64>(a, splits, s)
         : d <= 128 ? launch_fwd<128>(a, splits, s)
-                   : launch_fwd<256>(a, splits, s);
+        : d <= 256 ? launch_fwd<256>(a, splits, s)
+                   : launch_fwd<512>(a, splits, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   ce_fwd_merge_kernel<<<(N + 255) / 256, 256, 0, s>>>(part, pad, splits, N,
                                                       lse, tlog);
@@ -841,7 +560,7 @@ extern "C" int ce_bwd_plan(int N, int d, int V, int* splits) {
 // TF32 split (3·V·d floats), h's split (2·N·d), then, where a pass has more
 // than one split, its partials: splits[0]·N·d floats for dh,
 // splits[1]·(d + 1)·V for dW and db.  All pointers 16-byte aligned;
-// d % 4 == 0, d <= 256, V % 4 == 0.  Returns cudaGetLastError() after the
+// d % 4 == 0, d <= 512, V % 4 == 0.  Returns cudaGetLastError() after the
 // launches (0 = launched).
 extern "C" int ce_bwd_f32(const float* h, const float* w, const float* b,
                           const float* lse, const float* dlse,

@@ -99,8 +99,7 @@ def _tower_pre(seq, hi, raw_table, cfg: Config, spec: DataSpec,
     else:
         # (hi + raw)[seq] elementwise equals hi[seq] + raw[seq]: the port
         # adds the looked-up rows instead of the whole tables
-        h = torch.where(real, pops.lookup(hi, seq) + pops.lookup(raw_table, seq),
-                        zero)
+        h = torch.where(real, pops.lookup_add(hi, raw_table, seq), zero)
     dtype = getattr(torch, cfg.resolved_compute_dtype())
     return (h * (cfg.d_latent ** 0.5)).to(dtype)
 

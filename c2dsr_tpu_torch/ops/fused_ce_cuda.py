@@ -17,8 +17,9 @@ its two kernels, with the same operand plan over (resident, streamed)
 operands, h and Wᵀ for dh, Wᵀ and h for dW; the vocab or row splits of its
 grid are summed in order by a small kernel.  No logit reaches device
 memory, and each output element is written once, with no atomics, for any
-N: the results are bitwise repeatable.  Shapes: d % 8 == 0, d <= 256,
-V % 4 == 0; d > 256 is refused (ROADMAP §C).
+N: the results are bitwise repeatable.  Shapes: d % 8 == 0, d <= 512,
+V % 4 == 0.  Above d 256 a block keeps 64 rows of h resident and the
+backward splits its output columns over two blocks (``csrc/ce_fwd.cuh``).
 """
 
 from __future__ import annotations
@@ -60,6 +61,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def check_shape(name: str, N: int, d: int, V: int) -> None:
+    """Raise unless the kernels take N rows, width d and V columns."""
+    if d % 8 or d == 0 or d > 512 or V % 4 or V == 0 or N == 0:
+        raise ValueError(f"{name} needs d % 8 == 0, d <= 512, V % 4 == 0; "
+                         f"got N={N} d={d} V={V}")
+
+
 def _check(name: str, h, w, rows, targets) -> Tuple[int, int, int]:
     if not h.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors only")
@@ -68,10 +76,7 @@ def _check(name: str, h, w, rows, targets) -> Tuple[int, int, int]:
                          f"{tuple(h.shape)} and {tuple(w.shape)}")
     N, d = h.shape
     V = w.shape[1]
-    if d % 8 or d > 256 or V % 4 or V == 0 or N == 0:
-        raise ValueError(f"{name} needs d % 8 == 0, d <= 256 (ROADMAP §C: no "
-                         f"wider CE kernel), V % 4 == 0; got N={N} d={d} "
-                         f"V={V}")
+    check_shape(name, N, d, V)
     for t, shape in rows:
         if (t.dtype != torch.float32 or t.device != h.device
                 or not t.is_contiguous() or tuple(t.shape) != shape):

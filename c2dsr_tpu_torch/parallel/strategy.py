@@ -15,6 +15,7 @@ import torch
 
 from c2dsr_tpu_torch.config import Config
 from c2dsr_tpu_torch.ops import fused_ce
+from c2dsr_tpu_torch.ops import lookup as lookup_mod
 from c2dsr_tpu_torch.ops import spmm as spmm_mod
 
 
@@ -25,11 +26,15 @@ class LocalOps:
     cfg: Config
 
     def lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        """table[ids] as ``index_select``, whose backward is one
-        ``index_add_``; the backward of ``table[ids]`` sorts the ids and
-        walks each repeated id in turn, slow on Zipf-skewed sequences."""
-        rows = table.index_select(0, ids.reshape(-1))
-        return rows.view(*ids.shape, table.shape[1])
+        """table[ids] as ``index_select`` (ops/lookup.py); on the card its
+        backward is the ordered segment sum K7, bitwise repeatable, where
+        ``index_add_`` adds with atomics in a changing order."""
+        return lookup_mod.lookup(table, ids)
+
+    def lookup_add(self, a: torch.Tensor, b: torch.Tensor,
+                   ids: torch.Tensor) -> torch.Tensor:
+        """a[ids] + b[ids]: on the card one K7 serves both gradients."""
+        return lookup_mod.lookup_add(a, b, ids)
 
     def spmm_propagate(self, graph: spmm_mod.CsrDevice, h: torch.Tensor,
                        n_layers: int, dropout: float = 0.0,

@@ -89,11 +89,6 @@ ENCODER_REL_TOL = 2e-5   # K2 against its plain version, max abs err over
                          # max |plain| on query rows that have an allowed
                          # key: f32-accurate products (3xTF32) and sums in
                          # another order
-TIE_TOL = 1e-5           # the least near-tie band (near_ties)
-SCORE_K = 2.0            # the kernels' serving scores may lie up to this many
-                         # times as far from a float64 scoring as the plain
-                         # versions' (K2's GEMMs are 3xTF32, its attention
-                         # dots compensated: more accurate than cuBLAS's f32)
 PERTURB = 1e-4           # noise on each tower's final LN bias: a tower this
                          # wrong must fail the serving gates
 WARM_ROUNDS = 10         # rounds of (plain, kernel, kernel, plain) warm runs
@@ -106,7 +101,29 @@ TRAIN_STEPS = 30         # train steps whose launches and losses are checked
 TRAIN_ROUNDS = 5         # rounds of (plain, kernel, kernel, plain) train runs
 TRAIN_RUN_STEPS = 4      # steps per timed train run
 CLI_USERS = 2000         # synthetic users of the CLI phase
+LOOKUPS = 6              # K7 launches a train step: the propagated plus the
+                         # raw table (one K7, ops/lookup.lookup_add) and the
+                         # positions, for each of the three tower inputs
+                         # (model/c2dsr.forward_joint)
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def _load_timing():
+    """The port's ``c2dsr_tpu_torch/bench/timing.py`` (the timer, the
+    card's peaks and the bounds), loaded from its file: ``--rates`` imports
+    the package of another checkout, so this script must not import this
+    checkout's package first.  None where the package is missing."""
+    import importlib.util
+    path = os.path.join(REPO_DIR, "c2dsr_tpu_torch", "bench", "timing.py")
+    if not os.path.isfile(path):
+        return None
+    spec = importlib.util.spec_from_file_location("c2dsr_bench_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+timing = _load_timing()
 
 
 class SmokeFailure(Exception):
@@ -122,101 +139,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def peaks(name: str):
-    """(FP32 non-tensor FLOP/s, memory bytes/s) from NVIDIA's data sheets."""
-    if "PCIe" in name:
-        return 51e12, 2.0e12
-    if "NVL" in name:
-        return 60e12, 3.9e12
-    return 67e12, 3.35e12            # H100 SXM
-
-
-def tf32_peak(name: str) -> float:
-    """Dense TF32 tensor-core FLOP/s from NVIDIA's data sheets.  A 3xTF32
-    product (K5's f32-accurate scheme) costs three of them."""
-    if "PCIe" in name:
-        return 378e12
-    return 495e12                    # H100 SXM
-
-
-def tc_bound_ms(flops: float, nbytes: float, name: str, peak_bw: float):
-    """Least time on the tensor cores for `flops` of f32-accurate work done
-    as 3xTF32, or for the bytes, whichever is larger."""
-    return max(3 * flops / tf32_peak(name), nbytes / peak_bw) * 1e3
-
-
-class Timer:
-    """Median CUDA-event time of ``reps`` runs after warm-up; L2 is flushed
-    (a 256 MB write) before each run, outside the timed window."""
-
-    def __init__(self):
-        self.flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-
-    def __call__(self, fn, reps: int = 20, warmup: int = 3) -> float:
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(reps):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return float(np.median(times))
-
-
-def _ignore_saved(fn):
-    """A plain tower version called as its kernel wrapper is: the kernels'
-    saved-activation buffer is passed and ignored."""
-    return lambda *args, saved=None, **kw: fn(*args, **kw)
-
-
-@contextlib.contextmanager
 def plain_versions(branches=None):
-    """Route CUDA tensors through the plain PyTorch versions instead of the
-    kernels, for the comparison run of the main path; the plain tower taken
-    at ``branches`` (``ops/encoder.encode_layers``) if given."""
-    from c2dsr_tpu_torch.ops import encoder as enc
-    from c2dsr_tpu_torch.ops import (encoder_cuda, fused_ce, fused_ce_cuda,
-                                     spmm, spmm_cuda)
-    swaps = [(spmm_cuda, "spmm_csr", spmm.spmm_reference),
-             (spmm_cuda, "spmm_csr_flagged", spmm.spmm_reference_flagged),
-             (encoder_cuda, "encoder_fwd", _ignore_saved(
-                 lambda *a, **kw: enc.encoder_fwd_plain(
-                     *a, branches=branches, **kw))),
-             (encoder_cuda, "encoder_bwd", _ignore_saved(
-                 lambda *a, **kw: enc.encoder_bwd_plain(
-                     *a, branches=branches, **kw))),
-             (fused_ce_cuda, "ce_fwd", fused_ce.ce_fwd_plain),
-             (fused_ce_cuda, "ce_bwd", fused_ce.ce_bwd_plain)]
-    saved = [getattr(mod, name) for mod, name, _ in swaps]
-    for mod, name, plain in swaps:
-        setattr(mod, name, plain)
-    try:
-        yield
-    finally:
-        for (mod, name, _), fn in zip(swaps, saved):
-            setattr(mod, name, fn)
+    """``bench/gates.plain_versions``: the plain PyTorch versions in place of
+    the kernels on the card."""
+    from c2dsr_tpu_torch.bench import gates
+    return gates.plain_versions(branches)
 
 
 def k2_branches(saved, shape, n_head, n_layers, tower):
-    """{(tower, layer): (K2's ReLU mask, K2's attention probabilities
-    [B, H, L, L])} from a saved-activation buffer."""
-    from c2dsr_tpu_torch.ops import encoder_cuda
-    views = encoder_cuda.saved_views(saved, shape, n_head, n_layers)
-    return {(tower, li): ((lv["fr"] > 0).float(),
-                          lv["p"].permute(1, 0, 2, 3).clone())
-            for li, lv in enumerate(views["layers"])}
+    """``bench/gates.k2_branches``: K2's ReLU masks and attention
+    probabilities, from its saved activations."""
+    from c2dsr_tpu_torch.bench import gates
+    return gates.k2_branches(saved, shape, n_head, n_layers, tower)
 
 
 @contextlib.contextmanager
@@ -279,17 +213,22 @@ def _k3_against_plain(x, seq, gout, p, acts, n_head, n_layers, kw, got):
 
 def kernel_wrappers():
     """{name: wrapper} of every kernel the main paths launch."""
-    from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce_cuda, spmm_cuda
+    from c2dsr_tpu_torch.bench import ce_variants
+    from c2dsr_tpu_torch.ops import (encoder_cuda, fused_ce_cuda, segsum_cuda,
+                                     spmm_cuda)
     return {"spmm_csr": spmm_cuda.spmm_csr,
             "spmm_csr_flagged": spmm_cuda.spmm_csr_flagged,
             "encoder_fwd": encoder_cuda.encoder_fwd,
             "encoder_bwd": encoder_cuda.encoder_bwd,
-            "ce_fwd": fused_ce_cuda.ce_fwd, "ce_bwd": fused_ce_cuda.ce_bwd}
+            "ce_fwd": fused_ce_cuda.ce_fwd, "ce_bwd": fused_ce_cuda.ce_bwd,
+            "segsum": segsum_cuda.segsum,
+            "ce_fwd_variant": ce_variants.ce_fwd_variant}
 
 
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["ce_fwd_variant"].by_variant.clear()
 
 
 def read_launches():
@@ -456,7 +395,7 @@ def phase_encoder(timer, peak_flops, peak_bw, gpu):
                                                    **kw))
         library_ms = timer(lambda: tower(x, mask=causal,
                                          src_key_padding_mask=kpm))
-        times, counts = kernel_times(
+        times, counts = timing.kernel_times(
             lambda: encoder_cuda.encoder_fwd(x, seq, p, **kw))
     parts = _k2_parts(times)
     n_launch = int(round(sum(counts.values())))
@@ -464,7 +403,7 @@ def phase_encoder(timer, peak_flops, peak_bw, gpu):
     flops = n_layers * (12 * N * d * d + 4 * N * L * d)
     nbytes = 4 * (2 * N * d + N + n_layers * (6 * d * d + 10 * d) + 2 * d)
     bound_ffma = max(flops / peak_flops, nbytes / peak_bw) * 1e3
-    bound_tc = tc_bound_ms(flops, nbytes, gpu, peak_bw)
+    bound_tc = timing.tc_bound_ms(flops, nbytes, gpu, peak_bw)
     log(f"encoder B={B} L={L} d={d}: kernel {ms:.4f} ms plain {plain_ms:.4f} "
         f"ms library {library_ms:.4f} ms bound 3xTF32 tensor cores "
         f"{bound_tc:.4f} ms, FP32 FFMA {bound_ffma:.4f} ms ({flops / 1e9:.3f} "
@@ -478,83 +417,8 @@ def phase_encoder(timer, peak_flops, peak_bw, gpu):
             "max_abs_err": worst, "max_rel_err": worst_rel,
             "launches_per_call": n_launch,
             "kernels_ms": parts,
-            "bound_by": "operations" if 3 * flops / tf32_peak(gpu)
+            "bound_by": "operations" if 3 * flops / timing.tf32_peak(gpu)
             > nbytes / peak_bw else "bytes"}
-
-
-def convolve_float64(params, graphs, cfg, spec):
-    """The plain propagation in float64 from ``params``: the tables of the
-    exact serving run (near_ties)."""
-    from c2dsr_tpu_torch.model import c2dsr
-    from c2dsr_tpu_torch.model import params as params_mod
-    from c2dsr_tpu_torch.parallel.strategy import LocalOps
-    cfg64 = cfg.with_(compute_dtype="float64")
-    with torch.inference_mode(), plain_versions():
-        return c2dsr.convolve_graph(
-            params_mod._map(lambda t: t.double(), params), graphs, cfg64,
-            spec, LocalOps(cfg=cfg64))
-
-
-def near_ties(params, hi, hi_plain, hi64, data, cfg, spec, mode,
-              params_k=None):
-    """The serving ranks' tie bands, from the plain versions alone.  Per
-    example, e is the largest gap over its candidates between the plain
-    run's f32 scores (from the tables ``hi_plain``) and a float64 run of
-    the plain path from the same params (tables ``hi64``,
-    convolve_float64).  If the kernels' scores lie within SCORE_K·e of the
-    float64 ones, a candidate can change
-    order against the ground truth between the kernels' and the plain run
-    only if its plain score lies within 2·(SCORE_K + 1)·e (at least TIE_TOL)
-    of the gt's.  Returns (per domain, each example's count of such
-    candidates other than the gt; the largest band; the kernels' largest
-    score error against float64, from ``params_k`` (default ``params``) and
-    ``hi``; the plain versions' largest; both over examples not read at an
-    all-masked row)."""
-    from c2dsr_tpu_torch.evaluate import ranker
-    from c2dsr_tpu_torch.model import params as params_mod
-    from c2dsr_tpu_torch.parallel.strategy import LocalOps
-    pops = LocalOps(cfg=cfg)
-    cfg64 = cfg.with_(compute_dtype="float64")
-    p64 = params_mod._map(lambda t: t.double(), params)
-    out, widest, err_k, err_p = {}, TIE_TOL, 0.0, 0.0
-    groups = ranker.partition_by_domain(data)
-    with torch.inference_mode():
-        for dom in ("a", "b"):
-            counts = []
-            for chunk, n in ranker._batches(groups[dom], cfg.batch_size_eval):
-                b = ranker.to_device(chunk, "cuda")
-                h = ranker._last_hidden(params_k or params, hi, b, cfg, spec,
-                                        dom, pops)
-                with plain_versions():
-                    hp = ranker._last_hidden(params, hi_plain, b, cfg, spec,
-                                             dom, pops)
-                    h64 = ranker._last_hidden(p64, hi64, b, cfg64, spec, dom,
-                                              LocalOps(cfg=cfg64))
-                w, bias, n_real = ((params["cls_a_w"], params["cls_a_b"],
-                                    spec.n_item_a) if dom == "a" else
-                                   (params["cls_b_w"], params["cls_b_b"],
-                                    spec.n_item_b))
-                if mode == "sampled":      # the gt in column 0
-                    idx = torch.cat([b["gt_last"][:, None], b["list_neg"]], 1)
-                    gt_col = torch.zeros_like(idx[:, :1])
-                else:
-                    idx = torch.arange(n_real, device=h.device).expand(
-                        h.shape[0], n_real)
-                    gt_col = b["gt_last"][:, None]
-                s = pops._scores(h, w, bias).gather(1, idx)
-                sp = pops._scores(hp, w, bias).gather(1, idx)
-                s64 = (h64 @ w.double() + bias.double()).gather(1, idx)
-                e = (sp - s64).abs().amax(1, keepdim=True)
-                band = torch.clamp(2 * (SCORE_K + 1) * e, min=TIE_TOL)
-                c = ((sp - sp.gather(1, gt_col)).abs() <= band).sum(1) - 1
-                widest = max(widest, float(band[:n].max()))
-                # all-masked rows are exempt, as in _rank_differences
-                real = b[f"idx_last_{dom}"][:, None] >= 0
-                err_k = max(err_k, float(((s - s64).abs() * real)[:n].max()))
-                err_p = max(err_p, float((e * real)[:n].max()))
-                counts.append(c[:n].cpu().numpy())
-            out[dom] = np.concatenate(counts)
-    return out, widest, err_k, err_p
 
 
 # the CUDA kernels of each wrapper, by name (first match wins): K2 and K3
@@ -568,6 +432,7 @@ KERNEL_FAMILIES = (
     ("K4/K5 pre-pass", ("transpose_split_kernel",)),
     ("K4 ce_fwd", ("ce_fwd_kernel", "ce_fwd_merge_kernel")),
     ("K5 ce_bwd", ("ce_bwd_kernel", "ce_merge_kernel", "split_kernel")),
+    ("K7 segsum", ("segsum_",)),
 )
 
 
@@ -622,6 +487,7 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path"):
     run.  At the default Config also warm rates in turns and a profile;
     with another ``cfg`` one kernel run and one plain run."""
     from c2dsr_tpu_torch import metrics
+    from c2dsr_tpu_torch.bench import gates
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.model import c2dsr
@@ -683,8 +549,8 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path"):
         with plain_versions():
             hi_plain, ranks_plain, _, _ = run_all()
         _check_ranks(params, hi, hi_plain,
-                     convolve_float64(params, graphs, cfg, spec), data, cfg,
-                     spec, groups, ranks, ranks_plain, n_ex, label)
+                     gates.convolve_float64(params, graphs, cfg, spec), data,
+                     cfg, spec, ranks, ranks_plain, n_ex, label)
         return launches
 
     # warm timings in turns on the same card, (plain, kernel, kernel, plain)
@@ -724,27 +590,10 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path"):
                                            cfg, mode)
                for mode in ("sampled", "full")}
     _check_ranks(params, hi, hi_plain,
-                 convolve_float64(params, graphs, cfg, spec), data, cfg, spec,
-                 groups, ranks, ranks_plain, n_ex, label,
+                 gates.convolve_float64(params, graphs, cfg, spec), data, cfg,
+                 spec, ranks, ranks_plain, n_ex, label,
                  perturbed=(params_q, ranks_q))
     return launches
-
-
-def _rank_differences(ranks, ranks_plain, ties, groups):
-    """(ranks that differ, of them at all-masked rows, not explained by a
-    near-tie or an all-masked row) over both domains.  A domain tower with
-    no item of its domain is read at an all-masked row: its logits are all
-    -1e9 + x, rounded to steps of 64, so two summation orders may round one
-    logit apart."""
-    n_diff = n_masked = n_unexplained = 0
-    for i, dom in enumerate(("a", "b")):
-        rk, rp = np.asarray(ranks[i]), np.asarray(ranks_plain[i])
-        diff = rk != rp
-        masked = groups[dom][f"idx_last_{dom}"] < 0
-        n_diff += int(diff.sum())
-        n_masked += int((diff & masked).sum())
-        n_unexplained += int(((np.abs(rk - rp) > ties[dom]) & ~masked).sum())
-    return n_diff, n_masked, n_unexplained
 
 
 def _perturbed_towers(params):
@@ -760,40 +609,44 @@ def _perturbed_towers(params):
     return out
 
 
-def _check_ranks(params, hi, hi_plain, hi64, data, cfg, spec, groups, ranks,
+def _check_ranks(params, hi, hi_plain, hi64, data, cfg, spec, ranks,
                  ranks_plain, n_ex, label, perturbed=None):
-    """The kernels' ranks equal the plain versions' except at near-ties
-    (near_ties) and all-masked rows, both counted, and the kernels' scores
-    lie within SCORE_K times the plain versions' error of the float64 ones.
-    With ``perturbed`` = (params, ranks) of a kernel run with perturbed
-    towers, that run must fail both gates."""
+    """bench/gates.check_ranks in each mode, logged: the kernels' ranks
+    equal the plain versions' except at near-ties and all-masked rows, both
+    counted, and the kernels' scores lie within SCORE_K times the plain
+    versions' error of the float64 ones.  With ``perturbed`` = (params,
+    ranks) of a kernel run with perturbed towers, that run must fail both
+    gates."""
+    from c2dsr_tpu_torch.bench import gates
+    from c2dsr_tpu_torch.evaluate import ranker
+    groups = ranker.partition_by_domain(data)
     for mode in ("sampled", "full"):
-        ties, band, err_k, err_p = near_ties(params, hi, hi_plain, hi64,
-                                             data, cfg, spec, mode)
-        n_diff, n_masked, n_unexplained = _rank_differences(
-            ranks[mode], ranks_plain[mode], ties, groups)
-        n_tied = sum(int((ties[dom] > 0).sum()) for dom in ("a", "b"))
-        log(f"{label} ranks {mode}: {n_diff} of {n_ex} differ from the plain "
-            f"run; {n_tied} examples have a near-tie (plain scores within "
-            f"the example's band, at most {band:.3e}); {n_masked} "
-            f"differences at all-masked rows; {n_unexplained} differences "
-            f"not explained by either; largest score error against float64: "
-            f"kernels {err_k:.3e}, plain {err_p:.3e} (limit {SCORE_K:g}x)")
-        check(err_k <= SCORE_K * err_p,
-              f"{label} {mode}: kernels' scores {err_k} from float64, more "
-              f"than {SCORE_K} x the plain versions' {err_p}")
-        check(n_unexplained == 0,
-              f"{label} {mode}: {n_unexplained} ranks differ beyond near-ties")
+        try:
+            st = gates.check_ranks(params, hi, hi_plain, hi64, data, cfg,
+                                   spec, mode, ranks[mode], ranks_plain[mode])
+        except timing.GateFailure as e:
+            raise SmokeFailure(f"{label} {e}")
+        log(f"{label} ranks {mode}: {st['differ']} of {n_ex} differ from "
+            f"the plain run; {st['tied']} examples have a near-tie (plain "
+            f"scores within the example's band, at most {st['band']:.3e}); "
+            f"{st['masked']} differences at all-masked rows; "
+            f"{st['unexplained']} differences not explained by either; "
+            f"largest score error against float64: kernels "
+            f"{st['err_kernels']:.3e}, plain {st['err_plain']:.3e} (limit "
+            f"{gates.SCORE_K:g}x)")
         if perturbed is None:
             continue
-        _, _, err_q, _ = near_ties(params, hi, hi_plain, hi64, data, cfg,
-                                   spec, mode, params_k=perturbed[0])
-        _, _, n_q = _rank_differences(perturbed[1][mode], ranks_plain[mode],
-                                      ties, groups)
+        ties, _, _, _ = gates.near_ties(params, hi, hi_plain, hi64, data, cfg,
+                                        spec, mode)
+        _, _, err_q, _ = gates.near_ties(params, hi, hi_plain, hi64, data,
+                                         cfg, spec, mode,
+                                         params_k=perturbed[0])
+        _, _, n_q = gates.rank_differences(perturbed[1][mode],
+                                           ranks_plain[mode], ties, groups)
         log(f"{label} ranks {mode}, towers' final LN bias perturbed by "
             f"{PERTURB:g}: {n_q} differences not explained, score error "
             f"against float64 {err_q:.3e}")
-        check(n_q > 0 and err_q > SCORE_K * err_p,
+        check(n_q > 0 and err_q > gates.SCORE_K * st["err_plain"],
               f"{label} {mode}: a perturbed tower passes the serving gates")
 
 
@@ -932,9 +785,9 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
             tower(xg, mask=causal, src_key_padding_mask=kpm), lib_params,
             gout))
         with torch.no_grad():
-            f_times, f_counts = kernel_times(
+            f_times, f_counts = timing.kernel_times(
                 lambda: encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw))
-        times, counts = kernel_times(
+        times, counts = timing.kernel_times(
             lambda: encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts,
                                              **kw))
         fwd["ms_without_saving"] = fwd.get("ms_without_saving", 0.0) + f_nosave
@@ -954,11 +807,11 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
         b_bytes = 12 * N * d + 4 * N + 2 * w_bytes
         f_bound = max(f_flops / peak_flops, f_bytes / peak_bw) * 1e3
         b_bound = max(b_flops / peak_flops, b_bytes / peak_bw) * 1e3
-        f_tc = tc_bound_ms(f_flops, f_bytes, gpu, peak_bw)
-        b_tc = tc_bound_ms(b_flops, b_bytes, gpu, peak_bw)
-        fwd["bound_by"] = ("operations" if 3 * f_flops / tf32_peak(gpu)
+        f_tc = timing.tc_bound_ms(f_flops, f_bytes, gpu, peak_bw)
+        b_tc = timing.tc_bound_ms(b_flops, b_bytes, gpu, peak_bw)
+        fwd["bound_by"] = ("operations" if 3 * f_flops / timing.tf32_peak(gpu)
                            >= f_bytes / peak_bw else "bytes")
-        bwd["bound_by"] = ("operations" if 3 * b_flops / tf32_peak(gpu)
+        bwd["bound_by"] = ("operations" if 3 * b_flops / timing.tf32_peak(gpu)
                            >= b_bytes / peak_bw else "bytes")
         log(f"encoder train tower {tower_id} B={n_seq}: fwd kernel {f_ms:.4f} "
             f"ms saving the activations ({f_nosave:.4f} without) plain "
@@ -981,33 +834,6 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
             for k, v in zip(keys, vals):
                 acc[k] += v
     return fwd, bwd
-
-
-def kernel_times(fn, calls: int = 3):
-    """({kernel name: device ms a call}, {kernel name: launches a call}) for
-    a fn that launches the same kernels each call, under torch.profiler:
-    the totals over ``calls`` calls over ``calls``.  The profiler may miss
-    the first kernels of its window, so one profiled call is not enough.
-    Names drop the argument list and the anonymous namespace, and keep
-    template arguments."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = {}, {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            name = ev.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].removeprefix("void ")
-            total[name] = total.get(name, 0.0) + us / 1e3
-            count[name] = count.get(name, 0) + ev.count
-    return ({name: ms / calls for name, ms in total.items()},
-            {name: n / calls for name, n in count.items()})
 
 
 def _ce_inputs(N, d, V, n_real, seed):
@@ -1107,7 +933,7 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
                                                           dt, tgt))
         # K4's parts, device ms a call: its kernel, the pre-pass (Wᵀ's
         # TF32 split) and the split merge
-        sub = kernel_times(lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l,
+        sub = timing.kernel_times(lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l,
                                                         tgt))[0]
         f_parts = {"kernel": sum(v for k, v in sub.items()
                                  if "ce_fwd_kernel" in k),
@@ -1121,8 +947,8 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
             f"{f_parts['prepass']:.4f} ms, merge {f_parts['merge']:.4f} ms")
         for k, v in f_parts.items():
             f_kernel[k] = f_kernel.get(k, 0.0) + v
-        sub = kernel_times(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse,
-                                                        dt, tgt))[0]
+        sub = timing.kernel_times(lambda: fused_ce_cuda.ce_bwd(
+            h, w, bm, lse, dlse, dt, tgt))[0]
         # K5's parts, device ms a call: dh kernel, dW/db kernel, the
         # pre-pass (Wᵀ and the TF32 splits of Wᵀ and h), the split merges
         parts = {"dh": sum(v for k, v in sub.items()
@@ -1150,10 +976,10 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
         del lib_out
         io = 4 * (N * d + d * V + V + 3 * N)
         f_ffma = max(f_flops / peak_flops, (io + 8 * N) / peak_bw) * 1e3
-        f_tc = tc_bound_ms(f_flops, io + 8 * N, gpu, peak_bw)
+        f_tc = timing.tc_bound_ms(f_flops, io + 8 * N, gpu, peak_bw)
         b_bytes = 2 * io + 4 * N * d
         b_ffma = max(4 * N * V * d / peak_flops, b_bytes / peak_bw) * 1e3
-        b_tc = tc_bound_ms(4 * N * V * d, b_bytes, gpu, peak_bw)
+        b_tc = timing.tc_bound_ms(4 * N * V * d, b_bytes, gpu, peak_bw)
         log(f"ce {dom}: fwd kernel {f_ms:.4f} ms plain {f_plain:.4f} library "
             f"{f_lib:.4f} bound 3xTF32 tensor cores {f_tc:.4f}, FP32 FFMA "
             f"{f_ffma:.4f} ({f_flops / f_ms / 1e9:.2f} TFLOP/s); bwd "
@@ -1363,11 +1189,13 @@ def phase_train_wide(spec, train, graphs, graphs_host):
     shapes, dropout 0: with d_latent 256 (the towers' widest fused-LN
     tiles, K4 and K5 at d 256, K1 at d 256 and 512) at FK's len_max 15 for
     two steps and at EE's 30 for one, then at d 128 with len_max 64 (the
-    longest sequences the towers take: two keys a lane in attention), each
-    run with its own params and batches.  Before each step, the loss and
-    every gradient from the step's params through the kernels, through the
-    plain versions on the card and through the plain versions on the CPU;
-    every kernel launches its count a step.
+    longest sequences the towers take: two keys a lane in attention), then
+    at d_latent 512 (BASELINE.json config 5's width: K4 and K5 at d 512,
+    K2 and K3 at their widest), each run with its own params and batches.
+    Before each step, the loss and every gradient from the step's params
+    through the kernels, through the plain versions on the card and
+    through the plain versions on the CPU; every kernel launches its count
+    a step.
 
     The loss must agree to 1e-5.  The gradients are held by the relative
     Frobenius error of each tensor, to the larger of GRAD_TOL and three
@@ -1391,7 +1219,8 @@ def phase_train_wide(spec, train, graphs, graphs_host):
     cfg256 = Config(d_latent=256, dropout_gnn=0.0, dropout_attn=0.0)
     runs = []                      # [cfg, spec, state, step fn, batches]
     for cfg, len_max, seed in ((cfg256, LEN_MAX, 2), (cfg256, 30, 5),
-                               (cfg256.with_(d_latent=128), 64, 6)):
+                               (cfg256.with_(d_latent=128), 64, 6),
+                               (cfg256.with_(d_latent=512), LEN_MAX, 7)):
         sp, tr = spec, train
         if len_max != LEN_MAX:
             sp = DataSpec(n_item_a=spec.n_item_a, n_item_b=spec.n_item_b,
@@ -1410,7 +1239,8 @@ def phase_train_wide(spec, train, graphs, graphs_host):
                      it.epoch()])
     cpu_graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cpu"),
                               spmm.device_graph(graphs_host[1], "cpu"))
-    schedule = (0, 0, 1, 2)        # d 256 at len_max 15, 15, 30; d 128 at 64
+    schedule = (0, 0, 1, 2, 3)     # d 256 at len_max 15, 15, 30; d 128 at
+                                   # 64; d 512 at 15
     launches = dict.fromkeys(kernel_wrappers(), 0)
     losses = []
     for i, which in enumerate(schedule):
@@ -1474,7 +1304,8 @@ def phase_train_wide(spec, train, graphs, graphs_host):
             launches[k] += v
     steps = len(schedule)
     per_step = {"spmm_csr": 4 * cfg256.n_gnn, "spmm_csr_flagged": 0,
-                "encoder_fwd": 3, "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2}
+                "encoder_fwd": 3, "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2,
+                "segsum": LOOKUPS}
     log(f"train wide: {steps} steps, losses "
         f"{[round(v, 4) for v in losses]}, launches {launches}")
     check(all(math.isfinite(v) for v in losses), "train wide: loss")
@@ -1558,7 +1389,8 @@ def phase_train(spec, train, graphs):
     launches = read_launches()
     losses = [float(v) for v in losses]
     per_step = {"spmm_csr": 4 * cfg.n_gnn, "spmm_csr_flagged": 0,
-                "encoder_fwd": 3, "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2}
+                "encoder_fwd": 3, "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2,
+                "segsum": LOOKUPS}
     log(f"train path: {TRAIN_STEPS} steps (first, cold) in {secs:.3f} s, "
         f"{TRAIN_STEPS * cfg.batch_size / secs:.1f} train examples/s; "
         f"launches {launches}")
@@ -1781,7 +1613,7 @@ def phase_experiment(spec, train, data, graphs, name):
                 "spmm_csr": 4 * (cfg.n_gnn - 1) * steps
                 + 2 * cfg.n_gnn * convolves[0],
                 "encoder_bwd": 3 * steps, "ce_fwd": 2 * steps,
-                "ce_bwd": 2 * steps}
+                "ce_bwd": 2 * steps, "segsum": LOOKUPS * steps}
         for k, n in want.items():
             check(launches[k] == n, f"experiment: {k} launched "
                   f"{launches[k]} times, want {n}")
@@ -1894,6 +1726,245 @@ def phase_experiment(spec, train, data, graphs, name):
         f"{'resolved' if abs(diff) > 3 * se else 'unresolved'} (on {name})")
     return launches, {"batch_sparse": float(k.mean()),
                       "dense": float(p.mean())}
+
+
+def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
+    """K4 and K5 at d 384 and 512, the widths above 256 (64 resident rows a
+    block, K5's output columns over two blocks), at a train step's rows of
+    domain A (N 10,240, V 30,720): against the plain versions in float64
+    (CE_TOL, CE_BWD_TOL), as the d 256 card tests hold them, and bitwise
+    against a second launch; then timed beside the plain versions in f32,
+    with K5's dh and dW kernels profiled and the bounds."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    N, V, n_real = 512 * 2 * 10, 30720, N_ITEM_A
+    out = {}
+    for d in (384, 512):
+        h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, d)
+        with torch.no_grad():
+            lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+            lse2, tlog2 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+            got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+            again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+            h64, w64, b64, p64 = (t.double() for t in (h, w, bm, pad_l))
+            rlse, rtlog = fused_ce.ce_fwd_plain(h64, w64, b64, p64, tgt)
+            want = fused_ce.ce_bwd_plain(h64, w64, b64, lse.double(),
+                                         dlse.double(), dt.double(), tgt)
+        torch.cuda.synchronize()
+        e_f = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
+        check(e_f <= CE_TOL, f"ce_fwd d={d}: rel err {e_f} > {CE_TOL}")
+        check(torch.equal(lse, lse2) and torch.equal(tlog, tlog2),
+              f"ce_fwd d={d}: two launches differ")
+        rels = _check_ce_bwd(f"d={d}", got, want, again, n_real)
+        del want, h64, w64, rlse, rtlog
+        with torch.no_grad():
+            f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt))
+            f_plain = timer(lambda: fused_ce.ce_fwd_plain(h, w, bm, pad_l,
+                                                          tgt))
+            b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
+                                                      tgt))
+            b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, w, bm, lse, dlse,
+                                                          dt, tgt))
+        sub = timing.kernel_times(lambda: fused_ce_cuda.ce_bwd(
+            h, w, bm, lse, dlse, dt, tgt))[0]
+        parts = {"dh": sum(v for k, v in sub.items()
+                           if "ce_bwd_kernel" in k and "true>" in k),
+                 "dw": sum(v for k, v in sub.items()
+                           if "ce_bwd_kernel" in k and "false>" in k)}
+        flops = 2.0 * N * V * d
+        io = 4 * (N * d + d * V + V + 3 * N)
+        out[d] = {"fwd_ms": f_ms, "fwd_plain_ms": f_plain,
+                  "bwd_ms": b_ms, "bwd_plain_ms": b_plain,
+                  "bwd_dh_ms": parts["dh"], "bwd_dw_ms": parts["dw"],
+                  "fwd_bound_ms": timing.tc_bound_ms(flops, io, gpu, peak_bw),
+                  "fwd_bound_ffma_ms": flops / peak_flops * 1e3,
+                  "bwd_bound_ms": timing.tc_bound_ms(2 * flops, 2 * io, gpu,
+                                                     peak_bw),
+                  "bwd_bound_ffma_ms": 2 * flops / peak_flops * 1e3,
+                  "fwd_rel_err_f64": e_f,
+                  "bwd_rel_err_f64": max(rels.values())}
+        log(f"ce wide d={d}: N={N} V={V}: against float64 fwd rel err "
+            f"{e_f:.3e}, bwd " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in rels.items())
+            + "; two launches of each bitwise equal; fwd kernel "
+            f"{f_ms:.4f} ms plain {f_plain:.4f}, bwd kernel {b_ms:.4f} ms "
+            f"(dh {parts['dh']:.4f} + dW {parts['dw']:.4f}, profiled) plain "
+            f"{b_plain:.4f}; bounds 3xTF32 fwd {out[d]['fwd_bound_ms']:.4f} "
+            f"bwd {out[d]['bwd_bound_ms']:.4f}, FFMA fwd "
+            f"{out[d]['fwd_bound_ffma_ms']:.4f}")
+    return out
+
+
+def phase_determinism(spec, train, graphs, timer, peak_bw):
+    """The step is bitwise repeatable.  K7 against CPU ``index_add_`` at a
+    train step's ids (the shared tower's three sequences into the item
+    table, their positions into the position table): bitwise.  Two FK
+    train steps at dropout 0.2 from copies of one state on one batch:
+    bitwise equal gradients and parameters.  Logged beside, not gated: the
+    same two gradients with ``index_add_`` (atomics) in K7's place."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import dropout as drop
+    from c2dsr_tpu_torch.ops import segsum_cuda
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+    cfg = Config()
+    b, _ = _flagged_batch(train, cfg.batch_size)
+    seq3 = torch.cat([b["seq_share"], b["seq_share_neg_a"],
+                      b["seq_share_neg_b"]])
+    pos3 = torch.cat([b["pos"]] * 3)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    k7 = {}
+    for name, ids, n_rows in (("items", seq3, spec.n_item + 1),
+                              ("positions", pos3, spec.len_max)):
+        g = torch.randn((ids.numel(), cfg.d_latent), generator=gen,
+                        device="cuda")
+        got = segsum_cuda.segsum(ids, g, n_rows)
+        want = segsum_cuda.segsum_plain(ids.cpu(), g.cpu(), n_rows)
+        check(torch.equal(got.cpu(), want), f"K7 {name}: not bitwise CPU "
+              "index_add_")
+        ms = timer(lambda: segsum_cuda.segsum(ids, g, n_rows))
+        plain_ms = timer(lambda: segsum_cuda.segsum_plain(ids, g, n_rows))
+        n, d = g.shape
+        nbytes = 8 * n + 4 * n * d + 4 * n_rows * d
+        top = int(torch.bincount(ids.reshape(-1)).max())
+        parts = timing.kernel_times(lambda: segsum_cuda.segsum(ids, g,
+                                                               n_rows))[0]
+        k7[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+                    "bound_ms": nbytes / peak_bw * 1e3, "n_ids": n,
+                    "n_rows": n_rows, "most_ids_a_row": top,
+                    "kernels_ms": parts}
+        log(f"K7 {name}: {n} ids into {n_rows} rows (at most {top} a row), "
+            f"d {d}: bitwise CPU index_add_; K7 (sort + kernels) {ms:.4f} "
+            f"ms, index_add_ on the card {plain_ms:.4f} ms, byte bound "
+            f"{k7[name]['bound_ms']:.4f} ms; device ms a call: "
+            + ", ".join(f"{k[:40]} {v:.4f}" for k, v in parts.items()))
+
+    params = params_mod.init_params(cfg, spec,
+                                    torch.Generator().manual_seed(0), "cuda")
+    batch = {k: v[:cfg.batch_size] for k, v in train.items()}
+    seed = drop.step_seed(cfg.seed + 1, 0)
+
+    def grads_of(state):
+        leaves = state.opt_state.leaves
+        for t in leaves:
+            t.grad = None
+        loss, _ = step_mod.loss_fn(state.params, graphs,
+                                   ranker.to_device(batch, "cuda"), seed,
+                                   cfg, spec)
+        loss.backward()
+        out = [t.grad.clone() for t in leaves]
+        for t in leaves:
+            t.grad = None
+        return out
+
+    def run():
+        opt = optim.make_optimizer(cfg, steps_per_epoch=58)
+        state = step_mod.init_state(
+            params_mod._map(lambda t: t.detach().clone(), params), opt)
+        grads = grads_of(state)
+        fn = step_mod.make_train_step(cfg, spec, graphs, opt, "cuda")
+        state, aux = fn(state, batch)
+        return grads, [t.detach().clone() for t in
+                       step_mod.param_leaves(state.params)], float(aux["loss"])
+
+    (g1, p1, l1), (g2, p2, l2) = run(), run()
+    same_g = all(torch.equal(a, c) for a, c in zip(g1, g2))
+    same_p = all(torch.equal(a, c) for a, c in zip(p1, p2))
+    k7_fn = segsum_cuda.segsum
+    segsum_cuda.segsum = segsum_cuda.segsum_plain
+    try:
+        opt = optim.make_optimizer(cfg, steps_per_epoch=58)
+        s0 = step_mod.init_state(
+            params_mod._map(lambda t: t.detach().clone(), params), opt)
+        atomics = [grads_of(s0) for _ in range(2)]
+    finally:
+        segsum_cuda.segsum = k7_fn
+    differ = sum(not torch.equal(a, c) for a, c in zip(*atomics))
+    log(f"determinism: two FK train steps at dropout {cfg.dropout_attn} "
+        f"from one state and batch: losses {l1:.7f} {l2:.7f}; gradients "
+        f"bitwise equal {same_g} ({len(g1)} tensors), parameters after the "
+        f"step bitwise equal {same_p}; with index_add_ in K7's place "
+        f"{differ} of {len(g1)} gradients differ between two runs (logged)")
+    check(same_g and same_p and l1 == l2,
+          "two train steps from one state differ")
+    return k7, {"index_add_grads_differ": differ}
+
+
+def _bench_logs(name, res):
+    """A few lines of a bench mode's result."""
+    if name == "headline":
+        log(f"bench headline: {json.dumps(res['line'])}; eval full rank "
+            f"{res['details']['eval_full_rank_examples_per_s']:.1f} "
+            f"examples/s, {res['details']['eval_full_rank_items_per_s']:.4g}"
+            f" items/s; gates {res['details']['train_gate']} "
+            f"{res['details']['eval_gate']}")
+    elif name == "kernels":
+        for r in res["results"]:
+            log(f"bench kernels {r['kernel']}: {r['ms']:.4f} ms plain "
+                f"{r['plain_ms']:.4f} library {r['library_ms']} bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}, FFMA "
+                f"{r['bound_ffma_ms']:.4f}); err {r['max_rel_err']:.3e}")
+    elif name == "ce_variants":
+        for sh in res["shapes"]:
+            for v, r in sh["variants"].items():
+                log(f"bench ce_variants N={sh['N']} d={sh['d']} "
+                    f"V={sh['V']} {v}: call {r['ms']:.4f} ms "
+                    f"({r['tflops']:.1f} TFLOP/s), "
+                    f"plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
+                    f"bounds 3xTF32 {r['bound_ms']:.4f} FFMA "
+                    f"{r['bound_ffma_ms']:.4f}, unphysical {r['unphysical']}"
+                    f"; errors {r.get('base_rel_err', 0.0):.3e} from base, "
+                    f"{r['plain_rel_err']:.3e} from plain")
+    elif name == "scaled":
+        m = res["measured_per_shard"]
+        ce = m["fused_ce_f32"]
+        log(f"bench scaled: lookup {m['lookup_ms']:.4f} ms (fwd+bwd "
+            f"{m['lookup_fwd_bwd_ms']:.4f}); CE d 512 V 2^19 fwd "
+            f"{ce['fwd_ms']:.3f} ms fwd+bwd {ce['fwd_bwd_ms']:.3f} ms "
+            f"({ce['fwd_bwd_tflops']:.1f} TFLOP/s; bounds "
+            f"{ce['fwd_bound_ms']:.3f} / {ce['fwd_bwd_bound_ms']:.3f}); "
+            f"errors rows {ce['rows_rel_err']:.3e} grads "
+            f"{ce['grads_rel_err']:.3e}; full rank {m['full_rank_ms']:.4f} "
+            f"ms (delta {m['full_rank_max_rank_delta']})")
+    else:
+        for r in res["results"]:
+            log(f"bench batches: {json.dumps(r)}")
+
+
+def phase_bench():
+    """The port's bench (``python -m c2dsr_tpu_torch.bench``), each mode in
+    this process at its real size, with its gates: the headline,
+    ``--kernels``, ``--ce-variants``, ``--scaled``, and ``--batches`` up to
+    2,048.  Returns ({mode: result}, {mode: kernel launches})."""
+    import dataclasses
+    from c2dsr_tpu_torch.bench import __main__ as bench_main
+    from c2dsr_tpu_torch.bench import ce_variants, kernel_bench, scaled_bench
+    modes = (("headline", bench_main.headline),
+             ("kernels", kernel_bench.run),
+             ("ce_variants", ce_variants.run),
+             ("scaled", scaled_bench.run),
+             ("batches", lambda: bench_main.batch_scaling(
+                 dataclasses.replace(bench_main.FK,
+                                     batches=(256, 512, 1024, 2048)))))
+    out, launches = {}, {}
+    for name, fn in modes:
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn()
+        except timing.GateFailure as e:
+            raise SmokeFailure(f"bench {name}: gate failed: {e}")
+        launches[name] = read_launches()
+        launches[name]["by_variant"] = dict(
+            kernel_wrappers()["ce_fwd_variant"].by_variant)
+        torch.cuda.empty_cache()
+        _bench_logs(name, out[name])
+        log(f"bench {name}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{launches[name]}")
+    bench_main.merge_details({k: v["details"] if k == "headline" else v
+                              for k, v in out.items()})
+    return out, launches
 
 
 def phase_cli():
@@ -2012,7 +2083,7 @@ def measure_rates() -> dict:
         torch.Generator().manual_seed(7), Config(n_head=1, n_attn=1),
         LEN_MAX))
     x, seq = _encoder_inputs(2048, LEN_MAX, cfg.d_latent, pad, seed=7)
-    timer = Timer()
+    timer = timing.Timer()
     with torch.inference_mode():
         k2_eval = [timer(lambda: encoder_cuda.encoder_fwd(
             x, seq, p, idx_pad=pad, n_head=1, invert_padding_mask=False))
@@ -2070,7 +2141,7 @@ def compare(other: str) -> int:
             f"{theirs.mean():.4f} {unit} ({diff / theirs.mean():+.2%}), "
             f"standard error {se:.4f}: "
             f"{'resolved' if abs(diff) > 3 * se else 'unresolved'}")
-    log(f"compare: card {card_line()}")
+    log(f"compare: card {timing.card_line()}")
     return 0
 
 
@@ -2090,15 +2161,18 @@ def main() -> int:
         from c2dsr_tpu_torch.graph import build as graph_build
         from c2dsr_tpu_torch.kernels import build
         from c2dsr_tpu_torch.ops import backend, spmm
+        from c2dsr_tpu_torch.bench import timing as package_timing
     except ImportError as e:
         print(f"chip_smoke: the c2dsr_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 2
+    global timing
+    timing = package_timing        # one GateFailure class for the gates
     t_start = time.perf_counter()
     backend.resolve_device("cuda")
-    card = card_line()
+    card = timing.card_line()
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw = peaks(name)
+    peak_flops, peak_bw = timing.peaks(name)
     log(f"setup: torch {torch.__version__} cuda {torch.version.cuda}; "
         f"card {card}; peaks {peak_flops / 1e12:.0f} TFLOP/s FP32, "
         f"{peak_bw / 1e12:.2f} TB/s")
@@ -2125,7 +2199,7 @@ def main() -> int:
     graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cuda"),
                           spmm.device_graph(graphs_host[1], "cuda"))
     phase_hash()
-    timer = Timer()
+    timer = timing.Timer()
     with torch.inference_mode():
         k1 = phase_spmm(graphs, timer, peak_flops, peak_bw)
         k1t = phase_spmm(graphs, timer, peak_flops, peak_bw, transpose=True)
@@ -2136,7 +2210,9 @@ def main() -> int:
     t0 = time.perf_counter()
     wide = phase_shapes()
     log(f"phase shapes: {time.perf_counter() - t0:.1f} s")
-    del timer
+    t0 = time.perf_counter()
+    ce_wide = phase_ce_wide(timer, peak_flops, peak_bw, name)
+    log(f"phase ce wide: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     serving = phase_main(spec, graphs_host, eval_data)
@@ -2153,28 +2229,50 @@ def main() -> int:
     training_wide = phase_train_wide(spec, train, graphs, graphs_host)
     log(f"phase training wide: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    reset_launches()
+    k7, atomics = phase_determinism(spec, train, graphs, timer, peak_bw)
+    determinism = read_launches()
+    del timer
+    torch.cuda.empty_cache()
+    log(f"phase determinism: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     experiment, exp_rates = phase_experiment(spec, train, eval_data, graphs,
                                              card)
     log(f"phase experiment: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_cli()
     log(f"phase cli: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bench, bench_launches = phase_bench()
+    log(f"phase bench: {time.perf_counter() - t0:.1f} s")
     paths = {"serving": serving, "serving_d512": serving_wide,
              "training": training, "training_wide": training_wide,
-             "experiment": experiment}
+             "experiment": experiment, "determinism": determinism,
+             **{f"bench_{k}": v for k, v in bench_launches.items()}}
     step_kernels = ("spmm_csr", "encoder_fwd", "encoder_bwd", "ce_fwd",
-                    "ce_bwd")
+                    "ce_bwd", "segsum")
     for path, kernels_of_path in (
             ("serving", ("spmm_csr", "encoder_fwd")),
             ("serving_d512", ("spmm_csr", "encoder_fwd")),
             ("training", step_kernels), ("training_wide", step_kernels),
-            ("experiment", tuple(kernel_wrappers()))):
+            ("experiment", ("spmm_csr_flagged",) + step_kernels),
+            ("determinism", step_kernels),
+            ("bench_headline", step_kernels),
+            ("bench_kernels", step_kernels + ("spmm_csr_flagged",)),
+            ("bench_ce_variants", ("ce_fwd_variant", "ce_fwd")),
+            ("bench_scaled", ("ce_fwd", "ce_bwd", "segsum")),
+            ("bench_batches", step_kernels)):
         check(all(paths[path][n] > 0 for n in kernels_of_path),
               f"a kernel never launched on the {path} path: {paths[path]}")
+    by_variant = bench_launches["ce_variants"]["by_variant"]
+    check(all(by_variant.get(v, 0) > 0 for v in ("base", "nomatch", "exp2",
+                                                  "bf16exp", "matmulonly")),
+          f"a CE variant never launched: {by_variant}")
 
     def counts(name):
         return {"launches": sum(p[name] for p in paths.values()),
-                "launches_by_path": {k: p[name] for k, p in paths.items()}}
+                "launches_by_path": {k: p[name] for k, p in paths.items()
+                                     if p[name]}}
 
     step_hops = {k: k1[k] + k1t[k] for k in ("ms", "plain_ms", "library_ms",
                                                "bound_ms")}
@@ -2242,6 +2340,8 @@ def main() -> int:
          "source": "c2dsr_tpu_torch/csrc/ce.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:263",
          **counts("ce_fwd"), **k4, "d256_max_rel_err": wide["ce_fwd"],
+         "d384": {k: v for k, v in ce_wide[384].items() if "fwd" in k},
+         "d512": {k: v for k, v in ce_wide[512].items() if "fwd" in k},
          "note": "both domains of a step: N 10240, d 128, V 30720 + 36864; "
                  "3xTF32 on the tensor cores; bound_ms the 3xTF32 tensor-core "
                  "bound (3*2*N*V*d TF32 FLOPs at 495 TFLOP/s), bound_ffma_ms "
@@ -2251,19 +2351,55 @@ def main() -> int:
          "source": "c2dsr_tpu_torch/csrc/ce.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:308",
          **counts("ce_bwd"), **k5, "d256_max_rel_err": wide["ce_bwd"],
+         "d384": {k: v for k, v in ce_wide[384].items() if "bwd" in k},
+         "d512": {k: v for k, v in ce_wide[512].items() if "bwd" in k},
          "note": "dh and dW/db kernels (3xTF32 on the tensor cores), both "
                  "domains of a step; also replaces fused_ce.py:339 and "
                  ":360; bound_ms is the 3xTF32 tensor-core bound "
                  "(3*4*N*V*d TF32 FLOPs at 495 TFLOP/s), bound_ffma_ms "
                  "the FP32 FFMA one (4*N*V*d at 67); kernels_ms the "
                  "profiled split"},
+        {"name": "segsum", "route": "cuda",
+         "source": "c2dsr_tpu_torch/csrc/segsum.cu",
+         "replaces": "no Pallas kernel: the backward of the lookups "
+                     "(c2dsr_tpu_torch/parallel/strategy.py LocalOps.lookup, "
+                     "jnp.take in the JAX package)",
+         **counts("segsum"), "max_abs_err": 0.0,
+         **{k: k7["items"][k] + k7["positions"][k]
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+         "bound_by": "bytes", "by_table": k7, **atomics,
+         "note": "K7, the ordered segment sum: a step's shared-tower ids "
+                 "into the item table and the position table; ms the sort "
+                 "and the kernels; plain and library index_add_ on the card "
+                 "(atomics, not repeatable); max_abs_err against CPU "
+                 "index_add_ (bitwise)"},
     ]
+    variants = bench["ce_variants"]["shapes"]
+    for v in ("base", "nomatch", "exp2", "bf16exp", "matmulonly"):
+        r = variants[0]["variants"][v]
+        kernels.append({
+            "name": f"ce_fwd_variants/{v}", "route": "cuda",
+            "source": "c2dsr_tpu_torch/csrc/ce_variants.cu",
+            "replaces": "bench/ce_experiments.py:105",
+            "launches": bench_launches["ce_variants"]["by_variant"][v],
+            "max_abs_err": r["max_abs_err"],
+            **{k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_ffma_ms", "unphysical")},
+            "bound_by": "operations",
+            "fk_shapes": [{"V": sh["V"], **{k: sh["variants"][v][k] for k in
+                                            ("ms", "plain_ms", "bound_ms")}}
+                          for sh in variants[1:]],
+            "note": "K4's variant at the JAX script's shape, N 10240, d 128, "
+                    "V 64512 (fk_shapes: V 30720 and 36864); ms the call "
+                    "(the production pre-pass, the variant's kernel, a "
+                    "merge); max_abs_err of the lse against its plain "
+                    "version"})
     log(f"train path: {train_rate:.1f} train examples/s (warm mean, "
         f"kernels); experiment path: {exp_rates['batch_sparse']:.1f} "
         f"batch-sparse, {exp_rates['dense']:.1f} dense")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    print(card_line())
+    print(timing.card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

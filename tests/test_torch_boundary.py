@@ -25,7 +25,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
-             or k == "c2dsr_tpu" or k.startswith("c2dsr_tpu."))
+             or k == "c2dsr_tpu" or k.startswith("c2dsr_tpu.")
+             or k == "bench" or k.startswith("bench."))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -44,7 +45,14 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "c2dsr_tpu_torch.ops.dropout", "c2dsr_tpu_torch.ops.losses",
                 "c2dsr_tpu_torch.data.pipeline", "c2dsr_tpu_torch.cli",
                 "c2dsr_tpu_torch.checkpoint", "c2dsr_tpu_torch.noter",
-                "c2dsr_tpu_torch.train.loop"):
+                "c2dsr_tpu_torch.train.loop", "c2dsr_tpu_torch.ops.lookup",
+                "c2dsr_tpu_torch.ops.segsum_cuda",
+                "c2dsr_tpu_torch.bench.__main__",
+                "c2dsr_tpu_torch.bench.fk_graph",
+                "c2dsr_tpu_torch.bench.timing", "c2dsr_tpu_torch.bench.gates",
+                "c2dsr_tpu_torch.bench.kernel_bench",
+                "c2dsr_tpu_torch.bench.ce_variants",
+                "c2dsr_tpu_torch.bench.scaled_bench"):
         assert sub in res["modules"]
 
 
@@ -52,6 +60,7 @@ def test_chip_smoke_imports_no_jax():
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "c2dsr_tpu." not in src.replace(
         "c2dsr_tpu_torch", "")
+    assert "from bench" not in src and "import bench" not in src
 
 
 def _tiny():

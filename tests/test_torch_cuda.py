@@ -416,10 +416,10 @@ def test_ce_kernels_refuse_bad_shapes(cuda):
         fused_ce_cuda.ce_fwd(h, torch.randn(64, 6, device=cuda),
                              torch.zeros(6, device=cuda),
                              torch.zeros(8, device=cuda), t)
-    for d in (36, 264):
+    for d in (36, 520):
         h, w = torch.randn(8, d, device=cuda), torch.randn(d, 8, device=cuda)
         z8 = torch.zeros(8, device=cuda)
-        with pytest.raises(ValueError, match="d % 8 == 0, d <= 256"):
+        with pytest.raises(ValueError, match="d % 8 == 0, d <= 512"):
             fused_ce_cuda.ce_fwd(h, w, z8, z8, t)
         with pytest.raises(ValueError, match=f"d={d}"):
             fused_ce_cuda.ce_bwd(h, w, z8, z8, z8, z8, t)
@@ -759,3 +759,104 @@ def test_batch_sparse_train_steps_on_card_match_cpu(cuda):
             assert spmm_cuda.spmm_csr_flagged.launches == k6 + 12
         losses[str(dev)] = out
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [264, 384, 512])
+def test_ce_kernels_above_d256_match_plain_float64(cuda, d):
+    """K4 and K5 above d 256 (64 resident rows a block, K5's output columns
+    over two blocks) against their plain versions in float64 at FK's
+    scales, 2e-5 relative, with a ragged last tile and ignored rows; two
+    launches of each bitwise equal."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    N, V, n_real = 701, 2052, 2000
+    h, w, bm, pad, tgt, dlse, dt = _fk_ce(cuda, N, d, V, n_real, seed=d)
+    lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad, tgt)
+    again = fused_ce_cuda.ce_fwd(h, w, bm, pad, tgt)
+    got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+    got2 = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+    h64, w64, b64, p64 = (t.double() for t in (h, w, bm, pad))
+    rlse, rtlog = fused_ce.ce_fwd_plain(h64, w64, b64, p64, tgt)
+    want = fused_ce.ce_bwd_plain(h64, w64, b64, lse.double(), dlse.double(),
+                                 dt.double(), tgt)
+    torch.cuda.synchronize()
+    real = tgt != n_real
+    assert _rel_err(lse.double(), rlse) <= 2e-5
+    assert _rel_err(tlog[real].double(), rtlog[real]) <= 2e-5
+    for name, g, r in zip(("dh", "dw", "db"), got, want):
+        assert _rel_err(g.double(), r) <= 2e-5, name
+    assert torch.equal(lse, again[0]) and torch.equal(tlog, again[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, got2))
+    assert (got[2][n_real:] == 0).all()
+
+
+@pytest.mark.parametrize("n_rows,n,d,heavy", [
+    (5000, 7680, 128, 0.3), (15, 23040, 128, 0.6), (300, 1000, 512, 0.0),
+    (64094, 1, 4, 0.0), (70, 5000, 36, 0.9), (40, 200, 8, 0.5)])
+def test_segsum_is_cpu_index_add_bitwise(cuda, n_rows, n, d, heavy):
+    """K7 against CPU index_add_, bit for bit (-0.0 included), on
+    Zipf-skewed ids with absent ids and rows past the heavy threshold; two
+    launches equal."""
+    from c2dsr_tpu_torch.ops import segsum_cuda
+    rng = np.random.default_rng(n)
+    ids = np.minimum(rng.zipf(1.3, size=n) - 1, n_rows - 1)
+    ids[rng.random(n) < heavy] = n_rows - 1
+    ids_t = torch.from_numpy(ids).to(cuda)
+    g = torch.randn(n, d, device=cuda)
+    g[::5] = -0.0
+    got = segsum_cuda.segsum(ids_t, g, n_rows)
+    again = segsum_cuda.segsum(ids_t, g, n_rows)
+    want = segsum_cuda.segsum_plain(ids_t.cpu(), g.cpu(), n_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got, again)
+
+
+def test_lookup_routes_k7_and_matches_cpu(cuda):
+    from c2dsr_tpu_torch.ops import lookup, segsum_cuda
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 50, size=(16, 15))).to(cuda)
+    table = torch.randn(50, 32, device=cuda, requires_grad=True)
+    n0 = segsum_cuda.segsum.launches
+    rows = lookup.lookup(table, ids)
+    g = torch.randn(rows.shape, device=cuda)
+    (grad,) = torch.autograd.grad(rows, table, g)
+    assert segsum_cuda.segsum.launches == n0 + 1
+    cpu = table.detach().cpu().requires_grad_(True)
+    (want,) = torch.autograd.grad(lookup.lookup(cpu, ids.cpu()), cpu,
+                                  g.cpu())
+    assert torch.equal(grad.cpu(), want)
+
+
+def _variant_case(cuda, N, V):
+    from c2dsr_tpu_torch.bench import ce_variants
+    return ce_variants._inputs(N, 128, V, N, cuda)
+
+
+@pytest.mark.parametrize("variant", ["base", "nomatch", "exp2", "bf16exp",
+                                     "matmulonly"])
+def test_ce_variant_matches_plain(cuda, variant):
+    """Each of K4's experiment variants against its plain version (the
+    bench's PLAIN_TOL), ragged last vocab tile."""
+    from c2dsr_tpu_torch.bench import ce_variants
+    h, w, b, pad, tgt = _variant_case(cuda, 700, 4100)
+    hv, bv, pv = ce_variants._scaled(variant, h, b, pad)
+    got = ce_variants.ce_fwd_variant(variant, hv, w, bv, pv, tgt)
+    want = ce_variants.variant_plain(variant, hv, w, bv, pv, tgt)
+    torch.cuda.synchronize()
+    assert _rel_err(got[0], want[0]) <= ce_variants.PLAIN_TOL[variant]
+    if variant in ("nomatch", "matmulonly"):
+        assert not got[1].any()
+    else:
+        assert _rel_err(got[1], want[1]) <= ce_variants.PLAIN_TOL[variant]
+
+
+def test_ce_variant_base_is_production_k4(cuda):
+    """base is K4 bitwise, and every variant passes the bench's gates."""
+    from c2dsr_tpu_torch.bench import ce_variants
+    from c2dsr_tpu_torch.ops import fused_ce_cuda
+    h, w, b, pad, tgt = _variant_case(cuda, 1000, 8196)
+    base = ce_variants.ce_fwd_variant("base", h, w, b, pad, tgt)
+    k4 = fused_ce_cuda.ce_fwd(h, w, b, pad, tgt)
+    assert torch.equal(base[0], k4[0]) and torch.equal(base[1], k4[1])
+    errs = ce_variants.check_variants(h, w, b, pad, tgt)
+    assert set(errs) == set(ce_variants.VARIANTS)
