@@ -12,8 +12,9 @@ The headline (bench.py:41-66, :139-203): train examples/s of
 ``Config``, batch 512: 4 batches cycled, 2 warm-up steps, then 30 timed
 steps; and the full-rank eval rate, examples/s and items/s, over a
 1,024-row chunk a domain of 2,048 synthetic users (seed 7), 10
-repetitions.  Each is gated first: one step at dropout 0 through the
-kernels must give the plain versions' loss to 1e-5 relative (the gate
+repetitions.  Each is gated first: one step's loss and backward at
+dropout 0 through the kernels must give the plain versions' loss to 1e-5
+relative and each gradient to 1e-4 of its largest element (the gate
 ``chip_smoke.py`` uses), and the eval split's full-rank ranks must equal
 the plain versions' except at near-ties (``bench/gates.check_ranks``, the
 rule ``chip_smoke.py`` uses).  A mode whose gate fails exits non-zero.
@@ -48,6 +49,8 @@ REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 DETAILS = os.path.join(REPO_DIR, "build", "bench_torch", "details.json")
 BASELINE = os.path.join(REPO_DIR, "bench_baseline.json")
 LOSS_TOL = 1e-5          # the train gate: loss relative to the plain one's
+GRAD_TOL = 1e-4          # and each gradient tensor, max abs error over max
+                         # |plain| (chip_smoke.py's train-step gate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,23 +120,40 @@ def _batches(train, batch: int, n: int):
             for i in range(n)]
 
 
-def train_gate(cfg, sp, graphs, params, batch) -> Dict[str, float]:
-    """One step's loss at dropout 0 through the kernels and through the
-    plain versions: equal to LOSS_TOL relative, or GateFailure."""
+def train_gate(cfg, sp, graphs, leaves, params, batch) -> Dict[str, float]:
+    """One step's loss and gradients at dropout 0 through the kernels and
+    through the plain versions, the plain tower taken at K2's branches
+    (bench/gates.recording_k2_branches), as ``chip_smoke.py``'s train phase
+    holds them: the loss to LOSS_TOL relative, each gradient tensor of
+    ``leaves`` to GRAD_TOL of its largest plain element, or GateFailure.
+    The backward runs every kernel the timed steps run (K1-K5, K7)."""
     from c2dsr_tpu_torch.train import step as step_mod
     cfg0 = cfg.with_(dropout_gnn=0.0, dropout_attn=0.0)
-    with torch.no_grad():
-        loss_k = float(step_mod.loss_fn(params, graphs, batch, None, cfg0,
-                                        sp)[0])
-        with gates.plain_versions():
-            loss_p = float(step_mod.loss_fn(params, graphs, batch, None, cfg0,
-                                            sp)[0])
+
+    def run(ctx):
+        with ctx:
+            loss = step_mod.loss_fn(params, graphs, batch, None, cfg0, sp)[0]
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return float(loss.detach()), [
+            torch.zeros_like(t) if g is None else g
+            for t, g in zip(leaves, grads)]
+
+    branches = {}
+    loss_k, g_k = run(gates.recording_k2_branches(branches))
+    loss_p, g_p = run(gates.plain_versions(branches or None))
     rel = abs(loss_k - loss_p) / abs(loss_p)
+    g_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                if float(b.abs().max()) > 0 else float(a.abs().max())
+                for a, b in zip(g_k, g_p))
     if not (np.isfinite(loss_k) and rel <= LOSS_TOL):
         raise timing.GateFailure(f"train gate: loss {loss_k} (kernels) "
                                  f"against {loss_p} (plain), relative "
                                  f"{rel} > {LOSS_TOL}")
-    return {"loss_kernels": loss_k, "loss_plain": loss_p, "rel_err": rel}
+    if not g_rel <= GRAD_TOL:
+        raise timing.GateFailure(f"train gate: a gradient {g_rel} from the "
+                                 f"plain versions' > {GRAD_TOL}")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p, "rel_err": rel,
+            "grad_rel_err": g_rel, "n_grads": len(leaves)}
 
 
 def train_rate(cfg, sp, graphs, train, spec: Spec, device, steps: int):
@@ -147,10 +167,10 @@ def train_rate(cfg, sp, graphs, train, spec: Spec, device, steps: int):
                                     device)
     from c2dsr_tpu_torch.evaluate import ranker
     feed = _batches(train, cfg.batch_size, spec.n_batches)
-    gate = train_gate(cfg, sp, graphs, params,
-                      ranker.to_device(feed[0], device))
     opt = optim.make_optimizer(cfg, steps_per_epoch=16)
     state = step_mod.init_state(params, opt)
+    gate = train_gate(cfg, sp, graphs, state.opt_state.leaves, params,
+                      ranker.to_device(feed[0], device))
     fn = step_mod.make_train_step(cfg, sp, graphs, opt, device)
     for b in feed[:spec.warmup]:
         state, aux = fn(state, b)
@@ -254,7 +274,8 @@ def batch_scaling(spec: Spec = FK, device="cuda") -> Dict:
                                      max(8, spec.batch_examples // b))
         rows.append({"batch": b, "step_ms": step_s * 1e3,
                      "examples_per_s": b / step_s,
-                     "gate_rel_err": gate["rel_err"]})
+                     "gate_rel_err": gate["rel_err"],
+                     "gate_grad_rel_err": gate["grad_rel_err"]})
         print(json.dumps(rows[-1]), flush=True)
     return {"note": "FK geometry as the headline; only the batch varies",
             "device": device_name(device), "results": rows}

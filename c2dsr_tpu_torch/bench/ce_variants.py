@@ -134,6 +134,32 @@ def variant_plain(variant: str, h: torch.Tensor, w: torch.Tensor,
     raise ValueError(f"unknown variant {variant!r}")
 
 
+def library_call(variant: str, h, w, b, tgt):
+    """A function of PyTorch library calls that computes what ``variant``
+    returns at :func:`_inputs`' pad of -1e9 (so that the lse is over h·W + b
+    alone), or None for bf16exp, whose bf16 exponentials no library call
+    takes: base the lse and the target logit, nomatch the lse alone, exp2
+    both in log2 units (its inputs are in them), matmulonly the row sum."""
+    if variant == "base":
+        def call():
+            logits = torch.addmm(b, h, w)
+            return torch.logsumexp(logits, 1), logits.gather(1, tgt[:, None])
+    elif variant == "nomatch":
+        def call():
+            return torch.logsumexp(torch.addmm(b, h, w), 1)
+    elif variant == "exp2":
+        def call():
+            logits = torch.addmm(b, h, w)
+            return (torch.logsumexp(logits * LN2, 1) / LN2,
+                    logits.gather(1, tgt[:, None]))
+    elif variant == "matmulonly":
+        def call():
+            return torch.addmm(b, h, w).sum(1)
+    else:
+        return None
+    return call
+
+
 def _inputs(N, d, V, seed, device):
     """The JAX script's inputs (ce_experiments.py:147-152): h ~ N(0, 1),
     W ~ 0.02 N(0, 1), a zero bias, uniform targets; pad at -1e9, so that
@@ -208,9 +234,9 @@ def run(device: str = "cuda", shapes=SHAPES) -> Dict:
     """Every variant at every shape: gated (check_variants), then timed.
     Per variant and shape: ms (the call: the production pre-pass, the
     variant's kernel and a merge; the variants share all but the kernel,
-    so their differences are the kernels'), the plain version's ms, one
-    library call's ms where one computes the same function (base:
-    logsumexp of h@W+b; matmulonly: (h@W+b).sum(1)), the 3xTF32 and FFMA
+    so their differences are the kernels'), the plain version's ms, the
+    library's ms where its calls compute the same function
+    (:func:`library_call`), the 3xTF32 and FFMA
     bounds, and a flag where a time is below one read of W at the card's
     memory rate."""
     timing.require_cuda(device, "--ce-variants")
@@ -232,8 +258,7 @@ def run(device: str = "cuda", shapes=SHAPES) -> Dict:
                 hv, bv, pv = _scaled(v, h, b, pad)
                 ms = timer(lambda: ce_fwd_variant(v, hv, w, bv, pv, tgt))
                 plain_ms = timer(lambda: variant_plain(v, hv, w, bv, pv, tgt))
-                lib = {"base": lambda: torch.logsumexp(h @ w + b, 1),
-                       "matmulonly": lambda: (h @ w + b).sum(1)}.get(v)
+                lib = library_call(v, hv, w, bv, tgt)
                 rows[v] = {"ms": ms, "plain_ms": plain_ms,
                            "library_ms": timer(lib) if lib else None,
                            "bound_ms": bound_tc, "bound_ffma_ms": bound_ffma,

@@ -1,5 +1,7 @@
 """The correctness gates the bench and ``chip_smoke.py`` share: the plain
-PyTorch versions swapped in for the kernels on the card, and the serving
+PyTorch versions swapped in for the kernels on the card, K2's branches
+(ReLU masks, attention probabilities) at which the plain tower is held
+against the kernels, and the serving
 ranks' near-tie rule, by which the kernels' ranks must equal the plain
 versions' except where the plain versions' own error against float64
 could reorder a candidate and the ground truth.
@@ -62,6 +64,44 @@ def k2_branches(saved, shape, n_head, n_layers, tower):
     return {(tower, li): ((lv["fr"] > 0).float(),
                           lv["p"].permute(1, 0, 2, 3).clone())
             for li, lv in enumerate(views["layers"])}
+
+
+@contextlib.contextmanager
+def recording_k2_branches(store, calls=None):
+    """The kernels as they are, with K2's branches (k2_branches) of every
+    training tower call recorded into ``store`` by (tower, layer); with a
+    list ``calls``, each backward call's inputs, K2's saved activations
+    and K3's result appended to it."""
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    fwd, bwd = encoder_cuda.encoder_fwd, encoder_cuda.encoder_bwd
+
+    def recording(x, seq, params, *, saved=None, **kw):
+        out = fwd(x, seq, params, saved=saved, **kw)
+        if saved is not None:
+            store.update(k2_branches(saved, x.shape, kw["n_head"],
+                                     params["layers"]["w_qkv"].shape[0],
+                                     kw["tower"]))
+        return out
+
+    def capturing(x, seq, gout, params, *, saved=None, **kw):
+        got = bwd(x, seq, gout, params, saved=saved, **kw)
+        calls.append({"x": x.detach().clone(), "seq": seq, "p": params,
+                      "gout": gout.detach().clone(), "kw": kw,
+                      "saved": saved.clone(), "got": got})
+        return got
+
+    # the wrappers count their launches on the module's names: carry them
+    recording.launches, capturing.launches = fwd.launches, bwd.launches
+    encoder_cuda.encoder_fwd = recording
+    if calls is not None:
+        encoder_cuda.encoder_bwd = capturing
+    try:
+        yield
+    finally:
+        fwd.launches = recording.launches
+        if calls is not None:
+            bwd.launches = capturing.launches
+        encoder_cuda.encoder_fwd, encoder_cuda.encoder_bwd = fwd, bwd
 
 
 def convolve_float64(params, graphs, cfg, spec):

@@ -90,7 +90,11 @@ def bench_ce(timer, card, peak_flops, peak_bw, B=512, R=20, d=128,
     # the gradients of the summed loss, whose dlogits are p - onehot as in
     # training: each tensor within the train step's gradient tolerance
     # (GRAD_TOL, as chip_smoke.py holds a step) of float64; the plain f32
-    # versions' own errors are recorded beside the kernels'
+    # versions' own errors are recorded beside the kernels'.  At this V the
+    # dW kernel adds all N rows into one tensor-core accumulator, whose
+    # truncating adds put dW some 4e-5 from float64 where cuBLAS's f32 is
+    # near 2e-6 (tests/test_torch_tf32.py emulates both; one-pass TF32
+    # products land above GRAD_TOL)
     g_k = fwd_bwd(fused_ce.fused_ce, leaves)
     g_32 = fwd_bwd(fused_ce.ce_fwd_plain, leaves)
     g_64 = fwd_bwd(fused_ce.ce_fwd_plain,
@@ -104,7 +108,9 @@ def bench_ce(timer, card, peak_flops, peak_bw, B=512, R=20, d=128,
           f"float64 {errs}")
 
     def lib_fwd():
-        return torch.logsumexp(torch.cat([h @ w + bm, pad[:, None]], 1), 1)
+        logits = h @ w + bm
+        return (torch.logsumexp(torch.cat([logits, pad[:, None]], 1), 1),
+                logits.gather(1, tgt[:, None]))
 
     def lib_fwd_bwd():
         hh, ww, bb = leaves
@@ -182,6 +188,36 @@ def bench_spmm(timer, card, peak_flops, peak_bw, train, graphs, d=128
     return rows
 
 
+def torch_tower(p, d, n_head, n_layers, dropout=0.0):
+    """nn.TransformerEncoder with the port's weights: the library yardstick
+    (in train mode when dropout > 0)."""
+    import torch.nn as nn
+    layer = nn.TransformerEncoderLayer(
+        d_model=d, nhead=n_head, dim_feedforward=d, dropout=dropout,
+        activation="relu", layer_norm_eps=1e-8, batch_first=True,
+        norm_first=False)
+    tower = nn.TransformerEncoder(layer, n_layers, nn.LayerNorm(d, eps=1e-8),
+                                  enable_nested_tensor=False)
+    with torch.no_grad():
+        for i, tl in enumerate(tower.layers):
+            lp = {k: v[i] for k, v in p["layers"].items()}
+            tl.self_attn.in_proj_weight.copy_(lp["w_qkv"].T)
+            tl.self_attn.in_proj_bias.copy_(lp["b_qkv"])
+            tl.self_attn.out_proj.weight.copy_(lp["w_out"].T)
+            tl.self_attn.out_proj.bias.copy_(lp["b_out"])
+            tl.linear1.weight.copy_(lp["w_ff1"].T)
+            tl.linear1.bias.copy_(lp["b_ff1"])
+            tl.linear2.weight.copy_(lp["w_ff2"].T)
+            tl.linear2.bias.copy_(lp["b_ff2"])
+            tl.norm1.weight.copy_(lp["ln1_scale"])
+            tl.norm1.bias.copy_(lp["ln1_bias"])
+            tl.norm2.weight.copy_(lp["ln2_scale"])
+            tl.norm2.bias.copy_(lp["ln2_bias"])
+        tower.norm.weight.copy_(p["lnf_scale"])
+        tower.norm.bias.copy_(p["lnf_bias"])
+    return tower.cuda().train(dropout > 0)
+
+
 def bench_encoder(timer, card, peak_flops, peak_bw, B=512, L=15, d=128,
                   n_head=1) -> List[Dict]:
     from c2dsr_tpu_torch.bench import gates
@@ -226,22 +262,40 @@ def bench_encoder(timer, card, peak_flops, peak_bw, B=512, L=15, d=128,
         enc.encoder_fwd_plain(x, seq, p, **kw)
         return enc.encoder_bwd_plain(x, seq, gout, p, **kw)
 
+    # the library: nn.TransformerEncoder with the same weights, in train
+    # mode at the same dropout, the tower's causal and key-padding masks
+    tower = torch_tower(p, d, n_head, 1, dropout=kw["dropout"])
+    causal = torch.triu(torch.ones(L, L, dtype=torch.bool, device="cuda"), 1)
+    kpm = seq == pad
+    xg = x.clone().requires_grad_(True)
+    lib_params = [xg] + list(tower.parameters())
+
+    def lib_fb():
+        return torch.autograd.grad(
+            tower(xg, mask=causal, src_key_padding_mask=kpm), lib_params,
+            gout)
+
     N = B * L
     f_flops = 12.0 * N * d * d + 4.0 * N * L * d
     w_bytes = 4.0 * 12 * d * d
     with torch.no_grad():
         f_ms = timer(k2)
         f_plain = timer(lambda: enc.encoder_fwd_plain(x, seq, p, **kw))
+        f_lib = timer(lambda: tower(x, mask=causal, src_key_padding_mask=kpm))
     return [
-        _entry("K2 encoder_fwd", f_ms, f_plain, None, f_flops,
+        _entry("K2 encoder_fwd", f_ms, f_plain, f_lib, f_flops,
                8.0 * N * d + w_bytes, card, peak_flops, peak_bw, e2,
                shape={"B": B, "L": L, "d": d}, dropout=0.2,
                note="saving the activations K3 reads; bytes count x and "
-                    "the output"),
-        _entry("K2+K3 encoder_fwd_bwd", timer(k2k3), timer(plain_fb), None,
-               3 * f_flops, 16.0 * N * d + 2 * w_bytes, card, peak_flops,
-               peak_bw, e3, shape={"B": B, "L": L, "d": d}, dropout=0.2,
-               note="K3 held at K2's branches (bench/gates.k2_branches)")]
+                    "the output; library: nn.TransformerEncoder in train "
+                    "mode"),
+        _entry("K2+K3 encoder_fwd_bwd", timer(k2k3), timer(plain_fb),
+               timer(lib_fb), 3 * f_flops, 16.0 * N * d + 2 * w_bytes, card,
+               peak_flops, peak_bw, e3, shape={"B": B, "L": L, "d": d},
+               dropout=0.2,
+               note="K3 held at K2's branches (bench/gates.k2_branches); "
+                    "library: nn.TransformerEncoder forward and backward in "
+                    "train mode")]
 
 
 def bench_lookup(timer, card, peak_flops, peak_bw, train, n_rows=64094,
@@ -251,9 +305,14 @@ def bench_lookup(timer, card, peak_flops, peak_bw, train, n_rows=64094,
     ids = ids.clamp(max=n_rows - 1)
     table = torch.randn((n_rows, d), device="cuda", requires_grad=True)
     g = torch.randn((ids.numel(), d), device="cuda")
-    got = segsum_cuda.segsum(ids, g, n_rows)
+    got = segsum_cuda.segsum(ids, g, n_rows).cpu()
     want = segsum_cuda.segsum_plain(ids.cpu(), g.cpu(), n_rows)
-    _gate(torch.equal(got.cpu(), want), "K7: not bitwise CPU index_add_")
+    _gate(torch.equal(got, want), "K7: not bitwise CPU index_add_")
+    e7 = _rel(got, want)
+    rows = lookup.lookup(table, ids)
+    got_fb = torch.autograd.grad(rows, table, g.view(rows.shape))[0].cpu()
+    e_fb = _rel(got_fb, want)
+    _gate(e_fb == 0.0, "lookup: its backward is not bitwise CPU index_add_")
 
     def ours():
         rows = lookup.lookup(table, ids)
@@ -271,12 +330,12 @@ def bench_lookup(timer, card, peak_flops, peak_bw, train, n_rows=64094,
     return [
         _entry("K7 segsum", k7_ms, k7_plain, k7_plain, 0.0,
                8.0 * n + 4.0 * n * d + 4.0 * n_rows * d, card, peak_flops,
-               peak_bw, 0.0, n_ids=n, n_rows=n_rows,
+               peak_bw, e7, n_ids=n, n_rows=n_rows,
                note="the lookup's backward: sort + K7; plain and library "
                     "are index_add_ on the card (atomics); bitwise CPU "
                     "index_add_"),
         _entry("lookup index_select + K7", timer(ours), fb_plain, fb_plain,
-               0.0, nbytes + 8.0 * n, card, peak_flops, peak_bw, 0.0,
+               0.0, nbytes + 8.0 * n, card, peak_flops, peak_bw, e_fb,
                n_ids=n, n_rows=n_rows,
                note="forward and backward; plain and library: "
                     "index_select under autograd (index_add_ backward)")]

@@ -7,8 +7,12 @@
 // memory: each recomputes its tile of h·W + b on chip.
 //
 // Both are bound on an H100 by operations, and both run them on the tensor
-// cores at f32 accuracy (3xTF32, tc.cuh): the ceiling is 495 / 3 = 165
-// TFLOP/s of f32-accurate work against 67 for FFMA.
+// cores with products at f32 accuracy (3xTF32, tc.cuh): the ceiling is
+// 495 / 3 = 165 TFLOP/s of f32-accurate products against 67 for FFMA.  The
+// sums stay in the tensor cores' accumulator, whose adds truncate: over a
+// long sum (K5's dW over 10,240 rows in one split) that ends some 4e-5 of
+// the largest element from float64, against 2e-6 for an f32 GEMM
+// (tests/test_torch_tf32.py emulates both).
 //
 // K4 and the tile machinery both kernels share live in ce_fwd.cuh.
 //

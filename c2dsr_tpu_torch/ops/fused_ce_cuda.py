@@ -7,11 +7,15 @@ Replace the fused linear + softmax CE Pallas kernels of the JAX package
 backward, whose split the TPU needed only when dh outgrew VMEM).
 
 What bounds them on an H100: operations, which both run on the tensor
-cores at f32 accuracy (3xTF32: each operand split into a TF32 part and its
-remainder, three products a step).  The forward does 2·N·V·d FLOPs: h stays
-resident, tiles of Wᵀ (split once by a pre-pass) stream through a
-``cp.async`` ring, and each warp keeps a running (max, sum-exp) per row over
-one of a few vocab splits; a small kernel merges the splits in order.  The
+cores with products at f32 accuracy (3xTF32: each operand split into a
+TF32 part and its remainder, three products a step), summed in the tensor
+cores' accumulator, which truncates: a long sum, such as dW over 10,240
+rows in one row split, ends some 4e-5 of its largest element from float64
+where an f32 GEMM ends near 2e-6 (tests/test_torch_tf32.py).  The forward
+does 2·N·V·d FLOPs: h stays resident, tiles of Wᵀ (split once by a
+pre-pass) stream through a ``cp.async`` ring, and each warp keeps a
+running (max, sum-exp) per row over one of a few vocab splits; a small
+kernel merges the splits in order.  The
 backward does 4·N·V·d (dh and dW) plus the logits, recomputed by each of
 its two kernels, with the same operand plan over (resident, streamed)
 operands, h and Wᵀ for dh, Wᵀ and h for dW; the vocab or row splits of its

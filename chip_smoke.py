@@ -101,6 +101,8 @@ TRAIN_STEPS = 30         # train steps whose launches and losses are checked
 TRAIN_ROUNDS = 5         # rounds of (plain, kernel, kernel, plain) train runs
 TRAIN_RUN_STEPS = 4      # steps per timed train run
 CLI_USERS = 2000         # synthetic users of the CLI phase
+BUSY_ROUNDS = 16         # rounds of (K7, index_add_, index_add_, K7)
+                         # profiled steps (_k7_step_cost)
 LOOKUPS = 6              # K7 launches a train step: the propagated plus the
                          # raw table (one K7, ops/lookup.lookup_add) and the
                          # positions, for each of the three tower inputs
@@ -109,21 +111,20 @@ REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 def _load_timing():
-    """The port's ``c2dsr_tpu_torch/bench/timing.py`` (the timer, the
-    card's peaks and the bounds), loaded from its file: ``--rates`` imports
-    the package of another checkout, so this script must not import this
-    checkout's package first.  None where the package is missing."""
+    """This checkout's ``c2dsr_tpu_torch/bench/timing.py`` (the timer), loaded
+    from its file for ``--rates``, which imports the package of another
+    checkout and so must not import this checkout's package."""
     import importlib.util
     path = os.path.join(REPO_DIR, "c2dsr_tpu_torch", "bench", "timing.py")
-    if not os.path.isfile(path):
-        return None
     spec = importlib.util.spec_from_file_location("c2dsr_bench_timing", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-timing = _load_timing()
+# the package's bench/timing.py and bench/gates.py, bound by main() once the
+# card and the package are found (--rates: timing alone, by _load_timing)
+timing = gates = None
 
 
 class SmokeFailure(Exception):
@@ -139,66 +140,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def plain_versions(branches=None):
-    """``bench/gates.plain_versions``: the plain PyTorch versions in place of
-    the kernels on the card."""
-    from c2dsr_tpu_torch.bench import gates
-    return gates.plain_versions(branches)
-
-
-def k2_branches(saved, shape, n_head, n_layers, tower):
-    """``bench/gates.k2_branches``: K2's ReLU masks and attention
-    probabilities, from its saved activations."""
-    from c2dsr_tpu_torch.bench import gates
-    return gates.k2_branches(saved, shape, n_head, n_layers, tower)
-
-
-@contextlib.contextmanager
-def recording_k2_branches(store, calls=None):
-    """The kernels as they are, with K2's branches (k2_branches) of every
-    training tower call recorded into ``store`` by (tower, layer); with a
-    list ``calls``, each backward call's inputs, K2's saved activations
-    and K3's result appended to it (_tower_accuracy)."""
-    from c2dsr_tpu_torch.ops import encoder_cuda
-    fwd, bwd = encoder_cuda.encoder_fwd, encoder_cuda.encoder_bwd
-
-    def recording(x, seq, params, *, saved=None, **kw):
-        out = fwd(x, seq, params, saved=saved, **kw)
-        if saved is not None:
-            store.update(k2_branches(saved, x.shape, kw["n_head"],
-                                     params["layers"]["w_qkv"].shape[0],
-                                     kw["tower"]))
-        return out
-
-    def capturing(x, seq, gout, params, *, saved=None, **kw):
-        got = bwd(x, seq, gout, params, saved=saved, **kw)
-        calls.append({"x": x.detach().clone(), "seq": seq, "p": params,
-                      "gout": gout.detach().clone(), "kw": kw,
-                      "saved": saved.clone(), "got": got})
-        return got
-
-    # the wrappers count their launches on the module's names: carry them
-    recording.launches, capturing.launches = fwd.launches, bwd.launches
-    encoder_cuda.encoder_fwd = recording
-    if calls is not None:
-        encoder_cuda.encoder_bwd = capturing
-    try:
-        yield
-    finally:
-        fwd.launches = recording.launches
-        if calls is not None:
-            bwd.launches = capturing.launches
-        encoder_cuda.encoder_fwd, encoder_cuda.encoder_bwd = fwd, bwd
-
-
 def _k3_against_plain(x, seq, gout, p, acts, n_head, n_layers, kw, got):
     """K3's (dx, grads) ``got`` against encoder_bwd_plain: ({tensor: max
     abs error over max |plain|} at K2's branches, the same against the
     plain forward's own branches, the max abs error of the former)."""
     from c2dsr_tpu_torch.ops import encoder as enc
     matched = enc.encoder_bwd_plain(
-        x, seq, gout, p, branches=k2_branches(acts, x.shape, n_head,
-                                              n_layers, kw["tower"]), **kw)
+        x, seq, gout, p, branches=gates.k2_branches(
+            acts, x.shape, n_head, n_layers, kw["tower"]), **kw)
     own = enc.encoder_bwd_plain(x, seq, gout, p, **kw)
     names = ("dx",) + enc._NAMES + ("lnf_scale", "lnf_bias")
     rels, rels_own, abs_err = {}, {}, 0.0
@@ -311,37 +260,8 @@ def _fwd_errs(out, ref, seq, pad, invert):
     return live / scale, dead, int(masked.sum())
 
 
-def _torch_tower(p, d, n_head, n_layers, dropout=0.0):
-    """nn.TransformerEncoder with the port's weights: the library yardstick
-    (in train mode when dropout > 0)."""
-    import torch.nn as nn
-    layer = nn.TransformerEncoderLayer(
-        d_model=d, nhead=n_head, dim_feedforward=d, dropout=dropout,
-        activation="relu", layer_norm_eps=1e-8, batch_first=True,
-        norm_first=False)
-    tower = nn.TransformerEncoder(layer, n_layers, nn.LayerNorm(d, eps=1e-8),
-                                  enable_nested_tensor=False)
-    with torch.no_grad():
-        for i, tl in enumerate(tower.layers):
-            lp = {k: v[i] for k, v in p["layers"].items()}
-            tl.self_attn.in_proj_weight.copy_(lp["w_qkv"].T)
-            tl.self_attn.in_proj_bias.copy_(lp["b_qkv"])
-            tl.self_attn.out_proj.weight.copy_(lp["w_out"].T)
-            tl.self_attn.out_proj.bias.copy_(lp["b_out"])
-            tl.linear1.weight.copy_(lp["w_ff1"].T)
-            tl.linear1.bias.copy_(lp["b_ff1"])
-            tl.linear2.weight.copy_(lp["w_ff2"].T)
-            tl.linear2.bias.copy_(lp["b_ff2"])
-            tl.norm1.weight.copy_(lp["ln1_scale"])
-            tl.norm1.bias.copy_(lp["ln1_bias"])
-            tl.norm2.weight.copy_(lp["ln2_scale"])
-            tl.norm2.bias.copy_(lp["ln2_bias"])
-        tower.norm.weight.copy_(p["lnf_scale"])
-        tower.norm.bias.copy_(p["lnf_bias"])
-    return tower.cuda().train(dropout > 0)
-
-
 def phase_encoder(timer, peak_flops, peak_bw, gpu):
+    from c2dsr_tpu_torch.bench import kernel_bench
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
@@ -386,7 +306,7 @@ def phase_encoder(timer, peak_flops, peak_bw, gpu):
         torch.Generator().manual_seed(7), cfg, L))
     x, seq = _encoder_inputs(B, L, d, pad, seed=7)
     kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=False)
-    tower = _torch_tower(p, d, n_head, n_layers)
+    tower = kernel_bench.torch_tower(p, d, n_head, n_layers)
     causal = torch.triu(torch.ones(L, L, dtype=torch.bool, device="cuda"), 1)
     kpm = seq == pad
     with torch.inference_mode():
@@ -487,7 +407,6 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path"):
     run.  At the default Config also warm rates in turns and a profile;
     with another ``cfg`` one kernel run and one plain run."""
     from c2dsr_tpu_torch import metrics
-    from c2dsr_tpu_torch.bench import gates
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.model import c2dsr
@@ -546,7 +465,7 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path"):
             f"{score[1]:.4f} hr5_b {score[7]:.4f}")
     log(f"{label} convolve: {t_conv * 1e3:.2f} ms (first run)")
     if not warm:
-        with plain_versions():
+        with gates.plain_versions():
             hi_plain, ranks_plain, _, _ = run_all()
         _check_ranks(params, hi, hi_plain,
                      gates.convolve_float64(params, graphs, cfg, spec), data,
@@ -559,7 +478,8 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path"):
     runs = {"kernel": [], "plain": []}
     ranks_plain = None
     for which in ("plain", "kernel", "kernel", "plain") * WARM_ROUNDS:
-        ctx = plain_versions() if which == "plain" else contextlib.nullcontext()
+        ctx = (gates.plain_versions() if which == "plain"
+               else contextlib.nullcontext())
         with ctx:
             h, r, t_c, s_m = run_all()
         if which == "plain" and ranks_plain is None:
@@ -617,7 +537,6 @@ def _check_ranks(params, hi, hi_plain, hi64, data, cfg, spec, ranks,
     versions' error of the float64 ones.  With ``perturbed`` = (params,
     ranks) of a kernel run with perturbed towers, that run must fail both
     gates."""
-    from c2dsr_tpu_torch.bench import gates
     from c2dsr_tpu_torch.evaluate import ranker
     groups = ranker.partition_by_domain(data)
     for mode in ("sampled", "full"):
@@ -705,6 +624,7 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
     tensor-core bound of each, ``bound_ffma_ms`` the FP32 FFMA one; K2's
     bytes count the activations it saves, an output of the training
     forward."""
+    from c2dsr_tpu_torch.bench import kernel_bench
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
@@ -765,7 +685,7 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
             bwd["max_abs_err"] = max(bwd["max_abs_err"], abs_err)
             bwd["max_rel_err"] = max(bwd["max_rel_err"], rels[worst])
         # times at the training rate, dropout 0.2
-        tower = _torch_tower(p, d, 1, 1, dropout=kw["dropout"])
+        tower = kernel_bench.torch_tower(p, d, 1, 1, dropout=kw["dropout"])
         kpm = seq == pad
         xg = x.clone().requires_grad_(True)
         lib_params = [xg] + list(tower.parameters())
@@ -1163,7 +1083,8 @@ def _tower_accuracy(calls):
     for c in calls:
         x, seq, gout, p, kw = c["x"], c["seq"], c["gout"], c["p"], c["kw"]
         n_head, n_layers = kw["n_head"], p["layers"]["w_qkv"].shape[0]
-        br = k2_branches(c["saved"], x.shape, n_head, n_layers, kw["tower"])
+        br = gates.k2_branches(c["saved"], x.shape, n_head, n_layers,
+                               kw["tower"])
         p64 = params_mod._map(lambda t: t.double(), p)
         w0 = p["layers"]["w_qkv"][0]
         qkv64 = x.double() @ p64["layers"]["w_qkv"][0] + p64["layers"]["b_qkv"][0]
@@ -1251,13 +1172,12 @@ def phase_train_wide(spec, train, graphs, graphs_host):
         leaves = state.opt_state.leaves
         masks, calls = {}, []
         loss_k, g_k = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
-                                  recording_k2_branches(masks,
-                                                        calls if i == 0
-                                                        else None))
+                                  gates.recording_k2_branches(
+                                      masks, calls if i == 0 else None))
         loss_p, g_p = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
-                                  plain_versions(masks))
+                                  gates.plain_versions(masks))
         _, g_o = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
-                             plain_versions())
+                             gates.plain_versions())
         cpu = params_mod.params_from_numpy(
             params_mod.params_to_numpy(state.params), "cpu")
         cpu_leaves = step_mod.param_leaves(cpu)
@@ -1360,9 +1280,9 @@ def phase_train(spec, train, graphs):
                 else float(a.abs().max()) for a, b in zip(got, want)]
 
     masks = {}
-    loss_k, g_k = grads_of(recording_k2_branches(masks))
-    loss_p, g_p = grads_of(plain_versions(masks))
-    _, g_o = grads_of(plain_versions())
+    loss_k, g_k = grads_of(gates.recording_k2_branches(masks))
+    loss_p, g_p = grads_of(gates.plain_versions(masks))
+    _, g_o = grads_of(gates.plain_versions())
     for t in leaves:
         t.grad = None
     rel, rel_own = rels(g_k, g_p), rels(g_k, g_o)
@@ -1406,7 +1326,8 @@ def phase_train(spec, train, graphs):
     # warm train examples/s in turns, (plain, kernel, kernel, plain)
     runs = {"kernel": [], "plain": []}
     for which in ("plain", "kernel", "kernel", "plain") * TRAIN_ROUNDS:
-        ctx = plain_versions() if which == "plain" else contextlib.nullcontext()
+        ctx = (gates.plain_versions() if which == "plain"
+               else contextlib.nullcontext())
         with ctx:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1800,7 +1721,8 @@ def phase_determinism(spec, train, graphs, timer, peak_bw):
     table, their positions into the position table): bitwise.  Two FK
     train steps at dropout 0.2 from copies of one state on one batch:
     bitwise equal gradients and parameters.  Logged beside, not gated: the
-    same two gradients with ``index_add_`` (atomics) in K7's place."""
+    same two gradients with ``index_add_`` (atomics) in K7's place, and what
+    K7 costs a step's device busy time (_k7_step_cost)."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.model import params as params_mod
@@ -1819,10 +1741,11 @@ def phase_determinism(spec, train, graphs, timer, peak_bw):
                               ("positions", pos3, spec.len_max)):
         g = torch.randn((ids.numel(), cfg.d_latent), generator=gen,
                         device="cuda")
-        got = segsum_cuda.segsum(ids, g, n_rows)
+        got = segsum_cuda.segsum(ids, g, n_rows).cpu()
         want = segsum_cuda.segsum_plain(ids.cpu(), g.cpu(), n_rows)
-        check(torch.equal(got.cpu(), want), f"K7 {name}: not bitwise CPU "
+        check(torch.equal(got, want), f"K7 {name}: not bitwise CPU "
               "index_add_")
+        err = float((got - want).abs().max())
         ms = timer(lambda: segsum_cuda.segsum(ids, g, n_rows))
         plain_ms = timer(lambda: segsum_cuda.segsum_plain(ids, g, n_rows))
         n, d = g.shape
@@ -1833,7 +1756,7 @@ def phase_determinism(spec, train, graphs, timer, peak_bw):
         k7[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
                     "bound_ms": nbytes / peak_bw * 1e3, "n_ids": n,
                     "n_rows": n_rows, "most_ids_a_row": top,
-                    "kernels_ms": parts}
+                    "max_abs_err": err, "kernels_ms": parts}
         log(f"K7 {name}: {n} ids into {n_rows} rows (at most {top} a row), "
             f"d {d}: bitwise CPU index_add_; K7 (sort + kernels) {ms:.4f} "
             f"ms, index_add_ on the card {plain_ms:.4f} ms, byte bound "
@@ -1888,7 +1811,58 @@ def phase_determinism(spec, train, graphs, timer, peak_bw):
         f"{differ} of {len(g1)} gradients differ between two runs (logged)")
     check(same_g and same_p and l1 == l2,
           "two train steps from one state differ")
-    return k7, {"index_add_grads_differ": differ}
+    return k7, {"index_add_grads_differ": differ,
+                "step_busy_ms": _k7_step_cost(cfg, spec, graphs, params,
+                                              batch)}
+
+
+def _k7_step_cost(cfg, spec, graphs, params, batch):
+    """A train step's device busy ms with K7 against the same step with the
+    lookups as they were before K7 (``index_select`` alone, whose backward
+    is ``index_add_`` with atomics; the propagated and the raw table looked
+    up apart), on one state and batch in one process, in turns (K7,
+    index_add_, index_add_, K7) for BUSY_ROUNDS rounds.  Logged and
+    returned: each side's mean, their difference and its standard error."""
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import lookup as lookup_mod
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+    opt = optim.make_optimizer(cfg, steps_per_epoch=58)
+    state = step_mod.init_state(
+        params_mod._map(lambda t: t.detach().clone(), params), opt)
+    fn = step_mod.make_train_step(cfg, spec, graphs, opt, "cuda")
+
+    def select(table, ids):
+        return table.index_select(0, ids.reshape(-1)).view(*ids.shape,
+                                                           table.shape[1])
+
+    def one_step():
+        nonlocal state
+        state, _ = fn(state, batch)
+        torch.cuda.synchronize()
+
+    for _ in range(2):
+        one_step()
+    k7_fns = lookup_mod.lookup, lookup_mod.lookup_add
+    busy = {"k7": [], "index_add": []}
+    for arm in ("k7", "index_add", "index_add", "k7") * BUSY_ROUNDS:
+        if arm == "index_add":
+            lookup_mod.lookup = select
+            lookup_mod.lookup_add = lambda a, b, ids: (select(a, ids)
+                                                       + select(b, ids))
+        try:
+            busy[arm] += _busy_ms(one_step, reps=1)[0]
+        finally:
+            lookup_mod.lookup, lookup_mod.lookup_add = k7_fns
+    k, a = np.array(busy["k7"]), np.array(busy["index_add"])
+    diff = float(k.mean() - a.mean())
+    se = math.sqrt(k.var(ddof=1) / len(k) + a.var(ddof=1) / len(a))
+    log(f"K7 in a train step: device busy {k.mean():.4f} ms with K7 against "
+        f"{a.mean():.4f} ms with index_add_ ({diff:+.4f} ms, standard error "
+        f"{se:.4f}: {'resolved' if abs(diff) > 3 * se else 'unresolved'}; "
+        f"{len(k)} profiled steps a side, one state and batch)")
+    return {"k7": float(k.mean()), "index_add": float(a.mean()),
+            "diff": diff, "standard_error": se, "steps_a_side": len(k)}
 
 
 def _bench_logs(name, res):
@@ -2149,25 +2123,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    global timing, gates
     if sys.argv[1:2] == ["--rates"]:
+        timing = _load_timing()
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         print(json.dumps(measure_rates()), flush=True)
         return 0
-    if sys.argv[1:2] == ["--compare"]:
-        return compare(os.path.abspath(sys.argv[2]))
     try:
+        from c2dsr_tpu_torch.bench import gates, timing
         from c2dsr_tpu_torch.config import DataSpec
         from c2dsr_tpu_torch.data import preprocess, synthetic
         from c2dsr_tpu_torch.graph import build as graph_build
         from c2dsr_tpu_torch.kernels import build
         from c2dsr_tpu_torch.ops import backend, spmm
-        from c2dsr_tpu_torch.bench import timing as package_timing
     except ImportError as e:
         print(f"chip_smoke: the c2dsr_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 2
-    global timing
-    timing = package_timing        # one GateFailure class for the gates
+    if sys.argv[1:2] == ["--compare"]:
+        return compare(os.path.abspath(sys.argv[2]))
     t_start = time.perf_counter()
     backend.resolve_device("cuda")
     card = timing.card_line()
@@ -2364,7 +2338,9 @@ def main() -> int:
          "replaces": "no Pallas kernel: the backward of the lookups "
                      "(c2dsr_tpu_torch/parallel/strategy.py LocalOps.lookup, "
                      "jnp.take in the JAX package)",
-         **counts("segsum"), "max_abs_err": 0.0,
+         **counts("segsum"),
+         "max_abs_err": max(k7["items"]["max_abs_err"],
+                            k7["positions"]["max_abs_err"]),
          **{k: k7["items"][k] + k7["positions"][k]
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
          "bound_by": "bytes", "by_table": k7, **atomics,

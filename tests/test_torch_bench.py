@@ -7,13 +7,17 @@
 * The headline and ``--batches`` run with ``--device cpu`` at a tiny spec,
   pass their gates (the plain versions against themselves on the CPU) and
   print a last JSON line with the headline's keys.
+* The headline's train gate holds the gradients as well as the loss: a
+  fault that leaves the loss exact and moves only the gradients fails it.
 * The kernel modes have no CPU form: they raise.
 """
 
+import contextlib
 import json
 
 import numpy as np
 import pytest
+import torch
 
 from c2dsr_tpu.config import DataSpec as JDataSpec
 from c2dsr_tpu.data import preprocess as jpreprocess
@@ -65,8 +69,64 @@ def test_batches_on_cpu(capsys):
     rows = [json.loads(x) for x in lines[:-1]]
     assert [r["batch"] for r in rows] == [8, 16]
     assert all(r["examples_per_s"] > 0 and r["gate_rel_err"] <= 1e-5
-               for r in rows)
+               and r["gate_grad_rel_err"] <= 1e-4 for r in rows)
     assert json.loads(lines[-1])["metric"] == "batch_scaling"
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward scales the gradient by 1 + 1e-3."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * (1 + 1e-3)
+
+
+@pytest.mark.parametrize("faulty", [False, True])
+def test_train_gate_holds_the_gradients(monkeypatch, faulty):
+    """The gate at a tiny spec on the CPU: the plain versions against
+    themselves pass; a plain CE whose lse is exact and whose gradient is
+    1e-3 off (a fault the loss alone cannot show) fails it."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import fused_ce
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+    sp, train, graphs = bench_main.setup(TINY, "cpu")
+    cfg = Config(batch_size=TINY.batch)
+    params = params_mod.init_params(cfg, sp, torch.Generator().manual_seed(0),
+                                    "cpu")
+    leaves = step_mod.init_state(
+        params, optim.make_optimizer(cfg, steps_per_epoch=4)).opt_state.leaves
+    batch = ranker.to_device(bench_main._batches(train, TINY.batch, 1)[0],
+                             "cpu")
+    if faulty:
+        exact, plain = fused_ce.ce_fwd_plain, bench_main.gates.plain_versions
+
+        def off(*args):
+            lse, tlog = exact(*args)
+            return _ScaleGrad.apply(lse), tlog
+
+        @contextlib.contextmanager
+        def faulty_plain(branches=None):
+            with plain(branches):
+                monkeypatch.setattr(fused_ce, "ce_fwd_plain", off)
+                try:
+                    yield
+                finally:
+                    monkeypatch.setattr(fused_ce, "ce_fwd_plain", exact)
+
+        monkeypatch.setattr(bench_main.gates, "plain_versions", faulty_plain)
+        with pytest.raises(bench_main.timing.GateFailure, match="gradient"):
+            bench_main.train_gate(cfg, sp, graphs, leaves, params, batch)
+    else:
+        gate = bench_main.train_gate(cfg, sp, graphs, leaves, params, batch)
+        assert gate["rel_err"] == 0.0 and gate["grad_rel_err"] == 0.0
+        assert gate["n_grads"] == len(leaves)
 
 
 @pytest.mark.parametrize("mode", ["--kernels", "--ce-variants", "--scaled"])

@@ -99,3 +99,24 @@ def test_variant_plain_units():
     assert torch.equal(nm[0], base[0]) and not nm[1].any()
     mo = ce_variants.variant_plain("matmulonly", *args, pad, t)
     torch.testing.assert_close(mo[0], (args[0] @ args[1] + args[2]).sum(1))
+
+
+@pytest.mark.parametrize("variant", ce_variants.VARIANTS)
+def test_library_call_computes_the_variants_function(variant):
+    """The bench's library yardstick of each variant computes what the
+    variant returns at the bench's pad of -1e9 (bf16exp has none)."""
+    h, w, b, tgt = _inputs()
+    args = [torch.from_numpy(a) for a in (h, w, b)]
+    pad = torch.full((N,), -1e9)
+    t = torch.from_numpy(tgt).long()
+    hv, bv, pv = ce_variants._scaled(variant, args[0], args[2], pad)
+    call = ce_variants.library_call(variant, hv, args[1], bv, t)
+    if variant == "bf16exp":
+        assert call is None
+        return
+    want = ce_variants.variant_plain(variant, hv, args[1], bv, pv, t)
+    got = call()
+    got = got if isinstance(got, tuple) else (got,)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+    if len(got) > 1:
+        torch.testing.assert_close(got[1][:, 0], want[1], rtol=0, atol=1e-5)
