@@ -298,6 +298,22 @@ def bench_encoder(timer, card, peak_flops, peak_bw, B=512, L=15, d=128,
                     "train mode")]
 
 
+def deterministic_index_add(ids: torch.Tensor, g: torch.Tensor,
+                            n_rows: int) -> torch.Tensor:
+    """``zeros(n_rows, d).index_add_(0, ids, g)`` under
+    ``torch.use_deterministic_algorithms(True)``: PyTorch's own repeatable
+    form of K7's function, a yardstick the port never calls.  The flag is
+    restored afterwards."""
+    from c2dsr_tpu_torch.ops import segsum_cuda
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return segsum_cuda.segsum_plain(ids, g, n_rows)
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
 def bench_lookup(timer, card, peak_flops, peak_bw, train, n_rows=64094,
                  d=128) -> List[Dict]:
     from c2dsr_tpu_torch.ops import lookup, segsum_cuda
@@ -322,18 +338,33 @@ def bench_lookup(timer, card, peak_flops, peak_bw, train, n_rows=64094,
         rows = table.index_select(0, ids.reshape(-1))
         return torch.autograd.grad(rows, table, g)
 
+    det = deterministic_index_add(ids, g, n_rows).cpu()
+    det_bitwise = torch.equal(det.view(torch.int32), want.view(torch.int32))
     n = ids.numel()
     nbytes = 8.0 * n + 4.0 * n * d + 4.0 * n * d + 4.0 * n_rows * d
     k7_ms = timer(lambda: segsum_cuda.segsum(ids, g, n_rows))
     k7_plain = timer(lambda: segsum_cuda.segsum_plain(ids, g, n_rows))
+    k7_det = timer(lambda: deterministic_index_add(ids, g, n_rows))
     fb_plain = timer(plain)
+    chain = segsum_cuda.longest_chain(ids, g, n_rows)
+    k7 = _entry("K7 segsum", k7_ms, k7_plain, k7_det, 0.0,
+                8.0 * n + 4.0 * n * d + 4.0 * n_rows * d, card, peak_flops,
+                peak_bw, e7, n_ids=n, n_rows=n_rows, longest_chain=chain,
+                order_bound_ms=timing.chain_bound_ms(
+                    chain, timing.sm_clock_hz()),
+                index_add_atomic_ms=k7_plain,
+                deterministic_index_add_bitwise_cpu=det_bitwise,
+                note="the lookup's backward, K7 (no sort); plain: "
+                     "index_add_ on the card (atomics); library: "
+                     "index_add_ under torch.use_deterministic_algorithms"
+                     "(True); K7 bitwise CPU index_add_; bound: the larger "
+                     "of the bytes and the order (the longest chain of "
+                     "ordered adds, a FADD latency each)")
+    if k7["order_bound_ms"] > k7["bound_ms"]:
+        k7.update(bound_ms=k7["order_bound_ms"], bound_by="operations",
+                  pct_of_bound=100 * k7["order_bound_ms"] / k7_ms)
     return [
-        _entry("K7 segsum", k7_ms, k7_plain, k7_plain, 0.0,
-               8.0 * n + 4.0 * n * d + 4.0 * n_rows * d, card, peak_flops,
-               peak_bw, e7, n_ids=n, n_rows=n_rows,
-               note="the lookup's backward: sort + K7; plain and library "
-                    "are index_add_ on the card (atomics); bitwise CPU "
-                    "index_add_"),
+        k7,
         _entry("lookup index_select + K7", timer(ours), fb_plain, fb_plain,
                0.0, nbytes + 8.0 * n, card, peak_flops, peak_bw, e_fb,
                n_ids=n, n_rows=n_rows,

@@ -34,6 +34,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` gives it (Hz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+FADD_CYCLES = 4      # latency of a dependent f32 add on an SM (Hopper)
+
+
+def chain_bound_ms(chain: int, clock_hz: float) -> float:
+    """Least time for ``chain`` dependent f32 adds in a row: the order bound
+    of a sum that must be taken in one order (K7's, bitwise
+    ``index_add_``)."""
+    return chain * FADD_CYCLES / clock_hz * 1e3
+
+
 def peaks(name: str):
     """(FP32 non-tensor FLOP/s, memory bytes/s) from NVIDIA's data sheets."""
     if "PCIe" in name:

@@ -2,13 +2,14 @@
 
 The reference runs ``torch.spmm(adj, h)`` over the FULL item table
 (models/encoders.py:42-48).  Here the row-sorted COO of ``graph/build.py``
-becomes a CSR on the device, together with the CSR of its transpose.  On a
-CUDA tensor each hop is the row-parallel CSR kernel (``ops/spmm_cuda.py``,
-``csrc/spmm.cu``) inside an autograd Function: forward over A, backward
-over Aᵀ.  On a CPU tensor it is the plain ``index_select``·vals +
-``index_add_`` of :func:`spmm_reference`, differentiated by autograd.  The
-batch-sparse hop (a row flag on the last hop of a training step) is K6 on
-the card and :func:`spmm_reference_flagged` on the CPU.
+becomes a CSR on the device, together with the CSR of its transpose, each
+with the plan of warp tasks its kernel walks (:func:`plan`).  On a CUDA
+tensor each hop is the CSR kernel (``ops/spmm_cuda.py``, ``csrc/spmm.cu``)
+inside an autograd Function: forward over A, backward over Aᵀ.  On a CPU
+tensor it is the plain ``index_select``·vals + ``index_add_`` of
+:func:`spmm_reference`, differentiated by autograd.  The batch-sparse hop
+(a row flag on the last hop of a training step) is K6 on the card and
+:func:`spmm_reference_flagged` on the CPU.
 """
 
 from __future__ import annotations
@@ -22,17 +23,63 @@ from c2dsr_tpu_torch.ops import backend, spmm_cuda
 
 
 class CsrDevice(NamedTuple):
-    """Device-resident graph: CSR for the kernel plus the COO row ids of the
-    plain version.  Edges are in the row-sorted order of graph/build.py."""
+    """Device-resident graph: CSR for the kernel, its plan of warp tasks,
+    and the COO row ids of the plain version.  Edges are in the row-sorted
+    order of graph/build.py."""
 
     rowptr: torch.Tensor   # int32 [n + 1]
     rows: torch.Tensor     # int32 [nnz]
     cols: torch.Tensor     # int32 [nnz]
     vals: torch.Tensor     # float32 [nnz]
     heavy_rows: torch.Tensor   # int32: the rows with more than heavy_deg edges
-    heavy_deg: int         # the kernel gives each of those rows a block
+    heavy_deg: int         # the most edges a warp task sums (see plan)
     n: int                 # graph dim; tables may carry extra (edge-free) rows
     t: Optional["CsrDevice"] = None   # the transpose (the hop's backward)
+    tasks: Optional[torch.Tensor] = None   # int32 [n_tasks, 4], plan
+    heavy_slots: Optional[torch.Tensor] = None  # int32 [len(heavy_rows) + 1]
+    n_part: int = 0        # the split rows' partial rows (heavy_slots[-1])
+
+
+RUN_ROWS = 32          # csrc/spmm.cu kRunRows: rows a task at most
+
+
+def plan(rowptr: np.ndarray, budget: int):
+    """The kernel's plan of warp tasks over a CSR (``csrc/spmm.cu``), in row
+    order.  A task is (r0, n, e0, e1): rows [r0, r0 + n) whole, up to
+    RUN_ROWS of them, whose edges [e0, e1) number at most ``budget``; or
+    (r0, -1 - slot, e0, e1): one of the near-equal contiguous segments of a
+    row with more than ``budget`` edges, summed into partial row ``slot``.
+    Returns (tasks int32 [n_tasks, 4], heavy_rows int32 [h]: the split rows,
+    heavy_slots int32 [h + 1]: the first partial row of each, then their
+    count).  The kernel adds a split row's partials in 8 contiguous runs,
+    each in segment order, then the runs in order."""
+    if budget < 1:
+        raise ValueError(f"heavy_deg must be >= 1, got {budget}")
+    ends = np.asarray(rowptr, np.int64).tolist()
+    n = len(ends) - 1
+    tasks, heavy, slots = [], [], [0]
+    r = 0
+    while r < n:
+        deg = ends[r + 1] - ends[r]
+        if deg > budget:
+            k = -(-deg // budget)
+            cut = [ends[r] + i * deg // k for i in range(k + 1)]
+            tasks += [(r, -1 - (slots[-1] + i), cut[i], cut[i + 1])
+                      for i in range(k)]
+            heavy.append(r)
+            slots.append(slots[-1] + k)
+            r += 1
+            continue
+        r0, edges = r, 0
+        while r < n and r - r0 < RUN_ROWS:
+            deg = ends[r + 1] - ends[r]
+            if deg > budget or edges + deg > budget:
+                break
+            edges += deg
+            r += 1
+        tasks.append((r0, r - r0, ends[r0], ends[r]))
+    return (np.asarray(tasks, np.int32).reshape(-1, 4),
+            np.asarray(heavy, np.int32), np.asarray(slots, np.int32))
 
 
 def _csr(rows, cols, vals, n: int, heavy_deg: int, device) -> CsrDevice:
@@ -42,21 +89,22 @@ def _csr(rows, cols, vals, n: int, heavy_deg: int, device) -> CsrDevice:
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    heavy = np.flatnonzero(counts > heavy_deg)
+    tasks, heavy, slots = plan(rowptr, heavy_deg)
     return CsrDevice(rowptr=put(rowptr, np.int32), rows=put(rows, np.int32),
                      cols=put(cols, np.int32), vals=put(vals, np.float32),
                      heavy_rows=put(heavy, np.int32), heavy_deg=int(heavy_deg),
-                     n=n)
+                     n=n, tasks=put(tasks, np.int32),
+                     heavy_slots=put(slots, np.int32), n_part=int(slots[-1]))
 
 
 def device_graph(g, device="cuda", heavy_deg: int = spmm_cuda.HEAVY_DEG
                  ) -> CsrDevice:
     """Upload a host CooGraph (graph/build.py) as CSR on ``device``, with
-    the CSR of its transpose in ``t``.  Rows with more than ``heavy_deg``
-    edges are listed for the kernel's block path, in each CSR apart: the
-    transpose of a row-normalised Zipf graph has heavy rows of its own (a
-    popular item is everyone's neighbour).  The kernel reads the threshold
-    from the graph, so both paths split the rows at the same degree."""
+    the CSR of its transpose in ``t``, each with the kernel's plan
+    (:func:`plan`): warp tasks of at most ``heavy_deg`` edges, and the rows
+    with more split into segments.  The transpose of a row-normalised Zipf
+    graph has heavy rows of its own (a popular item is everyone's
+    neighbour), so each CSR has its own plan."""
     device = backend.resolve_device(device)
     n = int(g.n)
     rows = np.asarray(g.rows, np.int64)

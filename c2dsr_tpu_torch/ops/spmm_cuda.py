@@ -17,44 +17,53 @@ row in the backward; :func:`flagged_hop` does that with K6.
 
 What bounds them on an H100: bytes.  A hop reads each referenced table row
 (d·4 bytes) and writes each output row once; the arithmetic (2·nnz·d
-FLOPs) is negligible.  Design: a warp accumulates a row's edges in CSR
-order, each lane owning 4 contiguous features (one 16-byte gather per edge,
-8 gathers in flight), and stores once: no [nnz, d] intermediate, no
-atomics, a deterministic result.  Degrees are Zipf-skewed (the FK graph's
-largest row has 5,445 edges), so a row with more than ``graph.heavy_deg``
-edges (``HEAVY_DEG`` by default) gets a whole block whose 32 warps sum 32
-contiguous segments, added in order; ``device_graph`` lists those rows once
-per graph, and the threshold travels with the list.  K6 is the same kernel
+FLOPs) is negligible.  Design: ``ops/spmm.plan`` cuts each CSR once into
+warp tasks of at most ``graph.heavy_deg`` edges (``HEAVY_DEG`` by default):
+a run of up to 32 whole consecutive rows, or a segment of a row with more
+edges.  A warp walks its task's edges in CSR order across row ends, with
+the gathers of 4 / NC edges in flight a lane (each lane holds NC float4 of
+a row: one pass over the edges at any d up to 1,024), and stores each row
+once; a split row's segment sums go to scratch rows that a second kernel
+adds, a block a row, in an order fixed by the graph.  No [nnz, d]
+intermediate, no atomics, a deterministic result.  K6 is the same kernels
 instantiated per mode: "dest" writes an unflagged output row as zeros with
 no gathers; "src" keeps a 32-edge window's flagged edges by a ballot and
-gathers only those.  The bytes it saves are the gathers of the edges it
-drops.
+gathers only those.  The bytes it
+saves are the gathers of the edges it drops.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from c2dsr_tpu_torch.kernels import build
 
-# default of device_graph's heavy_deg: rows with more edges than this get
-# a block each (see csrc/spmm.cu)
-HEAVY_DEG = 128
-_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_FLAGGED_SIG = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# default of device_graph's heavy_deg: the most edges a warp task sums; a
+# row with more is split into segments (see csrc/spmm.cu)
+HEAVY_DEG = 32
+_SIG = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
+_FLAGGED_SIG = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _MODES = {"dest": 1, "src": 2}     # csrc/spmm.cu kDest, kSrc
 
 
-def _fn(name: str, argtypes):
+@functools.lru_cache(maxsize=None)
+def _fn(name: str):
     f = getattr(build.library("spmm"), name)
-    f.argtypes = argtypes
+    f.argtypes = _SIG if name == "spmm_csr_f32" else _FLAGGED_SIG
     f.restype = ctypes.c_int
     return f
 
 
 def _check(graph, h: torch.Tensor, name: str):
+    """h against what the kernel takes; the graph's arrays are as
+    ``ops/spmm.device_graph`` makes them (contiguous, on one device)."""
     if not h.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors only")
     if h.dtype != torch.float32 or h.dim() != 2:
@@ -65,24 +74,40 @@ def _check(graph, h: torch.Tensor, name: str):
         raise ValueError(f"{name} needs d % 4 == 0, got d={d}")
     if n_rows < graph.n:
         raise ValueError(f"table has {n_rows} rows < graph dim {graph.n}")
-    for t in (h, graph.rowptr, graph.cols, graph.vals, graph.heavy_rows):
-        if t.device != h.device or not t.is_contiguous():
-            raise ValueError("h and the graph arrays must be contiguous on "
-                             "one device")
+    if graph.tasks is None:
+        raise ValueError("the graph carries no plan (device_graph makes it)")
+    if graph.tasks.device != h.device:
+        raise ValueError("h and the graph must be on one device")
+    if not h.is_contiguous() or h.data_ptr() % 16:
+        raise ValueError(f"{name} needs h contiguous and 16-byte aligned")
     return n_rows, d
+
+
+def _outputs(graph, h: torch.Tensor):
+    """The output [n_rows, d] and the split rows' scratch partial rows, in
+    one allocation (the output a view of its first rows)."""
+    n_rows, d = h.shape
+    buf = torch.empty((n_rows + graph.n_part, d), dtype=h.dtype,
+                      device=h.device)
+    return buf[:n_rows], buf[n_rows:]
+
+
+def _graph_args(graph):
+    return (graph.tasks.data_ptr(), graph.tasks.shape[0],
+            graph.rowptr.data_ptr(), graph.cols.data_ptr(),
+            graph.vals.data_ptr(), graph.heavy_rows.data_ptr(),
+            graph.heavy_slots.data_ptr(), graph.heavy_rows.numel())
 
 
 def spmm_csr(graph, h: torch.Tensor) -> torch.Tensor:
     """``adj @ h`` by the CUDA kernel.  h: [n_rows >= graph.n, d] f32 CUDA,
-    contiguous, d % 4 == 0.  Rows past ``graph.n`` come out zero."""
+    contiguous, 16-byte aligned, d % 4 == 0.  Rows past ``graph.n`` come out
+    zero."""
     n_rows, d = _check(graph, h, "spmm_csr")
-    out = torch.empty_like(h)
-    err = _fn("spmm_csr_f32", _SIG)(
-        graph.rowptr.data_ptr(), graph.cols.data_ptr(),
-        graph.vals.data_ptr(), graph.heavy_rows.data_ptr(),
-        h.data_ptr(), out.data_ptr(), graph.heavy_rows.numel(),
-        graph.heavy_deg, graph.n, n_rows, d,
-        torch.cuda.current_stream().cuda_stream)
+    out, part = _outputs(graph, h)
+    err = _fn("spmm_csr_f32")(
+        *_graph_args(graph), h.data_ptr(), out.data_ptr(), part.data_ptr(),
+        graph.n, n_rows, d, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr launch failed: CUDA error {err}")
     spmm_csr.launches += 1
@@ -107,13 +132,11 @@ def spmm_csr_flagged(graph, h: torch.Tensor, flag: torch.Tensor,
             or flag.device != h.device or not flag.is_contiguous()):
         raise ValueError(f"flag must be contiguous uint8 [{n_rows}] on h's "
                          f"device, got {flag.dtype} {tuple(flag.shape)}")
-    out = torch.empty_like(h)
-    err = _fn("spmm_csr_flagged_f32", _FLAGGED_SIG)(
-        graph.rowptr.data_ptr(), graph.cols.data_ptr(),
-        graph.vals.data_ptr(), graph.heavy_rows.data_ptr(),
-        flag.data_ptr(), h.data_ptr(), out.data_ptr(),
-        graph.heavy_rows.numel(), graph.heavy_deg, graph.n, n_rows, d,
-        _MODES[flag_on], torch.cuda.current_stream().cuda_stream)
+    out, part = _outputs(graph, h)
+    err = _fn("spmm_csr_flagged_f32")(
+        *_graph_args(graph), flag.data_ptr(), h.data_ptr(), out.data_ptr(),
+        part.data_ptr(), graph.n, n_rows, d, _MODES[flag_on],
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr_flagged launch failed: CUDA error "
                            f"{err}")

@@ -62,7 +62,13 @@ Phases (any failure exits non-zero without the final line):
 
 The kernel phase also holds K6 against its plain version and against K1
 over A and Aᵀ, with the row flags of one real training batch, and records
-the share of each graph's edges that such a batch keeps.
+the share of each graph's edges that such a batch keeps; K1 is also held
+bitwise against a second launch, with its launches a call.  The
+determinism phase holds K7 bitwise against CPU ``index_add_`` on the six
+calls of one FK step's backward, recorded as the step makes them, and
+times each beside ``index_add_`` with atomics and under
+``torch.use_deterministic_algorithms`` (the library yardstick), with its
+launches a call and the larger of its byte and order bounds.
 """
 
 from __future__ import annotations
@@ -191,7 +197,7 @@ def phase_spmm(graphs, timer, peak_flops, peak_bw, transpose=False):
     gen = torch.Generator(device="cuda").manual_seed(1)
     n_rows = 65536                     # the padded table (vocab_pad_multiple)
     res = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "max_abs_err": 0.0}
+           "max_abs_err": 0.0, "by_hop": {}}
     for name, g, d in (("share", graphs.share, 128),
                        ("specific_ab", graphs.specific, 256)):
         if transpose:
@@ -222,10 +228,22 @@ def phase_spmm(graphs, timer, peak_flops, peak_bw, transpose=False):
         nbytes = (used_rows * d * 4 + n_rows * d * 4 + nnz * 8
                   + (g.n + 1) * 4)
         bound_ms = max(nbytes / peak_bw, 2 * nnz * d / peak_flops) * 1e3
+        check(torch.equal(out, spmm_cuda.spmm_csr(g, h)),
+              f"spmm {name}: two launches differ")
+        parts, n_launch = timing.kernel_times(lambda: spmm_cuda.spmm_csr(g, h))
         log(f"spmm {name}: d={d} rows={n_rows} nnz={nnz} used_rows="
-            f"{used_rows} err={err:.3e} (scale {scale:.3f}) kernel {ms:.4f} ms"
-            f" plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound "
-            f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+            f"{used_rows} split rows={g.heavy_rows.numel()} tasks="
+            f"{g.tasks.shape[0]} err={err:.3e} (scale {scale:.3f}) kernel "
+            f"{ms:.4f} ms ({100 * bound_ms / ms:.1f}% of bound, "
+            f"{sum(n_launch.values()):g} launches a call) plain "
+            f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB); device ms a call: "
+            + ", ".join(f"{k[:44]} {v:.4f}" for k, v in parts.items()))
+        res["by_hop"][name] = {"ms": ms, "plain_ms": plain_ms,
+                               "library_ms": library_ms,
+                               "bound_ms": bound_ms, "max_abs_err": err,
+                               "launches_per_call": sum(n_launch.values()),
+                               "kernels_ms": parts}
         res["ms"] += ms
         res["plain_ms"] += plain_ms
         res["library_ms"] += library_ms
@@ -1715,14 +1733,117 @@ def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
     return out
 
 
+def _k7_calls_of_a_step(cfg, spec, graphs, params, batch, seed):
+    """The (ids, g, n_rows) of every K7 call of one train step's backward
+    (loss_fn at cfg's dropout), recorded as the step makes them: the
+    shapes and the gradient rows the main path gives K7."""
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import segsum_cuda
+    from c2dsr_tpu_torch.train import step as step_mod
+    p = params_mod._map(lambda t: t.detach().clone(), params)
+    for t in step_mod.param_leaves(p):
+        t.requires_grad_(True)
+    calls = []
+    k7 = segsum_cuda.segsum
+
+    def record(ids, g, n_rows):
+        calls.append((ids.detach().clone(), g.detach().clone(), n_rows))
+        return k7(ids, g, n_rows)
+
+    # K7's wrapper counts its launches on the module's ``segsum``, which is
+    # ``record`` meanwhile
+    record.launches = k7.launches
+    segsum_cuda.segsum = record
+    try:
+        loss, _ = step_mod.loss_fn(p, graphs, ranker.to_device(batch, "cuda"),
+                                   seed, cfg, spec)
+        loss.backward()
+    finally:
+        segsum_cuda.segsum = k7
+        k7.launches = record.launches
+    return calls
+
+
+def _k7_call(name, ids, g, n_rows, timer, peak_bw, clock_hz):
+    """K7 on one call's inputs: bitwise CPU index_add_ (gated), timed with
+    its launches a call and device ms by kernel, against index_add_ on the
+    card (its plain version, atomics) and under
+    torch.use_deterministic_algorithms (the library yardstick, checked
+    bitwise against CPU index_add_ and logged), with the byte bound and the
+    order bound (the longest chain of non-zero rows, a FADD latency each)."""
+    from c2dsr_tpu_torch.bench.kernel_bench import deterministic_index_add
+    from c2dsr_tpu_torch.ops import segsum_cuda
+    got = segsum_cuda.segsum(ids, g, n_rows).cpu()
+    want = segsum_cuda.segsum_plain(ids.cpu(), g.cpu(), n_rows)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"K7 {name}: not bitwise CPU index_add_")
+    try:
+        det = deterministic_index_add(ids, g, n_rows).cpu()
+        det_bitwise = torch.equal(det.view(torch.int32),
+                                  want.view(torch.int32))
+        det_ms = timer(lambda: deterministic_index_add(ids, g, n_rows))
+    except RuntimeError as e:           # no deterministic form on this build
+        log(f"K7 {name}: deterministic index_add_ refused: {e}")
+        det_bitwise, det_ms = None, None
+    ms = timer(lambda: segsum_cuda.segsum(ids, g, n_rows))
+    atomic_ms = timer(lambda: segsum_cuda.segsum_plain(ids, g, n_rows))
+    n, d = g.shape
+    chain = segsum_cuda.longest_chain(ids, g, n_rows)
+    live = int((g.view(torch.int32) & 0x7fffffff).ne(0).any(1).sum())
+    bytes_ms = (8 * n + 4 * n * d + 4 * n_rows * d) / peak_bw * 1e3
+    order_ms = timing.chain_bound_ms(chain, clock_hz)
+    res = {"ms": ms, "plain_ms": atomic_ms, "library_ms": det_ms,
+           "index_add_atomic_ms": atomic_ms,
+           "deterministic_index_add_bitwise_cpu": det_bitwise,
+           "bound_ms": max(bytes_ms, order_ms), "bytes_bound_ms": bytes_ms,
+           "order_bound_ms": order_ms,
+           "bound_by": "bytes" if bytes_ms >= order_ms else "operations",
+           "n_ids": n, "n_rows": n_rows, "live_rows": live,
+           "longest_chain": chain,
+           "launches_per_call": segsum_cuda.kernels_per_call(n, n_rows),
+           "max_abs_err": 0.0}
+    log(f"K7 {name}: {n} ids ({live} non-zero gradient rows) into {n_rows} "
+        f"rows, d {d}, longest chain {chain}: bitwise CPU index_add_; K7 "
+        f"{ms:.4f} ms in {res['launches_per_call']} launches a call; "
+        f"index_add_ {atomic_ms:.4f} ms (atomics), deterministic "
+        f"index_add_ {det_ms if det_ms is None else f'{det_ms:.4f}'} ms "
+        f"(bitwise CPU index_add_: {det_bitwise}); bound {res['bound_ms']:.4f}"
+        f" ms (bytes {bytes_ms:.4f}, order {order_ms:.4f})")
+    return res
+
+
+def _k7_step_profile(cfg, spec, graphs, params, batch, seed):
+    """K7's kernels in one step's backward under torch.profiler: ({kernel:
+    device ms}, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _k7_calls_of_a_step(cfg, spec, graphs, params, batch, seed)
+        torch.cuda.synchronize()
+    ms, launches = {}, 0
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and "segsum_" in ev.key):
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ")
+            ms[name] = ms.get(name, 0.0) + getattr(
+                ev, "self_device_time_total",
+                getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+            launches += ev.count
+    return ms, launches
+
+
 def phase_determinism(spec, train, graphs, timer, peak_bw):
-    """The step is bitwise repeatable.  K7 against CPU ``index_add_`` at a
-    train step's ids (the shared tower's three sequences into the item
-    table, their positions into the position table): bitwise.  Two FK
-    train steps at dropout 0.2 from copies of one state on one batch:
-    bitwise equal gradients and parameters.  Logged beside, not gated: the
-    same two gradients with ``index_add_`` (atomics) in K7's place, and what
-    K7 costs a step's device busy time (_k7_step_cost)."""
+    """The step is bitwise repeatable.  K7 against CPU ``index_add_``,
+    bitwise: at a train step's shared-tower ids with random gradient rows
+    (every row live, so the padding id's chain is 8,802 long), and on every
+    call of one train step's backward with the gradients the step makes
+    (_k7_calls_of_a_step), each timed (_k7_call).  Two FK train steps at
+    dropout 0.2 from copies of one state on one batch: bitwise equal
+    gradients and parameters.  Logged beside, not gated: the same two
+    gradients with ``index_add_`` (atomics) in K7's place, and what K7
+    costs a step's device busy time (_k7_step_cost)."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.model import params as params_mod
@@ -1736,37 +1857,52 @@ def phase_determinism(spec, train, graphs, timer, peak_bw):
                       b["seq_share_neg_b"]])
     pos3 = torch.cat([b["pos"]] * 3)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    k7 = {}
     for name, ids, n_rows in (("items", seq3, spec.n_item + 1),
                               ("positions", pos3, spec.len_max)):
         g = torch.randn((ids.numel(), cfg.d_latent), generator=gen,
                         device="cuda")
         got = segsum_cuda.segsum(ids, g, n_rows).cpu()
         want = segsum_cuda.segsum_plain(ids.cpu(), g.cpu(), n_rows)
-        check(torch.equal(got, want), f"K7 {name}: not bitwise CPU "
-              "index_add_")
-        err = float((got - want).abs().max())
-        ms = timer(lambda: segsum_cuda.segsum(ids, g, n_rows))
-        plain_ms = timer(lambda: segsum_cuda.segsum_plain(ids, g, n_rows))
-        n, d = g.shape
-        nbytes = 8 * n + 4 * n * d + 4 * n_rows * d
-        top = int(torch.bincount(ids.reshape(-1)).max())
-        parts = timing.kernel_times(lambda: segsum_cuda.segsum(ids, g,
-                                                               n_rows))[0]
-        k7[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
-                    "bound_ms": nbytes / peak_bw * 1e3, "n_ids": n,
-                    "n_rows": n_rows, "most_ids_a_row": top,
-                    "max_abs_err": err, "kernels_ms": parts}
-        log(f"K7 {name}: {n} ids into {n_rows} rows (at most {top} a row), "
-            f"d {d}: bitwise CPU index_add_; K7 (sort + kernels) {ms:.4f} "
-            f"ms, index_add_ on the card {plain_ms:.4f} ms, byte bound "
-            f"{k7[name]['bound_ms']:.4f} ms; device ms a call: "
-            + ", ".join(f"{k[:40]} {v:.4f}" for k, v in parts.items()))
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"K7 {name}, random rows: not bitwise CPU index_add_")
+    log("K7: bitwise CPU index_add_ at a step's shared-tower ids with "
+        "random gradient rows (items and positions)")
 
     params = params_mod.init_params(cfg, spec,
                                     torch.Generator().manual_seed(0), "cuda")
     batch = {k: v[:cfg.batch_size] for k, v in train.items()}
     seed = drop.step_seed(cfg.seed + 1, 0)
+    calls = _k7_calls_of_a_step(cfg, spec, graphs, params, batch, seed)
+    check(len(calls) == LOOKUPS, f"a step made {len(calls)} K7 calls, not "
+          f"{LOOKUPS}")
+    clock_hz = timing.sm_clock_hz()
+    k7 = {"calls": []}
+    n_top = max(ids.numel() for ids, _, _ in calls)
+    for i, (ids, g, n_rows) in enumerate(calls):
+        kind = "items" if n_rows > segsum_cuda.SMALL_ROWS else "positions"
+        res = _k7_call(f"step call {i} ({kind})", ids, g, n_rows, timer,
+                       peak_bw, clock_hz)
+        k7["calls"].append(res)
+        if ids.numel() == n_top and kind not in k7:
+            k7[kind] = res              # the shared tower's, 23,040 ids
+    k7["step"] = {k: sum(c[k] for c in k7["calls"])
+                  for k in ("ms", "plain_ms", "bound_ms", "launches_per_call")}
+    k7["step"]["library_ms"] = (
+        None if any(c["library_ms"] is None for c in k7["calls"])
+        else sum(c["library_ms"] for c in k7["calls"]))
+    parts, seen = _k7_step_profile(cfg, spec, graphs, params, batch, seed)
+    check(seen == k7["step"]["launches_per_call"],
+          f"the profiler saw {seen} K7 launches in a step, not "
+          f"{k7['step']['launches_per_call']}")
+    k7["step"]["device_ms"] = sum(parts.values())
+    k7["step"]["kernels_ms"] = parts
+    log(f"K7 in a step ({len(calls)} calls): {k7['step']['ms']:.4f} ms in "
+        f"{k7['step']['launches_per_call']} launches (the profiler saw "
+        f"{seen}; device {k7['step']['device_ms']:.4f} ms: "
+        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in parts.items())
+        + f") against index_add_ {k7['step']['plain_ms']:.4f} ms (atomics) "
+        f"and {k7['step']['library_ms']} ms (deterministic); bounds sum "
+        f"{k7['step']['bound_ms']:.4f} ms")
 
     def grads_of(state):
         leaves = state.opt_state.leaves
@@ -1991,7 +2127,9 @@ def measure_rates() -> dict:
     geometry with the default Config.  The training step: 10 warm-up steps,
     8 runs of 4 steps (train examples/s each, and the host's ms a step
     until the last step is enqueued, before the synchronise), then 3
-    profiled steps (device busy ms, and K2's ms, each).  K2 alone at the
+    profiled steps (device busy ms, and K2's ms, each).  K1 a hop of each
+    table over A and Aᵀ, and K7's six calls of one step's backward (3
+    timings each, the median of 20 CUDA-event timings).  K2 alone at the
     serving path's tower (B 2048, L 15, d 128, one head, one layer; the
     median of 20 timed calls, 3 times).  The serving path (convolve, then
     rank the eval split in sampled and full mode): 3 profiled runs after
@@ -2004,7 +2142,9 @@ def measure_rates() -> dict:
     from c2dsr_tpu_torch.kernels import build
     from c2dsr_tpu_torch.model import c2dsr
     from c2dsr_tpu_torch.model import params as params_mod
-    from c2dsr_tpu_torch.ops import backend, encoder_cuda, spmm
+    from c2dsr_tpu_torch.ops import (backend, encoder_cuda, segsum_cuda, spmm,
+                                     spmm_cuda)
+    from c2dsr_tpu_torch.ops import dropout as drop
     from c2dsr_tpu_torch.train import optim
     from c2dsr_tpu_torch.train import step as step_mod
     backend.resolve_device("cuda")
@@ -2015,8 +2155,9 @@ def measure_rates() -> dict:
     graphs = c2dsr.Graphs(spmm.device_graph(share, "cuda"),
                           spmm.device_graph(specific, "cuda"))
     cfg = Config()
-    it = BatchIterator(preprocess.preprocess_train(seqs, spec, seed=1),
-                       cfg.batch_size, shuffle=True, seed=0, drop_last=True)
+    train = preprocess.preprocess_train(seqs, spec, seed=1)
+    it = BatchIterator(train, cfg.batch_size, shuffle=True, seed=0,
+                       drop_last=True)
 
     def batches():
         while True:
@@ -2052,6 +2193,31 @@ def measure_rates() -> dict:
     check(math.isfinite(float(aux["loss"])), "train loss not finite")
     del state, opt, fn
 
+    # K1 and K7 at a step's shapes, on inputs made alike in both checkouts:
+    # K1 a hop of each table over A and Aᵀ on a seeded table; K7 the six
+    # calls of one step's backward from seeded params on the first batch
+    timer = timing.Timer()
+    kernels = {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name, g, d in (("share", graphs.share, 128),
+                       ("ab", graphs.specific, 256)):
+        for tag, csr in ((name, g), (name + "_t", g.t)):
+            h = torch.randn((65536, d), generator=gen, device="cuda")
+            h[csr.n:] = 0.0
+            kernels[f"k1_{tag}_ms"] = [
+                timer(lambda: spmm_cuda.spmm_csr(csr, h)) for _ in range(3)]
+    kernels["k1_step_ms"] = [sum(kernels[f"k1_{t}_ms"][i] for t in (
+        "share", "share_t", "ab", "ab_t")) for i in range(3)]
+    calls = _k7_calls_of_a_step(
+        cfg, spec, graphs, params_mod.init_params(
+            cfg, spec, torch.Generator().manual_seed(0), "cuda"),
+        {k: v[:cfg.batch_size] for k, v in train.items()}, drop.step_seed(
+            cfg.seed + 1, 0))
+    kernels["k7_step_ms"] = [
+        sum(timer(lambda: segsum_cuda.segsum(ids, g, n_rows))
+            for ids, g, n_rows in calls) for _ in range(3)]
+    del timer, calls
+
     pad = spec.idx_pad
     p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
         torch.Generator().manual_seed(7), Config(n_head=1, n_attn=1),
@@ -2081,7 +2247,7 @@ def measure_rates() -> dict:
     serve_busy, serve_k2 = _busy_ms(serve)
     return {"rates": rates, "host_ms": host, "busy_ms": busy, "k2_ms": k2,
             "k2_eval_ms": k2_eval, "serve_busy_ms": serve_busy,
-            "serve_k2_ms": serve_k2}
+            "serve_k2_ms": serve_k2, **kernels}
 
 
 def compare(other: str) -> int:
@@ -2101,11 +2267,18 @@ def compare(other: str) -> int:
         log(f"compare {root}: " + "; ".join(
             f"{k} {[round(v, 4) for v in vs]}" for k, vs in res.items()))
     for key, unit in (("rates", "train examples/s"),
+                      ("host_ms", "host ms to enqueue a train step"),
                       ("busy_ms", "ms busy a train step"),
                       ("k2_ms", "ms of K2 a train step"),
                       ("k2_eval_ms", "ms a K2 serving tower"),
                       ("serve_busy_ms", "ms busy a serving run"),
-                      ("serve_k2_ms", "ms of K2 a serving run")):
+                      ("serve_k2_ms", "ms of K2 a serving run"),
+                      ("k1_share_ms", "ms a K1 share hop (d 128)"),
+                      ("k1_share_t_ms", "ms a K1 share hop over Aᵀ"),
+                      ("k1_ab_ms", "ms a K1 A|B hop (d 256)"),
+                      ("k1_ab_t_ms", "ms a K1 A|B hop over Aᵀ"),
+                      ("k1_step_ms", "ms of K1's four hops a step"),
+                      ("k7_step_ms", "ms of K7's six calls a step")):
         vals = {k: np.array([r for res in v for r in res[key]])
                 for k, v in runs.items()}
         mine, theirs = vals[REPO_DIR], vals[other]
@@ -2338,17 +2511,25 @@ def main() -> int:
          "replaces": "no Pallas kernel: the backward of the lookups "
                      "(c2dsr_tpu_torch/parallel/strategy.py LocalOps.lookup, "
                      "jnp.take in the JAX package)",
-         **counts("segsum"),
-         "max_abs_err": max(k7["items"]["max_abs_err"],
-                            k7["positions"]["max_abs_err"]),
-         **{k: k7["items"][k] + k7["positions"][k]
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-         "bound_by": "bytes", "by_table": k7, **atomics,
-         "note": "K7, the ordered segment sum: a step's shared-tower ids "
-                 "into the item table and the position table; ms the sort "
-                 "and the kernels; plain and library index_add_ on the card "
-                 "(atomics, not repeatable); max_abs_err against CPU "
-                 "index_add_ (bitwise)"},
+         **counts("segsum"), "max_abs_err": 0.0,
+         **{k: k7["step"][k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms")},
+         "kernel_launches_a_step": k7["step"]["launches_per_call"],
+         "bound_by": max((k7["items"], k7["positions"]),
+                         key=lambda r: r["bound_ms"])["bound_by"],
+         "items": k7["items"], "positions": k7["positions"],
+         "calls": k7["calls"], **atomics,
+         "note": "K7, the ordered segment sum: the six calls of one FK "
+                 "train step's backward on the gradients the step makes "
+                 "(items: the shared tower's 23,040 ids into the item "
+                 "table; positions: into the 15-row position table); ms "
+                 "K7's launches; plain index_add_ on the card (atomics, not "
+                 "repeatable); library index_add_ under "
+                 "torch.use_deterministic_algorithms(True); bound_ms the "
+                 "sum over the calls of the larger of the byte bound and "
+                 "the order bound (the longest chain of non-zero rows into "
+                 "one table row, a FADD latency each: operations); "
+                 "max_abs_err against CPU index_add_ (bitwise)"},
     ]
     variants = bench["ce_variants"]["shapes"]
     for v in ("base", "nomatch", "exp2", "bf16exp", "matmulonly"):

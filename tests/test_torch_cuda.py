@@ -37,8 +37,8 @@ def _graph():
     return build.build_graphs(seqs, SPEC)
 
 
-@pytest.mark.parametrize("d", [4, 12, 128, 160, 256])
-@pytest.mark.parametrize("heavy_deg", [8, 128])
+@pytest.mark.parametrize("d", [4, 12, 128, 160, 256, 512, 1040])
+@pytest.mark.parametrize("heavy_deg", [1, 8, 64, 128])
 def test_spmm_kernel_matches_plain(cuda, d, heavy_deg):
     share, _ = _graph()
     g = spmm.device_graph(share, cuda, heavy_deg=heavy_deg)
@@ -653,8 +653,8 @@ def _flag(n_rows, cuda, seed, share=0.3):
         torch.uint8)
 
 
-@pytest.mark.parametrize("d", [4, 128, 256])
-@pytest.mark.parametrize("heavy_deg", [8, 128])
+@pytest.mark.parametrize("d", [4, 128, 256, 512])
+@pytest.mark.parametrize("heavy_deg", [1, 8, 64, 128])
 def test_spmm_flagged_kernel_matches_plain(cuda, d, heavy_deg):
     """K6 in dest mode (over A) and in src mode (over Aᵀ, on a gradient
     that is zero off the flags) against their plain versions and against
@@ -791,11 +791,16 @@ def test_ce_kernels_above_d256_match_plain_float64(cuda, d):
 
 @pytest.mark.parametrize("n_rows,n,d,heavy", [
     (5000, 7680, 128, 0.3), (15, 23040, 128, 0.6), (300, 1000, 512, 0.0),
-    (64094, 1, 4, 0.0), (70, 5000, 36, 0.9), (40, 200, 8, 0.5)])
+    (64094, 1, 4, 0.0), (70, 5000, 36, 0.9), (40, 200, 8, 0.5),
+    (64, 9000, 40, 0.7), (65, 9000, 40, 0.7), (3000, 600, 6, 0.2),
+    (100, 0, 8, 0.0)])
 def test_segsum_is_cpu_index_add_bitwise(cuda, n_rows, n, d, heavy):
     """K7 against CPU index_add_, bit for bit (-0.0 included), on
-    Zipf-skewed ids with absent ids and rows past the heavy threshold; two
-    launches equal."""
+    Zipf-skewed ids with absent ids, all-zero and all-(-0.0) gradient rows,
+    rows past the list capacity and, at heavy 0.7, a row with more live rows
+    than the scan kernel holds at once; the largest small table and the
+    smallest large one; d not a multiple of 4 (one float a load); no ids;
+    two launches equal."""
     from c2dsr_tpu_torch.ops import segsum_cuda
     rng = np.random.default_rng(n)
     ids = np.minimum(rng.zipf(1.3, size=n) - 1, n_rows - 1)
@@ -803,12 +808,48 @@ def test_segsum_is_cpu_index_add_bitwise(cuda, n_rows, n, d, heavy):
     ids_t = torch.from_numpy(ids).to(cuda)
     g = torch.randn(n, d, device=cuda)
     g[::5] = -0.0
+    g[1::7] = 0.0
     got = segsum_cuda.segsum(ids_t, g, n_rows)
     again = segsum_cuda.segsum(ids_t, g, n_rows)
     want = segsum_cuda.segsum_plain(ids_t.cpu(), g.cpu(), n_rows)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
     assert torch.equal(got, again)
+
+
+def test_segsum_takes_int32_ids_and_unaligned_rows(cuda):
+    """int32 ids (converted first), and a gradient that is not 16-byte
+    aligned, which takes the one-float path with no copy of g: both bitwise
+    CPU index_add_."""
+    from c2dsr_tpu_torch.ops import segsum_cuda
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, 900, size=4000)).to(cuda)
+    buf = torch.randn(4000 * 64 + 1, device=cuda)
+    g = buf[1:].view(4000, 64)                    # 4 bytes past alignment
+    assert g.data_ptr() % 16
+    want = segsum_cuda.segsum_plain(ids.cpu(), g.cpu(), 900)
+    for i in (ids, ids.int()):
+        got = segsum_cuda.segsum(i, g, 900)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+def test_segsum_leaves_its_workspace_ready(cuda):
+    """After a call the counts and counters are zero and the touched list
+    -1 again (the next call needs no clearing launch), with the heavy count
+    moved aside for the scan kernel."""
+    from c2dsr_tpu_torch.ops import segsum_cuda
+    ids = torch.full((500,), 7, device=cuda)
+    ids[::2] = 3
+    g = torch.randn(500, 16, device=cuda)
+    segsum_cuda.segsum(ids, g, 1000)
+    stream = torch.cuda.current_stream().cuda_stream
+    keys, counts, _, _, touched, ctr = segsum_cuda.workspace(
+        g.device, stream, 500, 1000)
+    torch.cuda.synchronize()
+    assert not counts.any() and (touched == -1).all()
+    assert ctr.tolist() == [0, 2, 0, 0]           # rows 3 and 7 were heavy
+    assert torch.equal(keys[:500], ids.int())
 
 
 def test_lookup_routes_k7_and_matches_cpu(cuda):
