@@ -73,37 +73,25 @@ constexpr int kHeavyCount = 0;    // heavy rows appended (mark kernel)
 constexpr int kHeavyScan = 1;     // the same, moved aside for the scan kernel
 constexpr int kTouchedCount = 2;  // touched rows appended (mark kernel)
 
-// V floats a load: 4 where g is 16-byte aligned and d % 4 == 0, else 1
-template <int V> struct Vec;
-template <> struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static void add(T& a, const T v) {
-    a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
-  }
-  __device__ static uint32_t bits(const T v) {   // any bit but the signs'
-    return (__float_as_uint(v.x) | __float_as_uint(v.y) |
-            __float_as_uint(v.z) | __float_as_uint(v.w)) & 0x7fffffffu;
-  }
-};
-template <> struct Vec<1> {
-  using T = float;
-  __device__ static T zero() { return 0.f; }
-  __device__ static void add(T& a, const T v) { a += v; }
-  __device__ static uint32_t bits(const T v) {
-    return __float_as_uint(v) & 0x7fffffffu;
-  }
-};
+// g is read four floats a load: the wrapper takes d % 4 == 0 and g 16-byte
+// aligned
+constexpr int kVec = 4;
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void add4(float4& a, const float4 v) {
+  a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
+}
+__device__ __forceinline__ uint32_t bits4(const float4 v) {  // sign bits aside
+  return (__float_as_uint(v.x) | __float_as_uint(v.y) |
+          __float_as_uint(v.z) | __float_as_uint(v.w)) & 0x7fffffffu;
+}
 
-template <int V>
+// 16 bytes, or zero bytes where !ok
 __device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (V == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(ok ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(src), "r"(ok ? 4 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -126,28 +114,25 @@ struct Work {
 
 // A warp kMarkRows gradient rows (their loads in flight together); lane k
 // then does row i0 + k's bookkeeping (see the top of the file).
-template <int V>
 __global__ void __launch_bounds__(kWarps * 32)
 segsum_mark_kernel(const int64_t* __restrict__ ids,
                    const float* __restrict__ g, int n, int d, int n_rows,
                    Work w) {
-  using VT = Vec<V>;
-  using T = typename VT::T;
   const int i0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kMarkRows;
   const int lane = threadIdx.x & 31;
   if (i0 >= n) return;
   const int i = i0 + lane;
   const bool mine = lane < kMarkRows && i < n;
   const int64_t id = mine ? ids[i] : -1;
-  const int dv = d / V;
-  const T* gv = reinterpret_cast<const T*>(g);
+  const int dv = d / kVec;
+  const float4* gv = reinterpret_cast<const float4*>(g);
   uint32_t bits[kMarkRows] = {};
 #pragma unroll 2
   for (int c = lane; c < dv; c += 32) {
 #pragma unroll
     for (int k = 0; k < kMarkRows; ++k)
       if (i0 + k < n)
-        bits[k] |= VT::bits(__ldg(gv + static_cast<size_t>(i0 + k) * dv + c));
+        bits[k] |= bits4(__ldg(gv + static_cast<size_t>(i0 + k) * dv + c));
   }
   unsigned live = 0;
 #pragma unroll
@@ -168,20 +153,17 @@ segsum_mark_kernel(const int64_t* __restrict__ ids,
 // kZeroRows) with no non-zero gradient row, written as zeros.  The n_touch
 // warps past them: touched entry t, its row's at most kCap non-zero
 // gradient rows ranked into input order and added in that order, lane c
-// holding the V columns [V c, V c + V) of each 32·V-column chunk.
-template <int V>
+// holding the 4 columns [4 c, 4 c + 4) of each 128-column chunk.
 __global__ void __launch_bounds__(kWarps * 32)
 segsum_rows_kernel(Work w, int n_zero, int n_touch,
                    const float* __restrict__ g, float* __restrict__ out,
                    int n_rows, int d) {
-  using VT = Vec<V>;
-  using T = typename VT::T;
   __shared__ int order[kWarps][kCap];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int z = blockIdx.x * kWarps + warp;
-  const int dv = d / V;
-  T* ov = reinterpret_cast<T*>(out);
+  const int dv = d / kVec;
+  float4* ov = reinterpret_cast<float4*>(out);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     w.ctr[kHeavyScan] = w.ctr[kHeavyCount];   // the scan kernel's count
     w.ctr[kHeavyCount] = 0;                   // the next call's
@@ -194,8 +176,8 @@ segsum_rows_kernel(Work w, int n_zero, int n_touch,
     while (empty != 0u) {
       const int k = __ffs(empty) - 1;
       empty &= empty - 1u;
-      T* orow = ov + static_cast<size_t>(z * kZeroRows + k) * dv;
-      for (int c = lane; c < dv; c += 32) orow[c] = VT::zero();
+      float4* orow = ov + static_cast<size_t>(z * kZeroRows + k) * dv;
+      for (int c = lane; c < dv; c += 32) orow[c] = zero4();
     }
     return;
   }
@@ -215,24 +197,24 @@ segsum_rows_kernel(Work w, int n_zero, int n_touch,
   if (lane < c) order[warp][rank] = mine;
   __syncwarp();
   const int src_i = lane < c ? order[warp][lane] : 0;
-  const T* gv = reinterpret_cast<const T*>(g);
-  T* orow = ov + static_cast<size_t>(r) * dv;
+  const float4* gv = reinterpret_cast<const float4*>(g);
+  float4* orow = ov + static_cast<size_t>(r) * dv;
   for (int c0 = 0; c0 < dv; c0 += 32) {
     const int col = c0 + lane;
     const bool active = col < dv;
-    T acc = VT::zero();
+    float4 acc = zero4();
     for (int k0 = 0; k0 < c; k0 += kUnroll) {
-      T v[kUnroll];
+      float4 v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int src = __shfl_sync(0xffffffffu, src_i, (k0 + u) & 31);
         v[u] = active && k0 + u < c
                    ? __ldg(gv + static_cast<size_t>(src) * dv + col)
-                   : VT::zero();
+                   : zero4();
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (k0 + u < c) VT::add(acc, v[u]);
+        if (k0 + u < c) add4(acc, v[u]);
     }
     if (active) orow[col] = acc;
   }
@@ -241,7 +223,6 @@ segsum_rows_kernel(Work w, int n_zero, int n_touch,
 // A block a (table row, 32-column chunk): entry e = blockIdx.x, +gridDim.x,
 // ... of the heavy list (w.lists != nullptr, count ctr[kHeavyScan]) or of
 // all n_rows rows of a small table.
-template <int V>
 __global__ void __launch_bounds__(kScanThreads)
 segsum_scan_kernel(Work w, int n, int n_rows, const float* __restrict__ g,
                    float* __restrict__ out, int d) {
@@ -250,7 +231,7 @@ segsum_scan_kernel(Work w, int n, int n_rows, const float* __restrict__ g,
   float* ring = reinterpret_cast<float*>(smem4);
   int* idx = reinterpret_cast<int*>(ring + kStages * kStageRows * kChunk);
   __shared__ int warp_total[kScanThreads / 32];
-  constexpr int kPieces = kChunk / V;             // copies a row chunk
+  constexpr int kPieces = kChunk / kVec;          // copies a row chunk
   const bool small = w.lists == nullptr;
   if (!small) {                       // the counts, ready for the next call
     const int nb = gridDim.x * gridDim.y;
@@ -325,10 +306,10 @@ segsum_scan_kernel(Work w, int n, int n_rows, const float* __restrict__ g,
       auto issue = [&](int st) {
         float* slot = ring + (st % kStages) * kStageRows * kChunk;
         for (int p = tid; p < kStageRows * kPieces; p += kScanThreads) {
-          const int k = p / kPieces, c = (p % kPieces) * V;
+          const int k = p / kPieces, c = (p % kPieces) * kVec;
           const int j = st * kStageRows + k;
           const bool ok = j < m && c0 + c < d;
-          cp_async<V>(slot + k * kChunk + c,
+          cp_async(slot + k * kChunk + c,
                       ok ? g + static_cast<size_t>(idx[j]) * d + c0 + c : g,
                       ok);
         }
@@ -366,14 +347,13 @@ segsum_scan_kernel(Work w, int n, int n_rows, const float* __restrict__ g,
   }
 }
 
-template <int V>
 int launch(const int64_t* ids, const float* g, float* out, const Work& w,
            int n, int n_rows, int d, cudaStream_t s) {
   const bool small = w.lists == nullptr;
   if (n > 0) {
     const int warps = (n + kMarkRows - 1) / kMarkRows;
-    segsum_mark_kernel<V><<<(warps + kWarps - 1) / kWarps, kWarps * 32, 0,
-                            s>>>(ids, g, n, d, n_rows, w);
+    segsum_mark_kernel<<<(warps + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+        ids, g, n, d, n_rows, w);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -382,15 +362,15 @@ int launch(const int64_t* ids, const float* g, float* out, const Work& w,
     const int n_zero = (n_rows + kZeroRows - 1) / kZeroRows;
     const int n_touch = min(n, n_rows);
     const int warps = n_zero + n_touch;
-    segsum_rows_kernel<V><<<(warps + kWarps - 1) / kWarps, kWarps * 32, 0,
-                            s>>>(w, n_zero, n_touch, g, out, n_rows, d);
+    segsum_rows_kernel<<<(warps + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+        w, n_zero, n_touch, g, out, n_rows, d);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     // at most n / (kCap + 1) heavy rows; each block loops over its share
     scan_rows = min(n / (kCap + 1) + 1, kScanBlocks);
   }
-  segsum_scan_kernel<V><<<dim3(scan_rows, (d + kChunk - 1) / kChunk),
-                          kScanThreads, kSmem, s>>>(w, n, n_rows, g, out, d);
+  segsum_scan_kernel<<<dim3(scan_rows, (d + kChunk - 1) / kChunk),
+                       kScanThreads, kSmem, s>>>(w, n, n_rows, g, out, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -399,19 +379,13 @@ int launch(const int64_t* ids, const float* g, float* out, const Work& w,
 // Once per device, before the first segsum_f32 there: lets the scan kernel
 // take its kSmem bytes of shared memory.  Returns the CUDA error (0 = set).
 extern "C" int segsum_init() {
-  cudaError_t err = cudaFuncSetAttribute(
-      segsum_scan_kernel<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(segsum_scan_kernel<1>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
-  return static_cast<int>(err);
+  return static_cast<int>(cudaFuncSetAttribute(
+      segsum_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem));
 }
 
 // out [n_rows, d] = the ordered segment sums of g [n, d] (f32, contiguous,
-// 4-byte aligned) over the n int64 ids (an id outside [0, n_rows) adds
-// nothing).  The workspace (int32, kept between calls on one stream, each
+// 16-byte aligned, d % 4 == 0) over the n int64 ids (an id outside
+// [0, n_rows) adds nothing).  The workspace (int32, kept between calls on one stream, each
 // call leaving it as it found it): keys [n rounded up to a multiple of 4]
 // with the tail -1; for a large table (lists != nullptr) counts [n_rows]
 // zero, lists [n_rows * 32], heavy [n / 33 + 1], touched [min(n, n_rows)]
@@ -423,7 +397,5 @@ extern "C" int segsum_f32(const int64_t* ids, const float* g, float* out,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Work w{keys, counts, lists, heavy, touched, ctr};
-  if (reinterpret_cast<uintptr_t>(g) % 16 == 0 && d % 4 == 0)
-    return launch<4>(ids, g, out, w, n, n_rows, d, s);
-  return launch<1>(ids, g, out, w, n, n_rows, d, s);
+  return launch(ids, g, out, w, n, n_rows, d, s);
 }

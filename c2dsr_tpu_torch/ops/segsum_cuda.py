@@ -95,12 +95,6 @@ def _workspace(device: torch.device, stream: int, n: int, n_rows: int):
     return entry
 
 
-def kernels_per_call(n: int, n_rows: int) -> int:
-    """K7's launches for n ids into n_rows rows: the mark kernel (when there
-    are ids), the rows kernel (a large table) and the scan kernel."""
-    return int(n > 0) + int(n_rows > SMALL_ROWS) + 1
-
-
 def segsum_plain(ids: torch.Tensor, g: torch.Tensor, n_rows: int
                  ) -> torch.Tensor:
     """The plain version of K7: zeros [n_rows, d] with ``index_add_`` of g
@@ -121,7 +115,8 @@ def longest_chain(ids: torch.Tensor, g: torch.Tensor, n_rows: int) -> int:
 def segsum(ids: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
     """``segsum_plain(ids, g, n_rows)`` by K7, bitwise.  ids: n ids in
     [0, n_rows) on the card (any shape; int64 is read as it is, another
-    integer type is converted first); g: f32 [n, d] on the card.  The
+    integer type is converted first); g: f32 [n, d] on the card, d % 4 ==
+    0, contiguous and 16-byte aligned (as autograd's gradients are).  The
     workspace is kept per stream: calls on one stream are ordered, so they
     may share it."""
     if not g.is_cuda:
@@ -132,11 +127,13 @@ def segsum(ids: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
         raise ValueError(f"segsum takes f32 g [n, d] and n ids on its device, "
                          f"got g {g.dtype} {tuple(g.shape)} and {n} ids")
     d = g.shape[1]
-    if d == 0 or n_rows <= 0 or n_rows >= 2 ** 31 - 1 or n >= 2 ** 31:
-        raise ValueError(f"segsum needs d > 0 and int32 counts; got d={d} "
-                         f"n={n} n_rows={n_rows}")
+    if d % 4 or d == 0 or n_rows <= 0 or n_rows >= 2 ** 31 - 1 \
+            or n >= 2 ** 31:
+        raise ValueError(f"segsum needs d % 4 == 0 and int32 counts; got "
+                         f"d={d} n={n} n_rows={n_rows}")
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError("segsum needs g contiguous and 16-byte aligned")
     flat = ids.reshape(-1).long().contiguous()
-    g = g.contiguous()
     device = g.device
     _init(device.index)
     stream = torch.cuda.current_stream(device).cuda_stream

@@ -32,12 +32,14 @@ class CsrDevice(NamedTuple):
     cols: torch.Tensor     # int32 [nnz]
     vals: torch.Tensor     # float32 [nnz]
     heavy_rows: torch.Tensor   # int32: the rows with more than heavy_deg edges
-    heavy_deg: int         # the most edges a warp task sums (see plan)
+    heavy_deg: int         # the plan's budget, the most edges a warp task
+                           # sums: a record of how tasks was made (no kernel
+                           # reads it)
     n: int                 # graph dim; tables may carry extra (edge-free) rows
+    tasks: torch.Tensor    # int32 [n_tasks, 4], the plan
+    heavy_slots: torch.Tensor  # int32 [len(heavy_rows) + 1]
+    n_part: int            # the split rows' partial rows (heavy_slots[-1])
     t: Optional["CsrDevice"] = None   # the transpose (the hop's backward)
-    tasks: Optional[torch.Tensor] = None   # int32 [n_tasks, 4], plan
-    heavy_slots: Optional[torch.Tensor] = None  # int32 [len(heavy_rows) + 1]
-    n_part: int = 0        # the split rows' partial rows (heavy_slots[-1])
 
 
 RUN_ROWS = 32          # csrc/spmm.cu kRunRows: rows a task at most

@@ -74,8 +74,6 @@ def _check(graph, h: torch.Tensor, name: str):
         raise ValueError(f"{name} needs d % 4 == 0, got d={d}")
     if n_rows < graph.n:
         raise ValueError(f"table has {n_rows} rows < graph dim {graph.n}")
-    if graph.tasks is None:
-        raise ValueError("the graph carries no plan (device_graph makes it)")
     if graph.tasks.device != h.device:
         raise ValueError("h and the graph must be on one device")
     if not h.is_contiguous() or h.data_ptr() % 16:

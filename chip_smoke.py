@@ -107,6 +107,7 @@ TRAIN_STEPS = 30         # train steps whose launches and losses are checked
 TRAIN_ROUNDS = 5         # rounds of (plain, kernel, kernel, plain) train runs
 TRAIN_RUN_STEPS = 4      # steps per timed train run
 CLI_USERS = 2000         # synthetic users of the CLI phase
+SERVE_RUNS = 8           # timed serving runs of each --rates process
 BUSY_ROUNDS = 16         # rounds of (K7, index_add_, index_add_, K7)
                          # profiled steps (_k7_step_cost)
 LOOKUPS = 6              # K7 launches a train step: the propagated plus the
@@ -1778,6 +1779,7 @@ def _k7_call(name, ids, g, n_rows, timer, peak_bw, clock_hz):
     want = segsum_cuda.segsum_plain(ids.cpu(), g.cpu(), n_rows)
     check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
           f"K7 {name}: not bitwise CPU index_add_")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
     try:
         det = deterministic_index_add(ids, g, n_rows).cpu()
         det_bitwise = torch.equal(det.view(torch.int32),
@@ -1788,6 +1790,9 @@ def _k7_call(name, ids, g, n_rows, timer, peak_bw, clock_hz):
         det_bitwise, det_ms = None, None
     ms = timer(lambda: segsum_cuda.segsum(ids, g, n_rows))
     atomic_ms = timer(lambda: segsum_cuda.segsum_plain(ids, g, n_rows))
+    parts, launches = _k7_kernels(lambda: segsum_cuda.segsum(ids, g, n_rows))
+    check(2 <= launches <= 3,
+          f"K7 {name}: {launches:g} launches a call, not 2 or 3")
     n, d = g.shape
     chain = segsum_cuda.longest_chain(ids, g, n_rows)
     live = int((g.view(torch.int32) & 0x7fffffff).ne(0).any(1).sum())
@@ -1801,11 +1806,12 @@ def _k7_call(name, ids, g, n_rows, timer, peak_bw, clock_hz):
            "bound_by": "bytes" if bytes_ms >= order_ms else "operations",
            "n_ids": n, "n_rows": n_rows, "live_rows": live,
            "longest_chain": chain,
-           "launches_per_call": segsum_cuda.kernels_per_call(n, n_rows),
-           "max_abs_err": 0.0}
+           "launches_per_call": launches,
+           "kernels_ms": parts,
+           "max_abs_err": err}
     log(f"K7 {name}: {n} ids ({live} non-zero gradient rows) into {n_rows} "
         f"rows, d {d}, longest chain {chain}: bitwise CPU index_add_; K7 "
-        f"{ms:.4f} ms in {res['launches_per_call']} launches a call; "
+        f"{ms:.4f} ms in {launches:g} launches a call (profiled); "
         f"index_add_ {atomic_ms:.4f} ms (atomics), deterministic "
         f"index_add_ {det_ms if det_ms is None else f'{det_ms:.4f}'} ms "
         f"(bitwise CPU index_add_: {det_bitwise}); bound {res['bound_ms']:.4f}"
@@ -1813,14 +1819,30 @@ def _k7_call(name, ids, g, n_rows, timer, peak_bw, clock_hz):
     return res
 
 
-def _k7_step_profile(cfg, spec, graphs, params, batch, seed):
-    """K7's kernels in one step's backward under torch.profiler: ({kernel:
-    device ms}, launches)."""
+def _k7_kernels(fn, calls: int = 5):
+    """({K7 kernel: device ms a call}, K7 launches a call) of ``fn`` under
+    torch.profiler.  In a process that has run many profiles, the profiler
+    missed the first few K7 launches of its window, so the window opens
+    with other kernels and a pause, which are not counted."""
     from torch.profiler import ProfilerActivity, profile
+    lead = torch.empty(16 << 20, device="cuda")
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _k7_calls_of_a_step(cfg, spec, graphs, params, batch, seed)
+        for _ in range(8):
+            lead.zero_()
         torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms, launches = _k7_by_kernel(prof)
+    return {k: v / calls for k, v in ms.items()}, launches / calls
+
+
+def _k7_by_kernel(prof):
+    """({K7 kernel: device ms}, K7 launches) in a torch.profiler run."""
     ms, launches = {}, 0
     for ev in prof.key_averages():
         if (ev.device_type == torch.autograd.DeviceType.CUDA
@@ -1834,12 +1856,24 @@ def _k7_step_profile(cfg, spec, graphs, params, batch, seed):
     return ms, launches
 
 
+def _k7_step_profile(cfg, spec, graphs, params, batch, seed):
+    """K7's kernels in one step's backward under torch.profiler: ({kernel:
+    device ms}, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _k7_calls_of_a_step(cfg, spec, graphs, params, batch, seed)
+        torch.cuda.synchronize()
+    return _k7_by_kernel(prof)
+
+
 def phase_determinism(spec, train, graphs, timer, peak_bw):
     """The step is bitwise repeatable.  K7 against CPU ``index_add_``,
-    bitwise: at a train step's shared-tower ids with random gradient rows
-    (every row live, so the padding id's chain is 8,802 long), and on every
-    call of one train step's backward with the gradients the step makes
-    (_k7_calls_of_a_step), each timed (_k7_call).  Two FK train steps at
+    bitwise, each call timed (_k7_call): at a train step's shared-tower ids
+    with random gradient rows (every row non-zero, so the padding id's
+    chain is 8,802 long: the case K7's skipping of zero rows does not
+    help), and on every call of one train step's backward with the
+    gradients the step makes (_k7_calls_of_a_step).  Two FK train steps at
     dropout 0.2 from copies of one state on one batch: bitwise equal
     gradients and parameters.  Logged beside, not gated: the same two
     gradients with ``index_add_`` (atomics) in K7's place, and what K7
@@ -1857,16 +1891,15 @@ def phase_determinism(spec, train, graphs, timer, peak_bw):
                       b["seq_share_neg_b"]])
     pos3 = torch.cat([b["pos"]] * 3)
     gen = torch.Generator(device="cuda").manual_seed(4)
+    clock_hz = timing.sm_clock_hz()
+    k7 = {"calls": [], "all_nonzero": {}}
     for name, ids, n_rows in (("items", seq3, spec.n_item + 1),
                               ("positions", pos3, spec.len_max)):
         g = torch.randn((ids.numel(), cfg.d_latent), generator=gen,
                         device="cuda")
-        got = segsum_cuda.segsum(ids, g, n_rows).cpu()
-        want = segsum_cuda.segsum_plain(ids.cpu(), g.cpu(), n_rows)
-        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-              f"K7 {name}, random rows: not bitwise CPU index_add_")
-    log("K7: bitwise CPU index_add_ at a step's shared-tower ids with "
-        "random gradient rows (items and positions)")
+        k7["all_nonzero"][name] = _k7_call(
+            f"{name}, random rows (every row non-zero)", ids, g, n_rows,
+            timer, peak_bw, clock_hz)
 
     params = params_mod.init_params(cfg, spec,
                                     torch.Generator().manual_seed(0), "cuda")
@@ -1875,8 +1908,6 @@ def phase_determinism(spec, train, graphs, timer, peak_bw):
     calls = _k7_calls_of_a_step(cfg, spec, graphs, params, batch, seed)
     check(len(calls) == LOOKUPS, f"a step made {len(calls)} K7 calls, not "
           f"{LOOKUPS}")
-    clock_hz = timing.sm_clock_hz()
-    k7 = {"calls": []}
     n_top = max(ids.numel() for ids, _, _ in calls)
     for i, (ids, g, n_rows) in enumerate(calls):
         kind = "items" if n_rows > segsum_cuda.SMALL_ROWS else "positions"
@@ -1892,13 +1923,14 @@ def phase_determinism(spec, train, graphs, timer, peak_bw):
         else sum(c["library_ms"] for c in k7["calls"]))
     parts, seen = _k7_step_profile(cfg, spec, graphs, params, batch, seed)
     check(seen == k7["step"]["launches_per_call"],
-          f"the profiler saw {seen} K7 launches in a step, not "
-          f"{k7['step']['launches_per_call']}")
+          f"the step profile saw {seen} K7 launches, the calls' own "
+          f"profiles {k7['step']['launches_per_call']:g}")
+    k7["step"]["launches"] = seen
     k7["step"]["device_ms"] = sum(parts.values())
     k7["step"]["kernels_ms"] = parts
     log(f"K7 in a step ({len(calls)} calls): {k7['step']['ms']:.4f} ms in "
-        f"{k7['step']['launches_per_call']} launches (the profiler saw "
-        f"{seen}; device {k7['step']['device_ms']:.4f} ms: "
+        f"{seen} launches in the step profile (as many in the calls' own "
+        f"profiles; device {k7['step']['device_ms']:.4f} ms: "
         + ", ".join(f"{k[:40]} {v:.4f}" for k, v in parts.items())
         + f") against index_add_ {k7['step']['plain_ms']:.4f} ms (atomics) "
         f"and {k7['step']['library_ms']} ms (deterministic); bounds sum "
@@ -2133,7 +2165,10 @@ def measure_rates() -> dict:
     serving path's tower (B 2048, L 15, d 128, one head, one layer; the
     median of 20 timed calls, 3 times).  The serving path (convolve, then
     rank the eval split in sampled and full mode): 3 profiled runs after
-    one warm-up (device busy ms, and K2's ms, each)."""
+    one warm-up (device busy ms, and K2's ms, each), after SERVE_RUNS
+    timed runs (the convolve's wall ms, and eval examples/s of each mode
+    by the wall time of its ``evaluate_split``, as the main path's warm
+    rates)."""
     from c2dsr_tpu_torch.config import Config, DataSpec
     from c2dsr_tpu_torch.data import preprocess, synthetic
     from c2dsr_tpu_torch.data.pipeline import BatchIterator
@@ -2237,17 +2272,32 @@ def measure_rates() -> dict:
                                     torch.Generator().manual_seed(0), "cuda")
     convolve_eval, rank_step = ranker.make_eval_fns(cfg, spec, graphs, "cuda")
 
+    n_ex = int(data["gt_last"].shape[0])
+    serve_rates = {"convolve": [], "sampled": [], "full": []}
+
     def serve():
+        t0 = time.perf_counter()
         hi = convolve_eval(params)
-        for mode in ("sampled", "full"):
-            ranker.evaluate_split(params, hi, data, rank_step, cfg, mode)
         torch.cuda.synchronize()
+        serve_rates["convolve"].append((time.perf_counter() - t0) * 1e3)
+        for mode in ("sampled", "full"):
+            t0 = time.perf_counter()
+            ranker.evaluate_split(params, hi, data, rank_step, cfg, mode)
+            torch.cuda.synchronize()
+            serve_rates[mode].append(n_ex / (time.perf_counter() - t0))
 
     serve()
+    for rs in serve_rates.values():
+        rs.clear()
+    for _ in range(SERVE_RUNS):
+        serve()
     serve_busy, serve_k2 = _busy_ms(serve)
     return {"rates": rates, "host_ms": host, "busy_ms": busy, "k2_ms": k2,
-            "k2_eval_ms": k2_eval, "serve_busy_ms": serve_busy,
-            "serve_k2_ms": serve_k2, **kernels}
+            "k2_eval_ms": k2_eval,
+            "serve_convolve_ms": serve_rates["convolve"][:SERVE_RUNS],
+            "serve_sampled_rates": serve_rates["sampled"][:SERVE_RUNS],
+            "serve_full_rates": serve_rates["full"][:SERVE_RUNS],
+            "serve_busy_ms": serve_busy, "serve_k2_ms": serve_k2, **kernels}
 
 
 def compare(other: str) -> int:
@@ -2271,6 +2321,9 @@ def compare(other: str) -> int:
                       ("busy_ms", "ms busy a train step"),
                       ("k2_ms", "ms of K2 a train step"),
                       ("k2_eval_ms", "ms a K2 serving tower"),
+                      ("serve_convolve_ms", "wall ms a serving convolve"),
+                      ("serve_sampled_rates", "eval examples/s sampled"),
+                      ("serve_full_rates", "eval examples/s full"),
                       ("serve_busy_ms", "ms busy a serving run"),
                       ("serve_k2_ms", "ms of K2 a serving run"),
                       ("k1_share_ms", "ms a K1 share hop (d 128)"),
@@ -2511,14 +2564,17 @@ def main() -> int:
          "replaces": "no Pallas kernel: the backward of the lookups "
                      "(c2dsr_tpu_torch/parallel/strategy.py LocalOps.lookup, "
                      "jnp.take in the JAX package)",
-         **counts("segsum"), "max_abs_err": 0.0,
+         **counts("segsum"),
+         "max_abs_err": max(c["max_abs_err"] for c in
+                            k7["calls"] + list(k7["all_nonzero"].values())),
          **{k: k7["step"][k] for k in ("ms", "plain_ms", "library_ms",
                                        "bound_ms")},
-         "kernel_launches_a_step": k7["step"]["launches_per_call"],
+         "kernel_launches_a_step": k7["step"]["launches"],
          "bound_by": max((k7["items"], k7["positions"]),
                          key=lambda r: r["bound_ms"])["bound_by"],
          "items": k7["items"], "positions": k7["positions"],
-         "calls": k7["calls"], **atomics,
+         "calls": k7["calls"], "all_nonzero_rows": k7["all_nonzero"],
+         **atomics,
          "note": "K7, the ordered segment sum: the six calls of one FK "
                  "train step's backward on the gradients the step makes "
                  "(items: the shared tower's 23,040 ids into the item "
@@ -2529,7 +2585,12 @@ def main() -> int:
                  "sum over the calls of the larger of the byte bound and "
                  "the order bound (the longest chain of non-zero rows into "
                  "one table row, a FADD latency each: operations); "
-                 "max_abs_err against CPU index_add_ (bitwise)"},
+                 "max_abs_err against CPU index_add_ (bitwise), the most "
+                 "over the step's calls and all_nonzero_rows; "
+                 "kernel_launches_a_step the step profile's K7 kernels, "
+                 "launches_per_call each call's profiled kernels; "
+                 "all_nonzero_rows: the same 23,040 ids with random "
+                 "gradient rows, none of them zero"},
     ]
     variants = bench["ce_variants"]["shapes"]
     for v in ("base", "nomatch", "exp2", "bf16exp", "matmulonly"):
