@@ -29,6 +29,12 @@ Durability model (crash-safe at every instant):
 ``restore`` copies into the template's tensors in place, so the optimizer
 stays bound to the same parameter tensors, and loads with
 ``weights_only=True``.
+
+On a mesh (``parallel/mesh.py``), ``save`` gathers the model-sharded
+parameters and their AdamW moments whole (a collective every rank joins),
+and rank 0 alone writes, in the format of a one-device run; ``restore``
+reads the whole state on every rank and cuts its shards.  So a checkpoint
+taken on a 1x2 mesh resumes on one device, and the other way round.
 """
 
 from __future__ import annotations
@@ -57,11 +63,17 @@ def _to_host(obj):
     return obj
 
 
-def _snapshot(state) -> Dict[str, Any]:
-    """What a checkpoint holds of a ``train.step.TrainState``."""
+def _snapshot(state, mesh=None) -> Dict[str, Any]:
+    """What a checkpoint holds of a ``train.step.TrainState``: on a mesh,
+    the whole state, gathered from the ranks' shards."""
     opt = state.opt_state
-    return _to_host({"params": state.params,
-                     "adamw": opt.adamw.state_dict(),
+    params, adamw = state.params, opt.adamw.state_dict()
+    if mesh is not None and mesh.n_model > 1:
+        from c2dsr_tpu_torch.parallel import mesh as mesh_mod
+        names = mesh_mod.leaf_names(params)
+        params = mesh_mod.unshard_params(params, mesh)
+        adamw = mesh_mod.unshard_adamw(adamw, names, mesh)
+    return _to_host({"params": params, "adamw": adamw,
                      "schedule": opt.schedule.state_dict(),
                      "step": int(state.step)})
 
@@ -139,16 +151,19 @@ def _state_dir(path: str) -> Optional[str]:
 
 
 def save(path: str, state: Any, meta: Optional[Dict[str, Any]] = None,
-         block: bool = False) -> None:
+         block: bool = False, mesh=None) -> None:
     """Checkpoint a ``train.step.TrainState`` under ``path``.
 
     block=False (default): returns once the state is copied to host memory;
     the disk commit runs on a background thread and meta.json is written
     when it completes (on the next ``save``/``wait``/exit).  block=True
-    commits synchronously."""
+    commits synchronously.  On a ``mesh`` every rank calls it; rank 0
+    writes."""
     path = os.path.abspath(path)
     wait()                       # at most one commit in flight
-    snap = _snapshot(state)
+    snap = _snapshot(state, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return
     os.makedirs(path, exist_ok=True)
     prev = load_meta(path, _wait=False).get("state_dir")
     nxt = "state1" if prev == "state0" else "state0"
@@ -177,13 +192,14 @@ def _copy_into(dst, src, where: str = "params") -> None:
             dst.copy_(src)
 
 
-def restore(path: str, template: Optional[Any] = None) -> Any:
+def restore(path: str, template: Optional[Any] = None, mesh=None) -> Any:
     """Restore the newest complete checkpoint under ``path``.
 
     With a ``template`` TrainState: copy the params into its tensors in
     place, load the optimizer and schedule state into its optimizer (which
     stays bound to those tensors) and return the TrainState with the saved
-    step.  Without one: the saved tree, on the host."""
+    step; on a ``mesh``, the template holds this rank's shards, cut from the
+    saved whole.  Without one: the saved tree, on the host."""
     wait()                       # never read concurrently with a commit
     path = os.path.abspath(path)
     state_dir = _state_dir(path)
@@ -193,8 +209,14 @@ def restore(path: str, template: Optional[Any] = None) -> Any:
                       map_location="cpu", weights_only=True)
     if template is None:
         return snap
-    _copy_into(template.params, snap["params"])
-    template.opt_state.adamw.load_state_dict(snap["adamw"])
+    params, adamw = snap["params"], snap["adamw"]
+    if mesh is not None and mesh.n_model > 1:
+        from c2dsr_tpu_torch.parallel import mesh as mesh_mod
+        names = mesh_mod.leaf_names(params)
+        params = mesh_mod.shard_params(params, mesh)
+        adamw = mesh_mod.shard_adamw(adamw, names, mesh)
+    _copy_into(template.params, params)
+    template.opt_state.adamw.load_state_dict(adamw)
     template.opt_state.schedule.load_state_dict(snap["schedule"])
     return template._replace(step=snap["step"])
 

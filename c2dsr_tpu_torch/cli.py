@@ -6,20 +6,25 @@ Flag-compatible with ``c2dsr_tpu/cli.py`` (and so with the reference CLI,
 main.py:15-66): the same names, defaults and types, plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the kernels' plain versions).
 ``--synthetic N`` runs on N synthetic users instead of the raw datasets.
-Flags that ask for what the port cannot do yet, a mesh or several
-processes, raise with the ROADMAP.md item that brings them; none is
-ignored.  Batch-sparse propagation has no flag here, as in the JAX CLI:
+Batch-sparse propagation has no flag here, as in the JAX CLI:
 ``Experiment(cfg.with_(batch_sparse_gnn=True), ...)`` reaches it.
+
+A mesh runs one process (rank) per device, ``--mesh_data * --mesh_model``
+of them (``parallel/``).  Each rank is started with the JAX flags:
+``--coordinator_address host:port`` (the rendezvous ``tcp://host:port``),
+``--num_processes`` (the world size) and ``--process_id`` (the rank), or
+``--distributed`` alone under a launcher that sets the ``env://``
+variables.  Given a mesh and none of these, the CLI starts the ranks itself
+on this host (``parallel/launch.run_ranks``), each a process of its own on
+``cuda:(rank % cards)``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from os.path import join
-
-_DISTRIBUTED = ("the port runs one process on one device; `parallel/` on "
-                "torch.distributed is ROADMAP.md §A item 2")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,9 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_mode", choices=("sampled", "full"),
                    default="sampled")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="> 1 is not supported yet (ROADMAP.md)")
+                   help="data-parallel ranks (one process per device)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="> 1 is not supported yet (ROADMAP.md)")
+                   help="model-parallel ranks: the item tables and the "
+                        "classifiers are sharded over them")
     p.add_argument("--compute_dtype", default="auto",
                    choices=("auto", "float32", "bfloat16"),
                    help="activation/matmul dtype; auto = float32 in the "
@@ -91,13 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="enable autograd anomaly detection and fail fast on "
                         "non-finite losses")
     p.add_argument("--distributed", action="store_true",
-                   help="not supported yet (ROADMAP.md)")
+                   help="join a process group from the env:// variables "
+                        "a launcher sets")
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="not supported yet (ROADMAP.md)")
+                   help="host:port of rank 0's rendezvous")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="not supported yet (ROADMAP.md)")
+                   help="the world size: --mesh_data * --mesh_model")
     p.add_argument("--process_id", type=int, default=None,
-                   help="not supported yet (ROADMAP.md)")
+                   help="this process's rank")
     p.add_argument("--synthetic", type=int, default=0, metavar="N_USERS",
                    help="run on N synthetic users instead of raw data")
     p.add_argument("--bug_inverted_padding_mask", action="store_true")
@@ -112,26 +119,48 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unsupported(args) -> None:
-    """Raise for every flag that asks for a mesh or several processes."""
-    asked = [f"--{name} {getattr(args, name)}"
-             for name in ("mesh_data", "mesh_model") if getattr(args, name) > 1]
-    if args.distributed:
-        asked.append("--distributed")
-    asked += [f"--{name} {getattr(args, name)}"
-              for name in ("coordinator_address", "num_processes",
-                           "process_id") if getattr(args, name) is not None]
-    if asked:
-        raise NotImplementedError(f"{', '.join(asked)}: {_DISTRIBUTED}")
+def _check_ranks(args) -> None:
+    """Raise where the process flags do not describe the mesh's ranks."""
+    world = args.mesh_data * args.mesh_model
+    if args.num_processes is not None and args.num_processes != world:
+        raise ValueError(f"--num_processes {args.num_processes}: the mesh "
+                         f"{args.mesh_data}x{args.mesh_model} runs one "
+                         f"process per device, {world} of them")
+    if args.process_id is not None and not (
+            args.num_processes is not None
+            and 0 <= args.process_id < args.num_processes):
+        raise ValueError(f"--process_id {args.process_id} needs "
+                         f"--num_processes and must lie below it")
+    if (args.coordinator_address is not None) != (args.process_id
+                                                   is not None):
+        raise ValueError("--coordinator_address and --process_id go "
+                         "together")
+    if world == 1 and (args.distributed or args.num_processes):
+        raise ValueError("a process group needs a mesh of more than one "
+                         "rank (--mesh_data, --mesh_model)")
+
+
+def _rank_main(rank: int, world: int, argv) -> int:
+    """One rank that the CLI started (``parallel/launch``)."""
+    return main(argv)
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    _refuse_unsupported(args)
-
+    _check_ranks(args)
+    from c2dsr_tpu_torch.config import Config
+    cfg = Config(**{k: v for k, v in vars(args).items()
+                    if k in Config.__dataclass_fields__})
+    world = cfg.world_size
     import torch
+    if world > 1 and not (args.distributed or args.num_processes
+                          or torch.distributed.is_initialized()):
+        from c2dsr_tpu_torch.parallel import launch
+        return max(launch.run_ranks(_rank_main, world, (argv,),
+                                    device=args.device, timeout=None))
 
-    from c2dsr_tpu_torch.config import Config, DataSpec, MAPPING_DATASET
+    from c2dsr_tpu_torch.config import DataSpec, MAPPING_DATASET
     from c2dsr_tpu_torch.data import preprocess, raw, synthetic
     from c2dsr_tpu_torch.graph import build
     from c2dsr_tpu_torch.model import c2dsr
@@ -140,9 +169,16 @@ def main(argv=None) -> int:
     from c2dsr_tpu_torch.train.loop import Experiment
 
     device = backend.resolve_device(args.device)
-    cfg_kw = {k: v for k, v in vars(args).items()
-              if k in Config.__dataclass_fields__}
-    cfg = Config(**cfg_kw)
+    if world > 1:
+        from c2dsr_tpu_torch.parallel import distributed
+        if not torch.distributed.is_initialized():
+            distributed.initialize(args.coordinator_address,
+                                   args.num_processes, args.process_id,
+                                   device=device)
+        device = distributed.device_of_rank(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+    rank0 = world == 1 or torch.distributed.get_rank() == 0
     cfg = cfg.with_(len_max=cfg.resolved_len_max())
     dataset = MAPPING_DATASET[cfg.data]
 
@@ -182,11 +218,18 @@ def main(argv=None) -> int:
                           specific=spmm.device_graph(gp, device))
     desc = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    noter = Noter(cfg, device_desc=desc)
-    noter.save_config()
+    if world > 1:
+        desc += f" x {world} ranks (mesh {cfg.mesh_data}x{cfg.mesh_model})"
+    noter = None
+    if rank0:
+        noter = Noter(cfg, device_desc=desc)
+        noter.save_config()
     exp = Experiment(cfg, spec, graphs, train, val, test, noter=noter,
                      ckpt_path=args.ckpt, device=device)
     exp.run()
+    if world > 1:
+        from c2dsr_tpu_torch.parallel import distributed
+        distributed.shutdown()
     return 0
 
 

@@ -5,10 +5,11 @@ Preserves every hyperparameter of the reference CLI with identical defaults
 argparse namespace with derived fields stuffed onto it (main.py:69-89).
 The fields are the reference's hyperparameters and those build knobs of
 ``c2dsr_tpu/config.py`` that the port reads, under the same names, so one
-set of keyword arguments configures both packages.  The JAX package's
-TPU-only knobs (kernel backend, mesh, PRNG, Pallas interpreter) have no
-counterpart: the port picks a kernel by the device of the tensor it is
-given (``ops/backend.py``).
+set of keyword arguments configures both packages: the mesh among them
+(``mesh_data``, ``mesh_model``, ``lookup_mode``, ``c2dsr_tpu/config.py:
+109-130``).  The JAX package's TPU-only knobs (kernel backend, PRNG, Pallas
+interpreter) have no counterpart: the port picks a kernel by the device of
+the tensor it is given (``ops/backend.py``).
 
 Derived fields (item counts, pad index) live in :class:`DataSpec`, produced by
 the data layer, so the model/config split is explicit instead of implicit.
@@ -17,6 +18,7 @@ the data layer, so the model/config split is explicit instead of implicit.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 MAPPING_DATASET = {
@@ -91,10 +93,22 @@ class Config:
     # Eval protocol: "sampled" = 999 negatives (reference default),
     # "full" = full-itemset ranking (the headline mode of this framework).
     eval_mode: str = "sampled"
+    # Mesh shape, data-parallel x model-parallel, one process (rank) per
+    # device: rank r sits at data index r // mesh_model and model index
+    # r % mesh_model (parallel/mesh.py).  (1, 1) = one device.
+    mesh_data: int = 1
+    mesh_model: int = 1
+    # Sharded-table tower-lookup strategy (mesh_model > 1 only): "psum" =
+    # owner-masked gather + psum; "a2a" = bucket-by-owner all-to-all of the
+    # ids split over the model ranks, then an all_gather back.  Both exact
+    # (parallel/embed.py).
+    lookup_mode: str = "psum"
     # Embedding-table rows and classifier output dims are padded up to this
     # multiple (the JAX package's default, so one set of keyword arguments
     # gives both packages the same shapes).  Padded rows are never indexed;
-    # padded logit columns are masked to -inf in ranking.
+    # padded logit columns are masked to -inf in ranking.  Must be a
+    # multiple of lcm(8, mesh_model), so that the tables and classifiers
+    # split evenly over the model ranks.
     vocab_pad_multiple: int = 2048
     # Batch-sparse graph propagation in the TRAIN step: the last hop of each
     # propagation is computed only for the table rows the step reads (the
@@ -126,6 +140,24 @@ class Config:
     # RUNNING SUM of every batch gradient so far this epoch.  The published
     # numbers come from those dynamics.  Default: standard fresh grads.
     bug_epoch_grad_accum: bool = False
+
+    def __post_init__(self):
+        if self.mesh_data < 1 or self.mesh_model < 1:
+            raise ValueError(f"mesh {self.mesh_data}x{self.mesh_model}: "
+                             "each axis must be >= 1")
+        if self.lookup_mode not in ("psum", "a2a"):
+            raise ValueError(f"lookup_mode must be 'psum' or 'a2a', got "
+                             f"{self.lookup_mode!r}")
+        need = math.lcm(8, self.mesh_model)
+        if self.vocab_pad_multiple % need:
+            raise ValueError(f"vocab_pad_multiple {self.vocab_pad_multiple} "
+                             f"is not a multiple of lcm(8, mesh_model) = "
+                             f"{need}")
+
+    @property
+    def world_size(self) -> int:
+        """The ranks of the mesh: mesh_data * mesh_model."""
+        return self.mesh_data * self.mesh_model
 
     @property
     def dataset(self) -> str:

@@ -26,17 +26,44 @@ __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 
 // One tower call's dropout: rate p as a threshold on 32 random bits and the
 // divisor f32(1 - p) of kept values.  on == 0 is eval.
+//
+// The element index is that of the run's whole batch, of which a data rank's
+// tower call holds some rows: with seg != 0, the call's batch row b is row
+// batch(b) = (b / seg) * stride + off + b % seg of the run's (a rank's
+// B / n_data rows at offset off of each of the call's stacked segments of
+// stride rows; the shared tower stacks three).  seg == 0 is the identity: a
+// one-process call.  A site's index is computed once a row (row_index,
+// batch) and the element's column added, so the map costs the one-process
+// call a branch a row.  L is the sequence length, row_x = L * d the
+// elements of a batch row of a [B, L, d] site.
 struct Dropout {
   int on;
   uint32_t thr;
   float div;
   uint32_t seed;
   int tower;
+  uint32_t off, seg, stride, L, row_x;
 
   __host__ __device__ __forceinline__ uint32_t key(int site,
                                                    int layer) const {
     return mix32(seed ^ mix32(static_cast<uint32_t>(site + 8 * layer +
                                                     1024 * tower) + kGolden));
+  }
+  // the run's batch row of this call's batch row b
+  __device__ __forceinline__ uint32_t batch(uint32_t b) const {
+    return seg == 0 ? b : (b / seg) * stride + off + b % seg;
+  }
+  // the index of element 0 of row r of a [B * L, m] site (wrapping mod
+  // 2^32 as ops/dropout.py does)
+  __device__ __forceinline__ uint32_t row_index(uint32_t r,
+                                                uint32_t m) const {
+    return seg == 0 ? r * m : (batch(r / L) * L + r % L) * m;
+  }
+  // the index of flat element i of a [B, L, d] site
+  __device__ __forceinline__ uint32_t flat_index(uint32_t i) const {
+    if (seg == 0) return i;
+    const uint32_t b = i / row_x;
+    return batch(b) * row_x + (i - b * row_x);
   }
   // x dropped at element `index` of the stream `key`; also the backward of
   // the same mask applied to a gradient.
@@ -45,5 +72,14 @@ struct Dropout {
     return mix32((index * kGolden) ^ k) >= thr ? x / div : 0.f;
   }
 };
+
+// The dropout of a tower call (L, d) from the C entry points' arguments.
+inline Dropout make(int on, uint32_t thr, float div, uint32_t seed,
+                    int tower, uint32_t off, uint32_t seg, uint32_t stride,
+                    int L, int d) {
+  return Dropout{on, thr, div, seed, tower, off, seg, stride,
+                 static_cast<uint32_t>(L),
+                 static_cast<uint32_t>(L) * static_cast<uint32_t>(d)};
+}
 
 }  // namespace drop

@@ -164,12 +164,13 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
       const int row = r_lo + 8 * h;
       if (row >= g.n) continue;
       const size_t base = (size_t)row * g.m;
+      const uint32_t dbase = g.dr.row_index(row, g.m);
 #pragma unroll
       for (int j = 0; j < kNj; ++j) {
         const int col = n0 + j * 8 + 2 * tq;
         if (col >= g.m) continue;
         const size_t idx = base + col;
-        const uint32_t di = static_cast<uint32_t>(idx);
+        const uint32_t di = dbase + col;
         const float2 b = *reinterpret_cast<const float2*>(g.bias + col);
         float2 v = make_float2(acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
         if (g.epi == kRelu) {
@@ -205,13 +206,14 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
   for (int h = 0; h < 2; ++h) {
     const int row = r_lo + 8 * h;
     const bool live = row < g.n;
+    const uint32_t dbase = g.dr.row_index(row, g.m);
 #pragma unroll
     for (int j = 0; j < kNj; ++j) {
       const int col = j * 8 + 2 * tq;
       float2 v = make_float2(0.f, 0.f);
       if (live && col < g.m) {
         const size_t idx = (size_t)row * g.m + col;
-        const uint32_t di = static_cast<uint32_t>(idx);
+        const uint32_t di = dbase + col;
         const float2 b = *reinterpret_cast<const float2*>(g.bias + col);
         v = make_float2(acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
         if (g.dr.on) {
@@ -267,6 +269,7 @@ encoder_fwd_attn_kernel(const float* __restrict__ qkv,
   const int wps = 8 / S;                     // warps a sequence
   const int s = warp / wps;
   const int b = blockIdx.x * S + s;          // this warp's sequence
+  const uint32_t gb = dr.batch(b);           // its row of the run's batch
   const bool active = b < B;
   const int seq0 = blockIdx.x * S;
   const int R_in = min(S, B - seq0) * L;     // rows of the block in range
@@ -354,7 +357,7 @@ encoder_fwd_attn_kernel(const float* __restrict__ qkv,
               p_save[((size_t)h * N + (size_t)b * L + i) * L + j] = p;
             if (dr.on)
               p = dr.apply(p, key, static_cast<uint32_t>(
-                                       (((size_t)b * n_head + h) * L + i) * L
+                                       (((size_t)gb * n_head + h) * L + i) * L
                                        + j));
           }
           Ps[i * ldp + j] = p;
@@ -418,7 +421,7 @@ encoder_fwd_input_kernel(const float4* __restrict__ x,
        i += (size_t)gridDim.x * kThreads) {
     float4 v = x[i];
     if (dr.on) {
-      const uint32_t e = static_cast<uint32_t>(4 * i);
+      const uint32_t e = dr.flat_index(static_cast<uint32_t>(4 * i));
       v.x = dr.apply(v.x, key, e);
       v.y = dr.apply(v.y, key, e + 1);
       v.z = dr.apply(v.z, key, e + 2);
@@ -658,7 +661,9 @@ extern "C" void encoder_saved_offsets(int B, int L, int d, int n_head,
 // 1 <= L <= 64 (encoder_cuda.supported), n_layers >= 1; x, the weights
 // and buf 16-byte aligned.  Dropout: drop_on 0 is eval; else kept values
 // are divided by drop_div (f32(1 - p)) where the hash bits reach drop_thr
-// (ops/dropout.threshold).  buf: with save != 0, saved_layout for n_layers
+// (ops/dropout.threshold); row_off, row_seg and row_stride place the call's
+// rows in the run's batch (drop::Dropout; row_seg 0: the identity).  buf:
+// with save != 0, saved_layout for n_layers
 // (encoder_saved_offsets), which receives the activations the backward
 // reads; else the workspace, saved_layout for one layer.  Returns
 // cudaGetLastError() after the launches (0 = launched).
@@ -671,13 +676,14 @@ extern "C" int encoder_fwd_f32(
     float* buf, int save,
     int B, int L, int d, int n_head, int n_layers, int idx_pad, int invert,
     int drop_on, unsigned drop_thr, float drop_div, unsigned seed, int tower_id,
-    void* stream) {
+    unsigned row_off, unsigned row_seg, unsigned row_stride, void* stream) {
   const Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
                  ln1_s, ln1_b, ln2_s, ln2_b};
   return static_cast<int>(run_fwd(
       x, seq, l0, lnf_s, lnf_b, out, buf, save != 0, B, L, d, n_head,
       n_layers, idx_pad, invert,
-      drop::Dropout{drop_on, drop_thr, drop_div, seed, tower_id},
+      drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
+                 row_seg, row_stride, L, d),
       static_cast<cudaStream_t>(stream)));
 }
 

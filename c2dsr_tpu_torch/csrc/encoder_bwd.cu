@@ -134,12 +134,13 @@ tc_gemm_kernel(const GemmArgs g) {
     const int row = r_lo + 8 * h;
     if (row >= g.n) continue;
     const size_t base = (size_t)row * g.m;
+    const uint32_t dbase = g.dr.row_index(row, g.m);
 #pragma unroll
     for (int j = 0; j < kNj; ++j) {
       const int col = n0 + j * 8 + 2 * tq;
       if (col >= g.m) continue;
       const size_t idx = base + col;
-      const uint32_t di = static_cast<uint32_t>(idx);
+      const uint32_t di = dbase + col;
       float2 v = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
       if (g.epi == kRes) {
         const float2 r = *reinterpret_cast<const float2*>(g.res + idx);
@@ -196,6 +197,7 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
   const int wps = 8 / S;                     // warps a sequence
   const int s = warp / wps;
   const int b = blockIdx.x * S + s;          // this warp's sequence
+  const uint32_t gb = dr.batch(b);           // its row of the run's batch
   const bool active = b < B;
   const int seq0 = blockIdx.x * S;
   const int R_in = min(S, B - seq0) * L;     // rows of the block in range
@@ -262,7 +264,7 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
             pd[u] = p[u];
             if (dr.on) {
               const uint32_t idx = static_cast<uint32_t>(
-                  (((size_t)b * n_head + h) * L + i) * L + j);
+                  (((size_t)gb * n_head + h) * L + i) * L + j);
               dp[u] = dr.apply(dp[u], key, idx);
               pd[u] = dr.apply(p[u], key, idx);
             }
@@ -351,6 +353,7 @@ ln_bwd_kernel(const float* __restrict__ gin, const float* __restrict__ xhat,
   const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (r >= n) return;
   const size_t at = (size_t)r * d;
+  const uint32_t dat = dr.row_index(r, d);
   float gs[NV], xh[NV];
   float m1 = 0.f, m2 = 0.f;
 #pragma unroll
@@ -374,7 +377,7 @@ ln_bwd_kernel(const float* __restrict__ gin, const float* __restrict__ xhat,
       const float v = rs * (gs[t] - m1 - xh[t] * m2);
       dz[at + c] = v;
       if (dzd)
-        dzd[at + c] = dr.apply(v, key, static_cast<uint32_t>(at + c));
+        dzd[at + c] = dr.apply(v, key, dat + c);
     }
   }
 }
@@ -802,7 +805,7 @@ extern "C" long long encoder_bwd_grad_floats(int d, int n_layers) {
 
 // The backward of the training forward encoder_fwd_f32 that wrote `saved`
 // (encoder_saved_floats, with the same weights, shapes and dropout
-// arguments): gout the gradient of the tower's output, dx [B, L, d] out,
+// arguments, the row map included): gout the gradient of the tower's output, dx [B, L, d] out,
 // grads the flat buffer, workspace of encoder_bwd_workspace_floats for
 // `grid` row splits (all pointers 16-byte aligned).  Returns
 // cudaGetLastError() after the launches (0 = launched).
@@ -815,12 +818,14 @@ extern "C" int encoder_bwd_f32(
     const float* lnf_b, float* dx, float* grads, float* workspace, int grid,
     int B, int L, int d, int n_head, int n_layers, int drop_on,
     unsigned drop_thr, float drop_div, unsigned seed, int tower_id,
-    void* stream) {
+    unsigned row_off, unsigned row_seg, unsigned row_stride, void* stream) {
   (void)lnf_b;
   const Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
                  ln1_s, ln1_b, ln2_s, ln2_b};
   return static_cast<int>(run_bwd(
       saved, gout, l0, lnf_s, dx, grads, workspace, grid, B, L, d, n_head,
-      n_layers, drop::Dropout{drop_on, drop_thr, drop_div, seed, tower_id},
+      n_layers,
+      drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
+                 row_seg, row_stride, L, d),
       static_cast<cudaStream_t>(stream)));
 }

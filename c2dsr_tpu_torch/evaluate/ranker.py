@@ -14,6 +14,13 @@ Eval examples are partitioned by ground-truth domain on the host, so each
 step computes only its domain's classifier product.  On a CUDA device the
 graph propagation runs the CSR SpMM kernel and each of the three towers the
 fused encoder kernel; PyTorch runs eagerly, so there is nothing to jit.
+
+On a mesh (``parallel/mesh.py``) every rank holds the whole eval split and
+ranks its data index's rows of each chunk (``evaluate_split``'s
+``to_global``, ``mesh.eval_slice``: a chunk the data ranks do not divide is
+padded, never cut), against the sharded classifiers where the mesh shards
+them; the ranks come back gathered over the data group, the same on every
+rank, as the JAX package's replicated ``out_shardings`` give them.
 """
 
 from __future__ import annotations
@@ -68,16 +75,19 @@ def to_device(chunk: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 def make_eval_fns(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
-                  device="cuda"):
+                  device="cuda", mesh=None):
     """Returns (convolve_eval, rank_step).
 
     convolve_eval(params) -> Propagated (deterministic, once per eval phase —
     the reference also convolves once before the val loop, trainer.py:65).
     rank_step(params, hi, batch, domain, mode) -> ranks [B] int32 on the
-    device; ``batch`` is a dict of numpy arrays."""
-    from c2dsr_tpu_torch.parallel.strategy import LocalOps
+    device; ``batch`` is a dict of numpy arrays.  On a ``mesh``, ``batch``
+    is this rank's slice of a chunk (``mesh.eval_slice``) and the ranks are
+    the whole chunk's, gathered over the data group."""
+    from c2dsr_tpu_torch.parallel import comm, strategy
     device = backend.resolve_device(device)
-    pops = LocalOps(cfg=cfg)
+    pops = strategy.make_ops(cfg, mesh)
+    data = pops.data_group
 
     @torch.inference_mode()
     def convolve_eval(params):
@@ -85,8 +95,9 @@ def make_eval_fns(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
 
     @torch.inference_mode()
     def rank_step(params, hi, batch, domain: str, mode: str):
-        return _rank(params, hi, to_device(batch, device), cfg, spec, domain,
-                     mode, pops)
+        r = _rank(params, hi, to_device(batch, device), cfg, spec, domain,
+                  mode, pops)
+        return comm.gather_(r, data).reshape(-1)
 
     return convolve_eval, rank_step
 
@@ -116,15 +127,23 @@ def _batches(group: Dict[str, np.ndarray], batch_size: int):
 
 
 def evaluate_split(params, hi, data: Dict[str, np.ndarray], rank_step,
-                   cfg: Config, mode: str | None = None
+                   cfg: Config, mode: str | None = None, to_global=None
                    ) -> Tuple[List[int], List[int]]:
     """Rank every eval example; returns (ranks_a, ranks_b) as Python lists,
-    the exact interface of the reference's evaluate loop (trainer.py:62-71)."""
+    the exact interface of the reference's evaluate loop (trainer.py:62-71).
+
+    ``to_global`` (a mesh): maps a chunk, which every rank holds whole, to
+    what this rank ranks of it (``mesh.eval_slice``); ``rank_step`` gives
+    the whole chunk's ranks back, padding last, and every example keeps its
+    rank (the JAX package's ``to_global`` drops a chunk's remainder,
+    ``c2dsr_tpu/train/loop.py:166-175``; this one does not)."""
     mode = mode or cfg.eval_mode
     groups = partition_by_domain(data)
     ranks = {"a": [], "b": []}
     for dom in ("a", "b"):
         for chunk, n_real in _batches(groups[dom], cfg.batch_size_eval):
+            if to_global is not None:
+                chunk = to_global(chunk)
             r = rank_step(params, hi, chunk, dom, mode)
             ranks[dom].extend(r[:n_real].cpu().tolist())
     return ranks["a"], ranks["b"]

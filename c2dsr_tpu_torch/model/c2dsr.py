@@ -28,6 +28,7 @@ import torch
 
 from c2dsr_tpu_torch.config import Config, DataSpec
 from c2dsr_tpu_torch.ops import backend, spmm
+from c2dsr_tpu_torch.ops import lookup as lookup_mod
 
 
 class Graphs(NamedTuple):
@@ -105,18 +106,19 @@ def _tower_pre(seq, hi, raw_table, cfg: Config, spec: DataSpec,
 
 
 def _encode(h, seq, pos, attn_params, cfg: Config, spec: DataSpec,
-            seed: Optional[int], tower: int, pops=None) -> torch.Tensor:
+            seed: Optional[int], tower: int, row_map=None) -> torch.Tensor:
     """Positional add, then the tower (ops/backend.encode_layers); dropout
-    keyed by (seed, tower) when seed is not None."""
-    pops = pops or _local_ops(cfg)
-    # the positional add stays outside the fused kernel, as in JAX
-    x = (h + pops.lookup(attn_params["pos_emb"], pos)).contiguous()
+    keyed by (seed, tower) when seed is not None, its rows placed in the
+    global batch by ``row_map`` (ops/dropout.py)."""
+    # the positional add stays outside the fused kernel, as in JAX; the
+    # position table is replicated on every rank, so its lookup is local
+    x = (h + lookup_mod.lookup(attn_params["pos_emb"], pos)).contiguous()
     return backend.encode_layers(
         x, seq, attn_params, idx_pad=spec.idx_pad, n_head=cfg.n_head,
         norm_first=cfg.norm_first,
         invert_padding_mask=cfg.bug_inverted_padding_mask,
         dropout=0.0 if seed is None else cfg.dropout_attn,
-        seed=seed or 0, tower=tower).to(
+        seed=seed or 0, tower=tower, row_map=row_map).to(
             torch.promote_types(x.dtype, torch.float32))
 
 
@@ -124,7 +126,7 @@ def _tower(seq, pos, hi, raw_table, attn_params, cfg: Config, spec: DataSpec,
            pops=None) -> torch.Tensor:
     """(propagated + raw) lookup x sqrt(d) -> attention tower, in eval."""
     h = _tower_pre(seq, hi, raw_table, cfg, spec, pops)
-    return _encode(h, seq, pos, attn_params, cfg, spec, None, 0, pops)
+    return _encode(h, seq, pos, attn_params, cfg, spec, None, 0)
 
 
 def forward(params: Dict[str, Any], hi: Propagated, seq_share, seq_a, seq_b,
@@ -149,24 +151,26 @@ def forward_share(params: Dict[str, Any], hi: Propagated, seq, pos,
 
 def forward_joint(params: Dict[str, Any], hi: Propagated, seq_share3, pos3,
                   seq_a, seq_b, pos_a, pos_b, cfg: Config, spec: DataSpec,
-                  seed: Optional[int] = None, pops=None
+                  seed: Optional[int] = None, pops=None, row_map=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every tower pass of one training step (c2dsr_tpu model/c2dsr.py
     forward_joint): the shared tower on ``seq_share3`` [3B, L] (positive
     plus two corrupted sequences, stacked by the caller), then the A and B
     towers.  Three tower calls, keyed 0, 1, 2 so that their dropout masks
-    are independent; seed=None is eval.
+    are independent; seed=None is eval.  ``row_map`` places a data rank's
+    rows in the global batch for the dropout hash (ops/dropout.py): the
+    shared tower's three stacked segments each hold the rank's rows.
     Returns (h_share3 [3B, L, d], hx [B, L, d], hy [B, L, d])."""
     e_share, e_a, e_b = embedding_tables(params, cfg, spec)
     h_s3 = _tower_pre(seq_share3, hi.share, e_share, cfg, spec, pops)
     h_a = _tower_pre(seq_a, hi.a, e_a, cfg, spec, pops)
     h_b = _tower_pre(seq_b, hi.b, e_b, cfg, spec, pops)
     return (_encode(h_s3, seq_share3, pos3, params["attn_share"], cfg, spec,
-                    seed, 0, pops),
+                    seed, 0, row_map),
             _encode(h_a, seq_a, pos_a, params["attn_a"], cfg, spec, seed, 1,
-                    pops),
+                    row_map),
             _encode(h_b, seq_b, pos_b, params["attn_b"], cfg, spec, seed, 2,
-                    pops))
+                    row_map))
 
 
 def classify_a(params, h):

@@ -70,7 +70,8 @@ def fused_encoder_runs(n_head: int, d: int, norm_first: bool) -> bool:
 def encode_layers(x: torch.Tensor, seq: torch.Tensor, params, *,
                   idx_pad: int, n_head: int, norm_first: bool,
                   invert_padding_mask: bool, dropout: float = 0.0,
-                  seed: int = 0, tower: int = 0) -> torch.Tensor:
+                  seed: int = 0, tower: int = 0, row_map=None
+                  ) -> torch.Tensor:
     """Input dropout, the layers and the final LN (input already
     position-added).  On a CUDA tensor, where the fused Pallas encoder runs
     in the JAX package (:func:`fused_encoder_runs`), the fused encoder
@@ -82,8 +83,9 @@ def encode_layers(x: torch.Tensor, seq: torch.Tensor, params, *,
         return encoder_cuda.encode(
             x, seq, params, idx_pad=idx_pad, n_head=n_head,
             invert_padding_mask=invert_padding_mask, dropout=dropout,
-            seed=seed, tower=tower)
+            seed=seed, tower=tower, row_map=row_map)
     return enc.encode_layers(x, seq, params, idx_pad=idx_pad, n_head=n_head,
                              norm_first=norm_first,
                              invert_padding_mask=invert_padding_mask,
-                             dropout=dropout, seed=seed, tower=tower)
+                             dropout=dropout, seed=seed, tower=tower,
+                             row_map=row_map)

@@ -19,8 +19,21 @@ input, out-projection and FFN sites, [B, H, L, L] for the attention
 probabilities.  Kept values are divided by (1 - p), as ``_dropout`` of
 ``c2dsr_tpu/ops/encoder.py`` scales them.
 
+A data-parallel step must not draw the same masks on every data rank: with
+``index`` the flat index within one tower call, rank r's local row i would
+share its bits with every other rank's row i.  So the index is that of the
+run's global batch: a ``row_map`` (offset, seg, stride) says that the call's
+batch row b is global row (b // seg) * stride + offset + b % seg, and
+``index`` is the element's flat index in that row of the global tensor.  A
+rank holding rows [offset, offset + m) of a batch of B rows passes
+:func:`row_map` (offset, m, B); the shared tower, which stacks three
+sequences of a batch row, keeps its stacking, segment by segment.  With the
+map, the masks of a data-parallel step are those of the one-process step
+over the global batch; None (the identity) is a one-process call.
+
 The torch side works in int64 on values below 2^32 and splits every 32-bit
-product into 16-bit halves, so no intermediate reaches 2^63.
+product into 16-bit halves, so no intermediate reaches 2^63; an index of
+2^32 or more wraps as the kernels' 32-bit index does.
 """
 
 from __future__ import annotations
@@ -92,15 +105,43 @@ def bits(index: torch.Tensor, seed: int, site: int, tower: int,
     return _mix32(_mul32(index.to(torch.int64), GOLDEN) ^ key)
 
 
+def row_map(offset: int, rows: int, rows_global: int):
+    """The row map of a call holding ``rows`` rows at ``offset`` of each
+    segment of ``rows_global`` rows; None where that is the identity."""
+    if offset == 0 and rows == rows_global:
+        return None
+    if not 0 <= offset <= rows_global - rows:
+        raise ValueError(f"rows [{offset}, {offset + rows}) outside a batch "
+                         f"of {rows_global}")
+    return (int(offset), int(rows), int(rows_global))
+
+
+def global_index(shape, rmap, device=None) -> torch.Tensor:
+    """The int64 hash index of every element of a site of ``shape`` (its
+    first dim the batch) under the row map ``rmap`` (None: row-major)."""
+    n = 1
+    for k in shape:
+        n *= k
+    if rmap is None:
+        return torch.arange(n, device=device).view(shape)
+    offset, seg, stride = rmap
+    per_row = n // shape[0]
+    b = torch.arange(shape[0], device=device)
+    g = (b // seg) * stride + offset + b % seg
+    return (g[:, None] * per_row
+            + torch.arange(per_row, device=device)).view(shape) & M32
+
+
 def apply(x: torch.Tensor, p: float, seed: int, site: int, tower: int,
-          layer: int) -> torch.Tensor:
+          layer: int, rmap=None) -> torch.Tensor:
     """Dropout of ``x`` at rate ``p``: elements indexed row-major over x's
-    shape, kept ones divided by (1 - p).  Identity at p == 0."""
+    shape, in the global batch under the row map ``rmap``, kept ones
+    divided by (1 - p).  Identity at p == 0."""
     if p <= 0.0:
         return x
     if x.numel() >= 2 ** 32:
         raise ValueError("dropout site holds 2^32 elements or more")
-    index = torch.arange(x.numel(), device=x.device).view(x.shape)
+    index = global_index(x.shape, rmap, x.device)
     keep = bits(index, seed, site, tower, layer) >= threshold(p)
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                          device=x.device))

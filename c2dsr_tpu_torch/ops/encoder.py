@@ -83,15 +83,16 @@ def multi_head_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
 def encoder_layer(x: torch.Tensor, p: Dict[str, Any], *, n_head: int,
                   mask_bias: torch.Tensor, norm_first: bool,
                   dropout: float = 0.0, seed: int = 0, tower: int = 0,
-                  layer: int = 0, branches: Optional[Branches] = None
-                  ) -> torch.Tensor:
+                  layer: int = 0, branches: Optional[Branches] = None,
+                  row_map=None) -> torch.Tensor:
     """One transformer encoder layer, post-norm by default (torch semantics).
     Dropout sites as ``c2dsr_tpu/ops/encoder.py`` has them.  ``branches``,
     if given, is (ReLU mask [B, L, d], all-masked rows' probabilities
     [B, H, L, L]): the layer is taken at those branches instead of its own
     (see :func:`encode_layers`)."""
     def dr(site):
-        return lambda t: drop.apply(t, dropout, seed, site, tower, layer)
+        return lambda t: drop.apply(t, dropout, seed, site, tower, layer,
+                                    row_map)
 
     relu_mask, probs = branches if branches is not None else (None, None)
 
@@ -143,13 +144,14 @@ def encode_layers(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                   *, idx_pad: int, n_head: int, norm_first: bool,
                   invert_padding_mask: bool, dropout: float = 0.0,
                   seed: int = 0, tower: int = 0,
-                  branches: Optional[Dict[Tuple[int, int], Branches]] = None
-                  ) -> torch.Tensor:
+                  branches: Optional[Dict[Tuple[int, int], Branches]] = None,
+                  row_map=None) -> torch.Tensor:
     """Input dropout, the layers and the final LayerNorm, on an input that
     already holds the positional embedding: what the fused kernel computes
     (post-norm).  ``params["layers"]`` holds each layer weight stacked over
     layers.  ``tower`` keys the masks of one tower call apart from the
-    others of the same step.
+    others of the same step; ``row_map`` places its rows in the global batch
+    (``ops/dropout.py``).
 
     ``branches`` maps (tower, layer) to the branches another forward took
     (``encoder_layer``): two f32-correct forwards can round a ReLU input
@@ -158,7 +160,7 @@ def encode_layers(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
     the gradients then differ by whole rows, so a check of the fused
     backward, which differentiates its own forward, takes this tower at the
     fused forward's branches."""
-    x = drop.apply(x, dropout, seed, drop.SITE_INPUT, tower, 0)
+    x = drop.apply(x, dropout, seed, drop.SITE_INPUT, tower, 0, row_map)
     bias = attention_mask_bias(seq, idx_pad, invert_padding_mask, x.dtype)
     layers = params["layers"]
     for i in range(layers["w_qkv"].shape[0]):
@@ -166,7 +168,7 @@ def encode_layers(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                           n_head=n_head, mask_bias=bias, norm_first=norm_first,
                           dropout=dropout, seed=seed, tower=tower, layer=i,
                           branches=None if branches is None
-                          else branches[(tower, i)])
+                          else branches[(tower, i)], row_map=row_map)
     return layer_norm(x, params["lnf_scale"], params["lnf_bias"])
 
 
@@ -203,15 +205,15 @@ def tower_params(weights) -> Dict[str, Any]:
 def encoder_fwd_plain(x: torch.Tensor, seq: torch.Tensor,
                       params: Dict[str, Any], *, idx_pad: int, n_head: int,
                       invert_padding_mask: bool, dropout: float = 0.0,
-                      seed: int = 0, tower: int = 0, branches=None
-                      ) -> torch.Tensor:
+                      seed: int = 0, tower: int = 0, branches=None,
+                      row_map=None) -> torch.Tensor:
     """The plain version of ``encoder_cuda.encoder_fwd`` (post-norm);
     ``branches`` as :func:`encode_layers` takes them."""
     return encode_layers(x, seq, params, idx_pad=idx_pad, n_head=n_head,
                          norm_first=False,
                          invert_padding_mask=invert_padding_mask,
                          dropout=dropout, seed=seed, tower=tower,
-                         branches=branches)
+                         branches=branches, row_map=row_map)
 
 
 def encoder_bwd_plain(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,

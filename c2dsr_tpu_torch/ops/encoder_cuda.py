@@ -28,7 +28,10 @@ in eval a one-layer workspace of the same layout (``csrc/encoder.cu`` and
 
 Dropout (training) draws every mask from the counter-based hash of
 ``ops/dropout.py``; the backward regenerates the forward's masks from the
-same (seed, tower).  Unlike the Pallas kernel, which pads L to a multiple
+same (seed, tower).  ``row_map`` (``ops/dropout.row_map``) places a data
+rank's rows in the run's global batch, so that a data-parallel step draws
+the masks of the one-process step over that batch; None is a one-process
+call.  Unlike the Pallas kernel, which pads L to a multiple
 of 16 and averages an all-masked query row over the padded length, these
 kernels work on the L real positions, so such a row is the uniform average
 over L positions, as ``ops/encoder.py`` in both packages gives it.
@@ -47,7 +50,7 @@ from c2dsr_tpu_torch.ops import dropout as drop
 from c2dsr_tpu_torch.ops.encoder import _NAMES, tower_params, tower_weights
 
 _DROP_SIG = (ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
-             ctypes.c_int)
+             ctypes.c_int) + (ctypes.c_uint,) * 3
 _FWD_SIG = ((ctypes.c_void_p,) * 18 + (ctypes.c_int,) * 8 + _DROP_SIG
             + (ctypes.c_void_p,))
 _BWD_SIG = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 6 + _DROP_SIG
@@ -67,7 +70,7 @@ def supported(d: int, n_head: int, length: int) -> bool:
     its fused encoder, up to d 512: d a multiple of 8 from 8 to 512, head dim
     a multiple of 8, and 1 <= L <= 64 (FK/MB L = 15, EE L = 30).  The
     attention kernels give a lane two keys of a sequence; nothing else is
-    tied to L.  Wider towers are refused (ROADMAP §C)."""
+    tied to L.  Wider towers are refused (ROADMAP §A item 5)."""
     return (d % 8 == 0 and 8 <= d <= 512 and d % n_head == 0
             and (d // n_head) % 8 == 0 and 1 <= length <= 64)
 
@@ -77,10 +80,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _drop_args(dropout: float, seed: int, tower: int):
+def _drop_args(dropout: float, seed: int, tower: int, row_map=None):
     on = dropout > 0.0
+    off, seg, stride = row_map if row_map is not None else (0, 0, 0)
     return (int(on), drop.threshold(dropout) if on else 0,
-            float(1.0 - dropout), int(seed) & drop.M32, int(tower))
+            float(1.0 - dropout), int(seed) & drop.M32, int(tower),
+            int(off) & drop.M32, int(seg), int(stride) & drop.M32)
 
 
 def _check(x: torch.Tensor, seq: torch.Tensor, weights, n_head: int,
@@ -94,7 +99,7 @@ def _check(x: torch.Tensor, seq: torch.Tensor, weights, n_head: int,
     if not supported(d, n_head, L):
         raise ValueError(f"{name} does not take d={d}, n_head={n_head}, L={L} "
                          "(d % 8 == 0 up to 512, head dim % 8 == 0, L <= 64; "
-                         "ROADMAP §C)")
+                         "ROADMAP §A item 5)")
     if max(B * L * d, B * n_head * L * L) >= 2 ** 31:
         raise ValueError(f"{name}: a tower call must hold < 2^31 elements")
     if tuple(seq.shape) != (B, L) or seq.device != x.device:
@@ -174,7 +179,8 @@ def _check_saved(saved: torch.Tensor, B, L, d, n_head, n_layers) -> None:
 def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                 *, idx_pad: int, n_head: int, invert_padding_mask: bool,
                 dropout: float = 0.0, seed: int = 0, tower: int = 0,
-                saved: Optional[torch.Tensor] = None) -> torch.Tensor:
+                row_map=None, saved: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """Input dropout, layers and final LN of one tower by the CUDA kernels.
 
     x: [B, L, d] f32 CUDA (positional embedding already added); seq: [B, L]
@@ -199,7 +205,8 @@ def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
         x.data_ptr(), seq32.data_ptr(), *[w.data_ptr() for w in weights],
         out.data_ptr(), buf.data_ptr(), int(saved is not None),
         B, L, d, n_head, n_layers, int(idx_pad),
-        int(bool(invert_padding_mask)), *_drop_args(dropout, seed, tower),
+        int(bool(invert_padding_mask)),
+        *_drop_args(dropout, seed, tower, row_map),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_fwd launch failed: CUDA error {err}")
@@ -226,7 +233,7 @@ def _bwd_sizes(B: int, L: int, d: int, n_layers: int) -> Tuple[int, int, int]:
 def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
                 params: Dict[str, Any], *, idx_pad: int, n_head: int,
                 invert_padding_mask: bool, dropout: float = 0.0,
-                seed: int = 0, tower: int = 0,
+                seed: int = 0, tower: int = 0, row_map=None,
                 saved: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Backward of :func:`encoder_fwd` by the CUDA kernels, from the same
@@ -240,7 +247,7 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
         raise ValueError("gout must be f32 of x's shape on x's device")
     kw = dict(idx_pad=idx_pad, n_head=n_head,
               invert_padding_mask=invert_padding_mask, dropout=dropout,
-              seed=seed, tower=tower)
+              seed=seed, tower=tower, row_map=row_map)
     if saved is None:
         saved = saved_buffer(x, n_head, n_layers)
         encoder_fwd(x, seq, params, saved=saved, **kw)
@@ -255,7 +262,7 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
     err = _fn("encoder_bwd", "encoder_bwd_f32", _BWD_SIG)(
         saved.data_ptr(), gout.data_ptr(), *[w.data_ptr() for w in weights],
         dx.data_ptr(), flat.data_ptr(), ws.data_ptr(), grid, B, L, d, n_head,
-        n_layers, *_drop_args(dropout, seed, tower),
+        n_layers, *_drop_args(dropout, seed, tower, row_map),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_bwd launch failed: CUDA error {err}")
@@ -308,13 +315,13 @@ class _Tower(torch.autograd.Function):
 
 def encode(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any], *,
            idx_pad: int, n_head: int, invert_padding_mask: bool,
-           dropout: float = 0.0, seed: int = 0, tower: int = 0
-           ) -> torch.Tensor:
+           dropout: float = 0.0, seed: int = 0, tower: int = 0,
+           row_map=None) -> torch.Tensor:
     """:func:`encoder_fwd` with its kernel backward: differentiable in x and
     in every tower weight."""
     kw = dict(idx_pad=idx_pad, n_head=n_head,
               invert_padding_mask=invert_padding_mask, dropout=dropout,
-              seed=seed, tower=tower)
+              seed=seed, tower=tower, row_map=row_map)
     weights = tower_weights(params)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in [x] + weights)):

@@ -7,7 +7,7 @@ is the materialised-logits form that the JAX package's XLA path computes.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,22 +33,33 @@ def rec_ce_row_losses(dom_logits: torch.Tensor, pad_logit: torch.Tensor,
     return (lse - tgt) * mask
 
 
-def ce_mean_from_rows(rows: torch.Tensor, targets: torch.Tensor, n_real: int
+def ce_mean_from_rows(rows: torch.Tensor, targets: torch.Tensor, n_real: int,
+                      count_sum: Optional[Callable] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean over valid positions, n_valid) from masked per-position terms."""
+    """(mean over valid positions, n_valid) from masked per-position terms.
+    ``count_sum`` totals the count over the batch's ranks (a data-parallel
+    step divides its rows' sum by the global count); None: this batch's."""
     n_valid = (targets != n_real).to(torch.float32).sum()
+    if count_sum is not None:
+        n_valid = count_sum(n_valid)
     return rows.sum() / torch.clamp(n_valid, min=1.0), n_valid
 
 
 def bce_with_logits(logits: torch.Tensor, label_is_one: bool,
-                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    weights: Optional[torch.Tensor] = None,
+                    count_sum: Optional[Callable] = None) -> torch.Tensor:
     """Mean binary cross-entropy with logits against an all-ones or
     all-zeros label (trainer.py:113-117).  ``weights``: optional per-example
-    0/1 validity [B]; the mean then runs over valid examples only."""
+    0/1 validity [B]; the mean then runs over valid examples only.
+    ``count_sum`` as in :func:`ce_mean_from_rows`."""
     t = F.softplus(-logits) if label_is_one else F.softplus(logits)
     if weights is None:
-        return t.mean()
+        if count_sum is None:
+            return t.mean()
+        n = count_sum(torch.tensor(float(t.numel()), device=t.device))
+        return t.sum() / n
     w = weights.reshape(weights.shape[0],
                         *([1] * (t.dim() - 1))).to(t.dtype)
     per_row = t.numel() // t.shape[0]
-    return (t * w).sum() / torch.clamp(w.sum() * per_row, min=1.0)
+    n = w.sum() if count_sum is None else count_sum(w.sum())
+    return (t * w).sum() / torch.clamp(n * per_row, min=1.0)

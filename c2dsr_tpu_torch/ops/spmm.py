@@ -40,6 +40,8 @@ class CsrDevice(NamedTuple):
     heavy_slots: torch.Tensor  # int32 [len(heavy_rows) + 1]
     n_part: int            # the split rows' partial rows (heavy_slots[-1])
     t: Optional["CsrDevice"] = None   # the transpose (the hop's backward)
+    a2a: object = None     # a model rank's exchange schedule
+                           # (parallel/embed.RankPlan, attach_a2a_plan)
 
 
 RUN_ROWS = 32          # csrc/spmm.cu kRunRows: rows a task at most
@@ -119,13 +121,57 @@ def device_graph(g, device="cuda", heavy_deg: int = spmm_cuda.HEAVY_DEG
     return _csr(rows, cols, vals, n, heavy_deg, device)._replace(t=t)
 
 
-def spmm_reference(graph: CsrDevice, h: torch.Tensor) -> torch.Tensor:
+def rect_graph(rows, cols, vals, n_out: int, n_in: int, device="cuda",
+               heavy_deg: int = spmm_cuda.HEAVY_DEG) -> CsrDevice:
+    """A rectangular [n_out, n_in] CSR (rows ascending), with the CSR of its
+    transpose in ``t``, each with K1's plan: the local sum of a sharded
+    propagation over a received buffer (``parallel/embed.py``)."""
+    device = backend.resolve_device(device)
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals, np.float32)
+    if rows.size and (np.any(np.diff(rows) < 0) or rows[-1] >= n_out
+                      or cols.max() >= n_in or cols.min() < 0):
+        raise ValueError("rect_graph takes ascending rows < n_out and "
+                         "columns < n_in")
+    order = np.argsort(cols, kind="stable")
+    t = _csr(cols[order], rows[order], vals[order], n_in, heavy_deg, device)
+    return _csr(rows, cols, vals, n_out, heavy_deg, device)._replace(t=t)
+
+
+def rect_spmm(graph: CsrDevice, h: torch.Tensor) -> torch.Tensor:
+    """``A @ h`` into the ``graph.n`` rows of a :func:`rect_graph`: K1 (and
+    its backward over ``graph.t``) on a CUDA tensor, the plain version on a
+    CPU one."""
+    if h.is_cuda:
+        return spmm_cuda.hop(graph, h, n_out=graph.n)
+    return spmm_reference(graph, h, n_out=graph.n)
+
+
+def attach_a2a_plan(graph: CsrDevice, n_rows_padded: int, n_shards: int,
+                    index: int) -> CsrDevice:
+    """The graph with model rank ``index``'s part of the all-to-all
+    schedule of the sharded propagation (``c2dsr_tpu/ops/spmm.py:42-53``).
+    ``n_rows_padded`` is the padded table row count (config.padded_sizes),
+    so that the schedule's row blocks are the tables' shards."""
+    from c2dsr_tpu_torch.parallel import embed
+    plan = embed.plan_spmm_a2a(graph.rows.cpu().numpy(),
+                               graph.cols.cpu().numpy(),
+                               graph.vals.cpu().numpy(), n_rows_padded,
+                               n_shards)
+    return graph._replace(a2a=embed.rank_plan(plan, index,
+                                              graph.rows.device))
+
+
+def spmm_reference(graph: CsrDevice, h: torch.Tensor, n_out=None
+                   ) -> torch.Tensor:
     """``adj @ h``, plain: gather the source rows, scale, scatter-add.
 
-    h: [n_rows >= graph.n, d].  Rows past ``graph.n`` have no edges and come
-    out zero, as ``spmm_pallas._apply`` gives them."""
+    h: [n_rows >= graph.n, d]; the output has ``n_out`` rows (h's by
+    default).  Rows past ``graph.n`` have no edges and come out zero, as
+    ``spmm_pallas._apply`` gives them."""
     gathered = h.index_select(0, graph.cols) * graph.vals[:, None]
-    out = torch.zeros_like(h)
+    out = h.new_zeros((h.shape[0] if n_out is None else n_out, h.shape[1]))
     return out.index_add_(0, graph.rows, gathered)
 
 

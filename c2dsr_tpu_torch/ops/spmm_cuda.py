@@ -61,9 +61,10 @@ def _fn(name: str):
     return f
 
 
-def _check(graph, h: torch.Tensor, name: str):
+def _check(graph, h: torch.Tensor, name: str, n_out=None):
     """h against what the kernel takes; the graph's arrays are as
-    ``ops/spmm.device_graph`` makes them (contiguous, on one device)."""
+    ``ops/spmm.device_graph`` or ``rect_graph`` make them (contiguous, on one
+    device, every column a row of h)."""
     if not h.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors only")
     if h.dtype != torch.float32 or h.dim() != 2:
@@ -72,8 +73,9 @@ def _check(graph, h: torch.Tensor, name: str):
     n_rows, d = h.shape
     if d % 4 or d == 0:
         raise ValueError(f"{name} needs d % 4 == 0, got d={d}")
-    if n_rows < graph.n:
-        raise ValueError(f"table has {n_rows} rows < graph dim {graph.n}")
+    if (n_rows if n_out is None else n_out) < graph.n:
+        raise ValueError(f"output of {n_rows if n_out is None else n_out} "
+                         f"rows < graph dim {graph.n}")
     if graph.tasks.device != h.device:
         raise ValueError("h and the graph must be on one device")
     if not h.is_contiguous() or h.data_ptr() % 16:
@@ -81,10 +83,10 @@ def _check(graph, h: torch.Tensor, name: str):
     return n_rows, d
 
 
-def _outputs(graph, h: torch.Tensor):
+def _outputs(graph, h: torch.Tensor, n_rows: int):
     """The output [n_rows, d] and the split rows' scratch partial rows, in
     one allocation (the output a view of its first rows)."""
-    n_rows, d = h.shape
+    d = h.shape[1]
     buf = torch.empty((n_rows + graph.n_part, d), dtype=h.dtype,
                       device=h.device)
     return buf[:n_rows], buf[n_rows:]
@@ -97,15 +99,17 @@ def _graph_args(graph):
             graph.heavy_slots.data_ptr(), graph.heavy_rows.numel())
 
 
-def spmm_csr(graph, h: torch.Tensor) -> torch.Tensor:
+def spmm_csr(graph, h: torch.Tensor, n_out=None) -> torch.Tensor:
     """``adj @ h`` by the CUDA kernel.  h: [n_rows >= graph.n, d] f32 CUDA,
-    contiguous, 16-byte aligned, d % 4 == 0.  Rows past ``graph.n`` come out
-    zero."""
-    n_rows, d = _check(graph, h, "spmm_csr")
-    out, part = _outputs(graph, h)
+    contiguous, 16-byte aligned, d % 4 == 0.  The output has ``n_out`` rows
+    (h's row count by default; a rectangular graph's rows, ``rect_graph``);
+    rows past ``graph.n`` come out zero."""
+    n_rows, d = _check(graph, h, "spmm_csr", n_out)
+    n_out = n_rows if n_out is None else n_out
+    out, part = _outputs(graph, h, n_out)
     err = _fn("spmm_csr_f32")(
         *_graph_args(graph), h.data_ptr(), out.data_ptr(), part.data_ptr(),
-        graph.n, n_rows, d, torch.cuda.current_stream().cuda_stream)
+        graph.n, n_out, d, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr launch failed: CUDA error {err}")
     spmm_csr.launches += 1
@@ -130,7 +134,7 @@ def spmm_csr_flagged(graph, h: torch.Tensor, flag: torch.Tensor,
             or flag.device != h.device or not flag.is_contiguous()):
         raise ValueError(f"flag must be contiguous uint8 [{n_rows}] on h's "
                          f"device, got {flag.dtype} {tuple(flag.shape)}")
-    out, part = _outputs(graph, h)
+    out, part = _outputs(graph, h, n_rows)
     err = _fn("spmm_csr_flagged_f32")(
         *_graph_args(graph), flag.data_ptr(), h.data_ptr(), out.data_ptr(),
         part.data_ptr(), graph.n, n_rows, d, _MODES[flag_on],
@@ -147,17 +151,18 @@ spmm_csr_flagged.launches = 0
 
 class _Hop(torch.autograd.Function):
     """``A @ h`` by :func:`spmm_csr`; its backward ``Aᵀ @ g`` by the same
-    kernel over ``graph.t``.  Rows of the table past ``graph.n`` have no
-    edge in Aᵀ either, so their gradient is zero."""
+    kernel over ``graph.t``, into h's rows.  Rows of the table past
+    ``graph.n`` have no edge in Aᵀ either, so their gradient is zero."""
 
     @staticmethod
-    def forward(ctx, h, graph):
+    def forward(ctx, h, graph, n_out):
         ctx.graph = graph
-        return spmm_csr(graph, h)
+        ctx.n_in = h.shape[0]
+        return spmm_csr(graph, h, n_out)
 
     @staticmethod
     def backward(ctx, g):
-        return spmm_csr(ctx.graph.t, g.contiguous()), None
+        return spmm_csr(ctx.graph.t, g.contiguous(), ctx.n_in), None, None
 
 
 class _FlaggedHop(torch.autograd.Function):
@@ -186,12 +191,13 @@ def _check_transpose(graph) -> None:
                          "packs it)")
 
 
-def hop(graph, h: torch.Tensor) -> torch.Tensor:
-    """One differentiable hop ``A @ h`` on a CUDA tensor."""
+def hop(graph, h: torch.Tensor, n_out=None) -> torch.Tensor:
+    """One differentiable hop ``A @ h`` on a CUDA tensor, into ``n_out``
+    rows (h's row count by default)."""
     if not (torch.is_grad_enabled() and h.requires_grad):
-        return spmm_csr(graph, h)
+        return spmm_csr(graph, h, n_out)
     _check_transpose(graph)
-    return _Hop.apply(h, graph)
+    return _Hop.apply(h, graph, n_out)
 
 
 def flagged_hop(graph, h: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,16 @@ Loss totals stay on the device across the epoch, with one host sync at the
 epoch's end, so the host queues steps ahead of the card: a per-step
 ``float()`` would wait for every step.
 
-Single process only; the multi-process feed (``to_global``) and the mesh
-come with ``torch.distributed`` (ROADMAP.md).  Runs on the card unless
-``device="cpu"``.
+With ``mesh_data * mesh_model > 1`` it runs as one rank of a mesh
+(``parallel/mesh.py``; the process group is set up first,
+``parallel/distributed.initialize``): every rank builds the same full
+state from the seed and keeps its shards, attaches its part of the
+sharded propagation's all-to-all schedule to both graphs when
+``mesh_model > 1``, trains on its data index's rows of each global batch
+(``BatchIterator`` sliced by the data index, not the process index) and
+ranks its rows of each eval chunk, every example keeping its rank.
+Checkpoints hold the whole state, written by rank 0
+(``checkpoint.py``).  Runs on the card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -55,21 +62,39 @@ class Experiment:
         self.cfg, self.spec, self.graphs = cfg, spec, graphs
         self.noter = noter
         self.ckpt_path = ckpt_path
+        self.mesh = None
+        if cfg.world_size > 1:
+            from c2dsr_tpu_torch.parallel import mesh as mesh_mod
+            self.mesh = mesh_mod.make_mesh(cfg.mesh_data, cfg.mesh_model)
+        data_index = self.mesh.data_index if self.mesh else 0
         self.train_iter = BatchIterator(train_data, cfg.batch_size,
-                                        shuffle=True, seed=cfg.seed)
+                                        shuffle=True, seed=cfg.seed,
+                                        process_index=data_index,
+                                        process_count=cfg.mesh_data)
         self.val_data, self.test_data = val_data, test_data
         self.n_tr = self.train_iter.n
+        if cfg.mesh_model > 1:
+            from c2dsr_tpu_torch.config import padded_sizes
+            from c2dsr_tpu_torch.ops import spmm as spmm_mod
+            n_p = padded_sizes(cfg, spec)[0]
+            self.graphs = graphs = c2dsr.Graphs(*(
+                spmm_mod.attach_a2a_plan(g, n_p, cfg.mesh_model,
+                                         self.mesh.model_index)
+                for g in graphs))
 
         steps_per_epoch = max(len(self.train_iter), 1)
         self.optimizer = optim.make_optimizer(cfg, steps_per_epoch)
         params = params_mod.init_params(
             cfg, spec, torch.Generator().manual_seed(cfg.seed), self.device)
-        self.state = step_mod.init_state(params, self.optimizer)
+        if self.mesh is not None and cfg.mesh_model > 1:
+            from c2dsr_tpu_torch.parallel import mesh as mesh_mod
+            params = mesh_mod.shard_params(params, self.mesh)
+        self.state = step_mod.init_state(params, self.optimizer, self.mesh)
         # each step's dropout seed follows (cfg.seed + 1, state.step)
         self.train_step = step_mod.make_train_step(
-            cfg, spec, graphs, self.optimizer, self.device)
+            cfg, spec, graphs, self.optimizer, self.device, mesh=self.mesh)
         self.convolve_eval, self.rank_step = ranker.make_eval_fns(
-            cfg, spec, graphs, self.device)
+            cfg, spec, graphs, self.device, mesh=self.mesh)
         self._profiled = False
         if cfg.debug_nans:
             torch.autograd.set_detect_anomaly(True)
@@ -79,7 +104,8 @@ class Experiment:
         self._best = {"imp_val_best": -1.0, "res_test": [0.0] * 13,
                       "es_counter": 0}
         if ckpt_path and cfg.resume and ckpt_mod.exists(ckpt_path):
-            self.state = ckpt_mod.restore(ckpt_path, template=self.state)
+            self.state = ckpt_mod.restore(ckpt_path, template=self.state,
+                                          mesh=self.mesh)
             meta = ckpt_mod.load_meta(ckpt_path)
             self._start_epoch = int(meta.get("epoch", 0))
             for k in self._best:
@@ -139,8 +165,16 @@ class Experiment:
 
     def run_eval(self, data) -> tuple:
         hi = self.convolve_eval(self.state.params)
+        to_global = None
+        if self.mesh is not None and self.mesh.n_data > 1:
+            from c2dsr_tpu_torch.parallel import mesh as mesh_mod
+
+            def to_global(chunk):
+                return mesh_mod.eval_slice(chunk, self.mesh)
+
         return ranker.evaluate_split(self.state.params, hi, data,
-                                     self.rank_step, self.cfg)
+                                     self.rank_step, self.cfg,
+                                     to_global=to_global)
 
     # ----- full experiment -------------------------------------------------
     def run(self) -> Dict[str, object]:
@@ -171,7 +205,8 @@ class Experiment:
                                   meta={"epoch": epoch,
                                         "imp_val_best": imp_val_best,
                                         "res_test": list(res_test_imp),
-                                        "es_counter": es_counter})
+                                        "es_counter": es_counter},
+                                  mesh=self.mesh)
             else:
                 es_counter += 1
                 if self.noter:

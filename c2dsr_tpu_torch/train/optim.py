@@ -14,7 +14,10 @@ applies it to every leaf; a parameter that got no gradient gets a zero one,
 so torch does not skip its decay.
 
 Optional gradient clipping (``apply_grad_clip``, off in the reference,
-SURVEY.md quirk 7) is ``clip_grad_norm_``.  Quirk 11
+SURVEY.md quirk 7) is ``clip_grad_norm_``; over model-sharded parameters
+(``parallel/mesh.py``) the global norm sums each sharded parameter's
+squares over the model group once and counts each replicated one once, as
+the JAX chain's norm over the global arrays does.  Quirk 11
 (``bug_epoch_grad_accum``): the reference zeroes gradients once per EPOCH
 (trainer.py:42) but steps every batch, so each step consumes the running sum
 of the epoch's batch gradients; here the step then does not zero the
@@ -26,11 +29,12 @@ and keeps the unclipped sum.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from c2dsr_tpu_torch.config import Config
+from c2dsr_tpu_torch.parallel import comm
 
 
 def step_lr_factor(step: int, gamma: float, step_epochs: int,
@@ -46,6 +50,8 @@ class OptState:
     leaves: List[torch.Tensor]
     adamw: torch.optim.AdamW
     schedule: torch.optim.lr_scheduler.LambdaLR
+    sharded: Optional[List[bool]] = None   # leaves sharded over `group`
+    group: comm.Group = comm.SELF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,14 +62,18 @@ class Optimizer:
     cfg: Config
     steps_per_epoch: int
 
-    def init(self, leaves: List[torch.Tensor]) -> OptState:
+    def init(self, leaves: List[torch.Tensor],
+             sharded: Optional[List[bool]] = None,
+             group: comm.Group = comm.SELF) -> OptState:
+        """Bind to ``leaves``; ``sharded`` marks those whose shards lie
+        across the model ``group`` (for the clipping's global norm)."""
         cfg = self.cfg
         adamw = torch.optim.AdamW(leaves, lr=cfg.lr, betas=(0.9, 0.999),
                                   eps=1e-8, weight_decay=cfg.l2, amsgrad=True)
         schedule = torch.optim.lr_scheduler.LambdaLR(
             adamw, lambda s: step_lr_factor(s, cfg.lr_gamma, cfg.lr_step,
                                             self.steps_per_epoch))
-        return OptState(list(leaves), adamw, schedule)
+        return OptState(list(leaves), adamw, schedule, sharded, group)
 
     def prepare(self, state: OptState) -> None:
         """Before a step's backward: fresh gradients, unless they run over
@@ -86,12 +96,27 @@ class Optimizer:
         if self.cfg.apply_grad_clip and self.cfg.max_grad_norm > 0:
             if self.cfg.bug_epoch_grad_accum:
                 saved = [p.grad.clone() for p in state.leaves]
-            torch.nn.utils.clip_grad_norm_(state.leaves, self.cfg.max_grad_norm)
+            if state.sharded is None:
+                torch.nn.utils.clip_grad_norm_(state.leaves,
+                                               self.cfg.max_grad_norm)
+            else:
+                _clip_sharded(state, self.cfg.max_grad_norm)
         state.adamw.step()
         state.schedule.step()
         if saved is not None:
             for p, g in zip(state.leaves, saved):
                 p.grad = g
+
+
+def _clip_sharded(state: OptState, max_norm: float) -> None:
+    """``clip_grad_norm_`` over the global parameters, from shards."""
+    sq = [p.grad.detach().float().square().sum() for p in state.leaves]
+    own = torch.stack([s for s, sh in zip(sq, state.sharded) if sh]).sum()
+    rep = torch.stack([s for s, sh in zip(sq, state.sharded) if not sh]).sum()
+    total = torch.sqrt(comm.sum_(own, state.group) + rep)
+    coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    for p in state.leaves:
+        p.grad.detach().mul_(coef.to(p.grad.dtype))
 
 
 def make_optimizer(cfg: Config, steps_per_epoch: int) -> Optimizer:

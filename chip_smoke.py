@@ -57,7 +57,20 @@ Phases (any failure exits non-zero without the final line):
 6. CLI: ``python -m c2dsr_tpu_torch.cli --synthetic 2000 --n_epoch 1``,
    and again with ``--d_latent 40``, each in a temporary directory, exits
    0 and prints the final result table.
-7. summary: one JSON line of kernel numbers, the card's name and power
+7. parallel: the mesh of ``c2dsr_tpu_torch/parallel/`` with its ranks
+   sharing the one card over gloo, each a process (2 ranks 1x2 with the
+   psum lookups, 4 ranks 2x2 with the a2a lookups) at FK geometry and the
+   default Config: one step at dropout 0 whose loss (1e-5 relative) and
+   gathered gradients (GRAD_TOL) are the one-process kernel step's, while
+   the same gradients with the sharded ones scaled by M fail; each rank's
+   K1 (over the all-to-all plan's CSRs), K2/K3 (at dropout 0.2 under its
+   dropout row map), K4/K5 (at its vocab shard's width) and K7 (a masked
+   lookup's gradient) against their plain versions on the sharded path's
+   inputs; the mesh's eval ranks equal the one-process kernels' but at
+   near-ties; K4/K5 timed at the shard widths (one process alone); and
+   ``python -m c2dsr_tpu_torch.cli --mesh_model 2`` for an epoch with a
+   checkpoint, resumed on one process.
+8. summary: one JSON line of kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 The kernel phase also holds K6 against its plain version and against K1
@@ -2345,6 +2358,459 @@ def compare(other: str) -> int:
     return 0
 
 
+# --- the parallel phase: the mesh's ranks sharing the one card ----------------
+
+PAR_MESHES = (((1, 2), "psum"), ((2, 2), "a2a"))
+PAR_EVAL_ROWS = 4096     # eval examples ranked on each mesh
+PAR_TIMEOUT = 600        # seconds, the ranks' process group and their run
+
+
+def _clone(obj):
+    """A copy of a call's arguments that later in-place updates leave be."""
+    if torch.is_tensor(obj):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_clone(v) for v in obj)
+    return obj
+
+
+@contextlib.contextmanager
+def _recording_first_calls(store):
+    """Record (a copy of) the arguments of the first call of K2's, K4's and
+    K7's wrappers while the body runs; the wrappers still count."""
+    from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce_cuda, segsum_cuda
+    saved = []
+    for mod, name in ((encoder_cuda, "encoder_fwd"), (fused_ce_cuda, "ce_fwd"),
+                      (segsum_cuda, "segsum")):
+        orig = getattr(mod, name)
+
+        def rec(*args, _orig=orig, _name=name, **kw):
+            if _name not in store and (_name != "encoder_fwd"
+                                       or kw.get("saved") is not None):
+                store[_name] = _clone((args, {k: v for k, v in kw.items()
+                                              if k != "saved"}))
+            return _orig(*args, **kw)
+
+        # the wrapper counts its launches under its module name, which now
+        # names the recorder
+        rec.launches = orig.launches
+        setattr(mod, name, rec)
+        saved.append((mod, name, orig))
+    try:
+        yield
+    finally:
+        for mod, name, orig in saved:
+            orig.launches = getattr(mod, name).launches
+            setattr(mod, name, orig)
+
+
+def _shard_kernels_against_plain(calls, graphs, row_map):
+    """This rank's kernels on the sharded path's own inputs against their
+    plain versions: K4/K5 at the vocab shard's width (CE_TOL, CE_BWD_TOL),
+    K2/K3 at its first tower call's shape and weights at dropout 0.2
+    under its dropout row map (ENCODER_TOL, GRAD_TOL at K2's branches), K1 over the all-to-all
+    plan's local CSR of each graph and its transpose (SPMM_TOL), K7 on the
+    first sharded lookup's gradient (bitwise CPU index_add_).  Returns the
+    errors."""
+    from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import (encoder_cuda, fused_ce, fused_ce_cuda,
+                                     segsum_cuda, spmm, spmm_cuda)
+    errs = {}
+    (h, w, bm, pad, t), _ = calls["ce_fwd"]
+    with torch.no_grad():
+        lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad, t)
+        rlse, rtlog = fused_ce.ce_fwd_plain(h, w, bm, pad, t)
+        hit = t < w.shape[1]
+        errs["ce_fwd"] = max(_rel(lse, rlse), _rel(tlog[hit], rtlog[hit]))
+        g = torch.Generator("cuda").manual_seed(5)
+        dlse = torch.randn(h.shape[0], device="cuda", generator=g) / h.shape[0]
+        dt = torch.randn(h.shape[0], device="cuda", generator=g) / h.shape[0]
+        got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, t)
+        want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, t)
+        errs["ce_bwd"] = max(_rel(a, b) for a, b in zip(got, want))
+    errs["ce_shape"] = [int(h.shape[0]), int(w.shape[1])]
+    check(errs["ce_fwd"] <= CE_TOL, f"K4 at the shard width: rel err "
+          f"{errs['ce_fwd']} > {CE_TOL}")
+    check(errs["ce_bwd"] <= CE_BWD_TOL, f"K5 at the shard width: rel err "
+          f"{errs['ce_bwd']} > {CE_BWD_TOL}")
+
+    # K2/K3 at the rank's first tower call's shape and weights under its
+    # row map, on the inputs phase_encoder_train takes (the step's own are
+    # held through the step's loss and gradients above)
+    (x, seq, p), kw = calls["encoder_fwd"]
+    kw = dict(kw, dropout=0.2, seed=77, row_map=row_map)
+    x, seq = _encoder_inputs(x.shape[0], x.shape[1], x.shape[2],
+                             kw["idx_pad"], seed=29)
+    acts = encoder_cuda.saved_buffer(x, kw["n_head"], 1)
+    with torch.no_grad():
+        out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw)
+        ref = enc.encoder_fwd_plain(x, seq, p, **kw)
+    gout = torch.randn(x.shape, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(3))
+    got = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, **kw)
+    rels, _, _ = _k3_against_plain(x, seq, gout, p, acts, kw["n_head"], 1,
+                                   kw, got)
+    errs["encoder_fwd"] = float((out - ref).abs().max())
+    errs["encoder_bwd"] = max(rels.values())
+    check(errs["encoder_fwd"] <= ENCODER_TOL, f"K2 with the row map "
+          f"{row_map}: max abs err {errs['encoder_fwd']} > {ENCODER_TOL}")
+    check(errs["encoder_bwd"] <= GRAD_TOL, f"K3 with the row map {row_map}: "
+          f"rel err {errs['encoder_bwd']} > {GRAD_TOL}")
+
+    errs["spmm_csr"] = 0.0
+    for graph, d in ((graphs.share, 128), (graphs.specific, 256)):
+        for csr in (graph.a2a.csr, graph.a2a.csr.t):
+            n_in = int(csr.cols.max()) + 1 if csr.cols.numel() else 1
+            buf = torch.randn(n_in, d, device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(d))
+            with torch.no_grad():
+                got = spmm_cuda.spmm_csr(csr, buf, n_out=csr.n)
+                want = spmm.spmm_reference(csr, buf, n_out=csr.n)
+            errs["spmm_csr"] = max(errs["spmm_csr"], _rel(got, want))
+    check(errs["spmm_csr"] <= SPMM_TOL, f"K1 over the a2a plan's CSR: rel "
+          f"err {errs['spmm_csr']} > {SPMM_TOL}")
+
+    (ids, gk, n_rows), _ = calls["segsum"]
+    got = segsum_cuda.segsum(ids, gk, n_rows).cpu()
+    want = torch.zeros(n_rows, gk.shape[1]).index_add_(0, ids.cpu(), gk.cpu())
+    errs["segsum"] = float((got - want).abs().max())
+    errs["segsum_zero_rows"] = int((gk.abs().sum(1) == 0).sum())
+    check(torch.equal(got, want), "K7 on a sharded lookup's gradient: not "
+          "bitwise CPU index_add_")
+    return errs
+
+
+def _parallel_rank(rank, world, job):
+    """One rank of the parallel phase, started by ``parallel/launch`` on the
+    one card, the ranks talking over gloo.  At FK geometry and the default
+    Config (dropout 0 for the gate): the eval ranks of both modes, then one
+    train step on its rows of the global batch; the kernels' launches of
+    each; on rank 0 the one-process kernel step's loss and gradients
+    against the mesh's (gathered), and the same with the sharded gradients
+    scaled by M, which must fail; then its kernels against their plain
+    versions on the sharded path's inputs."""
+    global gates, timing
+    from c2dsr_tpu_torch.bench import gates, timing
+    from c2dsr_tpu_torch.config import Config, padded_sizes
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import c2dsr
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import spmm
+    from c2dsr_tpu_torch.parallel import mesh as mesh_mod, strategy
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+    n_data, n_model = job["mesh"]
+    mesh = mesh_mod.make_mesh(n_data, n_model)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    spec = job["spec"]
+    cfg = Config(mesh_data=n_data, mesh_model=n_model,
+                 lookup_mode=job["lookup_mode"], dropout_gnn=0.0,
+                 dropout_attn=0.0)
+    t0 = time.perf_counter()
+    n_p = padded_sizes(cfg, spec)[0]
+    graphs = c2dsr.Graphs(*(spmm.attach_a2a_plan(spmm.device_graph(g, dev),
+                                                 n_p, n_model,
+                                                 mesh.model_index)
+                            for g in job["graphs"]))
+    whole = params_mod.init_params(cfg, spec, torch.Generator().manual_seed(0),
+                                   dev)
+    params = mesh_mod.shard_params(whole, mesh)
+    opt = optim.make_optimizer(cfg, steps_per_epoch=10)
+    state = step_mod.init_state(params, opt, mesh)
+    fn = step_mod.make_train_step(cfg, spec, graphs, opt, dev, mesh=mesh)
+    local = mesh_mod.local_batch(job["batch"], mesh)
+    out = {"setup_s": time.perf_counter() - t0}
+
+    # the eval ranks from the initial params (the one-process ranks' too)
+    convolve, rank_step = ranker.make_eval_fns(cfg, spec, graphs, dev,
+                                               mesh=mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    hi = convolve(state.params)
+    ranks = {m: ranker.evaluate_split(
+        state.params, hi, job["eval"], rank_step, cfg, m,
+        to_global=lambda c: mesh_mod.eval_slice(c, mesh))
+        for m in ("sampled", "full")}
+    torch.cuda.synchronize()
+    out["eval_s"] = time.perf_counter() - t0
+    out["eval_launches"] = read_launches()
+    del hi
+
+    calls = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with _recording_first_calls(calls):
+        state, aux = fn(state, local)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["step_launches"] = read_launches()
+    out["loss"] = float(aux["loss"])
+    grads = mesh_mod.unshard_params(
+        params_mod._map(lambda t: t.grad, state.params), mesh)
+    if rank == 0:
+        out["ranks"] = ranks
+        # the one-process kernel step from the same params and batch
+        leaves = step_mod.param_leaves(whole)
+        for t in leaves:
+            t.requires_grad_(True)
+        ref_loss, ref_grads = _loss_grads(
+            whole, leaves, c2dsr.Graphs(*(g._replace(a2a=None)
+                                          for g in graphs)),
+            ranker.to_device(job["batch"], dev),
+            cfg.with_(mesh_data=1, mesh_model=1), spec,
+            contextlib.nullcontext())
+        names = leaf_names(whole)
+        got = step_mod.param_leaves(grads)
+        sharded = [mesh_mod.shard_dim(n.split(".")[0]) is not None
+                   for n in names]
+        errs = [_rel(a, b) for a, b in zip(got, ref_grads)]
+        bad = [_rel(a * (n_model if sh else 1), b)
+               for a, b, sh in zip(got, ref_grads, sharded)]
+        out["loss_ref"] = ref_loss
+        out["grad_err"] = max(errs)
+        out["grad_worst"] = names[int(np.argmax(errs))]
+        out["grad_err_scaled"] = max(bad)
+        out["shard_kernels"] = _shard_kernels_against_plain(
+            calls, graphs,
+            strategy.make_ops(cfg, mesh).dropout_rows(
+                local["seq_share"].shape[0]))
+    return out
+
+
+def _row_map_rows():
+    """K2 and K3 under the towers' dropout row map on the card: a data
+    rank's rows of the shared tower's stacked call (2 data ranks, a local
+    batch of 256 of 512, three segments), at dropout 0.2, give the
+    one-process call's rows (K2's output and K3's dx, ENCODER_TOL and
+    GRAD_TOL relative); without the map the rank's rows draw rank 0's
+    masks and differ (the gate can fail).  Returns the errors."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import dropout as drop
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    B, m, L, d, pad = 512, 256, LEN_MAX, 128, 64093
+    p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
+        torch.Generator().manual_seed(31), Config(), L))
+    x, seq = _encoder_inputs(3 * B, L, d, pad, seed=31)
+    gout = torch.randn(x.shape, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(4))
+    kw = dict(idx_pad=pad, n_head=1, invert_padding_mask=False, dropout=0.2,
+              seed=99, tower=0)
+
+    def run(rows, rmap):
+        xs, ss, gs = (t[rows].contiguous() for t in (x, seq, gout))
+        acts = encoder_cuda.saved_buffer(xs, 1, 1)
+        with torch.no_grad():
+            out = encoder_cuda.encoder_fwd(xs, ss, p, saved=acts,
+                                           row_map=rmap, **kw)
+        dx, _ = encoder_cuda.encoder_bwd(xs, ss, gs, p, saved=acts,
+                                         row_map=rmap, **kw)
+        return out, dx
+
+    full_out, full_dx = run(slice(None), None)
+    rows = torch.cat([torch.arange(s * B + m, s * B + 2 * m)
+                      for s in range(3)]).cuda()
+    out, dx = run(rows, drop.row_map(m, m, B))
+    bad_out, _ = run(rows, None)
+    errs = {"fwd": float((out - full_out[rows]).abs().max()),
+            "dx": _rel(dx, full_dx[rows]),
+            "fwd_without_map": float((bad_out - full_out[rows]).abs().max())}
+    log(f"row map on the card: data rank 1's rows of the shared tower "
+        f"(3 x {m} of 3 x {B}) at dropout 0.2: K2 max abs err "
+        f"{errs['fwd']:.3e}, K3 dx rel err {errs['dx']:.3e} against the "
+        f"one-process call's rows; without the map K2 {errs['fwd_without_map']:.3e}")
+    check(errs["fwd"] <= ENCODER_TOL and errs["dx"] <= GRAD_TOL,
+          f"K2/K3 under the row map differ from the one-process rows: {errs}")
+    check(errs["fwd_without_map"] > 100 * ENCODER_TOL, "K2 without the row "
+          "map draws the one-process masks: the gate cannot fail")
+    return errs
+
+
+def _ce_shard_times(N, V, timer, peak_flops, peak_bw, gpu):
+    """K4 and K5 at one rank's vocab shard (N rows, d 128, V columns), each
+    timed with its plain version and one library call (cuBLAS
+    ``logsumexp`` of ``h @ w + b``, and its autograd), with the 3xTF32
+    bound: the ms of each, one process alone on the card."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    d = 128
+    h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, V, V + N)
+    hg, wg, bg = (t.detach().clone().requires_grad_(True) for t in (h, w, bm))
+    with torch.no_grad():
+        lse, _ = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+        f = {"ms": timer(lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)),
+             "plain_ms": timer(lambda: fused_ce.ce_fwd_plain(h, w, bm, pad_l,
+                                                             tgt)),
+             "library_ms": timer(lambda: torch.logsumexp(
+                 torch.cat([h @ w + bm, pad_l[:, None]], 1), 1))}
+        b = {"ms": timer(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
+                                                      tgt)),
+             "plain_ms": timer(lambda: fused_ce.ce_bwd_plain(
+                 h, w, bm, lse, dlse, dt, tgt))}
+    lib_out = torch.logsumexp(torch.cat([hg @ wg + bg, pad_l[:, None]], 1), 1)
+    b["library_ms"] = timer(lambda: torch.autograd.grad(
+        lib_out, [hg, wg, bg], dlse, retain_graph=True))
+    del lib_out
+    io = 4 * (N * d + d * V + V + 3 * N)
+    f["bound_ms"] = timing.tc_bound_ms(2 * N * V * d, io + 8 * N, gpu,
+                                       peak_bw)
+    b["bound_ms"] = timing.tc_bound_ms(4 * N * V * d, 2 * io + 4 * N * d,
+                                       gpu, peak_bw)
+    return {"N": N, "V": V, "fwd": f, "bwd": b}
+
+
+def phase_parallel(spec, graphs_host, graphs, train, eval_data, timer,
+                   peak_flops, peak_bw, gpu):
+    """The mesh on the one card: 2 ranks (1x2, psum lookups) and 4 ranks
+    (2x2, a2a lookups) over gloo, each a process of its own
+    (``parallel/launch``; the kernels are built, the ranks load them), at FK
+    geometry and the default Config.  Gates: the step's loss within 1e-5
+    relative and every gathered gradient within GRAD_TOL of the
+    one-process kernel step (and the same gradients with the sharded ones
+    scaled by M fail); each rank's kernels against their plain versions on
+    the sharded path's inputs; the mesh's ranks equal to the one-process
+    kernels' but at near-ties (bench/gates.near_ties).  Then K4/K5 timed at
+    the shard widths, one process alone.  Returns ({path: summed launches},
+    the shard times, the errors)."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.parallel import launch
+    cfg = Config()
+    batch = {k: v[:cfg.batch_size] for k, v in train.items()}
+    data = {k: v[:PAR_EVAL_ROWS] for k, v in eval_data.items()}
+    row_map = _row_map_rows()
+    groups = ranker.partition_by_domain(data)
+
+    # the one-process kernels' ranks and the near-tie bands
+    params = params_mod.init_params(cfg, spec,
+                                    torch.Generator().manual_seed(0), "cuda")
+    convolve, rank_step = ranker.make_eval_fns(cfg, spec, graphs, "cuda")
+    with torch.inference_mode():
+        hi = convolve(params)
+        with gates.plain_versions():
+            hi_plain = convolve(params)
+    hi64 = gates.convolve_float64(params, graphs, cfg, spec)
+    ranks_one, ties = {}, {}
+    for mode in ("sampled", "full"):
+        ranks_one[mode] = ranker.evaluate_split(params, hi, data, rank_step,
+                                                cfg, mode)
+        ties[mode] = gates.near_ties(params, hi, hi_plain, hi64, data, cfg,
+                                     spec, mode)[0]
+    del params, hi, hi_plain, hi64
+    torch.cuda.empty_cache()
+
+    launches, errs = {}, {}
+    for shape, lookup_mode in PAR_MESHES:
+        world = shape[0] * shape[1]
+        tag = f"{shape[0]}x{shape[1]}"
+        job = {"mesh": shape, "lookup_mode": lookup_mode, "spec": spec,
+               "graphs": graphs_host, "batch": batch, "eval": data}
+        t0 = time.perf_counter()
+        try:
+            res = launch.run_ranks(_parallel_rank, world, (job,),
+                                   device="cuda", timeout=PAR_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            raise SmokeFailure(f"parallel {tag}: {e}")
+        r0 = res[0]
+        log(f"parallel {tag} ({lookup_mode} lookups, {world} ranks sharing "
+            f"one card over gloo): {time.perf_counter() - t0:.1f} s; rank 0 "
+            f"setup {r0['setup_s']:.1f} s, step {r0['step_s'] * 1e3:.1f} ms "
+            f"(first, host clock), eval {r0['eval_s']:.2f} s")
+        rel = abs(r0["loss"] - r0["loss_ref"]) / abs(r0["loss_ref"])
+        log(f"parallel {tag} step at dropout 0: loss {r0['loss']:.7f} "
+            f"against the one-process kernel step's {r0['loss_ref']:.7f} "
+            f"(rel {rel:.3e}); gathered gradients worst rel err "
+            f"{r0['grad_err']:.3e} ({r0['grad_worst']}); with the sharded "
+            f"gradients scaled by {shape[1]}: {r0['grad_err_scaled']:.3e}")
+        check(rel <= 1e-5, f"parallel {tag}: loss rel err {rel} > 1e-5")
+        check(r0["grad_err"] <= GRAD_TOL, f"parallel {tag}: gradient "
+              f"{r0['grad_worst']} rel err {r0['grad_err']} > {GRAD_TOL}")
+        check(r0["grad_err_scaled"] > GRAD_TOL, f"parallel {tag}: gradients "
+              "scaled by M pass the gradient gate")
+        for mode in ("sampled", "full"):
+            got = r0["ranks"][mode]
+            check(len(got[0]) == len(ranks_one[mode][0])
+                  and len(got[1]) == len(ranks_one[mode][1]),
+                  f"parallel {tag} {mode}: an example lost its rank")
+            n_diff, n_masked, n_bad = gates.rank_differences(
+                got, ranks_one[mode], ties[mode], groups)
+            log(f"parallel {tag} ranks {mode}: {n_diff} of "
+                f"{len(got[0]) + len(got[1])} differ from the one-process "
+                f"kernels' ({n_masked} at all-masked rows), {n_bad} not "
+                "explained by a near-tie")
+            check(n_bad == 0, f"parallel {tag} {mode}: {n_bad} ranks differ "
+                  "beyond near-ties")
+        k = r0["shard_kernels"]
+        log(f"parallel {tag} rank 0's kernels on the sharded path against "
+            f"their plain versions: K4 at N x V/M = {k['ce_shape']} rel "
+            f"{k['ce_fwd']:.3e}, K5 {k['ce_bwd']:.3e}; K2 with the row map "
+            f"at dropout 0.2 max abs {k['encoder_fwd']:.3e}, K3 rel "
+            f"{k['encoder_bwd']:.3e}; K1 over the a2a CSRs rel "
+            f"{k['spmm_csr']:.3e}; K7 bitwise ({k['segsum_zero_rows']} zero "
+            "gradient rows of the masked ids skipped)")
+        total = {}
+        for r in res:
+            for part in ("step_launches", "eval_launches"):
+                for n, v in r[part].items():
+                    total[n] = total.get(n, 0) + v
+        log(f"parallel {tag} launches over the ranks (step + eval): {total}")
+        launches[f"parallel_{tag}"] = total
+        errs[tag] = dict(k, row_map=row_map)
+    t0 = time.perf_counter()
+    times = []
+    # a rank's CE rows (its batch rows x 2 len_rec) and vocab shard: 1x2 and
+    # 2x2 as above, and 1x4, the model axis of a four-card mesh
+    for tag, N, n_model in (("1x2", 512 * 2 * 10, 2), ("2x2", 256 * 2 * 10, 2),
+                            ("1x4", 512 * 2 * 10, 4)):
+        for V in (30720, 36864):
+            r = _ce_shard_times(N, V // n_model, timer, peak_flops, peak_bw,
+                                gpu)
+            r["mesh"] = tag
+            times.append(r)
+            log(f"ce at the shard width of {tag} (one process alone) N {N} V "
+                f"{V // n_model}: K4 {r['fwd']['ms']:.4f} ms plain "
+                f"{r['fwd']['plain_ms']:.4f} library "
+                f"{r['fwd']['library_ms']:.4f} bound "
+                f"{r['fwd']['bound_ms']:.4f}; K5 {r['bwd']['ms']:.4f} plain "
+                f"{r['bwd']['plain_ms']:.4f} library "
+                f"{r['bwd']['library_ms']:.4f} bound "
+                f"{r['bwd']['bound_ms']:.4f}")
+    log(f"phase parallel ce shard times: {time.perf_counter() - t0:.1f} s")
+    return launches, times, errs
+
+
+def phase_parallel_cli():
+    """``python -m c2dsr_tpu_torch.cli --synthetic 2000 --mesh_model 2`` for
+    one epoch with a checkpoint (the CLI starts its two ranks on the card),
+    then the same resumed on one process for a second epoch."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO_DIR] + [p for p in [env.get("PYTHONPATH")] if p])
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [sys.executable, "-m", "c2dsr_tpu_torch.cli", "--synthetic",
+                str(CLI_USERS), "--ckpt", os.path.join(tmp, "ckpt")]
+        for extra, want in ((["--n_epoch", "1", "--mesh_model", "2"],
+                             "x 2 ranks (mesh 1x2)"),
+                            (["--n_epoch", "2", "--resume"],
+                             "resumed from")):
+            t0 = time.perf_counter()
+            run = subprocess.run(base + extra, cwd=tmp, env=env,
+                                 capture_output=True, text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            check(run.returncode == 0, f"cli {extra} exited "
+                  f"{run.returncode}: {run.stderr[-2000:]}")
+            check(want in run.stdout and "[ Test result ]" in run.stdout,
+                  f"cli {extra}: no '{want}' or no final result table")
+            check(os.path.isfile(os.path.join(tmp, "ckpt", "meta.json")),
+                  "cli wrote no checkpoint")
+            table = run.stdout[run.stdout.rindex("[ Test result ]"):]
+            log(f"cli: {' '.join(base[1:] + extra)} exited 0 in {secs:.1f} "
+                f"s; test result {table.splitlines()[2].strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2432,9 +2898,15 @@ def main() -> int:
     reset_launches()
     k7, atomics = phase_determinism(spec, train, graphs, timer, peak_bw)
     determinism = read_launches()
+    log(f"phase determinism: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    par_launches, par_times, par_errs = phase_parallel(
+        spec, graphs_host, graphs, train, eval_data, timer, peak_flops,
+        peak_bw, name)
+    log(f"phase parallel: {time.perf_counter() - t0:.1f} s")
     del timer
     torch.cuda.empty_cache()
-    log(f"phase determinism: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     experiment, exp_rates = phase_experiment(spec, train, eval_data, graphs,
                                              card)
@@ -2443,11 +2915,15 @@ def main() -> int:
     phase_cli()
     log(f"phase cli: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    phase_parallel_cli()
+    log(f"phase parallel cli: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     bench, bench_launches = phase_bench()
     log(f"phase bench: {time.perf_counter() - t0:.1f} s")
     paths = {"serving": serving, "serving_d512": serving_wide,
              "training": training, "training_wide": training_wide,
              "experiment": experiment, "determinism": determinism,
+             **par_launches,
              **{f"bench_{k}": v for k, v in bench_launches.items()}}
     step_kernels = ("spmm_csr", "encoder_fwd", "encoder_bwd", "ce_fwd",
                     "ce_bwd", "segsum")
@@ -2457,6 +2933,7 @@ def main() -> int:
             ("training", step_kernels), ("training_wide", step_kernels),
             ("experiment", ("spmm_csr_flagged",) + step_kernels),
             ("determinism", step_kernels),
+            ("parallel_1x2", step_kernels), ("parallel_2x2", step_kernels),
             ("bench_headline", step_kernels),
             ("bench_kernels", step_kernels + ("spmm_csr_flagged",)),
             ("bench_ce_variants", ("ce_fwd_variant", "ce_fwd")),
@@ -2484,6 +2961,8 @@ def main() -> int:
          "max_abs_err": max(k1["max_abs_err"], k1t["max_abs_err"]),
          **step_hops, "bound_by": "bytes",
          "forward": k1, "transpose": k1t,
+         "a2a_local_csr_max_rel_err": max(e["spmm_csr"]
+                                          for e in par_errs.values()),
          "note": "the four hops of a train step: over A and over its "
                  "transpose (the hop's backward, spmm_pallas.py:224-225), "
                  "each over the share table (d 128) and A|B (d 256)"},
@@ -2509,6 +2988,8 @@ def main() -> int:
                                "bound_by", "bound_ffma_ms",
                                "launches_per_call", "kernels_ms")},
          "train": k2t,
+         "row_map_max_abs_err": max(e["encoder_fwd"]
+                                    for e in par_errs.values()),
          "wide_shapes_max_abs_err": wide["encoder_fwd"],
          "wide_shapes_max_rel_err": wide["encoder_fwd_rel"],
          "note": "eval: one tower at B 2048, L 15, d 128; train: the three "
@@ -2525,6 +3006,8 @@ def main() -> int:
          "source": "c2dsr_tpu_torch/csrc/encoder_bwd.cu",
          "replaces": "c2dsr_tpu/ops/encoder_pallas.py:477",
          **counts("encoder_bwd"), **k3,
+         "row_map_max_rel_err": max(e["encoder_bwd"]
+                                    for e in par_errs.values()),
          "wide_shapes_max_rel_err": wide["encoder_bwd"],
          "note": "the three towers of a step (B 1536, 512, 512), L 15, "
                  "d 128, dropout 0.2, from the activations K2 saves: "
@@ -2540,6 +3023,9 @@ def main() -> int:
          "source": "c2dsr_tpu_torch/csrc/ce.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:263",
          **counts("ce_fwd"), **k4, "d256_max_rel_err": wide["ce_fwd"],
+         "shard_widths": [{"mesh": t["mesh"], "N": t["N"], "V": t["V"],
+                           **t["fwd"]} for t in par_times],
+         "shard_max_rel_err": max(e["ce_fwd"] for e in par_errs.values()),
          "d384": {k: v for k, v in ce_wide[384].items() if "fwd" in k},
          "d512": {k: v for k, v in ce_wide[512].items() if "fwd" in k},
          "note": "both domains of a step: N 10240, d 128, V 30720 + 36864; "
@@ -2551,6 +3037,9 @@ def main() -> int:
          "source": "c2dsr_tpu_torch/csrc/ce.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:308",
          **counts("ce_bwd"), **k5, "d256_max_rel_err": wide["ce_bwd"],
+         "shard_widths": [{"mesh": t["mesh"], "N": t["N"], "V": t["V"],
+                           **t["bwd"]} for t in par_times],
+         "shard_max_rel_err": max(e["ce_bwd"] for e in par_errs.values()),
          "d384": {k: v for k, v in ce_wide[384].items() if "bwd" in k},
          "d512": {k: v for k, v in ce_wide[512].items() if "bwd" in k},
          "note": "dh and dW/db kernels (3xTF32 on the tensor cores), both "

@@ -52,7 +52,15 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "c2dsr_tpu_torch.bench.timing", "c2dsr_tpu_torch.bench.gates",
                 "c2dsr_tpu_torch.bench.kernel_bench",
                 "c2dsr_tpu_torch.bench.ce_variants",
-                "c2dsr_tpu_torch.bench.scaled_bench"):
+                "c2dsr_tpu_torch.bench.scaled_bench",
+                "c2dsr_tpu_torch.parallel.comm",
+                "c2dsr_tpu_torch.parallel.distributed",
+                "c2dsr_tpu_torch.parallel.embed",
+                "c2dsr_tpu_torch.parallel.launch",
+                "c2dsr_tpu_torch.parallel.mesh",
+                "c2dsr_tpu_torch.parallel.sharded_eval",
+                "c2dsr_tpu_torch.parallel.sharded_loss",
+                "c2dsr_tpu_torch.parallel.strategy"):
         assert sub in res["modules"]
 
 
@@ -163,12 +171,16 @@ def test_config_resolves_auto_to_f32_without_jax():
 
 def test_config_refuses_tpu_only_knobs():
     """The JAX package's TPU-only settings have no counterpart in the port:
-    setting one is an error, not a silent no-op."""
+    setting one is an error, not a silent no-op.  The mesh's settings are
+    the port's too, with the JAX package's defaults."""
     from c2dsr_tpu_torch.config import Config
-    for name in ("kernel_backend", "train_prng", "pallas_interpret",
-                 "mesh_data", "mesh_model", "lookup_mode"):
+    for name in ("kernel_backend", "train_prng", "pallas_interpret"):
         with pytest.raises(TypeError):
             Config(**{name: None})
+    cfg = Config(mesh_data=2, mesh_model=2, lookup_mode="a2a")
+    assert (cfg.mesh_data, cfg.mesh_model, cfg.lookup_mode) == (2, 2, "a2a")
+    assert (Config().mesh_data, Config().mesh_model,
+            Config().lookup_mode) == (1, 1, "psum")
 
 
 def test_training_kernel_wrappers_refuse_cpu_tensors():

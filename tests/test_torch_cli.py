@@ -7,8 +7,11 @@ package's (``c2dsr_tpu/cli.py``).
 * ``main([... "--synthetic", N, "--device", "cpu", "--ckpt", dir])`` at a
   small width trains two epochs, returns 0, writes a checkpoint and a log
   file that ends with the final result table.
-* Each flag that asks for a mesh or several processes raises, naming the
-  ROADMAP.md item; none is ignored.
+* A mesh runs: ``main([... "--mesh_model", "2", "--mesh_data", "2"])``
+  starts its four ranks on the CPU over gloo, trains, checkpoints, and the
+  checkpoint resumes on one process.
+* Process flags that do not describe the mesh's ranks raise; none is
+  ignored.
 """
 
 import glob
@@ -57,9 +60,32 @@ def test_main_runs_a_synthetic_experiment_on_the_cpu(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh_model", "2"], ["--mesh_data", "4"], ["--distributed"],
+    ["--mesh_model", "2", "--num_processes", "4"],
+    ["--mesh_data", "4", "--num_processes", "4", "--process_id", "4",
+     "--coordinator_address", "localhost:1234"],
+    ["--distributed"],
     ["--coordinator_address", "localhost:1234"], ["--num_processes", "2"],
-    ["--process_id", "0"]])
+    ["--process_id", "0"], ["--mesh_model", "3"]])
 def test_unsupported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Flags that ask for processes the mesh does not have, or a mesh the
+    padded vocabulary does not split over, raise before any process
+    starts."""
+    with pytest.raises(ValueError):
         cli.main(["--synthetic", "100", "--device", "cpu"] + flags)
+
+
+def test_main_runs_a_mesh_of_four_ranks_and_resumes_on_one(tmp_path,
+                                                          monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / "ckpt")
+    common = ["--synthetic", "240", "--device", "cpu", "--ckpt", ckpt,
+              "--d_latent", "32", "--batch_size", "64", "--n_neg_sample",
+              "20", "--batch_size_eval", "64"]
+    assert cli.main(common + ["--n_epoch", "1", "--mesh_model", "2",
+                              "--mesh_data", "2"]) == 0
+    assert ckpt_mod.load_meta(ckpt)["epoch"] == 1
+    (log,) = glob.glob(os.path.join("log", "*.txt"))
+    assert "4 ranks (mesh 2x2)" in open(log).read()
+    assert cli.main(common + ["--n_epoch", "2", "--resume"]) == 0
+    assert "experiment ends at epoch 2" in "".join(
+        open(f).read() for f in glob.glob(os.path.join("log", "*.txt")))
