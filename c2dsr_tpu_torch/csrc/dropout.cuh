@@ -32,10 +32,12 @@ __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 // batch(b) = (b / seg) * stride + off + b % seg of the run's (a rank's
 // B / n_data rows at offset off of each of the call's stacked segments of
 // stride rows; the shared tower stacks three).  seg == 0 is the identity: a
-// one-process call.  A site's index is computed once a row (row_index,
-// batch) and the element's column added, so the map costs the one-process
-// call a branch a row.  L is the sequence length, row_x = L * d the
-// elements of a batch row of a [B, L, d] site.
+// one-process call.  The kernels whose sites index elements by row take the
+// map as a template argument (kMap, true where mapped()), so that a call
+// without it runs the one-process index arithmetic and nothing more;
+// row_index and flat_index are the mapped indices, for kMap only.  L is the
+// sequence length, row_x = L * d the elements of a batch row of a [B, L, d]
+// site.
 struct Dropout {
   int on;
   uint32_t thr;
@@ -49,19 +51,23 @@ struct Dropout {
     return mix32(seed ^ mix32(static_cast<uint32_t>(site + 8 * layer +
                                                     1024 * tower) + kGolden));
   }
-  // the run's batch row of this call's batch row b
+  // whether the call's rows are mapped: its kernels take kMap
+  __host__ __device__ __forceinline__ bool mapped() const {
+    return on && seg != 0;
+  }
+  // the run's batch row of this call's batch row b (once a sequence, in
+  // the attention kernels, which are not templated on the map)
   __device__ __forceinline__ uint32_t batch(uint32_t b) const {
     return seg == 0 ? b : (b / seg) * stride + off + b % seg;
   }
-  // the index of element 0 of row r of a [B * L, m] site (wrapping mod
-  // 2^32 as ops/dropout.py does)
+  // mapped(): the index of element 0 of row r of a [B * L, m] site
+  // (wrapping mod 2^32 as ops/dropout.py does)
   __device__ __forceinline__ uint32_t row_index(uint32_t r,
                                                 uint32_t m) const {
-    return seg == 0 ? r * m : (batch(r / L) * L + r % L) * m;
+    return (batch(r / L) * L + r % L) * m;
   }
-  // the index of flat element i of a [B, L, d] site
+  // mapped(): the index of flat element i of a [B, L, d] site
   __device__ __forceinline__ uint32_t flat_index(uint32_t i) const {
-    if (seg == 0) return i;
     const uint32_t b = i / row_x;
     return batch(b) * row_x + (i - b * row_x);
   }

@@ -141,7 +141,8 @@ __device__ __forceinline__ void ln_fragment_row(
 // tower's (an H100's measurement, PERF.md §6).
 constexpr int kQkvTerms = 6, kTerms = 3;
 
-template <int NT, int TERMS>
+// kMap: the call's dropout maps its rows (drop::Dropout::mapped).
+template <int NT, int TERMS, bool kMap>
 __global__ void __launch_bounds__(kGemmThreads, 3)
 encoder_fwd_gemm_kernel(const FwdGemm g) {
   constexpr int kNj = NT / 8;
@@ -164,13 +165,13 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
       const int row = r_lo + 8 * h;
       if (row >= g.n) continue;
       const size_t base = (size_t)row * g.m;
-      const uint32_t dbase = g.dr.row_index(row, g.m);
+      const uint32_t dbase = kMap ? g.dr.row_index(row, g.m) : 0u;
 #pragma unroll
       for (int j = 0; j < kNj; ++j) {
         const int col = n0 + j * 8 + 2 * tq;
         if (col >= g.m) continue;
         const size_t idx = base + col;
-        const uint32_t di = dbase + col;
+        const uint32_t di = kMap ? dbase + col : static_cast<uint32_t>(idx);
         const float2 b = *reinterpret_cast<const float2*>(g.bias + col);
         float2 v = make_float2(acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
         if (g.epi == kRelu) {
@@ -206,14 +207,14 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
   for (int h = 0; h < 2; ++h) {
     const int row = r_lo + 8 * h;
     const bool live = row < g.n;
-    const uint32_t dbase = g.dr.row_index(row, g.m);
+    const uint32_t dbase = kMap && live ? g.dr.row_index(row, g.m) : 0u;
 #pragma unroll
     for (int j = 0; j < kNj; ++j) {
       const int col = j * 8 + 2 * tq;
       float2 v = make_float2(0.f, 0.f);
       if (live && col < g.m) {
         const size_t idx = (size_t)row * g.m + col;
-        const uint32_t di = dbase + col;
+        const uint32_t di = kMap ? dbase + col : static_cast<uint32_t>(idx);
         const float2 b = *reinterpret_cast<const float2*>(g.bias + col);
         v = make_float2(acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
         if (g.dr.on) {
@@ -412,7 +413,8 @@ encoder_fwd_attn_kernel(const float* __restrict__ qkv,
 // ----------------------------------------------------- the row kernels ----
 
 // xin = drop(x) (a copy at dropout 0), 4 floats a thread; the input site's
-// element index is the flat index into [B, L, d].
+// element index is the flat index into [B, L, d] (kMap: of the run's).
+template <bool kMap>
 __global__ void __launch_bounds__(kThreads)
 encoder_fwd_input_kernel(const float4* __restrict__ x,
                          float4* __restrict__ xin, size_t n4,
@@ -421,7 +423,8 @@ encoder_fwd_input_kernel(const float4* __restrict__ x,
        i += (size_t)gridDim.x * kThreads) {
     float4 v = x[i];
     if (dr.on) {
-      const uint32_t e = dr.flat_index(static_cast<uint32_t>(4 * i));
+      const uint32_t e = kMap ? dr.flat_index(static_cast<uint32_t>(4 * i))
+                              : static_cast<uint32_t>(4 * i);
       v.x = dr.apply(v.x, key, e);
       v.y = dr.apply(v.y, key, e + 1);
       v.z = dr.apply(v.z, key, e + 2);
@@ -484,17 +487,23 @@ cudaError_t prepare() {
   TRY(cudaGetDevice(&dev));
   if (dev < 64 && done[dev]) return cudaSuccess;
   const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<64, kTerms>, a,
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<64, kTerms, false>, a,
                            GemmCfg<64, true>::kSmem));
-  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<128, kTerms>, a,
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<128, kTerms, false>, a,
                            GemmCfg<128, true>::kSmem));
-  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kTerms>, a,
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kTerms, false>, a,
                            GemmCfg<256, true>::kSmem));
-  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<64, kQkvTerms>, a,
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<64, kTerms, true>, a,
                            GemmCfg<64, true>::kSmem));
-  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<128, kQkvTerms>, a,
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<128, kTerms, true>, a,
                            GemmCfg<128, true>::kSmem));
-  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kQkvTerms>, a,
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kTerms, true>, a,
+                           GemmCfg<256, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<64, kQkvTerms, false>, a,
+                           GemmCfg<64, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<128, kQkvTerms, false>, a,
+                           GemmCfg<128, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kQkvTerms, false>, a,
                            GemmCfg<256, true>::kSmem));
   int most = 0;
   for (int L = 1; L <= kMaxL; ++L)
@@ -504,19 +513,31 @@ cudaError_t prepare() {
   return cudaSuccess;
 }
 
-template <int NT, int TERMS>
+template <int NT, int TERMS, bool kMap>
 cudaError_t gemm_t(const FwdGemm& g, cudaStream_t s) {
   const dim3 grid((g.n + kGemmRows - 1) / kGemmRows, (g.m + NT - 1) / NT);
-  encoder_fwd_gemm_kernel<NT, TERMS>
+  encoder_fwd_gemm_kernel<NT, TERMS, kMap>
       <<<grid, kGemmThreads, GemmCfg<NT, true>::kSmem, s>>>(g);
   return cudaGetLastError();
 }
 
-template <int TERMS = kTerms>
+template <int TERMS, bool kMap>
+cudaError_t launch_gemm_t(const FwdGemm& g, int nt, cudaStream_t s) {
+  return nt == 64    ? gemm_t<64, TERMS, kMap>(g, s)
+         : nt == 128 ? gemm_t<128, TERMS, kMap>(g, s)
+                     : gemm_t<256, TERMS, kMap>(g, s);
+}
+
+// The QKV product, which has no dropout site.
+cudaError_t launch_qkv_gemm(const FwdGemm& g, int nt, cudaStream_t s) {
+  return launch_gemm_t<kQkvTerms, false>(g, nt, s);
+}
+
+// The other products: the row map's instantiation where the call maps its
+// rows.
 cudaError_t launch_gemm(const FwdGemm& g, int nt, cudaStream_t s) {
-  return nt == 64    ? gemm_t<64, TERMS>(g, s)
-         : nt == 128 ? gemm_t<128, TERMS>(g, s)
-                     : gemm_t<256, TERMS>(g, s);
+  return g.dr.mapped() ? launch_gemm_t<kTerms, true>(g, nt, s)
+                       : launch_gemm_t<kTerms, false>(g, nt, s);
 }
 
 // The LayerNorm kernel's launch (d > 256: 16 columns a lane).
@@ -551,9 +572,14 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     const size_t n4 = N * d / 4;
     const int blocks = static_cast<int>(
         n4 / kThreads + 1 < 4096 ? n4 / kThreads + 1 : 4096);
-    encoder_fwd_input_kernel<<<blocks, kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(xin),
-        n4, dr, dr.key(drop::kInput, 0));
+    const auto* x4 = reinterpret_cast<const float4*>(x);
+    auto* xin4 = reinterpret_cast<float4*>(xin);
+    if (dr.mapped())
+      encoder_fwd_input_kernel<true><<<blocks, kThreads, 0, s>>>(
+          x4, xin4, n4, dr, dr.key(drop::kInput, 0));
+    else
+      encoder_fwd_input_kernel<false><<<blocks, kThreads, 0, s>>>(
+          x4, xin4, n4, dr, dr.key(drop::kInput, 0));
     TRY(cudaGetLastError());
     X = xin;
   }
@@ -574,7 +600,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     FwdGemm q{};
     q.a = X; q.w = l0.w_qkv + li * s_qkv; q.bias = l0.b_qkv + 3 * ob;
     q.c = qkv; q.n = n; q.k = d; q.m = 3 * d; q.epi = kBias; q.dr = dr;
-    TRY(launch_gemm<kQkvTerms>(q, column_tile(3 * d), s));
+    TRY(launch_qkv_gemm(q, column_tile(3 * d), s));
 
     encoder_fwd_attn_kernel<<<(B + attn_seqs(L) - 1) / attn_seqs(L), kThreads,
                               attn_fwd_smem(L), s>>>(

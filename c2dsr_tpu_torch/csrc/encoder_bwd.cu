@@ -110,7 +110,8 @@ struct GemmArgs {
   uint32_t key;
 };
 
-template <int NT>
+// kMap: the call's dropout maps its rows (drop::Dropout::mapped).
+template <int NT, bool kMap>
 __global__ void __launch_bounds__(kGemmThreads)
 tc_gemm_kernel(const GemmArgs g) {
   constexpr int kNj = NT / 8;          // n-tiles a warp
@@ -134,13 +135,13 @@ tc_gemm_kernel(const GemmArgs g) {
     const int row = r_lo + 8 * h;
     if (row >= g.n) continue;
     const size_t base = (size_t)row * g.m;
-    const uint32_t dbase = g.dr.row_index(row, g.m);
+    const uint32_t dbase = kMap ? g.dr.row_index(row, g.m) : 0u;
 #pragma unroll
     for (int j = 0; j < kNj; ++j) {
       const int col = n0 + j * 8 + 2 * tq;
       if (col >= g.m) continue;
       const size_t idx = base + col;
-      const uint32_t di = dbase + col;
+      const uint32_t di = kMap ? dbase + col : static_cast<uint32_t>(idx);
       float2 v = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
       if (g.epi == kRes) {
         const float2 r = *reinterpret_cast<const float2*>(g.res + idx);
@@ -341,8 +342,9 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
 // ----------------------------------------------------- the row kernels ----
 
 // LayerNorm backward, one warp per row: dz = rstd·(g·s - mean(g·s) -
-// xhat·mean(g·s·xhat)); dzd = drop(dz) where dzd is not null.
-template <int NV>
+// xhat·mean(g·s·xhat)); dzd = drop(dz) where dzd is not null (kMap: the
+// dropout maps its rows).
+template <int NV, bool kMap>
 __global__ void __launch_bounds__(kThreads)
 ln_bwd_kernel(const float* __restrict__ gin, const float* __restrict__ xhat,
               const float* __restrict__ rstd,
@@ -353,7 +355,7 @@ ln_bwd_kernel(const float* __restrict__ gin, const float* __restrict__ xhat,
   const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (r >= n) return;
   const size_t at = (size_t)r * d;
-  const uint32_t dat = dr.row_index(r, d);
+  const uint32_t dat = kMap ? dr.row_index(r, d) : static_cast<uint32_t>(at);
   float gs[NV], xh[NV];
   float m1 = 0.f, m2 = 0.f;
 #pragma unroll
@@ -579,11 +581,17 @@ cudaError_t prepare() {
   TRY(cudaGetDevice(&dev));
   if (dev < 64 && done[dev]) return cudaSuccess;
   const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  TRY(cudaFuncSetAttribute(tc_gemm_kernel<64>, a,
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<64, false>, a,
                            GemmCfg<64, false>::kSmem));
-  TRY(cudaFuncSetAttribute(tc_gemm_kernel<128>, a,
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<128, false>, a,
                            GemmCfg<128, false>::kSmem));
-  TRY(cudaFuncSetAttribute(tc_gemm_kernel<256>, a,
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, false>, a,
+                           GemmCfg<256, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<64, true>, a,
+                           GemmCfg<64, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<128, true>, a,
+                           GemmCfg<128, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, true>, a,
                            GemmCfg<256, false>::kSmem));
   int most = 0;
   for (int L = 1; L <= kMaxL; ++L)
@@ -594,36 +602,55 @@ cudaError_t prepare() {
   return cudaSuccess;
 }
 
-template <int NT>
+template <int NT, bool kMap>
 cudaError_t gemm_t(const GemmArgs& g, cudaStream_t s) {
   const dim3 grid((g.n + kGemmRows - 1) / kGemmRows, (g.m + NT - 1) / NT);
-  tc_gemm_kernel<NT><<<grid, kGemmThreads, GemmCfg<NT, false>::kSmem,
-                       s>>>(g);
+  tc_gemm_kernel<NT, kMap><<<grid, kGemmThreads, GemmCfg<NT, false>::kSmem,
+                             s>>>(g);
   return cudaGetLastError();
 }
 
+template <bool kMap>
+cudaError_t launch_gemm_t(const GemmArgs& g, int nt, cudaStream_t s) {
+  return nt == 64    ? gemm_t<64, kMap>(g, s)
+         : nt == 128 ? gemm_t<128, kMap>(g, s)
+                     : gemm_t<256, kMap>(g, s);
+}
+
+// The row map's instantiation where the call's dropout maps its rows.
 cudaError_t launch_gemm(const GemmArgs& g, int nt, cudaStream_t s) {
-  return nt == 64 ? gemm_t<64>(g, s) : nt == 128 ? gemm_t<128>(g, s)
-                                                 : gemm_t<256>(g, s);
+  return g.dr.mapped() ? launch_gemm_t<true>(g, nt, s)
+                       : launch_gemm_t<false>(g, nt, s);
+}
+
+template <bool kMap>
+cudaError_t ln_bwd_t(const float* gin, const float* xhat, const float* rstd,
+                     const float* scale, float* dz, float* dzd, int n, int d,
+                     drop::Dropout dr, uint32_t key, cudaStream_t s) {
+  const int blocks = (n + kThreads / 32 - 1) / (kThreads / 32);
+  if (d <= 64)
+    ln_bwd_kernel<2, kMap><<<blocks, kThreads, 0, s>>>(
+        gin, xhat, rstd, scale, dz, dzd, n, d, dr, key);
+  else if (d <= 128)
+    ln_bwd_kernel<4, kMap><<<blocks, kThreads, 0, s>>>(
+        gin, xhat, rstd, scale, dz, dzd, n, d, dr, key);
+  else if (d <= 256)
+    ln_bwd_kernel<8, kMap><<<blocks, kThreads, 0, s>>>(
+        gin, xhat, rstd, scale, dz, dzd, n, d, dr, key);
+  else
+    ln_bwd_kernel<16, kMap><<<blocks, kThreads, 0, s>>>(
+        gin, xhat, rstd, scale, dz, dzd, n, d, dr, key);
+  return cudaGetLastError();
 }
 
 cudaError_t ln_bwd(const float* gin, const float* xhat, const float* rstd,
                    const float* scale, float* dz, float* dzd, int n, int d,
                    drop::Dropout dr, uint32_t key, cudaStream_t s) {
-  const int blocks = (n + kThreads / 32 - 1) / (kThreads / 32);
-  if (d <= 64)
-    ln_bwd_kernel<2><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
-                                                 dzd, n, d, dr, key);
-  else if (d <= 128)
-    ln_bwd_kernel<4><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
-                                                 dzd, n, d, dr, key);
-  else if (d <= 256)
-    ln_bwd_kernel<8><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
-                                                 dzd, n, d, dr, key);
-  else
-    ln_bwd_kernel<16><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
-                                                  dzd, n, d, dr, key);
-  return cudaGetLastError();
+  return dzd && dr.mapped()
+             ? ln_bwd_t<true>(gin, xhat, rstd, scale, dz, dzd, n, d, dr, key,
+                              s)
+             : ln_bwd_t<false>(gin, xhat, rstd, scale, dz, dzd, n, d, dr,
+                               key, s);
 }
 
 // The working buffers of the backward walk (reused by every layer) and the
@@ -805,9 +832,9 @@ extern "C" long long encoder_bwd_grad_floats(int d, int n_layers) {
 
 // The backward of the training forward encoder_fwd_f32 that wrote `saved`
 // (encoder_saved_floats, with the same weights, shapes and dropout
-// arguments, the row map included): gout the gradient of the tower's output, dx [B, L, d] out,
-// grads the flat buffer, workspace of encoder_bwd_workspace_floats for
-// `grid` row splits (all pointers 16-byte aligned).  Returns
+// arguments, the row map included): gout the gradient of the tower's
+// output, dx [B, L, d] out, grads the flat buffer, workspace of
+// encoder_bwd_workspace_floats for `grid` row splits (all pointers 16-byte aligned).  Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int encoder_bwd_f32(
     const float* saved, const float* gout, const float* w_qkv,

@@ -3,7 +3,8 @@
 The counterpart of ``c2dsr_tpu/parallel/distributed.py:27-58``.  A JAX
 process is a host that drives all its devices; here a process drives one
 device, so the world is the mesh's ``mesh_data * mesh_model`` ranks, and
-rank r uses ``cuda:(r % torch.cuda.device_count())``.  The JAX flags keep
+a rank uses the card of its index among its host's ranks (on one host,
+rank r uses ``cuda:(r % torch.cuda.device_count())``).  The JAX flags keep
 their names: ``--coordinator_address host:port`` is the rendezvous
 ``tcp://host:port``, ``--num_processes`` the world size and
 ``--process_id`` the rank.
@@ -12,22 +13,32 @@ their names: ``--coordinator_address host:port`` is the rendezvous
     distributed.initialize("10.0.0.1:8476", num_processes=4, process_id=r)
     device = distributed.device_of_rank("cuda")
 
-The backend is NCCL where each rank has a card of its own, and gloo
-otherwise: NCCL refuses two ranks on one device, so ranks that share a
-card (or run on the CPU) talk over gloo, which takes CUDA tensors
-(``parallel/comm.py``); the kernels still run on the card in every rank.
+The backend is NCCL where every host has a card for each of its ranks, and
+gloo otherwise (one backend for the whole group).  NCCL refuses two ranks
+on one device, so ranks that share a card (or run on the CPU) talk over
+gloo, which takes CUDA tensors (``parallel/comm.py``); the kernels still
+run on the card in every rank.  The ranks learn which of them share a host,
+and its cards, by publishing their host name and card count in the
+rendezvous store before the group is made, so the choice holds for every
+way of starting them (a tcp:// address, or ``env://`` as a launcher such as
+torchrun sets it, on one host or several), and a rank's card is its index
+among its host's ranks (``device_of_rank``).
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Optional
+import socket
+from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
+
+# (this rank's index among the ranks on its host, their number), set by
+# initialize
+_local = (0, 1)
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -36,41 +47,54 @@ def initialize(coordinator_address: Optional[str] = None,
                device="cuda", backend: Optional[str] = None,
                timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> None:
     """``init_process_group`` for this rank.  With no address, the
-    environment's rendezvous (``env://``, as a launcher such as torchrun
-    sets it).  ``device`` is where the ranks compute: "cuda" takes NCCL when
-    the host has a card for every rank, else gloo.  ``timeout`` bounds every
+    environment's rendezvous (``env://``).  ``device`` is where the ranks
+    compute: "cuda" takes NCCL when every host has a card for each of its
+    ranks, else gloo.  ``timeout`` bounds the rendezvous and every
     collective, so that a rank that dies cannot hang the others forever."""
-    if coordinator_address is None:
-        init_method = "env://"
-    else:
-        init_method = f"tcp://{coordinator_address}"
+    global _local
+    init_method = ("env://" if coordinator_address is None
+                   else f"tcp://{coordinator_address}")
+    store, rank, world = next(dist.rendezvous(
+        init_method, -1 if process_id is None else int(process_id),
+        -1 if num_processes is None else int(num_processes),
+        timeout=timeout))
+    store.set_timeout(timeout)
+    device = torch.device(device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    index, count, fits = host_layout(dist.PrefixStore("hosts", store), rank,
+                                     world, socket.gethostname(), cards)
+    _local = (index, count)
     if backend is None:
-        backend = _backend(torch.device(device), num_processes)
-    kw = {}
-    if num_processes is not None:
-        kw["world_size"] = int(num_processes)
-    if process_id is not None:
-        kw["rank"] = int(process_id)
-    dist.init_process_group(backend, init_method=init_method,
-                            timeout=timeout, **kw)
+        backend = "nccl" if fits else "gloo"
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world, timeout=timeout)
 
 
-def _backend(device: torch.device, world: Optional[int]) -> str:
-    if device.type != "cuda":
-        return "gloo"
-    n = torch.cuda.device_count()
-    return "nccl" if world is not None and 0 < world <= n else "gloo"
+def host_layout(store, rank: int, world: int, host: str,
+                cards: int) -> Tuple[int, int, bool]:
+    """(this rank's index among the ranks of ``host``, their number, whether
+    every host has a card for each of its ranks), from the host name and
+    card count that every rank publishes in ``store``."""
+    store.set(f"host/{rank}", f"{cards} {host}")
+    ranks_of, cards_of = {}, {}
+    for r in range(world):
+        n, h = store.get(f"host/{r}").decode().split(" ", 1)
+        ranks_of.setdefault(h, []).append(r)
+        cards_of[h] = int(n)
+    fits = all(len(rs) <= cards_of[h] for h, rs in ranks_of.items())
+    return ranks_of[host].index(rank), len(ranks_of[host]), fits
 
 
 def device_of_rank(device="cuda") -> torch.device:
-    """This rank's device: ``cuda:(rank % device_count)``, or the CPU."""
+    """This rank's device: ``cuda:(local index % device_count)``, the local
+    index being the rank's among its host's ranks, or the CPU."""
     device = torch.device(device)
     if device.type != "cuda":
         return device
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the plain PyTorch versions on the CPU")
-    return torch.device("cuda", process_index() % torch.cuda.device_count())
+    return torch.device("cuda", _local[0] % torch.cuda.device_count())
 
 
 def process_count() -> int:
@@ -81,21 +105,8 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def is_multiprocess() -> bool:
-    return process_count() > 1
-
-
-def all_gather_host(x) -> np.ndarray:
-    """Every process's numpy array, concatenated along axis 0 in rank order
-    (the arrays may differ in their first dim)."""
-    x = np.ascontiguousarray(x)
-    if not is_multiprocess():
-        return x
-    parts = [None] * process_count()
-    dist.all_gather_object(parts, x)
-    return np.concatenate(parts, axis=0)
-
-
 def shutdown() -> None:
+    global _local
     if dist.is_initialized():
         dist.destroy_process_group()
+    _local = (0, 1)

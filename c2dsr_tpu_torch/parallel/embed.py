@@ -20,16 +20,14 @@ rank does not own the id; K7 skips zero gradient rows before it orders the
 rest (``csrc/segsum.cu``), so the clipped ids make no chain on row 0.
 
 Propagation (``adj @ table``, the table row-sharded, the output too):
+:func:`sharded_spmm_a2a`.  A schedule fixed once per graph
+(:func:`plan_spmm_a2a`, numpy, the port's own copy; ``ops/spmm.
+attach_a2a_plan``) sends each rank only the unique source rows its
+destination rows need, in one ``all_to_all`` a hop.  (The JAX package also
+has a masked-``psum`` SpMM for a graph without a plan; the port always
+attaches the plan, so it has only this path.)
 
-* :func:`sharded_spmm`: the source rows of every edge arrive by the masked
-  ``psum``, each rank sums the edges whose destination it owns.  Moves
-  nnz·d to every rank a hop.
-* :func:`sharded_spmm_a2a`: a schedule fixed once per graph
-  (:func:`plan_spmm_a2a`, numpy, the port's own copy) sends each rank only
-  the unique source rows its destination rows need, in one
-  ``all_to_all`` a hop.
-
-In both, the local sum over a rank's destination rows is K1 on the card
+The local sum over a rank's destination rows is K1 on the card
 (``ops/spmm_cuda``), over a CSR whose columns index the received buffer
 (``ops/spmm.rect_graph``), built once per graph like ``device_graph``'s
 plan.
@@ -147,26 +145,6 @@ def a2a_lookup_replicated(table: torch.Tensor, ids: torch.Tensor,
 
 
 # --- propagation ----------------------------------------------------------------
-
-def sharded_spmm(graph: spmm_mod.CsrDevice, table: torch.Tensor,
-                 group: comm.Group) -> torch.Tensor:
-    """``adj @ table`` of a row-sharded table by the masked ``psum``: every
-    edge's source row arrives on every rank ([nnz, d]), each rank sums the
-    edges it owns the destination of.  ``graph`` the whole graph as
-    ``device_graph`` uploads it.  The local CSR is built on the host at
-    each call: the path for a graph without a plan (:func:`plan_spmm_a2a`,
-    which the experiment always attaches)."""
-    S = table.shape[0]
-    rows = graph.rows.cpu().numpy().astype(np.int64)
-    own = np.nonzero(rows // S == group.index)[0]
-    csr = spmm_mod.rect_graph(rows[own] - group.index * S, own,
-                              graph.vals.cpu().numpy()[own], S,
-                              rows.shape[0], table.device)
-    local, ok = _owner_local(graph.cols.long(), S, group.index)
-    src = _masked(lookup_mod.lookup(table, local), ok)         # [nnz, d]
-    src = comm.pvary(comm.psum(src, group), group)
-    return spmm_mod.rect_spmm(csr, src)
-
 
 class SpmmPlan(NamedTuple):
     """The all-to-all schedule of one static adjacency (numpy).

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from c2dsr_tpu_torch.parallel import comm
+from c2dsr_tpu_torch.parallel import comm, distributed
 
 _MODEL_SHARDED_ROWS = ("embed_share", "embed_a", "embed_b")
 _MODEL_SHARDED_COLS = ("cls_a_w", "cls_b_w")
@@ -55,11 +55,11 @@ def make_mesh(n_data: int = 1, n_model: int = 1) -> Mesh:
     """The mesh of this process group's ranks (``n_data * n_model`` of
     them).  Every rank must call it: it makes one group per data row and
     per model column, in the same order on every rank."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
+    world = distributed.process_count()
     if n_data * n_model != world:
         raise ValueError(f"mesh {n_data}x{n_model} needs {n_data * n_model} "
                          f"ranks, the process group has {world}")
-    rank = dist.get_rank() if dist.is_initialized() else 0
+    rank = distributed.process_index()
     groups = {}
     if n_model > 1:
         for d in range(n_data):

@@ -10,8 +10,6 @@ in XLA, outside any Pallas kernel).  No gradient flows here.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
 from c2dsr_tpu_torch.parallel import comm
@@ -52,17 +50,3 @@ def sharded_gather_scores(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """scores[i, k] = h_i . w[:, ids[i, k]] + b[ids[i, k]] (sampled
     negatives): each rank scores the ids it owns from its shard product."""
     return _owned_pick(torch.matmul(h, w) + b, ids, group)
-
-
-def sharded_topk(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
-                 n_real: int, group: comm.Group
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The global top-k: each rank's top-k, all-gathered, reduced to k.
-    Returns (values [B, k], global ids [B, k]) on every rank."""
-    scores = _shard_scores(h, w, b, n_real, group)
-    v, i = torch.topk(scores, k, dim=1)
-    gi = i + group.index * w.shape[1]
-    v_all = comm.gather_(v, group).permute(1, 0, 2).reshape(h.shape[0], -1)
-    i_all = comm.gather_(gi, group).permute(1, 0, 2).reshape(h.shape[0], -1)
-    vg, sel = torch.topk(v_all, k, dim=1)
-    return vg, i_all.gather(1, sel)

@@ -4,30 +4,28 @@ the model group (``c2dsr_tpu/parallel/sharded_loss.py:34-196``).
 Each model rank holds V/M output columns of a classifier (``parallel/
 mesh.py``).  The softmax normaliser combines the ranks' local sums; the
 target's logit lives on one rank and is recovered with a masked ``psum``.
-Two shard-local paths:
 
-* :func:`sharded_rec_ce_rows`: the local [B, R, V/M] logits block,
-  materialised (the JAX package's einsum path).
-* :func:`sharded_rec_ce_rows_kernel`: the fused CE (``ops/fused_ce``, K4
-  forward and K5 backward on the card, their plain versions on the CPU) on
-  the rank's vocab slice, as ``sharded_rec_ce_rows_pallas`` runs Pallas
-  #6-#9 there: no logit is written to device memory.  Each rank's local
-  (lse, target logit) combine as lse = m + log(psum(exp(lse_s - m))) with
-  m = pmax(lse_s) under no gradient, and tlog = psum(tlog_s).  The pad
-  class is folded in on rank 0 only (-1e9 elsewhere) and the bias is -1e9
-  on the global vocab padding.
+:func:`sharded_rec_ce_rows_kernel` runs the fused CE (``ops/fused_ce``, K4
+forward and K5 backward on the card, their plain versions on the CPU) on
+the rank's vocab slice, as ``sharded_rec_ce_rows_pallas`` runs Pallas
+#6-#9 there: no logit is written to device memory.  Each rank's local
+(lse, target logit) combine as lse = m + log(psum(exp(lse_s - m))) with
+m = pmax(lse_s) under no gradient, and tlog = psum(tlog_s).  The pad class
+is folded in on rank 0 only (-1e9 elsewhere) and the bias is -1e9 on the
+global vocab padding.  (The JAX package also has an einsum path that
+materialises the local logits, where its Pallas CE is not chosen; the port
+always runs the fused CE, whose kernels refuse a shard width they do not
+take, ``ops/fused_ce_cuda.check_shape``.)  The mean divides the rows' sum by the valid count summed over the
+data group (``ops/losses.ce_mean_from_rows``).
 
 Semantics: ``ops/losses.rec_ce_row_losses`` (F.cross_entropy with
 ignore_index = n_real over [domain classes | pad class]).  The rows h are
 replicated over the model group and each rank multiplies them by its own
 slice, so they enter through ``comm.pvary``, whose backward sums the ranks'
-partial gradients; so does the kernel path's pad logit, which only rank 0
-uses.
+partial gradients; so does the pad logit, which only rank 0 uses.
 """
 
 from __future__ import annotations
-
-from typing import Tuple
 
 import torch
 
@@ -37,58 +35,14 @@ from c2dsr_tpu_torch.parallel import comm
 NEG = -1e9
 
 
-def _local_logits(h, w, b, n_real: int, group: comm.Group) -> torch.Tensor:
-    Vs = w.shape[1]
-    logits = comm.pvary(h, group) @ w + b
-    col = group.index * Vs + torch.arange(Vs, device=h.device)
-    return torch.where(col < n_real, logits,
-                       torch.full((), NEG, dtype=logits.dtype,
-                                  device=h.device))
-
-
-def sharded_rec_ce_rows(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                        pad_logit: torch.Tensor, targets: torch.Tensor,
-                        n_real: int, group: comm.Group) -> torch.Tensor:
-    """Per-position masked CE terms [B, R] over the materialised local
-    logits.  h [B, R, d] and pad_logit [B, R, 1] replicated; w [d, V/M] and
-    b [V/M] this rank's columns; targets [B, R] global ids, n_real
-    ignored."""
-    Vs = w.shape[1]
-    logits = _local_logits(h, w, b, n_real, group)
-    # every rank consumes the pad logit alike (after the psum): no pvary
-    pad = pad_logit[..., 0]
-    m = comm.pmax(logits.detach().amax(dim=-1), group)
-    m = torch.maximum(m, pad.detach())
-    se = comm.psum(torch.exp(logits - m[..., None]).sum(dim=-1), group)
-    lse = m + torch.log(se + torch.exp(pad - m))
-    t_local = targets.long() - group.index * Vs
-    t_ok = (t_local >= 0) & (t_local < Vs)
-    t_logit = logits.gather(-1, t_local.clamp(0, Vs - 1)[..., None])[..., 0]
-    t_logit = comm.psum(torch.where(t_ok, t_logit,
-                                    torch.zeros_like(t_logit)), group)
-    mask = (targets != n_real).to(lse.dtype)
-    return (lse - t_logit) * mask
-
-
-def sharded_rec_cross_entropy(h, w, b, pad_logit, targets, n_real: int,
-                              group: comm.Group,
-                              data_group: comm.Group = comm.SELF
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean loss, n_valid) of :func:`sharded_rec_ce_rows`; the valid count
-    and the sum run over ``data_group`` too (the batch split over it)."""
-    rows = sharded_rec_ce_rows(h, w, b, pad_logit, targets, n_real, group)
-    n_valid = comm.sum_((targets != n_real).to(torch.float32).sum(),
-                        data_group)
-    total = comm.psum(rows.sum(), data_group)
-    return total / torch.clamp(n_valid, min=1.0), n_valid
-
-
 def sharded_rec_ce_rows_kernel(h: torch.Tensor, w: torch.Tensor,
                                b: torch.Tensor, pad_logit: torch.Tensor,
                                targets: torch.Tensor, n_real: int,
                                group: comm.Group) -> torch.Tensor:
     """Per-position masked CE terms [B, R] by the fused CE on this rank's
-    vocab slice (shapes as :func:`sharded_rec_ce_rows`).
+    vocab slice.  h [B, R, d] and pad_logit [B, R, 1] replicated; w [d,
+    V/M] and b [V/M] this rank's columns; targets [B, R] global ids, n_real
+    ignored.
 
     K4/K5 read a target >= V as "no target here" (``fused_ce.ce_fwd_plain``)
     where JAX's local target ``tgt - r * vs`` is negative on later shards,

@@ -138,6 +138,9 @@ class ShardedOps(LocalOps):
                        generator=None, out_flag=None):
         # out_flag is ignored: the row-sharded propagation stays dense
         # (values identical either way), as in the JAX package
+        if graph.a2a is None:
+            raise ValueError("a row-sharded propagation needs the graph's "
+                             "all-to-all plan (ops/spmm.attach_a2a_plan)")
         h_sum = h
         cur = h
         for _ in range(n_layers):
@@ -146,10 +149,7 @@ class ShardedOps(LocalOps):
                                   device=cur.device) >= dropout
                 cur = torch.where(keep, cur / (1.0 - dropout),
                                   torch.zeros((), device=cur.device))
-            if graph.a2a is not None:
-                cur = embed.sharded_spmm_a2a(graph.a2a, cur, self.model_group)
-            else:
-                cur = embed.sharded_spmm(graph, cur, self.model_group)
+            cur = embed.sharded_spmm_a2a(graph.a2a, cur, self.model_group)
             h_sum = h_sum + cur
         return h_sum / (n_layers + 1)
 

@@ -2378,19 +2378,24 @@ def _clone(obj):
 
 @contextlib.contextmanager
 def _recording_first_calls(store):
-    """Record (a copy of) the arguments of the first call of K2's, K4's and
-    K7's wrappers while the body runs; the wrappers still count."""
+    """Record (a copy of) the arguments of the first call of K2's (a
+    training call, with ``saved``), K4's and K7's wrappers, and of K3's
+    first call for each tower (as ``encoder_bwd/<tower>``), while the body
+    runs; the wrappers still count."""
     from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce_cuda, segsum_cuda
     saved = []
-    for mod, name in ((encoder_cuda, "encoder_fwd"), (fused_ce_cuda, "ce_fwd"),
+    for mod, name in ((encoder_cuda, "encoder_fwd"),
+                      (encoder_cuda, "encoder_bwd"), (fused_ce_cuda, "ce_fwd"),
                       (segsum_cuda, "segsum")):
         orig = getattr(mod, name)
 
         def rec(*args, _orig=orig, _name=name, **kw):
-            if _name not in store and (_name != "encoder_fwd"
-                                       or kw.get("saved") is not None):
-                store[_name] = _clone((args, {k: v for k, v in kw.items()
-                                              if k != "saved"}))
+            key = (f"{_name}/{kw.get('tower', 0)}" if _name == "encoder_bwd"
+                   else _name)
+            if key not in store and (_name != "encoder_fwd"
+                                     or kw.get("saved") is not None):
+                store[key] = _clone((args, {k: v for k, v in kw.items()
+                                            if k != "saved"}))
             return _orig(*args, **kw)
 
         # the wrapper counts its launches under its module name, which now
@@ -2409,11 +2414,13 @@ def _recording_first_calls(store):
 def _shard_kernels_against_plain(calls, graphs, row_map):
     """This rank's kernels on the sharded path's own inputs against their
     plain versions: K4/K5 at the vocab shard's width (CE_TOL, CE_BWD_TOL),
-    K2/K3 at its first tower call's shape and weights at dropout 0.2
-    under its dropout row map (ENCODER_TOL, GRAD_TOL at K2's branches), K1 over the all-to-all
-    plan's local CSR of each graph and its transpose (SPMM_TOL), K7 on the
-    first sharded lookup's gradient (bitwise CPU index_add_).  Returns the
-    errors."""
+    K2/K3 on the step's first tower call (its input, weights and output
+    gradient) at dropout 0.2 under the rank's dropout row map (K2 against
+    the float64 plain tower, see below; K3 GRAD_TOL at K2's branches), K1
+    over the all-to-all plan's local CSR of each graph and its transpose
+    (SPMM_TOL), K7 on the first sharded lookup's gradient (bitwise CPU
+    index_add_).  Returns the errors."""
+    from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
     from c2dsr_tpu_torch.ops import (encoder_cuda, fused_ce, fused_ce_cuda,
                                      segsum_cuda, spmm, spmm_cuda)
@@ -2436,28 +2443,44 @@ def _shard_kernels_against_plain(calls, graphs, row_map):
     check(errs["ce_bwd"] <= CE_BWD_TOL, f"K5 at the shard width: rel err "
           f"{errs['ce_bwd']} > {CE_BWD_TOL}")
 
-    # K2/K3 at the rank's first tower call's shape and weights under its
-    # row map, on the inputs phase_encoder_train takes (the step's own are
-    # held through the step's loss and gradients above)
+    # K2/K3 on the rank's first tower call of the step as recorded: its x,
+    # seq and weights, and the gradient its backward received, at dropout
+    # 0.2 under the rank's row map.  The step's tower input (std ~13, against
+    # 4 in phase_encoder) makes the attention logits ~10x larger, and f32
+    # rounding of them moves the softmax: on an H100 the plain f32 tower is
+    # 2.5e-5 to 3.3e-5 relative from float64 there, above ENCODER_REL_TOL,
+    # so two f32 towers differ by as much.  K2 is therefore held to the
+    # float64 plain tower, within the larger of ENCODER_REL_TOL and 2x the
+    # plain f32 tower's own error (the serving gate's rule), on query rows
+    # with an allowed key (_fwd_errs: all-masked rows reported apart); its
+    # distance from the plain f32 tower is reported beside.
     (x, seq, p), kw = calls["encoder_fwd"]
     kw = dict(kw, dropout=0.2, seed=77, row_map=row_map)
-    x, seq = _encoder_inputs(x.shape[0], x.shape[1], x.shape[2],
-                             kw["idx_pad"], seed=29)
+    gout = calls[f"encoder_bwd/{kw['tower']}"][0][2]
+    pad, invert = kw["idx_pad"], kw["invert_padding_mask"]
     acts = encoder_cuda.saved_buffer(x, kw["n_head"], 1)
     with torch.no_grad():
         out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw)
         ref = enc.encoder_fwd_plain(x, seq, p, **kw)
-    gout = torch.randn(x.shape, device="cuda",
-                       generator=torch.Generator("cuda").manual_seed(3))
+        ref64 = enc.encoder_fwd_plain(
+            x.double(), seq, params_mod._map(lambda t: t.double(), p), **kw)
     got = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, **kw)
     rels, _, _ = _k3_against_plain(x, seq, gout, p, acts, kw["n_head"], 1,
                                    kw, got)
-    errs["encoder_fwd"] = float((out - ref).abs().max())
-    errs["encoder_bwd"] = max(rels.values())
-    check(errs["encoder_fwd"] <= ENCODER_TOL, f"K2 with the row map "
-          f"{row_map}: max abs err {errs['encoder_fwd']} > {ENCODER_TOL}")
-    check(errs["encoder_bwd"] <= GRAD_TOL, f"K3 with the row map {row_map}: "
-          f"rel err {errs['encoder_bwd']} > {GRAD_TOL}")
+    k2_64, dead, n_dead = _fwd_errs(out.double(), ref64, seq, pad, invert)
+    errs.update(
+        x_std=float(x.std()), encoder_fwd_rel_f64=k2_64,
+        plain_rel_f64=_fwd_errs(ref.double(), ref64, seq, pad, invert)[0],
+        encoder_fwd_rel_plain=_fwd_errs(out, ref, seq, pad, invert)[0],
+        encoder_fwd_dead_abs=dead, encoder_fwd_dead_rows=n_dead,
+        encoder_bwd=max(rels.values()))
+    tol = max(ENCODER_REL_TOL, 2 * errs["plain_rel_f64"])
+    check(errs["encoder_fwd_rel_f64"] <= tol, f"K2 with the row map "
+          f"{row_map} on the step's inputs: relative err against float64 "
+          f"{errs['encoder_fwd_rel_f64']} > {tol} (the plain f32 tower's "
+          f"{errs['plain_rel_f64']})")
+    check(errs["encoder_bwd"] <= GRAD_TOL, f"K3 with the row map {row_map} "
+          f"on the step's inputs: rel err {errs['encoder_bwd']} > {GRAD_TOL}")
 
     errs["spmm_csr"] = 0.0
     for graph, d in ((graphs.share, 128), (graphs.specific, 256)):
@@ -2489,8 +2512,8 @@ def _parallel_rank(rank, world, job):
     train step on its rows of the global batch; the kernels' launches of
     each; on rank 0 the one-process kernel step's loss and gradients
     against the mesh's (gathered), and the same with the sharded gradients
-    scaled by M, which must fail; then its kernels against their plain
-    versions on the sharded path's inputs."""
+    scaled by M, which must fail; then on every rank its kernels against
+    their plain versions on the sharded path's inputs."""
     global gates, timing
     from c2dsr_tpu_torch.bench import gates, timing
     from c2dsr_tpu_torch.config import Config, padded_sizes
@@ -2573,10 +2596,9 @@ def _parallel_rank(rank, world, job):
         out["grad_err"] = max(errs)
         out["grad_worst"] = names[int(np.argmax(errs))]
         out["grad_err_scaled"] = max(bad)
-        out["shard_kernels"] = _shard_kernels_against_plain(
-            calls, graphs,
-            strategy.make_ops(cfg, mesh).dropout_rows(
-                local["seq_share"].shape[0]))
+    out["shard_kernels"] = _shard_kernels_against_plain(
+        calls, graphs, strategy.make_ops(cfg, mesh).dropout_rows(
+            local["seq_share"].shape[0]))
     return out
 
 
@@ -2743,14 +2765,26 @@ def phase_parallel(spec, graphs_host, graphs, train, eval_data, timer,
                 "explained by a near-tie")
             check(n_bad == 0, f"parallel {tag} {mode}: {n_bad} ranks differ "
                   "beyond near-ties")
-        k = r0["shard_kernels"]
-        log(f"parallel {tag} rank 0's kernels on the sharded path against "
-            f"their plain versions: K4 at N x V/M = {k['ce_shape']} rel "
-            f"{k['ce_fwd']:.3e}, K5 {k['ce_bwd']:.3e}; K2 with the row map "
-            f"at dropout 0.2 max abs {k['encoder_fwd']:.3e}, K3 rel "
-            f"{k['encoder_bwd']:.3e}; K1 over the a2a CSRs rel "
-            f"{k['spmm_csr']:.3e}; K7 bitwise ({k['segsum_zero_rows']} zero "
-            "gradient rows of the masked ids skipped)")
+        for rank, r in enumerate(res):
+            k = r["shard_kernels"]
+            log(f"parallel {tag} rank {rank}'s kernels on the sharded path "
+                f"against their plain versions: K4 at N x V/M = "
+                f"{k['ce_shape']} rel {k['ce_fwd']:.3e}, K5 "
+                f"{k['ce_bwd']:.3e}; K2 on the step's tower input (std "
+                f"{k['x_std']:.2f}) with the row map at dropout 0.2, "
+                f"relative on rows with an allowed key: against float64 "
+                f"{k['encoder_fwd_rel_f64']:.3e} (plain f32 "
+                f"{k['plain_rel_f64']:.3e}), against plain f32 "
+                f"{k['encoder_fwd_rel_plain']:.3e}, abs "
+                f"{k['encoder_fwd_dead_abs']:.3e} on "
+                f"{k['encoder_fwd_dead_rows']} all-masked rows; K3 rel "
+                f"{k['encoder_bwd']:.3e}; K1 over the a2a CSRs rel "
+                f"{k['spmm_csr']:.3e}; K7 bitwise ({k['segsum_zero_rows']} "
+                "zero gradient rows of the masked ids skipped)")
+        k = {n: max(r["shard_kernels"][n] for r in res)
+             for n in ("ce_fwd", "ce_bwd", "encoder_fwd_rel_f64",
+                       "plain_rel_f64", "encoder_fwd_rel_plain",
+                       "encoder_bwd", "spmm_csr")}
         total = {}
         for r in res:
             for part in ("step_launches", "eval_launches"):
@@ -2988,8 +3022,10 @@ def main() -> int:
                                "bound_by", "bound_ffma_ms",
                                "launches_per_call", "kernels_ms")},
          "train": k2t,
-         "row_map_max_abs_err": max(e["encoder_fwd"]
-                                    for e in par_errs.values()),
+         "mesh_step_inputs": {
+             n: max(e[n] for e in par_errs.values())
+             for n in ("encoder_fwd_rel_f64", "plain_rel_f64",
+                       "encoder_fwd_rel_plain")},
          "wide_shapes_max_abs_err": wide["encoder_fwd"],
          "wide_shapes_max_rel_err": wide["encoder_fwd_rel"],
          "note": "eval: one tower at B 2048, L 15, d 128; train: the three "
@@ -3006,8 +3042,8 @@ def main() -> int:
          "source": "c2dsr_tpu_torch/csrc/encoder_bwd.cu",
          "replaces": "c2dsr_tpu/ops/encoder_pallas.py:477",
          **counts("encoder_bwd"), **k3,
-         "row_map_max_rel_err": max(e["encoder_bwd"]
-                                    for e in par_errs.values()),
+         "mesh_step_inputs_max_rel_err": max(e["encoder_bwd"]
+                                             for e in par_errs.values()),
          "wide_shapes_max_rel_err": wide["encoder_bwd"],
          "note": "the three towers of a step (B 1536, 512, 512), L 15, "
                  "d 128, dropout 0.2, from the activations K2 saves: "

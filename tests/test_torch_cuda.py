@@ -265,6 +265,39 @@ def test_encoder_train_kernels_match_plain(cuda, dropout, invert, d, n_head,
         assert torch.equal(g, g2)
 
 
+@pytest.mark.parametrize("d,n_head,L,n_layers", [
+    (128, 1, 15, 1), (64, 2, 15, 2), (40, 1, 30, 1), (256, 4, 30, 1),
+    (512, 4, 15, 2)])
+def test_encoder_row_map_gives_the_whole_calls_rows(cuda, d, n_head, L,
+                                                    n_layers):
+    """K2 and K3 under the dropout row map (the kernels' mapped
+    instantiations): data rank 1's rows of a three-segment call (3 x 4 of
+    3 x 8 sequences) at dropout 0.2 give the whole call's rows, and without
+    the map they differ."""
+    from c2dsr_tpu_torch.ops import dropout as drop
+    B, m = 8, 4
+    p, x, seq = _tower_case(cuda, d, n_head, L, n_layers, 3 * B)
+    gout = torch.randn_like(x)
+    kw = dict(idx_pad=999, n_head=n_head, invert_padding_mask=False,
+              dropout=0.2, seed=77, tower=0)
+    rows = torch.cat([torch.arange(s * B + m, s * B + 2 * m)
+                      for s in range(3)]).to(cuda)
+
+    def run(take, row_map):
+        xs, ss, gs = (t[take].contiguous() for t in (x, seq, gout))
+        out = encoder_cuda.encoder_fwd(xs, ss, p, row_map=row_map, **kw)
+        dx, _ = encoder_cuda.encoder_bwd(xs, ss, gs, p, row_map=row_map, **kw)
+        return out, dx
+
+    full_out, full_dx = run(slice(None), None)
+    out, dx = run(rows, drop.row_map(m, m, B))
+    bad, _ = run(rows, None)
+    torch.cuda.synchronize()
+    assert float((out - full_out[rows]).abs().max()) <= 1e-4
+    assert _rel_err(dx, full_dx[rows]) <= 1e-4
+    assert float((bad - full_out[rows]).abs().max()) > 1e-2
+
+
 def _plain_activations(x, seq, p, n_head, kw):
     """The plain tower's intermediates, layer by layer, as K2 saves them."""
     from c2dsr_tpu_torch.ops import dropout as drop

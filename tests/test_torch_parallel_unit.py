@@ -10,6 +10,10 @@ the CPU.
   JAX package's schedule, and its per-rank CSR sums the graph's product.
 * ``Config``'s mesh fields, ``mesh.local_batch`` / ``eval_slice`` and the
   sharding rule by name (``param_spec``).
+* ``parallel/distributed``: NCCL only where every host has a card for each
+  of its ranks (hosts and card counts published in a store), a rank's card
+  its index on its host, and the same found by two ranks over an
+  ``env://`` rendezvous (the one test here that starts processes).
 """
 
 import numpy as np
@@ -165,3 +169,75 @@ def test_sharding_rule_is_the_jax_param_spec():
             assert dim is None, name
         else:
             assert spec[dim] == "model", name
+
+
+# --- the backend and the card of a rank (parallel/distributed.py) ---------------
+
+def _layout(hosts, cards, rank):
+    """host_layout of ``rank`` once every rank has published its host and
+    card count in one store."""
+    import torch.distributed as dist
+    from c2dsr_tpu_torch.parallel import distributed
+    store = dist.HashStore()
+    for r, h in enumerate(hosts):
+        store.set(f"host/{r}", f"{cards[h]} {h}")
+    return distributed.host_layout(store, rank, len(hosts), hosts[rank],
+                                   cards[hosts[rank]])
+
+
+@pytest.mark.parametrize("hosts, cards, rank, want", [
+    # one host, a card a rank: NCCL
+    ("aaaa", {"a": 4}, 2, (2, 4, True)),
+    # two hosts of four cards, eight ranks: NCCL, the card of the local index
+    ("aaaabbbb", {"a": 4, "b": 4}, 5, (1, 4, True)),
+    # four ranks sharing one card: gloo
+    ("aaaa", {"a": 1}, 3, (3, 4, False)),
+    # one host short of cards: gloo on every host, the other one too
+    ("aaaabbbb", {"a": 4, "b": 2}, 1, (1, 4, False)),
+    # ranks on the CPU: no card
+    ("aa", {"a": 0}, 0, (0, 2, False)),
+])
+def test_the_backend_is_nccl_only_where_every_host_has_a_card_a_rank(
+        hosts, cards, rank, want):
+    assert _layout(hosts, cards, rank) == want
+
+
+def _env_entry(rank, world, port, results):
+    import datetime
+    import os
+    import torch.distributed as dist
+    from c2dsr_tpu_torch.parallel import distributed
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world))
+    try:
+        # "cuda" on a host without a card: more ranks than cards, so gloo
+        distributed.initialize(device="cuda",
+                               timeout=datetime.timedelta(seconds=60))
+        results.put((rank, dist.get_backend(), distributed._local,
+                     distributed.process_count(),
+                     distributed.process_index()))
+    finally:
+        distributed.shutdown()
+
+
+def test_initialize_over_env_rendezvous_finds_the_hosts_ranks():
+    """``env://`` (as torchrun sets it, the CLI's --distributed): the ranks
+    learn their host's rank count from the rendezvous and take gloo where
+    the host has fewer cards than ranks."""
+    import torch.multiprocessing as mp
+    from c2dsr_tpu_torch.parallel import launch
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = launch.free_port()
+    procs = [ctx.Process(target=_env_entry, args=(r, 2, port, results),
+                         daemon=True) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = sorted(results.get(timeout=90) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+    assert got == [(0, "gloo", (0, 2), 2, 0), (1, "gloo", (1, 2), 2, 1)]
