@@ -5,6 +5,8 @@
     python -m c2dsr_tpu_torch.bench --ce-variants   # ce_variants.py
     python -m c2dsr_tpu_torch.bench --scaled        # scaled_bench.py
     python -m c2dsr_tpu_torch.bench --batches       # train rate by batch
+    python -m c2dsr_tpu_torch.bench --scaled-e2e    # scaled_e2e.py
+    python -m c2dsr_tpu_torch.bench --ablation      # step_ablation.py
     ... [--device cpu]
 
 The headline (bench.py:41-66, :139-203): train examples/s of
@@ -22,9 +24,10 @@ The last line of standard output is one JSON object; details go to
 ``build/bench_torch/details.json`` (git-ignored).  The bench writes no
 tracked file.
 
-Every mode runs on the card.  ``--device cpu`` runs the headline and
-``--batches`` with the plain versions on the CPU (the tests do, at a tiny
-:class:`Spec`); the kernel modes have no CPU form and raise.  The JAX
+Every mode runs on the card.  ``--device cpu`` runs the headline,
+``--batches`` and ``--ablation`` with the plain versions on the CPU (the
+tests do, at a tiny :class:`Spec`); the kernel modes and ``--scaled-e2e``
+(1M item rows) have no CPU form and raise.  The JAX
 bench's second, float32 rate does not carry over: the port computes in
 f32 only.
 """
@@ -284,14 +287,28 @@ def batch_scaling(spec: Spec = FK, device="cuda") -> Dict:
 def main(argv=None, spec: Optional[Spec] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m c2dsr_tpu_torch.bench")
     mode = ap.add_mutually_exclusive_group()
-    for flag in ("--kernels", "--ce-variants", "--scaled", "--batches"):
+    for flag in ("--kernels", "--ce-variants", "--scaled", "--batches",
+                 "--scaled-e2e", "--ablation"):
         mode.add_argument(flag, action="store_true")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu (headline and --batches)")
+                    help="cuda (default) or cpu (headline, --batches and "
+                         "--ablation)")
     args = ap.parse_args(argv)
     spec = spec or FK
     try:
-        if args.kernels or args.ce_variants or args.scaled:
+        if args.scaled_e2e or args.ablation:
+            if args.scaled_e2e:
+                timing.require_cuda(args.device, "--scaled-e2e")
+                from c2dsr_tpu_torch.bench import scaled_e2e
+                section, out = "scaled_e2e", scaled_e2e.run(args.device)
+            else:
+                from c2dsr_tpu_torch.bench import step_ablation
+                section, out = "step_breakdown", step_ablation.run(
+                    spec, args.device)
+            merge_details({section: out})
+            line = {"metric": section, "value": 1, "unit": "done",
+                    "vs_baseline": None, "device": out["device"]}
+        elif args.kernels or args.ce_variants or args.scaled:
             timing.require_cuda(args.device, "this bench mode")
             from c2dsr_tpu_torch.kernels import build
             build.build_all()

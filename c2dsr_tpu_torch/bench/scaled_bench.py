@@ -40,6 +40,7 @@ HBM_PER_CARD = 80e9        # H100 SXM
 CE_TOL = 1e-5              # lse - tlog rows, over max |oracle|
 GRAD_TOL = 1e-4            # dh, dW, db over max |oracle|: the train step's
                            # gradient gate (chip_smoke.py GRAD_TOL)
+RANK_DELTA = 8             # full rank against a chunked count: near-ties
 
 
 def memory_plan() -> list:
@@ -62,6 +63,58 @@ def memory_plan() -> list:
 
 def _rel(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def ce_oracle(h, w, b, pad, tgt, n_real: int, chunk: int):
+    """(rows, dh, dW, db) of ``fused_rec_ce_rows(h, w, b, pad, tgt,
+    n_real).sum()``: the plain versions in float64 over chunks of ``chunk``
+    sequences (h [B, R, d]), dW and db summed over the chunks, so that no
+    chunk's logits outgrow the device."""
+    from c2dsr_tpu_torch.ops import fused_ce
+    w64 = w.detach().double().requires_grad_(True)
+    b64 = b.detach().double().requires_grad_(True)
+    rows, dh = [], []
+    dw = torch.zeros_like(w64)
+    db = torch.zeros_like(b64)
+    with gates.plain_versions():
+        for s in range(0, h.shape[0], chunk):
+            hc = h[s:s + chunk].detach().double().requires_grad_(True)
+            out = fused_ce.fused_rec_ce_rows(hc, w64, b64,
+                                             pad[s:s + hc.shape[0]],
+                                             tgt[s:s + hc.shape[0]], n_real)
+            gh, gw, gb = torch.autograd.grad(out.sum(), [hc, w64, b64])
+            rows.append(out.detach())
+            dh.append(gh)
+            dw += gw
+            db += gb
+    return torch.cat(rows), torch.cat(dh), dw, db
+
+
+def ce_errors(rows, grads, oracle):
+    """(rows' error, the largest of dh's, dW's and db's), each max abs over
+    max |oracle|, of the CE rows and their gradients against ce_oracle."""
+    want_rows, dh, dw, db = oracle
+    return (_rel(rows, want_rows),
+            max(_rel(grads[0], dh), _rel(grads[1], dw), _rel(grads[2], db)))
+
+
+def full_rank_delta(pops, hv, w, b, gt, n_real: int) -> int:
+    """The largest |rank - oracle rank| of ``pops.full_rank`` over the rows
+    of ``hv``, the oracle counting the real columns in chunks of 2^17.
+    Chunked and whole products may round a near-tie apart, as the JAX bench
+    allows: more than RANK_DELTA raises GateFailure."""
+    with torch.no_grad():
+        got = pops.full_rank(hv, w, b, gt, n_real)
+        step = 1 << 17
+        scores = torch.cat([hv @ w[:, s:min(s + step, n_real)]
+                            + b[s:min(s + step, n_real)]
+                            for s in range(0, n_real, step)], 1)
+        want = (scores > scores.gather(1, gt[:, None].long())).sum(1) + 1
+    dev = int((got.long() - want).abs().max())
+    if dev > RANK_DELTA:
+        raise timing.GateFailure(f"full rank: rank delta {dev} > "
+                                 f"{RANK_DELTA} against the chunked count")
+    return dev
 
 
 def _lookup(timer, rng, peak_bw) -> Dict:
@@ -117,32 +170,11 @@ def _ce(timer, rng, card, peak_flops, peak_bw) -> Dict:
 
     rows = fwd().detach()
     grads = fwd_bwd()
-    # the oracle: the plain versions in float64 over chunks of 25
-    # sequences (500 rows, whose logits take 2 GiB); dW and db summed over
-    # the chunks
-    w64 = w.detach().double().requires_grad_(True)
-    b64 = b.detach().double().requires_grad_(True)
-    want_rows, dh = [], []
-    dw = torch.zeros_like(w64)
-    db = torch.zeros_like(b64)
-    with gates.plain_versions():
-        for s in range(0, B, 25):
-            hc = h[s:s + 25].detach().double().requires_grad_(True)
-            out = fused_ce.fused_rec_ce_rows(hc, w64, b64,
-                                             pad[s:s + hc.shape[0]],
-                                             tgt[s:s + hc.shape[0]], n_real)
-            gh, gw, gb = torch.autograd.grad(out.sum(), [hc, w64, b64])
-            want_rows.append(out.detach())
-            dh.append(gh)
-            dw += gw
-            db += gb
-    e_f = _rel(rows, torch.cat(want_rows))
-    e_b = max(_rel(grads[0], torch.cat(dh)), _rel(grads[1], dw),
-              _rel(grads[2], db))
+    e_f, e_b = ce_errors(rows, grads, ce_oracle(h, w, b, pad, tgt, n_real,
+                                                25))
     if e_f > CE_TOL or e_b > GRAD_TOL:
         raise timing.GateFailure(f"scaled CE at d {D}: rows {e_f}, "
                                  f"gradients {e_b} from the oracle")
-    del dh, dw, db, want_rows, w64, b64
     with torch.no_grad():
         t_f = timer(fwd, reps=3, warmup=1)
     t_fb = timer(fwd_bwd, reps=3, warmup=1)
@@ -166,17 +198,7 @@ def _full_rank(timer, rng, peak_flops, peak_bw) -> Dict:
     b = torch.zeros(V_SHARD, device="cuda")
     hv = torch.randn((B_RANK, D), device="cuda")
     gt = torch.from_numpy(rng.integers(0, V_SHARD, size=B_RANK)).cuda()
-    with torch.no_grad():
-        got = pops.full_rank(hv, w, b, gt, V_SHARD)
-        chunks = [hv[:32] @ w[:, s:s + (1 << 17)] + b[s:s + (1 << 17)]
-                  for s in range(0, V_SHARD, 1 << 17)]
-        scores = torch.cat(chunks, 1)
-        want = (scores > scores.gather(1, gt[:32, None])).sum(1) + 1
-    # chunked and whole products may round a near-tie apart, as the JAX
-    # bench allows: a few boundary flips out of 2^19 candidates
-    dev = int((got[:32].long() - want).abs().max())
-    if dev > 8:
-        raise timing.GateFailure(f"scaled full rank: rank delta {dev}")
+    dev = full_rank_delta(pops, hv[:32], w, b, gt[:32], V_SHARD)
     with torch.no_grad():
         t = timer(lambda: pops.full_rank(hv, w, b, gt, V_SHARD), reps=10)
     flops = 2.0 * B_RANK * D * V_SHARD

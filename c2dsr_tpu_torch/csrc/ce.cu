@@ -383,12 +383,15 @@ __global__ void ce_merge_kernel(const float* __restrict__ part, int splits,
 // The split count of one pass over X tiles x Y tiles that takes the least
 // estimated time: whole waves of `slots` resident blocks, each Y tile
 // costing tile_us, plus the merge's read of every split's partial (out_bytes
-// each, at about 3 TB/s).
+// each, at about 3 TB/s); at least min_splits where there are as many Y
+// tiles.
 int best_splits(int x_tiles, int y_tiles, int slots, double tile_us,
-                double out_bytes) {
-  int best = 1;
+                double out_bytes, int min_splits = 1) {
+  const int lo = min_splits < y_tiles ? min_splits : y_tiles;
+  const int hi = min_splits > 128 ? min_splits : 128;
+  int best = lo;
   double best_us = 1e30;
-  for (int s = 1; s <= y_tiles && s <= 128; ++s) {
+  for (int s = lo; s <= y_tiles && s <= hi; ++s) {
     const int per = (y_tiles + s - 1) / s;
     const int used = (y_tiles + per - 1) / per;
     if (used != s) continue;                  // an empty split: same as used
@@ -418,6 +421,13 @@ cudaError_t prepare() {
                               tile_smem<DT>());
 }
 
+// The longest vocab chain of K5's dh kernel a split, in columns.  FK's
+// plans stay under it at d 128 (13 and 33 splits of 2,368 and 1,120
+// columns); at V 501,760 the plan took 33 splits of 15,232 columns, and dh
+// lay 1.76e-4 of its largest element from float64 where the plain f32
+// version lies 1.9e-5 (an H100, the composed step at 1M item rows).
+constexpr int kMaxChain = 2560;
+
 // The vocab splits of K4 (splits[0]), or of K5's dh kernel (splits[0]) and
 // the row splits of its dW/db kernel (splits[1]).
 template <int DT>
@@ -446,8 +456,14 @@ int plan(int N, int d, int V, bool forward, int* splits) {
                             tile_us, 12.0 * N);
     return 0;
   }
+  // dh sums a split's vocab columns in one tensor-core accumulator, whose
+  // adds truncate: once the target's column has put dt·w_target into it,
+  // every later MMA drops part of an ulp of that, so the error grows with
+  // the chain.  A split takes at most kMaxChain columns; ce_merge_kernel adds
+  // the splits' partials in f32
   splits[0] = best_splits(kParts * ((N + kBx - 1) / kBx), (V + kBy - 1) / kBy,
-                          slots, tile_us, 4.0 * N * d);
+                          slots, tile_us, 4.0 * N * d,
+                          (V + kMaxChain - 1) / kMaxChain);
   splits[1] = best_splits(kParts * ((V + kBx - 1) / kBx), (N + kBy - 1) / kBy,
                           slots, tile_us, 4.0 * (d + 1) * V);
   return 0;

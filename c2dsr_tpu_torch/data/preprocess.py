@@ -267,39 +267,79 @@ def preprocess_evaluate(sequences: List[List[int]], spec: DataSpec,
     return out
 
 
+def _native_split(path: str, mode: str, spec: DataSpec, n_neg_sample: int,
+                  seed: int, bug_truncated_b_neg_pool: bool
+                  ) -> Dict[str, np.ndarray]:
+    """One split of the raw file ``path`` through the native library, as
+    ``c2dsr_tpu/data/preprocess.py:297-312`` builds it."""
+    from c2dsr_tpu_torch import native
+    nat = native.load()
+    offsets, items = nat.parse_interactions(path)
+    if mode == "train":
+        blk = nat.preprocess_train(offsets, items, spec.n_item_a,
+                                   spec.n_item_b, spec.len_max, seed)
+        return {k: np.ascontiguousarray(blk[:, i])
+                for i, k in enumerate(TRAIN_FIELDS)}
+    seqs_blk, scalars, negs = nat.preprocess_eval(
+        offsets, items, spec.n_item_a, spec.n_item_b, spec.len_max,
+        n_neg_sample, seed, bug_truncated_b_neg_pool)
+    out = {k: np.ascontiguousarray(seqs_blk[:, i])
+           for i, k in enumerate(EVAL_FIELDS[:6])}
+    for c, k in enumerate(EVAL_FIELDS[6:10]):
+        out[k] = np.ascontiguousarray(scalars[:, c])
+    out["list_neg"] = negs
+    return out
+
+
 def load_or_build_split(raw_dir: str, cache_dir: str, mode: str,
                         spec: DataSpec, n_neg_sample: int = 999,
                         seed: int = 3407,
                         bug_truncated_b_neg_pool: bool = False,
                         neg_file: "str | None" = None,
                         use_raw: bool = False,
+                        python_path: bool = False,
                         ) -> Dict[str, np.ndarray]:
     """npz-cached preprocessing (analog of the reference's pickle caches,
-    dataloader.py:24-35).  Runs the Python path (the JAX package's C++
-    ``native/`` fast path is not ported yet).
+    dataloader.py:24-35), through the native library (``native/``) as
+    ``c2dsr_tpu/data/preprocess.py:282-319`` runs it where g++ is present:
+    the same fields, cache name and random streams, so the two packages
+    read the same splits from the same raw files and seed, and may share a
+    cache directory.  A failed build of the library raises.
 
     ``neg_file``: optional .npy of [n_examples, n_neg] domain-local negative
-    ids replacing the sampled eval negatives (see preprocess_evaluate).
-    ``use_raw``: force re-preprocessing from the raw text even when a cache
-    exists (the reference's --use_raw, main.py:23); the cache is rewritten."""
-    if neg_file is not None and mode != "train":
-        seqs = raw_mod.parse_interactions(raw_mod.split_path(raw_dir, mode))
+    ids replacing the sampled eval negatives (see preprocess_evaluate); not
+    cached.  ``use_raw``: force re-preprocessing from the raw text even when
+    a cache exists (the reference's --use_raw, main.py:23); the cache is
+    rewritten.  ``python_path``: build the split with this module's Python
+    code instead, with neither cache read nor written: its deterministic
+    fields are the native ones, its corrupted sequences and negatives come
+    from numpy's generator and differ."""
+    path = raw_mod.split_path(raw_dir, mode)
+    if python_path:
+        seqs = raw_mod.parse_interactions(path)
+        if mode == "train":
+            return preprocess_train(seqs, spec, seed=seed)
         return preprocess_evaluate(
             seqs, spec, n_neg_sample=n_neg_sample, seed=seed,
             bug_truncated_b_neg_pool=bug_truncated_b_neg_pool,
-            neg_lists=np.load(neg_file))
+            neg_lists=None if neg_file is None else np.load(neg_file))
+    if neg_file is not None and mode != "train":
+        out = _native_split(path, mode, spec, n_neg_sample, seed,
+                            bug_truncated_b_neg_pool)
+        neg_lists = np.asarray(np.load(neg_file), dtype=np.int32)
+        if neg_lists.shape[0] != out["gt_last"].shape[0]:
+            raise ValueError(
+                f"neg_lists has {neg_lists.shape[0]} rows but the split kept "
+                f"{out['gt_last'].shape[0]} examples")
+        out["list_neg"] = neg_lists
+        return out
     tag = "bugneg" if (mode != "train" and bug_truncated_b_neg_pool) else "std"
     cache = os.path.join(cache_dir, f"{mode}.{tag}.npz")
     if os.path.exists(cache) and not use_raw:
         with np.load(cache) as z:
             return {k: z[k] for k in z.files}
-    seqs = raw_mod.parse_interactions(raw_mod.split_path(raw_dir, mode))
-    if mode == "train":
-        out = preprocess_train(seqs, spec, seed=seed)
-    else:
-        out = preprocess_evaluate(
-            seqs, spec, n_neg_sample=n_neg_sample, seed=seed,
-            bug_truncated_b_neg_pool=bug_truncated_b_neg_pool)
+    out = _native_split(path, mode, spec, n_neg_sample, seed,
+                        bug_truncated_b_neg_pool)
     os.makedirs(cache_dir, exist_ok=True)
     np.savez_compressed(cache, **out)
     return out

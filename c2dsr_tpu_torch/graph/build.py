@@ -106,9 +106,20 @@ def build_graphs(sequences: List[List[int]], spec: DataSpec
     return share, specific
 
 
-def build_graphs_from_file(path: str, spec: DataSpec
+def build_graphs_from_file(path: str, spec: DataSpec,
+                           python_path: bool = False
                            ) -> Tuple[CooGraph, CooGraph]:
     """Like :func:`build_graphs`, reading the raw TSV of a split directly
-    (``c2dsr_tpu/graph/build.py:109``).  The JAX package's C++ parser is not
-    ported yet, so this runs the Python parser (``data/raw.py``)."""
-    return build_graphs(raw_mod.parse_interactions(path), spec)
+    through the native parser and edge extractor (``native/``), as
+    ``c2dsr_tpu/graph/build.py:109-121`` does where g++ is present; a failed
+    build of the library raises.  ``python_path``: parse with
+    ``data/raw.py`` and extract with :func:`build_graphs` instead (the same
+    graphs: nothing here is random)."""
+    if python_path:
+        return build_graphs(raw_mod.parse_interactions(path), spec)
+    from c2dsr_tpu_torch import native
+    nat = native.load()
+    offsets, items = nat.parse_interactions(path)
+    share_e, spec_e = nat.build_edges(offsets, items, spec.n_item_a)
+    return (_coalesce_row_normalize(share_e.astype(np.int64), spec.n_item),
+            _coalesce_row_normalize(spec_e.astype(np.int64), spec.n_item))

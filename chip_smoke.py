@@ -70,7 +70,18 @@ Phases (any failure exits non-zero without the final line):
    near-ties; K4/K5 timed at the shard widths (one process alone); and
    ``python -m c2dsr_tpu_torch.cli --mesh_model 2`` for an epoch with a
    checkpoint, resumed on one process.
-8. summary: one JSON line of kernel numbers, the card's name and power
+8. bench: every mode of the port's bench in this process (the ablation
+   aside).
+9. native: the native data layer (``c2dsr_tpu_torch/native``, g++) on a
+   raw directory of synthetic users: ``load_or_build_split`` and
+   ``build_graphs_from_file`` equal to the Python path in every
+   deterministic field and graph, the random fields within their
+   invariants, and the CLI trains an epoch on the directory.
+10. scaled_e2e: the composed train step at 1,000,001 item rows
+   (``bench/scaled_e2e.py``) with 5 timed steps and its gates, the step's
+   own K1, K4, K5 and K7 calls held against their plain versions and
+   timed; step ms, train and full-rank examples/s, peak memory, launches.
+11. summary: one JSON line of kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 The kernel phase also holds K6 against its plain version and against K1
@@ -120,6 +131,9 @@ TRAIN_STEPS = 30         # train steps whose launches and losses are checked
 TRAIN_ROUNDS = 5         # rounds of (plain, kernel, kernel, plain) train runs
 TRAIN_RUN_STEPS = 4      # steps per timed train run
 CLI_USERS = 2000         # synthetic users of the CLI phase
+NATIVE_ITEMS = (2000, 3000)   # the native phase's raw directory: items of
+                              # A and B (above the 999 eval negatives), and
+NATIVE_USERS = 2000           # users of each interaction file
 SERVE_RUNS = 8           # timed serving runs of each --rates process
 BUSY_ROUNDS = 16         # rounds of (K7, index_add_, index_add_, K7)
                          # profiled steps (_k7_step_cost)
@@ -2845,6 +2859,135 @@ def phase_parallel_cli():
                 f"s; test result {table.splitlines()[2].strip()}")
 
 
+def phase_native():
+    """The native data layer (``c2dsr_tpu_torch/native``), built here with
+    g++, on a raw directory of synthetic users written as the reference
+    lays it out: ``load_or_build_split`` (train, val, test) and
+    ``build_graphs_from_file`` hold their deterministic fields and graphs
+    bitwise against the Python path, and their random fields (the corrupted
+    sequences, the sampled negatives) to the invariants of
+    ``tests/test_native.py``; then ``python -m c2dsr_tpu_torch.cli`` trains
+    an epoch on the directory.  No kernel is compared here."""
+    from c2dsr_tpu_torch import native
+    from c2dsr_tpu_torch.config import Config, DataSpec
+    from c2dsr_tpu_torch.data import preprocess, raw, synthetic
+    from c2dsr_tpu_torch.graph import build as graph_build
+    t0 = time.perf_counter()
+    native.load()
+    log(f"native: {os.path.basename(native.lib_path())} built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    spec = DataSpec(n_item_a=NATIVE_ITEMS[0], n_item_b=NATIVE_ITEMS[1],
+                    len_max=LEN_MAX)
+    cfg = Config()
+    na, pad = spec.n_item_a, spec.idx_pad
+    with tempfile.TemporaryDirectory() as tmp:
+        raw_dir = os.path.join(tmp, "raw")
+        synthetic.write_item_lists(spec, raw_dir)
+        for i, mode in enumerate(("train", "val", "test")):
+            synthetic.write_reference_tsv(
+                synthetic.generate_sequences(spec, NATIVE_USERS, seed=20 + i),
+                raw.split_path(raw_dir, mode))
+        for mode in ("train", "val", "test"):
+            t0 = time.perf_counter()
+            got = preprocess.load_or_build_split(
+                raw_dir, os.path.join(tmp, "cache"), mode, spec,
+                cfg.n_neg_sample, cfg.seed)
+            secs = time.perf_counter() - t0
+            py = preprocess.load_or_build_split(
+                raw_dir, None, mode, spec, cfg.n_neg_sample, cfg.seed,
+                python_path=True)
+            fields = (preprocess.TRAIN_FIELDS[:12] if mode == "train"
+                      else preprocess.EVAL_FIELDS[:10])
+            for k in fields:
+                check(np.array_equal(got[k], py[k]),
+                      f"native {mode}: {k} differs from the Python path")
+            if mode == "train":
+                seq = got["seq_share"]
+                neg_a, neg_b = got["seq_share_neg_a"], got["seq_share_neg_b"]
+                is_a, is_b = seq < na, (seq >= na) & (seq != pad)
+                check(np.array_equal(neg_a[is_a], seq[is_a])
+                      and np.array_equal(neg_b[is_b], seq[is_b])
+                      and bool(((neg_a[is_b] >= na)
+                                & (neg_a[is_b] < pad)).all())
+                      and bool(((neg_b[is_a] >= 0)
+                                & (neg_b[is_a] < na)).all())
+                      and bool((neg_a[seq == pad] == pad).all())
+                      and bool((neg_b[seq == pad] == pad).all()),
+                      "native train: a corrupted sequence breaks its "
+                      "invariants")
+                differ = not np.array_equal(neg_a, py["seq_share_neg_a"])
+            else:
+                negs = got["list_neg"]
+                pools = np.where(got["xory_last"] == 0, na, spec.n_item_b)
+                check(negs.shape == (got["gt_last"].shape[0],
+                                     cfg.n_neg_sample)
+                      and bool((np.diff(np.sort(negs, 1), axis=1) > 0).all())
+                      and bool(((negs >= 0) & (negs < pools[:, None])).all())
+                      and bool((negs != got["gt_last"][:, None]).all()),
+                      f"native {mode}: the negatives break their invariants")
+                differ = not np.array_equal(negs, py["list_neg"])
+            log(f"native {mode}: {got['seq_share'].shape[0]} examples in "
+                f"{secs:.2f} s, {len(fields)} deterministic fields equal the "
+                f"Python path's, random fields within their invariants "
+                f"(and other than the Python path's: {differ})")
+        path = raw.split_path(raw_dir, "train")
+        for g, p_ in zip(graph_build.build_graphs_from_file(path, spec),
+                         graph_build.build_graphs_from_file(
+                             path, spec, python_path=True)):
+            check(all(np.array_equal(getattr(g, f), getattr(p_, f))
+                      for f in ("rows", "cols", "vals")),
+                  "native graph differs from the Python path's")
+        log("native: both graphs from the raw file equal the Python path's")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [REPO_DIR] + [p for p in [env.get("PYTHONPATH")] if p])
+        cmd = [sys.executable, "-m", "c2dsr_tpu_torch.cli", "--path_raw",
+               raw_dir, "--path_data", os.path.join(tmp, "cli_data"),
+               "--n_epoch", "1"]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=600)
+        check(run.returncode == 0, f"native cli exited {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        check("[ Test result ]" in run.stdout,
+              "native cli printed no final result table")
+        check(sorted(os.listdir(os.path.join(tmp, "cli_data")))
+              == ["test.std.npz", "train.std.npz", "val.std.npz"],
+              "native cli wrote other caches")
+        table = run.stdout[run.stdout.rindex("[ Test result ]"):]
+        log(f"native cli: one epoch on the raw directory in "
+            f"{time.perf_counter() - t0:.1f} s; test result "
+            f"{table.splitlines()[2].strip()}")
+
+
+def phase_scaled_e2e():
+    """The composed train step at 1,000,001 item rows
+    (``bench/scaled_e2e.py``, the bench's ``--scaled-e2e``) at full width
+    with 2 warm-up and 5 timed steps, with its gates: the loss falls, the
+    CE probe against float64, full ranks in range and equal to a chunked
+    count but at near-ties, every step kernel launched in the window, and
+    the step's own recorded calls held against their plain versions (K1
+    within SPMM_TOL, K4/K5, K7 bitwise CPU index_add_) and timed.  Returns
+    (report, the window's launches by wrapper)."""
+    import dataclasses
+    from c2dsr_tpu_torch.bench import scaled_e2e
+    size = dataclasses.replace(scaled_e2e.FULL, windows=1, steps=5)
+    try:
+        rep = scaled_e2e.run("cuda", size, log=log)
+    except timing.GateFailure as e:
+        raise SmokeFailure(f"scaled_e2e: gate failed: {e}")
+    window = {name: rep["launches_in_windows"].get(name, 0)
+              for name in kernel_wrappers()}
+    log(f"scaled_e2e: {timing.card_line()}: step {rep['train_step_ms']:.3f} "
+        f"ms, {rep['train_examples_per_s']:.1f} train examples/s, full rank "
+        f"{rep['eval_full_rank_examples_per_s']:.1f} examples/s "
+        f"({rep['eval_full_rank_items_per_s']:.4g} items/s), peak memory "
+        f"{rep['peak_memory_bytes'] / 2**30:.2f} GiB (training "
+        f"{rep['peak_memory_train_bytes'] / 2**30:.2f}), launches in "
+        f"{size.steps} steps {rep['launches_in_windows']}")
+    return rep, window
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2954,10 +3097,17 @@ def main() -> int:
     t0 = time.perf_counter()
     bench, bench_launches = phase_bench()
     log(f"phase bench: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_native()
+    log(f"phase native: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scaled, scaled_launches = phase_scaled_e2e()
+    log(f"phase scaled_e2e: {time.perf_counter() - t0:.1f} s")
     paths = {"serving": serving, "serving_d512": serving_wide,
              "training": training, "training_wide": training_wide,
              "experiment": experiment, "determinism": determinism,
-             **par_launches,
+             **par_launches, "scaled_e2e": scaled_launches,
              **{f"bench_{k}": v for k, v in bench_launches.items()}}
     step_kernels = ("spmm_csr", "encoder_fwd", "encoder_bwd", "ce_fwd",
                     "ce_bwd", "segsum")
@@ -2972,7 +3122,8 @@ def main() -> int:
             ("bench_kernels", step_kernels + ("spmm_csr_flagged",)),
             ("bench_ce_variants", ("ce_fwd_variant", "ce_fwd")),
             ("bench_scaled", ("ce_fwd", "ce_bwd", "segsum")),
-            ("bench_batches", step_kernels)):
+            ("bench_batches", step_kernels),
+            ("scaled_e2e", step_kernels)):
         check(all(paths[path][n] > 0 for n in kernels_of_path),
               f"a kernel never launched on the {path} path: {paths[path]}")
     by_variant = bench_launches["ce_variants"]["by_variant"]
@@ -2987,6 +3138,12 @@ def main() -> int:
 
     step_hops = {k: k1[k] + k1t[k] for k in ("ms", "plain_ms", "library_ms",
                                                "bound_ms")}
+
+    def at_1m(name):
+        """The kernel on the scaled step's own calls at 1M item rows."""
+        return {**scaled["kernels"][name],
+                "launches_in_window": scaled["launches_in_windows"][name]}
+
     kernels = [
         {"name": "spmm_csr", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/spmm.cu",
@@ -2997,6 +3154,7 @@ def main() -> int:
          "forward": k1, "transpose": k1t,
          "a2a_local_csr_max_rel_err": max(e["spmm_csr"]
                                           for e in par_errs.values()),
+         "scaled_e2e": at_1m("spmm_csr"),
          "note": "the four hops of a train step: over A and over its "
                  "transpose (the hop's backward, spmm_pallas.py:224-225), "
                  "each over the share table (d 128) and A|B (d 256)"},
@@ -3063,6 +3221,7 @@ def main() -> int:
                            **t["fwd"]} for t in par_times],
          "shard_max_rel_err": max(e["ce_fwd"] for e in par_errs.values()),
          "d384": {k: v for k, v in ce_wide[384].items() if "fwd" in k},
+         "scaled_e2e": at_1m("ce_fwd"),
          "d512": {k: v for k, v in ce_wide[512].items() if "fwd" in k},
          "note": "both domains of a step: N 10240, d 128, V 30720 + 36864; "
                  "3xTF32 on the tensor cores; bound_ms the 3xTF32 tensor-core "
@@ -3077,6 +3236,7 @@ def main() -> int:
                            **t["bwd"]} for t in par_times],
          "shard_max_rel_err": max(e["ce_bwd"] for e in par_errs.values()),
          "d384": {k: v for k, v in ce_wide[384].items() if "bwd" in k},
+         "scaled_e2e": at_1m("ce_bwd"),
          "d512": {k: v for k, v in ce_wide[512].items() if "bwd" in k},
          "note": "dh and dW/db kernels (3xTF32 on the tensor cores), both "
                  "domains of a step; also replaces fused_ce.py:339 and "
@@ -3099,6 +3259,7 @@ def main() -> int:
                          key=lambda r: r["bound_ms"])["bound_by"],
          "items": k7["items"], "positions": k7["positions"],
          "calls": k7["calls"], "all_nonzero_rows": k7["all_nonzero"],
+         "scaled_e2e": at_1m("segsum"),
          **atomics,
          "note": "K7, the ordered segment sum: the six calls of one FK "
                  "train step's backward on the gradients the step makes "
@@ -3140,6 +3301,8 @@ def main() -> int:
     log(f"train path: {train_rate:.1f} train examples/s (warm mean, "
         f"kernels); experiment path: {exp_rates['batch_sparse']:.1f} "
         f"batch-sparse, {exp_rates['dense']:.1f} dense")
+    log("scaled_e2e: " + json.dumps({k: v for k, v in scaled.items()
+                                     if k != "kernels"}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(timing.card_line())

@@ -55,7 +55,10 @@ def test_raw_files_round_trip_and_cached_split(tmp_path, seqs):
                                            spec, n_neg_sample=10, seed=5)
     again = preprocess.load_or_build_split(str(raw_dir), str(cache), "val",
                                            spec, n_neg_sample=10, seed=5)
-    want = jpre.preprocess_evaluate(seqs, JSpec(**SPEC), n_neg_sample=10,
+    # the JAX package's split from the same raw file: its native library's
+    # (c2dsr_tpu/data/preprocess.py:297-319), which the port's now runs too
+    want = jpre.load_or_build_split(str(raw_dir), str(tmp_path / "jax"),
+                                    "val", JSpec(**SPEC), n_neg_sample=10,
                                     seed=5)
     for k in want:
         np.testing.assert_array_equal(first[k], want[k])
