@@ -30,9 +30,10 @@ from c2dsr_tpu_torch.bench import fk_graph, timing
 CE_TOL = 1e-5            # K4: lse and target logit, over max |float64|
 SPMM_TOL = 1e-5          # K1/K6: max abs err over max |plain|
 ENC_TOL = 2e-5           # K2: over max |plain|, every row has a key
-GRAD_TOL = 1e-4          # gradients, per tensor, over max |reference|: K3
-                         # at K2's branches against plain, K4+K5 against
-                         # float64 (the train step's gradient gate)
+GRAD_TOL = 1e-4          # K3's gradients, per tensor, over max |plain| at
+                         # K2's branches (the train step's gradient gate)
+CE_GRAD_TOL = 2e-5       # K4+K5's gradients, per tensor, over max |float64|
+DW_TOL = 1e-5            # K5's dW of them: as close as an f32 GEMM's order
 
 
 def _rel(a, b) -> float:
@@ -88,13 +89,13 @@ def bench_ce(timer, card, peak_flops, peak_bw, B=512, R=20, d=128,
     e_f = max(_rel(got[0], want[0]), _rel(got[1], want[1]))
     _gate(e_f <= CE_TOL, f"K4: {e_f} from its plain version in float64")
     # the gradients of the summed loss, whose dlogits are p - onehot as in
-    # training: each tensor within the train step's gradient tolerance
-    # (GRAD_TOL, as chip_smoke.py holds a step) of float64; the plain f32
-    # versions' own errors are recorded beside the kernels'.  At this V the
-    # dW kernel adds all N rows into one tensor-core accumulator, whose
-    # truncating adds put dW some 4e-5 from float64 where cuBLAS's f32 is
-    # near 2e-6 (tests/test_torch_tf32.py emulates both; one-pass TF32
-    # products land above GRAD_TOL)
+    # training: each tensor within CE_GRAD_TOL of float64, dW within DW_TOL;
+    # the plain f32 versions' own errors are recorded beside the kernels'.
+    # The dW kernel keeps at most 1,280 of the N rows in one tensor-core
+    # accumulator, whose adds truncate: over all 10,240 in one split dW lay
+    # 3.67e-5 from float64 where cuBLAS's f32 is near 2.5e-6
+    # (tests/test_torch_tf32.py emulates both; one-pass TF32 products land
+    # above 1e-4)
     g_k = fwd_bwd(fused_ce.fused_ce, leaves)
     g_32 = fwd_bwd(fused_ce.ce_fwd_plain, leaves)
     g_64 = fwd_bwd(fused_ce.ce_fwd_plain,
@@ -104,8 +105,8 @@ def bench_ce(timer, card, peak_flops, peak_bw, B=512, R=20, d=128,
             zip(("dh", "dw", "db"), g_k, g_32, g_64)}
     e_b = max(k for k, _ in errs.values())
     del want, g_32, g_64
-    _gate(e_b <= GRAD_TOL, f"K4+K5: gradients (kernels, plain f32) from "
-          f"float64 {errs}")
+    _gate(e_b <= CE_GRAD_TOL and errs["dw"][0] <= DW_TOL,
+          f"K4+K5: gradients (kernels, plain f32) from float64 {errs}")
 
     def lib_fwd():
         logits = h @ w + bm

@@ -9,10 +9,13 @@
 // Both are bound on an H100 by operations, and both run them on the tensor
 // cores with products at f32 accuracy (3xTF32, tc.cuh): the ceiling is
 // 495 / 3 = 165 TFLOP/s of f32-accurate products against 67 for FFMA.  The
-// sums stay in the tensor cores' accumulator, whose adds truncate: over a
-// long sum (K5's dW over 10,240 rows in one split) that ends some 4e-5 of
-// the largest element from float64, against 2e-6 for an f32 GEMM
-// (tests/test_torch_tf32.py emulates both).
+// tensor cores' accumulator adds with truncation, so no long sum stays in
+// it: a logit's k-steps are added in f32 (ce_fwd.cuh, logit_tile), and the
+// backward's products keep a chain of at most kMaxChain vocab columns (dh)
+// or kMaxRowChain rows (dW) in it a split, the splits' partials added in
+// f32 by a merge.  Over one 10,240-row chain dW ended 3.67e-5 of its
+// largest element from float64, where cuBLAS's f32 ends 2.5e-6
+// (tests/test_torch_tf32.py emulates both schemes).
 //
 // K4 and the tile machinery both kernels share live in ce_fwd.cuh.
 //
@@ -428,6 +431,14 @@ cudaError_t prepare() {
 // version lies 1.9e-5 (an H100, the composed step at 1M item rows).
 constexpr int kMaxChain = 2560;
 
+// The longest row chain of K5's dW/db kernel a split, in rows.  Its output
+// sums a split's rows in one tensor-core accumulator; at the port's
+// --kernels shape (N 10,240, V 65,536) the plan took one split, and dW lay
+// 3.67e-5 of its largest element from float64 (an H100).  Emulated on those
+// inputs, chains of 2,560 rows end 1.1e-5 from float64 and chains of 1,280
+// 4.1e-6 (tests/test_torch_tf32.py).
+constexpr int kMaxRowChain = 1280;
+
 // The vocab splits of K4 (splits[0]), or of K5's dh kernel (splits[0]) and
 // the row splits of its dW/db kernel (splits[1]).
 template <int DT>
@@ -464,8 +475,12 @@ int plan(int N, int d, int V, bool forward, int* splits) {
   splits[0] = best_splits(kParts * ((N + kBx - 1) / kBx), (V + kBy - 1) / kBy,
                           slots, tile_us, 4.0 * N * d,
                           (V + kMaxChain - 1) / kMaxChain);
-  splits[1] = best_splits(kParts * ((V + kBx - 1) / kBx), (N + kBy - 1) / kBy,
-                          slots, tile_us, 4.0 * (d + 1) * V);
+  // dW the same over its rows: at most kMaxRowChain rows a split
+  constexpr int kRowTiles = kMaxRowChain / kBy;
+  const int n_tiles = (N + kBy - 1) / kBy;
+  splits[1] = best_splits(kParts * ((V + kBx - 1) / kBx), n_tiles, slots,
+                          tile_us, 4.0 * (d + 1) * V,
+                          (n_tiles + kRowTiles - 1) / kRowTiles);
   return 0;
 }
 

@@ -81,27 +81,25 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-// S = X_w · Y_tileᵀ, [16·kMt x 8·kNy], k over the width, in 3xTF32.  xw is
-// this thread's first A element of the warp's X rows in shared memory
-// (split as it is read), yb and ys the big and small parts of the Y tile
-// (row stride DT + 4).  MMAs are issued term-major (all small·big of a
-// k-step, then big·small, then big·big), so that two products into one
-// accumulator are at least 8 MMAs apart.  Element i of n-tile j of m-tile
-// m is X row 16·m + 8·(i >> 1) + g, Y row 8·j + 2·t + (i & 1).
+// The k-steps of a logit tile summed in one partial (logit_tile).
+constexpr int kLogitSteps = 4;
+
+// acc = the 3xTF32 products of k-steps [k0, k0 + kLogitSteps) of X_w ·
+// Y_tileᵀ, from a zero accumulator.  xw is this thread's first A element
+// of the warp's X rows in shared memory (split as it is read), yb and ys
+// the big and small parts of the Y tile (row stride DT + 4).  MMAs are
+// issued term-major (all small·big of a k-step, then big·small, then
+// big·big), so that two products into one accumulator are at least
+// kMt·kNy MMAs apart.  Element i of n-tile j of m-tile m is X row
+// 16·m + 8·(i >> 1) + g, Y row 8·j + 2·t + (i & 1).
 template <int DT, int kMt, int kNy>
-__device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
-                                           const float* xw, const float* yb,
-                                           const float* ys, int g, int t) {
+__device__ __forceinline__ void logit_steps(float (&acc)[kMt][kNy][4], int k0,
+                                            const float* xw, const float* yb,
+                                            const float* ys, int g, int t) {
   constexpr int ld = DT + 4;
-  constexpr int kNd = DT / 8;
 #pragma unroll
-  for (int m = 0; m < kMt; ++m)
-#pragma unroll
-    for (int j = 0; j < kNy; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[m][j][i] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < kNd; ++ks) {
+  for (int kk = 0; kk < kLogitSteps; ++kk) {
+    const int ks = k0 + kk;
     uint32_t ab[kMt][4], as[kMt][4], bb[kNy][2], bs[kNy][2];
 #pragma unroll
     for (int m = 0; m < kMt; ++m) {
@@ -122,15 +120,62 @@ __device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
 #pragma unroll
     for (int m = 0; m < kMt; ++m)
 #pragma unroll
-      for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], as[m], bb[j]);
+      for (int j = 0; j < kNy; ++j) {
+        if (kk == 0)
+          mma_tf32_zero(acc[m][j], as[m], bb[j]);
+        else
+          mma_tf32(acc[m][j], as[m], bb[j]);
+      }
 #pragma unroll
     for (int m = 0; m < kMt; ++m)
 #pragma unroll
-      for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], ab[m], bs[j]);
+      for (int j = 0; j < kNy; ++j) mma_tf32(acc[m][j], ab[m], bs[j]);
 #pragma unroll
     for (int m = 0; m < kMt; ++m)
 #pragma unroll
-      for (int j = 0; j < kNy; ++j) mma_tf32(s[m][j], ab[m], bb[j]);
+      for (int j = 0; j < kNy; ++j) mma_tf32(acc[m][j], ab[m], bb[j]);
+  }
+}
+
+// S = X_w · Y_tileᵀ, [16·kMt x 8·kNy], k over the width, in 3xTF32
+// (logit_steps).  The tensor cores add into their accumulator with
+// truncation, so a logit summed over all of d's k-steps there drifts toward
+// zero by ulps of itself: K4's lse on a trained state at V 500,000 lay
+// 8.77e-6 from float64 where plain f32 lies 2.6e-7 (an H100).  So S sums
+// partials of kLogitSteps k-steps each in f32, as K2's QKV sums its k-steps
+// (tc.cuh, TERMS 6); the first partial is S itself.  Partials of 1, 2 or
+// 4 k-steps are all within plain f32's error of float64
+// (tests/test_torch_tf32.py), and 4 takes the fewest adds.  Up to DT 128
+// the loop over partials stays rolled: unrolled, the loads hoisted across
+// partials spilled registers, and K4 + K5 at FK took 13.64 ms a step
+// against 13.28 rolled.  Above it the loop is unrolled: there a partial is
+// one or two MMA chains, and unrolled, the partials' independent chains
+// overlap, where the tile before them was one dependent chain: at d 512
+// K4 took 10.53 ms and K5 51.71 against 16.19 and 72.86 before, and rolled
+// 20.54 and 85.34 (N 10,240, V 30,720; an H100 at 700 W).
+template <int DT, int kMt, int kNy>
+__device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
+                                           const float* xw, const float* yb,
+                                           const float* ys, int g, int t) {
+  constexpr int kNd = DT / 8;
+  static_assert(kNd % kLogitSteps == 0, "whole partials");
+  auto add_partial = [&](int k0) {
+    float p[kMt][kNy][4];
+    logit_steps<DT, kMt, kNy>(p, k0, xw, yb, ys, g, t);
+#pragma unroll
+    for (int m = 0; m < kMt; ++m)
+#pragma unroll
+      for (int j = 0; j < kNy; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[m][j][i] += p[m][j][i];
+  };
+  logit_steps<DT, kMt, kNy>(s, 0, xw, yb, ys, g, t);
+  if constexpr (DT <= 128) {
+#pragma unroll 1
+    for (int k0 = kLogitSteps; k0 < kNd; k0 += kLogitSteps) add_partial(k0);
+  } else {
+#pragma unroll
+    for (int k0 = kLogitSteps; k0 < kNd; k0 += kLogitSteps) add_partial(k0);
   }
 }
 
@@ -281,8 +326,11 @@ ce_fwd_kernel(const FwdArgs a) {
             lm = fmaxf(lm, v2);
           }
         }
+        // the tile's exponentials summed apart, then added to the
+        // rescaled running sum once: a long chain of small terms added to
+        // one large sum rounds each of them
         const float mn = fmaxf(rm[m][r], lm);
-        float acc = rs[m][r] * exp2_approx(rm[m][r] - mn);
+        float acc = 0.f;
 #pragma unroll
         for (int j = 0; j < kNy; ++j) {
           if constexpr (VARIANT == kBf16Exp) {
@@ -297,7 +345,7 @@ ce_fwd_kernel(const FwdArgs a) {
               acc += exp2_approx(s[m][j][2 * r + c] - mn);
           }
         }
-        rs[m][r] = acc;
+        rs[m][r] = fmaf(rs[m][r], exp2_approx(rm[m][r] - mn), acc);
         rm[m][r] = mn;
       }
     }

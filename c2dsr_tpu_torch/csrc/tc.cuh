@@ -46,6 +46,18 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d = a·b on the tensor cores from a zero accumulator, m16n8k8 as
+// mma_tf32.
+__device__ __forceinline__ void mma_tf32_zero(float d[4], const uint32_t a[4],
+                                              const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
 // 16 bytes from global src to shared dst, or 16 zero bytes when !ok (src
 // must still be a valid address).
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,

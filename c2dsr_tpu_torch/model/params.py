@@ -34,6 +34,7 @@ import torch
 
 from c2dsr_tpu_torch.config import Config, DataSpec, padded_sizes
 from c2dsr_tpu_torch.ops import backend
+from c2dsr_tpu_torch.parallel import mesh as mesh_mod
 
 
 def _uniform(g: torch.Generator, shape, bound: float) -> torch.Tensor:
@@ -82,32 +83,98 @@ def init_params(cfg: Config, spec: DataSpec, generator: torch.Generator,
                 device="cuda") -> Dict[str, Any]:
     """A fresh initialisation drawn from ``generator`` (on its own device),
     placed on ``device``."""
+    return init_params_sharded(cfg, spec, generator, None, device)
+
+
+def init_params_sharded(cfg: Config, spec: DataSpec,
+                        generator: torch.Generator, mesh, device="cuda"
+                        ) -> Dict[str, Any]:
+    """This rank's shard of :func:`init_params` (``mesh``: a
+    ``parallel/mesh.Mesh``, or None for the whole tree), bitwise
+    ``shard_params(init_params(...))``, with no full table drawn: the
+    counterpart of ``c2dsr_tpu/model/params.py:115-130``, where one full f32
+    table of the 10M-row configuration is ~20 GB.
+
+    Every leaf reads the generator's stream in the same order and the same
+    pieces whatever the mesh; ``parallel/mesh`` says which leaves are
+    sharded, along which dim and over which block, and the rest is drawn
+    whole.  A table's N(0, 1) rows are drawn in chunks of a whole number of
+    16-element blocks (torch's CPU ``randn`` fills blocks of 16 and redraws
+    a ragged tail, so such chunks give one whole draw's values), the rows
+    outside the rank's block discarded chunk by chunk; a classifier's
+    [d, n_real] uniform draw one d-row at a time.  The host holds one chunk
+    beside the shard, the card the shard alone."""
     device = backend.resolve_device(device)
-    g = generator
+    return _map(lambda t: t.to(device), _draw(cfg, spec, generator, mesh))
+
+
+CHUNK_ELEMS = 1 << 20    # a table's rows drawn at a time, in elements at most
+
+
+def _normal_rows(g: torch.Generator, n: int, d: int, lo: int, hi: int,
+                 out: torch.Tensor) -> None:
+    """Rows [lo, hi) of an (n, d) N(0, 1) draw from ``g`` into ``out[:k]``
+    (k of them fall below n), reading the whole draw from the stream in
+    chunks of whole 16-element blocks."""
+    step = 16 // math.gcd(d, 16)               # rows of a whole block
+    rows = step * max(1, CHUNK_ELEMS // (step * d))
+    ends = list(range(rows, n - rows + 1, rows)) + [n] if n > rows else [n]
+    start = 0
+    for end in ends:
+        chunk = _normal(g, (end - start, d))
+        a, b = max(start, lo), min(end, hi)
+        if a < b:
+            out[a - lo:b - lo] = chunk[a - start:b - start]
+        start = end
+
+
+def _draw(cfg: Config, spec: DataSpec, g: torch.Generator, mesh
+          ) -> Dict[str, Any]:
+    """The parameter tree, or model rank ``mesh.model_index``'s shard of
+    it, on the generator's device."""
     d = cfg.d_latent
     na, nb = spec.n_item_a, spec.n_item_b
     n_p, na_p, nb_p = padded_sizes(cfg, spec)
+    drawn_local = set()
 
-    def embed_table():
-        t = _zeros((n_p, d), g)
-        t[:spec.n_item] = _normal(g, (spec.n_item, d))
-        t[spec.idx_pad] = 0.0
+    def span(name, dim, n):
+        """This rank's [lo, hi) of dim ``dim`` (size n) of leaf ``name``."""
+        if mesh_mod.shard_dim(name) != dim:
+            return 0, n
+        drawn_local.add(name)
+        return mesh_mod.shard_range(n, mesh)
+
+    def embed_table(name):
+        lo, hi = span(name, 0, n_p)
+        t = _zeros((hi - lo, d), g)
+        _normal_rows(g, spec.n_item, d, lo, hi, t)
+        if lo <= spec.idx_pad < hi:
+            t[spec.idx_pad - lo] = 0.0
         return t
 
-    def cls(n_real, n_pad):
-        w = _zeros((d, n_pad), g)
-        w[:, :n_real] = _uniform(g, (d, n_real), math.sqrt(6.0 / (n_real + d)))
+    def cls(name, n_real, n_pad):
+        lo, hi = span(name, 1, n_pad)
+        w = _zeros((d, hi - lo), g)
+        bound = math.sqrt(6.0 / (n_real + d))
+        keep = max(0, min(hi, n_real) - lo)
+        for k in range(d):
+            row = _uniform(g, (n_real,), bound)
+            w[k, :keep] = row[lo:lo + keep]
         return w
 
+    def bias(name, n_pad):
+        lo, hi = span(name, 0, n_pad)
+        return _zeros((hi - lo,), g)
+
     params: Dict[str, Any] = {
-        "embed_share": embed_table(),
+        "embed_share": embed_table("embed_share"),
         "attn_share": init_encoder_params(g, cfg, spec.len_max),
         "attn_a": init_encoder_params(g, cfg, spec.len_max),
         "attn_b": init_encoder_params(g, cfg, spec.len_max),
-        "cls_a_w": cls(na, na_p),
-        "cls_a_b": _zeros((na_p,), g),
-        "cls_b_w": cls(nb, nb_p),
-        "cls_b_b": _zeros((nb_p,), g),
+        "cls_a_w": cls("cls_a_w", na, na_p),
+        "cls_a_b": bias("cls_a_b", na_p),
+        "cls_b_w": cls("cls_b_w", nb, nb_p),
+        "cls_b_b": bias("cls_b_b", nb_p),
         "cls_pad_w": _uniform(g, (d, 1), math.sqrt(6.0 / (1 + d))),
         "cls_pad_b": _zeros((1,), g),
         # torch Bilinear(1, d, d): fan_in = d*d, fan_out = 1*d
@@ -115,12 +182,18 @@ def init_params(cfg: Config, spec: DataSpec, generator: torch.Generator,
         "D_b_w": _uniform(g, (d, d), math.sqrt(6.0 / (d * d + d))),
     }
     if not cfg.shared_item_embed:
-        params["embed_a"] = embed_table()
-        params["embed_b"] = embed_table()
+        params["embed_a"] = embed_table("embed_a")
+        params["embed_b"] = embed_table("embed_b")
     if cfg.d_bias:
         params["D_a_b"] = _zeros((1,), g)
         params["D_b_b"] = _zeros((1,), g)
-    return _map(lambda t: t.to(device), params)
+    if mesh is not None:
+        # a leaf that the mesh shards and that was drawn whole is cut here
+        for name, t in params.items():
+            dim = mesh_mod.shard_dim(name)
+            if dim is not None and name not in drawn_local:
+                params[name] = mesh_mod.shard_tensor(t, dim, mesh)
+    return params
 
 
 def _map(fn, tree):

@@ -21,6 +21,7 @@ import torch
 from c2dsr_tpu_torch.ops import encoder as enc
 from c2dsr_tpu_torch.ops import encoder_cuda
 from c2dsr_tpu_torch.ops import spmm_cuda
+from c2dsr_tpu_torch.ops.padding import on_padded_width
 
 
 def resolve_device(device) -> torch.device:
@@ -50,13 +51,23 @@ def spmm(graph, h: torch.Tensor, flag: Optional[torch.Tensor] = None
     ``flag``, the batch-sparse hop: K6 (forward masked by the output row's
     flag, backward by the gathered row's) or its plain version."""
     if h.is_cuda:
-        if flag is None:
-            return spmm_cuda.hop(graph, h)
-        return spmm_cuda.flagged_hop(graph, h, flag)
+        return spmm_kernels(graph, h, flag)
     from c2dsr_tpu_torch.ops import spmm as spmm_mod
     if flag is None:
         return spmm_mod.spmm_reference(graph, h)
     return spmm_mod.spmm_reference_flagged(graph, h, flag, "dest")
+
+
+def spmm_kernels(graph, h: torch.Tensor, flag: Optional[torch.Tensor] = None,
+                 n_out: Optional[int] = None) -> torch.Tensor:
+    """One differentiable hop ``adj @ h`` into ``n_out`` rows (h's by
+    default) by K1, or with a row ``flag`` by K6, h's width zero-padded to
+    the kernels' multiple (``ops/padding``)."""
+    def hop(x):
+        if flag is None:
+            return spmm_cuda.hop(graph, x, n_out)
+        return spmm_cuda.flagged_hop(graph, x, flag)
+    return on_padded_width(hop, h, spmm_cuda.D_MULTIPLE)
 
 
 def fused_encoder_runs(n_head: int, d: int, norm_first: bool) -> bool:

@@ -14,7 +14,10 @@ Vocab padding: the caller's bias carries -1e9 on padded columns
 (:func:`mask_bias`), so padded classes vanish from the softmax; the
 ``where`` in ``mask_bias`` blocks the gradient into their bias, as in JAX.
 V is taken as stored: the TPU's padding to 1024/2048/3584 columns and its
-block-shape rules do not carry over.
+block-shape rules do not carry over.  The kernels take d % 8 == 0 up to
+512: :func:`ce_kernels` zero-pads h's columns and w's rows to a multiple of
+8 (``ops/padding``; zero columns add nothing to h·w), and the gradients come
+back sliced through autograd.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Tuple
 import torch
 
 from c2dsr_tpu_torch.ops import fused_ce_cuda
+from c2dsr_tpu_torch.ops.padding import pad_width
 
 NEG = -1e9
 
@@ -94,6 +98,22 @@ def fused_ce(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
     targets [N] int."""
     if not h.is_cuda:
         return ce_fwd_plain(h, w, b_masked, pad, targets)
+    return ce_kernels(h, w, b_masked, pad, targets)
+
+
+def ce_kernels(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
+               pad: torch.Tensor, targets: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_ce` by K4 and K5, h's columns and w's rows zero-padded
+    to the kernels' multiple of the width.  Rows wider than 512 are refused:
+    the kernels' tiles stop there (ROADMAP §B item 1)."""
+    d = h.shape[-1]
+    if d > fused_ce_cuda.D_MAX:
+        raise ValueError(f"the fused CE kernels take d <= "
+                         f"{fused_ce_cuda.D_MAX}, got d={d}: wider rows wait "
+                         f"on ROADMAP §B item 1")
+    h = pad_width(h, fused_ce_cuda.D_MULTIPLE, dim=1)
+    w = pad_width(w, fused_ce_cuda.D_MULTIPLE, dim=0)
     args = (h.contiguous(), w.contiguous(), b_masked.contiguous(),
             pad.contiguous(), targets)
     if not (torch.is_grad_enabled()

@@ -8,15 +8,15 @@ backward, whose split the TPU needed only when dh outgrew VMEM).
 
 What bounds them on an H100: operations, which both run on the tensor
 cores with products at f32 accuracy (3xTF32: each operand split into a
-TF32 part and its remainder, three products a step), summed in the tensor
-cores' accumulator, which truncates: a long sum, such as dW over 10,240
-rows in one row split, ends some 4e-5 of its largest element from float64
-where an f32 GEMM ends near 2e-6 (tests/test_torch_tf32.py).  The forward
-does 2·N·V·d FLOPs: h stays resident, tiles of Wᵀ (split once by a
-pre-pass) stream through a ``cp.async`` ring, and each warp keeps a
+TF32 part and its remainder, three products a step).  The tensor cores'
+accumulator truncates its adds, so no long sum stays in it: each k-step of
+a logit is added in f32, and the backward's products sum at most 2,560
+vocab columns (dh) or 1,280 rows (dW) a split there, the splits added in
+f32 (tests/test_torch_tf32.py emulates the error of each scheme).  The
+forward does 2·N·V·d FLOPs: h stays resident, tiles of Wᵀ (split once by
+a pre-pass) stream through a ``cp.async`` ring, and each warp keeps a
 running (max, sum-exp) per row over one of a few vocab splits; a small
-kernel merges the splits in order.  The
-backward does 4·N·V·d (dh and dW) plus the logits, recomputed by each of
+kernel merges the splits in order.  The backward does 4·N·V·d (dh and dW) plus the logits, recomputed by each of
 its two kernels, with the same operand plan over (resident, streamed)
 operands, h and Wᵀ for dh, Wᵀ and h for dW; the vocab or row splits of its
 grid are summed in order by a small kernel.  No logit reaches device
@@ -65,9 +65,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+D_MULTIPLE = 8       # the widths the kernels take (ops/fused_ce pads to it)
+D_MAX = 512
+
+
 def check_shape(name: str, N: int, d: int, V: int) -> None:
     """Raise unless the kernels take N rows, width d and V columns."""
-    if d % 8 or d == 0 or d > 512 or V % 4 or V == 0 or N == 0:
+    if d % D_MULTIPLE or d == 0 or d > D_MAX or V % 4 or V == 0 or N == 0:
         raise ValueError(f"{name} needs d % 8 == 0, d <= 512, V % 4 == 0; "
                          f"got N={N} d={d} V={V}")
 

@@ -4,7 +4,9 @@ is bitwise repeatable on the card.
 On a CUDA table the backward is K7 (``ops/segsum_cuda.segsum``): the ids'
 gradient rows summed per id in input order, every table row written once.
 ``index_select``'s own backward, ``index_add_``, adds with atomics there,
-in an order that changes from run to run.  On a CPU table the lookup is
+in an order that changes from run to run.  K7 takes d % 4 == 0: a gradient
+of another width is zero-padded to it and sliced back (``ops/padding``).
+On a CPU table the lookup is
 ``index_select`` under autograd, whose backward is K7's plain version
 (``segsum_cuda.segsum_plain``, ``index_add_`` in index order).  The JAX
 package's counterpart is ``jnp.take`` (``c2dsr_tpu/parallel/strategy.py``).
@@ -15,6 +17,14 @@ from __future__ import annotations
 import torch
 
 from c2dsr_tpu_torch.ops import segsum_cuda
+from c2dsr_tpu_torch.ops.padding import on_padded_width
+
+
+def _segsum(ids: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K7 of the gradient rows g at ids, at g's width padded to K7's
+    multiple."""
+    return on_padded_width(lambda x: segsum_cuda.segsum(ids, x, n_rows),
+                           g.contiguous(), segsum_cuda.D_MULTIPLE)
 
 
 class _Lookup(torch.autograd.Function):
@@ -29,7 +39,7 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return segsum_cuda.segsum(ids, g.contiguous(), ctx.n_rows), None
+        return _segsum(ids, g, ctx.n_rows), None
 
 
 class _LookupAdd(torch.autograd.Function):
@@ -47,7 +57,7 @@ class _LookupAdd(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
             return None, None, None
-        grad = segsum_cuda.segsum(ids, g.contiguous(), ctx.n_rows)
+        grad = _segsum(ids, g, ctx.n_rows)
         return (grad if ctx.needs_input_grad[0] else None,
                 grad if ctx.needs_input_grad[1] else None, None)
 

@@ -34,6 +34,7 @@ import torch
 from c2dsr_tpu_torch.kernels import build
 
 LIST_CAP = 32        # csrc/segsum.cu kCap: list slots a table row
+D_MULTIPLE = 4       # the widths the kernel takes (the callers pad to it)
 SMALL_ROWS = 64      # tables up to this many rows take the block path only
 _CACHE = 32          # workspaces kept (one per device, stream and shape)
 _workspaces: "collections.OrderedDict" = collections.OrderedDict()
@@ -127,10 +128,10 @@ def segsum(ids: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
         raise ValueError(f"segsum takes f32 g [n, d] and n ids on its device, "
                          f"got g {g.dtype} {tuple(g.shape)} and {n} ids")
     d = g.shape[1]
-    if d % 4 or d == 0 or n_rows <= 0 or n_rows >= 2 ** 31 - 1 \
+    if d % D_MULTIPLE or d == 0 or n_rows <= 0 or n_rows >= 2 ** 31 - 1 \
             or n >= 2 ** 31:
-        raise ValueError(f"segsum needs d % 4 == 0 and int32 counts; got "
-                         f"d={d} n={n} n_rows={n_rows}")
+        raise ValueError(f"segsum needs d % {D_MULTIPLE} == 0 and int32 "
+                         f"counts; got d={d} n={n} n_rows={n_rows}")
     if not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("segsum needs g contiguous and 16-byte aligned")
     flat = ids.reshape(-1).long().contiguous()

@@ -144,7 +144,7 @@ def rect_spmm(graph: CsrDevice, h: torch.Tensor) -> torch.Tensor:
     its backward over ``graph.t``) on a CUDA tensor, the plain version on a
     CPU one."""
     if h.is_cuda:
-        return spmm_cuda.hop(graph, h, n_out=graph.n)
+        return backend.spmm_kernels(graph, h, n_out=graph.n)
     return spmm_reference(graph, h, n_out=graph.n)
 
 

@@ -44,6 +44,7 @@ from c2dsr_tpu_torch.kernels import build
 # default of device_graph's heavy_deg: the most edges a warp task sums; a
 # row with more is split into segments (see csrc/spmm.cu)
 HEAVY_DEG = 32
+D_MULTIPLE = 4      # the widths the kernels take (the callers pad to it)
 _SIG = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
         + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
@@ -71,8 +72,8 @@ def _check(graph, h: torch.Tensor, name: str, n_out=None):
         raise ValueError(f"{name} takes f32 [n, d], got {h.dtype} "
                          f"{tuple(h.shape)}")
     n_rows, d = h.shape
-    if d % 4 or d == 0:
-        raise ValueError(f"{name} needs d % 4 == 0, got d={d}")
+    if d % D_MULTIPLE or d == 0:
+        raise ValueError(f"{name} needs d % {D_MULTIPLE} == 0, got d={d}")
     if (n_rows if n_out is None else n_out) < graph.n:
         raise ValueError(f"output of {n_rows if n_out is None else n_out} "
                          f"rows < graph dim {graph.n}")

@@ -21,7 +21,7 @@ parameter, which follow its parameter's rule (``state_shardings``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,17 +103,26 @@ def leaf_names(params, top: Optional[str] = None) -> List[str]:
     return [top]
 
 
+def shard_range(n: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """This rank's contiguous block [lo, hi) of a sharded dim of size n:
+    the whole of it without a mesh or at ``n_model`` 1."""
+    if mesh is None or mesh.n_model == 1:
+        return 0, n
+    size = n // mesh.n_model
+    if size * mesh.n_model != n:
+        raise ValueError(f"a sharded dim of {n} does not split over "
+                         f"{mesh.n_model} model ranks")
+    return mesh.model_index * size, (mesh.model_index + 1) * size
+
+
 def shard_tensor(t: torch.Tensor, dim: Optional[int], mesh: Mesh
                  ) -> torch.Tensor:
     """This rank's shard of a full tensor (a copy), or a copy of the whole
     of a replicated one."""
     if dim is None or mesh.n_model == 1:
         return t.detach().clone()
-    size = t.shape[dim] // mesh.n_model
-    if size * mesh.n_model != t.shape[dim]:
-        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
-                         f"over {mesh.n_model} model ranks")
-    return t.detach().narrow(dim, mesh.model_index * size, size).clone(
+    lo, hi = shard_range(t.shape[dim], mesh)
+    return t.detach().narrow(dim, lo, hi - lo).clone(
         memory_format=torch.contiguous_format)
 
 

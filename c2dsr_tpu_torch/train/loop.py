@@ -16,8 +16,10 @@ epoch's end, so the host queues steps ahead of the card: a per-step
 
 With ``mesh_data * mesh_model > 1`` it runs as one rank of a mesh
 (``parallel/mesh.py``; the process group is set up first,
-``parallel/distributed.initialize``): every rank builds the same full
-state from the seed and keeps its shards, attaches its part of the
+``parallel/distributed.initialize``): every rank reads the seed's stream
+and keeps only its shards of the item tables and classifiers
+(``model/params.init_params_sharded``: no rank holds a full table on the
+host or the card), attaches its part of the
 sharded propagation's all-to-all schedule to both graphs when
 ``mesh_model > 1``, trains on its data index's rows of each global batch
 (``BatchIterator`` sliced by the data index, not the process index) and
@@ -84,11 +86,9 @@ class Experiment:
 
         steps_per_epoch = max(len(self.train_iter), 1)
         self.optimizer = optim.make_optimizer(cfg, steps_per_epoch)
-        params = params_mod.init_params(
-            cfg, spec, torch.Generator().manual_seed(cfg.seed), self.device)
-        if self.mesh is not None and cfg.mesh_model > 1:
-            from c2dsr_tpu_torch.parallel import mesh as mesh_mod
-            params = mesh_mod.shard_params(params, self.mesh)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        params = params_mod.init_params_sharded(cfg, spec, gen, self.mesh,
+                                                self.device)
         self.state = step_mod.init_state(params, self.optimizer, self.mesh)
         # each step's dropout seed follows (cfg.seed + 1, state.step)
         self.train_step = step_mod.make_train_step(

@@ -23,7 +23,9 @@ Phases (any failure exits non-zero without the final line):
    call and its backward and weight-gradient parts profiled), the CE
    forward and backward (both also bitwise against a second launch, their
    kernels timed apart, with the FP32 FFMA and the 3xTF32 tensor-core
-   bounds).  Then the wider shapes: K2 and K3 at d 32, 40, 96, 160, 256
+   bounds; both also against float64: K4's lse and target logit within
+   K4_F64_TOL, and on trained-scale logits within K4_TRAINED_TOL, K5's dW
+   within DW_F64_TOL).  Then the wider shapes: K2 and K3 at d 32, 40, 96, 160, 256
    and 512 and at L up to 64, K4 and K5 at d 256 and 40.
 3. serving path: the ranking path at Food-Kitchen geometry with the
    default Config and random seeded weights: convolve once, then rank the
@@ -44,7 +46,11 @@ Phases (any failure exits non-zero without the final line):
    in turns with the plain versions, and one profiled step.  Then four
    steps at dropout 0, three with ``d_latent=256`` (the third at
    ``len_max=30``) and one at ``len_max=64``, each first held against the
-   plain versions (loss and gradients).
+   plain versions (loss and gradients).  Then the widths the kernels take
+   only padded (ODD_WIDTHS: ``d_latent`` 36 with one head, 10 with two):
+   one step each at dropout 0 against the same step on the CPU (loss 1e-5,
+   gradients GRAD_TOL), its launches, and a serving run against the plain
+   versions' ranks.
 5. experiment path: ``train.loop.Experiment`` at Food-Kitchen geometry
    with ``Config(batch_sparse_gnn=True, n_epoch=2)``, checkpointing to a
    temporary directory: finite losses and metrics, the batch-sparse SpMM
@@ -60,7 +66,10 @@ Phases (any failure exits non-zero without the final line):
 7. parallel: the mesh of ``c2dsr_tpu_torch/parallel/`` with its ranks
    sharing the one card over gloo, each a process (2 ranks 1x2 with the
    psum lookups, 4 ranks 2x2 with the a2a lookups) at FK geometry and the
-   default Config: one step at dropout 0 whose loss (1e-5 relative) and
+   default Config, each rank initialised by ``init_params_sharded``
+   (bitwise the full draw's shard; its card memory after init printed
+   beside the full tree's bytes; also on a 1x4 mesh, init alone): one step
+   at dropout 0 whose loss (1e-5 relative) and
    gathered gradients (GRAD_TOL) are the one-process kernel step's, while
    the same gradients with the sharded ones scaled by M fail; each rank's
    K1 (over the all-to-all plan's CSRs), K2/K3 (at dropout 0.2 under its
@@ -127,6 +136,13 @@ GRAD_TOL = 1e-4          # max abs err over max |plain|, per gradient tensor:
 CE_TOL = 1e-5            # lse / target logit, relative to max |plain|
 CE_BWD_TOL = 2e-5        # K5's dh, dW, db, relative to max |plain|: 3xTF32
                          # products are f32-accurate (one-pass TF32: ~1e-3)
+K4_F64_TOL = 2.6e-6      # K4's lse and target logit (relative to max
+DW_F64_TOL = 1e-5        # |float64|) and K5's dW: sums in f32, not in the
+                         # tensor cores' truncating accumulator (ce.cu)
+K4_TRAINED_TOL = 7.5e-7  # K4's lse and target logit on logits of a trained
+                         # state's size (_k4_trained_errs), relative to max
+                         # |float64|: between this tile's 4.2e-7 and the
+                         # one-chain tile's 1.4e-6 (PERF.md §6)
 TRAIN_STEPS = 30         # train steps whose launches and losses are checked
 TRAIN_ROUNDS = 5         # rounds of (plain, kernel, kernel, plain) train runs
 TRAIN_RUN_STEPS = 4      # steps per timed train run
@@ -447,11 +463,14 @@ def profile_main_path(run_all, label="profile"):
         for f, (us, n) in sorted(fam.items(), key=lambda kv: -kv[1][0])))
 
 
-def phase_main(spec, graphs_host, data, cfg=None, label="main path"):
+def phase_main(spec, graphs_host, data, cfg=None, label="main path",
+               fused_towers=True):
     """The serving path: convolve once, rank the eval split in sampled and
     full mode; launches, finite metrics, ranks against the plain versions'
     run.  At the default Config also warm rates in turns and a profile;
-    with another ``cfg`` one kernel run and one plain run."""
+    with another ``cfg`` one kernel run and one plain run.  K2 launches
+    three towers a rank step, none with ``fused_towers`` False (head dims
+    the plain tower takes)."""
     from c2dsr_tpu_torch import metrics
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.evaluate import ranker
@@ -494,9 +513,10 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path"):
     check(launches["spmm_csr"] == 2 * cfg.n_gnn,
           f"spmm_csr launched {launches['spmm_csr']} times, want "
           f"{2 * cfg.n_gnn}")
-    check(launches["encoder_fwd"] == 3 * 2 * steps,
+    towers = 3 * 2 * steps if fused_towers else 0
+    check(launches["encoder_fwd"] == towers,
           f"encoder_fwd launched {launches['encoder_fwd']} times, want "
-          f"{3 * 2 * steps}")
+          f"{towers}")
     for mode, n_cand in (("sampled", cfg.n_neg_sample + 1), ("full", None)):
         ra, rb = ranks[mode]
         check(len(ra) + len(rb) == n_ex, f"{mode}: rank count")
@@ -802,18 +822,20 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
     return fwd, bwd
 
 
-def _ce_inputs(N, d, V, n_real, seed):
+def _ce_inputs(N, d, V, n_real, seed, trained=False):
     """One domain's CE inputs at FK scales: h ~ N(0, 1), W ~ 0.05 N(0, 1)
     (zero on the padded vocab tail), every 5th row ignored (target n_real),
-    dlse and dt ~ N(0, 1) / N on the other rows."""
+    dlse and dt ~ N(0, 1) / N on the other rows.  ``trained``: at a trained
+    state's size, h ~ 4 N(0, 1) and W ~ N(0, 1) (logits up to ~200, the
+    softmax sharp)."""
     rng = np.random.default_rng(seed)
 
     def put(a):
         return torch.from_numpy(np.asarray(a, np.float32)).cuda()
 
     from c2dsr_tpu_torch.ops import fused_ce
-    h = put(rng.normal(size=(N, d)))
-    w_np = rng.normal(size=(d, V)) * 0.05
+    h = put(rng.normal(size=(N, d)) * (4.0 if trained else 1.0))
+    w_np = rng.normal(size=(d, V)) * (1.0 if trained else 0.05)
     w_np[:, n_real:] = 0.0
     w = put(w_np)
     bm = fused_ce.mask_bias(put(rng.normal(size=V) * 0.1), n_real)
@@ -825,6 +847,28 @@ def _ce_inputs(N, d, V, n_real, seed):
     dlse = put(rng.normal(size=N) / N) * real
     dt = put(rng.normal(size=N) / N) * real
     return h, w, bm, pad_l, tgt, real, dlse, dt
+
+
+def _k4_trained_errs(V, n_real):
+    """K4's lse and target logit from float64 on one domain's trained-scale
+    inputs (``_ce_inputs`` trained, N 10,240, d 128), beside the plain f32
+    version's: (kernel, plain), relative to max |float64|.  There a logit
+    tile that sums d's k-steps in one truncating chain lies several times
+    further from float64 than plain f32 (tests/test_torch_tf32.py)."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    h, w, bm, pad_l, tgt, real, _, _ = _ce_inputs(512 * 2 * 10, 128, V,
+                                                  n_real, V + 1, trained=True)
+    with torch.no_grad():
+        got = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+        plain = fused_ce.ce_fwd_plain(h, w, bm, pad_l, tgt)
+        f64 = fused_ce.ce_fwd_plain(h.double(), w.double(), bm.double(),
+                                    pad_l.double(), tgt)
+
+    def err(out):
+        return max(_rel(out[0].double(), f64[0]),
+                   _rel(out[1][real].double(), f64[1][real]))
+
+    return err(got), err(plain)
 
 
 def _check_ce_bwd(tag, got, want, again, n_real):
@@ -879,6 +923,46 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
             "backward rel err "
             + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
             + "; two backward launches bitwise equal")
+        # both against float64, beside the plain f32 versions
+        with torch.no_grad():
+            ins64 = [t.double() for t in (h, w, bm)]
+            f64 = fused_ce.ce_fwd_plain(*ins64, pad_l.double(), tgt)
+            b64 = fused_ce.ce_bwd_plain(*ins64, lse.double(), dlse.double(),
+                                        dt.double(), tgt)
+            del ins64
+
+        def fwd_err(lse_, tlog_):
+            return max(_rel(lse_.double(), f64[0]),
+                       _rel(tlog_[real].double(), f64[1][real]))
+
+        e64 = {"lse": fwd_err(lse, tlog), "plain_lse": fwd_err(rlse, rtlog)}
+        for k, g_, p_, r_ in zip(("dh", "dw", "db"), got, want, b64):
+            e64[k] = _rel(g_.double(), r_)
+            e64["plain_" + k] = _rel(p_.double(), r_)
+        del f64, b64
+        log(f"ce {dom}: from float64 (kernels, plain f32): lse and target "
+            f"logit {e64['lse']:.3e}, {e64['plain_lse']:.3e}; "
+            + "; ".join(f"{k} {e64[k]:.3e}, {e64['plain_' + k]:.3e}"
+                        for k in ("dh", "dw", "db")))
+        check(e64["lse"] <= K4_F64_TOL, f"ce_fwd {dom}: {e64['lse']} from "
+              f"float64 > {K4_F64_TOL}")
+        check(e64["dw"] <= DW_F64_TOL and max(e64["dh"], e64["db"])
+              <= CE_BWD_TOL, f"ce_bwd {dom}: from float64 {e64}")
+        e_tr, e_tr_plain = _k4_trained_errs(V, n_real)
+        log(f"ce {dom}: trained-scale logits, lse and target logit from "
+            f"float64: kernel {e_tr:.3e}, plain f32 {e_tr_plain:.3e}")
+        check(e_tr <= K4_TRAINED_TOL, f"ce_fwd {dom}: {e_tr} from float64 "
+              f"on trained-scale logits > {K4_TRAINED_TOL}")
+        fwd["trained_rel_err_f64"] = max(fwd.get("trained_rel_err_f64", 0.0),
+                                         e_tr)
+        fwd["trained_plain_rel_err_f64"] = max(
+            fwd.get("trained_plain_rel_err_f64", 0.0), e_tr_plain)
+        for acc, keys64 in ((fwd, ("lse",)), (bwd, ("dh", "dw", "db"))):
+            acc["max_rel_err_f64"] = max([acc.get("max_rel_err_f64", 0.0)]
+                                         + [e64[k] for k in keys64])
+            acc["plain_rel_err_f64"] = max(
+                [acc.get("plain_rel_err_f64", 0.0)]
+                + [e64["plain_" + k] for k in keys64])
         fwd["max_abs_err"] = max(fwd["max_abs_err"],
                                  float((lse - rlse).abs().max()))
         fwd["max_rel_err"] = max(fwd["max_rel_err"], e_lse, e_t)
@@ -1278,6 +1362,93 @@ def phase_train_wide(spec, train, graphs, graphs_host):
     for k, n in per_step.items():
         check(launches[k] == n * steps, f"train wide: {k} launched "
               f"{launches[k]} times in {steps} steps, want {n} a step")
+    return launches
+
+
+ODD_WIDTHS = ((36, 1), (10, 2))   # (d_latent, n_head) that the JAX package
+                                  # trains and the kernels take padded
+
+
+def phase_odd_widths(spec, train, graphs, graphs_host, eval_data):
+    """One FK-geometry train step on the card at each of ODD_WIDTHS,
+    dropout 0: K1/K6 and K7 take d % 4, K4/K5 d % 8, so the op-level
+    callers zero-pad d (ops/padding); the towers run plain there (head dim
+    not a multiple of 8, as in the JAX package).  The loss within 1e-5
+    relative and every gradient within GRAD_TOL (max abs over max, per
+    tensor) of the same step on the CPU; then the step through the step
+    function, with its kernels' launches; then the serving path at that
+    width against the plain versions' run (phase_main: ranks equal but at
+    near-ties).  Returns the kernels' launches over the steps and serving
+    runs."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import c2dsr
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import spmm
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+
+    cpu_graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cpu"),
+                              spmm.device_graph(graphs_host[1], "cpu"))
+    batch = {k: v[:512] for k, v in train.items()}
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+    for d, n_head in ODD_WIDTHS:
+        cfg = Config(d_latent=d, n_head=n_head, dropout_gnn=0.0,
+                     dropout_attn=0.0)
+        tag = f"odd width d_latent {d} n_head {n_head}"
+        params = params_mod.init_params(cfg, spec,
+                                        torch.Generator().manual_seed(4),
+                                        "cuda")
+        opt = optim.make_optimizer(cfg, steps_per_epoch=10)
+        state = step_mod.init_state(params, opt)
+        leaves = state.opt_state.leaves
+        reset_launches()
+        loss_k, g_k = _loss_grads(state.params, leaves, graphs,
+                                  ranker.to_device(batch, "cuda"), cfg, spec,
+                                  contextlib.nullcontext())
+        got = read_launches()
+        cpu = params_mod.params_from_numpy(
+            params_mod.params_to_numpy(state.params), "cpu")
+        cpu_leaves = step_mod.param_leaves(cpu)
+        for t in cpu_leaves:
+            t.requires_grad_(True)
+        loss_c, g_c = _loss_grads(cpu, cpu_leaves, cpu_graphs,
+                                  ranker.to_device(batch, "cpu"), cfg, spec,
+                                  contextlib.nullcontext())
+        names = leaf_names(state.params)
+        rel = [_rel(a.cpu(), c) if float(c.abs().max()) > 0
+               else float(a.abs().max()) for a, c in zip(g_k, g_c)]
+        fro, wf = _fro(g_k, g_c)
+        wm = int(np.argmax(rel))
+        log(f"{tag}: loss {loss_k:.7f} (card) {loss_c:.7f} (CPU); gradients "
+            f"worst max-abs rel err {rel[wm]:.3e} ({names[wm]}), worst "
+            f"relative Frobenius {fro:.3e} ({names[wf]}); launches of the "
+            f"loss and backward {got}")
+        check(abs(loss_k - loss_c) <= 1e-5 * abs(loss_c),
+              f"{tag}: loss {loss_k} (card) != {loss_c} (CPU)")
+        check(rel[wm] <= GRAD_TOL, f"{tag}: gradient {names[wm]} rel err "
+              f"{rel[wm]} > {GRAD_TOL}")
+        check(got["encoder_fwd"] == 0 and all(
+            got[k] > 0 for k in ("spmm_csr", "ce_fwd", "ce_bwd", "segsum")),
+            f"{tag}: launches {got}")
+        fn = step_mod.make_train_step(cfg, spec, graphs, opt, "cuda")
+        reset_launches()
+        state, aux = fn(state, batch)
+        torch.cuda.synchronize()
+        got = read_launches()
+        check(math.isfinite(float(aux["loss"])), f"{tag}: step loss")
+        per_step = {"spmm_csr": 4 * cfg.n_gnn, "ce_fwd": 2, "ce_bwd": 2,
+                    "segsum": LOOKUPS, "encoder_fwd": 0, "encoder_bwd": 0}
+        for k, n in per_step.items():
+            check(got[k] == n, f"{tag}: {k} launched {got[k]} times in a "
+                  f"step, want {n}")
+        for k, v in got.items():
+            launches[k] += v
+        del state, opt, fn, leaves, g_k, g_c
+        serving = phase_main(spec, graphs_host, eval_data, cfg,
+                             label=f"serving {tag}", fused_towers=False)
+        for k, v in serving.items():
+            launches[k] += v
     return launches
 
 
@@ -2187,8 +2358,9 @@ def measure_rates() -> dict:
     8 runs of 4 steps (train examples/s each, and the host's ms a step
     until the last step is enqueued, before the synchronise), then 3
     profiled steps (device busy ms, and K2's ms, each).  K1 a hop of each
-    table over A and Aᵀ, and K7's six calls of one step's backward (3
-    timings each, the median of 20 CUDA-event timings).  K2 alone at the
+    table over A and Aᵀ, K7's six calls of one step's backward, and K4's
+    and K5's two calls of a step on phase_ce's inputs (3 timings each, the
+    median of 20 CUDA-event timings).  K2 alone at the
     serving path's tower (B 2048, L 15, d 128, one head, one layer; the
     median of 20 timed calls, 3 times).  The serving path (convolve, then
     rank the eval split in sampled and full mode): 3 profiled runs after
@@ -2278,7 +2450,30 @@ def measure_rates() -> dict:
     kernels["k7_step_ms"] = [
         sum(timer(lambda: segsum_cuda.segsum(ids, g, n_rows))
             for ids, g, n_rows in calls) for _ in range(3)]
-    del timer, calls
+    del calls
+    # K4 and K5 at a step's shapes (both domains, phase_ce's seeded inputs)
+    from c2dsr_tpu_torch.ops import fused_ce_cuda
+    ce = {"k4_step_ms": [0.0] * 3, "k5_step_ms": [0.0] * 3}
+    for V, n_real in ((30720, N_ITEM_A), (36864, N_ITEM_B)):
+        h, w, bm, pad_l, tgt, _, dlse, dt = _ce_inputs(512 * 2 * 10, 128, V,
+                                                       n_real, V)
+        with torch.no_grad():
+            lse, _ = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+            for i in range(3):
+                ce["k4_step_ms"][i] += timer(
+                    lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt))
+                ce["k5_step_ms"][i] += timer(
+                    lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
+                                                 tgt))
+    ce["k4_k5_step_ms"] = [a + b for a, b in zip(ce["k4_step_ms"],
+                                                 ce["k5_step_ms"])]
+    # K4 from float64 on trained-scale logits (deterministic: one reading)
+    errs = [_k4_trained_errs(V, n_real)
+            for V, n_real in ((30720, N_ITEM_A), (36864, N_ITEM_B))]
+    ce["k4_trained_f64"] = [max(e for e, _ in errs)]
+    ce["plain_trained_f64"] = [max(p for _, p in errs)]
+    kernels.update(ce)
+    del timer, h, w
 
     pad = spec.idx_pad
     p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
@@ -2358,7 +2553,10 @@ def compare(other: str) -> int:
                       ("k1_ab_ms", "ms a K1 A|B hop (d 256)"),
                       ("k1_ab_t_ms", "ms a K1 A|B hop over Aᵀ"),
                       ("k1_step_ms", "ms of K1's four hops a step"),
-                      ("k7_step_ms", "ms of K7's six calls a step")):
+                      ("k7_step_ms", "ms of K7's six calls a step"),
+                      ("k4_step_ms", "ms of K4's two calls a step"),
+                      ("k5_step_ms", "ms of K5's two calls a step"),
+                      ("k4_k5_step_ms", "ms of K4 + K5 a step")):
         vals = {k: np.array([r for res in v for r in res[key]])
                 for k, v in runs.items()}
         mine, theirs = vals[REPO_DIR], vals[other]
@@ -2368,6 +2566,11 @@ def compare(other: str) -> int:
             f"{theirs.mean():.4f} {unit} ({diff / theirs.mean():+.2%}), "
             f"standard error {se:.4f}: "
             f"{'resolved' if abs(diff) > 3 * se else 'unresolved'}")
+    for key in ("k4_trained_f64", "plain_trained_f64"):
+        log(f"compare {key}: this "
+            f"{[f'{r[key][0]:.3e}' for r in runs[REPO_DIR]]} against "
+            f"{[f'{r[key][0]:.3e}' for r in runs[other]]} (each run's, "
+            "relative to max |float64|, both domains' largest)")
     log(f"compare: card {timing.card_line()}")
     return 0
 
@@ -2519,6 +2722,47 @@ def _shard_kernels_against_plain(calls, graphs, row_map):
     return errs
 
 
+def _sharded_init(cfg, spec, mesh, dev):
+    """This rank's params by ``init_params_sharded`` on the card, from the
+    seed the one-process runs take, and what a rank's init costs: the card
+    memory it allocated (``max_memory_allocated``, from a reset just
+    before), the full tree's bytes, and whether every leaf is bitwise the
+    full draw's shard (drawn on the host).  Returns (params, the full tree
+    on the host, that record)."""
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.parallel import mesh as mesh_mod
+    from c2dsr_tpu_torch.train import step as step_mod
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = params_mod.init_params_sharded(
+        cfg, spec, torch.Generator().manual_seed(0), mesh, dev)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    whole = params_mod.init_params(cfg, spec,
+                                   torch.Generator().manual_seed(0), "cpu")
+    want = step_mod.param_leaves(mesh_mod.shard_params(whole, mesh))
+    got = step_mod.param_leaves(params)
+    return params, whole, {
+        "init_card_bytes": int(peak),
+        "full_tree_bytes": sum(t.numel() * t.element_size()
+                               for t in step_mod.param_leaves(whole)),
+        "shard_bytes": sum(t.numel() * t.element_size() for t in got),
+        "init_bitwise": len(got) == len(want) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(got, want))}
+
+
+def _init_rank(rank, world, job):
+    """One rank of a 1 x world mesh on the one card: its shard-local
+    initialisation alone (``_sharded_init``)."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.parallel import mesh as mesh_mod
+    mesh = mesh_mod.make_mesh(1, world)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = Config(mesh_model=world)
+    return _sharded_init(cfg, job["spec"], mesh, dev)[2]
+
+
 def _parallel_rank(rank, world, job):
     """One rank of the parallel phase, started by ``parallel/launch`` on the
     one card, the ranks talking over gloo.  At FK geometry and the default
@@ -2546,19 +2790,17 @@ def _parallel_rank(rank, world, job):
                  lookup_mode=job["lookup_mode"], dropout_gnn=0.0,
                  dropout_attn=0.0)
     t0 = time.perf_counter()
+    params, whole, out = _sharded_init(cfg, spec, mesh, dev)
     n_p = padded_sizes(cfg, spec)[0]
     graphs = c2dsr.Graphs(*(spmm.attach_a2a_plan(spmm.device_graph(g, dev),
                                                  n_p, n_model,
                                                  mesh.model_index)
                             for g in job["graphs"]))
-    whole = params_mod.init_params(cfg, spec, torch.Generator().manual_seed(0),
-                                   dev)
-    params = mesh_mod.shard_params(whole, mesh)
     opt = optim.make_optimizer(cfg, steps_per_epoch=10)
     state = step_mod.init_state(params, opt, mesh)
     fn = step_mod.make_train_step(cfg, spec, graphs, opt, dev, mesh=mesh)
     local = mesh_mod.local_batch(job["batch"], mesh)
-    out = {"setup_s": time.perf_counter() - t0}
+    out["setup_s"] = time.perf_counter() - t0
 
     # the eval ranks from the initial params (the one-process ranks' too)
     convolve, rank_step = ranker.make_eval_fns(cfg, spec, graphs, dev,
@@ -2590,6 +2832,7 @@ def _parallel_rank(rank, world, job):
     if rank == 0:
         out["ranks"] = ranks
         # the one-process kernel step from the same params and batch
+        whole = params_mod._map(lambda t: t.to(dev), whole)
         leaves = step_mod.param_leaves(whole)
         for t in leaves:
             t.requires_grad_(True)
@@ -2702,7 +2945,10 @@ def phase_parallel(spec, graphs_host, graphs, train, eval_data, timer,
     """The mesh on the one card: 2 ranks (1x2, psum lookups) and 4 ranks
     (2x2, a2a lookups) over gloo, each a process of its own
     (``parallel/launch``; the kernels are built, the ranks load them), at FK
-    geometry and the default Config.  Gates: the step's loss within 1e-5
+    geometry and the default Config, each rank initialised shard-locally
+    (``_sharded_init``; first on a 1x4 mesh alone).  Gates: each rank's
+    params bitwise the full draw's shard, the card memory of its init below
+    the full tree's bytes; the step's loss within 1e-5
     relative and every gathered gradient within GRAD_TOL of the
     one-process kernel step (and the same gradients with the sharded ones
     scaled by M fail); each rank's kernels against their plain versions on
@@ -2738,6 +2984,16 @@ def phase_parallel(spec, graphs_host, graphs, train, eval_data, timer,
     del params, hi, hi_plain, hi64
     torch.cuda.empty_cache()
 
+    # shard-local initialisation on a 1x4 mesh (the model axis of a
+    # four-card mesh), its ranks sharing the card; the 1x2 and 2x2 runs
+    # below initialise the same way
+    t0 = time.perf_counter()
+    try:
+        inits = {"1x4": launch.run_ranks(_init_rank, 4, ({"spec": spec},),
+                                         device="cuda", timeout=PAR_TIMEOUT)}
+    except (RuntimeError, TimeoutError) as e:
+        raise SmokeFailure(f"parallel init 1x4: {e}")
+    log(f"parallel init 1x4: {time.perf_counter() - t0:.1f} s")
     launches, errs = {}, {}
     for shape, lookup_mode in PAR_MESHES:
         world = shape[0] * shape[1]
@@ -2750,6 +3006,7 @@ def phase_parallel(spec, graphs_host, graphs, train, eval_data, timer,
                                    device="cuda", timeout=PAR_TIMEOUT)
         except (RuntimeError, TimeoutError) as e:
             raise SmokeFailure(f"parallel {tag}: {e}")
+        inits[tag] = res
         r0 = res[0]
         log(f"parallel {tag} ({lookup_mode} lookups, {world} ranks sharing "
             f"one card over gloo): {time.perf_counter() - t0:.1f} s; rank 0 "
@@ -2807,6 +3064,19 @@ def phase_parallel(spec, graphs_host, graphs, train, eval_data, timer,
         log(f"parallel {tag} launches over the ranks (step + eval): {total}")
         launches[f"parallel_{tag}"] = total
         errs[tag] = dict(k, row_map=row_map)
+    for tag, res in inits.items():
+        for rank, r in enumerate(res):
+            log(f"parallel {tag} rank {rank} init_params_sharded: card "
+                f"max_memory_allocated {r['init_card_bytes']} B after init "
+                f"(its shards: {r['shard_bytes']} B; the full tree: "
+                f"{r['full_tree_bytes']} B); bitwise the full draw's shard: "
+                f"{r['init_bitwise']}")
+            check(r["init_bitwise"], f"parallel {tag} rank {rank}: "
+                  "init_params_sharded is not the full draw's shard")
+            check(r["init_card_bytes"] < r["full_tree_bytes"],
+                  f"parallel {tag} rank {rank}: init allocated "
+                  f"{r['init_card_bytes']} B, the full tree is "
+                  f"{r['full_tree_bytes']} B")
     t0 = time.perf_counter()
     times = []
     # a rank's CE rows (its batch rows x 2 len_rec) and vocab shard: 1x2 and
@@ -3072,6 +3342,9 @@ def main() -> int:
     training_wide = phase_train_wide(spec, train, graphs, graphs_host)
     log(f"phase training wide: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    odd_widths = phase_odd_widths(spec, train, graphs, graphs_host, eval_data)
+    log(f"phase odd widths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     reset_launches()
     k7, atomics = phase_determinism(spec, train, graphs, timer, peak_bw)
     determinism = read_launches()
@@ -3106,6 +3379,7 @@ def main() -> int:
     log(f"phase scaled_e2e: {time.perf_counter() - t0:.1f} s")
     paths = {"serving": serving, "serving_d512": serving_wide,
              "training": training, "training_wide": training_wide,
+             "odd_widths": odd_widths,
              "experiment": experiment, "determinism": determinism,
              **par_launches, "scaled_e2e": scaled_launches,
              **{f"bench_{k}": v for k, v in bench_launches.items()}}
@@ -3115,6 +3389,7 @@ def main() -> int:
             ("serving", ("spmm_csr", "encoder_fwd")),
             ("serving_d512", ("spmm_csr", "encoder_fwd")),
             ("training", step_kernels), ("training_wide", step_kernels),
+            ("odd_widths", ("spmm_csr", "ce_fwd", "ce_bwd", "segsum")),
             ("experiment", ("spmm_csr_flagged",) + step_kernels),
             ("determinism", step_kernels),
             ("parallel_1x2", step_kernels), ("parallel_2x2", step_kernels),

@@ -575,6 +575,52 @@ def test_ce_function_routes_both_kernels(cuda):
         assert _rel_err(g, r) <= 1e-4, name
 
 
+@pytest.mark.parametrize("d", [36, 10])
+def test_odd_widths_run_the_kernels_padded(cuda, d):
+    """At widths the kernels do not take, the op-level callers pad d with
+    zeros (ops/padding): the CE (K4/K5 at d padded to 8), the hop (K1 at d
+    padded to 4) and a lookup's backward (K7), each against autograd
+    through the plain version, with each kernel launched once."""
+    from c2dsr_tpu_torch.ops import (backend, fused_ce, fused_ce_cuda,
+                                     lookup, segsum_cuda)
+    h, w, bm, pad, tgt = _ce_case(cuda, 200, d, 300, 290, seed=d)
+    ins = [t.clone().requires_grad_(True) for t in (h, w, bm, pad)]
+    ref_ins = [t.clone().requires_grad_(True) for t in (h, w, bm, pad)]
+    glse, gt = torch.randn(200, device=cuda), torch.randn(200, device=cuda)
+    f0, b0 = fused_ce_cuda.ce_fwd.launches, fused_ce_cuda.ce_bwd.launches
+    lse, tlog = fused_ce.fused_ce(*ins, tgt)
+    grads = torch.autograd.grad((lse * glse + tlog * gt).sum(), ins)
+    assert (fused_ce_cuda.ce_fwd.launches, fused_ce_cuda.ce_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    rlse, rtlog = fused_ce.ce_fwd_plain(*ref_ins, tgt)
+    assert _rel_err(lse, rlse) <= 1e-5 and _rel_err(tlog, rtlog) <= 1e-5
+    rgrads = torch.autograd.grad((rlse * glse + rtlog * gt).sum(), ref_ins)
+    for name, g, r in zip(("dh", "dw", "db", "dpad"), grads, rgrads):
+        assert g.shape == r.shape and _rel_err(g, r) <= 1e-4, name
+
+    share, _ = _graph()
+    g = spmm.device_graph(share, cuda)
+    x = torch.randn(share.n + 9, d, device=cuda)
+    cot = torch.randn_like(x)
+    outs = []
+    for fn in (lambda t: backend.spmm(g, t),
+               lambda t: spmm.spmm_reference(g, t)):
+        t = x.clone().requires_grad_(True)
+        out = fn(t)
+        (out * cot).sum().backward()
+        outs.append((out.detach(), t.grad))
+    for a, b in zip(*outs):
+        assert a.shape == b.shape and _rel_err(a, b) <= 1e-5
+
+    ids = torch.randint(0, share.n, (500,), device=cuda)
+    k0 = segsum_cuda.segsum.launches
+    table = x.clone().requires_grad_(True)
+    (lookup.lookup(table, ids) * cot[:500]).sum().backward()
+    assert segsum_cuda.segsum.launches == k0 + 1
+    want = torch.zeros_like(x).index_add_(0, ids, cot[:500])
+    assert _rel_err(table.grad, want) <= 1e-6
+
+
 def test_train_steps_on_card_match_cpu(cuda):
     """Three train steps on the card (every kernel, forward and backward)
     against the CPU (plain versions), from the same params and batches;

@@ -22,6 +22,14 @@ holds the one-device CE), and the CE mean as the step takes it
 Two checks show the gates can fail: a lookup whose ``psum`` all-reduces
 the gradient (as ``torch.distributed.nn.functional.all_reduce`` does) gives
 gradients M times too large, and the GRAD_TOL check refuses them.
+
+The same spawn also runs the counterpart of ``tests/test_scaled.py``'s
+million-row test at 2^20 table rows, d 64: each rank makes its own shard
+of a table whose every element is a hash of its index (so that any row can
+be recomputed anywhere) and of a classifier from its own seed, then the
+psum and all-to-all lookups (exact), the vocab-sharded CE (finite, within
+2.0 of log V), full rank (in [1, n_real]) and the all-to-all SpMM over a
+3-edges-a-row graph (three rows against a host sum, 1e-4).
 """
 
 import numpy as np
@@ -144,10 +152,122 @@ def _case(g, name, kw):
     raise ValueError(name)
 
 
+V_ROWS = 1 << 20          # the million-row case: table rows and classes
+D_M = 64
+
+
+def hashed_rows(lo, hi, d=D_M):
+    """Rows [lo, hi) of the million-row table: element (r, c) a hash of
+    r·d + c, in [-0.5, 0.5)."""
+    r = (np.arange(lo, hi, dtype=np.uint32)[:, None] * np.uint32(d)
+         + np.arange(d, dtype=np.uint32))
+    return (r * np.uint32(2654435761)).astype(np.float32) * 2.0 ** -32 - 0.5
+
+
+def million_graph():
+    """3·2^20 edges of weight 1/3, rows sorted: the sparse graph of
+    ``tests/test_scaled.py``'s a2a SpMM."""
+    rng = _rng(22)
+    nnz = 3 * V_ROWS
+    rows = np.sort(rng.integers(0, V_ROWS, size=nnz)).astype(np.int32)
+    cols = rng.integers(0, V_ROWS, size=nnz).astype(np.int32)
+    return rows, cols, np.full(nnz, 1 / 3, np.float32)
+
+
+def _million_rows(g, kw):
+    """The million-row ops on this rank's shards (``test_scaled.py:54``)."""
+    from c2dsr_tpu_torch.ops import losses
+    from c2dsr_tpu_torch.parallel import embed, sharded_eval, sharded_loss
+    i, S = g.index, V_ROWS // M
+    table = torch.from_numpy(hashed_rows(i * S, (i + 1) * S))
+    out = {}
+    ids = torch.from_numpy(kw["ids"]).long()
+    got = embed.sharded_lookup(table, ids, g)
+    out["psum_exact"] = bool(np.array_equal(got.numpy(),
+                                            _rows_at(kw["ids"])))
+    mine = kw["ids"][i * 16:(i + 1) * 16]
+    got = embed.all_to_all_lookup(table, torch.from_numpy(mine).long(), g)
+    out["a2a_exact"] = bool(np.array_equal(got.numpy(), _rows_at(mine)))
+    w = torch.randn((D_M, S), generator=torch.Generator().manual_seed(
+        300 + i)) * 0.02
+    b = torch.zeros(S)
+    n_real = V_ROWS - 1024
+    tgt = torch.from_numpy(kw["tgt"]).long()
+    rows = sharded_loss.sharded_rec_ce_rows_kernel(
+        torch.from_numpy(kw["h"]), w, b, torch.zeros(tgt.shape + (1,)), tgt,
+        n_real, g)
+    out["ce"] = float(losses.ce_mean_from_rows(rows, tgt, n_real)[0])
+    ranks = sharded_eval.sharded_full_rank(
+        torch.from_numpy(kw["hv"]), w, b, torch.from_numpy(kw["gt"]).long(),
+        n_real, g)
+    out["ranks"] = ranks.numpy()
+    plan = embed.rank_plan(embed.plan_spmm_a2a(*million_graph(), V_ROWS, M),
+                           i, "cpu")
+    res = embed.sharded_spmm_a2a(plan, table, g)
+    out["spmm_shape"] = tuple(res.shape)
+    out["spmm_rows"] = {r: res[r - i * S].numpy() for r in kw["spot"]
+                        if i * S <= r < (i + 1) * S}
+    return out
+
+
+def _rows_at(ids):
+    return np.stack([hashed_rows(r, r + 1)[0] for r in np.asarray(ids)])
+
+
+def _init_sharded(mesh, kw):
+    """``init_params_sharded`` on this rank against ``shard_params`` of the
+    full draw: whether each leaf is bitwise equal, its shape, and the
+    largest tensor drawn (``_normal``/``_uniform`` wrapped to record it),
+    with tables drawn in chunks of at most 1,024 elements."""
+    from c2dsr_tpu_torch.config import Config, DataSpec
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.parallel import mesh as mesh_mod
+    cfg, spec = Config(**kw["cfg"]), DataSpec(**kw["spec"])
+    drawn = []
+
+    def recorded(fn):
+        def draw(g, shape, *args):
+            drawn.append(int(np.prod(shape)))
+            return fn(g, shape, *args)
+        return draw
+
+    saved = (params_mod._normal, params_mod._uniform, params_mod.CHUNK_ELEMS)
+    params_mod._normal, params_mod._uniform = map(recorded, saved[:2])
+    params_mod.CHUNK_ELEMS = 1024
+    try:
+        got = params_mod.init_params_sharded(
+            cfg, spec, torch.Generator().manual_seed(kw["seed"]), mesh, "cpu")
+    finally:
+        (params_mod._normal, params_mod._uniform,
+         params_mod.CHUNK_ELEMS) = saved
+    want = mesh_mod.shard_params(params_mod.init_params(
+        cfg, spec, torch.Generator().manual_seed(kw["seed"]), "cpu"), mesh)
+    names = mesh_mod.leaf_names(want)
+    leaves = [(a, b) for a, b in zip(_leaves(got), _leaves(want))]
+    return {"names": names, "equal": [bool(torch.equal(a, b))
+                                      for a, b in leaves],
+            "shapes": [tuple(a.shape) for a, _ in leaves],
+            "largest_draw": max(drawn)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [tree]
+
+
 def _worker(rank, world, cases):
     from c2dsr_tpu_torch.parallel import mesh as mesh_mod
     mesh = mesh_mod.make_mesh(1, world)
-    return {name: _case(mesh.model_group, name, kw) for name, kw in cases}
+    out = {}
+    for name, kw in cases:
+        if name == "init_sharded":
+            out[name] = _init_sharded(mesh, kw)
+        elif name == "million_rows":
+            out[name] = _million_rows(mesh.model_group, kw)
+        else:
+            out[name] = _case(mesh.model_group, name, kw)
+    return out
 
 
 # --- the inputs --------------------------------------------------------------------
@@ -215,6 +335,18 @@ def _inputs():
               b=rng.normal(size=32).astype(np.float32), n_real=30)
     cases["full_rank"] = dict(ev, gt=rng.integers(0, 30, size=16))
     cases["gather_scores"] = dict(ev, ids=rng.integers(0, 30, size=(16, 9)))
+    cases["init_sharded"] = dict(
+        cfg=dict(d_latent=36, shared_item_embed=False, d_bias=True,
+                 vocab_pad_multiple=128),
+        spec=dict(n_item_a=150, n_item_b=200, len_max=15), seed=5)
+    rng = _rng(21)
+    cases["million_rows"] = dict(
+        ids=rng.integers(0, V_ROWS, size=64),
+        h=rng.normal(size=(8, 4, D_M)).astype(np.float32),
+        tgt=rng.integers(0, V_ROWS - 1024, size=(8, 4)),
+        hv=rng.normal(size=(16, D_M)).astype(np.float32),
+        gt=rng.integers(0, V_ROWS - 1024, size=16),
+        spot=(0, V_ROWS // 2, V_ROWS - 7))
     return cases
 
 
@@ -420,3 +552,59 @@ def test_sharded_ranking_is_the_jax_ranking(run, jmesh, name):
             kw["h"], w, b, kw["ids"].astype(np.int32), jmesh))
         for r in out:
             _close(r[name]["out"], want, TOL)
+
+
+def check_init_sharded(results, kw, m):
+    """Each rank's ``_init_sharded`` result on a 1 x m mesh: every leaf
+    bitwise equal, each shard's shape, no draw as large as a full table."""
+    from c2dsr_tpu_torch.config import Config, DataSpec, padded_sizes
+    cfg, spec = Config(**kw["cfg"]), DataSpec(**kw["spec"])
+    n_p, na_p, nb_p = padded_sizes(cfg, spec)
+    d = cfg.d_latent
+    want = {"embed_share": (n_p // m, d), "embed_a": (n_p // m, d),
+            "embed_b": (n_p // m, d), "cls_a_w": (d, na_p // m),
+            "cls_b_w": (d, nb_p // m), "cls_a_b": (na_p // m,),
+            "cls_b_b": (nb_p // m,)}
+    assert len(results) == m
+    for got in results:
+        assert all(got["equal"]), [n for n, e in zip(got["names"],
+                                                     got["equal"]) if not e]
+        shapes = dict(zip(got["names"], got["shapes"]))
+        for name, shape in want.items():
+            assert shapes[name] == shape, (name, shapes[name])
+        assert got["largest_draw"] < n_p * d, got["largest_draw"]
+
+
+def test_shard_local_init_is_the_full_draw_cut(run):
+    """init_params_sharded on each rank of a 1x4 mesh (d 36, three tables):
+    every leaf bitwise shard_params(init_params(...)), each shard's shape,
+    and no rank drawing a tensor as large as one full table (the 1x2 mesh:
+    tests/test_torch_parallel_step.py)."""
+    cases, out = run
+    check_init_sharded([r["init_sharded"] for r in out],
+                       cases["init_sharded"], M)
+
+
+def test_million_row_sharded_ops(run):
+    """The counterpart of tests/test_scaled.py:54: psum and all-to-all
+    lookups exact, the vocab-sharded CE finite and near log V, full ranks
+    in [1, n_real], the all-to-all SpMM at three rows against a host sum."""
+    cases, out = run
+    kw = cases["million_rows"]
+    rows, cols, vals = million_graph()
+    for r in out:
+        got = r["million_rows"]
+        assert got["psum_exact"] and got["a2a_exact"]
+        assert np.isfinite(got["ce"])
+        assert abs(got["ce"] - np.log(V_ROWS)) < 2.0, got["ce"]
+        assert got["ranks"].min() >= 1
+        assert got["ranks"].max() <= V_ROWS - 1024
+        assert got["spmm_shape"] == (V_ROWS // M, D_M)
+    spot = {k: v for r in out for k, v in r["million_rows"]["spmm_rows"]
+            .items()}
+    assert sorted(spot) == sorted(kw["spot"])
+    for row in kw["spot"]:
+        sel = rows == row
+        want = ((_rows_at(cols[sel]) * vals[sel][:, None]).sum(0)
+                if sel.any() else np.zeros(D_M, np.float32))
+        np.testing.assert_allclose(spot[row], want, atol=1e-4)

@@ -194,6 +194,14 @@ def job_ckpt(mesh_shape, np_params, batch, save_to, load_from):
     return out
 
 
+def job_init_sharded(mesh_shape, kw):
+    """``init_params_sharded`` on this rank against the full draw cut
+    (``tests/test_torch_parallel_ops._init_sharded``)."""
+    import test_torch_parallel_ops as ops_test
+    from c2dsr_tpu_torch.parallel import mesh as mesh_mod
+    return ops_test._init_sharded(mesh_mod.make_mesh(*mesh_shape), kw)
+
+
 def worker(rank, world, jobs):
     """Run each (name, job function name, kwargs) in order; {name: result}."""
     import sys
@@ -248,6 +256,9 @@ def flat(tree, prefix=""):
     return {prefix.rstrip("/"): np.asarray(tree)}
 
 
+INIT_KW = dict(cfg=dict(d_latent=36, shared_item_embed=False, d_bias=True,
+                       vocab_pad_multiple=128),
+               spec=dict(n_item_a=150, n_item_b=300, len_max=15), seed=6)
 MESHES = {"1x2": ((1, 2), {}), "2x2": ((2, 2), {}),
           "2x2_a2a": ((2, 2), {"lookup_mode": "a2a"})}
 
@@ -269,6 +280,9 @@ def runs():
                       batch=batch))
                 for name, (shape, kw) in MESHES.items()
                 if shape[0] * shape[1] == world]
+        if world == 2:
+            jobs.append(("init_1x2", "job_init_sharded",
+                         dict(mesh_shape=(1, 2), kw=INIT_KW)))
         res = launch.run_ranks(worker, world, (jobs,), timeout=120)
         for r in res:
             for name, v in r.items():
@@ -337,3 +351,11 @@ def test_sharded_loss_and_grads_match_the_local_step(runs, name):
         assert set(got) == set(wgrads)
         for path, w in wgrads.items():
             close(got[path], w, GRAD_TOL, f"{name} {path}")
+
+
+def test_shard_local_init_at_1x2_is_the_full_draw_cut(runs):
+    """init_params_sharded on the two ranks of a 1x2 mesh, checked as
+    tests/test_torch_parallel_ops.py checks its 1x4 mesh."""
+    import test_torch_parallel_ops as ops_test
+    out, _, _ = runs
+    ops_test.check_init_sharded(out["init_1x2"], INIT_KW, 2)

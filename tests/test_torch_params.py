@@ -122,3 +122,25 @@ def test_init_is_seeded(port_params):
     torch.testing.assert_close(again["embed_a"], port_params["embed_a"],
                                rtol=0, atol=0)
     assert not torch.equal(other["embed_a"], port_params["embed_a"])
+
+
+@pytest.mark.parametrize("d", [36, 32])
+def test_chunked_table_draw_is_one_whole_draw(monkeypatch, d):
+    """``init_params`` draws an item table in chunks of whole 16-float
+    blocks (here of at most 1,024 elements, so many of them, the last
+    ragged): on torch's CPU generator they give one whole ``randn`` draw's
+    values, pad row zeroed, and a classifier drawn a d-row at a time gives
+    one whole ``uniform_`` draw's."""
+    monkeypatch.setattr(params_mod, "CHUNK_ELEMS", 1024)
+    cfg, spec = Config(**{**KW, "d_latent": d}), DataSpec(**SPEC)
+    got = params_mod.init_params(cfg, spec, torch.Generator().manual_seed(3),
+                                 "cpu")
+    want = torch.randn((spec.n_item, d), generator=torch.Generator()
+                       .manual_seed(3))
+    want[spec.idx_pad] = 0.0
+    assert torch.equal(got["embed_share"][:spec.n_item], want)
+    assert not got["embed_share"][spec.n_item:].any()
+    g1, g2 = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
+    n = 1000
+    rows = torch.stack([params_mod._uniform(g1, (n,), 0.5) for _ in range(d)])
+    assert torch.equal(rows, params_mod._uniform(g2, (d, n), 0.5))

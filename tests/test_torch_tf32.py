@@ -12,15 +12,33 @@ relative to the largest value, of float64; one-pass TF32 (big·big alone)
 does not.  This is the argument for running K5 at f32 accuracy without a
 precision flag; the card tests hold the kernel itself to 2e-5.  The
 accumulator's adds are modelled as exact and rounded to nearest there; with
-them truncated (mma_sum_truncating), the longest sum the bench gives K5,
-dW over 10,240 rows, reproduces the error the card shows.
+them truncated (mma_sum_truncating), the longest sum the bench gave K5,
+dW over 10,240 rows in one chain, reproduces the error the card showed.
+The kernels' remedies are emulated last: dW over chains of at most 1,280
+rows (``csrc/ce.cu`` kMaxRowChain) whose partials are added in f32, and a
+logit tile whose k-steps go four at a time into a partial from a zero
+accumulator that an f32 add rounds into the sum (``csrc/ce_fwd.cuh``
+logit_tile).
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 TOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The emulations are thousands of small ops, which threads do not
+    speed up; beside other test processes on the same cores, a thread
+    pool's waits made one of them take minutes."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -192,19 +210,12 @@ def mma_sum_truncating(a_terms, b_terms, extra_bits: int = 3,
     return acc
 
 
-def test_k5_dw_error_at_the_kernel_bench_shape_is_the_accumulators():
-    """Why K5's dW at ``bench/kernel_bench.py``'s K4+K5 shape (N 10,240,
-    d 128, V 65,536, the loss's own dlogits p - onehot) lies 3.67e-5 of
-    its largest element from float64 on the H100 (``--kernels``; plain
-    f32 on the card: 2.5e-6).  At that shape ce_bwd_plan gives the dW
-    kernel one row split, so a block adds all 10,240 rows into one
-    tensor-core accumulator, 3 MMAs a k-step of 8 rows.  Emulated on the
-    bench's own inputs (its numpy draws), at the columns with the most
-    target rows: the same 3xTF32 products added with round-to-nearest
-    stay near plain f32 (~1.7e-6), while a truncating accumulator
-    (mma_sum_truncating) gives ~4e-5, above the first 2e-5 gate and below
-    the gradient gate's 1e-4 (GRAD_TOL); one-pass TF32 products land
-    above 1e-4, so that gate still refuses them."""
+@functools.lru_cache(maxsize=None)
+def _bench_dw_case():
+    """``bench/kernel_bench.py``'s K4+K5 inputs (its numpy draws: N 10,240,
+    d 128, V 65,536, the loss's own dlogits p - onehot) at 64 columns: the
+    48 with the most target rows and 16 others.  Returns the 3xTF32 splits
+    of the dlogits P [N, 64] and of h [N, d], P, h, and Pᵀ·h in float64."""
     N, d, V = 10240, 128, 65536
     n_real = V - 1024
     rng = np.random.default_rng(0)          # kernel_bench.bench_ce's draws
@@ -214,21 +225,42 @@ def test_k5_dw_error_at_the_kernel_bench_shape_is_the_accumulators():
     b[n_real:] = -1e9
     pad = torch.from_numpy(rng.normal(size=N).astype(np.float32))
     tgt = torch.from_numpy(rng.integers(0, n_real, size=N))
-    m, s = pad.double(), torch.ones(N, dtype=torch.float64)
-    for c0 in range(0, V, 8192):            # the lse, in chunks of the vocab
-        lg = (h @ w[:, c0:c0 + 8192] + b[c0:c0 + 8192]).double()
-        m_new = torch.maximum(m, lg.amax(1))
-        s = s * torch.exp(m - m_new) + torch.exp(lg - m_new[:, None]).sum(1)
-        m = m_new
-    lse = m + torch.log(s)
+    # the lse, in chunks of the vocab, each chunk's in f32, combined in
+    # float64
+    parts = [pad.double()[:, None]] + [
+        torch.logsumexp(h @ w[:, c0:c0 + 4096] + b[c0:c0 + 4096], 1)
+        .double()[:, None] for c0 in range(0, V, 4096)]
+    lse = torch.logsumexp(torch.cat(parts, 1), 1)
     cols = torch.cat([torch.bincount(tgt, minlength=V).topk(48).indices,
                       torch.from_numpy(rng.choice(n_real, 16, replace=False))])
     p = torch.exp((h @ w[:, cols] + b[cols]).double() - lse[:, None])
     P = (p - (tgt[:, None] == cols[None, :]).double()).float()   # [N, cols]
-    want = (P.double().T @ h.double())
-    (pb, ps), (hb, hs) = split(P), split(h)
+    return split(P), split(h), P, h, P.double().T @ h.double()
+
+
+@functools.lru_cache(maxsize=None)
+def _bench_dw_one_chain() -> torch.Tensor:
+    """dW at the bench's case summed over all its rows in one truncating
+    accumulator."""
+    (pb, ps), (hb, hs), _, _, _ = _bench_dw_case()
+    return mma_sum_truncating([ps, pb, pb], [hb, hs, hb])
+
+
+def test_k5_dw_error_at_the_kernel_bench_shape_is_the_accumulators():
+    """Why K5's dW at ``bench/kernel_bench.py``'s K4+K5 shape (N 10,240,
+    d 128, V 65,536, the loss's own dlogits p - onehot) lay 3.67e-5 of
+    its largest element from float64 on the H100 (``--kernels``; plain
+    f32 on the card: 2.5e-6) while ce_bwd_plan gave the dW kernel one row
+    split there: a block added all 10,240 rows into one tensor-core
+    accumulator, 3 MMAs a k-step of 8 rows.  Emulated on the bench's own
+    inputs (its numpy draws), at the columns with the most target rows:
+    the same 3xTF32 products added with round-to-nearest stay near plain
+    f32 (~1.7e-6), while a truncating accumulator (mma_sum_truncating)
+    gives ~4e-5, above the 2e-5 gate and below 1e-4; one-pass TF32
+    products land above 1e-4."""
+    (pb, ps), (hb, hs), P, h, want = _bench_dw_case()
     nearest = mma_sum([ps.T, pb.T, pb.T], [hb, hs, hb])
-    truncating = mma_sum_truncating([ps, pb, pb], [hb, hs, hb])
+    truncating = _bench_dw_one_chain()
     one_pass = mma_sum_truncating([tf32_rna(P)], [tf32_rna(h)])
     e_near, e_trunc, e_one = (rel(x, want) for x in
                               (nearest, truncating, one_pass))
@@ -237,3 +269,74 @@ def test_k5_dw_error_at_the_kernel_bench_shape_is_the_accumulators():
     assert e_near < 5e-6, e_near
     assert 2e-5 < e_trunc < 1e-4, e_trunc
     assert e_one > 1e-4, e_one
+
+
+def test_k5_dw_in_row_chains_of_1280_is_f32_accurate_at_the_bench_shape():
+    """K5's remedy for its dW (``csrc/ce.cu`` kMaxRowChain): the plan gives
+    the dW kernel at least one row split per 1,280 rows, so a truncating
+    tensor-core accumulator sums at most 1,280 rows, and ce_merge_kernel
+    adds the splits' partials in f32, in split order.  At the bench's
+    shape this is within 1e-5 of float64 (the card's target); one chain of
+    all 10,240 rows, the scheme it replaces, is not, nor are chains of
+    2,560."""
+    (pb, ps), (hb, hs), _, _, want = _bench_dw_case()
+
+    def chained(rows):
+        acc = torch.zeros(want.shape, dtype=torch.float32)
+        for r0 in range(0, pb.shape[0], rows):
+            part = slice(r0, r0 + rows)
+            acc = acc + mma_sum_truncating([ps[part], pb[part], pb[part]],
+                                           [hb[part], hs[part], hb[part]])
+        return rel(acc, want)
+
+    e_1280, e_2560 = chained(1280), chained(2560)
+    e_one = rel(_bench_dw_one_chain(), want)
+    print(f"dW emulation: chains of 1,280 rows {e_1280:.3e}, of 2,560 "
+          f"{e_2560:.3e}, one chain {e_one:.3e}")
+    assert e_1280 <= TOL, e_1280
+    assert e_2560 > TOL and e_one > TOL, (e_2560, e_one)
+
+
+def mma_sum_partials(a_terms, b_terms, steps: int = 4,
+                     k_step: int = 8) -> torch.Tensor:
+    """K4's logit tile (``csrc/ce_fwd.cuh`` logit_tile): the products of
+    ``steps`` k-steps (kLogitSteps) go into a zeroed, truncating accumulator
+    (mma_sum_truncating over those k-steps alone), which an f32 add rounds
+    into the sum.  a_terms [K, M], b_terms [K, n]."""
+    acc = torch.zeros(a_terms[0].shape[1], b_terms[0].shape[1])
+    for k0 in range(0, a_terms[0].shape[0], steps * k_step):
+        part = slice(k0, k0 + steps * k_step)
+        acc = acc + mma_sum_truncating([a[part] for a in a_terms],
+                                       [b[part] for b in b_terms])
+    return acc
+
+
+def test_logit_tile_partials_of_4_k_steps_are_as_close_as_plain_f32():
+    """Logits of a trained state's size (|h| ~ 4, |W| ~ 1, d 128: logits up
+    to ~200, the softmax sharp): summed over d's 16 k-steps in one
+    truncating accumulator (the tile before the remedy), the logits and
+    their lse drift several times further from float64 than plain f32;
+    with partials of 4 k-steps (kLogitSteps) added in f32 they come within
+    plain f32's error, and so do partials of 1 and 2."""
+    rng = np.random.default_rng(5)
+    N, d, V = 64, 128, 4096
+    h = torch.from_numpy((rng.normal(size=(N, d)) * 4.0).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(d, V)).astype(np.float32))
+    want = h.double() @ w.double()
+    (hb, hs), (wb, ws) = split(h), split(w)
+    terms = ([hs.T, hb.T, hb.T], [wb, ws, wb])
+    lse64 = torch.logsumexp(want, 1)
+
+    def errs(s):
+        return rel(s, want), rel(torch.logsumexp(s.double(), 1), lse64)
+
+    one_chain = errs(mma_sum_truncating(*terms))
+    plain = errs(h @ w)
+    for steps in (4, 2, 1):
+        partials = errs(mma_sum_partials(*terms, steps=steps))
+        print(f"logits, lse from float64: one chain {one_chain}, partials of "
+              f"{steps} k-steps {partials}, plain f32 {plain}")
+        for e_part, e_plain in zip(partials, plain):
+            assert e_part <= e_plain, (steps, partials, plain)
+    for e_chain, e_plain in zip(one_chain, plain):
+        assert e_chain > 2 * e_plain, (one_chain, plain)
