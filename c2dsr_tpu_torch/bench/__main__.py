@@ -19,7 +19,11 @@ dropout 0 through the kernels must give the plain versions' loss to 1e-5
 relative and each gradient to 1e-4 of its largest element (the gate
 ``chip_smoke.py`` uses), and the eval split's full-rank ranks must equal
 the plain versions' except at near-ties (``bench/gates.check_ranks``, the
-rule ``chip_smoke.py`` uses).  A mode whose gate fails exits non-zero.
+rule ``chip_smoke.py`` uses).  Beside it, as the JAX bench times its f32
+step beside its bf16 default (bench.py:138-145), the train rate with both
+dtypes bf16 (``compute_dtype`` and ``classifier_dtype``: the kernels'
+bf16 instantiations), gated alike with BF16_GRAD_TOL; the headline stays
+the f32 step.  A mode whose gate fails exits non-zero.
 The last line of standard output is one JSON object; details go to
 ``build/bench_torch/details.json`` (git-ignored).  The bench writes no
 tracked file.
@@ -27,9 +31,7 @@ tracked file.
 Every mode runs on the card.  ``--device cpu`` runs the headline,
 ``--batches`` and ``--ablation`` with the plain versions on the CPU (the
 tests do, at a tiny :class:`Spec`); the kernel modes and ``--scaled-e2e``
-(1M item rows) have no CPU form and raise.  The JAX
-bench's second, float32 rate does not carry over: the port computes in
-f32 only.
+(1M item rows) have no CPU form and raise.
 """
 
 from __future__ import annotations
@@ -54,6 +56,11 @@ BASELINE = os.path.join(REPO_DIR, "bench_baseline.json")
 LOSS_TOL = 1e-5          # the train gate: loss relative to the plain one's
 GRAD_TOL = 1e-4          # and each gradient tensor, max abs error over max
                          # |plain| (chip_smoke.py's train-step gate)
+BF16_GRAD_TOL = 1e-2     # the same at bf16: the kernels' and the plain
+                         # versions' sums round a few values to the other
+                         # bf16 neighbour, which the tower carries on
+                         # (chip_smoke.py STEP_BF16_GRAD_TOL; the f32 step
+                         # lies 0.22 from the bf16 one, tests/test_torch_bf16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,8 +135,9 @@ def train_gate(cfg, sp, graphs, leaves, params, batch) -> Dict[str, float]:
     through the plain versions, the plain tower taken at K2's branches
     (bench/gates.recording_k2_branches), as ``chip_smoke.py``'s train phase
     holds them: the loss to LOSS_TOL relative, each gradient tensor of
-    ``leaves`` to GRAD_TOL of its largest plain element, or GateFailure.
-    The backward runs every kernel the timed steps run (K1-K5, K7)."""
+    ``leaves`` to GRAD_TOL (BF16_GRAD_TOL where the config takes bf16
+    products) of its largest plain element, or GateFailure.  The backward
+    runs every kernel the timed steps run (K1-K5, K7)."""
     from c2dsr_tpu_torch.train import step as step_mod
     cfg0 = cfg.with_(dropout_gnn=0.0, dropout_attn=0.0)
 
@@ -152,9 +160,10 @@ def train_gate(cfg, sp, graphs, leaves, params, batch) -> Dict[str, float]:
         raise timing.GateFailure(f"train gate: loss {loss_k} (kernels) "
                                  f"against {loss_p} (plain), relative "
                                  f"{rel} > {LOSS_TOL}")
-    if not g_rel <= GRAD_TOL:
+    grad_tol = BF16_GRAD_TOL if cfg.bf16_products() else GRAD_TOL
+    if not g_rel <= grad_tol:
         raise timing.GateFailure(f"train gate: a gradient {g_rel} from the "
-                                 f"plain versions' > {GRAD_TOL}")
+                                 f"plain versions' > {grad_tol}")
     return {"loss_kernels": loss_k, "loss_plain": loss_p, "rel_err": rel,
             "grad_rel_err": g_rel, "n_grads": len(leaves)}
 
@@ -234,6 +243,9 @@ def headline(spec: Spec = FK, device="cuda") -> Dict:
     step_s, state, t_gate = train_rate(cfg, sp, graphs, train, spec, device,
                                        spec.steps)
     rate = spec.batch / step_s
+    bf16_s, _, b_gate = train_rate(
+        cfg.with_(compute_dtype="bfloat16", classifier_dtype="bfloat16"), sp,
+        graphs, train, spec, device, spec.steps)
     ev_ex, ev_items, e_gate = eval_rate(cfg, sp, graphs, state.params, spec,
                                         device)
     on_card = torch.device(device).type == "cuda"
@@ -244,6 +256,8 @@ def headline(spec: Spec = FK, device="cuda") -> Dict:
     dev = device_name(device)
     details = {
         "train_examples_per_s": rate, "train_step_ms": step_s * 1e3,
+        "bf16_train_examples_per_s": spec.batch / bf16_s,
+        "bf16_train_step_ms": bf16_s * 1e3, "bf16_train_gate": b_gate,
         "eval_full_rank_examples_per_s": ev_ex,
         "eval_full_rank_items_per_s": ev_items,
         "train_gate": t_gate, "eval_gate": e_gate, "device": dev,

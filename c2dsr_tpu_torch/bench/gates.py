@@ -91,16 +91,20 @@ def recording_k2_branches(store, calls=None):
         return got
 
     # the wrappers count their launches on the module's names: carry them
-    recording.launches, capturing.launches = fwd.launches, bwd.launches
+    counts = ("launches", "launches_bf16")
+    for name in counts:
+        setattr(recording, name, getattr(fwd, name))
+        setattr(capturing, name, getattr(bwd, name))
     encoder_cuda.encoder_fwd = recording
     if calls is not None:
         encoder_cuda.encoder_bwd = capturing
     try:
         yield
     finally:
-        fwd.launches = recording.launches
-        if calls is not None:
-            bwd.launches = capturing.launches
+        for name in counts:
+            setattr(fwd, name, getattr(recording, name))
+            if calls is not None:
+                setattr(bwd, name, getattr(capturing, name))
         encoder_cuda.encoder_fwd, encoder_cuda.encoder_bwd = fwd, bwd
 
 

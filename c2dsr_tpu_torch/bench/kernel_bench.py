@@ -15,7 +15,14 @@ once.  The rows:
   FK batch's row flags;
 - K2 alone, and K2 + K3 together, at B 512, L 15, d 128, dropout 0.2;
 - the lookup: ``index_select`` and its backward K7, at one FK batch's ids
-  into the 64,094-row share table.
+  into the 64,094-row share table;
+- the bf16 instantiations (``compute_dtype="bfloat16"``), after the JAX
+  bench's ``_bf16w`` and ``blocked_spmm_bf16_*`` rows (:106-123,
+  :209-244): K4 and K4 + K5 on a bf16 W at the CE rows' shape, K1 and K6
+  with the bf16 gather at the hop's; each gated against its plain bf16
+  version, bounded at the bf16 tensor-core peak (and at one TF32 pass a
+  product, their design), the library call an mm of bf16 operands into f32
+  where this PyTorch has one.
 """
 
 from __future__ import annotations
@@ -34,6 +41,12 @@ GRAD_TOL = 1e-4          # K3's gradients, per tensor, over max |plain| at
                          # K2's branches (the train step's gradient gate)
 CE_GRAD_TOL = 2e-5       # K4+K5's gradients, per tensor, over max |float64|
 DW_TOL = 1e-5            # K5's dW of them: as close as an f32 GEMM's order
+# the bf16 instantiations against their plain bf16 versions (chip_smoke.py
+# phase bf16's limits): the same rounded operands summed in another order
+BF16_TOL = 1e-5          # K4's rows, K1/K6: max abs over max
+BF16_GRAD_TOL = 5e-5     # K4+K5's dh, dW, db: max abs over max, dW before
+                         # its rounding to a bf16 W's dtype (W f32, rounded
+                         # in the kernels' pre-pass: the same kernels)
 
 
 def _rel(a, b) -> float:
@@ -58,6 +71,94 @@ def _entry(name, ms, plain_ms, library_ms, flops, nbytes, name_card,
             "tflops": flops / ms / 1e9 if flops else None,
             "gbps": nbytes / ms / 1e6, "pct_of_bound": 100 * tc / ms,
             "max_rel_err": err, **extra}
+
+
+def _bf16_entry(name, ms, plain_ms, library_ms, flops, nbytes, card,
+                peak_bw, err, **extra) -> Dict:
+    """A bf16 row: times and the bounds at the bf16 tensor-core peak and at
+    one TF32 pass a product."""
+    bound, one_pass = timing.bf16_bounds_ms(flops, nbytes, card, peak_bw)
+    bytes_ms = nbytes / peak_bw * 1e3
+    return {"kernel": name, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound,
+            "bound_tf32_one_pass_ms": one_pass,
+            "bound_by": "operations" if bound > bytes_ms else "bytes",
+            "tflops": flops / ms / 1e9, "gbps": nbytes / ms / 1e6,
+            "pct_of_bound": 100 * bound / ms, "max_rel_err": err, **extra}
+
+
+def mm_bf16_f32(a: torch.Tensor, b: torch.Tensor):
+    """One PyTorch call multiplying bf16 operands into an f32 product
+    (``torch.mm``'s ``out_dtype``), or None where this PyTorch has none."""
+    try:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return None
+
+
+def bench_ce_bf16w(timer, card, peak_bw, B=512, R=20, d=128, V=65536
+                   ) -> List[Dict]:
+    """K4 and K4 + K5 on a bf16 W (the bf16 classifier), the JAX bench's
+    ``fused_ce_*_bf16w`` rows: gated against the plain bf16 CE (its
+    backward the JAX kernels', ``ops/bf16.py``), the gradients on the f32
+    W that rounds to the bf16 one (the kernels round it in their
+    pre-pass), whose dW is not yet rounded to bf16: a bf16 dW rounds a
+    few values to the other neighbour on each side."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    N, n_real = B * R, V - 1024
+    rng = np.random.default_rng(1)
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    h = put(rng.normal(size=(N, d)))
+    wb = put(rng.normal(size=(d, V)) * 0.02).to(torch.bfloat16)
+    bm = fused_ce.mask_bias(put(rng.normal(size=V) * 0.02), n_real)
+    pad = put(rng.normal(size=N))
+    tgt = torch.from_numpy(rng.integers(0, n_real, size=N)).cuda()
+    leaves = [t.clone().requires_grad_(True) for t in (h, wb, bm)]
+    leaves32 = [t.detach().float().requires_grad_(True) for t in leaves]
+
+    def fwd_bwd(fn, args=leaves):
+        lse, tl = fn(*args, pad, tgt, bf16=True)
+        return torch.autograd.grad((lse - tl).sum(), args)
+
+    with torch.no_grad():
+        got = fused_ce_cuda.ce_fwd(h, wb, bm, pad, tgt)
+        want = fused_ce.ce_fwd_plain(h, wb, bm, pad, tgt)
+    e_f = max(_rel(got[0], want[0]), _rel(got[1], want[1]))
+    _gate(e_f <= BF16_TOL, f"K4 bf16: {e_f} from its plain bf16 version")
+    g_k = fwd_bwd(fused_ce.fused_ce, leaves32)
+    g_p = fwd_bwd(fused_ce.ce_fwd_plain, leaves32)
+    errs = {n: _rel(a, b) for n, a, b in zip(("dh", "dw", "db"), g_k, g_p)}
+    e_b = max(errs.values())
+    _gate(e_b <= BF16_GRAD_TOL and fwd_bwd(fused_ce.fused_ce)[1].dtype
+          == torch.bfloat16,
+          f"K4+K5 bf16: gradients from the plain bf16 versions {errs}")
+    hb = h.to(torch.bfloat16)
+    lib = None
+    if mm_bf16_f32(hb, wb) is not None:
+        def lib_fwd():
+            logits = mm_bf16_f32(hb, wb) + bm
+            return (torch.logsumexp(torch.cat([logits, pad[:, None]], 1), 1),
+                    logits.gather(1, tgt[:, None]))
+        with torch.no_grad():
+            lib = timer(lib_fwd)
+    with torch.no_grad():
+        f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, wb, bm, pad, tgt))
+        f_plain = timer(lambda: fused_ce.ce_fwd_plain(h, wb, bm, pad, tgt))
+    fb_ms = timer(lambda: fwd_bwd(fused_ce.fused_ce))
+    fb_plain = timer(lambda: fwd_bwd(fused_ce.ce_fwd_plain))
+    io = 4.0 * (N * d + V + 3 * N) + 2.0 * d * V
+    shape = {"N": N, "d": d, "V": V, "w_dtype": "bfloat16"}
+    return [
+        _bf16_entry("K4 ce_fwd_bf16w", f_ms, f_plain, lib, 2.0 * N * V * d,
+                    io, card, peak_bw, e_f, shape=shape),
+        _bf16_entry("K4+K5 ce_fwd_bwd_bf16w", fb_ms, fb_plain, None,
+                    6.0 * N * V * d, 2 * io + 4.0 * (N * d + V) + 2.0 * d * V,
+                    card, peak_bw, e_b, shape=shape, errors=errs,
+                    note="bounds count 6·N·V·d; library: none (no one "
+                         "call differentiates a bf16 product into f32)")]
 
 
 def bench_ce(timer, card, peak_flops, peak_bw, B=512, R=20, d=128,
@@ -186,6 +287,30 @@ def bench_spmm(timer, card, peak_flops, peak_bw, train, graphs, d=128
                    k6_bytes, card, peak_flops, peak_bw, e6, nnz=nnz,
                    kept_edges=n_kept,
                    note="library: dense torch.sparse.mm, more work")]
+    # the bf16 gather (the JAX bench's blocked_spmm_bf16_gather and
+    # _batch_sparse rows): the same bytes, each product rounded to bf16
+    out16 = spmm_cuda.spmm_csr(g, h, bf16=True)
+    out16_f = spmm_cuda.spmm_csr_flagged(g, h, flag, "dest", bf16=True)
+    e16 = _rel(out16, spmm.spmm_reference(g, h, bf16=True))
+    e16_f = _rel(out16_f, spmm.spmm_reference_flagged(g, h, flag, "dest",
+                                                       True))
+    _gate(e16 <= BF16_TOL and e16_f <= BF16_TOL,
+          f"K1 bf16 {e16}, K6 bf16 {e16_f} from the plain bf16 hop")
+    with torch.no_grad():
+        rows += [
+            _bf16_entry("K1 spmm_csr_bf16",
+                        timer(lambda: spmm_cuda.spmm_csr(g, h, bf16=True)),
+                        timer(lambda: spmm.spmm_reference(g, h, bf16=True)),
+                        None, 2.0 * nnz * d, k1_bytes, card, peak_bw, e16,
+                        nnz=nnz, note="library: none (no sparse product of "
+                                      "bf16 operands into f32)"),
+            _bf16_entry("K6 spmm_csr_flagged_bf16 dest",
+                        timer(lambda: spmm_cuda.spmm_csr_flagged(
+                            g, h, flag, "dest", bf16=True)),
+                        timer(lambda: spmm.spmm_reference_flagged(
+                            g, h, flag, "dest", True)),
+                        None, 2.0 * n_kept * d, k6_bytes, card, peak_bw,
+                        e16_f, nnz=nnz, kept_edges=n_kept)]
     return rows
 
 
@@ -382,11 +507,13 @@ def run(device: str = "cuda") -> Dict:
     graphs = fk_graph.graphs(fk_graph.load_or_build(sp), "cuda")
     timer = timing.Timer()
     results = (bench_ce(timer, card, peak_flops, peak_bw)
+               + bench_ce_bf16w(timer, card, peak_bw)
                + bench_spmm(timer, card, peak_flops, peak_bw, train, graphs)
                + bench_encoder(timer, card, peak_flops, peak_bw)
                + bench_lookup(timer, card, peak_flops, peak_bw, train))
     return {"device": timing.card_line(),
             "peaks": {"fp32_tflops": peak_flops / 1e12,
                       "tf32_tflops": timing.tf32_peak(card) / 1e12,
+                      "bf16_tflops": timing.bf16_peak(card) / 1e12,
                       "hbm_tbps": peak_bw / 1e12},
             "results": results}

@@ -15,10 +15,19 @@ vocab-chunked plain oracle:
 3. full-rank scoring of 256 rows over the shard (``LocalOps.full_rank``;
    oracle: the ranks of 32 rows counted over vocab chunks).
 
+Then the bf16-at-rest classifier (``classifier_dtype="bfloat16"``,
+scaled_bench.py:15-16, :221-266): a shard twice as wide, V = 2^20, at two
+bytes an element (W is 1 GiB again): the CE's bf16 instantiations (the
+rows and gradients first held against the plain bf16 versions over row
+chunks, W f32 rounded in the kernels' pre-pass so that dW is compared
+before its rounding to bf16, then timed on the bf16 W) and full-rank
+scoring with the bf16 classifier (f32 scores of bf16-rounded operands;
+oracle: the ranks of 32 rows counted over vocab chunks of the same
+rounded operands).
+
 Also the per-device memory plan of the full configuration, for the H100's
-80 GB.  Not ported: the bf16-at-rest classifier variant (the port has no
-bf16 classifier path) and the projection to 10M items over M devices
-(it waits for ``parallel/``); ROADMAP §A lists both.
+80 GB.  Not ported: the projection to 10M items over M devices, which
+needs a four-card mesh (ROADMAP, "Not queued").
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from c2dsr_tpu_torch.bench import gates, timing
 V_FULL = 10_000_000
 D = 512
 V_SHARD = 1 << 19          # the f32 shard: d·V·4 = 2^30 B
+V_BF16 = 1 << 20           # the bf16-at-rest shard: d·V·2 = 2^30 B
 V_TABLE = 1 << 20          # rows of the gathered table
 B, R, L = 512, 20, 15      # train CE rows, lookup sequence length
 B_RANK = 256               # full-rank rows a call
@@ -41,6 +51,9 @@ CE_TOL = 1e-5              # lse - tlog rows, over max |oracle|
 GRAD_TOL = 1e-4            # dh, dW, db over max |oracle|: the train step's
                            # gradient gate (chip_smoke.py GRAD_TOL)
 RANK_DELTA = 8             # full rank against a chunked count: near-ties
+BF16_TOL = 1e-5            # the bf16 CE's rows against its plain bf16
+BF16_GRAD_TOL = 5e-5       # version, and its gradients (chip_smoke.py's
+                           # phase bf16 limits)
 
 
 def memory_plan() -> list:
@@ -65,23 +78,27 @@ def _rel(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-def ce_oracle(h, w, b, pad, tgt, n_real: int, chunk: int):
+def ce_oracle(h, w, b, pad, tgt, n_real: int, chunk: int,
+              bf16: bool = False):
     """(rows, dh, dW, db) of ``fused_rec_ce_rows(h, w, b, pad, tgt,
     n_real).sum()``: the plain versions in float64 over chunks of ``chunk``
     sequences (h [B, R, d]), dW and db summed over the chunks, so that no
-    chunk's logits outgrow the device."""
+    chunk's logits outgrow the device.  ``bf16``: the plain bf16 versions,
+    in f32 (their products are the bf16 instantiations')."""
     from c2dsr_tpu_torch.ops import fused_ce
-    w64 = w.detach().double().requires_grad_(True)
-    b64 = b.detach().double().requires_grad_(True)
+    dtype = torch.float32 if bf16 else torch.float64
+    w64 = w.detach().to(dtype).requires_grad_(True)
+    b64 = b.detach().to(dtype).requires_grad_(True)
     rows, dh = [], []
     dw = torch.zeros_like(w64)
     db = torch.zeros_like(b64)
     with gates.plain_versions():
         for s in range(0, h.shape[0], chunk):
-            hc = h[s:s + chunk].detach().double().requires_grad_(True)
+            hc = h[s:s + chunk].detach().to(dtype).requires_grad_(True)
             out = fused_ce.fused_rec_ce_rows(hc, w64, b64,
                                              pad[s:s + hc.shape[0]],
-                                             tgt[s:s + hc.shape[0]], n_real)
+                                             tgt[s:s + hc.shape[0]], n_real,
+                                             bf16=bf16)
             gh, gw, gb = torch.autograd.grad(out.sum(), [hc, w64, b64])
             rows.append(out.detach())
             dh.append(gh)
@@ -100,11 +117,15 @@ def ce_errors(rows, grads, oracle):
 
 def full_rank_delta(pops, hv, w, b, gt, n_real: int) -> int:
     """The largest |rank - oracle rank| of ``pops.full_rank`` over the rows
-    of ``hv``, the oracle counting the real columns in chunks of 2^17.
-    Chunked and whole products may round a near-tie apart, as the JAX bench
-    allows: more than RANK_DELTA raises GateFailure."""
+    of ``hv``, the oracle counting the real columns in chunks of 2^17 (of
+    the bf16-rounded operands under a bf16 classifier).  Chunked and whole
+    products may round a near-tie apart, as the JAX bench allows: more than
+    RANK_DELTA raises GateFailure."""
+    from c2dsr_tpu_torch.ops.bf16 import round_bf16
     with torch.no_grad():
         got = pops.full_rank(hv, w, b, gt, n_real)
+        if pops.cfg.resolved_classifier_dtype() == "bfloat16":
+            hv, w = round_bf16(hv), round_bf16(w)
         step = 1 << 17
         scores = torch.cat([hv @ w[:, s:min(s + step, n_real)]
                             + b[s:min(s + step, n_real)]
@@ -190,24 +211,77 @@ def _ce(timer, rng, card, peak_flops, peak_bw) -> Dict:
             "fwd_bwd_tflops": 3 * flops / t_fb / 1e9, "validated": True}
 
 
-def _full_rank(timer, rng, peak_flops, peak_bw) -> Dict:
+def _ce_bf16w(timer, rng, card, peak_bw) -> Dict:
+    """The CE's bf16 instantiations over the bf16-at-rest shard."""
+    from c2dsr_tpu_torch.ops import fused_ce
+    n_real = V_BF16 - 1024
+    w = torch.randn((D, V_BF16), device="cuda") * 0.02
+    b = torch.zeros(V_BF16, device="cuda")
+    h = torch.randn((B, R, D), device="cuda")
+    pad = torch.zeros((B, R, 1), device="cuda")
+    tgt = torch.from_numpy(rng.integers(0, n_real, size=(B, R))).cuda()
+    leaves = [h.requires_grad_(True), w.requires_grad_(True),
+              b.requires_grad_(True)]
+    # the gate: f32 W rounded in the pre-pass (dW before its rounding)
+    rows = fused_ce.fused_rec_ce_rows(h, w, b, pad, tgt, n_real, bf16=True)
+    grads = torch.autograd.grad(rows.sum(), leaves)
+    e_f, e_b = ce_errors(rows.detach(), grads,
+                         ce_oracle(h, w, b, pad, tgt, n_real, 25, bf16=True))
+    del rows, grads
+    if e_f > BF16_TOL or e_b > BF16_GRAD_TOL:
+        raise timing.GateFailure(f"scaled bf16 CE at d {D}: rows {e_f}, "
+                                 f"gradients {e_b} from the plain bf16 "
+                                 "versions")
+    # timed as the bf16 classifier runs it: W cast to bf16 at each use
+    wb = w.detach().to(torch.bfloat16).requires_grad_(True)
+    leaves16 = [h, wb, b]
+
+    def fwd():
+        return fused_ce.fused_rec_ce_rows(h, wb, b, pad, tgt, n_real)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd().sum(), leaves16)
+
+    with torch.no_grad():
+        t_f = timer(fwd, reps=3, warmup=1)
+    t_fb = timer(fwd_bwd, reps=3, warmup=1)
+    N = B * R
+    flops = 2.0 * N * V_BF16 * D
+    io = 4.0 * (N * D + V_BF16 + 3 * N) + 2.0 * D * V_BF16
+    bound_f, one_pass_f = timing.bf16_bounds_ms(flops, io, card, peak_bw)
+    bound_fb, one_pass_fb = timing.bf16_bounds_ms(3 * flops, 3 * io, card,
+                                                  peak_bw)
+    return {"v": V_BF16, "w_dtype": "bfloat16", "rows_rel_err": e_f,
+            "grads_rel_err": e_b, "fwd_ms": t_f, "fwd_bwd_ms": t_fb,
+            "fwd_bound_ms": bound_f, "fwd_bwd_bound_ms": bound_fb,
+            "fwd_bound_tf32_one_pass_ms": one_pass_f,
+            "fwd_bwd_bound_tf32_one_pass_ms": one_pass_fb,
+            "fwd_bwd_tflops": 3 * flops / t_fb / 1e9, "validated": True}
+
+
+def _full_rank(timer, rng, peak_flops, peak_bw, bf16: bool = False) -> Dict:
+    """Full-rank scoring over the f32 shard, or with ``bf16`` over the
+    bf16-at-rest one (keys suffixed ``_bf16w``)."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.parallel.strategy import LocalOps
-    pops = LocalOps(cfg=Config(d_latent=D))
-    w = torch.randn((D, V_SHARD), device="cuda") * 0.02
-    b = torch.zeros(V_SHARD, device="cuda")
+    V = V_BF16 if bf16 else V_SHARD
+    pops = LocalOps(cfg=Config(d_latent=D, classifier_dtype="bfloat16"
+                               if bf16 else "auto"))
+    w = torch.randn((D, V), device="cuda") * 0.02
+    b = torch.zeros(V, device="cuda")
     hv = torch.randn((B_RANK, D), device="cuda")
-    gt = torch.from_numpy(rng.integers(0, V_SHARD, size=B_RANK)).cuda()
-    dev = full_rank_delta(pops, hv[:32], w, b, gt[:32], V_SHARD)
+    gt = torch.from_numpy(rng.integers(0, V, size=B_RANK)).cuda()
+    dev = full_rank_delta(pops, hv[:32], w, b, gt[:32], V)
     with torch.no_grad():
-        t = timer(lambda: pops.full_rank(hv, w, b, gt, V_SHARD), reps=10)
-    flops = 2.0 * B_RANK * D * V_SHARD
-    nbytes = 4.0 * (D * V_SHARD + V_SHARD + B_RANK * D)
-    return {"full_rank_ms": t, "full_rank_items_per_s": B_RANK * V_SHARD / t
-            * 1e3, "full_rank_max_rank_delta": dev,
-            "full_rank_bound_ms": max(flops / peak_flops,
-                                      nbytes / peak_bw) * 1e3,
-            "full_rank_validated": True}
+        t = timer(lambda: pops.full_rank(hv, w, b, gt, V), reps=10)
+    flops = 2.0 * B_RANK * D * V
+    nbytes = 4.0 * (D * V + V + B_RANK * D)
+    key = "full_rank_bf16w" if bf16 else "full_rank"
+    return {f"{key}_ms": t, f"{key}_items_per_s": B_RANK * V / t * 1e3,
+            f"{key}_max_rank_delta": dev,
+            f"{key}_bound_ms": max(flops / peak_flops,
+                                   nbytes / peak_bw) * 1e3,
+            f"{key}_validated": True}
 
 
 def run(device: str = "cuda") -> Dict:
@@ -222,7 +296,11 @@ def run(device: str = "cuda") -> Dict:
     results["fused_ce_f32"] = _ce(timer, rng, card, peak_flops, peak_bw)
     torch.cuda.empty_cache()
     results.update(_full_rank(timer, rng, peak_flops, peak_bw))
+    torch.cuda.empty_cache()
+    results["fused_ce_bf16w"] = _ce_bf16w(timer, rng, card, peak_bw)
+    torch.cuda.empty_cache()
+    results.update(_full_rank(timer, rng, peak_flops, peak_bw, bf16=True))
     return {"config": {"v_full": V_FULL, "d": D, "v_shard": V_SHARD,
-                       "batch": B, "len_rec": R},
+                       "v_shard_bf16w": V_BF16, "batch": B, "len_rec": R},
             "device": timing.card_line(),
             "measured_per_shard": results, "memory_plan": memory_plan()}

@@ -123,7 +123,9 @@ def _clone(x):
 @contextlib.contextmanager
 def recording(calls: List):
     """Append (name, args, result), copied, of every K1, K4, K5 and K7 call
-    made while the body runs; the wrappers still launch and count."""
+    made while the body runs (the positional arguments; keywords such as
+    ``bf16`` pass through unrecorded); the wrappers still launch and
+    count."""
     from c2dsr_tpu_torch.ops import fused_ce_cuda, segsum_cuda, spmm_cuda
     names = ((spmm_cuda, "spmm_csr"), (fused_ce_cuda, "ce_fwd"),
              (fused_ce_cuda, "ce_bwd"), (segsum_cuda, "segsum"))
@@ -131,8 +133,8 @@ def recording(calls: List):
     for mod, name in names:
         orig = getattr(mod, name)
 
-        def rec(*args, _orig=orig, _name=name):
-            out = _orig(*args)
+        def rec(*args, _orig=orig, _name=name, **kw):
+            out = _orig(*args, **kw)
             calls.append((_name, _clone(args), _clone(out)))
             return out
 

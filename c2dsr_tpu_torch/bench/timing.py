@@ -1,7 +1,7 @@
 """Timing and bounds on the card, shared by the port's bench and
 ``chip_smoke.py``: the CUDA-event timer with its L2 flush, the card's
-published peaks, the 3xTF32 tensor-core bound, a per-kernel device-time
-profile, and the card's name and power limit.  Nothing here runs at
+published peaks, the 3xTF32 and bf16 tensor-core bounds, a per-kernel
+device-time profile, and the card's name and power limit.  Nothing here runs at
 import: the CPU tests import every module.
 """
 
@@ -74,6 +74,21 @@ def tc_bound_ms(flops: float, nbytes: float, name: str, peak_bw: float):
     """Least time on the tensor cores for `flops` of f32-accurate work done
     as 3xTF32, or for the bytes, whichever is larger."""
     return max(3 * flops / tf32_peak(name), nbytes / peak_bw) * 1e3
+
+
+def bf16_peak(name: str) -> float:
+    """Dense bf16 tensor-core FLOP/s from NVIDIA's data sheets."""
+    if "PCIe" in name:
+        return 756e12
+    return 989e12                    # H100 SXM
+
+
+def bf16_bounds_ms(flops: float, nbytes: float, name: str, peak_bw: float):
+    """Least times of `flops` of products of bf16 operands and `nbytes`:
+    (at the bf16 tensor-core peak, at one TF32 pass a product, which the
+    kernels' bf16 instantiations take), each against the bytes."""
+    return (max(flops / bf16_peak(name), nbytes / peak_bw) * 1e3,
+            max(flops / tf32_peak(name), nbytes / peak_bw) * 1e3)
 
 
 class Timer:

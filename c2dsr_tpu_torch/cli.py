@@ -77,8 +77,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "classifiers are sharded over them")
     p.add_argument("--compute_dtype", default="auto",
                    choices=("auto", "float32", "bfloat16"),
-                   help="activation/matmul dtype; auto = float32 in the "
-                        "port, whose kernels take f32 (params always f32)")
+                   help="numerics of the products (params always f32): "
+                        "auto = float32, f32-accurate products; bfloat16 = "
+                        "the JAX package's Pallas numerics, every product "
+                        "of the SpMM, towers and CE from bf16-rounded "
+                        "operands with f32 sums (the kernels' bf16 "
+                        "instantiations on the card, their plain bf16 "
+                        "versions with --device cpu; the classifiers stay "
+                        "f32 at rest and in the CE unless "
+                        "Config(classifier_dtype='bfloat16'))")
     p.add_argument("--path_raw", type=str, default=None,
                    help="override raw data dir (default: data/raw/<Dataset>)")
     p.add_argument("--path_data", type=str, default=None,

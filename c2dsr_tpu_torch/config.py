@@ -83,12 +83,23 @@ class Config:
     es_patience: int = 10
 
     # --- Build-only knobs (no reference counterpart) -----------------------
-    # Numerics for activations/matmuls; params stay f32.  "auto" resolves to
-    # float32 in the port (use resolved_compute_dtype()); the port's kernels
-    # take f32 only.
+    # Numerics of the products; params stay f32.  "auto" resolves to
+    # float32 in the port (use resolved_compute_dtype()): every kernel
+    # computes f32-accurate products (3xTF32 on the card).  "bfloat16" is
+    # the JAX package's Pallas numerics, its default on the TPU: the tower
+    # input is rounded to bf16, and the SpMM, the towers and the CE round
+    # both operands of every product to bf16 and accumulate in f32 (on the
+    # card K1/K6, K2/K3 and K4/K5 in their bf16 instantiations, on the CPU
+    # their plain bf16 versions; ops/bf16.py).  LayerNorm, softmax,
+    # dropout and every sum stay f32.  "float64" runs the plain path in
+    # float64 (float64 params; a reference for the card's tests).
     compute_dtype: str = "auto"
     # Streaming dtype of the classifier weight at its use sites (CE loss and
-    # ranking).  "auto" -> float32 in the port.
+    # ranking), as in the JAX package.  "auto" -> float32 in the port.
+    # "bfloat16" casts [d, V] to bf16 at each use (the master weight stays
+    # f32): the CE kernels read two bytes an element and compute bf16
+    # products whatever compute_dtype says, dW comes back rounded to bf16,
+    # and ranking scores are f32 sums of bf16-rounded products.
     classifier_dtype: str = "auto"
     # Eval protocol: "sampled" = 999 negatives (reference default),
     # "full" = full-itemset ranking (the headline mode of this framework).
@@ -182,6 +193,11 @@ class Config:
         if self.classifier_dtype != "auto":
             return self.classifier_dtype
         return "float32"
+
+    def bf16_products(self) -> bool:
+        """Whether the kernels and their plain versions take the JAX
+        package's bf16 products (compute_dtype="bfloat16")."""
+        return self.resolved_compute_dtype() == "bfloat16"
 
     def with_(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -85,6 +85,15 @@
 //   partials in split order.  One fused pass would need dh (N·d) on chip
 //   or atomics; here every output element is written once, in a fixed
 //   order: two launches on the same inputs give bitwise-equal results.
+//
+// The bf16 instantiations (ce_fwd_bf16, ce_bwd_bf16; compute_dtype=
+// "bfloat16" or a bf16 classifier) compute the Pallas kernels' numerics:
+// every product of bf16-rounded h, W and dlogits, summed in f32 (_dot and
+// the backward's products in fused_ce.py).  A pre-pass writes h and Wᵀ in
+// bf16 (W read once, f32 rounded or bf16 as it is), the kernels stage the
+// bf16 rows (ce_fwd.cuh, Tile) and take one TF32 MMA of the widened values
+// a k-step, exact for bf16 operands, where 3xTF32 takes three; the same
+// plans, chains and merges, so they too are bitwise repeatable.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -114,6 +123,8 @@ struct BwdArgs {
   size_t out_split;
   int sx, sk;
   int n_x, n_y, d, V;
+  const uint16_t* xh;   // the bf16 instantiations' X and Y, bf16 rows (x,
+  const uint16_t* yh;   // y_big, y_small unused)
 };
 
 // The per-entity values of Y tile y0 (info [4][kBy]): the bias of its
@@ -141,24 +152,27 @@ __device__ __forceinline__ void stage_info(float* info, const BwdArgs& a,
 
 // One backward pass (the dh kernel for kRowsX, else the dW/db kernel) over
 // X tile blockIdx.x, the Y tiles of split blockIdx.y and, at DT 512, the
-// output columns of part blockIdx.z.
-template <int DT, bool kRowsX>
+// output columns of part blockIdx.z; kBf: the bf16 instantiation
+// (ce_fwd.cuh, Tile).
+template <int DT, bool kRowsX, bool kBf = false>
 __global__ void __launch_bounds__(BwdCfg<DT>::kThreads, 1)
 ce_bwd_kernel(const BwdArgs a) {
+  using L = Tile<DT, kBf>;
+  using T = typename L::T;
   constexpr int kThreads = BwdCfg<DT>::kThreads;
   constexpr int kMt = BwdCfg<DT>::kMt;
   constexpr int kBx = BwdCfg<DT>::kBx;
   constexpr int kBy = BwdCfg<DT>::kBy;
   constexpr int kStages = BwdCfg<DT>::kStages;
-  constexpr int kStage = BwdCfg<DT>::kStage;
   constexpr int kNy = kBy / 8;         // n-tiles of S, k-steps of the output
   constexpr int kNo = BwdCfg<DT>::kCols / 8;  // n-tiles of the output
   constexpr int kNb = 4;               // output n-tiles a batch of B loads
-  constexpr int ld = DT + 4;
+  constexpr int ld = L::ld;
   extern __shared__ float4 smem4[];
   const int d = a.d;
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* ring = xs + kBx * ld;         // stage: big [kBy][ld], small, info
+  T* xs = reinterpret_cast<T*>(smem4);
+  // stage: Y's big [kBy][ld] and small part (bf16: the one part), info
+  char* ring = reinterpret_cast<char*>(xs + kBx * ld);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -202,13 +216,21 @@ ce_bwd_kernel(const BwdArgs a) {
   }
 
   auto stage = [&](int slot, int tile) {
-    float* st = ring + slot * kStage;
+    T* st = reinterpret_cast<T*>(ring + slot * L::kStageBytes);
     const int y0 = tile * kBy;
-    stage_rows<DT, kBy>(st, a.y_big, y0, a.n_y, d);
-    stage_rows<DT, kBy>(st + kBy * ld, a.y_small, y0, a.n_y, d);
-    stage_info<kBy, kRowsX, kThreads>(st + 2 * kBy * ld, a, y0);
+    if constexpr (kBf) {
+      stage_rows<DT, kBy>(st, a.yh, y0, a.n_y, d);
+    } else {
+      stage_rows<DT, kBy>(st, a.y_big, y0, a.n_y, d);
+      stage_rows<DT, kBy>(st + kBy * ld, a.y_small, y0, a.n_y, d);
+    }
+    stage_info<kBy, kRowsX, kThreads>(
+        reinterpret_cast<float*>(st + L::kYParts * kBy * ld), a, y0);
   };
-  stage_rows<DT, kBx>(xs, a.x, x0, a.n_x, d);
+  if constexpr (kBf)
+    stage_rows<DT, kBx>(xs, a.xh, x0, a.n_x, d);
+  else
+    stage_rows<DT, kBx>(xs, a.x, x0, a.n_x, d);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) stage(s, t_begin + s);
@@ -223,7 +245,7 @@ ce_bwd_kernel(const BwdArgs a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[m][n][i] = 0.f;
   float dbs[kMt][2] = {};
-  const float* xw = xs + (warp * 16 * kMt + g) * ld + t;
+  const T* xw = xs + (warp * 16 * kMt + g) * ld + t;
 
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<kStages - 2>();
@@ -231,9 +253,11 @@ ce_bwd_kernel(const BwdArgs a) {
     if (it + kStages - 1 < n_tiles)
       stage((it + kStages - 1) % kStages, t_begin + it + kStages - 1);
     cp_async_commit();
-    const float* yb = ring + (it % kStages) * kStage;
-    const float* ys = yb + kBy * ld;
-    const float* inf = ys + kBy * ld;
+    const T* yb =
+        reinterpret_cast<const T*>(ring + (it % kStages) * L::kStageBytes);
+    const T* ys = yb + kBy * ld;
+    const float* inf =
+        reinterpret_cast<const float*>(yb + L::kYParts * kBy * ld);
     const int y0 = (t_begin + it) * kBy;
 
     float s[kMt][kNy][4];
@@ -273,7 +297,36 @@ ce_bwd_kernel(const BwdArgs a) {
     // over the tile's kBy entities;
     // the C fragment of S is the A fragment with k permuted (t <-> 2t,
     // t+4 <-> 2t+1), and B is read with the same permutation; kNb n-tiles
-    // of B at a time
+    // of B at a time.  bf16: P rounded to bf16, one MMA a tile.
+    if constexpr (kBf) {
+#pragma unroll
+      for (int j = 0; j < kNy; ++j) {
+        uint32_t ab[kMt][4];
+#pragma unroll
+        for (int m = 0; m < kMt; ++m) {
+          ab[m][0] = round_bf16(s[m][j][0]);
+          ab[m][1] = round_bf16(s[m][j][2]);
+          ab[m][2] = round_bf16(s[m][j][1]);
+          ab[m][3] = round_bf16(s[m][j][3]);
+        }
+        const int row = (j * 8 + 2 * t) * ld + col0 + g;
+#pragma unroll
+        for (int n0 = 0; n0 < kNo; n0 += kNb) {
+          uint32_t bb[kNb][2];
+#pragma unroll
+          for (int n = 0; n < kNb; ++n) {
+            const int at = row + (n0 + n) * 8;
+            bb[n][0] = widen_bf16(yb[at]);
+            bb[n][1] = widen_bf16(yb[at + ld]);
+          }
+#pragma unroll
+          for (int m = 0; m < kMt; ++m)
+#pragma unroll
+            for (int n = 0; n < kNb; ++n) mma_tf32(o[m][n0 + n], ab[m], bb[n]);
+        }
+      }
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < kNy; ++j) {
       uint32_t ab[kMt][4], as[kMt][4];
@@ -409,19 +462,20 @@ int best_splits(int x_tiles, int y_tiles, int slots, double tile_us,
   return best;
 }
 
-template <int DT>
+template <int DT, bool kBf = false>
 cudaError_t prepare() {
+  constexpr int kSmem = Tile<DT, kBf>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      ce_fwd_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tile_smem<DT>());
+      ce_fwd_kernel<DT, kBase, kBf>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ce_bwd_kernel<DT, true>,
+  err = cudaFuncSetAttribute(ce_bwd_kernel<DT, true, kBf>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tile_smem<DT>());
+                             kSmem);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(ce_bwd_kernel<DT, false>,
+  return cudaFuncSetAttribute(ce_bwd_kernel<DT, false, kBf>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              tile_smem<DT>());
+                              kSmem);
 }
 
 // The longest vocab chain of K5's dh kernel a split, in columns.  FK's
@@ -440,28 +494,30 @@ constexpr int kMaxChain = 2560;
 constexpr int kMaxRowChain = 1280;
 
 // The vocab splits of K4 (splits[0]), or of K5's dh kernel (splits[0]) and
-// the row splits of its dW/db kernel (splits[1]).
-template <int DT>
+// the row splits of its dW/db kernel (splits[1]); kBf: of the bf16
+// instantiations.
+template <int DT, bool kBf = false>
 int plan(int N, int d, int V, bool forward, int* splits) {
-  cudaError_t err = prepare<DT>();
+  cudaError_t err = prepare<DT, kBf>();
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ce_bwd_kernel<DT, true>, BwdCfg<DT>::kThreads,
-      tile_smem<DT>());
+      &per_sm, ce_bwd_kernel<DT, true, kBf>, BwdCfg<DT>::kThreads,
+      Tile<DT, kBf>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slots = sms * (per_sm < 1 ? 1 : per_sm);
   constexpr int kBx = BwdCfg<DT>::kBx;
   constexpr int kBy = BwdCfg<DT>::kBy;
   constexpr int kParts = BwdCfg<DT>::kParts;
   // a tile's MMA work at an assumed 2 TFLOP/s of TF32 per SM: one product
-  // (three TF32 terms) in K4; in K5 the logits and a part's share of the
-  // second product
+  // (three TF32 terms, or one of bf16 operands) in K4; in K5 the logits and
+  // a part's share of the second product
+  constexpr double kFlops = kBf ? 2.0 : 6.0;
   const double tile_us =
-      (forward ? 6.0 * DT : 6.0 * (DT + BwdCfg<DT>::kCols)) * kBx * kBy /
-      2e6;
+      (forward ? kFlops * DT : kFlops * (DT + BwdCfg<DT>::kCols)) * kBx *
+      kBy / 2e6;
   if (forward) {
     splits[0] = best_splits((N + kBx - 1) / kBx, (V + kBy - 1) / kBy, slots,
                             tile_us, 12.0 * N);
@@ -484,47 +540,61 @@ int plan(int N, int d, int V, bool forward, int* splits) {
   return 0;
 }
 
+template <bool kBf>
 int plan_d(int N, int d, int V, bool forward, int* splits) {
-  return d <= 64    ? plan<64>(N, d, V, forward, splits)
-         : d <= 128 ? plan<128>(N, d, V, forward, splits)
-         : d <= 256 ? plan<256>(N, d, V, forward, splits)
-                    : plan<512>(N, d, V, forward, splits);
+  return d <= 64    ? plan<64, kBf>(N, d, V, forward, splits)
+         : d <= 128 ? plan<128, kBf>(N, d, V, forward, splits)
+         : d <= 256 ? plan<256, kBf>(N, d, V, forward, splits)
+                    : plan<512, kBf>(N, d, V, forward, splits);
 }
 
+template <bool kBf>
 cudaError_t prepare_d(int d) {
-  return d <= 64    ? prepare<64>()
-         : d <= 128 ? prepare<128>()
-         : d <= 256 ? prepare<256>()
-                    : prepare<512>();
+  return d <= 64    ? prepare<64, kBf>()
+         : d <= 128 ? prepare<128, kBf>()
+         : d <= 256 ? prepare<256, kBf>()
+                    : prepare<512, kBf>();
 }
 
-template <int DT>
+template <int DT, bool kBf>
 cudaError_t launch_fwd(const FwdArgs& a, int splits, cudaStream_t s) {
   const dim3 grid((a.n_x + BwdCfg<DT>::kBx - 1) / BwdCfg<DT>::kBx, splits);
-  ce_fwd_kernel<DT><<<grid, BwdCfg<DT>::kThreads, tile_smem<DT>(), s>>>(a);
+  ce_fwd_kernel<DT, kBase, kBf>
+      <<<grid, BwdCfg<DT>::kThreads, Tile<DT, kBf>::kSmem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int DT>
+// K4 at the narrowest width DT >= d that is instantiated.
+template <bool kBf>
+cudaError_t launch_fwd_d(const FwdArgs& a, int splits, cudaStream_t s) {
+  return a.d <= 64    ? launch_fwd<64, kBf>(a, splits, s)
+         : a.d <= 128 ? launch_fwd<128, kBf>(a, splits, s)
+         : a.d <= 256 ? launch_fwd<256, kBf>(a, splits, s)
+                      : launch_fwd<512, kBf>(a, splits, s);
+}
+
+template <int DT, bool kBf>
 cudaError_t launch_bwd(const BwdArgs& a, int splits, cudaStream_t s,
                        bool rows_x) {
   const dim3 grid((a.n_x + BwdCfg<DT>::kBx - 1) / BwdCfg<DT>::kBx, splits,
                   BwdCfg<DT>::kParts);
   constexpr int kThreads = BwdCfg<DT>::kThreads;
+  constexpr int kSmem = Tile<DT, kBf>::kSmem;
   if (rows_x)
-    ce_bwd_kernel<DT, true><<<grid, kThreads, tile_smem<DT>(), s>>>(a);
+    ce_bwd_kernel<DT, true, kBf><<<grid, kThreads, kSmem, s>>>(a);
   else
-    ce_bwd_kernel<DT, false><<<grid, kThreads, tile_smem<DT>(), s>>>(a);
+    ce_bwd_kernel<DT, false, kBf><<<grid, kThreads, kSmem, s>>>(a);
   return cudaGetLastError();
 }
 
 // The pass at the narrowest width DT >= d that is instantiated.
+template <bool kBf>
 cudaError_t launch_bwd_d(const BwdArgs& a, int splits, cudaStream_t s,
                          bool rows_x) {
-  return a.d <= 64    ? launch_bwd<64>(a, splits, s, rows_x)
-         : a.d <= 128 ? launch_bwd<128>(a, splits, s, rows_x)
-         : a.d <= 256 ? launch_bwd<256>(a, splits, s, rows_x)
-                      : launch_bwd<512>(a, splits, s, rows_x);
+  return a.d <= 64    ? launch_bwd<64, kBf>(a, splits, s, rows_x)
+         : a.d <= 128 ? launch_bwd<128, kBf>(a, splits, s, rows_x)
+         : a.d <= 256 ? launch_bwd<256, kBf>(a, splits, s, rows_x)
+                      : launch_bwd<512, kBf>(a, splits, s, rows_x);
 }
 
 // Blocks of 256 threads for a grid-stride loop over n4 items.
@@ -546,12 +616,36 @@ cudaError_t transpose_split(const float* w, float* wt, float* wt_big,
   return cudaGetLastError();
 }
 
+// The bf16 instantiations' pre-pass: h [N, d] rounded into hb, W [d, V]
+// (f32, or bf16 where w_bf16) into bf16 Wᵀ [V, d].
+cudaError_t bf16_operands(const float* h, const void* w, int w_bf16,
+                          uint16_t* hb, uint16_t* wtb, int N, int d, int V,
+                          cudaStream_t s) {
+  const size_t nd = (size_t)N * d;
+  round_bf16_kernel<<<stride_blocks(nd / 4), 256, 0, s>>>(h, nd, hb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((V + 31) / 32, (d + 31) / 32);
+  if (w_bf16)
+    transpose_bf16_kernel<<<grid, dim3(32, 8), 0, s>>>(
+        static_cast<const uint16_t*>(w), wtb, d, V);
+  else
+    transpose_bf16_kernel<<<grid, dim3(32, 8), 0, s>>>(
+        static_cast<const float*>(w), wtb, d, V);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The forward's vocab splits for N rows, width d and V columns (splits[0]).
 // Returns a CUDA error code (0 = planned).
 extern "C" int ce_fwd_plan(int N, int d, int V, int* splits) {
-  return plan_d(N, d, V, true, splits);
+  return plan_d<false>(N, d, V, true, splits);
+}
+
+// The bf16 instantiation's (ce_fwd_bf16) vocab splits.
+extern "C" int ce_fwd_plan_bf16(int N, int d, int V, int* splits) {
+  return plan_d<true>(N, d, V, true, splits);
 }
 
 // h [N, d], w [d, V] row-major, b [V] (-1e9 on padded columns), pad [N],
@@ -564,7 +658,7 @@ extern "C" int ce_fwd_f32(const float* h, const float* w, const float* b,
                           float* tlog, float* workspace, int splits, int N,
                           int d, int V, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prepare_d(d);
+  cudaError_t err = prepare_d<false>(d);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t vd = (size_t)V * d;
   float* wt_big = workspace;
@@ -573,10 +667,36 @@ extern "C" int ce_fwd_f32(const float* h, const float* w, const float* b,
   err = transpose_split(w, nullptr, wt_big, wt_small, d, V, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const FwdArgs a{h, wt_big, wt_small, b, tgt, part, N, d, V};
-  err = d <= 64    ? launch_fwd<64>(a, splits, s)
-        : d <= 128 ? launch_fwd<128>(a, splits, s)
-        : d <= 256 ? launch_fwd<256>(a, splits, s)
-                   : launch_fwd<512>(a, splits, s);
+  err = launch_fwd_d<false>(a, splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ce_fwd_merge_kernel<<<(N + 255) / 256, 256, 0, s>>>(part, pad, splits, N,
+                                                      lse, tlog);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's bf16 instantiation: ce_fwd_f32's function with every logit a sum of
+// exact products of bf16-rounded h and W (fused_ce.py's _dot), in f32.  w
+// [d, V] is f32 (w_bf16 0) or bf16 (w_bf16 1: two bytes an element, read
+// once by the pre-pass).  workspace: h and Wᵀ in bf16 ((N + V)·d / 2
+// floats), then the splits' partials (3 · splits · N).  Pointers 16-byte
+// aligned; d % 8 == 0, d <= 512, V % 4 == 0.  Returns cudaGetLastError()
+// after the launches (0 = launched).
+extern "C" int ce_fwd_bf16(const float* h, const void* w, const float* b,
+                           const float* pad, const int* tgt, float* lse,
+                           float* tlog, float* workspace, int w_bf16,
+                           int splits, int N, int d, int V, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = prepare_d<true>(d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  uint16_t* hb = reinterpret_cast<uint16_t*>(workspace);
+  uint16_t* wtb = hb + (size_t)N * d;
+  float* part = reinterpret_cast<float*>(wtb + (size_t)V * d);
+  err = bf16_operands(h, w, w_bf16, hb, wtb, N, d, V, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FwdArgs a{};
+  a.b = b; a.tgt = tgt; a.part = part; a.n_x = N; a.d = d; a.V = V;
+  a.xh = hb; a.yh = wtb;
+  err = launch_fwd_d<true>(a, splits, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   ce_fwd_merge_kernel<<<(N + 255) / 256, 256, 0, s>>>(part, pad, splits, N,
                                                       lse, tlog);
@@ -587,7 +707,12 @@ extern "C" int ce_fwd_f32(const float* h, const float* w, const float* b,
 // of V for the dh kernel, splits[1] of N for the dW/db kernel.  Returns a
 // CUDA error code (0 = planned).
 extern "C" int ce_bwd_plan(int N, int d, int V, int* splits) {
-  return plan_d(N, d, V, false, splits);
+  return plan_d<false>(N, d, V, false, splits);
+}
+
+// The bf16 instantiation's (ce_bwd_bf16) split counts.
+extern "C" int ce_bwd_plan_bf16(int N, int d, int V, int* splits) {
+  return plan_d<true>(N, d, V, false, splits);
 }
 
 // The backward from the forward's inputs, its lse and the gradients dlse,
@@ -603,7 +728,7 @@ extern "C" int ce_bwd_f32(const float* h, const float* w, const float* b,
                           float* dw, float* db, float* workspace, int split_h,
                           int split_w, int N, int d, int V, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prepare_d(d);
+  cudaError_t err = prepare_d<false>(d);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t vd = (size_t)V * d, nd = (size_t)N * d;
   float* wt = workspace;
@@ -624,7 +749,7 @@ extern "C" int ce_bwd_f32(const float* h, const float* w, const float* b,
   // dh: X = h rows, Y = Wᵀ rows; partial [split][N][d]
   BwdArgs a{h, wt_big, wt_small, b, lse, dlse, dt, tgt,
             split_h > 1 ? part_h : dh, nullptr, nd, d, 1, N, V, d, V};
-  err = launch_bwd_d(a, split_h, s, true);
+  err = launch_bwd_d<false>(a, split_h, s, true);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (split_h > 1) {
     err = merge(part_h, split_h, (size_t)N * d, dh, s);
@@ -635,10 +760,61 @@ extern "C" int ce_bwd_f32(const float* h, const float* w, const float* b,
   BwdArgs c{wt, h_big, h_small, b, lse, dlse, dt, tgt,
             split_w > 1 ? part_w : dw, split_w > 1 ? part_b : db, vd, 1, V, V,
             N, d, V};
-  err = launch_bwd_d(c, split_w, s, false);
+  err = launch_bwd_d<false>(c, split_w, s, false);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (split_w > 1) {
     err = merge(part_w, split_w, (size_t)d * V, dw, s);
+    if (err == cudaSuccess) err = merge(part_b, split_w, (size_t)V, db, s);
+  }
+  return static_cast<int>(err);
+}
+
+// K5's bf16 instantiation: ce_bwd_f32's function from bf16-rounded h and
+// W (w [d, V] f32, or bf16 where w_bf16), the dlogits rounded to bf16
+// before both products and db their f32 sum (fused_ce.py's backward
+// kernels); dw comes out f32 (the caller casts it to W's dtype).
+// workspace: h and Wᵀ in bf16 ((N + V)·d / 2 floats), then, where a pass
+// has more than one split, its partials: splits[0]·N·d floats for dh,
+// splits[1]·(d + 1)·V for dW and db.  Pointers 16-byte aligned; d % 8 ==
+// 0, d <= 512, V % 4 == 0.  Returns cudaGetLastError() after the launches
+// (0 = launched).
+extern "C" int ce_bwd_bf16(const float* h, const void* w, const float* b,
+                           const float* lse, const float* dlse,
+                           const float* dt, const int* tgt, float* dh,
+                           float* dw, float* db, float* workspace, int w_bf16,
+                           int split_h, int split_w, int N, int d, int V,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = prepare_d<true>(d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t vd = (size_t)V * d, nd = (size_t)N * d;
+  uint16_t* hb = reinterpret_cast<uint16_t*>(workspace);
+  uint16_t* wtb = hb + nd;
+  float* part_h = reinterpret_cast<float*>(wtb + vd);
+  float* part_w = part_h + (split_h > 1 ? (size_t)split_h * nd : 0);
+  float* part_b = part_w + (size_t)split_w * vd;
+  err = bf16_operands(h, w, w_bf16, hb, wtb, N, d, V, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // dh: X = h rows, Y = Wᵀ rows; partial [split][N][d]
+  BwdArgs a{nullptr, nullptr, nullptr, b, lse, dlse, dt, tgt,
+            split_h > 1 ? part_h : dh, nullptr, nd, d, 1, N, V, d, V,
+            hb, wtb};
+  err = launch_bwd_d<true>(a, split_h, s, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (split_h > 1) {
+    err = merge(part_h, split_h, nd, dh, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+
+  // dW, db: X = Wᵀ rows, Y = h rows; partials [split][d][V] and [split][V]
+  BwdArgs c{nullptr, nullptr, nullptr, b, lse, dlse, dt, tgt,
+            split_w > 1 ? part_w : dw, split_w > 1 ? part_b : db, vd, 1, V,
+            V, N, d, V, wtb, hb};
+  err = launch_bwd_d<true>(c, split_w, s, false);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (split_w > 1) {
+    err = merge(part_w, split_w, vd, dw, s);
     if (err == cudaSuccess) err = merge(part_b, split_w, (size_t)V, db, s);
   }
   return static_cast<int>(err);

@@ -14,6 +14,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tc.cuh"
 
 namespace {
@@ -57,6 +59,55 @@ constexpr int tile_smem() {
   return static_cast<int>(sizeof(float)) *
          (BwdCfg<DT>::kBx * (DT + 4) +
           BwdCfg<DT>::kStages * BwdCfg<DT>::kStage);
+}
+
+// The bf16 instantiations (compute_dtype="bfloat16", or a bf16
+// classifier): X and Y are bf16 rows in device memory, written by the
+// pre-pass (h rounded, Wᵀ rounded or copied from a bf16 W), staged as
+// they are (two bytes an element, one part where 3xTF32 stages two) and
+// widened to f32 bits at the fragment load: one TF32 MMA of two bf16
+// operands is exact, the Pallas kernels' bf16 product with f32
+// accumulation.  The dlogits are rounded to bf16 as they become the A
+// fragment of K5's second product; their sums (db) stay f32.  A row is
+// DT + 8 bf16 (16 bytes past DT, so that rows start on 16 bytes): the
+// fragment loads' lanes g = 0..7 fall 4·g + t / 2 words apart, and the
+// two lanes that share a word read it at once.
+template <int DT, bool kBf>
+struct Tile {
+  using T = typename std::conditional<kBf, uint16_t, float>::type;
+  static constexpr int ld = kBf ? DT + 8 : DT + 4;     // elements a row
+  static constexpr int kYParts = kBf ? 1 : 2;          // big, small
+  static constexpr int kStageBytes =
+      static_cast<int>(sizeof(T)) * kYParts * BwdCfg<DT>::kBy * ld +
+      16 * BwdCfg<DT>::kBy;                            // + per-entity info
+  static constexpr int kSmem =
+      static_cast<int>(sizeof(T)) * BwdCfg<DT>::kBx * ld +
+      BwdCfg<DT>::kStages * kStageBytes;
+};
+static_assert(Tile<128, false>::kSmem == tile_smem<128>(), "one layout");
+
+// rows [e0, e0 + kN) of bf16 src [n_src, d] into dst (row stride DT + 8),
+// zero past n_src and past d (d % 8 == 0), as stage_rows does f32 rows.
+template <int DT, int kN>
+__device__ __forceinline__ void stage_rows(uint16_t* dst, const uint16_t* src,
+                                           int e0, int n_src, int d) {
+  constexpr int kD8 = DT / 8;
+  constexpr int kStep = BwdCfg<DT>::kThreads / kD8;   // rows a pass
+  constexpr int ld = Tile<DT, true>::ld;
+  static_assert(kN % kStep == 0, "whole passes");
+  const int e = threadIdx.x / kD8;
+  const int k8 = threadIdx.x % kD8;
+  const bool col_ok = k8 * 8 < d;
+  const uint16_t* from = src + (size_t)(e0 + e) * d + k8 * 8;
+  uint16_t* to = dst + e * ld + k8 * 8;
+#pragma unroll
+  for (int i = 0; i < kN / kStep; ++i) {
+    const bool ok = col_ok && e0 + e + i * kStep < n_src;
+    cp_async16(reinterpret_cast<float*>(to + i * kStep * ld),
+               reinterpret_cast<const float*>(
+                   ok ? from + (size_t)i * kStep * d : src),
+               ok);
+  }
 }
 
 // rows [e0, e0 + kN) of src [n_src, d] into dst (row stride DT + 4, DT
@@ -137,6 +188,45 @@ __device__ __forceinline__ void logit_steps(float (&acc)[kMt][kNy][4], int k0,
   }
 }
 
+// logit_steps of the bf16 instantiations: X and Y bf16 rows (row stride
+// DT + 8), one MMA a k-step and tile (ys unused).
+template <int DT, int kMt, int kNy>
+__device__ __forceinline__ void logit_steps(float (&acc)[kMt][kNy][4], int k0,
+                                            const uint16_t* xw,
+                                            const uint16_t* yb,
+                                            const uint16_t* ys, int g,
+                                            int t) {
+  constexpr int ld = Tile<DT, true>::ld;
+#pragma unroll
+  for (int kk = 0; kk < kLogitSteps; ++kk) {
+    const int ks = k0 + kk;
+    uint32_t ab[kMt][4], bb[kNy][2];
+#pragma unroll
+    for (int m = 0; m < kMt; ++m) {
+      const uint16_t* xk = xw + 16 * m * ld + ks * 8;
+      ab[m][0] = widen_bf16(xk[0]);
+      ab[m][1] = widen_bf16(xk[8 * ld]);
+      ab[m][2] = widen_bf16(xk[4]);
+      ab[m][3] = widen_bf16(xk[8 * ld + 4]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNy; ++j) {
+      const int at = (j * 8 + g) * ld + ks * 8 + t;
+      bb[j][0] = widen_bf16(yb[at]);
+      bb[j][1] = widen_bf16(yb[at + 4]);
+    }
+#pragma unroll
+    for (int m = 0; m < kMt; ++m)
+#pragma unroll
+      for (int j = 0; j < kNy; ++j) {
+        if (kk == 0)
+          mma_tf32_zero(acc[m][j], ab[m], bb[j]);
+        else
+          mma_tf32(acc[m][j], ab[m], bb[j]);
+      }
+  }
+}
+
 // S = X_w · Y_tileᵀ, [16·kMt x 8·kNy], k over the width, in 3xTF32
 // (logit_steps).  The tensor cores add into their accumulator with
 // truncation, so a logit summed over all of d's k-steps there drifts toward
@@ -152,11 +242,13 @@ __device__ __forceinline__ void logit_steps(float (&acc)[kMt][kNy][4], int k0,
 // one or two MMA chains, and unrolled, the partials' independent chains
 // overlap, where the tile before them was one dependent chain: at d 512
 // K4 took 10.53 ms and K5 51.71 against 16.19 and 72.86 before, and rolled
-// 20.54 and 85.34 (N 10,240, V 30,720; an H100 at 700 W).
-template <int DT, int kMt, int kNy>
+// 20.54 and 85.34 (N 10,240, V 30,720; an H100 at 700 W).  The bf16
+// instantiations (T = uint16_t) take the same partials, each k-step one
+// MMA of bf16 operands.
+template <int DT, int kMt, int kNy, typename T>
 __device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
-                                           const float* xw, const float* yb,
-                                           const float* ys, int g, int t) {
+                                           const T* xw, const T* yb,
+                                           const T* ys, int g, int t) {
   constexpr int kNd = DT / 8;
   static_assert(kNd % kLogitSteps == 0, "whole partials");
   auto add_partial = [&](int k0) {
@@ -218,25 +310,29 @@ struct FwdArgs {
   const int* tgt;        // [N]
   float* part;           // [3][splits][N]: max (log2 units), sum, target
   int n_x, d, V;
+  const uint16_t* xh;    // the bf16 instantiation's h [N, d] and Wᵀ [V, d]
+  const uint16_t* yh;    // in bf16 (x, y_big, y_small unused)
 };
 
 // Per row and split of the vocab: the running max and sum of exp over the
 // split's columns, in log2 units, and the target logit (kMatmulOnly: the
 // plain sum of the split's logits in the sum's place).
-template <int DT, int VARIANT = kBase>
+template <int DT, int VARIANT = kBase, bool kBf = false>
 __global__ void __launch_bounds__(BwdCfg<DT>::kThreads, 1)
 ce_fwd_kernel(const FwdArgs a) {
+  using L = Tile<DT, kBf>;
+  using T = typename L::T;
   constexpr int kThreads = BwdCfg<DT>::kThreads;
   constexpr int kMt = BwdCfg<DT>::kMt;
   constexpr int kBx = BwdCfg<DT>::kBx;
   constexpr int kBy = BwdCfg<DT>::kBy;
   constexpr int kStages = BwdCfg<DT>::kStages;
-  constexpr int kStage = BwdCfg<DT>::kStage;
   constexpr int kNy = kBy / 8;
-  constexpr int ld = DT + 4;
+  constexpr int ld = L::ld;
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* ring = xs + kBx * ld;         // stage: big [kBy][ld], small, bias
+  T* xs = reinterpret_cast<T*>(smem4);
+  // stage: Y's big [kBy][ld] and small part (bf16: the one part), bias
+  char* ring = reinterpret_cast<char*>(xs + kBx * ld);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -265,22 +361,30 @@ ce_fwd_kernel(const FwdArgs a) {
     }
 
   auto stage = [&](int slot, int tile) {
-    float* st = ring + slot * kStage;
+    T* st = reinterpret_cast<T*>(ring + slot * L::kStageBytes);
     const int y0 = tile * kBy;
-    stage_rows<DT, kBy>(st, a.y_big, y0, a.V, a.d);
-    stage_rows<DT, kBy>(st + kBy * ld, a.y_small, y0, a.V, a.d);
+    if constexpr (kBf) {
+      stage_rows<DT, kBy>(st, a.yh, y0, a.V, a.d);
+    } else {
+      stage_rows<DT, kBy>(st, a.y_big, y0, a.V, a.d);
+      stage_rows<DT, kBy>(st + kBy * ld, a.y_small, y0, a.V, a.d);
+    }
+    float* bias = reinterpret_cast<float*>(st + L::kYParts * kBy * ld);
     for (int e = threadIdx.x; e < kBy; e += kThreads) {
       const bool ok = y0 + e < a.V;
-      cp_async4(st + 2 * kBy * ld + e, ok ? a.b + y0 + e : a.b, ok);
+      cp_async4(bias + e, ok ? a.b + y0 + e : a.b, ok);
     }
   };
-  stage_rows<DT, kBx>(xs, a.x, x0, a.n_x, a.d);
+  if constexpr (kBf)
+    stage_rows<DT, kBx>(xs, a.xh, x0, a.n_x, a.d);
+  else
+    stage_rows<DT, kBx>(xs, a.x, x0, a.n_x, a.d);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) stage(s, t_begin + s);
     cp_async_commit();
   }
-  const float* xw = xs + (warp * 16 * kMt + g) * ld + t;
+  const T* xw = xs + (warp * 16 * kMt + g) * ld + t;
 
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<kStages - 2>();
@@ -288,9 +392,11 @@ ce_fwd_kernel(const FwdArgs a) {
     if (it + kStages - 1 < n_tiles)
       stage((it + kStages - 1) % kStages, t_begin + it + kStages - 1);
     cp_async_commit();
-    const float* yb = ring + (it % kStages) * kStage;
-    const float* ys = yb + kBy * ld;
-    const float* bias = ys + kBy * ld;
+    const T* yb =
+        reinterpret_cast<const T*>(ring + (it % kStages) * L::kStageBytes);
+    const T* ys = yb + kBy * ld;
+    const float* bias =
+        reinterpret_cast<const float*>(yb + L::kYParts * kBy * ld);
     const int y0 = (t_begin + it) * kBy;
 
     float s[kMt][kNy][4];
@@ -410,6 +516,46 @@ __global__ void transpose_split_kernel(const float* __restrict__ w,
       wt_big[i] = __uint_as_float(big);
       wt_small[i] = __uint_as_float(small);
     }
+  }
+}
+
+// The bf16 instantiations' pre-pass: wt[v, k] = bf16(w[k, v]), W [d, V]
+// rounded (f32) or copied (bf16, In = uint16_t) into bf16 Wᵀ [V, d],
+// through 32x32 shared tiles.
+template <typename In>
+__global__ void transpose_bf16_kernel(const In* __restrict__ w,
+                                      uint16_t* __restrict__ wt, int d,
+                                      int V) {
+  __shared__ uint32_t tile[32][33];
+  const int v0 = blockIdx.x * 32;
+  const int k0 = blockIdx.y * 32;
+  for (int r = threadIdx.y; r < 32; r += blockDim.y) {
+    const int k = k0 + r, v = v0 + threadIdx.x;
+    if (k < d && v < V) {
+      if constexpr (std::is_same<In, float>::value)
+        tile[r][threadIdx.x] = round_bf16(w[(size_t)k * V + v]) >> 16;
+      else
+        tile[r][threadIdx.x] = w[(size_t)k * V + v];
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += blockDim.y) {
+    const int v = v0 + r, k = k0 + threadIdx.x;
+    if (k < d && v < V)
+      wt[(size_t)v * d + k] = static_cast<uint16_t>(tile[threadIdx.x][r]);
+  }
+}
+
+// dst[i] = bf16(x[i]), i < n (n % 4 == 0): h's rows for the bf16
+// instantiations.
+__global__ void round_bf16_kernel(const float* __restrict__ x, size_t n,
+                                  uint16_t* __restrict__ dst) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    reinterpret_cast<uint2*>(dst)[i] =
+        make_uint2((round_bf16(v.x) >> 16) | round_bf16(v.y),
+                   (round_bf16(v.z) >> 16) | round_bf16(v.w));
   }
 }
 

@@ -43,6 +43,17 @@
 // A one-layer tower call launches 6 kernels up to d 256 (5 in eval without
 // dropout: the input kernel only applies dropout or saves the input) and 8
 // above; each further layer adds 5, or 7.
+//
+// The bf16 instantiation (encoder_fwd's bf16; compute_dtype="bfloat16") is
+// the Pallas kernel's matmul_dtype=bf16: every product rounds both
+// operands to bf16 (round to nearest even) and sums in f32, the four GEMMs
+// as gemm_tile's TERMS 1 (one TF32 MMA of bf16 operands a k-step, exact
+// products), q·kᵀ and p·v in the attention kernel as FFMA over q, k, v and
+// the dropped probabilities rounded as they are staged (a product of two
+// bf16 values is exact in f32), the logits scaled after the product.
+// LayerNorm, softmax, dropout, the residual adds and every saved
+// activation stay f32: the backward (encoder_bwd.cu) rounds them where it
+// multiplies them.
 
 #include "encoder_common.cuh"
 #include "tc.cuh"
@@ -139,7 +150,7 @@ __device__ __forceinline__ void ln_fragment_row(
 // times further from exact than an f32 GEMM's, a d 256 step's w_qkv
 // gradient sat three times further from the exact one than the plain f32
 // tower's (an H100's measurement, PERF.md §6).
-constexpr int kQkvTerms = 6, kTerms = 3;
+constexpr int kQkvTerms = 6, kTerms = 3, kBf16Terms = 1;
 
 // kMap: the call's dropout maps its rows (drop::Dropout::mapped).
 template <int NT, int TERMS, bool kMap>
@@ -250,7 +261,10 @@ __host__ __device__ constexpr int attn_fwd_smem(int L) {
 // (8 / S)·t, a lane the keys lane and lane + 32.  Logits over 64-column
 // chunks of q and k (float4 reads), the softmax with the added -1e9 bias,
 // the pre-dropout probabilities saved where p_save is not null, dropout,
-// then o = P·V over chunks of v (a lane a column).
+// then o = P·V over chunks of v (a lane a column).  kBf: q, k, v and the
+// dropped probabilities rounded to bf16 as they are staged (the bf16
+// instantiation's products); p_save stays f32.
+template <bool kBf>
 __global__ void __launch_bounds__(kThreads, 4)
 encoder_fwd_attn_kernel(const float* __restrict__ qkv,
                         const int* __restrict__ seq, float* __restrict__ o,
@@ -286,12 +300,15 @@ encoder_fwd_attn_kernel(const float* __restrict__ qkv,
   const float* Ks = K + s * L * kLdc;        // this warp's sequence's rows
   const float* Qs = QV + s * L * kLdc;
   float* Ps = P + s * L * ldp;
-  // [R_in rows][4·cw4 columns from col] of qkv into dst
+  // [R_in rows][4·cw4 columns from col] of qkv into dst (kBf: rounded)
   auto load = [&](float* dst, int col, int cw4) {
     for (int v = threadIdx.x; v < R_in * cw4; v += kThreads) {
       const int r = v / cw4, c = (v % cw4) * 4;
-      *reinterpret_cast<float4*>(dst + r * kLdc + c) =
+      float4 x =
           *reinterpret_cast<const float4*>(qkv + (grow0 + r) * d3 + col + c);
+      if constexpr (kBf)
+        x = make_float4(bf16f(x.x), bf16f(x.y), bf16f(x.z), bf16f(x.w));
+      *reinterpret_cast<float4*>(dst + r * kLdc + c) = x;
     }
   };
   for (int h = 0; h < n_head; ++h) {
@@ -361,7 +378,7 @@ encoder_fwd_attn_kernel(const float* __restrict__ qkv,
                                        (((size_t)gb * n_head + h) * L + i) * L
                                        + j));
           }
-          Ps[i * ldp + j] = p;
+          Ps[i * ldp + j] = kBf ? bf16f(p) : p;
         }
       }
     }
@@ -505,10 +522,23 @@ cudaError_t prepare() {
                            GemmCfg<128, true>::kSmem));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kQkvTerms, false>, a,
                            GemmCfg<256, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<64, kBf16Terms, false>, a,
+                           GemmCfg<64, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<128, kBf16Terms, false>,
+                           a, GemmCfg<128, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kBf16Terms, false>,
+                           a, GemmCfg<256, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<64, kBf16Terms, true>, a,
+                           GemmCfg<64, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<128, kBf16Terms, true>, a,
+                           GemmCfg<128, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kBf16Terms, true>, a,
+                           GemmCfg<256, true>::kSmem));
   int most = 0;
   for (int L = 1; L <= kMaxL; ++L)
     most = attn_fwd_smem(L) > most ? attn_fwd_smem(L) : most;
-  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel, a, most));
+  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<false>, a, most));
+  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<true>, a, most));
   if (dev < 64) done[dev] = true;
   return cudaSuccess;
 }
@@ -529,13 +559,18 @@ cudaError_t launch_gemm_t(const FwdGemm& g, int nt, cudaStream_t s) {
 }
 
 // The QKV product, which has no dropout site.
-cudaError_t launch_qkv_gemm(const FwdGemm& g, int nt, cudaStream_t s) {
-  return launch_gemm_t<kQkvTerms, false>(g, nt, s);
+cudaError_t launch_qkv_gemm(const FwdGemm& g, int nt, bool bf16,
+                            cudaStream_t s) {
+  return bf16 ? launch_gemm_t<kBf16Terms, false>(g, nt, s)
+              : launch_gemm_t<kQkvTerms, false>(g, nt, s);
 }
 
 // The other products: the row map's instantiation where the call maps its
 // rows.
-cudaError_t launch_gemm(const FwdGemm& g, int nt, cudaStream_t s) {
+cudaError_t launch_gemm(const FwdGemm& g, int nt, bool bf16, cudaStream_t s) {
+  if (bf16)
+    return g.dr.mapped() ? launch_gemm_t<kBf16Terms, true>(g, nt, s)
+                         : launch_gemm_t<kBf16Terms, false>(g, nt, s);
   return g.dr.mapped() ? launch_gemm_t<kTerms, true>(g, nt, s)
                        : launch_gemm_t<kTerms, false>(g, nt, s);
 }
@@ -553,12 +588,12 @@ cudaError_t launch_ln(const float* z, const float* g, const float* b,
 
 // buf: with save, saved_layout(N, d, n_head, L, n_layers) (every layer's
 // activations, for the backward); else a one-layer workspace of the same
-// layout, which every layer reuses.
+// layout, which every layer reuses.  bf16: the bf16 instantiation.
 cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
                     const float* lnf_s, const float* lnf_b, float* out,
                     float* buf, bool save, int B, int L, int d, int n_head,
                     int n_layers, int idx_pad, int invert, drop::Dropout dr,
-                    cudaStream_t s) {
+                    bool bf16, cudaStream_t s) {
   const size_t N = (size_t)B * L;
   const int n = static_cast<int>(N);
   const SavedLayout so = saved_layout(N, d, n_head, L, save ? n_layers : 1);
@@ -600,12 +635,19 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     FwdGemm q{};
     q.a = X; q.w = l0.w_qkv + li * s_qkv; q.bias = l0.b_qkv + 3 * ob;
     q.c = qkv; q.n = n; q.k = d; q.m = 3 * d; q.epi = kBias; q.dr = dr;
-    TRY(launch_qkv_gemm(q, column_tile(3 * d), s));
+    TRY(launch_qkv_gemm(q, column_tile(3 * d), bf16, s));
 
-    encoder_fwd_attn_kernel<<<(B + attn_seqs(L) - 1) / attn_seqs(L), kThreads,
-                              attn_fwd_smem(L), s>>>(
-        qkv, seq, o, save ? lb + so.l.p : nullptr, B, L, d, n_head, idx_pad,
-        invert, dr, dr.key(drop::kProbs, li));
+    const int attn_blocks = (B + attn_seqs(L) - 1) / attn_seqs(L);
+    if (bf16)
+      encoder_fwd_attn_kernel<true>
+          <<<attn_blocks, kThreads, attn_fwd_smem(L), s>>>(
+              qkv, seq, o, save ? lb + so.l.p : nullptr, B, L, d, n_head,
+              idx_pad, invert, dr, dr.key(drop::kProbs, li));
+    else
+      encoder_fwd_attn_kernel<false>
+          <<<attn_blocks, kThreads, attn_fwd_smem(L), s>>>(
+              qkv, seq, o, save ? lb + so.l.p : nullptr, B, L, d, n_head,
+              idx_pad, invert, dr, dr.key(drop::kProbs, li));
     TRY(cudaGetLastError());
 
     // y1 = LN1(X + drop(o·W_out + b_out)); above d 256 the sum goes to the
@@ -618,10 +660,10 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
       w.epi = kResLn; w.c = y1; w.ln_s = l0.ln1_s + ob; w.ln_b = l0.ln1_b + ob;
       w.xhat = save ? xhat1 : nullptr;
       w.rstd = save ? lb + so.l.rstd1 : nullptr;
-      TRY(launch_gemm(w, width_tile(d), s));
+      TRY(launch_gemm(w, width_tile(d), bf16, s));
     } else {
       w.epi = kResidual; w.c = xhat1;
-      TRY(launch_gemm(w, column_tile(d), s));
+      TRY(launch_gemm(w, column_tile(d), bf16, s));
       TRY(launch_ln(xhat1, l0.ln1_s + ob, l0.ln1_b + ob, y1,
                     save ? xhat1 : nullptr, save ? lb + so.l.rstd1 : nullptr,
                     nullptr, nullptr, nullptr, nullptr, nullptr, n, d, s));
@@ -633,7 +675,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     f.a = y1; f.w = l0.w_ff1 + li * s_dd; f.bias = l0.b_ff1 + ob; f.c = fr;
     f.c2 = save || dr.on ? fd : nullptr; f.n = n; f.k = d; f.m = d;
     f.epi = kRelu; f.dr = dr; f.key = dr.key(drop::kFfnRelu, li);
-    TRY(launch_gemm(f, column_tile(d), s));
+    TRY(launch_gemm(f, column_tile(d), bf16, s));
 
     // xnext = LN2(y1 + drop(f·W2 + b2)), then out = LNf(xnext) after the
     // last layer
@@ -652,10 +694,10 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
         f2.lnf_s = lnf_s; f2.lnf_b = lnf_b; f2.out = out;
         f2.xhat_f = xhat_f; f2.rstd_f = rstd_f;
       }
-      TRY(launch_gemm(f2, width_tile(d), s));
+      TRY(launch_gemm(f2, width_tile(d), bf16, s));
     } else {
       f2.epi = kResidual; f2.c = xhat2;
-      TRY(launch_gemm(f2, column_tile(d), s));
+      TRY(launch_gemm(f2, column_tile(d), bf16, s));
       TRY(launch_ln(xhat2, l0.ln2_s + ob, l0.ln2_b + ob, xnext,
                     save ? xhat2 : nullptr, rstd2, last ? lnf_s : nullptr,
                     lnf_b, out, xhat_f, rstd_f, n, d, s));
@@ -691,9 +733,11 @@ extern "C" void encoder_saved_offsets(int B, int L, int d, int n_head,
 // rows in the run's batch (drop::Dropout; row_seg 0: the identity).  buf:
 // with save != 0, saved_layout for n_layers
 // (encoder_saved_offsets), which receives the activations the backward
-// reads; else the workspace, saved_layout for one layer.  Returns
-// cudaGetLastError() after the launches (0 = launched).
-extern "C" int encoder_fwd_f32(
+// reads; else the workspace, saved_layout for one layer.  bf16 != 0: the
+// bf16 instantiation (the head of the file), the same layout of f32
+// activations.  Returns cudaGetLastError() after the launches (0 =
+// launched).
+extern "C" int encoder_fwd(
     const float* x, const int* seq, const float* w_qkv, const float* b_qkv,
     const float* w_out, const float* b_out, const float* w_ff1,
     const float* b_ff1, const float* w_ff2, const float* b_ff2,
@@ -702,7 +746,8 @@ extern "C" int encoder_fwd_f32(
     float* buf, int save,
     int B, int L, int d, int n_head, int n_layers, int idx_pad, int invert,
     int drop_on, unsigned drop_thr, float drop_div, unsigned seed, int tower_id,
-    unsigned row_off, unsigned row_seg, unsigned row_stride, void* stream) {
+    unsigned row_off, unsigned row_seg, unsigned row_stride, int bf16,
+    void* stream) {
   const Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
                  ln1_s, ln1_b, ln2_s, ln2_b};
   return static_cast<int>(run_fwd(
@@ -710,7 +755,7 @@ extern "C" int encoder_fwd_f32(
       n_layers, idx_pad, invert,
       drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
                  row_seg, row_stride, L, d),
-      static_cast<cudaStream_t>(stream)));
+      bf16 != 0, static_cast<cudaStream_t>(stream)));
 }
 
 // The dropout hash's bits of elements 0..n-1 of one stream, for checking the

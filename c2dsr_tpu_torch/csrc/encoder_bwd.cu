@@ -47,6 +47,16 @@
 //   order.  No atomics and no read-modify-write of a partial: two launches
 //   on the same inputs give bitwise-equal results.
 // A tower call of one layer launches 10 kernels; each further layer adds 8.
+//
+// The bf16 instantiation (encoder_bwd's bf16; compute_dtype="bfloat16")
+// differentiates encoder.cu's bf16 forward as the Pallas kernel's
+// _bwd_kernel does with matmul_dtype=bf16: both operands of every product
+// are rounded to bf16, the incoming gradient included, and the products
+// sum in f32.  The GEMMs and the weight gradients take one TF32 MMA of the
+// rounded operands a k-step (tc.cuh, TERMS 1); the attention backward
+// rounds v, do, k and q as it stages them and ds and drop(p) as it stores
+// them, and keeps the softmax backward (dp·p, ds) in f32, as do the
+// LayerNorm backward, the bias and LayerNorm sums and the dropout.
 
 #include <vector>
 
@@ -110,8 +120,9 @@ struct GemmArgs {
   uint32_t key;
 };
 
-// kMap: the call's dropout maps its rows (drop::Dropout::mapped).
-template <int NT, bool kMap>
+// kMap: the call's dropout maps its rows (drop::Dropout::mapped); TERMS 3
+// is 3xTF32, 1 the bf16 instantiation (tc.cuh gemm_tile).
+template <int NT, bool kMap, int TERMS = 3>
 __global__ void __launch_bounds__(kGemmThreads)
 tc_gemm_kernel(const GemmArgs g) {
   constexpr int kNj = NT / 8;          // n-tiles a warp
@@ -123,8 +134,8 @@ tc_gemm_kernel(const GemmArgs g) {
   const int row0 = blockIdx.x * kGemmRows;
   const int n0 = blockIdx.y * NT;
   float acc[kNj][4];
-  gemm_tile<NT, false>(g.a, g.w, g.n, g.k, g.m, row0, n0,
-                       reinterpret_cast<float*>(smem4), acc);
+  gemm_tile<NT, false, TERMS>(g.a, g.w, g.n, g.k, g.m, row0, n0,
+                              reinterpret_cast<float*>(smem4), acc);
 
   // elements 2h and 2h + 1 of n-tile j: row r_lo + 8·h, columns n0 + 8·j
   // + 2·tq and the next, as one float2 (m % 8 == 0: both or neither in
@@ -178,7 +189,10 @@ __host__ __device__ constexpr int attn_bwd_smem(int L) {
 // serves sequence s = w / (8 / S) and its rows w % (8 / S) + (8 / S)·t.
 // The head's columns pass in chunks of 64: first do and v for dpd (a lane
 // the keys lane and lane + 32, float4 reads), then k, q and do for dq, dk
-// and dv of the warp's rows (a lane a column).
+// and dv of the warp's rows (a lane a column).  kBf: the products' operands
+// rounded to bf16 (v, do, k, q as they are staged, ds and drop(p) as they
+// are stored).
+template <bool kBf>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
                 const float* __restrict__ d_o, float* __restrict__ dqkv,
@@ -209,11 +223,15 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
   const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
   const int so = s * L;                      // the sequence's first row
   // rows r < R_in, columns [col, col + 4·cw4) of a [N, ld] buffer into dst
+  // (kBf: rounded)
   auto load = [&](float* dst, const float* src, int ld, int col, int cw4) {
     for (int v = threadIdx.x; v < R_in * cw4; v += kThreads) {
       const int r = v / cw4, c = (v % cw4) * 4;
-      *reinterpret_cast<float4*>(dst + r * kLdc + c) =
+      float4 x =
           *reinterpret_cast<const float4*>(src + (grow0 + r) * ld + col + c);
+      if constexpr (kBf)
+        x = make_float4(bf16f(x.x), bf16f(x.y), bf16f(x.z), bf16f(x.w));
+      *reinterpret_cast<float4*>(dst + r * kLdc + c) = x;
     }
   };
   for (int h = 0; h < n_head; ++h) {
@@ -276,8 +294,9 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
         for (int u = 0; u < 2; ++u) {
           const int j = lane + 32 * u;
           if (j < L) {
-            DS[(so + i) * ldp + j] = p[u] * (dp[u] - dot_pp);
-            PD[(so + i) * ldp + j] = pd[u];
+            const float ds = p[u] * (dp[u] - dot_pp);
+            DS[(so + i) * ldp + j] = kBf ? bf16f(ds) : ds;
+            PD[(so + i) * ldp + j] = kBf ? bf16f(pd[u]) : pd[u];
           }
         }
       }
@@ -421,6 +440,9 @@ int wg_tiles(const int* mw, int d) {
   return n;
 }
 
+// kBf: the bf16 instantiation, X and Y rounded to bf16 as the fragments
+// are read, one MMA a k-step.
+template <bool kBf>
 __global__ void __launch_bounds__(kWgThreads)
 wgrad_kernel(const WgArgs a) {
   extern __shared__ float4 smem4[];
@@ -510,6 +532,19 @@ wgrad_kernel(const WgArgs a) {
     }
 #pragma unroll
     for (int ks = 0; ks < kWgRows / 8; ++ks) {
+      if constexpr (kBf) {
+        const float* xp = xs + (ks * 8 + tq) * kLdx + warp * 16 + gq;
+        const uint32_t ab[4] = {round_bf16(xp[0]), round_bf16(xp[8]),
+                                round_bf16(xp[4 * kLdx]),
+                                round_bf16(xp[4 * kLdx + 8])};
+#pragma unroll
+        for (int j = 0; j < kNj; ++j) {
+          const float* yp = ys + (ks * 8 + tq) * kLdy + j * 8 + gq;
+          const uint32_t bb[2] = {round_bf16(yp[0]), round_bf16(yp[4 * kLdy])};
+          mma_tf32(acc[j], ab, bb);
+        }
+        continue;
+      }
       // A (16 rows of dW x 8 call rows) = Xᵀ: A[g][t] = X[t][g]
       uint32_t ab[4], am[4];
       const float* xp = xs + (ks * 8 + tq) * kLdx + warp * 16 + gq;
@@ -593,34 +628,53 @@ cudaError_t prepare() {
                            GemmCfg<128, false>::kSmem));
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, true>, a,
                            GemmCfg<256, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<64, false, 1>, a,
+                           GemmCfg<64, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<128, false, 1>, a,
+                           GemmCfg<128, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, false, 1>, a,
+                           GemmCfg<256, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<64, true, 1>, a,
+                           GemmCfg<64, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<128, true, 1>, a,
+                           GemmCfg<128, false>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, true, 1>, a,
+                           GemmCfg<256, false>::kSmem));
   int most = 0;
   for (int L = 1; L <= kMaxL; ++L)
     most = attn_bwd_smem(L) > most ? attn_bwd_smem(L) : most;
-  TRY(cudaFuncSetAttribute(attn_bwd_kernel, a, most));
-  TRY(cudaFuncSetAttribute(wgrad_kernel, a, kWgSmem));
+  TRY(cudaFuncSetAttribute(attn_bwd_kernel<false>, a, most));
+  TRY(cudaFuncSetAttribute(attn_bwd_kernel<true>, a, most));
+  TRY(cudaFuncSetAttribute(wgrad_kernel<false>, a, kWgSmem));
+  TRY(cudaFuncSetAttribute(wgrad_kernel<true>, a, kWgSmem));
   if (dev < 64) done[dev] = true;
   return cudaSuccess;
 }
 
-template <int NT, bool kMap>
+template <int NT, bool kMap, int TERMS>
 cudaError_t gemm_t(const GemmArgs& g, cudaStream_t s) {
   const dim3 grid((g.n + kGemmRows - 1) / kGemmRows, (g.m + NT - 1) / NT);
-  tc_gemm_kernel<NT, kMap><<<grid, kGemmThreads, GemmCfg<NT, false>::kSmem,
-                             s>>>(g);
+  tc_gemm_kernel<NT, kMap, TERMS>
+      <<<grid, kGemmThreads, GemmCfg<NT, false>::kSmem, s>>>(g);
   return cudaGetLastError();
 }
 
-template <bool kMap>
+template <bool kMap, int TERMS>
 cudaError_t launch_gemm_t(const GemmArgs& g, int nt, cudaStream_t s) {
-  return nt == 64    ? gemm_t<64, kMap>(g, s)
-         : nt == 128 ? gemm_t<128, kMap>(g, s)
-                     : gemm_t<256, kMap>(g, s);
+  return nt == 64    ? gemm_t<64, kMap, TERMS>(g, s)
+         : nt == 128 ? gemm_t<128, kMap, TERMS>(g, s)
+                     : gemm_t<256, kMap, TERMS>(g, s);
 }
 
-// The row map's instantiation where the call's dropout maps its rows.
-cudaError_t launch_gemm(const GemmArgs& g, int nt, cudaStream_t s) {
-  return g.dr.mapped() ? launch_gemm_t<true>(g, nt, s)
-                       : launch_gemm_t<false>(g, nt, s);
+// The row map's instantiation where the call's dropout maps its rows; bf16:
+// the bf16 instantiation.
+cudaError_t launch_gemm(const GemmArgs& g, int nt, bool bf16,
+                        cudaStream_t s) {
+  if (bf16)
+    return g.dr.mapped() ? launch_gemm_t<true, 1>(g, nt, s)
+                         : launch_gemm_t<false, 1>(g, nt, s);
+  return g.dr.mapped() ? launch_gemm_t<true, 3>(g, nt, s)
+                       : launch_gemm_t<false, 3>(g, nt, s);
 }
 
 template <bool kMap>
@@ -708,7 +762,7 @@ size_t workspace_floats(int B, int L, int d, int n_layers, int splits) {
 cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
                     const float* lnf_s, float* dx, float* grads,
                     float* workspace, int splits, int B, int L, int d,
-                    int n_head, int n_layers, drop::Dropout dr,
+                    int n_head, int n_layers, drop::Dropout dr, bool bf16,
                     cudaStream_t s) {
   const size_t N = (size_t)B * L;
   const int n = static_cast<int>(N);
@@ -740,11 +794,11 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     g5.a = dg2; g5.w = l0.w_ff2 + li * s_dd; g5.c = t.df; g5.n = n; g5.k = d;
     g5.m = d; g5.epi = kDrelu; g5.aux = layer(li, so.l.fr);
     g5.dr = dr; g5.key = dr.key(drop::kFfnRelu, li);
-    TRY(launch_gemm(g5, nt, s));
+    TRY(launch_gemm(g5, nt, bf16, s));
     GemmArgs g6{};
     g6.a = t.df; g6.w = l0.w_ff1 + li * s_dd; g6.c = t.dy1; g6.n = n;
     g6.k = d; g6.m = d; g6.epi = kRes; g6.res = t.dz2; g6.dr = off;
-    TRY(launch_gemm(g6, nt, s));
+    TRY(launch_gemm(g6, nt, bf16, s));
     // LN1: z1 = x_in + drop(o·W_out + b_out)
     float* da = dr.on ? t.da : t.dz1;
     TRY(ln_bwd(t.dy1, layer(li, so.l.xhat1), layer(li, so.l.rstd1),
@@ -753,11 +807,16 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     GemmArgs g7{};
     g7.a = da; g7.w = l0.w_out + li * s_dd; g7.c = t.d_o; g7.n = n; g7.k = d;
     g7.m = d; g7.epi = kStore; g7.dr = off;
-    TRY(launch_gemm(g7, nt, s));
-    attn_bwd_kernel<<<(B + attn_seqs(L) - 1) / attn_seqs(L), kThreads,
-                      attn_bwd_smem(L), s>>>(
-        layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L, d,
-        n_head, dr, dr.key(drop::kProbs, li));
+    TRY(launch_gemm(g7, nt, bf16, s));
+    const int attn_blocks = (B + attn_seqs(L) - 1) / attn_seqs(L);
+    if (bf16)
+      attn_bwd_kernel<true><<<attn_blocks, kThreads, attn_bwd_smem(L), s>>>(
+          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L, d,
+          n_head, dr, dr.key(drop::kProbs, li));
+    else
+      attn_bwd_kernel<false><<<attn_blocks, kThreads, attn_bwd_smem(L), s>>>(
+          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L, d,
+          n_head, dr, dr.key(drop::kProbs, li));
     TRY(cudaGetLastError());
     // dx of the layer: dz1 + dqkv·Wqkvᵀ, through the input dropout below
     // the first layer
@@ -765,7 +824,7 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     g8.a = t.dqkv; g8.w = l0.w_qkv + li * s_qkv; g8.c = li ? gnext : dx;
     g8.n = n; g8.k = 3 * d; g8.m = d; g8.epi = kRes; g8.res = t.dz1;
     g8.dr = li ? off : dr; g8.key = dr.key(drop::kInput, 0);
-    TRY(launch_gemm(g8, nt, s));
+    TRY(launch_gemm(g8, nt, bf16, s));
 
     WgArgs w{};
     const float* xs[4] = {xin, layer(li, so.l.o), layer(li, so.l.y1),
@@ -798,8 +857,11 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     w.part = t.part; w.total = go.total; w.n = n; w.d = d;
     const int per0 = (n + splits - 1) / splits;
     w.per = (per0 + kWgRows - 1) / kWgRows * kWgRows;
-    wgrad_kernel<<<dim3(wg_tiles(w.mw, d) + w.n_ln, splits), kWgThreads,
-                   kWgSmem, s>>>(w);
+    const dim3 wg_grid(wg_tiles(w.mw, d) + w.n_ln, splits);
+    if (bf16)
+      wgrad_kernel<true><<<wg_grid, kWgThreads, kWgSmem, s>>>(w);
+    else
+      wgrad_kernel<false><<<wg_grid, kWgThreads, kWgSmem, s>>>(w);
     TRY(cudaGetLastError());
     float* tmp = gcur;
     gcur = gnext;
@@ -830,13 +892,15 @@ extern "C" long long encoder_bwd_grad_floats(int d, int n_layers) {
   return (long long)grad_offsets(d, n_layers).total;
 }
 
-// The backward of the training forward encoder_fwd_f32 that wrote `saved`
+// The backward of the training forward encoder_fwd that wrote `saved`
 // (encoder_saved_floats, with the same weights, shapes and dropout
 // arguments, the row map included): gout the gradient of the tower's
 // output, dx [B, L, d] out, grads the flat buffer, workspace of
-// encoder_bwd_workspace_floats for `grid` row splits (all pointers 16-byte aligned).  Returns
+// encoder_bwd_workspace_floats for `grid` row splits (all pointers 16-byte
+// aligned).  bf16 != 0: the bf16 instantiation, the backward of
+// encoder_fwd's bf16 one (the head of the file).  Returns
 // cudaGetLastError() after the launches (0 = launched).
-extern "C" int encoder_bwd_f32(
+extern "C" int encoder_bwd(
     const float* saved, const float* gout, const float* w_qkv,
     const float* b_qkv, const float* w_out, const float* b_out,
     const float* w_ff1, const float* b_ff1, const float* w_ff2,
@@ -845,7 +909,8 @@ extern "C" int encoder_bwd_f32(
     const float* lnf_b, float* dx, float* grads, float* workspace, int grid,
     int B, int L, int d, int n_head, int n_layers, int drop_on,
     unsigned drop_thr, float drop_div, unsigned seed, int tower_id,
-    unsigned row_off, unsigned row_seg, unsigned row_stride, void* stream) {
+    unsigned row_off, unsigned row_seg, unsigned row_stride, int bf16,
+    void* stream) {
   (void)lnf_b;
   const Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
                  ln1_s, ln1_b, ln2_s, ln2_b};
@@ -854,5 +919,5 @@ extern "C" int encoder_bwd_f32(
       n_layers,
       drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
                  row_seg, row_stride, L, d),
-      static_cast<cudaStream_t>(stream)));
+      bf16 != 0, static_cast<cudaStream_t>(stream)));
 }

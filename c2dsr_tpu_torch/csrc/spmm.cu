@@ -42,10 +42,19 @@
 //     edge's column and flag[col], a ballot keeps the flagged ones, and only
 //     those are gathered, in CSR order.  A masked edge would add an exact
 //     zero, so the sum is the dense one.
+//
+// The bf16 instantiations (kBf; compute_dtype="bfloat16") take the JAX
+// Pallas SpMM's bf16 gather (spmm_pallas.py:166-172): each gathered
+// product is bf16(bf16(h[col])·bf16(val)), rounded to nearest even (the
+// product of two bf16 values is exact in f32, then rounded once, as a
+// bf16 multiply), and the sums stay f32.  They read the f32 table as the
+// f32 ones do and round as they gather: the same bytes, the JAX numerics.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -72,9 +81,18 @@ __device__ __forceinline__ void fma4(float4& acc, float v, const float4 x) {
   acc.w = fmaf(v, x.w, acc.w);
 }
 
+// acc += bf16(v·bf16(x)) elementwise, v already a bf16 value.
+__device__ __forceinline__ void add_bf16_products(float4& acc, float v,
+                                                  const float4 x) {
+  acc.x += tc::bf16f(v * tc::bf16f(x.x));
+  acc.y += tc::bf16f(v * tc::bf16f(x.y));
+  acc.z += tc::bf16f(v * tc::bf16f(x.z));
+  acc.w += tc::bf16f(v * tc::bf16f(x.w));
+}
+
 // One warp a task (see the top of the file); lane l holds float4 columns
 // cb + l + 32 j, j < NC, of each column pass cb.
-template <int kMode, int NC>
+template <int kMode, int NC, bool kBf>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 spmm_tasks_kernel(const int4* __restrict__ tasks, int n_tasks,
                   const int* __restrict__ rowptr, const int* __restrict__ cols,
@@ -163,6 +181,7 @@ spmm_tasks_kernel(const int4* __restrict__ tasks, int n_tasks,
           kept &= kept - 1u;                    // stays 0 once empty
           const int col = __shfl_sync(0xffffffffu, my_col, src);
           v[u] = __shfl_sync(0xffffffffu, my_val, src);
+          if constexpr (kBf) v[u] = tc::bf16f(v[u]);
           pos[u] = on ? w0 + src : INT_MAX;
 #pragma unroll
           for (int j = 0; j < NC; ++j) {
@@ -177,7 +196,12 @@ spmm_tasks_kernel(const int4* __restrict__ tasks, int n_tasks,
           if (pos[u] != INT_MAX) {
             close_before(pos[u]);
 #pragma unroll
-            for (int j = 0; j < NC; ++j) fma4(acc[j], v[u], x[u][j]);
+            for (int j = 0; j < NC; ++j) {
+              if constexpr (kBf)
+                add_bf16_products(acc[j], v[u], x[u][j]);
+              else
+                fma4(acc[j], v[u], x[u][j]);
+            }
           }
         }
       }
@@ -261,13 +285,13 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int kMode, int NC>
+template <int kMode, int NC, bool kBf>
 int launch(const Args& a) {
   const int tail = (a.n_rows - a.n_graph + kRunRows - 1) / kRunRows;
   const int warps = a.n_tasks + tail;
   if (warps > 0) {
-    spmm_tasks_kernel<kMode, NC><<<(warps + kWarps - 1) / kWarps,
-                                   kWarps * 32, 0, a.stream>>>(
+    spmm_tasks_kernel<kMode, NC, kBf><<<(warps + kWarps - 1) / kWarps,
+                                        kWarps * 32, 0, a.stream>>>(
         a.tasks, a.n_tasks, a.rowptr, a.cols, a.vals, a.flag, a.h, a.out,
         a.part, a.n_graph, a.n_rows, a.d4);
     const cudaError_t err = cudaGetLastError();
@@ -279,12 +303,19 @@ int launch(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kMode>
+template <int kMode, bool kBf>
 int by_width(const Args& a) {
-  if (a.d4 <= 32) return launch<kMode, 1>(a);
-  if (a.d4 <= 64) return launch<kMode, 2>(a);
-  if (a.d4 <= 128) return launch<kMode, 4>(a);
-  return launch<kMode, 8>(a);                 // d > 1,024: column passes
+  if (a.d4 <= 32) return launch<kMode, 1, kBf>(a);
+  if (a.d4 <= 64) return launch<kMode, 2, kBf>(a);
+  if (a.d4 <= 128) return launch<kMode, 4, kBf>(a);
+  return launch<kMode, 8, kBf>(a);            // d > 1,024: column passes
+}
+
+template <bool kBf>
+int flagged(const Args& a, int mode) {
+  if (mode == kDest) return by_width<kDest, kBf>(a);
+  if (mode == kSrc) return by_width<kSrc, kBf>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 Args make_args(const int* tasks, int n_tasks, const int* rowptr,
@@ -312,9 +343,21 @@ extern "C" int spmm_csr_f32(const int* tasks, int n_tasks, const int* rowptr,
                             int n_heavy, const float* h, float* out,
                             float* part, int n_graph, int n_rows, int d,
                             void* stream) {
-  return by_width<kDense>(make_args(tasks, n_tasks, rowptr, cols, vals,
-                                    heavy_rows, heavy_slots, n_heavy, nullptr,
-                                    h, out, part, n_graph, n_rows, d, stream));
+  return by_width<kDense, false>(make_args(
+      tasks, n_tasks, rowptr, cols, vals, heavy_rows, heavy_slots, n_heavy,
+      nullptr, h, out, part, n_graph, n_rows, d, stream));
+}
+
+// spmm_csr_f32 with the bf16 gather (the top of the file).
+extern "C" int spmm_csr_bf16(const int* tasks, int n_tasks, const int* rowptr,
+                             const int* cols, const float* vals,
+                             const int* heavy_rows, const int* heavy_slots,
+                             int n_heavy, const float* h, float* out,
+                             float* part, int n_graph, int n_rows, int d,
+                             void* stream) {
+  return by_width<kDense, true>(make_args(
+      tasks, n_tasks, rowptr, cols, vals, heavy_rows, heavy_slots, n_heavy,
+      nullptr, h, out, part, n_graph, n_rows, d, stream));
 }
 
 // The batch-sparse hop (K6): flag holds one 0/1 byte per table row (n_rows);
@@ -329,10 +372,23 @@ extern "C" int spmm_csr_flagged_f32(const int* tasks, int n_tasks,
                                     float* out, float* part, int n_graph,
                                     int n_rows, int d, int mode,
                                     void* stream) {
-  const Args a = make_args(tasks, n_tasks, rowptr, cols, vals, heavy_rows,
-                           heavy_slots, n_heavy, flag, h, out, part, n_graph,
-                           n_rows, d, stream);
-  if (mode == kDest) return by_width<kDest>(a);
-  if (mode == kSrc) return by_width<kSrc>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return flagged<false>(make_args(tasks, n_tasks, rowptr, cols, vals,
+                                  heavy_rows, heavy_slots, n_heavy, flag, h,
+                                  out, part, n_graph, n_rows, d, stream),
+                        mode);
+}
+
+// spmm_csr_flagged_f32 with the bf16 gather.
+extern "C" int spmm_csr_flagged_bf16(const int* tasks, int n_tasks,
+                                     const int* rowptr, const int* cols,
+                                     const float* vals, const int* heavy_rows,
+                                     const int* heavy_slots, int n_heavy,
+                                     const uint8_t* flag, const float* h,
+                                     float* out, float* part, int n_graph,
+                                     int n_rows, int d, int mode,
+                                     void* stream) {
+  return flagged<true>(make_args(tasks, n_tasks, rowptr, cols, vals,
+                                 heavy_rows, heavy_slots, n_heavy, flag, h,
+                                 out, part, n_graph, n_rows, d, stream),
+                       mode);
 }

@@ -27,6 +27,27 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
   small = __float_as_uint(x - __uint_as_float(big));
 }
 
+// x rounded to bf16 (to nearest, ties to even: the JAX package's astype),
+// as the bits of an f32 whose low 16 bits are zero.  A bf16 value is exact
+// in TF32, so one TF32 MMA of two rounded operands multiplies them exactly
+// and sums in f32: the numerics of a bf16 MMA with f32 accumulation, which
+// the kernels' bf16 instantiations (compute_dtype="bfloat16") take for the
+// Pallas kernels' bf16 products.  Finite x.
+__device__ __forceinline__ uint32_t round_bf16(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+}
+
+// A bf16 value held in memory (its 16 bits), as the bits of the same f32.
+__device__ __forceinline__ uint32_t widen_bf16(uint16_t b) {
+  return static_cast<uint32_t>(b) << 16;
+}
+
+// x rounded to bf16, as an f32.
+__device__ __forceinline__ float bf16f(float x) {
+  return __uint_as_float(round_bf16(x));
+}
+
 // 2^x, flushing results below f32's normal range to zero; 2^-inf = 0.
 __device__ __forceinline__ float exp2_approx(float x) {
   float r;
@@ -99,6 +120,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // and adds each k-step's products to the sum in f32, rounded to nearest:
 // as close to the exact sum as an f32 GEMM (chip_smoke.py's d 256 step
 // logs it against float64); twice the MMAs and an add a k-step.
+// TERMS = 1 is the bf16 instantiation (compute_dtype="bfloat16"): each
+// operand rounded to bf16 as it is read (round_bf16), one MMA a k-step,
+// the exact products summed in f32 by the tensor cores, as the JAX
+// package's _mm / _mm_nt with matmul_dtype=bf16 sum them.
 constexpr int kGemmThreads = 128;
 constexpr int kGemmRows = 64;
 constexpr int kKc = 32;
@@ -118,9 +143,13 @@ struct GemmCfg {
 };
 
 // The TERMS-way split of an operand into p[0] (big), p[1], p[2]: 3xTF32's
-// big and small, or big, mid and small.
+// big and small, or big, mid and small; at TERMS 1, p[0] = bf16(x).
 template <int TERMS>
 __device__ __forceinline__ void split_parts(float x, uint32_t (&p)[3]) {
+  if constexpr (TERMS == 1) {
+    p[0] = round_bf16(x);
+    return;
+  }
   split_tf32(x, p[0], p[1]);
   if constexpr (TERMS == 6) split_tf32(__uint_as_float(p[1]), p[1], p[2]);
 }
@@ -135,12 +164,14 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
                                           int n, int k, int m, int row0,
                                           int n0, float* smem,
                                           float (&acc)[NT / 8][4]) {
-  static_assert(TERMS == 3 || TERMS == 6, "3xTF32 or its 6-term form");
+  static_assert(TERMS == 1 || TERMS == 3 || TERMS == 6,
+                "bf16, 3xTF32 or its 6-term form");
   using Cfg = GemmCfg<NT, KM>;
   constexpr int kNj = NT / 8;             // n-tiles a warp
   constexpr int kNb = NT == 256 || TERMS == 6 ? 4 : 8;  // n-tiles a batch
                                                         // of B loads
-  constexpr int kP = TERMS == 6 ? 3 : 2;  // parts an operand
+  constexpr int kP = TERMS == 6 ? 3 : TERMS == 3 ? 2 : 1;  // parts an
+                                                         // operand
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2;
@@ -236,7 +267,10 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
         // big·big into a zeroed partial, which an f32 add then rounds into
         // acc to nearest: the tensor cores add into their accumulator with
         // truncation, each MMA about an ulp of the running sum.
-        if constexpr (TERMS == 6) {
+        if constexpr (TERMS == 1) {
+#pragma unroll
+          for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], ap[0], bp[0][j]);
+        } else if constexpr (TERMS == 6) {
           float part[kNb][4];
 #pragma unroll
           for (int j = 0; j < kNb; ++j)

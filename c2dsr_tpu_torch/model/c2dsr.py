@@ -109,7 +109,10 @@ def _encode(h, seq, pos, attn_params, cfg: Config, spec: DataSpec,
             seed: Optional[int], tower: int, row_map=None) -> torch.Tensor:
     """Positional add, then the tower (ops/backend.encode_layers); dropout
     keyed by (seed, tower) when seed is not None, its rows placed in the
-    global batch by ``row_map`` (ops/dropout.py)."""
+    global batch by ``row_map`` (ops/dropout.py).  The precision comes
+    from the configuration (``Config.bf16_products``), not from h's dtype:
+    the positional add promotes a bf16 h to f32, as the JAX package's
+    ``encode_towers_fused`` does before its bf16 products."""
     # the positional add stays outside the fused kernel, as in JAX; the
     # position table is replicated on every rank, so its lookup is local
     x = (h + lookup_mod.lookup(attn_params["pos_emb"], pos)).contiguous()
@@ -118,7 +121,8 @@ def _encode(h, seq, pos, attn_params, cfg: Config, spec: DataSpec,
         norm_first=cfg.norm_first,
         invert_padding_mask=cfg.bug_inverted_padding_mask,
         dropout=0.0 if seed is None else cfg.dropout_attn,
-        seed=seed or 0, tower=tower, row_map=row_map).to(
+        seed=seed or 0, tower=tower, row_map=row_map,
+        bf16=cfg.bf16_products()).to(
             torch.promote_types(x.dtype, torch.float32))
 
 

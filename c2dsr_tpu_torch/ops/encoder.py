@@ -22,6 +22,14 @@ This is the plain version of the fused encoder kernel (``ops/encoder_cuda``);
 CPU tensors take it, and the tests and ``chip_smoke.py`` hold the kernel
 against it.  Parameters use the JAX layout, ``x @ w`` with w [d_in, d_out],
 with each layer weight stacked over layers (``model/params.py``).
+
+``bf16=True`` is the Pallas tower's ``matmul_dtype=bf16``
+(``compute_dtype="bfloat16"``): every product, the four with a weight and
+q·kᵀ and p·v, takes bf16-rounded operands and sums in f32, q·kᵀ scaled
+after the product (``encoder_pallas._forward_core``), and its backward
+rounds the incoming gradient before each product as ``_fused_bwd`` does
+(``ops/bf16.matmul``).  LayerNorm, softmax, dropout and the residual adds
+stay f32.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from c2dsr_tpu_torch.ops import bf16 as bf16_mod
 from c2dsr_tpu_torch.ops import dropout as drop
 
 _NAMES = ("w_qkv", "b_qkv", "w_out", "b_out", "w_ff1", "b_ff1", "w_ff2",
@@ -51,45 +60,56 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _mm(bf16: bool):
+    """The tower's product: ``torch.matmul``, or the bf16 one."""
+    return bf16_mod.matmul if bf16 else torch.matmul
+
+
 def multi_head_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
                          n_head: int, mask_bias: torch.Tensor,
                          drop_probs=lambda t: t,
-                         masked_probs: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         masked_probs: Optional[torch.Tensor] = None,
+                         bf16: bool = False) -> torch.Tensor:
     """Self-attention with additive mask bias [B, 1, L, L]; ``drop_probs``
     applies dropout to the probabilities [B, H, L, L].  ``masked_probs``
     [B, H, L, L], if given, are the probabilities of the all-masked rows
-    (the softmax's backward is taken at them)."""
+    (the softmax's backward is taken at them).  ``bf16``: bf16 products
+    (module docstring)."""
     B, L, d = x.shape
     dh = d // n_head
-    qkv = x @ p["w_qkv"] + p["b_qkv"]                     # [B, L, 3d]
+    mm = _mm(bf16)
+    qkv = mm(x, p["w_qkv"]) + p["b_qkv"]                  # [B, L, 3d]
     q, k, v = qkv.split(d, dim=-1)
 
     def heads(t):
         return t.reshape(B, L, n_head, dh).transpose(1, 2)
 
     q, k, v = heads(q), heads(k), heads(v)
-    logits = (q @ k.transpose(-1, -2)) / math.sqrt(dh) + mask_bias
+    if bf16:
+        logits = bf16_mod.matmul(q, k.transpose(-1, -2),
+                                 1.0 / math.sqrt(dh)) + mask_bias
+    else:
+        logits = (q @ k.transpose(-1, -2)) / math.sqrt(dh) + mask_bias
     if masked_probs is not None:
         masked = (logits < 0.5 * NEG_INF).all(-1, keepdim=True)
         logits = torch.where(masked, logits - logits.detach()
                              + torch.log(masked_probs.to(logits.dtype)),
                              logits)
     attn = drop_probs(torch.softmax(logits, dim=-1))
-    out = (attn @ v).transpose(1, 2).reshape(B, L, d)
-    return out @ p["w_out"] + p["b_out"]
+    out = mm(attn, v).transpose(1, 2).reshape(B, L, d)
+    return mm(out, p["w_out"]) + p["b_out"]
 
 
 def encoder_layer(x: torch.Tensor, p: Dict[str, Any], *, n_head: int,
                   mask_bias: torch.Tensor, norm_first: bool,
                   dropout: float = 0.0, seed: int = 0, tower: int = 0,
                   layer: int = 0, branches: Optional[Branches] = None,
-                  row_map=None) -> torch.Tensor:
+                  row_map=None, bf16: bool = False) -> torch.Tensor:
     """One transformer encoder layer, post-norm by default (torch semantics).
     Dropout sites as ``c2dsr_tpu/ops/encoder.py`` has them.  ``branches``,
     if given, is (ReLU mask [B, L, d], all-masked rows' probabilities
     [B, H, L, L]): the layer is taken at those branches instead of its own
-    (see :func:`encode_layers`)."""
+    (see :func:`encode_layers`).  ``bf16``: bf16 products."""
     def dr(site):
         return lambda t: drop.apply(t, dropout, seed, site, tower, layer,
                                     row_map)
@@ -101,18 +121,19 @@ def encoder_layer(x: torch.Tensor, p: Dict[str, Any], *, n_head: int,
 
     def mha(h):
         return multi_head_attention(h, p, n_head, mask_bias,
-                                    dr(drop.SITE_PROBS), probs)
+                                    dr(drop.SITE_PROBS), probs, bf16)
 
+    mm = _mm(bf16)
     if norm_first:
         h = layer_norm(x, p["ln1_scale"], p["ln1_bias"])
         x = x + dr(drop.SITE_ATTN_OUT)(mha(h))
         h = layer_norm(x, p["ln2_scale"], p["ln2_bias"])
-        ff = dr(drop.SITE_FFN_RELU)(relu(h @ p["w_ff1"] + p["b_ff1"]))
-        return x + dr(drop.SITE_FFN_OUT)(ff @ p["w_ff2"] + p["b_ff2"])
+        ff = dr(drop.SITE_FFN_RELU)(relu(mm(h, p["w_ff1"]) + p["b_ff1"]))
+        return x + dr(drop.SITE_FFN_OUT)(mm(ff, p["w_ff2"]) + p["b_ff2"])
     x = layer_norm(x + dr(drop.SITE_ATTN_OUT)(mha(x)),
                    p["ln1_scale"], p["ln1_bias"])
-    ff = dr(drop.SITE_FFN_RELU)(relu(x @ p["w_ff1"] + p["b_ff1"]))
-    x = x + dr(drop.SITE_FFN_OUT)(ff @ p["w_ff2"] + p["b_ff2"])
+    ff = dr(drop.SITE_FFN_RELU)(relu(mm(x, p["w_ff1"]) + p["b_ff1"]))
+    x = x + dr(drop.SITE_FFN_OUT)(mm(ff, p["w_ff2"]) + p["b_ff2"])
     return layer_norm(x, p["ln2_scale"], p["ln2_bias"])
 
 
@@ -145,10 +166,10 @@ def encode_layers(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                   invert_padding_mask: bool, dropout: float = 0.0,
                   seed: int = 0, tower: int = 0,
                   branches: Optional[Dict[Tuple[int, int], Branches]] = None,
-                  row_map=None) -> torch.Tensor:
+                  row_map=None, bf16: bool = False) -> torch.Tensor:
     """Input dropout, the layers and the final LayerNorm, on an input that
     already holds the positional embedding: what the fused kernel computes
-    (post-norm).  ``params["layers"]`` holds each layer weight stacked over
+    (post-norm); ``bf16``: bf16 products (module docstring).  ``params["layers"]`` holds each layer weight stacked over
     layers.  ``tower`` keys the masks of one tower call apart from the
     others of the same step; ``row_map`` places its rows in the global batch
     (``ops/dropout.py``).
@@ -168,7 +189,8 @@ def encode_layers(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                           n_head=n_head, mask_bias=bias, norm_first=norm_first,
                           dropout=dropout, seed=seed, tower=tower, layer=i,
                           branches=None if branches is None
-                          else branches[(tower, i)], row_map=row_map)
+                          else branches[(tower, i)], row_map=row_map,
+                          bf16=bf16)
     return layer_norm(x, params["lnf_scale"], params["lnf_bias"])
 
 
@@ -206,14 +228,15 @@ def encoder_fwd_plain(x: torch.Tensor, seq: torch.Tensor,
                       params: Dict[str, Any], *, idx_pad: int, n_head: int,
                       invert_padding_mask: bool, dropout: float = 0.0,
                       seed: int = 0, tower: int = 0, branches=None,
-                      row_map=None) -> torch.Tensor:
+                      row_map=None, bf16: bool = False) -> torch.Tensor:
     """The plain version of ``encoder_cuda.encoder_fwd`` (post-norm);
-    ``branches`` as :func:`encode_layers` takes them."""
+    ``branches`` as :func:`encode_layers` takes them; ``bf16``: the bf16
+    instantiation's."""
     return encode_layers(x, seq, params, idx_pad=idx_pad, n_head=n_head,
                          norm_first=False,
                          invert_padding_mask=invert_padding_mask,
                          dropout=dropout, seed=seed, tower=tower,
-                         branches=branches, row_map=row_map)
+                         branches=branches, row_map=row_map, bf16=bf16)
 
 
 def encoder_bwd_plain(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,

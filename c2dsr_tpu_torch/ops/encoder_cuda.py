@@ -35,6 +35,13 @@ call.  Unlike the Pallas kernel, which pads L to a multiple
 of 16 and averages an all-masked query row over the padded length, these
 kernels work on the L real positions, so such a row is the uniform average
 over L positions, as ``ops/encoder.py`` in both packages gives it.
+
+``bf16=True`` (``compute_dtype="bfloat16"``) selects both kernels' bf16
+instantiations, the Pallas kernels' ``matmul_dtype=bf16``: every product's
+operands rounded to bf16 (the incoming gradient's included), the sums f32,
+one TF32 MMA a k-step where 3xTF32 takes three (``csrc/encoder.cu``,
+``csrc/encoder_bwd.cu``).  The saved activations stay f32.  Their launches
+count apart (``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -52,9 +59,9 @@ from c2dsr_tpu_torch.ops.encoder import _NAMES, tower_params, tower_weights
 _DROP_SIG = (ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
              ctypes.c_int) + (ctypes.c_uint,) * 3
 _FWD_SIG = ((ctypes.c_void_p,) * 18 + (ctypes.c_int,) * 8 + _DROP_SIG
-            + (ctypes.c_void_p,))
+            + (ctypes.c_int, ctypes.c_void_p))
 _BWD_SIG = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 6 + _DROP_SIG
-            + (ctypes.c_void_p,))
+            + (ctypes.c_int, ctypes.c_void_p))
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,15 +186,15 @@ def _check_saved(saved: torch.Tensor, B, L, d, n_head, n_layers) -> None:
 def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
                 *, idx_pad: int, n_head: int, invert_padding_mask: bool,
                 dropout: float = 0.0, seed: int = 0, tower: int = 0,
-                row_map=None, saved: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                row_map=None, saved: Optional[torch.Tensor] = None,
+                bf16: bool = False) -> torch.Tensor:
     """Input dropout, layers and final LN of one tower by the CUDA kernels.
 
     x: [B, L, d] f32 CUDA (positional embedding already added); seq: [B, L]
     int (pad = idx_pad).  With ``saved`` (from :func:`saved_buffer`) the
     kernels also write the activations :func:`encoder_bwd` reads; without
-    it they work in a one-layer workspace of the same layout.  Returns
-    [B, L, d] f32."""
+    it they work in a one-layer workspace of the same layout.  ``bf16``:
+    the bf16 instantiation.  Returns [B, L, d] f32."""
     weights = tower_weights(params)
     B, L, d, n_layers = _check(x, seq, weights, n_head, "encoder_fwd")
     seq32 = seq.to(torch.int32).contiguous()
@@ -201,20 +208,24 @@ def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
     x = _aligned(x)
     weights = [_aligned(w) for w in weights]
     out = torch.empty_like(x)
-    err = _fn("encoder", "encoder_fwd_f32", _FWD_SIG)(
+    err = _fn("encoder", "encoder_fwd", _FWD_SIG)(
         x.data_ptr(), seq32.data_ptr(), *[w.data_ptr() for w in weights],
         out.data_ptr(), buf.data_ptr(), int(saved is not None),
         B, L, d, n_head, n_layers, int(idx_pad),
         int(bool(invert_padding_mask)),
-        *_drop_args(dropout, seed, tower, row_map),
+        *_drop_args(dropout, seed, tower, row_map), int(bf16),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_fwd launch failed: CUDA error {err}")
-    encoder_fwd.launches += 1
+    if bf16:
+        encoder_fwd.launches_bf16 += 1
+    else:
+        encoder_fwd.launches += 1
     return out
 
 
 encoder_fwd.launches = 0
+encoder_fwd.launches_bf16 = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -234,12 +245,13 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
                 params: Dict[str, Any], *, idx_pad: int, n_head: int,
                 invert_padding_mask: bool, dropout: float = 0.0,
                 seed: int = 0, tower: int = 0, row_map=None,
-                saved: Optional[torch.Tensor] = None
+                saved: Optional[torch.Tensor] = None, bf16: bool = False
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Backward of :func:`encoder_fwd` by the CUDA kernels, from the same
-    input and dropout arguments: (dx, the gradients of ``tower_weights``).
-    ``saved`` holds the activations that forward wrote; without it the
-    forward kernel runs first to write them (one more launch of K2)."""
+    input, dropout and precision arguments: (dx, the gradients of
+    ``tower_weights``).  ``saved`` holds the activations that forward
+    wrote; without it the forward kernel runs first to write them (one more
+    launch of K2)."""
     weights = tower_weights(params)
     B, L, d, n_layers = _check(x, seq, weights, n_head, "encoder_bwd")
     if (gout.shape != x.shape or gout.dtype != torch.float32
@@ -247,7 +259,7 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
         raise ValueError("gout must be f32 of x's shape on x's device")
     kw = dict(idx_pad=idx_pad, n_head=n_head,
               invert_padding_mask=invert_padding_mask, dropout=dropout,
-              seed=seed, tower=tower, row_map=row_map)
+              seed=seed, tower=tower, row_map=row_map, bf16=bf16)
     if saved is None:
         saved = saved_buffer(x, n_head, n_layers)
         encoder_fwd(x, seq, params, saved=saved, **kw)
@@ -259,14 +271,17 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
     ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
     flat = torch.empty(grad_floats, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    err = _fn("encoder_bwd", "encoder_bwd_f32", _BWD_SIG)(
+    err = _fn("encoder_bwd", "encoder_bwd", _BWD_SIG)(
         saved.data_ptr(), gout.data_ptr(), *[w.data_ptr() for w in weights],
         dx.data_ptr(), flat.data_ptr(), ws.data_ptr(), grid, B, L, d, n_head,
-        n_layers, *_drop_args(dropout, seed, tower, row_map),
+        n_layers, *_drop_args(dropout, seed, tower, row_map), int(bf16),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_bwd launch failed: CUDA error {err}")
-    encoder_bwd.launches += 1
+    if bf16:
+        encoder_bwd.launches_bf16 += 1
+    else:
+        encoder_bwd.launches += 1
     grads, at = [], 0
     for w in weights:
         grads.append(flat[at:at + w.numel()].view(w.shape))
@@ -275,6 +290,7 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
 
 
 encoder_bwd.launches = 0
+encoder_bwd.launches_bf16 = 0
 
 
 def dropout_bits(seed: int, site: int, tower: int, layer: int, n: int
@@ -316,12 +332,12 @@ class _Tower(torch.autograd.Function):
 def encode(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any], *,
            idx_pad: int, n_head: int, invert_padding_mask: bool,
            dropout: float = 0.0, seed: int = 0, tower: int = 0,
-           row_map=None) -> torch.Tensor:
+           row_map=None, bf16: bool = False) -> torch.Tensor:
     """:func:`encoder_fwd` with its kernel backward: differentiable in x and
-    in every tower weight."""
+    in every tower weight; ``bf16``: both in their bf16 instantiations."""
     kw = dict(idx_pad=idx_pad, n_head=n_head,
               invert_padding_mask=invert_padding_mask, dropout=dropout,
-              seed=seed, tower=tower, row_map=row_map)
+              seed=seed, tower=tower, row_map=row_map, bf16=bf16)
     weights = tower_weights(params)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in [x] + weights)):

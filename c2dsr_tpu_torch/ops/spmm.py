@@ -10,6 +10,13 @@ tensor it is the plain ``index_select``·vals + ``index_add_`` of
 :func:`spmm_reference`, differentiated by autograd.  The batch-sparse hop
 (a row flag on the last hop of a training step) is K6 on the card and
 :func:`spmm_reference_flagged` on the CPU.
+
+A bf16 gather (``gcn_propagate``'s ``gather_dtype=torch.bfloat16``, under
+``compute_dtype="bfloat16"``) is the JAX Pallas SpMM's: each gathered
+product bf16(bf16(h[col])·bf16(val)), the sum in f32
+(``c2dsr_tpu/ops/spmm_pallas.py:166-172``), in the forward, over Aᵀ in the
+backward and in the flagged hop; the JAX package applies it where its
+Pallas SpMM runs (d % 128 == 0), the port at every width.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from c2dsr_tpu_torch.ops import backend, spmm_cuda
+from c2dsr_tpu_torch.ops.bf16 import round_bf16
 
 
 class CsrDevice(NamedTuple):
@@ -142,7 +150,8 @@ def rect_graph(rows, cols, vals, n_out: int, n_in: int, device="cuda",
 def rect_spmm(graph: CsrDevice, h: torch.Tensor) -> torch.Tensor:
     """``A @ h`` into the ``graph.n`` rows of a :func:`rect_graph`: K1 (and
     its backward over ``graph.t``) on a CUDA tensor, the plain version on a
-    CPU one."""
+    CPU one.  f32 gathers: the sharded propagation stays f32, as in the JAX
+    package (``c2dsr_tpu/parallel/strategy.py:106-127``)."""
     if h.is_cuda:
         return backend.spmm_kernels(graph, h, n_out=graph.n)
     return spmm_reference(graph, h, n_out=graph.n)
@@ -163,21 +172,69 @@ def attach_a2a_plan(graph: CsrDevice, n_rows_padded: int, n_shards: int,
                                               graph.rows.device))
 
 
-def spmm_reference(graph: CsrDevice, h: torch.Tensor, n_out=None
-                   ) -> torch.Tensor:
+def _flag_mask(graph: CsrDevice, flag: torch.Tensor, flag_on: str
+               ) -> torch.Tensor:
+    """The edge weights with the edges masked (0) whose output row
+    (``"dest"``) or gathered row (``"src"``) is unflagged."""
+    if flag_on not in ("dest", "src"):
+        raise ValueError(f"flag_on must be 'dest' or 'src', got {flag_on!r}")
+    probe = graph.rows if flag_on == "dest" else graph.cols
+    return graph.vals * (flag.index_select(0, probe) != 0)
+
+
+def _hop_bf16(graph: CsrDevice, h: torch.Tensor, n_out: int,
+              vals: torch.Tensor) -> torch.Tensor:
+    """The bf16 gather's hop, no autograd: out[row] = the f32 sum of
+    bf16(bf16(h[col])·bf16(val)) over the row's edges (the product of two
+    bf16 values is exact in f32, then rounded once, as a bf16 multiply)."""
+    gathered = round_bf16(round_bf16(h).index_select(0, graph.cols)
+                          * round_bf16(vals)[:, None])
+    out = h.new_zeros((n_out, h.shape[1]))
+    return out.index_add_(0, graph.rows, gathered)
+
+
+class _Bf16Hop(torch.autograd.Function):
+    """The plain bf16 hop ``A @ h`` (flagged "dest" with a flag); its
+    backward the same hop over ``graph.t`` ("src" with the flag), whose sum
+    stays f32 where autograd through a bf16 gather would sum in bf16: the
+    JAX package's backward (``spmm_pallas.py:224-225,259-261``)."""
+
+    @staticmethod
+    def forward(ctx, h, graph, n_out, flag):
+        ctx.graph, ctx.n_in, ctx.flag = graph, h.shape[0], flag
+        vals = graph.vals if flag is None else _flag_mask(graph, flag,
+                                                          "dest")
+        return _hop_bf16(graph, h, n_out, vals)
+
+    @staticmethod
+    def backward(ctx, g):
+        t = ctx.graph.t
+        if t is None:
+            raise ValueError("the graph carries no transpose (device_graph "
+                             "packs it)")
+        vals = t.vals if ctx.flag is None else _flag_mask(t, ctx.flag, "src")
+        return _hop_bf16(t, g, ctx.n_in, vals), None, None, None
+
+
+def spmm_reference(graph: CsrDevice, h: torch.Tensor, n_out=None,
+                   bf16: bool = False) -> torch.Tensor:
     """``adj @ h``, plain: gather the source rows, scale, scatter-add.
 
     h: [n_rows >= graph.n, d]; the output has ``n_out`` rows (h's by
     default).  Rows past ``graph.n`` have no edges and come out zero, as
-    ``spmm_pallas._apply`` gives them."""
+    ``spmm_pallas._apply`` gives them.  ``bf16``: the bf16 gather (module
+    docstring), summed in h's dtype, its backward over ``graph.t``."""
+    n_out = h.shape[0] if n_out is None else n_out
+    if bf16:
+        return _Bf16Hop.apply(h, graph, n_out, None)
     gathered = h.index_select(0, graph.cols) * graph.vals[:, None]
-    out = h.new_zeros((h.shape[0] if n_out is None else n_out, h.shape[1]))
+    out = h.new_zeros((n_out, h.shape[1]))
     return out.index_add_(0, graph.rows, gathered)
 
 
 def spmm_reference_flagged(graph: CsrDevice, h: torch.Tensor,
-                           flag: torch.Tensor, flag_on: str = "dest"
-                           ) -> torch.Tensor:
+                           flag: torch.Tensor, flag_on: str = "dest",
+                           bf16: bool = False) -> torch.Tensor:
     """The batch-sparse hop, plain: :func:`spmm_reference` with the edges
     masked (weight 0) whose output row (``flag_on="dest"``) or gathered row
     (``flag_on="src"``) is unflagged, as ``spmm_pallas.blocked_spmm_impl``
@@ -186,11 +243,14 @@ def spmm_reference_flagged(graph: CsrDevice, h: torch.Tensor,
     In "dest" mode unflagged rows come out zero.  Autograd's gradient of the
     "dest" mode is this function in "src" mode over the CSR of Aᵀ: the
     backward of ``make_blocked_spmm_flagged`` (``spmm_pallas.py:259-261``)
-    and what K6 computes there."""
-    if flag_on not in ("dest", "src"):
-        raise ValueError(f"flag_on must be 'dest' or 'src', got {flag_on!r}")
-    probe = graph.rows if flag_on == "dest" else graph.cols
-    w = graph.vals * (flag.index_select(0, probe) != 0)
+    and what K6 computes there.  ``bf16``: the bf16 gather (module
+    docstring); "dest" then differentiates by the "src" hop over
+    ``graph.t``."""
+    if bf16 and flag_on == "dest":
+        return _Bf16Hop.apply(h, graph, h.shape[0], flag)
+    w = _flag_mask(graph, flag, flag_on)
+    if bf16:
+        return _hop_bf16(graph, h, h.shape[0], w)
     gathered = h.index_select(0, graph.cols) * w[:, None]
     out = torch.zeros_like(h)
     return out.index_add_(0, graph.rows, gathered)
@@ -199,7 +259,8 @@ def spmm_reference_flagged(graph: CsrDevice, h: torch.Tensor,
 def gcn_propagate(graph: CsrDevice, h: torch.Tensor, n_layers: int,
                   dropout: float = 0.0,
                   generator: Optional[torch.Generator] = None,
-                  out_flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  out_flag: Optional[torch.Tensor] = None,
+                  gather_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """LightGCN-style propagation: mean of all layer outputs incl. the input
     (models/encoders.py:42-48).  Each hop is ``adj @ h`` on the device of
     ``h`` (ops/backend.spmm).  With a ``generator`` (on h's device), train
@@ -211,7 +272,16 @@ def gcn_propagate(graph: CsrDevice, h: torch.Tensor, n_layers: int,
     ``c2dsr_tpu/ops/spmm.py:112-118,136-137`` applies it: earlier hops feed
     later hops' gathers at arbitrary rows, so they stay dense.  Unmarked
     rows of the result must not be read; every marked row and every
-    gradient equals the dense propagation's."""
+    gradient equals the dense propagation's.
+
+    gather_dtype (``c2dsr_tpu/ops/spmm.py:98-128``): torch.bfloat16 takes
+    every hop's bf16 gather (module docstring), K1/K6's bf16
+    instantiations on the card; the hops' sums and the layer mean stay in
+    h's dtype."""
+    if gather_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gather_dtype must be float32 or bfloat16, got "
+                         f"{gather_dtype}")
+    bf16 = gather_dtype == torch.bfloat16
     h_sum = h
     cur = h
     for i in range(n_layers):
@@ -221,8 +291,8 @@ def gcn_propagate(graph: CsrDevice, h: torch.Tensor, n_layers: int,
             cur = torch.where(keep, cur / (1.0 - dropout),
                               torch.zeros((), device=cur.device))
         if out_flag is not None and i == n_layers - 1:
-            cur = backend.spmm(graph, cur, out_flag)
+            cur = backend.spmm(graph, cur, out_flag, bf16)
         else:
-            cur = backend.spmm(graph, cur)
+            cur = backend.spmm(graph, cur, bf16=bf16)
         h_sum = h_sum + cur
     return h_sum / (n_layers + 1)

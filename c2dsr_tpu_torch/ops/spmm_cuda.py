@@ -30,6 +30,11 @@ instantiated per mode: "dest" writes an unflagged output row as zeros with
 no gathers; "src" keeps a 32-edge window's flagged edges by a ballot and
 gathers only those.  The bytes it
 saves are the gathers of the edges it drops.
+
+``bf16=True`` (``compute_dtype="bfloat16"``) selects the bf16
+instantiations of both: the JAX Pallas SpMM's bf16 gather, each product
+bf16(bf16(h[col])·bf16(val)) and the sums f32, reading the same f32 table.
+Their launches count apart (``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ _MODES = {"dest": 1, "src": 2}     # csrc/spmm.cu kDest, kSrc
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     f = getattr(build.library("spmm"), name)
-    f.argtypes = _SIG if name == "spmm_csr_f32" else _FLAGGED_SIG
+    f.argtypes = _FLAGGED_SIG if "flagged" in name else _SIG
     f.restype = ctypes.c_int
     return f
 
@@ -100,34 +105,40 @@ def _graph_args(graph):
             graph.heavy_slots.data_ptr(), graph.heavy_rows.numel())
 
 
-def spmm_csr(graph, h: torch.Tensor, n_out=None) -> torch.Tensor:
+def spmm_csr(graph, h: torch.Tensor, n_out=None, bf16: bool = False
+             ) -> torch.Tensor:
     """``adj @ h`` by the CUDA kernel.  h: [n_rows >= graph.n, d] f32 CUDA,
     contiguous, 16-byte aligned, d % 4 == 0.  The output has ``n_out`` rows
     (h's row count by default; a rectangular graph's rows, ``rect_graph``);
-    rows past ``graph.n`` come out zero."""
+    rows past ``graph.n`` come out zero.  ``bf16``: the bf16 gather."""
     n_rows, d = _check(graph, h, "spmm_csr", n_out)
     n_out = n_rows if n_out is None else n_out
     out, part = _outputs(graph, h, n_out)
-    err = _fn("spmm_csr_f32")(
+    err = _fn("spmm_csr_bf16" if bf16 else "spmm_csr_f32")(
         *_graph_args(graph), h.data_ptr(), out.data_ptr(), part.data_ptr(),
         graph.n, n_out, d, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr launch failed: CUDA error {err}")
-    spmm_csr.launches += 1
+    if bf16:
+        spmm_csr.launches_bf16 += 1
+    else:
+        spmm_csr.launches += 1
     return out
 
 
 spmm_csr.launches = 0
+spmm_csr.launches_bf16 = 0
 
 
 def spmm_csr_flagged(graph, h: torch.Tensor, flag: torch.Tensor,
-                     flag_on: str) -> torch.Tensor:
+                     flag_on: str, bf16: bool = False) -> torch.Tensor:
     """The batch-sparse hop by the CUDA kernel (K6).  h as for
     :func:`spmm_csr`; flag: uint8 [n_rows] 0/1, one entry per table row.
 
     flag_on="dest": rows of ``adj @ h`` where the flag is set, zeros
     elsewhere.  flag_on="src": ``adj @ h`` over the edges whose gathered row
-    is flagged, which is ``adj @ h`` itself where h is zero off the flags."""
+    is flagged, which is ``adj @ h`` itself where h is zero off the flags.
+    ``bf16``: the bf16 gather."""
     n_rows, d = _check(graph, h, "spmm_csr_flagged")
     if flag_on not in _MODES:
         raise ValueError(f"flag_on must be 'dest' or 'src', got {flag_on!r}")
@@ -136,18 +147,22 @@ def spmm_csr_flagged(graph, h: torch.Tensor, flag: torch.Tensor,
         raise ValueError(f"flag must be contiguous uint8 [{n_rows}] on h's "
                          f"device, got {flag.dtype} {tuple(flag.shape)}")
     out, part = _outputs(graph, h, n_rows)
-    err = _fn("spmm_csr_flagged_f32")(
+    err = _fn("spmm_csr_flagged_bf16" if bf16 else "spmm_csr_flagged_f32")(
         *_graph_args(graph), flag.data_ptr(), h.data_ptr(), out.data_ptr(),
         part.data_ptr(), graph.n, n_rows, d, _MODES[flag_on],
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr_flagged launch failed: CUDA error "
                            f"{err}")
-    spmm_csr_flagged.launches += 1
+    if bf16:
+        spmm_csr_flagged.launches_bf16 += 1
+    else:
+        spmm_csr_flagged.launches += 1
     return out
 
 
 spmm_csr_flagged.launches = 0
+spmm_csr_flagged.launches_bf16 = 0
 
 
 class _Hop(torch.autograd.Function):
@@ -156,14 +171,16 @@ class _Hop(torch.autograd.Function):
     ``graph.n`` have no edge in Aᵀ either, so their gradient is zero."""
 
     @staticmethod
-    def forward(ctx, h, graph, n_out):
+    def forward(ctx, h, graph, n_out, bf16):
         ctx.graph = graph
         ctx.n_in = h.shape[0]
-        return spmm_csr(graph, h, n_out)
+        ctx.bf16 = bf16
+        return spmm_csr(graph, h, n_out, bf16=bf16)
 
     @staticmethod
     def backward(ctx, g):
-        return spmm_csr(ctx.graph.t, g.contiguous(), ctx.n_in), None, None
+        return (spmm_csr(ctx.graph.t, g.contiguous(), ctx.n_in,
+                         bf16=ctx.bf16), None, None, None)
 
 
 class _FlaggedHop(torch.autograd.Function):
@@ -174,16 +191,18 @@ class _FlaggedHop(torch.autograd.Function):
     zeros: the gradient is the dense one.  The flag gets no gradient."""
 
     @staticmethod
-    def forward(ctx, h, flag, graph):
+    def forward(ctx, h, flag, graph, bf16):
         ctx.graph = graph
+        ctx.bf16 = bf16
         ctx.save_for_backward(flag)
-        return spmm_csr_flagged(graph, h, flag, "dest")
+        return spmm_csr_flagged(graph, h, flag, "dest", bf16=bf16)
 
     @staticmethod
     def backward(ctx, g):
         (flag,) = ctx.saved_tensors
-        return (spmm_csr_flagged(ctx.graph.t, g.contiguous(), flag, "src"),
-                None, None)
+        return (spmm_csr_flagged(ctx.graph.t, g.contiguous(), flag, "src",
+                                 bf16=ctx.bf16),
+                None, None, None)
 
 
 def _check_transpose(graph) -> None:
@@ -192,19 +211,23 @@ def _check_transpose(graph) -> None:
                          "packs it)")
 
 
-def hop(graph, h: torch.Tensor, n_out=None) -> torch.Tensor:
+def hop(graph, h: torch.Tensor, n_out=None, bf16: bool = False
+        ) -> torch.Tensor:
     """One differentiable hop ``A @ h`` on a CUDA tensor, into ``n_out``
-    rows (h's row count by default)."""
+    rows (h's row count by default); ``bf16``: the bf16 gather, forward and
+    backward."""
     if not (torch.is_grad_enabled() and h.requires_grad):
-        return spmm_csr(graph, h, n_out)
+        return spmm_csr(graph, h, n_out, bf16=bf16)
     _check_transpose(graph)
-    return _Hop.apply(h, graph, n_out)
+    return _Hop.apply(h, graph, n_out, bf16)
 
 
-def flagged_hop(graph, h: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
+def flagged_hop(graph, h: torch.Tensor, flag: torch.Tensor,
+                bf16: bool = False) -> torch.Tensor:
     """One differentiable batch-sparse hop on a CUDA tensor: ``A @ h`` on
-    the flagged rows, zeros elsewhere (see :func:`spmm_csr_flagged`)."""
+    the flagged rows, zeros elsewhere (see :func:`spmm_csr_flagged`);
+    ``bf16``: the bf16 gather, forward and backward."""
     if not (torch.is_grad_enabled() and h.requires_grad):
-        return spmm_csr_flagged(graph, h, flag, "dest")
+        return spmm_csr_flagged(graph, h, flag, "dest", bf16=bf16)
     _check_transpose(graph)
-    return _FlaggedHop.apply(h, flag, graph)
+    return _FlaggedHop.apply(h, flag, graph, bf16)

@@ -38,11 +38,14 @@ NEG = -1e9
 def sharded_rec_ce_rows_kernel(h: torch.Tensor, w: torch.Tensor,
                                b: torch.Tensor, pad_logit: torch.Tensor,
                                targets: torch.Tensor, n_real: int,
-                               group: comm.Group) -> torch.Tensor:
+                               group: comm.Group, bf16: bool = False
+                               ) -> torch.Tensor:
     """Per-position masked CE terms [B, R] by the fused CE on this rank's
     vocab slice.  h [B, R, d] and pad_logit [B, R, 1] replicated; w [d,
-    V/M] and b [V/M] this rank's columns; targets [B, R] global ids, n_real
-    ignored.
+    V/M] and b [V/M] this rank's columns, w f32 or bf16 (the classifier's
+    streaming dtype: the shard read at two bytes an element); targets [B,
+    R] global ids, n_real ignored; ``bf16``: bf16 products
+    (``ops/fused_ce``), as a bf16 w always takes.
 
     K4/K5 read a target >= V as "no target here" (``fused_ce.ce_fwd_plain``)
     where JAX's local target ``tgt - r * vs`` is negative on later shards,
@@ -62,7 +65,7 @@ def sharded_rec_ce_rows_kernel(h: torch.Tensor, w: torch.Tensor,
     t_ok = (t_local >= 0) & (t_local < vs)
     t_local = torch.where(t_ok, t_local, torch.full_like(t_local, vs))
     lse_s, tlog_s = fused_ce.fused_ce(
-        comm.pvary(h.reshape(n, d), group), w, bm, pad, t_local)
+        comm.pvary(h.reshape(n, d), group), w, bm, pad, t_local, bf16)
     m = comm.pmax(lse_s, group)
     lse = m + torch.log(comm.psum(torch.exp(lse_s - m), group))
     tlog = comm.psum(torch.where(t_ok, tlog_s, torch.zeros_like(tlog_s)),

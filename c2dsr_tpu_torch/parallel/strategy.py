@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from c2dsr_tpu_torch.config import Config
+from c2dsr_tpu_torch.ops import bf16
 from c2dsr_tpu_torch.ops import dropout as drop
 from c2dsr_tpu_torch.ops import fused_ce
 from c2dsr_tpu_torch.ops import lookup as lookup_mod
@@ -74,18 +75,40 @@ class LocalOps:
     def spmm_propagate(self, graph: spmm_mod.CsrDevice, h: torch.Tensor,
                        n_layers: int, dropout: float = 0.0,
                        generator=None, out_flag=None) -> torch.Tensor:
-        return spmm_mod.gcn_propagate(graph, h, n_layers, dropout, generator,
-                                      out_flag)
+        """The propagation, its gathers in bf16 under
+        ``compute_dtype="bfloat16"`` (``c2dsr_tpu/parallel/strategy.py:
+        40-48``)."""
+        return spmm_mod.gcn_propagate(
+            graph, h, n_layers, dropout, generator, out_flag,
+            torch.bfloat16 if self.cfg.bf16_products() else torch.float32)
+
+    def _cls(self, w: torch.Tensor) -> torch.Tensor:
+        """The classifier in its streaming dtype (``cfg.classifier_dtype``,
+        ``c2dsr_tpu/parallel/strategy.py:50-56``): a bf16 cast at each use,
+        the master weight staying f32; the cast's backward hands the
+        optimizer an f32 gradient."""
+        if self.cfg.resolved_classifier_dtype() == "bfloat16":
+            return w.to(torch.bfloat16)
+        return w
 
     def ce_rows(self, h, w, b, pad_logit, targets, n_real: int
                 ) -> torch.Tensor:
         """Masked per-position CE terms: the fused CE kernels on a CUDA
-        tensor, the plain version on a CPU one (ops/fused_ce.py)."""
-        return fused_ce.fused_rec_ce_rows(h, w, b, pad_logit, targets, n_real)
+        tensor, the plain version on a CPU one (ops/fused_ce.py), with bf16
+        products under ``compute_dtype="bfloat16"`` or a bf16 classifier."""
+        return fused_ce.fused_rec_ce_rows(h, self._cls(w), b, pad_logit,
+                                          targets, n_real,
+                                          bf16=self.cfg.bf16_products())
 
     def _scores(self, h, w, b) -> torch.Tensor:
-        # a plain [B, d] x [d, V] product, left to cuBLAS as JAX left it to XLA
+        # a plain [B, d] x [d, V] product, left to cuBLAS as JAX left it to
+        # XLA; a bf16 classifier multiplies bf16-rounded operands into f32
+        # scores (preferred_element_type=f32 there), exact products summed
+        # in f32, so no score is rounded to bf16
         dtype = getattr(torch, self.cfg.resolved_classifier_dtype())
+        if dtype == torch.bfloat16:
+            return torch.matmul(bf16.round_bf16(h.float()),
+                                self._cls(w).float()) + b
         return torch.matmul(h.to(dtype), w.to(dtype)).float() + b
 
     def full_rank(self, h, w, b, gt, n_real: int) -> torch.Tensor:
@@ -155,9 +178,11 @@ class ShardedOps(LocalOps):
 
     def ce_rows(self, h, w, b, pad_logit, targets, n_real):
         """K4/K5 on this rank's vocab slice (the plain versions on the CPU),
-        as the JAX package runs its Pallas CE inside the shard_map."""
+        as the JAX package runs its Pallas CE inside the shard_map, on the
+        classifier in its streaming dtype (``_cls``, strategy.py:134)."""
         return sharded_loss.sharded_rec_ce_rows_kernel(
-            h, w, b, pad_logit, targets, n_real, self.model_group)
+            h, self._cls(w), b, pad_logit, targets, n_real, self.model_group,
+            bf16=self.cfg.bf16_products())
 
     def full_rank(self, h, w, b, gt, n_real):
         return sharded_eval.sharded_full_rank(h, w, b, gt, n_real,

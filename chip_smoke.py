@@ -50,7 +50,17 @@ Phases (any failure exits non-zero without the final line):
    only padded (ODD_WIDTHS: ``d_latent`` 36 with one head, 10 with two):
    one step each at dropout 0 against the same step on the CPU (loss 1e-5,
    gradients GRAD_TOL), its launches, and a serving run against the plain
-   versions' ranks.
+   versions' ranks.  Then the bf16 path (``phase_bf16``: compute_dtype and
+   classifier_dtype bfloat16): every kernel's bf16 instantiation against
+   its plain bf16 version at FK shapes (K1/K6 and K4 SPMM_BF16_TOL /
+   CE_BF16_TOL, K5 CE_BWD_BF16_TOL, K2/K3 K2_BF16_TOL / K3_BF16_TOL by
+   relative Frobenius), the f32 instantiation in its place failing each
+   limit, K3-K5 bitwise across launches; one bf16 FK step at dropout 0
+   against the CPU's (loss 1e-5, gradients STEP_BF16_GRAD_TOL; the f32
+   step fails them) with only the bf16 instantiations launched; the bf16
+   main path (a step, a batch-sparse step and a serving run whose ranks
+   equal the plain versions' but at near-ties) with its launches; and the
+   bf16 step timed against the f32 step in turns.
 5. experiment path: ``train.loop.Experiment`` at Food-Kitchen geometry
    with ``Config(batch_sparse_gnn=True, n_epoch=2)``, checkpointing to a
    temporary directory: finite losses and metrics, the batch-sparse SpMM
@@ -157,6 +167,24 @@ LOOKUPS = 6              # K7 launches a train step: the propagated plus the
                          # raw table (one K7, ops/lookup.lookup_add) and the
                          # positions, for each of the three tower inputs
                          # (model/c2dsr.forward_joint)
+# phase bf16: each kernel's bf16 instantiation against its plain bf16
+# version on the card.  Both round the same operands to bf16 and sum in f32
+# in different orders; an f32 value that the two sums put on either side of
+# a bf16 rounding boundary goes to neighbouring bf16 values (2^-8 apart),
+# and in the tower its row carries that through the layers after it.  Each
+# limit lies between the bf16 instantiation's reading and the f32
+# instantiation's run in its place, which must fail it (readings against
+# the JAX package on the CPU in tests/test_torch_bf16.py; the card's in the
+# log and PERF.md).
+SPMM_BF16_TOL = 1e-5     # K1/K6: max abs err over max |plain|
+K2_BF16_TOL = 5e-4       # K2: relative Frobenius on rows with a key
+K3_BF16_TOL = 1e-2       # K3: relative Frobenius, the worst tensor
+CE_BF16_TOL = 1e-5       # K4: lse and target logit, max abs over max
+CE_BWD_BF16_TOL = 5e-5   # K5: dh, dW, db, max abs over max
+STEP_BF16_GRAD_TOL = 1e-2  # the bf16 step's gradients against the CPU's,
+                           # relative Frobenius per tensor (the worst read
+                           # 2.2e-3 on an H100, max abs over max 4.3e-3;
+                           # the f32 step's max 0.57)
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -227,11 +255,19 @@ def kernel_wrappers():
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
     kernel_wrappers()["ce_fwd_variant"].by_variant.clear()
 
 
 def read_launches():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def read_launches_bf16():
+    """The bf16 instantiations' launches, by wrapper."""
+    return {name: fn.launches_bf16 for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "launches_bf16")}
 
 
 def phase_spmm(graphs, timer, peak_flops, peak_bw, transpose=False):
@@ -411,7 +447,8 @@ KERNEL_FAMILIES = (
     ("K3 encoder_bwd", ("tc_gemm_kernel", "attn_bwd_kernel",
                         "ln_bwd_kernel", "wgrad_kernel",
                         "sum_partials_kernel")),
-    ("K4/K5 pre-pass", ("transpose_split_kernel",)),
+    ("K4/K5 pre-pass", ("transpose_split_kernel", "transpose_bf16_kernel",
+                        "round_bf16_kernel")),
     ("K4 ce_fwd", ("ce_fwd_kernel", "ce_fwd_merge_kernel")),
     ("K5 ce_bwd", ("ce_bwd_kernel", "ce_merge_kernel", "split_kernel")),
     ("K7 segsum", ("segsum_",)),
@@ -507,7 +544,8 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path",
 
     reset_launches()
     hi, ranks, t_conv, secs = run_all()
-    launches = read_launches()
+    launches = (read_launches_bf16() if cfg.bf16_products()
+                else read_launches())
     log(f"{label}: d_latent {cfg.d_latent}, {n_ex} eval examples, {steps} "
         f"rank steps per mode, launches {launches}")
     check(launches["spmm_csr"] == 2 * cfg.n_gnn,
@@ -871,6 +909,16 @@ def _k4_trained_errs(V, n_real):
     return err(got), err(plain)
 
 
+def _ce_bwd_pass(name):
+    """"dh" or "dw": the pass of a profiled ``ce_bwd_kernel<DT, kRowsX,
+    kBf>`` (ce.cu; the dh kernel where kRowsX), or None for another
+    kernel."""
+    if not name.startswith("ce_bwd_kernel<"):
+        return None
+    args = name[name.index("<") + 1:name.rindex(">")].split(",")
+    return "dh" if args[1].strip() == "true" else "dw"
+
+
 def _check_ce_bwd(tag, got, want, again, n_real):
     """K5 against its plain version (CE_BWD_TOL) and against a second
     launch (bitwise); returns {dh, dw, db: relative error}."""
@@ -1002,9 +1050,9 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
         # K5's parts, device ms a call: dh kernel, dW/db kernel, the
         # pre-pass (Wᵀ and the TF32 splits of Wᵀ and h), the split merges
         parts = {"dh": sum(v for k, v in sub.items()
-                           if "ce_bwd_kernel" in k and "true>" in k),
+                           if _ce_bwd_pass(k) == "dh"),
                  "dw": sum(v for k, v in sub.items()
-                           if "ce_bwd_kernel" in k and "false>" in k),
+                           if _ce_bwd_pass(k) == "dw"),
                  "prepass": sub.get("transpose_split_kernel", 0.0)
                  + sub.get("split_kernel", 0.0),
                  "merge": sub.get("ce_merge_kernel", 0.0)}
@@ -1450,6 +1498,481 @@ def phase_odd_widths(spec, train, graphs, graphs_host, eval_data):
         for k, v in serving.items():
             launches[k] += v
     return launches
+
+
+def _bf16_fro(got, want, rows=None):
+    """||got - want|| / ||want|| over ``rows`` (a [B, L] mask) or all."""
+    d = got.double() - want.double()
+    w = want.double()
+    if rows is not None:
+        d, w = d[rows], w[rows]
+    return float(d.norm()) / max(float(w.norm()), 1e-300)
+
+
+def _bf16_entry(ms, plain_ms, library_ms, flops, nbytes, peak_bw, err,
+                err_f32, **extra):
+    """A bf16 instantiation's numbers: its bounds at the bf16 tensor-core
+    peak and at one TF32 pass a product (bench/timing), and the bytes'."""
+    gpu = torch.cuda.get_device_name(0)
+    bound, bound_tf32 = timing.bf16_bounds_ms(flops, nbytes, gpu, peak_bw)
+    bound_bytes = nbytes / peak_bw * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_tf32_one_pass_ms": bound_tf32,
+            "bound_bytes_ms": bound_bytes,
+            "bound_by": "operations" if bound > bound_bytes else "bytes",
+            "max_rel_err": err, "f32_instantiation_err": err_f32, **extra}
+
+
+def _bf16_spmm(graphs, train, timer, peak_bw):
+    """K1 (over A and Aᵀ) and K6 (dest over A, src over Aᵀ with one FK
+    batch's flags) in their bf16 instantiations against the plain bf16 hop,
+    each over the share (d 128) and A|B (d 256) tables, and the f32
+    instantiation against the same plain bf16 hop, which must fail
+    SPMM_BF16_TOL; K1 also bitwise across launches.  Summed over the hops."""
+    from c2dsr_tpu_torch.ops import spmm, spmm_cuda
+    _, (f_share, f_ab) = _flagged_batch(train, 512)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    n_rows = 65536
+    out = {}
+    for kind in ("dense", "flagged"):
+        acc = {"ms": 0.0, "plain_ms": 0.0, "nbytes": 0, "flops": 0,
+               "err": 0.0, "err_f32": float("inf"), "max_abs_err": 0.0}
+        for name, g, d, flag in (("share", graphs.share, 128, f_share),
+                                 ("specific_ab", graphs.specific, 256, f_ab)):
+            for mode, graph in (("dest", g), ("src", g.t)):
+                x = torch.randn((n_rows, d), generator=gen, device="cuda")
+                x[g.n:] = 0.0
+                if kind == "flagged":
+                    if mode == "src":
+                        x = x * flag[:, None]
+
+                    def run(bf16=True):
+                        return spmm_cuda.spmm_csr_flagged(graph, x, flag,
+                                                          mode, bf16)
+
+                    def plain():
+                        return spmm.spmm_reference_flagged(graph, x, flag,
+                                                           mode, True)
+                else:
+                    def run(bf16=True):
+                        return spmm_cuda.spmm_csr(graph, x, bf16=bf16)
+
+                    def plain():
+                        return spmm.spmm_reference(graph, x, bf16=True)
+                got, ref, f32 = run(), plain(), run(False)
+                again = run()
+                torch.cuda.synchronize()
+                err, err32 = _rel(got, ref), _rel(f32, ref)
+                tag = f"bf16 spmm {kind} {name} {mode}"
+                check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+                check(err <= SPMM_BF16_TOL, f"{tag}: rel err {err} > "
+                      f"{SPMM_BF16_TOL}")
+                check(err32 > SPMM_BF16_TOL, f"{tag}: the f32 instantiation "
+                      f"passes the bf16 gate ({err32})")
+                check(torch.equal(got, again), f"{tag}: two launches differ")
+                ms = timer(run)
+                plain_ms = timer(plain)
+                keep = (flag[(graph.rows if mode == "dest"
+                              else graph.cols).long()].bool()
+                        if kind == "flagged" else
+                        torch.ones_like(graph.cols, dtype=torch.bool))
+                nnz = int(keep.sum())
+                used = int(torch.unique(graph.cols[keep]).numel())
+                acc["nbytes"] += (used * d * 4 + n_rows * d * 4 + nnz * 8
+                                  + (g.n + 1) * 4)
+                acc["flops"] += 2 * nnz * d
+                log(f"{tag}: d={d} kept edges {nnz} rel err {err:.3e} (f32 "
+                    f"instantiation {err32:.3e}), two launches bitwise "
+                    f"equal; kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                acc["ms"] += ms
+                acc["plain_ms"] += plain_ms
+                acc["err"] = max(acc["err"], err)
+                acc["err_f32"] = min(acc["err_f32"], err32)
+                acc["max_abs_err"] = max(acc["max_abs_err"],
+                                         float((got - ref).abs().max()))
+        out[kind] = _bf16_entry(acc["ms"], acc["plain_ms"], None,
+                                acc["flops"], acc["nbytes"], peak_bw,
+                                acc["err"], acc["err_f32"],
+                                max_abs_err=acc["max_abs_err"])
+    return out
+
+
+def _bf16_towers(timer, peak_bw):
+    """K2 in eval (B 2048) and K2/K3 at a train step's three towers
+    (dropout 0.2, K3 from the activations K2 saves) in their bf16
+    instantiations against the plain bf16 tower (K3 at K2's branches),
+    with the f32 instantiations in their place, which must fail; K2/K3
+    bitwise across launches.  d 128, L 15, one head, one layer."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    d, L, pad = 128, LEN_MAX, 64093
+    cfg = Config()
+    w_bytes = 4 * (6 * d * d + 10 * d + 2 * d)
+    fwd = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "nbytes": 0, "err": 0.0,
+           "err_f32": float("inf"), "max_abs_err": 0.0}
+    bwd = dict(fwd)
+    eval_res = None
+    for tower_id, n_seq, dropout in ((0, 2048, 0.0), (0, 1536, 0.2),
+                                     (1, 512, 0.2), (2, 512, 0.2)):
+        train = dropout > 0
+        p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
+            torch.Generator().manual_seed(30 + tower_id), cfg, L))
+        x, seq = _encoder_inputs(n_seq, L, d, pad, seed=40 + tower_id)
+        live = seq != pad
+        live = live.long().cumsum(1) > 0         # rows with an allowed key
+        kw = dict(idx_pad=pad, n_head=1, invert_padding_mask=False,
+                  dropout=dropout, seed=99, tower=tower_id)
+        acts = encoder_cuda.saved_buffer(x, 1, 1) if train else None
+        acts32 = encoder_cuda.saved_buffer(x, 1, 1) if train else None
+        with torch.no_grad():
+            out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, bf16=True,
+                                           **kw)
+            out2 = encoder_cuda.encoder_fwd(x, seq, p, bf16=True, **kw)
+            ref = enc.encoder_fwd_plain(x, seq, p, bf16=True, **kw)
+            out32 = encoder_cuda.encoder_fwd(x, seq, p, saved=acts32, **kw)
+        err, err32 = _bf16_fro(out, ref, live), _bf16_fro(out32, ref, live)
+        tag = f"bf16 encoder tower {tower_id} B={n_seq} p={dropout}"
+        check(bool(torch.isfinite(out).all()), f"{tag}: non-finite")
+        check(torch.equal(out, out2), f"{tag}: two forward launches differ")
+        check(err <= K2_BF16_TOL, f"{tag}: fwd relative Frobenius {err} > "
+              f"{K2_BF16_TOL}")
+        check(err32 > K2_BF16_TOL, f"{tag}: the f32 instantiation passes "
+              f"the bf16 gate ({err32})")
+        with torch.no_grad():
+            f_ms = timer(lambda: encoder_cuda.encoder_fwd(
+                x, seq, p, saved=acts, bf16=True, **kw))
+            f_plain = timer(lambda: enc.encoder_fwd_plain(x, seq, p,
+                                                          bf16=True, **kw))
+        N = n_seq * L
+        f_flops = 12 * N * d * d + 4 * N * L * d
+        f_bytes = (8 * N * d + 4 * N + w_bytes
+                   + (4 * acts.numel() if train else 0))
+        abs_f = float((out - ref)[live].abs().max())
+        log(f"{tag}: fwd relative Frobenius {err:.3e} (f32 instantiation "
+            f"{err32:.3e}), max abs {abs_f:.3e} (rows with a key); kernel "
+            f"{f_ms:.4f} ms plain {f_plain:.4f} ms")
+        if not train:
+            eval_res = _bf16_entry(f_ms, f_plain, None, f_flops, f_bytes,
+                                   peak_bw, err, err32, max_abs_err=abs_f)
+            continue
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], abs_f)
+        fwd["ms"] += f_ms
+        fwd["plain_ms"] += f_plain
+        fwd["flops"] += f_flops
+        fwd["nbytes"] += f_bytes
+        fwd["err"] = max(fwd["err"], err)
+        fwd["err_f32"] = min(fwd["err_f32"], err32)
+        gout = torch.randn(x.shape, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(5))
+        got = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, bf16=True,
+                                       **kw)
+        again = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts,
+                                         bf16=True, **kw)
+        got32 = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts32, **kw)
+        ref = enc.encoder_bwd_plain(
+            x, seq, gout, p, bf16=True, branches=gates.k2_branches(
+                acts, x.shape, 1, 1, tower_id), **kw)
+        torch.cuda.synchronize()
+        flat = [got[0]] + list(got[1])
+        flat32 = [got32[0]] + list(got32[1])
+        flat_ref = [ref[0]] + list(ref[1])
+        errs = [_bf16_fro(a, r) for a, r in zip(flat, flat_ref)]
+        errs32 = [_bf16_fro(a, r) for a, r in zip(flat32, flat_ref)]
+        check(all(torch.equal(a, b) for a, b in
+                  zip(flat, [again[0]] + list(again[1]))),
+              f"{tag}: two backward launches differ")
+        check(max(errs) <= K3_BF16_TOL, f"{tag}: bwd relative Frobenius "
+              f"{max(errs)} > {K3_BF16_TOL}")
+        check(max(errs32) > K3_BF16_TOL, f"{tag}: the f32 instantiation's "
+              f"backward passes the bf16 gate ({max(errs32)})")
+        b_ms = timer(lambda: encoder_cuda.encoder_bwd(
+            x, seq, gout, p, saved=acts, bf16=True, **kw))
+        b_plain = timer(lambda: enc.encoder_bwd_plain(x, seq, gout, p,
+                                                      bf16=True, **kw))
+        log(f"{tag}: bwd worst relative Frobenius {max(errs):.3e} (f32 "
+            f"instantiation {max(errs32):.3e}), two launches bitwise equal; "
+            f"kernel {b_ms:.4f} ms plain {b_plain:.4f} ms")
+        bwd["ms"] += b_ms
+        bwd["plain_ms"] += b_plain
+        bwd["flops"] += 24 * N * d * d + 8 * N * L * d
+        bwd["nbytes"] += 12 * N * d + 4 * N + 2 * w_bytes
+        bwd["err"] = max(bwd["err"], max(errs))
+        bwd["err_f32"] = min(bwd["err_f32"], max(errs32))
+        bwd["max_abs_err"] = max([bwd["max_abs_err"]] + [
+            float((a - r).abs().max()) for a, r in zip(flat, flat_ref)])
+    res = {"eval": eval_res}
+    for key, acc in (("train", fwd), ("bwd", bwd)):
+        res[key] = _bf16_entry(acc["ms"], acc["plain_ms"], None,
+                               acc["flops"], acc["nbytes"], peak_bw,
+                               acc["err"], acc["err_f32"],
+                               max_abs_err=acc["max_abs_err"])
+    return res
+
+
+def _bf16_ce(timer, peak_bw):
+    """K4 and K5 in their bf16 instantiations at a train step's shapes
+    (both domains, N 10,240, d 128) on a bf16 W (the bf16 classifier):
+    against the plain bf16 CE, with the f32 instantiations on the f32 W in
+    their place, which must fail; bitwise across launches; the bf16 W and
+    an f32 W rounded in the pre-pass give the same bits (dW: the f32 one
+    rounded).  Summed over the domains."""
+    from c2dsr_tpu_torch.bench.kernel_bench import mm_bf16_f32
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    N, d = 512 * 2 * 10, 128
+    fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
+           "nbytes": 0, "err": 0.0, "err_f32": float("inf"),
+           "max_abs_err": 0.0}
+    bwd = dict(fwd, library_ms=None)
+    for dom, V, n_real in (("A", 30720, N_ITEM_A), ("B", 36864, N_ITEM_B)):
+        h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real,
+                                                          V + 2)
+        wb = w.to(torch.bfloat16)
+        with torch.no_grad():
+            lse, tlog = fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt)
+            again = fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt)
+            via_f32 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt, bf16=True)
+            rlse, rtlog = fused_ce.ce_fwd_plain(h, wb, bm, pad_l, tgt)
+            lse32, tlog32 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+            got = fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse, dt, tgt)
+            got2 = fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse, dt, tgt)
+            got_f = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt,
+                                         bf16=True)
+            want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt,
+                                         bf16=True)
+            got32 = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+        torch.cuda.synchronize()
+        tag = f"bf16 ce {dom} N={N} d={d} V={V}"
+        e_f = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
+        e_f32 = max(_rel(lse32, rlse), _rel(tlog32[real], rtlog[real]))
+        check(e_f <= CE_BF16_TOL, f"{tag}: fwd rel err {e_f} > "
+              f"{CE_BF16_TOL}")
+        check(e_f32 > CE_BF16_TOL, f"{tag}: the f32 instantiation passes "
+              f"the bf16 gate ({e_f32})")
+        check(torch.equal(lse, again[0]) and torch.equal(tlog, again[1])
+              and torch.equal(lse, via_f32[0])
+              and torch.equal(tlog, via_f32[1]),
+              f"{tag}: forward launches (bf16 W twice, f32 W rounded) differ")
+        check(got[1].dtype == torch.bfloat16, f"{tag}: dW not in W's dtype")
+        check(all(torch.equal(a, b) for a, b in zip(got, got2))
+              and torch.equal(got[0], got_f[0])
+              and torch.equal(got[1], got_f[1].to(torch.bfloat16))
+              and torch.equal(got[2], got_f[2]),
+              f"{tag}: backward launches (bf16 W twice, f32 W) differ")
+        rels = {n: _rel(a, r) for n, a, r in zip(("dh", "dw", "db"), got_f,
+                                                 want)}
+        rels32 = {n: _rel(a, r) for n, a, r in zip(("dh", "dw", "db"), got32,
+                                                   want)}
+        check(max(rels.values()) <= CE_BWD_BF16_TOL, f"{tag}: bwd rel err "
+              f"{rels} > {CE_BWD_BF16_TOL}")
+        check(max(rels32.values()) > CE_BWD_BF16_TOL, f"{tag}: the f32 "
+              f"instantiation's backward passes the bf16 gate ({rels32})")
+        with torch.no_grad():
+            f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt))
+            f_plain = timer(lambda: fused_ce.ce_fwd_plain(h, wb, bm, pad_l,
+                                                          tgt))
+            hb = h.to(torch.bfloat16)
+            lib = None
+            if mm_bf16_f32(hb, wb) is not None:
+                lib = timer(lambda: torch.logsumexp(torch.cat(
+                    [mm_bf16_f32(hb, wb) + bm, pad_l[:, None]], 1), 1))
+            b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse,
+                                                      dt, tgt))
+            b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, wb, bm, lse,
+                                                          dlse, dt, tgt))
+        log(f"{tag}: fwd rel err {e_f:.3e} (f32 instantiation {e_f32:.3e}); "
+            "bwd rel err " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+            + " (f32 instantiation " + ", ".join(
+                f"{k} {v:.3e}" for k, v in rels32.items()) + "); launches "
+            f"bitwise equal; fwd kernel {f_ms:.4f} ms plain {f_plain:.4f} "
+            f"library {lib if lib is None else round(lib, 4)} (mm with bf16 "
+            f"operands into f32, logsumexp); bwd kernel {b_ms:.4f} ms plain "
+            f"{b_plain:.4f}")
+        io = 4 * (N * d + V + 3 * N) + 2 * d * V
+        fwd["ms"] += f_ms
+        fwd["plain_ms"] += f_plain
+        fwd["library_ms"] = (None if lib is None or fwd["library_ms"] is None
+                             else fwd["library_ms"] + lib)
+        fwd["flops"] += 2 * N * V * d
+        fwd["nbytes"] += io + 8 * N
+        fwd["err"] = max(fwd["err"], e_f)
+        fwd["err_f32"] = min(fwd["err_f32"], e_f32)
+        fwd["max_abs_err"] = max(fwd["max_abs_err"],
+                                 float((lse - rlse).abs().max()))
+        bwd["ms"] += b_ms
+        bwd["plain_ms"] += b_plain
+        bwd["flops"] += 4 * N * V * d
+        bwd["nbytes"] += 2 * io + 4 * N * d
+        bwd["err"] = max(bwd["err"], max(rels.values()))
+        bwd["err_f32"] = min(bwd["err_f32"], max(rels32.values()))
+        bwd["max_abs_err"] = max([bwd["max_abs_err"]] + [
+            float((a - r).abs().max()) for a, r in zip(got_f, want)])
+    return {key: _bf16_entry(acc["ms"], acc["plain_ms"], acc["library_ms"],
+                             acc["flops"], acc["nbytes"], peak_bw, acc["err"],
+                             acc["err_f32"], max_abs_err=acc["max_abs_err"])
+            for key, acc in (("fwd", fwd), ("bwd", bwd))}
+
+
+def _bf16_step(spec, train, graphs, graphs_host):
+    """One FK train step at dropout 0 with both dtypes bf16 on the card,
+    against the same step on the CPU (the plain bf16 versions): loss within
+    1e-5 relative, every gradient within STEP_BF16_GRAD_TOL (relative
+    Frobenius); the f32 step on the card must fail that gate.  The bf16
+    instantiations launch, the f32 ones never (no fallback)."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import c2dsr
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import spmm
+    from c2dsr_tpu_torch.train import step as step_mod
+    cfg = Config(compute_dtype="bfloat16", classifier_dtype="bfloat16",
+                 dropout_gnn=0.0, dropout_attn=0.0)
+    cpu_graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cpu"),
+                              spmm.device_graph(graphs_host[1], "cpu"))
+    batch = {k: v[:512] for k, v in train.items()}
+    params = params_mod.init_params(cfg, spec,
+                                    torch.Generator().manual_seed(6), "cuda")
+    leaves = step_mod.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    bcuda = ranker.to_device(batch, "cuda")
+    reset_launches()
+    loss_k, g_k = _loss_grads(params, leaves, graphs, bcuda, cfg, spec,
+                              contextlib.nullcontext())
+    got, got32 = read_launches_bf16(), read_launches()
+    loss_32, g_32 = _loss_grads(params, leaves, graphs, bcuda,
+                                cfg.with_(compute_dtype="float32",
+                                          classifier_dtype="float32"),
+                                spec, contextlib.nullcontext())
+    cpu = params_mod.params_from_numpy(params_mod.params_to_numpy(params),
+                                       "cpu")
+    cpu_leaves = step_mod.param_leaves(cpu)
+    for t in cpu_leaves:
+        t.requires_grad_(True)
+    t0 = time.perf_counter()
+    loss_c, g_c = _loss_grads(cpu, cpu_leaves, cpu_graphs,
+                              ranker.to_device(batch, "cpu"), cfg, spec,
+                              contextlib.nullcontext())
+    t_cpu = time.perf_counter() - t0
+    names = leaf_names(params)
+
+    def rels(g):
+        return [_rel(a.cpu(), c) if float(c.abs().max()) > 0
+                else float(a.abs().max()) for a, c in zip(g, g_c)]
+
+    rel, rel32 = rels(g_k), rels(g_32)
+    wm, wm32 = int(np.argmax(rel)), int(np.argmax(rel32))
+    fro, wf = _fro(g_k, g_c)
+    fro32, wf32 = _fro(g_32, g_c)
+    log(f"bf16 step (CPU step {t_cpu:.1f} s): loss {loss_k:.7f} (card) "
+        f"{loss_c:.7f} (CPU), f32 card step {loss_32:.7f}; gradients worst "
+        f"relative Frobenius {fro:.3e} ({names[wf]}), max-abs rel err "
+        f"{rel[wm]:.3e} ({names[wm]}); f32 card step's {fro32:.3e} "
+        f"({names[wf32]}), {rel32[wm32]:.3e} ({names[wm32]}); bf16 launches "
+        f"{got}, f32 launches {got32}")
+    check(abs(loss_k - loss_c) <= 1e-5 * abs(loss_c),
+          f"bf16 step: loss {loss_k} (card) != {loss_c} (CPU)")
+    check(fro <= STEP_BF16_GRAD_TOL, f"bf16 step: gradient {names[wf]} "
+          f"relative Frobenius {fro} > {STEP_BF16_GRAD_TOL}")
+    check(abs(loss_32 - loss_c) > 1e-5 * abs(loss_c)
+          or fro32 > STEP_BF16_GRAD_TOL,
+          "bf16 step: the f32 step passes the bf16 step's gate")
+    check(all(got[k] > 0 for k in ("spmm_csr", "encoder_fwd", "encoder_bwd",
+                                   "ce_fwd", "ce_bwd"))
+          and all(got32[k] == 0 for k in ("spmm_csr", "spmm_csr_flagged",
+                                          "encoder_fwd", "encoder_bwd",
+                                          "ce_fwd", "ce_bwd")),
+          f"bf16 step: launches bf16 {got}, f32 {got32}")
+    for t in leaves:
+        t.requires_grad_(False)
+    return {"loss_rel_err": abs(loss_k - loss_c) / abs(loss_c),
+            "grad_max_rel_err": rel[wm], "grad_fro_err": fro,
+            "f32_step_loss_rel_err": abs(loss_32 - loss_c) / abs(loss_c),
+            "f32_step_grad_max_rel_err": rel32[wm32],
+            "f32_step_grad_fro_err": fro32, "cpu_step_s": t_cpu}
+
+
+def phase_bf16(spec, train, graphs, graphs_host, eval_data, timer, peak_bw):
+    """The bf16 path (``compute_dtype`` and ``classifier_dtype`` bfloat16):
+    every kernel's bf16 instantiation against its plain bf16 version at FK
+    shapes, the f32 instantiation in its place failing each limit (K3-K5
+    also bitwise across launches); one bf16 FK step at dropout 0 against
+    the CPU's; the bf16 main path (a train step, a batch-sparse one and a
+    serving run, ranks against the plain versions' but at near-ties) with
+    its launches; the bf16 step timed against the f32 step in turns.
+    Returns (kernel results, launches of the bf16 main path, rates)."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.data.pipeline import BatchIterator
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+    res = {"spmm": _bf16_spmm(graphs, train, timer, peak_bw)}
+    res["towers"] = _bf16_towers(timer, peak_bw)
+    res["ce"] = _bf16_ce(timer, peak_bw)
+    res["step"] = _bf16_step(spec, train, graphs, graphs_host)
+    torch.cuda.empty_cache()
+
+    # the bf16 main path: a train step, a batch-sparse one, a serving run
+    cfg = Config(compute_dtype="bfloat16", classifier_dtype="bfloat16")
+    it = BatchIterator(train, cfg.batch_size, shuffle=True, seed=0,
+                       drop_last=True)
+
+    def batches():
+        while True:
+            yield from it.epoch()
+
+    feed = batches()
+    fns, states = {}, {}
+    for name, c in (("f32", Config()), ("bf16", cfg)):
+        params = params_mod.init_params(c, spec,
+                                        torch.Generator().manual_seed(0),
+                                        "cuda")
+        opt = optim.make_optimizer(c, steps_per_epoch=len(it))
+        states[name] = step_mod.init_state(params, opt)
+        fns[name] = (c, opt, step_mod.make_train_step(c, spec, graphs, opt,
+                                                      "cuda"))
+    sparse = step_mod.make_train_step(cfg.with_(batch_sparse_gnn=True), spec,
+                                      graphs, fns["bf16"][1], "cuda")
+    reset_launches()
+    states["bf16"], aux = fns["bf16"][2](states["bf16"], next(feed))
+    states["bf16"], aux2 = sparse(states["bf16"], next(feed))
+    torch.cuda.synchronize()
+    launches = read_launches_bf16()
+    f32_launches = read_launches()
+    check(math.isfinite(float(aux["loss"])) and math.isfinite(
+        float(aux2["loss"])), "bf16 train step: loss not finite")
+    serving = phase_main(spec, graphs_host, eval_data, cfg,
+                         label="serving bf16")
+    for k, v in serving.items():
+        launches[k] += v
+    log(f"bf16 main path (a step, a batch-sparse step, a serving run): "
+        f"bf16 launches {launches}, f32 launches of the steps "
+        f"{f32_launches}")
+    check(all(launches[k] > 0 for k in launches)
+          and all(f32_launches[k] == 0 for k in launches),
+          f"bf16 main path launches: bf16 {launches}, f32 {f32_launches}")
+
+    # the bf16 step against the f32 step, in turns on one card
+    def runner(name):
+        def run(batch):
+            states[name], a = fns[name][2](states[name], batch)
+            return a
+        return run
+
+    rates = _warm_rates((("f32", runner("f32")), ("bf16", runner("bf16"))),
+                        feed, cfg.batch_size)
+    k, p = rates["bf16"], rates["f32"]
+    diff = k.mean() - p.mean()
+    se = math.sqrt(k.var(ddof=1) / len(k) + p.var(ddof=1) / len(p))
+    log(f"bf16 step: {k.mean():.1f} (sd {k.std(ddof=1):.1f}) train "
+        f"examples/s against the f32 step's {p.mean():.1f} (sd "
+        f"{p.std(ddof=1):.1f}), {diff / p.mean():+.2%}, standard error "
+        f"{se:.1f}: {'resolved' if abs(diff) > 3 * se else 'unresolved'}")
+    res["rates"] = {"bf16_train_examples_per_s": float(k.mean()),
+                    "f32_train_examples_per_s": float(p.mean()),
+                    "resolved": bool(abs(diff) > 3 * se)}
+    return res, launches
 
 
 def phase_train(spec, train, graphs):
@@ -1905,9 +2428,9 @@ def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
         sub = timing.kernel_times(lambda: fused_ce_cuda.ce_bwd(
             h, w, bm, lse, dlse, dt, tgt))[0]
         parts = {"dh": sum(v for k, v in sub.items()
-                           if "ce_bwd_kernel" in k and "true>" in k),
+                           if _ce_bwd_pass(k) == "dh"),
                  "dw": sum(v for k, v in sub.items()
-                           if "ce_bwd_kernel" in k and "false>" in k)}
+                           if _ce_bwd_pass(k) == "dw")}
         flops = 2.0 * N * V * d
         io = 4 * (N * d + d * V + V + 3 * N)
         out[d] = {"fwd_ms": f_ms, "fwd_plain_ms": f_plain,
@@ -2234,17 +2757,22 @@ def _k7_step_cost(cfg, spec, graphs, params, batch):
 def _bench_logs(name, res):
     """A few lines of a bench mode's result."""
     if name == "headline":
-        log(f"bench headline: {json.dumps(res['line'])}; eval full rank "
+        log(f"bench headline: {json.dumps(res['line'])}; bf16 step "
+            f"{res['details']['bf16_train_examples_per_s']:.1f} train "
+            f"examples/s (gate {res['details']['bf16_train_gate']}); eval "
+            "full rank "
             f"{res['details']['eval_full_rank_examples_per_s']:.1f} "
             f"examples/s, {res['details']['eval_full_rank_items_per_s']:.4g}"
             f" items/s; gates {res['details']['train_gate']} "
             f"{res['details']['eval_gate']}")
     elif name == "kernels":
         for r in res["results"]:
+            other = (f"FFMA {r['bound_ffma_ms']:.4f}" if "bound_ffma_ms" in r
+                     else f"one TF32 pass {r['bound_tf32_one_pass_ms']:.4f}")
             log(f"bench kernels {r['kernel']}: {r['ms']:.4f} ms plain "
                 f"{r['plain_ms']:.4f} library {r['library_ms']} bound "
-                f"{r['bound_ms']:.4f} ({r['bound_by']}, FFMA "
-                f"{r['bound_ffma_ms']:.4f}); err {r['max_rel_err']:.3e}")
+                f"{r['bound_ms']:.4f} ({r['bound_by']}, {other}); err "
+                f"{r['max_rel_err']:.3e}")
     elif name == "ce_variants":
         for sh in res["shapes"]:
             for v, r in sh["variants"].items():
@@ -2267,6 +2795,14 @@ def _bench_logs(name, res):
             f"errors rows {ce['rows_rel_err']:.3e} grads "
             f"{ce['grads_rel_err']:.3e}; full rank {m['full_rank_ms']:.4f} "
             f"ms (delta {m['full_rank_max_rank_delta']})")
+        ce = m["fused_ce_bf16w"]
+        log(f"bench scaled bf16 classifier: CE d 512 V 2^20 fwd "
+            f"{ce['fwd_ms']:.3f} ms fwd+bwd {ce['fwd_bwd_ms']:.3f} ms "
+            f"(bounds bf16 {ce['fwd_bound_ms']:.3f} / "
+            f"{ce['fwd_bwd_bound_ms']:.3f}); errors rows "
+            f"{ce['rows_rel_err']:.3e} grads {ce['grads_rel_err']:.3e}; full "
+            f"rank {m['full_rank_bf16w_ms']:.4f} ms (delta "
+            f"{m['full_rank_bf16w_max_rank_delta']})")
     else:
         for r in res["results"]:
             log(f"bench batches: {json.dumps(r)}")
@@ -2298,6 +2834,7 @@ def phase_bench():
         launches[name] = read_launches()
         launches[name]["by_variant"] = dict(
             kernel_wrappers()["ce_fwd_variant"].by_variant)
+        launches[name]["bf16"] = read_launches_bf16()
         torch.cuda.empty_cache()
         _bench_logs(name, out[name])
         log(f"bench {name}: {time.perf_counter() - t0:.1f} s, launches "
@@ -3344,6 +3881,11 @@ def main() -> int:
     t0 = time.perf_counter()
     odd_widths = phase_odd_widths(spec, train, graphs, graphs_host, eval_data)
     log(f"phase odd widths: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bf16, bf16_launches = phase_bf16(spec, train, graphs, graphs_host,
+                                     eval_data, timer, peak_bw)
+    log(f"phase bf16: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     reset_launches()
     k7, atomics = phase_determinism(spec, train, graphs, timer, peak_bw)
@@ -3553,6 +4095,53 @@ def main() -> int:
                  "all_nonzero_rows: the same 23,040 ids with random "
                  "gradient rows, none of them zero"},
     ]
+    for kname, src, replaces, r, note in (
+            ("spmm_csr_bf16", "spmm.cu", "c2dsr_tpu/ops/spmm_pallas.py:175",
+             bf16["spmm"]["dense"], "K1's bf16 gather (compute_dtype "
+             "bfloat16, spmm_pallas.py:166-172): the four hops of a step, "
+             "over A and its transpose, share (d 128) and A|B (d 256)"),
+            ("spmm_csr_flagged_bf16", "spmm.cu",
+             "c2dsr_tpu/ops/spmm_pallas.py:231-264 via :175",
+             bf16["spmm"]["flagged"], "K6's bf16 gather, one FK batch's "
+             "flags, dest over A and src over its transpose"),
+            ("encoder_fwd_bf16", "encoder.cu",
+             "c2dsr_tpu/ops/encoder_pallas.py:444", bf16["towers"]["train"],
+             "K2's bf16 instantiation (matmul_dtype bf16): the three towers "
+             "of a step at dropout 0.2, saving K3's activations; eval: one "
+             "tower at B 2048; errors relative Frobenius on rows with a "
+             "key"),
+            ("encoder_bwd_bf16", "encoder_bwd.cu",
+             "c2dsr_tpu/ops/encoder_pallas.py:477", bf16["towers"]["bwd"],
+             "K3's bf16 instantiation, the step's three towers at dropout "
+             "0.2; worst relative Frobenius over dx and the gradients"),
+            ("ce_fwd_bf16", "ce.cu", "c2dsr_tpu/ops/fused_ce.py:263",
+             bf16["ce"]["fwd"], "K4's bf16 instantiation on a bf16 W (the "
+             "bf16 classifier), both domains of a step; library: mm of "
+             "bf16 operands into f32 and logsumexp, where torch has it"),
+            ("ce_bwd_bf16", "ce.cu", "c2dsr_tpu/ops/fused_ce.py:308",
+             bf16["ce"]["bwd"], "K5's bf16 instantiation (dh and dW/db "
+             "kernels), both domains; also replaces fused_ce.py:339 and "
+             ":360")):
+        wrapper = kname[:-len("_bf16")]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"c2dsr_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": bf16_launches[wrapper],
+            "max_abs_err": r["max_abs_err"],
+            **{k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "max_rel_err",
+                                 "f32_instantiation_err",
+                                 "bound_tf32_one_pass_ms",
+                                 "bound_bytes_ms")},
+            **({"eval": bf16["towers"]["eval"]}
+               if kname == "encoder_fwd_bf16" else {}),
+            "note": note + "; bound_ms at 989 TFLOP/s bf16 or the bytes at "
+                    "3.35 TB/s, bound_tf32_one_pass_ms at 495 TFLOP/s "
+                    "(this design's one TF32 pass of bf16 operands); "
+                    "f32_instantiation_err the f32 kernel's error against "
+                    "the same plain bf16 version, which fails the gate"})
+    log("bf16 step against the CPU's and rates: " + json.dumps(
+        {"step": bf16["step"], "rates": bf16["rates"]}))
     variants = bench["ce_variants"]["shapes"]
     for v in ("base", "nomatch", "exp2", "bf16exp", "matmulonly"):
         r = variants[0]["variants"][v]

@@ -983,3 +983,160 @@ def test_ce_variant_base_is_production_k4(cuda):
     assert torch.equal(base[0], k4[0]) and torch.equal(base[1], k4[1])
     errs = ce_variants.check_variants(h, w, b, pad, tgt)
     assert set(errs) == set(ce_variants.VARIANTS)
+
+
+# ------------------------------------------------------------------ bf16 ----
+# Each kernel's bf16 instantiation (compute_dtype="bfloat16") against its
+# plain bf16 version, and the f32 instantiation in its place failing the
+# same limit: chip_smoke.py's phase bf16 limits, whose readings PERF.md
+# gives (the CPU readings against the JAX package: tests/test_torch_bf16.py).
+BF16_SPMM_TOL, BF16_K2_TOL, BF16_K3_TOL = 1e-5, 5e-4, 1e-2
+BF16_CE_TOL, BF16_CE_BWD_TOL = 1e-5, 5e-5
+
+
+def _fro_err(a, b, rows=None):
+    """||a - b|| / ||b|| over ``rows`` (a mask of a's leading dims) or all."""
+    d, w = a.double() - b.double(), b.double()
+    if rows is not None:
+        d, w = d[rows], w[rows]
+    return float(d.norm()) / max(float(w.norm()), 1e-300)
+
+
+@pytest.mark.parametrize("d", [40, 128, 512])
+def test_spmm_bf16_kernels_match_plain(cuda, d):
+    """K1 over A and Aᵀ and K6 (dest, src) in their bf16 instantiations
+    against the plain bf16 hop; bitwise across launches; the f32
+    instantiation falls outside."""
+    share, _ = _graph()
+    g = spmm.device_graph(share, cuda)
+    n_rows = share.n + 9
+    h = torch.randn(n_rows, d, device=cuda)
+    flag = (torch.rand(n_rows, device=cuda) < 0.3).to(torch.uint8)
+    cases = [(lambda bf, graph=graph: spmm_cuda.spmm_csr(graph, h, bf16=bf),
+              lambda graph=graph: spmm.spmm_reference(graph, h, bf16=True))
+             for graph in (g, g.t)]
+    cases += [(lambda bf, m=m, graph=graph: spmm_cuda.spmm_csr_flagged(
+                  graph, h, flag, m, bf),
+               lambda m=m, graph=graph: spmm.spmm_reference_flagged(
+                  graph, h, flag, m, True))
+              for m, graph in (("dest", g), ("src", g.t))]
+    k0 = spmm_cuda.spmm_csr.launches_bf16
+    for run, plain in cases:
+        out, ref = run(True), plain()
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) <= BF16_SPMM_TOL
+        assert _rel_err(run(False), ref) > BF16_SPMM_TOL
+        assert torch.equal(out, run(True))
+    assert spmm_cuda.spmm_csr.launches_bf16 == k0 + 4
+
+
+@pytest.mark.parametrize("d,n_head,L,n_layers,B", [
+    (40, 1, 15, 2, 37), (128, 2, 30, 1, 21), (512, 4, 15, 1, 9)])
+def test_encoder_bf16_kernels_match_plain(cuda, d, n_head, L, n_layers, B):
+    """K2 and K3 in their bf16 instantiations at dropout 0.2 against the
+    plain bf16 tower (K3 at K2's branches), relative Frobenius (K2 on the
+    rows with an allowed key); K3 bitwise across launches; the f32
+    instantiations fall outside."""
+    from c2dsr_tpu_torch.bench import gates
+    p, x, seq = _tower_case(cuda, d, n_head, L, n_layers, B, seed=3)
+    kw = dict(idx_pad=999, n_head=n_head, invert_padding_mask=False,
+              dropout=0.2, seed=5, tower=1)
+    live = (seq != 999).long().cumsum(1) > 0
+    acts = encoder_cuda.saved_buffer(x, n_head, n_layers)
+    out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, bf16=True, **kw)
+    ref = enc.encoder_fwd_plain(x, seq, p, bf16=True, **kw)
+    out32 = encoder_cuda.encoder_fwd(x, seq, p, **kw)
+    assert _fro_err(out, ref, live) <= BF16_K2_TOL
+    assert _fro_err(out32, ref, live) > BF16_K2_TOL
+    gout = torch.randn_like(x)
+    got = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, bf16=True,
+                                   **kw)
+    again = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, bf16=True,
+                                     **kw)
+    want = enc.encoder_bwd_plain(x, seq, gout, p, bf16=True,
+                                 branches=gates.k2_branches(
+                                     acts, x.shape, n_head, n_layers, 1),
+                                 **kw)
+    got32 = encoder_cuda.encoder_bwd(x, seq, gout, p, **kw)
+    torch.cuda.synchronize()
+    flat, flat_want = [got[0]] + got[1], [want[0]] + want[1]
+    assert max(_fro_err(a, b) for a, b in zip(flat, flat_want)) <= BF16_K3_TOL
+    assert max(_fro_err(a, b) for a, b in
+               zip([got32[0]] + got32[1], flat_want)) > BF16_K3_TOL
+    assert all(torch.equal(a, b) for a, b in zip(flat, [again[0]] + again[1]))
+
+
+@pytest.mark.parametrize("d", [40, 128, 512])
+def test_ce_bf16_kernels_match_plain(cuda, d):
+    """K4 and K5 in their bf16 instantiations, on a bf16 W and on an f32 W
+    rounded in the pre-pass (the same bits; dW in W's dtype), against the
+    plain bf16 CE; bitwise across launches; the f32 instantiations fall
+    outside."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    N, V, n_real = 300, 1028, 1000
+    h, w, bm, pad, tgt = _ce_case(cuda, N, d, V, n_real, seed=d)
+    wb = w.to(torch.bfloat16)
+    lse, tlog = fused_ce_cuda.ce_fwd(h, wb, bm, pad, tgt)
+    rlse, rtlog = fused_ce.ce_fwd_plain(h, wb, bm, pad, tgt)
+    assert _rel_err(lse, rlse) <= BF16_CE_TOL
+    assert _rel_err(tlog, rtlog) <= BF16_CE_TOL
+    assert _rel_err(fused_ce_cuda.ce_fwd(h, w, bm, pad, tgt)[0],
+                    rlse) > BF16_CE_TOL
+    via_f32 = fused_ce_cuda.ce_fwd(h, w, bm, pad, tgt, bf16=True)
+    assert torch.equal(via_f32[0], lse) and torch.equal(via_f32[1], tlog)
+    real = (tgt != n_real).float()
+    dlse = torch.randn(N, device=cuda) * real
+    dt = torch.randn(N, device=cuda) * real
+    got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt, bf16=True)
+    want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt, bf16=True)
+    got32 = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+    on_bf16 = fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse, dt, tgt)
+    torch.cuda.synchronize()
+    assert max(_rel_err(a, b) for a, b in zip(got, want)) <= BF16_CE_BWD_TOL
+    assert max(_rel_err(a, b) for a, b in zip(got32, want)) > BF16_CE_BWD_TOL
+    again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt, bf16=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert on_bf16[1].dtype == torch.bfloat16
+    assert torch.equal(on_bf16[1], got[1].to(torch.bfloat16))
+    assert torch.equal(on_bf16[0], got[0]) and torch.equal(on_bf16[2], got[2])
+
+
+def test_bf16_train_step_on_card_matches_cpu(cuda):
+    """One train step's loss and every gradient with both dtypes bf16,
+    dropout 0, on the card against the CPU's plain bf16 versions: loss
+    1e-5 relative, gradients 1e-2 relative Frobenius (bf16 rounding flips
+    between two summation orders, chip_smoke.py STEP_BF16_GRAD_TOL); only
+    the bf16 instantiations launch."""
+    from c2dsr_tpu_torch.ops import fused_ce_cuda
+    from c2dsr_tpu_torch.train import step
+    cfg = Config(d_latent=128, batch_size=32, len_rec=5, dropout_gnn=0.0,
+                 dropout_attn=0.0, vocab_pad_multiple=64,
+                 compute_dtype="bfloat16", classifier_dtype="bfloat16")
+    share, specific = _graph()
+    train = preprocess.preprocess_train(
+        synthetic.generate_sequences(SPEC, 400, seed=3), SPEC, seed=1)
+    batch = {k: v[:32] for k, v in train.items()}
+    init = params_mod.params_to_numpy(params_mod.init_params(
+        cfg, SPEC, torch.Generator().manual_seed(0), "cpu"))
+    wrappers = (spmm_cuda.spmm_csr, encoder_cuda.encoder_fwd,
+                encoder_cuda.encoder_bwd, fused_ce_cuda.ce_fwd,
+                fused_ce_cuda.ce_bwd)
+    before = [(f.launches, f.launches_bf16) for f in wrappers]
+    out = {}
+    for dev in ("cpu", cuda):
+        params = params_mod.params_from_numpy(init, dev)
+        leaves = step.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        graphs = c2dsr.Graphs(spmm.device_graph(share, dev),
+                              spmm.device_graph(specific, dev))
+        loss, _ = step.loss_fn(params, graphs, ranker.to_device(batch, dev),
+                               None, cfg, SPEC)
+        loss.backward()
+        out[str(dev)] = (float(loss), [t.grad.cpu() for t in leaves])
+    for f, (f32, bf) in zip(wrappers, before):
+        assert f.launches == f32 and f.launches_bf16 > bf
+    (loss_k, g_k), (loss_c, g_c) = out["cuda"], out["cpu"]
+    assert abs(loss_k - loss_c) <= 1e-5 * abs(loss_c)
+    for a, c in zip(g_k, g_c):
+        assert _fro_err(a, c) <= 1e-2

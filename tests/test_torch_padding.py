@@ -44,28 +44,28 @@ def stand_ins(monkeypatch):
         assert width % multiple == 0, (name, width)
         seen.setdefault(name, []).append(width)
 
-    def hop(graph, h, n_out=None):
+    def hop(graph, h, n_out=None, bf16=False):
         note("hop", h.shape[1], spmm_cuda.D_MULTIPLE)
         seen.setdefault("hop_inputs", []).append(h)
-        return spmm.spmm_reference(graph, h, n_out)
+        return spmm.spmm_reference(graph, h, n_out, bf16)
 
-    def flagged_hop(graph, h, flag):
+    def flagged_hop(graph, h, flag, bf16=False):
         note("flagged_hop", h.shape[1], spmm_cuda.D_MULTIPLE)
-        return spmm.spmm_reference_flagged(graph, h, flag, "dest")
+        return spmm.spmm_reference_flagged(graph, h, flag, "dest", bf16)
 
     def segsum(ids, g, n_rows):
         note("segsum", g.shape[1], segsum_cuda.D_MULTIPLE)
         assert g.is_contiguous()
         return segsum_cuda.segsum_plain(ids, g, n_rows)
 
-    def ce_fwd(h, w, b, pad, tgt):
+    def ce_fwd(h, w, b, pad, tgt, bf16=False):
         note("ce_fwd", h.shape[1], fused_ce_cuda.D_MULTIPLE)
         assert w.shape[0] == h.shape[1]
-        return fused_ce.ce_fwd_plain(h, w, b, pad, tgt)
+        return fused_ce.ce_fwd_plain(h, w, b, pad, tgt, bf16)
 
-    def ce_bwd(h, w, b, lse, dlse, dt, tgt):
+    def ce_bwd(h, w, b, lse, dlse, dt, tgt, bf16=False):
         note("ce_bwd", h.shape[1], fused_ce_cuda.D_MULTIPLE)
-        return fused_ce.ce_bwd_plain(h, w, b, lse, dlse, dt, tgt)
+        return fused_ce.ce_bwd_plain(h, w, b, lse, dlse, dt, tgt, bf16)
 
     monkeypatch.setattr(spmm_cuda, "hop", hop)
     monkeypatch.setattr(spmm_cuda, "flagged_hop", flagged_hop)

@@ -90,7 +90,8 @@ def test_propagate_dropout_keep_rate_and_scale(graphs):
     kept = []
     orig = backend.spmm
     try:
-        backend.spmm = lambda graph, x: kept.append(x) or orig(graph, x)
+        backend.spmm = (lambda graph, x, *a, **kw:
+                        kept.append(x) or orig(graph, x, *a, **kw))
         spmm.gcn_propagate(dev, h, 1, 0.2, gen)
         spmm.gcn_propagate(dev, h, 1, 0.2, None)
     finally:
