@@ -23,7 +23,10 @@ rule ``chip_smoke.py`` uses).  Beside it, as the JAX bench times its f32
 step beside its bf16 default (bench.py:138-145), the train rate with both
 dtypes bf16 (``compute_dtype`` and ``classifier_dtype``: the kernels'
 bf16 instantiations), gated alike with BF16_GRAD_TOL; the headline stays
-the f32 step.  A mode whose gate fails exits non-zero.
+the f32 step.  On the card every timed step is the default one, captured
+as a CUDA graph (``capture.py``); ``details.json`` also records the same
+f32 step run eagerly (``capture=False``) in the same process
+(``eager_train_examples_per_s``).  A mode whose gate fails exits non-zero.
 The last line of standard output is one JSON object; details go to
 ``build/bench_torch/details.json`` (git-ignored).  The bench writes no
 tracked file.
@@ -168,10 +171,13 @@ def train_gate(cfg, sp, graphs, leaves, params, batch) -> Dict[str, float]:
             "grad_rel_err": g_rel, "n_grads": len(leaves)}
 
 
-def train_rate(cfg, sp, graphs, train, spec: Spec, device, steps: int):
+def train_rate(cfg, sp, graphs, train, spec: Spec, device, steps: int,
+               capture=None):
     """(seconds a step, final state, gate) of ``steps`` timed steps of
     ``make_train_step`` at batch ``cfg.batch_size``, after the gate and
-    ``spec.warmup`` warm-up steps, cycling ``spec.n_batches`` batches."""
+    ``spec.warmup`` warm-up steps, cycling ``spec.n_batches`` batches; the
+    step captured as a CUDA graph by default on the card (``capture``, as
+    ``make_train_step`` takes it)."""
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.train import optim
     from c2dsr_tpu_torch.train import step as step_mod
@@ -183,7 +189,8 @@ def train_rate(cfg, sp, graphs, train, spec: Spec, device, steps: int):
     state = step_mod.init_state(params, opt)
     gate = train_gate(cfg, sp, graphs, state.opt_state.leaves, params,
                       ranker.to_device(feed[0], device))
-    fn = step_mod.make_train_step(cfg, sp, graphs, opt, device)
+    fn = step_mod.make_train_step(cfg, sp, graphs, opt, device,
+                                  capture=capture)
     for b in feed[:spec.warmup]:
         state, aux = fn(state, b)
     _sync(device)
@@ -249,6 +256,11 @@ def headline(spec: Spec = FK, device="cuda") -> Dict:
     ev_ex, ev_items, e_gate = eval_rate(cfg, sp, graphs, state.params, spec,
                                         device)
     on_card = torch.device(device).type == "cuda"
+    eager_s = None
+    if on_card:
+        # the same step run op by op, for the record beside the captured one
+        eager_s, _, _ = train_rate(cfg, sp, graphs, train, spec, device,
+                                   spec.steps, capture=False)
     vs = None
     if spec == FK and os.path.exists(BASELINE):
         with open(BASELINE) as f:
@@ -258,6 +270,10 @@ def headline(spec: Spec = FK, device="cuda") -> Dict:
         "train_examples_per_s": rate, "train_step_ms": step_s * 1e3,
         "bf16_train_examples_per_s": spec.batch / bf16_s,
         "bf16_train_step_ms": bf16_s * 1e3, "bf16_train_gate": b_gate,
+        "train_step": "captured as a CUDA graph" if on_card else "eager",
+        "eager_train_examples_per_s": (spec.batch / eager_s if eager_s
+                                       else None),
+        "eager_train_step_ms": eager_s * 1e3 if eager_s else None,
         "eval_full_rank_examples_per_s": ev_ex,
         "eval_full_rank_items_per_s": ev_items,
         "train_gate": t_gate, "eval_gate": e_gate, "device": dev,

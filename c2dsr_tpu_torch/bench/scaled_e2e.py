@@ -419,6 +419,23 @@ def run(device="cuda", size: Size = FULL, log=print) -> Dict:
     after = launches()
     loss_last = float(aux["loss"])
     report["launches_in_windows"] = {k: after[k] - before[k] for k in after}
+    if on_card:
+        # the captured step's graphs, and the same step run op by op
+        report["step_program"] = fn.program.stats()
+        eager = step_mod.make_train_step(cfg, spec, graphs, opt, device,
+                                         capture=False)
+        eager_times = []
+        for _ in range(size.windows):
+            t0 = time.perf_counter()
+            for i in range(size.steps):
+                state, aux = eager(state, feed[(i + 1 - size.steps)
+                                                % len(feed)])
+            _sync(device)
+            eager_times.append((time.perf_counter() - t0) / size.steps)
+        report["eager_train_step_ms"] = min(eager_times) * 1e3
+        report["eager_train_examples_per_s"] = size.batch / min(eager_times)
+        log(f"scaled_e2e: the step's graphs {report['step_program']}; the "
+            f"eager step {report['eager_train_step_ms']:.3f} ms")
     if not (np.isfinite(loss_last) and loss_last < loss_first):
         raise timing.GateFailure(f"scaled_e2e: loss {loss_first} -> "
                                  f"{loss_last}: not finite and lower")

@@ -20,7 +20,9 @@ default, so it would be ``full``.  Each variant reports its wall ms a step
 device time need not show as wall time.  Gates: ``full`` passes the
 headline's train gate (``bench/__main__.train_gate``), every variant's
 loss is finite, and on the card each variant launched exactly the kernels
-it should.  The stubs live here, restored in ``finally``.
+it should.  The stubs live here, restored in ``finally``.  Each variant's
+step is the default one, captured as a CUDA graph on the card
+(``capture.py``): the stubs are in place when its graph is captured.
 """
 
 from __future__ import annotations

@@ -28,7 +28,13 @@ Durability model (crash-safe at every instant):
 
 ``restore`` copies into the template's tensors in place, so the optimizer
 stays bound to the same parameter tensors, and loads with
-``weights_only=True``.
+``weights_only=True``.  The optimizer's state is saved in the CPU
+optimizer's format wherever it ran and loaded with the template's own
+settings (``train/optim.state_dict``, ``load_state``: on the card the
+capturable AdamW and its device lr), so a checkpoint moves between the
+card and the CPU.  Its moments are new tensors: a captured step bound to
+the template's optimizer rebuilds its graphs at its next call, from the
+restored state, and goes on as the uninterrupted run.
 
 On a mesh (``parallel/mesh.py``), ``save`` gathers the model-sharded
 parameters and their AdamW moments whole (a collective every rank joins),
@@ -47,6 +53,8 @@ import threading
 from typing import Any, Dict, Optional
 
 import torch
+
+from c2dsr_tpu_torch.train import optim
 
 _STATE_FILE = "state.pt"
 
@@ -67,7 +75,7 @@ def _snapshot(state, mesh=None) -> Dict[str, Any]:
     """What a checkpoint holds of a ``train.step.TrainState``: on a mesh,
     the whole state, gathered from the ranks' shards."""
     opt = state.opt_state
-    params, adamw = state.params, opt.adamw.state_dict()
+    params, adamw = state.params, optim.state_dict(opt)
     if mesh is not None and mesh.n_model > 1:
         from c2dsr_tpu_torch.parallel import mesh as mesh_mod
         names = mesh_mod.leaf_names(params)
@@ -216,8 +224,7 @@ def restore(path: str, template: Optional[Any] = None, mesh=None) -> Any:
         params = mesh_mod.shard_params(params, mesh)
         adamw = mesh_mod.shard_adamw(adamw, names, mesh)
     _copy_into(template.params, params)
-    template.opt_state.adamw.load_state_dict(adamw)
-    template.opt_state.schedule.load_state_dict(snap["schedule"])
+    optim.load_state(template.opt_state, adamw, snap["schedule"])
     return template._replace(step=snap["step"])
 
 

@@ -27,6 +27,13 @@ __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 // One tower call's dropout: rate p as a threshold on 32 random bits and the
 // divisor f32(1 - p) of kept values.  on == 0 is eval.
 //
+// The seed lies in device memory and each kernel reads it as it starts:
+// a launch recorded in a CUDA graph then draws the masks of the seed that
+// its replay finds there, which the step writes before each replay.  The
+// host computes a stream's salt, the seed-free half of its key (site,
+// layer, tower); a kernel mixes it with the seed into the key (key(salt)),
+// the value that ops/dropout.stream_key gives.
+//
 // The element index is that of the run's whole batch, of which a data rank's
 // tower call holds some rows: with seg != 0, the call's batch row b is row
 // batch(b) = (b / seg) * stride + off + b % seg of the run's (a rank's
@@ -42,14 +49,20 @@ struct Dropout {
   int on;
   uint32_t thr;
   float div;
-  uint32_t seed;
+  const uint32_t* seed;   // one uint32 on the device (null where !on)
   int tower;
   uint32_t off, seg, stride, L, row_x;
 
-  __host__ __device__ __forceinline__ uint32_t key(int site,
-                                                   int layer) const {
-    return mix32(seed ^ mix32(static_cast<uint32_t>(site + 8 * layer +
-                                                    1024 * tower) + kGolden));
+  // the seed-free half of the key of stream (site, layer)
+  __host__ __device__ __forceinline__ uint32_t salt(int site,
+                                                    int layer) const {
+    return mix32(static_cast<uint32_t>(site + 8 * layer + 1024 * tower) +
+                 kGolden);
+  }
+  // the key of the stream of `salt` under the seed in device memory (0
+  // where !on, which reads nothing)
+  __device__ __forceinline__ uint32_t key(uint32_t salt) const {
+    return on ? mix32(__ldg(seed) ^ salt) : 0u;
   }
   // whether the call's rows are mapped: its kernels take kMap
   __host__ __device__ __forceinline__ bool mapped() const {
@@ -80,7 +93,7 @@ struct Dropout {
 };
 
 // The dropout of a tower call (L, d) from the C entry points' arguments.
-inline Dropout make(int on, uint32_t thr, float div, uint32_t seed,
+inline Dropout make(int on, uint32_t thr, float div, const uint32_t* seed,
                     int tower, uint32_t off, uint32_t seg, uint32_t stride,
                     int L, int d) {
   return Dropout{on, thr, div, seed, tower, off, seg, stride,

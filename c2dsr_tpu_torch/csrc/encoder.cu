@@ -83,7 +83,7 @@ struct FwdGemm {
   const float* res;    // kResidual, kResLn: [n, m]
   int n, k, m, epi;
   drop::Dropout dr;    // dropout where dr.on
-  uint32_t key;
+  uint32_t salt;       // of the epilogue's stream (drop::Dropout::salt)
   // kResLn (the block holds whole rows): LN scale and bias, and where not
   // null the normalised rows and 1/std; with lnf_s the final LN follows,
   // into out, xhat_f and rstd_f.
@@ -163,6 +163,7 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
   float acc[kNj][4];
   gemm_tile<NT, true, TERMS>(g.a, g.w, g.n, g.k, g.m, row0, n0,
                              reinterpret_cast<float*>(smem4), acc);
+  const uint32_t key = g.dr.key(g.salt);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -191,8 +192,8 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
           *reinterpret_cast<float2*>(g.c + idx) = v;
           if (g.c2) {
             if (g.dr.on) {
-              v.x = g.dr.apply(v.x, g.key, di);
-              v.y = g.dr.apply(v.y, g.key, di + 1);
+              v.x = g.dr.apply(v.x, key, di);
+              v.y = g.dr.apply(v.y, key, di + 1);
             }
             *reinterpret_cast<float2*>(g.c2 + idx) = v;
           }
@@ -200,8 +201,8 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
         }
         if (g.epi == kResidual) {
           if (g.dr.on) {
-            v.x = g.dr.apply(v.x, g.key, di);
-            v.y = g.dr.apply(v.y, g.key, di + 1);
+            v.x = g.dr.apply(v.x, key, di);
+            v.y = g.dr.apply(v.y, key, di + 1);
           }
           const float2 r = *reinterpret_cast<const float2*>(g.res + idx);
           v.x += r.x;
@@ -229,8 +230,8 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
         const float2 b = *reinterpret_cast<const float2*>(g.bias + col);
         v = make_float2(acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
         if (g.dr.on) {
-          v.x = g.dr.apply(v.x, g.key, di);
-          v.y = g.dr.apply(v.y, g.key, di + 1);
+          v.x = g.dr.apply(v.x, key, di);
+          v.y = g.dr.apply(v.y, key, di + 1);
         }
         const float2 r = *reinterpret_cast<const float2*>(g.res + idx);
         v.x += r.x;
@@ -270,8 +271,9 @@ encoder_fwd_attn_kernel(const float* __restrict__ qkv,
                         const int* __restrict__ seq, float* __restrict__ o,
                         float* __restrict__ p_save, int B, int L, int d,
                         int n_head, int idx_pad, int invert,
-                        drop::Dropout dr, uint32_t key) {
+                        drop::Dropout dr, uint32_t salt) {
   extern __shared__ float4 smem4[];
+  const uint32_t key = dr.key(salt);
   const int S = attn_seqs(L);
   const int R = S * L;
   const int ldp = round4(L);
@@ -435,7 +437,8 @@ template <bool kMap>
 __global__ void __launch_bounds__(kThreads)
 encoder_fwd_input_kernel(const float4* __restrict__ x,
                          float4* __restrict__ xin, size_t n4,
-                         drop::Dropout dr, uint32_t key) {
+                         drop::Dropout dr, uint32_t salt) {
+  const uint32_t key = dr.key(salt);
   for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * kThreads) {
     float4 v = x[i];
@@ -611,10 +614,10 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     auto* xin4 = reinterpret_cast<float4*>(xin);
     if (dr.mapped())
       encoder_fwd_input_kernel<true><<<blocks, kThreads, 0, s>>>(
-          x4, xin4, n4, dr, dr.key(drop::kInput, 0));
+          x4, xin4, n4, dr, dr.salt(drop::kInput, 0));
     else
       encoder_fwd_input_kernel<false><<<blocks, kThreads, 0, s>>>(
-          x4, xin4, n4, dr, dr.key(drop::kInput, 0));
+          x4, xin4, n4, dr, dr.salt(drop::kInput, 0));
     TRY(cudaGetLastError());
     X = xin;
   }
@@ -642,12 +645,12 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
       encoder_fwd_attn_kernel<true>
           <<<attn_blocks, kThreads, attn_fwd_smem(L), s>>>(
               qkv, seq, o, save ? lb + so.l.p : nullptr, B, L, d, n_head,
-              idx_pad, invert, dr, dr.key(drop::kProbs, li));
+              idx_pad, invert, dr, dr.salt(drop::kProbs, li));
     else
       encoder_fwd_attn_kernel<false>
           <<<attn_blocks, kThreads, attn_fwd_smem(L), s>>>(
               qkv, seq, o, save ? lb + so.l.p : nullptr, B, L, d, n_head,
-              idx_pad, invert, dr, dr.key(drop::kProbs, li));
+              idx_pad, invert, dr, dr.salt(drop::kProbs, li));
     TRY(cudaGetLastError());
 
     // y1 = LN1(X + drop(o·W_out + b_out)); above d 256 the sum goes to the
@@ -655,7 +658,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     FwdGemm w{};
     w.a = o; w.w = l0.w_out + li * s_dd; w.bias = l0.b_out + ob; w.res = X;
     w.n = n; w.k = d; w.m = d; w.dr = dr;
-    w.key = dr.key(drop::kAttnOut, li);
+    w.salt = dr.salt(drop::kAttnOut, li);
     if (fused_ln) {
       w.epi = kResLn; w.c = y1; w.ln_s = l0.ln1_s + ob; w.ln_b = l0.ln1_b + ob;
       w.xhat = save ? xhat1 : nullptr;
@@ -674,7 +677,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     FwdGemm f{};
     f.a = y1; f.w = l0.w_ff1 + li * s_dd; f.bias = l0.b_ff1 + ob; f.c = fr;
     f.c2 = save || dr.on ? fd : nullptr; f.n = n; f.k = d; f.m = d;
-    f.epi = kRelu; f.dr = dr; f.key = dr.key(drop::kFfnRelu, li);
+    f.epi = kRelu; f.dr = dr; f.salt = dr.salt(drop::kFfnRelu, li);
     TRY(launch_gemm(f, column_tile(d), bf16, s));
 
     // xnext = LN2(y1 + drop(f·W2 + b2)), then out = LNf(xnext) after the
@@ -682,7 +685,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     FwdGemm f2{};
     f2.a = f.c2 ? fd : fr; f2.w = l0.w_ff2 + li * s_dd; f2.bias = l0.b_ff2 + ob;
     f2.res = y1; f2.n = n; f2.k = d; f2.m = d; f2.dr = dr;
-    f2.key = dr.key(drop::kFfnOut, li);
+    f2.salt = dr.salt(drop::kFfnOut, li);
     float* rstd2 = save ? lb + so.l.rstd2 : nullptr;
     float* xhat_f = save && last ? buf + so.xhat_f : nullptr;
     float* rstd_f = save && last ? buf + so.rstd_f : nullptr;
@@ -729,7 +732,8 @@ extern "C" void encoder_saved_offsets(int B, int L, int d, int n_head,
 // 1 <= L <= 64 (encoder_cuda.supported), n_layers >= 1; x, the weights
 // and buf 16-byte aligned.  Dropout: drop_on 0 is eval; else kept values
 // are divided by drop_div (f32(1 - p)) where the hash bits reach drop_thr
-// (ops/dropout.threshold); row_off, row_seg and row_stride place the call's
+// (ops/dropout.threshold), from the uint32 seed at `seed` in device memory
+// (read by each kernel; null at drop_on 0); row_off, row_seg and row_stride place the call's
 // rows in the run's batch (drop::Dropout; row_seg 0: the identity).  buf:
 // with save != 0, saved_layout for n_layers
 // (encoder_saved_offsets), which receives the activations the backward
@@ -745,8 +749,8 @@ extern "C" int encoder_fwd(
     const float* ln2_b, const float* lnf_s, const float* lnf_b, float* out,
     float* buf, int save,
     int B, int L, int d, int n_head, int n_layers, int idx_pad, int invert,
-    int drop_on, unsigned drop_thr, float drop_div, unsigned seed, int tower_id,
-    unsigned row_off, unsigned row_seg, unsigned row_stride, int bf16,
+    int drop_on, unsigned drop_thr, float drop_div, const unsigned* seed,
+    int tower_id, unsigned row_off, unsigned row_seg, unsigned row_stride, int bf16,
     void* stream) {
   const Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
                  ln1_s, ln1_b, ln2_s, ln2_b};
@@ -759,16 +763,17 @@ extern "C" int encoder_fwd(
 }
 
 // The dropout hash's bits of elements 0..n-1 of one stream, for checking the
-// kernels' masks against ops/dropout.bits_reference.
+// kernels' masks against ops/dropout.bits_reference; the seed is read from
+// device memory, as the kernels read it.
 __global__ void dropout_bits_kernel(drop::Dropout dr, int site, int layer,
                                     int n, unsigned* out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n)
     out[i] = drop::mix32((static_cast<uint32_t>(i) * drop::kGolden) ^
-                         dr.key(site, layer));
+                         dr.key(dr.salt(site, layer)));
 }
 
-extern "C" int dropout_bits_u32(unsigned seed, int site, int tower_id,
+extern "C" int dropout_bits_u32(const unsigned* seed, int site, int tower_id,
                                 int layer, int n, unsigned* out,
                                 void* stream) {
   dropout_bits_kernel<<<(n + 255) / 256, 256, 0,

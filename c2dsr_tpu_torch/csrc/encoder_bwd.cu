@@ -117,7 +117,7 @@ struct GemmArgs {
   const float* res;     // [n, m]
   const float* aux;     // [n, m]
   drop::Dropout dr;     // dropout where dr.on
-  uint32_t key;
+  uint32_t salt;        // of the epilogue's stream (drop::Dropout::salt)
 };
 
 // kMap: the call's dropout maps its rows (drop::Dropout::mapped); TERMS 3
@@ -136,6 +136,7 @@ tc_gemm_kernel(const GemmArgs g) {
   float acc[kNj][4];
   gemm_tile<NT, false, TERMS>(g.a, g.w, g.n, g.k, g.m, row0, n0,
                               reinterpret_cast<float*>(smem4), acc);
+  const uint32_t key = g.dr.key(g.salt);
 
   // elements 2h and 2h + 1 of n-tile j: row r_lo + 8·h, columns n0 + 8·j
   // + 2·tq and the next, as one float2 (m % 8 == 0: both or neither in
@@ -160,8 +161,8 @@ tc_gemm_kernel(const GemmArgs g) {
         v.y += r.y;
       }
       if (g.epi != kStore && g.dr.on) {
-        v.x = g.dr.apply(v.x, g.key, di);
-        v.y = g.dr.apply(v.y, g.key, di + 1);
+        v.x = g.dr.apply(v.x, key, di);
+        v.y = g.dr.apply(v.y, key, di + 1);
       }
       if (g.epi == kDrelu) {
         const float2 f = *reinterpret_cast<const float2*>(g.aux + idx);
@@ -197,8 +198,9 @@ __global__ void __launch_bounds__(kThreads)
 attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
                 const float* __restrict__ d_o, float* __restrict__ dqkv,
                 int B, int L, int d, int n_head, drop::Dropout dr,
-                uint32_t key) {
+                uint32_t salt) {
   extern __shared__ float4 smem4[];
+  const uint32_t key = dr.key(salt);
   const int S = attn_seqs(L);
   const int R = S * L;
   const int ldp = round4(L);
@@ -369,7 +371,8 @@ ln_bwd_kernel(const float* __restrict__ gin, const float* __restrict__ xhat,
               const float* __restrict__ rstd,
               const float* __restrict__ scale, float* __restrict__ dz,
               float* __restrict__ dzd, int n, int d, drop::Dropout dr,
-              uint32_t key) {
+              uint32_t salt) {
+  const uint32_t key = dzd ? dr.key(salt) : 0u;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (r >= n) return;
@@ -680,31 +683,31 @@ cudaError_t launch_gemm(const GemmArgs& g, int nt, bool bf16,
 template <bool kMap>
 cudaError_t ln_bwd_t(const float* gin, const float* xhat, const float* rstd,
                      const float* scale, float* dz, float* dzd, int n, int d,
-                     drop::Dropout dr, uint32_t key, cudaStream_t s) {
+                     drop::Dropout dr, uint32_t salt, cudaStream_t s) {
   const int blocks = (n + kThreads / 32 - 1) / (kThreads / 32);
   if (d <= 64)
     ln_bwd_kernel<2, kMap><<<blocks, kThreads, 0, s>>>(
-        gin, xhat, rstd, scale, dz, dzd, n, d, dr, key);
+        gin, xhat, rstd, scale, dz, dzd, n, d, dr, salt);
   else if (d <= 128)
     ln_bwd_kernel<4, kMap><<<blocks, kThreads, 0, s>>>(
-        gin, xhat, rstd, scale, dz, dzd, n, d, dr, key);
+        gin, xhat, rstd, scale, dz, dzd, n, d, dr, salt);
   else if (d <= 256)
     ln_bwd_kernel<8, kMap><<<blocks, kThreads, 0, s>>>(
-        gin, xhat, rstd, scale, dz, dzd, n, d, dr, key);
+        gin, xhat, rstd, scale, dz, dzd, n, d, dr, salt);
   else
     ln_bwd_kernel<16, kMap><<<blocks, kThreads, 0, s>>>(
-        gin, xhat, rstd, scale, dz, dzd, n, d, dr, key);
+        gin, xhat, rstd, scale, dz, dzd, n, d, dr, salt);
   return cudaGetLastError();
 }
 
 cudaError_t ln_bwd(const float* gin, const float* xhat, const float* rstd,
                    const float* scale, float* dz, float* dzd, int n, int d,
-                   drop::Dropout dr, uint32_t key, cudaStream_t s) {
+                   drop::Dropout dr, uint32_t salt, cudaStream_t s) {
   return dzd && dr.mapped()
-             ? ln_bwd_t<true>(gin, xhat, rstd, scale, dz, dzd, n, d, dr, key,
+             ? ln_bwd_t<true>(gin, xhat, rstd, scale, dz, dzd, n, d, dr, salt,
                               s)
              : ln_bwd_t<false>(gin, xhat, rstd, scale, dz, dzd, n, d, dr,
-                               key, s);
+                               salt, s);
 }
 
 // The working buffers of the backward walk (reused by every layer) and the
@@ -789,11 +792,11 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     float* dg2 = dr.on ? t.dg2 : t.dz2;
     TRY(ln_bwd(gcur, layer(li, so.l.xhat2), layer(li, so.l.rstd2),
                l0.ln2_s + li * d, t.dz2, dr.on ? t.dg2 : nullptr, n, d, dr,
-               dr.key(drop::kFfnOut, li), s));
+               dr.salt(drop::kFfnOut, li), s));
     GemmArgs g5{};
     g5.a = dg2; g5.w = l0.w_ff2 + li * s_dd; g5.c = t.df; g5.n = n; g5.k = d;
     g5.m = d; g5.epi = kDrelu; g5.aux = layer(li, so.l.fr);
-    g5.dr = dr; g5.key = dr.key(drop::kFfnRelu, li);
+    g5.dr = dr; g5.salt = dr.salt(drop::kFfnRelu, li);
     TRY(launch_gemm(g5, nt, bf16, s));
     GemmArgs g6{};
     g6.a = t.df; g6.w = l0.w_ff1 + li * s_dd; g6.c = t.dy1; g6.n = n;
@@ -803,7 +806,7 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     float* da = dr.on ? t.da : t.dz1;
     TRY(ln_bwd(t.dy1, layer(li, so.l.xhat1), layer(li, so.l.rstd1),
                l0.ln1_s + li * d, t.dz1, dr.on ? t.da : nullptr, n, d, dr,
-               dr.key(drop::kAttnOut, li), s));
+               dr.salt(drop::kAttnOut, li), s));
     GemmArgs g7{};
     g7.a = da; g7.w = l0.w_out + li * s_dd; g7.c = t.d_o; g7.n = n; g7.k = d;
     g7.m = d; g7.epi = kStore; g7.dr = off;
@@ -812,18 +815,18 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     if (bf16)
       attn_bwd_kernel<true><<<attn_blocks, kThreads, attn_bwd_smem(L), s>>>(
           layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L, d,
-          n_head, dr, dr.key(drop::kProbs, li));
+          n_head, dr, dr.salt(drop::kProbs, li));
     else
       attn_bwd_kernel<false><<<attn_blocks, kThreads, attn_bwd_smem(L), s>>>(
           layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L, d,
-          n_head, dr, dr.key(drop::kProbs, li));
+          n_head, dr, dr.salt(drop::kProbs, li));
     TRY(cudaGetLastError());
     // dx of the layer: dz1 + dqkv·Wqkvᵀ, through the input dropout below
     // the first layer
     GemmArgs g8{};
     g8.a = t.dqkv; g8.w = l0.w_qkv + li * s_qkv; g8.c = li ? gnext : dx;
     g8.n = n; g8.k = 3 * d; g8.m = d; g8.epi = kRes; g8.res = t.dz1;
-    g8.dr = li ? off : dr; g8.key = dr.key(drop::kInput, 0);
+    g8.dr = li ? off : dr; g8.salt = dr.salt(drop::kInput, 0);
     TRY(launch_gemm(g8, nt, bf16, s));
 
     WgArgs w{};
@@ -908,7 +911,7 @@ extern "C" int encoder_bwd(
     const float* ln2_s, const float* ln2_b, const float* lnf_s,
     const float* lnf_b, float* dx, float* grads, float* workspace, int grid,
     int B, int L, int d, int n_head, int n_layers, int drop_on,
-    unsigned drop_thr, float drop_div, unsigned seed, int tower_id,
+    unsigned drop_thr, float drop_div, const unsigned* seed, int tower_id,
     unsigned row_off, unsigned row_seg, unsigned row_stride, int bf16,
     void* stream) {
   (void)lnf_b;

@@ -13,7 +13,13 @@ under two protocols:
 Eval examples are partitioned by ground-truth domain on the host, so each
 step computes only its domain's classifier product.  On a CUDA device the
 graph propagation runs the CSR SpMM kernel and each of the three towers the
-fused encoder kernel; PyTorch runs eagerly, so there is nothing to jit.
+fused encoder kernel.  As the JAX package jits ``rank_step``, the port
+captures it on one card as one CUDA graph per (domain, mode, batch shape)
+and the parameters' addresses (``capture.py``): each batch is staged through
+pinned host buffers into the graph's static inputs, and the tables that
+``convolve_eval`` propagates (once per eval phase, eagerly) are copied into
+static ones.  ``capture=False`` runs the same programs eagerly; the CPU and
+a mesh run the functions op by op.
 
 On a mesh (``parallel/mesh.py``) every rank holds the whole eval split and
 ranks its data index's rows of each chunk (``evaluate_split``'s
@@ -30,6 +36,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from c2dsr_tpu_torch import capture as capture_mod
 from c2dsr_tpu_torch.config import Config, DataSpec
 from c2dsr_tpu_torch.model import c2dsr
 from c2dsr_tpu_torch.ops import backend
@@ -75,7 +82,7 @@ def to_device(chunk: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 def make_eval_fns(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
-                  device="cuda", mesh=None):
+                  device="cuda", mesh=None, capture=None):
     """Returns (convolve_eval, rank_step).
 
     convolve_eval(params) -> Propagated (deterministic, once per eval phase —
@@ -83,9 +90,14 @@ def make_eval_fns(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
     rank_step(params, hi, batch, domain, mode) -> ranks [B] int32 on the
     device; ``batch`` is a dict of numpy arrays.  On a ``mesh``, ``batch``
     is this rank's slice of a chunk (``mesh.eval_slice``) and the ranks are
-    the whole chunk's, gathered over the data group."""
+    the whole chunk's, gathered over the data group.
+
+    ``capture`` (``capture.resolve``): on one card rank_step is a program
+    (:func:`_rank_program`), by default captured.  Each function's ``mode``
+    says which."""
     from c2dsr_tpu_torch.parallel import comm, strategy
     device = backend.resolve_device(device)
+    captured, mode = capture_mod.resolve(capture, device, mesh)
     pops = strategy.make_ops(cfg, mesh)
     data = pops.data_group
 
@@ -99,7 +111,58 @@ def make_eval_fns(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
                   mode, pops)
         return comm.gather_(r, data).reshape(-1)
 
+    if device.type == "cuda" and mesh is None:
+        rank_step = _rank_program(cfg, spec, device, pops, captured)
+    convolve_eval.mode = rank_step.mode = mode
     return convolve_eval, rank_step
+
+
+RANK_KEYS = 16        # rank graphs a program keeps (least recently used out)
+
+
+def _rank_program(cfg: Config, spec: DataSpec, device: torch.device, pops,
+                  capture: bool):
+    """The one-card ``rank_step`` as a program over static inputs
+    (``capture.Program``, as ``.program``): captured as one CUDA graph per
+    (domain, mode, batch signature) and the parameters' addresses, or run
+    eagerly with ``capture=False``.  The propagated tables a call is given
+    are copied into static ones that every graph reads (three copies, 0.2
+    GB of traffic at FK, before the replay): keyed by the tables'
+    addresses instead, each eval phase's new tables would capture new
+    graphs."""
+    program = capture_mod.Program(capture, max_keys=RANK_KEYS)
+    staging: Dict[tuple, capture_mod.Staging] = {}
+    static = []             # [the static tables], made for the first shapes
+
+    def tables(hi: c2dsr.Propagated) -> c2dsr.Propagated:
+        if not static or any(a.shape != b.shape or a.dtype != b.dtype
+                             for a, b in zip(static[0], hi)):
+            static[:] = [c2dsr.Propagated(*(torch.empty_like(t)
+                                             for t in hi))]
+            program.reset()
+        for dst, src in zip(static[0], hi):
+            dst.copy_(src)
+        return static[0]
+
+    @torch.inference_mode()
+    def rank_step(params, hi, batch, domain: str, mode: str):
+        sig = capture_mod.signature(batch)
+        stage = staging.get(sig)
+        if stage is None:
+            stage = staging[sig] = capture_mod.Staging(batch, device)
+        b = stage(batch)
+        hi_s = tables(hi)
+        key = (domain, mode, sig, capture_mod.leaf_ptrs(params))
+
+        def body():
+            with torch.inference_mode():
+                return _rank(params, hi_s, b, cfg, spec, domain, mode, pops)
+
+        r, static_out = program.run(key, body)
+        return r.clone() if static_out else r
+
+    rank_step.program = program
+    return rank_step
 
 
 def partition_by_domain(data: Dict[str, np.ndarray]

@@ -106,10 +106,11 @@ def _tower_pre(seq, hi, raw_table, cfg: Config, spec: DataSpec,
 
 
 def _encode(h, seq, pos, attn_params, cfg: Config, spec: DataSpec,
-            seed: Optional[int], tower: int, row_map=None) -> torch.Tensor:
+            seed, tower: int, row_map=None) -> torch.Tensor:
     """Positional add, then the tower (ops/backend.encode_layers); dropout
-    keyed by (seed, tower) when seed is not None, its rows placed in the
-    global batch by ``row_map`` (ops/dropout.py).  The precision comes
+    keyed by (seed, tower) when seed is not None (an int, or the captured
+    step's 0-d int32 device seed, ops/dropout.seed_tensor), its rows placed
+    in the global batch by ``row_map`` (ops/dropout.py).  The precision comes
     from the configuration (``Config.bf16_products``), not from h's dtype:
     the positional add promotes a bf16 h to f32, as the JAX package's
     ``encode_towers_fused`` does before its bf16 products."""
@@ -121,7 +122,7 @@ def _encode(h, seq, pos, attn_params, cfg: Config, spec: DataSpec,
         norm_first=cfg.norm_first,
         invert_padding_mask=cfg.bug_inverted_padding_mask,
         dropout=0.0 if seed is None else cfg.dropout_attn,
-        seed=seed or 0, tower=tower, row_map=row_map,
+        seed=0 if seed is None else seed, tower=tower, row_map=row_map,
         bf16=cfg.bf16_products()).to(
             torch.promote_types(x.dtype, torch.float32))
 
@@ -155,7 +156,7 @@ def forward_share(params: Dict[str, Any], hi: Propagated, seq, pos,
 
 def forward_joint(params: Dict[str, Any], hi: Propagated, seq_share3, pos3,
                   seq_a, seq_b, pos_a, pos_b, cfg: Config, spec: DataSpec,
-                  seed: Optional[int] = None, pops=None, row_map=None
+                  seed=None, pops=None, row_map=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every tower pass of one training step (c2dsr_tpu model/c2dsr.py
     forward_joint): the shared tower on ``seq_share3`` [3B, L] (positive

@@ -58,10 +58,31 @@ def mix32(x: int) -> int:
     return x ^ (x >> 16)
 
 
+def salt(site: int, tower: int, layer: int) -> int:
+    """The seed-free half of a stream's key (``csrc/dropout.cuh`` salt)."""
+    return mix32(site + 8 * layer + 1024 * tower + GOLDEN)
+
+
 def stream_key(seed: int, site: int, tower: int, layer: int) -> int:
     """The 32-bit key of one (seed, site, tower, layer) stream."""
-    return mix32((seed & M32) ^ mix32(site + 8 * layer + 1024 * tower
-                                      + GOLDEN))
+    return mix32((seed & M32) ^ salt(site, tower, layer))
+
+
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The seed as the kernels read it: a 0-d int32 tensor on ``device``
+    holding its 32 bits.  A tensor seed must be one already (the train
+    step's, which it writes before each replay of a captured step); an int
+    is put there by a fill, with no copy from the host."""
+    if isinstance(seed, torch.Tensor):
+        if (seed.dtype != torch.int32 or seed.dim() != 0
+                or seed.device != torch.device(device)):
+            raise ValueError(f"a tensor seed must be 0-d int32 on {device}, "
+                             f"got {seed.dtype} {tuple(seed.shape)} on "
+                             f"{seed.device}")
+        return seed
+    s = int(seed) & M32
+    return torch.full((), s - (1 << 32) if s >> 31 else s,
+                      dtype=torch.int32, device=device)
 
 
 def bits_reference(seed: int, site: int, tower: int, layer: int,
@@ -98,10 +119,16 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def bits(index: torch.Tensor, seed: int, site: int, tower: int,
+def bits(index: torch.Tensor, seed, site: int, tower: int,
          layer: int) -> torch.Tensor:
-    """The random bits (int64 in [0, 2^32)) of the elements ``index``."""
-    key = stream_key(seed, site, tower, layer)
+    """The random bits (int64 in [0, 2^32)) of the elements ``index``.
+    ``seed``: an int, or a 0-d int32 tensor holding its 32 bits
+    (:func:`seed_tensor`), read without a host sync; both give the same
+    bits."""
+    if isinstance(seed, torch.Tensor):
+        key = _mix32((seed.to(torch.int64) & M32) ^ salt(site, tower, layer))
+    else:
+        key = stream_key(seed, site, tower, layer)
     return _mix32(_mul32(index.to(torch.int64), GOLDEN) ^ key)
 
 
@@ -132,11 +159,12 @@ def global_index(shape, rmap, device=None) -> torch.Tensor:
             + torch.arange(per_row, device=device)).view(shape) & M32
 
 
-def apply(x: torch.Tensor, p: float, seed: int, site: int, tower: int,
+def apply(x: torch.Tensor, p: float, seed, site: int, tower: int,
           layer: int, rmap=None) -> torch.Tensor:
     """Dropout of ``x`` at rate ``p``: elements indexed row-major over x's
     shape, in the global batch under the row map ``rmap``, kept ones
-    divided by (1 - p).  Identity at p == 0."""
+    divided by (1 - p); ``seed`` an int or a 0-d int32 tensor (:func:`bits`).
+    Identity at p == 0."""
     if p <= 0.0:
         return x
     if x.numel() >= 2 ** 32:

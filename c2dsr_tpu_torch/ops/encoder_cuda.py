@@ -28,7 +28,10 @@ in eval a one-layer workspace of the same layout (``csrc/encoder.cu`` and
 
 Dropout (training) draws every mask from the counter-based hash of
 ``ops/dropout.py``; the backward regenerates the forward's masks from the
-same (seed, tower).  ``row_map`` (``ops/dropout.row_map``) places a data
+same (seed, tower).  The kernels read the seed from device memory: a
+caller passes an int, or the 0-d int32 tensor that a captured train step
+writes before each replay (``train/step.py``), so that each replay draws
+its own step's masks.  ``row_map`` (``ops/dropout.row_map``) places a data
 rank's rows in the run's global batch, so that a data-parallel step draws
 the masks of the one-process step over that batch; None is a one-process
 call.  Unlike the Pallas kernel, which pads L to a multiple
@@ -56,7 +59,7 @@ from c2dsr_tpu_torch.kernels import build
 from c2dsr_tpu_torch.ops import dropout as drop
 from c2dsr_tpu_torch.ops.encoder import _NAMES, tower_params, tower_weights
 
-_DROP_SIG = (ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
+_DROP_SIG = (ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
              ctypes.c_int) + (ctypes.c_uint,) * 3
 _FWD_SIG = ((ctypes.c_void_p,) * 18 + (ctypes.c_int,) * 8 + _DROP_SIG
             + (ctypes.c_int, ctypes.c_void_p))
@@ -87,12 +90,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _drop_args(dropout: float, seed: int, tower: int, row_map=None):
+def _drop_args(dropout: float, seed, tower: int, row_map, device):
+    """(the C entry points' dropout arguments, the device seed they point
+    at, which the caller holds until the launch has been enqueued).  The
+    kernels read the seed from device memory (``csrc/dropout.cuh``): a
+    0-d int32 tensor passes as it is, an int is filled into a new one; in
+    eval no seed is read and the pointer is null."""
     on = dropout > 0.0
+    seed_t = drop.seed_tensor(seed, device) if on else None
     off, seg, stride = row_map if row_map is not None else (0, 0, 0)
     return (int(on), drop.threshold(dropout) if on else 0,
-            float(1.0 - dropout), int(seed) & drop.M32, int(tower),
-            int(off) & drop.M32, int(seg), int(stride) & drop.M32)
+            float(1.0 - dropout), seed_t.data_ptr() if on else None,
+            int(tower), int(off) & drop.M32, int(seg),
+            int(stride) & drop.M32), seed_t
 
 
 def _check(x: torch.Tensor, seq: torch.Tensor, weights, n_head: int,
@@ -208,12 +218,12 @@ def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
     x = _aligned(x)
     weights = [_aligned(w) for w in weights]
     out = torch.empty_like(x)
+    drop_args, _seed = _drop_args(dropout, seed, tower, row_map, x.device)
     err = _fn("encoder", "encoder_fwd", _FWD_SIG)(
         x.data_ptr(), seq32.data_ptr(), *[w.data_ptr() for w in weights],
         out.data_ptr(), buf.data_ptr(), int(saved is not None),
         B, L, d, n_head, n_layers, int(idx_pad),
-        int(bool(invert_padding_mask)),
-        *_drop_args(dropout, seed, tower, row_map), int(bf16),
+        int(bool(invert_padding_mask)), *drop_args, int(bf16),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_fwd launch failed: CUDA error {err}")
@@ -271,10 +281,11 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
     ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
     flat = torch.empty(grad_floats, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
+    drop_args, _seed = _drop_args(dropout, seed, tower, row_map, x.device)
     err = _fn("encoder_bwd", "encoder_bwd", _BWD_SIG)(
         saved.data_ptr(), gout.data_ptr(), *[w.data_ptr() for w in weights],
         dx.data_ptr(), flat.data_ptr(), ws.data_ptr(), grid, B, L, d, n_head,
-        n_layers, *_drop_args(dropout, seed, tower, row_map), int(bf16),
+        n_layers, *drop_args, int(bf16),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_bwd launch failed: CUDA error {err}")
@@ -293,14 +304,18 @@ encoder_bwd.launches = 0
 encoder_bwd.launches_bf16 = 0
 
 
-def dropout_bits(seed: int, site: int, tower: int, layer: int, n: int
+def dropout_bits(seed, site: int, tower: int, layer: int, n: int
                  ) -> torch.Tensor:
     """The kernels' dropout hash bits of elements 0..n-1 of one stream, as
-    int64 on the card (a check against ``ops/dropout.bits_reference``)."""
+    int64 on the card (a check against ``ops/dropout.bits_reference``);
+    ``seed`` an int or a 0-d int32 tensor on the card, read there as the
+    kernels read it."""
     out = torch.empty(n, dtype=torch.int32, device="cuda")
+    seed_t = drop.seed_tensor(seed, out.device)
     err = _fn("encoder", "dropout_bits_u32",
-              (ctypes.c_uint,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,) * 2)(
-        int(seed) & drop.M32, site, tower, layer, n, out.data_ptr(),
+              (ctypes.c_void_p,) + (ctypes.c_int,) * 4
+              + (ctypes.c_void_p,) * 2)(
+        seed_t.data_ptr(), site, tower, layer, n, out.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_bits launch failed: CUDA error {err}")

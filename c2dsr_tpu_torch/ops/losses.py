@@ -56,7 +56,7 @@ def bce_with_logits(logits: torch.Tensor, label_is_one: bool,
     if weights is None:
         if count_sum is None:
             return t.mean()
-        n = count_sum(torch.tensor(float(t.numel()), device=t.device))
+        n = count_sum(torch.full((), float(t.numel()), device=t.device))
         return t.sum() / n
     w = weights.reshape(weights.shape[0],
                         *([1] * (t.dim() - 1))).to(t.dtype)

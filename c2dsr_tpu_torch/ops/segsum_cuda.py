@@ -26,6 +26,7 @@ adds into one row (:func:`longest_chain`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 
@@ -38,6 +39,25 @@ D_MULTIPLE = 4       # the widths the kernel takes (the callers pad to it)
 SMALL_ROWS = 64      # tables up to this many rows take the block path only
 _CACHE = 32          # workspaces kept (one per device, stream and shape)
 _workspaces: "collections.OrderedDict" = collections.OrderedDict()
+_private = None      # the store of private_workspaces, while one is open
+
+
+@contextlib.contextmanager
+def private_workspaces(store: dict):
+    """Within: every K7 call keeps its workspace in ``store`` (keyed by
+    device and shape, never evicted) in place of the shared per-stream
+    cache.  A CUDA graph's launches point at their workspaces for as long
+    as the graph lives, so each graph holds its own (``capture.py``): one
+    from the shared cache could be evicted, or taken by an eager call on
+    the stream the graph replays on, while the graph still uses it.  The
+    store is one module-wide setting, not a thread's: a lookup's backward
+    runs on autograd's device thread."""
+    global _private
+    prev, _private = _private, store
+    try:
+        yield
+    finally:
+        _private = prev
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,10 +90,12 @@ def workspace(device: torch.device, stream: int, n: int, n_rows: int):
 
 def _workspace(device: torch.device, stream: int, n: int, n_rows: int):
     """(workspace, the kernels' pointers into it)."""
-    key = (device.index, stream, n, n_rows)
-    entry = _workspaces.get(key)
+    store = _workspaces if _private is None else _private
+    key = _key(device, stream, n, n_rows)
+    entry = store.get(key)
     if entry is not None:
-        _workspaces.move_to_end(key)
+        if store is _workspaces:
+            _workspaces.move_to_end(key)
         return entry
 
     def ints(size, fill):
@@ -90,10 +112,18 @@ def _workspace(device: torch.device, stream: int, n: int, n_rows: int):
                           device=device),
               ints(max(min(n, n_rows), 1), -1), ints(4, 0))
     entry = ws, tuple(None if t is None else t.data_ptr() for t in ws)
-    _workspaces[key] = entry
-    while len(_workspaces) > _CACHE:
+    store[key] = entry
+    while store is _workspaces and len(_workspaces) > _CACHE:
         _workspaces.popitem(last=False)
     return entry
+
+
+def _key(device: torch.device, stream: int, n: int, n_rows: int) -> tuple:
+    """A workspace's key: per stream in the shared cache; in a private
+    store, whose calls run in one order, by shape alone."""
+    if _private is None:
+        return (device.index, stream, n, n_rows)
+    return (device.index, n, n_rows)
 
 
 def segsum_plain(ids: torch.Tensor, g: torch.Tensor, n_rows: int
@@ -119,7 +149,8 @@ def segsum(ids: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
     integer type is converted first); g: f32 [n, d] on the card, d % 4 ==
     0, contiguous and 16-byte aligned (as autograd's gradients are).  The
     workspace is kept per stream: calls on one stream are ordered, so they
-    may share it."""
+    may share it (a captured graph's are its own,
+    :func:`private_workspaces`)."""
     if not g.is_cuda:
         raise ValueError("segsum takes CUDA tensors only")
     n = ids.numel()
@@ -144,7 +175,8 @@ def segsum(ids: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
                 n_rows, d, stream)
     if err != 0:
         # a failed launch may leave counts behind: the next call starts anew
-        _workspaces.pop((device.index, stream, n, n_rows), None)
+        (_workspaces if _private is None else _private).pop(
+            _key(device, stream, n, n_rows), None)
         raise RuntimeError(f"segsum launch failed: CUDA error {err}")
     segsum.launches += 1
     return out

@@ -25,7 +25,10 @@ sharded propagation's all-to-all schedule to both graphs when
 (``BatchIterator`` sliced by the data index, not the process index) and
 ranks its rows of each eval chunk, every example keeping its rank.
 Checkpoints hold the whole state, written by rank 0
-(``checkpoint.py``).  Runs on the card unless ``device="cpu"``.
+(``checkpoint.py``).  Runs on the card unless ``device="cpu"``.  On one
+card the train and rank steps run as CUDA graphs (``capture.py``); the
+log states each step's mode, and why a step runs eagerly (the CPU, a
+mesh, ``debug_nans``).
 """
 
 from __future__ import annotations
@@ -98,6 +101,10 @@ class Experiment:
         self._profiled = False
         if cfg.debug_nans:
             torch.autograd.set_detect_anomaly(True)
+        if self.noter:
+            # which steps run as CUDA graphs, and why any runs eagerly
+            self.noter.log_msg(f"[Info] train step {self.train_step.mode}; "
+                               f"rank step {self.rank_step.mode}")
 
         # resume: restore TrainState + best-validation bookkeeping
         self._start_epoch = 0

@@ -49,6 +49,17 @@ does by hand, and gets wrong by default:
 * the GNN dropout's generator is seeded per model shard and alike on the
   data replicas of a shard (``dropout_generator``), so that the replicated
   tables stay equal bit for bit.
+
+On one card the step is one CUDA graph per batch signature (``capture.py``),
+the counterpart of the JAX package's jitted step with its state donated:
+:class:`StepProgram` updates the parameters and the optimizer's state in
+place, in static memory.  The towers read the step's seed from a device
+scalar and the GNN dropout draws from one generator registered with the
+graphs, both set on the host before each replay from
+``step_seed(cfg.seed + 1, step)``: the masks of a captured step are those
+of the eager step.  ``make_train_step(..., capture=False)`` runs the same
+program eagerly; the CPU, a mesh and ``debug_nans`` run the eager step of
+:func:`_eager_step` (``capture.resolve``).
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from c2dsr_tpu_torch import capture as capture_mod
 from c2dsr_tpu_torch.config import Config, DataSpec
 from c2dsr_tpu_torch.evaluate.ranker import to_device
 from c2dsr_tpu_torch.model import c2dsr
@@ -119,10 +131,14 @@ def row_flags(seq_share3: torch.Tensor, seq_a: torch.Tensor,
 
 
 def loss_fn(params, graphs: c2dsr.Graphs, batch: Dict[str, torch.Tensor],
-            seed: Optional[int], cfg: Config, spec: DataSpec, pops=None
+            seed, cfg: Config, spec: DataSpec, pops=None,
+            generator: Optional[torch.Generator] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, aux) of one batch of device tensors; seed=None runs without
-    dropout (eval mode), else the step's dropout comes from ``seed``."""
+    dropout (eval mode), else the step's dropout comes from ``seed``: an
+    int, or a 0-d int32 device tensor (``ops/dropout.seed_tensor``) with the
+    GNN dropout's ``generator``, seeded by the caller with the same seed
+    (else the strategy's ``dropout_generator(seed)``)."""
     pops = pops or strategy.LocalOps(cfg=cfg)
     B = batch["seq_share"].shape[0]
     device = batch["seq_share"].device
@@ -134,7 +150,9 @@ def loss_fn(params, graphs: c2dsr.Graphs, batch: Dict[str, torch.Tensor],
     seq_share3 = torch.cat([batch["seq_share"], batch["seq_share_neg_a"],
                             batch["seq_share_neg_b"]], dim=0)
     pos3 = torch.cat([batch["pos"]] * 3, dim=0)
-    gen = None if seed is None else pops.dropout_generator(seed, device)
+    gen = generator
+    if gen is None and seed is not None:
+        gen = pops.dropout_generator(seed, device)
     # batch-sparse propagation (cfg.batch_sparse_gnn): mark the table rows
     # this step will read.  INVARIANT: the propagated tables hi are consumed
     # ONLY by c2dsr.forward_joint's lookups, so the flags are derived from
@@ -164,7 +182,7 @@ def loss_fn(params, graphs: c2dsr.Graphs, batch: Dict[str, torch.Tensor],
     if valid is not None:
         valid = valid.float()
     n_examples = (valid.sum() if valid is not None
-                  else torch.tensor(float(B), device=device))
+                  else torch.full((), float(B), device=device))
     if count is not None:
         n_examples = count(n_examples)
 
@@ -249,8 +267,12 @@ def sum_grads(leaves: List[torch.Tensor], group) -> None:
         at += p.numel()
 
 
+AUX_KEYS = ("loss", "loss_rec", "loss_mi", "n_examples")
+
+
 def make_train_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
-                    optimizer: optim.Optimizer, device="cuda", mesh=None):
+                    optimizer: optim.Optimizer, device="cuda", mesh=None,
+                    capture: Optional[bool] = None):
     """The train step: ``train_step(state, batch) -> (state, aux)``.
 
     ``batch`` is a dict of numpy arrays (data/pipeline.BatchIterator): on a
@@ -260,8 +282,28 @@ def make_train_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
     the host.  The parameters are updated in place; ``aux`` holds loss,
     loss_rec, loss_mi and n_examples as device tensors (of the global
     batch), read with no host sync.  Runs on the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``.
+
+    ``capture`` (``capture.resolve``): on one card the step is a
+    :class:`StepProgram`, by default captured as one CUDA graph per batch
+    signature, with ``capture=False`` run eagerly; the CPU, a mesh and
+    ``cfg.debug_nans`` run :func:`_eager_step`, and ``capture=True`` raises
+    there.  The returned function's ``mode`` says which, as the log states
+    it."""
     device = backend.resolve_device(device)
+    captured, mode = capture_mod.resolve(capture, device, mesh,
+                                         cfg.debug_nans)
+    if device.type == "cuda" and mesh is None and not cfg.debug_nans:
+        return StepProgram(cfg, spec, graphs, optimizer, device, captured,
+                           mode)
+    train_step = _eager_step(cfg, spec, graphs, optimizer, device, mesh)
+    train_step.mode = mode
+    return train_step
+
+
+def _eager_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
+                optimizer: optim.Optimizer, device: torch.device, mesh):
+    """The step run op by op: on the CPU, on a mesh, under debug_nans."""
     pops = strategy.make_ops(cfg, mesh)
     data = pops.data_group
 
@@ -291,3 +333,78 @@ def make_train_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
         return TrainState(state.params, state.opt_state, state.step + 1), aux
 
     return train_step
+
+
+class StepProgram:
+    """The one-card train step as a program over static memory: captured
+    as one CUDA graph per batch signature (``capture.Program``), or run
+    eagerly with ``capture=False``, the same body either way.
+
+    Bound to one optimizer state (its identity and ``generation``) and its
+    parameters: the gradients become static (``Optimizer.
+    bind_static_grads``), and a new binding (another state, or a restored
+    one, ``optim.load_state``) drops the graphs, which its next calls
+    rebuild.  A call stages the batch (``capture.Staging``), writes the
+    step's seed into the device scalar the towers read and re-seeds the GNN
+    dropout's generator, runs the body (zero the gradients, unless they
+    run over the epoch; forward; backward; the capturable AdamW's update),
+    then steps the schedule, which fills the device lr, all outside the
+    graph.  ``aux`` is copied out of the graph's static output."""
+
+    def __init__(self, cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
+                 optimizer: optim.Optimizer, device: torch.device,
+                 capture: bool, mode: str = ""):
+        self.cfg, self.spec, self.graphs = cfg, spec, graphs
+        self.optimizer = optimizer
+        self.device = device
+        self.mode = mode
+        self.pops = strategy.LocalOps(cfg=cfg)
+        self.seed = torch.zeros((), dtype=torch.int32, device=device)
+        self.generator = torch.Generator(device=device)
+        self.program = capture_mod.Program(capture, [self.generator])
+        self.staging: Dict[tuple, capture_mod.Staging] = {}
+        self._bound = None
+        self._grads: List[torch.Tensor] = []
+
+    def _bind(self, state: TrainState) -> None:
+        """Bind to ``state``, or rebuild where it is not the state the
+        graphs were captured over (another optimizer state, a restored one,
+        other params, or gradients a caller replaced)."""
+        opt = state.opt_state
+        bound = (id(opt), opt.generation, id(state.params))
+        if bound != self._bound or any(
+                p.grad is not g for p, g in zip(opt.leaves, self._grads)):
+            self.program.reset()
+            self.optimizer.bind_static_grads(opt)
+            self._grads = [p.grad for p in opt.leaves]
+            self._bound = bound
+
+    def _body(self, params, opt: optim.OptState,
+              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if not self.cfg.bug_epoch_grad_accum:
+            torch._foreach_zero_([p.grad for p in opt.leaves])
+        loss, aux = loss_fn(params, self.graphs, batch, self.seed, self.cfg,
+                            self.spec, self.pops, generator=self.generator)
+        loss.backward()
+        self.optimizer.apply_static(opt)
+        return torch.stack([aux[k].detach() for k in AUX_KEYS])
+
+    def __call__(self, state: TrainState, batch: Dict[str, Any]):
+        self._bind(state)
+        key = capture_mod.signature(batch)
+        stage = self.staging.get(key)
+        if stage is None:
+            stage = self.staging[key] = capture_mod.Staging(batch,
+                                                            self.device)
+        b = stage(batch)
+        seed = drop.step_seed(self.cfg.seed + 1, state.step)
+        self.seed.fill_(seed)
+        self.generator.manual_seed(seed)
+        opt = state.opt_state
+        out, static = self.program.run(
+            key, lambda: self._body(state.params, opt, b))
+        opt.schedule.step()
+        if static:
+            out = out.clone()
+        aux = dict(zip(AUX_KEYS, out.unbind()))
+        return TrainState(state.params, opt, state.step + 1), aux

@@ -61,6 +61,19 @@ Phases (any failure exits non-zero without the final line):
    main path (a step, a batch-sparse step and a serving run whose ranks
    equal the plain versions' but at near-ties) with its launches; and the
    bf16 step timed against the f32 step in turns.
+   Then the step and the rank step as CUDA graphs (``phase_graph``, after
+   the determinism phase): at FK, f32 and bf16, dense and batch-sparse,
+   GRAPH_STEPS captured steps (epochs of two full batches and a ragged
+   one, StepLR moving the lr) bitwise the eager program's (params, AdamW
+   state, lr, aux), also under bug_epoch_grad_accum, with the foreach
+   AdamW, and resumed from a checkpoint at step 3 into a fresh program;
+   one replay profiled: every step kernel (K6 when batch-sparse, the bf16
+   instantiations on the bf16 path) from one cudaGraphLaunch; captured
+   ranks equal the eager ones; then captured against eager train and
+   serving rates, and fused against foreach AdamW, in turns, with host
+   and busy ms a step, capture seconds and graph pool bytes.  The train
+   and rank steps of every other phase are the default, captured ones;
+   the kernels line counts a graph's launches at each replay.
 5. experiment path: ``train.loop.Experiment`` at Food-Kitchen geometry
    with ``Config(batch_sparse_gnn=True, n_epoch=2)``, checkpointing to a
    temporary directory: finite losses and metrics, the batch-sparse SpMM
@@ -163,6 +176,10 @@ NATIVE_USERS = 2000           # users of each interaction file
 SERVE_RUNS = 8           # timed serving runs of each --rates process
 BUSY_ROUNDS = 16         # rounds of (K7, index_add_, index_add_, K7)
                          # profiled steps (_k7_step_cost)
+LEAD = 64                # fills that open (and close) a profiled window:
+                         # the profiler loses its window's first kernels,
+                         # up to 9 in this PR's runs (_k7_kernels)
+PROFILE_PAUSE_S = 0.05   # the pause after them
 LOOKUPS = 6              # K7 launches a train step: the propagated plus the
                          # raw table (one K7, ops/lookup.lookup_add) and the
                          # positions, for each of the three tower inputs
@@ -2542,23 +2559,41 @@ def _k7_call(name, ids, g, n_rows, timer, peak_bw, clock_hz):
 
 def _k7_kernels(fn, calls: int = 5):
     """({K7 kernel: device ms a call}, K7 launches a call) of ``fn`` under
-    torch.profiler.  In a process that has run many profiles, the profiler
-    missed the first few K7 launches of its window, so the window opens
-    with other kernels and a pause, which are not counted."""
+    torch.profiler.  In a process that has run many profiles (and CUDA
+    graphs), the profiler loses the first kernels of its window, 9 of them
+    in this PR's runs, whatever the pause: so the window opens with LEAD
+    fills and closes with LEAD more, none of which are counted, and fails
+    unless one of the opening fills is seen, so that no K7 launch can have
+    been lost; a count that is not whole logs the window's kernels."""
     from torch.profiler import ProfilerActivity, profile
     lead = torch.empty(16 << 20, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
+        for _ in range(LEAD):
             lead.zero_()
         torch.cuda.synchronize()
-        time.sleep(0.05)
+        time.sleep(PROFILE_PAUSE_S)
         for _ in range(calls):
             fn()
+        for _ in range(LEAD):
+            lead.zero_()
         torch.cuda.synchronize()
     ms, launches = _k7_by_kernel(prof)
+    kernels = sorted((ev.time_range.start, ev.name) for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
+    names = ["K7" if "segsum_" in n else "fill" if "Fill" in n else n[:40]
+             for _, n in kernels]
+    opening = names[:names.index("K7") if "K7" in names else None]
+    if launches % calls or opening.count("fill") < LEAD:
+        log(f"K7 profile window: {launches} K7 launches in {calls} calls; "
+            f"the profiler lost {LEAD - opening.count('fill')} of the "
+            f"{LEAD} opening fills; {len(names)} kernels, first "
+            f"{names[:4]}, last {names[-4:]}")
+    check("fill" in opening,
+          f"K7 profile window: the profiler lost every opening fill "
+          f"({len(names)} kernels seen), so it may have lost K7 launches")
     return {k: v / calls for k, v in ms.items()}, launches / calls
 
 
@@ -3795,6 +3830,382 @@ def phase_scaled_e2e():
     return rep, window
 
 
+GRAPH_STEPS = 8          # steps of each captured-against-eager comparison
+GRAPH_SPE = 3            # steps an epoch there: two full batches, then a
+GRAPH_RAGGED = 300       # ragged one of this many rows; StepLR at lr_step 1
+GRAPH_ROUNDS = 6         # rounds of (captured, eager, eager, captured) runs
+GRAPH_RUN_STEPS = 8      # steps a timed run
+GRAPH_SERVE_ROUNDS = 3   # rounds of timed serving runs, in the same turns
+
+
+def _graph_batches(train, cfg):
+    """GRAPH_STEPS batches in epochs of GRAPH_SPE: full batches, then the
+    ragged last one, so each signature runs its warm-up, its capture and
+    replays within the run."""
+    out, at = [], 0
+    for i in range(GRAPH_STEPS):
+        n = GRAPH_RAGGED if i % GRAPH_SPE == GRAPH_SPE - 1 else cfg.batch_size
+        out.append({k: v[at:at + n] for k, v in train.items()})
+        at += n
+    return out
+
+
+def _graph_state(cfg, spec, init, impl="fused"):
+    """A fresh (state, step function, optimizer) on the card from the numpy
+    params ``init``, StepLR's epoch GRAPH_SPE steps."""
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.train import optim
+    from c2dsr_tpu_torch.train import step as step_mod
+    params = params_mod.params_from_numpy(init, "cuda")
+    opt = optim.make_optimizer(cfg, steps_per_epoch=GRAPH_SPE, impl=impl)
+    state = step_mod.init_state(params, opt)
+    return state, opt
+
+
+def _graph_tensors(state):
+    """Every tensor a step updates: the params, and per leaf the AdamW's
+    moments, max second moment and step count, and the lr."""
+    from c2dsr_tpu_torch.train import step as step_mod
+    opt = state.opt_state
+    return (step_mod.param_leaves(state.params)
+            + [opt.adamw.state[p][k] for p in opt.leaves
+               for k in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq", "step")]
+            + [opt.lr])
+
+
+def _graph_run(cfg, spec, graphs, init, batches, capture, start=None,
+               impl="fused", steps=None):
+    """Run ``batches`` (from ``start``, a (state, opt) pair, or fresh from
+    ``init``), with the epoch's gradient reset under bug_epoch_grad_accum:
+    (state, [aux of each step as one tensor], step function)."""
+    from c2dsr_tpu_torch.train import step as step_mod
+    state, opt = start or _graph_state(cfg, spec, init, impl)
+    fn = step_mod.make_train_step(cfg, spec, graphs, opt, "cuda",
+                                  capture=capture)
+    auxes = []
+    for b in batches[state.step:steps]:
+        if cfg.bug_epoch_grad_accum and state.step % GRAPH_SPE == 0:
+            opt.reset_grad_accum(state.opt_state)
+        state, aux = fn(state, b)
+        auxes.append(torch.stack([aux[k] for k in step_mod.AUX_KEYS]))
+    torch.cuda.synchronize()
+    return state, auxes, fn
+
+
+def _bitwise(tag, a, b):
+    differ = sum(not torch.equal(x, y) for x, y in zip(a, b))
+    check(len(a) == len(b) and differ == 0,
+          f"{tag}: not bitwise equal ({differ} of {len(a)} tensors differ)")
+
+
+def _graph_kernels(fn, state, batch, sparse, bf16, label):
+    """One replay of ``fn``'s captured step under torch.profiler: every
+    step kernel runs, launched by one cudaGraphLaunch (a handful of host
+    launches around it: the seed, the lr, aux); with ``sparse`` K6, with
+    ``bf16`` the bf16 instantiations.  Returns the kernel names."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(state, batch)                 # the signature's graph exists after
+    torch.cuda.synchronize()
+    # the profiler may miss the first kernels of its window (_k7_kernels):
+    # LEAD fills and a pause open it, before the replay
+    lead = torch.empty(16 << 20, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD):
+            lead.zero_()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAUSE_S)
+        fn(state, batch)
+        torch.cuda.synchronize()
+    host, timed = {}, []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            n = ev.name.replace("(anonymous namespace)::", "")
+            n = n[5:] if n.startswith("void ") else n
+            timed.append((ev.time_range.start, n.split("(")[0]))
+        else:
+            host[ev.name] = host.get(ev.name, 0) + 1
+    names = [n for _, n in sorted(timed)]
+    while names and "Fill" in names[0]:
+        names.pop(0)              # the opening fills and the step's own
+    fam = {}
+    for n in names:
+        f = kernel_family(n)
+        if f:
+            fam[f] = fam.get(f, 0) + 1
+
+    def bf(prefix):
+        return any(n.startswith(prefix) and n.rstrip().endswith("true>")
+                   for n in names)
+
+    k6 = sum(n.startswith("spmm_tasks_kernel<") and not
+             n.startswith("spmm_tasks_kernel<0") for n in names)
+    launches = max(host.get("cudaLaunchKernel", 0)
+                   + host.get("cudaLaunchKernelExC", 0) - LEAD, 0)
+    log(f"{label}: one replay ran {len(names)} kernels ({fam}; K6 {k6}) "
+        f"from {host.get('cudaGraphLaunch', 0)} cudaGraphLaunch and "
+        f"{launches} kernel launches by the host")
+    check(host.get("cudaGraphLaunch", 0) == 1,
+          f"{label}: {host.get('cudaGraphLaunch', 0)} graph launches")
+    check(launches <= 8 and len(names) > 10 * max(launches, 1),
+          f"{label}: the host launched {launches} kernels itself")
+    for f in ("K1/K6 spmm", "K2 encoder_fwd", "K3 encoder_bwd", "K4 ce_fwd",
+              "K5 ce_bwd", "K7 segsum"):
+        check(fam.get(f, 0) > 0, f"{label}: no {f} kernel in the replay")
+    check((k6 > 0) == sparse, f"{label}: {k6} K6 kernels, sparse {sparse}")
+    if bf16:
+        for prefix in ("spmm_tasks_kernel<", "encoder_fwd_attn_kernel<",
+                       "attn_bwd_kernel<", "ce_fwd_kernel<", "ce_bwd_kernel<"):
+            check(bf(prefix), f"{label}: no bf16 {prefix}...> in the replay")
+    return names
+
+
+def _se_resolved(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    diff = a.mean() - b.mean()
+    se = math.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b))
+    return float(diff), float(se), bool(abs(diff) > 3 * se)
+
+
+def _graph_rates(cfg, spec, graphs, init, train, label, impls=None):
+    """The captured step against the eager one (or two AdamW impls, both
+    captured) in turns, GRAPH_ROUNDS rounds of (a, b, b, a) runs of
+    GRAPH_RUN_STEPS full batches: train examples/s; after each run the
+    host's ms to enqueue one more step on an empty queue; and profiled
+    device busy ms a step."""
+    from c2dsr_tpu_torch.data.pipeline import BatchIterator
+    from c2dsr_tpu_torch.train import step as step_mod
+    it = BatchIterator(train, cfg.batch_size, shuffle=True, seed=0,
+                       drop_last=True)
+
+    def feed():
+        while True:
+            yield from it.epoch()
+
+    batches = feed()
+    names = ("captured", "eager") if impls is None else impls
+    fns = {}
+    for name in names:
+        state, opt = _graph_state(cfg, spec, init,
+                                  name if impls else "fused")
+        fn = step_mod.make_train_step(cfg, spec, graphs, opt, "cuda",
+                                      capture=impls is not None
+                                      or name == "captured")
+        for _ in range(3):
+            state, _ = fn(state, next(batches))
+        fns[name] = [fn, state]
+    torch.cuda.synchronize()
+    host = {n: [] for n in names}
+    rate = {n: [] for n in names}
+    a, b = names
+    for name in (a, b, b, a) * GRAPH_ROUNDS:
+        fn, state = fns[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_RUN_STEPS):
+            state, aux = fn(state, next(batches))
+        torch.cuda.synchronize()
+        rate[name].append(GRAPH_RUN_STEPS * cfg.batch_size
+                          / (time.perf_counter() - t0))
+        # the host's ms to enqueue one step on an empty queue
+        t0 = time.perf_counter()
+        state, aux = fn(state, next(batches))
+        host[name].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        fns[name][1] = state
+        check(math.isfinite(float(aux["loss"])), f"{label}: loss not finite")
+    out = {}
+    for name in names:
+        fn, state = fns[name]
+        one = next(batches)
+
+        def three_steps():
+            for _ in range(3):
+                fn(state, one)
+            torch.cuda.synchronize()
+
+        # one profiled window of three steps (each profiler window opened
+        # in this process costs later phases' profiles their first events)
+        busy = [b / 3 for b in _busy_ms(three_steps, reps=1)[0]]
+        out[name] = {"host_ms": float(np.mean(host[name])),
+                     "host_ms_sd": float(np.std(host[name], ddof=1)),
+                     "examples_per_s": float(np.mean(rate[name])),
+                     "examples_per_s_sd": float(np.std(rate[name], ddof=1)),
+                     "step_ms": cfg.batch_size / float(np.mean(rate[name]))
+                     * 1e3, "busy_ms": float(np.median(busy)),
+                     "runs": len(rate[name])}
+        log(f"{label} {name}: host {out[name]['host_ms']:.3f} ms a step (sd "
+            f"{out[name]['host_ms_sd']:.3f}), "
+            f"{out[name]['examples_per_s']:.1f} train examples/s (sd "
+            f"{out[name]['examples_per_s_sd']:.1f}, "
+            f"{out[name]['step_ms']:.3f} ms a step), device busy "
+            f"{out[name]['busy_ms']:.3f} ms a step (profiled over 3 steps)")
+    for key in ("examples_per_s", "host_ms"):
+        src = rate if key == "examples_per_s" else host
+        d, se, ok = _se_resolved(src[a], src[b])
+        out[f"{key}_diff"] = {"diff": d, "se": se, "resolved": ok}
+        log(f"{label}: {a} - {b} {key} {d:+.3f} ({d / np.mean(src[b]):+.2%}),"
+            f" standard error {se:.3f}: {'resolved' if ok else 'unresolved'}")
+    return out, fns
+
+
+def phase_graph(spec, train, graphs, eval_data):
+    """The train step and the rank step as CUDA graphs (``capture.py``),
+    held bitwise against the eager programs (``capture=False``) from the
+    same params, at FK geometry with the default Config (dropout 0.2):
+
+    * f32 and bf16, dense and batch-sparse: GRAPH_STEPS steps in epochs of
+      two full batches and a ragged one (each signature warmed up eagerly,
+      captured, replayed), StepLR moving the lr every epoch (lr_step 1):
+      params, AdamW moments, max second moments, step counts, lr and aux
+      bitwise; one replay profiled with every step kernel in it;
+    * bug_epoch_grad_accum across the epoch boundaries; fused AdamW
+      (captured against its own eager run);
+    * resume: a checkpoint at step 3, restored into a fresh state and a
+      fresh program, run to GRAPH_STEPS: bitwise the uninterrupted run;
+    * serving: the captured rank_step's ranks equal the eager one's in
+      both domains, sampled and full, the last chunk padded;
+    * times, in turns in this process: the captured and eager steps (f32,
+      bf16), fused against foreach AdamW, and serving examples/s of each
+      mode; the capture's seconds and the graph pool's bytes.
+
+    Returns (launches of the captured f32 and batch-sparse runs, results).
+    """
+    from c2dsr_tpu_torch import checkpoint as ckpt_mod
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.train import step as step_mod
+    base = Config(lr_step=1)
+    init = params_mod.params_to_numpy(params_mod.init_params(
+        base, spec, torch.Generator().manual_seed(0), "cpu"))
+    batches = _graph_batches(train, base)
+    res = {"steps": GRAPH_STEPS, "epoch_steps": GRAPH_SPE,
+           "ragged_rows": GRAPH_RAGGED}
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+    lrs = None
+    for tag, cfg in (
+            ("f32", base), ("f32 batch-sparse", base.with_(
+                batch_sparse_gnn=True)),
+            ("bf16", base.with_(compute_dtype="bfloat16",
+                                classifier_dtype="bfloat16")),
+            ("bf16 batch-sparse", base.with_(
+                compute_dtype="bfloat16", classifier_dtype="bfloat16",
+                batch_sparse_gnn=True))):
+        t0 = time.perf_counter()
+        eager, aux_e, _ = _graph_run(cfg, spec, graphs, init, batches, False)
+        reset_launches()
+        capt, aux_c, fn = _graph_run(cfg, spec, graphs, init, batches, True)
+        for k, v in read_launches().items():
+            launches[k] += v
+        stats = fn.program.stats()
+        _bitwise(f"graph {tag}: state", _graph_tensors(eager),
+                 _graph_tensors(capt))
+        _bitwise(f"graph {tag}: aux", aux_e, aux_c)
+        check(stats["graphs"] == 2 and sum(stats["replays"]) ==
+              GRAPH_STEPS - 2, f"graph {tag}: {stats}")
+        lr = float(capt.opt_state.lr)
+        check(lr < base.lr, f"graph {tag}: StepLR left the lr at {lr}")
+        _graph_kernels(fn, capt, batches[0], cfg.batch_sparse_gnn,
+                       cfg.bf16_products(), f"graph {tag}")
+        res[tag] = {"capture_s": stats["capture_s"],
+                    "pool_bytes": stats["pool_bytes"],
+                    "launches_per_replay": stats["launches_per_replay"]}
+        log(f"graph {tag}: {GRAPH_STEPS} captured steps bitwise the eager "
+            f"ones (params, AdamW state, lr {lr:g}, aux; losses "
+            f"{[round(float(a[0]), 4) for a in aux_c]}); graphs "
+            f"{stats['graphs']}, capture {stats['capture_s']} s, replays "
+            f"{stats['replays']}, pool {stats['pool_bytes'] / 2**20:.1f} MiB, "
+            f"launches a replay {stats['launches_per_replay']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del eager, capt, fn
+    # the epoch-accumulation quirk, and the foreach AdamW (fused is the
+    # card's default)
+    for tag, cfg, impl in (("grad accum", base.with_(
+            bug_epoch_grad_accum=True), "fused"), ("foreach AdamW", base,
+                                                   "foreach")):
+        eager, aux_e, _ = _graph_run(cfg, spec, graphs, init, batches, False,
+                                     impl=impl)
+        capt, aux_c, fn = _graph_run(cfg, spec, graphs, init, batches, True,
+                                     impl=impl)
+        same = all(torch.equal(x, y) for x, y in zip(
+            _graph_tensors(eager) + aux_e, _graph_tensors(capt) + aux_c))
+        log(f"graph {tag}: captured against eager over {GRAPH_STEPS} steps: "
+            f"{'bitwise equal' if same else 'NOT bitwise equal'}")
+        res[tag] = {"bitwise": same}
+        check(same, f"graph {tag}: captured != eager")
+    # resume: checkpoint at step 3, a fresh state and program, on to the end
+    whole, aux_w, _ = _graph_run(base, spec, graphs, init, batches, True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        part, _, _ = _graph_run(base, spec, graphs, init, batches, True,
+                                steps=3)
+        ckpt_mod.save(path, part, block=True)
+        fresh = _graph_state(base, spec, init)
+        restored = ckpt_mod.restore(path, template=fresh[0])
+        resumed, aux_r, _ = _graph_run(base, spec, graphs, init, batches,
+                                       True, start=(restored, fresh[1]))
+    _bitwise("graph resume: state", _graph_tensors(whole),
+             _graph_tensors(resumed))
+    _bitwise("graph resume: aux", aux_w[3:], aux_r)
+    log(f"graph resume: restored at step 3 into a fresh program, "
+        f"{GRAPH_STEPS - 3} steps on: bitwise the uninterrupted run")
+    del whole, part, resumed, fresh, restored
+    torch.cuda.empty_cache()
+
+    # serving: captured rank_step against eager
+    params = params_mod.params_from_numpy(init, "cuda")
+    fns = {c: ranker.make_eval_fns(base, spec, graphs, "cuda", capture=c)
+           for c in (True, False)}
+    hi = fns[True][0](params)
+    serve = {}
+    for mode in ("sampled", "full"):
+        ranks = {c: ranker.evaluate_split(params, hi, eval_data, fns[c][1],
+                                          base, mode) for c in (False, True)}
+        check(ranks[True] == ranks[False],
+              f"graph serving {mode}: captured ranks differ from eager")
+        times = {True: [], False: []}
+        n = eval_data["gt_last"].shape[0]
+        for c in (True, False, False, True) * GRAPH_SERVE_ROUNDS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ranker.evaluate_split(params, hi, eval_data, fns[c][1], base, mode)
+            times[c].append(n / (time.perf_counter() - t0))
+        d, se, ok = _se_resolved(times[True], times[False])
+        serve[mode] = {"captured": float(np.mean(times[True])),
+                       "eager": float(np.mean(times[False])),
+                       "diff": d, "se": se, "resolved": ok}
+        log(f"graph serving {mode}: ranks equal over {n} examples; eval "
+            f"examples/s captured {np.mean(times[True]):.1f} eager "
+            f"{np.mean(times[False]):.1f}, diff {d:+.1f} (se {se:.1f}, "
+            f"{'resolved' if ok else 'unresolved'})")
+    stats = fns[True][1].program.stats()
+    serve["program"] = stats
+    log(f"graph serving: {stats['graphs']} rank graphs, capture "
+        f"{stats['capture_s']} s, pool {stats['pool_bytes'] / 2**20:.1f} MiB")
+    res["serving"] = serve
+    del fns, hi, params
+    torch.cuda.empty_cache()
+
+    # times: captured against eager (f32, bf16), fused against foreach
+    for tag, cfg, impls in (
+            ("f32", Config(), None),
+            ("bf16", Config(compute_dtype="bfloat16",
+                            classifier_dtype="bfloat16"), None),
+            ("AdamW", Config(), ("fused", "foreach"))):
+        res[f"rates {tag}"], held = _graph_rates(cfg, spec, graphs, init,
+                                                 train, f"graph rates {tag}",
+                                                 impls)
+        if tag == "f32":
+            st = held["captured"][0].program.stats()
+            res["fk_program"] = st
+            log(f"graph rates f32: the FK program's capture {st['capture_s']}"
+                f" s, pool {st['pool_bytes'] / 2**20:.1f} MiB")
+        del held
+        torch.cuda.empty_cache()
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3893,6 +4304,11 @@ def main() -> int:
     log(f"phase determinism: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    graph_launches, graph_res = phase_graph(spec, train, graphs, eval_data)
+    log("graph results: " + json.dumps(graph_res))
+    log(f"phase graph: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     par_launches, par_times, par_errs = phase_parallel(
         spec, graphs_host, graphs, train, eval_data, timer, peak_flops,
         peak_bw, name)
@@ -3921,6 +4337,7 @@ def main() -> int:
     log(f"phase scaled_e2e: {time.perf_counter() - t0:.1f} s")
     paths = {"serving": serving, "serving_d512": serving_wide,
              "training": training, "training_wide": training_wide,
+             "graph": graph_launches,
              "odd_widths": odd_widths,
              "experiment": experiment, "determinism": determinism,
              **par_launches, "scaled_e2e": scaled_launches,
@@ -3931,6 +4348,7 @@ def main() -> int:
             ("serving", ("spmm_csr", "encoder_fwd")),
             ("serving_d512", ("spmm_csr", "encoder_fwd")),
             ("training", step_kernels), ("training_wide", step_kernels),
+            ("graph", ("spmm_csr_flagged",) + step_kernels),
             ("odd_widths", ("spmm_csr", "ce_fwd", "ce_bwd", "segsum")),
             ("experiment", ("spmm_csr_flagged",) + step_kernels),
             ("determinism", step_kernels),

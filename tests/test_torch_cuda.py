@@ -1140,3 +1140,99 @@ def test_bf16_train_step_on_card_matches_cpu(cuda):
     assert abs(loss_k - loss_c) <= 1e-5 * abs(loss_c)
     for a, c in zip(g_k, g_c):
         assert _fro_err(a, c) <= 1e-2
+
+
+# ---- the captured step and rank step (CUDA graphs) -------------------------
+
+def test_dropout_hash_reads_a_device_seed(cuda):
+    """The kernels read the seed from device memory: a 0-d int32 tensor
+    gives the int seed's bits, the reference's, seeds past 2^31 too."""
+    from c2dsr_tpu_torch.ops import dropout as drop
+    for seed in (7, 2 ** 31 - 1, 2 ** 32 - 5):
+        t = drop.seed_tensor(seed, cuda)
+        got = encoder_cuda.dropout_bits(t, 1, 2, 1, 300).cpu()
+        assert torch.equal(got, encoder_cuda.dropout_bits(seed, 1, 2, 1,
+                                                          300).cpu())
+        assert got.tolist() == [drop.bits_reference(seed, 1, 2, 1, i)
+                                for i in range(300)]
+
+
+def _opt_tensors(state):
+    """Every tensor of an optimizer state: the moments, the max of the
+    second moment and the step count of each leaf, in leaf order."""
+    adamw = state.opt_state.adamw
+    return [adamw.state[p][k] for p in state.opt_state.leaves
+            for k in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq", "step")]
+
+
+@pytest.mark.parametrize("sparse,bf16", [(False, False), (True, False),
+                                         (False, True)])
+def test_captured_step_is_the_eager_step_bitwise(cuda, sparse, bf16):
+    """Four steps at dropout 0.2 (towers and GNN), the full batch and the
+    ragged one in turn, so that each is run eagerly once and then captured:
+    the captured program's params, optimizer state and aux are the eager
+    program's bit for bit, and each replay counts its kernels' launches."""
+    from c2dsr_tpu_torch.ops import fused_ce_cuda
+    from c2dsr_tpu_torch.train import optim, step
+    cfg = Config(d_latent=64, batch_size=32, len_rec=5, vocab_pad_multiple=64,
+                 batch_sparse_gnn=sparse,
+                 compute_dtype="bfloat16" if bf16 else "float32")
+    share, specific = _graph()
+    train = preprocess.preprocess_train(
+        synthetic.generate_sequences(SPEC, 400, seed=3), SPEC, seed=1)
+    sizes = (32, 20, 32, 20)
+    init = params_mod.params_to_numpy(params_mod.init_params(
+        cfg, SPEC, torch.Generator().manual_seed(0), "cpu"))
+    graphs = c2dsr.Graphs(spmm.device_graph(share, cuda),
+                          spmm.device_graph(specific, cuda))
+    runs = {}
+    for capture in (False, True):
+        params = params_mod.params_from_numpy(init, cuda)
+        opt = optim.make_optimizer(cfg, steps_per_epoch=2)
+        state = step.init_state(params, opt)
+        fn = step.make_train_step(cfg, SPEC, graphs, opt, cuda,
+                                  capture=capture)
+        auxes, at = [], 0
+        before = fused_ce_cuda.ce_bwd.launches_bf16 + \
+            fused_ce_cuda.ce_bwd.launches
+        for n in sizes:
+            batch = {k: v[at:at + n] for k, v in train.items()}
+            at += n
+            state, aux = fn(state, batch)
+            auxes.append(torch.stack(list(aux.values())))
+        after = fused_ce_cuda.ce_bwd.launches_bf16 + \
+            fused_ce_cuda.ce_bwd.launches
+        assert after - before == 2 * len(sizes)
+        torch.cuda.synchronize()
+        runs[capture] = (step.param_leaves(state.params), _opt_tensors(state),
+                         auxes, fn)
+    assert runs[True][3].program.stats()["graphs"] == 2
+    for a, b in zip(runs[False][:3], runs[True][:3]):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["sampled", "full"])
+def test_captured_rank_step_gives_the_eager_ranks(cuda, mode):
+    """The captured rank_step against the eager one over both domains'
+    chunks, the last padded: the same ranks."""
+    cfg = Config(d_latent=64, batch_size_eval=64, n_neg_sample=50,
+                 vocab_pad_multiple=64)
+    share, specific = _graph()
+    data = preprocess.preprocess_evaluate(
+        synthetic.generate_sequences(SPEC, 300, seed=1), SPEC,
+        n_neg_sample=50, seed=2)
+    params = params_mod.params_from_numpy(params_mod.params_to_numpy(
+        params_mod.init_params(cfg, SPEC, torch.Generator().manual_seed(0),
+                               "cpu")), cuda)
+    graphs = c2dsr.Graphs(spmm.device_graph(share, cuda),
+                          spmm.device_graph(specific, cuda))
+    out = {}
+    for capture in (False, True):
+        conv, rank_step = ranker.make_eval_fns(cfg, SPEC, graphs, cuda,
+                                               capture=capture)
+        out[capture] = ranker.evaluate_split(params, conv(params), data,
+                                             rank_step, cfg, mode)
+    assert out[True] == out[False]
+    assert rank_step.program.stats()["graphs"] >= 1
