@@ -31,21 +31,27 @@ def _ignore_saved(fn):
 def plain_versions(branches=None):
     """Route CUDA tensors through the plain PyTorch versions instead of the
     kernels, for the comparison run of the main path; the plain tower taken
-    at ``branches`` (``ops/encoder.encode_layers``) if given."""
+    at ``branches`` (``ops/encoder.encode_layers``) if given.  Every
+    wrapper of ``ops/wrappers.WRAPPERS`` is swapped; one without a plain
+    version here raises."""
     from c2dsr_tpu_torch.ops import encoder as enc
-    from c2dsr_tpu_torch.ops import (encoder_cuda, fused_ce, fused_ce_cuda,
-                                     segsum_cuda, spmm, spmm_cuda)
-    swaps = [(spmm_cuda, "spmm_csr", spmm.spmm_reference),
-             (spmm_cuda, "spmm_csr_flagged", spmm.spmm_reference_flagged),
-             (encoder_cuda, "encoder_fwd", _ignore_saved(
+    from c2dsr_tpu_torch.ops import fused_ce, segsum_cuda, spmm, wrappers
+    plain = {"spmm_csr": spmm.spmm_reference,
+             "spmm_csr_flagged": spmm.spmm_reference_flagged,
+             "encoder_fwd": _ignore_saved(
                  lambda *a, **kw: enc.encoder_fwd_plain(
-                     *a, branches=branches, **kw))),
-             (encoder_cuda, "encoder_bwd", _ignore_saved(
+                     *a, branches=branches, **kw)),
+             "encoder_bwd": _ignore_saved(
                  lambda *a, **kw: enc.encoder_bwd_plain(
-                     *a, branches=branches, **kw))),
-             (fused_ce_cuda, "ce_fwd", fused_ce.ce_fwd_plain),
-             (fused_ce_cuda, "ce_bwd", fused_ce.ce_bwd_plain),
-             (segsum_cuda, "segsum", segsum_cuda.segsum_plain)]
+                     *a, branches=branches, **kw)),
+             "ce_fwd": fused_ce.ce_fwd_plain,
+             "ce_bwd": fused_ce.ce_bwd_plain,
+             "segsum": segsum_cuda.segsum_plain}
+    missing = [name for _, name in wrappers.WRAPPERS if name not in plain]
+    if missing or len(plain) != len(wrappers.WRAPPERS):
+        raise KeyError(f"plain versions {sorted(plain)} do not match the "
+                       f"kernel wrappers (missing {missing})")
+    swaps = [(mod, name, plain[name]) for mod, name in wrappers.WRAPPERS]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)

@@ -50,8 +50,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce_cuda, segsum_cuda
-from c2dsr_tpu_torch.ops import spmm_cuda
+from c2dsr_tpu_torch.ops import segsum_cuda
+from c2dsr_tpu_torch.ops.wrappers import kernels_routed, launch_counters
 
 STAGING_SLOTS = 2     # pinned host buffers a key, used in turn
 
@@ -133,30 +133,6 @@ class Staging:
         return self.inputs
 
 
-# the kernel wrappers of the step and ranking paths, as (module, name)
-_SLOTS = ((spmm_cuda, "spmm_csr"), (spmm_cuda, "spmm_csr_flagged"),
-          (encoder_cuda, "encoder_fwd"), (encoder_cuda, "encoder_bwd"),
-          (fused_ce_cuda, "ce_fwd"), (fused_ce_cuda, "ce_bwd"),
-          (segsum_cuda, "segsum"))
-_KERNELS = tuple(getattr(mod, name) for mod, name in _SLOTS)
-_COUNTERS = [(f, a) for f in _KERNELS for a in ("launches", "launches_bf16")
-             if hasattr(f, a)]
-
-
-def launch_counters() -> List[Tuple[Any, str]]:
-    """(wrapper, attribute) of every kernel launch counter of the step and
-    ranking paths."""
-    return _COUNTERS
-
-
-def kernels_routed() -> bool:
-    """Whether the kernel wrappers are in place: not while
-    ``bench/gates.plain_versions`` has swapped them for the plain versions,
-    whose comparison runs go op by op (:meth:`Program.run`)."""
-    return all(getattr(mod, name) is f
-               for (mod, name), f in zip(_SLOTS, _KERNELS))
-
-
 class _Entry:
     """One key of a program: its graph once captured, the static outputs
     the graph writes, the launches a replay makes, K7's workspaces."""
@@ -177,9 +153,9 @@ class Program:
     draws from, registered with every graph (their state before each
     replay is the caller's to set).  All graphs share one memory pool;
     with ``max_keys`` the least recently used key's graph is dropped past
-    that many.  While the plain versions stand in for the kernels
-    (:func:`kernels_routed`), a call runs its body eagerly, as the gates'
-    comparison runs have it."""
+    that many.  While the plain versions or a recorder stand in for a
+    kernel (``ops/wrappers.kernels_routed``), a call runs its body
+    eagerly, as the gates' comparison runs have it."""
 
     def __init__(self, capture: bool, generators=(),
                  max_keys: Optional[int] = None):

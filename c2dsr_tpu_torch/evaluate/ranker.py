@@ -18,8 +18,8 @@ captures it on one card as one CUDA graph per (domain, mode, batch shape)
 and the parameters' addresses (``capture.py``): each batch is staged through
 pinned host buffers into the graph's static inputs, and the tables that
 ``convolve_eval`` propagates (once per eval phase, eagerly) are copied into
-static ones.  ``capture=False`` runs the same programs eagerly; the CPU and
-a mesh run the functions op by op.
+static ones, once a phase.  ``capture=False`` runs the same programs
+eagerly; the CPU and a mesh run the functions op by op.
 
 On a mesh (``parallel/mesh.py``) every rank holds the whole eval split and
 ranks its data index's rows of each chunk (``evaluate_split``'s
@@ -31,6 +31,7 @@ rank, as the JAX package's replicated ``out_shardings`` give them.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -125,16 +126,20 @@ def _rank_program(cfg: Config, spec: DataSpec, device: torch.device, pops,
     """The one-card ``rank_step`` as a program over static inputs
     (``capture.Program``, as ``.program``): captured as one CUDA graph per
     (domain, mode, batch signature) and the parameters' addresses, or run
-    eagerly with ``capture=False``.  The propagated tables a call is given
-    are copied into static ones that every graph reads (three copies, 0.2
-    GB of traffic at FK, before the replay): keyed by the tables'
-    addresses instead, each eval phase's new tables would capture new
-    graphs."""
+    eagerly with ``capture=False``.  The propagated tables are copied into
+    static ones that every graph reads (three copies, 0.2 GB of traffic at
+    FK) when a call brings other tables than the last one did, once an
+    eval phase: keyed by the tables' addresses instead, each eval phase's
+    new tables would capture new graphs.  Propagated tables are not
+    changed in place (``convolve_eval`` makes new ones)."""
     program = capture_mod.Program(capture, max_keys=RANK_KEYS)
     staging: Dict[tuple, capture_mod.Staging] = {}
     static = []             # [the static tables], made for the first shapes
+    copied: List[weakref.ref] = []    # the tables last copied, unheld
 
     def tables(hi: c2dsr.Propagated) -> c2dsr.Propagated:
+        if copied and all(r() is t for r, t in zip(copied, hi)):
+            return static[0]
         if not static or any(a.shape != b.shape or a.dtype != b.dtype
                              for a, b in zip(static[0], hi)):
             static[:] = [c2dsr.Propagated(*(torch.empty_like(t)
@@ -142,6 +147,7 @@ def _rank_program(cfg: Config, spec: DataSpec, device: torch.device, pops,
             program.reset()
         for dst, src in zip(static[0], hi):
             dst.copy_(src)
+        copied[:] = [weakref.ref(t) for t in hi]
         return static[0]
 
     @torch.inference_mode()

@@ -33,10 +33,9 @@ host step count would replay step k's forever.  The captured step keeps
 static gradients (:meth:`Optimizer.bind_static_grads`): allocated once,
 zeroed in place, and filled by the backward in place.  The checkpoint
 holds the CPU optimizer's format either way (:func:`state_dict`,
-:func:`load_state`).  On the card the update is torch's fused AdamW
-(``impl="fused"``, capturable): ``chip_smoke.py``'s ``phase graph`` holds
-it and the foreach one (``impl="foreach"``) bitwise across capture, and
-times them in turns, fused the faster (PERF.md, PR 13).
+:func:`load_state`).  On the card the update is torch's fused AdamW,
+capturable: bitwise across capture, and faster inside the captured step
+than the capturable foreach one (PERF.md).
 """
 
 from __future__ import annotations
@@ -81,23 +80,16 @@ class Optimizer:
 
     cfg: Config
     steps_per_epoch: int
-    impl: str = "fused"       # the card's AdamW: "fused" or "foreach"
 
     def init(self, leaves: List[torch.Tensor],
              sharded: Optional[List[bool]] = None,
              group: comm.Group = comm.SELF) -> OptState:
         """Bind to ``leaves``; ``sharded`` marks those whose shards lie
         across the model ``group`` (for the clipping's global norm).  On
-        the card: the capturable AdamW with a device lr."""
+        the card: the fused, capturable AdamW with a device lr."""
         cfg = self.cfg
         on_card = leaves[0].is_cuda
-        if self.impl not in ("foreach", "fused"):
-            raise ValueError(f"unknown AdamW impl {self.impl!r}")
-        kw = {}
-        if on_card:
-            kw = ({"capturable": True, "foreach": True}
-                  if self.impl == "foreach" else
-                  {"capturable": True, "fused": True})
+        kw = {"capturable": True, "fused": True} if on_card else {}
         adamw = torch.optim.AdamW(leaves, lr=cfg.lr, betas=(0.9, 0.999),
                                   eps=1e-8, weight_decay=cfg.l2, amsgrad=True,
                                   **kw)
@@ -229,6 +221,5 @@ def load_state(state: OptState, adamw_sd: dict, schedule_sd: dict) -> None:
     state.generation += 1
 
 
-def make_optimizer(cfg: Config, steps_per_epoch: int,
-                   impl: str = "fused") -> Optimizer:
-    return Optimizer(cfg=cfg, steps_per_epoch=steps_per_epoch, impl=impl)
+def make_optimizer(cfg: Config, steps_per_epoch: int) -> Optimizer:
+    return Optimizer(cfg=cfg, steps_per_epoch=steps_per_epoch)

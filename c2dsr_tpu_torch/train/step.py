@@ -58,8 +58,8 @@ scalar and the GNN dropout draws from one generator registered with the
 graphs, both set on the host before each replay from
 ``step_seed(cfg.seed + 1, step)``: the masks of a captured step are those
 of the eager step.  ``make_train_step(..., capture=False)`` runs the same
-program eagerly; the CPU, a mesh and ``debug_nans`` run the eager step of
-:func:`_eager_step` (``capture.resolve``).
+program eagerly, as do the CPU and ``debug_nans`` (``capture.resolve``);
+a mesh runs the step of :func:`_mesh_step`, op by op.
 """
 
 from __future__ import annotations
@@ -284,32 +284,35 @@ def make_train_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
     batch), read with no host sync.  Runs on the card unless
     ``device="cpu"``.
 
-    ``capture`` (``capture.resolve``): on one card the step is a
-    :class:`StepProgram`, by default captured as one CUDA graph per batch
-    signature, with ``capture=False`` run eagerly; the CPU, a mesh and
-    ``cfg.debug_nans`` run :func:`_eager_step`, and ``capture=True`` raises
-    there.  The returned function's ``mode`` says which, as the log states
-    it."""
+    ``capture`` (``capture.resolve``): one process runs a
+    :class:`StepProgram`, on the card by default captured as one CUDA
+    graph per batch signature, run eagerly with ``capture=False``, on the
+    CPU and under ``cfg.debug_nans``; a mesh runs :func:`_mesh_step`.
+    ``capture=True`` raises where no graph runs.  The returned function's
+    ``mode`` says which, as the log states it."""
     device = backend.resolve_device(device)
     captured, mode = capture_mod.resolve(capture, device, mesh,
                                          cfg.debug_nans)
-    if device.type == "cuda" and mesh is None and not cfg.debug_nans:
+    if mesh is None:
         return StepProgram(cfg, spec, graphs, optimizer, device, captured,
                            mode)
-    train_step = _eager_step(cfg, spec, graphs, optimizer, device, mesh)
+    train_step = _mesh_step(cfg, spec, graphs, optimizer, device, mesh)
     train_step.mode = mode
     return train_step
 
 
-def _eager_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
-                optimizer: optim.Optimizer, device: torch.device, mesh):
-    """The step run op by op: on the CPU, on a mesh, under debug_nans."""
+def _mesh_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
+               optimizer: optim.Optimizer, device: torch.device, mesh):
+    """A mesh rank's step, run op by op: the gradients summed over the data
+    group, the clipping's norm over the model group.  With ``mesh=None``
+    it is the one-process step, which :class:`StepProgram` runs."""
     pops = strategy.make_ops(cfg, mesh)
     data = pops.data_group
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         b = to_device(batch, device)
         seed = drop.step_seed(cfg.seed + 1, state.step)
+        gen = pops.dropout_generator(seed, device)
         optimizer.prepare(state.opt_state)
         leaves = state.opt_state.leaves
         # the gradients that run over the epoch (bug_epoch_grad_accum) are
@@ -319,7 +322,11 @@ def _eager_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
             held = [p.grad for p in leaves]
             for p in leaves:
                 p.grad = None
-        loss, aux = loss_fn(state.params, graphs, b, seed, cfg, spec, pops)
+        # on the card one device seed for the step's six tower calls
+        loss, aux = loss_fn(state.params, graphs, b,
+                            drop.seed_tensor(seed, device)
+                            if device.type == "cuda" else seed, cfg, spec,
+                            pops, generator=gen)
         loss.backward()
         sum_grads(leaves, data)
         if held is not None:
@@ -336,18 +343,20 @@ def _eager_step(cfg: Config, spec: DataSpec, graphs: c2dsr.Graphs,
 
 
 class StepProgram:
-    """The one-card train step as a program over static memory: captured
-    as one CUDA graph per batch signature (``capture.Program``), or run
-    eagerly with ``capture=False``, the same body either way.
+    """The one-process train step as a program over static memory: on the
+    card captured as one CUDA graph per batch signature
+    (``capture.Program``), or run eagerly (``capture=False``, the CPU,
+    ``debug_nans``), the same body either way.
 
     Bound to one optimizer state (its identity and ``generation``) and its
     parameters: the gradients become static (``Optimizer.
     bind_static_grads``), and a new binding (another state, or a restored
     one, ``optim.load_state``) drops the graphs, which its next calls
     rebuild.  A call stages the batch (``capture.Staging``), writes the
-    step's seed into the device scalar the towers read and re-seeds the GNN
-    dropout's generator, runs the body (zero the gradients, unless they
-    run over the epoch; forward; backward; the capturable AdamW's update),
+    step's seed into the device scalar the towers read (on the card; the
+    CPU passes the int) and re-seeds the GNN dropout's generator, runs the
+    body (zero the gradients, unless they run over the epoch; forward;
+    backward; the capturable AdamW's update),
     then steps the schedule, which fills the device lr, all outside the
     graph.  ``aux`` is copied out of the graph's static output."""
 
@@ -359,7 +368,10 @@ class StepProgram:
         self.device = device
         self.mode = mode
         self.pops = strategy.LocalOps(cfg=cfg)
-        self.seed = torch.zeros((), dtype=torch.int32, device=device)
+        # the towers' seed on the card, which a graph reads; the CPU, which
+        # runs no graph, passes the int
+        self.seed = (torch.zeros((), dtype=torch.int32, device=device)
+                     if device.type == "cuda" else None)
         self.generator = torch.Generator(device=device)
         self.program = capture_mod.Program(capture, [self.generator])
         self.staging: Dict[tuple, capture_mod.Staging] = {}
@@ -380,10 +392,10 @@ class StepProgram:
             self._bound = bound
 
     def _body(self, params, opt: optim.OptState,
-              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+              batch: Dict[str, torch.Tensor], seed) -> torch.Tensor:
         if not self.cfg.bug_epoch_grad_accum:
             torch._foreach_zero_([p.grad for p in opt.leaves])
-        loss, aux = loss_fn(params, self.graphs, batch, self.seed, self.cfg,
+        loss, aux = loss_fn(params, self.graphs, batch, seed, self.cfg,
                             self.spec, self.pops, generator=self.generator)
         loss.backward()
         self.optimizer.apply_static(opt)
@@ -398,11 +410,13 @@ class StepProgram:
                                                             self.device)
         b = stage(batch)
         seed = drop.step_seed(self.cfg.seed + 1, state.step)
-        self.seed.fill_(seed)
+        if self.seed is not None:
+            self.seed.fill_(seed)
         self.generator.manual_seed(seed)
         opt = state.opt_state
         out, static = self.program.run(
-            key, lambda: self._body(state.params, opt, b))
+            key, lambda: self._body(state.params, opt, b,
+                                    seed if self.seed is None else self.seed))
         opt.schedule.step()
         if static:
             out = out.clone()

@@ -65,13 +65,13 @@ Phases (any failure exits non-zero without the final line):
    the determinism phase): at FK, f32 and bf16, dense and batch-sparse,
    GRAPH_STEPS captured steps (epochs of two full batches and a ragged
    one, StepLR moving the lr) bitwise the eager program's (params, AdamW
-   state, lr, aux), also under bug_epoch_grad_accum, with the foreach
-   AdamW, and resumed from a checkpoint at step 3 into a fresh program;
+   state, lr, aux), also under bug_epoch_grad_accum, and resumed from a
+   checkpoint at step 3 into a fresh program;
    one replay profiled: every step kernel (K6 when batch-sparse, the bf16
    instantiations on the bf16 path) from one cudaGraphLaunch; captured
    ranks equal the eager ones; then captured against eager train and
-   serving rates, and fused against foreach AdamW, in turns, with host
-   and busy ms a step, capture seconds and graph pool bytes.  The train
+   serving rates in turns, with host and busy ms a step, capture seconds
+   and graph pool bytes.  The train
    and rank steps of every other phase are the default, captured ones;
    the kernels line counts a graph's launches at each replay.
 5. experiment path: ``train.loop.Experiment`` at Food-Kitchen geometry
@@ -258,15 +258,10 @@ def _k3_against_plain(x, seq, gout, p, acts, n_head, n_layers, kw, got):
 def kernel_wrappers():
     """{name: wrapper} of every kernel the main paths launch."""
     from c2dsr_tpu_torch.bench import ce_variants
-    from c2dsr_tpu_torch.ops import (encoder_cuda, fused_ce_cuda, segsum_cuda,
-                                     spmm_cuda)
-    return {"spmm_csr": spmm_cuda.spmm_csr,
-            "spmm_csr_flagged": spmm_cuda.spmm_csr_flagged,
-            "encoder_fwd": encoder_cuda.encoder_fwd,
-            "encoder_bwd": encoder_cuda.encoder_bwd,
-            "ce_fwd": fused_ce_cuda.ce_fwd, "ce_bwd": fused_ce_cuda.ce_bwd,
-            "segsum": segsum_cuda.segsum,
-            "ce_fwd_variant": ce_variants.ce_fwd_variant}
+    from c2dsr_tpu_torch.ops import wrappers
+    out = {name: getattr(mod, name) for mod, name in wrappers.WRAPPERS}
+    out["ce_fwd_variant"] = ce_variants.ce_fwd_variant
+    return out
 
 
 def reset_launches():
@@ -749,6 +744,7 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import dropout as drop
     from c2dsr_tpu_torch.ops import encoder_cuda
     d, L, pad, B = 128, LEN_MAX, 64093, 512
     cfg = Config()
@@ -768,8 +764,11 @@ def phase_encoder_train(timer, peak_flops, peak_bw, gpu):
         gout = torch.randn(x.shape, device="cuda",
                            generator=torch.Generator("cuda").manual_seed(3))
         for dropout in (0.0, 0.2):
+            # the seed in device memory, as the train step holds it (an
+            # int seed costs each call a fill, which the times would count)
             kw = dict(idx_pad=pad, n_head=1, invert_padding_mask=False,
-                      dropout=dropout, seed=1234, tower=tower_id)
+                      dropout=dropout, seed=drop.seed_tensor(1234, "cuda"),
+                      tower=tower_id)
             acts = encoder_cuda.saved_buffer(x, 1, 1)
             with torch.no_grad():
                 out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw)
@@ -1623,6 +1622,7 @@ def _bf16_towers(timer, peak_bw):
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import dropout as drop
     from c2dsr_tpu_torch.ops import encoder_cuda
     d, L, pad = 128, LEN_MAX, 64093
     cfg = Config()
@@ -1640,7 +1640,8 @@ def _bf16_towers(timer, peak_bw):
         live = seq != pad
         live = live.long().cumsum(1) > 0         # rows with an allowed key
         kw = dict(idx_pad=pad, n_head=1, invert_padding_mask=False,
-                  dropout=dropout, seed=99, tower=tower_id)
+                  dropout=dropout, seed=drop.seed_tensor(99, "cuda"),
+                  tower=tower_id)
         acts = encoder_cuda.saved_buffer(x, 1, 1) if train else None
         acts32 = encoder_cuda.saved_buffer(x, 1, 1) if train else None
         with torch.no_grad():
@@ -3850,14 +3851,14 @@ def _graph_batches(train, cfg):
     return out
 
 
-def _graph_state(cfg, spec, init, impl="fused"):
+def _graph_state(cfg, spec, init):
     """A fresh (state, step function, optimizer) on the card from the numpy
     params ``init``, StepLR's epoch GRAPH_SPE steps."""
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.train import optim
     from c2dsr_tpu_torch.train import step as step_mod
     params = params_mod.params_from_numpy(init, "cuda")
-    opt = optim.make_optimizer(cfg, steps_per_epoch=GRAPH_SPE, impl=impl)
+    opt = optim.make_optimizer(cfg, steps_per_epoch=GRAPH_SPE)
     state = step_mod.init_state(params, opt)
     return state, opt
 
@@ -3874,12 +3875,12 @@ def _graph_tensors(state):
 
 
 def _graph_run(cfg, spec, graphs, init, batches, capture, start=None,
-               impl="fused", steps=None):
+               steps=None):
     """Run ``batches`` (from ``start``, a (state, opt) pair, or fresh from
     ``init``), with the epoch's gradient reset under bug_epoch_grad_accum:
     (state, [aux of each step as one tensor], step function)."""
     from c2dsr_tpu_torch.train import step as step_mod
-    state, opt = start or _graph_state(cfg, spec, init, impl)
+    state, opt = start or _graph_state(cfg, spec, init)
     fn = step_mod.make_train_step(cfg, spec, graphs, opt, "cuda",
                                   capture=capture)
     auxes = []
@@ -3967,9 +3968,8 @@ def _se_resolved(a, b):
     return float(diff), float(se), bool(abs(diff) > 3 * se)
 
 
-def _graph_rates(cfg, spec, graphs, init, train, label, impls=None):
-    """The captured step against the eager one (or two AdamW impls, both
-    captured) in turns, GRAPH_ROUNDS rounds of (a, b, b, a) runs of
+def _graph_rates(cfg, spec, graphs, init, train, label):
+    """The captured step against the eager one in turns, GRAPH_ROUNDS rounds of (a, b, b, a) runs of
     GRAPH_RUN_STEPS full batches: train examples/s; after each run the
     host's ms to enqueue one more step on an empty queue; and profiled
     device busy ms a step."""
@@ -3983,14 +3983,12 @@ def _graph_rates(cfg, spec, graphs, init, train, label, impls=None):
             yield from it.epoch()
 
     batches = feed()
-    names = ("captured", "eager") if impls is None else impls
+    names = ("captured", "eager")
     fns = {}
     for name in names:
-        state, opt = _graph_state(cfg, spec, init,
-                                  name if impls else "fused")
+        state, opt = _graph_state(cfg, spec, init)
         fn = step_mod.make_train_step(cfg, spec, graphs, opt, "cuda",
-                                      capture=impls is not None
-                                      or name == "captured")
+                                      capture=name == "captured")
         for _ in range(3):
             state, _ = fn(state, next(batches))
         fns[name] = [fn, state]
@@ -4059,15 +4057,14 @@ def phase_graph(spec, train, graphs, eval_data):
       captured, replayed), StepLR moving the lr every epoch (lr_step 1):
       params, AdamW moments, max second moments, step counts, lr and aux
       bitwise; one replay profiled with every step kernel in it;
-    * bug_epoch_grad_accum across the epoch boundaries; fused AdamW
-      (captured against its own eager run);
+    * bug_epoch_grad_accum across the epoch boundaries;
     * resume: a checkpoint at step 3, restored into a fresh state and a
       fresh program, run to GRAPH_STEPS: bitwise the uninterrupted run;
     * serving: the captured rank_step's ranks equal the eager one's in
       both domains, sampled and full, the last chunk padded;
     * times, in turns in this process: the captured and eager steps (f32,
-      bf16), fused against foreach AdamW, and serving examples/s of each
-      mode; the capture's seconds and the graph pool's bytes.
+      bf16) and serving examples/s of each mode; the capture's seconds and
+      the graph pool's bytes.
 
     Returns (launches of the captured f32 and batch-sparse runs, results).
     """
@@ -4119,21 +4116,16 @@ def phase_graph(spec, train, graphs, eval_data):
             f"launches a replay {stats['launches_per_replay']}; "
             f"{time.perf_counter() - t0:.1f} s")
         del eager, capt, fn
-    # the epoch-accumulation quirk, and the foreach AdamW (fused is the
-    # card's default)
-    for tag, cfg, impl in (("grad accum", base.with_(
-            bug_epoch_grad_accum=True), "fused"), ("foreach AdamW", base,
-                                                   "foreach")):
-        eager, aux_e, _ = _graph_run(cfg, spec, graphs, init, batches, False,
-                                     impl=impl)
-        capt, aux_c, fn = _graph_run(cfg, spec, graphs, init, batches, True,
-                                     impl=impl)
-        same = all(torch.equal(x, y) for x, y in zip(
-            _graph_tensors(eager) + aux_e, _graph_tensors(capt) + aux_c))
-        log(f"graph {tag}: captured against eager over {GRAPH_STEPS} steps: "
-            f"{'bitwise equal' if same else 'NOT bitwise equal'}")
-        res[tag] = {"bitwise": same}
-        check(same, f"graph {tag}: captured != eager")
+    # the epoch-accumulation quirk
+    cfg = base.with_(bug_epoch_grad_accum=True)
+    eager, aux_e, _ = _graph_run(cfg, spec, graphs, init, batches, False)
+    capt, aux_c, fn = _graph_run(cfg, spec, graphs, init, batches, True)
+    same = all(torch.equal(x, y) for x, y in zip(
+        _graph_tensors(eager) + aux_e, _graph_tensors(capt) + aux_c))
+    log(f"graph grad accum: captured against eager over {GRAPH_STEPS} "
+        f"steps: {'bitwise equal' if same else 'NOT bitwise equal'}")
+    res["grad accum"] = {"bitwise": same}
+    check(same, "graph grad accum: captured != eager")
     # resume: checkpoint at step 3, a fresh state and program, on to the end
     whole, aux_w, _ = _graph_run(base, spec, graphs, init, batches, True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4187,15 +4179,12 @@ def phase_graph(spec, train, graphs, eval_data):
     del fns, hi, params
     torch.cuda.empty_cache()
 
-    # times: captured against eager (f32, bf16), fused against foreach
-    for tag, cfg, impls in (
-            ("f32", Config(), None),
-            ("bf16", Config(compute_dtype="bfloat16",
-                            classifier_dtype="bfloat16"), None),
-            ("AdamW", Config(), ("fused", "foreach"))):
+    # times: captured against eager (f32, bf16)
+    for tag, cfg in (("f32", Config()),
+                     ("bf16", Config(compute_dtype="bfloat16",
+                                     classifier_dtype="bfloat16"))):
         res[f"rates {tag}"], held = _graph_rates(cfg, spec, graphs, init,
-                                                 train, f"graph rates {tag}",
-                                                 impls)
+                                                 train, f"graph rates {tag}")
         if tag == "f32":
             st = held["captured"][0].program.stats()
             res["fk_program"] = st

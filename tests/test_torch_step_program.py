@@ -11,9 +11,12 @@ StepProgram); it stages each batch signature into static inputs
   different masks;
 * the batch signature tells the full batch, the ragged batch and a batch
   with a ``valid`` key apart, and staging reuses its buffers;
-* the step program, run eagerly, takes the eager step's params, optimizer
-  state and aux bit for bit over steps at dropout 0.2 with a ragged batch;
-* ``capture=True`` raises on the CPU and on a mesh.
+* the step program, run eagerly, takes the op-by-op step's (a mesh
+  rank's, at one process) params, optimizer state and aux bit for bit
+  over steps at dropout 0.2 with a ragged batch;
+* ``capture=True`` raises on the CPU and on a mesh;
+* the plain versions stand in for every registered kernel wrapper, and
+  the rank program copies the propagated tables once for each new set.
 """
 
 import numpy as np
@@ -29,7 +32,8 @@ from c2dsr_tpu_torch.model import c2dsr
 from c2dsr_tpu_torch.model import params as params_mod
 from c2dsr_tpu_torch.ops import dropout as drop
 from c2dsr_tpu_torch.ops import encoder as enc
-from c2dsr_tpu_torch.ops import spmm
+from c2dsr_tpu_torch.ops import spmm, wrappers
+from c2dsr_tpu_torch.parallel import strategy
 from c2dsr_tpu_torch.train import optim, step
 
 SPEC = DataSpec(n_item_a=50, n_item_b=70, len_max=15)
@@ -136,9 +140,10 @@ def test_staging_reuses_its_buffers(setup):
 
 def test_step_program_is_the_eager_step(setup):
     """The step program's body, run eagerly on the CPU (static gradients
-    zeroed in place, a tensor seed, one re-seeded GNN generator), against
-    the eager step: params, optimizer state and aux bitwise over three
-    steps at dropout 0.2, the last ragged."""
+    zeroed in place, one re-seeded GNN generator), against
+    the op-by-op step a mesh rank runs, here at one process: params,
+    optimizer state and aux bitwise over three steps at dropout 0.2, the
+    last ragged."""
     cfg = CFG.with_(dropout_gnn=0.2, dropout_attn=0.2)
     train = setup["train"]
     batches = [{k: v[a:b] for k, v in train.items()}
@@ -149,10 +154,11 @@ def test_step_program_is_the_eager_step(setup):
         opt = optim.make_optimizer(cfg, steps_per_epoch=2)
         state = step.init_state(params, opt)
         if program:
-            fn = step.StepProgram(cfg, SPEC, setup["graphs"], opt,
-                                  torch.device("cpu"), capture=False)
-        else:
             fn = step.make_train_step(cfg, SPEC, setup["graphs"], opt, "cpu")
+            assert isinstance(fn, step.StepProgram)
+        else:
+            fn = step._mesh_step(cfg, SPEC, setup["graphs"], opt,
+                                 torch.device("cpu"), mesh=None)
         auxes = []
         for b in batches:
             state, aux = fn(state, b)
@@ -183,3 +189,43 @@ def test_capture_true_raises_off_one_card(setup):
     assert capture.resolve(None, torch.device("cuda"))[0] is True
     fn = step.make_train_step(CFG, SPEC, setup["graphs"], opt, "cpu")
     assert fn.mode.startswith("eager")
+
+
+def test_plain_versions_stand_in_for_every_wrapper():
+    from c2dsr_tpu_torch.bench import gates
+    kernels = [getattr(mod, name) for mod, name in wrappers.WRAPPERS]
+    assert wrappers.kernels_routed()
+    with gates.plain_versions():
+        assert not wrappers.kernels_routed()
+        assert all(getattr(mod, name) is not f for (mod, name), f
+                   in zip(wrappers.WRAPPERS, kernels))
+    assert wrappers.kernels_routed()
+    assert [getattr(mod, name) for mod, name in wrappers.WRAPPERS] == kernels
+
+
+def test_rank_program_copies_each_set_of_tables_once(setup):
+    """The rank program (run eagerly here) ranks against its static copy of
+    the tables: a call with the tables it copied last copies nothing, one
+    with new tables copies them."""
+    params = params_mod.params_from_numpy(setup["init"], "cpu")
+    convolve, _ = ranker.make_eval_fns(CFG, SPEC, setup["graphs"], "cpu")
+    rank = ranker._rank_program(CFG, SPEC, torch.device("cpu"),
+                                strategy.LocalOps(cfg=CFG), capture=False)
+    ev = preprocess.preprocess_evaluate(
+        synthetic.generate_sequences(SPEC, 80, seed=2), SPEC,
+        n_neg_sample=20, seed=3)
+    batch = {k: v[:16] for k, v in ranker.partition_by_domain(ev)["a"]
+             .items()}
+    hi = convolve(params)
+    first = rank(params, hi, batch, "a", "full")
+    # the same tables again: the static copy is what is ranked against
+    with torch.inference_mode():
+        for t in hi:
+            t.mul_(-1.0)
+    assert torch.equal(rank(params, hi, batch, "a", "full"), first)
+    # new tables: copied
+    fresh = c2dsr.Propagated(*(t.clone() for t in hi))
+    again = ranker.make_eval_fns(CFG, SPEC, setup["graphs"], "cpu")[1](
+        params, fresh, batch, "a", "full")
+    assert torch.equal(rank(params, fresh, batch, "a", "full"), again)
+    assert not torch.equal(again, first)
