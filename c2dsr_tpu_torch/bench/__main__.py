@@ -216,7 +216,7 @@ def eval_rate(cfg, sp, graphs, params, spec: Spec, device):
     convolve_eval, rank_step = ranker.make_eval_fns(cfg, sp, graphs, device)
     hi = convolve_eval(params)
     ranks = ranker.evaluate_split(params, hi, ev, rank_step, cfg, "full")
-    with gates.plain_versions():
+    with gates.plain_versions(), gates.deterministic():
         hi_p = convolve_eval(params)
         ranks_p = ranker.evaluate_split(params, hi_p, ev, rank_step, cfg,
                                         "full")

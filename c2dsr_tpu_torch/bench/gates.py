@@ -21,6 +21,24 @@ SCORE_K = 2.0            # the kernels' serving scores may lie up to this many
                          # dots compensated: more accurate than cuBLAS's f32)
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic kernels for a plain reference run: the plain
+    hop's ``index_add_`` on the card then sums a row's terms in index order
+    where its atomics add them in the order they land, so the reference's
+    error against float64 is the same each run (at d_latent 10 the atomics'
+    draws put the plain scores 8.41e-8 to 1.59e-7 from float64 over six
+    runs, the kernels' 1.708e-7 in each, an H100).  Ops with no
+    deterministic form only warn."""
+    was, warn = (torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
 def _ignore_saved(fn):
     """A plain tower version called as its kernel wrapper is: the kernels'
     saved-activation buffer is passed and ignored."""
@@ -211,7 +229,9 @@ def check_ranks(params, hi, hi_plain, hi64, data, cfg, spec, mode, ranks,
     """The serving gate of one mode: the kernels' ranks equal the plain
     versions' except at near-ties and all-masked rows, and the kernels'
     scores lie within SCORE_K times the plain versions' error of the
-    float64 ones.  Returns {differ, tied, masked, unexplained, band,
+    float64 ones.  ``hi_plain`` and ``ranks_plain`` come from a run under
+    :func:`deterministic`, so that the plain versions' error is the same
+    each run.  Returns {differ, tied, masked, unexplained, band,
     err_kernels, err_plain}; raises GateFailure where the gate fails."""
     from c2dsr_tpu_torch.bench.timing import GateFailure
     from c2dsr_tpu_torch.evaluate import ranker

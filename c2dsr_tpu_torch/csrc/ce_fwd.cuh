@@ -30,9 +30,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 // has a compile-time trip count and no branch.  A warp holds kMt m-tiles
 // of 16 X rows, so that each B fragment it reads feeds 3·kMt MMAs; a stage
 // holds the big and the small part of a Y tile and 4·kBy floats of
-// per-entity values.  K4 and K5 share it.
+// per-entity values.  K4 (up to DT 256; wider rows run its wide kernel,
+// ce.cu) and K5 share it.
 //
-// DT 512 is cut to fit: 128 resident X rows would take 264 KB of shared
+// DT 512, K5's widest, is cut to fit: 128 resident X rows would take 264 KB of shared
 // memory (a block has 227 KB), and K5's dh kernel would keep a warp's
 // 16 x 512 output in registers (256 floats a thread, beyond the 255 a
 // thread may have).  So at DT 512 a block has 4 warps and 64 resident X
@@ -233,7 +234,14 @@ __device__ __forceinline__ void logit_steps(float (&acc)[kMt][kNy][4], int k0,
 // zero by ulps of itself: K4's lse on a trained state at V 500,000 lay
 // 8.77e-6 from float64 where plain f32 lies 2.6e-7 (an H100).  So S sums
 // partials of kLogitSteps k-steps each in f32, as K2's QKV sums its k-steps
-// (tc.cuh, TERMS 6); the first partial is S itself.  Partials of 1, 2 or
+// (tc.cuh, TERMS 6); the first partial is S itself.  The bf16
+// instantiations add the partials with Kahan's compensation (kComp): K5
+// rounds each dlogit to bf16, where a few f32 ulps of a logit move a
+// dlogit near a rounding boundary by a bf16 ulp; with plain adds K5 bf16
+// at d 512 lay further from float64 than the plain bf16 CE (its dh or dW
+// more than 1e-4 of the largest element from float64 on 25 of 200 seeds,
+// the plain version's on 14), compensated on 14 (an H100, PERF.md §6 PR
+// 14), at 12-14% of K4's and K5's bf16 time at FK.  Partials of 1, 2 or
 // 4 k-steps are all within plain f32's error of float64
 // (tests/test_torch_tf32.py), and 4 takes the fewest adds.  Up to DT 128
 // the loop over partials stays rolled: unrolled, the loads hoisted across
@@ -251,6 +259,14 @@ __device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
                                            const T* ys, int g, int t) {
   constexpr int kNd = DT / 8;
   static_assert(kNd % kLogitSteps == 0, "whole partials");
+  constexpr bool kComp = std::is_same<T, uint16_t>::value;
+  float c[kMt][kNy][4];                 // kComp: the sum's lost low part
+#pragma unroll
+  for (int m = 0; m < kMt; ++m)
+#pragma unroll
+    for (int j = 0; j < kNy; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[m][j][i] = 0.f;
   auto add_partial = [&](int k0) {
     float p[kMt][kNy][4];
     logit_steps<DT, kMt, kNy>(p, k0, xw, yb, ys, g, t);
@@ -259,7 +275,16 @@ __device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
 #pragma unroll
       for (int j = 0; j < kNy; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[m][j][i] += p[m][j][i];
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kComp) {
+            const float y = p[m][j][i] - c[m][j][i];
+            const float u = s[m][j][i] + y;
+            c[m][j][i] = (u - s[m][j][i]) - y;
+            s[m][j][i] = u;
+          } else {
+            s[m][j][i] += p[m][j][i];
+          }
+        }
   };
   logit_steps<DT, kMt, kNy>(s, 0, xw, yb, ys, g, t);
   if constexpr (DT <= 128) {
@@ -313,6 +338,112 @@ struct FwdArgs {
   const uint16_t* xh;    // the bf16 instantiation's h [N, d] and Wᵀ [V, d]
   const uint16_t* yh;    // in bf16 (x, y_big, y_small unused)
 };
+
+// The forward's per-tile step for the rows of this thread's fragments:
+// logit tile s (bias added here, from bias[e] for tile column e; columns
+// past V masked) folded into the running max rm and sum rs (log2 units) and
+// the target logit tl (kMatmulOnly: the plain sum of the logits in rs).
+template <int VARIANT, int kMt, int kNy>
+__device__ __forceinline__ void fwd_tile(float (&s)[kMt][kNy][4],
+                                         const float* bias, int y0, int V,
+                                         const int (&xtg)[kMt][2],
+                                         float (&rm)[kMt][2],
+                                         float (&rs)[kMt][2],
+                                         float (&tl)[kMt][2], int t) {
+#pragma unroll
+  for (int m = 0; m < kMt; ++m) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if constexpr (VARIANT == kMatmulOnly) {
+        float acc = rs[m][r];
+#pragma unroll
+        for (int j = 0; j < kNy; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (y0 + j * 8 + 2 * t + c < V)
+              acc += s[m][j][2 * r + c] + bias[j * 8 + 2 * t + c];
+        rs[m][r] = acc;
+        continue;
+      }
+      float lm = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < kNy; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = j * 8 + 2 * t + c;
+          const int y = y0 + e;
+          const float v = s[m][j][2 * r + c] + bias[e];
+          if (VARIANT != kNoMatch && y < V && y == xtg[m][r])
+            tl[m][r] = v;
+          const float v2 = y < V ? (VARIANT == kExp2 ? v : v * kLog2e)
+                                 : -CUDART_INF_F;
+          s[m][j][2 * r + c] = v2;
+          lm = fmaxf(lm, v2);
+        }
+      }
+      // the tile's exponentials summed apart, then added to the
+      // rescaled running sum once: a long chain of small terms added to
+      // one large sum rounds each of them
+      const float mn = fmaxf(rm[m][r], lm);
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNy; ++j) {
+        if constexpr (VARIANT == kBf16Exp) {
+          float e0, e1;
+          exp2_bf16x2(s[m][j][2 * r] - mn, s[m][j][2 * r + 1] - mn, e0, e1);
+          acc += e0;
+          acc += e1;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            acc += exp2_approx(s[m][j][2 * r + c] - mn);
+        }
+      }
+      rs[m][r] = fmaf(rs[m][r], exp2_approx(rm[m][r] - mn), acc);
+      rm[m][r] = mn;
+    }
+  }
+}
+
+// A row's four threads merge their (max, sum) pairs and target logits and
+// write the split's partials (part + blockIdx.y·n_x, planes of
+// gridDim.y·n_x); partners compute the same sums in the other order, so
+// they agree.  xa: the row of this thread's first fragment row.
+template <int VARIANT, int kMt>
+__device__ __forceinline__ void fwd_partials(const float (&rm)[kMt][2],
+                                             const float (&rs)[kMt][2],
+                                             const float (&tl)[kMt][2],
+                                             float* part_all, int n_x, int xa,
+                                             int t) {
+  const size_t plane = (size_t)gridDim.y * n_x;
+  float* part = part_all + (size_t)blockIdx.y * n_x;
+#pragma unroll
+  for (int m = 0; m < kMt; ++m) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = rm[m][r], sm = rs[m][r], tv = tl[m][r];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, mx, o);
+        const float os = __shfl_xor_sync(0xffffffffu, sm, o);
+        tv += __shfl_xor_sync(0xffffffffu, tv, o);
+        if constexpr (VARIANT == kMatmulOnly) {
+          sm += os;
+        } else {
+          const float mn = fmaxf(mx, om);
+          sm = sm * exp2_approx(mx - mn) + os * exp2_approx(om - mn);
+          mx = mn;
+        }
+      }
+      const int x = xa + 16 * m + 8 * r;
+      if (t == 0 && x < n_x) {
+        part[x] = mx;
+        part[plane + x] = sm;
+        part[2 * plane + x] = tv;
+      }
+    }
+  }
+}
 
 // Per row and split of the vocab: the running max and sum of exp over the
 // split's columns, in log2 units, and the target logit (kMatmulOnly: the
@@ -401,93 +532,11 @@ ce_fwd_kernel(const FwdArgs a) {
 
     float s[kMt][kNy][4];
     logit_tile<DT, kMt, kNy>(s, xw, yb, ys, g, t);
-#pragma unroll
-    for (int m = 0; m < kMt; ++m) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if constexpr (VARIANT == kMatmulOnly) {
-          float acc = rs[m][r];
-#pragma unroll
-          for (int j = 0; j < kNy; ++j)
-#pragma unroll
-            for (int c = 0; c < 2; ++c)
-              if (y0 + j * 8 + 2 * t + c < a.V)
-                acc += s[m][j][2 * r + c] + bias[j * 8 + 2 * t + c];
-          rs[m][r] = acc;
-          continue;
-        }
-        float lm = -CUDART_INF_F;
-#pragma unroll
-        for (int j = 0; j < kNy; ++j) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = j * 8 + 2 * t + c;
-            const int y = y0 + e;
-            const float v = s[m][j][2 * r + c] + bias[e];
-            if (VARIANT != kNoMatch && y < a.V && y == xtg[m][r])
-              tl[m][r] = v;
-            const float v2 = y < a.V ? (VARIANT == kExp2 ? v : v * kLog2e)
-                                     : -CUDART_INF_F;
-            s[m][j][2 * r + c] = v2;
-            lm = fmaxf(lm, v2);
-          }
-        }
-        // the tile's exponentials summed apart, then added to the
-        // rescaled running sum once: a long chain of small terms added to
-        // one large sum rounds each of them
-        const float mn = fmaxf(rm[m][r], lm);
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < kNy; ++j) {
-          if constexpr (VARIANT == kBf16Exp) {
-            float e0, e1;
-            exp2_bf16x2(s[m][j][2 * r] - mn, s[m][j][2 * r + 1] - mn, e0,
-                        e1);
-            acc += e0;
-            acc += e1;
-          } else {
-#pragma unroll
-            for (int c = 0; c < 2; ++c)
-              acc += exp2_approx(s[m][j][2 * r + c] - mn);
-          }
-        }
-        rs[m][r] = fmaf(rs[m][r], exp2_approx(rm[m][r] - mn), acc);
-        rm[m][r] = mn;
-      }
-    }
+    fwd_tile<VARIANT, kMt, kNy>(s, bias, y0, a.V, xtg, rm, rs, tl, t);
   }
   cp_async_wait<0>();
 
-  // a row's four threads merge their (max, sum) pairs and target logits;
-  // partners compute the same sums in the other order, so they agree
-  const size_t plane = (size_t)gridDim.y * a.n_x;
-  float* part = a.part + (size_t)blockIdx.y * a.n_x;
-#pragma unroll
-  for (int m = 0; m < kMt; ++m) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = rm[m][r], sm = rs[m][r], tv = tl[m][r];
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        const float om = __shfl_xor_sync(0xffffffffu, mx, o);
-        const float os = __shfl_xor_sync(0xffffffffu, sm, o);
-        tv += __shfl_xor_sync(0xffffffffu, tv, o);
-        if constexpr (VARIANT == kMatmulOnly) {
-          sm += os;
-        } else {
-          const float mn = fmaxf(mx, om);
-          sm = sm * exp2_approx(mx - mn) + os * exp2_approx(om - mn);
-          mx = mn;
-        }
-      }
-      const int x = xa + 16 * m + 8 * r;
-      if (t == 0 && x < a.n_x) {
-        part[x] = mx;
-        part[plane + x] = sm;
-        part[2 * plane + x] = tv;
-      }
-    }
-  }
+  fwd_partials<VARIANT, kMt>(rm, rs, tl, a.part, a.n_x, xa, t);
 }
 
 // wt[v, k] = w[k, v]: W [d, V] into Wᵀ [V, d], through 32x32 shared tiles,

@@ -28,18 +28,29 @@
 //   and its dropout; the dropout, residual add and LayerNorm
 //   of a post-norm step (up to d 256 a block holds whole rows and the
 //   LayerNorm runs in its registers, the final LN after the last LN2;
-//   above, encoder_fwd_ln_kernel does it, a warp a row).
-// * Attention: up to 8 whole sequences a block (64 rows), a warp serving
-//   one, a lane two of its keys (L <= 64); q, k, v staged a head and 64
-//   columns at a time and read as float4, in FFMA, 4 blocks an SM: 4·N·L·d
-//   FLOPs, a few percent of the tower.  The logits' sums over the head's
+//   above, encoder_fwd_ln_kernel does it, a warp a row at any width).
+// * Attention up to L 64 (encoder_fwd_attn_seq_kernel): up to 8 whole
+//   sequences a block (64 rows), a warp serving one, a lane two of its
+//   keys, the probabilities in shared memory.  Past L 64 (any L:
+//   encoder_fwd_attn_kernel): a block a head and a tile of 64 query rows,
+//   keys in chunks of 64, a lane two keys of a chunk.  Both stage q, k, v
+//   64 head columns at a time and read them as float4, in FFMA, 4 blocks
+//   an SM.  At L 15 the whole-sequence kernel is the faster (kSeqL).  In
+//   the chunked kernel the logits go through the probability buffer
+//   (written with an online max and sum, then read back and normalised as
+//   P·V stages them), so no row of logits need fit on chip.  4·N·L·d FLOPs
+//   (all L keys of every query: an all-masked row averages over all of
+//   them), bound on an H100 by the FFMA rate (67 TFLOP/s) and the
+//   buffer's bytes, about 12 bytes a logit and 4 more a further head
+//   column chunk: a few percent of the tower at L 15, a third of a
+//   layer's FLOPs at L 200, d 128.  The logits' sums over the head's
 //   columns are compensated (add_compensated), for the reason the QKV
 //   product is f32-accurate (encoder_fwd_gemm_kernel).
 // * Every intermediate lands in the saved-activation layout (saved_layout):
 //   in training the buffer the backward reads, so saving costs nothing
 //   beyond the writes each kernel makes anyway; in eval a one-layer
-//   workspace of the same layout, with the backward's extras (p, xhat,
-//   1/std) not written.
+//   workspace of the same layout, with the backward's extras (xhat, 1/std)
+//   not written (p is: attention works in it).
 // A one-layer tower call launches 6 kernels up to d 256 (5 in eval without
 // dropout: the input kernel only applies dropout or saves the input) and 8
 // above; each further layer adds 5, or 7.
@@ -250,10 +261,226 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
 
 // ------------------------------------------------------- the attention ----
 
-// Dynamic shared memory of encoder_fwd_attn_kernel at length L, in bytes:
+// Dynamic shared memory of encoder_fwd_attn_kernel, in bytes: a chunk of q
+// (then v) and of k [kTile][kLdc], the dropped probabilities of one key
+// chunk [kTile][kLdp], the chunk's key flags and each row's softmax max
+// and sum.
+constexpr int kAttnFwdSmem =
+    4 * (2 * kTile * kLdc + kTile * kLdp + 3 * kTile);
+
+// Per block a query tile (attn_tile: up to 8 whole sequences up to L 32,
+// else up to kTile rows of one) and one head (blockIdx.y); any L, in key
+// chunks of Lt = min(L, kTile) positions, a lane two keys of a chunk:
+// 1. logits: per key chunk, q·k over 64-column chunks of q and k (float4
+//    reads, compensated sums), scaled, plus the added -1e9 bias where the
+//    key is later than the query or masked; written to pbuf [head][row]
+//    [key], each row's max and sum of exp(logit - max) kept online (the
+//    sum rescaled when a chunk raises the max);
+// 2. o = drop(P)·V over 64-column chunks of v, a key chunk of dropped
+//    probabilities staged beside each chunk of v (a lane a column): the
+//    first column chunk's staging turns the chunk's logits into p =
+//    exp(logit - max) / sum and, where keep_p (training, or more column
+//    chunks to come), writes p over them: the pre-dropout probabilities
+//    the backward reads.
+// With one key chunk the online sum is the two-pass one.  pbuf takes
+// H·B·L² floats in eval too (the eval workspace has the slot).  kBf: q,
+// k, v and the dropped probabilities rounded to bf16 as they are staged
+// (the bf16 instantiation's products); pbuf stays f32.
+template <bool kBf>
+__global__ void __launch_bounds__(kThreads, 4)
+encoder_fwd_attn_kernel(const float* __restrict__ qkv,
+                        const int* __restrict__ seq, float* __restrict__ o,
+                        float* __restrict__ pbuf, int B, int L, int d,
+                        int n_head, int idx_pad, int invert, int save,
+                        drop::Dropout dr, uint32_t salt) {
+  extern __shared__ float4 smem4[];
+  const uint32_t key = dr.key(salt);
+  const AttnTile a = attn_tile(B, L);
+  float* QV = reinterpret_cast<float*>(smem4);   // [kTile][kLdc]: q, then v
+  float* K = QV + kTile * kLdc;                  // [kTile][kLdc]
+  float* P = K + kTile * kLdc;                   // [kTile][kLdp]
+  float* row_max = P + kTile * kLdp;             // [kTile] of the tile rows
+  float* row_sum = row_max + kTile;
+  int* key_ok = reinterpret_cast<int*>(row_sum + kTile);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int h = blockIdx.y;
+  const size_t N = (size_t)B * L;
+  const int dh = d / n_head;
+  const int d3 = 3 * d;
+  const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
+  const int wr = warp % a.wps;             // the warp's first tile row
+  const int sq = a.s * a.Lt;               // its sequence's first tile row
+  // row i of the warp's sequence, key j: its slot of pbuf
+  auto at = [&](int i, int j) {
+    return ((size_t)h * N + (size_t)a.b * L + i) * L + j;
+  };
+
+  float mx[8], sum[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    mx[t] = -CUDART_INF_F;
+    sum[t] = 0.f;
+  }
+  for (int kc = 0; kc < L; kc += a.Lt) {
+    const int nk = min(a.Lt, L - kc);
+    float acc[8][2], cmp[8][2];          // the logits' sums, compensated
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      acc[t][0] = acc[t][1] = cmp[t][0] = cmp[t][1] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += kCh) {
+      const int cw4 = min(kCh, dh - c0) / 4;
+      __syncthreads();     // the previous chunk's readers
+      if (c0 == 0)
+        for (int r = threadIdx.x; r < a.ns * nk; r += kThreads) {
+          const bool real =
+              seq[(size_t)(a.seq0 + r / nk) * L + kc + r % nk] != idx_pad;
+          key_ok[(r / nk) * a.Lt + r % nk] = invert ? !real : real;
+        }
+      attn_stage<kBf>(QV, qkv, d3, h * dh + c0, cw4, a, L, a.r0, a.nr);
+      attn_stage<kBf>(K, qkv, d3, d + h * dh + c0, cw4, a, L, kc, nk);
+      __syncthreads();
+      if (!a.active) continue;
+      for (int c4 = 0; c4 < cw4; ++c4) {
+        const float4 k0 =
+            lane < nk ? *reinterpret_cast<const float4*>(
+                            K + (sq + lane) * kLdc + 4 * c4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 k1 =
+            lane + 32 < nk ? *reinterpret_cast<const float4*>(
+                                 K + (sq + lane + 32) * kLdc + 4 * c4)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int r = wr + a.wps * t;
+          if (r < a.nr) {
+            const float4 q =
+                *reinterpret_cast<const float4*>(QV + (sq + r) * kLdc + 4 * c4);
+            add_compensated(acc[t][0], cmp[t][0], dot4(q, k0, 0.f));
+            add_compensated(acc[t][1], cmp[t][1], dot4(q, k1, 0.f));
+          }
+        }
+      }
+    }
+    if (!a.active) continue;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int r = wr + a.wps * t;
+      if (r >= a.nr) continue;             // uniform over the warp
+      const int i = a.r0 + r;
+      float lg[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int jc = lane + 32 * u;
+        const int j = kc + jc;
+        lg[u] = -CUDART_INF_F;
+        if (jc < nk) {
+          lg[u] = (acc[t][u] + cmp[t][u]) * inv_sqrt_dh
+                  + (j <= i && key_ok[sq + jc] ? 0.f : kNeg);
+          pbuf[at(i, j)] = lg[u];
+        }
+      }
+      // the row's max and sum online: with one chunk (L <= 64) the sum is
+      // 0·0 + the chunk's, the two-pass sum exactly
+      const float mn = fmaxf(mx[t], warp_max(fmaxf(lg[0], lg[1])));
+      float e[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        e[u] = lane + 32 * u < nk ? expf(lg[u] - mn) : 0.f;
+      sum[t] = sum[t] * expf(mx[t] - mn) + warp_sum(e[0] + e[1]);
+      mx[t] = mn;
+    }
+  }
+  if (a.active && lane == 0) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int r = wr + a.wps * t;
+      if (r >= a.nr) continue;
+      row_max[sq + r] = mx[t];
+      row_sum[sq + r] = sum[t];
+    }
+  }
+  const bool keep_p = save || dh > kCh;
+  for (int c0 = 0; c0 < dh; c0 += kCh) {
+    const int cw4 = min(kCh, dh - c0) / 4;
+    const int cw = cw4 * 4;
+    float out[8][2];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) out[t][0] = out[t][1] = 0.f;
+    for (int kc = 0; kc < L; kc += a.Lt) {
+      const int nk = min(a.Lt, L - kc);
+      const int nk4 = (nk + 3) & ~3;
+      __syncthreads();     // p written; the previous chunk's readers done
+      attn_stage<kBf>(QV, qkv, d3, 2 * d + h * dh + c0, cw4, a, L, kc, nk);
+      // the chunk's dropped probabilities, zero past nk (the float4 pad);
+      // at the first column chunk from the logits (written back as p)
+      for (int v = threadIdx.x; v < a.ns * a.nr * nk4; v += kThreads) {
+        const int jc = v % nk4;
+        const int r = (v / nk4) % a.nr;
+        const int s = v / (nk4 * a.nr);
+        float p = 0.f;
+        if (jc < nk) {
+          const int b = a.seq0 + s, i = a.r0 + r, j = kc + jc;
+          float* pp = pbuf + ((size_t)h * N + (size_t)b * L + i) * L + j;
+          p = *pp;
+          if (c0 == 0) {
+            p = expf(p - row_max[s * a.Lt + r]) / row_sum[s * a.Lt + r];
+            if (keep_p) *pp = p;
+          }
+          if (dr.on)
+            p = dr.apply(p, key, static_cast<uint32_t>(
+                                     (((size_t)dr.batch(b) * n_head + h) * L
+                                      + i) * L + j));
+        }
+        P[(s * a.Lt + r) * kLdp + jc] = kBf ? bf16f(p) : p;
+      }
+      __syncthreads();
+      if (!a.active) continue;
+      for (int j4 = 0; j4 < nk4; j4 += 4) {
+        float4 p4[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int r = wr + a.wps * t;
+          p4[t] = r < a.nr
+                      ? *reinterpret_cast<const float4*>(
+                            P + (sq + r) * kLdp + j4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = j4 + jj;
+          if (j >= nk) break;
+          const float v0 = lane < cw ? QV[(sq + j) * kLdc + lane] : 0.f;
+          const float v1 =
+              lane + 32 < cw ? QV[(sq + j) * kLdc + lane + 32] : 0.f;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const float pj = jj == 0 ? p4[t].x : jj == 1 ? p4[t].y
+                             : jj == 2 ? p4[t].z : p4[t].w;
+            out[t][0] = fmaf(pj, v0, out[t][0]);
+            out[t][1] = fmaf(pj, v1, out[t][1]);
+          }
+        }
+      }
+    }
+    if (!a.active) continue;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int r = wr + a.wps * t;
+      if (r >= a.nr) continue;
+      float* dst = o + ((size_t)a.b * L + a.r0 + r) * d + h * dh + c0;
+      if (lane < cw) dst[lane] = out[t][0];
+      if (lane + 32 < cw) dst[lane + 32] = out[t][1];
+    }
+  }
+}
+
+// ---- up to L 64: whole sequences in shared memory ----
+//
+// Dynamic shared memory of encoder_fwd_attn_seq_kernel at length L, in bytes:
 // for R = attn_seqs(L)·L rows, a chunk of q (then v) and of k [R][kLdc],
 // the dropped probabilities [R][round4(L)] and the key flags.
-__host__ __device__ constexpr int attn_fwd_smem(int L) {
+__host__ __device__ constexpr int attn_seq_fwd_smem(int L) {
   return 4 * attn_seqs(L) * L * (2 * kLdc + round4(L) + 1);
 }
 
@@ -267,7 +494,7 @@ __host__ __device__ constexpr int attn_fwd_smem(int L) {
 // instantiation's products); p_save stays f32.
 template <bool kBf>
 __global__ void __launch_bounds__(kThreads, 4)
-encoder_fwd_attn_kernel(const float* __restrict__ qkv,
+encoder_fwd_attn_seq_kernel(const float* __restrict__ qkv,
                         const int* __restrict__ seq, float* __restrict__ o,
                         float* __restrict__ p_save, int B, int L, int d,
                         int n_head, int idx_pad, int invert,
@@ -455,30 +682,24 @@ encoder_fwd_input_kernel(const float4* __restrict__ x,
 }
 
 // One warp a row of z [n, d] (d > 256, where no GEMM block holds whole
-// rows): y = LN(z) (into y, xhat and rstd, each where not null), and with
-// gf the final LN of y after it (into out, xhat_f, rstd_f).  z may be xhat
-// itself: a lane reads its columns before it writes them.
-template <int NV>
+// rows; any width): y = LN(z) (into y, xhat and rstd, each where not null),
+// and with gf the final LN of y after it (into out, xhat_f, rstd_f; with y
+// null the first LN's row goes to out and the final LN takes it there).  z
+// may be xhat itself: a lane reads its columns before it writes them.
 __global__ void __launch_bounds__(kThreads)
 encoder_fwd_ln_kernel(const float* z, const float* __restrict__ g,
                       const float* __restrict__ b, float* y, float* xhat,
                       float* rstd, const float* __restrict__ gf,
                       const float* __restrict__ bf, float* out,
                       float* xhat_f, float* rstd_f, int n, int d) {
-  const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (r >= n) return;
   const size_t at = (size_t)r * d;
-  float v[NV];
-#pragma unroll
-  for (int t = 0; t < NV; ++t) {
-    const int c = lane + 32 * t;
-    v[t] = c < d ? z[at + c] : 0.f;
-  }
-  ln_row(v, d, g, b, y ? y + at : nullptr, xhat ? xhat + at : nullptr,
+  float* y1 = y ? y + at : out + at;
+  ln_row(z + at, d, g, b, y1, xhat ? xhat + at : nullptr,
          rstd ? rstd + r : nullptr);
   if (gf)
-    ln_row(v, d, gf, bf, out + at, xhat_f ? xhat_f + at : nullptr,
+    ln_row(y1, d, gf, bf, out + at, xhat_f ? xhat_f + at : nullptr,
            rstd_f ? rstd_f + r : nullptr);
 }
 
@@ -537,11 +758,13 @@ cudaError_t prepare() {
                            GemmCfg<128, true>::kSmem));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kBf16Terms, true>, a,
                            GemmCfg<256, true>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<false>, a, kAttnFwdSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<true>, a, kAttnFwdSmem));
   int most = 0;
-  for (int L = 1; L <= kMaxL; ++L)
-    most = attn_fwd_smem(L) > most ? attn_fwd_smem(L) : most;
-  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<false>, a, most));
-  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<true>, a, most));
+  for (int L = 1; L <= kSeqL; ++L)
+    most = attn_seq_fwd_smem(L) > most ? attn_seq_fwd_smem(L) : most;
+  TRY(cudaFuncSetAttribute(encoder_fwd_attn_seq_kernel<false>, a, most));
+  TRY(cudaFuncSetAttribute(encoder_fwd_attn_seq_kernel<true>, a, most));
   if (dev < 64) done[dev] = true;
   return cudaSuccess;
 }
@@ -578,13 +801,13 @@ cudaError_t launch_gemm(const FwdGemm& g, int nt, bool bf16, cudaStream_t s) {
                        : launch_gemm_t<kTerms, false>(g, nt, s);
 }
 
-// The LayerNorm kernel's launch (d > 256: 16 columns a lane).
+// The LayerNorm kernel's launch (d > 256).
 cudaError_t launch_ln(const float* z, const float* g, const float* b,
                       float* y, float* xhat, float* rstd, const float* gf,
                       const float* bf, float* out, float* xhat_f,
                       float* rstd_f, int n, int d, cudaStream_t s) {
   const int blocks = (n + kThreads / 32 - 1) / (kThreads / 32);
-  encoder_fwd_ln_kernel<16><<<blocks, kThreads, 0, s>>>(
+  encoder_fwd_ln_kernel<<<blocks, kThreads, 0, s>>>(
       z, g, b, y, xhat, rstd, gf, bf, out, xhat_f, rstd_f, n, d);
   return cudaGetLastError();
 }
@@ -640,17 +863,31 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     q.c = qkv; q.n = n; q.k = d; q.m = 3 * d; q.epi = kBias; q.dr = dr;
     TRY(launch_qkv_gemm(q, column_tile(3 * d), bf16, s));
 
-    const int attn_blocks = (B + attn_seqs(L) - 1) / attn_seqs(L);
+    if (L <= kSeqL) {
+      const int blocks = (B + attn_seqs(L) - 1) / attn_seqs(L);
+      float* p_save = save ? lb + so.l.p : nullptr;
+      if (bf16)
+        encoder_fwd_attn_seq_kernel<true>
+            <<<blocks, kThreads, attn_seq_fwd_smem(L), s>>>(
+                qkv, seq, o, p_save, B, L, d, n_head, idx_pad, invert, dr,
+                dr.salt(drop::kProbs, li));
+      else
+        encoder_fwd_attn_seq_kernel<false>
+            <<<blocks, kThreads, attn_seq_fwd_smem(L), s>>>(
+                qkv, seq, o, p_save, B, L, d, n_head, idx_pad, invert, dr,
+                dr.salt(drop::kProbs, li));
+    } else {
+    // the probabilities go to the p slot in eval too (the workspace's)
+    const dim3 attn_grid(attn_blocks(B, L), n_head);
     if (bf16)
-      encoder_fwd_attn_kernel<true>
-          <<<attn_blocks, kThreads, attn_fwd_smem(L), s>>>(
-              qkv, seq, o, save ? lb + so.l.p : nullptr, B, L, d, n_head,
-              idx_pad, invert, dr, dr.salt(drop::kProbs, li));
+      encoder_fwd_attn_kernel<true><<<attn_grid, kThreads, kAttnFwdSmem, s>>>(
+          qkv, seq, o, lb + so.l.p, B, L, d, n_head, idx_pad, invert, save,
+          dr, dr.salt(drop::kProbs, li));
     else
-      encoder_fwd_attn_kernel<false>
-          <<<attn_blocks, kThreads, attn_fwd_smem(L), s>>>(
-              qkv, seq, o, save ? lb + so.l.p : nullptr, B, L, d, n_head,
-              idx_pad, invert, dr, dr.salt(drop::kProbs, li));
+      encoder_fwd_attn_kernel<false><<<attn_grid, kThreads, kAttnFwdSmem, s>>>(
+          qkv, seq, o, lb + so.l.p, B, L, d, n_head, idx_pad, invert, save,
+          dr, dr.salt(drop::kProbs, li));
+    }
     TRY(cudaGetLastError());
 
     // y1 = LN1(X + drop(o·W_out + b_out)); above d 256 the sum goes to the
@@ -728,8 +965,9 @@ extern "C" void encoder_saved_offsets(int B, int L, int d, int n_head,
 
 // Weights are stacked over layers: w_qkv [NL, d, 3d], b_qkv [NL, 3d],
 // w_out/w_ff1/w_ff2 [NL, d, d], biases and LN params [NL, d]; lnf [d].
-// Requires d % 8 == 0, 8 <= d <= 512, d % n_head == 0, head dim % 8 == 0,
-// 1 <= L <= 64 (encoder_cuda.supported), n_layers >= 1; x, the weights
+// Requires d % n_head == 0, head dim % 8 == 0, L >= 1, fewer than 2^31
+// elements in x and in the probabilities (encoder_cuda.supported and
+// _check), n_layers >= 1; x, the weights
 // and buf 16-byte aligned.  Dropout: drop_on 0 is eval; else kept values
 // are divided by drop_div (f32(1 - p)) where the hash bits reach drop_thr
 // (ops/dropout.threshold), from the uint32 seed at `seed` in device memory

@@ -33,12 +33,18 @@
 //   arrive through a 2-stage cp.async ring.  Its epilogue folds in what
 //   follows the product: the regenerated dropout, ReLU's mask, a residual
 //   add.
-// * LayerNorm backward (ln_bwd_kernel): one warp a row.
-// * Attention backward (attn_bwd_kernel): up to 8 whole sequences a block
-//   (64 rows), a warp serving one (L <= 64: a lane holds two keys), a head
-//   and 64 of its columns of q, k, v and do in shared memory at a time, in
-//   FFMA.  Only this kernel is tied to sequences; the GEMMs are not, so L
-//   is not capped by a row tile.
+// * LayerNorm backward (ln_bwd_kernel): one warp a row, any width.
+// * Attention backward up to L 64 (attn_bwd_seq_kernel): up to 8 whole
+//   sequences a block, a warp serving one, a lane two keys, ds and drop(p)
+//   in shared memory, one kernel.  Past L 64 (any L: attn_bwd_dq_kernel,
+//   then attn_bwd_dkv_kernel): a block a head and a tile of 64 query (then key)
+//   rows, the other side in chunks of 64, a lane two positions of a chunk
+//   or one column; 64 head columns of q, k, v and do in shared memory at a
+//   time, in FFMA.  dp, then ds, go through an H·B·L² buffer of the
+//   workspace, which the second kernel reads transposed: no row of the
+//   softmax need fit on chip, and each of dq, dk, dv is written once with
+//   no atomics.  8·N·L·d FLOPs, bound by the FFMA rate and that buffer's
+//   bytes.  Only these kernels are tied to sequences; the GEMMs are not.
 // * Weight gradients (wgrad_kernel): reductions over all N rows of the
 //   call, split into row ranges (a multiple of 32 rows each) that fill the
 //   SMs in whole waves; each (output tile, split) block writes its partial
@@ -46,7 +52,8 @@
 //   jobs of their own, and sum_partials_kernel adds the partials in split
 //   order.  No atomics and no read-modify-write of a partial: two launches
 //   on the same inputs give bitwise-equal results.
-// A tower call of one layer launches 10 kernels; each further layer adds 8.
+// A tower call of one layer launches 10 kernels up to L 64, 11 past it;
+// each further layer adds 8, or 9.
 //
 // The bf16 instantiation (encoder_bwd's bf16; compute_dtype="bfloat16")
 // differentiates encoder.cu's bf16 forward as the Pallas kernel's
@@ -176,10 +183,284 @@ tc_gemm_kernel(const GemmArgs g) {
 
 // ------------------------------------------------------- the attention ----
 
-// Dynamic shared memory of attn_bwd_kernel at length L, in bytes: for
+// Dynamic shared memory of the two attention backward kernels, bytes:
+// attn_bwd_dq_kernel two chunks [kTile][kLdc], a ds tile [kTile][kLdp] and
+// each row's Σ dp·p; attn_bwd_dkv_kernel two chunks and the ds and drop(p)
+// tiles.
+constexpr int kAttnDqSmem = 4 * (2 * kTile * kLdc + kTile * kLdp + kTile);
+constexpr int kAttnDkvSmem = 4 * (2 * kTile * kLdc + 2 * kTile * kLdp);
+
+// The attention backward past L 64 (any L), in two kernels over the
+// forward's query and key tiles (encoder_common.cuh attn_tile; a block a
+// head, blockIdx.y):
+// dpd = do·vᵀ, dp = drop(dpd), ds = p·(dp - Σ dp·p), dq = ds·k / sqrt(dh),
+// dk = dsᵀ·q / sqrt(dh), dv = drop(p)ᵀ·do, from the saved qkv and p and
+// the gradient do of the attention output.
+//
+// attn_bwd_dq_kernel, a query tile: per key chunk, dpd over 64-column
+// chunks of do and v (a lane two keys, float4 reads, compensated sums),
+// dropped into dp, written to dsbuf [head][row][key] with each row's Σ
+// dp·p kept (a lane's pair, the lane's running sum, then the warp); then
+// dq over 64-column chunks of k, a key chunk of ds staged beside each (a
+// lane a column), the first column chunk's staging turning dp into ds =
+// p·(dp - Σ) (kBf: rounded) and writing it over dp.  attn_bwd_dkv_kernel,
+// a key tile (after the first kernel, which wrote all of ds): dk and dv
+// over 64-column chunks of q and do, a query chunk of dsᵀ and drop(p)ᵀ
+// staged beside each.  Each sum runs over the chunks in the
+// whole-sequence kernel's order.  kBf: the products' operands rounded to
+// bf16 (v, do, k, q as they are staged, ds and drop(p) as they are
+// stored).
+template <bool kBf>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
+                   const float* __restrict__ d_o, float* __restrict__ dqkv,
+                   float* __restrict__ dsbuf, int B, int L, int d, int n_head,
+                   drop::Dropout dr, uint32_t salt) {
+  extern __shared__ float4 smem4[];
+  const uint32_t key = dr.key(salt);
+  const AttnTile a = attn_tile(B, L);
+  float* C1 = reinterpret_cast<float*>(smem4);   // [kTile][kLdc]: v, then k
+  float* C2 = C1 + kTile * kLdc;                 // [kTile][kLdc]: do
+  float* DS = C2 + kTile * kLdc;                 // ds [query][key]
+  float* row_dpp = DS + kTile * kLdp;            // Σ dp·p of the tile rows
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int h = blockIdx.y;
+  const uint32_t gb = dr.batch(a.b);       // the warp's row of the run's batch
+  const size_t N = (size_t)B * L;
+  const int dh = d / n_head;
+  const int hc = h * dh;
+  const int d3 = 3 * d;
+  const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
+  const int wr = warp % a.wps;
+  const int sq = a.s * a.Lt;
+  auto at = [&](int i, int j) {
+    return ((size_t)h * N + (size_t)a.b * L + i) * L + j;
+  };
+
+  float dpp[8];                          // Σ dp·p, a lane's share
+#pragma unroll
+  for (int t = 0; t < 8; ++t) dpp[t] = 0.f;
+  for (int kc = 0; kc < L; kc += a.Lt) {
+    const int nk = min(a.Lt, L - kc);
+    float acc[8][2], cmp[8][2];          // dpd's sums, compensated
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      acc[t][0] = acc[t][1] = cmp[t][0] = cmp[t][1] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += kCh) {
+      const int cw4 = min(kCh, dh - c0) / 4;
+      __syncthreads();     // the previous chunk's readers
+      attn_stage<kBf>(C1, qkv, d3, 2 * d + hc + c0, cw4, a, L, kc, nk);
+      attn_stage<kBf>(C2, d_o, d, hc + c0, cw4, a, L, a.r0, a.nr);
+      __syncthreads();
+      if (!a.active) continue;
+      for (int c4 = 0; c4 < cw4; ++c4) {
+        const float4 v0 =
+            lane < nk ? *reinterpret_cast<const float4*>(
+                            C1 + (sq + lane) * kLdc + 4 * c4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 v1 =
+            lane + 32 < nk ? *reinterpret_cast<const float4*>(
+                                 C1 + (sq + lane + 32) * kLdc + 4 * c4)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int r = wr + a.wps * t;
+          if (r < a.nr) {
+            const float4 g =
+                *reinterpret_cast<const float4*>(C2 + (sq + r) * kLdc + 4 * c4);
+            add_compensated(acc[t][0], cmp[t][0], dot4(g, v0, 0.f));
+            add_compensated(acc[t][1], cmp[t][1], dot4(g, v1, 0.f));
+          }
+        }
+      }
+    }
+    if (!a.active) continue;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int r = wr + a.wps * t;
+      if (r >= a.nr) continue;             // uniform over the warp
+      const int i = a.r0 + r;
+      float p[2], dp[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int jc = lane + 32 * u;
+        p[u] = dp[u] = 0.f;
+        if (jc < nk) {
+          const int j = kc + jc;
+          p[u] = p_in[at(i, j)];
+          dp[u] = acc[t][u] + cmp[t][u];
+          if (dr.on)
+            dp[u] = dr.apply(dp[u], key, static_cast<uint32_t>(
+                                             (((size_t)gb * n_head + h) * L
+                                              + i) * L + j));
+          dsbuf[at(i, j)] = dp[u];
+        }
+      }
+      dpp[t] += dp[0] * p[0] + dp[1] * p[1];
+    }
+  }
+  if (a.active) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int r = wr + a.wps * t;
+      if (r >= a.nr) continue;
+      const float dot_pp = warp_sum(dpp[t]);
+      if (lane == 0) row_dpp[sq + r] = dot_pp;
+    }
+  }
+  for (int c0 = 0; c0 < dh; c0 += kCh) {
+    const int cw4 = min(kCh, dh - c0) / 4;
+    const int cw = cw4 * 4;
+    float aq[8][2];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) aq[t][0] = aq[t][1] = 0.f;
+    for (int kc = 0; kc < L; kc += a.Lt) {
+      const int nk = min(a.Lt, L - kc);
+      __syncthreads();     // ds written; the previous chunk's readers done
+      attn_stage<kBf>(C1, qkv, d3, d + hc + c0, cw4, a, L, kc, nk);
+      // the chunk's ds; at the first column chunk from dp (written back)
+      for (int v = threadIdx.x; v < a.ns * a.nr * nk; v += kThreads) {
+        const int jc = v % nk;
+        const int r = (v / nk) % a.nr;
+        const int s = v / (nk * a.nr);
+        const size_t k =
+            ((size_t)h * N + (size_t)(a.seq0 + s) * L + a.r0 + r) * L + kc
+            + jc;
+        float ds = dsbuf[k];
+        if (c0 == 0) {
+          ds = p_in[k] * (ds - row_dpp[s * a.Lt + r]);
+          if constexpr (kBf) ds = bf16f(ds);
+          dsbuf[k] = ds;
+        }
+        DS[(s * a.Lt + r) * kLdp + jc] = ds;
+      }
+      __syncthreads();
+      if (!a.active) continue;
+      for (int j = 0; j < nk; ++j) {
+        const float* kr = C1 + (sq + j) * kLdc;
+        const float k0 = lane < cw ? kr[lane] : 0.f;
+        const float k1 = lane + 32 < cw ? kr[lane + 32] : 0.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int r = wr + a.wps * t;
+          if (r < a.nr) {
+            const float ds_ij = DS[(sq + r) * kLdp + j];
+            aq[t][0] = fmaf(ds_ij, k0, aq[t][0]);
+            aq[t][1] = fmaf(ds_ij, k1, aq[t][1]);
+          }
+        }
+      }
+    }
+    if (!a.active) continue;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int r = wr + a.wps * t;
+      if (r >= a.nr) continue;
+      float* dst = dqkv + ((size_t)a.b * L + a.r0 + r) * d3 + hc + c0;
+      if (lane < cw) dst[lane] = aq[t][0] * inv_sqrt_dh;
+      if (lane + 32 < cw) dst[lane + 32] = aq[t][1] * inv_sqrt_dh;
+    }
+  }
+}
+
+template <bool kBf>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkv_kernel(const float* __restrict__ qkv,
+                    const float* __restrict__ p_in,
+                    const float* __restrict__ d_o, float* __restrict__ dqkv,
+                    const float* __restrict__ dsbuf, int B, int L, int d,
+                    int n_head, drop::Dropout dr, uint32_t salt) {
+  extern __shared__ float4 smem4[];
+  const uint32_t key = dr.key(salt);
+  const AttnTile a = attn_tile(B, L);          // a tile of key rows
+  float* C1 = reinterpret_cast<float*>(smem4);   // [kTile][kLdc]: q
+  float* C2 = C1 + kTile * kLdc;                 // [kTile][kLdc]: do
+  float* DT = C2 + kTile * kLdc;                 // dsᵀ [key][query]
+  float* PT = DT + kTile * kLdp;                 // drop(p)ᵀ [key][query]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int h = blockIdx.y;
+  const size_t N = (size_t)B * L;
+  const int dh = d / n_head;
+  const int hc = h * dh;
+  const int d3 = 3 * d;
+  const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
+  const int wr = warp % a.wps;
+  const int sq = a.s * a.Lt;
+  for (int c0 = 0; c0 < dh; c0 += kCh) {
+    const int cw4 = min(kCh, dh - c0) / 4;
+    const int cw = cw4 * 4;
+    float ak[8][2], av[8][2];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) ak[t][0] = ak[t][1] = av[t][0] = av[t][1] = 0.f;
+    for (int qc = 0; qc < L; qc += a.Lt) {
+      const int nq = min(a.Lt, L - qc);
+      __syncthreads();     // the previous chunk's readers
+      attn_stage<kBf>(C1, qkv, d3, hc + c0, cw4, a, L, qc, nq);
+      attn_stage<kBf>(C2, d_o, d, hc + c0, cw4, a, L, qc, nq);
+      // the chunk's ds and drop(p), transposed: keys the tile's rows, read
+      // along the keys
+      for (int v = threadIdx.x; v < a.ns * nq * a.nr; v += kThreads) {
+        const int r = v % a.nr;
+        const int ic = (v / a.nr) % nq;
+        const int s = v / (a.nr * nq);
+        const int b = a.seq0 + s, i = qc + ic, j = a.r0 + r;
+        const size_t k = ((size_t)h * N + (size_t)b * L + i) * L + j;
+        float pd = p_in[k];
+        if (dr.on)
+          pd = dr.apply(pd, key, static_cast<uint32_t>(
+                                     (((size_t)dr.batch(b) * n_head + h) * L
+                                      + i) * L + j));
+        DT[(s * a.Lt + r) * kLdp + ic] = dsbuf[k];
+        PT[(s * a.Lt + r) * kLdp + ic] = kBf ? bf16f(pd) : pd;
+      }
+      __syncthreads();
+      if (!a.active) continue;
+      for (int i = 0; i < nq; ++i) {
+        const float* qr = C1 + (sq + i) * kLdc;
+        const float* gr = C2 + (sq + i) * kLdc;
+        const float q0 = lane < cw ? qr[lane] : 0.f;
+        const float q1 = lane + 32 < cw ? qr[lane + 32] : 0.f;
+        const float g0 = lane < cw ? gr[lane] : 0.f;
+        const float g1 = lane + 32 < cw ? gr[lane + 32] : 0.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int r = wr + a.wps * t;
+          if (r < a.nr) {
+            const float ds_ij = DT[(sq + r) * kLdp + i];
+            const float pd_ij = PT[(sq + r) * kLdp + i];
+            ak[t][0] = fmaf(ds_ij, q0, ak[t][0]);
+            ak[t][1] = fmaf(ds_ij, q1, ak[t][1]);
+            av[t][0] = fmaf(pd_ij, g0, av[t][0]);
+            av[t][1] = fmaf(pd_ij, g1, av[t][1]);
+          }
+        }
+      }
+    }
+    if (!a.active) continue;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int r = wr + a.wps * t;
+      if (r >= a.nr) continue;
+      float* dst = dqkv + ((size_t)a.b * L + a.r0 + r) * d3 + hc + c0;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = lane + 32 * u;
+        if (c >= cw) continue;
+        dst[d + c] = ak[t][u] * inv_sqrt_dh;
+        dst[2 * d + c] = av[t][u];
+      }
+    }
+  }
+}
+
+// ---- up to L 64: whole sequences in shared memory ----
+//
+// Dynamic shared memory of attn_bwd_seq_kernel at length L, in bytes: for
 // R = attn_seqs(L)·L rows, three chunks of 64 head columns [R][kLdc] and
 // ds and drop(p) of one head ([R][round4(L)] each).
-__host__ __device__ constexpr int attn_bwd_smem(int L) {
+__host__ __device__ constexpr int attn_seq_bwd_smem(int L) {
   return 4 * attn_seqs(L) * L * (3 * kLdc + 2 * round4(L));
 }
 
@@ -195,7 +476,7 @@ __host__ __device__ constexpr int attn_bwd_smem(int L) {
 // are stored).
 template <bool kBf>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
+attn_bwd_seq_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
                 const float* __restrict__ d_o, float* __restrict__ dqkv,
                 int B, int L, int d, int n_head, drop::Dropout dr,
                 uint32_t salt) {
@@ -362,10 +643,11 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
 
 // ----------------------------------------------------- the row kernels ----
 
-// LayerNorm backward, one warp per row: dz = rstd·(g·s - mean(g·s) -
-// xhat·mean(g·s·xhat)); dzd = drop(dz) where dzd is not null (kMap: the
-// dropout maps its rows).
-template <int NV, bool kMap>
+// LayerNorm backward, one warp per row, any width (a lane takes columns
+// lane + 32·t in order, gin and xhat read twice, the second time from L1
+// or L2): dz = rstd·(g·s - mean(g·s) - xhat·mean(g·s·xhat)); dzd =
+// drop(dz) where dzd is not null (kMap: the dropout maps its rows).
+template <bool kMap>
 __global__ void __launch_bounds__(kThreads)
 ln_bwd_kernel(const float* __restrict__ gin, const float* __restrict__ xhat,
               const float* __restrict__ rstd,
@@ -378,31 +660,20 @@ ln_bwd_kernel(const float* __restrict__ gin, const float* __restrict__ xhat,
   if (r >= n) return;
   const size_t at = (size_t)r * d;
   const uint32_t dat = kMap ? dr.row_index(r, d) : static_cast<uint32_t>(at);
-  float gs[NV], xh[NV];
   float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-  for (int t = 0; t < NV; ++t) {
-    const int c = lane + 32 * t;
-    gs[t] = xh[t] = 0.f;
-    if (c < d) {
-      gs[t] = gin[at + c] * scale[c];
-      xh[t] = xhat[at + c];
-      m1 += gs[t];
-      m2 += gs[t] * xh[t];
-    }
+  for (int c = lane; c < d; c += 32) {
+    const float gs = gin[at + c] * scale[c];
+    m1 += gs;
+    m2 += gs * xhat[at + c];
   }
   m1 = warp_sum(m1) / d;
   m2 = warp_sum(m2) / d;
   const float rs = rstd[r];
-#pragma unroll
-  for (int t = 0; t < NV; ++t) {
-    const int c = lane + 32 * t;
-    if (c < d) {
-      const float v = rs * (gs[t] - m1 - xh[t] * m2);
-      dz[at + c] = v;
-      if (dzd)
-        dzd[at + c] = dr.apply(v, key, dat + c);
-    }
+  for (int c = lane; c < d; c += 32) {
+    const float gs = gin[at + c] * scale[c];
+    const float v = rs * (gs - m1 - xhat[at + c] * m2);
+    dz[at + c] = v;
+    if (dzd) dzd[at + c] = dr.apply(v, key, dat + c);
   }
 }
 
@@ -644,10 +915,14 @@ cudaError_t prepare() {
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, true, 1>, a,
                            GemmCfg<256, false>::kSmem));
   int most = 0;
-  for (int L = 1; L <= kMaxL; ++L)
-    most = attn_bwd_smem(L) > most ? attn_bwd_smem(L) : most;
-  TRY(cudaFuncSetAttribute(attn_bwd_kernel<false>, a, most));
-  TRY(cudaFuncSetAttribute(attn_bwd_kernel<true>, a, most));
+  for (int L = 1; L <= kSeqL; ++L)
+    most = attn_seq_bwd_smem(L) > most ? attn_seq_bwd_smem(L) : most;
+  TRY(cudaFuncSetAttribute(attn_bwd_seq_kernel<false>, a, most));
+  TRY(cudaFuncSetAttribute(attn_bwd_seq_kernel<true>, a, most));
+  TRY(cudaFuncSetAttribute(attn_bwd_dq_kernel<false>, a, kAttnDqSmem));
+  TRY(cudaFuncSetAttribute(attn_bwd_dq_kernel<true>, a, kAttnDqSmem));
+  TRY(cudaFuncSetAttribute(attn_bwd_dkv_kernel<false>, a, kAttnDkvSmem));
+  TRY(cudaFuncSetAttribute(attn_bwd_dkv_kernel<true>, a, kAttnDkvSmem));
   TRY(cudaFuncSetAttribute(wgrad_kernel<false>, a, kWgSmem));
   TRY(cudaFuncSetAttribute(wgrad_kernel<true>, a, kWgSmem));
   if (dev < 64) done[dev] = true;
@@ -685,18 +960,8 @@ cudaError_t ln_bwd_t(const float* gin, const float* xhat, const float* rstd,
                      const float* scale, float* dz, float* dzd, int n, int d,
                      drop::Dropout dr, uint32_t salt, cudaStream_t s) {
   const int blocks = (n + kThreads / 32 - 1) / (kThreads / 32);
-  if (d <= 64)
-    ln_bwd_kernel<2, kMap><<<blocks, kThreads, 0, s>>>(
-        gin, xhat, rstd, scale, dz, dzd, n, d, dr, salt);
-  else if (d <= 128)
-    ln_bwd_kernel<4, kMap><<<blocks, kThreads, 0, s>>>(
-        gin, xhat, rstd, scale, dz, dzd, n, d, dr, salt);
-  else if (d <= 256)
-    ln_bwd_kernel<8, kMap><<<blocks, kThreads, 0, s>>>(
-        gin, xhat, rstd, scale, dz, dzd, n, d, dr, salt);
-  else
-    ln_bwd_kernel<16, kMap><<<blocks, kThreads, 0, s>>>(
-        gin, xhat, rstd, scale, dz, dzd, n, d, dr, salt);
+  ln_bwd_kernel<kMap><<<blocks, kThreads, 0, s>>>(gin, xhat, rstd, scale, dz,
+                                                  dzd, n, d, dr, salt);
   return cudaGetLastError();
 }
 
@@ -714,11 +979,11 @@ cudaError_t ln_bwd(const float* gin, const float* xhat, const float* rstd,
 // partials of the weight gradients, carved from the workspace (a null base
 // only counts).
 struct Temps {
-  float *ga, *gb, *dz2, *dg2, *df, *dy1, *dz1, *da, *d_o, *dqkv, *part;
+  float *ga, *gb, *dz2, *dg2, *df, *dy1, *dz1, *da, *d_o, *dqkv, *ds, *part;
 };
 
-Temps take_temps(float* base, size_t N, int d, size_t part_floats,
-                 size_t* total) {
+Temps take_temps(float* base, size_t N, int d, int n_head, int L,
+                 size_t part_floats, size_t* total) {
   size_t at = 0;
   auto at_ = [&](size_t n) {
     const size_t o = take(at, n);
@@ -735,6 +1000,7 @@ Temps take_temps(float* base, size_t N, int d, size_t part_floats,
   t.da = at_(N * d);
   t.d_o = at_(N * d);
   t.dqkv = at_(3 * N * d);
+  t.ds = at_((size_t)n_head * N * L);     // the attention's dp, then ds
   t.part = at_(part_floats);
   if (total) *total = at;
   return t;
@@ -755,9 +1021,10 @@ int wg_splits(int N, int d) {
   return splits < 1 ? 1 : splits;
 }
 
-size_t workspace_floats(int B, int L, int d, int n_layers, int splits) {
+size_t workspace_floats(int B, int L, int d, int n_head, int n_layers,
+                        int splits) {
   size_t total = 0;
-  take_temps(nullptr, (size_t)B * L, d,
+  take_temps(nullptr, (size_t)B * L, d, n_head, L,
              (size_t)splits * grad_offsets(d, n_layers).total, &total);
   return total;
 }
@@ -771,8 +1038,8 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
   const int n = static_cast<int>(N);
   const GradOff go = grad_offsets(d, n_layers);
   const SavedLayout so = saved_layout(N, d, n_head, L, n_layers);
-  const Temps t = take_temps(workspace, N, d, (size_t)splits * go.total,
-                             nullptr);
+  const Temps t = take_temps(workspace, N, d, n_head, L,
+                             (size_t)splits * go.total, nullptr);
   const int nt = width_tile(d);
   drop::Dropout off = dr;
   off.on = 0;
@@ -811,15 +1078,35 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     g7.a = da; g7.w = l0.w_out + li * s_dd; g7.c = t.d_o; g7.n = n; g7.k = d;
     g7.m = d; g7.epi = kStore; g7.dr = off;
     TRY(launch_gemm(g7, nt, bf16, s));
-    const int attn_blocks = (B + attn_seqs(L) - 1) / attn_seqs(L);
-    if (bf16)
-      attn_bwd_kernel<true><<<attn_blocks, kThreads, attn_bwd_smem(L), s>>>(
-          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L, d,
-          n_head, dr, dr.salt(drop::kProbs, li));
-    else
-      attn_bwd_kernel<false><<<attn_blocks, kThreads, attn_bwd_smem(L), s>>>(
-          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L, d,
-          n_head, dr, dr.salt(drop::kProbs, li));
+    const dim3 attn_grid(attn_blocks(B, L), n_head);
+    const uint32_t salt = dr.salt(drop::kProbs, li);
+    if (L <= kSeqL) {
+      const int blocks = (B + attn_seqs(L) - 1) / attn_seqs(L);
+      if (bf16)
+        attn_bwd_seq_kernel<true>
+            <<<blocks, kThreads, attn_seq_bwd_smem(L), s>>>(
+                layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L,
+                d, n_head, dr, salt);
+      else
+        attn_bwd_seq_kernel<false>
+            <<<blocks, kThreads, attn_seq_bwd_smem(L), s>>>(
+                layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L,
+                d, n_head, dr, salt);
+    } else if (bf16) {
+      attn_bwd_dq_kernel<true><<<attn_grid, kThreads, kAttnDqSmem, s>>>(
+          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B, L,
+          d, n_head, dr, salt);
+      attn_bwd_dkv_kernel<true><<<attn_grid, kThreads, kAttnDkvSmem, s>>>(
+          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B, L,
+          d, n_head, dr, salt);
+    } else {
+      attn_bwd_dq_kernel<false><<<attn_grid, kThreads, kAttnDqSmem, s>>>(
+          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B, L,
+          d, n_head, dr, salt);
+      attn_bwd_dkv_kernel<false><<<attn_grid, kThreads, kAttnDkvSmem, s>>>(
+          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B, L,
+          d, n_head, dr, salt);
+    }
     TRY(cudaGetLastError());
     // dx of the layer: dz1 + dqkv·Wqkvᵀ, through the input dropout below
     // the first layer
@@ -883,10 +1170,12 @@ extern "C" int encoder_bwd_grid(int B, int L, int d) {
 }
 
 // Floats of the workspace the backward needs: its working buffers for all
-// B·L rows and the weight-gradient partials of `grid` row splits.
+// B·L rows (the attention's H·B·L² among them) and the weight-gradient
+// partials of `grid` row splits.
 extern "C" long long encoder_bwd_workspace_floats(int B, int L, int d,
-                                                  int n_layers, int grid) {
-  return (long long)workspace_floats(B, L, d, n_layers, grid);
+                                                  int n_head, int n_layers,
+                                                  int grid) {
+  return (long long)workspace_floats(B, L, d, n_head, n_layers, grid);
 }
 
 // Floats of the flat gradient buffer (grad_offsets: the stacked layer

@@ -1,31 +1,102 @@
 // What the tower forward (encoder.cu) and backward (encoder_bwd.cu)
 // share: the saved-activation layout, kNeg and kLnEps, warp reductions, a
-// LayerNorm row held in registers, and the attention kernels' geometry.
+// LayerNorm row walked by a warp, and the attention kernels' tiles.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "dropout.cuh"
+#include "tc.cuh"
 
 namespace tower {
 
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e9f;
 constexpr float kLnEps = 1e-8f;
-constexpr int kMaxL = 64;      // the longest sequence the towers take
 constexpr int kCh = 64;        // head columns an attention chunk holds
 constexpr int kLdc = kCh + 4;  // chunk row stride: a quarter warp's float4
                                // loads of 8 rows fall in distinct banks
+constexpr int kTile = 64;      // rows (queries or keys) an attention block
+                               // holds, and positions a chunk of the other
+                               // side holds: a lane takes two of them
+constexpr int kLdp = kTile + 4;  // row stride of a probability tile
 
 // Sequences a block of the attention kernels holds at length L: the most,
-// a power of two up to 8, whose rows fit in 64; a warp serves one of them,
-// so 8 / S warps share a sequence.
+// a power of two up to 8, whose rows fit in kTile; a warp serves one of
+// them, so 8 / S warps share a sequence.  Past L 32 one sequence, and past
+// L 64 a block takes kTile of its rows.
 __host__ __device__ constexpr int attn_seqs(int L) {
   return L <= 8 ? 8 : L <= 16 ? 4 : L <= 32 ? 2 : 1;
 }
 
+// The longest L at which the whole-sequence attention kernels run (a lane
+// two keys of a sequence, its probabilities in shared memory); past it the
+// chunked kernels.  At FK's L 15 the whole-sequence kernels are the faster
+// (PERF.md §6: K2 0.8415 against 0.9628 ms a step on an H100).
+constexpr int kSeqL = 64;
+
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+
+// Blocks of a chunked attention kernel over B sequences of length L: groups of
+// attn_seqs(L) sequences, each group cut into tiles of kTile rows (one tile
+// up to L 64).  A kernel's grid is (attn_blocks, heads).
+__host__ __device__ constexpr int attn_tiles(int L) {
+  return (L + kTile - 1) / kTile;
+}
+inline int attn_blocks(int B, int L) {
+  return (B + attn_seqs(L) - 1) / attn_seqs(L) * attn_tiles(L);
+}
+
+// Where an attention block and a thread of it work: the block holds rows
+// r0 .. r0 + nr - 1 of sequences seq0 .. seq0 + ns - 1 (those in range, S
+// at most), row r of sequence s at tile row s·Lt + r - r0; warp w serves
+// sequence s = w / wps and its tile rows w % wps + wps·t (t < 8, while
+// below nr).  The other side (keys of a query tile, queries of a key tile)
+// passes in chunks of Lt positions, a lane the chunk's positions lane and
+// lane + 32.
+struct AttnTile {
+  int S, Lt, wps, seq0, ns, r0, nr, s, b;
+  bool active;         // this warp's sequence is in range
+};
+
+__device__ __forceinline__ AttnTile attn_tile(int B, int L) {
+  AttnTile a;
+  a.S = attn_seqs(L);
+  a.Lt = L < kTile ? L : kTile;
+  const int T = attn_tiles(L);
+  a.r0 = (blockIdx.x % T) * kTile;
+  a.nr = min(a.Lt, L - a.r0);
+  a.seq0 = (blockIdx.x / T) * a.S;
+  a.ns = min(a.S, B - a.seq0);
+  a.wps = 8 / a.S;
+  const int warp = threadIdx.x >> 5;
+  a.s = warp / a.wps;
+  a.b = a.seq0 + a.s;
+  a.active = a.s < a.ns;
+  return a;
+}
+
+// Rows start .. start + n - 1 of each of the tile's ns sequences, columns
+// [col, col + 4·cw4) of src [B·L, ld], into dst [s·Lt + r][kLdc] (kBf:
+// rounded to bf16), by the whole block.
+template <bool kBf>
+__device__ __forceinline__ void attn_stage(float* dst, const float* src,
+                                           int ld, int col, int cw4,
+                                           const AttnTile& a, int L,
+                                           int start, int n) {
+  for (int v = threadIdx.x; v < a.ns * n * cw4; v += kThreads) {
+    const int c = (v % cw4) * 4;
+    const int r = (v / cw4) % n;
+    const int s = v / (cw4 * n);
+    float4 x = *reinterpret_cast<const float4*>(
+        src + ((size_t)(a.seq0 + s) * L + start + r) * ld + col + c);
+    if constexpr (kBf)
+      x = make_float4(tc::bf16f(x.x), tc::bf16f(x.y), tc::bf16f(x.z),
+                      tc::bf16f(x.w));
+    *reinterpret_cast<float4*>(dst + (s * a.Lt + r) * kLdc + c) = x;
+  }
+}
 
 struct Layer {
   const float *w_qkv, *b_qkv, *w_out, *b_out, *w_ff1, *b_ff1, *w_ff2, *b_ff2;
@@ -115,35 +186,27 @@ __device__ __forceinline__ void add_compensated(float& s, float& c, float x) {
   s = t;
 }
 
-// v = LN(v) of one row held by a warp, lane holding columns lane + 32·t
-// (t < NV) of d: statistics in f32 (mean, then the mean square about it),
-// eps kLnEps.  Writes the row to y, its normalised values to xhat and its
-// 1/std to *rstd, each where not null; v holds the output after.
-template <int NV>
-__device__ __forceinline__ void ln_row(float (&v)[NV], int d,
+// y = LN(z) of one row of d columns walked by a warp, lane taking columns
+// lane + 32·t in order: statistics in f32 (the mean, then the mean square
+// about it), eps kLnEps.  Writes y, the normalised values to xhat and
+// 1/std to *rstd, each where not null.  Any width: z is read once a pass
+// (three passes, the second and third from L1 or L2).  z may be y or xhat:
+// a lane reads a column before it writes it.
+__device__ __forceinline__ void ln_row(const float* z, int d,
                                        const float* __restrict__ g,
                                        const float* __restrict__ b, float* y,
                                        float* xhat, float* rstd) {
   const int lane = threadIdx.x & 31;
   float s = 0.f;
-#pragma unroll
-  for (int t = 0; t < NV; ++t)
-    if (lane + 32 * t < d) s += v[t];
+  for (int c = lane; c < d; c += 32) s += z[c];
   const float mean = warp_sum(s) / d;
   float q = 0.f;
-#pragma unroll
-  for (int t = 0; t < NV; ++t)
-    if (lane + 32 * t < d) q += (v[t] - mean) * (v[t] - mean);
+  for (int c = lane; c < d; c += 32) q += (z[c] - mean) * (z[c] - mean);
   const float rs = rsqrtf(warp_sum(q) / d + kLnEps);
-#pragma unroll
-  for (int t = 0; t < NV; ++t) {
-    const int c = lane + 32 * t;
-    if (c < d) {
-      const float xh = (v[t] - mean) * rs;
-      v[t] = xh * g[c] + b[c];
-      if (y) y[c] = v[t];
-      if (xhat) xhat[c] = xh;
-    }
+  for (int c = lane; c < d; c += 32) {
+    const float xh = (z[c] - mean) * rs;
+    if (y) y[c] = xh * g[c] + b[c];
+    if (xhat) xhat[c] = xh;
   }
   if (rstd && lane == 0) *rstd = rs;
 }

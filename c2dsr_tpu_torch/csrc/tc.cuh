@@ -122,8 +122,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // logs it against float64); twice the MMAs and an add a k-step.
 // TERMS = 1 is the bf16 instantiation (compute_dtype="bfloat16"): each
 // operand rounded to bf16 as it is read (round_bf16), one MMA a k-step,
-// the exact products summed in f32 by the tensor cores, as the JAX
-// package's _mm / _mm_nt with matmul_dtype=bf16 sum them.
+// the exact products of a chunk's kKc / 8 k-steps summed by the tensor
+// cores into a zeroed partial and the partials added in f32, as the JAX
+// package's _mm / _mm_nt with matmul_dtype=bf16 sum them in f32.
 constexpr int kGemmThreads = 128;
 constexpr int kGemmRows = 64;
 constexpr int kKc = 32;
@@ -223,6 +224,57 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
     cp_async_commit();
     const float* as = smem + (it % kGemmStages) * Cfg::kStage;
     const float* ws = as + kGemmRows * kLds;
+    // B[t][g] of k-step ks and n-tile j: x[0] and x[1] (rows t and t + 4)
+    auto b_values = [&](int ks, int j, float (&x)[2]) {
+      if constexpr (KM) {   // B[t][g] = W[k0 + t][n0 + 8·j + g]
+        const float* src = ws + (ks * 8 + tq) * Cfg::kLdw + j * 8 + gq;
+        x[0] = src[0];
+        x[1] = src[4 * Cfg::kLdw];
+      } else {              // B[t][g] = W[n0 + 8·j + g][k0 + t]
+        const float* src = ws + (j * 8 + gq) * kLds + ks * 8 + tq;
+        x[0] = src[0];
+        x[1] = src[4];
+      }
+    };
+    if constexpr (TERMS == 1) {
+      // the chunk's kKc / 8 k-steps into a zeroed partial per batch of
+      // n-tiles, which an f32 add then rounds into acc to nearest: summed
+      // over all of k in the accumulator, whose adds truncate, the bf16
+      // products drifted toward zero by ulps of the running sum, and K2's
+      // bf16 tower lay 1.35-1.5x as far from float64 as the plain bf16
+      // tower at d 520-1,024 (an H100, PERF.md §6)
+      uint32_t ap[kKc / 8][4];
+#pragma unroll
+      for (int ks = 0; ks < kKc / 8; ++ks) {
+        const float* src = as + (warp * 16 + gq) * kLds + ks * 8 + tq;
+        ap[ks][0] = round_bf16(src[0]);
+        ap[ks][1] = round_bf16(src[8 * kLds]);
+        ap[ks][2] = round_bf16(src[4]);
+        ap[ks][3] = round_bf16(src[8 * kLds + 4]);
+      }
+#pragma unroll
+      for (int j0 = 0; j0 < kNj; j0 += kNb) {
+        float part[kNb][4];
+#pragma unroll
+        for (int ks = 0; ks < kKc / 8; ++ks) {
+#pragma unroll
+          for (int j = 0; j < kNb; ++j) {
+            float x[2];
+            b_values(ks, j0 + j, x);
+            const uint32_t bp[2] = {round_bf16(x[0]), round_bf16(x[1])};
+            if (ks == 0)
+              mma_tf32_zero(part[j], ap[ks], bp);
+            else
+              mma_tf32(part[j], ap[ks], bp);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kNb; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j0 + j][i] += part[j][i];
+      }
+      continue;
+    }
 #pragma unroll
     for (int ks = 0; ks < kKc / 8; ++ks) {
       uint32_t ap[kP][4];                 // A's parts, fragment-ordered
@@ -243,16 +295,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
 #pragma unroll
         for (int j = 0; j < kNb; ++j) {
           float x[2];
-          if constexpr (KM) {   // B[t][g] = W[k0 + t][n0 + 8·j + g]
-            const float* src = ws + (ks * 8 + tq) * Cfg::kLdw + (j0 + j) * 8
-                               + gq;
-            x[0] = src[0];
-            x[1] = src[4 * Cfg::kLdw];
-          } else {              // B[t][g] = W[n0 + 8·j + g][k0 + t]
-            const float* src = ws + ((j0 + j) * 8 + gq) * kLds + ks * 8 + tq;
-            x[0] = src[0];
-            x[1] = src[4];
-          }
+          b_values(ks, j0 + j, x);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             uint32_t p[3];
@@ -267,10 +310,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
         // big·big into a zeroed partial, which an f32 add then rounds into
         // acc to nearest: the tensor cores add into their accumulator with
         // truncation, each MMA about an ulp of the running sum.
-        if constexpr (TERMS == 1) {
-#pragma unroll
-          for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], ap[0], bp[0][j]);
-        } else if constexpr (TERMS == 6) {
+        if constexpr (TERMS == 6) {
           float part[kNb][4];
 #pragma unroll
           for (int j = 0; j < kNb; ++j)
@@ -292,7 +332,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
           for (int j = 0; j < kNb; ++j)
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc[j0 + j][i] += part[j][i];
-        } else {
+        } else if constexpr (TERMS == 3) {   // TERMS 1 took the branch above
 #pragma unroll
           for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], ap[1], bp[0][j]);
 #pragma unroll

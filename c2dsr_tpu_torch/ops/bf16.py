@@ -29,15 +29,20 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
 
 
 class _Matmul(torch.autograd.Function):
-    """``(bf16(a) @ bf16(b)) * scale`` in f32; the gradients ``(bf16(g) @
-    bf16(b)ᵀ) * scale`` and ``(bf16(a)ᵀ @ bf16(g)) * scale``, each returned
-    in its input's dtype (a bf16 weight gets a bf16 gradient, as
-    ``fused_ce.py:337,392`` casts dW)."""
+    """``(bf16(a) @ bf16(b)) * scale`` in f32 (in float64 where an input is
+    float64: the same rounding points with float64 sums, a reference for
+    the f32 versions); the gradients ``(bf16(g) @ bf16(b)ᵀ) * scale`` and
+    ``(bf16(a)ᵀ @ bf16(g)) * scale``, each returned in its input's dtype (a
+    bf16 weight gets a bf16 gradient, as ``fused_ce.py:337,392`` casts
+    dW)."""
 
     @staticmethod
     def forward(ctx, a, b, scale):
+        wide = torch.float64 in (a.dtype, b.dtype)
         ra = round_bf16(a.float())
         rb = round_bf16(b.float())
+        if wide:
+            ra, rb = ra.double(), rb.double()
         ctx.save_for_backward(ra, rb)
         ctx.scale = scale
         ctx.dtypes = (a.dtype, b.dtype)
@@ -47,7 +52,7 @@ class _Matmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ra, rb = ctx.saved_tensors
-        rg = round_bf16(g.float())
+        rg = round_bf16(g.float()).to(ra.dtype)
         ga = rg @ rb.transpose(-1, -2)
         if ra.dim() > 2 and rb.dim() == 2:     # a weight shared by the batch
             gb = (ra.reshape(-1, ra.shape[-1]).T

@@ -18,9 +18,11 @@ of kernels over all N rows of the call, every product with a weight on the
 tensor cores at f32 accuracy (3xTF32, ``csrc/tc.cuh``): the forward folds
 the bias, ReLU, dropout, residual and (up to d 256) LayerNorm into its
 GEMMs' epilogues, the backward dropout, ReLU's mask and the residual;
-attention runs a block per sequence; LayerNorm (the forward's above d 256,
-the backward's) a row a warp; the weight gradients are reductions over row
-splits summed in order.  The forward writes its intermediates into the
+attention runs up to 8 whole sequences a block up to L 64 and, past it, a
+block per head and tile of 64 query (or key) rows, the other side in
+chunks of 64; LayerNorm (the forward's above d 256, the backward's) a row
+a warp at any width; the weight gradients are reductions over row splits
+summed in order.  The forward writes its intermediates into the
 saved-activation layout: in training the buffer the backward reads, so the
 backward differentiates the very forward the loss saw with no recompute;
 in eval a one-layer workspace of the same layout (``csrc/encoder.cu`` and
@@ -76,13 +78,13 @@ def _fn(stem: str, name: str, argtypes, restype=ctypes.c_int):
 
 
 def supported(d: int, n_head: int, length: int) -> bool:
-    """Shapes both kernels take: every width at which the JAX package runs
-    its fused encoder, up to d 512: d a multiple of 8 from 8 to 512, head dim
-    a multiple of 8, and 1 <= L <= 64 (FK/MB L = 15, EE L = 30).  The
-    attention kernels give a lane two keys of a sequence; nothing else is
-    tied to L.  Wider towers are refused (ROADMAP §A item 5)."""
-    return (d % 8 == 0 and 8 <= d <= 512 and d % n_head == 0
-            and (d // n_head) % 8 == 0 and 1 <= length <= 64)
+    """Shapes both kernels take: every tower the JAX package runs through
+    its fused Pallas encoder (``c2dsr_tpu/ops/encoder_pallas.supported``:
+    head dim a multiple of 8, post-norm, which the caller decides), at any
+    width and any L >= 1.  Past L 64 attention passes keys in chunks of
+    64, and LayerNorm walks a row in a warp, so neither ties a buffer to d
+    or L; ``_check`` adds the guard of 2^31 elements a tower call."""
+    return d % n_head == 0 and (d // n_head) % 8 == 0 and length >= 1
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -115,8 +117,7 @@ def _check(x: torch.Tensor, seq: torch.Tensor, weights, n_head: int,
     B, L, d = x.shape
     if not supported(d, n_head, L):
         raise ValueError(f"{name} does not take d={d}, n_head={n_head}, L={L} "
-                         "(d % 8 == 0 up to 512, head dim % 8 == 0, L <= 64; "
-                         "ROADMAP §A item 5)")
+                         "(head dim d / n_head a multiple of 8, L >= 1)")
     if max(B * L * d, B * n_head * L * L) >= 2 ** 31:
         raise ValueError(f"{name}: a tower call must hold < 2^31 elements")
     if tuple(seq.shape) != (B, L) or seq.device != x.device:
@@ -239,13 +240,15 @@ encoder_fwd.launches_bf16 = 0
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_sizes(B: int, L: int, d: int, n_layers: int) -> Tuple[int, int, int]:
+def _bwd_sizes(B: int, L: int, d: int, n_head: int, n_layers: int
+               ) -> Tuple[int, int, int]:
     """(row splits of the weight gradients, workspace floats, gradient
     floats) of a backward call (``encoder_bwd_grid`` and the sizes in
     encoder_bwd.cu)."""
     grid = _fn("encoder_bwd", "encoder_bwd_grid", (ctypes.c_int,) * 3)(B, L, d)
     ws = _fn("encoder_bwd", "encoder_bwd_workspace_floats",
-             (ctypes.c_int,) * 5, ctypes.c_longlong)(B, L, d, n_layers, grid)
+             (ctypes.c_int,) * 6, ctypes.c_longlong)(B, L, d, n_head,
+                                                      n_layers, grid)
     grads = _fn("encoder_bwd", "encoder_bwd_grad_floats",
                 (ctypes.c_int,) * 2, ctypes.c_longlong)(d, n_layers)
     return grid, ws, grads
@@ -277,7 +280,7 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
     # the kernels' 16-byte asynchronous copies read gout and the weights
     gout = _aligned(gout.contiguous())
     weights = [_aligned(w) for w in weights]
-    grid, ws_floats, grad_floats = _bwd_sizes(B, L, d, n_layers)
+    grid, ws_floats, grad_floats = _bwd_sizes(B, L, d, n_head, n_layers)
     ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
     flat = torch.empty(grad_floats, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)

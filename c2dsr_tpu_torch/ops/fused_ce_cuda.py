@@ -21,9 +21,14 @@ its two kernels, with the same operand plan over (resident, streamed)
 operands, h and Wᵀ for dh, Wᵀ and h for dW; the vocab or row splits of its
 grid are summed in order by a small kernel.  No logit reaches device
 memory, and each output element is written once, with no atomics, for any
-N: the results are bitwise repeatable.  Shapes: d % 8 == 0, d <= 512,
-V % 4 == 0.  Above d 256 a block keeps 64 rows of h resident and the
-backward splits its output columns over two blocks (``csrc/ce_fwd.cuh``).
+N: the results are bitwise repeatable.  Shapes: d % 8 == 0, V % 4 == 0,
+W under 2 GiB (d·V·4 < 2^31, or d·V·2 in the bf16 instantiations: the JAX
+package's limit).  Above d 256 K4 runs its wide kernel (``csrc/ce.cu``),
+which streams h and Wᵀ in chunks of 32 columns, and K5's blocks keep 64
+rows of h resident and split the output columns over two blocks
+(``csrc/ce_fwd.cuh``); above d 512 K5 runs its wide kernels too, which
+split the output columns over ceil(d / 256) blocks, each of which
+recomputes the logits.
 
 ``bf16=True`` (``compute_dtype="bfloat16"``, and always for a bf16 W)
 selects the bf16 instantiations, the JAX kernels' numerics: every product
@@ -73,14 +78,26 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 D_MULTIPLE = 8       # the widths the kernels take (ops/fused_ce pads to it)
-D_MAX = 512
+FWD_RESIDENT = 256   # the widest K4's and K5's resident-X kernels take
+BWD_RESIDENT = 512   # (ce.cu kFwdResident, kBwdResident); wider rows run
+                     # the wide kernels
 
 
-def check_shape(name: str, N: int, d: int, V: int) -> None:
-    """Raise unless the kernels take N rows, width d and V columns."""
-    if d % D_MULTIPLE or d == 0 or d > D_MAX or V % 4 or V == 0 or N == 0:
-        raise ValueError(f"{name} needs d % 8 == 0, d <= 512, V % 4 == 0; "
-                         f"got N={N} d={d} V={V}")
+def check_shape(name: str, N: int, d: int, V: int, w_bytes: int = 4
+                ) -> None:
+    """Raise unless the kernels take N rows, width d and V columns: d % 8
+    == 0, V % 4 == 0, and W [d, V] of ``w_bytes`` an element under 2 GiB
+    (d·V·w_bytes < 2^31), the JAX package's limit
+    (``c2dsr_tpu/ops/fused_ce.py`` ``_pick_blocks``)."""
+    if d % D_MULTIPLE or d == 0 or V % 4 or V == 0 or N == 0:
+        raise ValueError(f"{name} needs d % 8 == 0 and V % 4 == 0; got N={N} "
+                         f"d={d} V={V}")
+    if d * V * w_bytes >= 2 ** 31:
+        raise ValueError(f"{name}: classifier operand d*V = {d}x{V} at "
+                         f"{w_bytes} B/elt reaches 2 GiB, the 32-bit "
+                         "per-operand addressing limit; use a bfloat16 "
+                         "classifier or shard the vocab "
+                         "(parallel/sharded_loss.py)")
 
 
 def _check(name: str, h, w, rows, targets, bf16: bool = False
@@ -92,7 +109,8 @@ def _check(name: str, h, w, rows, targets, bf16: bool = False
                          f"{tuple(h.shape)} and {tuple(w.shape)}")
     N, d = h.shape
     V = w.shape[1]
-    check_shape(name, N, d, V)
+    # the bf16 instantiations multiply a bf16 Wᵀ (rounded by the pre-pass)
+    check_shape(name, N, d, V, 2 if bf16 else w.element_size())
     if not (w.dtype == torch.float32
             or (bf16 and w.dtype == torch.bfloat16)):
         raise ValueError(f"{name}: w must be f32 (or bf16 with bf16=True), "
@@ -115,7 +133,8 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
     """(lse, target logit) per row of softmax over [h·w + b_masked | pad],
     by K4.  h [N, d], b_masked [V], pad [N] f32; w [d, V] f32, or bf16 (the
     bf16 instantiation then, whatever ``bf16`` says); targets [N] int (a
-    target >= V gives a target logit of 0)."""
+    target >= V gives a target logit of 0).  Above FWD_RESIDENT the wide
+    kernel runs."""
     bf16 = bf16 or w.dtype == torch.bfloat16
     N, d, V = _check("ce_fwd", h, w, [(h, tuple(h.shape)),
                                       (b_masked, (w.shape[1],)),
@@ -143,10 +162,10 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
     # Wᵀ's TF32 split, then the splits' (max, sum, target) partials
     ws = torch.empty(2 * V * d + 3 * splits * N, dtype=torch.float32,
                      device=h.device)
-    err = _fn("ce_fwd_f32", 8)(h.data_ptr(), w.data_ptr(), b_masked.data_ptr(),
-                               pad.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
-                               tlog.data_ptr(), ws.data_ptr(), splits, N, d, V,
-                               torch.cuda.current_stream().cuda_stream)
+    err = _fn("ce_fwd_f32", 8, 4)(
+        h.data_ptr(), w.data_ptr(), b_masked.data_ptr(), pad.data_ptr(),
+        tgt.data_ptr(), lse.data_ptr(), tlog.data_ptr(), ws.data_ptr(),
+        splits, N, d, V, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ce_fwd launch failed: CUDA error {err}")
     ce_fwd.launches += 1
@@ -163,7 +182,8 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dh, dw, db) of :func:`ce_fwd` given the gradients dlse, dt of its
     two outputs, by K5 (its dh kernel, then its dW/db kernel); with
-    ``bf16`` (or a bf16 w) by its bf16 instantiation, dw in w's dtype."""
+    ``bf16`` (or a bf16 w) by its bf16 instantiation, dw in w's dtype.
+    Above BWD_RESIDENT the wide kernels run."""
     bf16 = bf16 or w.dtype == torch.bfloat16
     n = (h.shape[0],)
     N, d, V = _check("ce_bwd", h, w, [(h, tuple(h.shape)),
@@ -193,15 +213,8 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
         ce_bwd.launches_bf16 += 1
         return dh, dw.to(w.dtype), db
     split_h, split_w = _plan("ce_bwd_plan", N, d, V)
-    # Wᵀ and its TF32 split, h's split, then each pass's partials
-    floats = (3 * V * d + 2 * N * d + (split_h * N * d if split_h > 1 else 0)
-              + (split_w * (d + 1) * V if split_w > 1 else 0))
-    ws = torch.empty(floats, dtype=torch.float32, device=h.device)
-    err = _fn("ce_bwd_f32", 11, 5)(
-        h.data_ptr(), w.data_ptr(), b_masked.data_ptr(), lse.data_ptr(),
-        dlse.data_ptr(), dt.data_ptr(), tgt.data_ptr(), dh.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), ws.data_ptr(), split_h, split_w, N, d, V,
-        torch.cuda.current_stream().cuda_stream)
+    err = _bwd_f32("ce_bwd_f32", (split_h, split_w), h, w, b_masked, lse,
+                   dlse, dt, tgt, dh, dw, db)
     if err != 0:
         raise RuntimeError(f"ce_bwd launch failed: CUDA error {err}")
     ce_bwd.launches += 1
@@ -210,3 +223,21 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
 
 ce_bwd.launches = 0
 ce_bwd.launches_bf16 = 0
+
+
+def _bwd_f32(entry: str, splits, h, w, b_masked, lse, dlse, dt, tgt, dh, dw,
+             db) -> int:
+    """Runs the f32 backward's C ``entry`` (``ce_bwd_f32``, or
+    ``ce_bwd_wide_f32``, the wide kernels at any width, which
+    ``chip_smoke.py`` times beside the resident ones at d 512) with
+    ``splits`` from its plan; returns its CUDA error code."""
+    (split_h, split_w), (N, d), V = splits, h.shape, w.shape[1]
+    # Wᵀ and its TF32 split, h's split, then each pass's partials
+    floats = (3 * V * d + 2 * N * d + (split_h * N * d if split_h > 1 else 0)
+              + (split_w * (d + 1) * V if split_w > 1 else 0))
+    ws = torch.empty(floats, dtype=torch.float32, device=h.device)
+    return _fn(entry, 11, 5)(
+        h.data_ptr(), w.data_ptr(), b_masked.data_ptr(), lse.data_ptr(),
+        dlse.data_ptr(), dt.data_ptr(), tgt.data_ptr(), dh.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), ws.data_ptr(), split_h, split_w, N, d,
+        V, torch.cuda.current_stream().cuda_stream)

@@ -34,7 +34,8 @@ Phases (any failure exits non-zero without the final line):
    versions, except at counted near-ties (a band from the plain versions'
    own score error against float64, near_ties), and every metric must be
    finite; the kernels' scores must lie within SCORE_K times the plain
-   versions' error of the float64 ones; a tower perturbed by PERTURB must
+   versions' error of the float64 ones (the plain run with PyTorch's
+   deterministic kernels, gates.deterministic); a tower perturbed by PERTURB must
    fail both gates.  Then the same once at ``d_latent=512`` against one
    plain run.
 4. training path: train_step at Food-Kitchen geometry with the default
@@ -180,6 +181,8 @@ LEAD = 64                # fills that open (and close) a profiled window:
                          # the profiler loses its window's first kernels,
                          # up to 9 in this PR's runs (_k7_kernels)
 PROFILE_PAUSE_S = 0.05   # the pause after them
+K7_WINDOWS = 3           # profile windows _k7_kernels may take to see one
+                         # that kept an opening fill
 LOOKUPS = 6              # K7 launches a train step: the propagated plus the
                          # raw table (one K7, ops/lookup.lookup_add) and the
                          # positions, for each of the three tower inputs
@@ -195,6 +198,16 @@ LOOKUPS = 6              # K7 launches a train step: the propagated plus the
 # log and PERF.md).
 SPMM_BF16_TOL = 1e-5     # K1/K6: max abs err over max |plain|
 K2_BF16_TOL = 5e-4       # K2: relative Frobenius on rows with a key
+K2_BF16_TOL2 = 1e-3      # the same over two layers (phase_shapes): a second
+                         # layer re-rounds the first's output, and K2 read
+                         # up to 5.43e-4 from the plain bf16 tower at the
+                         # long and wide towers (d 1,024), the f32
+                         # instantiation at least 4.11e-3 (an H100)
+BF16_F64_K = 1.25        # phase_shapes: K2/K3 bf16 from the plain bf16 tower
+                         # in float64, at most this many times the plain
+                         # bf16 tower's distance from it (read: at most
+                         # 1.01x; before the bf16 GEMMs summed their chunks
+                         # in f32, K2 lay 1.35-1.5x at d 520-1,024)
 K3_BF16_TOL = 1e-2       # K3: relative Frobenius, the worst tensor
 CE_BF16_TOL = 1e-5       # K4: lse and target logit, max abs over max
 CE_BWD_BF16_TOL = 5e-5   # K5: dh, dW, db, max abs over max
@@ -456,13 +469,15 @@ def phase_encoder(timer, peak_flops, peak_bw, gpu):
 KERNEL_FAMILIES = (
     ("K1/K6 spmm", ("spmm",)),
     ("K2 encoder_fwd", ("encoder_fwd_",)),
-    ("K3 encoder_bwd", ("tc_gemm_kernel", "attn_bwd_kernel",
+    ("K3 encoder_bwd", ("tc_gemm_kernel", "attn_bwd_",
                         "ln_bwd_kernel", "wgrad_kernel",
                         "sum_partials_kernel")),
     ("K4/K5 pre-pass", ("transpose_split_kernel", "transpose_bf16_kernel",
                         "round_bf16_kernel")),
-    ("K4 ce_fwd", ("ce_fwd_kernel", "ce_fwd_merge_kernel")),
-    ("K5 ce_bwd", ("ce_bwd_kernel", "ce_merge_kernel", "split_kernel")),
+    ("K4 ce_fwd", ("ce_fwd_kernel", "ce_fwd_wide_kernel",
+                   "ce_fwd_merge_kernel")),
+    ("K5 ce_bwd", ("ce_bwd_kernel", "ce_bwd_wide_kernel", "ce_merge_kernel",
+                   "split_kernel")),
     ("K7 segsum", ("segsum_",)),
 )
 
@@ -581,7 +596,7 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path",
             f"{score[1]:.4f} hr5_b {score[7]:.4f}")
     log(f"{label} convolve: {t_conv * 1e3:.2f} ms (first run)")
     if not warm:
-        with gates.plain_versions():
+        with gates.plain_versions(), gates.deterministic():
             hi_plain, ranks_plain, _, _ = run_all()
         _check_ranks(params, hi, hi_plain,
                      gates.convolve_float64(params, graphs, cfg, spec), data,
@@ -592,15 +607,15 @@ def phase_main(spec, graphs_host, data, cfg=None, label="main path",
     # repeated, so drift falls on both alike; the gap between the two counts
     # as resolved only beyond 3 standard errors of the difference of means
     runs = {"kernel": [], "plain": []}
-    ranks_plain = None
     for which in ("plain", "kernel", "kernel", "plain") * WARM_ROUNDS:
         ctx = (gates.plain_versions() if which == "plain"
                else contextlib.nullcontext())
         with ctx:
-            h, r, t_c, s_m = run_all()
-        if which == "plain" and ranks_plain is None:
-            hi_plain, ranks_plain = h, r
+            _, _, t_c, s_m = run_all()
         runs[which].append((t_c, s_m))
+    # the gates' reference: one plain run with deterministic kernels
+    with gates.plain_versions(), gates.deterministic():
+        hi_plain, ranks_plain, _, _ = run_all()
     stats = {}
     for which, rs in runs.items():
         conv_ms = np.array([t for t, _ in rs]) * 1e3
@@ -668,14 +683,13 @@ def _check_ranks(params, hi, hi_plain, hi64, data, cfg, spec, ranks,
             f"{st['unexplained']} differences not explained by either; "
             f"largest score error against float64: kernels "
             f"{st['err_kernels']:.3e}, plain {st['err_plain']:.3e} (limit "
-            f"{gates.SCORE_K:g}x)")
+            f"{gates.SCORE_K:g}x, the plain run deterministic)")
         if perturbed is None:
             continue
-        ties, _, _, _ = gates.near_ties(params, hi, hi_plain, hi64, data, cfg,
-                                        spec, mode)
-        _, _, err_q, _ = gates.near_ties(params, hi, hi_plain, hi64, data,
-                                         cfg, spec, mode,
-                                         params_k=perturbed[0])
+        ties = gates.near_ties(params, hi, hi_plain, hi64, data, cfg, spec,
+                               mode)[0]
+        err_q = gates.near_ties(params, hi, hi_plain, hi64, data, cfg, spec,
+                                mode, params_k=perturbed[0])[2]
         _, _, n_q = gates.rank_differences(perturbed[1][mode],
                                            ranks_plain[mode], ties, groups)
         log(f"{label} ranks {mode}, towers' final LN bias perturbed by "
@@ -927,12 +941,13 @@ def _k4_trained_errs(V, n_real):
 
 def _ce_bwd_pass(name):
     """"dh" or "dw": the pass of a profiled ``ce_bwd_kernel<DT, kRowsX,
-    kBf>`` (ce.cu; the dh kernel where kRowsX), or None for another
-    kernel."""
-    if not name.startswith("ce_bwd_kernel<"):
-        return None
-    args = name[name.index("<") + 1:name.rindex(">")].split(",")
-    return "dh" if args[1].strip() == "true" else "dw"
+    kBf>`` or ``ce_bwd_wide_kernel<kRowsX, kBf>`` (ce.cu; the dh kernel
+    where kRowsX), or None for another kernel."""
+    for prefix, at in (("ce_bwd_kernel<", 1), ("ce_bwd_wide_kernel<", 0)):
+        if name.startswith(prefix):
+            args = name[name.index("<") + 1:name.rindex(">")].split(",")
+            return "dh" if args[at].strip() == "true" else "dw"
+    return None
 
 
 def _check_ce_bwd(tag, got, want, again, n_real):
@@ -1121,24 +1136,199 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
 
 # tower shapes beyond d 64 and 128 that K2 and K3 take: (d, n_head, L);
 # d 512 (two column tiles, K2's LayerNorm kernel) and L past 32 (two keys a
-# lane in attention) last
+# lane in attention), then L past 64 (key chunks, query tiles: L 65 a
+# one-row second tile, L 512 eight tiles) and d past 512 (the LayerNorm
+# kernels' rows past 16 floats a lane; d 520 one head of 520 columns, nine
+# head-column chunks in attention)
+LONG_WIDE_TOWERS = ((128, 1, 65), (64, 1, 128), (128, 1, 200), (64, 1, 512),
+                    (520, 1, 15), (640, 5, 30), (1024, 8, 15))
 WIDE_TOWERS = ((96, 2, 30), (32, 1, 30), (256, 4, 15), (160, 2, 16),
                (40, 1, 30), (256, 4, 30), (512, 4, 15), (512, 8, 30),
-               (128, 2, 64), (256, 4, 64), (96, 2, 48))
+               (128, 2, 64), (256, 4, 64), (96, 2, 48)) + LONG_WIDE_TOWERS
+
+
+TIMED_TOWERS = ((128, 1, 200, 512), (1024, 8, 15, 512))   # (d, heads, L, B)
+
+
+def _tower_times(timer, gpu, peak_flops, peak_bw):
+    """K2 in train mode (dropout 0.2, saving K3's activations) and K3 at the
+    long and the wide tower (TIMED_TOWERS: one domain tower of a step, one
+    layer), timed beside the plain versions and nn.TransformerEncoder with
+    the same weights in train mode (forward, and forward + backward), with
+    the 3xTF32 and FFMA bounds (12·N·d² FLOPs forward plus the causal
+    attention the inputs' masks need, twice that backward; the bytes of x,
+    the output, the weights and the activations the backward reads) and
+    K3's kernels profiled."""
+    from c2dsr_tpu_torch.bench import kernel_bench
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import dropout as drop
+    from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    from c2dsr_tpu_torch.train import step as step_mod
+    pad, out = 64093, {}
+    for d, n_head, L, B in TIMED_TOWERS:
+        p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
+            torch.Generator().manual_seed(d + 5),
+            Config(d_latent=d, n_head=n_head), L))
+        x, seq = _encoder_inputs(B, L, d, pad, seed=d + 5)
+        gout = torch.randn(x.shape, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(d))
+        kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=False,
+                  dropout=0.2, seed=drop.seed_tensor(7, "cuda"), tower=1)
+        acts = encoder_cuda.saved_buffer(x, n_head, 1)
+        with torch.no_grad():
+            f_ms = timer(lambda: encoder_cuda.encoder_fwd(x, seq, p,
+                                                          saved=acts, **kw))
+            f_plain = timer(lambda: enc.encoder_fwd_plain(x, seq, p, **kw))
+        b_ms = timer(lambda: encoder_cuda.encoder_bwd(x, seq, gout, p,
+                                                      saved=acts, **kw))
+        b_plain = timer(lambda: enc.encoder_bwd_plain(x, seq, gout, p, **kw))
+        tower = kernel_bench.torch_tower(p, d, n_head, 1, dropout=0.2)
+        causal = torch.triu(torch.ones(L, L, dtype=torch.bool,
+                                       device="cuda"), 1)
+        kpm = seq == pad
+        xg = x.clone().requires_grad_(True)
+        lib_params = [xg] + list(tower.parameters())
+        with torch.no_grad():
+            f_lib = timer(lambda: tower(x, mask=causal,
+                                        src_key_padding_mask=kpm))
+        b_lib = timer(lambda: torch.autograd.grad(
+            tower(xg, mask=causal, src_key_padding_mask=kpm), lib_params,
+            gout))
+        f_sub = timing.kernel_times(lambda: encoder_cuda.encoder_fwd(
+            x, seq, p, saved=acts, **kw))[0]
+        b_sub = timing.kernel_times(lambda: encoder_cuda.encoder_bwd(
+            x, seq, gout, p, saved=acts, **kw))[0]
+        N = B * L
+        # the attention this run's masks need: a query row with k allowed
+        # keys (causal and not padding) 4·k·d FLOPs, an all-masked row the
+        # mean of its sequence's V (L·d adds, once a sequence)
+        k = (seq != pad).long().cumsum(1)
+        attn_flops = (4.0 * d * float(k.sum())
+                      + float(L * d) * int((k == 0).any(1).sum()))
+        flops = 12.0 * N * d * d + attn_flops
+        # bytes: x and the output, every weight once, and in train the
+        # activations the backward reads, not the H·B·L² probabilities this
+        # design saves beside them
+        w_bytes = 4.0 * sum(t.numel() for t in step_mod.param_leaves(p))
+        kept = acts.numel() - n_head * B * L * L
+        f_bytes = 8.0 * N * d + w_bytes + 4.0 * kept
+        b_bytes = 4.0 * kept + 8.0 * N * d + 2 * w_bytes
+        attn = {"fwd": sum(v for k, v in f_sub.items() if "attn" in k),
+                "bwd": sum(v for k, v in b_sub.items() if "attn" in k)}
+        out[f"d{d}_L{L}"] = {
+            "B": B, "n_head": n_head, "fwd_ms": f_ms, "fwd_plain_ms": f_plain,
+            "fwd_library_ms": f_lib, "bwd_ms": b_ms, "bwd_plain_ms": b_plain,
+            "fwd_bwd_library_ms": b_lib,
+            "fwd_bound_ms": timing.tc_bound_ms(flops, f_bytes, gpu, peak_bw),
+            "fwd_bound_ffma_ms": flops / peak_flops * 1e3,
+            "bwd_bound_ms": timing.tc_bound_ms(2 * flops, b_bytes, gpu,
+                                               peak_bw),
+            "bwd_bound_ffma_ms": 2 * flops / peak_flops * 1e3,
+            "attention_fwd_ms": attn["fwd"], "attention_bwd_ms": attn["bwd"],
+            "attention_share_of_flops": attn_flops / flops}
+        r = out[f"d{d}_L{L}"]
+        log(f"shapes timed: tower d={d} n_head={n_head} L={L} B={B} "
+            f"dropout 0.2: K2 {f_ms:.4f} ms plain {f_plain:.4f} library "
+            f"{f_lib:.4f} bound 3xTF32 {r['fwd_bound_ms']:.4f} FFMA "
+            f"{r['fwd_bound_ffma_ms']:.4f} (attention {attn['fwd']:.4f}, "
+            f"profiled); K3 {b_ms:.4f} ms plain {b_plain:.4f} library fwd + "
+            f"bwd {b_lib:.4f} bound {r['bwd_bound_ms']:.4f} FFMA "
+            f"{r['bwd_bound_ffma_ms']:.4f} (attention {attn['bwd']:.4f}); "
+            "K3's kernels " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in b_sub.items()))
+        del acts, tower, xg, lib_params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shapes_bf16(x, seq, p, pad, n_head, tag):
+    """K2 (dropout 0.2, saving) and K3 in their bf16 instantiations at one
+    of phase_shapes' towers, two layers ``p``, against the plain bf16 tower
+    (K3 at K2's branches), relative Frobenius (K2 on rows with an allowed
+    key) at K2_BF16_TOL2 / K3_BF16_TOL, with the f32 instantiations in
+    their place, which must fail them; K3 bitwise across launches.  Both
+    versions and the f32 instantiation are also read against the plain bf16
+    tower in float64 (the same rounding points, float64 sums), and K2 and
+    K3 must lie no further from it than BF16_F64_K times the plain
+    version.  Returns the readings."""
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    n_layers = p["layers"]["w_qkv"].shape[0]
+    kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=False,
+              dropout=0.2, seed=5, tower=1)
+    live = (seq != pad).long().cumsum(1) > 0
+    acts = encoder_cuda.saved_buffer(x, n_head, n_layers)
+    acts32 = encoder_cuda.saved_buffer(x, n_head, n_layers)
+    p64 = params_mod._map(lambda t: t.double(), p)
+    with torch.no_grad():
+        out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, bf16=True, **kw)
+        out32 = encoder_cuda.encoder_fwd(x, seq, p, saved=acts32, **kw)
+        ref = enc.encoder_fwd_plain(x, seq, p, bf16=True, **kw)
+        ref64 = enc.encoder_fwd_plain(x.double(), seq, p64, bf16=True, **kw)
+    gout = torch.randn(x.shape, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(7))
+    got = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, bf16=True,
+                                   **kw)
+    again = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, bf16=True,
+                                     **kw)
+    got32 = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts32, **kw)
+    br = gates.k2_branches(acts, x.shape, n_head, n_layers, kw["tower"])
+    want = enc.encoder_bwd_plain(x, seq, gout, p, bf16=True, branches=br,
+                                 **kw)
+    want64 = enc.encoder_bwd_plain(x.double(), seq, gout.double(), p64,
+                                   bf16=True, branches=br, **kw)
+    torch.cuda.synchronize()
+    e, e32 = _bf16_fro(out, ref, live), _bf16_fro(out32, ref, live)
+    f64 = {"k2": _bf16_fro(out, ref64, live),
+           "k2_plain": _bf16_fro(ref, ref64, live),
+           "k2_f32": _bf16_fro(out32, ref64, live)}
+    flat, ref_flat = [got[0]] + list(got[1]), [want[0]] + list(want[1])
+    flat64 = [want64[0]] + list(want64[1])
+    eb = max(_bf16_fro(a, r) for a, r in zip(flat, ref_flat))
+    eb32 = max(_bf16_fro(a, r) for a, r in
+               zip([got32[0]] + list(got32[1]), ref_flat))
+    f64["k3"] = max(_bf16_fro(a, r) for a, r in zip(flat, flat64))
+    f64["k3_plain"] = max(_bf16_fro(a, r) for a, r in zip(ref_flat, flat64))
+    log(f"shapes: bf16 encoder {tag} {n_layers} layers p=0.2: fwd relative "
+        f"Frobenius {e:.3e} (f32 instantiation {e32:.3e}), bwd worst "
+        f"{eb:.3e} ({eb32:.3e}) at K2's branches; against the plain bf16 "
+        f"tower in float64: K2 {f64['k2']:.3e}, plain {f64['k2_plain']:.3e}, "
+        f"f32 instantiation {f64['k2_f32']:.3e}; K3 {f64['k3']:.3e}, plain "
+        f"{f64['k3_plain']:.3e}")
+    check(e <= K2_BF16_TOL2 < e32, f"bf16 encoder_fwd {tag}: relative "
+          f"Frobenius {e} (f32 instantiation {e32}), limit {K2_BF16_TOL2}")
+    check(eb <= K3_BF16_TOL < eb32, f"bf16 encoder_bwd {tag}: relative "
+          f"Frobenius {eb} (f32 instantiation {eb32}), limit {K3_BF16_TOL}")
+    check(f64["k2"] <= BF16_F64_K * f64["k2_plain"]
+          and f64["k3"] <= BF16_F64_K * f64["k3_plain"],
+          f"bf16 encoder {tag}: further from float64 than {BF16_F64_K}x the "
+          f"plain bf16 tower: {f64}")
+    check(all(torch.equal(a, b) for a, b in
+              zip(flat, [again[0]] + list(again[1]))),
+          f"bf16 encoder_bwd {tag}: two launches differ")
+    return {"fwd": e, "fwd_f32_inst": e32, "bwd": eb, "bwd_f32_inst": eb32,
+            "float64": f64}
 
 
 def phase_shapes():
     """K2 (eval, both mask polarities, and train) and K3 at WIDE_TOWERS,
-    dropout 0 and 0.2, two layers, and K4/K5 at d 256 and 40 (FK's rows and
+    dropout 0 and 0.2, two layers (at LONG_WIDE_TOWERS also their bf16
+    instantiations), and K4/K5 at d 256 and 40 (FK's rows and
     domain A's vocab), against their plain versions; K3, K4 and K5 also
     bitwise against a second launch.  Returns the worst errors."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import encoder as enc
     from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce, fused_ce_cuda
-    pad, B = 64093, 256
-    worst = {"encoder_fwd": 0.0, "encoder_fwd_rel": 0.0, "encoder_bwd": 0.0}
+    pad = 64093
+    worst = {"encoder_fwd": 0.0, "encoder_fwd_rel": 0.0, "encoder_bwd": 0.0,
+             "bf16": {}}
     for d, n_head, L in WIDE_TOWERS:
+        t0 = time.perf_counter()
+        B = 256 if L <= 200 else 64
         cfg = Config(d_latent=d, n_head=n_head, n_attn=2)
         p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
             torch.Generator().manual_seed(d), cfg, L))
@@ -1200,6 +1390,9 @@ def phase_shapes():
             worst["encoder_fwd_rel"] = max(worst["encoder_fwd_rel"], rel_f,
                                            rel_i)
             worst["encoder_bwd"] = max(worst["encoder_bwd"], rels[bad])
+        if (d, n_head, L) in LONG_WIDE_TOWERS:
+            worst["bf16"][tag] = _shapes_bf16(x, seq, p, pad, n_head, tag)
+        log(f"shapes: encoder {tag} B={B}: {time.perf_counter() - t0:.1f} s")
     worst["ce_fwd"] = worst["ce_bwd"] = 0.0
     N, V, n_real = 512 * 2 * 10, 30720, N_ITEM_A
     for d in (256, 40):
@@ -1299,14 +1492,21 @@ def _tower_accuracy(calls):
     return out
 
 
+LONG_STEP = dict(d_latent=128, n_head=1, len_max=200)   # phase_train_wide's
+WIDE_STEP = dict(d_latent=1024, n_head=8, len_max=15)   # long and wide runs
+EVAL_USERS_WIDE = 2048   # their full rank's eval users
+
+
 def phase_train_wide(spec, train, graphs, graphs_host):
     """The training step at FK's itemsets and graphs beyond the default
     shapes, dropout 0: with d_latent 256 (the towers' widest fused-LN
     tiles, K4 and K5 at d 256, K1 at d 256 and 512) at FK's len_max 15 for
-    two steps and at EE's 30 for one, then at d 128 with len_max 64 (the
-    longest sequences the towers take: two keys a lane in attention), then
-    at d_latent 512 (BASELINE.json config 5's width: K4 and K5 at d 512,
-    K2 and K3 at their widest), each run with its own params and batches.
+    two steps and at EE's 30 for one, then at d 128 with len_max 64 (two
+    keys a lane in attention), then at d_latent 512 (BASELINE.json config
+    5's width: K4 and K5 at d 512), then the long step (LONG_STEP: len_max
+    200, key chunks and query tiles in K2/K3) and the wide one (WIDE_STEP:
+    d 1024, 8 heads, K4/K5's wide kernels), each run with its own params
+    and batches.
     Before each step, the loss and every gradient from the step's params
     through the kernels, through the plain versions on the card and
     through the plain versions on the CPU; every kernel launches its count
@@ -1335,7 +1535,10 @@ def phase_train_wide(spec, train, graphs, graphs_host):
     runs = []                      # [cfg, spec, state, step fn, batches]
     for cfg, len_max, seed in ((cfg256, LEN_MAX, 2), (cfg256, 30, 5),
                                (cfg256.with_(d_latent=128), 64, 6),
-                               (cfg256.with_(d_latent=512), LEN_MAX, 7)):
+                               (cfg256.with_(d_latent=512), LEN_MAX, 7),
+                               (cfg256.with_(**LONG_STEP),
+                                LONG_STEP["len_max"], 8),
+                               (cfg256.with_(**WIDE_STEP), LEN_MAX, 9)):
         sp, tr = spec, train
         if len_max != LEN_MAX:
             sp = DataSpec(n_item_a=spec.n_item_a, n_item_b=spec.n_item_b,
@@ -1354,11 +1557,12 @@ def phase_train_wide(spec, train, graphs, graphs_host):
                      it.epoch()])
     cpu_graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cpu"),
                               spmm.device_graph(graphs_host[1], "cpu"))
-    schedule = (0, 0, 1, 2, 3)     # d 256 at len_max 15, 15, 30; d 128 at
-                                   # 64; d 512 at 15
+    schedule = (0, 0, 1, 2, 3, 4, 5)   # d 256 at len_max 15, 15, 30; d 128
+                                       # at 64; d 512 at 15; long; wide
     launches = dict.fromkeys(kernel_wrappers(), 0)
     losses = []
     for i, which in enumerate(schedule):
+        t0 = time.perf_counter()
         cfg, sp, state, fn, feed = runs[which]
         names = leaf_names(state.params)
         batch = next(feed)
@@ -1416,6 +1620,8 @@ def phase_train_wide(spec, train, graphs, graphs_host):
         losses.append(float(aux["loss"]))
         for k, v in read_launches().items():
             launches[k] += v
+        log(f"{tag}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
     steps = len(schedule)
     per_step = {"spmm_csr": 4 * cfg256.n_gnn, "spmm_csr_flagged": 0,
                 "encoder_fwd": 3, "encoder_bwd": 3, "ce_fwd": 2, "ce_bwd": 2,
@@ -1426,6 +1632,83 @@ def phase_train_wide(spec, train, graphs, graphs_host):
     for k, n in per_step.items():
         check(launches[k] == n * steps, f"train wide: {k} launched "
               f"{launches[k]} times in {steps} steps, want {n} a step")
+    del runs, cpu_graphs
+    torch.cuda.empty_cache()
+    paths = {"training_wide": launches}
+    for name, key, kw in (("long", "training_long", LONG_STEP),
+                          ("wide", "training_wide_d1024", WIDE_STEP)):
+        paths[key] = _long_wide_run(name, Config(**kw), spec, graphs,
+                                    graphs_host)
+    return paths
+
+
+def _long_wide_run(name, cfg, spec, graphs, graphs_host):
+    """The long or the wide run of phase_train_wide beyond its gated step:
+    captured steps bitwise the eager program's (GRAPH_SPE steps: the
+    warm-up, the capture and a replay), then a few steps through the
+    captured program (the long run through ``train/loop.Experiment``, as
+    the JAX package's Python API reaches its towers), then a full rank of
+    EVAL_USERS_WIDE eval users (``phase_main``: ranks equal to the plain
+    versions' but at near-ties).  Returns the launches of the steps and
+    the rank."""
+    from c2dsr_tpu_torch.config import DataSpec
+    from c2dsr_tpu_torch.data import preprocess, synthetic
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.train import loop
+    t0 = time.perf_counter()
+    sp = DataSpec(n_item_a=spec.n_item_a, n_item_b=spec.n_item_b,
+                  len_max=cfg.len_max)
+    tr = preprocess.preprocess_train(
+        synthetic.generate_sequences(sp, 2000, seed=11), sp, seed=1)
+    ev = preprocess.preprocess_evaluate(
+        synthetic.generate_sequences(sp, EVAL_USERS_WIDE, seed=12), sp,
+        n_neg_sample=999, seed=2)
+    init = params_mod.params_to_numpy(params_mod.init_params(
+        cfg, sp, torch.Generator().manual_seed(4), "cpu"))
+    batches = [{k: v[i * cfg.batch_size:(i + 1) * cfg.batch_size]
+                for k, v in tr.items()} for i in range(GRAPH_SPE)]
+    st_c, aux_c, _ = _graph_run(cfg, sp, graphs, init, batches, True)
+    st_e, aux_e, _ = _graph_run(cfg, sp, graphs, init, batches, False)
+    _bitwise(f"{name} captured steps", _graph_tensors(st_c) + aux_c,
+             _graph_tensors(st_e) + aux_e)
+    log(f"{name} run (d_latent {cfg.d_latent}, {cfg.n_head} heads, len_max "
+        f"{cfg.len_max}): {GRAPH_SPE} captured steps bitwise the eager "
+        f"program's, losses {[round(float(a[0]), 5) for a in aux_c]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del st_c, st_e, aux_c, aux_e
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_launches()
+    if name == "long":
+        exp = loop.Experiment(cfg, sp, graphs, tr, ev, ev, device="cuda")
+        exp.run_train_epoch()
+        steps = len(exp.train_iter)
+        mode = exp.train_step.mode
+        del exp
+    else:
+        state, opt = _graph_state(cfg, sp, init)
+        from c2dsr_tpu_torch.train import step as step_mod
+        fn = step_mod.make_train_step(cfg, sp, graphs, opt, "cuda")
+        for b in batches:
+            state, aux = fn(state, b)
+        torch.cuda.synchronize()
+        steps, mode = len(batches), fn.mode
+        check(math.isfinite(float(aux["loss"])), f"{name} run: loss")
+        del state, opt, fn
+    launches = read_launches()
+    log(f"{name} run: {steps} steps ({mode}) in "
+        f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+    check(all(launches[k] > 0 for k in ("spmm_csr", "encoder_fwd",
+                                        "encoder_bwd", "ce_fwd", "ce_bwd",
+                                        "segsum")),
+          f"{name} run: a kernel did not launch: {launches}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving = phase_main(sp, graphs_host, ev, cfg, label=f"serving {name}")
+    log(f"{name} run: full rank {time.perf_counter() - t0:.1f} s")
+    for k, v in serving.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1552,7 +1835,8 @@ def _bf16_spmm(graphs, train, timer, peak_bw):
     out = {}
     for kind in ("dense", "flagged"):
         acc = {"ms": 0.0, "plain_ms": 0.0, "nbytes": 0, "flops": 0,
-               "err": 0.0, "err_f32": float("inf"), "max_abs_err": 0.0}
+               "err": 0.0, "err_f32": float("inf"), "max_abs_err": 0.0,
+               "library_ms": 0.0}
         for name, g, d, flag in (("share", graphs.share, 128, f_share),
                                  ("specific_ab", graphs.specific, 256, f_ab)):
             for mode, graph in (("dest", g), ("src", g.t)):
@@ -1588,6 +1872,10 @@ def _bf16_spmm(graphs, train, timer, peak_bw):
                 check(torch.equal(got, again), f"{tag}: two launches differ")
                 ms = timer(run)
                 plain_ms = timer(plain)
+                lib_ms = _sparse_mm_bf16_ms(graph, x, timer)
+                acc["library_ms"] = (None if lib_ms is None
+                                     or acc["library_ms"] is None
+                                     else acc["library_ms"] + lib_ms)
                 keep = (flag[(graph.rows if mode == "dest"
                               else graph.cols).long()].bool()
                         if kind == "flagged" else
@@ -1606,11 +1894,32 @@ def _bf16_spmm(graphs, train, timer, peak_bw):
                 acc["err_f32"] = min(acc["err_f32"], err32)
                 acc["max_abs_err"] = max(acc["max_abs_err"],
                                          float((got - ref).abs().max()))
-        out[kind] = _bf16_entry(acc["ms"], acc["plain_ms"], None,
+        out[kind] = _bf16_entry(acc["ms"], acc["plain_ms"], acc["library_ms"],
                                 acc["flops"], acc["nbytes"], peak_bw,
                                 acc["err"], acc["err_f32"],
                                 max_abs_err=acc["max_abs_err"])
     return out
+
+
+def _sparse_mm_bf16_ms(graph, x, timer):
+    """The library yardstick of a bf16 hop: ``torch.sparse.mm`` of the
+    graph's CSR in bf16 by the table in bf16 (dense over every edge, as
+    the f32 one; it rounds its output to bf16, which the kernel does not),
+    or None where this PyTorch has no bf16 CSR product on the card."""
+    n_rows = x.shape[0]
+    rowptr = torch.cat([graph.rowptr,
+                        graph.rowptr[-1:].expand(n_rows - graph.n)])
+    csr = torch.sparse_csr_tensor(rowptr.long(), graph.cols.long(),
+                                  graph.vals.to(torch.bfloat16),
+                                  size=(n_rows, n_rows),
+                                  check_invariants=False)
+    xb = x.to(torch.bfloat16)
+    try:
+        torch.sparse.mm(csr, xb)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"bf16 spmm library: torch.sparse.mm refuses bf16 ({e})")
+        return None
+    return timer(lambda: torch.sparse.mm(csr, xb))
 
 
 def _bf16_towers(timer, peak_bw):
@@ -1628,7 +1937,7 @@ def _bf16_towers(timer, peak_bw):
     cfg = Config()
     w_bytes = 4 * (6 * d * d + 10 * d + 2 * d)
     fwd = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "nbytes": 0, "err": 0.0,
-           "err_f32": float("inf"), "max_abs_err": 0.0}
+           "err_f32": float("inf"), "max_abs_err": 0.0, "library_ms": 0.0}
     bwd = dict(fwd)
     eval_res = None
     for tower_id, n_seq, dropout in ((0, 2048, 0.0), (0, 1536, 0.2),
@@ -1663,6 +1972,10 @@ def _bf16_towers(timer, peak_bw):
                 x, seq, p, saved=acts, bf16=True, **kw))
             f_plain = timer(lambda: enc.encoder_fwd_plain(x, seq, p,
                                                           bf16=True, **kw))
+        gout = torch.randn(x.shape, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(5))
+        f_lib, fb_lib = _bf16_tower_library(p, x, seq, gout, pad, 1, dropout,
+                                            timer)
         N = n_seq * L
         f_flops = 12 * N * d * d + 4 * N * L * d
         f_bytes = (8 * N * d + 4 * N + w_bytes
@@ -1672,18 +1985,18 @@ def _bf16_towers(timer, peak_bw):
             f"{err32:.3e}), max abs {abs_f:.3e} (rows with a key); kernel "
             f"{f_ms:.4f} ms plain {f_plain:.4f} ms")
         if not train:
-            eval_res = _bf16_entry(f_ms, f_plain, None, f_flops, f_bytes,
+            eval_res = _bf16_entry(f_ms, f_plain, f_lib, f_flops, f_bytes,
                                    peak_bw, err, err32, max_abs_err=abs_f)
             continue
         fwd["max_abs_err"] = max(fwd["max_abs_err"], abs_f)
         fwd["ms"] += f_ms
         fwd["plain_ms"] += f_plain
+        fwd["library_ms"] += f_lib
+        bwd["library_ms"] += fb_lib
         fwd["flops"] += f_flops
         fwd["nbytes"] += f_bytes
         fwd["err"] = max(fwd["err"], err)
         fwd["err_f32"] = min(fwd["err_f32"], err32)
-        gout = torch.randn(x.shape, device="cuda",
-                           generator=torch.Generator("cuda").manual_seed(5))
         got = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, bf16=True,
                                        **kw)
         again = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts,
@@ -1722,11 +2035,32 @@ def _bf16_towers(timer, peak_bw):
             float((a - r).abs().max()) for a, r in zip(flat, flat_ref)])
     res = {"eval": eval_res}
     for key, acc in (("train", fwd), ("bwd", bwd)):
-        res[key] = _bf16_entry(acc["ms"], acc["plain_ms"], None,
+        res[key] = _bf16_entry(acc["ms"], acc["plain_ms"], acc["library_ms"],
                                acc["flops"], acc["nbytes"], peak_bw,
                                acc["err"], acc["err_f32"],
                                max_abs_err=acc["max_abs_err"])
     return res
+
+
+def _bf16_tower_library(p, x, seq, gout, pad, n_head, dropout, timer):
+    """The library yardstick of a bf16 tower: ``nn.TransformerEncoder``
+    with the same weights in bf16, the same masks, in train mode at
+    ``dropout`` (eval at 0): (its forward ms, its forward + backward ms)."""
+    from c2dsr_tpu_torch.bench import kernel_bench
+    L, d = x.shape[1], x.shape[2]
+    tower = kernel_bench.torch_tower(p, d, n_head, 1, dropout=dropout).to(
+        torch.bfloat16)
+    causal = torch.triu(torch.ones(L, L, dtype=torch.bool, device="cuda"), 1)
+    kpm = seq == pad
+    xb = x.to(torch.bfloat16)
+    xg = xb.clone().requires_grad_(True)
+    gb = gout.to(torch.bfloat16)
+    params = [xg] + list(tower.parameters())
+    with torch.no_grad():
+        f_ms = timer(lambda: tower(xb, mask=causal, src_key_padding_mask=kpm))
+    fb_ms = timer(lambda: torch.autograd.grad(
+        tower(xg, mask=causal, src_key_padding_mask=kpm), params, gb))
+    return f_ms, fb_ms
 
 
 def _bf16_ce(timer, peak_bw):
@@ -1742,7 +2076,7 @@ def _bf16_ce(timer, peak_bw):
     fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
            "nbytes": 0, "err": 0.0, "err_f32": float("inf"),
            "max_abs_err": 0.0}
-    bwd = dict(fwd, library_ms=None)
+    bwd = dict(fwd)
     for dom, V, n_real in (("A", 30720, N_ITEM_A), ("B", 36864, N_ITEM_B)):
         h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real,
                                                           V + 2)
@@ -1799,6 +2133,7 @@ def _bf16_ce(timer, peak_bw):
                                                       dt, tgt))
             b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, wb, bm, lse,
                                                           dlse, dt, tgt))
+        b_lib = _ce_bwd_bf16_library(h, wb, bm, pad_l, dlse, timer)
         log(f"{tag}: fwd rel err {e_f:.3e} (f32 instantiation {e_f32:.3e}); "
             "bwd rel err " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
             + " (f32 instantiation " + ", ".join(
@@ -1820,6 +2155,8 @@ def _bf16_ce(timer, peak_bw):
                                  float((lse - rlse).abs().max()))
         bwd["ms"] += b_ms
         bwd["plain_ms"] += b_plain
+        bwd["library_ms"] = (None if b_lib is None or bwd["library_ms"] is None
+                             else bwd["library_ms"] + b_lib)
         bwd["flops"] += 4 * N * V * d
         bwd["nbytes"] += 2 * io + 4 * N * d
         bwd["err"] = max(bwd["err"], max(rels.values()))
@@ -1830,6 +2167,163 @@ def _bf16_ce(timer, peak_bw):
                              acc["flops"], acc["nbytes"], peak_bw, acc["err"],
                              acc["err_f32"], max_abs_err=acc["max_abs_err"])
             for key, acc in (("fwd", fwd), ("bwd", bwd))}
+
+
+BF16_TOWERS = ((128, 1, 200, 256), (1024, 8, 15, 256))   # (d, heads, L, B)
+BF16_CE_WIDE = 1024
+
+
+def _bf16_shapes(timer):
+    """The bf16 instantiations at one long and one wide tower (BF16_TOWERS:
+    K2 at dropout 0.2 saving K3's activations, K3 at K2's branches, one
+    layer) and K4/K5's wide kernels at d BF16_CE_WIDE (domain A's rows and
+    vocab, a bf16 W): against the plain bf16 versions at the FK limits,
+    the f32 instantiations failing each, bitwise across launches; timed
+    beside the plain versions and the library's bf16 calls."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import dropout as drop
+    from c2dsr_tpu_torch.ops import encoder as enc
+    from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce, fused_ce_cuda
+    from c2dsr_tpu_torch.bench.kernel_bench import mm_bf16_f32
+    pad, out = 64093, {}
+    for d, n_head, L, B in BF16_TOWERS:
+        p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
+            torch.Generator().manual_seed(d), Config(d_latent=d,
+                                                     n_head=n_head), L))
+        x, seq = _encoder_inputs(B, L, d, pad, seed=d + 1)
+        live = (seq != pad).long().cumsum(1) > 0
+        kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=False,
+                  dropout=0.2, seed=drop.seed_tensor(99, "cuda"), tower=0)
+        acts = encoder_cuda.saved_buffer(x, n_head, 1)
+        acts32 = encoder_cuda.saved_buffer(x, n_head, 1)
+        with torch.no_grad():
+            got = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, bf16=True,
+                                           **kw)
+            got2 = encoder_cuda.encoder_fwd(x, seq, p, bf16=True, **kw)
+            ref = enc.encoder_fwd_plain(x, seq, p, bf16=True, **kw)
+            got32 = encoder_cuda.encoder_fwd(x, seq, p, saved=acts32, **kw)
+        tag = f"bf16 encoder d={d} n_head={n_head} L={L} B={B}"
+        e, e32 = _bf16_fro(got, ref, live), _bf16_fro(got32, ref, live)
+        check(torch.equal(got, got2), f"{tag}: two forward launches differ")
+        check(e <= K2_BF16_TOL and e32 > K2_BF16_TOL, f"{tag}: fwd relative "
+              f"Frobenius {e} (f32 instantiation {e32}), limit {K2_BF16_TOL}")
+        gout = torch.randn(x.shape, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(d))
+        b = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, bf16=True,
+                                     **kw)
+        b2 = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, bf16=True,
+                                      **kw)
+        b32 = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts32, **kw)
+        rb = enc.encoder_bwd_plain(
+            x, seq, gout, p, bf16=True, branches=gates.k2_branches(
+                acts, x.shape, n_head, 1, 0), **kw)
+        torch.cuda.synchronize()
+        flat, ref_flat = [b[0]] + list(b[1]), [rb[0]] + list(rb[1])
+        eb = max(_bf16_fro(a, r) for a, r in zip(flat, ref_flat))
+        eb32 = max(_bf16_fro(a, r) for a, r in
+                   zip([b32[0]] + list(b32[1]), ref_flat))
+        check(all(torch.equal(a, c) for a, c in
+                  zip(flat, [b2[0]] + list(b2[1]))),
+              f"{tag}: two backward launches differ")
+        check(eb <= K3_BF16_TOL and eb32 > K3_BF16_TOL, f"{tag}: bwd "
+              f"relative Frobenius {eb} (f32 instantiation {eb32}), limit "
+              f"{K3_BF16_TOL}")
+        with torch.no_grad():
+            f_ms = timer(lambda: encoder_cuda.encoder_fwd(
+                x, seq, p, saved=acts, bf16=True, **kw))
+            f_plain = timer(lambda: enc.encoder_fwd_plain(x, seq, p,
+                                                          bf16=True, **kw))
+        b_ms = timer(lambda: encoder_cuda.encoder_bwd(
+            x, seq, gout, p, saved=acts, bf16=True, **kw))
+        b_plain = timer(lambda: enc.encoder_bwd_plain(x, seq, gout, p,
+                                                      bf16=True, **kw))
+        f_lib, fb_lib = _bf16_tower_library(p, x, seq, gout, pad, n_head,
+                                            0.2, timer)
+        out[f"tower_d{d}_L{L}"] = {
+            "fwd_ms": f_ms, "fwd_plain_ms": f_plain, "fwd_library_ms": f_lib,
+            "bwd_ms": b_ms, "bwd_plain_ms": b_plain,
+            "fwd_bwd_library_ms": fb_lib, "fwd_err": e, "fwd_err_f32": e32,
+            "bwd_err": eb, "bwd_err_f32": eb32}
+        log(f"{tag}: fwd relative Frobenius {e:.3e} (f32 instantiation "
+            f"{e32:.3e}), bwd {eb:.3e} ({eb32:.3e}), launches bitwise equal; "
+            f"K2 {f_ms:.4f} ms plain {f_plain:.4f} library {f_lib:.4f}; K3 "
+            f"{b_ms:.4f} ms plain {b_plain:.4f}, library fwd + bwd "
+            f"{fb_lib:.4f}")
+        del acts, acts32, b, b2, b32, rb
+        torch.cuda.empty_cache()
+    d, N, V, n_real = BF16_CE_WIDE, 512 * 2 * 10, 30720, N_ITEM_A
+    h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, d)
+    wb = w.to(torch.bfloat16)
+    with torch.no_grad():
+        lse, tlog = fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt)
+        again = fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt)
+        rlse, rtlog = fused_ce.ce_fwd_plain(h, wb, bm, pad_l, tgt)
+        lse32, tlog32 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+        got = fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse, dt, tgt)
+        got2 = fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse, dt, tgt)
+        got_f = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt, bf16=True)
+        want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt, bf16=True)
+        got32 = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+    torch.cuda.synchronize()
+    tag = f"bf16 ce N={N} d={d} V={V} (wide kernels)"
+    e = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
+    e32 = max(_rel(lse32, rlse), _rel(tlog32[real], rtlog[real]))
+    eb = max(_rel(a, r) for a, r in zip(got_f, want))
+    eb32 = max(_rel(a, r) for a, r in zip(got32, want))
+    check(torch.equal(lse, again[0]) and torch.equal(tlog, again[1])
+          and all(torch.equal(a, c) for a, c in zip(got, got2)),
+          f"{tag}: two launches differ")
+    check(e <= CE_BF16_TOL and e32 > CE_BF16_TOL, f"{tag}: fwd rel err {e} "
+          f"(f32 instantiation {e32}), limit {CE_BF16_TOL}")
+    check(eb <= CE_BWD_BF16_TOL and eb32 > CE_BWD_BF16_TOL, f"{tag}: bwd "
+          f"rel err {eb} (f32 instantiation {eb32}), limit "
+          f"{CE_BWD_BF16_TOL}")
+    with torch.no_grad():
+        f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt),
+                     reps=5)
+        f_plain = timer(lambda: fused_ce.ce_fwd_plain(h, wb, bm, pad_l, tgt),
+                        reps=5)
+        hb = h.to(torch.bfloat16)
+        f_lib = (timer(lambda: torch.logsumexp(torch.cat(
+            [mm_bf16_f32(hb, wb) + bm, pad_l[:, None]], 1), 1), reps=5)
+            if mm_bf16_f32(hb, wb) is not None else None)
+        b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse, dt,
+                                                  tgt), reps=5)
+        b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, wb, bm, lse, dlse,
+                                                      dt, tgt), reps=5)
+    b_lib = _ce_bwd_bf16_library(h, wb, bm, pad_l, dlse, timer)
+    out[f"ce_d{d}"] = {"fwd_ms": f_ms, "fwd_plain_ms": f_plain,
+                       "fwd_library_ms": f_lib, "bwd_ms": b_ms,
+                       "bwd_plain_ms": b_plain, "bwd_library_ms": b_lib,
+                       "fwd_err": e, "fwd_err_f32": e32, "bwd_err": eb,
+                       "bwd_err_f32": eb32}
+    log(f"{tag}: fwd rel err {e:.3e} (f32 instantiation {e32:.3e}), bwd "
+        f"{eb:.3e} ({eb32:.3e}), launches bitwise equal; K4 {f_ms:.4f} ms "
+        f"plain {f_plain:.4f} library {f_lib}; K5 {b_ms:.4f} ms plain "
+        f"{b_plain:.4f} library {b_lib}")
+    return out
+
+
+def _ce_bwd_bf16_library(h, wb, bm, pad_l, dlse, timer):
+    """The library yardstick of K5's bf16 instantiation: autograd of
+    ``logsumexp`` over ``mm`` of bf16 operands into f32 (h rounded, the
+    bf16 W) and the pad column, for dlse; or None (logged) where this
+    PyTorch has no such product or no gradient of it."""
+    from c2dsr_tpu_torch.bench.kernel_bench import mm_bf16_f32
+    hb = h.to(torch.bfloat16).requires_grad_(True)
+    wg = wb.detach().clone().requires_grad_(True)
+    bg = bm.detach().clone().requires_grad_(True)
+    try:
+        out = torch.logsumexp(torch.cat([mm_bf16_f32(hb, wg) + bg,
+                                         pad_l[:, None]], 1), 1)
+        torch.autograd.grad(out, [hb, wg, bg], dlse, retain_graph=True)
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        log(f"bf16 ce library: no backward of mm's bf16 -> f32 product "
+            f"({str(e).splitlines()[0][:160]})")
+        return None
+    return timer(lambda: torch.autograd.grad(out, [hb, wg, bg], dlse,
+                                             retain_graph=True))
 
 
 def _bf16_step(spec, train, graphs, graphs_host):
@@ -1928,6 +2422,8 @@ def phase_bf16(spec, train, graphs, graphs_host, eval_data, timer, peak_bw):
     res = {"spmm": _bf16_spmm(graphs, train, timer, peak_bw)}
     res["towers"] = _bf16_towers(timer, peak_bw)
     res["ce"] = _bf16_ce(timer, peak_bw)
+    res["shapes"] = _bf16_shapes(timer)
+    torch.cuda.empty_cache()
     res["step"] = _bf16_step(spec, train, graphs, graphs_host)
     torch.cuda.empty_cache()
 
@@ -2407,44 +2903,89 @@ def phase_experiment(spec, train, data, graphs, name):
                       "dense": float(p.mean())}
 
 
+CE_WIDTHS = (384, 512, 520, 640, 1024, 2048)   # phase_ce_wide's d
+
+
+def _ce_wide_check(d, N, V, n_real):
+    """K4 and K5 at width d against the plain versions in float64 (CE_TOL,
+    CE_BWD_TOL) and bitwise against a second launch.  Returns (inputs, lse,
+    fwd err, {dh, dw, db}, the float64 backward)."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, d)
+    with torch.no_grad():
+        lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+        lse2, tlog2 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+        got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+        again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
+        h64, w64, b64, p64 = (t.double() for t in (h, w, bm, pad_l))
+        rlse, rtlog = fused_ce.ce_fwd_plain(h64, w64, b64, p64, tgt)
+        want = fused_ce.ce_bwd_plain(h64, w64, b64, lse.double(),
+                                     dlse.double(), dt.double(), tgt)
+    torch.cuda.synchronize()
+    tag = f"d={d}"
+    e_f = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
+    check(e_f <= CE_TOL, f"ce_fwd {tag}: rel err {e_f} > {CE_TOL}")
+    check(torch.equal(lse, lse2) and torch.equal(tlog, tlog2),
+          f"ce_fwd {tag}: two launches differ")
+    rels = _check_ce_bwd(tag, got, want, again, n_real)
+    return (h, w, bm, pad_l, tgt, dlse, dt), lse, e_f, rels, want
+
+
+def _k5_wide(h, w, bm, lse, dlse, dt, tgt):
+    """(dh, dw, db) by K5's wide kernels at a width the port runs on the
+    resident ones (ce.cu ``ce_bwd_wide_f32``): the other design, timed
+    beside the routed one; not counted as a launch of the main path."""
+    from c2dsr_tpu_torch.ops import fused_ce_cuda
+    N, d = h.shape
+    V = w.shape[1]
+    out = (torch.empty_like(h), torch.empty_like(w), torch.empty_like(bm))
+    err = fused_ce_cuda._bwd_f32(
+        "ce_bwd_wide_f32", fused_ce_cuda._plan("ce_bwd_plan_wide", N, d, V),
+        h, w, bm, lse, dlse, dt, tgt.to(torch.int32).contiguous(), *out)
+    check(err == 0, f"ce_bwd_wide_f32 d={d}: CUDA error {err}")
+    return out
+
+
 def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
-    """K4 and K5 at d 384 and 512, the widths above 256 (64 resident rows a
-    block, K5's output columns over two blocks), at a train step's rows of
-    domain A (N 10,240, V 30,720): against the plain versions in float64
-    (CE_TOL, CE_BWD_TOL), as the d 256 card tests hold them, and bitwise
-    against a second launch; then timed beside the plain versions in f32,
-    with K5's dh and dW kernels profiled and the bounds."""
+    """K4 and K5 at the widths above 256 (CE_WIDTHS: K4's wide kernel; K5
+    up to 512 on the resident-X kernels, 64 rows a block and the output
+    columns over two blocks, above on the wide ones), at a train step's rows of domain A
+    (N 10,240, V 30,720): against the plain versions in float64 (CE_TOL,
+    CE_BWD_TOL), as the d 256 card tests hold them, and bitwise against a
+    second launch; then timed beside the plain versions in f32 and one
+    cuBLAS f32 call (mm + logsumexp, and its autograd backward), with K5's
+    dh and dW kernels profiled and the bounds.  At d 512 K5's wide kernels
+    are held to the same gates and timed beside the resident ones, in turns
+    (``k5_wide_at_512``)."""
     from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
     N, V, n_real = 512 * 2 * 10, 30720, N_ITEM_A
     out = {}
-    for d in (384, 512):
-        h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, d)
+    for d in CE_WIDTHS:
+        t0 = time.perf_counter()
+        ins, lse, e_f, rels, want64 = _ce_wide_check(d, N, V, n_real)
+        h, w, bm, pad_l, tgt, dlse, dt = ins
+        reps = 20 if d <= 512 else 5
         with torch.no_grad():
-            lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
-            lse2, tlog2 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
-            got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
-            again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
-            h64, w64, b64, p64 = (t.double() for t in (h, w, bm, pad_l))
-            rlse, rtlog = fused_ce.ce_fwd_plain(h64, w64, b64, p64, tgt)
-            want = fused_ce.ce_bwd_plain(h64, w64, b64, lse.double(),
-                                         dlse.double(), dt.double(), tgt)
-        torch.cuda.synchronize()
-        e_f = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
-        check(e_f <= CE_TOL, f"ce_fwd d={d}: rel err {e_f} > {CE_TOL}")
-        check(torch.equal(lse, lse2) and torch.equal(tlog, tlog2),
-              f"ce_fwd d={d}: two launches differ")
-        rels = _check_ce_bwd(f"d={d}", got, want, again, n_real)
-        del want, h64, w64, rlse, rtlog
-        with torch.no_grad():
-            f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt))
+            f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt),
+                         reps=reps)
             f_plain = timer(lambda: fused_ce.ce_fwd_plain(h, w, bm, pad_l,
-                                                          tgt))
+                                                          tgt), reps=reps)
+            f_lib = timer(lambda: torch.logsumexp(
+                torch.cat([h @ w + bm, pad_l[:, None]], 1), 1), reps=reps)
             b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
-                                                      tgt))
+                                                      tgt), reps=reps)
             b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, w, bm, lse, dlse,
-                                                          dt, tgt))
+                                                          dt, tgt), reps=reps)
+        hg, wg, bg = (t.detach().clone().requires_grad_(True)
+                      for t in (h, w, bm))
+        lib_out = torch.logsumexp(torch.cat([hg @ wg + bg, pad_l[:, None]],
+                                            1), 1)
+        b_lib = timer(lambda: torch.autograd.grad(lib_out, [hg, wg, bg], dlse,
+                                                  retain_graph=True),
+                      reps=reps)
+        del lib_out, hg, wg, bg
         sub = timing.kernel_times(lambda: fused_ce_cuda.ce_bwd(
-            h, w, bm, lse, dlse, dt, tgt))[0]
+            h, w, bm, lse, dlse, dt, tgt), calls=2)[0]
         parts = {"dh": sum(v for k, v in sub.items()
                            if _ce_bwd_pass(k) == "dh"),
                  "dw": sum(v for k, v in sub.items()
@@ -2452,7 +2993,9 @@ def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
         flops = 2.0 * N * V * d
         io = 4 * (N * d + d * V + V + 3 * N)
         out[d] = {"fwd_ms": f_ms, "fwd_plain_ms": f_plain,
+                  "fwd_library_ms": f_lib,
                   "bwd_ms": b_ms, "bwd_plain_ms": b_plain,
+                  "bwd_library_ms": b_lib,
                   "bwd_dh_ms": parts["dh"], "bwd_dw_ms": parts["dw"],
                   "fwd_bound_ms": timing.tc_bound_ms(flops, io, gpu, peak_bw),
                   "fwd_bound_ffma_ms": flops / peak_flops * 1e3,
@@ -2460,16 +3003,49 @@ def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
                                                      peak_bw),
                   "bwd_bound_ffma_ms": 2 * flops / peak_flops * 1e3,
                   "fwd_rel_err_f64": e_f,
-                  "bwd_rel_err_f64": max(rels.values())}
-        log(f"ce wide d={d}: N={N} V={V}: against float64 fwd rel err "
-            f"{e_f:.3e}, bwd " + ", ".join(f"{k} {v:.3e}"
-                                           for k, v in rels.items())
+                  "bwd_rel_err_f64": max(rels.values()),
+                  "design": {
+                      "K4": ("wide" if d > fused_ce_cuda.FWD_RESIDENT
+                             else "resident"),
+                      "K5": ("wide" if d > fused_ce_cuda.BWD_RESIDENT
+                             else "resident")}}
+        log(f"ce wide d={d} (kernels {out[d]['design']}): N={N} V={V}: "
+            f"against float64 fwd rel err {e_f:.3e}, bwd "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
             + "; two launches of each bitwise equal; fwd kernel "
-            f"{f_ms:.4f} ms plain {f_plain:.4f}, bwd kernel {b_ms:.4f} ms "
-            f"(dh {parts['dh']:.4f} + dW {parts['dw']:.4f}, profiled) plain "
-            f"{b_plain:.4f}; bounds 3xTF32 fwd {out[d]['fwd_bound_ms']:.4f} "
+            f"{f_ms:.4f} ms plain {f_plain:.4f} library {f_lib:.4f}, bwd "
+            f"kernel {b_ms:.4f} ms (dh {parts['dh']:.4f} + dW "
+            f"{parts['dw']:.4f}, profiled) plain {b_plain:.4f} library "
+            f"{b_lib:.4f}; bounds 3xTF32 fwd {out[d]['fwd_bound_ms']:.4f} "
             f"bwd {out[d]['bwd_bound_ms']:.4f}, FFMA fwd "
-            f"{out[d]['fwd_bound_ffma_ms']:.4f}")
+            f"{out[d]['fwd_bound_ffma_ms']:.4f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if d == fused_ce_cuda.BWD_RESIDENT:
+            with torch.no_grad():
+                got_w = _k5_wide(h, w, bm, lse, dlse, dt, tgt)
+                again_w = _k5_wide(h, w, bm, lse, dlse, dt, tgt)
+            rels_w = _check_ce_bwd(f"d={d} (K5's wide kernels)", got_w,
+                                   want64, again_w, n_real)
+            del got_w, again_w
+            times = {"resident": [], "wide": []}
+            for design in ("resident", "wide", "wide", "resident"):
+                fn = ((lambda: _k5_wide(h, w, bm, lse, dlse, dt, tgt))
+                      if design == "wide" else
+                      (lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
+                                                    tgt)))
+                with torch.no_grad():
+                    times[design].append(timer(fn))
+            res = {k: float(np.mean(v)) for k, v in times.items()}
+            out[d]["k5_wide_at_512"] = {
+                "bwd_ms": res["wide"], "resident_bwd_ms": res["resident"],
+                "runs": times, "bwd_rel_err_f64": max(rels_w.values())}
+            log(f"ce d={d}, K5's two designs in turns (resident, wide, wide, "
+                f"resident): {res['resident']:.4f} ms resident, "
+                f"{res['wide']:.4f} wide; the wide kernels from float64 "
+                + ", ".join(f"{k} {v:.3e}" for k, v in rels_w.items())
+                + ", two launches bitwise equal")
+        del ins, h, w, bm, pad_l, tgt, dlse, dt, lse, want64
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2561,40 +3137,48 @@ def _k7_call(name, ids, g, n_rows, timer, peak_bw, clock_hz):
 def _k7_kernels(fn, calls: int = 5):
     """({K7 kernel: device ms a call}, K7 launches a call) of ``fn`` under
     torch.profiler.  In a process that has run many profiles (and CUDA
-    graphs), the profiler loses the first kernels of its window, 9 of them
-    in this PR's runs, whatever the pause: so the window opens with LEAD
-    fills and closes with LEAD more, none of which are counted, and fails
-    unless one of the opening fills is seen, so that no K7 launch can have
-    been lost; a count that is not whole logs the window's kernels."""
+    graphs), the profiler loses the first kernels of its window, up to 9
+    of them in most runs and all 64 opening fills in one, whatever the
+    pause: so the window opens with LEAD fills and closes with LEAD more,
+    none of which are counted, and a window counts only if one of its
+    opening fills is seen, so that no K7 launch can have been lost.  A
+    window that lost them all is measured again, up to K7_WINDOWS times,
+    and the check fails if none counts; a count that is not whole logs the
+    window's kernels."""
     from torch.profiler import ProfilerActivity, profile
     lead = torch.empty(16 << 20, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(LEAD):
-            lead.zero_()
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_PAUSE_S)
-        for _ in range(calls):
-            fn()
-        for _ in range(LEAD):
-            lead.zero_()
-        torch.cuda.synchronize()
-    ms, launches = _k7_by_kernel(prof)
-    kernels = sorted((ev.time_range.start, ev.name) for ev in prof.events()
-                     if ev.device_type == torch.autograd.DeviceType.CUDA)
-    names = ["K7" if "segsum_" in n else "fill" if "Fill" in n else n[:40]
-             for _, n in kernels]
-    opening = names[:names.index("K7") if "K7" in names else None]
-    if launches % calls or opening.count("fill") < LEAD:
-        log(f"K7 profile window: {launches} K7 launches in {calls} calls; "
-            f"the profiler lost {LEAD - opening.count('fill')} of the "
-            f"{LEAD} opening fills; {len(names)} kernels, first "
-            f"{names[:4]}, last {names[-4:]}")
+    for attempt in range(K7_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD):
+                lead.zero_()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAUSE_S)
+            for _ in range(calls):
+                fn()
+            for _ in range(LEAD):
+                lead.zero_()
+            torch.cuda.synchronize()
+        ms, launches = _k7_by_kernel(prof)
+        kernels = sorted((ev.time_range.start, ev.name)
+                         for ev in prof.events()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA)
+        names = ["K7" if "segsum_" in n else "fill" if "Fill" in n
+                 else n[:40] for _, n in kernels]
+        opening = names[:names.index("K7") if "K7" in names else None]
+        if launches % calls or opening.count("fill") < LEAD:
+            log(f"K7 profile window {attempt + 1}: {launches} K7 launches in "
+                f"{calls} calls; the profiler lost "
+                f"{LEAD - opening.count('fill')} of the {LEAD} opening "
+                f"fills; {len(names)} kernels, first {names[:4]}, last "
+                f"{names[-4:]}")
+        if "fill" in opening:
+            break
     check("fill" in opening,
-          f"K7 profile window: the profiler lost every opening fill "
-          f"({len(names)} kernels seen), so it may have lost K7 launches")
+          f"K7 profile window: the profiler lost every opening fill in "
+          f"{K7_WINDOWS} windows, so it may have lost K7 launches")
     return {k: v / calls for k, v in ms.items()}, launches / calls
 
 
@@ -2882,16 +3466,19 @@ def phase_bench():
 
 def phase_cli():
     """``python -m c2dsr_tpu_torch.cli`` on the card in a temporary working
-    directory, at the default width and at ``--d_latent 40`` (d % 32 == 8,
-    one head: every tower and CE kernel at a ragged width): exit 0, the
-    final result table and a checkpoint."""
+    directory, at the default width, at ``--d_latent 40`` (d % 32 == 8,
+    one head: every tower and CE kernel at a ragged width) and at the wide
+    shape (``--synthetic 2048 --d_latent 1024 --n_head 8``: K4/K5's wide
+    kernels): exit 0, the final result table and a checkpoint."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO_DIR] + [p for p in [env.get("PYTHONPATH")] if p])
-    for extra in ([], ["--d_latent", "40"]):
+    for users, extra in ((CLI_USERS, []), (CLI_USERS, ["--d_latent", "40"]),
+                         (EVAL_USERS_WIDE, ["--d_latent", "1024", "--n_head",
+                                            "8"])):
         with tempfile.TemporaryDirectory() as tmp:
             cmd = [sys.executable, "-m", "c2dsr_tpu_torch.cli", "--synthetic",
-                   str(CLI_USERS), "--n_epoch", "1", "--ckpt",
+                   str(users), "--n_epoch", "1", "--ckpt",
                    os.path.join(tmp, "ckpt")] + extra
             t0 = time.perf_counter()
             run = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
@@ -3955,8 +4542,9 @@ def _graph_kernels(fn, state, batch, sparse, bf16, label):
         check(fam.get(f, 0) > 0, f"{label}: no {f} kernel in the replay")
     check((k6 > 0) == sparse, f"{label}: {k6} K6 kernels, sparse {sparse}")
     if bf16:
-        for prefix in ("spmm_tasks_kernel<", "encoder_fwd_attn_kernel<",
-                       "attn_bwd_kernel<", "ce_fwd_kernel<", "ce_bwd_kernel<"):
+        for prefix in ("spmm_tasks_kernel<", "encoder_fwd_attn_seq_kernel<",
+                       "attn_bwd_seq_kernel<", "ce_fwd_kernel<",
+                       "ce_bwd_kernel<"):
             check(bf(prefix), f"{label}: no bf16 {prefix}...> in the replay")
     return names
 
@@ -4259,6 +4847,7 @@ def main() -> int:
     k4, k5 = phase_ce(timer, peak_flops, peak_bw, name)
     t0 = time.perf_counter()
     wide = phase_shapes()
+    tower_times = _tower_times(timer, name, peak_flops, peak_bw)
     log(f"phase shapes: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ce_wide = phase_ce_wide(timer, peak_flops, peak_bw, name)
@@ -4276,7 +4865,7 @@ def main() -> int:
     training, train_rate = phase_train(spec, train, graphs)
     log(f"phase training: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    training_wide = phase_train_wide(spec, train, graphs, graphs_host)
+    training_paths = phase_train_wide(spec, train, graphs, graphs_host)
     log(f"phase training wide: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     odd_widths = phase_odd_widths(spec, train, graphs, graphs_host, eval_data)
@@ -4325,7 +4914,7 @@ def main() -> int:
     scaled, scaled_launches = phase_scaled_e2e()
     log(f"phase scaled_e2e: {time.perf_counter() - t0:.1f} s")
     paths = {"serving": serving, "serving_d512": serving_wide,
-             "training": training, "training_wide": training_wide,
+             "training": training, **training_paths,
              "graph": graph_launches,
              "odd_widths": odd_widths,
              "experiment": experiment, "determinism": determinism,
@@ -4337,6 +4926,8 @@ def main() -> int:
             ("serving", ("spmm_csr", "encoder_fwd")),
             ("serving_d512", ("spmm_csr", "encoder_fwd")),
             ("training", step_kernels), ("training_wide", step_kernels),
+            ("training_long", step_kernels), ("training_wide_d1024",
+                                              step_kernels),
             ("graph", ("spmm_csr_flagged",) + step_kernels),
             ("odd_widths", ("spmm_csr", "ce_fwd", "ce_bwd", "segsum")),
             ("experiment", ("spmm_csr_flagged",) + step_kernels),
@@ -4410,6 +5001,9 @@ def main() -> int:
                        "encoder_fwd_rel_plain")},
          "wide_shapes_max_abs_err": wide["encoder_fwd"],
          "wide_shapes_max_rel_err": wide["encoder_fwd_rel"],
+         "long_wide_towers": {k: {n: v for n, v in r.items()
+                                  if not n.startswith("bwd")}
+                              for k, r in tower_times.items()},
          "note": "eval: one tower at B 2048, L 15, d 128; train: the three "
                  "towers of a step (B 1536, 512, 512) at dropout 0.2, "
                  "saving the activations K3 reads (ms_without_saving "
@@ -4427,6 +5021,9 @@ def main() -> int:
          "mesh_step_inputs_max_rel_err": max(e["encoder_bwd"]
                                              for e in par_errs.values()),
          "wide_shapes_max_rel_err": wide["encoder_bwd"],
+         "long_wide_towers": {k: {n: v for n, v in r.items()
+                                  if not n.startswith("fwd_") or "bwd" in n}
+                              for k, r in tower_times.items()},
          "note": "the three towers of a step (B 1536, 512, 512), L 15, "
                  "d 128, dropout 0.2, from the activations K2 saves: "
                  "tensor-core GEMMs (3xTF32), attention per sequence, "
@@ -4447,6 +5044,8 @@ def main() -> int:
          "d384": {k: v for k, v in ce_wide[384].items() if "fwd" in k},
          "scaled_e2e": at_1m("ce_fwd"),
          "d512": {k: v for k, v in ce_wide[512].items() if "fwd" in k},
+         "wide_widths": {d: {k: v for k, v in ce_wide[d].items() if "fwd" in k}
+                         for d in CE_WIDTHS if d > 512},
          "note": "both domains of a step: N 10240, d 128, V 30720 + 36864; "
                  "3xTF32 on the tensor cores; bound_ms the 3xTF32 tensor-core "
                  "bound (3*2*N*V*d TF32 FLOPs at 495 TFLOP/s), bound_ffma_ms "
@@ -4462,6 +5061,9 @@ def main() -> int:
          "d384": {k: v for k, v in ce_wide[384].items() if "bwd" in k},
          "scaled_e2e": at_1m("ce_bwd"),
          "d512": {k: v for k, v in ce_wide[512].items() if "bwd" in k},
+         "wide_at_512": ce_wide[512]["k5_wide_at_512"],
+         "wide_widths": {d: {k: v for k, v in ce_wide[d].items() if "bwd" in k}
+                         for d in CE_WIDTHS if d > 512},
          "note": "dh and dW/db kernels (3xTF32 on the tensor cores), both "
                  "domains of a step; also replaces fused_ce.py:339 and "
                  ":360; bound_ms is the 3xTF32 tensor-core bound "
@@ -4542,6 +5144,11 @@ def main() -> int:
                                  "bound_bytes_ms")},
             **({"eval": bf16["towers"]["eval"]}
                if kname == "encoder_fwd_bf16" else {}),
+            **({"long_wide": {k: v for k, v in bf16["shapes"].items()
+                              if k.startswith("tower")}}
+               if kname.startswith("encoder") else {}),
+            **({"d1024": bf16["shapes"][f"ce_d{BF16_CE_WIDE}"]}
+               if kname.startswith("ce_") else {}),
             "note": note + "; bound_ms at 989 TFLOP/s bf16 or the bytes at "
                     "3.35 TB/s, bound_tf32_one_pass_ms at 495 TFLOP/s "
                     "(this design's one TF32 pass of bf16 operands); "

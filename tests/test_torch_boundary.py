@@ -149,13 +149,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     (264, 1, 15, True), (44, 1, 15, False), (40, 2, 15, False),
     (512, 4, 15, True), (512, 8, 30, True), (128, 2, 64, True),
     (256, 4, 64, True), (96, 2, 48, True), (512, 1, 64, True),
-    (128, 1, 65, False), (512, 4, 65, False), (520, 1, 15, False),
-    (1024, 8, 15, False), (512, 128, 15, False)])
+    (128, 1, 65, True), (512, 4, 65, True), (520, 1, 15, True),
+    (1024, 8, 15, True), (512, 128, 15, False), (128, 1, 200, True),
+    (64, 1, 512, True), (640, 5, 30, True), (2048, 16, 15, True),
+    (520, 4, 15, False)])
 def test_encoder_kernel_shape_contract(d, n_head, length, ok):
     """encoder_cuda.supported, the one rule both tower kernels take: every
-    width at which the JAX package runs its fused encoder up to d 512 (d a
-    multiple of 8, head dim a multiple of 8) and L up to 64 at every width;
-    d above 512 and L above 64 are refused."""
+    tower the JAX package runs through its fused encoder (head dim a
+    multiple of 8), at any width and any L >= 1; a head dim that is not a
+    multiple of 8 is refused."""
     from c2dsr_tpu_torch.ops import encoder_cuda
     assert encoder_cuda.supported(d, n_head, length) is ok
 

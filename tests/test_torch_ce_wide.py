@@ -79,13 +79,27 @@ def test_plain_ce_d512_matches_jax_losses():
         _close(got, np.asarray(exp), 1e-5)
 
 
-@pytest.mark.parametrize("d", [8, 256, 264, 384, 512])
+@pytest.mark.parametrize("d", [8, 256, 264, 384, 512, 520, 1024, 2048])
 def test_kernels_take_widths_to_512(d):
+    """Every width d % 8 == 0 (the wide kernels above d 512)."""
     fused_ce_cuda.check_shape("ce", 10, d, 64)
 
 
-@pytest.mark.parametrize("d,V", [(516, 64), (520, 64), (36, 64), (0, 64),
-                                 (512, 66)])
+@pytest.mark.parametrize("d,V", [(516, 64), (36, 64), (0, 64), (512, 66)])
 def test_kernels_refuse_other_shapes(d, V):
-    with pytest.raises(ValueError, match="d % 8 == 0, d <= 512"):
+    with pytest.raises(ValueError, match="d % 8 == 0 and V % 4 == 0"):
         fused_ce_cuda.check_shape("ce", 10, d, V)
+
+
+@pytest.mark.parametrize("d,V,w_bytes", [(512, 2 ** 20, 4),
+                                         (2048, 2 ** 18, 4),
+                                         (512, 2 ** 21, 2)])
+def test_kernels_refuse_a_classifier_of_2_gib(d, V, w_bytes):
+    """d·V·bytes >= 2^31 is refused with the JAX package's reason
+    (``c2dsr_tpu/ops/fused_ce.py`` ``_pick_blocks``: a bf16 W counts two
+    bytes an element); one column group less is taken."""
+    with pytest.raises(ValueError, match="reaches 2 GiB"):
+        fused_ce_cuda.check_shape("ce", 10, d, V, w_bytes)
+    fused_ce_cuda.check_shape("ce", 10, d, V - 4, w_bytes)
+    if w_bytes == 2:
+        fused_ce_cuda.check_shape("ce", 10, d, V // 2, 2)

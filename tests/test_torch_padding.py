@@ -188,7 +188,20 @@ def test_fused_ce_at_odd_widths(stand_ins, d):
 
 
 def test_fused_ce_refuses_rows_wider_than_512_naming_the_roadmap(stand_ins):
+    """Rows wider than 512, which the kernels refused before the wide
+    kernels, now reach them: d 1,030 padded to 1,032, the values and
+    gradients those of the plain version at the unpadded width."""
     rng = np.random.default_rng(3)
-    with pytest.raises(ValueError, match="ROADMAP §B item 1"):
-        fused_ce.ce_kernels(*_ce_case(rng, 520))
-    assert "ce_fwd" not in stand_ins
+    h, w, bm, pad, tgt = _ce_case(rng, 1030)
+    c_lse, c_t = _t(rng, 24), _t(rng, 24)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (h, w, bm, pad)]
+        lse, tl = fn(*leaves, tgt)
+        ((lse * c_lse).sum() + (tl * c_t).sum()).backward()
+        return [lse.detach(), tl.detach()] + [t.grad for t in leaves]
+
+    for a, b in zip(run(fused_ce.ce_kernels), run(fused_ce.ce_fwd_plain)):
+        assert a.shape == b.shape
+        _close(a, b)
+    assert set(stand_ins["ce_fwd"]) == set(stand_ins["ce_bwd"]) == {1032}
