@@ -4,6 +4,7 @@
     python -m c2dsr_tpu_torch.bench --kernels       # kernel_bench.py
     python -m c2dsr_tpu_torch.bench --ce-variants   # ce_variants.py
     python -m c2dsr_tpu_torch.bench --scaled        # scaled_bench.py
+    python -m c2dsr_tpu_torch.bench --spmm-sweep    # spmm_experiments.py
     python -m c2dsr_tpu_torch.bench --batches       # train rate by batch
     python -m c2dsr_tpu_torch.bench --scaled-e2e    # scaled_e2e.py
     python -m c2dsr_tpu_torch.bench --ablation      # step_ablation.py
@@ -317,8 +318,8 @@ def batch_scaling(spec: Spec = FK, device="cuda") -> Dict:
 def main(argv=None, spec: Optional[Spec] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m c2dsr_tpu_torch.bench")
     mode = ap.add_mutually_exclusive_group()
-    for flag in ("--kernels", "--ce-variants", "--scaled", "--batches",
-                 "--scaled-e2e", "--ablation"):
+    for flag in ("--kernels", "--ce-variants", "--scaled", "--spmm-sweep",
+                 "--batches", "--scaled-e2e", "--ablation"):
         mode.add_argument(flag, action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (headline, --batches and "
@@ -338,7 +339,8 @@ def main(argv=None, spec: Optional[Spec] = None) -> int:
             merge_details({section: out})
             line = {"metric": section, "value": 1, "unit": "done",
                     "vs_baseline": None, "device": out["device"]}
-        elif args.kernels or args.ce_variants or args.scaled:
+        elif (args.kernels or args.ce_variants or args.scaled
+              or args.spmm_sweep):
             timing.require_cuda(args.device, "this bench mode")
             from c2dsr_tpu_torch.kernels import build
             build.build_all()
@@ -348,6 +350,9 @@ def main(argv=None, spec: Optional[Spec] = None) -> int:
             elif args.ce_variants:
                 from c2dsr_tpu_torch.bench import ce_variants
                 section, out = "ce_variants", ce_variants.run(args.device)
+            elif args.spmm_sweep:
+                from c2dsr_tpu_torch.bench import spmm_experiments
+                section, out = "spmm_sweep", spmm_experiments.run(args.device)
             else:
                 from c2dsr_tpu_torch.bench import scaled_bench
                 section, out = "scaled", scaled_bench.run(args.device)

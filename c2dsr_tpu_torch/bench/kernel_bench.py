@@ -22,7 +22,9 @@ once.  The rows:
   with the bf16 gather at the hop's; each gated against its plain bf16
   version, bounded at the bf16 tensor-core peak (and at one TF32 pass a
   product, their design), the library call an mm of bf16 operands into f32
-  where this PyTorch has one.
+  where this PyTorch has one (for K4 + K5 the backward composed of such
+  products, :func:`ce_bwd_bf16_library`, gated against the plain bf16 CE
+  first).
 """
 
 from __future__ import annotations
@@ -47,6 +49,12 @@ BF16_TOL = 1e-5          # K4's rows, K1/K6: max abs over max
 BF16_GRAD_TOL = 5e-5     # K4+K5's dh, dW, db: max abs over max, dW before
                          # its rounding to a bf16 W's dtype (W f32, rounded
                          # in the kernels' pre-pass: the same kernels)
+LIBRARY_BF16_GRAD_TOL = 2.5e-4   # K5 bf16's library version against the
+                         # plain bf16 CE: cuBLAS's bf16 -> f32 products sum
+                         # their k in their own order and accumulator (dh
+                         # read 6.4e-5 over V 65,536 on an H100); a
+                         # composition missing a term or a transpose lies
+                         # O(1) away
 
 
 def _rel(a, b) -> float:
@@ -96,6 +104,63 @@ def mm_bf16_f32(a: torch.Tensor, b: torch.Tensor):
         return None
 
 
+def ce_fwd_bf16_library(hb, wb, bm, pad, tgt):
+    """K4's bf16 function in PyTorch library calls (a yardstick the port
+    never calls): (lse, target logit) of [``mm`` of the bf16 h and W into
+    f32 + b | pad].  Needs :func:`mm_bf16_f32`'s product; targets < V."""
+    logits = mm_bf16_f32(hb, wb) + bm
+    return (torch.logsumexp(torch.cat([logits, pad[:, None]], 1), 1),
+            logits.gather(1, tgt[:, None])[:, 0])
+
+
+def ce_bwd_bf16_library(hb, wb, bm, lse, dlse, dt, tgt):
+    """K5's bf16 function in PyTorch library calls, composed by hand, since
+    autograd has no derivative of ``mm``'s bf16 -> f32 product: the logits
+    as that product, dlogits = dlse·softmax + dt·onehot(target) in f32,
+    rounded to bf16 as K5 bf16 rounds them, then dh and dW as two bf16 ->
+    f32 products and db the f32 row sum (``fused_ce.ce_bwd_plain``'s bf16
+    steps).  hb [N, d], wb [d, V] bf16; targets < V.  dW comes out in f32,
+    where K5 rounds it to W's dtype (one elementwise pass more)."""
+    logits = mm_bf16_f32(hb, wb) + bm
+    dlog = torch.exp(logits - lse[:, None]) * dlse[:, None]
+    dlog.scatter_add_(1, tgt[:, None], dt[:, None])
+    g = dlog.to(torch.bfloat16)
+    return mm_bf16_f32(g, wb.T), mm_bf16_f32(hb.T, g), dlog.sum(0)
+
+
+def check_ce_bwd_bf16_library(h, w, bm, lse, dlse, dt, tgt
+                              ) -> Dict[str, float]:
+    """{dh, dw, db: error} of :func:`ce_bwd_bf16_library` on K5's inputs (h
+    f32, w f32 or bf16: both rounded to bf16) against the plain bf16 CE
+    (``fused_ce.ce_bwd_plain``, dW in f32 from the f32 W), each max abs
+    over max |plain|; GateFailure past LIBRARY_BF16_GRAD_TOL."""
+    from c2dsr_tpu_torch.ops import fused_ce
+    with torch.no_grad():
+        got = ce_bwd_bf16_library(h.to(torch.bfloat16), w.to(torch.bfloat16),
+                                  bm, lse, dlse, dt, tgt)
+        want = fused_ce.ce_bwd_plain(h, w.float(), bm, lse, dlse, dt, tgt,
+                                     bf16=True)
+        errs = {n: _rel(a, b) for n, a, b in zip(("dh", "dw", "db"), got,
+                                                  want)}
+    _gate(max(errs.values()) <= LIBRARY_BF16_GRAD_TOL,
+          f"K5 bf16's library version: {errs} from the plain bf16 CE > "
+          f"{LIBRARY_BF16_GRAD_TOL}")
+    return errs
+
+
+def ce_bwd_bf16_library_ms(timer, h, w, bm, lse, dlse, dt, tgt, reps=20):
+    """(ms, errors) of :func:`ce_bwd_bf16_library` on K5's inputs, gated
+    first by :func:`check_ce_bwd_bf16_library`; (None, None) where this
+    PyTorch has no bf16 -> f32 ``mm``."""
+    hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    if mm_bf16_f32(hb[:1], wb[:, :1]) is None:
+        return None, None
+    errs = check_ce_bwd_bf16_library(h, w, bm, lse, dlse, dt, tgt)
+    with torch.no_grad():
+        return timer(lambda: ce_bwd_bf16_library(hb, wb, bm, lse, dlse, dt,
+                                                 tgt), reps=reps), errs
+
+
 def bench_ce_bf16w(timer, card, peak_bw, B=512, R=20, d=128, V=65536
                    ) -> List[Dict]:
     """K4 and K4 + K5 on a bf16 W (the bf16 classifier), the JAX bench's
@@ -136,14 +201,20 @@ def bench_ce_bf16w(timer, card, peak_bw, B=512, R=20, d=128, V=65536
           == torch.bfloat16,
           f"K4+K5 bf16: gradients from the plain bf16 versions {errs}")
     hb = h.to(torch.bfloat16)
-    lib = None
-    if mm_bf16_f32(hb, wb) is not None:
-        def lib_fwd():
-            logits = mm_bf16_f32(hb, wb) + bm
-            return (torch.logsumexp(torch.cat([logits, pad[:, None]], 1), 1),
-                    logits.gather(1, tgt[:, None]))
+    lib = lib_fb = lib_errs = None
+    if mm_bf16_f32(hb[:1], wb[:, :1]) is not None:
+        # the loss (lse - target logit).sum(): dlse 1, dt -1 a row
+        ones = torch.ones(N, device="cuda")
+        lib_errs = check_ce_bwd_bf16_library(h, wb, bm, got[0], ones, -ones,
+                                             tgt)
+
+        def lib_fwd_bwd():
+            lse = ce_fwd_bf16_library(hb, wb, bm, pad, tgt)[0]
+            return ce_bwd_bf16_library(hb, wb, bm, lse, ones, -ones, tgt)
+
         with torch.no_grad():
-            lib = timer(lib_fwd)
+            lib = timer(lambda: ce_fwd_bf16_library(hb, wb, bm, pad, tgt))
+            lib_fb = timer(lib_fwd_bwd)
     with torch.no_grad():
         f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, wb, bm, pad, tgt))
         f_plain = timer(lambda: fused_ce.ce_fwd_plain(h, wb, bm, pad, tgt))
@@ -154,11 +225,14 @@ def bench_ce_bf16w(timer, card, peak_bw, B=512, R=20, d=128, V=65536
     return [
         _bf16_entry("K4 ce_fwd_bf16w", f_ms, f_plain, lib, 2.0 * N * V * d,
                     io, card, peak_bw, e_f, shape=shape),
-        _bf16_entry("K4+K5 ce_fwd_bwd_bf16w", fb_ms, fb_plain, None,
+        _bf16_entry("K4+K5 ce_fwd_bwd_bf16w", fb_ms, fb_plain, lib_fb,
                     6.0 * N * V * d, 2 * io + 4.0 * (N * d + V) + 2.0 * d * V,
                     card, peak_bw, e_b, shape=shape, errors=errs,
-                    note="bounds count 6·N·V·d; library: none (no one "
-                         "call differentiates a bf16 product into f32)")]
+                    library_errors=lib_errs,
+                    note="bounds count 6·N·V·d; library: no one call "
+                         "differentiates a bf16 product into f32, so "
+                         "ce_fwd_bf16_library then ce_bwd_bf16_library, "
+                         "gated against the plain bf16 CE (library_errors)")]
 
 
 def bench_ce(timer, card, peak_flops, peak_bw, B=512, R=20, d=128,
@@ -239,6 +313,15 @@ def bench_ce(timer, card, peak_flops, peak_bw, B=512, R=20, d=128,
                note="bounds count 6·N·V·d: the logits and the two products")]
 
 
+def k1_bytes(g, n_rows: int, d: int) -> int:
+    """The bytes one K1 call over ``g`` into ``n_rows`` rows of width d
+    must move: each referenced table row read once, every output row
+    written once, the columns, weights and row ends read once."""
+    used = int(torch.unique(g.cols).numel())
+    return (used * d * 4 + n_rows * d * 4 + int(g.cols.numel()) * 8
+            + (g.n + 1) * 4)
+
+
 def bench_spmm(timer, card, peak_flops, peak_bw, train, graphs, d=128
                ) -> List[Dict]:
     from c2dsr_tpu_torch.evaluate import ranker
@@ -265,8 +348,7 @@ def bench_spmm(timer, card, peak_flops, peak_bw, train, graphs, d=128
                                   size=(n_rows, n_rows),
                                   check_invariants=False)
     nnz = int(g.cols.numel())
-    used = int(torch.unique(g.cols).numel())
-    k1_bytes = used * d * 4 + n_rows * d * 4 + nnz * 8 + (g.n + 1) * 4
+    k1 = k1_bytes(g, n_rows, d)
     keep = flag[g.rows.long()].bool()
     n_kept = int(keep.sum())
     used_f = int(torch.unique(g.cols[keep]).numel())
@@ -277,7 +359,7 @@ def bench_spmm(timer, card, peak_flops, peak_bw, train, graphs, d=128
             _entry("K1 spmm_csr", timer(lambda: spmm_cuda.spmm_csr(g, h)),
                    timer(lambda: spmm.spmm_reference(g, h)),
                    timer(lambda: torch.sparse.mm(csr, h)), 2.0 * nnz * d,
-                   k1_bytes, card, peak_flops, peak_bw, e1, nnz=nnz),
+                   k1, card, peak_flops, peak_bw, e1, nnz=nnz),
             _entry("K6 spmm_csr_flagged dest",
                    timer(lambda: spmm_cuda.spmm_csr_flagged(g, h, flag,
                                                             "dest")),
@@ -301,7 +383,7 @@ def bench_spmm(timer, card, peak_flops, peak_bw, train, graphs, d=128
             _bf16_entry("K1 spmm_csr_bf16",
                         timer(lambda: spmm_cuda.spmm_csr(g, h, bf16=True)),
                         timer(lambda: spmm.spmm_reference(g, h, bf16=True)),
-                        None, 2.0 * nnz * d, k1_bytes, card, peak_bw, e16,
+                        None, 2.0 * nnz * d, k1, card, peak_bw, e16,
                         nnz=nnz, note="library: none (no sparse product of "
                                       "bf16 operands into f32)"),
             _bf16_entry("K6 spmm_csr_flagged_bf16 dest",

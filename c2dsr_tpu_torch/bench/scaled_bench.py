@@ -26,8 +26,10 @@ oracle: the ranks of 32 rows counted over vocab chunks of the same
 rounded operands).
 
 Also the per-device memory plan of the full configuration, for the H100's
-80 GB.  Not ported: the projection to 10M items over M devices, which
-needs a four-card mesh (ROADMAP, "Not queued").
+80 GB, and the projection to 10M items over M devices
+(:func:`project_10m`, scaled_bench.py:263-276): the measured per-shard
+times of the bf16-at-rest shard scaled by each device's vocab slice.  It
+runs nothing across devices.
 """
 
 from __future__ import annotations
@@ -71,6 +73,22 @@ def memory_plan() -> list:
                          "per_device_gb": total / m / 1e9,
                          "fits_h100_80gb": bool(total / m
                                                 < HBM_PER_CARD * 0.9)})
+    return rows
+
+
+def project_10m(ce_fwd_bwd_ms: float, full_rank_ms: float) -> list:
+    """The 10M-item configuration's per-device times over M = 8, 16, 32
+    shards, from the bf16-at-rest shard's measured CE forward + backward
+    and full-rank ms (256 rows): each scaled by the device's vocab slice
+    over the measured shard's, (V_FULL / M) / V_BF16, as the JAX bench
+    projects them (scaled_bench.py:263-276, its keys, no rounding)."""
+    rows = []
+    for m in (8, 16, 32):
+        scale = (V_FULL / m) / V_BF16
+        rows.append({"shards": m, "vocab_per_device": V_FULL // m,
+                     "classifier": "bf16_at_rest",
+                     "ce_fwd_bwd_ms": ce_fwd_bwd_ms * scale,
+                     "full_rank_ms_per_256": full_rank_ms * scale})
     return rows
 
 
@@ -303,4 +321,8 @@ def run(device: str = "cuda") -> Dict:
     return {"config": {"v_full": V_FULL, "d": D, "v_shard": V_SHARD,
                        "v_shard_bf16w": V_BF16, "batch": B, "len_rec": R},
             "device": timing.card_line(),
-            "measured_per_shard": results, "memory_plan": memory_plan()}
+            "measured_per_shard": results,
+            "projected_10m": project_10m(
+                results["fused_ce_bf16w"]["fwd_bwd_ms"],
+                results["full_rank_bf16w_ms"]),
+            "memory_plan": memory_plan()}

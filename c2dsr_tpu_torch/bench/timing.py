@@ -91,6 +91,16 @@ def bf16_bounds_ms(flops: float, nbytes: float, name: str, peak_bw: float):
             max(flops / tf32_peak(name), nbytes / peak_bw) * 1e3)
 
 
+def se_resolved(a, b):
+    """(mean(a) - mean(b), its standard error, whether the difference lies
+    beyond 3 standard errors) of two samples of one measure taken in
+    turns."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    diff = a.mean() - b.mean()
+    se = float(np.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b)))
+    return float(diff), se, bool(abs(diff) > 3 * se)
+
+
 class Timer:
     """Median CUDA-event time of ``reps`` runs after warm-up; L2 is flushed
     (a 256 MB write) before each run, outside the timed window."""

@@ -9,9 +9,10 @@
 //
 // The work is split on the host, once per graph (ops/spmm.py plan), into
 // warp tasks of at most heavy_deg edges (32 by default), in row order:
-//   * a run of up to 32 consecutive whole rows (tasks[t] = {r0, n, e0, e1}:
-//     rows [r0, r0 + n), edges [e0, e1)).  The warp loads the run's row ends
-//     (one a lane) and its edges 32 at a time (one a lane) in coalesced
+//   * a run of up to run_rows consecutive whole rows (32 by default, at
+//     most 32; tasks[t] = {r0, n, e0, e1}: rows [r0, r0 + n), edges [e0,
+//     e1)).  The warp loads the run's row ends (one a lane: n <= 32 is all
+//     the kernel needs) and its edges 32 at a time (one a lane) in coalesced
 //     sweeps, and walks the edges in CSR order across the rows: the gathers
 //     of kGathers / NC edges are issued before their FMAs, whichever rows
 //     they belong to, so the gathers of several short rows are in flight
@@ -60,7 +61,8 @@ namespace {
 
 constexpr int kWarps = 8;       // warps a block
 constexpr int kMinBlocks = 4;   // resident blocks an SM (64 registers)
-constexpr int kRunRows = 32;    // rows a task at most (one end a lane)
+constexpr int kRunRows = 32;    // rows a task at most (one end a lane);
+                                // the rows past the graph a warp
 constexpr int kGathers = 4;     // float4 gathers in flight a lane (tasks)
 
 constexpr int kDense = 0;       // K1

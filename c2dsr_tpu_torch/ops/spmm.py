@@ -43,6 +43,8 @@ class CsrDevice(NamedTuple):
     heavy_deg: int         # the plan's budget, the most edges a warp task
                            # sums: a record of how tasks was made (no kernel
                            # reads it)
+    run_rows: int          # its other budget, the most whole rows a task
+                           # takes (a record too)
     n: int                 # graph dim; tables may carry extra (edge-free) rows
     tasks: torch.Tensor    # int32 [n_tasks, 4], the plan
     heavy_slots: torch.Tensor  # int32 [len(heavy_rows) + 1]
@@ -52,13 +54,15 @@ class CsrDevice(NamedTuple):
                            # (parallel/embed.RankPlan, attach_a2a_plan)
 
 
-RUN_ROWS = 32          # csrc/spmm.cu kRunRows: rows a task at most
+RUN_ROWS = 32          # default of plan's run_rows: whole rows a task at
+                       # most, also its bound: csrc/spmm.cu reads a task's
+                       # row ends one a lane of a warp
 
 
-def plan(rowptr: np.ndarray, budget: int):
+def plan(rowptr: np.ndarray, budget: int, run_rows: int = RUN_ROWS):
     """The kernel's plan of warp tasks over a CSR (``csrc/spmm.cu``), in row
     order.  A task is (r0, n, e0, e1): rows [r0, r0 + n) whole, up to
-    RUN_ROWS of them, whose edges [e0, e1) number at most ``budget``; or
+    ``run_rows`` of them, whose edges [e0, e1) number at most ``budget``; or
     (r0, -1 - slot, e0, e1): one of the near-equal contiguous segments of a
     row with more than ``budget`` edges, summed into partial row ``slot``.
     Returns (tasks int32 [n_tasks, 4], heavy_rows int32 [h]: the split rows,
@@ -67,6 +71,10 @@ def plan(rowptr: np.ndarray, budget: int):
     each in segment order, then the runs in order."""
     if budget < 1:
         raise ValueError(f"heavy_deg must be >= 1, got {budget}")
+    if not 1 <= run_rows <= RUN_ROWS:
+        raise ValueError(f"run_rows must be in 1..{RUN_ROWS} (the kernel "
+                         f"reads a task's row ends one a lane), got "
+                         f"{run_rows}")
     ends = np.asarray(rowptr, np.int64).tolist()
     n = len(ends) - 1
     tasks, heavy, slots = [], [], [0]
@@ -83,7 +91,7 @@ def plan(rowptr: np.ndarray, budget: int):
             r += 1
             continue
         r0, edges = r, 0
-        while r < n and r - r0 < RUN_ROWS:
+        while r < n and r - r0 < run_rows:
             deg = ends[r + 1] - ends[r]
             if deg > budget or edges + deg > budget:
                 break
@@ -94,29 +102,31 @@ def plan(rowptr: np.ndarray, budget: int):
             np.asarray(heavy, np.int32), np.asarray(slots, np.int32))
 
 
-def _csr(rows, cols, vals, n: int, heavy_deg: int, device) -> CsrDevice:
+def _csr(rows, cols, vals, n: int, heavy_deg: int, run_rows: int, device
+         ) -> CsrDevice:
     counts = np.bincount(rows, minlength=n)
     rowptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
 
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    tasks, heavy, slots = plan(rowptr, heavy_deg)
+    tasks, heavy, slots = plan(rowptr, heavy_deg, run_rows)
     return CsrDevice(rowptr=put(rowptr, np.int32), rows=put(rows, np.int32),
                      cols=put(cols, np.int32), vals=put(vals, np.float32),
                      heavy_rows=put(heavy, np.int32), heavy_deg=int(heavy_deg),
-                     n=n, tasks=put(tasks, np.int32),
+                     run_rows=int(run_rows), n=n, tasks=put(tasks, np.int32),
                      heavy_slots=put(slots, np.int32), n_part=int(slots[-1]))
 
 
-def device_graph(g, device="cuda", heavy_deg: int = spmm_cuda.HEAVY_DEG
-                 ) -> CsrDevice:
+def device_graph(g, device="cuda", heavy_deg: int = spmm_cuda.HEAVY_DEG,
+                 run_rows: int = RUN_ROWS) -> CsrDevice:
     """Upload a host CooGraph (graph/build.py) as CSR on ``device``, with
     the CSR of its transpose in ``t``, each with the kernel's plan
-    (:func:`plan`): warp tasks of at most ``heavy_deg`` edges, and the rows
-    with more split into segments.  The transpose of a row-normalised Zipf
-    graph has heavy rows of its own (a popular item is everyone's
-    neighbour), so each CSR has its own plan."""
+    (:func:`plan`): warp tasks of at most ``heavy_deg`` edges and
+    ``run_rows`` whole rows, and the rows with more edges split into
+    segments.  The transpose of a row-normalised Zipf graph has heavy rows
+    of its own (a popular item is everyone's neighbour), so each CSR has
+    its own plan."""
     device = backend.resolve_device(device)
     n = int(g.n)
     rows = np.asarray(g.rows, np.int64)
@@ -125,12 +135,15 @@ def device_graph(g, device="cuda", heavy_deg: int = spmm_cuda.HEAVY_DEG
     if rows.size and np.any(np.diff(rows) < 0):
         raise ValueError("CooGraph rows must be sorted ascending")
     order = np.argsort(cols, kind="stable")
-    t = _csr(cols[order], rows[order], vals[order], n, heavy_deg, device)
-    return _csr(rows, cols, vals, n, heavy_deg, device)._replace(t=t)
+    t = _csr(cols[order], rows[order], vals[order], n, heavy_deg, run_rows,
+             device)
+    return _csr(rows, cols, vals, n, heavy_deg, run_rows, device)._replace(
+        t=t)
 
 
 def rect_graph(rows, cols, vals, n_out: int, n_in: int, device="cuda",
-               heavy_deg: int = spmm_cuda.HEAVY_DEG) -> CsrDevice:
+               heavy_deg: int = spmm_cuda.HEAVY_DEG,
+               run_rows: int = RUN_ROWS) -> CsrDevice:
     """A rectangular [n_out, n_in] CSR (rows ascending), with the CSR of its
     transpose in ``t``, each with K1's plan: the local sum of a sharded
     propagation over a received buffer (``parallel/embed.py``)."""
@@ -143,8 +156,10 @@ def rect_graph(rows, cols, vals, n_out: int, n_in: int, device="cuda",
         raise ValueError("rect_graph takes ascending rows < n_out and "
                          "columns < n_in")
     order = np.argsort(cols, kind="stable")
-    t = _csr(cols[order], rows[order], vals[order], n_in, heavy_deg, device)
-    return _csr(rows, cols, vals, n_out, heavy_deg, device)._replace(t=t)
+    t = _csr(cols[order], rows[order], vals[order], n_in, heavy_deg,
+             run_rows, device)
+    return _csr(rows, cols, vals, n_out, heavy_deg, run_rows,
+                device)._replace(t=t)
 
 
 def rect_spmm(graph: CsrDevice, h: torch.Tensor) -> torch.Tensor:

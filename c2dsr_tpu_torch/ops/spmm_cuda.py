@@ -19,8 +19,8 @@ What bounds them on an H100: bytes.  A hop reads each referenced table row
 (d·4 bytes) and writes each output row once; the arithmetic (2·nnz·d
 FLOPs) is negligible.  Design: ``ops/spmm.plan`` cuts each CSR once into
 warp tasks of at most ``graph.heavy_deg`` edges (``HEAVY_DEG`` by default):
-a run of up to 32 whole consecutive rows, or a segment of a row with more
-edges.  A warp walks its task's edges in CSR order across row ends, with
+a run of up to ``graph.run_rows`` (32 by default, at most 32: one row end
+a lane) whole consecutive rows, or a segment of a row with more edges.  A warp walks its task's edges in CSR order across row ends, with
 the gathers of 4 / NC edges in flight a lane (each lane holds NC float4 of
 a row: one pass over the edges at any d up to 1,024), and stores each row
 once; a split row's segment sums go to scratch rows that a second kernel

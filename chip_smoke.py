@@ -56,7 +56,9 @@ Phases (any failure exits non-zero without the final line):
    its plain bf16 version at FK shapes (K1/K6 and K4 SPMM_BF16_TOL /
    CE_BF16_TOL, K5 CE_BWD_BF16_TOL, K2/K3 K2_BF16_TOL / K3_BF16_TOL by
    relative Frobenius), the f32 instantiation in its place failing each
-   limit, K3-K5 bitwise across launches; one bf16 FK step at dropout 0
+   limit, K3-K5 bitwise across launches (K5 also timed beside its
+   library version, ``kernel_bench.ce_bwd_bf16_library``, gated against
+   the plain bf16 CE); one bf16 FK step at dropout 0
    against the CPU's (loss 1e-5, gradients STEP_BF16_GRAD_TOL; the f32
    step fails them) with only the bf16 instantiations launched; the bf16
    main path (a step, a batch-sparse step and a serving run whose ranks
@@ -104,7 +106,9 @@ Phases (any failure exits non-zero without the final line):
    ``python -m c2dsr_tpu_torch.cli --mesh_model 2`` for an epoch with a
    checkpoint, resumed on one process.
 8. bench: every mode of the port's bench in this process (the ablation
-   aside).
+   aside; ``--spmm-sweep``, K1's plan parameters, at the points
+   SPMM_SWEEP, each gated before it is timed), the ``--scaled``
+   projection to 10M items logged.
 9. native: the native data layer (``c2dsr_tpu_torch/native``, g++) on a
    raw directory of synthetic users: ``load_or_build_split`` and
    ``build_graphs_from_file`` equal to the Python path in every
@@ -1150,6 +1154,31 @@ WIDE_TOWERS = ((96, 2, 30), (32, 1, 30), (256, 4, 15), (160, 2, 16),
 TIMED_TOWERS = ((128, 1, 200, 512), (1024, 8, 15, 512))   # (d, heads, L, B)
 
 
+def _tower_work(seq, pad, p, acts, n_head):
+    """(forward FLOPs, the attention's part of them, forward bytes,
+    backward bytes) of one tower layer of K2 in train mode (saving
+    ``acts``) and K3 on these inputs; the backward does twice the forward's
+    FLOPs."""
+    from c2dsr_tpu_torch.train import step as step_mod
+    B, L = seq.shape
+    d = p["lnf_scale"].numel()
+    N = B * L
+    # the attention this run's masks need: a query row with k allowed
+    # keys (causal and not padding) 4·k·d FLOPs, an all-masked row the
+    # mean of its sequence's V (L·d adds, once a sequence)
+    k = (seq != pad).long().cumsum(1)
+    attn_flops = (4.0 * d * float(k.sum())
+                  + float(L * d) * int((k == 0).any(1).sum()))
+    # bytes: x and the output, every weight once, and in train the
+    # activations the backward reads, not the H·B·L² probabilities this
+    # design saves beside them
+    w_bytes = 4.0 * sum(t.numel() for t in step_mod.param_leaves(p))
+    kept = acts.numel() - n_head * B * L * L
+    return (12.0 * N * d * d + attn_flops, attn_flops,
+            8.0 * N * d + w_bytes + 4.0 * kept,
+            4.0 * kept + 8.0 * N * d + 2 * w_bytes)
+
+
 def _tower_times(timer, gpu, peak_flops, peak_bw):
     """K2 in train mode (dropout 0.2, saving K3's activations) and K3 at the
     long and the wide tower (TIMED_TOWERS: one domain tower of a step, one
@@ -1165,7 +1194,6 @@ def _tower_times(timer, gpu, peak_flops, peak_bw):
     from c2dsr_tpu_torch.ops import dropout as drop
     from c2dsr_tpu_torch.ops import encoder as enc
     from c2dsr_tpu_torch.ops import encoder_cuda
-    from c2dsr_tpu_torch.train import step as step_mod
     pad, out = 64093, {}
     for d, n_head, L, B in TIMED_TOWERS:
         p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
@@ -1200,21 +1228,8 @@ def _tower_times(timer, gpu, peak_flops, peak_bw):
             x, seq, p, saved=acts, **kw))[0]
         b_sub = timing.kernel_times(lambda: encoder_cuda.encoder_bwd(
             x, seq, gout, p, saved=acts, **kw))[0]
-        N = B * L
-        # the attention this run's masks need: a query row with k allowed
-        # keys (causal and not padding) 4·k·d FLOPs, an all-masked row the
-        # mean of its sequence's V (L·d adds, once a sequence)
-        k = (seq != pad).long().cumsum(1)
-        attn_flops = (4.0 * d * float(k.sum())
-                      + float(L * d) * int((k == 0).any(1).sum()))
-        flops = 12.0 * N * d * d + attn_flops
-        # bytes: x and the output, every weight once, and in train the
-        # activations the backward reads, not the H·B·L² probabilities this
-        # design saves beside them
-        w_bytes = 4.0 * sum(t.numel() for t in step_mod.param_leaves(p))
-        kept = acts.numel() - n_head * B * L * L
-        f_bytes = 8.0 * N * d + w_bytes + 4.0 * kept
-        b_bytes = 4.0 * kept + 8.0 * N * d + 2 * w_bytes
+        flops, attn_flops, f_bytes, b_bytes = _tower_work(seq, pad, p, acts,
+                                                          n_head)
         attn = {"fwd": sum(v for k, v in f_sub.items() if "attn" in k),
                 "bwd": sum(v for k, v in b_sub.items() if "attn" in k)}
         out[f"d{d}_L{L}"] = {
@@ -2070,6 +2085,7 @@ def _bf16_ce(timer, peak_bw):
     their place, which must fail; bitwise across launches; the bf16 W and
     an f32 W rounded in the pre-pass give the same bits (dW: the f32 one
     rounded).  Summed over the domains."""
+    from c2dsr_tpu_torch.bench import kernel_bench
     from c2dsr_tpu_torch.bench.kernel_bench import mm_bf16_f32
     from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
     N, d = 512 * 2 * 10, 128
@@ -2126,22 +2142,24 @@ def _bf16_ce(timer, peak_bw):
                                                           tgt))
             hb = h.to(torch.bfloat16)
             lib = None
-            if mm_bf16_f32(hb, wb) is not None:
-                lib = timer(lambda: torch.logsumexp(torch.cat(
-                    [mm_bf16_f32(hb, wb) + bm, pad_l[:, None]], 1), 1))
+            if mm_bf16_f32(hb[:1], wb[:, :1]) is not None:
+                lib = timer(lambda: kernel_bench.ce_fwd_bf16_library(
+                    hb, wb, bm, pad_l, tgt))
             b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse,
                                                       dt, tgt))
             b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, wb, bm, lse,
                                                           dlse, dt, tgt))
-        b_lib = _ce_bwd_bf16_library(h, wb, bm, pad_l, dlse, timer)
+        b_lib, lib_errs = _ce_bwd_bf16_library(timer, h, wb, bm, lse, dlse,
+                                               dt, tgt)
         log(f"{tag}: fwd rel err {e_f:.3e} (f32 instantiation {e_f32:.3e}); "
             "bwd rel err " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
             + " (f32 instantiation " + ", ".join(
                 f"{k} {v:.3e}" for k, v in rels32.items()) + "); launches "
             f"bitwise equal; fwd kernel {f_ms:.4f} ms plain {f_plain:.4f} "
-            f"library {lib if lib is None else round(lib, 4)} (mm with bf16 "
-            f"operands into f32, logsumexp); bwd kernel {b_ms:.4f} ms plain "
-            f"{b_plain:.4f}")
+            f"library {lib} (mm with bf16 operands into f32, logsumexp, "
+            f"gather); bwd kernel {b_ms:.4f} ms plain {b_plain:.4f} library "
+            f"{b_lib} (kernel_bench.ce_bwd_bf16_library, errors from the "
+            f"plain bf16 CE {lib_errs})")
         io = 4 * (N * d + V + 3 * N) + 2 * d * V
         fwd["ms"] += f_ms
         fwd["plain_ms"] += f_plain
@@ -2173,19 +2191,21 @@ BF16_TOWERS = ((128, 1, 200, 256), (1024, 8, 15, 256))   # (d, heads, L, B)
 BF16_CE_WIDE = 1024
 
 
-def _bf16_shapes(timer):
+def _bf16_shapes(timer, peak_bw):
     """The bf16 instantiations at one long and one wide tower (BF16_TOWERS:
     K2 at dropout 0.2 saving K3's activations, K3 at K2's branches, one
     layer) and K4/K5's wide kernels at d BF16_CE_WIDE (domain A's rows and
     vocab, a bf16 W): against the plain bf16 versions at the FK limits,
     the f32 instantiations failing each, bitwise across launches; timed
-    beside the plain versions and the library's bf16 calls."""
+    beside the plain versions and the library's bf16 calls, with the bounds
+    of ``_bf16_entry`` (the towers' work as ``_tower_work`` counts it, the
+    CE's as ``_bf16_ce``)."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import dropout as drop
     from c2dsr_tpu_torch.ops import encoder as enc
     from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce, fused_ce_cuda
-    from c2dsr_tpu_torch.bench.kernel_bench import mm_bf16_f32
+    from c2dsr_tpu_torch.bench import kernel_bench
     pad, out = 64093, {}
     for d, n_head, L, B in BF16_TOWERS:
         p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
@@ -2240,16 +2260,28 @@ def _bf16_shapes(timer):
                                                       bf16=True, **kw))
         f_lib, fb_lib = _bf16_tower_library(p, x, seq, gout, pad, n_head,
                                             0.2, timer)
+        flops, _, f_bytes, b_bytes = _tower_work(seq, pad, p, acts, n_head)
+        fb = _bf16_entry(f_ms, f_plain, f_lib, flops, f_bytes, peak_bw, e,
+                         e32)
+        bb = _bf16_entry(b_ms, b_plain, fb_lib, 2 * flops, b_bytes, peak_bw,
+                         eb, eb32)
         out[f"tower_d{d}_L{L}"] = {
             "fwd_ms": f_ms, "fwd_plain_ms": f_plain, "fwd_library_ms": f_lib,
             "bwd_ms": b_ms, "bwd_plain_ms": b_plain,
             "fwd_bwd_library_ms": fb_lib, "fwd_err": e, "fwd_err_f32": e32,
-            "bwd_err": eb, "bwd_err_f32": eb32}
+            "bwd_err": eb, "bwd_err_f32": eb32,
+            **{f"{k}_{n}": r[n] for k, r in (("fwd", fb), ("bwd", bb))
+               for n in ("bound_ms", "bound_tf32_one_pass_ms",
+                         "bound_bytes_ms", "bound_by")}}
         log(f"{tag}: fwd relative Frobenius {e:.3e} (f32 instantiation "
             f"{e32:.3e}), bwd {eb:.3e} ({eb32:.3e}), launches bitwise equal; "
-            f"K2 {f_ms:.4f} ms plain {f_plain:.4f} library {f_lib:.4f}; K3 "
-            f"{b_ms:.4f} ms plain {b_plain:.4f}, library fwd + bwd "
-            f"{fb_lib:.4f}")
+            f"K2 {f_ms:.4f} ms plain {f_plain:.4f} library {f_lib:.4f} bound "
+            f"bf16 / one TF32 pass / bytes {fb['bound_ms']:.4f} / "
+            f"{fb['bound_tf32_one_pass_ms']:.4f} / "
+            f"{fb['bound_bytes_ms']:.4f}; K3 {b_ms:.4f} ms plain "
+            f"{b_plain:.4f}, library fwd + bwd {fb_lib:.4f} bound "
+            f"{bb['bound_ms']:.4f} / {bb['bound_tf32_one_pass_ms']:.4f} / "
+            f"{bb['bound_bytes_ms']:.4f}")
         del acts, acts32, b, b2, b32, rb
         torch.cuda.empty_cache()
     d, N, V, n_real = BF16_CE_WIDE, 512 * 2 * 10, 30720, N_ITEM_A
@@ -2285,45 +2317,59 @@ def _bf16_shapes(timer):
         f_plain = timer(lambda: fused_ce.ce_fwd_plain(h, wb, bm, pad_l, tgt),
                         reps=5)
         hb = h.to(torch.bfloat16)
-        f_lib = (timer(lambda: torch.logsumexp(torch.cat(
-            [mm_bf16_f32(hb, wb) + bm, pad_l[:, None]], 1), 1), reps=5)
-            if mm_bf16_f32(hb, wb) is not None else None)
+        f_lib = (timer(lambda: kernel_bench.ce_fwd_bf16_library(
+            hb, wb, bm, pad_l, tgt), reps=5)
+            if kernel_bench.mm_bf16_f32(hb[:1], wb[:, :1]) is not None
+            else None)
         b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse, dt,
                                                   tgt), reps=5)
         b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, wb, bm, lse, dlse,
                                                       dt, tgt), reps=5)
-    b_lib = _ce_bwd_bf16_library(h, wb, bm, pad_l, dlse, timer)
+    b_lib, lib_errs = _ce_bwd_bf16_library(timer, h, wb, bm, lse, dlse, dt,
+                                           tgt, reps=5)
+    io = 4 * (N * d + V + 3 * N) + 2 * d * V
+    fb = _bf16_entry(f_ms, f_plain, f_lib, 2 * N * V * d, io + 8 * N, peak_bw,
+                     e, e32)
+    bb = _bf16_entry(b_ms, b_plain, b_lib, 4 * N * V * d, 2 * io + 4 * N * d,
+                     peak_bw, eb, eb32)
     out[f"ce_d{d}"] = {"fwd_ms": f_ms, "fwd_plain_ms": f_plain,
                        "fwd_library_ms": f_lib, "bwd_ms": b_ms,
                        "bwd_plain_ms": b_plain, "bwd_library_ms": b_lib,
+                       "bwd_library_errors": lib_errs,
                        "fwd_err": e, "fwd_err_f32": e32, "bwd_err": eb,
-                       "bwd_err_f32": eb32}
+                       "bwd_err_f32": eb32,
+                       **{f"{k}_{n}": r[n] for k, r in (("fwd", fb),
+                                                        ("bwd", bb))
+                          for n in ("bound_ms", "bound_tf32_one_pass_ms",
+                                    "bound_bytes_ms", "bound_by")}}
     log(f"{tag}: fwd rel err {e:.3e} (f32 instantiation {e32:.3e}), bwd "
         f"{eb:.3e} ({eb32:.3e}), launches bitwise equal; K4 {f_ms:.4f} ms "
-        f"plain {f_plain:.4f} library {f_lib}; K5 {b_ms:.4f} ms plain "
-        f"{b_plain:.4f} library {b_lib}")
+        f"plain {f_plain:.4f} library {f_lib} bound bf16 / one TF32 pass / "
+        f"bytes {fb['bound_ms']:.4f} / {fb['bound_tf32_one_pass_ms']:.4f} / "
+        f"{fb['bound_bytes_ms']:.4f}; K5 {b_ms:.4f} ms plain {b_plain:.4f} "
+        f"library {b_lib} (errors from the plain bf16 CE {lib_errs}) bound "
+        f"{bb['bound_ms']:.4f} / {bb['bound_tf32_one_pass_ms']:.4f} / "
+        f"{bb['bound_bytes_ms']:.4f}")
     return out
 
 
-def _ce_bwd_bf16_library(h, wb, bm, pad_l, dlse, timer):
-    """The library yardstick of K5's bf16 instantiation: autograd of
-    ``logsumexp`` over ``mm`` of bf16 operands into f32 (h rounded, the
-    bf16 W) and the pad column, for dlse; or None (logged) where this
-    PyTorch has no such product or no gradient of it."""
-    from c2dsr_tpu_torch.bench.kernel_bench import mm_bf16_f32
-    hb = h.to(torch.bfloat16).requires_grad_(True)
-    wg = wb.detach().clone().requires_grad_(True)
-    bg = bm.detach().clone().requires_grad_(True)
+def _ce_bwd_bf16_library(timer, h, wb, bm, lse, dlse, dt, tgt, reps=20):
+    """(ms, errors) of K5 bf16's library version
+    (``kernel_bench.ce_bwd_bf16_library``: mm of bf16 operands into f32,
+    the dlogits rounded to bf16, two more such products and a row sum) on
+    K5's inputs, gated first against the plain bf16 CE
+    (``kernel_bench.LIBRARY_BF16_GRAD_TOL``); (None, None), logged, where
+    this PyTorch has no such product."""
+    from c2dsr_tpu_torch.bench import kernel_bench
     try:
-        out = torch.logsumexp(torch.cat([mm_bf16_f32(hb, wg) + bg,
-                                         pad_l[:, None]], 1), 1)
-        torch.autograd.grad(out, [hb, wg, bg], dlse, retain_graph=True)
-    except (TypeError, RuntimeError, NotImplementedError) as e:
-        log(f"bf16 ce library: no backward of mm's bf16 -> f32 product "
-            f"({str(e).splitlines()[0][:160]})")
-        return None
-    return timer(lambda: torch.autograd.grad(out, [hb, wg, bg], dlse,
-                                             retain_graph=True))
+        ms, errs = kernel_bench.ce_bwd_bf16_library_ms(
+            timer, h, wb, bm, lse, dlse, dt, tgt, reps)
+    except timing.GateFailure as e:
+        raise SmokeFailure(str(e))
+    if ms is None:
+        log("bf16 ce library: this PyTorch has no mm of bf16 operands into "
+            "f32 (torch.mm out_dtype)")
+    return ms, errs
 
 
 def _bf16_step(spec, train, graphs, graphs_host):
@@ -2422,7 +2468,7 @@ def phase_bf16(spec, train, graphs, graphs_host, eval_data, timer, peak_bw):
     res = {"spmm": _bf16_spmm(graphs, train, timer, peak_bw)}
     res["towers"] = _bf16_towers(timer, peak_bw)
     res["ce"] = _bf16_ce(timer, peak_bw)
-    res["shapes"] = _bf16_shapes(timer)
+    res["shapes"] = _bf16_shapes(timer, peak_bw)
     torch.cuda.empty_cache()
     res["step"] = _bf16_step(spec, train, graphs, graphs_host)
     torch.cuda.empty_cache()
@@ -3423,23 +3469,45 @@ def _bench_logs(name, res):
             f"{ce['rows_rel_err']:.3e} grads {ce['grads_rel_err']:.3e}; full "
             f"rank {m['full_rank_bf16w_ms']:.4f} ms (delta "
             f"{m['full_rank_bf16w_max_rank_delta']})")
+        for r in res["projected_10m"]:
+            log(f"bench scaled projected to 10M items: {json.dumps(r)}")
+    elif name == "spmm_sweep":
+        for p in res["points"]:
+            log(f"bench spmm_sweep heavy_deg {p['heavy_deg']} run_rows "
+                f"{p['run_rows']} {p['dtype']}: {p['ms']:.4f} ms ("
+                + ", ".join(f"{k} A {r['a']['ms']:.4f} A^T "
+                            f"{r['at']['ms']:.4f}, tasks {r['a']['tasks']} / "
+                            f"{r['at']['tasks']}" for k, r in p["hops"].items())
+                + f"), {p['pct_of_bound']:.1f}% of the byte bound "
+                f"{p['bound_ms']:.4f}; err {p['max_rel_err']:.3e}; plans "
+                f"{p['plan_build_s']:.2f} s")
+        log(f"bench spmm_sweep in turns: "
+            f"{json.dumps(res['default_against_fastest_other'])}")
     else:
         for r in res["results"]:
             log(f"bench batches: {json.dumps(r)}")
 
 
+SPMM_SWEEP = ((32, 32, "float32"), (16, 32, "float32"), (64, 32, "float32"),
+              (32, 16, "float32"), (32, 32, "bfloat16"))   # phase_bench's
+# points of --spmm-sweep: (heavy_deg, run_rows, gather), the default first
+
+
 def phase_bench():
     """The port's bench (``python -m c2dsr_tpu_torch.bench``), each mode in
     this process at its real size, with its gates: the headline,
-    ``--kernels``, ``--ce-variants``, ``--scaled``, and ``--batches`` up to
-    2,048.  Returns ({mode: result}, {mode: kernel launches})."""
+    ``--kernels``, ``--ce-variants``, ``--scaled``, ``--spmm-sweep`` at the
+    points SPMM_SWEEP, and ``--batches`` up to 2,048.  Returns ({mode:
+    result}, {mode: kernel launches})."""
     import dataclasses
     from c2dsr_tpu_torch.bench import __main__ as bench_main
-    from c2dsr_tpu_torch.bench import ce_variants, kernel_bench, scaled_bench
+    from c2dsr_tpu_torch.bench import (ce_variants, kernel_bench, scaled_bench,
+                                       spmm_experiments)
     modes = (("headline", bench_main.headline),
              ("kernels", kernel_bench.run),
              ("ce_variants", ce_variants.run),
              ("scaled", scaled_bench.run),
+             ("spmm_sweep", lambda: spmm_experiments.run(grid=SPMM_SWEEP)),
              ("batches", lambda: bench_main.batch_scaling(
                  dataclasses.replace(bench_main.FK,
                                      batches=(256, 512, 1024, 2048)))))
@@ -4549,13 +4617,6 @@ def _graph_kernels(fn, state, batch, sparse, bf16, label):
     return names
 
 
-def _se_resolved(a, b):
-    a, b = np.asarray(a), np.asarray(b)
-    diff = a.mean() - b.mean()
-    se = math.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b))
-    return float(diff), float(se), bool(abs(diff) > 3 * se)
-
-
 def _graph_rates(cfg, spec, graphs, init, train, label):
     """The captured step against the eager one in turns, GRAPH_ROUNDS rounds of (a, b, b, a) runs of
     GRAPH_RUN_STEPS full batches: train examples/s; after each run the
@@ -4628,7 +4689,7 @@ def _graph_rates(cfg, spec, graphs, init, train, label):
             f"{out[name]['busy_ms']:.3f} ms a step (profiled over 3 steps)")
     for key in ("examples_per_s", "host_ms"):
         src = rate if key == "examples_per_s" else host
-        d, se, ok = _se_resolved(src[a], src[b])
+        d, se, ok = timing.se_resolved(src[a], src[b])
         out[f"{key}_diff"] = {"diff": d, "se": se, "resolved": ok}
         log(f"{label}: {a} - {b} {key} {d:+.3f} ({d / np.mean(src[b]):+.2%}),"
             f" standard error {se:.3f}: {'resolved' if ok else 'unresolved'}")
@@ -4751,7 +4812,7 @@ def phase_graph(spec, train, graphs, eval_data):
             t0 = time.perf_counter()
             ranker.evaluate_split(params, hi, eval_data, fns[c][1], base, mode)
             times[c].append(n / (time.perf_counter() - t0))
-        d, se, ok = _se_resolved(times[True], times[False])
+        d, se, ok = timing.se_resolved(times[True], times[False])
         serve[mode] = {"captured": float(np.mean(times[True])),
                        "eager": float(np.mean(times[False])),
                        "diff": d, "se": se, "resolved": ok}
@@ -4937,6 +4998,7 @@ def main() -> int:
             ("bench_kernels", step_kernels + ("spmm_csr_flagged",)),
             ("bench_ce_variants", ("ce_fwd_variant", "ce_fwd")),
             ("bench_scaled", ("ce_fwd", "ce_bwd", "segsum")),
+            ("bench_spmm_sweep", ("spmm_csr",)),
             ("bench_batches", step_kernels),
             ("scaled_e2e", step_kernels)):
         check(all(paths[path][n] > 0 for n in kernels_of_path),
@@ -4970,9 +5032,16 @@ def main() -> int:
          "a2a_local_csr_max_rel_err": max(e["spmm_csr"]
                                           for e in par_errs.values()),
          "scaled_e2e": at_1m("spmm_csr"),
+         "plan_sweep": {
+             f"heavy_deg {p['heavy_deg']} run_rows {p['run_rows']} "
+             f"{p['dtype']}": {k: p[k] for k in ("ms", "bound_ms",
+                                                 "pct_of_bound")}
+             for p in bench["spmm_sweep"]["points"]},
          "note": "the four hops of a train step: over A and over its "
                  "transpose (the hop's backward, spmm_pallas.py:224-225), "
-                 "each over the share table (d 128) and A|B (d 256)"},
+                 "each over the share table (d 128) and A|B (d 256); "
+                 "plan_sweep: the same four calls at phase bench's plan "
+                 "points (bench/spmm_experiments.py)"},
         {"name": "spmm_csr_flagged", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/spmm.cu",
          "replaces": "c2dsr_tpu/ops/spmm_pallas.py:231-264 via :175",

@@ -10,6 +10,10 @@
 * The headline's train gate holds the gradients as well as the loss: a
   fault that leaves the loss exact and moves only the gradients fails it.
 * The kernel modes have no CPU form: they raise.
+* ``--scaled``'s projection to 10M items is the JAX bench's formula, and
+  ``--kernels``' library version of K5 bf16 composes the plain bf16 CE's
+  steps (with an exact product in place of ``mm``'s bf16 one, which the
+  CPU lacks: then bitwise the plain version).
 """
 
 import contextlib
@@ -129,7 +133,8 @@ def test_train_gate_holds_the_gradients(monkeypatch, faulty):
         assert gate["n_grads"] == len(leaves)
 
 
-@pytest.mark.parametrize("mode", ["--kernels", "--ce-variants", "--scaled"])
+@pytest.mark.parametrize("mode", ["--kernels", "--ce-variants", "--scaled",
+                                  "--spmm-sweep"])
 def test_kernel_modes_need_the_card(mode):
     with pytest.raises(ValueError, match="no CPU mode"):
         bench_main.main([mode, "--device", "cpu"])
@@ -142,3 +147,72 @@ def test_card_modes_raise_without_a_card(argv):
         pytest.skip("a card is present: the mode would run")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench_main.main(argv, spec=TINY)
+
+
+def test_projection_to_10m_is_the_jax_benchs():
+    """``scaled_bench.project_10m`` against the JAX bench's projection
+    (bench/scaled_bench.py:263-276): its keys, its shard counts, and each
+    time scaled by (V_FULL / M) / V_BF16 (the JAX bench rounds to 0.01)."""
+    from bench import scaled_bench as jax_scaled
+    from c2dsr_tpu_torch.bench import scaled_bench
+    assert (scaled_bench.V_FULL, scaled_bench.V_BF16) == (jax_scaled.V_FULL,
+                                                          jax_scaled.V_BF16)
+    ce_ms, rank_ms = 137.913, 11.261
+    rows = scaled_bench.project_10m(ce_ms, rank_ms)
+    assert [r["shards"] for r in rows] == [8, 16, 32]
+    for r in rows:
+        m = r["shards"]
+        scale = (jax_scaled.V_FULL / m) / jax_scaled.V_BF16
+        assert set(r) == {"shards", "vocab_per_device", "classifier",
+                          "ce_fwd_bwd_ms", "full_rank_ms_per_256"}
+        assert r["vocab_per_device"] == jax_scaled.V_FULL // m
+        assert r["classifier"] == "bf16_at_rest"
+        assert r["ce_fwd_bwd_ms"] == pytest.approx(ce_ms * scale, rel=1e-15)
+        assert round(r["ce_fwd_bwd_ms"], 2) == round(
+            ce_ms / 1e3 * 1e3 * scale, 2)
+        assert r["full_rank_ms_per_256"] == pytest.approx(rank_ms * scale,
+                                                          rel=1e-15)
+
+
+def test_k5_bf16_library_version_composes_the_plain_bf16_ce(monkeypatch):
+    """``kernel_bench.ce_bwd_bf16_library`` (and the forward beside it),
+    with an exact f32 product of the bf16 operands in place of ``mm``'s bf16
+    -> f32 one: bitwise the plain bf16 CE's (lse, target logit) and (dh, dW,
+    db), and its gate passes; a version that leaves dlogits unrounded fails
+    the gate."""
+    from c2dsr_tpu_torch.bench import kernel_bench
+    from c2dsr_tpu_torch.ops import fused_ce
+    monkeypatch.setattr(kernel_bench, "mm_bf16_f32",
+                        lambda a, b: a.float() @ b.float())
+    rng = np.random.default_rng(4)
+    N, d, V, n_real = 96, 24, 160, 150
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    h = put(rng.normal(size=(N, d)))
+    w = put(rng.normal(size=(d, V)) * 0.3)
+    bm = fused_ce.mask_bias(put(rng.normal(size=V) * 0.1), n_real)
+    pad = put(rng.normal(size=N))
+    tgt = torch.from_numpy(rng.integers(0, n_real, size=N))
+    dlse, dt = put(rng.normal(size=N)), put(rng.normal(size=N))
+    hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    lse, tlog = kernel_bench.ce_fwd_bf16_library(hb, wb, bm, pad, tgt)
+    want = fused_ce.ce_fwd_plain(h, wb, bm, pad, tgt)
+    assert torch.equal(lse, want[0]) and torch.equal(tlog, want[1])
+    got = kernel_bench.ce_bwd_bf16_library(hb, wb, bm, lse, dlse, dt, tgt)
+    want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt, bf16=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    errs = kernel_bench.check_ce_bwd_bf16_library(h, w, bm, lse, dlse, dt,
+                                                  tgt)
+    assert max(errs.values()) == 0.0
+
+    def unrounded(hb, wb, bm, lse, dlse, dt, tgt):
+        dlog = (torch.exp(hb.float() @ wb.float() + bm - lse[:, None])
+                * dlse[:, None])
+        dlog.scatter_add_(1, tgt[:, None], dt[:, None])
+        return (dlog @ wb.float().T, hb.float().T @ dlog, dlog.sum(0))
+
+    monkeypatch.setattr(kernel_bench, "ce_bwd_bf16_library", unrounded)
+    with pytest.raises(bench_main.timing.GateFailure, match="library"):
+        kernel_bench.check_ce_bwd_bf16_library(h, w, bm, lse, dlse, dt, tgt)

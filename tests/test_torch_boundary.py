@@ -53,6 +53,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "c2dsr_tpu_torch.bench.kernel_bench",
                 "c2dsr_tpu_torch.bench.ce_variants",
                 "c2dsr_tpu_torch.bench.scaled_bench",
+                "c2dsr_tpu_torch.bench.spmm_experiments",
                 "c2dsr_tpu_torch.parallel.comm",
                 "c2dsr_tpu_torch.parallel.distributed",
                 "c2dsr_tpu_torch.parallel.embed",

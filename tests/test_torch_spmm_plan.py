@@ -6,7 +6,8 @@ edges walked in CSR order; a split row's partial rows added in contiguous
 runs, each in segment order, and the runs in order) are within the
 kernels' tolerance of ``spmm_reference`` (itself held against the JAX
 package's SpMM in ``tests/test_torch_spmm.py``), densely and in K6's two
-modes.
+modes; at the plan parameters ``bench/spmm_experiments.py`` sweeps too
+(``heavy_deg``, ``run_rows``).
 
 Tolerance 1e-5 of the largest output: f32 sums of row-normalised terms
 taken in another order (a split row's partials), as on the card.
@@ -33,7 +34,7 @@ def graphs():
     return {"share": share, "specific": specific}
 
 
-def _check_plan(rowptr, tasks, heavy, slots, budget):
+def _check_plan(rowptr, tasks, heavy, slots, budget, run_rows):
     deg = np.diff(rowptr)
     n = deg.size
     np.testing.assert_array_equal(heavy, np.flatnonzero(deg > budget))
@@ -42,7 +43,7 @@ def _check_plan(rowptr, tasks, heavy, slots, budget):
     next_row, next_slot = 0, 0
     for r0, y, e0, e1 in tasks.tolist():
         if y > 0:                                  # a run of whole rows
-            assert r0 == next_row and y <= spmm.RUN_ROWS
+            assert r0 == next_row and y <= run_rows
             assert e0 == rowptr[r0] and e1 == rowptr[r0 + y]
             assert e1 - e0 <= budget and (deg[r0:r0 + y] <= budget).all()
             next_row = r0 + y
@@ -111,26 +112,45 @@ def emulate(g, h, flag=None, mode="dense"):
 
 @pytest.mark.parametrize("which", ["share", "specific"])
 @pytest.mark.parametrize("budget", [1, 3, 8, 64, 128])
-def test_plan_covers_each_edge_once_in_order(graphs, which, budget):
-    g = spmm.device_graph(graphs[which], "cpu", heavy_deg=budget)
+@pytest.mark.parametrize("run_rows", [8, 16, 32])
+def test_plan_covers_each_edge_once_in_order(graphs, which, budget,
+                                             run_rows):
+    """Every task at most ``run_rows`` whole rows and ``budget`` edges (the
+    sweep's plan parameters, bench/spmm_experiments.py)."""
+    g = spmm.device_graph(graphs[which], "cpu", heavy_deg=budget,
+                          run_rows=run_rows)
     for csr in (g, g.t):
         _check_plan(csr.rowptr.numpy(), csr.tasks.numpy(),
-                    csr.heavy_rows.numpy(), csr.heavy_slots.numpy(), budget)
+                    csr.heavy_rows.numpy(), csr.heavy_slots.numpy(), budget,
+                    run_rows)
         assert csr.n_part == int(csr.heavy_slots[-1])
+        assert (csr.heavy_deg, csr.run_rows) == (budget, run_rows)
 
 
 def test_plan_of_a_graph_without_edges():
     tasks, heavy, slots = spmm.plan(np.zeros(70, np.int32), 64)
     np.testing.assert_array_equal(tasks[:, 1], [32, 32, 5])
     assert heavy.size == 0 and slots.tolist() == [0]
+    np.testing.assert_array_equal(
+        spmm.plan(np.zeros(70, np.int32), 64, run_rows=8)[0][:, 1],
+        [8] * 8 + [5])
     with pytest.raises(ValueError, match="heavy_deg"):
         spmm.plan(np.zeros(3, np.int32), 0)
 
 
+@pytest.mark.parametrize("run_rows", [0, 33])
+def test_plan_refuses_runs_past_a_warp(run_rows):
+    """The kernel reads a task's row ends one a lane of a warp."""
+    with pytest.raises(ValueError, match="run_rows"):
+        spmm.plan(np.zeros(3, np.int32), 8, run_rows)
+
+
 @pytest.mark.parametrize("budget", [3, spmm_cuda.HEAVY_DEG])
 @pytest.mark.parametrize("transpose", [False, True])
-def test_emulated_k1_matches_plain(graphs, budget, transpose):
-    g = spmm.device_graph(graphs["share"], "cpu", heavy_deg=budget)
+@pytest.mark.parametrize("run_rows", [8, 16, 32])
+def test_emulated_k1_matches_plain(graphs, budget, transpose, run_rows):
+    g = spmm.device_graph(graphs["share"], "cpu", heavy_deg=budget,
+                          run_rows=run_rows)
     if transpose:
         g = g.t
     assert g.heavy_rows.numel() > 0
