@@ -19,8 +19,8 @@ that the differences say what each operation costs:
   K4's tensor-core floor.
 
 The kernels are K4's template at DT 128 (``csrc/ce_variants.cu``), run at
-``ce_fwd_plan``'s split count.  :func:`variant_plain` is each variant's
-plain PyTorch version.  The TPU-only (bn, bv) sweep of the JAX script does
+``fused_ce_cuda.plan_fwd``'s split count.  :func:`variant_plain` is each
+variant's plain PyTorch version.  The TPU-only (bn, bv) sweep of the JAX script does
 not carry over.
 """
 
@@ -83,7 +83,7 @@ def ce_fwd_variant(variant: str, h: torch.Tensor, w: torch.Tensor,
     tgt = targets.to(torch.int32).contiguous()
     lse = torch.empty(N, dtype=torch.float32, device=h.device)
     tlog = torch.empty_like(lse)
-    splits, _ = fused_ce_cuda._plan("ce_fwd_plan", N, d, V)
+    splits = fused_ce_cuda.plan_fwd(N, d, V, False)
     ws = torch.empty(2 * V * d + 3 * splits * N, dtype=torch.float32,
                      device=h.device)
     err = _fn()(VARIANTS.index(variant), h.data_ptr(), w.data_ptr(),

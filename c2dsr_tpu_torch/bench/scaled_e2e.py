@@ -127,6 +127,7 @@ def recording(calls: List):
     ``bf16`` pass through unrecorded); the wrappers still launch and
     count."""
     from c2dsr_tpu_torch.ops import fused_ce_cuda, segsum_cuda, spmm_cuda
+    from c2dsr_tpu_torch.ops import wrappers
     names = ((spmm_cuda, "spmm_csr"), (fused_ce_cuda, "ce_fwd"),
              (fused_ce_cuda, "ce_bwd"), (segsum_cuda, "segsum"))
     saved = []
@@ -139,14 +140,14 @@ def recording(calls: List):
             return out
 
         # the wrapper counts its launches on its module's name: carry them
-        rec.launches = orig.launches
+        wrappers.carry_counters(orig, rec)
         setattr(mod, name, rec)
         saved.append((mod, name, orig))
     try:
         yield
     finally:
         for mod, name, orig in saved:
-            orig.launches = getattr(mod, name).launches
+            wrappers.carry_counters(getattr(mod, name), orig)
             setattr(mod, name, orig)
 
 

@@ -30,29 +30,21 @@ constexpr float kLn2 = 0.6931471805599453f;
 // has a compile-time trip count and no branch.  A warp holds kMt m-tiles
 // of 16 X rows, so that each B fragment it reads feeds 3·kMt MMAs; a stage
 // holds the big and the small part of a Y tile and 4·kBy floats of
-// per-entity values.  K4 (up to DT 256; wider rows run its wide kernel,
-// ce.cu) and K5 share it.
-//
-// DT 512, K5's widest, is cut to fit: 128 resident X rows would take 264 KB of shared
-// memory (a block has 227 KB), and K5's dh kernel would keep a warp's
-// 16 x 512 output in registers (256 floats a thread, beyond the 255 a
-// thread may have).  So at DT 512 a block has 4 warps and 64 resident X
-// rows, streams Y in tiles of 8 (198 KB in all), and K5 splits its output
-// columns over kParts = 2 blocks, each of which recomputes its logit tile
-// (1.5x one pass's MMA work).
+// per-entity values.  K4 and K5 share it up to DT 256; wider rows run
+// their wide kernels (ce.cu) or K5's cluster kernels (ce_cluster.cu): at
+// DT 512, 128 resident X rows would take 264 KB of shared memory (a block
+// has 227 KB), and K5's dh kernel would keep a warp's 16 x 512 output in
+// registers (256 floats a thread, beyond the 255 a thread may have).
 template <int DT>
 struct BwdCfg {
-  static constexpr int kThreads = DT <= 256 ? 256 : 128;
+  static_assert(DT <= 256, "the resident tiles stop at DT 256");
+  static constexpr int kThreads = 256;
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kMt = DT <= 128 ? 2 : 1;      // m-tiles a warp
   static constexpr int kBx = 16 * kMt * kWarps;      // resident entities
-  static constexpr int kBy = DT <= 128 ? 32 : DT <= 256 ? 16 : 8;
-                                                     // streamed entities
+  static constexpr int kBy = DT <= 128 ? 32 : 16;    // streamed entities
   static constexpr int kStages = DT <= 64 ? 3 : 2;   // cp.async ring depth
   static constexpr int kStage = 2 * kBy * (DT + 4) + 4 * kBy;  // floats
-  static constexpr int kCols = DT <= 256 ? DT : DT / 2;  // K5's output
-                                                         // columns a block
-  static constexpr int kParts = DT / kCols;
 };
 
 template <int DT>

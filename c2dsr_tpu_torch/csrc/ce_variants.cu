@@ -5,7 +5,7 @@
 // port's bench (c2dsr_tpu_torch/bench/ce_variants.py), never in training,
 // and live in their own library so that the production one (ce.cu) does
 // not grow.  Each call runs the production pre-pass (Wᵀ's TF32 split), the
-// variant's kernel at the split count the caller passes (ce_fwd_plan's),
+// variant's kernel at the split count the caller passes (plan_fwd's),
 // and a merge of the splits in split order: base, nomatch and bf16exp by
 // the production merge, exp2 (lse in log2 units, pad already scaled) and
 // matmulonly (a plain sum of the partial row sums) by their own.  Bound

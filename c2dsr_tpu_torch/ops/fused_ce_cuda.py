@@ -1,5 +1,5 @@
-"""Wrappers of the fused CE kernels (``csrc/ce.cu``): K4 :func:`ce_fwd` and
-K5 :func:`ce_bwd` (a dh kernel and a dW/db kernel).
+"""Wrappers of the fused CE kernels (``csrc/ce.cu``, ``csrc/ce_cluster.cu``):
+K4 :func:`ce_fwd` and K5 :func:`ce_bwd` (a dh kernel and a dW/db kernel).
 
 Replace the fused linear + softmax CE Pallas kernels of the JAX package
 (``c2dsr_tpu/ops/fused_ce.py``: ``_fwd_kernel`` for the forward;
@@ -8,39 +8,51 @@ backward, whose split the TPU needed only when dh outgrew VMEM).
 
 What bounds them on an H100: operations, which both run on the tensor
 cores with products at f32 accuracy (3xTF32: each operand split into a
-TF32 part and its remainder, three products a step).  The tensor cores'
-accumulator truncates its adds, so no long sum stays in it: each k-step of
-a logit is added in f32, and the backward's products sum at most 2,560
-vocab columns (dh) or 1,280 rows (dW) a split there, the splits added in
-f32 (tests/test_torch_tf32.py emulates the error of each scheme).  The
-forward does 2·N·V·d FLOPs: h stays resident, tiles of Wᵀ (split once by
-a pre-pass) stream through a ``cp.async`` ring, and each warp keeps a
-running (max, sum-exp) per row over one of a few vocab splits; a small
-kernel merges the splits in order.  The backward does 4·N·V·d (dh and dW) plus the logits, recomputed by each of
-its two kernels, with the same operand plan over (resident, streamed)
-operands, h and Wᵀ for dh, Wᵀ and h for dW; the vocab or row splits of its
-grid are summed in order by a small kernel.  No logit reaches device
-memory, and each output element is written once, with no atomics, for any
-N: the results are bitwise repeatable.  Shapes: d % 8 == 0, V % 4 == 0,
-W under 2 GiB (d·V·4 < 2^31, or d·V·2 in the bf16 instantiations: the JAX
-package's limit).  Above d 256 K4 runs its wide kernel (``csrc/ce.cu``),
-which streams h and Wᵀ in chunks of 32 columns, and K5's blocks keep 64
-rows of h resident and split the output columns over two blocks
-(``csrc/ce_fwd.cuh``); above d 512 K5 runs its wide kernels too, which
-split the output columns over ceil(d / 256) blocks, each of which
-recomputes the logits.
+TF32 part and its remainder, three products a step, 165 TFLOP/s at most).
+The tensor cores' accumulator truncates its adds, so no long sum stays in
+it: each k-step of a logit is added in f32, and the backward's products sum
+at most 2,560 vocab columns (dh) or 1,280 rows (dW) a split there, the
+splits added in f32 (tests/test_torch_tf32.py emulates the error of each
+scheme).  The forward does 2·N·V·d FLOPs: h stays resident, tiles of Wᵀ
+(split once by a pre-pass) stream through a ``cp.async`` ring, and each
+warp keeps a running (max, sum-exp) per row over one of a few vocab
+splits; a small kernel merges the splits in order.  Above d 256 K4 runs its
+wide kernel, which streams h and Wᵀ in chunks of 32 columns.
+
+The backward does 4·N·V·d FLOPs a kernel (the logits, then one product)
+over (resident, streamed) operands, h and Wᵀ for dh, Wᵀ and h for dW; the
+vocab or row splits of its grid are summed in order by a small kernel.  Its
+design follows d alone (:func:`bwd_route`): up to d 256 the narrow kernels
+of ``ce.cu`` (the whole row of h resident); up to 2,048 the cluster kernels
+of ``ce_cluster.cu``, a thread-block cluster of c = ceil(d / 256) blocks,
+each with a slice of d, whose partial logits meet in distributed shared
+memory, added in rank order, so each logit is computed once (where
+``ce.cu``'s wide kernels recomputed them for each 256 output columns),
+bound by operations: the tensor cores' 3xTF32 rate (165 TFLOP/s) in f32,
+their bf16 rate (989 TFLOP/s, m16n8k16 MMAs) in bf16.  Past 2,048
+``ce.cu``'s wide kernels.  Every plan is made here, the kernels' split
+counts (:func:`plan_fwd`, :func:`plan_bwd`) and the cluster's slices
+(:func:`cluster_plan`), by one cost model (:func:`best_splits`) from the
+blocks or clusters the card holds at once, which the C side reports; a
+plan the card cannot launch raises.
+No logit reaches device memory, and each output element is written once,
+with no atomics, for any N: the results are bitwise repeatable.  Shapes:
+d % 8 == 0, V % 4 == 0, W under 2 GiB (d·V·4 < 2^31, or d·V·2 in the bf16
+instantiations: the JAX package's limit).
 
 ``bf16=True`` (``compute_dtype="bfloat16"``, and always for a bf16 W)
 selects the bf16 instantiations, the JAX kernels' numerics: every product
-of bf16-rounded operands (h, W and the dlogits) summed in f32, by one TF32
-MMA a k-step where 3xTF32 takes three.  A pre-pass writes h and Wᵀ in bf16
-(W read once, at two bytes an element where it is bf16), and the kernels
-stage the bf16 rows.  Their launches count apart (``launches_bf16``).
+of bf16-rounded operands (h, W and the dlogits) summed in f32: by one TF32
+MMA a k-step of the bf16 values in ``ce.cu``, by bf16 MMAs (m16n8k16) in
+the cluster kernels.  A pre-pass writes h and Wᵀ in bf16 (W read once, at
+two bytes an element where it is bf16), and the kernels stage the bf16
+rows.  Their launches count apart (``launches_bf16``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -50,25 +62,12 @@ from c2dsr_tpu_torch.kernels import build
 
 
 @functools.lru_cache(maxsize=None)
-def _fn(name: str, n_ptr: int, n_int: int = 4):
-    f = getattr(build.library("ce"), name)
+def _fn(name: str, n_ptr: int, n_int: int = 4, lib: str = "ce"):
+    f = getattr(build.library(lib), name)
     f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                   + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
-
-
-@functools.lru_cache(maxsize=64)
-def _plan(name: str, N: int, d: int, V: int) -> Tuple[int, int]:
-    """The split counts ``ce_fwd_plan`` or ``ce_bwd_plan`` (ce.cu) choose."""
-    f = getattr(build.library("ce"), name)
-    f.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    out = (ctypes.c_int * 2)()
-    err = f(N, d, V, ctypes.addressof(out))
-    if err != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {err}")
-    return out[0], out[1]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -78,9 +77,251 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 D_MULTIPLE = 8       # the widths the kernels take (ops/fused_ce pads to it)
-FWD_RESIDENT = 256   # the widest K4's and K5's resident-X kernels take
-BWD_RESIDENT = 512   # (ce.cu kFwdResident, kBwdResident); wider rows run
-                     # the wide kernels
+RESIDENT = 256       # the widest d of K4's and K5's resident-X kernels
+                     # (ce.cu kResident): ce_fwd_f32 / ce_bwd_f32 run the
+                     # wide kernels above it
+CLUSTER_MAX = 2048   # the widest d K5 runs on the cluster kernels
+                     # (csrc/ce_cluster.cu); the wide kernels above
+CLUSTER_RANKS = 8    # blocks a cluster at most (the portable cluster size)
+CLUSTER_SLICE = 256  # columns of d a block at most
+CLUSTER_WIDTHS = (160, 192, 224, 256)   # the compile-time slice widths
+CLUSTER_ROWS = 64    # X rows a cluster (ce_cluster.cu kCBx)
+CLUSTER_TILE = 32    # Y entities a tile (kCBy)
+EXCHANGE_LD = CLUSTER_TILE + 8           # an exchange row, floats (kXld)
+WIDE_ROWS = 64       # X rows a block of ce.cu's wide kernels (kWBx)
+WIDE_FWD_TILE = 64   # K4's Y entities a tile there (kWFwdBy)
+WIDE_BWD_TILE = 32   # K5's (kWBwdBy)
+WIDE_COLS = 256      # K5's output columns a part there (kWCols)
+SMEM_LIMIT = 232448  # shared memory a block may take on an H100
+
+# The longest vocab chain of K5's dh pass a split, in columns.  Each split
+# sums its columns in one tensor-core accumulator, whose adds truncate:
+# once the target's column has put dt·w_target into it, every later MMA
+# drops part of an ulp of that, so the error grows with the chain.  FK's
+# plans stay under it at d 128 (13 and 33 splits of 2,368 and 1,120
+# columns); at V 501,760 a plan of 33 splits of 15,232 columns left dh
+# 1.76e-4 of its largest element from float64 where the plain f32 version
+# lies 1.9e-5 (an H100, the composed step at 1M item rows).
+MAX_CHAIN = 2560
+# The longest row chain of K5's dW/db pass a split, in rows.  At the port's
+# --kernels shape (N 10,240, V 65,536) one split left dW 3.67e-5 of its
+# largest element from float64 (an H100); emulated on those inputs, chains
+# of 2,560 rows end 1.1e-5 from float64 and chains of 1,280 4.1e-6
+# (tests/test_torch_tf32.py).
+MAX_ROW_CHAIN = 1280
+
+
+def bwd_route(d: int) -> str:
+    """K5's design at width d: "narrow" (ce.cu's resident kernels, d <=
+    RESIDENT), "cluster" (csrc/ce_cluster.cu, up to CLUSTER_MAX) or
+    "wide" (ce.cu's wide kernels).  The route depends on d alone."""
+    return ("narrow" if d <= RESIDENT else "cluster" if d <= CLUSTER_MAX
+            else "wide")
+
+
+def cluster_slices(d: int) -> Tuple[int, int]:
+    """(c, w): the cluster's c = ceil(d / 256) blocks and the columns of d
+    each takes, w the smallest multiple of 8 with c·w >= d (the last block
+    takes the rest: d 264 is 136 + 128)."""
+    c = -(-d // CLUSTER_SLICE)
+    return c, -(-d // (c * D_MULTIPLE)) * D_MULTIPLE
+
+
+def slice_width(w: int) -> int:
+    """The compile-time slice width (CLUSTER_WIDTHS) that computes w
+    columns (ce_cluster.cu slice_width)."""
+    return next(ws for ws in CLUSTER_WIDTHS if w <= ws)
+
+
+def cluster_smem(w: int, bf16: bool) -> int:
+    """A cluster block's shared memory in bytes at slice width w
+    (ce_cluster.cu ``Cluster<WS, kBf>::kSmem``): the resident X slice, two
+    ring stages of the Y slice (f32: big and small parts) and 4 floats an
+    entity, two exchange tiles (the partial logits, and the owned rows'
+    dlogits or the next tile's partials)."""
+    ws = slice_width(w)
+    elt, ld, parts = (2, ws + 8, 1) if bf16 else (4, ws + 4, 2)
+    stage = elt * parts * CLUSTER_TILE * ld + 16 * CLUSTER_TILE
+    return (elt * CLUSTER_ROWS * ld + 2 * stage
+            + 2 * 4 * CLUSTER_ROWS * EXCHANGE_LD)
+
+
+def resident_tile(d: int) -> Tuple[int, int, int]:
+    """(DT, X rows a block, Y entities a tile) of ce.cu's resident kernels
+    at width d <= RESIDENT (ce_fwd.cuh ``BwdCfg``): the narrowest compile
+    width DT >= d, 8 warps of 32 rows up to DT 128, of 16 at 256."""
+    dt = next(x for x in (64, 128, 256) if d <= x)
+    return (dt, 256, 32) if dt <= 128 else (dt, 128, 16)
+
+
+def best_splits(x_tiles: int, y_tiles: int, slots: int, tile_us: float,
+                out_bytes: float, min_splits: int = 1) -> int:
+    """The split count of one pass over X tiles x Y tiles that takes the
+    least estimated time: whole waves of ``slots`` resident blocks (or
+    clusters), each Y tile costing tile_us, plus the merge's read of every
+    split's partial (out_bytes each, at about 3 TB/s); at least min_splits
+    where there are as many Y tiles.  Every plan of K4 and K5 takes it."""
+    lo = min(min_splits, y_tiles)
+    best, best_us = lo, float("inf")
+    for s in range(lo, min(y_tiles, max(min_splits, 128)) + 1):
+        per = -(-y_tiles // s)
+        if -(-y_tiles // per) != s:         # an empty split: same as fewer
+            continue
+        waves = -(-(x_tiles * s) // slots)
+        us = waves * per * tile_us + (s * out_bytes / 3e6 if s > 1 else 0.0)
+        if us < best_us:
+            best, best_us = s, us
+    return best
+
+
+def _k5_splits(N: int, d: int, V: int, slots: int, tile_us: float, bx: int,
+               by: int, parts: int = 1) -> Tuple[int, int]:
+    """K5's (dh vocab splits, dW row splits) over X tiles of bx entities
+    (``parts`` blocks each) and Y tiles of by: at most MAX_CHAIN vocab
+    columns and MAX_ROW_CHAIN rows a split, the splits' partials merged in
+    f32 in order."""
+    v_tiles, n_tiles = -(-V // by), -(-N // by)
+    split_h = best_splits(parts * -(-N // bx), v_tiles, slots, tile_us,
+                          4.0 * N * d, -(-V // MAX_CHAIN))
+    split_w = best_splits(parts * -(-V // bx), n_tiles, slots, tile_us,
+                          4.0 * (d + 1) * V,
+                          -(-n_tiles // (MAX_ROW_CHAIN // by)))
+    return split_h, split_w
+
+
+# A tile's MMA work in the plans' cost model: 6 TF32 FLOPs a multiply-add
+# in f32 (three TF32 terms), 2 in the bf16 instantiations; at an assumed
+# 2 TFLOP/s an SM in the resident and cluster kernels and 1 in the wide
+# ones, which the L2's reads hold to about half that rate.
+def _flops(bf16: bool) -> float:
+    return 2.0 if bf16 else 6.0
+
+
+def fwd_splits(N: int, d: int, V: int, bf16: bool, slots: int) -> int:
+    """K4's vocab splits at N rows, width d and V columns, given the blocks
+    the card holds at once (``slots``): the resident kernel's up to
+    RESIDENT, the wide one's above."""
+    if d <= RESIDENT:
+        dt, bx, by = resident_tile(d)
+        return best_splits(-(-N // bx), -(-V // by), slots,
+                           _flops(bf16) * dt * bx * by / 2e6, 12.0 * N)
+    return best_splits(-(-N // WIDE_ROWS), -(-V // WIDE_FWD_TILE), slots,
+                       _flops(bf16) * d * WIDE_ROWS * WIDE_FWD_TILE / 1e6,
+                       12.0 * N)
+
+
+def bwd_splits(N: int, d: int, V: int, bf16: bool, slots: int,
+               wide: bool = False) -> Tuple[int, int]:
+    """K5's (dh vocab splits, dW row splits) on ce.cu's kernels: the
+    resident ones up to RESIDENT (unless ``wide``), the wide ones above,
+    whose c = ceil(d / 256) output parts each recompute the logits."""
+    if d <= RESIDENT and not wide:
+        dt, bx, by = resident_tile(d)
+        return _k5_splits(N, d, V, slots,
+                          _flops(bf16) * 2 * dt * bx * by / 2e6, bx, by)
+    parts = -(-d // WIDE_COLS)
+    return _k5_splits(N, d, V, slots,
+                      _flops(bf16) * (d + WIDE_COLS) * WIDE_ROWS
+                      * WIDE_BWD_TILE / 1e6, WIDE_ROWS, WIDE_BWD_TILE,
+                      parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """A launch of K5's cluster kernels: c blocks of w columns (compile
+    width ws, smem bytes a block), split_h vocab splits of the dh pass and
+    split_w row splits of the dW pass."""
+    c: int
+    w: int
+    ws: int
+    split_h: int
+    split_w: int
+    smem: int
+
+
+def cluster_plan(N: int, d: int, V: int, bf16: bool, slots: int
+                 ) -> ClusterPlan:
+    """The cluster kernels' plan at N rows, width d and V columns, given
+    the clusters the card holds at once (``slots``).  Each split keeps
+    ce.cu's chains: at most MAX_CHAIN vocab columns for dh and
+    MAX_ROW_CHAIN rows for dW, their partials merged in f32."""
+    if not RESIDENT < d <= CLUSTER_MAX or d % D_MULTIPLE:
+        raise ValueError(f"the cluster kernels take 256 < d <= "
+                         f"{CLUSTER_MAX}, d % 8 == 0; got d={d}")
+    if slots < 1:
+        raise RuntimeError(f"no cluster of K5's kernels fits on the card "
+                           f"at d={d} (cudaOccupancyMaxActiveClusters 0)")
+    c, w = cluster_slices(d)
+    ws = slice_width(w)
+    # a block's work on a Y tile: the slice's logits and its share of the
+    # product
+    split_h, split_w = _k5_splits(
+        N, d, V, slots,
+        _flops(bf16) * 2 * ws * CLUSTER_ROWS * CLUSTER_TILE / 2e6,
+        CLUSTER_ROWS, CLUSTER_TILE)
+    return ClusterPlan(c, w, ws, split_h, split_w, cluster_smem(w, bf16))
+
+
+@functools.lru_cache(maxsize=64)
+def _slots(design: int, d: int, bf16: bool) -> int:
+    """Blocks of ce.cu's kernels the card holds at once (``ce_slots``):
+    design 0 the resident kernels at width d, 1 K4's wide kernel, 2 K5's
+    wide kernels."""
+    f = build.library("ce").ce_slots
+    f.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = f(design, d, int(bf16), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"ce_slots({design}, d={d}) failed: CUDA error "
+                           f"{err}")
+    return out.value
+
+
+def plan_fwd(N: int, d: int, V: int, bf16: bool) -> int:
+    """:func:`fwd_splits` with the card's own slots."""
+    return fwd_splits(N, d, V, bf16,
+                      _slots(0 if d <= RESIDENT else 1, d, bf16))
+
+
+def plan_bwd(N: int, d: int, V: int, bf16: bool, wide: bool = False
+             ) -> Tuple[int, int]:
+    """:func:`bwd_splits` with the card's own slots."""
+    narrow = d <= RESIDENT and not wide
+    return bwd_splits(N, d, V, bf16, _slots(0 if narrow else 2, d, bf16),
+                      wide)
+
+
+@functools.lru_cache(maxsize=64)
+def _cluster_slots(c: int, w: int, bf16: bool) -> int:
+    """Clusters of c blocks at slice width w the card holds at once
+    (``ce_bwd_cluster_slots``: cudaOccupancyMaxActiveClusters)."""
+    f = build.library("ce_cluster").ce_bwd_cluster_slots
+    f.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = f(c, w, int(bf16), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"ce_bwd_cluster_slots(c={c}, w={w}) failed: "
+                           f"CUDA error {err}")
+    return out.value
+
+
+def cluster_smem_card(w: int, bf16: bool) -> int:
+    """The cluster kernels' own count of a block's shared memory at slice
+    width w (``ce_bwd_cluster_smem``), against which the card checks
+    :func:`cluster_smem`."""
+    f = build.library("ce_cluster").ce_bwd_cluster_smem
+    f.argtypes = [ctypes.c_int] * 2
+    f.restype = ctypes.c_int
+    return f(w, int(bf16))
+
+
+def plan_cluster(N: int, d: int, V: int, bf16: bool) -> ClusterPlan:
+    """:func:`cluster_plan` with the card's own slots; raises where no
+    cluster fits."""
+    c, w = cluster_slices(d)
+    return cluster_plan(N, d, V, bf16, _cluster_slots(c, w, bf16))
 
 
 def check_shape(name: str, N: int, d: int, V: int, w_bytes: int = 4
@@ -133,7 +374,7 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
     """(lse, target logit) per row of softmax over [h·w + b_masked | pad],
     by K4.  h [N, d], b_masked [V], pad [N] f32; w [d, V] f32, or bf16 (the
     bf16 instantiation then, whatever ``bf16`` says); targets [N] int (a
-    target >= V gives a target logit of 0).  Above FWD_RESIDENT the wide
+    target >= V gives a target logit of 0).  Above RESIDENT the wide
     kernel runs."""
     bf16 = bf16 or w.dtype == torch.bfloat16
     N, d, V = _check("ce_fwd", h, w, [(h, tuple(h.shape)),
@@ -144,7 +385,7 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
     lse = torch.empty(N, dtype=torch.float32, device=h.device)
     tlog = torch.empty_like(lse)
     if bf16:
-        splits, _ = _plan("ce_fwd_plan_bf16", N, d, V)
+        splits = plan_fwd(N, d, V, True)
         # h and Wᵀ in bf16, then the splits' partials
         ws = torch.empty((N + V) * d // 2 + 3 * splits * N,
                          dtype=torch.float32, device=h.device)
@@ -158,7 +399,7 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
                                f"{err}")
         ce_fwd.launches_bf16 += 1
         return lse, tlog
-    splits, _ = _plan("ce_fwd_plan", N, d, V)
+    splits = plan_fwd(N, d, V, False)
     # Wᵀ's TF32 split, then the splits' (max, sum, target) partials
     ws = torch.empty(2 * V * d + 3 * splits * N, dtype=torch.float32,
                      device=h.device)
@@ -183,7 +424,10 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
     """(dh, dw, db) of :func:`ce_fwd` given the gradients dlse, dt of its
     two outputs, by K5 (its dh kernel, then its dW/db kernel); with
     ``bf16`` (or a bf16 w) by its bf16 instantiation, dw in w's dtype.
-    Above BWD_RESIDENT the wide kernels run."""
+    The design follows d (:func:`bwd_route`): the narrow kernels up to
+    RESIDENT, the cluster kernels up to CLUSTER_MAX (their launches
+    counted also in ``launches_cluster`` / ``launches_cluster_bf16``), the
+    wide kernels above.  A plan or launch the card refuses raises."""
     bf16 = bf16 or w.dtype == torch.bfloat16
     n = (h.shape[0],)
     N, d, V = _check("ce_bwd", h, w, [(h, tuple(h.shape)),
@@ -194,50 +438,74 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
     dh = torch.empty_like(h)
     dw = torch.empty(w.shape, dtype=torch.float32, device=h.device)
     db = torch.empty_like(b_masked)
-    if bf16:
-        split_h, split_w = _plan("ce_bwd_plan_bf16", N, d, V)
-        # h and Wᵀ in bf16, then each pass's partials
-        floats = ((N + V) * d // 2
-                  + (split_h * N * d if split_h > 1 else 0)
-                  + (split_w * (d + 1) * V if split_w > 1 else 0))
-        ws = torch.empty(floats, dtype=torch.float32, device=h.device)
-        err = _fn("ce_bwd_bf16", 11, 6)(
-            h.data_ptr(), w.data_ptr(), b_masked.data_ptr(), lse.data_ptr(),
-            dlse.data_ptr(), dt.data_ptr(), tgt.data_ptr(), dh.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
-            int(w.dtype == torch.bfloat16), split_h, split_w, N, d, V,
-            torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"ce_bwd (bf16) launch failed: CUDA error "
-                               f"{err}")
-        ce_bwd.launches_bf16 += 1
-        return dh, dw.to(w.dtype), db
-    split_h, split_w = _plan("ce_bwd_plan", N, d, V)
-    err = _bwd_f32("ce_bwd_f32", (split_h, split_w), h, w, b_masked, lse,
-                   dlse, dt, tgt, dh, dw, db)
+    cluster = bwd_route(d) == "cluster"
+    if cluster:
+        plan = plan_cluster(N, d, V, bf16)
+        splits, extra = (plan.split_h, plan.split_w), (plan.c, plan.w)
+        entry = "ce_bwd_cluster_bf16" if bf16 else "ce_bwd_cluster_f32"
+    else:
+        splits = plan_bwd(N, d, V, bf16)
+        extra, entry = (), "ce_bwd_bf16" if bf16 else "ce_bwd_f32"
+    run = _bwd_bf16 if bf16 else _bwd_f32
+    err = run(entry, splits, h, w, b_masked, lse, dlse, dt, tgt, dh, dw, db,
+              extra)
     if err != 0:
-        raise RuntimeError(f"ce_bwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"ce_bwd{' (bf16)' if bf16 else ''} launch "
+                           f"failed ({entry}): CUDA error {err}")
+    if bf16:
+        ce_bwd.launches_bf16 += 1
+        ce_bwd.launches_cluster_bf16 += cluster
+        return dh, dw.to(w.dtype), db
     ce_bwd.launches += 1
+    ce_bwd.launches_cluster += cluster
     return dh, dw, db
 
 
 ce_bwd.launches = 0
 ce_bwd.launches_bf16 = 0
+ce_bwd.launches_cluster = 0
+ce_bwd.launches_cluster_bf16 = 0
+
+
+def _library(entry: str) -> str:
+    return "ce_cluster" if entry.startswith("ce_bwd_cluster") else "ce"
 
 
 def _bwd_f32(entry: str, splits, h, w, b_masked, lse, dlse, dt, tgt, dh, dw,
-             db) -> int:
-    """Runs the f32 backward's C ``entry`` (``ce_bwd_f32``, or
-    ``ce_bwd_wide_f32``, the wide kernels at any width, which
-    ``chip_smoke.py`` times beside the resident ones at d 512) with
-    ``splits`` from its plan; returns its CUDA error code."""
+             db, cluster=()) -> int:
+    """Runs the f32 backward's C ``entry`` with ``splits`` from its plan:
+    ``ce_bwd_f32`` (ce.cu's kernels by d: the resident ones up to
+    RESIDENT, the wide ones above; the port runs it outside the cluster's
+    widths), ``ce_bwd_wide_f32`` (the wide kernels at any width, which
+    ``chip_smoke.py`` times beside the cluster kernels) or
+    ``ce_bwd_cluster_f32`` with ``cluster`` = (c, w).  Returns its CUDA
+    error code."""
     (split_h, split_w), (N, d), V = splits, h.shape, w.shape[1]
     # Wᵀ and its TF32 split, h's split, then each pass's partials
     floats = (3 * V * d + 2 * N * d + (split_h * N * d if split_h > 1 else 0)
               + (split_w * (d + 1) * V if split_w > 1 else 0))
     ws = torch.empty(floats, dtype=torch.float32, device=h.device)
-    return _fn(entry, 11, 5)(
+    return _fn(entry, 11, 5 + len(cluster), _library(entry))(
         h.data_ptr(), w.data_ptr(), b_masked.data_ptr(), lse.data_ptr(),
         dlse.data_ptr(), dt.data_ptr(), tgt.data_ptr(), dh.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), ws.data_ptr(), split_h, split_w, N, d,
-        V, torch.cuda.current_stream().cuda_stream)
+        dw.data_ptr(), db.data_ptr(), ws.data_ptr(), *cluster, split_h,
+        split_w, N, d, V, torch.cuda.current_stream().cuda_stream)
+
+
+def _bwd_bf16(entry: str, splits, h, w, b_masked, lse, dlse, dt, tgt, dh,
+              dw, db, cluster=()) -> int:
+    """The bf16 instantiation's C ``entry`` (``ce_bwd_bf16``, ce.cu's
+    kernels by d, or ``ce_bwd_cluster_bf16`` with ``cluster`` = (c, w)), as
+    :func:`_bwd_f32`; dw comes back f32."""
+    (split_h, split_w), (N, d), V = splits, h.shape, w.shape[1]
+    # h and Wᵀ in bf16, then each pass's partials
+    floats = ((N + V) * d // 2
+              + (split_h * N * d if split_h > 1 else 0)
+              + (split_w * (d + 1) * V if split_w > 1 else 0))
+    ws = torch.empty(floats, dtype=torch.float32, device=h.device)
+    return _fn(entry, 11, 6 + len(cluster), _library(entry))(
+        h.data_ptr(), w.data_ptr(), b_masked.data_ptr(), lse.data_ptr(),
+        dlse.data_ptr(), dt.data_ptr(), tgt.data_ptr(), dh.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
+        int(w.dtype == torch.bfloat16), *cluster, split_h, split_w, N, d, V,
+        torch.cuda.current_stream().cuda_stream)

@@ -2,7 +2,8 @@
 
 Each wrapper launches one hand-written kernel on a CUDA tensor and counts
 its launches (``launches``, and ``launches_bf16`` for its bf16
-instantiations).  ``bench/gates.plain_versions`` swaps every one of them
+instantiations; K5 also ``launches_cluster`` and ``launches_cluster_bf16``
+for those of its cluster kernels).  ``bench/gates.plain_versions`` swaps every one of them
 for its plain version; ``capture.py`` captures only while every one is in
 place (:func:`kernels_routed`), and adds a graph's launches to these
 counters at each replay.  Both read this list, so a wrapper added here is
@@ -23,8 +24,18 @@ WRAPPERS = ((spmm_cuda, "spmm_csr"), (spmm_cuda, "spmm_csr_flagged"),
             (fused_ce_cuda, "ce_fwd"), (fused_ce_cuda, "ce_bwd"),
             (segsum_cuda, "segsum"))
 _KERNELS = tuple(getattr(mod, name) for mod, name in WRAPPERS)
-_COUNTERS = [(f, a) for f in _KERNELS for a in ("launches", "launches_bf16")
-             if hasattr(f, a)]
+COUNTERS = ("launches", "launches_bf16", "launches_cluster",
+            "launches_cluster_bf16")
+_COUNTERS = [(f, a) for f in _KERNELS for a in COUNTERS if hasattr(f, a)]
+
+
+def carry_counters(src: Any, dst: Any) -> None:
+    """Copy each launch counter of ``src`` onto ``dst``.  A wrapper adds to
+    its counters under its module's name, so a recorder that stands there
+    in its place carries them in, and back to the wrapper when it leaves."""
+    for a in COUNTERS:
+        if hasattr(src, a):
+            setattr(dst, a, getattr(src, a))
 
 
 def launch_counters() -> List[Tuple[Any, str]]:

@@ -26,7 +26,10 @@ Phases (any failure exits non-zero without the final line):
    bounds; both also against float64: K4's lse and target logit within
    K4_F64_TOL, and on trained-scale logits within K4_TRAINED_TOL, K5's dW
    within DW_F64_TOL).  Then the wider shapes: K2 and K3 at d 32, 40, 96, 160, 256
-   and 512 and at L up to 64, K4 and K5 at d 256 and 40.
+   and 512 and at L up to 64, K4 and K5 at d 256 and 40; K4 and K5 past
+   d 256 (``phase_ce_wide``, CE_WIDTHS; K5 on its cluster kernels, held to
+   float64 and bitwise, and timed in turns against its kernels of before;
+   bf16 at CE_BF16_WIDTHS against the plain bf16 CE).
 3. serving path: the ranking path at Food-Kitchen geometry with the
    default Config and random seeded weights: convolve once, then rank the
    eval split in sampled and in full mode.  Every serving kernel must
@@ -61,8 +64,9 @@ Phases (any failure exits non-zero without the final line):
    the plain bf16 CE); one bf16 FK step at dropout 0
    against the CPU's (loss 1e-5, gradients STEP_BF16_GRAD_TOL; the f32
    step fails them) with only the bf16 instantiations launched; the bf16
-   main path (a step, a batch-sparse step and a serving run whose ranks
-   equal the plain versions' but at near-ties) with its launches; and the
+   main path (a step, a batch-sparse step, a step at d_latent 512, whose
+   K5 runs its cluster kernels, and a serving run whose ranks equal the
+   plain versions' but at near-ties) with its launches; and the
    bf16 step timed against the f32 step in turns.
    Then the step and the rank step as CUDA graphs (``phase_graph``, after
    the determinism phase): at FK, f32 and bf16, dense and batch-sparse,
@@ -135,6 +139,7 @@ launches a call and the larger of its byte and order bounds.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import inspect
 import json
 import math
@@ -282,21 +287,29 @@ def kernel_wrappers():
 
 
 def reset_launches():
+    from c2dsr_tpu_torch.ops import wrappers
     for fn in kernel_wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "launches_bf16"):
-            fn.launches_bf16 = 0
+        for attr in wrappers.COUNTERS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
     kernel_wrappers()["ce_fwd_variant"].by_variant.clear()
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Launches by wrapper, and "ce_bwd_cluster": those of K5's that ran its
+    cluster kernels (counted also under "ce_bwd")."""
+    out = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    out["ce_bwd_cluster"] = kernel_wrappers()["ce_bwd"].launches_cluster
+    return out
 
 
 def read_launches_bf16():
-    """The bf16 instantiations' launches, by wrapper."""
-    return {name: fn.launches_bf16 for name, fn in kernel_wrappers().items()
-            if hasattr(fn, "launches_bf16")}
+    """The bf16 instantiations' launches, by wrapper (and
+    "ce_bwd_cluster")."""
+    out = {name: fn.launches_bf16 for name, fn in kernel_wrappers().items()
+           if hasattr(fn, "launches_bf16")}
+    out["ce_bwd_cluster"] = kernel_wrappers()["ce_bwd"].launches_cluster_bf16
+    return out
 
 
 def phase_spmm(graphs, timer, peak_flops, peak_bw, transpose=False):
@@ -480,7 +493,8 @@ KERNEL_FAMILIES = (
                         "round_bf16_kernel")),
     ("K4 ce_fwd", ("ce_fwd_kernel", "ce_fwd_wide_kernel",
                    "ce_fwd_merge_kernel")),
-    ("K5 ce_bwd", ("ce_bwd_kernel", "ce_bwd_wide_kernel", "ce_merge_kernel",
+    ("K5 ce_bwd", ("ce_bwd_kernel", "ce_bwd_wide_kernel",
+                   "ce_bwd_cluster_kernel", "ce_merge_kernel",
                    "split_kernel")),
     ("K7 segsum", ("segsum_",)),
 )
@@ -945,9 +959,11 @@ def _k4_trained_errs(V, n_real):
 
 def _ce_bwd_pass(name):
     """"dh" or "dw": the pass of a profiled ``ce_bwd_kernel<DT, kRowsX,
-    kBf>`` or ``ce_bwd_wide_kernel<kRowsX, kBf>`` (ce.cu; the dh kernel
+    kBf>``, ``ce_bwd_wide_kernel<kRowsX, kBf>`` (ce.cu) or
+    ``ce_bwd_cluster_kernel<WS, kRowsX, kBf>`` (ce_cluster.cu; the dh kernel
     where kRowsX), or None for another kernel."""
-    for prefix, at in (("ce_bwd_kernel<", 1), ("ce_bwd_wide_kernel<", 0)):
+    for prefix, at in (("ce_bwd_kernel<", 1), ("ce_bwd_wide_kernel<", 0),
+                       ("ce_bwd_cluster_kernel<", 1)):
         if name.startswith(prefix):
             args = name[name.index("<") + 1:name.rindex(">")].split(",")
             return "dh" if args[at].strip() == "true" else "dw"
@@ -1518,10 +1534,10 @@ def phase_train_wide(spec, train, graphs, graphs_host):
     tiles, K4 and K5 at d 256, K1 at d 256 and 512) at FK's len_max 15 for
     two steps and at EE's 30 for one, then at d 128 with len_max 64 (two
     keys a lane in attention), then at d_latent 512 (BASELINE.json config
-    5's width: K4 and K5 at d 512), then the long step (LONG_STEP: len_max
-    200, key chunks and query tiles in K2/K3) and the wide one (WIDE_STEP:
-    d 1024, 8 heads, K4/K5's wide kernels), each run with its own params
-    and batches.
+    5's width: K4 and K5 at d 512, K5 on its cluster kernels), then the
+    long step (LONG_STEP: len_max 200, key chunks and query tiles in K2/K3)
+    and the wide one (WIDE_STEP: d 1024, 8 heads, K4's wide kernel and K5's
+    cluster kernels), each run with its own params and batches.
     Before each step, the loss and every gradient from the step's params
     through the kernels, through the plain versions on the card and
     through the plain versions on the CPU; every kernel launches its count
@@ -1574,7 +1590,7 @@ def phase_train_wide(spec, train, graphs, graphs_host):
                               spmm.device_graph(graphs_host[1], "cpu"))
     schedule = (0, 0, 1, 2, 3, 4, 5)   # d 256 at len_max 15, 15, 30; d 128
                                        # at 64; d 512 at 15; long; wide
-    launches = dict.fromkeys(kernel_wrappers(), 0)
+    launches = dict.fromkeys(read_launches(), 0)
     losses = []
     for i, which in enumerate(schedule):
         t0 = time.perf_counter()
@@ -1753,7 +1769,7 @@ def phase_odd_widths(spec, train, graphs, graphs_host, eval_data):
     cpu_graphs = c2dsr.Graphs(spmm.device_graph(graphs_host[0], "cpu"),
                               spmm.device_graph(graphs_host[1], "cpu"))
     batch = {k: v[:512] for k, v in train.items()}
-    launches = dict.fromkeys(kernel_wrappers(), 0)
+    launches = dict.fromkeys(read_launches(), 0)
     for d, n_head in ODD_WIDTHS:
         cfg = Config(d_latent=d, n_head=n_head, dropout_gnn=0.0,
                      dropout_attn=0.0)
@@ -2194,7 +2210,7 @@ BF16_CE_WIDE = 1024
 def _bf16_shapes(timer, peak_bw):
     """The bf16 instantiations at one long and one wide tower (BF16_TOWERS:
     K2 at dropout 0.2 saving K3's activations, K3 at K2's branches, one
-    layer) and K4/K5's wide kernels at d BF16_CE_WIDE (domain A's rows and
+    layer) and K4/K5 at d BF16_CE_WIDE (domain A's rows and
     vocab, a bf16 W): against the plain bf16 versions at the FK limits,
     the f32 instantiations failing each, bitwise across launches; timed
     beside the plain versions and the library's bf16 calls, with the bounds
@@ -2298,7 +2314,7 @@ def _bf16_shapes(timer, peak_bw):
         want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt, bf16=True)
         got32 = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
     torch.cuda.synchronize()
-    tag = f"bf16 ce N={N} d={d} V={V} (wide kernels)"
+    tag = f"bf16 ce N={N} d={d} V={V} (K4's wide kernel, K5's cluster)"
     e = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
     e32 = max(_rel(lse32, rlse), _rel(tlog32[real], rtlog[real]))
     eb = max(_rel(a, r) for a, r in zip(got_f, want))
@@ -2456,9 +2472,10 @@ def phase_bf16(spec, train, graphs, graphs_host, eval_data, timer, peak_bw):
     every kernel's bf16 instantiation against its plain bf16 version at FK
     shapes, the f32 instantiation in its place failing each limit (K3-K5
     also bitwise across launches); one bf16 FK step at dropout 0 against
-    the CPU's; the bf16 main path (a train step, a batch-sparse one and a
-    serving run, ranks against the plain versions' but at near-ties) with
-    its launches; the bf16 step timed against the f32 step in turns.
+    the CPU's; the bf16 main path (a train step, a batch-sparse one, a step
+    at d_latent 512 and a serving run, ranks against the plain versions'
+    but at near-ties) with its launches; the bf16 step timed against the
+    f32 step in turns.
     Returns (kernel results, launches of the bf16 main path, rates)."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.data.pipeline import BatchIterator
@@ -2494,14 +2511,23 @@ def phase_bf16(spec, train, graphs, graphs_host, eval_data, timer, peak_bw):
                                                       "cuda"))
     sparse = step_mod.make_train_step(cfg.with_(batch_sparse_gnn=True), spec,
                                       graphs, fns["bf16"][1], "cuda")
+    # and a step at d_latent 512 (BASELINE.json config 5's width), whose
+    # K5 runs its cluster kernels
+    cfg512 = cfg.with_(d_latent=512)
+    opt512 = optim.make_optimizer(cfg512, steps_per_epoch=len(it))
+    state512 = step_mod.init_state(params_mod.init_params(
+        cfg512, spec, torch.Generator().manual_seed(0), "cuda"), opt512)
+    step512 = step_mod.make_train_step(cfg512, spec, graphs, opt512, "cuda")
     reset_launches()
     states["bf16"], aux = fns["bf16"][2](states["bf16"], next(feed))
     states["bf16"], aux2 = sparse(states["bf16"], next(feed))
+    state512, aux3 = step512(state512, next(feed))
     torch.cuda.synchronize()
     launches = read_launches_bf16()
     f32_launches = read_launches()
-    check(math.isfinite(float(aux["loss"])) and math.isfinite(
-        float(aux2["loss"])), "bf16 train step: loss not finite")
+    check(all(math.isfinite(float(x["loss"])) for x in (aux, aux2, aux3)),
+          "bf16 train step: loss not finite")
+    del state512, step512, opt512
     serving = phase_main(spec, graphs_host, eval_data, cfg,
                          label="serving bf16")
     for k, v in serving.items():
@@ -2949,15 +2975,20 @@ def phase_experiment(spec, train, data, graphs, name):
                       "dense": float(p.mean())}
 
 
-CE_WIDTHS = (384, 512, 520, 640, 1024, 2048)   # phase_ce_wide's d
+CE_WIDTHS = (264, 384, 512, 520, 640, 1024, 2048)   # phase_ce_wide's d
+CE_BF16_WIDTHS = (512, 1024)   # and its bf16 widths (a bf16 W)
+BF16_CE_BWD_FRO = 1e-3   # K5 bf16 against the plain bf16 CE, relative
+                         # Frobenius (tests/test_torch_cuda.py's limit)
 
 
 def _ce_wide_check(d, N, V, n_real):
     """K4 and K5 at width d against the plain versions in float64 (CE_TOL,
-    CE_BWD_TOL) and bitwise against a second launch.  Returns (inputs, lse,
-    fwd err, {dh, dw, db}, the float64 backward)."""
+    CE_BWD_TOL, K5's dW DW_F64_TOL) and bitwise against a second launch;
+    K5 must have run its cluster kernels.  Returns (inputs, lse, fwd err,
+    {dh, dw, db}, the float64 backward)."""
     from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
     h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, d)
+    n0 = fused_ce_cuda.ce_bwd.launches_cluster
     with torch.no_grad():
         lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
         lse2, tlog2 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
@@ -2969,40 +3000,70 @@ def _ce_wide_check(d, N, V, n_real):
                                      dlse.double(), dt.double(), tgt)
     torch.cuda.synchronize()
     tag = f"d={d}"
+    check(fused_ce_cuda.ce_bwd.launches_cluster == n0 + 2,
+          f"ce_bwd {tag}: the cluster kernels did not run")
     e_f = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
     check(e_f <= CE_TOL, f"ce_fwd {tag}: rel err {e_f} > {CE_TOL}")
     check(torch.equal(lse, lse2) and torch.equal(tlog, tlog2),
           f"ce_fwd {tag}: two launches differ")
     rels = _check_ce_bwd(tag, got, want, again, n_real)
+    check(rels["dw"] <= DW_F64_TOL, f"ce_bwd {tag}: dW {rels['dw']} from "
+          f"float64 > {DW_F64_TOL}")
     return (h, w, bm, pad_l, tgt, dlse, dt), lse, e_f, rels, want
 
 
-def _k5_wide(h, w, bm, lse, dlse, dt, tgt):
-    """(dh, dw, db) by K5's wide kernels at a width the port runs on the
-    resident ones (ce.cu ``ce_bwd_wide_f32``): the other design, timed
-    beside the routed one; not counted as a launch of the main path."""
-    from c2dsr_tpu_torch.ops import fused_ce_cuda
+def _k5_entry(design, h, w, bm, lse, dlse, dt, tgt, bf16=False):
+    """(dh, dw, db) by one of K5's designs past d 256 through its C entry,
+    dw f32 whatever w's dtype, not counted as launches: "cluster"
+    (ce_cluster.cu at the port's plan) or "wide" (ce.cu's wide kernels:
+    ce_bwd_wide_f32, or ce_bwd_bf16, which runs them past d 256), the
+    design of before, timed beside the cluster kernels."""
+    from c2dsr_tpu_torch.ops import fused_ce_cuda as fc
     N, d = h.shape
     V = w.shape[1]
-    out = (torch.empty_like(h), torch.empty_like(w), torch.empty_like(bm))
-    err = fused_ce_cuda._bwd_f32(
-        "ce_bwd_wide_f32", fused_ce_cuda._plan("ce_bwd_plan_wide", N, d, V),
-        h, w, bm, lse, dlse, dt, tgt.to(torch.int32).contiguous(), *out)
-    check(err == 0, f"ce_bwd_wide_f32 d={d}: CUDA error {err}")
+    check(d > fc.RESIDENT, f"K5's {design} entry is timed past d 256, "
+          f"not at {d}")
+    out = (torch.empty_like(h), torch.empty(w.shape, device=h.device),
+           torch.empty_like(bm))
+    t32 = tgt.to(torch.int32).contiguous()
+    if design == "cluster":
+        plan = fc.plan_cluster(N, d, V, bf16)
+        entry = "ce_bwd_cluster_bf16" if bf16 else "ce_bwd_cluster_f32"
+        splits, extra = (plan.split_h, plan.split_w), (plan.c, plan.w)
+    else:
+        entry = "ce_bwd_bf16" if bf16 else "ce_bwd_wide_f32"
+        splits, extra = fc.plan_bwd(N, d, V, bf16, wide=True), ()
+    run = fc._bwd_bf16 if bf16 else fc._bwd_f32
+    err = run(entry, splits, h, w, bm, lse, dlse, dt, t32, *out, extra)
+    check(err == 0, f"K5 {design} ({entry}) d={d}: CUDA error {err}")
     return out
 
 
+def _k5_in_turns(timer, designs, reps):
+    """{design: ms}, each a mean of timer runs in turns (A, B, .., B, A);
+    ``designs`` {name: fn}."""
+    names = list(designs)
+    runs = {n: [] for n in names}
+    for n in names + names[::-1]:
+        with torch.no_grad():
+            runs[n].append(timer(designs[n], reps=reps))
+    return {n: float(np.mean(v)) for n, v in runs.items()}, runs
+
+
 def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
-    """K4 and K5 at the widths above 256 (CE_WIDTHS: K4's wide kernel; K5
-    up to 512 on the resident-X kernels, 64 rows a block and the output
-    columns over two blocks, above on the wide ones), at a train step's rows of domain A
-    (N 10,240, V 30,720): against the plain versions in float64 (CE_TOL,
-    CE_BWD_TOL), as the d 256 card tests hold them, and bitwise against a
-    second launch; then timed beside the plain versions in f32 and one
-    cuBLAS f32 call (mm + logsumexp, and its autograd backward), with K5's
-    dh and dW kernels profiled and the bounds.  At d 512 K5's wide kernels
-    are held to the same gates and timed beside the resident ones, in turns
-    (``k5_wide_at_512``)."""
+    """K4 and K5 at the widths above 256, at a train step's rows of domain
+    A (N 10,240, V 30,720): K4's wide kernel; K5's cluster kernels
+    (csrc/ce_cluster.cu).  f32 at CE_WIDTHS: against the plain versions in
+    float64 (CE_TOL, CE_BWD_TOL, DW_F64_TOL), as the d 256 card tests hold
+    them, and bitwise against a second launch; then timed beside the plain
+    versions in f32 and one cuBLAS f32 call (mm + logsumexp, and its
+    autograd backward), with K5's dh and dW kernels profiled and the
+    bounds; K5's kernels of before (ce.cu's wide kernels), held to the
+    same gates, timed against the cluster kernels in turns.  bf16 at
+    CE_BF16_WIDTHS
+    (a bf16 W): K5's cluster kernels against the plain bf16 CE
+    (CE_BWD_BF16_TOL, BF16_CE_BWD_FRO), bitwise, and in turns against its
+    kernels of before and the library's composed bf16 backward."""
     from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
     N, V, n_real = 512 * 2 * 10, 30720, N_ITEM_A
     out = {}
@@ -3010,7 +3071,7 @@ def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
         t0 = time.perf_counter()
         ins, lse, e_f, rels, want64 = _ce_wide_check(d, N, V, n_real)
         h, w, bm, pad_l, tgt, dlse, dt = ins
-        reps = 20 if d <= 512 else 5
+        reps = 20 if d <= 512 else 5 if d <= 1024 else 3
         with torch.no_grad():
             f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt),
                          reps=reps)
@@ -3018,8 +3079,6 @@ def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
                                                           tgt), reps=reps)
             f_lib = timer(lambda: torch.logsumexp(
                 torch.cat([h @ w + bm, pad_l[:, None]], 1), 1), reps=reps)
-            b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
-                                                      tgt), reps=reps)
             b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, w, bm, lse, dlse,
                                                           dt, tgt), reps=reps)
         hg, wg, bg = (t.detach().clone().requires_grad_(True)
@@ -3030,6 +3089,19 @@ def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
                                                   retain_graph=True),
                       reps=reps)
         del lib_out, hg, wg, bg
+        # K5's kernels of before, gated as the cluster kernels are
+        with torch.no_grad():
+            got_e = _k5_entry("wide", h, w, bm, lse, dlse, dt, tgt)
+            again_e = _k5_entry("wide", h, w, bm, lse, dlse, dt, tgt)
+        errs = {"wide": max(_check_ce_bwd(f"d={d} (wide kernels)", got_e,
+                                          want64, again_e, n_real).values())}
+        del got_e, again_e
+        designs = {"cluster": lambda: fused_ce_cuda.ce_bwd(
+            h, w, bm, lse, dlse, dt, tgt),
+                   "wide": lambda: _k5_entry("wide", h, w, bm, lse, dlse,
+                                             dt, tgt)}
+        b_turns, b_runs = _k5_in_turns(
+            timer, designs, max(3, reps // 2) if d <= 1024 else 2)
         sub = timing.kernel_times(lambda: fused_ce_cuda.ce_bwd(
             h, w, bm, lse, dlse, dt, tgt), calls=2)[0]
         parts = {"dh": sum(v for k, v in sub.items()
@@ -3038,11 +3110,19 @@ def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
                            if _ce_bwd_pass(k) == "dw")}
         flops = 2.0 * N * V * d
         io = 4 * (N * d + d * V + V + 3 * N)
+        plan = fused_ce_cuda.plan_cluster(N, d, V, False)
+        check(plan.smem == fused_ce_cuda.cluster_smem_card(plan.w, False),
+              f"d={d}: the plan's shared memory {plan.smem} is not the "
+              "kernel's")
         out[d] = {"fwd_ms": f_ms, "fwd_plain_ms": f_plain,
                   "fwd_library_ms": f_lib,
-                  "bwd_ms": b_ms, "bwd_plain_ms": b_plain,
+                  "bwd_ms": b_turns["cluster"], "bwd_plain_ms": b_plain,
                   "bwd_library_ms": b_lib,
                   "bwd_dh_ms": parts["dh"], "bwd_dw_ms": parts["dw"],
+                  "bwd_earlier_ms": {k: v for k, v in b_turns.items()
+                                     if k != "cluster"},
+                  "bwd_runs_in_turns": b_runs,
+                  "bwd_earlier_rel_err_f64": errs,
                   "fwd_bound_ms": timing.tc_bound_ms(flops, io, gpu, peak_bw),
                   "fwd_bound_ffma_ms": flops / peak_flops * 1e3,
                   "bwd_bound_ms": timing.tc_bound_ms(2 * flops, 2 * io, gpu,
@@ -3050,49 +3130,115 @@ def phase_ce_wide(timer, peak_flops, peak_bw, gpu):
                   "bwd_bound_ffma_ms": 2 * flops / peak_flops * 1e3,
                   "fwd_rel_err_f64": e_f,
                   "bwd_rel_err_f64": max(rels.values()),
-                  "design": {
-                      "K4": ("wide" if d > fused_ce_cuda.FWD_RESIDENT
-                             else "resident"),
-                      "K5": ("wide" if d > fused_ce_cuda.BWD_RESIDENT
-                             else "resident")}}
-        log(f"ce wide d={d} (kernels {out[d]['design']}): N={N} V={V}: "
-            f"against float64 fwd rel err {e_f:.3e}, bwd "
+                  "bwd_rel_err_f64_by_output": rels,
+                  "bwd_max_abs_err_f64": max(
+                      float((g.double() - r).abs().max()) for g, r in
+                      zip(fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt),
+                          want64)),
+                  "plan": dataclasses.asdict(plan),
+                  "design": {"K4": ("wide" if d > fused_ce_cuda.RESIDENT
+                                    else "resident"),
+                             "K5": fused_ce_cuda.bwd_route(d)}}
+        log(f"ce wide d={d} (kernels {out[d]['design']}, plan {plan}): N={N} "
+            f"V={V}: against float64 fwd rel err {e_f:.3e}, bwd "
             + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-            + "; two launches of each bitwise equal; fwd kernel "
-            f"{f_ms:.4f} ms plain {f_plain:.4f} library {f_lib:.4f}, bwd "
-            f"kernel {b_ms:.4f} ms (dh {parts['dh']:.4f} + dW "
-            f"{parts['dw']:.4f}, profiled) plain {b_plain:.4f} library "
-            f"{b_lib:.4f}; bounds 3xTF32 fwd {out[d]['fwd_bound_ms']:.4f} "
-            f"bwd {out[d]['bwd_bound_ms']:.4f}, FFMA fwd "
+            + f" (kernels of before {errs}); two launches of each bitwise "
+            f"equal; fwd kernel {f_ms:.4f} ms plain {f_plain:.4f} library "
+            f"{f_lib:.4f}; bwd in turns " + ", ".join(
+                f"{k} {v:.4f}" for k, v in b_turns.items())
+            + f" ms (cluster dh {parts['dh']:.4f} + dW {parts['dw']:.4f}, "
+            f"profiled) plain {b_plain:.4f} library {b_lib:.4f}; bounds "
+            f"3xTF32 fwd {out[d]['fwd_bound_ms']:.4f} bwd "
+            f"{out[d]['bwd_bound_ms']:.4f}, FFMA fwd "
             f"{out[d]['fwd_bound_ffma_ms']:.4f} "
             f"({time.perf_counter() - t0:.1f} s)")
-        if d == fused_ce_cuda.BWD_RESIDENT:
-            with torch.no_grad():
-                got_w = _k5_wide(h, w, bm, lse, dlse, dt, tgt)
-                again_w = _k5_wide(h, w, bm, lse, dlse, dt, tgt)
-            rels_w = _check_ce_bwd(f"d={d} (K5's wide kernels)", got_w,
-                                   want64, again_w, n_real)
-            del got_w, again_w
-            times = {"resident": [], "wide": []}
-            for design in ("resident", "wide", "wide", "resident"):
-                fn = ((lambda: _k5_wide(h, w, bm, lse, dlse, dt, tgt))
-                      if design == "wide" else
-                      (lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
-                                                    tgt)))
-                with torch.no_grad():
-                    times[design].append(timer(fn))
-            res = {k: float(np.mean(v)) for k, v in times.items()}
-            out[d]["k5_wide_at_512"] = {
-                "bwd_ms": res["wide"], "resident_bwd_ms": res["resident"],
-                "runs": times, "bwd_rel_err_f64": max(rels_w.values())}
-            log(f"ce d={d}, K5's two designs in turns (resident, wide, wide, "
-                f"resident): {res['resident']:.4f} ms resident, "
-                f"{res['wide']:.4f} wide; the wide kernels from float64 "
-                + ", ".join(f"{k} {v:.3e}" for k, v in rels_w.items())
-                + ", two launches bitwise equal")
         del ins, h, w, bm, pad_l, tgt, dlse, dt, lse, want64
         torch.cuda.empty_cache()
+    for d in CE_BF16_WIDTHS:
+        t0 = time.perf_counter()
+        out[f"bf16_{d}"] = _ce_wide_bf16(d, N, V, n_real, timer, peak_bw)
+        log(f"ce wide bf16 d={d}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
     return out
+
+
+def _ce_wide_bf16(d, N, V, n_real, timer, peak_bw):
+    """K5 bf16 at width d on a bf16 W, the inputs it is timed on: its
+    cluster kernels and its kernels of before (ce.cu's wide kernels), each
+    through its C entry with dW in f32, against the plain bf16 CE
+    (CE_BWD_BF16_TOL max abs over max, BF16_CE_BWD_FRO relative Frobenius)
+    and bitwise across launches; the wrapper's outputs are the cluster
+    entry's (dW cast to bf16); then in turns, beside the plain bf16 CE and
+    the library's composed bf16 backward, with the bf16 bounds
+    (``_bf16_entry``)."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, d)
+    wb = w.to(torch.bfloat16)
+    n0 = fused_ce_cuda.ce_bwd.launches_cluster_bf16
+    with torch.no_grad():
+        lse, _ = fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt)
+        wrapped = fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse, dt, tgt)
+        # f32 W with bf16=True rounds W to wb: the same function, dW in f32
+        want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt, bf16=True)
+        runs = {k: [_k5_entry(k, h, wb, bm, lse, dlse, dt, tgt, bf16=True)
+                    for _ in range(2)] for k in ("cluster", "wide")}
+    torch.cuda.synchronize()
+    tag = f"bf16 ce_bwd d={d}"
+    check(fused_ce_cuda.ce_bwd.launches_cluster_bf16 == n0 + 1,
+          f"{tag}: the cluster kernels did not run")
+    raw = runs["cluster"][0]
+    check(torch.equal(wrapped[0], raw[0]) and torch.equal(wrapped[2], raw[2])
+          and wrapped[1].dtype == torch.bfloat16
+          and torch.equal(wrapped[1], raw[1].to(torch.bfloat16)),
+          f"{tag}: the wrapper's outputs are not its cluster entry's")
+    errs = {}
+    for name, (g, g2) in runs.items():
+        rel = max(_rel(a, b) for a, b in zip(g, want))
+        fro = max(float((a.double() - b.double()).norm())
+                  / max(float(b.double().norm()), 1e-30)
+                  for a, b in zip(g, want))
+        check(all(bool(torch.isfinite(a).all()) for a in g),
+              f"{tag} ({name}): non-finite")
+        check(rel <= CE_BWD_BF16_TOL and fro <= BF16_CE_BWD_FRO,
+              f"{tag} ({name}): rel err {rel} (limit {CE_BWD_BF16_TOL}), "
+              f"Frobenius {fro} (limit {BF16_CE_BWD_FRO})")
+        check(all(torch.equal(a, b) for a, b in zip(g, g2)),
+              f"{tag} ({name}): two launches differ")
+        errs[name] = {"rel": rel, "fro": fro}
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(raw, want))
+    del wrapped, runs, raw
+    designs = {"cluster": lambda: fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse,
+                                                       dt, tgt),
+               "wide": lambda: _k5_entry("wide", h, wb, bm, lse, dlse, dt,
+                                         tgt, bf16=True)}
+    turns, runs = _k5_in_turns(timer, designs, 5)
+    with torch.no_grad():
+        b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, wb, bm, lse, dlse,
+                                                      dt, tgt), reps=5)
+    b_lib, lib_errs = _ce_bwd_bf16_library(timer, h, wb, bm, lse, dlse, dt,
+                                           tgt, reps=5)
+    io = 4 * (N * d + V + 3 * N) + 2 * d * V
+    bb = _bf16_entry(turns["cluster"], b_plain, b_lib, 4 * N * V * d,
+                     2 * io + 4 * N * d, peak_bw, errs["cluster"]["rel"],
+                     None)
+    plan = fused_ce_cuda.plan_cluster(N, d, V, True)
+    check(plan.smem == fused_ce_cuda.cluster_smem_card(plan.w, True),
+          f"{tag}: the plan's shared memory {plan.smem} is not the kernel's")
+    res = {"bwd_ms": turns["cluster"],
+           "bwd_earlier_ms": {"wide": turns["wide"]},
+           "bwd_runs_in_turns": runs, "bwd_plain_ms": b_plain,
+           "bwd_library_ms": b_lib, "bwd_library_errors": lib_errs,
+           "errors_from_plain": errs, "max_abs_err": max_abs,
+           "plan": dataclasses.asdict(plan),
+           **{f"bwd_{k}": bb[k] for k in ("bound_ms", "bound_tf32_one_pass_ms",
+                                          "bound_bytes_ms", "bound_by")}}
+    log(f"{tag} (plan {plan}): from the plain bf16 CE {errs}, two launches "
+        f"of each bitwise equal; in turns cluster {turns['cluster']:.4f} ms, "
+        f"wide {turns['wide']:.4f}; plain {b_plain:.4f}, library "
+        f"{b_lib} (errors {lib_errs}); bound bf16 / one TF32 pass / bytes "
+        f"{bb['bound_ms']:.4f} / {bb['bound_tf32_one_pass_ms']:.4f} / "
+        f"{bb['bound_bytes_ms']:.4f}")
+    return res
 
 
 def _k7_calls_of_a_step(cfg, spec, graphs, params, batch, seed):
@@ -3828,6 +3974,7 @@ def _recording_first_calls(store):
     first call for each tower (as ``encoder_bwd/<tower>``), while the body
     runs; the wrappers still count."""
     from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce_cuda, segsum_cuda
+    from c2dsr_tpu_torch.ops import wrappers
     saved = []
     for mod, name in ((encoder_cuda, "encoder_fwd"),
                       (encoder_cuda, "encoder_bwd"), (fused_ce_cuda, "ce_fwd"),
@@ -3845,14 +3992,14 @@ def _recording_first_calls(store):
 
         # the wrapper counts its launches under its module name, which now
         # names the recorder
-        rec.launches = orig.launches
+        wrappers.carry_counters(orig, rec)
         setattr(mod, name, rec)
         saved.append((mod, name, orig))
     try:
         yield
     finally:
         for mod, name, orig in saved:
-            orig.launches = getattr(mod, name).launches
+            wrappers.carry_counters(getattr(mod, name), orig)
             setattr(mod, name, orig)
 
 
@@ -4728,7 +4875,7 @@ def phase_graph(spec, train, graphs, eval_data):
     batches = _graph_batches(train, base)
     res = {"steps": GRAPH_STEPS, "epoch_steps": GRAPH_SPE,
            "ragged_rows": GRAPH_RAGGED}
-    launches = dict.fromkeys(kernel_wrappers(), 0)
+    launches = dict.fromkeys(read_launches(), 0)
     lrs = None
     for tag, cfg in (
             ("f32", base), ("f32 batch-sparse", base.with_(
@@ -5000,7 +5147,10 @@ def main() -> int:
             ("bench_scaled", ("ce_fwd", "ce_bwd", "segsum")),
             ("bench_spmm_sweep", ("spmm_csr",)),
             ("bench_batches", step_kernels),
-            ("scaled_e2e", step_kernels)):
+            ("scaled_e2e", step_kernels),
+            # K5's cluster kernels on the d 512 and d 1,024 steps
+            ("training_wide", ("ce_bwd_cluster",)),
+            ("training_wide_d1024", ("ce_bwd_cluster",))):
         check(all(paths[path][n] > 0 for n in kernels_of_path),
               f"a kernel never launched on the {path} path: {paths[path]}")
     by_variant = bench_launches["ce_variants"]["by_variant"]
@@ -5009,9 +5159,9 @@ def main() -> int:
           f"a CE variant never launched: {by_variant}")
 
     def counts(name):
-        return {"launches": sum(p[name] for p in paths.values()),
+        return {"launches": sum(p.get(name, 0) for p in paths.values()),
                 "launches_by_path": {k: p[name] for k, p in paths.items()
-                                     if p[name]}}
+                                     if p.get(name, 0)}}
 
     step_hops = {k: k1[k] + k1t[k] for k in ("ms", "plain_ms", "library_ms",
                                                "bound_ms")}
@@ -5127,18 +5277,49 @@ def main() -> int:
          "shard_widths": [{"mesh": t["mesh"], "N": t["N"], "V": t["V"],
                            **t["bwd"]} for t in par_times],
          "shard_max_rel_err": max(e["ce_bwd"] for e in par_errs.values()),
-         "d384": {k: v for k, v in ce_wide[384].items() if "bwd" in k},
          "scaled_e2e": at_1m("ce_bwd"),
-         "d512": {k: v for k, v in ce_wide[512].items() if "bwd" in k},
-         "wide_at_512": ce_wide[512]["k5_wide_at_512"],
-         "wide_widths": {d: {k: v for k, v in ce_wide[d].items() if "bwd" in k}
-                         for d in CE_WIDTHS if d > 512},
          "note": "dh and dW/db kernels (3xTF32 on the tensor cores), both "
                  "domains of a step; also replaces fused_ce.py:339 and "
                  ":360; bound_ms is the 3xTF32 tensor-core bound "
                  "(3*4*N*V*d TF32 FLOPs at 495 TFLOP/s), bound_ffma_ms "
                  "the FP32 FFMA one (4*N*V*d at 67); kernels_ms the "
-                 "profiled split"},
+                 "profiled split; past d 256 ce_bwd_cluster"},
+        {"name": "ce_bwd_cluster", "route": "cuda",
+         "source": "c2dsr_tpu_torch/csrc/ce_cluster.cu",
+         "replaces": "c2dsr_tpu/ops/fused_ce.py:339",
+         **counts("ce_bwd_cluster"),
+         "max_abs_err": ce_wide[1024]["bwd_max_abs_err_f64"],
+         **{k: ce_wide[1024]["bwd_" + k] for k in ("ms", "plain_ms",
+                                                    "library_ms",
+                                                    "bound_ms")},
+         "bound_by": "operations",
+         "widths": {d: {k: v for k, v in ce_wide[d].items()
+                        if k.startswith("bwd") or k in ("plan", "design")}
+                    for d in CE_WIDTHS},
+         "note": "K5 past d 256, a thread-block cluster over d (dh and "
+                 "dW/db kernels: also replaces fused_ce.py:360), 3xTF32: "
+                 "d 1,024 (widths: every width), N 10,240, V 30,720, one "
+                 "domain; max_abs_err against float64; ms in turns with "
+                 "K5's kernels of before (bwd_earlier_ms: ce.cu's wide "
+                 "kernels); bound_ms the 3xTF32 tensor-core "
+                 "bound of 4*N*V*d; library cuBLAS f32 (mm, logsumexp) "
+                 "under autograd"},
+        {"name": "ce_bwd_cluster_bf16", "route": "cuda",
+         "source": "c2dsr_tpu_torch/csrc/ce_cluster.cu",
+         "replaces": "c2dsr_tpu/ops/fused_ce.py:339",
+         "launches": bf16_launches["ce_bwd_cluster"],
+         "max_abs_err": ce_wide["bf16_1024"]["max_abs_err"],
+         **{k: ce_wide["bf16_1024"]["bwd_" + k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "bound_tf32_one_pass_ms", "bound_bytes_ms")},
+         "widths": {d: ce_wide[f"bf16_{d}"] for d in CE_BF16_WIDTHS},
+         "note": "the cluster kernels' bf16 instantiation (mma.sync "
+                 "m16n8k16 bf16, f32 sums) on a bf16 W: d 1,024, N 10,240, "
+                 "V 30,720; max_abs_err against the plain bf16 CE; ms in "
+                 "turns with K5 bf16's kernels of before; launches the bf16 "
+                 "main path's (its d 512 step); bound_ms at 989 TFLOP/s; "
+                 "library the composed cuBLAS bf16 backward "
+                 "(kernel_bench.ce_bwd_bf16_library)"},
         {"name": "segsum", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/segsum.cu",
          "replaces": "no Pallas kernel: the backward of the lookups "

@@ -9,6 +9,8 @@ partial last block, feature widths that are not multiples of 128, rows
 heavy enough to take the SpMM's block path, tables with extra pad rows.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1175,6 +1177,66 @@ def test_ce_bf16_kernels_match_plain(cuda, d):
     assert on_bf16[1].dtype == torch.bfloat16
     assert torch.equal(on_bf16[1], got[1].to(torch.bfloat16))
     assert torch.equal(on_bf16[0], got[0]) and torch.equal(on_bf16[2], got[2])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [264, 520, 1024])
+def test_ce_bwd_cluster_kernels_match_plain(cuda, d, bf16):
+    """K5 past d 256 runs its cluster kernels (``csrc/ce_cluster.cu``: two,
+    three and four blocks a cluster, slices of 136 + 128, 176 + 176 + 168
+    and 4 x 256 columns): f32 within 2e-5 of the plain version, relative,
+    and its dW within 1e-5 of float64; bf16 within BF16_CE_BWD_TOL /
+    BF16_CE_BWD_FRO of the plain bf16 CE; bitwise across two launches;
+    counted in ``launches_cluster`` (``launches_cluster_bf16``)."""
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    N, V, n_real = 300, 1028, 1000
+    h, w, bm, pad, tgt = _ce_case(cuda, N, d, V, n_real, seed=d + bf16)
+    lse, _ = fused_ce_cuda.ce_fwd(h, w, bm, pad, tgt, bf16=bf16)
+    real = (tgt != n_real).float()
+    gen = _gen(cuda, d)
+    dlse = torch.randn(N, device=cuda, generator=gen) * real / N
+    dt = torch.randn(N, device=cuda, generator=gen) * real / N
+    counter = "launches_cluster_bf16" if bf16 else "launches_cluster"
+    n0 = getattr(fused_ce_cuda.ce_bwd, counter)
+    got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt, bf16=bf16)
+    again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt, bf16=bf16)
+    want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt, bf16=bf16)
+    torch.cuda.synchronize()
+    assert getattr(fused_ce_cuda.ce_bwd, counter) == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.isfinite(a).all() for a in got)
+    if bf16:
+        assert max(_rel_err(a, b) for a, b in zip(got, want)) \
+            <= BF16_CE_BWD_TOL
+        assert max(_fro_err(a, b) for a, b in zip(got, want)) \
+            <= BF16_CE_BWD_FRO
+        return
+    for name, g, r in zip(("dh", "dw", "db"), got, want):
+        assert _rel_err(g, r) <= 2e-5, (name, _rel_err(g, r))
+    dw64 = fused_ce.ce_bwd_plain(h.double(), w.double(), bm.double(),
+                                 lse.double(), dlse.double(), dt.double(),
+                                 tgt)[1]
+    assert _rel_err(got[1].double(), dw64) <= 1e-5
+
+
+def test_ce_bwd_cluster_refuses_a_plan_it_cannot_launch(cuda, monkeypatch):
+    """The cluster entries refuse a plan they cannot launch (one block a
+    cluster, or slices that do not cover d), and the wrapper raises: no
+    fallback to another kernel or to the plain version."""
+    from c2dsr_tpu_torch.ops import fused_ce_cuda
+    N, d, V = 64, 512, 1028
+    h, w, bm, pad, tgt = _ce_case(cuda, N, d, V, 1000, seed=1)
+    z = torch.zeros(N, device=cuda)
+    t32 = tgt.to(torch.int32)
+    out = (torch.empty_like(h), torch.empty_like(w), torch.empty_like(bm))
+    for bad in ((1, 512), (2, 248), (9, 64)):
+        assert fused_ce_cuda._bwd_f32("ce_bwd_cluster_f32", (1, 1), h, w, bm,
+                                      z, z, z, t32, *out, bad) != 0, bad
+    good = fused_ce_cuda.plan_cluster(N, d, V, False)
+    monkeypatch.setattr(fused_ce_cuda, "plan_cluster",
+                        lambda *a: dataclasses.replace(good, c=1))
+    with pytest.raises(RuntimeError, match="ce_bwd_cluster_f32"):
+        fused_ce_cuda.ce_bwd(h, w, bm, z, z, z, tgt)
 
 
 def test_bf16_train_step_on_card_matches_cpu(cuda):
