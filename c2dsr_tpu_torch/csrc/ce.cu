@@ -101,16 +101,22 @@
 // The bf16 instantiations (ce_fwd_bf16, ce_bwd_bf16; compute_dtype=
 // "bfloat16" or a bf16 classifier) compute the Pallas kernels' numerics:
 // every product of bf16-rounded h, W and dlogits, summed in f32 (_dot and
-// the backward's products in fused_ce.py).  A pre-pass writes h and Wᵀ in
-// bf16 (W read once, f32 rounded or bf16 as it is), the kernels stage the
-// bf16 rows (ce_fwd.cuh, Tile) and take one TF32 MMA of the widened values
-// a k-step, exact for bf16 operands, where 3xTF32 takes three; the same
-// plans, chains and merges, so they too are bitwise repeatable.  As each
-// dlogit is rounded to bf16, K5's bf16 instantiation sums the logits with
-// compensation (ce_fwd.cuh, logit_tile), computes each softmax value as the
-// plain version does (expf(logit - lse)) and adds each Y tile's products to
-// its output in f32 (dlogits, add_py): at d 40-1,024 it lies as near
-// float64 as the plain bf16 CE or nearer (PERF.md §6).
+// the backward's products in fused_ce.py), at the rate those products
+// have on the TPU's MXU: the bf16 tensor cores.  A pre-pass writes h and
+// Wᵀ in bf16 (W read once, f32 rounded or bf16 as it is), the kernels
+// stage the bf16 rows (ce_fwd.cuh, Tile), read them by ldmatrix and take
+// one mma.sync.m16n8k16 bf16 a k16 step (tc.cuh), where 3xTF32 takes
+// three m16n8k8 TF32 MMAs a k8 step: the bf16 bound is a sixth of the
+// 3xTF32 one.  K5's second product takes the dlogits rounded to bf16 and
+// packed in pairs, which are its A fragment as they lie (ce_bwd.cuh,
+// add_py), and Y transposed by ldmatrix.  The same plans, chains and
+// merges, so they too are bitwise repeatable.  As each dlogit is rounded
+// to bf16, K5's bf16 instantiation sums the logits' 32-column partials
+// with compensation (ce_fwd.cuh, logit_tile), computes each softmax value
+// as the plain version does (expf(logit - lse)) and adds each Y tile's
+// products to its output in f32 (dlogits, add_py): K5 bf16 lies as near
+// float64 as the plain bf16 CE or nearer (PERF.md §6,
+// tests/ce_bf16_seeds.py).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -239,7 +245,8 @@ ce_bwd_kernel(const BwdArgs a) {
 // 2,048 a sixth (PERF.md §6).  The
 // chains are the narrow kernels': K5's plans cap a split at MAX_CHAIN vocab
 // columns and MAX_ROW_CHAIN rows, merged in f32, no atomics, bitwise across
-// launches.  bf16 (kBf): X and Y bf16 rows as in the narrow kernels.
+// launches.  bf16 (kBf): X and Y bf16 rows and bf16 MMAs as in the narrow
+// kernels (a 32-column step is two k16 steps).
 constexpr int kWThreads = 128;       // 4 warps, 16 X rows each
 constexpr int kWBx = 64;             // X rows a block
 constexpr int kWKc = 32;             // k-columns a step
@@ -384,7 +391,7 @@ ce_fwd_wide_kernel(const FwdArgs a) {
         for (int i = 0; i < 4; ++i) s[0][j][i] += p[0][j][i];
     }
     if (c == nkc - 1)
-      fwd_tile<kBase, 1, kNy>(
+      fwd_tile<kBase, 1, kNy, kBf>(
           s, reinterpret_cast<const float*>(st + (kWBx + W::kYParts * kBy) * ld),
           (t_begin + step / nkc) * kBy, a.V, xtg, rm, rs, tl, t);
   }
@@ -530,15 +537,18 @@ cudaError_t prepare() {
   return err;
 }
 
-// The resident kernels' blocks an SM at width DT (K5's dh kernel: K4's
-// and K5's plans both take it).
+// The resident kernels' blocks an SM at width DT: K5's dh kernel's (its
+// plans), or K4's (fwd: K4's plans).
 template <int DT, bool kBf>
-cudaError_t resident_per_sm(int* per_sm) {
+cudaError_t resident_per_sm(int* per_sm, bool fwd) {
   const cudaError_t err = prepare<DT, kBf>();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, ce_bwd_kernel<DT, true, kBf>, BwdCfg<DT>::kThreads,
-      Tile<DT, kBf>::kSmem);
+  return fwd ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   per_sm, ce_fwd_kernel<DT, kBase, kBf>,
+                   BwdCfg<DT>::kThreads, Tile<DT, kBf>::kSmem)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   per_sm, ce_bwd_kernel<DT, true, kBf>,
+                   BwdCfg<DT>::kThreads, Tile<DT, kBf>::kSmem);
 }
 
 template <bool kBf>
@@ -614,11 +624,12 @@ cudaError_t slots(int design, int d, int* out) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (design == 0) {
+  if (design == 0 || design == 3) {
     if (d > kResident) return cudaErrorInvalidValue;
-    err = d <= 64    ? resident_per_sm<64, kBf>(&per_sm)
-          : d <= 128 ? resident_per_sm<128, kBf>(&per_sm)
-                     : resident_per_sm<256, kBf>(&per_sm);
+    const bool fwd = design == 3;
+    err = d <= 64    ? resident_per_sm<64, kBf>(&per_sm, fwd)
+          : d <= 128 ? resident_per_sm<128, kBf>(&per_sm, fwd)
+                     : resident_per_sm<256, kBf>(&per_sm, fwd);
   } else {
     err = prepare_wide<kBf>();
     if (err == cudaSuccess)
@@ -691,9 +702,9 @@ int bwd(const float* h, const void* w, int w_bf16, const float* b,
 
 // The blocks resident at once on the device (SMs times blocks an SM) of
 // the kernels a plan fills in whole waves (ops/fused_ce_cuda.py): design 0
-// the resident kernels at width d (d <= 256), 1 K4's wide kernel, 2 K5's
-// wide kernels; bf16 the bf16 instantiations'.  Into *out; returns a CUDA
-// error code (0 = answered).
+// K5's resident kernels at width d (d <= 256), 1 K4's wide kernel, 2 K5's
+// wide kernels, 3 K4's resident kernel at width d; bf16 the bf16
+// instantiations'.  Into *out; returns a CUDA error code (0 = answered).
 extern "C" int ce_slots(int design, int d, int bf16, int* out) {
   return static_cast<int>(bf16 ? slots<true>(design, d, out)
                                : slots<false>(design, d, out));

@@ -121,10 +121,15 @@ __device__ __forceinline__ void dlogits(
 
 // o += P · Y[:, col .. col + 8·kNo): [16·kMt x 8·kNo], k over the tile's
 // 8·kNy entities, P the dlogits in s (C layout) and Y's rows of stride ld
-// in yb (ys: their TF32 remainders).  The C fragment of S is the A
+// in yb (ys: their TF32 remainders).  f32: the C fragment of S is the A
 // fragment with k permuted (t <-> 2t, t+4 <-> 2t+1), and B is read with
 // the same permutation; kNb n-tiles of B at a time.  kBf: P rounded to
-// bf16, one MMA a k-step, each tile's sum added to o in f32.
+// bf16 and packed in pairs, two adjacent n-tiles of S's C layout being the
+// A fragment of one m16n8k16 step as they lie (no permutation), Y read
+// transposed by ldmatrix (lane l gives entity 8·(l / 8 % 2) + l % 8 at
+// column 8·(l / 16): matrices 0-3 are B's two k8 halves of two output
+// n-tiles), one bf16 MMA a k16 step and pair of n-tiles, each tile's sum
+// added to o in f32.
 template <int kMt, int kNy, int kNo, int ld, bool kBf, typename T>
 __device__ __forceinline__ void add_py(float (&o)[kMt][kNo][4],
                                        const float (&s)[kMt][kNy][4],
@@ -140,45 +145,46 @@ __device__ __forceinline__ void add_py(float (&o)[kMt][kNo][4],
     // left K5's bf16 dh 4.0e-6 (median over 200 seeds) of its largest
     // element from float64 where the plain bf16 CE lies 1.2e-6 (an H100,
     // PERF.md §6)
-    uint32_t ab[kMt][kNy][4];
+    static_assert(kNy % 2 == 0 && kNo % 2 == 0, "pairs of n-tiles");
+    static_assert((ld * 2) % 32 == 16, "ldmatrix phases free of bank "
+                  "conflicts (ce_fwd.cuh logit_steps)");
+    uint32_t ap[kMt][kNy / 2][4];
 #pragma unroll
     for (int m = 0; m < kMt; ++m)
 #pragma unroll
-      for (int j = 0; j < kNy; ++j) {
-        ab[m][j][0] = round_bf16(s[m][j][0]);
-        ab[m][j][1] = round_bf16(s[m][j][2]);
-        ab[m][j][2] = round_bf16(s[m][j][1]);
-        ab[m][j][3] = round_bf16(s[m][j][3]);
+      for (int J = 0; J < kNy / 2; ++J) {
+        ap[m][J][0] = pack_bf16(s[m][2 * J][0], s[m][2 * J][1]);
+        ap[m][J][1] = pack_bf16(s[m][2 * J][2], s[m][2 * J][3]);
+        ap[m][J][2] = pack_bf16(s[m][2 * J + 1][0], s[m][2 * J + 1][1]);
+        ap[m][J][3] = pack_bf16(s[m][2 * J + 1][2], s[m][2 * J + 1][3]);
       }
+    const int lane = 4 * g + t;
+    const T* yl = yb + (8 * ((lane >> 3) & 1) + (lane & 7)) * ld + col +
+                  8 * (lane >> 4);
 #pragma unroll
-    for (int n0 = 0; n0 < kNo; n0 += kNb) {
-      float p[kMt][kNb][4];
+    for (int n0 = 0; n0 < kNo; n0 += 2) {
+      float p[kMt][2][4];
 #pragma unroll
-      for (int j = 0; j < kNy; ++j) {
-        const int row = (j * 8 + 2 * t) * ld + col + g;
-        uint32_t bb[kNb][2];
+      for (int J = 0; J < kNy / 2; ++J) {
+        uint32_t b[4];
+        ldsm_x4<true>(b, yl + 16 * J * ld + 8 * n0);
 #pragma unroll
-        for (int n = 0; n < kNb; ++n) {
-          const int at = row + (n0 + n) * 8;
-          bb[n][0] = widen_bf16(yb[at]);
-          bb[n][1] = widen_bf16(yb[at + ld]);
-        }
-#pragma unroll
-        for (int m = 0; m < kMt; ++m)
-#pragma unroll
-          for (int n = 0; n < kNb; ++n) {
-            if (j == 0)
-              mma_tf32_zero(p[m][n], ab[m][j], bb[n]);
-            else
-              mma_tf32(p[m][n], ab[m][j], bb[n]);
+        for (int m = 0; m < kMt; ++m) {
+          if (J == 0) {
+            mma_bf16_zero(p[m][0], ap[m][J], b[0], b[1]);
+            mma_bf16_zero(p[m][1], ap[m][J], b[2], b[3]);
+          } else {
+            mma_bf16(p[m][0], ap[m][J], b[0], b[1]);
+            mma_bf16(p[m][1], ap[m][J], b[2], b[3]);
           }
+        }
       }
 #pragma unroll
       for (int m = 0; m < kMt; ++m)
 #pragma unroll
-        for (int n = 0; n < kNb; ++n)
+        for (int q = 0; q < 2; ++q)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) o[m][n0 + n][i] += p[m][n][i];
+          for (int i = 0; i < 4; ++i) o[m][n0 + q][i] += p[m][q][i];
     }
   } else {
 #pragma unroll

@@ -152,56 +152,6 @@ __device__ __forceinline__ void stage_slice(T* dst, const T* src, int e0,
 
 // ------------------------------------------------- bf16 tensor cores ----
 
-// lo and hi rounded to bf16 (to nearest, ties to even: round_bf16's
-// rounding) and packed, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-// Four 8x8 bf16 matrices from shared memory, lanes 8·q .. 8·q + 7 giving
-// the row addresses of matrix q (16 bytes each); thread (g, t) receives
-// row g, columns 2t, 2t + 1 of each (kTrans: row 2t and 2t + 1, column g).
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if constexpr (kTrans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
-}
-
-// c += a·b, m16n8k16, bf16 in, f32 accumulate.  a = A[g][2t..2t+1],
-// A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; b = B[2t..2t+1][g],
-// B[2t+8..2t+9][g]; c as mma_tf32's.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a·b from a zero accumulator, as mma_bf16.
-__device__ __forceinline__ void mma_bf16_zero(float d[4], const uint32_t a[4],
-                                              const uint32_t b0,
-                                              uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
-}
-
 // The bf16 partial logits of X rows 16·m .. 16·m + 15 and Y entities
 // 16·half .. + 15 over the slice's WS columns (s [1][2][4], the C layout of
 // two n-tiles): each k16 step's products summed in a zeroed accumulator,

@@ -57,14 +57,13 @@ constexpr int tile_smem() {
 // The bf16 instantiations (compute_dtype="bfloat16", or a bf16
 // classifier): X and Y are bf16 rows in device memory, written by the
 // pre-pass (h rounded, Wᵀ rounded or copied from a bf16 W), staged as
-// they are (two bytes an element, one part where 3xTF32 stages two) and
-// widened to f32 bits at the fragment load: one TF32 MMA of two bf16
-// operands is exact, the Pallas kernels' bf16 product with f32
-// accumulation.  The dlogits are rounded to bf16 as they become the A
-// fragment of K5's second product; their sums (db) stay f32.  A row is
-// DT + 8 bf16 (16 bytes past DT, so that rows start on 16 bytes): the
-// fragment loads' lanes g = 0..7 fall 4·g + t / 2 words apart, and the
-// two lanes that share a word read it at once.
+// they are (two bytes an element, one part where 3xTF32 stages two), read
+// by ldmatrix and multiplied by mma.sync.m16n8k16 bf16 with f32
+// accumulators (tc.cuh): the Pallas kernels' bf16 product.  The dlogits
+// are rounded to bf16 and packed in pairs as they become the A fragment
+// of K5's second product; their sums (db) stay f32.  A row is DT + 8 bf16
+// (16 bytes past DT, so that rows start on 16 bytes and each ldmatrix
+// phase of 8 rows falls on 32 distinct banks).
 template <int DT, bool kBf>
 struct Tile {
   using T = typename std::conditional<kBf, uint16_t, float>::type;
@@ -182,7 +181,18 @@ __device__ __forceinline__ void logit_steps(float (&acc)[kMt][kNy][4], int k0,
 }
 
 // logit_steps of the bf16 instantiations: X and Y bf16 rows (row stride
-// DT + 8), one MMA a k-step and tile (ys unused).
+// ld = DT + 8, Tile), read by ldmatrix, and kLogitSteps / 2 k16 steps of
+// mma.sync.m16n8k16 bf16 a pair of n-tiles (ys unused): the exact products
+// of bf16 operands, summed in f32 by the tensor cores, the Pallas kernels'
+// bf16 product.  xw is this thread's element of the warp's X rows, as the
+// f32 overload takes it (row g, column t); the ldmatrix row addresses are
+// taken from it: lane l gives A's row l % 16 at column 8·(l / 16), and Y's
+// entity 8·(l / 16) + l % 8 at column 8·(l / 8 % 2), so that matrices 0-3
+// are A's fragment (rows 0-7 and 8-15, columns 0-7 and 8-15 of the k16
+// step) and B's of two n-tiles (entities 0-7 at columns 0-7 and 8-15, then
+// entities 8-15).  A row is an odd number of 16-byte units (ld · 2
+// bytes: 9, 17 and 33 at DT 64, 128 and 256, 5 in the wide kernels' 32
+// columns), so the 8 rows of an ldmatrix phase fall on 32 distinct banks.
 template <int DT, int kMt, int kNy>
 __device__ __forceinline__ void logit_steps(float (&acc)[kMt][kNy][4], int k0,
                                             const uint16_t* xw,
@@ -190,32 +200,35 @@ __device__ __forceinline__ void logit_steps(float (&acc)[kMt][kNy][4], int k0,
                                             const uint16_t* ys, int g,
                                             int t) {
   constexpr int ld = Tile<DT, true>::ld;
+  static_assert(kNy % 2 == 0 && kLogitSteps % 2 == 0,
+                "pairs of n-tiles and of k8 steps");
+  static_assert((ld * 2) % 32 == 16,
+                "rows on 16 bytes, ldmatrix phases free of bank conflicts");
+  const int lane = 4 * g + t;
+  const uint16_t* xl =
+      xw - (g * ld + t) + (lane & 15) * ld + 8 * (lane >> 4);
+  const uint16_t* yl =
+      yb + (8 * (lane >> 4) + (lane & 7)) * ld + 8 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int kk = 0; kk < kLogitSteps; ++kk) {
-    const int ks = k0 + kk;
-    uint32_t ab[kMt][4], bb[kNy][2];
+  for (int kk = 0; kk < kLogitSteps / 2; ++kk) {
+    const int k = (k0 + 2 * kk) * 8;
+    uint32_t a[kMt][4], b[kNy / 2][4];
 #pragma unroll
-    for (int m = 0; m < kMt; ++m) {
-      const uint16_t* xk = xw + 16 * m * ld + ks * 8;
-      ab[m][0] = widen_bf16(xk[0]);
-      ab[m][1] = widen_bf16(xk[8 * ld]);
-      ab[m][2] = widen_bf16(xk[4]);
-      ab[m][3] = widen_bf16(xk[8 * ld + 4]);
-    }
+    for (int m = 0; m < kMt; ++m) ldsm_x4<false>(a[m], xl + 16 * m * ld + k);
 #pragma unroll
-    for (int j = 0; j < kNy; ++j) {
-      const int at = (j * 8 + g) * ld + ks * 8 + t;
-      bb[j][0] = widen_bf16(yb[at]);
-      bb[j][1] = widen_bf16(yb[at + 4]);
-    }
+    for (int j = 0; j < kNy / 2; ++j)
+      ldsm_x4<false>(b[j], yl + 16 * j * ld + k);
 #pragma unroll
     for (int m = 0; m < kMt; ++m)
 #pragma unroll
-      for (int j = 0; j < kNy; ++j) {
-        if (kk == 0)
-          mma_tf32_zero(acc[m][j], ab[m], bb[j]);
-        else
-          mma_tf32(acc[m][j], ab[m], bb[j]);
+      for (int j = 0; j < kNy / 2; ++j) {
+        if (kk == 0) {
+          mma_bf16_zero(acc[m][2 * j], a[m], b[j][0], b[j][1]);
+          mma_bf16_zero(acc[m][2 * j + 1], a[m], b[j][2], b[j][3]);
+        } else {
+          mma_bf16(acc[m][2 * j], a[m], b[j][0], b[j][1]);
+          mma_bf16(acc[m][2 * j + 1], a[m], b[j][2], b[j][3]);
+        }
       }
   }
 }
@@ -243,8 +256,10 @@ __device__ __forceinline__ void logit_steps(float (&acc)[kMt][kNy][4], int k0,
 // overlap, where the tile before them was one dependent chain: at d 512
 // K4 took 10.53 ms and K5 51.71 against 16.19 and 72.86 before, and rolled
 // 20.54 and 85.34 (N 10,240, V 30,720; an H100 at 700 W).  The bf16
-// instantiations (T = uint16_t) take the same partials, each k-step one
-// MMA of bf16 operands.
+// instantiations (T = uint16_t) take the same 32-column partials, each
+// two chained m16n8k16 bf16 MMAs, unrolled at every width: their
+// fragments take fewer registers, and unrolled K4 and K5 bf16 at d 128
+// took 4-9% less time (tests/ce_bf16_variants.py, an H100).
 template <int DT, int kMt, int kNy, typename T>
 __device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
                                            const T* xw, const T* yb,
@@ -279,7 +294,7 @@ __device__ __forceinline__ void logit_tile(float (&s)[kMt][kNy][4],
         }
   };
   logit_steps<DT, kMt, kNy>(s, 0, xw, yb, ys, g, t);
-  if constexpr (DT <= 128) {
+  if constexpr (DT <= 128 && !kComp) {
 #pragma unroll 1
     for (int k0 = kLogitSteps; k0 < kNd; k0 += kLogitSteps) add_partial(k0);
   } else {
@@ -335,7 +350,12 @@ struct FwdArgs {
 // logit tile s (bias added here, from bias[e] for tile column e; columns
 // past V masked) folded into the running max rm and sum rs (log2 units) and
 // the target logit tl (kMatmulOnly: the plain sum of the logits in rs).
-template <int VARIANT, int kMt, int kNy>
+// kRowChecks (the bf16 instantiations, kBase): a row whose tile lies
+// wholly inside V and holds none of its target takes no check a column,
+// the same arithmetic: the bf16 tile's MMAs leave the f32 work a column
+// the larger share of its time, and K4 bf16 at d 128 took 10% less time
+// (tests/ce_bf16_variants.py, an H100).
+template <int VARIANT, int kMt, int kNy, bool kRowChecks = false>
 __device__ __forceinline__ void fwd_tile(float (&s)[kMt][kNy][4],
                                          const float* bias, int y0, int V,
                                          const int (&xtg)[kMt][2],
@@ -358,19 +378,38 @@ __device__ __forceinline__ void fwd_tile(float (&s)[kMt][kNy][4],
         continue;
       }
       float lm = -CUDART_INF_F;
+      bool checked = true;
+      if constexpr (kRowChecks) {
+        static_assert(VARIANT == kBase, "the production kernel's checks");
+        if (y0 + 8 * kNy <= V &&
+            static_cast<unsigned>(xtg[m][r] - y0) >= 8u * kNy) {
 #pragma unroll
-      for (int j = 0; j < kNy; ++j) {
+          for (int j = 0; j < kNy; ++j)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = j * 8 + 2 * t + c;
-          const int y = y0 + e;
-          const float v = s[m][j][2 * r + c] + bias[e];
-          if (VARIANT != kNoMatch && y < V && y == xtg[m][r])
-            tl[m][r] = v;
-          const float v2 = y < V ? (VARIANT == kExp2 ? v : v * kLog2e)
-                                 : -CUDART_INF_F;
-          s[m][j][2 * r + c] = v2;
-          lm = fmaxf(lm, v2);
+            for (int c = 0; c < 2; ++c) {
+              const float v2 =
+                  (s[m][j][2 * r + c] + bias[j * 8 + 2 * t + c]) * kLog2e;
+              s[m][j][2 * r + c] = v2;
+              lm = fmaxf(lm, v2);
+            }
+          checked = false;
+        }
+      }
+      if (checked) {
+#pragma unroll
+        for (int j = 0; j < kNy; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = j * 8 + 2 * t + c;
+            const int y = y0 + e;
+            const float v = s[m][j][2 * r + c] + bias[e];
+            if (VARIANT != kNoMatch && y < V && y == xtg[m][r])
+              tl[m][r] = v;
+            const float v2 = y < V ? (VARIANT == kExp2 ? v : v * kLog2e)
+                                   : -CUDART_INF_F;
+            s[m][j][2 * r + c] = v2;
+            lm = fmaxf(lm, v2);
+          }
         }
       }
       // the tile's exponentials summed apart, then added to the
@@ -439,9 +478,14 @@ __device__ __forceinline__ void fwd_partials(const float (&rm)[kMt][2],
 
 // Per row and split of the vocab: the running max and sum of exp over the
 // split's columns, in log2 units, and the target logit (kMatmulOnly: the
-// plain sum of the split's logits in the sum's place).
+// plain sum of the split's logits in the sum's place).  The bf16
+// instantiation takes two blocks an SM (at most 128 registers a thread;
+// its bf16 tiles take half the shared memory of the f32 ones), so that
+// one block's f32 work (the Kahan adds, the exponentials) overlaps the
+// other's MMAs; its plans read its own residency (ce.cu, ce_slots design
+// 3).
 template <int DT, int VARIANT = kBase, bool kBf = false>
-__global__ void __launch_bounds__(BwdCfg<DT>::kThreads, 1)
+__global__ void __launch_bounds__(BwdCfg<DT>::kThreads, kBf ? 2 : 1)
 ce_fwd_kernel(const FwdArgs a) {
   using L = Tile<DT, kBf>;
   using T = typename L::T;
@@ -524,7 +568,7 @@ ce_fwd_kernel(const FwdArgs a) {
 
     float s[kMt][kNy][4];
     logit_tile<DT, kMt, kNy>(s, xw, yb, ys, g, t);
-    fwd_tile<VARIANT, kMt, kNy>(s, bias, y0, a.V, xtg, rm, rs, tl, t);
+    fwd_tile<VARIANT, kMt, kNy, kBf>(s, bias, y0, a.V, xtg, rm, rs, tl, t);
   }
   cp_async_wait<0>();
 

@@ -31,16 +31,12 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
 // as the bits of an f32 whose low 16 bits are zero.  A bf16 value is exact
 // in TF32, so one TF32 MMA of two rounded operands multiplies them exactly
 // and sums in f32: the numerics of a bf16 MMA with f32 accumulation, which
-// the kernels' bf16 instantiations (compute_dtype="bfloat16") take for the
-// Pallas kernels' bf16 products.  Finite x.
+// the towers' bf16 instantiations (compute_dtype="bfloat16", gemm_tile's
+// TERMS 1) take for the Pallas kernels' bf16 products; the CE's run bf16
+// MMAs on bf16 rows (below).  Finite x.
 __device__ __forceinline__ uint32_t round_bf16(float x) {
   const uint32_t u = __float_as_uint(x);
   return (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
-}
-
-// A bf16 value held in memory (its 16 bits), as the bits of the same f32.
-__device__ __forceinline__ uint32_t widen_bf16(uint16_t b) {
-  return static_cast<uint32_t>(b) << 16;
 }
 
 // x rounded to bf16, as an f32.
@@ -76,6 +72,65 @@ __device__ __forceinline__ void mma_tf32_zero(float d[4], const uint32_t a[4],
       "{%10, %11, %12, %13};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+// The bf16 tensor cores (the CE kernels' bf16 instantiations: ce_fwd.cuh,
+// ce_bwd.cuh, ce_cluster.cu): operands read from shared memory by
+// ldmatrix, one mma.sync.m16n8k16 bf16 with f32 accumulators a k16 step
+// (twice the TF32 rate, and a quarter of the fragment loads of
+// mma_tf32 on bf16 values widened one 16-bit load at a time).  The C
+// layout is mma_tf32's, so two adjacent n8-tiles of a product's C
+// fragments, rounded and packed in pairs (pack_bf16), are the A fragment
+// of the next product's k16 step as they lie.
+
+// lo and hi rounded to bf16 (to nearest, ties to even: round_bf16's
+// rounding) and packed, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Four 8x8 bf16 matrices from shared memory, lanes 8·q .. 8·q + 7 giving
+// the row addresses of matrix q (16 bytes each); thread (g, t) receives
+// row g, columns 2t, 2t + 1 of each (kTrans: row 2t and 2t + 1, column g).
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+}
+
+// c += a·b, m16n8k16, bf16 in, f32 accumulate.  a = A[g][2t..2t+1],
+// A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; b = B[2t..2t+1][g],
+// B[2t+8..2t+9][g]; c as mma_tf32's.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a·b from a zero accumulator, as mma_bf16.
+__device__ __forceinline__ void mma_bf16_zero(float d[4], const uint32_t a[4],
+                                              const uint32_t b0,
+                                              uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
         "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
 }
 

@@ -42,11 +42,11 @@ instantiations: the JAX package's limit).
 
 ``bf16=True`` (``compute_dtype="bfloat16"``, and always for a bf16 W)
 selects the bf16 instantiations, the JAX kernels' numerics: every product
-of bf16-rounded operands (h, W and the dlogits) summed in f32: by one TF32
-MMA a k-step of the bf16 values in ``ce.cu``, by bf16 MMAs (m16n8k16) in
-the cluster kernels.  A pre-pass writes h and Wᵀ in bf16 (W read once, at
-two bytes an element where it is bf16), and the kernels stage the bf16
-rows.  Their launches count apart (``launches_bf16``).
+of bf16-rounded operands (h, W and the dlogits) summed in f32, on the bf16
+tensor cores (``mma.sync.m16n8k16`` bf16, operands read by ``ldmatrix``)
+in every design.  A pre-pass writes h and Wᵀ in bf16 (W read once, at two
+bytes an element where it is bf16), and the kernels stage the bf16 rows.
+Their launches count apart (``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -189,12 +189,20 @@ def _k5_splits(N: int, d: int, V: int, slots: int, tile_us: float, bx: int,
     return split_h, split_w
 
 
-# A tile's MMA work in the plans' cost model: 6 TF32 FLOPs a multiply-add
-# in f32 (three TF32 terms), 2 in the bf16 instantiations; at an assumed
-# 2 TFLOP/s an SM in the resident and cluster kernels and 1 in the wide
-# ones, which the L2's reads hold to about half that rate.
+# A tile's MMA work in the plans' cost model, in TF32 FLOPs a multiply-add:
+# 6 in f32 (three TF32 terms), 1 in the bf16 instantiations of ce.cu's
+# kernels (one bf16 MMA, at twice the TF32 rate); at an assumed 2 TFLOP/s
+# an SM in the resident and cluster kernels and 1 in the wide ones, which
+# the L2's reads hold to about half that rate.
 def _flops(bf16: bool) -> float:
-    return 2.0 if bf16 else 6.0
+    return 1.0 if bf16 else 6.0
+
+
+# The cluster kernels' bf16 tile in the same units: their exchange and
+# barriers, not the MMAs, take 61% of its time at d 1,024 (PERF.md §6), so
+# a tile costs about a third of the f32 one (13.49 against 31.63 ms at d
+# 512, an H100), 2 TF32 FLOPs a multiply-add.
+CLUSTER_BF16_FLOPS = 2.0
 
 
 def fwd_splits(N: int, d: int, V: int, bf16: bool, slots: int) -> int:
@@ -255,9 +263,9 @@ def cluster_plan(N: int, d: int, V: int, bf16: bool, slots: int
     ws = slice_width(w)
     # a block's work on a Y tile: the slice's logits and its share of the
     # product
+    flops = CLUSTER_BF16_FLOPS if bf16 else _flops(False)
     split_h, split_w = _k5_splits(
-        N, d, V, slots,
-        _flops(bf16) * 2 * ws * CLUSTER_ROWS * CLUSTER_TILE / 2e6,
+        N, d, V, slots, flops * 2 * ws * CLUSTER_ROWS * CLUSTER_TILE / 2e6,
         CLUSTER_ROWS, CLUSTER_TILE)
     return ClusterPlan(c, w, ws, split_h, split_w, cluster_smem(w, bf16))
 
@@ -265,8 +273,9 @@ def cluster_plan(N: int, d: int, V: int, bf16: bool, slots: int
 @functools.lru_cache(maxsize=64)
 def _slots(design: int, d: int, bf16: bool) -> int:
     """Blocks of ce.cu's kernels the card holds at once (``ce_slots``):
-    design 0 the resident kernels at width d, 1 K4's wide kernel, 2 K5's
-    wide kernels."""
+    design 0 K5's resident kernels at width d, 1 K4's wide kernel, 2 K5's
+    wide kernels, 3 K4's resident kernel at width d (two blocks an SM in
+    bf16, one in f32)."""
     f = build.library("ce").ce_slots
     f.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
@@ -281,7 +290,7 @@ def _slots(design: int, d: int, bf16: bool) -> int:
 def plan_fwd(N: int, d: int, V: int, bf16: bool) -> int:
     """:func:`fwd_splits` with the card's own slots."""
     return fwd_splits(N, d, V, bf16,
-                      _slots(0 if d <= RESIDENT else 1, d, bf16))
+                      _slots(3 if d <= RESIDENT else 1, d, bf16))
 
 
 def plan_bwd(N: int, d: int, V: int, bf16: bool, wide: bool = False

@@ -10,8 +10,11 @@ Needs one CUDA card, ``nvcc`` and the ``c2dsr_tpu_torch`` package beside
 this file; it builds the CUDA kernels from ``c2dsr_tpu_torch/csrc`` itself.
 Phases (any failure exits non-zero without the final line):
 
-1. setup: build the kernels, print the build time and the card; the CUDA
-   dropout hash must equal ops/dropout.bits_reference.
+1. setup: build the kernels, print the build time and the card; the CE
+   kernels' SASS (``cuobjdump -sass``, ``_ce_sass``): every bf16
+   instantiation of K4 and K5 runs bf16 MMAs (HMMA.16816.F32.BF16) and no
+   TF32 one, every f32 one the reverse; the CUDA dropout hash must equal
+   ops/dropout.bits_reference.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the main paths' shapes, and time kernel, plain version and one
    PyTorch library call (a yardstick the port never calls): the SpMM over A
@@ -29,7 +32,8 @@ Phases (any failure exits non-zero without the final line):
    and 512 and at L up to 64, K4 and K5 at d 256 and 40; K4 and K5 past
    d 256 (``phase_ce_wide``, CE_WIDTHS; K5 on its cluster kernels, held to
    float64 and bitwise, and timed in turns against its kernels of before;
-   bf16 at CE_BF16_WIDTHS against the plain bf16 CE).
+   bf16 at CE_BF16_WIDTHS against the plain bf16 CE).  (K4/K5 bf16 at d
+   256 and 1,024, BF16_CE_DS, run in phase bf16.)
 3. serving path: the ranking path at Food-Kitchen geometry with the
    default Config and random seeded weights: convolve once, then rank the
    eval split in sampled and in full mode.  Every serving kernel must
@@ -1853,6 +1857,72 @@ def _bf16_entry(ms, plain_ms, library_ms, flops, nbytes, peak_bw, err,
             "max_rel_err": err, "f32_instantiation_err": err_f32, **extra}
 
 
+# The CE kernels whose instruction mix the SASS check reads (``_ce_sass``):
+# (library stem, regex on a mangled kernel name, its groups' names); the
+# bf16 instantiations run m16n8k16 bf16 MMAs (HMMA.16816.F32.BF16) and no
+# TF32 one, the f32 ones the reverse.
+CE_SASS_KERNELS = (
+    ("ce", r"ce_fwd_kernelILi(\d+)ELi0ELb([01])E", ("DT", "bf16")),
+    ("ce", r"ce_fwd_wide_kernelILb([01])E", ("bf16",)),
+    ("ce", r"ce_bwd_kernelILi(\d+)ELb([01])ELb([01])E",
+     ("DT", "dh", "bf16")),
+    ("ce", r"ce_bwd_wide_kernelILb([01])ELb([01])E", ("dh", "bf16")),
+    ("ce_cluster", r"ce_bwd_cluster_kernelILi(\d+)ELb([01])ELb([01])"
+     r"ELb([01])E", ("WS", "dh", "bf16", "gather")))
+
+
+def _ce_sass():
+    """The MMAs each CE kernel was compiled to, read by ``cuobjdump -sass``
+    from the built libraries: for every instantiation of CE_SASS_KERNELS
+    its counts of bf16 (``HMMA.16816.F32.BF16``) and TF32
+    (``HMMA.1684.F32.TF32``) MMA instructions.  Fails unless every bf16
+    instantiation (the resident and wide K4, the resident and wide K5, the
+    cluster kernels) has bf16 MMAs and no TF32 one, and every f32 one the
+    reverse."""
+    import re
+    import shutil
+    from c2dsr_tpu_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(tool), "cuobjdump not found: the SASS check needs "
+          "the CUDA toolkit")
+    libs = build.build_all()
+    out, seen = {}, set()
+    for stem in sorted({k[0] for k in CE_SASS_KERNELS}):
+        res = subprocess.run([tool, "-sass", libs[stem]], capture_output=True,
+                             text=True, timeout=300)
+        check(res.returncode == 0, f"cuobjdump -sass {stem}: "
+              f"{res.stderr[-2000:]}")
+        # "Function : <mangled name>" opens each kernel's listing
+        for part in re.split(r"\n\s*Function : ", res.stdout)[1:]:
+            name, _, body = part.partition("\n")
+            for lib, pattern, groups in CE_SASS_KERNELS:
+                m = re.search(pattern, name)
+                if lib != stem or not m:
+                    continue
+                args = dict(zip(groups, m.groups()))
+                key = ",".join(f"{k}={v}" for k, v in args.items())
+                kind = pattern.split("I", 1)[0]
+                bf = len(re.findall(r"HMMA\.16816\.F32\.BF16", body))
+                tf = len(re.findall(r"HMMA\.\S*TF32", body))
+                out[f"{kind}<{key}>"] = {"hmma_bf16": bf, "hmma_tf32": tf}
+                seen.add((kind, args.get("DT"), args["bf16"]))
+                if args["bf16"] == "1":
+                    check(bf > 0 and tf == 0, f"SASS {kind} {key}: {bf} "
+                          f"bf16 and {tf} TF32 MMAs (want bf16 MMAs only)")
+                else:
+                    check(tf > 0 and bf == 0, f"SASS {kind} {key}: {bf} "
+                          f"bf16 and {tf} TF32 MMAs (want TF32 MMAs only)")
+    want = ({(k, str(dt), "1") for k in ("ce_fwd_kernel", "ce_bwd_kernel")
+             for dt in (64, 128, 256)}
+            | {(k, None, "1") for k in ("ce_fwd_wide_kernel",
+                                        "ce_bwd_wide_kernel",
+                                        "ce_bwd_cluster_kernel")})
+    check(want <= seen, f"SASS: bf16 instantiations not in the listing: "
+          f"{sorted(want - seen, key=str)}")
+    log("sass: " + json.dumps(out))
+    return out
+
+
 def _bf16_spmm(graphs, train, timer, peak_bw):
     """K1 (over A and Aᵀ) and K6 (dest over A, src over Aᵀ with one FK
     batch's flags) in their bf16 instantiations against the plain bf16 hop,
@@ -2205,13 +2275,17 @@ def _bf16_ce(timer, peak_bw):
 
 BF16_TOWERS = ((128, 1, 200, 256), (1024, 8, 15, 256))   # (d, heads, L, B)
 BF16_CE_WIDE = 1024
+BF16_CE_DS = (256, BF16_CE_WIDE)   # K4/K5 bf16's widths in phase_shapes:
+                                   # the resident kernels' widest (a Y tile
+                                   # of one k16 step), and K4's wide kernel
+                                   # and K5's cluster
 
 
 def _bf16_shapes(timer, peak_bw):
     """The bf16 instantiations at one long and one wide tower (BF16_TOWERS:
     K2 at dropout 0.2 saving K3's activations, K3 at K2's branches, one
-    layer) and K4/K5 at d BF16_CE_WIDE (domain A's rows and
-    vocab, a bf16 W): against the plain bf16 versions at the FK limits,
+    layer) and K4/K5 at d BF16_CE_DS (``_bf16_ce_width``: domain A's rows
+    and vocab, a bf16 W): against the plain bf16 versions at the FK limits,
     the f32 instantiations failing each, bitwise across launches; timed
     beside the plain versions and the library's bf16 calls, with the bounds
     of ``_bf16_entry`` (the towers' work as ``_tower_work`` counts it, the
@@ -2220,8 +2294,7 @@ def _bf16_shapes(timer, peak_bw):
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import dropout as drop
     from c2dsr_tpu_torch.ops import encoder as enc
-    from c2dsr_tpu_torch.ops import encoder_cuda, fused_ce, fused_ce_cuda
-    from c2dsr_tpu_torch.bench import kernel_bench
+    from c2dsr_tpu_torch.ops import encoder_cuda
     pad, out = 64093, {}
     for d, n_head, L, B in BF16_TOWERS:
         p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
@@ -2300,9 +2373,23 @@ def _bf16_shapes(timer, peak_bw):
             f"{bb['bound_bytes_ms']:.4f}")
         del acts, acts32, b, b2, b32, rb
         torch.cuda.empty_cache()
-    d, N, V, n_real = BF16_CE_WIDE, 512 * 2 * 10, 30720, N_ITEM_A
+    for d in BF16_CE_DS:
+        out[f"ce_d{d}"] = _bf16_ce_width(d, timer, peak_bw)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_ce_width(d, timer, peak_bw):
+    """K4 and K5 bf16 at width d (domain A's rows and vocab, a bf16 W):
+    against the plain bf16 CE at the FK limits, the f32 instantiations
+    failing each, bitwise across launches; timed beside the plain versions
+    and the library's bf16 calls, with the bounds of ``_bf16_entry``."""
+    from c2dsr_tpu_torch.bench import kernel_bench
+    from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
+    N, V, n_real = 512 * 2 * 10, 30720, N_ITEM_A
     h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, d)
     wb = w.to(torch.bfloat16)
+    reps = 20 if d <= fused_ce_cuda.RESIDENT else 5
     with torch.no_grad():
         lse, tlog = fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt)
         again = fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt)
@@ -2314,7 +2401,9 @@ def _bf16_shapes(timer, peak_bw):
         want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt, bf16=True)
         got32 = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
     torch.cuda.synchronize()
-    tag = f"bf16 ce N={N} d={d} V={V} (K4's wide kernel, K5's cluster)"
+    design = ("K4's and K5's resident kernels" if d <= fused_ce_cuda.RESIDENT
+              else "K4's wide kernel, K5's cluster")
+    tag = f"bf16 ce N={N} d={d} V={V} ({design})"
     e = max(_rel(lse, rlse), _rel(tlog[real], rtlog[real]))
     e32 = max(_rel(lse32, rlse), _rel(tlog32[real], rtlog[real]))
     eb = max(_rel(a, r) for a, r in zip(got_f, want))
@@ -2329,35 +2418,34 @@ def _bf16_shapes(timer, peak_bw):
           f"{CE_BWD_BF16_TOL}")
     with torch.no_grad():
         f_ms = timer(lambda: fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt),
-                     reps=5)
+                     reps=reps)
         f_plain = timer(lambda: fused_ce.ce_fwd_plain(h, wb, bm, pad_l, tgt),
-                        reps=5)
+                        reps=reps)
         hb = h.to(torch.bfloat16)
         f_lib = (timer(lambda: kernel_bench.ce_fwd_bf16_library(
-            hb, wb, bm, pad_l, tgt), reps=5)
+            hb, wb, bm, pad_l, tgt), reps=reps)
             if kernel_bench.mm_bf16_f32(hb[:1], wb[:, :1]) is not None
             else None)
         b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse, dt,
-                                                  tgt), reps=5)
+                                                  tgt), reps=reps)
         b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, wb, bm, lse, dlse,
-                                                      dt, tgt), reps=5)
+                                                      dt, tgt), reps=reps)
     b_lib, lib_errs = _ce_bwd_bf16_library(timer, h, wb, bm, lse, dlse, dt,
-                                           tgt, reps=5)
+                                           tgt, reps=reps)
     io = 4 * (N * d + V + 3 * N) + 2 * d * V
     fb = _bf16_entry(f_ms, f_plain, f_lib, 2 * N * V * d, io + 8 * N, peak_bw,
                      e, e32)
     bb = _bf16_entry(b_ms, b_plain, b_lib, 4 * N * V * d, 2 * io + 4 * N * d,
                      peak_bw, eb, eb32)
-    out[f"ce_d{d}"] = {"fwd_ms": f_ms, "fwd_plain_ms": f_plain,
-                       "fwd_library_ms": f_lib, "bwd_ms": b_ms,
-                       "bwd_plain_ms": b_plain, "bwd_library_ms": b_lib,
-                       "bwd_library_errors": lib_errs,
-                       "fwd_err": e, "fwd_err_f32": e32, "bwd_err": eb,
-                       "bwd_err_f32": eb32,
-                       **{f"{k}_{n}": r[n] for k, r in (("fwd", fb),
-                                                        ("bwd", bb))
-                          for n in ("bound_ms", "bound_tf32_one_pass_ms",
-                                    "bound_bytes_ms", "bound_by")}}
+    res = {"fwd_ms": f_ms, "fwd_plain_ms": f_plain, "fwd_library_ms": f_lib,
+           "bwd_ms": b_ms, "bwd_plain_ms": b_plain, "bwd_library_ms": b_lib,
+           "bwd_library_errors": lib_errs, "fwd_err": e, "fwd_err_f32": e32,
+           "bwd_err": eb, "bwd_err_f32": eb32,
+           "max_abs_err": max(float((a - r).abs().max())
+                              for a, r in zip(got_f, want)),
+           **{f"{k}_{n}": r[n] for k, r in (("fwd", fb), ("bwd", bb))
+              for n in ("bound_ms", "bound_tf32_one_pass_ms",
+                        "bound_bytes_ms", "bound_by")}}
     log(f"{tag}: fwd rel err {e:.3e} (f32 instantiation {e32:.3e}), bwd "
         f"{eb:.3e} ({eb32:.3e}), launches bitwise equal; K4 {f_ms:.4f} ms "
         f"plain {f_plain:.4f} library {f_lib} bound bf16 / one TF32 pass / "
@@ -2366,7 +2454,7 @@ def _bf16_shapes(timer, peak_bw):
         f"library {b_lib} (errors from the plain bf16 CE {lib_errs}) bound "
         f"{bb['bound_ms']:.4f} / {bb['bound_tf32_one_pass_ms']:.4f} / "
         f"{bb['bound_bytes_ms']:.4f}")
-    return out
+    return res
 
 
 def _ce_bwd_bf16_library(timer, h, wb, bm, lse, dlse, dt, tgt, reps=20):
@@ -3726,15 +3814,28 @@ def _busy_ms(fn, reps: int = 3):
     return busy, k2
 
 
+def _digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    import hashlib
+    return hashlib.sha256(b"".join(
+        t.detach().float().cpu().numpy().tobytes() for t in tensors)
+    ).hexdigest()[:16]
+
+
 def measure_rates() -> dict:
     """Measures of the ``c2dsr_tpu_torch`` first on sys.path, at FK
-    geometry with the default Config.  The training step: 10 warm-up steps,
-    8 runs of 4 steps (train examples/s each, and the host's ms a step
-    until the last step is enqueued, before the synchronise), then 3
-    profiled steps (device busy ms, and K2's ms, each).  K1 a hop of each
-    table over A and Aᵀ, K7's six calls of one step's backward, and K4's
-    and K5's two calls of a step on phase_ce's inputs (3 timings each, the
-    median of 20 CUDA-event timings).  K2 alone at the
+    geometry with the default Config.  The training step, f32 and then
+    bf16 (compute_dtype and classifier_dtype bfloat16): 10 warm-up steps
+    (a digest of their losses), 8 runs of 4 steps (train examples/s each,
+    and the host's ms a step until the last step is enqueued, before the
+    synchronise), then 3 profiled steps (device busy ms, and K2's ms,
+    each).  K1 a hop of each table over A and Aᵀ, K7's six calls of one
+    step's backward, and K4's and K5's two calls of a step on phase_ce's
+    inputs, f32 and bf16 (a bf16 W), K4/K5 bf16 at d 256 and K4 bf16 at d
+    1,024 (3 timings each, the median of 20 CUDA-event timings), with
+    digests of K4's and K5's outputs at d 128-1,024 in f32 and bf16 (K5's
+    cluster kernels past 256): equal digests show two checkouts' kernels
+    computing the same bits.  K2 alone at the
     serving path's tower (B 2048, L 15, d 128, one head, one layer; the
     median of 20 timed calls, 3 times).  The serving path (convolve, then
     rank the eval split in sampled and full mode): 3 profiled runs after
@@ -3771,35 +3872,47 @@ def measure_rates() -> dict:
         while True:
             yield from it.epoch()
 
-    feed = batches()
-    opt = optim.make_optimizer(cfg, steps_per_epoch=len(it))
-    state = step_mod.init_state(params_mod.init_params(
-        cfg, spec, torch.Generator().manual_seed(0), "cuda"), opt)
     # A checkout from before the seed followed state.step takes a CPU
     # generator: drop this once no compared checkout predates that.
     gen = ((torch.Generator().manual_seed(cfg.seed),) if "generator" in
            inspect.signature(step_mod.make_train_step).parameters else ())
-    fn = step_mod.make_train_step(cfg, spec, graphs, opt, *gen, "cuda")
-    for _ in range(10):
-        state, aux = fn(state, next(feed))
-    torch.cuda.synchronize()
-    rates, host = [], []
-    for _ in range(8):
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_RUN_STEPS):
+    step_rates = {}
+    digests = {}
+    for name, c in (("f32", cfg), ("bf16", cfg.with_(
+            compute_dtype="bfloat16", classifier_dtype="bfloat16"))):
+        opt = optim.make_optimizer(c, steps_per_epoch=len(it))
+        state = step_mod.init_state(params_mod.init_params(
+            c, spec, torch.Generator().manual_seed(0), "cuda"), opt)
+        fn = step_mod.make_train_step(c, spec, graphs, opt, *gen, "cuda")
+        feed = batches()
+        losses = []
+        for _ in range(10):
             state, aux = fn(state, next(feed))
-        host.append((time.perf_counter() - t0) / TRAIN_RUN_STEPS * 1e3)
+            losses.append(aux["loss"])
         torch.cuda.synchronize()
-        rates.append(TRAIN_RUN_STEPS * cfg.batch_size
-                     / (time.perf_counter() - t0))
+        # the first ten losses from one seeded state and feed: equal
+        # digests say two checkouts' steps computed the same bits
+        digests[f"step_{name}_losses"] = _digest(*losses)
+        rates, host = [], []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_RUN_STEPS):
+                state, aux = fn(state, next(feed))
+            host.append((time.perf_counter() - t0) / TRAIN_RUN_STEPS * 1e3)
+            torch.cuda.synchronize()
+            rates.append(TRAIN_RUN_STEPS * cfg.batch_size
+                         / (time.perf_counter() - t0))
 
-    def one_step():
-        fn(state, next(feed))
-        torch.cuda.synchronize()
+        def one_step():
+            fn(state, next(feed))
+            torch.cuda.synchronize()
 
-    busy, k2 = _busy_ms(one_step)
-    check(math.isfinite(float(aux["loss"])), "train loss not finite")
-    del state, opt, fn
+        busy, k2 = _busy_ms(one_step)
+        check(math.isfinite(float(aux["loss"])),
+              f"{name} train loss not finite")
+        step_rates[name] = (rates, host, busy, k2)
+        del state, opt, fn
+    rates, host, busy, k2 = step_rates["f32"]
 
     # K1 and K7 at a step's shapes, on inputs made alike in both checkouts:
     # K1 a hop of each table over A and Aᵀ on a seeded table; K7 the six
@@ -3841,13 +3954,49 @@ def measure_rates() -> dict:
                                                  tgt))
     ce["k4_k5_step_ms"] = [a + b for a, b in zip(ce["k4_step_ms"],
                                                  ce["k5_step_ms"])]
+    # the bf16 instantiations on a bf16 W (the bf16 classifier): a step's
+    # two calls of each, and domain A's at d 256 (K4 and K5) and d 1,024
+    # (K4), with their outputs' digests; the f32 kernels' digests at FK
+    # and of K5's cluster kernels (f32 and bf16) at d 512 and 1,024
+    for key in ("k4_bf16_step_ms", "k5_bf16_step_ms", "k4_bf16_d256_ms",
+                "k5_bf16_d256_ms", "k4_bf16_d1024_ms"):
+        ce[key] = [0.0] * 3
+    for d, V, n_real in ((128, 30720, N_ITEM_A), (128, 36864, N_ITEM_B),
+                         (256, 30720, N_ITEM_A), (512, 30720, N_ITEM_A),
+                         (1024, 30720, N_ITEM_A)):
+        h, w, bm, pad_l, tgt, _, dlse, dt = _ce_inputs(512 * 2 * 10, d, V,
+                                                       n_real, V + d)
+        wb = w.to(torch.bfloat16)
+        at = "step" if d == 128 else f"d{d}"
+        with torch.no_grad():
+            # K5 on the f32 K4's lse, whose bits two checkouts share where
+            # K4 f32 is unchanged, so that K5's digest is its own
+            lse32, _ = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+            for tag, ww in (("f32", w), ("bf16", wb)):
+                digests[f"k4_{tag}_d{d}_V{V}"] = _digest(
+                    *fused_ce_cuda.ce_fwd(h, ww, bm, pad_l, tgt))
+                digests[f"k5_{tag}_d{d}_V{V}"] = _digest(
+                    *fused_ce_cuda.ce_bwd(h, ww, bm, lse32, dlse, dt, tgt))
+            lse, _ = fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt)
+            for i in range(3):
+                if f"k4_bf16_{at}_ms" in ce:
+                    ce[f"k4_bf16_{at}_ms"][i] += timer(
+                        lambda: fused_ce_cuda.ce_fwd(h, wb, bm, pad_l, tgt))
+                if f"k5_bf16_{at}_ms" in ce:
+                    ce[f"k5_bf16_{at}_ms"][i] += timer(
+                        lambda: fused_ce_cuda.ce_bwd(h, wb, bm, lse, dlse,
+                                                     dt, tgt))
+        del h, w, wb, lse32
+        torch.cuda.empty_cache()
+    ce["k4_k5_bf16_step_ms"] = [a + b for a, b in zip(
+        ce["k4_bf16_step_ms"], ce["k5_bf16_step_ms"])]
     # K4 from float64 on trained-scale logits (deterministic: one reading)
     errs = [_k4_trained_errs(V, n_real)
             for V, n_real in ((30720, N_ITEM_A), (36864, N_ITEM_B))]
     ce["k4_trained_f64"] = [max(e for e, _ in errs)]
     ce["plain_trained_f64"] = [max(p for _, p in errs)]
     kernels.update(ce)
-    del timer, h, w
+    del timer
 
     pad = spec.idx_pad
     p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
@@ -3888,8 +4037,10 @@ def measure_rates() -> dict:
     for _ in range(SERVE_RUNS):
         serve()
     serve_busy, serve_k2 = _busy_ms(serve)
+    bf = step_rates["bf16"]
     return {"rates": rates, "host_ms": host, "busy_ms": busy, "k2_ms": k2,
-            "k2_eval_ms": k2_eval,
+            "bf16_rates": bf[0], "bf16_host_ms": bf[1], "bf16_busy_ms": bf[2],
+            "digests": digests, "k2_eval_ms": k2_eval,
             "serve_convolve_ms": serve_rates["convolve"][:SERVE_RUNS],
             "serve_sampled_rates": serve_rates["sampled"][:SERVE_RUNS],
             "serve_full_rates": serve_rates["full"][:SERVE_RUNS],
@@ -3901,7 +4052,7 @@ def compare(other: str) -> int:
     holding another version of ``c2dsr_tpu_torch``), each in a process of
     its own, in turns (other, this, this, other), on one card.  For each
     measure, the difference of the means and whether it exceeds 3 standard
-    errors."""
+    errors; which outputs' digests the two checkouts share."""
     runs = {other: [], REPO_DIR: []}
     for root in (other, REPO_DIR, REPO_DIR, other):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -3911,7 +4062,8 @@ def compare(other: str) -> int:
         res = json.loads(out.stdout.strip().splitlines()[-1])
         runs[root].append(res)
         log(f"compare {root}: " + "; ".join(
-            f"{k} {[round(v, 4) for v in vs]}" for k, vs in res.items()))
+            f"{k} {[round(v, 4) for v in vs]}" for k, vs in res.items()
+            if k != "digests") + f"; digests {res.get('digests')}")
     for key, unit in (("rates", "train examples/s"),
                       ("host_ms", "host ms to enqueue a train step"),
                       ("busy_ms", "ms busy a train step"),
@@ -3930,7 +4082,19 @@ def compare(other: str) -> int:
                       ("k7_step_ms", "ms of K7's six calls a step"),
                       ("k4_step_ms", "ms of K4's two calls a step"),
                       ("k5_step_ms", "ms of K5's two calls a step"),
-                      ("k4_k5_step_ms", "ms of K4 + K5 a step")):
+                      ("k4_k5_step_ms", "ms of K4 + K5 a step"),
+                      ("bf16_rates", "bf16 train examples/s"),
+                      ("bf16_host_ms", "host ms to enqueue a bf16 step"),
+                      ("bf16_busy_ms", "ms busy a bf16 train step"),
+                      ("k4_bf16_step_ms", "ms of K4 bf16's two calls a step"),
+                      ("k5_bf16_step_ms", "ms of K5 bf16's two calls a step"),
+                      ("k4_k5_bf16_step_ms", "ms of K4 + K5 bf16 a step"),
+                      ("k4_bf16_d256_ms", "ms of K4 bf16 at d 256"),
+                      ("k5_bf16_d256_ms", "ms of K5 bf16 at d 256"),
+                      ("k4_bf16_d1024_ms", "ms of K4 bf16 at d 1,024")):
+        if any(key not in res for v in runs.values() for res in v):
+            log(f"compare {key}: not measured by both checkouts")
+            continue
         vals = {k: np.array([r for res in v for r in res[key]])
                 for k, v in runs.items()}
         mine, theirs = vals[REPO_DIR], vals[other]
@@ -3940,6 +4104,14 @@ def compare(other: str) -> int:
             f"{theirs.mean():.4f} {unit} ({diff / theirs.mean():+.2%}), "
             f"standard error {se:.4f}: "
             f"{'resolved' if abs(diff) > 3 * se else 'unresolved'}")
+    mine = runs[REPO_DIR][0].get("digests", {})
+    theirs = runs[other][0].get("digests", {})
+    same = sorted(k for k in mine if theirs.get(k) == mine[k])
+    differ = sorted(k for k in mine if k in theirs and theirs[k] != mine[k])
+    stable = all(r.get("digests") == v[0].get("digests")
+                 for v in runs.values() for r in v)
+    log(f"compare digests: bitwise equal {same}; different {differ}; each "
+        f"checkout's two runs {'equal' if stable else 'DIFFER'}")
     for key in ("k4_trained_f64", "plain_trained_f64"):
         log(f"compare {key}: this "
             f"{[f'{r[key][0]:.3e}' for r in runs[REPO_DIR]]} against "
@@ -5025,6 +5197,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"setup: kernels built in {time.perf_counter() - t0:.1f} s")
+    sass = _ce_sass()
 
     spec = DataSpec(n_item_a=N_ITEM_A, n_item_b=N_ITEM_B, len_max=LEN_MAX)
     t0 = time.perf_counter()
@@ -5397,13 +5570,20 @@ def main() -> int:
             **({"long_wide": {k: v for k, v in bf16["shapes"].items()
                               if k.startswith("tower")}}
                if kname.startswith("encoder") else {}),
-            **({"d1024": bf16["shapes"][f"ce_d{BF16_CE_WIDE}"]}
+            **({f"d{d}": bf16["shapes"][f"ce_d{d}"] for d in BF16_CE_DS}
+               if kname.startswith("ce_") else {}),
+            **({"sass": {k: v for k, v in sass.items()
+                         if k.startswith(kname[:6]) and "bf16=1" in k}}
                if kname.startswith("ce_") else {}),
             "note": note + "; bound_ms at 989 TFLOP/s bf16 or the bytes at "
-                    "3.35 TB/s, bound_tf32_one_pass_ms at 495 TFLOP/s "
-                    "(this design's one TF32 pass of bf16 operands); "
-                    "f32_instantiation_err the f32 kernel's error against "
-                    "the same plain bf16 version, which fails the gate"})
+                    "3.35 TB/s, bound_tf32_one_pass_ms at 495 TFLOP/s ("
+                    + ("the TF32 rate of the design before, on the bf16 "
+                       "tensor cores now: sass counts each bf16 "
+                       "instantiation's MMAs" if kname.startswith("ce_")
+                       else "this design's one TF32 pass of bf16 operands")
+                    + "); f32_instantiation_err the f32 kernel's error "
+                    "against the same plain bf16 version, which fails the "
+                    "gate"})
     log("bf16 step against the CPU's and rates: " + json.dumps(
         {"step": bf16["step"], "rates": bf16["rates"]}))
     variants = bench["ce_variants"]["shapes"]

@@ -248,6 +248,33 @@ def test_resident_and_wide_plans_keep_the_chain_caps(d, wide, bf16):
                 per(-(-V // fwd_by), fc.fwd_splits(N, d, V, bf16, slots))
 
 
+@pytest.mark.parametrize("d", [64, 128, 256, 1024])
+def test_bf16_plans_fill_whole_waves(d):
+    """The bf16 instantiations' plans at FK's train rows, each domain's
+    vocab and one or two blocks an SM: K4's and K5's splits keep the chain
+    caps, and the resident kernels' fill at least 90% of the waves they
+    take (the merge's reads grow beside a bf16 tile, priced at the bf16
+    MMA's rate, so fewer splits can win)."""
+    N = 10240
+    for V in (30720, 36864):
+        for slots in (132, 264):
+            split_f = fc.fwd_splits(N, d, V, True, slots)
+            if d > fc.RESIDENT:
+                tiles = -(-V // fc.WIDE_FWD_TILE)
+                assert 1 <= split_f <= tiles
+                continue
+            _, bx, by = fc.resident_tile(d)
+            split_h, split_w = fc.bwd_splits(N, d, V, True, slots)
+            assert -(-(-(-V // by)) // split_h) * by <= fc.MAX_CHAIN
+            assert -(-(-(-N // by)) // split_w) * by <= fc.MAX_ROW_CHAIN
+            for x_tiles, splits in ((-(-N // bx), split_f),
+                                    (-(-N // bx), split_h),
+                                    (-(-V // bx), split_w)):
+                blocks = x_tiles * splits
+                waves = -(-blocks // slots)
+                assert blocks >= 0.9 * waves * slots, (V, slots, splits)
+
+
 def test_plans_fill_whole_waves():
     """best_splits, every plan's cost model: with no chain cap binding, the
     split count that fills the slots in whole waves wins, and a cap raises
@@ -288,6 +315,38 @@ def test_plan_refuses_what_the_card_cannot_launch():
         fc.cluster_plan(300, 1020, 1028, True, slots=16)
 
 
+def _c_source(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+def _c_ternary(expr, **names):
+    """A C expression of ternaries and comparisons (``BwdCfg``'s), its
+    value at the given names."""
+    m = re.fullmatch(r"\s*(.+?)\s*\?\s*(.+?)\s*:\s*(.+?)\s*", expr)
+    if m:
+        return (_c_ternary(m.group(2), **names)
+                if eval(m.group(1), {}, names)
+                else _c_ternary(m.group(3), **names))
+    return eval(expr, {}, names)
+
+
+def bwd_cfg(name, dt):
+    """``BwdCfg<DT>::name`` of ``csrc/ce_fwd.cuh`` at DT = dt."""
+    text = _c_source("ce_fwd.cuh")
+    m = re.search(rf"static constexpr int {name} = ([^;]+);", text)
+    assert m, name
+    expr = m.group(1).split("//")[0]
+    names = {"DT": dt}
+    if "kWarps" in expr:
+        names["kWarps"] = bwd_cfg("kWarps", dt)
+    if "kThreads" in expr:
+        names["kThreads"] = bwd_cfg("kThreads", dt)
+    if "kMt" in expr:
+        names["kMt"] = bwd_cfg("kMt", dt)
+    return _c_ternary(expr, **names)
+
+
 def _c_int(path, name):
     text = open(os.path.join(CSRC, path)).read()
     m = re.search(rf"constexpr int {name} = ([^;]+);", text)
@@ -310,6 +369,16 @@ def test_the_plan_and_the_c_source_share_their_constants():
              ("ce.cu", "kWCols"): fc.WIDE_COLS}
     for (path, name), want in pairs.items():
         assert _c_int(path, name) == want, (path, name)
+    # the resident kernels' tiles (ce_fwd.cuh BwdCfg), shared by f32 and
+    # bf16, are resident_tile's
+    for dt in (64, 128, 256):
+        assert fc.resident_tile(dt) == (dt, bwd_cfg("kBx", dt),
+                                        bwd_cfg("kBy", dt))
+    # a multiply-add in the plans' TF32 FLOPs: 3xTF32 takes three TF32
+    # products, ce.cu's bf16 instantiations one bf16 MMA at twice the TF32
+    # rate; the cluster's bf16 tile its measured cost
+    assert fc._flops(False) == 6 * fc._flops(True) == 6.0
+    assert fc._flops(True) < fc.CLUSTER_BF16_FLOPS < fc._flops(False)
     text = open(os.path.join(CSRC, "ce_cluster.cu")).read()
     m = re.search(r"constexpr int slice_width\(int w\) \{\s*return ([^;]+);",
                   text)

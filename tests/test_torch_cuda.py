@@ -1141,12 +1141,13 @@ def test_encoder_bf16_kernels_match_plain(cuda, d, n_head, L, n_layers, B):
     assert all(torch.equal(a, b) for a, b in zip(flat, [again[0]] + again[1]))
 
 
-@pytest.mark.parametrize("d", [40, 128, 512, 1024])
+@pytest.mark.parametrize("d", [40, 128, 256, 264, 512, 1024])
 def test_ce_bf16_kernels_match_plain(cuda, d):
     """K4 and K5 in their bf16 instantiations, on a bf16 W and on an f32 W
     rounded in the pre-pass (the same bits; dW in W's dtype), against the
     plain bf16 CE; bitwise across launches; the f32 instantiations fall
-    outside."""
+    outside.  d 256 is the resident kernels' widest (Y tiles of one k16
+    step), d 264 K4's wide kernel at its narrowest."""
     from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
     N, V, n_real = 300, 1028, 1000
     h, w, bm, pad, tgt = _ce_case(cuda, N, d, V, n_real, seed=d)
