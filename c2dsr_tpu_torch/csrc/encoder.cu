@@ -53,13 +53,17 @@
 //   not written (p is: attention works in it).
 // A one-layer tower call launches 6 kernels up to d 256 (5 in eval without
 // dropout: the input kernel only applies dropout or saves the input) and 8
-// above; each further layer adds 5, or 7.
+// above; each further layer adds 5, or 7; the bf16 instantiation one more
+// a call (the weights' bf16 copy).
 //
 // The bf16 instantiation (encoder_fwd's bf16; compute_dtype="bfloat16") is
 // the Pallas kernel's matmul_dtype=bf16: every product rounds both
-// operands to bf16 (round to nearest even) and sums in f32, the four GEMMs
-// as gemm_tile's TERMS 1 (one TF32 MMA of bf16 operands a k-step, exact
-// products), q·kᵀ and p·v in the attention kernel as FFMA over q, k, v and
+// operands to bf16 (round to nearest even) and sums in f32.  The four
+// GEMMs run on the bf16 tensor cores (tc.cuh gemm_tile_bf16: W from the
+// call's bf16 copy of its weights, made by the call's first launch, A
+// rounded as it is staged, ldmatrix and one m16n8k16 bf16 MMA a k16 step,
+// exact products, each 32-k chunk's sum added in f32), at twice the TF32
+// rate.  q·kᵀ and p·v in the attention kernel run FFMA over q, k, v and
 // the dropped probabilities rounded as they are staged (a product of two
 // bf16 values is exact in f32), the logits scaled after the product.
 // LayerNorm, softmax, dropout, the residual adds and every saved
@@ -88,6 +92,7 @@ enum FwdEpi : int {
 struct FwdGemm {
   const float* a;      // A [n, k] row-major
   const float* w;      // W [k, m] row-major
+  const uint16_t* w16; // the bf16 instantiation's: W in bf16
   const float* bias;   // [m]
   float* c;            // [n, m] (kResLn: the LN output; may be null)
   float* c2;           // kRelu: the dropped copy, or null
@@ -160,20 +165,28 @@ __device__ __forceinline__ void ln_fragment_row(
 // by 1 - max p: with 3xTF32's q and k, whose tensor-core sums are several
 // times further from exact than an f32 GEMM's, a d 256 step's w_qkv
 // gradient sat three times further from the exact one than the plain f32
-// tower's (an H100's measurement, PERF.md §6).
+// tower's (an H100's measurement, PERF.md §6).  kBf16Terms names the bf16
+// instantiation, which takes tc.cuh's gemm_tile_bf16.
 constexpr int kQkvTerms = 6, kTerms = 3, kBf16Terms = 1;
 
-// kMap: the call's dropout maps its rows (drop::Dropout::mapped).
+// kMap: the call's dropout maps its rows (drop::Dropout::mapped).  Three
+// blocks an SM, two for the bf16 tile at NT 256, whose A chunk in flight
+// (16 registers) joins its 128 accumulators.
 template <int NT, int TERMS, bool kMap>
-__global__ void __launch_bounds__(kGemmThreads, 3)
+__global__ void __launch_bounds__(kGemmThreads,
+                                  TERMS == kBf16Terms && NT == 256 ? 2 : 3)
 encoder_fwd_gemm_kernel(const FwdGemm g) {
   constexpr int kNj = NT / 8;
   extern __shared__ float4 smem4[];
   const int row0 = blockIdx.x * kGemmRows;
   const int n0 = blockIdx.y * NT;
   float acc[kNj][4];
-  gemm_tile<NT, true, TERMS>(g.a, g.w, g.n, g.k, g.m, row0, n0,
-                             reinterpret_cast<float*>(smem4), acc);
+  if constexpr (TERMS == kBf16Terms)
+    gemm_tile_bf16<NT, true>(g.a, g.w16, g.n, g.k, g.m, row0, n0,
+                             reinterpret_cast<uint16_t*>(smem4), acc);
+  else
+    gemm_tile<NT, true, TERMS>(g.a, g.w, g.n, g.k, g.m, row0, n0,
+                               reinterpret_cast<float*>(smem4), acc);
   const uint32_t key = g.dr.key(g.salt);
 
   const int lane = threadIdx.x & 31;
@@ -703,6 +716,14 @@ encoder_fwd_ln_kernel(const float* z, const float* __restrict__ g,
            rstd_f ? rstd_f + r : nullptr);
 }
 
+// The bf16 instantiation's copy of the call's weights (encoder_common.cuh
+// round_weights_bf16), its first launch.
+__global__ void __launch_bounds__(kThreads)
+encoder_fwd_weights_bf16_kernel(const Layer l0, int d, int n_layers,
+                                uint16_t* w16) {
+  round_weights_bf16(l0, d, n_layers, w16);
+}
+
 // ------------------------------------------------------------ the host ----
 
 #define TRY(x)                                   \
@@ -747,17 +768,17 @@ cudaError_t prepare() {
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kQkvTerms, false>, a,
                            GemmCfg<256, true>::kSmem));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<64, kBf16Terms, false>, a,
-                           GemmCfg<64, true>::kSmem));
+                           gemm_smem<64, true, kBf16Terms>()));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<128, kBf16Terms, false>,
-                           a, GemmCfg<128, true>::kSmem));
+                           a, gemm_smem<128, true, kBf16Terms>()));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kBf16Terms, false>,
-                           a, GemmCfg<256, true>::kSmem));
+                           a, gemm_smem<256, true, kBf16Terms>()));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<64, kBf16Terms, true>, a,
-                           GemmCfg<64, true>::kSmem));
+                           gemm_smem<64, true, kBf16Terms>()));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<128, kBf16Terms, true>, a,
-                           GemmCfg<128, true>::kSmem));
+                           gemm_smem<128, true, kBf16Terms>()));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kBf16Terms, true>, a,
-                           GemmCfg<256, true>::kSmem));
+                           gemm_smem<256, true, kBf16Terms>()));
   TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<false>, a, kAttnFwdSmem));
   TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<true>, a, kAttnFwdSmem));
   int most = 0;
@@ -773,7 +794,7 @@ template <int NT, int TERMS, bool kMap>
 cudaError_t gemm_t(const FwdGemm& g, cudaStream_t s) {
   const dim3 grid((g.n + kGemmRows - 1) / kGemmRows, (g.m + NT - 1) / NT);
   encoder_fwd_gemm_kernel<NT, TERMS, kMap>
-      <<<grid, kGemmThreads, GemmCfg<NT, true>::kSmem, s>>>(g);
+      <<<grid, kGemmThreads, gemm_smem<NT, true, TERMS>(), s>>>(g);
   return cudaGetLastError();
 }
 
@@ -814,18 +835,26 @@ cudaError_t launch_ln(const float* z, const float* g, const float* b,
 
 // buf: with save, saved_layout(N, d, n_head, L, n_layers) (every layer's
 // activations, for the backward); else a one-layer workspace of the same
-// layout, which every layer reuses.  bf16: the bf16 instantiation.
+// layout, which every layer reuses.  bf16: the bf16 instantiation, which
+// first rounds the weights into w16 (weights_bf16_elems(d, n_layers)).
 cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
                     const float* lnf_s, const float* lnf_b, float* out,
                     float* buf, bool save, int B, int L, int d, int n_head,
                     int n_layers, int idx_pad, int invert, drop::Dropout dr,
-                    bool bf16, cudaStream_t s) {
+                    bool bf16, uint16_t* w16, cudaStream_t s) {
   const size_t N = (size_t)B * L;
   const int n = static_cast<int>(N);
   const SavedLayout so = saved_layout(N, d, n_head, L, save ? n_layers : 1);
   const size_t s_qkv = (size_t)d * 3 * d, s_dd = (size_t)d * d;
   const bool fused_ln = d <= 256;
   TRY(prepare());
+  Weights16 w16s{};
+  if (bf16) {
+    encoder_fwd_weights_bf16_kernel<<<weights_bf16_blocks(d, n_layers),
+                                      kThreads, 0, s>>>(l0, d, n_layers, w16);
+    TRY(cudaGetLastError());
+    w16s = weights16(w16, d, n_layers);
+  }
 
   const float* X = x;
   if (save || dr.on) {
@@ -860,6 +889,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
 
     FwdGemm q{};
     q.a = X; q.w = l0.w_qkv + li * s_qkv; q.bias = l0.b_qkv + 3 * ob;
+    q.w16 = bf16 ? w16s.w_qkv + li * s_qkv : nullptr;
     q.c = qkv; q.n = n; q.k = d; q.m = 3 * d; q.epi = kBias; q.dr = dr;
     TRY(launch_qkv_gemm(q, column_tile(3 * d), bf16, s));
 
@@ -894,6 +924,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     // xhat1 slot first and the LN kernel normalises it there
     FwdGemm w{};
     w.a = o; w.w = l0.w_out + li * s_dd; w.bias = l0.b_out + ob; w.res = X;
+    w.w16 = bf16 ? w16s.w_out + li * s_dd : nullptr;
     w.n = n; w.k = d; w.m = d; w.dr = dr;
     w.salt = dr.salt(drop::kAttnOut, li);
     if (fused_ln) {
@@ -913,6 +944,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     // dropout)
     FwdGemm f{};
     f.a = y1; f.w = l0.w_ff1 + li * s_dd; f.bias = l0.b_ff1 + ob; f.c = fr;
+    f.w16 = bf16 ? w16s.w_ff1 + li * s_dd : nullptr;
     f.c2 = save || dr.on ? fd : nullptr; f.n = n; f.k = d; f.m = d;
     f.epi = kRelu; f.dr = dr; f.salt = dr.salt(drop::kFfnRelu, li);
     TRY(launch_gemm(f, column_tile(d), bf16, s));
@@ -921,6 +953,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     // last layer
     FwdGemm f2{};
     f2.a = f.c2 ? fd : fr; f2.w = l0.w_ff2 + li * s_dd; f2.bias = l0.b_ff2 + ob;
+    f2.w16 = bf16 ? w16s.w_ff2 + li * s_dd : nullptr;
     f2.res = y1; f2.n = n; f2.k = d; f2.m = d; f2.dr = dr;
     f2.salt = dr.salt(drop::kFfnOut, li);
     float* rstd2 = save ? lb + so.l.rstd2 : nullptr;
@@ -977,7 +1010,9 @@ extern "C" void encoder_saved_offsets(int B, int L, int d, int n_head,
 // (encoder_saved_offsets), which receives the activations the backward
 // reads; else the workspace, saved_layout for one layer.  bf16 != 0: the
 // bf16 instantiation (the head of the file), the same layout of f32
-// activations.  Returns cudaGetLastError() after the launches (0 =
+// activations, with w16 a buffer of encoder_weights_bf16_elems(d,
+// n_layers) bf16 (16-byte aligned) that receives the weights' bf16 copy
+// (null at bf16 0).  Returns cudaGetLastError() after the launches (0 =
 // launched).
 extern "C" int encoder_fwd(
     const float* x, const int* seq, const float* w_qkv, const float* b_qkv,
@@ -989,7 +1024,7 @@ extern "C" int encoder_fwd(
     int B, int L, int d, int n_head, int n_layers, int idx_pad, int invert,
     int drop_on, unsigned drop_thr, float drop_div, const unsigned* seed,
     int tower_id, unsigned row_off, unsigned row_seg, unsigned row_stride, int bf16,
-    void* stream) {
+    void* w16, void* stream) {
   const Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
                  ln1_s, ln1_b, ln2_s, ln2_b};
   return static_cast<int>(run_fwd(
@@ -997,7 +1032,14 @@ extern "C" int encoder_fwd(
       n_layers, idx_pad, invert,
       drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
                  row_seg, row_stride, L, d),
-      bf16 != 0, static_cast<cudaStream_t>(stream)));
+      bf16 != 0, static_cast<uint16_t*>(w16),
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Elements of the bf16 weight copy a bf16 call of either tower kernel
+// makes (encoder_common.cuh weights_bf16_elems).
+extern "C" long long encoder_weights_bf16_elems(int d, int n_layers) {
+  return (long long)weights_bf16_elems(d, n_layers);
 }
 
 // The dropout hash's bits of elements 0..n-1 of one stream, for checking the

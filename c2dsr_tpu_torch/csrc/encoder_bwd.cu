@@ -49,21 +49,29 @@
 //   call, split into row ranges (a multiple of 32 rows each) that fill the
 //   SMs in whole waves; each (output tile, split) block writes its partial
 //   once, the bias sums beside it and the LayerNorm scale and bias sums as
-//   jobs of their own, and sum_partials_kernel adds the partials in split
-//   order.  No atomics and no read-modify-write of a partial: two launches
-//   on the same inputs give bitwise-equal results.
+//   jobs of their own (a block for each kWgThreads columns, a thread a
+//   column, its adds in row order, first in the grid: each is a chain as
+//   long as a split's rows, with kLnBatch rows' loads in flight), and
+//   sum_partials_kernel adds the partials in split order.  No atomics and
+//   no read-modify-write of a partial: two launches on the same inputs
+//   give bitwise-equal results.
 // A tower call of one layer launches 10 kernels up to L 64, 11 past it;
-// each further layer adds 8, or 9.
+// each further layer adds 8, or 9; the bf16 instantiation one more a call
+// (the weights' bf16 copy).
 //
 // The bf16 instantiation (encoder_bwd's bf16; compute_dtype="bfloat16")
 // differentiates encoder.cu's bf16 forward as the Pallas kernel's
 // _bwd_kernel does with matmul_dtype=bf16: both operands of every product
 // are rounded to bf16, the incoming gradient included, and the products
-// sum in f32.  The GEMMs and the weight gradients take one TF32 MMA of the
-// rounded operands a k-step (tc.cuh, TERMS 1); the attention backward
-// rounds v, do, k and q as it stages them and ds and drop(p) as it stores
-// them, and keeps the softmax backward (dp·p, ds) in f32, as do the
-// LayerNorm backward, the bias and LayerNorm sums and the dropout.
+// sum in f32.  The GEMMs and the weight gradients run on the bf16 tensor
+// cores, operands rounded as they are staged (the weights once a call,
+// into a buffer the wrapper allocates), read by ldmatrix, one m16n8k16
+// bf16 MMA a k16 step, each 32-k chunk's exact products summed from a
+// zeroed accumulator and added in f32 (tc.cuh gemm_tile_bf16;
+// wg_tile_bf16); the attention backward rounds v, do, k and q as it
+// stages them and ds and drop(p) as it stores them, and keeps the softmax
+// backward (dp·p, ds) in f32, as do the LayerNorm backward, the bias and
+// LayerNorm sums and the dropout.
 
 #include <vector>
 
@@ -119,6 +127,7 @@ enum Epi : int {
 struct GemmArgs {
   const float* a;       // A [n, k] row-major
   const float* w;       // W [m, k] row-major
+  const uint16_t* w16;  // the bf16 instantiation's: W in bf16
   float* c;             // [n, m]
   int n, k, m, epi;
   const float* res;     // [n, m]
@@ -128,7 +137,7 @@ struct GemmArgs {
 };
 
 // kMap: the call's dropout maps its rows (drop::Dropout::mapped); TERMS 3
-// is 3xTF32, 1 the bf16 instantiation (tc.cuh gemm_tile).
+// is 3xTF32 (tc.cuh gemm_tile), 1 the bf16 instantiation (gemm_tile_bf16).
 template <int NT, bool kMap, int TERMS = 3>
 __global__ void __launch_bounds__(kGemmThreads)
 tc_gemm_kernel(const GemmArgs g) {
@@ -141,8 +150,12 @@ tc_gemm_kernel(const GemmArgs g) {
   const int row0 = blockIdx.x * kGemmRows;
   const int n0 = blockIdx.y * NT;
   float acc[kNj][4];
-  gemm_tile<NT, false, TERMS>(g.a, g.w, g.n, g.k, g.m, row0, n0,
-                              reinterpret_cast<float*>(smem4), acc);
+  if constexpr (TERMS == 1)
+    gemm_tile_bf16<NT, false>(g.a, g.w16, g.n, g.k, g.m, row0, n0,
+                              reinterpret_cast<uint16_t*>(smem4), acc);
+  else
+    gemm_tile<NT, false, TERMS>(g.a, g.w, g.n, g.k, g.m, row0, n0,
+                                reinterpret_cast<float*>(smem4), acc);
   const uint32_t key = g.dr.key(g.salt);
 
   // elements 2h and 2h + 1 of n-tile j: row r_lo + 8·h, columns n0 + 8·j
@@ -688,11 +701,21 @@ constexpr int kLdx = kWgK + 8;     // strides: fragment loads free of bank
 constexpr int kLdy = kWgM + 8;     // conflicts
 constexpr int kWgStage = kWgRows * (kLdx + kLdy);
 constexpr int kWgSmem = 4 * kWgStages * kWgStage;
+// The bf16 tile's (wg_tile_bf16): two slots of X and Y rounded to bf16,
+// rows of an odd count of 16-byte units (ldmatrix phases free of bank
+// conflicts), then two slots of Y's f32 values for the bias sum.
+constexpr int kLdx16 = kWgK + 8;
+constexpr int kLdy16 = kWgM + 8;
+constexpr int kWgStage16 = kWgRows * (kLdx16 + kLdy16);    // elements
+constexpr int kWgSmemBf = 2 * 2 * kWgStage16 + 2 * 4 * kWgRows * kWgM;
+static_assert((2 * kLdx16) % 32 == 16 && (2 * kLdy16) % 32 == 16,
+              "rows of an odd count of 16-byte units");
 
-// One layer's weight-gradient jobs: product p (qkv, out, ff1, ff2) is
-// dW = x[p]ᵀ·y[p] ([d, mw[p]]) with its bias colsum(y[p]), in tiles of
-// kWgK x kWgM; then n_ln LayerNorm jobs, colsum(lg·lx) and colsum(lg).
-// Outputs are offsets into a split's partial of the flat gradient buffer.
+// One layer's weight-gradient jobs: first n_ln LayerNorm sums,
+// colsum(lg·lx) and colsum(lg), a job for each kWgThreads columns; then
+// product p (qkv, out, ff1, ff2), dW = x[p]ᵀ·y[p] ([d, mw[p]]) with its
+// bias colsum(y[p]), in tiles of kWgK x kWgM.  Outputs are offsets into a
+// split's partial of the flat gradient buffer.
 struct WgArgs {
   const float* x[4];
   const float* y[4];
@@ -707,6 +730,17 @@ struct WgArgs {
   int n, d, per;        // rows, width, rows a split (a multiple of kWgRows)
 };
 
+// Rows of a LayerNorm job whose loads are in flight at once.  A column's
+// sums over a split's rows are chains of dependent adds, as long as the
+// split: a few rows a round trip to memory, with one block for all of d,
+// set wgrad_kernel's time (an H100's profile, PERF.md §6).
+constexpr int kLnBatch = 16;
+
+// Column blocks of a LayerNorm job.
+__host__ __device__ inline int wg_ln_cols(int d) {
+  return (d + kWgThreads - 1) / kWgThreads;
+}
+
 int wg_tiles(const int* mw, int d) {
   const int tk = (d + kWgK - 1) / kWgK;
   int n = 0;
@@ -714,39 +748,181 @@ int wg_tiles(const int* mw, int d) {
   return n;
 }
 
-// kBf: the bf16 instantiation, X and Y rounded to bf16 as the fragments
-// are read, one MMA a k-step.
+// The bf16 instantiation's tile: acc = X[rows, k0 ..]ᵀ·Y[rows, m0 ..] over
+// the split's rows in stages of kWgRows, in the m16n8k16 C layout (warp w
+// holds dW rows k0 + 16·w + g and + 8).  A stage of X and of Y is loaded
+// as float4s into registers while the block multiplies the stage before,
+// then rounded to bf16 (cvt.rn.bf16x2: round_bf16's rounding) and stored.
+// Both run along the call's rows, the product's k, so ldmatrix reads both
+// transposed; one mma.sync.m16n8k16 bf16 a k16 step.  A stage's two k16
+// steps sum in a zeroed accumulator and that partial is added to acc in
+// f32, to nearest (as tc.cuh gemm_tile_bf16): no chain longer than a
+// stage stays in the accumulator, whose adds truncate.  With the bias,
+// Y's f32 values also go to shared memory, where thread t adds column
+// m0 + t row by row, as the f32 tile does.
+__device__ __forceinline__ void wg_tile_bf16(
+    const float* __restrict__ X, const float* __restrict__ Y, int d, int M,
+    int k0, int m0, int r_begin, int r_end, bool with_bias, uint16_t* smem,
+    float (&acc)[kWgM / 8][4], float& bsum) {
+  constexpr int kNj = kWgM / 8;             // n-tiles a warp
+  constexpr int kNb = 4;                    // n-tiles a partial
+  constexpr int kXv = kWgRows * kWgK / 4 / kWgThreads;   // float4s a
+  constexpr int kYv = kWgRows * kWgM / 4 / kWgThreads;   // thread
+  float* yf = reinterpret_cast<float*>(smem + 2 * kWgStage16);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_chunks = r_end > r_begin ? (r_end - r_begin + kWgRows - 1) /
+                                             kWgRows : 0;
+  // float4 i of this thread: v = threadIdx.x + i·kWgThreads, X's at row
+  // v / (kWgK / 4) of the stage, columns 4·(v % (kWgK / 4)) + 0..3 of the
+  // tile; Y's likewise with kWgM
+  float4 xv[kXv], yv[kYv];
+  auto load = [&](int chunk) {
+    const int r0 = r_begin + chunk * kWgRows;
+#pragma unroll
+    for (int i = 0; i < kXv; ++i) {
+      const int v = threadIdx.x + i * kWgThreads;
+      const int r = r0 + v / (kWgK / 4), c = k0 + (v % (kWgK / 4)) * 4;
+      xv[i] = r < r_end && c < d
+                  ? *reinterpret_cast<const float4*>(X + (size_t)r * d + c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < kYv; ++i) {
+      const int v = threadIdx.x + i * kWgThreads;
+      const int r = r0 + v / (kWgM / 4), c = m0 + (v % (kWgM / 4)) * 4;
+      yv[i] = r < r_end && c < M
+                  ? *reinterpret_cast<const float4*>(Y + (size_t)r * M + c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store = [&](int slot) {
+    uint16_t* xs = smem + slot * kWgStage16;
+    uint16_t* ys = xs + kWgRows * kLdx16;
+#pragma unroll
+    for (int i = 0; i < kXv; ++i) {
+      const int v = threadIdx.x + i * kWgThreads;
+      *reinterpret_cast<uint2*>(xs + v / (kWgK / 4) * kLdx16 +
+                                (v % (kWgK / 4)) * 4) =
+          make_uint2(pack_bf16(xv[i].x, xv[i].y),
+                     pack_bf16(xv[i].z, xv[i].w));
+    }
+#pragma unroll
+    for (int i = 0; i < kYv; ++i) {
+      const int v = threadIdx.x + i * kWgThreads;
+      *reinterpret_cast<uint2*>(ys + v / (kWgM / 4) * kLdy16 +
+                                (v % (kWgM / 4)) * 4) =
+          make_uint2(pack_bf16(yv[i].x, yv[i].y),
+                     pack_bf16(yv[i].z, yv[i].w));
+      if (with_bias)
+        *reinterpret_cast<float4*>(yf + slot * kWgRows * kWgM + 4 * v) =
+            yv[i];
+    }
+  };
+
+  if (n_chunks > 0) {
+    load(0);
+    store(0);
+  }
+#pragma unroll
+  for (int j = 0; j < kNj; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  // this lane's ldmatrix row (lanes 8·q .. 8·q + 7 address matrix q): A =
+  // Xᵀ's four are k 0-7 of dW rows 0-7 and 8-15, then k 8-15 (the m16n8k16
+  // A fragment); Y's four k 0-7 and 8-15 of n-tile j, then of j + 1
+  const int q = lane >> 3, r8 = lane & 7;
+  const int a_off = ((q >> 1) * 8 + r8) * kLdx16 + warp * 16 + (q & 1) * 8;
+  const int b_off = ((q & 1) * 8 + r8) * kLdy16 + (q >> 1) * 8;
+  for (int it = 0; it < n_chunks; ++it) {
+    __syncthreads();     // stage it in its slot; the other slot read
+    const bool more = it + 1 < n_chunks;
+    if (more) load(it + 1);
+    const uint16_t* xs = smem + (it & 1) * kWgStage16;
+    const uint16_t* ys = xs + kWgRows * kLdx16;
+    if (with_bias) {
+      const float* yfs = yf + (it & 1) * kWgRows * kWgM;
+#pragma unroll 8
+      for (int r = 0; r < kWgRows; ++r) bsum += yfs[r * kWgM + threadIdx.x];
+    }
+    uint32_t af[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      ldsm_x4<true>(af[ks], xs + a_off + 16 * ks * kLdx16);
+#pragma unroll
+    for (int j0 = 0; j0 < kNj; j0 += kNb) {
+      float part[kNb][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+        for (int jp = 0; jp < kNb / 2; ++jp) {
+          uint32_t b[4];
+          ldsm_x4<true>(b, ys + b_off + 16 * ks * kLdy16 + 8 * (j0 + 2 * jp));
+          if (ks == 0) {
+            mma_bf16_zero(part[2 * jp], af[0], b[0], b[1]);
+            mma_bf16_zero(part[2 * jp + 1], af[0], b[2], b[3]);
+          } else {
+            mma_bf16(part[2 * jp], af[1], b[0], b[1]);
+            mma_bf16(part[2 * jp + 1], af[1], b[2], b[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNb; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j0 + j][i] += part[j][i];
+    }
+    if (more) store((it + 1) & 1);
+  }
+}
+
+// kBf: the bf16 instantiation, on wg_tile_bf16.
 template <bool kBf>
 __global__ void __launch_bounds__(kWgThreads)
 wgrad_kernel(const WgArgs a) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   const int r_begin = blockIdx.y * a.per;
   const int r_end = min(a.n, r_begin + a.per);
   float* part = a.part + (size_t)blockIdx.y * a.total;
-  const int tk = (a.d + kWgK - 1) / kWgK;
+  const int ln_cols = wg_ln_cols(a.d);
   int job = blockIdx.x;
+  if (job < a.n_ln * ln_cols) {  // a LayerNorm job: a thread a column
+    const int ln = job / ln_cols;
+    const int c = (job % ln_cols) * kWgThreads + threadIdx.x;
+    if (c >= a.d) return;
+    const float* G = a.lg[ln];
+    const float* X = a.lx[ln];
+    float ss = 0.f, sb = 0.f;
+    int r = r_begin;
+    for (; r + kLnBatch <= r_end; r += kLnBatch) {
+      float gv[kLnBatch], xv[kLnBatch];
+#pragma unroll
+      for (int i = 0; i < kLnBatch; ++i) {
+        gv[i] = G[(size_t)(r + i) * a.d + c];
+        xv[i] = X[(size_t)(r + i) * a.d + c];
+      }
+#pragma unroll
+      for (int i = 0; i < kLnBatch; ++i) {
+        ss = fmaf(gv[i], xv[i], ss);
+        sb += gv[i];
+      }
+    }
+    for (; r < r_end; ++r) {
+      const float gv = G[(size_t)r * a.d + c];
+      ss = fmaf(gv, X[(size_t)r * a.d + c], ss);
+      sb += gv;
+    }
+    part[a.off_ls[ln] + c] = ss;
+    part[a.off_lb[ln] + c] = sb;
+    return;
+  }
+  job -= a.n_ln * ln_cols;
+  const int tk = (a.d + kWgK - 1) / kWgK;
   int p = 0;
   for (; p < 4; ++p) {
     const int tiles = tk * ((a.mw[p] + kWgM - 1) / kWgM);
     if (job < tiles) break;
     job -= tiles;
-  }
-  if (p == 4) {  // a LayerNorm job
-    const float* G = a.lg[job];
-    const float* X = a.lx[job];
-    for (int c = threadIdx.x; c < a.d; c += kWgThreads) {
-      float ss = 0.f, sb = 0.f;
-#pragma unroll 4
-      for (int r = r_begin; r < r_end; ++r) {
-        const float gv = G[(size_t)r * a.d + c];
-        ss = fmaf(gv, X[(size_t)r * a.d + c], ss);
-        sb += gv;
-      }
-      part[a.off_ls[job] + c] = ss;
-      part[a.off_lb[job] + c] = sb;
-    }
-    return;
   }
   const int M = a.mw[p];
   const int tm = (M + kWgM - 1) / kWgM;
@@ -755,96 +931,88 @@ wgrad_kernel(const WgArgs a) {
   const float* X = a.x[p];
   const float* Y = a.y[p];
   const bool with_bias = k0 == 0;
-  const int n_chunks = r_end > r_begin ? (r_end - r_begin + kWgRows - 1) /
-                                             kWgRows : 0;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2;
   const int tq = lane & 3;
-
-  auto stage = [&](int slot, int chunk) {
-    float* xs = smem + slot * kWgStage;
-    float* ys = xs + kWgRows * kLdx;
-    const int r0 = r_begin + chunk * kWgRows;
-    for (int v = threadIdx.x; v < kWgRows * (kWgK / 4); v += kWgThreads) {
-      const int r = v / (kWgK / 4), c4 = v % (kWgK / 4);
-      const bool ok = r0 + r < r_end && k0 + c4 * 4 < a.d;
-      cp_async16(xs + r * kLdx + c4 * 4,
-                 ok ? X + (size_t)(r0 + r) * a.d + k0 + c4 * 4 : X, ok);
-    }
-    for (int v = threadIdx.x; v < kWgRows * (kWgM / 4); v += kWgThreads) {
-      const int r = v / (kWgM / 4), c4 = v % (kWgM / 4);
-      const bool ok = r0 + r < r_end && m0 + c4 * 4 < M;
-      cp_async16(ys + r * kLdy + c4 * 4,
-                 ok ? Y + (size_t)(r0 + r) * M + m0 + c4 * 4 : Y, ok);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < kWgStages - 1; ++s) {
-    if (s < n_chunks) stage(s, s);
-    cp_async_commit();
-  }
   constexpr int kNj = kWgM / 8;
   float acc[kNj][4];
-#pragma unroll
-  for (int j = 0; j < kNj; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
   float bsum = 0.f;
+  if constexpr (kBf) {
+    wg_tile_bf16(X, Y, a.d, M, k0, m0, r_begin, r_end, with_bias,
+                 reinterpret_cast<uint16_t*>(smem4), acc, bsum);
+  } else {
+    float* smem = reinterpret_cast<float*>(smem4);
+    const int n_chunks = r_end > r_begin ? (r_end - r_begin + kWgRows - 1) /
+                                               kWgRows : 0;
+    auto stage = [&](int slot, int chunk) {
+      float* xs = smem + slot * kWgStage;
+      float* ys = xs + kWgRows * kLdx;
+      const int r0 = r_begin + chunk * kWgRows;
+      for (int v = threadIdx.x; v < kWgRows * (kWgK / 4); v += kWgThreads) {
+        const int r = v / (kWgK / 4), c4 = v % (kWgK / 4);
+        const bool ok = r0 + r < r_end && k0 + c4 * 4 < a.d;
+        cp_async16(xs + r * kLdx + c4 * 4,
+                   ok ? X + (size_t)(r0 + r) * a.d + k0 + c4 * 4 : X, ok);
+      }
+      for (int v = threadIdx.x; v < kWgRows * (kWgM / 4); v += kWgThreads) {
+        const int r = v / (kWgM / 4), c4 = v % (kWgM / 4);
+        const bool ok = r0 + r < r_end && m0 + c4 * 4 < M;
+        cp_async16(ys + r * kLdy + c4 * 4,
+                   ok ? Y + (size_t)(r0 + r) * M + m0 + c4 * 4 : Y, ok);
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kWgStages - 1; ++s) {
+      if (s < n_chunks) stage(s, s);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int j = 0; j < kNj; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
-  for (int it = 0; it < n_chunks; ++it) {
-    cp_async_wait<kWgStages - 2>();
-    __syncthreads();
-    if (it + kWgStages - 1 < n_chunks)
-      stage((it + kWgStages - 1) % kWgStages, it + kWgStages - 1);
-    cp_async_commit();
-    const float* xs = smem + (it % kWgStages) * kWgStage;
-    const float* ys = xs + kWgRows * kLdx;
-    if (with_bias) {
+    for (int it = 0; it < n_chunks; ++it) {
+      cp_async_wait<kWgStages - 2>();
+      __syncthreads();
+      if (it + kWgStages - 1 < n_chunks)
+        stage((it + kWgStages - 1) % kWgStages, it + kWgStages - 1);
+      cp_async_commit();
+      const float* xs = smem + (it % kWgStages) * kWgStage;
+      const float* ys = xs + kWgRows * kLdx;
+      if (with_bias) {
 #pragma unroll 8
-      for (int r = 0; r < kWgRows; ++r) bsum += ys[r * kLdy + threadIdx.x];
-    }
+        for (int r = 0; r < kWgRows; ++r) bsum += ys[r * kLdy + threadIdx.x];
+      }
 #pragma unroll
-    for (int ks = 0; ks < kWgRows / 8; ++ks) {
-      if constexpr (kBf) {
+      for (int ks = 0; ks < kWgRows / 8; ++ks) {
+        // A (16 rows of dW x 8 call rows) = Xᵀ: A[g][t] = X[t][g]
+        uint32_t ab[4], am[4];
         const float* xp = xs + (ks * 8 + tq) * kLdx + warp * 16 + gq;
-        const uint32_t ab[4] = {round_bf16(xp[0]), round_bf16(xp[8]),
-                                round_bf16(xp[4 * kLdx]),
-                                round_bf16(xp[4 * kLdx + 8])};
+        split_tf32(xp[0], ab[0], am[0]);
+        split_tf32(xp[8], ab[1], am[1]);
+        split_tf32(xp[4 * kLdx], ab[2], am[2]);
+        split_tf32(xp[4 * kLdx + 8], ab[3], am[3]);
 #pragma unroll
-        for (int j = 0; j < kNj; ++j) {
-          const float* yp = ys + (ks * 8 + tq) * kLdy + j * 8 + gq;
-          const uint32_t bb[2] = {round_bf16(yp[0]), round_bf16(yp[4 * kLdy])};
-          mma_tf32(acc[j], ab, bb);
+        for (int j0 = 0; j0 < kNj; j0 += 8) {
+          uint32_t bb[8][2], bm[8][2];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float* yp = ys + (ks * 8 + tq) * kLdy + (j0 + j) * 8 + gq;
+            split_tf32(yp[0], bb[j][0], bm[j][0]);
+            split_tf32(yp[4 * kLdy], bb[j][1], bm[j][1]);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mma_tf32(acc[j0 + j], am, bb[j]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mma_tf32(acc[j0 + j], ab, bm[j]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mma_tf32(acc[j0 + j], ab, bb[j]);
         }
-        continue;
-      }
-      // A (16 rows of dW x 8 call rows) = Xᵀ: A[g][t] = X[t][g]
-      uint32_t ab[4], am[4];
-      const float* xp = xs + (ks * 8 + tq) * kLdx + warp * 16 + gq;
-      split_tf32(xp[0], ab[0], am[0]);
-      split_tf32(xp[8], ab[1], am[1]);
-      split_tf32(xp[4 * kLdx], ab[2], am[2]);
-      split_tf32(xp[4 * kLdx + 8], ab[3], am[3]);
-#pragma unroll
-      for (int j0 = 0; j0 < kNj; j0 += 8) {
-        uint32_t bb[8][2], bm[8][2];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float* yp = ys + (ks * 8 + tq) * kLdy + (j0 + j) * 8 + gq;
-          split_tf32(yp[0], bb[j][0], bm[j][0]);
-          split_tf32(yp[4 * kLdy], bb[j][1], bm[j][1]);
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_tf32(acc[j0 + j], am, bb[j]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_tf32(acc[j0 + j], ab, bm[j]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_tf32(acc[j0 + j], ab, bb[j]);
       }
     }
+    cp_async_wait<0>();
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int j = 0; j < kNj; ++j) {
@@ -857,6 +1025,14 @@ wgrad_kernel(const WgArgs a) {
   }
   if (with_bias && m0 + (int)threadIdx.x < M)
     part[a.off_b[p] + m0 + threadIdx.x] = bsum;
+}
+
+// The bf16 instantiation's copy of the call's weights (encoder_common.cuh
+// round_weights_bf16), its first launch.
+__global__ void __launch_bounds__(kThreads)
+encoder_bwd_weights_bf16_kernel(const Layer l0, int d, int n_layers,
+                                uint16_t* w16) {
+  round_weights_bf16(l0, d, n_layers, w16);
 }
 
 // grads[i] = sum over splits s (in order) of part[s][i].
@@ -903,17 +1079,17 @@ cudaError_t prepare() {
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, true>, a,
                            GemmCfg<256, false>::kSmem));
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<64, false, 1>, a,
-                           GemmCfg<64, false>::kSmem));
+                           gemm_smem<64, false, 1>()));
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<128, false, 1>, a,
-                           GemmCfg<128, false>::kSmem));
+                           gemm_smem<128, false, 1>()));
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, false, 1>, a,
-                           GemmCfg<256, false>::kSmem));
+                           gemm_smem<256, false, 1>()));
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<64, true, 1>, a,
-                           GemmCfg<64, false>::kSmem));
+                           gemm_smem<64, false, 1>()));
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<128, true, 1>, a,
-                           GemmCfg<128, false>::kSmem));
+                           gemm_smem<128, false, 1>()));
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, true, 1>, a,
-                           GemmCfg<256, false>::kSmem));
+                           gemm_smem<256, false, 1>()));
   int most = 0;
   for (int L = 1; L <= kSeqL; ++L)
     most = attn_seq_bwd_smem(L) > most ? attn_seq_bwd_smem(L) : most;
@@ -924,7 +1100,7 @@ cudaError_t prepare() {
   TRY(cudaFuncSetAttribute(attn_bwd_dkv_kernel<false>, a, kAttnDkvSmem));
   TRY(cudaFuncSetAttribute(attn_bwd_dkv_kernel<true>, a, kAttnDkvSmem));
   TRY(cudaFuncSetAttribute(wgrad_kernel<false>, a, kWgSmem));
-  TRY(cudaFuncSetAttribute(wgrad_kernel<true>, a, kWgSmem));
+  TRY(cudaFuncSetAttribute(wgrad_kernel<true>, a, kWgSmemBf));
   if (dev < 64) done[dev] = true;
   return cudaSuccess;
 }
@@ -933,7 +1109,7 @@ template <int NT, bool kMap, int TERMS>
 cudaError_t gemm_t(const GemmArgs& g, cudaStream_t s) {
   const dim3 grid((g.n + kGemmRows - 1) / kGemmRows, (g.m + NT - 1) / NT);
   tc_gemm_kernel<NT, kMap, TERMS>
-      <<<grid, kGemmThreads, GemmCfg<NT, false>::kSmem, s>>>(g);
+      <<<grid, kGemmThreads, gemm_smem<NT, false, TERMS>(), s>>>(g);
   return cudaGetLastError();
 }
 
@@ -1029,11 +1205,13 @@ size_t workspace_floats(int B, int L, int d, int n_head, int n_layers,
   return total;
 }
 
+// bf16: the bf16 instantiation, which first rounds the weights into w16
+// (weights_bf16_elems(d, n_layers)).
 cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
                     const float* lnf_s, float* dx, float* grads,
                     float* workspace, int splits, int B, int L, int d,
                     int n_head, int n_layers, drop::Dropout dr, bool bf16,
-                    cudaStream_t s) {
+                    uint16_t* w16, cudaStream_t s) {
   const size_t N = (size_t)B * L;
   const int n = static_cast<int>(N);
   const GradOff go = grad_offsets(d, n_layers);
@@ -1045,6 +1223,13 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
   off.on = 0;
   const size_t s_qkv = (size_t)d * 3 * d, s_dd = (size_t)d * d;
   TRY(prepare());
+  Weights16 w16s{};
+  if (bf16) {
+    encoder_bwd_weights_bf16_kernel<<<weights_bf16_blocks(d, n_layers),
+                                      kThreads, 0, s>>>(l0, d, n_layers, w16);
+    TRY(cudaGetLastError());
+    w16s = weights16(w16, d, n_layers);
+  }
   auto layer = [&](int li, size_t off_in_layer) {
     return saved + so.layers + li * so.per_layer + off_in_layer;
   };
@@ -1062,11 +1247,13 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
                dr.salt(drop::kFfnOut, li), s));
     GemmArgs g5{};
     g5.a = dg2; g5.w = l0.w_ff2 + li * s_dd; g5.c = t.df; g5.n = n; g5.k = d;
+    g5.w16 = bf16 ? w16s.w_ff2 + li * s_dd : nullptr;
     g5.m = d; g5.epi = kDrelu; g5.aux = layer(li, so.l.fr);
     g5.dr = dr; g5.salt = dr.salt(drop::kFfnRelu, li);
     TRY(launch_gemm(g5, nt, bf16, s));
     GemmArgs g6{};
     g6.a = t.df; g6.w = l0.w_ff1 + li * s_dd; g6.c = t.dy1; g6.n = n;
+    g6.w16 = bf16 ? w16s.w_ff1 + li * s_dd : nullptr;
     g6.k = d; g6.m = d; g6.epi = kRes; g6.res = t.dz2; g6.dr = off;
     TRY(launch_gemm(g6, nt, bf16, s));
     // LN1: z1 = x_in + drop(o·W_out + b_out)
@@ -1076,6 +1263,7 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
                dr.salt(drop::kAttnOut, li), s));
     GemmArgs g7{};
     g7.a = da; g7.w = l0.w_out + li * s_dd; g7.c = t.d_o; g7.n = n; g7.k = d;
+    g7.w16 = bf16 ? w16s.w_out + li * s_dd : nullptr;
     g7.m = d; g7.epi = kStore; g7.dr = off;
     TRY(launch_gemm(g7, nt, bf16, s));
     const dim3 attn_grid(attn_blocks(B, L), n_head);
@@ -1112,6 +1300,7 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     // the first layer
     GemmArgs g8{};
     g8.a = t.dqkv; g8.w = l0.w_qkv + li * s_qkv; g8.c = li ? gnext : dx;
+    g8.w16 = bf16 ? w16s.w_qkv + li * s_qkv : nullptr;
     g8.n = n; g8.k = 3 * d; g8.m = d; g8.epi = kRes; g8.res = t.dz1;
     g8.dr = li ? off : dr; g8.salt = dr.salt(drop::kInput, 0);
     TRY(launch_gemm(g8, nt, bf16, s));
@@ -1147,9 +1336,9 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     w.part = t.part; w.total = go.total; w.n = n; w.d = d;
     const int per0 = (n + splits - 1) / splits;
     w.per = (per0 + kWgRows - 1) / kWgRows * kWgRows;
-    const dim3 wg_grid(wg_tiles(w.mw, d) + w.n_ln, splits);
+    const dim3 wg_grid(w.n_ln * wg_ln_cols(d) + wg_tiles(w.mw, d), splits);
     if (bf16)
-      wgrad_kernel<true><<<wg_grid, kWgThreads, kWgSmem, s>>>(w);
+      wgrad_kernel<true><<<wg_grid, kWgThreads, kWgSmemBf, s>>>(w);
     else
       wgrad_kernel<false><<<wg_grid, kWgThreads, kWgSmem, s>>>(w);
     TRY(cudaGetLastError());
@@ -1190,7 +1379,9 @@ extern "C" long long encoder_bwd_grad_floats(int d, int n_layers) {
 // output, dx [B, L, d] out, grads the flat buffer, workspace of
 // encoder_bwd_workspace_floats for `grid` row splits (all pointers 16-byte
 // aligned).  bf16 != 0: the bf16 instantiation, the backward of
-// encoder_fwd's bf16 one (the head of the file).  Returns
+// encoder_fwd's bf16 one (the head of the file), with w16 a buffer of
+// encoder_weights_bf16_elems(d, n_layers) bf16 (16-byte aligned) that
+// receives the weights' bf16 copy (null at bf16 0).  Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int encoder_bwd(
     const float* saved, const float* gout, const float* w_qkv,
@@ -1202,7 +1393,7 @@ extern "C" int encoder_bwd(
     int B, int L, int d, int n_head, int n_layers, int drop_on,
     unsigned drop_thr, float drop_div, const unsigned* seed, int tower_id,
     unsigned row_off, unsigned row_seg, unsigned row_stride, int bf16,
-    void* stream) {
+    void* w16, void* stream) {
   (void)lnf_b;
   const Layer l0{w_qkv, b_qkv, w_out, b_out, w_ff1, b_ff1, w_ff2, b_ff2,
                  ln1_s, ln1_b, ln2_s, ln2_b};
@@ -1211,5 +1402,6 @@ extern "C" int encoder_bwd(
       n_layers,
       drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
                  row_seg, row_stride, L, d),
-      bf16 != 0, static_cast<cudaStream_t>(stream)));
+      bf16 != 0, static_cast<uint16_t*>(w16),
+      static_cast<cudaStream_t>(stream)));
 }

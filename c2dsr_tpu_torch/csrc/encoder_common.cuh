@@ -1,6 +1,7 @@
 // What the tower forward (encoder.cu) and backward (encoder_bwd.cu)
-// share: the saved-activation layout, kNeg and kLnEps, warp reductions, a
-// LayerNorm row walked by a warp, and the attention kernels' tiles.
+// share: the saved-activation layout, the bf16 copy of a call's weights,
+// kNeg and kLnEps, warp reductions, a LayerNorm row walked by a warp, and
+// the attention kernels' tiles.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -102,6 +103,55 @@ struct Layer {
   const float *w_qkv, *b_qkv, *w_out, *b_out, *w_ff1, *b_ff1, *w_ff2, *b_ff2;
   const float *ln1_s, *ln1_b, *ln2_s, *ln2_b;
 };
+
+// The bf16 instantiations' copy of a call's weight products (tc.cuh
+// gemm_tile_bf16 stages it by cp.async): w_qkv, w_out, w_ff1, w_ff2, each
+// stacked over the layers as its f32 argument, one after the other,
+// rounded to bf16 to nearest (round_bf16's rounding).  6·n_layers·d²
+// elements; each layer's matrix starts on 16 bytes (d % 8 == 0).  Each
+// bf16 call of either kernel makes its own copy first, one launch, into a
+// buffer its wrapper allocates.
+__host__ __device__ inline size_t weights_bf16_elems(int d, int n_layers) {
+  return (size_t)6 * n_layers * d * d;
+}
+
+struct Weights16 {
+  const uint16_t *w_qkv, *w_out, *w_ff1, *w_ff2;
+};
+
+__host__ __device__ inline Weights16 weights16(const uint16_t* base, int d,
+                                               int n_layers) {
+  const size_t dd = (size_t)n_layers * d * d;
+  return {base, base + 3 * dd, base + 4 * dd, base + 5 * dd};
+}
+
+// The copy, four f32 elements a thread a step (a kernel of each file calls
+// it: encoder.cu encoder_fwd_weights_bf16_kernel, encoder_bwd.cu
+// encoder_bwd_weights_bf16_kernel).
+__device__ __forceinline__ void round_weights_bf16(const Layer& l0, int d,
+                                                   int n_layers,
+                                                   uint16_t* out) {
+  const size_t dd = (size_t)n_layers * d * d;
+  const size_t n4 = weights_bf16_elems(d, n_layers) / 4;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t e = 4 * i;
+    const float* src = e < 3 * dd   ? l0.w_qkv + e
+                       : e < 4 * dd ? l0.w_out + (e - 3 * dd)
+                       : e < 5 * dd ? l0.w_ff1 + (e - 4 * dd)
+                                    : l0.w_ff2 + (e - 5 * dd);
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    *reinterpret_cast<uint2*>(out + e) =
+        make_uint2(tc::pack_bf16(x.x, x.y), tc::pack_bf16(x.z, x.w));
+  }
+}
+
+// Blocks of the copy's launch (kThreads each).
+__host__ inline int weights_bf16_blocks(int d, int n_layers) {
+  const size_t n4 = weights_bf16_elems(d, n_layers) / 4;
+  const size_t b = (n4 + kThreads - 1) / kThreads;
+  return static_cast<int>(b < 2048 ? b : 2048);
+}
 
 // What the forward saves for the backward in training (encoder.cu writes
 // it, encoder_bwd.cu reads it): every layer's activations for all N = B·L

@@ -1,8 +1,8 @@
 // Tensor-core building blocks shared by the CE kernels (ce.cu) and the
 // tower forward and backward (encoder.cu, encoder_bwd.cu): f32-accurate
-// products on the TF32 units (3xTF32), the warp-level MMA, 16-byte
-// asynchronous copies into shared memory, and the towers' 64-row GEMM
-// tile.
+// products on the TF32 units (3xTF32), the warp-level MMAs (TF32 and bf16),
+// 16-byte asynchronous copies into shared memory, and the towers' 64-row
+// GEMM tiles (f32 and bf16).
 //
 // 3xTF32 (CUTLASS's "fast accurate f32"): each f32 operand x is split into
 // big = tf32_rna(x) and small = x - big, and a product is small·big +
@@ -28,12 +28,9 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
 }
 
 // x rounded to bf16 (to nearest, ties to even: the JAX package's astype),
-// as the bits of an f32 whose low 16 bits are zero.  A bf16 value is exact
-// in TF32, so one TF32 MMA of two rounded operands multiplies them exactly
-// and sums in f32: the numerics of a bf16 MMA with f32 accumulation, which
-// the towers' bf16 instantiations (compute_dtype="bfloat16", gemm_tile's
-// TERMS 1) take for the Pallas kernels' bf16 products; the CE's run bf16
-// MMAs on bf16 rows (below).  Finite x.
+// as the bits of an f32 whose low 16 bits are zero (the towers' attention
+// kernels round their FFMA operands so).  The products with a weight run
+// bf16 MMAs on bf16 rows (below).  Finite x.
 __device__ __forceinline__ uint32_t round_bf16(float x) {
   const uint32_t u = __float_as_uint(x);
   return (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
@@ -75,14 +72,15 @@ __device__ __forceinline__ void mma_tf32_zero(float d[4], const uint32_t a[4],
         "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
 }
 
-// The bf16 tensor cores (the CE kernels' bf16 instantiations: ce_fwd.cuh,
-// ce_bwd.cuh, ce_cluster.cu): operands read from shared memory by
-// ldmatrix, one mma.sync.m16n8k16 bf16 with f32 accumulators a k16 step
-// (twice the TF32 rate, and a quarter of the fragment loads of
-// mma_tf32 on bf16 values widened one 16-bit load at a time).  The C
-// layout is mma_tf32's, so two adjacent n8-tiles of a product's C
-// fragments, rounded and packed in pairs (pack_bf16), are the A fragment
-// of the next product's k16 step as they lie.
+// The bf16 tensor cores (the bf16 instantiations of the CE kernels,
+// ce_fwd.cuh, ce_bwd.cuh, ce_cluster.cu, and of the towers' products,
+// gemm_tile_bf16 below and encoder_bwd.cu's weight gradients): operands
+// read from shared memory by ldmatrix, one mma.sync.m16n8k16 bf16 with
+// f32 accumulators a k16 step (twice the TF32 rate, and a quarter of the
+// fragment loads of mma_tf32 on bf16 values widened one 16-bit load at a
+// time).  The C layout is mma_tf32's, so two adjacent n8-tiles of a
+// product's C fragments, rounded and packed in pairs (pack_bf16), are the
+// A fragment of the next product's k16 step as they lie.
 
 // lo and hi rounded to bf16 (to nearest, ties to even: round_bf16's
 // rounding) and packed, lo in the low half.
@@ -136,7 +134,7 @@ __device__ __forceinline__ void mma_bf16_zero(float d[4], const uint32_t a[4],
 
 // 16 bytes from global src to shared dst, or 16 zero bytes when !ok (src
 // must still be a valid address).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -174,12 +172,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // small, takes the six products down to mid·mid (about 2^-30 of a term)
 // and adds each k-step's products to the sum in f32, rounded to nearest:
 // as close to the exact sum as an f32 GEMM (chip_smoke.py's d 256 step
-// logs it against float64); twice the MMAs and an add a k-step.
-// TERMS = 1 is the bf16 instantiation (compute_dtype="bfloat16"): each
-// operand rounded to bf16 as it is read (round_bf16), one MMA a k-step,
-// the exact products of a chunk's kKc / 8 k-steps summed by the tensor
-// cores into a zeroed partial and the partials added in f32, as the JAX
-// package's _mm / _mm_nt with matmul_dtype=bf16 sum them in f32.
+// logs it against float64); twice the MMAs and an add a k-step.  The
+// bf16 instantiations take gemm_tile_bf16 (below).
 constexpr int kGemmThreads = 128;
 constexpr int kGemmRows = 64;
 constexpr int kKc = 32;
@@ -199,13 +193,9 @@ struct GemmCfg {
 };
 
 // The TERMS-way split of an operand into p[0] (big), p[1], p[2]: 3xTF32's
-// big and small, or big, mid and small; at TERMS 1, p[0] = bf16(x).
+// big and small, or big, mid and small.
 template <int TERMS>
 __device__ __forceinline__ void split_parts(float x, uint32_t (&p)[3]) {
-  if constexpr (TERMS == 1) {
-    p[0] = round_bf16(x);
-    return;
-  }
   split_tf32(x, p[0], p[1]);
   if constexpr (TERMS == 6) split_tf32(__uint_as_float(p[1]), p[1], p[2]);
 }
@@ -220,14 +210,12 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
                                           int n, int k, int m, int row0,
                                           int n0, float* smem,
                                           float (&acc)[NT / 8][4]) {
-  static_assert(TERMS == 1 || TERMS == 3 || TERMS == 6,
-                "bf16, 3xTF32 or its 6-term form");
+  static_assert(TERMS == 3 || TERMS == 6, "3xTF32 or its 6-term form");
   using Cfg = GemmCfg<NT, KM>;
   constexpr int kNj = NT / 8;             // n-tiles a warp
   constexpr int kNb = NT == 256 || TERMS == 6 ? 4 : 8;  // n-tiles a batch
                                                         // of B loads
-  constexpr int kP = TERMS == 6 ? 3 : TERMS == 3 ? 2 : 1;  // parts an
-                                                         // operand
+  constexpr int kP = TERMS == 6 ? 3 : 2;  // parts an operand
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2;
@@ -291,45 +279,6 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
         x[1] = src[4];
       }
     };
-    if constexpr (TERMS == 1) {
-      // the chunk's kKc / 8 k-steps into a zeroed partial per batch of
-      // n-tiles, which an f32 add then rounds into acc to nearest: summed
-      // over all of k in the accumulator, whose adds truncate, the bf16
-      // products drifted toward zero by ulps of the running sum, and K2's
-      // bf16 tower lay 1.35-1.5x as far from float64 as the plain bf16
-      // tower at d 520-1,024 (an H100, PERF.md §6)
-      uint32_t ap[kKc / 8][4];
-#pragma unroll
-      for (int ks = 0; ks < kKc / 8; ++ks) {
-        const float* src = as + (warp * 16 + gq) * kLds + ks * 8 + tq;
-        ap[ks][0] = round_bf16(src[0]);
-        ap[ks][1] = round_bf16(src[8 * kLds]);
-        ap[ks][2] = round_bf16(src[4]);
-        ap[ks][3] = round_bf16(src[8 * kLds + 4]);
-      }
-#pragma unroll
-      for (int j0 = 0; j0 < kNj; j0 += kNb) {
-        float part[kNb][4];
-#pragma unroll
-        for (int ks = 0; ks < kKc / 8; ++ks) {
-#pragma unroll
-          for (int j = 0; j < kNb; ++j) {
-            float x[2];
-            b_values(ks, j0 + j, x);
-            const uint32_t bp[2] = {round_bf16(x[0]), round_bf16(x[1])};
-            if (ks == 0)
-              mma_tf32_zero(part[j], ap[ks], bp);
-            else
-              mma_tf32(part[j], ap[ks], bp);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kNb; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j0 + j][i] += part[j][i];
-      }
-      continue;
-    }
 #pragma unroll
     for (int ks = 0; ks < kKc / 8; ++ks) {
       uint32_t ap[kP][4];                 // A's parts, fragment-ordered
@@ -387,7 +336,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
           for (int j = 0; j < kNb; ++j)
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc[j0 + j][i] += part[j][i];
-        } else if constexpr (TERMS == 3) {   // TERMS 1 took the branch above
+        } else {
 #pragma unroll
           for (int j = 0; j < kNb; ++j) mma_tf32(acc[j0 + j], ap[1], bp[0][j]);
 #pragma unroll
@@ -399,6 +348,166 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
     }
   }
   cp_async_wait<0>();
+}
+
+// ------------------------------------------- the towers' bf16 GEMM ----
+// gemm_tile's bf16 sibling, the towers' bf16 instantiations
+// (compute_dtype="bfloat16", the Pallas tower's matmul_dtype=bf16): the
+// same 64 x NT tile of A·B in the same C layout, with A f32 and W the
+// call's bf16 copy of its weights (encoder_common.cuh round_weights_bf16),
+// [m, k] or, with KM, [k, m].  Each operand is the bf16 value round_bf16
+// gives, the products exact and summed in f32:
+// * A chunk of kKc k-steps of A is loaded as float4s into registers while
+//   the block multiplies the chunk before, then rounded (cvt.rn.bf16x2:
+//   round_bf16's rounding) and stored; W's chunks arrive by cp.async.  Two
+//   slots of each.  Both lie in shared memory as bf16 rows of an odd count
+//   of 16-byte units, so each 8-row phase of an ldmatrix meets every bank
+//   once.
+// * Fragments come by ldmatrix (W [k, m] transposed), one
+//   mma.sync.m16n8k16 bf16 a k16 step (the bf16 rate, twice the TF32).
+// * A chunk's two k16 steps sum in a zeroed accumulator (whose adds
+//   truncate) and that partial is added to acc in f32, to nearest: no
+//   chain longer than 32 k-steps stays in the tensor cores' accumulator
+//   (tests/test_torch_tower_bf16_mma.py emulates the order).  Zero-filled
+//   rows, columns and k-steps past n, m and k add nothing.
+// k % 8 == 0, m % 8 == 0, pointers 16-byte aligned.
+template <int NT, bool KM>
+struct GemmBf16Cfg {
+  static constexpr int kLda = kKc + 8;              // A [64][kLda]
+  static constexpr int kLdw = KM ? NT + 8 : kKc + 8;  // W [kKc][kLdw] or
+                                                      // [NT][kLdw]
+  static constexpr int kA = kGemmRows * kLda;       // elements a slot
+  static constexpr int kStage = kA + (KM ? kKc : NT) * kLdw;
+  static constexpr int kSmem = 2 * kGemmStages * kStage;   // bytes
+  static_assert((2 * kLda) % 32 == 16 && (2 * kLdw) % 32 == 16,
+                "rows of an odd count of 16-byte units");
+};
+
+// Dynamic shared memory of a tower GEMM block: gemm_tile's, or at TERMS 1
+// (the bf16 instantiation) gemm_tile_bf16's.
+template <int NT, bool KM, int TERMS>
+constexpr int gemm_smem() {
+  return TERMS == 1 ? GemmBf16Cfg<NT, KM>::kSmem : GemmCfg<NT, KM>::kSmem;
+}
+
+template <int NT, bool KM>
+__device__ __forceinline__ void gemm_tile_bf16(
+    const float* __restrict__ a, const uint16_t* __restrict__ w, int n, int k,
+    int m, int row0, int n0, uint16_t* smem, float (&acc)[NT / 8][4]) {
+  using Cfg = GemmBf16Cfg<NT, KM>;
+  static_assert(kGemmStages == 2 && kKc == 32, "two slots of two k16 steps");
+  constexpr int kNj = NT / 8;                  // n-tiles a warp
+  constexpr int kNb = NT == 256 ? 4 : 8;       // n-tiles a partial
+  constexpr int kAv = kGemmRows * kKc / 4 / kGemmThreads;  // float4s a
+                                                           // thread
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_chunks = (k + kKc - 1) / kKc;
+
+  // A chunk's float4 i of this thread: row v / 8, columns 4·(v % 8) + 0..3
+  // of the chunk, v = threadIdx.x + i·kGemmThreads
+  float4 av[kAv];
+  auto load_a = [&](int chunk) {
+    const int k0 = chunk * kKc;
+#pragma unroll
+    for (int i = 0; i < kAv; ++i) {
+      const int v = threadIdx.x + i * kGemmThreads;
+      const int r = v >> 3, c = k0 + (v & 7) * 4;
+      av[i] = row0 + r < n && c < k
+                  ? *reinterpret_cast<const float4*>(
+                        a + (size_t)(row0 + r) * k + c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store_a = [&](int slot) {
+    uint16_t* as = smem + slot * Cfg::kStage;
+#pragma unroll
+    for (int i = 0; i < kAv; ++i) {
+      const int v = threadIdx.x + i * kGemmThreads;
+      *reinterpret_cast<uint2*>(as + (v >> 3) * Cfg::kLda + (v & 7) * 4) =
+          make_uint2(pack_bf16(av[i].x, av[i].y),
+                     pack_bf16(av[i].z, av[i].w));
+    }
+  };
+  auto stage_w = [&](int slot, int chunk) {
+    uint16_t* ws = smem + slot * Cfg::kStage + Cfg::kA;
+    const int k0 = chunk * kKc;
+    if constexpr (KM) {   // kKc rows of W [k, m], NT columns, 8 a copy
+      for (int v = threadIdx.x; v < kKc * (NT / 8); v += kGemmThreads) {
+        const int r = v / (NT / 8), c = n0 + (v % (NT / 8)) * 8;
+        const bool ok = k0 + r < k && c < m;
+        cp_async16(ws + r * Cfg::kLdw + (c - n0),
+                   ok ? w + (size_t)(k0 + r) * m + c : w, ok);
+      }
+    } else {              // NT rows of W [m, k], kKc columns
+      for (int v = threadIdx.x; v < NT * (kKc / 8); v += kGemmThreads) {
+        const int r = v >> 2, c = k0 + (v & 3) * 8;
+        const bool ok = n0 + r < m && c < k;
+        cp_async16(ws + r * Cfg::kLdw + (c - k0),
+                   ok ? w + (size_t)(n0 + r) * k + c : w, ok);
+      }
+    }
+  };
+
+  load_a(0);
+  stage_w(0, 0);
+  cp_async_commit();
+  store_a(0);
+#pragma unroll
+  for (int j = 0; j < kNj; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  // this lane's ldmatrix row: lanes 8·q .. 8·q + 7 address matrix q.  A's
+  // four: rows 0-7 and 8-15 of the warp's 16 at k 0-7, then at k 8-15 (the
+  // m16n8k16 A fragment); B's four: k 0-7 and 8-15 of n-tile j, then of
+  // n-tile j + 1 (the b0, b1 of both)
+  const int q = lane >> 3, r8 = lane & 7;
+  const int a_off = (warp * 16 + (q & 1) * 8 + r8) * Cfg::kLda + (q >> 1) * 8;
+  const int b_off = KM ? ((q & 1) * 8 + r8) * Cfg::kLdw + (q >> 1) * 8
+                       : ((q >> 1) * 8 + r8) * Cfg::kLdw + (q & 1) * 8;
+  for (int it = 0; it < n_chunks; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();     // chunk it in its slot; the other slot read
+    const bool more = it + 1 < n_chunks;
+    if (more) {
+      stage_w((it + 1) & 1, it + 1);
+      load_a(it + 1);
+    }
+    cp_async_commit();
+    const uint16_t* as = smem + (it & 1) * Cfg::kStage;
+    const uint16_t* ws = as + Cfg::kA;
+    uint32_t af[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      ldsm_x4<false>(af[ks], as + a_off + 16 * ks);
+#pragma unroll
+    for (int j0 = 0; j0 < kNj; j0 += kNb) {
+      float part[kNb][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+        for (int jp = 0; jp < kNb / 2; ++jp) {
+          const int j = j0 + 2 * jp;
+          uint32_t b[4];
+          ldsm_x4<KM>(b, ws + b_off + (KM ? 16 * ks * Cfg::kLdw + 8 * j
+                                          : 8 * j * Cfg::kLdw + 16 * ks));
+          if (ks == 0) {
+            mma_bf16_zero(part[2 * jp], af[0], b[0], b[1]);
+            mma_bf16_zero(part[2 * jp + 1], af[0], b[2], b[3]);
+          } else {
+            mma_bf16(part[2 * jp], af[1], b[0], b[1]);
+            mma_bf16(part[2 * jp + 1], af[1], b[2], b[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNb; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j0 + j][i] += part[j][i];
+    }
+    if (more) store_a((it + 1) & 1);
+  }
 }
 
 }  // namespace tc

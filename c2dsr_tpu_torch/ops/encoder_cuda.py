@@ -15,7 +15,8 @@ What bounds them on an H100: operations.  Per layer the forward does
 12·N·d² + 4·N·L·d FLOPs (N = B·L rows) and moves one read of the input and
 one write of the output; the backward does twice that.  Both are sequences
 of kernels over all N rows of the call, every product with a weight on the
-tensor cores at f32 accuracy (3xTF32, ``csrc/tc.cuh``): the forward folds
+tensor cores at f32 accuracy (3xTF32, ``csrc/tc.cuh``; bf16 MMAs in the
+bf16 instantiations, below): the forward folds
 the bias, ReLU, dropout, residual and (up to d 256) LayerNorm into its
 GEMMs' epilogues, the backward dropout, ReLU's mask and the residual;
 attention runs up to 8 whole sequences a block up to L 64 and, past it, a
@@ -43,10 +44,13 @@ over L positions, as ``ops/encoder.py`` in both packages gives it.
 
 ``bf16=True`` (``compute_dtype="bfloat16"``) selects both kernels' bf16
 instantiations, the Pallas kernels' ``matmul_dtype=bf16``: every product's
-operands rounded to bf16 (the incoming gradient's included), the sums f32,
-one TF32 MMA a k-step where 3xTF32 takes three (``csrc/encoder.cu``,
-``csrc/encoder_bwd.cu``).  The saved activations stay f32.  Their launches
-count apart (``launches_bf16``).
+operands rounded to bf16 (the incoming gradient's included), the sums f32.
+The products with a weight and the weight gradients run bf16 MMAs
+(m16n8k16, operands by ``ldmatrix``: ``csrc/tc.cuh`` ``gemm_tile_bf16``,
+``csrc/encoder_bwd.cu`` ``wg_tile_bf16``), the weights read from a bf16
+copy that each call makes first into a buffer the wrapper allocates
+(``encoder_weights_bf16_elems``).  The saved activations stay f32.  Their
+launches count apart (``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -63,10 +67,11 @@ from c2dsr_tpu_torch.ops.encoder import _NAMES, tower_params, tower_weights
 
 _DROP_SIG = (ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
              ctypes.c_int) + (ctypes.c_uint,) * 3
+# ... int bf16, void* w16, void* stream
 _FWD_SIG = ((ctypes.c_void_p,) * 18 + (ctypes.c_int,) * 8 + _DROP_SIG
-            + (ctypes.c_int, ctypes.c_void_p))
+            + (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p))
 _BWD_SIG = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 6 + _DROP_SIG
-            + (ctypes.c_int, ctypes.c_void_p))
+            + (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p))
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,6 +191,17 @@ def saved_views(saved: torch.Tensor, shape, n_head: int, n_layers: int
             "xhat_f": view(off[14], B, L, d), "rstd_f": view(off[15], B, L)}
 
 
+def weights_bf16_buffer(d: int, n_layers: int, bf16: bool, device):
+    """The buffer a bf16 call of either kernel rounds the tower's four
+    weight stacks into before its products (``encoder_weights_bf16_elems``
+    in ``csrc/encoder.cu``); None for an f32 call."""
+    if not bf16:
+        return None
+    n = _fn("encoder", "encoder_weights_bf16_elems", (ctypes.c_int,) * 2,
+            ctypes.c_longlong)(d, n_layers)
+    return torch.empty(n, dtype=torch.bfloat16, device=device)
+
+
 def _check_saved(saved: torch.Tensor, B, L, d, n_head, n_layers) -> None:
     if (saved.dtype != torch.float32 or not saved.is_cuda
             or saved.numel() < _saved_offsets(B, L, d, n_head, n_layers)[-1]
@@ -219,12 +235,14 @@ def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
     x = _aligned(x)
     weights = [_aligned(w) for w in weights]
     out = torch.empty_like(x)
+    w16 = weights_bf16_buffer(d, n_layers, bf16, x.device)
     drop_args, _seed = _drop_args(dropout, seed, tower, row_map, x.device)
     err = _fn("encoder", "encoder_fwd", _FWD_SIG)(
         x.data_ptr(), seq32.data_ptr(), *[w.data_ptr() for w in weights],
         out.data_ptr(), buf.data_ptr(), int(saved is not None),
         B, L, d, n_head, n_layers, int(idx_pad),
         int(bool(invert_padding_mask)), *drop_args, int(bf16),
+        None if w16 is None else w16.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_fwd launch failed: CUDA error {err}")
@@ -284,11 +302,13 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
     ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
     flat = torch.empty(grad_floats, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
+    w16 = weights_bf16_buffer(d, n_layers, bf16, x.device)
     drop_args, _seed = _drop_args(dropout, seed, tower, row_map, x.device)
     err = _fn("encoder_bwd", "encoder_bwd", _BWD_SIG)(
         saved.data_ptr(), gout.data_ptr(), *[w.data_ptr() for w in weights],
         dx.data_ptr(), flat.data_ptr(), ws.data_ptr(), grid, B, L, d, n_head,
         n_layers, *drop_args, int(bf16),
+        None if w16 is None else w16.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_bwd launch failed: CUDA error {err}")

@@ -11,9 +11,10 @@ this file; it builds the CUDA kernels from ``c2dsr_tpu_torch/csrc`` itself.
 Phases (any failure exits non-zero without the final line):
 
 1. setup: build the kernels, print the build time and the card; the CE
-   kernels' SASS (``cuobjdump -sass``, ``_ce_sass``): every bf16
-   instantiation of K4 and K5 runs bf16 MMAs (HMMA.16816.F32.BF16) and no
-   TF32 one, every f32 one the reverse; the CUDA dropout hash must equal
+   kernels' SASS (``cuobjdump -sass``, ``_mma_sass``): every bf16
+   instantiation of K4 and K5 and of K2's and K3's products with a weight
+   runs bf16 MMAs (HMMA.16816.F32.BF16) and no TF32 one, every f32 one the
+   reverse; the CUDA dropout hash must equal
    ops/dropout.bits_reference.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the main paths' shapes, and time kernel, plain version and one
@@ -492,7 +493,8 @@ KERNEL_FAMILIES = (
     ("K2 encoder_fwd", ("encoder_fwd_",)),
     ("K3 encoder_bwd", ("tc_gemm_kernel", "attn_bwd_",
                         "ln_bwd_kernel", "wgrad_kernel",
-                        "sum_partials_kernel")),
+                        "sum_partials_kernel",
+                        "encoder_bwd_weights_bf16_kernel")),
     ("K4/K5 pre-pass", ("transpose_split_kernel", "transpose_bf16_kernel",
                         "round_bf16_kernel")),
     ("K4 ce_fwd", ("ce_fwd_kernel", "ce_fwd_wide_kernel",
@@ -743,14 +745,17 @@ def _rel(a, b):
 
 def _k2_parts(times):
     """K2's profiled device ms a call, by part: the four GEMMs of a layer
-    (with their epilogues), attention, the LayerNorm kernel (d > 256) and
-    the input kernel (dropout, or the saved copy of the input)."""
-    out = {"gemm": 0.0, "attention": 0.0, "layernorm": 0.0, "input": 0.0}
+    (with their epilogues), attention, the LayerNorm kernel (d > 256), the
+    input kernel (dropout, or the saved copy of the input) and the bf16
+    instantiation's copy of the weights."""
+    out = {"gemm": 0.0, "attention": 0.0, "layernorm": 0.0, "input": 0.0,
+           "weights_bf16": 0.0}
     for name, ms in times.items():
         for part, key in (("gemm", "encoder_fwd_gemm"),
                           ("attention", "encoder_fwd_attn"),
                           ("layernorm", "encoder_fwd_ln"),
-                          ("input", "encoder_fwd_input")):
+                          ("input", "encoder_fwd_input"),
+                          ("weights_bf16", "encoder_fwd_weights")):
             if key in name:
                 out[part] += ms
     return out
@@ -1857,27 +1862,42 @@ def _bf16_entry(ms, plain_ms, library_ms, flops, nbytes, peak_bw, err,
             "max_rel_err": err, "f32_instantiation_err": err_f32, **extra}
 
 
-# The CE kernels whose instruction mix the SASS check reads (``_ce_sass``):
-# (library stem, regex on a mangled kernel name, its groups' names); the
-# bf16 instantiations run m16n8k16 bf16 MMAs (HMMA.16816.F32.BF16) and no
-# TF32 one, the f32 ones the reverse.
-CE_SASS_KERNELS = (
+# The kernels whose instruction mix the SASS check reads (``_mma_sass``):
+# (library stem, regex on a mangled kernel name, its groups' names).  The
+# bf16 instantiations (a ``bf16`` group of 1, or the towers' ``TERMS`` 1)
+# run m16n8k16 bf16 MMAs (HMMA.16816.F32.BF16) and no TF32 one, the f32
+# ones the reverse: the CE (K4, K5) and the towers' products with a weight
+# (K2's GEMM, K3's GEMM and weight gradients).
+SASS_KERNELS = (
     ("ce", r"ce_fwd_kernelILi(\d+)ELi0ELb([01])E", ("DT", "bf16")),
     ("ce", r"ce_fwd_wide_kernelILb([01])E", ("bf16",)),
     ("ce", r"ce_bwd_kernelILi(\d+)ELb([01])ELb([01])E",
      ("DT", "dh", "bf16")),
     ("ce", r"ce_bwd_wide_kernelILb([01])ELb([01])E", ("dh", "bf16")),
     ("ce_cluster", r"ce_bwd_cluster_kernelILi(\d+)ELb([01])ELb([01])"
-     r"ELb([01])E", ("WS", "dh", "bf16", "gather")))
+     r"ELb([01])E", ("WS", "dh", "bf16", "gather")),
+    ("encoder", r"encoder_fwd_gemm_kernelILi(\d+)ELi(\d)ELb([01])E",
+     ("NT", "TERMS", "kMap")),
+    ("encoder_bwd", r"tc_gemm_kernelILi(\d+)ELb([01])ELi(\d)E",
+     ("NT", "kMap", "TERMS")),
+    ("encoder_bwd", r"wgrad_kernelILb([01])E", ("bf16",)))
 
 
-def _ce_sass():
-    """The MMAs each CE kernel was compiled to, read by ``cuobjdump -sass``
-    from the built libraries: for every instantiation of CE_SASS_KERNELS
+# The SASS readings (``_mma_sass``) each bf16 entry of the kernels line
+# carries: its kernels' bf16 instantiations, by name prefix.
+SASS_PREFIXES = {"encoder_fwd_bf16": ("encoder_fwd_gemm_kernel",),
+                 "encoder_bwd_bf16": ("tc_gemm_kernel", "wgrad_kernel"),
+                 "ce_fwd_bf16": ("ce_fwd",), "ce_bwd_bf16": ("ce_bwd",)}
+
+
+def _mma_sass():
+    """The MMAs each kernel of SASS_KERNELS was compiled to, read by
+    ``cuobjdump -sass`` from the built libraries: for every instantiation
     its counts of bf16 (``HMMA.16816.F32.BF16``) and TF32
     (``HMMA.1684.F32.TF32``) MMA instructions.  Fails unless every bf16
     instantiation (the resident and wide K4, the resident and wide K5, the
-    cluster kernels) has bf16 MMAs and no TF32 one, and every f32 one the
+    cluster kernels, K2's GEMM, K3's GEMM and weight gradients at every
+    tile width) has bf16 MMAs and no TF32 one, and every f32 one the
     reverse."""
     import re
     import shutil
@@ -1887,7 +1907,7 @@ def _ce_sass():
           "the CUDA toolkit")
     libs = build.build_all()
     out, seen = {}, set()
-    for stem in sorted({k[0] for k in CE_SASS_KERNELS}):
+    for stem in sorted({k[0] for k in SASS_KERNELS}):
         res = subprocess.run([tool, "-sass", libs[stem]], capture_output=True,
                              text=True, timeout=300)
         check(res.returncode == 0, f"cuobjdump -sass {stem}: "
@@ -1895,28 +1915,32 @@ def _ce_sass():
         # "Function : <mangled name>" opens each kernel's listing
         for part in re.split(r"\n\s*Function : ", res.stdout)[1:]:
             name, _, body = part.partition("\n")
-            for lib, pattern, groups in CE_SASS_KERNELS:
+            for lib, pattern, groups in SASS_KERNELS:
                 m = re.search(pattern, name)
                 if lib != stem or not m:
                     continue
                 args = dict(zip(groups, m.groups()))
                 key = ",".join(f"{k}={v}" for k, v in args.items())
                 kind = pattern.split("I", 1)[0]
+                is_bf = args.get("bf16", args.get("TERMS")) == "1"
                 bf = len(re.findall(r"HMMA\.16816\.F32\.BF16", body))
                 tf = len(re.findall(r"HMMA\.\S*TF32", body))
                 out[f"{kind}<{key}>"] = {"hmma_bf16": bf, "hmma_tf32": tf}
-                seen.add((kind, args.get("DT"), args["bf16"]))
-                if args["bf16"] == "1":
+                seen.add((kind, args.get("DT", args.get("NT")), is_bf))
+                if is_bf:
                     check(bf > 0 and tf == 0, f"SASS {kind} {key}: {bf} "
                           f"bf16 and {tf} TF32 MMAs (want bf16 MMAs only)")
                 else:
                     check(tf > 0 and bf == 0, f"SASS {kind} {key}: {bf} "
                           f"bf16 and {tf} TF32 MMAs (want TF32 MMAs only)")
-    want = ({(k, str(dt), "1") for k in ("ce_fwd_kernel", "ce_bwd_kernel")
+    want = ({(k, str(dt), True) for k in ("ce_fwd_kernel", "ce_bwd_kernel",
+                                          "encoder_fwd_gemm_kernel",
+                                          "tc_gemm_kernel")
              for dt in (64, 128, 256)}
-            | {(k, None, "1") for k in ("ce_fwd_wide_kernel",
-                                        "ce_bwd_wide_kernel",
-                                        "ce_bwd_cluster_kernel")})
+            | {(k, None, True) for k in ("ce_fwd_wide_kernel",
+                                         "ce_bwd_wide_kernel",
+                                         "ce_bwd_cluster_kernel",
+                                         "wgrad_kernel")})
     check(want <= seen, f"SASS: bf16 instantiations not in the listing: "
           f"{sorted(want - seen, key=str)}")
     log("sass: " + json.dumps(out))
@@ -3799,9 +3823,10 @@ def phase_cli():
 
 def _busy_ms(fn, reps: int = 3):
     """Device busy ms of each of ``reps`` profiled calls of ``fn`` (which
-    synchronises), and the part of it in K2's kernels."""
+    synchronises), and the parts of it in K2's and in K3's kernels
+    (KERNEL_FAMILIES)."""
     from torch.profiler import ProfilerActivity, profile
-    busy, k2 = [], []
+    busy, k2, k3 = [], [], []
     for _ in range(reps):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -3811,7 +3836,9 @@ def _busy_ms(fn, reps: int = 3):
               if ev.device_type == torch.autograd.DeviceType.CUDA}
         busy.append(sum(us.values()) / 1e3)
         k2.append(sum(v for k, v in us.items() if "encoder_fwd_" in k) / 1e3)
-    return busy, k2
+        k3.append(sum(v for k, v in us.items()
+                      if kernel_family(k) == "K3 encoder_bwd") / 1e3)
+    return busy, k2, k3
 
 
 def _digest(*tensors) -> str:
@@ -3820,6 +3847,86 @@ def _digest(*tensors) -> str:
     return hashlib.sha256(b"".join(
         t.detach().float().cpu().numpy().tobytes() for t in tensors)
     ).hexdigest()[:16]
+
+
+def _tower_measures(timer, digests) -> dict:
+    """K2 and K3 on seeded inputs made alike in both checkouts: the three
+    tower calls of a step (FK: d 128, L 15, one head and layer, 3B, B and
+    B sequences at B 512, dropout 0.2, K2 saving K3's activations), K2 at
+    the serving tower (B 2,048, eval) and both at the long and wide towers
+    BF16_TOWERS (L 200; d 1,024 with 8 heads), one layer each: the bf16
+    instantiations timed (3 timings each, the median of 20 CUDA-event
+    timings; the step's three calls summed), the f32 ones at the step's
+    calls beside them, and digests of every output (K2's, then K3's dx and
+    gradients) in f32 and in bf16 at each shape.  Both dtypes' parts are
+    also profiled at each training shape (``timing.kernel_times``): K2's
+    GEMMs (``k2_gemm_*``), K3's input-gradient GEMMs (``k3_gemm_*``) and
+    its weight gradients with their merge (``k3_wgrad_*``)."""
+    from c2dsr_tpu_torch.config import Config
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.ops import dropout as drop
+    from c2dsr_tpu_torch.ops import encoder_cuda
+    pad = 64093
+    cases = [("step", 128, 1, LEN_MAX, 3 * 512, 0),
+             ("step", 128, 1, LEN_MAX, 512, 1),
+             ("step", 128, 1, LEN_MAX, 512, 2),
+             ("eval", 128, 1, LEN_MAX, 2048, 0)]
+    cases += [(f"l{L}" if L > LEN_MAX else f"d{d}", d, h, L, B, 0)
+              for d, h, L, B in BF16_TOWERS]
+    out = {}
+    for at, d, n_head, L, B, tower in cases:
+        p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
+            torch.Generator().manual_seed(30 + tower + d),
+            Config(d_latent=d, n_head=n_head), L))
+        x, seq = _encoder_inputs(B, L, d, pad, seed=40 + tower + d)
+        train = at != "eval"
+        kw = dict(idx_pad=pad, n_head=n_head, invert_padding_mask=False,
+                  dropout=0.2 if train else 0.0,
+                  seed=drop.seed_tensor(99, "cuda"), tower=tower)
+        gout = torch.randn(x.shape, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(5))
+        for bf in (False, True):
+            name = "bf16" if bf else "f32"
+            acts = encoder_cuda.saved_buffer(x, n_head, 1) if train else None
+            with torch.no_grad():
+                outs = [encoder_cuda.encoder_fwd(x, seq, p, saved=acts,
+                                                 bf16=bf, **kw)]
+                if train:
+                    dx, grads = encoder_cuda.encoder_bwd(
+                        x, seq, gout, p, saved=acts, bf16=bf, **kw)
+                    outs += [dx] + list(grads)
+                digests[f"k2k3_{name}_{at}_B{B}_tower{tower}"] = _digest(
+                    *outs)
+                if bf or at == "step":
+                    k2 = out.setdefault(f"k2_{name}_{at}_ms", [0.0] * 3)
+                    k3 = out.setdefault(f"k3_{name}_{at}_ms", [0.0] * 3)
+                    for i in range(3):
+                        k2[i] += timer(lambda: encoder_cuda.encoder_fwd(
+                            x, seq, p, saved=acts, bf16=bf, **kw))
+                        if train:
+                            k3[i] += timer(lambda: encoder_cuda.encoder_bwd(
+                                x, seq, gout, p, saved=acts, bf16=bf, **kw))
+                if train:
+                    t2, _ = timing.kernel_times(
+                        lambda: encoder_cuda.encoder_fwd(
+                            x, seq, p, saved=acts, bf16=bf, **kw))
+                    t3, _ = timing.kernel_times(
+                        lambda: encoder_cuda.encoder_bwd(
+                            x, seq, gout, p, saved=acts, bf16=bf, **kw))
+                    for part, ms in (
+                            ("k2_gemm", [v for k, v in t2.items()
+                                         if "encoder_fwd_gemm" in k]),
+                            ("k3_gemm", [v for k, v in t3.items()
+                                         if "tc_gemm" in k]),
+                            ("k3_wgrad", [v for k, v in t3.items()
+                                          if "wgrad" in k
+                                          or "sum_partials" in k])):
+                        acc = out.setdefault(f"{part}_{name}_{at}_ms", [0.0])
+                        acc[0] += sum(ms)
+            del acts
+        del p, x, seq, gout
+        torch.cuda.empty_cache()
+    return {k: v for k, v in out.items() if any(v)}
 
 
 def measure_rates() -> dict:
@@ -3835,7 +3942,10 @@ def measure_rates() -> dict:
     1,024 (3 timings each, the median of 20 CUDA-event timings), with
     digests of K4's and K5's outputs at d 128-1,024 in f32 and bf16 (K5's
     cluster kernels past 256): equal digests show two checkouts' kernels
-    computing the same bits.  K2 alone at the
+    computing the same bits.  K2 and K3 at a step's
+    three towers, f32 and bf16, and in bf16 at the serving tower, L 200
+    and d 1,024, with digests of their outputs (``_tower_measures``); the
+    bf16 step's K2 and K3 ms profiled.  K2 alone at the
     serving path's tower (B 2048, L 15, d 128, one head, one layer; the
     median of 20 timed calls, 3 times).  The serving path (convolve, then
     rank the eval split in sampled and full mode): 3 profiled runs after
@@ -3907,12 +4017,12 @@ def measure_rates() -> dict:
             fn(state, next(feed))
             torch.cuda.synchronize()
 
-        busy, k2 = _busy_ms(one_step)
+        busy, k2, k3 = _busy_ms(one_step)
         check(math.isfinite(float(aux["loss"])),
               f"{name} train loss not finite")
-        step_rates[name] = (rates, host, busy, k2)
+        step_rates[name] = (rates, host, busy, k2, k3)
         del state, opt, fn
-    rates, host, busy, k2 = step_rates["f32"]
+    rates, host, busy, k2, _ = step_rates["f32"]
 
     # K1 and K7 at a step's shapes, on inputs made alike in both checkouts:
     # K1 a hop of each table over A and Aᵀ on a seeded table; K7 the six
@@ -3990,6 +4100,7 @@ def measure_rates() -> dict:
         torch.cuda.empty_cache()
     ce["k4_k5_bf16_step_ms"] = [a + b for a, b in zip(
         ce["k4_bf16_step_ms"], ce["k5_bf16_step_ms"])]
+    ce.update(_tower_measures(timer, digests))
     # K4 from float64 on trained-scale logits (deterministic: one reading)
     errs = [_k4_trained_errs(V, n_real)
             for V, n_real in ((30720, N_ITEM_A), (36864, N_ITEM_B))]
@@ -4036,10 +4147,11 @@ def measure_rates() -> dict:
         rs.clear()
     for _ in range(SERVE_RUNS):
         serve()
-    serve_busy, serve_k2 = _busy_ms(serve)
+    serve_busy, serve_k2, _ = _busy_ms(serve)
     bf = step_rates["bf16"]
     return {"rates": rates, "host_ms": host, "busy_ms": busy, "k2_ms": k2,
             "bf16_rates": bf[0], "bf16_host_ms": bf[1], "bf16_busy_ms": bf[2],
+            "bf16_k2_ms": bf[3], "bf16_k3_ms": bf[4],
             "digests": digests, "k2_eval_ms": k2_eval,
             "serve_convolve_ms": serve_rates["convolve"][:SERVE_RUNS],
             "serve_sampled_rates": serve_rates["sampled"][:SERVE_RUNS],
@@ -4086,6 +4198,24 @@ def compare(other: str) -> int:
                       ("bf16_rates", "bf16 train examples/s"),
                       ("bf16_host_ms", "host ms to enqueue a bf16 step"),
                       ("bf16_busy_ms", "ms busy a bf16 train step"),
+                      ("bf16_k2_ms", "ms of K2 a bf16 train step"),
+                      ("bf16_k3_ms", "ms of K3 a bf16 train step"),
+                      ("k2_f32_step_ms", "ms of K2's three calls a step"),
+                      ("k3_f32_step_ms", "ms of K3's three calls a step"),
+                      ("k2_bf16_step_ms",
+                       "ms of K2 bf16's three calls a step"),
+                      ("k3_bf16_step_ms",
+                       "ms of K3 bf16's three calls a step"),
+                      ("k2_bf16_eval_ms", "ms of K2 bf16 at B 2,048 eval"),
+                      ("k2_bf16_l200_ms", "ms of K2 bf16 at L 200"),
+                      ("k3_bf16_l200_ms", "ms of K3 bf16 at L 200"),
+                      ("k2_bf16_d1024_ms", "ms of K2 bf16 at d 1,024"),
+                      ("k3_bf16_d1024_ms", "ms of K3 bf16 at d 1,024"),
+                      *[(k, "profiled ms of that part of K2 or K3")
+                        for k in sorted({k for v in runs.values()
+                                         for res in v for k in res})
+                        if k.startswith(("k2_gemm_", "k3_gemm_",
+                                         "k3_wgrad_"))],
                       ("k4_bf16_step_ms", "ms of K4 bf16's two calls a step"),
                       ("k5_bf16_step_ms", "ms of K5 bf16's two calls a step"),
                       ("k4_k5_bf16_step_ms", "ms of K4 + K5 bf16 a step"),
@@ -5197,7 +5327,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"setup: kernels built in {time.perf_counter() - t0:.1f} s")
-    sass = _ce_sass()
+    sass = _mma_sass()
 
     spec = DataSpec(n_item_a=N_ITEM_A, n_item_b=N_ITEM_B, len_max=LEN_MAX)
     t0 = time.perf_counter()
@@ -5573,14 +5703,17 @@ def main() -> int:
             **({f"d{d}": bf16["shapes"][f"ce_d{d}"] for d in BF16_CE_DS}
                if kname.startswith("ce_") else {}),
             **({"sass": {k: v for k, v in sass.items()
-                         if k.startswith(kname[:6]) and "bf16=1" in k}}
-               if kname.startswith("ce_") else {}),
+                         if k.startswith(SASS_PREFIXES[kname])
+                         and ("bf16=1" in k or "TERMS=1" in k)}}
+               if kname in SASS_PREFIXES else {}),
             "note": note + "; bound_ms at 989 TFLOP/s bf16 or the bytes at "
                     "3.35 TB/s, bound_tf32_one_pass_ms at 495 TFLOP/s ("
                     + ("the TF32 rate of the design before, on the bf16 "
                        "tensor cores now: sass counts each bf16 "
-                       "instantiation's MMAs" if kname.startswith("ce_")
+                       "instantiation's MMAs" if kname in SASS_PREFIXES
                        else "this design's one TF32 pass of bf16 operands")
+                    + ("; the towers' attention runs FFMA"
+                       if kname.startswith("encoder") else "")
                     + "); f32_instantiation_err the f32 kernel's error "
                     "against the same plain bf16 version, which fails the "
                     "gate"})

@@ -1106,12 +1106,15 @@ def test_spmm_bf16_kernels_match_plain(cuda, d):
 
 @pytest.mark.parametrize("d,n_head,L,n_layers,B", [
     (40, 1, 15, 2, 37), (128, 2, 30, 1, 21), (512, 4, 15, 1, 9),
-    (128, 1, 200, 1, 3), (1024, 8, 15, 1, 3)])
+    (128, 1, 200, 1, 3), (1024, 8, 15, 1, 3), (256, 2, 15, 1, 9),
+    (264, 1, 15, 1, 5)])
 def test_encoder_bf16_kernels_match_plain(cuda, d, n_head, L, n_layers, B):
     """K2 and K3 in their bf16 instantiations at dropout 0.2 against the
     plain bf16 tower (K3 at K2's branches), relative Frobenius (K2 on the
     rows with an allowed key); K3 bitwise across launches; the f32
-    instantiations fall outside."""
+    instantiations fall outside.  d 256 runs the GEMMs' 256-column tile,
+    d 264 two column blocks of 256 and 8 and a k16 step half zero-filled
+    (k % 16 == 8)."""
     from c2dsr_tpu_torch.bench import gates
     p, x, seq = _tower_case(cuda, d, n_head, L, n_layers, B, seed=3)
     kw = dict(idx_pad=999, n_head=n_head, invert_padding_mask=False,
@@ -1139,6 +1142,36 @@ def test_encoder_bf16_kernels_match_plain(cuda, d, n_head, L, n_layers, B):
     assert max(_fro_err(a, b) for a, b in
                zip([got32[0]] + got32[1], flat_want)) > BF16_K3_TOL
     assert all(torch.equal(a, b) for a, b in zip(flat, [again[0]] + again[1]))
+
+
+@pytest.mark.parametrize("d,n_head,L,B", [(40, 1, 15, 13), (128, 2, 30, 7),
+                                          (264, 1, 15, 5)])
+def test_encoder_bf16_rounds_each_weight_once(cuda, d, n_head, L, B):
+    """The bf16 instantiations multiply by the bf16 copy each call makes of
+    its four weight stacks: given those weights already rounded to bf16
+    (biases and LayerNorm parameters as they were), K2's output and saved
+    activations and K3's dx and gradients are bitwise those of the f32
+    weights, so the copy rounds as ``ops/bf16.round_bf16`` (to nearest
+    even) and no product reads the f32 weights."""
+    from c2dsr_tpu_torch.ops.bf16 import round_bf16
+    p, x, seq = _tower_case(cuda, d, n_head, L, 2, B, seed=4)
+    rounded = {k: round_bf16(v) if k in ("w_qkv", "w_out", "w_ff1", "w_ff2")
+               else v for k, v in p["layers"].items()}
+    p16 = dict(p, layers=rounded)
+    assert any(not torch.equal(p["layers"][k], rounded[k]) for k in rounded)
+    kw = dict(idx_pad=999, n_head=n_head, invert_padding_mask=False,
+              dropout=0.2, seed=6, tower=2, bf16=True)
+    gout = torch.randn(x.shape, device=cuda, generator=_gen(cuda, B))
+    runs = []
+    for params in (p, p16):
+        # zeroed: the layout's alignment gaps are never written
+        acts = encoder_cuda.saved_buffer(x, n_head, 2).zero_()
+        out = encoder_cuda.encoder_fwd(x, seq, params, saved=acts, **kw)
+        dx, grads = encoder_cuda.encoder_bwd(x, seq, gout, params,
+                                             saved=acts, **kw)
+        runs.append([out, acts, dx] + list(grads))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.parametrize("d", [40, 128, 256, 264, 512, 1024])
