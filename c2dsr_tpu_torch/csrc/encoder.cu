@@ -31,26 +31,31 @@
 //   above, encoder_fwd_ln_kernel does it, a warp a row at any width).
 // * Attention up to L 64 (encoder_fwd_attn_seq_kernel): up to 8 whole
 //   sequences a block (64 rows), a warp serving one, a lane two of its
-//   keys, the probabilities in shared memory.  Past L 64 (any L:
-//   encoder_fwd_attn_kernel): a block a head and a tile of 64 query rows,
-//   keys in chunks of 64, a lane two keys of a chunk.  Both stage q, k, v
-//   64 head columns at a time and read them as float4, in FFMA, 4 blocks
-//   an SM.  At L 15 the whole-sequence kernel is the faster (kSeqL).  In
-//   the chunked kernel the logits go through the probability buffer
-//   (written with an online max and sum, then read back and normalised as
-//   P·V stages them), so no row of logits need fit on chip.  4·N·L·d FLOPs
-//   (all L keys of every query: an all-masked row averages over all of
-//   them), bound on an H100 by the FFMA rate (67 TFLOP/s) and the
-//   buffer's bytes, about 12 bytes a logit and 4 more a further head
-//   column chunk: a few percent of the tower at L 15, a third of a
-//   layer's FLOPs at L 200, d 128.  The logits' sums over the head's
-//   columns are compensated (add_compensated), for the reason the QKV
-//   product is f32-accurate (encoder_fwd_gemm_kernel).
+//   keys, the probabilities in shared memory, q·kᵀ and p·v in FFMA over
+//   64-column chunks of q, k, v (float4 reads), 4 blocks an SM; at L 15 it
+//   is the faster (kSeqL).  The logits' sums over the head's columns are
+//   compensated (add_compensated), for the reason the QKV product is
+//   f32-accurate (encoder_fwd_gemm_kernel).
+// * Past L 64 (any L: encoder_fwd_attn_kernel) both products run on the
+//   tensor cores (encoder_common.cuh attn_qk, attn_mm; the bf16
+//   instantiation's p·v in FFMA, below): a block a head and
+//   a tile of 64 query rows of one sequence, 4 warps of 16 rows in the
+//   m16n8 fragments, keys in chunks of 64.  The logits stay in registers,
+//   each as two f32 parts (its compensated sum, scaled): a first pass over
+//   the key chunks keeps each row's online max and sum (shuffles across
+//   the quad that holds a row), a second recomputes them (the same bits),
+//   writes p to the saved slot once in training, drops it and takes its
+//   fragments as the A operand of p·v as they lie.  q·kᵀ
+//   in tc.cuh's 6-term form (f32-accurate, as the QKV product), each
+//   k-step's partial Kahan-added, p·v in 3xTF32, each k-step's partial
+//   added in f32.  4·N·L·d FLOPs (all
+//   L keys of every query: an all-masked row averages over all of them)
+//   and 4 bytes a probability written in training.
 // * Every intermediate lands in the saved-activation layout (saved_layout):
 //   in training the buffer the backward reads, so saving costs nothing
 //   beyond the writes each kernel makes anyway; in eval a one-layer
-//   workspace of the same layout, with the backward's extras (xhat, 1/std)
-//   not written (p is: attention works in it).
+//   workspace of the same layout, with the backward's extras (xhat, 1/std,
+//   p) not written.
 // A one-layer tower call launches 6 kernels up to d 256 (5 in eval without
 // dropout: the input kernel only applies dropout or saves the input) and 8
 // above; each further layer adds 5, or 7; the bf16 instantiation one more
@@ -63,12 +68,16 @@
 // call's bf16 copy of its weights, made by the call's first launch, A
 // rounded as it is staged, ldmatrix and one m16n8k16 bf16 MMA a k16 step,
 // exact products, each 32-k chunk's sum added in f32), at twice the TF32
-// rate.  q·kᵀ and p·v in the attention kernel run FFMA over q, k, v and
-// the dropped probabilities rounded as they are staged (a product of two
-// bf16 values is exact in f32), the logits scaled after the product.
-// LayerNorm, softmax, dropout, the residual adds and every saved
+// rate, and so does q·kᵀ past L 64 (q and k rounded as they are staged,
+// each k16 step from a zeroed partial, Kahan-added, scaled after the
+// product); p·v there, and both products up to L 64 (the whole-sequence
+// kernel), run FFMA over the same rounded operands (a product of two bf16
+// values is exact in f32), an f32 chain over the keys (why:
+// encoder_fwd_attn_kernel).  LayerNorm, softmax, dropout, the residual adds and every saved
 // activation stay f32: the backward (encoder_bwd.cu) rounds them where it
 // multiplies them.
+
+#include <type_traits>
 
 #include "encoder_common.cuh"
 #include "tc.cuh"
@@ -108,11 +117,6 @@ struct FwdGemm {
   const float *lnf_s, *lnf_b;
   float *out, *xhat_f, *rstd_f;
 };
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // LayerNorm of fragment row h (acc[j][2h], acc[j][2h + 1]: columns
 // 8·j + 2·tq and the next, of m) over the quad that holds the row; acc
@@ -274,216 +278,264 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
 
 // ------------------------------------------------------- the attention ----
 
-// Dynamic shared memory of encoder_fwd_attn_kernel, in bytes: a chunk of q
-// (then v) and of k [kTile][kLdc], the dropped probabilities of one key
-// chunk [kTile][kLdp], the chunk's key flags and each row's softmax max
-// and sum.
-constexpr int kAttnFwdSmem =
-    4 * (2 * kTile * kLdc + kTile * kLdp + 3 * kTile);
+// Dynamic shared memory of encoder_fwd_attn_kernel at head dim dh, in
+// bytes: staged chunks of q and k [kAttnRows][attn_ld] and of v; kBf: v in
+// f32 (its values rounded) and the chunk's dropped p [kAttnRows][attn_ldp]
+// for p·v in FFMA; the key chunk's flags.
+__host__ __device__ constexpr int attn_fwd_smem(int dh, bool bf) {
+  return kAttnRows * (2 * attn_ld(attn_cw(dh), bf) * (bf ? 2 : 4)
+                      + 4 * attn_ld(attn_cw(dh), false)
+                      + (bf ? 4 * attn_ldp(false) : 0) + 4);
+}
 
-// Per block a query tile (attn_tile: up to 8 whole sequences up to L 32,
-// else up to kTile rows of one) and one head (blockIdx.y); any L, in key
-// chunks of Lt = min(L, kTile) positions, a lane two keys of a chunk:
-// 1. logits: per key chunk, q·k over 64-column chunks of q and k (float4
-//    reads, compensated sums), scaled, plus the added -1e9 bias where the
-//    key is later than the query or masked; written to pbuf [head][row]
-//    [key], each row's max and sum of exp(logit - max) kept online (the
-//    sum rescaled when a chunk raises the max);
-// 2. o = drop(P)·V over 64-column chunks of v, a key chunk of dropped
-//    probabilities staged beside each chunk of v (a lane a column): the
-//    first column chunk's staging turns the chunk's logits into p =
-//    exp(logit - max) / sum and, where keep_p (training, or more column
-//    chunks to come), writes p over them: the pre-dropout probabilities
-//    the backward reads.
-// With one key chunk the online sum is the two-pass one.  pbuf takes
-// H·B·L² floats in eval too (the eval workspace has the slot).  kBf: q,
-// k, v and the dropped probabilities rounded to bf16 as they are staged
-// (the bf16 instantiation's products); pbuf stays f32.
+// Past kSeqL (any L): per block one head (blockIdx.y) and a tile of
+// kAttnRows query rows of one sequence (blockIdx.x: sequence, tile), 16 a
+// warp; the keys in chunks of kAttnRows, the head's columns kHc at a time
+// (q staged once up to head dim 128).  Each key chunk's logits S = q·kᵀ
+// (attn_qk) stay in the warp's m16n8 C fragments, scaled after the
+// product, plus the added -1e9 bias where the key is later than the query
+// or masked; a row's values lie on a quad.
+// 1. Every chunk's logits give each row's max and sum of exp(s - max),
+//    online (the sum rescaled when a chunk raises the max), reduced across
+//    the quad by shuffles; nothing is written.
+// 2. For each kHc columns of the output (one pass up to head dim 128):
+//    every chunk's logits again (the same bits), p = exp(s - max) / sum,
+//    written once to the p slot in training (the pre-dropout
+//    probabilities K3 reads, [head][row][key]; not in eval, where nothing
+//    reads it), dropped, and o += drop(p)·v (attn_mm, p's fragments as
+//    the A operand as they lie).
+// All L keys of every query (an all-masked row averages over all of them:
+// no causal skip of a tile's later chunks).  kBf: q, k and v staged and
+// drop(p) taken rounded to bf16 (the bf16 instantiation's products), q·kᵀ
+// on the bf16 tensor cores; p·v in FFMA, a lane four output columns of a
+// warp's 16 rows, one fused multiply-add a key in order (the whole-sequence
+// kernel's chain): on an H100 the m16n8k16's truncating sums of p·v moved
+// more of o's bf16 roundings across float64's than an f32 chain does,
+// enough to put K2 bf16's output past chip_smoke.py's BF16_F64_K at L 65
+// (PERF.md §6).  The softmax, dropout and the p slot stay f32.
 template <bool kBf>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kAttnThreads, 2)
 encoder_fwd_attn_kernel(const float* __restrict__ qkv,
                         const int* __restrict__ seq, float* __restrict__ o,
                         float* __restrict__ pbuf, int B, int L, int d,
                         int n_head, int idx_pad, int invert, int save,
                         drop::Dropout dr, uint32_t salt) {
+  using T = typename std::conditional<kBf, uint16_t, float>::type;
+  constexpr int kAs = kBf ? kAsBf16 : kAsF32;
+  constexpr int ldp = attn_ldp(false);
+  static_assert(kAttnNt == 16, "kBf's acc holds a warp's 16 rows");
   extern __shared__ float4 smem4[];
+  const int dh = d / n_head;
+  const int ld = attn_ld(attn_cw(dh), kBf);
+  const int ldv = attn_ld(attn_cw(dh), false);
+  T* Q = reinterpret_cast<T*>(smem4);          // [kAttnRows][ld]
+  T* K = Q + kAttnRows * ld;
+  float* V = reinterpret_cast<float*>(K + kAttnRows * ld);   // [.][ldv]
+  float* P = V + kAttnRows * ldv;              // kBf: [kAttnRows][ldp]
+  int* key_ok = reinterpret_cast<int*>(P + (kBf ? kAttnRows * ldp : 0));
   const uint32_t key = dr.key(salt);
-  const AttnTile a = attn_tile(B, L);
-  float* QV = reinterpret_cast<float*>(smem4);   // [kTile][kLdc]: q, then v
-  float* K = QV + kTile * kLdc;                  // [kTile][kLdc]
-  float* P = K + kTile * kLdc;                   // [kTile][kLdp]
-  float* row_max = P + kTile * kLdp;             // [kTile] of the tile rows
-  float* row_sum = row_max + kTile;
-  int* key_ok = reinterpret_cast<int*>(row_sum + kTile);
+  const int tiles = attn_tiles(L);
+  const int b = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x % tiles) * kAttnRows;
+  const int nr = min(kAttnRows, L - r0);
+  const int h = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int h = blockIdx.y;
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool live = warp * 16 < nr;         // the warp holds a query row
   const size_t N = (size_t)B * L;
-  const int dh = d / n_head;
+  const size_t row_b = (size_t)b * L;       // the sequence's first row
+  const uint32_t gb = dr.batch(b);
   const int d3 = 3 * d;
+  const int hc = h * dh;
+  const bool q_once = dh <= kHc;
   const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
-  const int wr = warp % a.wps;             // the warp's first tile row
-  const int sq = a.s * a.Lt;               // its sequence's first tile row
-  // row i of the warp's sequence, key j: its slot of pbuf
-  auto at = [&](int i, int j) {
-    return ((size_t)h * N + (size_t)a.b * L + i) * L + j;
+  // this thread's query rows (fragment rows g and g + 8)
+  const int i0 = r0 + warp * 16 + gq;
+  if (q_once) attn_stage<kAs>(Q, ld, qkv, d3, row_b + r0, nr, hc, dh);
+
+  // S + L = the logits of key chunk kc (nk keys) for the warp's rows: the
+  // compensated sum of q·k, scaled, as a high part S and a low part L, so
+  // that a logit's difference from the row's largest keeps more than f32's
+  // bits (an f32 logit of 16 to 32 is a few 1e-6 off, which moves a large p
+  // across a bf16 rounding boundary as often as the plain tower's sums
+  // do).  A masked logit is f32's S·scale - 1e9 (L 0), whose rounding to
+  // steps of 64 decides an all-masked row; -inf past nk.  With vcol >= 0
+  // also stages v's columns [vcol, vcol + vcw).
+  auto logits = [&](int kc, int nk, float (&S)[8][4], float (&Sc)[8][4],
+                    int vcol, int vcw) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) S[j][e] = Sc[j][e] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += kHc) {
+      const int cw = min(kHc, dh - c0);
+      __syncthreads();     // the buffers' readers done
+      if (!q_once)
+        attn_stage<kAs>(Q, ld, qkv, d3, row_b + r0, nr, hc + c0, cw);
+      attn_stage<kAs>(K, ld, qkv, d3, row_b + kc, nk, d + hc + c0, cw);
+      if (c0 == 0) {
+        if (vcol >= 0)
+          attn_stage<kBf ? kAsRoundedF32 : kAsF32>(V, ldv, qkv, d3,
+                                                   row_b + kc, nk, vcol, vcw);
+        for (int r = threadIdx.x; r < nk; r += kAttnThreads) {
+          const bool real = seq[row_b + kc + r] != idx_pad;
+          key_ok[r] = invert ? !real : real;
+        }
+      }
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+      __syncthreads();
+      if (live) attn_qk<kBf>(Q, K, ld, cw, S, Sc);
+    }
+    if (!live) return;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jc = 8 * j + 2 * tq + (e & 1);
+        const int i = i0 + 8 * (e >> 1);
+        // the sum S - Sc as hi + lo (|Sc| <= an ulp of S)
+        const float hi = S[j][e] - Sc[j][e];
+        const float lo = (S[j][e] - hi) - Sc[j][e];
+        const float l = hi * inv_sqrt_dh;
+        if (jc >= nk) {
+          S[j][e] = -CUDART_INF_F;
+          Sc[j][e] = 0.f;
+        } else if (kc + jc <= i && key_ok[jc]) {
+          S[j][e] = l;
+          Sc[j][e] = fmaf(hi, inv_sqrt_dh, -l) + lo * inv_sqrt_dh;
+        } else {
+          S[j][e] = l + kNeg;
+          Sc[j][e] = 0.f;
+        }
+      }
+  };
+  // the larger of two logits (high part first, then low), into (m, ml)
+  auto larger = [](float& m, float& ml, float o, float ol) {
+    if (o > m || (o == m && ol > ml)) {
+      m = o;
+      ml = ol;
+    }
   };
 
-  float mx[8], sum[8];
+  // 1. each row's max (mx + mxl, the largest logit's two parts) and sum of
+  // exp(logit - max), online over the key chunks
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, mxl[2] = {0.f, 0.f};
+  float sum[2] = {0.f, 0.f};
+  for (int kc = 0; kc < L; kc += kAttnRows) {
+    float S[8][4], Sc[8][4];
+    logits(kc, min(kAttnRows, L - kc), S, Sc, -1, 0);
+    if (!live) continue;
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    mx[t] = -CUDART_INF_F;
-    sum[t] = 0.f;
+    for (int u = 0; u < 2; ++u) {
+      float m = mx[u], ml = mxl[u];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * u; e < 2 * u + 2; ++e) larger(m, ml, S[j][e], Sc[j][e]);
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        larger(m, ml, __shfl_xor_sync(0xffffffffu, m, off),
+               __shfl_xor_sync(0xffffffffu, ml, off));
+      float e = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 2 * u; x < 2 * u + 2; ++x)
+          e += expf((S[j][x] - m) + (Sc[j][x] - ml));
+      sum[u] = sum[u] * expf((mx[u] - m) + (mxl[u] - ml)) + quad_sum(e);
+      mx[u] = m;
+      mxl[u] = ml;
+    }
   }
-  for (int kc = 0; kc < L; kc += a.Lt) {
-    const int nk = min(a.Lt, L - kc);
-    float acc[8][2], cmp[8][2];          // the logits' sums, compensated
+  // 2. o = drop(p)·v, kHc output columns a pass
+  for (int c0 = 0; c0 < dh; c0 += kHc) {
+    const int cw = min(kHc, dh - c0);
+    // f32: o's m16n8 fragments, acc[n-tile][element]; kBf: acc[row][m],
+    // the warp's row 16·warp + r at column lane + 32·m
+    float acc[kAttnNt][4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-      acc[t][0] = acc[t][1] = cmp[t][0] = cmp[t][1] = 0.f;
-    for (int c0 = 0; c0 < dh; c0 += kCh) {
-      const int cw4 = min(kCh, dh - c0) / 4;
-      __syncthreads();     // the previous chunk's readers
-      if (c0 == 0)
-        for (int r = threadIdx.x; r < a.ns * nk; r += kThreads) {
-          const bool real =
-              seq[(size_t)(a.seq0 + r / nk) * L + kc + r % nk] != idx_pad;
-          key_ok[(r / nk) * a.Lt + r % nk] = invert ? !real : real;
+    for (int n = 0; n < kAttnNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int kc = 0; kc < L; kc += kAttnRows) {
+      const int nk = min(kAttnRows, L - kc);
+      float S[8][4], Sc[8][4];
+      logits(kc, nk, S, Sc, 2 * d + hc + c0, cw);
+      if (!live) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int u = e >> 1;
+          const int jc = 8 * j + 2 * tq + (e & 1);
+          const int i = i0 + 8 * u;
+          float p = expf((S[j][e] - mx[u]) + (Sc[j][e] - mxl[u])) /
+                    sum[u];                           // 0 past nk
+          if (jc < nk && i < r0 + nr) {
+            const size_t at = (size_t)(kc + jc);
+            if (save && c0 == 0)
+              pbuf[((size_t)h * N + row_b + i) * L + at] = p;
+            if (dr.on)
+              p = dr.apply(p, key, static_cast<uint32_t>(
+                                       (((size_t)gb * n_head + h) * L + i)
+                                       * L + at));
+          }
+          S[j][e] = p;
         }
-      attn_stage<kBf>(QV, qkv, d3, h * dh + c0, cw4, a, L, a.r0, a.nr);
-      attn_stage<kBf>(K, qkv, d3, d + h * dh + c0, cw4, a, L, kc, nk);
-      __syncthreads();
-      if (!a.active) continue;
-      for (int c4 = 0; c4 < cw4; ++c4) {
-        const float4 k0 =
-            lane < nk ? *reinterpret_cast<const float4*>(
-                            K + (sq + lane) * kLdc + 4 * c4)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 k1 =
-            lane + 32 < nk ? *reinterpret_cast<const float4*>(
-                                 K + (sq + lane + 32) * kLdc + 4 * c4)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kBf) {
+        // the warp's rows of drop(p), rounded, to its rows of P; acc[r][m]
+        // += P[r][key]·v[key][lane + 32·m], one key at a time
+        float* pw = P + warp * 16 * ldp;
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int r = wr + a.wps * t;
-          if (r < a.nr) {
-            const float4 q =
-                *reinterpret_cast<const float4*>(QV + (sq + r) * kLdc + 4 * c4);
-            add_compensated(acc[t][0], cmp[t][0], dot4(q, k0, 0.f));
-            add_compensated(acc[t][1], cmp[t][1], dot4(q, k1, 0.f));
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            *reinterpret_cast<float2*>(pw + (gq + 8 * u) * ldp + 8 * j +
+                                       2 * tq) =
+                make_float2(bf16f(S[j][2 * u]), bf16f(S[j][2 * u + 1]));
+        __syncwarp();
+        for (int k = 0; k < nk; ++k) {
+          const float* vr = V + k * ldv + lane;
+          float v[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) v[m] = lane + 32 * m < cw ? vr[32 * m] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 16; ++r) {
+            const float pk = pw[r * ldp + k];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) acc[r][m] = fmaf(pk, v[m], acc[r][m]);
           }
         }
+        __syncwarp();
+      } else {
+        attn_mm<false>(RegsA{S}, V, ld, cw, acc);
       }
     }
-    if (!a.active) continue;
+    if (!live) continue;
+    if constexpr (kBf) {
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int r = wr + a.wps * t;
-      if (r >= a.nr) continue;             // uniform over the warp
-      const int i = a.r0 + r;
-      float lg[2];
+      for (int r = 0; r < 16; ++r) {
+        const int i = r0 + warp * 16 + r;
+        if (i >= r0 + nr) continue;
+        float* dst = o + (row_b + i) * d + hc + c0 + lane;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (lane + 32 * m < cw) dst[32 * m] = acc[r][m];
+      }
+    } else {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int jc = lane + 32 * u;
-        const int j = kc + jc;
-        lg[u] = -CUDART_INF_F;
-        if (jc < nk) {
-          lg[u] = (acc[t][u] + cmp[t][u]) * inv_sqrt_dh
-                  + (j <= i && key_ok[sq + jc] ? 0.f : kNeg);
-          pbuf[at(i, j)] = lg[u];
-        }
+        const int i = i0 + 8 * u;
+        if (i >= r0 + nr) continue;
+        float* dst = o + (row_b + i) * d + hc + c0 + 2 * tq;
+#pragma unroll
+        for (int n = 0; n < kAttnNt; ++n)
+          if (8 * n < cw)
+            *reinterpret_cast<float2*>(dst + 8 * n) =
+                make_float2(acc[n][2 * u], acc[n][2 * u + 1]);
       }
-      // the row's max and sum online: with one chunk (L <= 64) the sum is
-      // 0·0 + the chunk's, the two-pass sum exactly
-      const float mn = fmaxf(mx[t], warp_max(fmaxf(lg[0], lg[1])));
-      float e[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-        e[u] = lane + 32 * u < nk ? expf(lg[u] - mn) : 0.f;
-      sum[t] = sum[t] * expf(mx[t] - mn) + warp_sum(e[0] + e[1]);
-      mx[t] = mn;
-    }
-  }
-  if (a.active && lane == 0) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int r = wr + a.wps * t;
-      if (r >= a.nr) continue;
-      row_max[sq + r] = mx[t];
-      row_sum[sq + r] = sum[t];
-    }
-  }
-  const bool keep_p = save || dh > kCh;
-  for (int c0 = 0; c0 < dh; c0 += kCh) {
-    const int cw4 = min(kCh, dh - c0) / 4;
-    const int cw = cw4 * 4;
-    float out[8][2];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) out[t][0] = out[t][1] = 0.f;
-    for (int kc = 0; kc < L; kc += a.Lt) {
-      const int nk = min(a.Lt, L - kc);
-      const int nk4 = (nk + 3) & ~3;
-      __syncthreads();     // p written; the previous chunk's readers done
-      attn_stage<kBf>(QV, qkv, d3, 2 * d + h * dh + c0, cw4, a, L, kc, nk);
-      // the chunk's dropped probabilities, zero past nk (the float4 pad);
-      // at the first column chunk from the logits (written back as p)
-      for (int v = threadIdx.x; v < a.ns * a.nr * nk4; v += kThreads) {
-        const int jc = v % nk4;
-        const int r = (v / nk4) % a.nr;
-        const int s = v / (nk4 * a.nr);
-        float p = 0.f;
-        if (jc < nk) {
-          const int b = a.seq0 + s, i = a.r0 + r, j = kc + jc;
-          float* pp = pbuf + ((size_t)h * N + (size_t)b * L + i) * L + j;
-          p = *pp;
-          if (c0 == 0) {
-            p = expf(p - row_max[s * a.Lt + r]) / row_sum[s * a.Lt + r];
-            if (keep_p) *pp = p;
-          }
-          if (dr.on)
-            p = dr.apply(p, key, static_cast<uint32_t>(
-                                     (((size_t)dr.batch(b) * n_head + h) * L
-                                      + i) * L + j));
-        }
-        P[(s * a.Lt + r) * kLdp + jc] = kBf ? bf16f(p) : p;
-      }
-      __syncthreads();
-      if (!a.active) continue;
-      for (int j4 = 0; j4 < nk4; j4 += 4) {
-        float4 p4[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int r = wr + a.wps * t;
-          p4[t] = r < a.nr
-                      ? *reinterpret_cast<const float4*>(
-                            P + (sq + r) * kLdp + j4)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int j = j4 + jj;
-          if (j >= nk) break;
-          const float v0 = lane < cw ? QV[(sq + j) * kLdc + lane] : 0.f;
-          const float v1 =
-              lane + 32 < cw ? QV[(sq + j) * kLdc + lane + 32] : 0.f;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            const float pj = jj == 0 ? p4[t].x : jj == 1 ? p4[t].y
-                             : jj == 2 ? p4[t].z : p4[t].w;
-            out[t][0] = fmaf(pj, v0, out[t][0]);
-            out[t][1] = fmaf(pj, v1, out[t][1]);
-          }
-        }
-      }
-    }
-    if (!a.active) continue;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int r = wr + a.wps * t;
-      if (r >= a.nr) continue;
-      float* dst = o + ((size_t)a.b * L + a.r0 + r) * d + h * dh + c0;
-      if (lane < cw) dst[lane] = out[t][0];
-      if (lane + 32 < cw) dst[lane + 32] = out[t][1];
     }
   }
 }
@@ -779,8 +831,10 @@ cudaError_t prepare() {
                            gemm_smem<128, true, kBf16Terms>()));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kBf16Terms, true>, a,
                            gemm_smem<256, true, kBf16Terms>()));
-  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<false>, a, kAttnFwdSmem));
-  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<true>, a, kAttnFwdSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<false>, a,
+                           attn_fwd_smem(kHc, false)));
+  TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<true>, a,
+                           attn_fwd_smem(kHc, true)));
   int most = 0;
   for (int L = 1; L <= kSeqL; ++L)
     most = attn_seq_fwd_smem(L) > most ? attn_seq_fwd_smem(L) : most;
@@ -907,16 +961,18 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
                 qkv, seq, o, p_save, B, L, d, n_head, idx_pad, invert, dr,
                 dr.salt(drop::kProbs, li));
     } else {
-    // the probabilities go to the p slot in eval too (the workspace's)
-    const dim3 attn_grid(attn_blocks(B, L), n_head);
-    if (bf16)
-      encoder_fwd_attn_kernel<true><<<attn_grid, kThreads, kAttnFwdSmem, s>>>(
-          qkv, seq, o, lb + so.l.p, B, L, d, n_head, idx_pad, invert, save,
-          dr, dr.salt(drop::kProbs, li));
-    else
-      encoder_fwd_attn_kernel<false><<<attn_grid, kThreads, kAttnFwdSmem, s>>>(
-          qkv, seq, o, lb + so.l.p, B, L, d, n_head, idx_pad, invert, save,
-          dr, dr.salt(drop::kProbs, li));
+      const dim3 attn_grid(B * attn_tiles(L), n_head);
+      const int dh = d / n_head;
+      if (bf16)
+        encoder_fwd_attn_kernel<true>
+            <<<attn_grid, kAttnThreads, attn_fwd_smem(dh, true), s>>>(
+                qkv, seq, o, lb + so.l.p, B, L, d, n_head, idx_pad, invert,
+                save, dr, dr.salt(drop::kProbs, li));
+      else
+        encoder_fwd_attn_kernel<false>
+            <<<attn_grid, kAttnThreads, attn_fwd_smem(dh, false), s>>>(
+                qkv, seq, o, lb + so.l.p, B, L, d, n_head, idx_pad, invert,
+                save, dr, dr.salt(drop::kProbs, li));
     }
     TRY(cudaGetLastError());
 

@@ -36,15 +36,19 @@
 // * LayerNorm backward (ln_bwd_kernel): one warp a row, any width.
 // * Attention backward up to L 64 (attn_bwd_seq_kernel): up to 8 whole
 //   sequences a block, a warp serving one, a lane two keys, ds and drop(p)
-//   in shared memory, one kernel.  Past L 64 (any L: attn_bwd_dq_kernel,
-//   then attn_bwd_dkv_kernel): a block a head and a tile of 64 query (then key)
-//   rows, the other side in chunks of 64, a lane two positions of a chunk
-//   or one column; 64 head columns of q, k, v and do in shared memory at a
-//   time, in FFMA.  dp, then ds, go through an H·B·L² buffer of the
-//   workspace, which the second kernel reads transposed: no row of the
-//   softmax need fit on chip, and each of dq, dk, dv is written once with
-//   no atomics.  8·N·L·d FLOPs, bound by the FFMA rate and that buffer's
-//   bytes.  Only these kernels are tied to sequences; the GEMMs are not.
+//   in shared memory, one kernel, in FFMA.  Past L 64 (any L:
+//   attn_bwd_dq_kernel, then attn_bwd_dkv_kernel) the four products run
+//   on the tensor cores (encoder_common.cuh attn_qk, attn_mm): a block a
+//   head and a tile of 64 query (then key) rows of one sequence, 16 a
+//   warp, the other side in chunks of 64.  do·vᵀ in tc.cuh's 6-term form
+//   (as K2's q·kᵀ: a sharp softmax passes its error on), each k-step's
+//   partial Kahan-added, ds·k, dsᵀ·q and drop(p)ᵀ·do in 3xTF32, each
+//   k-step's partial added in f32.  dp, then
+//   ds, go through an H·B·L² buffer of the workspace, which the second
+//   kernel reads transposed into shared memory: no row of the softmax
+//   need fit on chip, and each of dq, dk, dv is written once with no
+//   atomics.  8·N·L·d FLOPs.  Only these kernels are tied to sequences;
+//   the GEMMs are not.
 // * Weight gradients (wgrad_kernel): reductions over all N rows of the
 //   call, split into row ranges (a multiple of 32 rows each) that fill the
 //   SMs in whole waves; each (output tile, split) block writes its partial
@@ -69,10 +73,12 @@
 // bf16 MMA a k16 step, each 32-k chunk's exact products summed from a
 // zeroed accumulator and added in f32 (tc.cuh gemm_tile_bf16;
 // wg_tile_bf16); the attention backward rounds v, do, k and q as it
-// stages them and ds and drop(p) as it stores them, and keeps the softmax
-// backward (dp·p, ds) in f32, as do the LayerNorm backward, the bias and
-// LayerNorm sums and the dropout.
+// stages them and ds and drop(p) as it stores them (past L 64 on the bf16
+// tensor cores, each k16 step from a zeroed partial added in f32), and
+// keeps the softmax backward (dp·p, ds) in f32, as do the LayerNorm
+// backward, the bias and LayerNorm sums and the dropout.
 
+#include <type_traits>
 #include <vector>
 
 #include "encoder_common.cuh"
@@ -196,273 +202,260 @@ tc_gemm_kernel(const GemmArgs g) {
 
 // ------------------------------------------------------- the attention ----
 
-// Dynamic shared memory of the two attention backward kernels, bytes:
-// attn_bwd_dq_kernel two chunks [kTile][kLdc], a ds tile [kTile][kLdp] and
-// each row's Σ dp·p; attn_bwd_dkv_kernel two chunks and the ds and drop(p)
-// tiles.
-constexpr int kAttnDqSmem = 4 * (2 * kTile * kLdc + kTile * kLdp + kTile);
-constexpr int kAttnDkvSmem = 4 * (2 * kTile * kLdc + 2 * kTile * kLdp);
+// Dynamic shared memory of the two attention backward kernels at head dim
+// dh, bytes: attn_bwd_dq_kernel two staged chunks [kAttnRows][attn_ld] (do;
+// v, then k); attn_bwd_dkv_kernel one (q, then do) and a transposed tile
+// [kAttnRows][attn_ldp] (ds, then drop(p)).
+__host__ __device__ constexpr int attn_dq_smem(int dh, bool bf) {
+  return 2 * kAttnRows * attn_ld(attn_cw(dh), bf) * (bf ? 2 : 4);
+}
+__host__ __device__ constexpr int attn_dkv_smem(int dh, bool bf) {
+  return kAttnRows * (attn_ld(attn_cw(dh), bf) + attn_ldp(bf)) * (bf ? 2 : 4);
+}
 
-// The attention backward past L 64 (any L), in two kernels over the
-// forward's query and key tiles (encoder_common.cuh attn_tile; a block a
-// head, blockIdx.y):
+// The attention backward past kSeqL (any L), in two kernels over tiles of
+// kAttnRows query (then key) rows of one sequence, a block a head
+// (blockIdx.y), 16 rows a warp in the m16n8 fragments, the other side in
+// chunks of kAttnRows (encoder_common.cuh's tensor-core attention):
 // dpd = do·vᵀ, dp = drop(dpd), ds = p·(dp - Σ dp·p), dq = ds·k / sqrt(dh),
 // dk = dsᵀ·q / sqrt(dh), dv = drop(p)ᵀ·do, from the saved qkv and p and
 // the gradient do of the attention output.
 //
-// attn_bwd_dq_kernel, a query tile: per key chunk, dpd over 64-column
-// chunks of do and v (a lane two keys, float4 reads, compensated sums),
-// dropped into dp, written to dsbuf [head][row][key] with each row's Σ
-// dp·p kept (a lane's pair, the lane's running sum, then the warp); then
-// dq over 64-column chunks of k, a key chunk of ds staged beside each (a
-// lane a column), the first column chunk's staging turning dp into ds =
-// p·(dp - Σ) (kBf: rounded) and writing it over dp.  attn_bwd_dkv_kernel,
-// a key tile (after the first kernel, which wrote all of ds): dk and dv
-// over 64-column chunks of q and do, a query chunk of dsᵀ and drop(p)ᵀ
-// staged beside each.  Each sum runs over the chunks in the
-// whole-sequence kernel's order.  kBf: the products' operands rounded to
-// bf16 (v, do, k, q as they are staged, ds and drop(p) as they are
-// stored).
+// attn_bwd_dq_kernel, a query tile: per key chunk, dpd (attn_qk over do
+// and v) in the C fragments, dropped into dp, written to dsbuf
+// [head][row][key], each row's Σ dp·p kept (a thread's share, then the
+// quad); then, for each kHc columns of dq, per key chunk dp and p read
+// back at the fragments' places, ds = p·(dp - Σ) (kBf: rounded) written
+// over dp on the first pass, and dq += ds·k (attn_mm, ds's fragments as
+// the A operand).  attn_bwd_dkv_kernel, a key tile (after the first
+// kernel, which wrote all of ds): for each kHc columns, dk over the query
+// chunks (q and a transposed tile of ds staged), then dv (do and drop(p),
+// rounded in kBf).  kBf: the products' operands rounded to bf16 (v, do, k,
+// q as they are staged, ds and drop(p) as they are stored); the softmax
+// backward stays f32.
 template <bool kBf>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kAttnThreads, kBf ? 3 : 2)
 attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ p_in,
                    const float* __restrict__ d_o, float* __restrict__ dqkv,
                    float* __restrict__ dsbuf, int B, int L, int d, int n_head,
                    drop::Dropout dr, uint32_t salt) {
+  using T = typename std::conditional<kBf, uint16_t, float>::type;
+  constexpr int kAs = kBf ? kAsBf16 : kAsF32;
   extern __shared__ float4 smem4[];
+  const int dh = d / n_head;
+  const int ld = attn_ld(attn_cw(dh), kBf);
+  T* G = reinterpret_cast<T*>(smem4);          // [kAttnRows][ld]: do
+  T* C = G + kAttnRows * ld;                   // v, then k
   const uint32_t key = dr.key(salt);
-  const AttnTile a = attn_tile(B, L);
-  float* C1 = reinterpret_cast<float*>(smem4);   // [kTile][kLdc]: v, then k
-  float* C2 = C1 + kTile * kLdc;                 // [kTile][kLdc]: do
-  float* DS = C2 + kTile * kLdc;                 // ds [query][key]
-  float* row_dpp = DS + kTile * kLdp;            // Σ dp·p of the tile rows
+  const int tiles = attn_tiles(L);
+  const int b = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x % tiles) * kAttnRows;
+  const int nr = min(kAttnRows, L - r0);
+  const int h = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int h = blockIdx.y;
-  const uint32_t gb = dr.batch(a.b);       // the warp's row of the run's batch
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool live = warp * 16 < nr;
   const size_t N = (size_t)B * L;
-  const int dh = d / n_head;
-  const int hc = h * dh;
+  const size_t row_b = (size_t)b * L;
+  const uint32_t gb = dr.batch(b);
   const int d3 = 3 * d;
+  const int hc = h * dh;
+  const bool g_once = dh <= kHc;
   const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
-  const int wr = warp % a.wps;
-  const int sq = a.s * a.Lt;
+  const int i0 = r0 + warp * 16 + gq;
   auto at = [&](int i, int j) {
-    return ((size_t)h * N + (size_t)a.b * L + i) * L + j;
+    return ((size_t)h * N + row_b + i) * L + j;
   };
+  if (g_once) attn_stage<kAs>(G, ld, d_o, d, row_b + r0, nr, hc, dh);
 
-  float dpp[8];                          // Σ dp·p, a lane's share
+  float dpp[2] = {0.f, 0.f};             // Σ dp·p, the thread's share
+  for (int kc = 0; kc < L; kc += kAttnRows) {
+    const int nk = min(kAttnRows, L - kc);
+    float S[8][4], Sc[8][4];       // dpd, and its Kahan compensation
 #pragma unroll
-  for (int t = 0; t < 8; ++t) dpp[t] = 0.f;
-  for (int kc = 0; kc < L; kc += a.Lt) {
-    const int nk = min(a.Lt, L - kc);
-    float acc[8][2], cmp[8][2];          // dpd's sums, compensated
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-      acc[t][0] = acc[t][1] = cmp[t][0] = cmp[t][1] = 0.f;
-    for (int c0 = 0; c0 < dh; c0 += kCh) {
-      const int cw4 = min(kCh, dh - c0) / 4;
-      __syncthreads();     // the previous chunk's readers
-      attn_stage<kBf>(C1, qkv, d3, 2 * d + hc + c0, cw4, a, L, kc, nk);
-      attn_stage<kBf>(C2, d_o, d, hc + c0, cw4, a, L, a.r0, a.nr);
+      for (int e = 0; e < 4; ++e) S[j][e] = Sc[j][e] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += kHc) {
+      const int cw = min(kHc, dh - c0);
+      __syncthreads();     // the buffers' readers done
+      if (!g_once)
+        attn_stage<kAs>(G, ld, d_o, d, row_b + r0, nr, hc + c0, cw);
+      attn_stage<kAs>(C, ld, qkv, d3, row_b + kc, nk, 2 * d + hc + c0, cw);
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
       __syncthreads();
-      if (!a.active) continue;
-      for (int c4 = 0; c4 < cw4; ++c4) {
-        const float4 v0 =
-            lane < nk ? *reinterpret_cast<const float4*>(
-                            C1 + (sq + lane) * kLdc + 4 * c4)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 v1 =
-            lane + 32 < nk ? *reinterpret_cast<const float4*>(
-                                 C1 + (sq + lane + 32) * kLdc + 4 * c4)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int r = wr + a.wps * t;
-          if (r < a.nr) {
-            const float4 g =
-                *reinterpret_cast<const float4*>(C2 + (sq + r) * kLdc + 4 * c4);
-            add_compensated(acc[t][0], cmp[t][0], dot4(g, v0, 0.f));
-            add_compensated(acc[t][1], cmp[t][1], dot4(g, v1, 0.f));
-          }
-        }
-      }
+      if (live) attn_qk<kBf>(G, C, ld, cw, S, Sc);
     }
-    if (!a.active) continue;
+    if (!live) continue;
+    attn_sum(S, Sc);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int r = wr + a.wps * t;
-      if (r >= a.nr) continue;             // uniform over the warp
-      const int i = a.r0 + r;
-      float p[2], dp[2];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int jc = lane + 32 * u;
-        p[u] = dp[u] = 0.f;
-        if (jc < nk) {
-          const int j = kc + jc;
-          p[u] = p_in[at(i, j)];
-          dp[u] = acc[t][u] + cmp[t][u];
-          if (dr.on)
-            dp[u] = dr.apply(dp[u], key, static_cast<uint32_t>(
-                                             (((size_t)gb * n_head + h) * L
-                                              + i) * L + j));
-          dsbuf[at(i, j)] = dp[u];
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int jc = 8 * j + 2 * tq + (e & 1);
+        const int i = i0 + 8 * (e >> 1);
+        if (jc >= nk || i >= r0 + nr) continue;
+        float dp = S[j][e];
+        if (dr.on)
+          dp = dr.apply(dp, key, static_cast<uint32_t>(
+                                     (((size_t)gb * n_head + h) * L + i) * L
+                                     + kc + jc));
+        dsbuf[at(i, kc + jc)] = dp;
+        dpp[e >> 1] += dp * p_in[at(i, kc + jc)];
       }
-      dpp[t] += dp[0] * p[0] + dp[1] * p[1];
-    }
   }
-  if (a.active) {
+  dpp[0] = quad_sum(dpp[0]);
+  dpp[1] = quad_sum(dpp[1]);
+  for (int c0 = 0; c0 < dh; c0 += kHc) {
+    const int cw = min(kHc, dh - c0);
+    float acc[kAttnNt][4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int r = wr + a.wps * t;
-      if (r >= a.nr) continue;
-      const float dot_pp = warp_sum(dpp[t]);
-      if (lane == 0) row_dpp[sq + r] = dot_pp;
-    }
-  }
-  for (int c0 = 0; c0 < dh; c0 += kCh) {
-    const int cw4 = min(kCh, dh - c0) / 4;
-    const int cw = cw4 * 4;
-    float aq[8][2];
+    for (int n = 0; n < kAttnNt; ++n)
 #pragma unroll
-    for (int t = 0; t < 8; ++t) aq[t][0] = aq[t][1] = 0.f;
-    for (int kc = 0; kc < L; kc += a.Lt) {
-      const int nk = min(a.Lt, L - kc);
-      __syncthreads();     // ds written; the previous chunk's readers done
-      attn_stage<kBf>(C1, qkv, d3, d + hc + c0, cw4, a, L, kc, nk);
-      // the chunk's ds; at the first column chunk from dp (written back)
-      for (int v = threadIdx.x; v < a.ns * a.nr * nk; v += kThreads) {
-        const int jc = v % nk;
-        const int r = (v / nk) % a.nr;
-        const int s = v / (nk * a.nr);
-        const size_t k =
-            ((size_t)h * N + (size_t)(a.seq0 + s) * L + a.r0 + r) * L + kc
-            + jc;
-        float ds = dsbuf[k];
-        if (c0 == 0) {
-          ds = p_in[k] * (ds - row_dpp[s * a.Lt + r]);
-          if constexpr (kBf) ds = bf16f(ds);
-          dsbuf[k] = ds;
-        }
-        DS[(s * a.Lt + r) * kLdp + jc] = ds;
-      }
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int kc = 0; kc < L; kc += kAttnRows) {
+      const int nk = min(kAttnRows, L - kc);
+      __syncthreads();     // the previous chunk's readers done
+      attn_stage<kAs>(C, ld, qkv, d3, row_b + kc, nk, d + hc + c0, cw);
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
       __syncthreads();
-      if (!a.active) continue;
-      for (int j = 0; j < nk; ++j) {
-        const float* kr = C1 + (sq + j) * kLdc;
-        const float k0 = lane < cw ? kr[lane] : 0.f;
-        const float k1 = lane + 32 < cw ? kr[lane + 32] : 0.f;
+      if (!live) continue;
+      // the chunk's ds at the fragments' places; on the first pass from dp
+      // (written back)
+      float S[8][4];
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int r = wr + a.wps * t;
-          if (r < a.nr) {
-            const float ds_ij = DS[(sq + r) * kLdp + j];
-            aq[t][0] = fmaf(ds_ij, k0, aq[t][0]);
-            aq[t][1] = fmaf(ds_ij, k1, aq[t][1]);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jc = 8 * j + 2 * tq + (e & 1);
+          const int i = i0 + 8 * (e >> 1);
+          float ds = 0.f;
+          if (jc < nk && i < r0 + nr) {
+            const size_t k = at(i, kc + jc);
+            ds = dsbuf[k];
+            if (c0 == 0) {
+              ds = p_in[k] * (ds - dpp[e >> 1]);
+              if constexpr (kBf) ds = bf16f(ds);
+              dsbuf[k] = ds;
+            }
           }
+          S[j][e] = ds;
         }
-      }
+      attn_mm<kBf>(RegsA{S}, C, ld, cw, acc);
     }
-    if (!a.active) continue;
+    if (!live) continue;
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int r = wr + a.wps * t;
-      if (r >= a.nr) continue;
-      float* dst = dqkv + ((size_t)a.b * L + a.r0 + r) * d3 + hc + c0;
-      if (lane < cw) dst[lane] = aq[t][0] * inv_sqrt_dh;
-      if (lane + 32 < cw) dst[lane + 32] = aq[t][1] * inv_sqrt_dh;
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + 8 * u;
+      if (i >= r0 + nr) continue;
+      float* dst = dqkv + (row_b + i) * d3 + hc + c0 + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < kAttnNt; ++n)
+        if (8 * n < cw)
+          *reinterpret_cast<float2*>(dst + 8 * n) =
+              make_float2(acc[n][2 * u] * inv_sqrt_dh,
+                          acc[n][2 * u + 1] * inv_sqrt_dh);
     }
   }
 }
 
 template <bool kBf>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kAttnThreads, 2)
 attn_bwd_dkv_kernel(const float* __restrict__ qkv,
                     const float* __restrict__ p_in,
                     const float* __restrict__ d_o, float* __restrict__ dqkv,
                     const float* __restrict__ dsbuf, int B, int L, int d,
                     int n_head, drop::Dropout dr, uint32_t salt) {
+  using T = typename std::conditional<kBf, uint16_t, float>::type;
+  constexpr int kAs = kBf ? kAsBf16 : kAsF32;
   extern __shared__ float4 smem4[];
+  const int dh = d / n_head;
+  const int ld = attn_ld(attn_cw(dh), kBf);
+  constexpr int ldp = attn_ldp(kBf);
+  T* X = reinterpret_cast<T*>(smem4);          // [kAttnRows][ld]: q, do
+  T* P = X + kAttnRows * ld;                   // [query][key]: ds, drop(p)
   const uint32_t key = dr.key(salt);
-  const AttnTile a = attn_tile(B, L);          // a tile of key rows
-  float* C1 = reinterpret_cast<float*>(smem4);   // [kTile][kLdc]: q
-  float* C2 = C1 + kTile * kLdc;                 // [kTile][kLdc]: do
-  float* DT = C2 + kTile * kLdc;                 // dsᵀ [key][query]
-  float* PT = DT + kTile * kLdp;                 // drop(p)ᵀ [key][query]
+  const int tiles = attn_tiles(L);
+  const int b = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x % tiles) * kAttnRows;   // the key tile
+  const int nr = min(kAttnRows, L - j0);
+  const int h = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int h = blockIdx.y;
+  const int tq = lane & 3;
+  const bool live = warp * 16 < nr;
   const size_t N = (size_t)B * L;
-  const int dh = d / n_head;
-  const int hc = h * dh;
+  const size_t row_b = (size_t)b * L;
+  const uint32_t gb = dr.batch(b);
   const int d3 = 3 * d;
+  const int hc = h * dh;
   const float inv_sqrt_dh = 1.f / sqrtf(static_cast<float>(dh));
-  const int wr = warp % a.wps;
-  const int sq = a.s * a.Lt;
-  for (int c0 = 0; c0 < dh; c0 += kCh) {
-    const int cw4 = min(kCh, dh - c0) / 4;
-    const int cw = cw4 * 4;
-    float ak[8][2], av[8][2];
+  const int r_lo = j0 + warp * 16 + (lane >> 2);   // this thread's keys
+  for (int c0 = 0; c0 < dh; c0 += kHc) {
+    const int cw = min(kHc, dh - c0);
+    // pass 0: dk = dsᵀ·q; pass 1: dv = drop(p)ᵀ·do
+    for (int pass = 0; pass < 2; ++pass) {
+      float acc[kAttnNt][4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) ak[t][0] = ak[t][1] = av[t][0] = av[t][1] = 0.f;
-    for (int qc = 0; qc < L; qc += a.Lt) {
-      const int nq = min(a.Lt, L - qc);
-      __syncthreads();     // the previous chunk's readers
-      attn_stage<kBf>(C1, qkv, d3, hc + c0, cw4, a, L, qc, nq);
-      attn_stage<kBf>(C2, d_o, d, hc + c0, cw4, a, L, qc, nq);
-      // the chunk's ds and drop(p), transposed: keys the tile's rows, read
-      // along the keys
-      for (int v = threadIdx.x; v < a.ns * nq * a.nr; v += kThreads) {
-        const int r = v % a.nr;
-        const int ic = (v / a.nr) % nq;
-        const int s = v / (a.nr * nq);
-        const int b = a.seq0 + s, i = qc + ic, j = a.r0 + r;
-        const size_t k = ((size_t)h * N + (size_t)b * L + i) * L + j;
-        float pd = p_in[k];
-        if (dr.on)
-          pd = dr.apply(pd, key, static_cast<uint32_t>(
-                                     (((size_t)dr.batch(b) * n_head + h) * L
-                                      + i) * L + j));
-        DT[(s * a.Lt + r) * kLdp + ic] = dsbuf[k];
-        PT[(s * a.Lt + r) * kLdp + ic] = kBf ? bf16f(pd) : pd;
-      }
-      __syncthreads();
-      if (!a.active) continue;
-      for (int i = 0; i < nq; ++i) {
-        const float* qr = C1 + (sq + i) * kLdc;
-        const float* gr = C2 + (sq + i) * kLdc;
-        const float q0 = lane < cw ? qr[lane] : 0.f;
-        const float q1 = lane + 32 < cw ? qr[lane + 32] : 0.f;
-        const float g0 = lane < cw ? gr[lane] : 0.f;
-        const float g1 = lane + 32 < cw ? gr[lane + 32] : 0.f;
+      for (int n = 0; n < kAttnNt; ++n)
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int r = wr + a.wps * t;
-          if (r < a.nr) {
-            const float ds_ij = DT[(sq + r) * kLdp + i];
-            const float pd_ij = PT[(sq + r) * kLdp + i];
-            ak[t][0] = fmaf(ds_ij, q0, ak[t][0]);
-            ak[t][1] = fmaf(ds_ij, q1, ak[t][1]);
-            av[t][0] = fmaf(pd_ij, g0, av[t][0]);
-            av[t][1] = fmaf(pd_ij, g1, av[t][1]);
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      for (int qc = 0; qc < L; qc += kAttnRows) {
+        const int nq = min(kAttnRows, L - qc);
+        __syncthreads();   // the previous chunk's readers done
+        if (pass == 0)
+          attn_stage<kAs>(X, ld, qkv, d3, row_b + qc, nq, hc + c0, cw);
+        else
+          attn_stage<kAs>(X, ld, d_o, d, row_b + qc, nq, hc + c0, cw);
+        // the chunk's ds or drop(p), [query][key] as they lie in dsbuf and
+        // the p slot, two keys a thread, zero past nq and nr
+        for (int v = threadIdx.x; v < kAttnRows * kAttnRows / 2;
+             v += kAttnThreads) {
+          const int r = v / (kAttnRows / 2), c = 2 * (v % (kAttnRows / 2));
+          float x[2] = {0.f, 0.f};
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if (r >= nq || c + u >= nr) continue;
+            const int i = qc + r, j = j0 + c + u;
+            const size_t k = ((size_t)h * N + row_b + i) * L + j;
+            if (pass == 0) {
+              x[u] = dsbuf[k];
+            } else {
+              x[u] = p_in[k];
+              if (dr.on)
+                x[u] = dr.apply(x[u], key, static_cast<uint32_t>(
+                                               (((size_t)gb * n_head + h) * L
+                                                + i) * L + j));
+            }
           }
+          if constexpr (kBf)
+            *reinterpret_cast<uint32_t*>(P + r * ldp + c) =
+                pack_bf16(x[0], x[1]);
+          else
+            *reinterpret_cast<float2*>(P + r * ldp + c) =
+                make_float2(x[0], x[1]);
         }
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        if (live) attn_mm<kBf>(TransA<kBf>{P}, X, ld, cw, acc);
       }
-    }
-    if (!a.active) continue;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int r = wr + a.wps * t;
-      if (r >= a.nr) continue;
-      float* dst = dqkv + ((size_t)a.b * L + a.r0 + r) * d3 + hc + c0;
+      if (!live) continue;
+      const float scale = pass == 0 ? inv_sqrt_dh : 1.f;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int c = lane + 32 * u;
-        if (c >= cw) continue;
-        dst[d + c] = ak[t][u] * inv_sqrt_dh;
-        dst[2 * d + c] = av[t][u];
+        const int j = r_lo + 8 * u;
+        if (j >= j0 + nr) continue;
+        float* dst = dqkv + (row_b + j) * d3 + (pass + 1) * d + hc + c0
+                     + 2 * tq;
+#pragma unroll
+        for (int n = 0; n < kAttnNt; ++n)
+          if (8 * n < cw)
+            *reinterpret_cast<float2*>(dst + 8 * n) =
+                make_float2(acc[n][2 * u] * scale, acc[n][2 * u + 1] * scale);
       }
     }
   }
@@ -1095,10 +1088,14 @@ cudaError_t prepare() {
     most = attn_seq_bwd_smem(L) > most ? attn_seq_bwd_smem(L) : most;
   TRY(cudaFuncSetAttribute(attn_bwd_seq_kernel<false>, a, most));
   TRY(cudaFuncSetAttribute(attn_bwd_seq_kernel<true>, a, most));
-  TRY(cudaFuncSetAttribute(attn_bwd_dq_kernel<false>, a, kAttnDqSmem));
-  TRY(cudaFuncSetAttribute(attn_bwd_dq_kernel<true>, a, kAttnDqSmem));
-  TRY(cudaFuncSetAttribute(attn_bwd_dkv_kernel<false>, a, kAttnDkvSmem));
-  TRY(cudaFuncSetAttribute(attn_bwd_dkv_kernel<true>, a, kAttnDkvSmem));
+  TRY(cudaFuncSetAttribute(attn_bwd_dq_kernel<false>, a,
+                           attn_dq_smem(kHc, false)));
+  TRY(cudaFuncSetAttribute(attn_bwd_dq_kernel<true>, a,
+                           attn_dq_smem(kHc, true)));
+  TRY(cudaFuncSetAttribute(attn_bwd_dkv_kernel<false>, a,
+                           attn_dkv_smem(kHc, false)));
+  TRY(cudaFuncSetAttribute(attn_bwd_dkv_kernel<true>, a,
+                           attn_dkv_smem(kHc, true)));
   TRY(cudaFuncSetAttribute(wgrad_kernel<false>, a, kWgSmem));
   TRY(cudaFuncSetAttribute(wgrad_kernel<true>, a, kWgSmemBf));
   if (dev < 64) done[dev] = true;
@@ -1266,8 +1263,9 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     g7.w16 = bf16 ? w16s.w_out + li * s_dd : nullptr;
     g7.m = d; g7.epi = kStore; g7.dr = off;
     TRY(launch_gemm(g7, nt, bf16, s));
-    const dim3 attn_grid(attn_blocks(B, L), n_head);
+    const dim3 attn_grid(B * attn_tiles(L), n_head);
     const uint32_t salt = dr.salt(drop::kProbs, li);
+    const int dh = d / n_head;
     if (L <= kSeqL) {
       const int blocks = (B + attn_seqs(L) - 1) / attn_seqs(L);
       if (bf16)
@@ -1281,19 +1279,23 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
                 layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, B, L,
                 d, n_head, dr, salt);
     } else if (bf16) {
-      attn_bwd_dq_kernel<true><<<attn_grid, kThreads, kAttnDqSmem, s>>>(
-          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B, L,
-          d, n_head, dr, salt);
-      attn_bwd_dkv_kernel<true><<<attn_grid, kThreads, kAttnDkvSmem, s>>>(
-          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B, L,
-          d, n_head, dr, salt);
+      attn_bwd_dq_kernel<true>
+          <<<attn_grid, kAttnThreads, attn_dq_smem(dh, true), s>>>(
+              layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B,
+              L, d, n_head, dr, salt);
+      attn_bwd_dkv_kernel<true>
+          <<<attn_grid, kAttnThreads, attn_dkv_smem(dh, true), s>>>(
+              layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B,
+              L, d, n_head, dr, salt);
     } else {
-      attn_bwd_dq_kernel<false><<<attn_grid, kThreads, kAttnDqSmem, s>>>(
-          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B, L,
-          d, n_head, dr, salt);
-      attn_bwd_dkv_kernel<false><<<attn_grid, kThreads, kAttnDkvSmem, s>>>(
-          layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B, L,
-          d, n_head, dr, salt);
+      attn_bwd_dq_kernel<false>
+          <<<attn_grid, kAttnThreads, attn_dq_smem(dh, false), s>>>(
+              layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B,
+              L, d, n_head, dr, salt);
+      attn_bwd_dkv_kernel<false>
+          <<<attn_grid, kAttnThreads, attn_dkv_smem(dh, false), s>>>(
+              layer(li, so.l.qkv), layer(li, so.l.p), t.d_o, t.dqkv, t.ds, B,
+              L, d, n_head, dr, salt);
     }
     TRY(cudaGetLastError());
     // dx of the layer: dz1 + dqkv·Wqkvᵀ, through the input dropout below

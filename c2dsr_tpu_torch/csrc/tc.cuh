@@ -28,9 +28,9 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
 }
 
 // x rounded to bf16 (to nearest, ties to even: the JAX package's astype),
-// as the bits of an f32 whose low 16 bits are zero (the towers' attention
-// kernels round their FFMA operands so).  The products with a weight run
-// bf16 MMAs on bf16 rows (below).  Finite x.
+// as the bits of an f32 whose low 16 bits are zero (the towers'
+// whole-sequence attention kernels round their FFMA operands so).  The
+// other products run bf16 MMAs on bf16 rows (below).  Finite x.
 __device__ __forceinline__ uint32_t round_bf16(float x) {
   const uint32_t u = __float_as_uint(x);
   return (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
@@ -74,7 +74,8 @@ __device__ __forceinline__ void mma_tf32_zero(float d[4], const uint32_t a[4],
 
 // The bf16 tensor cores (the bf16 instantiations of the CE kernels,
 // ce_fwd.cuh, ce_bwd.cuh, ce_cluster.cu, and of the towers' products,
-// gemm_tile_bf16 below and encoder_bwd.cu's weight gradients): operands
+// gemm_tile_bf16 below, encoder_bwd.cu's weight gradients and
+// encoder_common.cuh's attention past L 64): operands
 // read from shared memory by ldmatrix, one mma.sync.m16n8k16 bf16 with
 // f32 accumulators a k16 step (twice the TF32 rate, and a quarter of the
 // fragment loads of mma_tf32 on bf16 values widened one 16-bit load at a

@@ -19,9 +19,11 @@ tensor cores at f32 accuracy (3xTF32, ``csrc/tc.cuh``; bf16 MMAs in the
 bf16 instantiations, below): the forward folds
 the bias, ReLU, dropout, residual and (up to d 256) LayerNorm into its
 GEMMs' epilogues, the backward dropout, ReLU's mask and the residual;
-attention runs up to 8 whole sequences a block up to L 64 and, past it, a
-block per head and tile of 64 query (or key) rows, the other side in
-chunks of 64; LayerNorm (the forward's above d 256, the backward's) a row
+attention runs up to 8 whole sequences a block up to L 64 (FFMA) and, past
+it, a block per head and tile of 64 query (or key) rows on the tensor
+cores (q·kᵀ and do·vᵀ in a 6-term TF32 split, the other products in
+3xTF32), the other side in chunks of 64; LayerNorm (the forward's above d
+256, the backward's) a row
 a warp at any width; the weight gradients are reductions over row splits
 summed in order.  The forward writes its intermediates into the
 saved-activation layout: in training the buffer the backward reads, so the
@@ -45,12 +47,13 @@ over L positions, as ``ops/encoder.py`` in both packages gives it.
 ``bf16=True`` (``compute_dtype="bfloat16"``) selects both kernels' bf16
 instantiations, the Pallas kernels' ``matmul_dtype=bf16``: every product's
 operands rounded to bf16 (the incoming gradient's included), the sums f32.
-The products with a weight and the weight gradients run bf16 MMAs
-(m16n8k16, operands by ``ldmatrix``: ``csrc/tc.cuh`` ``gemm_tile_bf16``,
-``csrc/encoder_bwd.cu`` ``wg_tile_bf16``), the weights read from a bf16
-copy that each call makes first into a buffer the wrapper allocates
-(``encoder_weights_bf16_elems``).  The saved activations stay f32.  Their
-launches count apart (``launches_bf16``).
+The products with a weight, the weight gradients and the attention past L
+64 run bf16 MMAs (m16n8k16, operands by ``ldmatrix``: ``csrc/tc.cuh``
+``gemm_tile_bf16``, ``csrc/encoder_bwd.cu`` ``wg_tile_bf16``,
+``csrc/encoder_common.cuh`` ``attn_qk`` and ``attn_mm``), the weights read
+from a bf16 copy that each call makes first into a buffer the wrapper
+allocates (``encoder_weights_bf16_elems``).  The saved activations stay
+f32.  Their launches count apart (``launches_bf16``).
 """
 
 from __future__ import annotations

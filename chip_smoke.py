@@ -12,9 +12,10 @@ Phases (any failure exits non-zero without the final line):
 
 1. setup: build the kernels, print the build time and the card; the CE
    kernels' SASS (``cuobjdump -sass``, ``_mma_sass``): every bf16
-   instantiation of K4 and K5 and of K2's and K3's products with a weight
-   runs bf16 MMAs (HMMA.16816.F32.BF16) and no TF32 one, every f32 one the
-   reverse; the CUDA dropout hash must equal
+   instantiation of K4 and K5, of K2's and K3's products with a weight and
+   of their attention kernels past L 64 runs bf16 MMAs (HMMA.16816.F32.BF16)
+   and no TF32 one, every f32 one the reverse; the CUDA dropout hash must
+   equal
    ops/dropout.bits_reference.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the main paths' shapes, and time kernel, plain version and one
@@ -1212,7 +1213,9 @@ def _tower_times(timer, gpu, peak_flops, peak_bw):
     the 3xTF32 and FFMA bounds (12·N·d² FLOPs forward plus the causal
     attention the inputs' masks need, twice that backward; the bytes of x,
     the output, the weights and the activations the backward reads) and
-    K3's kernels profiled."""
+    K3's kernels profiled; then the bf16 instantiations at the same tower
+    beside the library's bf16 calls.  Both dtypes' attention kernels are
+    profiled apart (``attention_*``)."""
     from c2dsr_tpu_torch.bench import kernel_bench
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
@@ -1249,14 +1252,26 @@ def _tower_times(timer, gpu, peak_flops, peak_bw):
         b_lib = timer(lambda: torch.autograd.grad(
             tower(xg, mask=causal, src_key_padding_mask=kpm), lib_params,
             gout))
-        f_sub = timing.kernel_times(lambda: encoder_cuda.encoder_fwd(
-            x, seq, p, saved=acts, **kw))[0]
-        b_sub = timing.kernel_times(lambda: encoder_cuda.encoder_bwd(
-            x, seq, gout, p, saved=acts, **kw))[0]
         flops, attn_flops, f_bytes, b_bytes = _tower_work(seq, pad, p, acts,
                                                           n_head)
-        attn = {"fwd": sum(v for k, v in f_sub.items() if "attn" in k),
-                "bwd": sum(v for k, v in b_sub.items() if "attn" in k)}
+        subs, attn = {}, {}
+        for bf in (False, True):
+            name = "bf16" if bf else "f32"
+            subs[name] = (
+                timing.kernel_times(lambda: encoder_cuda.encoder_fwd(
+                    x, seq, p, saved=acts, bf16=bf, **kw))[0],
+                timing.kernel_times(lambda: encoder_cuda.encoder_bwd(
+                    x, seq, gout, p, saved=acts, bf16=bf, **kw))[0])
+            attn[name] = [sum(v for k, v in sub.items() if "attn" in k)
+                          for sub in subs[name]]
+        with torch.no_grad():
+            f_bf = timer(lambda: encoder_cuda.encoder_fwd(
+                x, seq, p, saved=acts, bf16=True, **kw))
+        b_bf = timer(lambda: encoder_cuda.encoder_bwd(
+            x, seq, gout, p, saved=acts, bf16=True, **kw))
+        f_lib_bf, b_lib_bf = _bf16_tower_library(p, x, seq, gout, pad,
+                                                 n_head, 0.2, timer)
+        f_sub, b_sub = subs["f32"]
         out[f"d{d}_L{L}"] = {
             "B": B, "n_head": n_head, "fwd_ms": f_ms, "fwd_plain_ms": f_plain,
             "fwd_library_ms": f_lib, "bwd_ms": b_ms, "bwd_plain_ms": b_plain,
@@ -1266,18 +1281,27 @@ def _tower_times(timer, gpu, peak_flops, peak_bw):
             "bwd_bound_ms": timing.tc_bound_ms(2 * flops, b_bytes, gpu,
                                                peak_bw),
             "bwd_bound_ffma_ms": 2 * flops / peak_flops * 1e3,
-            "attention_fwd_ms": attn["fwd"], "attention_bwd_ms": attn["bwd"],
-            "attention_share_of_flops": attn_flops / flops}
+            "attention_fwd_ms": attn["f32"][0],
+            "attention_bwd_ms": attn["f32"][1],
+            "attention_share_of_flops": attn_flops / flops,
+            "fwd_bf16_ms": f_bf, "bwd_bf16_ms": b_bf,
+            "fwd_library_bf16_ms": f_lib_bf,
+            "fwd_bwd_library_bf16_ms": b_lib_bf,
+            "attention_fwd_bf16_ms": attn["bf16"][0],
+            "attention_bwd_bf16_ms": attn["bf16"][1]}
         r = out[f"d{d}_L{L}"]
         log(f"shapes timed: tower d={d} n_head={n_head} L={L} B={B} "
             f"dropout 0.2: K2 {f_ms:.4f} ms plain {f_plain:.4f} library "
             f"{f_lib:.4f} bound 3xTF32 {r['fwd_bound_ms']:.4f} FFMA "
-            f"{r['fwd_bound_ffma_ms']:.4f} (attention {attn['fwd']:.4f}, "
+            f"{r['fwd_bound_ffma_ms']:.4f} (attention {attn['f32'][0]:.4f}, "
             f"profiled); K3 {b_ms:.4f} ms plain {b_plain:.4f} library fwd + "
             f"bwd {b_lib:.4f} bound {r['bwd_bound_ms']:.4f} FFMA "
-            f"{r['bwd_bound_ffma_ms']:.4f} (attention {attn['bwd']:.4f}); "
+            f"{r['bwd_bound_ffma_ms']:.4f} (attention {attn['f32'][1]:.4f}); "
             "K3's kernels " + ", ".join(f"{k} {v:.4f}"
-                                        for k, v in b_sub.items()))
+                                        for k, v in b_sub.items())
+            + f"; bf16: K2 {f_bf:.4f} ms library {f_lib_bf:.4f} (attention "
+            f"{attn['bf16'][0]:.4f}), K3 {b_bf:.4f} ms library fwd + bwd "
+            f"{b_lib_bf:.4f} (attention {attn['bf16'][1]:.4f})")
         del acts, tower, xg, lib_params
         torch.cuda.empty_cache()
     return out
@@ -1532,6 +1556,37 @@ def _tower_accuracy(calls):
     return out
 
 
+def _long_step_accuracy(graphs, spec):
+    """``_tower_accuracy`` of the tower calls of one train step at
+    LONG_STEP (dropout 0; FK's itemsets and graphs, a seeded synthetic
+    batch and seeded params): the reading ``--compare`` takes in each
+    checkout, on the same inputs."""
+    from c2dsr_tpu_torch.config import Config, DataSpec
+    from c2dsr_tpu_torch.data import preprocess, synthetic
+    from c2dsr_tpu_torch.evaluate import ranker
+    from c2dsr_tpu_torch.model import params as params_mod
+    from c2dsr_tpu_torch.train import step as step_mod
+    cfg = Config(**LONG_STEP).with_(dropout_gnn=0.0, dropout_attn=0.0)
+    sp = DataSpec(n_item_a=spec.n_item_a, n_item_b=spec.n_item_b,
+                  len_max=cfg.len_max)
+    tr = preprocess.preprocess_train(
+        synthetic.generate_sequences(sp, 2000, seed=7), sp, seed=1)
+    batch = ranker.to_device({k: v[:cfg.batch_size] for k, v in tr.items()},
+                             "cuda")
+    params = params_mod.init_params(cfg, sp, torch.Generator().manual_seed(3),
+                                    "cuda")
+    leaves = step_mod.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    calls = []
+    _loss_grads(params, leaves, graphs, batch, cfg, sp,
+                gates.recording_k2_branches({}, calls))
+    out = _tower_accuracy(calls)
+    del calls, params, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
 LONG_STEP = dict(d_latent=128, n_head=1, len_max=200)   # phase_train_wide's
 WIDE_STEP = dict(d_latent=1024, n_head=8, len_max=15)   # long and wide runs
 EVAL_USERS_WIDE = 2048   # their full rank's eval users
@@ -1609,9 +1664,12 @@ def phase_train_wide(spec, train, graphs, graphs_host):
         b = ranker.to_device(batch, "cuda")
         leaves = state.opt_state.leaves
         masks, calls = {}, []
+        # the tower calls of the first step and of the long one, for
+        # _tower_accuracy
+        record = i == 0 or sp.len_max == LONG_STEP["len_max"]
         loss_k, g_k = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
                                   gates.recording_k2_branches(
-                                      masks, calls if i == 0 else None))
+                                      masks, calls if record else None))
         loss_p, g_p = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
                                   gates.plain_versions(masks))
         _, g_o = _loss_grads(state.params, leaves, graphs, b, cfg, sp,
@@ -1866,8 +1924,10 @@ def _bf16_entry(ms, plain_ms, library_ms, flops, nbytes, peak_bw, err,
 # (library stem, regex on a mangled kernel name, its groups' names).  The
 # bf16 instantiations (a ``bf16`` group of 1, or the towers' ``TERMS`` 1)
 # run m16n8k16 bf16 MMAs (HMMA.16816.F32.BF16) and no TF32 one, the f32
-# ones the reverse: the CE (K4, K5) and the towers' products with a weight
-# (K2's GEMM, K3's GEMM and weight gradients).
+# ones the reverse: the CE (K4, K5), the towers' products with a weight
+# (K2's GEMM, K3's GEMM and weight gradients) and their attention past L 64
+# (K2's encoder_fwd_attn_kernel, K3's attn_bwd_dq_kernel and
+# attn_bwd_dkv_kernel).
 SASS_KERNELS = (
     ("ce", r"ce_fwd_kernelILi(\d+)ELi0ELb([01])E", ("DT", "bf16")),
     ("ce", r"ce_fwd_wide_kernelILb([01])E", ("bf16",)),
@@ -1880,13 +1940,21 @@ SASS_KERNELS = (
      ("NT", "TERMS", "kMap")),
     ("encoder_bwd", r"tc_gemm_kernelILi(\d+)ELb([01])ELi(\d)E",
      ("NT", "kMap", "TERMS")),
-    ("encoder_bwd", r"wgrad_kernelILb([01])E", ("bf16",)))
+    ("encoder_bwd", r"wgrad_kernelILb([01])E", ("bf16",)),
+    ("encoder", r"encoder_fwd_attn_kernelILb([01])E", ("bf16",)),
+    ("encoder_bwd", r"attn_bwd_dq_kernelILb([01])E", ("bf16",)),
+    ("encoder_bwd", r"attn_bwd_dkv_kernelILb([01])E", ("bf16",)))
+ATTN_KERNELS = ("encoder_fwd_attn_kernel", "attn_bwd_dq_kernel",
+                "attn_bwd_dkv_kernel")
 
 
 # The SASS readings (``_mma_sass``) each bf16 entry of the kernels line
 # carries: its kernels' bf16 instantiations, by name prefix.
-SASS_PREFIXES = {"encoder_fwd_bf16": ("encoder_fwd_gemm_kernel",),
-                 "encoder_bwd_bf16": ("tc_gemm_kernel", "wgrad_kernel"),
+SASS_PREFIXES = {"encoder_fwd_bf16": ("encoder_fwd_gemm_kernel",
+                                      "encoder_fwd_attn_kernel"),
+                 "encoder_bwd_bf16": ("tc_gemm_kernel", "wgrad_kernel",
+                                      "attn_bwd_dq_kernel",
+                                      "attn_bwd_dkv_kernel"),
                  "ce_fwd_bf16": ("ce_fwd",), "ce_bwd_bf16": ("ce_bwd",)}
 
 
@@ -1897,8 +1965,9 @@ def _mma_sass():
     (``HMMA.1684.F32.TF32``) MMA instructions.  Fails unless every bf16
     instantiation (the resident and wide K4, the resident and wide K5, the
     cluster kernels, K2's GEMM, K3's GEMM and weight gradients at every
-    tile width) has bf16 MMAs and no TF32 one, and every f32 one the
-    reverse."""
+    tile width, K2's and K3's attention kernels past L 64) has bf16 MMAs
+    and no TF32 one, and every f32 one the reverse, and every f32
+    attention kernel is in the listing."""
     import re
     import shutil
     from c2dsr_tpu_torch.kernels import build
@@ -1940,8 +2009,9 @@ def _mma_sass():
             | {(k, None, True) for k in ("ce_fwd_wide_kernel",
                                          "ce_bwd_wide_kernel",
                                          "ce_bwd_cluster_kernel",
-                                         "wgrad_kernel")})
-    check(want <= seen, f"SASS: bf16 instantiations not in the listing: "
+                                         "wgrad_kernel")}
+            | {(k, None, bf) for k in ATTN_KERNELS for bf in (False, True)})
+    check(want <= seen, f"SASS: instantiations not in the listing: "
           f"{sorted(want - seen, key=str)}")
     log("sass: " + json.dumps(out))
     return out
@@ -3857,11 +3927,13 @@ def _tower_measures(timer, digests) -> dict:
     BF16_TOWERS (L 200; d 1,024 with 8 heads), one layer each: the bf16
     instantiations timed (3 timings each, the median of 20 CUDA-event
     timings; the step's three calls summed), the f32 ones at the step's
-    calls beside them, and digests of every output (K2's, then K3's dx and
-    gradients) in f32 and in bf16 at each shape.  Both dtypes' parts are
-    also profiled at each training shape (``timing.kernel_times``): K2's
-    GEMMs (``k2_gemm_*``), K3's input-gradient GEMMs (``k3_gemm_*``) and
-    its weight gradients with their merge (``k3_wgrad_*``)."""
+    calls, at L 200 and at L 64 (d 128, B 512: kSeqL, ``l64``) beside
+    them, and digests of every output (K2's, then K3's dx and gradients) in
+    f32 and in bf16 at each shape.  Both dtypes' parts are also profiled
+    at each training shape (``timing.kernel_times``): K2's GEMMs
+    (``k2_gemm_*``), K3's input-gradient GEMMs (``k3_gemm_*``), its weight
+    gradients with their merge (``k3_wgrad_*``) and both kernels'
+    attention (``k2_attn_*``, ``k3_attn_*``)."""
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.ops import dropout as drop
@@ -3873,6 +3945,8 @@ def _tower_measures(timer, digests) -> dict:
              ("eval", 128, 1, LEN_MAX, 2048, 0)]
     cases += [(f"l{L}" if L > LEN_MAX else f"d{d}", d, h, L, B, 0)
               for d, h, L, B in BF16_TOWERS]
+    cases.append(("l64", 128, 1, 64, 512, 0))   # kSeqL, the last whole-
+                                                # sequence length
     out = {}
     for at, d, n_head, L, B, tower in cases:
         p = params_mod._map(lambda t: t.cuda(), params_mod.init_encoder_params(
@@ -3897,7 +3971,7 @@ def _tower_measures(timer, digests) -> dict:
                     outs += [dx] + list(grads)
                 digests[f"k2k3_{name}_{at}_B{B}_tower{tower}"] = _digest(
                     *outs)
-                if bf or at == "step":
+                if bf or at in ("step", "l64", f"l{BF16_TOWERS[0][2]}"):
                     k2 = out.setdefault(f"k2_{name}_{at}_ms", [0.0] * 3)
                     k3 = out.setdefault(f"k3_{name}_{at}_ms", [0.0] * 3)
                     for i in range(3):
@@ -3920,7 +3994,11 @@ def _tower_measures(timer, digests) -> dict:
                                          if "tc_gemm" in k]),
                             ("k3_wgrad", [v for k, v in t3.items()
                                           if "wgrad" in k
-                                          or "sum_partials" in k])):
+                                          or "sum_partials" in k]),
+                            ("k2_attn", [v for k, v in t2.items()
+                                         if "encoder_fwd_attn" in k]),
+                            ("k3_attn", [v for k, v in t3.items()
+                                         if "attn_bwd" in k])):
                         acc = out.setdefault(f"{part}_{name}_{at}_ms", [0.0])
                         acc[0] += sum(ms)
             del acts
@@ -3945,7 +4023,8 @@ def measure_rates() -> dict:
     computing the same bits.  K2 and K3 at a step's
     three towers, f32 and bf16, and in bf16 at the serving tower, L 200
     and d 1,024, with digests of their outputs (``_tower_measures``); the
-    bf16 step's K2 and K3 ms profiled.  K2 alone at the
+    bf16 step's K2 and K3 ms profiled; ``_tower_accuracy`` at LONG_STEP
+    (``_long_step_accuracy``).  K2 alone at the
     serving path's tower (B 2048, L 15, d 128, one head, one layer; the
     median of 20 timed calls, 3 times).  The serving path (convolve, then
     rank the eval split in sampled and full mode): 3 profiled runs after
@@ -4101,6 +4180,7 @@ def measure_rates() -> dict:
     ce["k4_k5_bf16_step_ms"] = [a + b for a, b in zip(
         ce["k4_bf16_step_ms"], ce["k5_bf16_step_ms"])]
     ce.update(_tower_measures(timer, digests))
+    long_accuracy = _long_step_accuracy(graphs, spec)
     # K4 from float64 on trained-scale logits (deterministic: one reading)
     errs = [_k4_trained_errs(V, n_real)
             for V, n_real in ((30720, N_ITEM_A), (36864, N_ITEM_B))]
@@ -4156,7 +4236,8 @@ def measure_rates() -> dict:
             "serve_convolve_ms": serve_rates["convolve"][:SERVE_RUNS],
             "serve_sampled_rates": serve_rates["sampled"][:SERVE_RUNS],
             "serve_full_rates": serve_rates["full"][:SERVE_RUNS],
-            "serve_busy_ms": serve_busy, "serve_k2_ms": serve_k2, **kernels}
+            "serve_busy_ms": serve_busy, "serve_k2_ms": serve_k2,
+            "long_step_accuracy": long_accuracy, **kernels}
 
 
 def compare(other: str) -> int:
@@ -4175,7 +4256,8 @@ def compare(other: str) -> int:
         runs[root].append(res)
         log(f"compare {root}: " + "; ".join(
             f"{k} {[round(v, 4) for v in vs]}" for k, vs in res.items()
-            if k != "digests") + f"; digests {res.get('digests')}")
+            if k not in ("digests", "long_step_accuracy"))
+            + f"; digests {res.get('digests')}")
     for key, unit in (("rates", "train examples/s"),
                       ("host_ms", "host ms to enqueue a train step"),
                       ("busy_ms", "ms busy a train step"),
@@ -4209,13 +4291,20 @@ def compare(other: str) -> int:
                       ("k2_bf16_eval_ms", "ms of K2 bf16 at B 2,048 eval"),
                       ("k2_bf16_l200_ms", "ms of K2 bf16 at L 200"),
                       ("k3_bf16_l200_ms", "ms of K3 bf16 at L 200"),
+                      ("k2_f32_l200_ms", "ms of K2 at L 200"),
+                      ("k3_f32_l200_ms", "ms of K3 at L 200"),
+                      ("k2_f32_l64_ms", "ms of K2 at L 64, B 512"),
+                      ("k3_f32_l64_ms", "ms of K3 at L 64, B 512"),
+                      ("k2_bf16_l64_ms", "ms of K2 bf16 at L 64, B 512"),
+                      ("k3_bf16_l64_ms", "ms of K3 bf16 at L 64, B 512"),
                       ("k2_bf16_d1024_ms", "ms of K2 bf16 at d 1,024"),
                       ("k3_bf16_d1024_ms", "ms of K3 bf16 at d 1,024"),
                       *[(k, "profiled ms of that part of K2 or K3")
                         for k in sorted({k for v in runs.values()
                                          for res in v for k in res})
                         if k.startswith(("k2_gemm_", "k3_gemm_",
-                                         "k3_wgrad_"))],
+                                         "k3_wgrad_", "k2_attn_",
+                                         "k3_attn_"))],
                       ("k4_bf16_step_ms", "ms of K4 bf16's two calls a step"),
                       ("k5_bf16_step_ms", "ms of K5 bf16's two calls a step"),
                       ("k4_k5_bf16_step_ms", "ms of K4 + K5 bf16 a step"),
@@ -4242,6 +4331,11 @@ def compare(other: str) -> int:
                  for v in runs.values() for r in v)
     log(f"compare digests: bitwise equal {same}; different {differ}; each "
         f"checkout's two runs {'equal' if stable else 'DIFFER'}")
+    for root, v in runs.items():
+        log(f"compare long_step_accuracy {root}: "
+            + "; ".join(json.dumps(r.get("long_step_accuracy")) for r in v)
+            + " (_tower_accuracy at LONG_STEP: relative Frobenius from a "
+            "float64 plain tower, worst tower call)")
     for key in ("k4_trained_f64", "plain_trained_f64"):
         log(f"compare {key}: this "
             f"{[f'{r[key][0]:.3e}' for r in runs[REPO_DIR]]} against "
@@ -5301,6 +5395,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--rates"]:
         timing = _load_timing()
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        from c2dsr_tpu_torch.bench import gates   # the measured checkout's
         print(json.dumps(measure_rates()), flush=True)
         return 0
     try:
@@ -5712,7 +5807,8 @@ def main() -> int:
                        "tensor cores now: sass counts each bf16 "
                        "instantiation's MMAs" if kname in SASS_PREFIXES
                        else "this design's one TF32 pass of bf16 operands")
-                    + ("; the towers' attention runs FFMA"
+                    + ("; the towers' attention runs FFMA up to L 64 "
+                       "(kSeqL) and bf16 MMAs past it"
                        if kname.startswith("encoder") else "")
                     + "); f32_instantiation_err the f32 kernel's error "
                     "against the same plain bf16 version, which fails the "

@@ -86,13 +86,15 @@ def _inputs(B, L, d, pad, seed, device):
 # chunk in the GEMMs), EE's L 30 at small d, d above 128, d % 32 == 8 with
 # one head (ragged k chunks), EE's L 30 at d 256; d 512 (two column tiles
 # and K2's LayerNorm kernel), L past 32 (two keys a lane in attention), L
-# past 64 (key chunks and query tiles: L 130 a two-row last tile, L 200)
-# and d past 512 (the LayerNorm kernels' rows walked in chunks)
+# past 64 (the tensor-core attention's key chunks and query tiles: L 65 a
+# one-row last tile, L 128 two whole ones, L 130 a two-row last tile, L
+# 200) and d past 512 (the LayerNorm kernels' rows walked in chunks)
 WIDE_TOWERS = [(96, 2, 30, 1, 7), (32, 1, 30, 2, 9), (256, 4, 15, 1, 5),
                (160, 2, 16, 2, 6), (40, 1, 30, 1, 7), (256, 4, 30, 1, 5),
                (512, 4, 15, 1, 5), (512, 8, 30, 2, 3), (128, 2, 64, 1, 5),
                (256, 4, 64, 1, 3), (96, 2, 48, 2, 4), (64, 1, 130, 2, 3),
-               (128, 1, 200, 1, 3), (520, 1, 15, 1, 3), (640, 5, 30, 1, 3)]
+               (128, 1, 200, 1, 3), (520, 1, 15, 1, 3), (640, 5, 30, 1, 3),
+               (128, 1, 65, 1, 4), (64, 2, 128, 1, 3)]
 
 
 @pytest.mark.parametrize("invert", [False, True])
@@ -294,6 +296,45 @@ def test_encoder_train_kernels_match_plain(cuda, dropout, invert, d, n_head,
     assert torch.equal(again[0], dx)                     # deterministic
     for g, g2 in zip(grads, again[1]):
         assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+@pytest.mark.parametrize("invert", [False, True])
+@pytest.mark.parametrize("d,n_head,L", [(128, 1, 200), (64, 2, 130)])
+def test_encoder_all_masked_rows_in_every_query_tile(cuda, dropout, invert,
+                                                     d, n_head, L):
+    """Past L 64 every 64-row query tile of a sequence holds all-masked
+    rows (left padding past the last tile's first row: such a row averages
+    over all L positions, so no tile may skip its later key chunks), beside
+    sequences padded past position 64 and not at all: K2 in train mode and
+    K3 against the plain tower (K3 at K2's branches), and bitwise across
+    launches."""
+    from c2dsr_tpu_torch.bench import gates
+    p, x, _ = _tower_case(cuda, d, n_head, L, 1, 4, seed=11)
+    last = (L - 1) // 64 * 64            # the last tile's first row
+    n_pad = np.array([L - 2, last + 1, 70, 0])
+    seq = np.where(np.arange(L)[None, :] < n_pad[:, None], 999,
+                   1 + np.arange(4 * L).reshape(4, L) % 50)
+    seq = torch.from_numpy(seq).to(cuda)
+    kw = dict(idx_pad=999, n_head=n_head, invert_padding_mask=invert,
+              dropout=dropout, seed=3, tower=1)
+    acts = encoder_cuda.saved_buffer(x, n_head, 1)
+    out = encoder_cuda.encoder_fwd(x, seq, p, saved=acts, **kw)
+    ref = enc.encoder_fwd_plain(x, seq, p, **kw)
+    assert float((out - ref).abs().max()) <= 1e-4
+    gout = torch.randn(x.shape, device=cuda, generator=_gen(cuda, 5))
+    dx, grads = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, **kw)
+    rdx, rgrads = enc.encoder_bwd_plain(
+        x, seq, gout, p, branches=gates.k2_branches(acts, x.shape, n_head, 1,
+                                                    1), **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(dx, rdx) <= 1e-4
+    for name, g, r in zip(enc._NAMES + ("lnf_scale", "lnf_bias"), grads,
+                          rgrads):
+        assert _rel_err(g, r) <= 1e-4, name
+    again = encoder_cuda.encoder_bwd(x, seq, gout, p, saved=acts, **kw)
+    assert torch.equal(again[0], dx)                     # deterministic
+    assert all(torch.equal(g, g2) for g, g2 in zip(grads, again[1]))
 
 
 @pytest.mark.parametrize("d,n_head,L,n_layers", [
@@ -1107,14 +1148,17 @@ def test_spmm_bf16_kernels_match_plain(cuda, d):
 @pytest.mark.parametrize("d,n_head,L,n_layers,B", [
     (40, 1, 15, 2, 37), (128, 2, 30, 1, 21), (512, 4, 15, 1, 9),
     (128, 1, 200, 1, 3), (1024, 8, 15, 1, 3), (256, 2, 15, 1, 9),
-    (264, 1, 15, 1, 5)])
+    (264, 1, 15, 1, 5), (64, 1, 65, 2, 3), (128, 2, 200, 1, 3),
+    (520, 1, 70, 1, 2)])
 def test_encoder_bf16_kernels_match_plain(cuda, d, n_head, L, n_layers, B):
     """K2 and K3 in their bf16 instantiations at dropout 0.2 against the
     plain bf16 tower (K3 at K2's branches), relative Frobenius (K2 on the
     rows with an allowed key); K3 bitwise across launches; the f32
     instantiations fall outside.  d 256 runs the GEMMs' 256-column tile,
     d 264 two column blocks of 256 and 8 and a k16 step half zero-filled
-    (k % 16 == 8)."""
+    (k % 16 == 8); past L 64 the attention's tensor-core tiles: L 65 a
+    one-row last tile, L 200 at head dim 128 and 64, head dim 520 in five
+    staged column chunks."""
     from c2dsr_tpu_torch.bench import gates
     p, x, seq = _tower_case(cuda, d, n_head, L, n_layers, B, seed=3)
     kw = dict(idx_pad=999, n_head=n_head, invert_padding_mask=False,

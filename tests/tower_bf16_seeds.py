@@ -1,8 +1,9 @@
 """K2's and K3's bf16 instantiations over many seeds, on a card: how often
 they lie further from float64 than the plain bf16 tower does.
 
-For each seed a tower at FK's shape (d 128, one head, L 15, B 256) and one
-at d 1,024 (8 heads, L 15, B 32), one layer at dropout 0.2, goes through
+For each seed a tower at FK's shape (d 128, one head, L 15, B 256), one
+at d 1,024 (8 heads, L 15, B 32) and one at L 200 (d 128, one head, B 64:
+the tensor-core attention past L 64), one layer at dropout 0.2, goes through
 K2 and K3 bf16 (K3 from K2's saved activations), the plain bf16 tower
 (``ops/encoder.encoder_fwd_plain`` / ``encoder_bwd_plain(bf16=True)``, K3's
 at K2's branches) and the plain bf16 tower in float64 (the same rounding
@@ -30,7 +31,8 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = {"fk": (128, 1, 15, 256), "d1024": (1024, 8, 15, 32)}
+SHAPES = {"fk": (128, 1, 15, 256), "d1024": (1024, 8, 15, 32),
+          "l200": (128, 1, 200, 64)}
 PAD = 999
 
 
