@@ -115,7 +115,8 @@ def recording_k2_branches(store, calls=None):
         return got
 
     # the wrappers count their launches on the module's names: carry them
-    counts = ("launches", "launches_bf16")
+    counts = ("launches", "launches_bf16", "launches_wide",
+              "launches_wide_bf16")
     for name in counts:
         setattr(recording, name, getattr(fwd, name))
         setattr(capturing, name, getattr(bwd, name))

@@ -124,28 +124,33 @@ class Timer:
         return float(np.median(times))
 
 
-def kernel_times(fn, calls: int = 3):
+def kernel_times(fn, calls: int = 3, tries: int = 3):
     """({kernel name: device ms a call}, {kernel name: launches a call}) for
     a fn that launches the same kernels each call, under torch.profiler:
     the totals over ``calls`` calls over ``calls``.  The profiler may miss
-    the first kernels of its window, so one profiled call is not enough.
-    Names drop the argument list and the anonymous namespace, and keep
-    template arguments."""
+    the first kernels of its window, so one profiled call is not enough,
+    and a window where some kernel's launches are not a whole number a
+    call (one missed) is profiled again, up to ``tries`` windows.  Names
+    drop the argument list and the anonymous namespace, and keep template
+    arguments."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = {}, {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            name = ev.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].removeprefix("void ")
-            total[name] = total.get(name, 0.0) + us / 1e3
-            count[name] = count.get(name, 0) + ev.count
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, count = {}, {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+                name = ev.key.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].removeprefix("void ")
+                total[name] = total.get(name, 0.0) + us / 1e3
+                count[name] = count.get(name, 0) + ev.count
+        if all(n % calls == 0 for n in count.values()):
+            break
     return ({name: ms / calls for name, ms in total.items()},
             {name: n / calls for name, n in count.items()})

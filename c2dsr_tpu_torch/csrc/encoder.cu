@@ -20,15 +20,20 @@
 // design is a sequence of kernels over all N rows of the call, the
 // structure of the backward (encoder_bwd.cu):
 // * The four products with a weight (QKV, out-projection, FF1, FF2) run on
-//   the tensor cores at f32 accuracy (3xTF32 on mma.sync.m16n8k8, tc.cuh's
-//   gemm_tile, which the backward shares): 64 rows a block, 16 a warp, W
-//   read in its [k, m] layout through a 2-stage cp.async ring, 3 blocks an
-//   SM, the output columns tiled over the grid.  The
-//   epilogue adds the bias and folds in what follows the product: ReLU
-//   and its dropout; the dropout, residual add and LayerNorm
-//   of a post-norm step (up to d 256 a block holds whole rows and the
-//   LayerNorm runs in its registers, the final LN after the last LN2;
-//   above, encoder_fwd_ln_kernel does it, a warp a row at any width).
+//   the tensor cores at f32 accuracy (3xTF32).  Up to d 256 (kWideD) on
+//   tc.cuh's gemm_tile, which the backward shares: mma.sync.m16n8k8, 64
+//   rows a block, 16 a warp, W read in its [k, m] layout through a
+//   2-stage cp.async ring, 3 blocks an SM, a block holding whole rows so
+//   that the LayerNorm runs in its registers (the final LN after the last
+//   LN2).  Past d 256 on wgmma.cuh's wg::tile
+//   (encoder_fwd_gemm_wgmma_kernel): 128 x 128 blocks of two warpgroups
+//   running wgmma from a ring of TMA stages that a producer warp fills; a
+//   TF32 B operand is read only K-major, so the call's first launch
+//   (encoder_fwd_split_kernel) writes each weight's TF32 parts as Wᵀ, once
+//   a call; encoder_fwd_ln_kernel does the LayerNorm, a warp a row at any
+//   width.  Each epilogue adds the bias and folds in what follows the
+//   product: ReLU and its dropout; the dropout and residual add of a
+//   post-norm step (and up to d 256 its LayerNorm).
 // * Attention up to L 64 (encoder_fwd_attn_seq_kernel): up to 8 whole
 //   sequences a block (64 rows), a warp serving one, a lane two of its
 //   keys, the probabilities in shared memory, q·kᵀ and p·v in FFMA over
@@ -57,9 +62,10 @@
 //   workspace of the same layout, with the backward's extras (xhat, 1/std,
 //   p) not written.
 // A one-layer tower call launches 6 kernels up to d 256 (5 in eval without
-// dropout: the input kernel only applies dropout or saves the input) and 8
-// above; each further layer adds 5, or 7; the bf16 instantiation one more
-// a call (the weights' bf16 copy).
+// dropout: the input kernel only applies dropout or saves the input) and 9
+// above (the weights' pre-pass among them); each further layer adds 5, or
+// 7; the bf16 instantiation up to d 256 one more a call (the weights' bf16
+// copy; past d 256 the pre-pass writes it, transposed).
 //
 // The bf16 instantiation (encoder_fwd's bf16; compute_dtype="bfloat16") is
 // the Pallas kernel's matmul_dtype=bf16: every product rounds both
@@ -67,8 +73,9 @@
 // GEMMs run on the bf16 tensor cores (tc.cuh gemm_tile_bf16: W from the
 // call's bf16 copy of its weights, made by the call's first launch, A
 // rounded as it is staged, ldmatrix and one m16n8k16 bf16 MMA a k16 step,
-// exact products, each 32-k chunk's sum added in f32), at twice the TF32
-// rate, and so does q·kᵀ past L 64 (q and k rounded as they are staged,
+// exact products, each 32-k chunk's sum added in f32; past d 256
+// wg::tile's bf16 mode, wgmma m64n128k16 on the copy transposed, the same
+// chunk sums), at twice the TF32 rate, and so does q·kᵀ past L 64 (q and k rounded as they are staged,
 // each k16 step from a zeroed partial, Kahan-added, scaled after the
 // product); p·v there, and both products up to L 64 (the whole-sequence
 // kernel), run FFMA over the same rounded operands (a product of two bf16
@@ -81,6 +88,7 @@
 
 #include "encoder_common.cuh"
 #include "tc.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -173,9 +181,60 @@ __device__ __forceinline__ void ln_fragment_row(
 // instantiation, which takes tc.cuh's gemm_tile_bf16.
 constexpr int kQkvTerms = 6, kTerms = 3, kBf16Terms = 1;
 
+// The epilogue of every product but kResLn: acc in the m16n8 C layout, the
+// thread's rows r_lo and r_lo + 8 of n-tiles j at columns n0 + 8·j + 2·tq
+// and the next (tc.cuh's mma_tf32 note), as gemm_tile and wg::tile leave
+// it; elements 2h and 2h + 1 of n-tile j as one float2 (m % 8 == 0: both
+// or neither in range).
+template <int kNj, bool kMap>
+__device__ __forceinline__ void fwd_epilogue(const FwdGemm& g,
+                                             const float (&acc)[kNj][4],
+                                             int r_lo, int n0, int tq,
+                                             uint32_t key) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    if (row >= g.n) continue;
+    const size_t base = (size_t)row * g.m;
+    const uint32_t dbase = kMap ? g.dr.row_index(row, g.m) : 0u;
+#pragma unroll
+    for (int j = 0; j < kNj; ++j) {
+      const int col = n0 + j * 8 + 2 * tq;
+      if (col >= g.m) continue;
+      const size_t idx = base + col;
+      const uint32_t di = kMap ? dbase + col : static_cast<uint32_t>(idx);
+      const float2 b = *reinterpret_cast<const float2*>(g.bias + col);
+      float2 v = make_float2(acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
+      if (g.epi == kRelu) {
+        v.x = fmaxf(v.x, 0.f);
+        v.y = fmaxf(v.y, 0.f);
+        *reinterpret_cast<float2*>(g.c + idx) = v;
+        if (g.c2) {
+          if (g.dr.on) {
+            v.x = g.dr.apply(v.x, key, di);
+            v.y = g.dr.apply(v.y, key, di + 1);
+          }
+          *reinterpret_cast<float2*>(g.c2 + idx) = v;
+        }
+        continue;
+      }
+      if (g.epi == kResidual) {
+        if (g.dr.on) {
+          v.x = g.dr.apply(v.x, key, di);
+          v.y = g.dr.apply(v.y, key, di + 1);
+        }
+        const float2 r = *reinterpret_cast<const float2*>(g.res + idx);
+        v.x += r.x;
+        v.y += r.y;
+      }
+      *reinterpret_cast<float2*>(g.c + idx) = v;
+    }
+  }
+}
+
 // kMap: the call's dropout maps its rows (drop::Dropout::mapped).  Three
 // blocks an SM, two for the bf16 tile at NT 256, whose A chunk in flight
-// (16 registers) joins its 128 accumulators.
+// (16 registers) joins its 128 accumulators.  Up to d 256 (kWideD).
 template <int NT, int TERMS, bool kMap>
 __global__ void __launch_bounds__(kGemmThreads,
                                   TERMS == kBf16Terms && NT == 256 ? 2 : 3)
@@ -198,47 +257,7 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
   const int tq = lane & 3;
   const int r_lo = row0 + warp * 16 + (lane >> 2);
   if (g.epi != kResLn) {
-    // elements 2h and 2h + 1 of n-tile j as one float2 (m % 8 == 0: both
-    // or neither in range)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r_lo + 8 * h;
-      if (row >= g.n) continue;
-      const size_t base = (size_t)row * g.m;
-      const uint32_t dbase = kMap ? g.dr.row_index(row, g.m) : 0u;
-#pragma unroll
-      for (int j = 0; j < kNj; ++j) {
-        const int col = n0 + j * 8 + 2 * tq;
-        if (col >= g.m) continue;
-        const size_t idx = base + col;
-        const uint32_t di = kMap ? dbase + col : static_cast<uint32_t>(idx);
-        const float2 b = *reinterpret_cast<const float2*>(g.bias + col);
-        float2 v = make_float2(acc[j][2 * h] + b.x, acc[j][2 * h + 1] + b.y);
-        if (g.epi == kRelu) {
-          v.x = fmaxf(v.x, 0.f);
-          v.y = fmaxf(v.y, 0.f);
-          *reinterpret_cast<float2*>(g.c + idx) = v;
-          if (g.c2) {
-            if (g.dr.on) {
-              v.x = g.dr.apply(v.x, key, di);
-              v.y = g.dr.apply(v.y, key, di + 1);
-            }
-            *reinterpret_cast<float2*>(g.c2 + idx) = v;
-          }
-          continue;
-        }
-        if (g.epi == kResidual) {
-          if (g.dr.on) {
-            v.x = g.dr.apply(v.x, key, di);
-            v.y = g.dr.apply(v.y, key, di + 1);
-          }
-          const float2 r = *reinterpret_cast<const float2*>(g.res + idx);
-          v.x += r.x;
-          v.y += r.y;
-        }
-        *reinterpret_cast<float2*>(g.c + idx) = v;
-      }
-    }
+    fwd_epilogue<kNj, kMap>(g, acc, r_lo, n0, tq, key);
     return;
   }
   // kResLn: one column tile (n0 == 0, NT >= m) holds whole rows; a row's
@@ -274,6 +293,39 @@ encoder_fwd_gemm_kernel(const FwdGemm g) {
       ln_fragment_row<kNj>(acc, h, g.m, tq, live, row, g.lnf_s, g.lnf_b,
                            g.out, g.xhat_f, g.rstd_f);
   }
+}
+
+// Past d 256 (kWideD) the four products run wg::tile (wgmma.cuh): a block
+// of 128 rows and 128 columns, MODE 6 for QKV, 3 for the others, 1 in
+// bf16; the grid's blocks column tiles fastest.  ta is A's map, tb the
+// weight's parts (or bf16 copy), K-major.  No kResLn: past d 256 the
+// LayerNorm runs in encoder_fwd_ln_kernel.
+template <int MODE, bool kMap>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+encoder_fwd_gemm_wgmma_kernel(const FwdGemm g,
+                              const __grid_constant__ CUtensorMap ta,
+                              const __grid_constant__ CUtensorMap tb) {
+  extern __shared__ float4 smem4[];
+  const int tiles_m = (g.m + wg::kCols - 1) / wg::kCols;
+  const int row0 = (blockIdx.x / tiles_m) * wg::kRows;
+  const int n0 = (blockIdx.x % tiles_m) * wg::kCols;
+  float acc[wg::kNj][4];
+  if (!wg::tile<MODE>(&ta, &tb, g.k, row0, n0,
+                      reinterpret_cast<uint8_t*>(smem4), acc))
+    return;
+  const int lane = threadIdx.x & 31;
+  fwd_epilogue<wg::kNj, kMap>(g, acc,
+                             row0 + (threadIdx.x >> 5) * 16 + (lane >> 2),
+                             n0, lane & 3, g.dr.key(g.salt));
+}
+
+// The weights' copy a call makes first (wgmma.cuh split_weights): the
+// bf16 instantiation's (weights16's layout; past d 256 each matrix
+// transposed, K-major for wg::tile) or, f32 past d 256, wg::tile's parts
+// (fwd_parts).
+__global__ void __launch_bounds__(kThreads)
+encoder_fwd_split_kernel(const wg::SplitJobs js) {
+  wg::split_weights(js);
 }
 
 // ------------------------------------------------------- the attention ----
@@ -831,6 +883,16 @@ cudaError_t prepare() {
                            gemm_smem<128, true, kBf16Terms>()));
   TRY(cudaFuncSetAttribute(encoder_fwd_gemm_kernel<256, kBf16Terms, true>, a,
                            gemm_smem<256, true, kBf16Terms>()));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_wgmma_kernel<6, false>, a,
+                           wg::Cfg<6>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_wgmma_kernel<3, false>, a,
+                           wg::Cfg<3>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_wgmma_kernel<3, true>, a,
+                           wg::Cfg<3>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_wgmma_kernel<1, false>, a,
+                           wg::Cfg<1>::kSmem));
+  TRY(cudaFuncSetAttribute(encoder_fwd_gemm_wgmma_kernel<1, true>, a,
+                           wg::Cfg<1>::kSmem));
   TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<false>, a,
                            attn_fwd_smem(kHc, false)));
   TRY(cudaFuncSetAttribute(encoder_fwd_attn_kernel<true>, a,
@@ -876,6 +938,65 @@ cudaError_t launch_gemm(const FwdGemm& g, int nt, bool bf16, cudaStream_t s) {
                        : launch_gemm_t<kTerms, false>(g, nt, s);
 }
 
+// A product past kWideD on wg::tile: MODE 6 (QKV), 3 or, bf16, 1; b the
+// weight's parts or bf16 copy, K-major [m][k].
+template <int MODE, bool kMap>
+cudaError_t wide_t(const FwdGemm& g, const void* b, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  TRY(wg::map_a(&ta, g.a, g.n, g.k));
+  TRY(wg::map_b<MODE>(&tb, b, g.m, g.k));
+  encoder_fwd_gemm_wgmma_kernel<MODE, kMap>
+      <<<wg::blocks(g.n, g.m), wg::kThreads, wg::Cfg<MODE>::kSmem, s>>>(
+          g, ta, tb);
+  return cudaGetLastError();
+}
+
+// The QKV product past kWideD (no dropout site).
+cudaError_t launch_wide_qkv(const FwdGemm& g, const void* b, bool bf16,
+                            cudaStream_t s) {
+  return bf16 ? wide_t<1, false>(g, b, s) : wide_t<6, false>(g, b, s);
+}
+
+// The other products past kWideD.
+cudaError_t launch_wide(const FwdGemm& g, const void* b, bool bf16,
+                        cudaStream_t s) {
+  if (bf16)
+    return g.dr.mapped() ? wide_t<1, true>(g, b, s) : wide_t<1, false>(g, b, s);
+  return g.dr.mapped() ? wide_t<3, true>(g, b, s) : wide_t<3, false>(g, b, s);
+}
+
+// The pre-pass of a call past kWideD (f32 or bf16) into wcopy: each
+// weight stack K-major for wg::tile (transposed), as parts_layout's f32
+// parts or in bf16 in weights16's layout.
+cudaError_t split_weights(const Layer& l0, int d, int n_layers, bool bf16,
+                          void* wcopy, cudaStream_t s) {
+  const size_t dd = (size_t)d * d, nd = n_layers * dd;
+  const PartsLayout po = parts_layout(d, false);
+  const float* src[4] = {l0.w_qkv, l0.w_out, l0.w_ff1, l0.w_ff2};
+  const size_t at16[4] = {0, 3 * nd, 4 * nd, 5 * nd};
+  const size_t at32[4] = {po.qkv, po.out, po.ff1, po.ff2};
+  wg::SplitJobs js{};
+  js.n_jobs = 4;
+  js.mats = n_layers;
+  js.transpose = 1;
+  js.bf16 = bf16;
+  for (int j = 0; j < 4; ++j) {
+    const int cols = j == 0 ? 3 * d : d;
+    wg::SplitJob& jb = js.job[j];
+    jb.src = src[j];
+    jb.dst = bf16 ? static_cast<void*>(static_cast<uint16_t*>(wcopy) +
+                                       at16[j])
+                  : static_cast<void*>(static_cast<float*>(wcopy) + at32[j]);
+    jb.rows = d;
+    jb.cols = cols;
+    jb.parts = bf16 ? 1 : j == 0 ? 3 : 2;
+    jb.src_stride = (size_t)d * cols;
+    jb.dst_stride = bf16 ? (size_t)d * cols : po.per_layer;
+  }
+  encoder_fwd_split_kernel<<<wg::split_grid(js), kThreads, 0, s>>>(js);
+  return cudaGetLastError();
+}
+
 // The LayerNorm kernel's launch (d > 256).
 cudaError_t launch_ln(const float* z, const float* g, const float* b,
                       float* y, float* xhat, float* rstd, const float* gf,
@@ -889,26 +1010,42 @@ cudaError_t launch_ln(const float* z, const float* g, const float* b,
 
 // buf: with save, saved_layout(N, d, n_head, L, n_layers) (every layer's
 // activations, for the backward); else a one-layer workspace of the same
-// layout, which every layer reuses.  bf16: the bf16 instantiation, which
-// first rounds the weights into w16 (weights_bf16_elems(d, n_layers)).
+// layout, which every layer reuses.  wcopy (weights_copy_bytes(d,
+// n_layers, bf16, false)): the bf16 instantiation first rounds the
+// weights into it (past kWideD transposed); f32 past kWideD the pre-pass
+// writes wg::tile's parts there (parts_layout).
 cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
                     const float* lnf_s, const float* lnf_b, float* out,
                     float* buf, bool save, int B, int L, int d, int n_head,
                     int n_layers, int idx_pad, int invert, drop::Dropout dr,
-                    bool bf16, uint16_t* w16, cudaStream_t s) {
+                    bool bf16, void* wcopy, cudaStream_t s) {
   const size_t N = (size_t)B * L;
   const int n = static_cast<int>(N);
   const SavedLayout so = saved_layout(N, d, n_head, L, save ? n_layers : 1);
   const size_t s_qkv = (size_t)d * 3 * d, s_dd = (size_t)d * d;
-  const bool fused_ln = d <= 256;
+  const bool fused_ln = d <= kWideD;
+  const bool wide = d > kWideD;
   TRY(prepare());
+  uint16_t* w16 = static_cast<uint16_t*>(wcopy);
   Weights16 w16s{};
-  if (bf16) {
+  if (wide) {
+    TRY(split_weights(l0, d, n_layers, bf16, wcopy, s));
+  } else if (bf16) {
     encoder_fwd_weights_bf16_kernel<<<weights_bf16_blocks(d, n_layers),
                                       kThreads, 0, s>>>(l0, d, n_layers, w16);
     TRY(cudaGetLastError());
-    w16s = weights16(w16, d, n_layers);
   }
+  if (bf16) w16s = weights16(w16, d, n_layers);
+  const PartsLayout po = parts_layout(d, false);
+  // the wide tile's B of product p (0 QKV, 1 out, 2 FF1, 3 FF2) at layer li
+  auto wide_b = [&](int p, int li) -> const void* {
+    if (bf16) {
+      const uint16_t* w[4] = {w16s.w_qkv, w16s.w_out, w16s.w_ff1, w16s.w_ff2};
+      return w[p] + li * (p == 0 ? s_qkv : s_dd);
+    }
+    const size_t at[4] = {po.qkv, po.out, po.ff1, po.ff2};
+    return static_cast<const float*>(wcopy) + li * po.per_layer + at[p];
+  };
 
   const float* X = x;
   if (save || dr.on) {
@@ -945,7 +1082,8 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     q.a = X; q.w = l0.w_qkv + li * s_qkv; q.bias = l0.b_qkv + 3 * ob;
     q.w16 = bf16 ? w16s.w_qkv + li * s_qkv : nullptr;
     q.c = qkv; q.n = n; q.k = d; q.m = 3 * d; q.epi = kBias; q.dr = dr;
-    TRY(launch_qkv_gemm(q, column_tile(3 * d), bf16, s));
+    TRY(wide ? launch_wide_qkv(q, wide_b(0, li), bf16, s)
+             : launch_qkv_gemm(q, column_tile(3 * d), bf16, s));
 
     if (L <= kSeqL) {
       const int blocks = (B + attn_seqs(L) - 1) / attn_seqs(L);
@@ -990,7 +1128,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
       TRY(launch_gemm(w, width_tile(d), bf16, s));
     } else {
       w.epi = kResidual; w.c = xhat1;
-      TRY(launch_gemm(w, column_tile(d), bf16, s));
+      TRY(launch_wide(w, wide_b(1, li), bf16, s));
       TRY(launch_ln(xhat1, l0.ln1_s + ob, l0.ln1_b + ob, y1,
                     save ? xhat1 : nullptr, save ? lb + so.l.rstd1 : nullptr,
                     nullptr, nullptr, nullptr, nullptr, nullptr, n, d, s));
@@ -1003,7 +1141,8 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
     f.w16 = bf16 ? w16s.w_ff1 + li * s_dd : nullptr;
     f.c2 = save || dr.on ? fd : nullptr; f.n = n; f.k = d; f.m = d;
     f.epi = kRelu; f.dr = dr; f.salt = dr.salt(drop::kFfnRelu, li);
-    TRY(launch_gemm(f, column_tile(d), bf16, s));
+    TRY(wide ? launch_wide(f, wide_b(2, li), bf16, s)
+             : launch_gemm(f, column_tile(d), bf16, s));
 
     // xnext = LN2(y1 + drop(f·W2 + b2)), then out = LNf(xnext) after the
     // last layer
@@ -1026,7 +1165,7 @@ cudaError_t run_fwd(const float* x, const int* seq, const Layer& l0,
       TRY(launch_gemm(f2, width_tile(d), bf16, s));
     } else {
       f2.epi = kResidual; f2.c = xhat2;
-      TRY(launch_gemm(f2, column_tile(d), bf16, s));
+      TRY(launch_wide(f2, wide_b(3, li), bf16, s));
       TRY(launch_ln(xhat2, l0.ln2_s + ob, l0.ln2_b + ob, xnext,
                     save ? xhat2 : nullptr, rstd2, last ? lnf_s : nullptr,
                     lnf_b, out, xhat_f, rstd_f, n, d, s));
@@ -1066,10 +1205,10 @@ extern "C" void encoder_saved_offsets(int B, int L, int d, int n_head,
 // (encoder_saved_offsets), which receives the activations the backward
 // reads; else the workspace, saved_layout for one layer.  bf16 != 0: the
 // bf16 instantiation (the head of the file), the same layout of f32
-// activations, with w16 a buffer of encoder_weights_bf16_elems(d,
-// n_layers) bf16 (16-byte aligned) that receives the weights' bf16 copy
-// (null at bf16 0).  Returns cudaGetLastError() after the launches (0 =
-// launched).
+// activations.  w16: a buffer of encoder_weights_copy_bytes(d, n_layers,
+// bf16, 0) bytes (16-byte aligned) that receives the weights' bf16 copy
+// or, f32 past d 256, their TF32 parts (null where that is 0).  Returns
+// cudaGetLastError() after the launches (0 = launched).
 extern "C" int encoder_fwd(
     const float* x, const int* seq, const float* w_qkv, const float* b_qkv,
     const float* w_out, const float* b_out, const float* w_ff1,
@@ -1088,14 +1227,58 @@ extern "C" int encoder_fwd(
       n_layers, idx_pad, invert,
       drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
                  row_seg, row_stride, L, d),
-      bf16 != 0, static_cast<uint16_t*>(w16),
-      static_cast<cudaStream_t>(stream)));
+      bf16 != 0, w16, static_cast<cudaStream_t>(stream)));
 }
 
-// Elements of the bf16 weight copy a bf16 call of either tower kernel
-// makes (encoder_common.cuh weights_bf16_elems).
-extern "C" long long encoder_weights_bf16_elems(int d, int n_layers) {
-  return (long long)weights_bf16_elems(d, n_layers);
+// Bytes of the weights' copy a call of the forward (bwd 0) or of the
+// backward makes first (encoder_common.cuh weights_copy_bytes): the bf16
+// copy, or f32 past d 256 wg::tile's parts; 0: none (w16 may be null).
+extern "C" long long encoder_weights_copy_bytes(int d, int n_layers, int bf16,
+                                                int bwd) {
+  return (long long)weights_copy_bytes(d, n_layers, bf16 != 0, bwd != 0);
+}
+
+// One forward product on its own, for holding wg::tile against gemm_tile:
+// c = A·W + b with epilogue epi (kBias, kRelu with c2, kResidual with res;
+// the dropout stream of `site` at layer 0, the row map of a [B, L, m]
+// site), W [k, m] f32; mode 6 (the 6-term split), 3 (3xTF32) or 1 (bf16);
+// wide 1: wg::tile, else gemm_tile at the column tile the tower gives m.
+// scratch: the weight's copy, at least k·m·3 floats.  Returns
+// cudaGetLastError() after the launches.
+extern "C" int encoder_gemm_fwd(
+    const float* a, const float* w, const float* bias, const float* res,
+    float* c, float* c2, void* scratch, int n, int k, int m, int epi,
+    int mode, int wide, int drop_on, unsigned drop_thr, float drop_div,
+    const unsigned* seed, int tower_id, unsigned row_off, unsigned row_seg,
+    unsigned row_stride, int L, int site, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TRY(prepare());
+  FwdGemm g{};
+  g.a = a; g.w = w; g.bias = bias; g.res = res; g.c = c; g.c2 = c2;
+  g.n = n; g.k = k; g.m = m; g.epi = epi;
+  g.dr = drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
+                    row_seg, row_stride, L, m);
+  g.salt = g.dr.salt(site, 0);
+  const bool bf16 = mode == kBf16Terms;
+  if (wide || bf16) {
+    wg::SplitJobs js{};
+    js.n_jobs = 1;
+    js.mats = 1;
+    js.transpose = wide;
+    js.bf16 = bf16;
+    js.job[0] = wg::SplitJob{w, scratch, k, m, bf16 ? 1 : mode == 6 ? 3 : 2,
+                             (size_t)k * m, (size_t)k * m};
+    encoder_fwd_split_kernel<<<wg::split_grid(js), kThreads, 0, s>>>(js);
+    TRY(cudaGetLastError());
+    g.w16 = static_cast<const uint16_t*>(scratch);
+  }
+  if (wide) {
+    if (mode == 6) return static_cast<int>(wide_t<6, false>(g, scratch, s));
+    return static_cast<int>(launch_wide(g, scratch, bf16, s));
+  }
+  if (mode == 6)
+    return static_cast<int>(launch_qkv_gemm(g, column_tile(m), false, s));
+  return static_cast<int>(launch_gemm(g, column_tile(m), bf16, s));
 }
 
 // The dropout hash's bits of elements 0..n-1 of one stream, for checking the

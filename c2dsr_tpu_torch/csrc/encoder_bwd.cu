@@ -25,14 +25,18 @@
 // and read once through L2 and device memory (about 12·d floats a row of
 // working buffers):
 // * Every product with a weight (dX = dY·Wᵀ and dW = Xᵀ·dY) runs on the
-//   tensor cores at f32 accuracy (3xTF32 on mma.sync.m16n8k8, tc.cuh's
-//   gemm_tile, which the forward shares; above d 256 the output columns
-//   take two blocks).
+//   tensor cores at f32 accuracy (3xTF32).  dX up to d 256 (kWideD) on
+//   tc.cuh's gemm_tile (mma.sync.m16n8k8), which the forward shares:
 //   tc_gemm_kernel takes 64 rows a block, 16 a warp, so every weight tile
 //   it stages feeds 64 rows; weight and activation tiles of 32 k-steps
-//   arrive through a 2-stage cp.async ring.  Its epilogue folds in what
-//   follows the product: the regenerated dropout, ReLU's mask, a residual
-//   add.
+//   arrive through a 2-stage cp.async ring.  Past d 256 on wgmma.cuh's
+//   wg::tile (tc_gemm_kernel_wgmma): 128 x 128 blocks of two warpgroups
+//   running wgmma from a ring of TMA stages; W [m, k] is already K-major,
+//   the layout a TF32 B operand must have, so the call's pre-pass
+//   (encoder_bwd_split_kernel) only splits it into its TF32 parts, once a
+//   call (bf16: the call's bf16 copy as it lies).  Both epilogues fold in
+//   what follows the product: the regenerated dropout, ReLU's mask, a
+//   residual add.  The weight gradients stay on wgrad_kernel at every d.
 // * LayerNorm backward (ln_bwd_kernel): one warp a row, any width.
 // * Attention backward up to L 64 (attn_bwd_seq_kernel): up to 8 whole
 //   sequences a block, a warp serving one, a lane two keys, ds and drop(p)
@@ -61,7 +65,8 @@
 //   give bitwise-equal results.
 // A tower call of one layer launches 10 kernels up to L 64, 11 past it;
 // each further layer adds 8, or 9; the bf16 instantiation one more a call
-// (the weights' bf16 copy).
+// (the weights' bf16 copy), and so does the f32 one past d 256 (the
+// weights' TF32 parts).
 //
 // The bf16 instantiation (encoder_bwd's bf16; compute_dtype="bfloat16")
 // differentiates encoder.cu's bf16 forward as the Pallas kernel's
@@ -83,6 +88,7 @@
 
 #include "encoder_common.cuh"
 #include "tc.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -142,32 +148,15 @@ struct GemmArgs {
   uint32_t salt;        // of the epilogue's stream (drop::Dropout::salt)
 };
 
-// kMap: the call's dropout maps its rows (drop::Dropout::mapped); TERMS 3
-// is 3xTF32 (tc.cuh gemm_tile), 1 the bf16 instantiation (gemm_tile_bf16).
-template <int NT, bool kMap, int TERMS = 3>
-__global__ void __launch_bounds__(kGemmThreads)
-tc_gemm_kernel(const GemmArgs g) {
-  constexpr int kNj = NT / 8;          // n-tiles a warp
-  extern __shared__ float4 smem4[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  const int row0 = blockIdx.x * kGemmRows;
-  const int n0 = blockIdx.y * NT;
-  float acc[kNj][4];
-  if constexpr (TERMS == 1)
-    gemm_tile_bf16<NT, false>(g.a, g.w16, g.n, g.k, g.m, row0, n0,
-                              reinterpret_cast<uint16_t*>(smem4), acc);
-  else
-    gemm_tile<NT, false, TERMS>(g.a, g.w, g.n, g.k, g.m, row0, n0,
-                                reinterpret_cast<float*>(smem4), acc);
-  const uint32_t key = g.dr.key(g.salt);
-
-  // elements 2h and 2h + 1 of n-tile j: row r_lo + 8·h, columns n0 + 8·j
-  // + 2·tq and the next, as one float2 (m % 8 == 0: both or neither in
-  // range)
-  const int r_lo = row0 + warp * 16 + gq;
+// The epilogue: acc in the m16n8 C layout, the thread's rows r_lo and
+// r_lo + 8 of n-tiles j at columns n0 + 8·j + 2·tq and the next, as
+// gemm_tile and wg::tile leave it; elements 2h and 2h + 1 of n-tile j as
+// one float2 (m % 8 == 0: both or neither in range).
+template <int kNj, bool kMap>
+__device__ __forceinline__ void bwd_epilogue(const GemmArgs& g,
+                                             const float (&acc)[kNj][4],
+                                             int r_lo, int n0, int tq,
+                                             uint32_t key) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r_lo + 8 * h;
@@ -198,6 +187,59 @@ tc_gemm_kernel(const GemmArgs g) {
       *reinterpret_cast<float2*>(g.c + idx) = v;
     }
   }
+}
+
+// kMap: the call's dropout maps its rows (drop::Dropout::mapped); TERMS 3
+// is 3xTF32 (tc.cuh gemm_tile), 1 the bf16 instantiation (gemm_tile_bf16).
+// Up to d 256 (kWideD).
+template <int NT, bool kMap, int TERMS = 3>
+__global__ void __launch_bounds__(kGemmThreads)
+tc_gemm_kernel(const GemmArgs g) {
+  constexpr int kNj = NT / 8;          // n-tiles a warp
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int row0 = blockIdx.x * kGemmRows;
+  const int n0 = blockIdx.y * NT;
+  float acc[kNj][4];
+  if constexpr (TERMS == 1)
+    gemm_tile_bf16<NT, false>(g.a, g.w16, g.n, g.k, g.m, row0, n0,
+                              reinterpret_cast<uint16_t*>(smem4), acc);
+  else
+    gemm_tile<NT, false, TERMS>(g.a, g.w, g.n, g.k, g.m, row0, n0,
+                                reinterpret_cast<float*>(smem4), acc);
+  bwd_epilogue<kNj, kMap>(g, acc, row0 + warp * 16 + gq, n0, tq,
+                          g.dr.key(g.salt));
+}
+
+// Past d 256 (kWideD): wg::tile (wgmma.cuh), MODE 3 (3xTF32: tb the
+// weight's TF32 parts, [2][M][K], which the call's pre-pass splits) or 1
+// (bf16: tb the call's bf16 copy [M][K]); W [M, K] is already K-major.
+template <int MODE, bool kMap>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+tc_gemm_kernel_wgmma(const GemmArgs g, const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb) {
+  extern __shared__ float4 smem4[];
+  const int tiles_m = (g.m + wg::kCols - 1) / wg::kCols;
+  const int row0 = (blockIdx.x / tiles_m) * wg::kRows;
+  const int n0 = (blockIdx.x % tiles_m) * wg::kCols;
+  float acc[wg::kNj][4];
+  if (!wg::tile<MODE>(&ta, &tb, g.k, row0, n0,
+                      reinterpret_cast<uint8_t*>(smem4), acc))
+    return;
+  const int lane = threadIdx.x & 31;
+  bwd_epilogue<wg::kNj, kMap>(g, acc,
+                             row0 + (threadIdx.x >> 5) * 16 + (lane >> 2),
+                             n0, lane & 3, g.dr.key(g.salt));
+}
+
+// The f32 pre-pass past d 256: each weight stack's TF32 parts
+// (parts_layout, wgmma.cuh split_weights).
+__global__ void __launch_bounds__(kThreads)
+encoder_bwd_split_kernel(const wg::SplitJobs js) {
+  wg::split_weights(js);
 }
 
 // ------------------------------------------------------- the attention ----
@@ -1083,6 +1125,14 @@ cudaError_t prepare() {
                            gemm_smem<128, false, 1>()));
   TRY(cudaFuncSetAttribute(tc_gemm_kernel<256, true, 1>, a,
                            gemm_smem<256, false, 1>()));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel_wgmma<3, false>, a,
+                           wg::Cfg<3>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel_wgmma<3, true>, a,
+                           wg::Cfg<3>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel_wgmma<1, false>, a,
+                           wg::Cfg<1>::kSmem));
+  TRY(cudaFuncSetAttribute(tc_gemm_kernel_wgmma<1, true>, a,
+                           wg::Cfg<1>::kSmem));
   int most = 0;
   for (int L = 1; L <= kSeqL; ++L)
     most = attn_seq_bwd_smem(L) > most ? attn_seq_bwd_smem(L) : most;
@@ -1126,6 +1176,45 @@ cudaError_t launch_gemm(const GemmArgs& g, int nt, bool bf16,
                          : launch_gemm_t<false, 1>(g, nt, s);
   return g.dr.mapped() ? launch_gemm_t<true, 3>(g, nt, s)
                        : launch_gemm_t<false, 3>(g, nt, s);
+}
+
+// A product past kWideD on wg::tile: b the weight's TF32 parts [2][m][k]
+// or (bf16) its bf16 copy [m][k].
+template <int MODE, bool kMap>
+cudaError_t wide_t(const GemmArgs& g, const void* b, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  TRY(wg::map_a(&ta, g.a, g.n, g.k));
+  TRY(wg::map_b<MODE>(&tb, b, g.m, g.k));
+  tc_gemm_kernel_wgmma<MODE, kMap>
+      <<<wg::blocks(g.n, g.m), wg::kThreads, wg::Cfg<MODE>::kSmem, s>>>(
+          g, ta, tb);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wide(const GemmArgs& g, const void* b, bool bf16,
+                        cudaStream_t s) {
+  if (bf16)
+    return g.dr.mapped() ? wide_t<1, true>(g, b, s) : wide_t<1, false>(g, b, s);
+  return g.dr.mapped() ? wide_t<3, true>(g, b, s) : wide_t<3, false>(g, b, s);
+}
+
+// The f32 pre-pass of a call past kWideD: each weight stack's 3xTF32
+// parts into parts, as it lies (parts_layout(d, true)).
+cudaError_t split_weights(const Layer& l0, int d, int n_layers, float* parts,
+                          cudaStream_t s) {
+  const PartsLayout po = parts_layout(d, true);
+  const float* src[4] = {l0.w_qkv, l0.w_out, l0.w_ff1, l0.w_ff2};
+  const size_t at[4] = {po.qkv, po.out, po.ff1, po.ff2};
+  wg::SplitJobs js{};
+  js.n_jobs = 4;
+  js.mats = n_layers;
+  for (int j = 0; j < 4; ++j) {
+    const int cols = j == 0 ? 3 * d : d;
+    js.job[j] = wg::SplitJob{src[j], parts + at[j], d, cols, 2,
+                             (size_t)d * cols, po.per_layer};
+  }
+  encoder_bwd_split_kernel<<<wg::split_grid(js), kThreads, 0, s>>>(js);
+  return cudaGetLastError();
 }
 
 template <bool kMap>
@@ -1202,13 +1291,14 @@ size_t workspace_floats(int B, int L, int d, int n_head, int n_layers,
   return total;
 }
 
-// bf16: the bf16 instantiation, which first rounds the weights into w16
-// (weights_bf16_elems(d, n_layers)).
+// wcopy (weights_copy_bytes(d, n_layers, bf16, true)): bf16, the bf16
+// instantiation first rounds the weights into it; f32 past kWideD the
+// pre-pass writes wg::tile's parts there (parts_layout(d, true)).
 cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
                     const float* lnf_s, float* dx, float* grads,
                     float* workspace, int splits, int B, int L, int d,
                     int n_head, int n_layers, drop::Dropout dr, bool bf16,
-                    uint16_t* w16, cudaStream_t s) {
+                    void* wcopy, cudaStream_t s) {
   const size_t N = (size_t)B * L;
   const int n = static_cast<int>(N);
   const GradOff go = grad_offsets(d, n_layers);
@@ -1220,6 +1310,7 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
   off.on = 0;
   const size_t s_qkv = (size_t)d * 3 * d, s_dd = (size_t)d * d;
   TRY(prepare());
+  uint16_t* w16 = static_cast<uint16_t*>(wcopy);
   Weights16 w16s{};
   if (bf16) {
     encoder_bwd_weights_bf16_kernel<<<weights_bf16_blocks(d, n_layers),
@@ -1227,6 +1318,19 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     TRY(cudaGetLastError());
     w16s = weights16(w16, d, n_layers);
   }
+  const bool wide = d > kWideD;
+  const PartsLayout po = parts_layout(d, true);
+  if (wide && !bf16)
+    TRY(split_weights(l0, d, n_layers, static_cast<float*>(wcopy), s));
+  // a product dX = dY·Wᵀ: W's parts (f32 past kWideD) at offset `at` of
+  // layer li, or the gemm_tile launch
+  auto gemm = [&](const GemmArgs& g, size_t at, int li) {
+    if (!wide) return launch_gemm(g, nt, bf16, s);
+    return launch_wide(g, bf16 ? static_cast<const void*>(g.w16)
+                               : static_cast<const float*>(wcopy) +
+                                     li * po.per_layer + at,
+                       bf16, s);
+  };
   auto layer = [&](int li, size_t off_in_layer) {
     return saved + so.layers + li * so.per_layer + off_in_layer;
   };
@@ -1247,12 +1351,12 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     g5.w16 = bf16 ? w16s.w_ff2 + li * s_dd : nullptr;
     g5.m = d; g5.epi = kDrelu; g5.aux = layer(li, so.l.fr);
     g5.dr = dr; g5.salt = dr.salt(drop::kFfnRelu, li);
-    TRY(launch_gemm(g5, nt, bf16, s));
+    TRY(gemm(g5, po.ff2, li));
     GemmArgs g6{};
     g6.a = t.df; g6.w = l0.w_ff1 + li * s_dd; g6.c = t.dy1; g6.n = n;
     g6.w16 = bf16 ? w16s.w_ff1 + li * s_dd : nullptr;
     g6.k = d; g6.m = d; g6.epi = kRes; g6.res = t.dz2; g6.dr = off;
-    TRY(launch_gemm(g6, nt, bf16, s));
+    TRY(gemm(g6, po.ff1, li));
     // LN1: z1 = x_in + drop(o·W_out + b_out)
     float* da = dr.on ? t.da : t.dz1;
     TRY(ln_bwd(t.dy1, layer(li, so.l.xhat1), layer(li, so.l.rstd1),
@@ -1262,7 +1366,7 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     g7.a = da; g7.w = l0.w_out + li * s_dd; g7.c = t.d_o; g7.n = n; g7.k = d;
     g7.w16 = bf16 ? w16s.w_out + li * s_dd : nullptr;
     g7.m = d; g7.epi = kStore; g7.dr = off;
-    TRY(launch_gemm(g7, nt, bf16, s));
+    TRY(gemm(g7, po.out, li));
     const dim3 attn_grid(B * attn_tiles(L), n_head);
     const uint32_t salt = dr.salt(drop::kProbs, li);
     const int dh = d / n_head;
@@ -1305,7 +1409,7 @@ cudaError_t run_bwd(const float* saved, const float* gout, const Layer& l0,
     g8.w16 = bf16 ? w16s.w_qkv + li * s_qkv : nullptr;
     g8.n = n; g8.k = 3 * d; g8.m = d; g8.epi = kRes; g8.res = t.dz1;
     g8.dr = li ? off : dr; g8.salt = dr.salt(drop::kInput, 0);
-    TRY(launch_gemm(g8, nt, bf16, s));
+    TRY(gemm(g8, po.qkv, li));
 
     WgArgs w{};
     const float* xs[4] = {xin, layer(li, so.l.o), layer(li, so.l.y1),
@@ -1381,10 +1485,11 @@ extern "C" long long encoder_bwd_grad_floats(int d, int n_layers) {
 // output, dx [B, L, d] out, grads the flat buffer, workspace of
 // encoder_bwd_workspace_floats for `grid` row splits (all pointers 16-byte
 // aligned).  bf16 != 0: the bf16 instantiation, the backward of
-// encoder_fwd's bf16 one (the head of the file), with w16 a buffer of
-// encoder_weights_bf16_elems(d, n_layers) bf16 (16-byte aligned) that
-// receives the weights' bf16 copy (null at bf16 0).  Returns
-// cudaGetLastError() after the launches (0 = launched).
+// encoder_fwd's bf16 one (the head of the file).  w16: a buffer of
+// encoder_weights_copy_bytes(d, n_layers, bf16, 1) bytes (16-byte aligned,
+// encoder.cu) that receives the weights' bf16 copy or, f32 past d 256,
+// their TF32 parts (null where that is 0).  Returns cudaGetLastError()
+// after the launches (0 = launched).
 extern "C" int encoder_bwd(
     const float* saved, const float* gout, const float* w_qkv,
     const float* b_qkv, const float* w_out, const float* b_out,
@@ -1404,6 +1509,40 @@ extern "C" int encoder_bwd(
       n_layers,
       drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
                  row_seg, row_stride, L, d),
-      bf16 != 0, static_cast<uint16_t*>(w16),
-      static_cast<cudaStream_t>(stream)));
+      bf16 != 0, w16, static_cast<cudaStream_t>(stream)));
+}
+
+// One backward product on its own, for holding wg::tile against
+// gemm_tile: c = A·Wᵀ, W [m, k] f32, with epilogue epi (kStore, kDrelu
+// with aux, kRes with res; the dropout stream of `site` at layer 0, the
+// row map of a [B, L, m] site); bf16 1 the bf16 instantiation; wide 1:
+// wg::tile, else gemm_tile at width_tile(m).  scratch: the weight's copy,
+// at least 2·k·m floats.  Returns cudaGetLastError() after the launches.
+extern "C" int encoder_gemm_bwd(
+    const float* a, const float* w, const float* res, const float* aux,
+    float* c, void* scratch, int n, int k, int m, int epi, int bf16,
+    int wide, int drop_on, unsigned drop_thr, float drop_div,
+    const unsigned* seed, int tower_id, unsigned row_off, unsigned row_seg,
+    unsigned row_stride, int L, int site, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TRY(prepare());
+  GemmArgs g{};
+  g.a = a; g.w = w; g.res = res; g.aux = aux; g.c = c;
+  g.n = n; g.k = k; g.m = m; g.epi = epi;
+  g.dr = drop::make(drop_on, drop_thr, drop_div, seed, tower_id, row_off,
+                    row_seg, row_stride, L, m);
+  g.salt = g.dr.salt(site, 0);
+  if (wide || bf16) {
+    wg::SplitJobs js{};
+    js.n_jobs = 1;
+    js.mats = 1;
+    js.bf16 = bf16;
+    js.job[0] = wg::SplitJob{w, scratch, m, k, bf16 ? 1 : 2, (size_t)k * m,
+                             (size_t)k * m};
+    encoder_bwd_split_kernel<<<wg::split_grid(js), kThreads, 0, s>>>(js);
+    TRY(cudaGetLastError());
+    g.w16 = static_cast<const uint16_t*>(scratch);
+  }
+  if (wide) return static_cast<int>(launch_wide(g, scratch, bf16 != 0, s));
+  return static_cast<int>(launch_gemm(g, width_tile(m), bf16 != 0, s));
 }

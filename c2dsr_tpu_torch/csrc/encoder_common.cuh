@@ -435,6 +435,37 @@ __host__ inline int weights_bf16_blocks(int d, int n_layers) {
   return static_cast<int>(b < 2048 ? b : 2048);
 }
 
+// Past this width the towers' products with a weight run wgmma.cuh's tile
+// (wg::tile, wgmma from a TMA ring; no block holds a whole row, so the
+// forward's LayerNorm runs in a kernel of its own); up to it tc.cuh's
+// 64-row gemm_tile and gemm_tile_bf16, whose forward epilogue holds whole
+// rows for the LayerNorm.
+constexpr int kWideD = 256;
+
+// Where a call's f32 weights' TF32 parts lie for wg::tile past kWideD, in
+// floats (each part of a matrix K-major, [P][m][k], the parts one after
+// the other): the forward's Wᵀ, QKV in three parts (its 6-term split) and
+// the others in two (3xTF32); the backward's W as it lies (dX = dY·Wᵀ), in
+// two.  Layer li at li·per_layer.
+struct PartsLayout {
+  size_t qkv, out, ff1, ff2, per_layer;
+};
+
+__host__ __device__ inline PartsLayout parts_layout(int d, bool bwd) {
+  const size_t dd = (size_t)d * d;
+  return bwd ? PartsLayout{0, 6 * dd, 8 * dd, 10 * dd, 12 * dd}
+             : PartsLayout{0, 9 * dd, 11 * dd, 13 * dd, 15 * dd};
+}
+
+// Bytes of the weights' copy a call of the forward (bwd false) or the
+// backward makes first, into a buffer its wrapper allocates: the bf16
+// copy (weights_bf16_elems), f32 past kWideD the parts, else none.
+__host__ __device__ inline size_t weights_copy_bytes(int d, int n_layers,
+                                                     bool bf16, bool bwd) {
+  if (bf16) return 2 * weights_bf16_elems(d, n_layers);
+  return d > kWideD ? 4 * n_layers * parts_layout(d, bwd).per_layer : 0;
+}
+
 // What the forward saves for the backward in training (encoder.cu writes
 // it, encoder_bwd.cu reads it): every layer's activations for all N = B·L
 // rows of the tower call, dense (row stride d, or 3·d for qkv; p is

@@ -159,6 +159,10 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ------------------------------------------------ the towers' GEMM ----
+// Up to d 256 (encoder_common.cuh kWideD): past it the towers' products
+// run wgmma.cuh's wg::tile, whose wgmma reads a TF32 B operand only
+// K-major and already split, so each call splits its weights once into a
+// K-major copy there; here each warp splits the W fragments it loads.
 // A block of kGemmThreads threads (4 warps, 16 rows each) computes a
 // 64 x NT tile of A·B over all of k: A [n, k] row-major; B is W [m, k]
 // row-major (A·Wᵀ, the tower backward's products) or, with KM, W [k, m]

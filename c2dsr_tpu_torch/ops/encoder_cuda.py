@@ -194,15 +194,104 @@ def saved_views(saved: torch.Tensor, shape, n_head: int, n_layers: int
             "xhat_f": view(off[14], B, L, d), "rstd_f": view(off[15], B, L)}
 
 
-def weights_bf16_buffer(d: int, n_layers: int, bf16: bool, device):
-    """The buffer a bf16 call of either kernel rounds the tower's four
-    weight stacks into before its products (``encoder_weights_bf16_elems``
-    in ``csrc/encoder.cu``); None for an f32 call."""
-    if not bf16:
-        return None
-    n = _fn("encoder", "encoder_weights_bf16_elems", (ctypes.c_int,) * 2,
-            ctypes.c_longlong)(d, n_layers)
-    return torch.empty(n, dtype=torch.bfloat16, device=device)
+def weights_copy_buffer(d: int, n_layers: int, bf16: bool, device,
+                        backward: bool = False):
+    """The buffer a call of the forward (or the backward) writes its
+    weights' copy into before its products (``encoder_weights_copy_bytes``
+    in ``csrc/encoder.cu``): the bf16 instantiation's bf16 copy, or, f32
+    past d 256, the TF32 parts the wgmma tile reads; None where the call
+    makes none."""
+    n = weights_copy_bytes(d, n_layers, bf16, backward)
+    return torch.empty(n, dtype=torch.uint8, device=device) if n else None
+
+
+@functools.lru_cache(maxsize=256)
+def weights_copy_bytes(d: int, n_layers: int, bf16: bool,
+                       backward: bool) -> int:
+    return _fn("encoder", "encoder_weights_copy_bytes", (ctypes.c_int,) * 4,
+               ctypes.c_longlong)(d, n_layers, int(bf16), int(backward))
+
+
+# Past this width the products with a weight run the wgmma tile
+# (``csrc/wgmma.cuh``), up to it the 64-row mma.sync tile (``csrc/tc.cuh``
+# gemm_tile): ``kWideD`` in ``csrc/encoder_common.cuh``, which routes; here
+# it only says which launches ``_count`` counts as wide.
+WIDE_D = 256
+
+_GEMM_DROP = _DROP_SIG + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+FWD_EPI = {"bias": 0, "relu": 1, "residual": 2}
+BWD_EPI = {"store": 0, "drelu": 1, "res": 2}
+
+
+def _check_gemm(name, k, m, bf16, *tensors):
+    """Raises unless every tensor given is contiguous f32 on the card and
+    k, m are widths the tiles take (k % 4, or % 8 in bf16; m % 8)."""
+    for t in tensors:
+        if t is not None and not (t.is_cuda and t.dtype == torch.float32
+                                  and t.is_contiguous()):
+            raise ValueError(f"{name} takes contiguous f32 CUDA tensors")
+    if k % (8 if bf16 else 4) or m % 8:
+        raise ValueError(f"{name} does not take k={k}, m={m}")
+
+
+def _gemm_drop(dropout, seed, tower, row_map, L, site, device):
+    args, seed_t = _drop_args(dropout, seed, tower, row_map, device)
+    return args + (int(L), int(site),
+                   torch.cuda.current_stream().cuda_stream), seed_t
+
+
+def gemm_fwd(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
+             epi: str, mode: int, wide: bool, res=None, with_c2=False,
+             dropout: float = 0.0, seed=0, tower: int = 0, row_map=None,
+             L: int = 1, site: int = 0):
+    """One of the forward's products on its own, c = A·W + b with its
+    epilogue (``FWD_EPI``; relu also writes the dropped copy c2 with
+    ``with_c2``; residual adds ``res``), on the wgmma tile (``wide``) or
+    on gemm_tile, in ``mode`` (3, 6 or 1: bf16); the dropout stream of
+    ``site`` at layer 0, a [B, L, m] site's indices: the card tests'
+    handle on the tiles.  Returns (c, c2 or None)."""
+    n, k = a.shape
+    m = w.shape[1]
+    _check_gemm("gemm_fwd", k, m, mode == 1, a, w, bias, res)
+    c = torch.empty(n, m, dtype=torch.float32, device=a.device)
+    c2 = torch.empty_like(c) if with_c2 else None
+    scratch = torch.empty(3 * k * m, dtype=torch.float32, device=a.device)
+    drop_args, _seed = _gemm_drop(dropout, seed, tower, row_map, L, site,
+                                  a.device)
+    err = _fn("encoder", "encoder_gemm_fwd",
+              (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + _GEMM_DROP)(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        None if res is None else res.data_ptr(), c.data_ptr(),
+        None if c2 is None else c2.data_ptr(), scratch.data_ptr(), n, k, m,
+        FWD_EPI[epi], int(mode), int(wide), *drop_args)
+    if err != 0:
+        raise RuntimeError(f"encoder_gemm_fwd launch failed: CUDA error {err}")
+    return c, c2
+
+
+def gemm_bwd(a: torch.Tensor, w: torch.Tensor, *, epi: str, bf16: bool,
+             wide: bool, res=None, aux=None, dropout: float = 0.0, seed=0,
+             tower: int = 0, row_map=None, L: int = 1, site: int = 0):
+    """One of the backward's products on its own, c = A·Wᵀ with W [m, k]
+    and its epilogue (``BWD_EPI``: drelu masks by ``aux`` > 0, res adds
+    ``res``, both after the dropout of ``site``), on the wgmma tile
+    (``wide``) or on gemm_tile, f32 (3xTF32) or bf16."""
+    n, k = a.shape
+    m = w.shape[0]
+    _check_gemm("gemm_bwd", k, m, bf16, a, w, res, aux)
+    c = torch.empty(n, m, dtype=torch.float32, device=a.device)
+    scratch = torch.empty(2 * k * m, dtype=torch.float32, device=a.device)
+    drop_args, _seed = _gemm_drop(dropout, seed, tower, row_map, L, site,
+                                  a.device)
+    err = _fn("encoder_bwd", "encoder_gemm_bwd",
+              (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + _GEMM_DROP)(
+        a.data_ptr(), w.data_ptr(), None if res is None else res.data_ptr(),
+        None if aux is None else aux.data_ptr(), c.data_ptr(),
+        scratch.data_ptr(), n, k, m, BWD_EPI[epi], int(bf16), int(wide),
+        *drop_args)
+    if err != 0:
+        raise RuntimeError(f"encoder_gemm_bwd launch failed: CUDA error {err}")
+    return c
 
 
 def _check_saved(saved: torch.Tensor, B, L, d, n_head, n_layers) -> None:
@@ -238,7 +327,7 @@ def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
     x = _aligned(x)
     weights = [_aligned(w) for w in weights]
     out = torch.empty_like(x)
-    w16 = weights_bf16_buffer(d, n_layers, bf16, x.device)
+    w16 = weights_copy_buffer(d, n_layers, bf16, x.device)
     drop_args, _seed = _drop_args(dropout, seed, tower, row_map, x.device)
     err = _fn("encoder", "encoder_fwd", _FWD_SIG)(
         x.data_ptr(), seq32.data_ptr(), *[w.data_ptr() for w in weights],
@@ -249,15 +338,26 @@ def encoder_fwd(x: torch.Tensor, seq: torch.Tensor, params: Dict[str, Any],
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_fwd launch failed: CUDA error {err}")
-    if bf16:
-        encoder_fwd.launches_bf16 += 1
-    else:
-        encoder_fwd.launches += 1
+    _count(encoder_fwd, d, bf16)
     return out
+
+
+def _count(wrapper, d: int, bf16: bool) -> None:
+    """One launch of ``wrapper``'s kernels, of its bf16 instantiation where
+    ``bf16``, and past ``WIDE_D`` one of its products on the wgmma tile
+    (``launches_wide``, ``launches_wide_bf16``)."""
+    suffix = "_bf16" if bf16 else ""
+    setattr(wrapper, "launches" + suffix,
+            getattr(wrapper, "launches" + suffix) + 1)
+    if d > WIDE_D:
+        setattr(wrapper, "launches_wide" + suffix,
+                getattr(wrapper, "launches_wide" + suffix) + 1)
 
 
 encoder_fwd.launches = 0
 encoder_fwd.launches_bf16 = 0
+encoder_fwd.launches_wide = 0
+encoder_fwd.launches_wide_bf16 = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -305,7 +405,7 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
     ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
     flat = torch.empty(grad_floats, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    w16 = weights_bf16_buffer(d, n_layers, bf16, x.device)
+    w16 = weights_copy_buffer(d, n_layers, bf16, x.device, backward=True)
     drop_args, _seed = _drop_args(dropout, seed, tower, row_map, x.device)
     err = _fn("encoder_bwd", "encoder_bwd", _BWD_SIG)(
         saved.data_ptr(), gout.data_ptr(), *[w.data_ptr() for w in weights],
@@ -315,10 +415,7 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"encoder_bwd launch failed: CUDA error {err}")
-    if bf16:
-        encoder_bwd.launches_bf16 += 1
-    else:
-        encoder_bwd.launches += 1
+    _count(encoder_bwd, d, bf16)
     grads, at = [], 0
     for w in weights:
         grads.append(flat[at:at + w.numel()].view(w.shape))
@@ -328,6 +425,8 @@ def encoder_bwd(x: torch.Tensor, seq: torch.Tensor, gout: torch.Tensor,
 
 encoder_bwd.launches = 0
 encoder_bwd.launches_bf16 = 0
+encoder_bwd.launches_wide = 0
+encoder_bwd.launches_wide_bf16 = 0
 
 
 def dropout_bits(seed, site: int, tower: int, layer: int, n: int

@@ -5,6 +5,9 @@
     python3 chip_smoke.py --compare OTHER   # train and serving measures
                                             # against OTHER/'s
                                             # c2dsr_tpu_torch, in turns
+    python3 chip_smoke.py --compare OTHER --bitwise   # and fail unless
+                                            # every output but the towers'
+                                            # past d 256 is OTHER's bits
 
 Needs one CUDA card, ``nvcc`` and the ``c2dsr_tpu_torch`` package beside
 this file; it builds the CUDA kernels from ``c2dsr_tpu_torch/csrc`` itself.
@@ -150,6 +153,7 @@ import inspect
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -302,19 +306,25 @@ def reset_launches():
 
 
 def read_launches():
-    """Launches by wrapper, and "ce_bwd_cluster": those of K5's that ran its
-    cluster kernels (counted also under "ce_bwd")."""
+    """Launches by wrapper, "ce_bwd_cluster": those of K5's that ran its
+    cluster kernels (counted also under "ce_bwd"), and "encoder_fwd_wide"
+    and "encoder_bwd_wide": K2's and K3's past d 256, whose products ran
+    the wgmma tile (counted also under their wrappers)."""
     out = {name: fn.launches for name, fn in kernel_wrappers().items()}
     out["ce_bwd_cluster"] = kernel_wrappers()["ce_bwd"].launches_cluster
+    for k in ("encoder_fwd", "encoder_bwd"):
+        out[f"{k}_wide"] = kernel_wrappers()[k].launches_wide
     return out
 
 
 def read_launches_bf16():
     """The bf16 instantiations' launches, by wrapper (and
-    "ce_bwd_cluster")."""
+    "ce_bwd_cluster", "encoder_fwd_wide", "encoder_bwd_wide")."""
     out = {name: fn.launches_bf16 for name, fn in kernel_wrappers().items()
            if hasattr(fn, "launches_bf16")}
     out["ce_bwd_cluster"] = kernel_wrappers()["ce_bwd"].launches_cluster_bf16
+    for k in ("encoder_fwd", "encoder_bwd"):
+        out[f"{k}_wide"] = kernel_wrappers()[k].launches_wide_bf16
     return out
 
 
@@ -495,7 +505,8 @@ KERNEL_FAMILIES = (
     ("K3 encoder_bwd", ("tc_gemm_kernel", "attn_bwd_",
                         "ln_bwd_kernel", "wgrad_kernel",
                         "sum_partials_kernel",
-                        "encoder_bwd_weights_bf16_kernel")),
+                        "encoder_bwd_weights_bf16_kernel",
+                        "encoder_bwd_split_kernel")),
     ("K4/K5 pre-pass", ("transpose_split_kernel", "transpose_bf16_kernel",
                         "round_bf16_kernel")),
     ("K4 ce_fwd", ("ce_fwd_kernel", "ce_fwd_wide_kernel",
@@ -747,16 +758,18 @@ def _rel(a, b):
 def _k2_parts(times):
     """K2's profiled device ms a call, by part: the four GEMMs of a layer
     (with their epilogues), attention, the LayerNorm kernel (d > 256), the
-    input kernel (dropout, or the saved copy of the input) and the bf16
-    instantiation's copy of the weights."""
+    input kernel (dropout, or the saved copy of the input), the bf16
+    instantiation's copy of the weights and, past d 256, the pre-pass that
+    writes them K-major for the wgmma tile (encoder_fwd_split_kernel)."""
     out = {"gemm": 0.0, "attention": 0.0, "layernorm": 0.0, "input": 0.0,
-           "weights_bf16": 0.0}
+           "weights_bf16": 0.0, "weights_split": 0.0}
     for name, ms in times.items():
         for part, key in (("gemm", "encoder_fwd_gemm"),
                           ("attention", "encoder_fwd_attn"),
                           ("layernorm", "encoder_fwd_ln"),
                           ("input", "encoder_fwd_input"),
-                          ("weights_bf16", "encoder_fwd_weights")):
+                          ("weights_bf16", "encoder_fwd_weights"),
+                          ("weights_split", "encoder_fwd_split")):
             if key in name:
                 out[part] += ms
     return out
@@ -1177,7 +1190,8 @@ WIDE_TOWERS = ((96, 2, 30), (32, 1, 30), (256, 4, 15), (160, 2, 16),
                (128, 2, 64), (256, 4, 64), (96, 2, 48)) + LONG_WIDE_TOWERS
 
 
-TIMED_TOWERS = ((128, 1, 200, 512), (1024, 8, 15, 512))   # (d, heads, L, B)
+TIMED_TOWERS = ((128, 1, 200, 512), (512, 4, 15, 512),
+                (1024, 8, 15, 512))                       # (d, heads, L, B)
 
 
 def _tower_work(seq, pad, p, acts, n_head):
@@ -1214,8 +1228,9 @@ def _tower_times(timer, gpu, peak_flops, peak_bw):
     attention the inputs' masks need, twice that backward; the bytes of x,
     the output, the weights and the activations the backward reads) and
     K3's kernels profiled; then the bf16 instantiations at the same tower
-    beside the library's bf16 calls.  Both dtypes' attention kernels are
-    profiled apart (``attention_*``)."""
+    beside the library's bf16 calls.  Both dtypes' attention kernels and
+    products with a weight (past d 256 the wgmma tile and its weight
+    pre-pass) are profiled apart (``attention_*``, ``gemm_*``)."""
     from c2dsr_tpu_torch.bench import kernel_bench
     from c2dsr_tpu_torch.config import Config
     from c2dsr_tpu_torch.model import params as params_mod
@@ -1254,7 +1269,7 @@ def _tower_times(timer, gpu, peak_flops, peak_bw):
             gout))
         flops, attn_flops, f_bytes, b_bytes = _tower_work(seq, pad, p, acts,
                                                           n_head)
-        subs, attn = {}, {}
+        subs, attn, gemm = {}, {}, {}
         for bf in (False, True):
             name = "bf16" if bf else "f32"
             subs[name] = (
@@ -1263,6 +1278,10 @@ def _tower_times(timer, gpu, peak_flops, peak_bw):
                 timing.kernel_times(lambda: encoder_cuda.encoder_bwd(
                     x, seq, gout, p, saved=acts, bf16=bf, **kw))[0])
             attn[name] = [sum(v for k, v in sub.items() if "attn" in k)
+                          for sub in subs[name]]
+            # the products with a weight (and past d 256 their pre-pass)
+            gemm[name] = [sum(v for k, v in sub.items()
+                              if "gemm" in k or "split" in k)
                           for sub in subs[name]]
         with torch.no_grad():
             f_bf = timer(lambda: encoder_cuda.encoder_fwd(
@@ -1288,22 +1307,216 @@ def _tower_times(timer, gpu, peak_flops, peak_bw):
             "fwd_library_bf16_ms": f_lib_bf,
             "fwd_bwd_library_bf16_ms": b_lib_bf,
             "attention_fwd_bf16_ms": attn["bf16"][0],
-            "attention_bwd_bf16_ms": attn["bf16"][1]}
+            "attention_bwd_bf16_ms": attn["bf16"][1],
+            "gemm_fwd_ms": gemm["f32"][0], "gemm_bwd_ms": gemm["f32"][1],
+            "gemm_fwd_bf16_ms": gemm["bf16"][0],
+            "gemm_bwd_bf16_ms": gemm["bf16"][1]}
         r = out[f"d{d}_L{L}"]
         log(f"shapes timed: tower d={d} n_head={n_head} L={L} B={B} "
             f"dropout 0.2: K2 {f_ms:.4f} ms plain {f_plain:.4f} library "
             f"{f_lib:.4f} bound 3xTF32 {r['fwd_bound_ms']:.4f} FFMA "
             f"{r['fwd_bound_ffma_ms']:.4f} (attention {attn['f32'][0]:.4f}, "
-            f"profiled); K3 {b_ms:.4f} ms plain {b_plain:.4f} library fwd + "
+            f"products with a weight {gemm['f32'][0]:.4f}, profiled); K3 "
+            f"{b_ms:.4f} ms (products with a weight, dX and their "
+            f"pre-pass, {gemm['f32'][1]:.4f}) plain {b_plain:.4f} library "
+            f"fwd + "
             f"bwd {b_lib:.4f} bound {r['bwd_bound_ms']:.4f} FFMA "
             f"{r['bwd_bound_ffma_ms']:.4f} (attention {attn['f32'][1]:.4f}); "
             "K3's kernels " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in b_sub.items())
             + f"; bf16: K2 {f_bf:.4f} ms library {f_lib_bf:.4f} (attention "
-            f"{attn['bf16'][0]:.4f}), K3 {b_bf:.4f} ms library fwd + bwd "
-            f"{b_lib_bf:.4f} (attention {attn['bf16'][1]:.4f})")
+            f"{attn['bf16'][0]:.4f}, products {gemm['bf16'][0]:.4f}), K3 "
+            f"{b_bf:.4f} ms library fwd + bwd {b_lib_bf:.4f} (attention "
+            f"{attn['bf16'][1]:.4f}, products {gemm['bf16'][1]:.4f})")
         del acts, tower, xg, lib_params
         torch.cuda.empty_cache()
+    return out
+
+
+WIDE_GEMM_WIDTHS = (264, 512, 520, 1024)   # phase_wide_gemm's d (n 7,680)
+WIDE_GEMM_TIMED = (512, 1024)              # the widths it times
+WIDE_GEMM_F64_K = 1.25   # the wgmma tile's distance from float64 (of the
+                         # rounded operands in bf16), at most this many
+                         # times the 64-row tile's
+
+
+def _wide_products(d):
+    """The products with a weight of one layer past d 256, as the tile
+    runs them: (name, K2 or K3, k, m, mode or bf16, epilogue, dropout
+    site): QKV (the 6-term split), the out-projection and FF2 (dropout and
+    residual), FF1 (ReLU and its dropout); K3's dX of FF2 (ReLU's mask),
+    FF1 and QKV (the residual; k 3·d), and of the out-projection."""
+    return (("qkv", "fwd", d, 3 * d, 6, "bias", 0),
+            ("out", "fwd", d, d, 3, "residual", 2),
+            ("ff1", "fwd", d, d, 3, "relu", 3),
+            ("ff2", "fwd", d, d, 3, "residual", 4),
+            ("ff2", "bwd", d, d, 3, "drelu", 3),
+            ("ff1", "bwd", d, d, 3, "res", 0),
+            ("out", "bwd", d, d, 3, "store", 0),
+            ("qkv", "bwd", 3 * d, d, 3, "res", 0))
+
+
+def phase_wide_gemm(timer, gpu, peak_bw):
+    """The wgmma tile (csrc/wgmma.cuh) on its own: each of K2's and K3's
+    products with a weight (_wide_products) at WIDE_GEMM_WIDTHS over 7,680
+    rows (B 512, L 15), f32 and bf16, at dropout 0.2 under a row map,
+    through ``encoder_cuda.gemm_fwd`` / ``gemm_bwd`` (which count no
+    launches), bitwise the 64-row tile's outputs in both dtypes (the same
+    rounded operands, the same k-steps in the same order, the same
+    masks), and at dropout 0 against float64 beside it (WIDE_GEMM_F64_K); at
+    WIDE_GEMM_TIMED each profiled (device ms a call, ``timing.kernel_times``)
+    beside the 64-row tile, its plain version (the product and epilogue in
+    torch ops, f32 with TF32 off, or of the bf16-rounded operands) and one
+    library call (``torch.mm`` of the f32 operands, or of bf16 ones), with
+    its bound (f32-accurate work at 3 TF32 passes, as ``timing.tc_bound_ms``
+    prices it, or one bf16 pass, or the bytes; the QKV product's 6-term
+    split issues three passes more, reported apart as ``split6_extra_ms``)
+    and the Timer's reading (cold L2; it counts the wrapper's host work).  Each
+    call includes its weight's pre-pass, as a tower call does once a
+    call.  Returns {d: {dtype:
+    {product: numbers}}}."""
+    from c2dsr_tpu_torch.ops import encoder_cuda as ec
+    from c2dsr_tpu_torch.ops.bf16 import round_bf16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, L = 512, 15
+    n = B * L
+    row_map = (5, B, B + 40)
+    out = {}
+    for d in WIDE_GEMM_WIDTHS:
+        gen = torch.Generator("cuda").manual_seed(d)
+        res_d = {}
+        for bf in (False, True):
+            dt = "bf16" if bf else "f32"
+            rows = res_d[dt] = {}
+            for name, kind, k, m, mode, epi, site in _wide_products(d):
+                a = torch.randn(n, k, device="cuda", generator=gen)
+                w = torch.randn(*((k, m) if kind == "fwd" else (m, k)),
+                                device="cuda", generator=gen) * k ** -0.5
+                bias = torch.randn(m, device="cuda", generator=gen) * 0.1
+                res = torch.randn(n, m, device="cuda", generator=gen)
+                mode = 1 if bf else mode
+
+                def run(wide, dropout, a=a, w=w, bias=bias, res=res,
+                        kind=kind, mode=mode, epi=epi, site=site):
+                    kw = dict(dropout=dropout, seed=13, tower=1, L=L,
+                              site=site,
+                              row_map=row_map if dropout else None)
+                    if kind == "fwd":
+                        c, c2 = ec.gemm_fwd(a, w, bias, epi=epi, mode=mode,
+                                            wide=wide, res=res,
+                                            with_c2=epi == "relu", **kw)
+                        return (c, c2) if c2 is not None else (c,)
+                    return (ec.gemm_bwd(a, w, epi=epi, bf16=mode == 1,
+                                        wide=wide, res=res, aux=res, **kw),)
+                got, old = run(True, 0.2), run(False, 0.2)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(got, old))
+                err_old = max(_rel(x, y) for x, y in zip(got, old))
+                tag = f"wide gemm d={d} {dt} {kind} {name} ({epi})"
+                check(all(bool(torch.isfinite(x).all()) for x in got),
+                      f"{tag}: non-finite")
+                check(same, f"{tag}: not bitwise the 64-row tile's "
+                      f"(max rel err {err_old:.3e})")
+                # the product alone, at dropout 0 (the epilogue before the
+                # store: bias, ReLU, residual or ReLU's mask)
+                a_r, w_r = (round_bf16(a), round_bf16(w)) if bf else (a, w)
+                wm = w_r if kind == "fwd" else w_r.T
+                prod64 = a_r.double() @ wm.double()
+                if kind == "fwd":
+                    want = prod64 + bias.double()
+                    if epi == "relu":
+                        want = want.clamp_min(0)
+                    if epi == "residual":
+                        want = want + res.double()
+                else:
+                    want = prod64
+                    if epi == "res":
+                        want = want + res.double()
+                    if epi == "drelu":
+                        want = want * (res > 0)
+                c_new, c_old = run(True, 0.0)[0], run(False, 0.0)[0]
+                e_new, e_old = _rel(c_new, want), _rel(c_old, want)
+                check(e_new <= WIDE_GEMM_F64_K * e_old + 1e-7,
+                      f"{tag}: from float64 {e_new:.3e}, the 64-row tile "
+                      f"{e_old:.3e}")
+                r = {"k": k, "m": m, "mode": mode, "bitwise_tile64": same,
+                     "max_rel_err_f64": e_new, "tile64_max_rel_err_f64": e_old,
+                     "max_abs_err_f64": float((c_new.double() - want).abs()
+                                              .max())}
+                if d in WIDE_GEMM_TIMED:
+                    if kind == "fwd":
+                        def plain(a_r=a_r, w_r=w_r, bias=bias, res=res,
+                                  epi=epi):
+                            y = torch.addmm(bias, a_r, w_r)
+                            if epi == "relu":
+                                y = y.clamp_min(0)
+                            return y + res if epi == "residual" else y
+                    else:
+                        def plain(a_r=a_r, w_r=w_r, res=res, epi=epi):
+                            y = a_r @ w_r.T
+                            if epi == "drelu":
+                                return y * (res > 0)
+                            return y + res if epi == "res" else y
+                    if bf:
+                        a16, w16 = a.bfloat16(), w.bfloat16()
+                        lib = (lambda: a16 @ w16) if kind == "fwd" else (
+                            lambda: a16 @ w16.T)
+                    else:
+                        lib = (lambda: a @ w) if kind == "fwd" else (
+                            lambda: a @ w.T)
+                    flops = 2.0 * n * k * m
+                    nbytes = 4.0 * (n * k + n * m) + (2 if bf else 4) * k * m
+                    # f32-accurate work at 3xTF32, as every tower bound
+                    # (timing.tc_bound_ms); the 6-term split's other three
+                    # passes are its numerics' cost, apart from the bound
+                    ops_ms = (flops / timing.bf16_peak(gpu) if bf
+                              else 3 * flops / timing.tf32_peak(gpu)) * 1e3
+                    if mode == 6:
+                        r["split6_extra_ms"] = ops_ms
+                    bytes_ms = nbytes / peak_bw * 1e3
+                    # device ms a call, profiled (the wrapper's host
+                    # work, its allocations and tensor maps, left out),
+                    # and the Timer's reading of the tile beside
+                    fns = {"ms": lambda: run(True, 0.2),
+                           "tile64_ms": lambda: run(False, 0.2),
+                           "plain_ms": plain, "library_ms": lib}
+                    for key, fn in fns.items():
+                        t = timing.kernel_times(fn)[0]
+                        r[key] = sum(t.values())
+                        if key in ("ms", "tile64_ms"):
+                            r[key.replace("ms", "gemm_ms")] = sum(
+                                v for n_, v in t.items() if "gemm" in n_)
+                    r.update(timer_ms=timer(fns["ms"]),
+                             bound_ms=max(ops_ms, bytes_ms),
+                             bound_by="operations" if ops_ms > bytes_ms
+                             else "bytes", flops=flops)
+                    # a profiled time under the bound is a reading at
+                    # fault (the profiler missed a launch), not a speed
+                    r["unphysical"] = r["gemm_ms"] < r["bound_ms"]
+                    log(f"{tag}: {r['ms']:.4f} ms profiled (the tile "
+                        f"{r['gemm_ms']:.4f}, its pre-pass the rest; "
+                        f"Timer {r['timer_ms']:.4f}); 64-row tile "
+                        f"{r['tile64_ms']:.4f} ({r['tile64_gemm_ms']:.4f}), "
+                        f"plain {r['plain_ms']:.4f}, library "
+                        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                        f"by {r['bound_by']}"
+                        + (f" (the 6-term split's three more passes "
+                           f"{r['split6_extra_ms']:.4f})" if mode == 6
+                           else "")
+                        + f"; from float64 {e_new:.3e} (64-row tile "
+                        f"{e_old:.3e}), bitwise the 64-row tile's"
+                        + ("; UNPHYSICAL: under its bound"
+                           if r["unphysical"] else ""))
+                rows[f"{kind}_{name}"] = r
+                del a, w, bias, res, got, old, c_new, c_old, want, prod64
+        out[d] = res_d
+        torch.cuda.empty_cache()
+    log("wide gemm: " + json.dumps({d: {dt: {p: {k: v for k, v in r.items()
+                                                   if "err" in k
+                                                   or "bitwise" in k}
+                                              for p, r in rows.items()}
+                                         for dt, rows in v.items()}
+                                    for d, v in out.items()}))
     return out
 
 
@@ -1556,17 +1769,17 @@ def _tower_accuracy(calls):
     return out
 
 
-def _long_step_accuracy(graphs, spec):
-    """``_tower_accuracy`` of the tower calls of one train step at
-    LONG_STEP (dropout 0; FK's itemsets and graphs, a seeded synthetic
-    batch and seeded params): the reading ``--compare`` takes in each
-    checkout, on the same inputs."""
+def _step_accuracy(graphs, spec, step):
+    """``_tower_accuracy`` of the tower calls of one train step at ``step``
+    (LONG_STEP or WIDE_STEP; dropout 0; FK's itemsets and graphs, a seeded
+    synthetic batch and seeded params): the reading ``--compare`` takes in
+    each checkout, on the same inputs."""
     from c2dsr_tpu_torch.config import Config, DataSpec
     from c2dsr_tpu_torch.data import preprocess, synthetic
     from c2dsr_tpu_torch.evaluate import ranker
     from c2dsr_tpu_torch.model import params as params_mod
     from c2dsr_tpu_torch.train import step as step_mod
-    cfg = Config(**LONG_STEP).with_(dropout_gnn=0.0, dropout_attn=0.0)
+    cfg = Config(**step).with_(dropout_gnn=0.0, dropout_attn=0.0)
     sp = DataSpec(n_item_a=spec.n_item_a, n_item_b=spec.n_item_b,
                   len_max=cfg.len_max)
     tr = preprocess.preprocess_train(
@@ -1943,7 +2156,12 @@ SASS_KERNELS = (
     ("encoder_bwd", r"wgrad_kernelILb([01])E", ("bf16",)),
     ("encoder", r"encoder_fwd_attn_kernelILb([01])E", ("bf16",)),
     ("encoder_bwd", r"attn_bwd_dq_kernelILb([01])E", ("bf16",)),
-    ("encoder_bwd", r"attn_bwd_dkv_kernelILb([01])E", ("bf16",)))
+    ("encoder_bwd", r"attn_bwd_dkv_kernelILb([01])E", ("bf16",)),
+    ("encoder", r"encoder_fwd_gemm_wgmma_kernelILi(\d)ELb([01])E",
+     ("MODE", "kMap")),
+    ("encoder_bwd", r"tc_gemm_kernel_wgmmaILi(\d)ELb([01])E",
+     ("MODE", "kMap")))
+WGMMA_KERNELS = ("encoder_fwd_gemm_wgmma_kernel", "tc_gemm_kernel_wgmma")
 ATTN_KERNELS = ("encoder_fwd_attn_kernel", "attn_bwd_dq_kernel",
                 "attn_bwd_dkv_kernel")
 
@@ -1967,8 +2185,9 @@ def _mma_sass():
     cluster kernels, K2's GEMM, K3's GEMM and weight gradients at every
     tile width, K2's and K3's attention kernels past L 64) has bf16 MMAs
     and no TF32 one, and every f32 one the reverse, and every f32
-    attention kernel is in the listing."""
-    import re
+    attention kernel is in the listing; the wgmma tile's kernels (K2's and
+    K3's products past d 256, WGMMA_KERNELS) have warpgroup MMAs (HGMMA)
+    of their type and no mma.sync, and no other kernel has an HGMMA."""
     import shutil
     from c2dsr_tpu_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1991,11 +2210,27 @@ def _mma_sass():
                 args = dict(zip(groups, m.groups()))
                 key = ",".join(f"{k}={v}" for k, v in args.items())
                 kind = pattern.split("I", 1)[0]
-                is_bf = args.get("bf16", args.get("TERMS")) == "1"
+                is_bf = args.get("bf16", args.get("TERMS",
+                                                  args.get("MODE"))) == "1"
                 bf = len(re.findall(r"HMMA\.16816\.F32\.BF16", body))
                 tf = len(re.findall(r"HMMA\.\S*TF32", body))
-                out[f"{kind}<{key}>"] = {"hmma_bf16": bf, "hmma_tf32": tf}
+                hg = [ln for ln in body.splitlines() if "HGMMA" in ln]
+                hg_bf = sum("BF16" in ln for ln in hg)
+                hg_tf = sum("TF32" in ln for ln in hg)
+                out[f"{kind}<{key}>"] = {"hmma_bf16": bf, "hmma_tf32": tf,
+                                         "hgmma": len(hg)}
                 seen.add((kind, args.get("DT", args.get("NT")), is_bf))
+                if kind in WGMMA_KERNELS:
+                    # wgmma alone: HGMMA of the instantiation's type, no
+                    # mma.sync
+                    check(bf == tf == 0 and len(hg) > 0
+                          and (hg_bf if is_bf else hg_tf) == len(hg),
+                          f"SASS {kind} {key}: {len(hg)} HGMMA ({hg_bf} "
+                          f"bf16, {hg_tf} TF32), {bf + tf} HMMA (want "
+                          f"{'bf16' if is_bf else 'TF32'} HGMMA only)")
+                    continue
+                # no wgmma where it was not written (the d <= 256 path)
+                check(not hg, f"SASS {kind} {key}: {len(hg)} HGMMA")
                 if is_bf:
                     check(bf > 0 and tf == 0, f"SASS {kind} {key}: {bf} "
                           f"bf16 and {tf} TF32 MMAs (want bf16 MMAs only)")
@@ -2010,7 +2245,8 @@ def _mma_sass():
                                          "ce_bwd_wide_kernel",
                                          "ce_bwd_cluster_kernel",
                                          "wgrad_kernel")}
-            | {(k, None, bf) for k in ATTN_KERNELS for bf in (False, True)})
+            | {(k, None, bf) for k in ATTN_KERNELS + WGMMA_KERNELS
+               for bf in (False, True)})
     check(want <= seen, f"SASS: instantiations not in the listing: "
           f"{sorted(want - seen, key=str)}")
     log("sass: " + json.dumps(out))
@@ -3924,11 +4160,12 @@ def _tower_measures(timer, digests) -> dict:
     tower calls of a step (FK: d 128, L 15, one head and layer, 3B, B and
     B sequences at B 512, dropout 0.2, K2 saving K3's activations), K2 at
     the serving tower (B 2,048, eval) and both at the long and wide towers
-    BF16_TOWERS (L 200; d 1,024 with 8 heads), one layer each: the bf16
+    BF16_TOWERS (L 200; d 1,024 with 8 heads) and d 512 (4 heads, B 512),
+    one layer each: the bf16
     instantiations timed (3 timings each, the median of 20 CUDA-event
     timings; the step's three calls summed), the f32 ones at the step's
-    calls, at L 200 and at L 64 (d 128, B 512: kSeqL, ``l64``) beside
-    them, and digests of every output (K2's, then K3's dx and gradients) in
+    calls, at L 200, at d 512 and 1,024 and at L 64 (d 128, B 512: kSeqL,
+    ``l64``) beside them, and digests of every output (K2's, then K3's dx and gradients) in
     f32 and in bf16 at each shape.  Both dtypes' parts are also profiled
     at each training shape (``timing.kernel_times``): K2's GEMMs
     (``k2_gemm_*``), K3's input-gradient GEMMs (``k3_gemm_*``), its weight
@@ -3945,6 +4182,8 @@ def _tower_measures(timer, digests) -> dict:
              ("eval", 128, 1, LEN_MAX, 2048, 0)]
     cases += [(f"l{L}" if L > LEN_MAX else f"d{d}", d, h, L, B, 0)
               for d, h, L, B in BF16_TOWERS]
+    cases.append(("d512", 512, 4, LEN_MAX, 512, 0))   # the wgmma tile's
+                                                       # other width
     cases.append(("l64", 128, 1, 64, 512, 0))   # kSeqL, the last whole-
                                                 # sequence length
     out = {}
@@ -3971,7 +4210,8 @@ def _tower_measures(timer, digests) -> dict:
                     outs += [dx] + list(grads)
                 digests[f"k2k3_{name}_{at}_B{B}_tower{tower}"] = _digest(
                     *outs)
-                if bf or at in ("step", "l64", f"l{BF16_TOWERS[0][2]}"):
+                if bf or at in ("step", "l64", f"l{BF16_TOWERS[0][2]}",
+                                "d512", "d1024"):
                     k2 = out.setdefault(f"k2_{name}_{at}_ms", [0.0] * 3)
                     k3 = out.setdefault(f"k3_{name}_{at}_ms", [0.0] * 3)
                     for i in range(3):
@@ -4024,7 +4264,7 @@ def measure_rates() -> dict:
     three towers, f32 and bf16, and in bf16 at the serving tower, L 200
     and d 1,024, with digests of their outputs (``_tower_measures``); the
     bf16 step's K2 and K3 ms profiled; ``_tower_accuracy`` at LONG_STEP
-    (``_long_step_accuracy``).  K2 alone at the
+    and at WIDE_STEP (``_step_accuracy``).  K2 alone at the
     serving path's tower (B 2048, L 15, d 128, one head, one layer; the
     median of 20 timed calls, 3 times).  The serving path (convolve, then
     rank the eval split in sampled and full mode): 3 profiled runs after
@@ -4180,7 +4420,8 @@ def measure_rates() -> dict:
     ce["k4_k5_bf16_step_ms"] = [a + b for a, b in zip(
         ce["k4_bf16_step_ms"], ce["k5_bf16_step_ms"])]
     ce.update(_tower_measures(timer, digests))
-    long_accuracy = _long_step_accuracy(graphs, spec)
+    long_accuracy = _step_accuracy(graphs, spec, LONG_STEP)
+    wide_accuracy = _step_accuracy(graphs, spec, WIDE_STEP)
     # K4 from float64 on trained-scale logits (deterministic: one reading)
     errs = [_k4_trained_errs(V, n_real)
             for V, n_real in ((30720, N_ITEM_A), (36864, N_ITEM_B))]
@@ -4237,15 +4478,18 @@ def measure_rates() -> dict:
             "serve_sampled_rates": serve_rates["sampled"][:SERVE_RUNS],
             "serve_full_rates": serve_rates["full"][:SERVE_RUNS],
             "serve_busy_ms": serve_busy, "serve_k2_ms": serve_k2,
-            "long_step_accuracy": long_accuracy, **kernels}
+            "long_step_accuracy": long_accuracy,
+            "wide_step_accuracy": wide_accuracy, **kernels}
 
 
-def compare(other: str) -> int:
+def compare(other: str, bitwise: bool = False) -> int:
     """This checkout's measure_rates against that of ``other`` (a directory
     holding another version of ``c2dsr_tpu_torch``), each in a process of
     its own, in turns (other, this, this, other), on one card.  For each
     measure, the difference of the means and whether it exceeds 3 standard
-    errors; which outputs' digests the two checkouts share."""
+    errors; which outputs' digests the two checkouts share.  With
+    ``bitwise`` (``--bitwise``, for a change meant to keep every bit), it
+    fails where a digest differs, but the towers' past ``WIDE_D``."""
     runs = {other: [], REPO_DIR: []}
     for root in (other, REPO_DIR, REPO_DIR, other):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -4256,7 +4500,8 @@ def compare(other: str) -> int:
         runs[root].append(res)
         log(f"compare {root}: " + "; ".join(
             f"{k} {[round(v, 4) for v in vs]}" for k, vs in res.items()
-            if k not in ("digests", "long_step_accuracy"))
+            if k not in ("digests", "long_step_accuracy",
+                         "wide_step_accuracy"))
             + f"; digests {res.get('digests')}")
     for key, unit in (("rates", "train examples/s"),
                       ("host_ms", "host ms to enqueue a train step"),
@@ -4299,6 +4544,12 @@ def compare(other: str) -> int:
                       ("k3_bf16_l64_ms", "ms of K3 bf16 at L 64, B 512"),
                       ("k2_bf16_d1024_ms", "ms of K2 bf16 at d 1,024"),
                       ("k3_bf16_d1024_ms", "ms of K3 bf16 at d 1,024"),
+                      ("k2_f32_d1024_ms", "ms of K2 at d 1,024, B 256"),
+                      ("k3_f32_d1024_ms", "ms of K3 at d 1,024, B 256"),
+                      ("k2_f32_d512_ms", "ms of K2 at d 512, B 512"),
+                      ("k3_f32_d512_ms", "ms of K3 at d 512, B 512"),
+                      ("k2_bf16_d512_ms", "ms of K2 bf16 at d 512, B 512"),
+                      ("k3_bf16_d512_ms", "ms of K3 bf16 at d 512, B 512"),
                       *[(k, "profiled ms of that part of K2 or K3")
                         for k in sorted({k for v in runs.values()
                                          for res in v for k in res})
@@ -4331,11 +4582,33 @@ def compare(other: str) -> int:
                  for v in runs.values() for r in v)
     log(f"compare digests: bitwise equal {same}; different {differ}; each "
         f"checkout's two runs {'equal' if stable else 'DIFFER'}")
+    if bitwise:
+        # every output but the towers' past WIDE_D (the wgmma tile's
+        # widths, k2k3_*_d<d>_*) must be the other checkout's bits
+        from c2dsr_tpu_torch.ops.encoder_cuda import WIDE_D
+        kept = [k for k in differ
+                if not ((m := re.match(r"k2k3_\w+?_d(\d+)_", k))
+                        and int(m.group(1)) > WIDE_D)]
+        check(not kept, f"compare --bitwise: outputs not bitwise the other "
+              f"checkout's: {kept}")
     for root, v in runs.items():
-        log(f"compare long_step_accuracy {root}: "
-            + "; ".join(json.dumps(r.get("long_step_accuracy")) for r in v)
-            + " (_tower_accuracy at LONG_STEP: relative Frobenius from a "
-            "float64 plain tower, worst tower call)")
+        for key, step in (("long_step_accuracy", "LONG_STEP"),
+                          ("wide_step_accuracy", "WIDE_STEP")):
+            log(f"compare {key} {root}: "
+                + "; ".join(json.dumps(r.get(key)) for r in v)
+                + f" (_tower_accuracy at {step}: relative Frobenius from a "
+                "float64 plain tower, worst tower call)")
+    if all("wide_step_accuracy" in r for v in runs.values() for r in v):
+        for t in ("dx", "w_qkv"):
+            mine = max(r["wide_step_accuracy"][t]["k3"]
+                       for r in runs[REPO_DIR])
+            theirs = max(r["wide_step_accuracy"][t]["k3"]
+                         for r in runs[other])
+            log(f"compare wide_step_accuracy {t}: this {mine:.3e}, the "
+                f"other {theirs:.3e} ({mine / theirs:.3f}x)")
+            check(mine <= 1.25 * theirs, f"compare: at WIDE_STEP K3's {t} "
+                  f"lies {mine / theirs:.3f}x the other checkout's distance "
+                  "from float64 (at most 1.25x)")
     for key in ("k4_trained_f64", "plain_trained_f64"):
         log(f"compare {key}: this "
             f"{[f'{r[key][0]:.3e}' for r in runs[REPO_DIR]]} against "
@@ -5410,7 +5683,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--compare"]:
-        return compare(os.path.abspath(sys.argv[2]))
+        return compare(os.path.abspath(sys.argv[2]),
+                       bitwise="--bitwise" in sys.argv[3:])
     t_start = time.perf_counter()
     backend.resolve_device("cuda")
     card = timing.card_line()
@@ -5455,6 +5729,9 @@ def main() -> int:
     wide = phase_shapes()
     tower_times = _tower_times(timer, name, peak_flops, peak_bw)
     log(f"phase shapes: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide_gemm = phase_wide_gemm(timer, name, peak_bw)
+    log(f"phase wide gemm: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ce_wide = phase_ce_wide(timer, peak_flops, peak_bw, name)
     log(f"phase ce wide: {time.perf_counter() - t0:.1f} s")
@@ -5546,11 +5823,21 @@ def main() -> int:
             ("bench_spmm_sweep", ("spmm_csr",)),
             ("bench_batches", step_kernels),
             ("scaled_e2e", step_kernels),
-            # K5's cluster kernels on the d 512 and d 1,024 steps
-            ("training_wide", ("ce_bwd_cluster",)),
-            ("training_wide_d1024", ("ce_bwd_cluster",))):
+            # K5's cluster kernels on the d 512 and d 1,024 steps, and K2's
+            # and K3's wgmma tile there and at serving d 512
+            ("training_wide", ("ce_bwd_cluster", "encoder_fwd_wide",
+                               "encoder_bwd_wide")),
+            ("training_wide_d1024", ("ce_bwd_cluster", "encoder_fwd_wide",
+                                     "encoder_bwd_wide")),
+            ("serving_d512", ("encoder_fwd_wide",))):
         check(all(paths[path][n] > 0 for n in kernels_of_path),
               f"a kernel never launched on the {path} path: {paths[path]}")
+    # up to d 256 the towers run the 64-row tile, never the wgmma one
+    for path in ("serving", "training", "graph", "experiment",
+                 "determinism"):
+        check(paths[path]["encoder_fwd_wide"] == 0
+              and paths[path]["encoder_bwd_wide"] == 0,
+              f"the {path} path (d <= 256) ran the wgmma tile: {paths[path]}")
     by_variant = bench_launches["ce_variants"]["by_variant"]
     check(all(by_variant.get(v, 0) > 0 for v in ("base", "nomatch", "exp2",
                                                   "bf16exp", "matmulonly")),
@@ -5813,6 +6100,64 @@ def main() -> int:
                     + "); f32_instantiation_err the f32 kernel's error "
                     "against the same plain bf16 version, which fails the "
                     "gate"})
+    # the wgmma tile: K2's four products and K3's dX products past d 256,
+    # summed over one layer's products at d 1,024 (phase_wide_gemm), with
+    # the tower calls that ran it (_tower_times) beside
+    for kind, src, replaces in (
+            ("fwd", "encoder.cu", "c2dsr_tpu/ops/encoder_pallas.py:444"),
+            ("bwd", "encoder_bwd.cu", "c2dsr_tpu/ops/encoder_pallas.py:477")):
+        for dt in ("f32", "bf16"):
+            prods = {p: r for p, r in wide_gemm[1024][dt].items()
+                     if p.startswith(kind)}
+            worst = max(prods.values(), key=lambda r: r["bound_ms"])
+            sfx = "_bf16" if dt == "bf16" else ""
+            launches = (bf16_launches[f"encoder_{kind}_wide"]
+                        if dt == "bf16"
+                        else counts(f"encoder_{kind}_wide")["launches"])
+            kernels.append({
+                "name": f"encoder_{kind}_wgmma{sfx}", "route": "cuda",
+                "source": "c2dsr_tpu_torch/csrc/wgmma.cuh",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err_f64"]
+                                   for r in prods.values()),
+                **{k: sum(r[k] for r in prods.values())
+                   for k in ("ms", "gemm_ms", "tile64_ms", "plain_ms",
+                             "library_ms", "bound_ms")},
+                "split6_extra_ms": sum(r.get("split6_extra_ms", 0.0)
+                                       for r in prods.values()),
+                "unphysical": any(r["unphysical"] for r in prods.values()),
+                "bound_by": worst["bound_by"],
+                "products_d1024": prods,
+                "products_d512": {p: r for p, r in
+                                  wide_gemm[512][dt].items()
+                                  if p.startswith(kind)},
+                "towers": {k: {n: v for n, v in r.items()
+                               if (kind in n or "gemm" in n)
+                               and (("bf16" in n) == (dt == "bf16"))}
+                           for k, r in tower_times.items()},
+                "note": f"K{2 if kind == 'fwd' else 3}'s products with a "
+                        "weight past d 256 on the wgmma tile (wgmma from a "
+                        "TMA ring, csrc/" + src + "): one layer's products at "
+                        "d 1,024 over 7,680 rows (B 512, L 15), summed "
+                        "(products_d1024 each, products_d512 at d 512); ms "
+                        "profiled device ms at dropout 0.2 under a row map, "
+                        "each call with its weight's pre-pass (gemm_ms the "
+                        "tile alone); tile64_ms the 64-row mma.sync tile "
+                        "on the same inputs; plain the product and "
+                        "epilogue in torch ops; library one torch.mm, "
+                        "profiled alike; "
+                        "bound_ms 3 TF32 passes (f32-accurate work, as "
+                        "timing.tc_bound_ms prices it) or one bf16 pass at "
+                        "the tensor cores' peak, or the bytes; "
+                        "split6_extra_ms the TF32 issue time of the QKV "
+                        "product's 6-term split past those 3 passes, a cost "
+                        "of its numerics outside the bound; unphysical: "
+                        "some product's profiled tile time under its bound; "
+                        "every output bitwise the 64-row tile's; max_abs_err "
+                        "against float64 at dropout 0; launches the tower "
+                        "calls past d 256 of the main paths (the d 512 and "
+                        "d 1,024 steps, serving at d 512); towers: the "
+                        "tower calls' times at TIMED_TOWERS"})
     log("bf16 step against the CPU's and rates: " + json.dumps(
         {"step": bf16["step"], "rates": bf16["rates"]}))
     variants = bench["ce_variants"]["shapes"]
