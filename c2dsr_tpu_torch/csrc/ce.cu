@@ -21,8 +21,10 @@
 //
 // K4 and the tile machinery both kernels share live in ce_fwd.cuh, K5's
 // shared machinery (its pass arguments, dlogits, second product, writes,
-// pre-passes and merges) in ce_bwd.cuh.  The port routes K5 by d
-// (ops/fused_ce_cuda.bwd_route): up to d 256 to the narrow kernels here;
+// pre-passes and merges) in ce_bwd.cuh.  The port routes K5 by d and
+// dtype (ops/fused_ce_cuda.bwd_route): in f32 up to d 128 to the one pass
+// of ce_onepass.cu (each logit computed once, 6·N·V·d FLOPs); in bf16 up
+// to d 256, and in f32 from 136 to 256, to the narrow kernels here;
 // from 264 to 2,048 to the cluster kernels of ce_cluster.cu, one
 // thread-block cluster over d that computes each logit once (4·N·V·d FLOPs
 // a kernel); past 2,048 to the wide kernels here.  This file's C entries
@@ -94,9 +96,17 @@
 // * Two kernels, no atomics.  The grid is X tiles x splits of Y, the split
 //   count chosen (fused_ce_cuda.plan_bwd) to fill the SMs in whole waves;
 //   each split writes its partial of dh (or dW, db) once, and a small
-//   kernel sums the partials in split order.  One fused pass would need dh (N·d) on chip
-//   or atomics; here every output element is written once, in a fixed
-//   order: two launches on the same inputs give bitwise-equal results.
+//   kernel sums the partials in split order.  Every output element is
+//   written once, in a fixed order: two launches on the same inputs give
+//   bitwise-equal results.
+// * Shared memory sets the pace: mma.sync reads every operand fragment
+//   from it into registers, 0.31 bytes a multiply-add at these warp tiles
+//   (32 x 32 for the logits, 32 x d for the product, whose A comes from
+//   registers).  ce_onepass.cu is the dh kernel with the dW product added
+//   from a transposed copy of the dlogits: it reads about 0.85 of this
+//   pair's bytes for 0.75 of its multiply-adds, and takes K5's f32 route up
+//   to d 128 (PERF.md §6).  Its bf16 instantiation and DT 256 are not
+//   built: there the pair stays.
 //
 // The bf16 instantiations (ce_fwd_bf16, ce_bwd_bf16; compute_dtype=
 // "bfloat16" or a bf16 classifier) compute the Pallas kernels' numerics:

@@ -1,5 +1,7 @@
-"""Wrappers of the fused CE kernels (``csrc/ce.cu``, ``csrc/ce_cluster.cu``):
-K4 :func:`ce_fwd` and K5 :func:`ce_bwd` (a dh kernel and a dW/db kernel).
+"""Wrappers of the fused CE kernels (``csrc/ce.cu``, ``csrc/ce_onepass.cu``,
+``csrc/ce_cluster.cu``): K4 :func:`ce_fwd` and K5 :func:`ce_bwd` (in f32 up
+to d 128 one pass over the logit tiles, elsewhere a dh kernel and a dW/db
+kernel).
 
 Replace the fused linear + softmax CE Pallas kernels of the JAX package
 (``c2dsr_tpu/ops/fused_ce.py``: ``_fwd_kernel`` for the forward;
@@ -19,12 +21,17 @@ warp keeps a running (max, sum-exp) per row over one of a few vocab
 splits; a small kernel merges the splits in order.  Above d 256 K4 runs its
 wide kernel, which streams h and Wᵀ in chunks of 32 columns.
 
-The backward does 4·N·V·d FLOPs a kernel (the logits, then one product)
-over (resident, streamed) operands, h and Wᵀ for dh, Wᵀ and h for dW; the
-vocab or row splits of its grid are summed in order by a small kernel.  Its
-design follows d alone (:func:`bwd_route`): up to d 256 the narrow kernels
-of ``ce.cu`` (the whole row of h resident); up to 2,048 the cluster kernels
-of ``ce_cluster.cu``, a thread-block cluster of c = ceil(d / 256) blocks,
+The backward's design follows d and the dtype (:func:`bwd_route`).  In f32
+up to d 128 (FK's width) it is one pass (``ce_onepass.cu``, 6·N·V·d FLOPs):
+each logit tile computed once for dh, dW and db, dh kept in registers over
+a vocab split, dW written as a partial a block of 256 rows
+(:func:`onepass_plan`; past ONEPASS_PARTIAL_BYTES of them the pair runs).
+Elsewhere it takes two kernels of 4·N·V·d FLOPs each (the logits, then one
+product) over (resident, streamed) operands, h and Wᵀ for dh, Wᵀ and h for
+dW; the vocab or row splits of every grid are summed in order by a small
+kernel: up to d 256 (bf16 from d 8) the narrow kernels of ``ce.cu`` (the
+whole row of h resident); up to 2,048 the cluster kernels of
+``ce_cluster.cu``, a thread-block cluster of c = ceil(d / 256) blocks,
 each with a slice of d, whose partial logits meet in distributed shared
 memory, added in rank order, so each logit is computed once (where
 ``ce.cu``'s wide kernels recomputed them for each 256 output columns),
@@ -54,7 +61,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -111,10 +118,32 @@ MAX_CHAIN = 2560
 MAX_ROW_CHAIN = 1280
 
 
-def bwd_route(d: int) -> str:
-    """K5's design at width d: "narrow" (ce.cu's resident kernels, d <=
-    RESIDENT), "cluster" (csrc/ce_cluster.cu, up to CLUSTER_MAX) or
-    "wide" (ce.cu's wide kernels).  The route depends on d alone."""
+# The one pass (csrc/ce_onepass.cu): K5 in f32 up to d 128 with each logit
+# tile computed once for dh, dW and db.
+ONEPASS_MAX = 128    # the widest d it takes (DT 64 and 128)
+ONEPASS_ROWS = 256   # h rows a block, a dW partial each (kORows)
+ONEPASS_TILE = 32    # vocab entities a tile (kOBy)
+# The bytes of dW partials (one a block of ONEPASS_ROWS rows) a call may
+# write; past them K5 runs the pair.  A 1M-item domain (N 10,240, d 128, V
+# 501,760) takes 9.65 GiB and ran 67 ms a call there against the pair's 72
+# (tests/ce_onepass_variants.py, an H100, PERF.md §6); the cap keeps the
+# largest vocabularies the kernels take (d·V·4 < 2^31) on an 80 GB card.
+ONEPASS_PARTIAL_BYTES = 12 << 30
+
+
+def bwd_route(d: int, bf16: bool = False) -> str:
+    """K5's design at width d and dtype: "onepass" (csrc/ce_onepass.cu, f32
+    up to ONEPASS_MAX), "narrow" (ce.cu's resident kernels, the dh pass
+    and the dW pass, up to RESIDENT), "cluster" (csrc/ce_cluster.cu, up to
+    CLUSTER_MAX) or "wide" (ce.cu's wide kernels).  The route depends on d
+    and the dtype alone.  The one pass does 6·N·V·d FLOPs where the pair
+    recomputes each logit (8·N·V·d), and at FK it beats the pair in turns
+    (``chip_smoke.py`` phase_ce, PERF.md §6).  The bf16 instantiations keep
+    the pair: the one pass has none.  Where the one pass's dW partials
+    would pass ONEPASS_PARTIAL_BYTES, :func:`ce_bwd` runs the pair
+    (:func:`onepass_plan`)."""
+    if d <= ONEPASS_MAX and not bf16:
+        return "onepass"
     return ("narrow" if d <= RESIDENT else "cluster" if d <= CLUSTER_MAX
             else "wide")
 
@@ -176,10 +205,12 @@ def best_splits(x_tiles: int, y_tiles: int, slots: int, tile_us: float,
 
 def _k5_splits(N: int, d: int, V: int, slots: int, tile_us: float, bx: int,
                by: int, parts: int = 1) -> Tuple[int, int]:
-    """K5's (dh vocab splits, dW row splits) over X tiles of bx entities
+    """K5's (dh vocab splits, dW row splits) of its two passes (ce.cu's
+    narrow and wide kernels, ce_cluster.cu's) over X tiles of bx entities
     (``parts`` blocks each) and Y tiles of by: at most MAX_CHAIN vocab
     columns and MAX_ROW_CHAIN rows a split, the splits' partials merged in
-    f32 in order."""
+    f32 in order.  The one pass keeps the same caps in one grid
+    (:func:`onepass_plan`)."""
     v_tiles, n_tiles = -(-V // by), -(-N // by)
     split_h = best_splits(parts * -(-N // bx), v_tiles, slots, tile_us,
                           4.0 * N * d, -(-V // MAX_CHAIN))
@@ -299,6 +330,69 @@ def plan_bwd(N: int, d: int, V: int, bf16: bool, wide: bool = False
     narrow = d <= RESIDENT and not wide
     return bwd_splits(N, d, V, bf16, _slots(0 if narrow else 2, d, bf16),
                       wide)
+
+
+@dataclasses.dataclass(frozen=True)
+class OnePassPlan:
+    """A launch of the one pass: a block of ONEPASS_ROWS rows (and a dW
+    partial) for each of ``row_blocks``, over split_h vocab splits."""
+    split_h: int
+    row_blocks: int
+
+
+def onepass_plan(N: int, d: int, V: int, slots: int
+                 ) -> Optional[OnePassPlan]:
+    """The one pass's plan at N rows, width d and V columns, given the
+    blocks the card holds at once (``slots``): the vocab splits of least
+    estimated time; None where its dW partials would pass
+    ONEPASS_PARTIAL_BYTES (:func:`ce_bwd` then runs the pair).  A vocab
+    split takes at most MAX_CHAIN columns (dh's chain in the accumulator);
+    dW's chain there is a block's ONEPASS_ROWS rows (within
+    MAX_ROW_CHAIN), the blocks' partials added in f32.  A tile costs its
+    three products (logits, dh, dW) at the resident kernels' assumed
+    rate, in whole waves, plus the merge's read of dh's partials."""
+    if not 0 < d <= ONEPASS_MAX or d % D_MULTIPLE:
+        raise ValueError(f"the one pass takes d <= {ONEPASS_MAX}, d % 8 == 0;"
+                         f" got d={d}")
+    if slots < 1:
+        raise RuntimeError(f"no block of K5's one pass fits on the card at "
+                           f"d={d} (occupancy 0)")
+    blocks = -(-N // ONEPASS_ROWS)
+    if blocks > 1 and 4 * blocks * (d + 1) * V > ONEPASS_PARTIAL_BYTES:
+        return None
+    dt = 64 if d <= 64 else 128
+    tile_us = _flops(False) * 3 * dt * ONEPASS_ROWS * ONEPASS_TILE / 2e6
+    split_h = best_splits(blocks, -(-V // ONEPASS_TILE), slots, tile_us,
+                          4.0 * N * d, -(-V // MAX_CHAIN))
+    return OnePassPlan(split_h, blocks)
+
+
+def onepass_workspace(N: int, d: int, V: int, plan: OnePassPlan) -> int:
+    """Floats of the one pass's workspace (``ce_bwd_onepass_f32``): Wᵀ's
+    TF32 parts, then dh's partials where there is more than one vocab
+    split, then dW's and db's where there is more than one row block."""
+    return (2 * V * d + (plan.split_h * N * d if plan.split_h > 1 else 0)
+            + (plan.row_blocks * (d + 1) * V if plan.row_blocks > 1 else 0))
+
+
+@functools.lru_cache(maxsize=64)
+def _onepass_slots(d: int) -> int:
+    """Blocks of the one pass at width d the card holds at once
+    (``ce_bwd_onepass_slots``)."""
+    f = build.library("ce_onepass").ce_bwd_onepass_slots
+    f.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = f(d, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"ce_bwd_onepass_slots(d={d}) failed: CUDA error "
+                           f"{err}")
+    return out.value
+
+
+def plan_onepass(N: int, d: int, V: int) -> Optional[OnePassPlan]:
+    """:func:`onepass_plan` with the card's own slots."""
+    return onepass_plan(N, d, V, _onepass_slots(d))
 
 
 @functools.lru_cache(maxsize=64)
@@ -431,23 +525,32 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, b_masked: torch.Tensor,
            targets: torch.Tensor, bf16: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dh, dw, db) of :func:`ce_fwd` given the gradients dlse, dt of its
-    two outputs, by K5 (its dh kernel, then its dW/db kernel); with
-    ``bf16`` (or a bf16 w) by its bf16 instantiation, dw in w's dtype.
-    The design follows d (:func:`bwd_route`): the narrow kernels up to
-    RESIDENT, the cluster kernels up to CLUSTER_MAX (their launches
-    counted also in ``launches_cluster`` / ``launches_cluster_bf16``), the
-    wide kernels above.  A plan or launch the card refuses raises."""
+    two outputs, by K5; with ``bf16`` (or a bf16 w) by its bf16
+    instantiation, dw in w's dtype.  The design follows d and the dtype
+    (:func:`bwd_route`): in f32 the one pass up to ONEPASS_MAX (its
+    launches counted also in ``launches_onepass``), the narrow kernels (a
+    dh kernel, then a dW/db kernel) up to RESIDENT, the cluster kernels up
+    to CLUSTER_MAX (their launches counted also in ``launches_cluster`` /
+    ``launches_cluster_bf16``), the wide kernels above.  A plan or launch
+    the card refuses raises."""
     bf16 = bf16 or w.dtype == torch.bfloat16
     n = (h.shape[0],)
     N, d, V = _check("ce_bwd", h, w, [(h, tuple(h.shape)),
                                       (b_masked, (w.shape[1],)), (lse, n),
                                       (dlse, n), (dt, n)], targets, bf16)
+    route = bwd_route(d, bf16)
+    plan = plan_onepass(N, d, V) if route == "onepass" else None
+    if plan is not None:
+        out = onepass_run(plan, h, w, b_masked, lse, dlse, dt, targets)
+        ce_bwd.launches += 1
+        ce_bwd.launches_onepass += 1
+        return out
     h = _aligned(h)
     tgt = targets.to(torch.int32).contiguous()
     dh = torch.empty_like(h)
     dw = torch.empty(w.shape, dtype=torch.float32, device=h.device)
     db = torch.empty_like(b_masked)
-    cluster = bwd_route(d) == "cluster"
+    cluster = route == "cluster"
     if cluster:
         plan = plan_cluster(N, d, V, bf16)
         splits, extra = (plan.split_h, plan.split_w), (plan.c, plan.w)
@@ -474,6 +577,30 @@ ce_bwd.launches = 0
 ce_bwd.launches_bf16 = 0
 ce_bwd.launches_cluster = 0
 ce_bwd.launches_cluster_bf16 = 0
+ce_bwd.launches_onepass = 0
+
+
+def onepass_run(plan: OnePassPlan, h, w, b_masked, lse, dlse, dt, targets
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dh, dw, db) by K5's one pass (``ce_bwd_onepass_f32``) at ``plan``,
+    on inputs :func:`ce_bwd` has checked.  Not counted as a launch."""
+    (N, d), V = h.shape, w.shape[1]
+    h = _aligned(h)
+    tgt = targets.to(torch.int32).contiguous()
+    dh = torch.empty_like(h)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=h.device)
+    db = torch.empty_like(b_masked)
+    ws = torch.empty(onepass_workspace(N, d, V, plan), dtype=torch.float32,
+                     device=h.device)
+    err = _fn("ce_bwd_onepass_f32", 11, 4, "ce_onepass")(
+        h.data_ptr(), w.data_ptr(), b_masked.data_ptr(), lse.data_ptr(),
+        dlse.data_ptr(), dt.data_ptr(), tgt.data_ptr(), dh.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), ws.data_ptr(), plan.split_h, N, d, V,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ce_bwd_onepass launch failed ({plan}): CUDA "
+                           f"error {err}")
+    return dh, dw, db
 
 
 def _library(entry: str) -> str:

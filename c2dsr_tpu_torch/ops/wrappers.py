@@ -3,7 +3,8 @@
 Each wrapper launches one hand-written kernel on a CUDA tensor and counts
 its launches (``launches``, and ``launches_bf16`` for its bf16
 instantiations; K5 also ``launches_cluster`` and ``launches_cluster_bf16``
-for those of its cluster kernels; K2 and K3 ``launches_wide`` and
+for those of its cluster kernels and ``launches_onepass`` for those of its
+one pass; K2 and K3 ``launches_wide`` and
 ``launches_wide_bf16`` for their calls past d 256, on the wgmma tile).
 ``bench/gates.plain_versions`` swaps every one of them for its plain
 version; ``capture.py`` captures only while every one is in
@@ -27,7 +28,8 @@ WRAPPERS = ((spmm_cuda, "spmm_csr"), (spmm_cuda, "spmm_csr_flagged"),
             (segsum_cuda, "segsum"))
 _KERNELS = tuple(getattr(mod, name) for mod, name in WRAPPERS)
 COUNTERS = ("launches", "launches_bf16", "launches_cluster",
-            "launches_cluster_bf16", "launches_wide", "launches_wide_bf16")
+            "launches_cluster_bf16", "launches_onepass", "launches_wide",
+            "launches_wide_bf16")
 _COUNTERS = [(f, a) for f in _KERNELS for a in COUNTERS if hasattr(f, a)]
 
 

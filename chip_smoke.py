@@ -306,12 +306,14 @@ def reset_launches():
 
 
 def read_launches():
-    """Launches by wrapper, "ce_bwd_cluster": those of K5's that ran its
-    cluster kernels (counted also under "ce_bwd"), and "encoder_fwd_wide"
-    and "encoder_bwd_wide": K2's and K3's past d 256, whose products ran
-    the wgmma tile (counted also under their wrappers)."""
+    """Launches by wrapper, "ce_bwd_cluster" and "ce_bwd_onepass": those of
+    K5's that ran its cluster kernels or its one pass (counted also under
+    "ce_bwd"), and "encoder_fwd_wide" and "encoder_bwd_wide": K2's and
+    K3's past d 256, whose products ran the wgmma tile (counted also under
+    their wrappers)."""
     out = {name: fn.launches for name, fn in kernel_wrappers().items()}
     out["ce_bwd_cluster"] = kernel_wrappers()["ce_bwd"].launches_cluster
+    out["ce_bwd_onepass"] = kernel_wrappers()["ce_bwd"].launches_onepass
     for k in ("encoder_fwd", "encoder_bwd"):
         out[f"{k}_wide"] = kernel_wrappers()[k].launches_wide
     return out
@@ -511,9 +513,9 @@ KERNEL_FAMILIES = (
                         "round_bf16_kernel")),
     ("K4 ce_fwd", ("ce_fwd_kernel", "ce_fwd_wide_kernel",
                    "ce_fwd_merge_kernel")),
-    ("K5 ce_bwd", ("ce_bwd_kernel", "ce_bwd_wide_kernel",
-                   "ce_bwd_cluster_kernel", "ce_merge_kernel",
-                   "split_kernel")),
+    ("K5 ce_bwd", ("ce_bwd_kernel", "ce_bwd_onepass_kernel",
+                   "ce_bwd_wide_kernel", "ce_bwd_cluster_kernel",
+                   "ce_merge_kernel", "split_kernel")),
     ("K7 segsum", ("segsum_",)),
 )
 
@@ -1013,7 +1015,12 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
     V 30,720 and 36,864), against their plain versions; summed over both
     domains.  Both also against a second launch (bitwise), their kernels
     timed apart under the profiler, with the 3xTF32 tensor-core bound
-    (``bound_ms``) and the FP32 FFMA bound (``bound_ffma_ms``)."""
+    (``bound_ms``) and the FP32 FFMA bound (``bound_ffma_ms``).  K5 runs
+    its route there, the one pass (``csrc/ce_onepass.cu``: its bound of
+    6·N·V·d, and ``bound_products_ms`` of the products' 4·N·V·d); the
+    pair of kernels it replaced (``ce.cu``'s dh and dW passes, through
+    their C entry) is held to the same gates and timed in turns with the
+    route, each profiled.  Returns (K4, K5 by the one pass, the pair)."""
     from c2dsr_tpu_torch.ops import fused_ce, fused_ce_cuda
     N, d = 512 * 2 * 10, 128
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ffma_ms")
@@ -1023,16 +1030,24 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
     bwd["max_abs_err"] = bwd["max_rel_err"] = 0.0
     f_kernel = fwd["kernels_ms"] = {}
     by_kernel = bwd["kernels_ms"] = {}
+    bwd["bound_products_ms"] = 0.0
+    bwd.update(runs_in_turns={}, plan={})
+    pair = dict.fromkeys(("ms", "max_abs_err", "max_rel_err",
+                          "max_rel_err_f64"), 0.0)
+    pair["kernels_ms"] = {}
     for dom, V, n_real in (("A", 30720, N_ITEM_A), ("B", 36864, N_ITEM_B)):
         h, w, bm, pad_l, tgt, real, dlse, dt = _ce_inputs(N, d, V, n_real, V)
         with torch.no_grad():
             lse, tlog = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
             rlse, rtlog = fused_ce.ce_fwd_plain(h, w, bm, pad_l, tgt)
             lse2, tlog2 = fused_ce_cuda.ce_fwd(h, w, bm, pad_l, tgt)
+            n1 = fused_ce_cuda.ce_bwd.launches_onepass
             got = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
             want = fused_ce.ce_bwd_plain(h, w, bm, lse, dlse, dt, tgt)
             again = fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt, tgt)
         torch.cuda.synchronize()
+        check(fused_ce_cuda.ce_bwd.launches_onepass == n1 + 2,
+              f"ce_bwd {dom}: K5 did not take its one pass at d {d}")
         e_lse = _rel(lse, rlse)
         e_t = _rel(tlog[real], rtlog[real])
         check(max(e_lse, e_t) <= CE_TOL, f"ce_fwd {dom}: rel err "
@@ -1061,7 +1076,7 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
         for k, g_, p_, r_ in zip(("dh", "dw", "db"), got, want, b64):
             e64[k] = _rel(g_.double(), r_)
             e64["plain_" + k] = _rel(p_.double(), r_)
-        del f64, b64
+        del f64
         log(f"ce {dom}: from float64 (kernels, plain f32): lse and target "
             f"logit {e64['lse']:.3e}, {e64['plain_lse']:.3e}; "
             + "; ".join(f"{k} {e64[k]:.3e}, {e64['plain_' + k]:.3e}"
@@ -1070,6 +1085,30 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
               f"float64 > {K4_F64_TOL}")
         check(e64["dw"] <= DW_F64_TOL and max(e64["dh"], e64["db"])
               <= CE_BWD_TOL, f"ce_bwd {dom}: from float64 {e64}")
+        # the pair of before, held to the same gates
+        pair_plan = fused_ce_cuda.plan_bwd(N, d, V, False)
+        designs = {"pair": lambda: _k5_entry("pair", h, w, bm, lse, dlse,
+                                             dt, tgt)}
+        with torch.no_grad():
+            got1, again1 = designs["pair"](), designs["pair"]()
+        rels1 = _check_ce_bwd(f"{dom} (pair)", got1, want, again1, n_real)
+        e64_1 = {k: _rel(g_.double(), r_)
+                 for k, g_, r_ in zip(("dh", "dw", "db"), got1, b64)}
+        check(e64_1["dw"] <= DW_F64_TOL and max(e64_1["dh"], e64_1["db"])
+              <= CE_BWD_TOL, f"ce_bwd {dom} (pair): from float64 {e64_1}")
+        log(f"ce {dom} pair (splits {pair_plan}): against plain f32 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rels1.items())
+            + "; from float64 " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in e64_1.items())
+            + "; two launches bitwise equal")
+        pair["max_rel_err_f64"] = max([pair["max_rel_err_f64"]]
+                                      + list(e64_1.values()))
+        pair["max_rel_err"] = max([pair["max_rel_err"]]
+                                  + list(rels1.values()))
+        pair["max_abs_err"] = max([pair["max_abs_err"]] + [
+            float((g - r).abs().max()) for g, r in zip(got1, want)])
+        del got1, again1
+        del b64
         e_tr, e_tr_plain = _k4_trained_errs(V, n_real)
         log(f"ce {dom}: trained-scale logits, lse and target logit from "
             f"float64: kernel {e_tr:.3e}, plain f32 {e_tr_plain:.3e}")
@@ -1099,8 +1138,6 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
                                                           tgt))
             f_lib = timer(lambda: torch.logsumexp(
                 torch.cat([h @ w + bm, pad_l[:, None]], 1), 1))
-            b_ms = timer(lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
-                                                      tgt))
             b_plain = timer(lambda: fused_ce.ce_bwd_plain(h, w, bm, lse, dlse,
                                                           dt, tgt))
         # K4's parts, device ms a call: its kernel, the pre-pass (Wᵀ's
@@ -1119,28 +1156,48 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
             f"{f_parts['prepass']:.4f} ms, merge {f_parts['merge']:.4f} ms")
         for k, v in f_parts.items():
             f_kernel[k] = f_kernel.get(k, 0.0) + v
+        # K5 in turns with the pair (route, pair, pair, route; three
+        # rounds), then each profiled: the one pass's kernel, pre-pass (Wᵀ's
+        # TF32 split) and merges; the pair's dh kernel, dW/db kernel,
+        # pre-pass (Wᵀ and the TF32 splits of Wᵀ and h) and merges
+        t1, runs1 = _k5_in_turns(timer, {
+            "onepass": lambda: fused_ce_cuda.ce_bwd(h, w, bm, lse, dlse, dt,
+                                                    tgt),
+            "pair": designs["pair"]}, 10, rounds=3)
+        b_ms = t1["onepass"]
         sub = timing.kernel_times(lambda: fused_ce_cuda.ce_bwd(
             h, w, bm, lse, dlse, dt, tgt))[0]
-        # K5's parts, device ms a call: dh kernel, dW/db kernel, the
-        # pre-pass (Wᵀ and the TF32 splits of Wᵀ and h), the split merges
-        parts = {"dh": sum(v for k, v in sub.items()
-                           if _ce_bwd_pass(k) == "dh"),
-                 "dw": sum(v for k, v in sub.items()
-                           if _ce_bwd_pass(k) == "dw"),
-                 "prepass": sub.get("transpose_split_kernel", 0.0)
-                 + sub.get("split_kernel", 0.0),
+        parts = {"kernel": sum(v for k, v in sub.items()
+                               if "ce_bwd_onepass_kernel" in k),
+                 "prepass": sub.get("transpose_split_kernel", 0.0),
                  "merge": sub.get("ce_merge_kernel", 0.0)}
-        flops = 4 * N * V * d               # f32-accurate work of each kernel
-        log(f"ce {dom}: bwd device time a call under the profiler: dh "
-            f"kernel {parts['dh']:.4f} ms ({flops / parts['dh'] / 1e9:.2f} "
-            f"TFLOP/s), dW/db kernel {parts['dw']:.4f} ms ("
-            f"{flops / parts['dw'] / 1e9:.2f} TFLOP/s), pre-pass "
-            f"{parts['prepass']:.4f} ms, merges {parts['merge']:.4f} ms "
-            "(TFLOP/s count each kernel's 4·N·V·d: its logits and its "
-            "product); all: " + ", ".join(f"{k} {v:.4f}"
-                                          for k, v in sub.items()))
-        for k, v in parts.items():
-            by_kernel[k] = by_kernel.get(k, 0.0) + v
+        sub_p = timing.kernel_times(designs["pair"])[0]
+        parts_p = {"dh": sum(v for k, v in sub_p.items()
+                             if _ce_bwd_pass(k) == "dh"),
+                   "dw": sum(v for k, v in sub_p.items()
+                             if _ce_bwd_pass(k) == "dw"),
+                   "prepass": sub_p.get("transpose_split_kernel", 0.0)
+                   + sub_p.get("split_kernel", 0.0),
+                   "merge": sub_p.get("ce_merge_kernel", 0.0)}
+        flops = 6 * N * V * d               # the one pass's f32-accurate work
+        log(f"ce {dom}: bwd in turns one pass {t1['onepass']:.4f} ms, pair "
+            f"{t1['pair']:.4f} (runs {runs1}); under the profiler one pass "
+            f"(plan {fused_ce_cuda.plan_onepass(N, d, V)}): kernel "
+            f"{parts['kernel']:.4f} ms ({flops / parts['kernel'] / 1e9:.2f} "
+            f"TFLOP/s of its 6·N·V·d), pre-pass {parts['prepass']:.4f}, "
+            f"merges {parts['merge']:.4f}; pair: dh kernel "
+            f"{parts_p['dh']:.4f} ms, dW/db kernel {parts_p['dw']:.4f} "
+            f"({4 * N * V * d / parts_p['dh'] / 1e9:.2f} and "
+            f"{4 * N * V * d / parts_p['dw'] / 1e9:.2f} TFLOP/s of 4·N·V·d "
+            f"each), pre-pass {parts_p['prepass']:.4f}, merges "
+            f"{parts_p['merge']:.4f}")
+        for acc, ps in ((by_kernel, parts), (pair["kernels_ms"], parts_p)):
+            for k, v in ps.items():
+                acc[k] = acc.get(k, 0.0) + v
+        pair["ms"] += t1["pair"]
+        bwd["runs_in_turns"][dom] = runs1
+        bwd["plan"][dom] = dataclasses.asdict(
+            fused_ce_cuda.plan_onepass(N, d, V))
         lib_out = torch.logsumexp(torch.cat([hg @ wg + bg, pad_l[:, None]],
                                             1), 1)
         b_lib = timer(lambda: torch.autograd.grad(lib_out, [hg, wg, bg], dlse,
@@ -1150,31 +1207,51 @@ def phase_ce(timer, peak_flops, peak_bw, gpu):
         f_ffma = max(f_flops / peak_flops, (io + 8 * N) / peak_bw) * 1e3
         f_tc = timing.tc_bound_ms(f_flops, io + 8 * N, gpu, peak_bw)
         b_bytes = 2 * io + 4 * N * d
-        b_ffma = max(4 * N * V * d / peak_flops, b_bytes / peak_bw) * 1e3
-        b_tc = timing.tc_bound_ms(4 * N * V * d, b_bytes, gpu, peak_bw)
+        b_ffma = max(6 * N * V * d / peak_flops, b_bytes / peak_bw) * 1e3
+        b_tc = timing.tc_bound_ms(6 * N * V * d, b_bytes, gpu, peak_bw)
+        b_products = timing.tc_bound_ms(4 * N * V * d, b_bytes, gpu, peak_bw)
+        bwd["bound_products_ms"] += b_products
         log(f"ce {dom}: fwd kernel {f_ms:.4f} ms plain {f_plain:.4f} library "
             f"{f_lib:.4f} bound 3xTF32 tensor cores {f_tc:.4f}, FP32 FFMA "
             f"{f_ffma:.4f} ({f_flops / f_ms / 1e9:.2f} TFLOP/s); bwd "
             f"kernel {b_ms:.4f} ms plain {b_plain:.4f} library {b_lib:.4f} "
-            f"bound 3xTF32 tensor cores {b_tc:.4f}, FP32 FFMA {b_ffma:.4f} "
-            f"(bounds count 4·N·V·d FLOPs; "
-            f"{4 * N * V * d / b_ms / 1e9:.2f} TFLOP/s of them)")
+            f"bound 3xTF32 tensor cores {b_tc:.4f} (the products' "
+            f"{b_products:.4f}), FP32 FFMA {b_ffma:.4f} (bounds count "
+            f"6·N·V·d FLOPs; {6 * N * V * d / b_ms / 1e9:.2f} TFLOP/s of "
+            "them)")
         for acc, vals in ((fwd, (f_ms, f_plain, f_lib, f_tc, f_ffma)),
                           (bwd, (b_ms, b_plain, b_lib, b_tc, b_ffma))):
             for k, v in zip(keys, vals):
                 acc[k] += v
     fwd["bound_by"] = bwd["bound_by"] = "operations"
+    d_ms, se, ok = timing.se_resolved(
+        [sum(r) for r in zip(*(bwd["runs_in_turns"][k]["onepass"]
+                               for k in ("A", "B")))],
+        [sum(r) for r in zip(*(bwd["runs_in_turns"][k]["pair"]
+                               for k in ("A", "B")))])
+    bwd["against_pair"] = {"diff_ms": d_ms, "se_ms": se, "resolved": ok}
     log(f"ce both domains: fwd kernel {fwd['ms']:.4f} ms (kernel "
         f"{f_kernel['kernel']:.4f} + pre-pass {f_kernel['prepass']:.4f} + "
         f"merge {f_kernel['merge']:.4f}, profiled) against library "
         f"{fwd['library_ms']:.4f} ms; bounds 3xTF32 {fwd['bound_ms']:.4f}, "
         f"FFMA {fwd['bound_ffma_ms']:.4f}")
-    log(f"ce both domains: bwd kernel {bwd['ms']:.4f} ms (dh "
-        f"{by_kernel['dh']:.4f} + dW {by_kernel['dw']:.4f} + pre-pass "
-        f"{by_kernel['prepass']:.4f} + merges {by_kernel['merge']:.4f}, "
-        f"profiled) against library {bwd['library_ms']:.4f} ms; bounds "
-        f"3xTF32 {bwd['bound_ms']:.4f}, FFMA {bwd['bound_ffma_ms']:.4f}")
-    return fwd, bwd
+    log(f"ce both domains: bwd one pass {bwd['ms']:.4f} ms (kernel "
+        f"{by_kernel['kernel']:.4f} + pre-pass {by_kernel['prepass']:.4f} + "
+        f"merges {by_kernel['merge']:.4f}, profiled) against the pair "
+        f"{pair['ms']:.4f} in turns ({bwd['ms'] / pair['ms'] - 1:+.2%}, "
+        f"{d_ms:+.4f} ms, se {se:.4f}, "
+        f"{'resolved' if ok else 'unresolved'}; pair dh "
+        f"{pair['kernels_ms']['dh']:.4f} + dW {pair['kernels_ms']['dw']:.4f}"
+        f" + pre-pass {pair['kernels_ms']['prepass']:.4f} + merges "
+        f"{pair['kernels_ms']['merge']:.4f}) and library "
+        f"{bwd['library_ms']:.4f} ms; bounds 3xTF32 6·N·V·d "
+        f"{bwd['bound_ms']:.4f}, 4·N·V·d {bwd['bound_products_ms']:.4f}, "
+        f"FFMA {bwd['bound_ffma_ms']:.4f}")
+    for k in ("plain_ms", "library_ms", "bound_products_ms"):
+        pair[k] = bwd[k]
+    pair["bound_ms"] = bwd["bound_products_ms"]
+    pair["bound_by"] = "operations"
+    return fwd, bwd, pair
 
 
 # tower shapes beyond d 64 and 128 that K2 and K3 take: (d, n_head, L);
@@ -2149,6 +2226,7 @@ SASS_KERNELS = (
     ("ce", r"ce_bwd_wide_kernelILb([01])ELb([01])E", ("dh", "bf16")),
     ("ce_cluster", r"ce_bwd_cluster_kernelILi(\d+)ELb([01])ELb([01])"
      r"ELb([01])E", ("WS", "dh", "bf16", "gather")),
+    ("ce_onepass", r"ce_bwd_onepass_kernelILi(\d+)EE", ("DT",)),
     ("encoder", r"encoder_fwd_gemm_kernelILi(\d+)ELi(\d)ELb([01])E",
      ("NT", "TERMS", "kMap")),
     ("encoder_bwd", r"tc_gemm_kernelILi(\d+)ELb([01])ELi(\d)E",
@@ -2246,7 +2324,8 @@ def _mma_sass():
                                          "ce_bwd_cluster_kernel",
                                          "wgrad_kernel")}
             | {(k, None, bf) for k in ATTN_KERNELS + WGMMA_KERNELS
-               for bf in (False, True)})
+               for bf in (False, True)}
+            | {("ce_bwd_onepass_kernel", str(dt), False) for dt in (64, 128)})
     check(want <= seen, f"SASS: instantiations not in the listing: "
           f"{sorted(want - seen, key=str)}")
     log("sass: " + json.dumps(out))
@@ -3431,16 +3510,18 @@ def _ce_wide_check(d, N, V, n_real):
 
 
 def _k5_entry(design, h, w, bm, lse, dlse, dt, tgt, bf16=False):
-    """(dh, dw, db) by one of K5's designs past d 256 through its C entry,
-    dw f32 whatever w's dtype, not counted as launches: "cluster"
+    """(dh, dw, db) by one of K5's designs through its C entry, dw f32
+    whatever w's dtype, not counted as launches: past d 256 "cluster"
     (ce_cluster.cu at the port's plan) or "wide" (ce.cu's wide kernels:
     ce_bwd_wide_f32, or ce_bwd_bf16, which runs them past d 256), the
-    design of before, timed beside the cluster kernels."""
+    design of before, timed beside the cluster kernels; up to d 128 "pair"
+    (ce.cu's narrow dh and dW passes, ce_bwd_f32 at the port's splits),
+    the design of before, timed beside the one pass."""
     from c2dsr_tpu_torch.ops import fused_ce_cuda as fc
     N, d = h.shape
     V = w.shape[1]
-    check(d > fc.RESIDENT, f"K5's {design} entry is timed past d 256, "
-          f"not at {d}")
+    check((d <= fc.ONEPASS_MAX) == (design == "pair"),
+          f"K5's {design} entry is not timed at d {d}")
     out = (torch.empty_like(h), torch.empty(w.shape, device=h.device),
            torch.empty_like(bm))
     t32 = tgt.to(torch.int32).contiguous()
@@ -3448,6 +3529,8 @@ def _k5_entry(design, h, w, bm, lse, dlse, dt, tgt, bf16=False):
         plan = fc.plan_cluster(N, d, V, bf16)
         entry = "ce_bwd_cluster_bf16" if bf16 else "ce_bwd_cluster_f32"
         splits, extra = (plan.split_h, plan.split_w), (plan.c, plan.w)
+    elif design == "pair":
+        entry, splits, extra = "ce_bwd_f32", fc.plan_bwd(N, d, V, False), ()
     else:
         entry = "ce_bwd_bf16" if bf16 else "ce_bwd_wide_f32"
         splits, extra = fc.plan_bwd(N, d, V, bf16, wide=True), ()
@@ -3457,12 +3540,12 @@ def _k5_entry(design, h, w, bm, lse, dlse, dt, tgt, bf16=False):
     return out
 
 
-def _k5_in_turns(timer, designs, reps):
-    """{design: ms}, each a mean of timer runs in turns (A, B, .., B, A);
-    ``designs`` {name: fn}."""
+def _k5_in_turns(timer, designs, reps, rounds=1):
+    """({design: ms}, {design: runs}), each a mean of timer runs in turns,
+    ``rounds`` rounds of (A, B, .., B, A); ``designs`` {name: fn}."""
     names = list(designs)
     runs = {n: [] for n in names}
-    for n in names + names[::-1]:
+    for n in (names + names[::-1]) * rounds:
         with torch.no_grad():
             runs[n].append(timer(designs[n], reps=reps))
     return {n: float(np.mean(v)) for n, v in runs.items()}, runs
@@ -5425,6 +5508,9 @@ def _graph_kernels(fn, state, batch, sparse, bf16, label):
               "K5 ce_bwd", "K7 segsum"):
         check(fam.get(f, 0) > 0, f"{label}: no {f} kernel in the replay")
     check((k6 > 0) == sparse, f"{label}: {k6} K6 kernels, sparse {sparse}")
+    check(any(n.startswith("ce_bwd_onepass_kernel<") for n in names)
+          != bf16, f"{label}: K5's one pass {'in' if bf16 else 'not in'} "
+          "the replay")
     if bf16:
         for prefix in ("spmm_tasks_kernel<", "encoder_fwd_attn_seq_kernel<",
                        "attn_bwd_seq_kernel<", "ce_fwd_kernel<",
@@ -5724,7 +5810,7 @@ def main() -> int:
         k6 = phase_spmm_flagged(graphs, train, timer, peak_flops, peak_bw)
     k2 = phase_encoder(timer, peak_flops, peak_bw, name)
     k2t, k3 = phase_encoder_train(timer, peak_flops, peak_bw, name)
-    k4, k5 = phase_ce(timer, peak_flops, peak_bw, name)
+    k4, k5, k5_pair = phase_ce(timer, peak_flops, peak_bw, name)
     t0 = time.perf_counter()
     wide = phase_shapes()
     tower_times = _tower_times(timer, name, peak_flops, peak_bw)
@@ -5819,6 +5905,16 @@ def main() -> int:
             ("bench_headline", step_kernels),
             ("bench_kernels", step_kernels + ("spmm_csr_flagged",)),
             ("bench_ce_variants", ("ce_fwd_variant", "ce_fwd")),
+            # K5's one pass wherever K5 runs f32 at d <= 128
+            ("training", ("ce_bwd_onepass",)),
+            ("training_long", ("ce_bwd_onepass",)),
+            ("graph", ("ce_bwd_onepass",)),
+            ("odd_widths", ("ce_bwd_onepass",)),
+            ("experiment", ("ce_bwd_onepass",)),
+            ("determinism", ("ce_bwd_onepass",)),
+            ("parallel_1x2", ("ce_bwd_onepass",)),
+            ("parallel_2x2", ("ce_bwd_onepass",)),
+            ("bench_headline", ("ce_bwd_onepass",)),
             ("bench_scaled", ("ce_fwd", "ce_bwd", "segsum")),
             ("bench_spmm_sweep", ("spmm_csr",)),
             ("bench_batches", step_kernels),
@@ -5958,17 +6054,34 @@ def main() -> int:
         {"name": "ce_bwd", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/ce.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:308",
-         **counts("ce_bwd"), **k5, "d256_max_rel_err": wide["ce_bwd"],
+         **counts("ce_bwd"), **k5_pair, "d256_max_rel_err": wide["ce_bwd"],
+         "note": "K5's wrapper; at FK (d 128 f32) its route is "
+                 "ce_bwd_onepass, and the numbers here are ce.cu's pair of "
+                 "kernels it replaced there (dh and dW/db, 3xTF32 on the "
+                 "tensor cores), both domains of a step, timed in turns with "
+                 "the one pass through their C entry; ce.cu runs K5 in bf16 "
+                 "up to d 256 and f32 from d 136 to 256; also replaces "
+                 "fused_ce.py:339 and :360; launches every K5 call "
+                 "(ce_bwd_onepass's and ce_bwd_cluster's too); bound_ms the "
+                 "3xTF32 bound of the products' 4*N*V*d; kernels_ms the "
+                 "profiled split; d256_max_rel_err at d 40 (one pass) and 256 "
+                 "(pair); past d 256 ce_bwd_cluster"},
+        {"name": "ce_bwd_onepass", "route": "cuda",
+         "source": "c2dsr_tpu_torch/csrc/ce_onepass.cu",
+         "replaces": "c2dsr_tpu/ops/fused_ce.py:308",
+         **counts("ce_bwd_onepass"), **k5,
          "shard_widths": [{"mesh": t["mesh"], "N": t["N"], "V": t["V"],
                            **t["bwd"]} for t in par_times],
          "shard_max_rel_err": max(e["ce_bwd"] for e in par_errs.values()),
          "scaled_e2e": at_1m("ce_bwd"),
-         "note": "dh and dW/db kernels (3xTF32 on the tensor cores), both "
-                 "domains of a step; also replaces fused_ce.py:339 and "
-                 ":360; bound_ms is the 3xTF32 tensor-core bound "
-                 "(3*4*N*V*d TF32 FLOPs at 495 TFLOP/s), bound_ffma_ms "
-                 "the FP32 FFMA one (4*N*V*d at 67); kernels_ms the "
-                 "profiled split; past d 256 ce_bwd_cluster"},
+         "note": "K5 in f32 up to d 128 (its route), one pass: each logit "
+                 "tile once for dh, dW and db (3xTF32 mma.sync), both "
+                 "domains of a step; ms in turns with ce.cu's pair (ce_bwd), "
+                 "against_pair their difference; bound_ms the 3xTF32 bound "
+                 "of its 6*N*V*d, bound_products_ms of the products' "
+                 "4*N*V*d, bound_ffma_ms 6*N*V*d at 67; kernels_ms the "
+                 "profiled split; shard_widths and scaled_e2e (1M items) "
+                 "K5's calls there"},
         {"name": "ce_bwd_cluster", "route": "cuda",
          "source": "c2dsr_tpu_torch/csrc/ce_cluster.cu",
          "replaces": "c2dsr_tpu/ops/fused_ce.py:339",

@@ -288,13 +288,13 @@ def test_plans_fill_whole_waves():
 
 
 @pytest.mark.parametrize("d,route", [
-    (8, "narrow"), (256, "narrow"), (264, "cluster"), (512, "cluster"),
+    (8, "onepass"), (256, "narrow"), (264, "cluster"), (512, "cluster"),
     (520, "cluster"), (2048, "cluster"), (2056, "wide"), (4096, "wide")])
 def test_route_depends_on_d_alone(d, route):
-    """K5's route by width: the narrow kernels up to RESIDENT, the
-    cluster kernels up to CLUSTER_MAX, the wide ones above; the C entries
-    ce_bwd_f32 / ce_bwd_bf16 run the resident kernels up to the same
-    RESIDENT and the wide ones above it."""
+    """K5's route by width (f32): the one pass up to ONEPASS_MAX, the
+    narrow kernels up to RESIDENT, the cluster kernels up to CLUSTER_MAX,
+    the wide ones above; the C entries ce_bwd_f32 / ce_bwd_bf16 run the
+    resident kernels up to the same RESIDENT and the wide ones above it."""
     assert fc.bwd_route(d) == route
     assert (fc.RESIDENT == fc.CLUSTER_SLICE
             < fc.CLUSTER_MAX == fc.CLUSTER_RANKS * fc.CLUSTER_SLICE)
